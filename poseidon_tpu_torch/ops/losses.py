@@ -1,0 +1,9 @@
+"""The serving subset of ``poseidon_tpu/ops/losses.py``: softmax."""
+
+from __future__ import annotations
+
+import torch
+
+
+def softmax(x: torch.Tensor, axis: int = 1) -> torch.Tensor:
+    return torch.softmax(x, dim=axis)

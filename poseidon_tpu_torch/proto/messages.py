@@ -1,0 +1,703 @@
+"""Typed configuration schema mirroring Caffe's caffe.proto surface.
+
+The port's own copy of ``poseidon_tpu/proto/messages.py`` (the port imports
+nothing of the JAX package). Field names, defaults and enum tokens follow
+Caffe's schema (``src/caffe/proto/caffe.proto``) so that the in-repo model zoo
+prototxts parse unchanged. Both the V1 format (``layers { type: CONVOLUTION }``
+with ``blobs_lr``/``weight_decay`` multiplier lists) and the V2 format
+(``layer { type: "Convolution" }`` with ``param { lr_mult }`` specs) are accepted
+and normalized to one internal representation.
+
+These are plain dataclasses built from :class:`~poseidon_tpu_torch.proto.prototxt.Node`
+trees by a generic, type-hint-driven builder — no protoc involved.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass, field
+from typing import Any, List, Optional, get_args, get_origin, get_type_hints
+
+from .prototxt import Node, PrototxtError, parse_file, parse
+
+
+def _coerce(value: Any, typ: Any, fname: str) -> Any:
+    if typ is float:
+        if isinstance(value, (int, float)) and not isinstance(value, bool):
+            return float(value)
+    elif typ is int:
+        if isinstance(value, bool):
+            raise PrototxtError(f"field {fname}: expected int, got bool")
+        if isinstance(value, int):
+            return value
+        if isinstance(value, float) and value.is_integer():
+            return int(value)
+    elif typ is bool:
+        if isinstance(value, bool):
+            return value
+        if isinstance(value, int) and value in (0, 1):
+            return bool(value)
+    elif typ is str:
+        if isinstance(value, str):
+            return value
+    elif dataclasses.is_dataclass(typ):
+        if isinstance(value, Node):
+            return build(typ, value)
+    raise PrototxtError(f"field {fname}: cannot convert {value!r} to {typ}")
+
+
+def build(cls, node: Node):
+    """Build dataclass ``cls`` from a parsed Node, checking types and arity."""
+    hints = get_type_hints(cls)
+    known = {f.name for f in dataclasses.fields(cls)}
+    aliases = getattr(cls, "_aliases", {})
+    kwargs = {}
+    unknown = [k for k in node.keys() if k not in known and k not in aliases]
+    if unknown:
+        raise PrototxtError(f"{cls.__name__}: unknown field(s) {sorted(set(unknown))}")
+    for f in dataclasses.fields(cls):
+        names = [f.name] + [a for a, target in aliases.items() if target == f.name]
+        values = []
+        for n in names:
+            values.extend(node.get_all(n))
+        if not values:
+            continue
+        typ = hints[f.name]
+        if get_origin(typ) is list:
+            (elem,) = get_args(typ)
+            kwargs[f.name] = [_coerce(v, elem, f.name) for v in values]
+        else:
+            if get_origin(typ) is Optional or (get_origin(typ) is type(None)):
+                pass
+            args = get_args(typ)
+            if args and type(None) in args:  # Optional[X]
+                typ = next(a for a in args if a is not type(None))
+            if len(values) > 1:
+                values = values[-1:]  # proto2 semantics: last value wins
+            kwargs[f.name] = _coerce(values[0], typ, f.name)
+    return cls(**kwargs)
+
+
+# --------------------------------------------------------------------------- #
+# Fillers / blobs / state
+# --------------------------------------------------------------------------- #
+
+@dataclass
+class FillerParameter:
+    type: str = "constant"
+    value: float = 0.0
+    min: float = 0.0
+    max: float = 1.0
+    mean: float = 0.0
+    std: float = 1.0
+    sparse: int = -1
+
+
+@dataclass
+class BlobProto:
+    num: int = 0
+    channels: int = 0
+    height: int = 0
+    width: int = 0
+    data: List[float] = field(default_factory=list)
+    diff: List[float] = field(default_factory=list)
+    blob_mode: str = "LOCAL"
+    global_id: int = -1
+
+
+@dataclass
+class NetState:
+    phase: str = "TEST"
+    level: int = 0
+    stage: List[str] = field(default_factory=list)
+
+
+@dataclass
+class NetStateRule:
+    phase: Optional[str] = None
+    min_level: Optional[int] = None
+    max_level: Optional[int] = None
+    stage: List[str] = field(default_factory=list)
+    not_stage: List[str] = field(default_factory=list)
+
+    def matches(self, state: NetState) -> bool:
+        if self.phase is not None and self.phase != state.phase:
+            return False
+        if self.min_level is not None and state.level < self.min_level:
+            return False
+        if self.max_level is not None and state.level > self.max_level:
+            return False
+        for s in self.stage:
+            if s not in state.stage:
+                return False
+        for s in self.not_stage:
+            if s in state.stage:
+                return False
+        return True
+
+
+@dataclass
+class TransformationParameter:
+    scale: float = 1.0
+    mirror: bool = False
+    crop_size: int = 0
+    mean_file: str = ""
+    mean_value: List[float] = field(default_factory=list)
+
+
+# --------------------------------------------------------------------------- #
+# Per-layer parameter messages
+# --------------------------------------------------------------------------- #
+
+@dataclass
+class AccuracyParameter:
+    top_k: int = 1
+
+
+@dataclass
+class ArgMaxParameter:
+    out_max_val: bool = False
+    top_k: int = 1
+
+
+@dataclass
+class ConcatParameter:
+    concat_dim: int = 1
+    _aliases = {"axis": "concat_dim"}
+
+
+@dataclass
+class ContrastiveLossParameter:
+    margin: float = 1.0
+
+
+@dataclass
+class ConvolutionParameter:
+    num_output: int = 0
+    bias_term: bool = True
+    pad: int = 0
+    pad_h: int = 0
+    pad_w: int = 0
+    kernel_size: int = 0
+    kernel_h: int = 0
+    kernel_w: int = 0
+    group: int = 1
+    stride: int = 1
+    stride_h: int = 0
+    stride_w: int = 0
+    weight_filler: FillerParameter = field(default_factory=FillerParameter)
+    bias_filler: FillerParameter = field(default_factory=FillerParameter)
+    engine: str = "DEFAULT"
+
+
+@dataclass
+class DataParameter:
+    source: str = ""
+    batch_size: int = 0
+    rand_skip: int = 0
+    backend: str = "LEVELDB"
+    shared_file_system: bool = False
+    scale: float = 1.0
+    mean_file: str = ""
+    crop_size: int = 0
+    mirror: bool = False
+
+
+@dataclass
+class DropoutParameter:
+    dropout_ratio: float = 0.5
+
+
+@dataclass
+class DummyDataParameter:
+    data_filler: List[FillerParameter] = field(default_factory=list)
+    num: List[int] = field(default_factory=list)
+    channels: List[int] = field(default_factory=list)
+    height: List[int] = field(default_factory=list)
+    width: List[int] = field(default_factory=list)
+
+
+@dataclass
+class EltwiseParameter:
+    operation: str = "SUM"
+    coeff: List[float] = field(default_factory=list)
+    stable_prod_grad: bool = True
+
+
+@dataclass
+class ThresholdParameter:
+    threshold: float = 0.0
+
+
+@dataclass
+class HDF5DataParameter:
+    source: str = ""
+    batch_size: int = 0
+
+
+@dataclass
+class HDF5OutputParameter:
+    file_name: str = ""
+
+
+@dataclass
+class HingeLossParameter:
+    norm: str = "L1"
+
+
+@dataclass
+class ImageDataParameter:
+    source: str = ""
+    batch_size: int = 0
+    rand_skip: int = 0
+    shuffle: bool = False
+    new_height: int = 0
+    new_width: int = 0
+    shared_file_system: bool = False
+    scale: float = 1.0
+    mean_file: str = ""
+    crop_size: int = 0
+    mirror: bool = False
+    root_folder: str = ""
+
+
+@dataclass
+class InfogainLossParameter:
+    source: str = ""
+
+
+@dataclass
+class InnerProductParameter:
+    num_output: int = 0
+    bias_term: bool = True
+    weight_filler: FillerParameter = field(default_factory=FillerParameter)
+    bias_filler: FillerParameter = field(default_factory=FillerParameter)
+
+
+@dataclass
+class LRNParameter:
+    local_size: int = 5
+    alpha: float = 1.0
+    beta: float = 0.75
+    norm_region: str = "ACROSS_CHANNELS"
+    k: float = 1.0  # reference vintage hardcodes k=1; field accepted for compat
+
+
+@dataclass
+class MemoryDataParameter:
+    batch_size: int = 0
+    channels: int = 0
+    height: int = 0
+    width: int = 0
+
+
+@dataclass
+class MVNParameter:
+    normalize_variance: bool = True
+    across_channels: bool = False
+
+
+@dataclass
+class PoolingParameter:
+    pool: str = "MAX"
+    pad: int = 0
+    pad_h: int = 0
+    pad_w: int = 0
+    kernel_size: int = 0
+    kernel_h: int = 0
+    kernel_w: int = 0
+    stride: int = 1
+    stride_h: int = 0
+    stride_w: int = 0
+    engine: str = "DEFAULT"
+    global_pooling: bool = False
+
+
+@dataclass
+class PowerParameter:
+    power: float = 1.0
+    scale: float = 1.0
+    shift: float = 0.0
+
+
+@dataclass
+class ReLUParameter:
+    negative_slope: float = 0.0
+    engine: str = "DEFAULT"
+
+
+@dataclass
+class SigmoidParameter:
+    engine: str = "DEFAULT"
+
+
+@dataclass
+class SliceParameter:
+    slice_dim: int = 1
+    slice_point: List[int] = field(default_factory=list)
+    _aliases = {"axis": "slice_dim"}
+
+
+@dataclass
+class SoftmaxParameter:
+    engine: str = "DEFAULT"
+
+
+@dataclass
+class TanHParameter:
+    engine: str = "DEFAULT"
+
+
+@dataclass
+class WindowDataParameter:
+    source: str = ""
+    scale: float = 1.0
+    mean_file: str = ""
+    batch_size: int = 0
+    crop_size: int = 0
+    mirror: bool = False
+    fg_threshold: float = 0.5
+    bg_threshold: float = 0.5
+    fg_fraction: float = 0.25
+    context_pad: int = 0
+    crop_mode: str = "warp"
+
+
+# --------------------------------------------------------------------------- #
+# LayerParameter
+# --------------------------------------------------------------------------- #
+
+# V2 string type names -> V1 enum tokens (canonical internal keys).
+V2_TYPE_TO_V1 = {
+    "AbsVal": "ABSVAL", "Accuracy": "ACCURACY", "ArgMax": "ARGMAX", "BNLL": "BNLL",
+    "Concat": "CONCAT", "ContrastiveLoss": "CONTRASTIVE_LOSS",
+    "Convolution": "CONVOLUTION", "Data": "DATA", "Dropout": "DROPOUT",
+    "DummyData": "DUMMY_DATA", "EuclideanLoss": "EUCLIDEAN_LOSS",
+    "Eltwise": "ELTWISE", "Flatten": "FLATTEN", "HDF5Data": "HDF5_DATA",
+    "HDF5Output": "HDF5_OUTPUT", "HingeLoss": "HINGE_LOSS", "Im2col": "IM2COL",
+    "ImageData": "IMAGE_DATA", "InfogainLoss": "INFOGAIN_LOSS",
+    "InnerProduct": "INNER_PRODUCT", "LRN": "LRN", "MemoryData": "MEMORY_DATA",
+    "MultinomialLogisticLoss": "MULTINOMIAL_LOGISTIC_LOSS", "MVN": "MVN",
+    "Pooling": "POOLING", "Power": "POWER", "ReLU": "RELU", "Sigmoid": "SIGMOID",
+    "SigmoidCrossEntropyLoss": "SIGMOID_CROSS_ENTROPY_LOSS", "Silence": "SILENCE",
+    "Softmax": "SOFTMAX", "SoftmaxWithLoss": "SOFTMAX_LOSS", "Split": "SPLIT",
+    "Slice": "SLICE", "TanH": "TANH", "WindowData": "WINDOW_DATA",
+    "Threshold": "THRESHOLD",
+}
+V1_TYPES = set(V2_TYPE_TO_V1.values()) | {"NONE"}
+
+
+@dataclass
+class ParamSpec:
+    """V2-style per-blob spec; V1 blobs_lr/weight_decay lists normalize to this."""
+    name: str = ""
+    lr_mult: float = 1.0
+    decay_mult: float = 1.0
+    share_mode: str = "STRICT"
+
+
+@dataclass
+class LayerParameter:
+    name: str = ""
+    type: str = "NONE"
+    bottom: List[str] = field(default_factory=list)
+    top: List[str] = field(default_factory=list)
+    include: List[NetStateRule] = field(default_factory=list)
+    exclude: List[NetStateRule] = field(default_factory=list)
+    blobs: List[BlobProto] = field(default_factory=list)
+    param: List[Any] = field(default_factory=list)  # str (V1 names) or ParamSpec (V2)
+    blob_share_mode: List[str] = field(default_factory=list)
+    blobs_lr: List[float] = field(default_factory=list)
+    weight_decay: List[float] = field(default_factory=list)
+    loss_weight: List[float] = field(default_factory=list)
+
+    accuracy_param: AccuracyParameter = field(default_factory=AccuracyParameter)
+    argmax_param: ArgMaxParameter = field(default_factory=ArgMaxParameter)
+    concat_param: ConcatParameter = field(default_factory=ConcatParameter)
+    contrastive_loss_param: ContrastiveLossParameter = field(default_factory=ContrastiveLossParameter)
+    convolution_param: ConvolutionParameter = field(default_factory=ConvolutionParameter)
+    data_param: DataParameter = field(default_factory=DataParameter)
+    dropout_param: DropoutParameter = field(default_factory=DropoutParameter)
+    dummy_data_param: DummyDataParameter = field(default_factory=DummyDataParameter)
+    eltwise_param: EltwiseParameter = field(default_factory=EltwiseParameter)
+    hdf5_data_param: HDF5DataParameter = field(default_factory=HDF5DataParameter)
+    hdf5_output_param: HDF5OutputParameter = field(default_factory=HDF5OutputParameter)
+    hinge_loss_param: HingeLossParameter = field(default_factory=HingeLossParameter)
+    image_data_param: ImageDataParameter = field(default_factory=ImageDataParameter)
+    infogain_loss_param: InfogainLossParameter = field(default_factory=InfogainLossParameter)
+    inner_product_param: InnerProductParameter = field(default_factory=InnerProductParameter)
+    lrn_param: LRNParameter = field(default_factory=LRNParameter)
+    memory_data_param: MemoryDataParameter = field(default_factory=MemoryDataParameter)
+    mvn_param: MVNParameter = field(default_factory=MVNParameter)
+    pooling_param: PoolingParameter = field(default_factory=PoolingParameter)
+    power_param: PowerParameter = field(default_factory=PowerParameter)
+    relu_param: ReLUParameter = field(default_factory=ReLUParameter)
+    sigmoid_param: SigmoidParameter = field(default_factory=SigmoidParameter)
+    softmax_param: SoftmaxParameter = field(default_factory=SoftmaxParameter)
+    slice_param: SliceParameter = field(default_factory=SliceParameter)
+    tanh_param: TanHParameter = field(default_factory=TanHParameter)
+    threshold_param: ThresholdParameter = field(default_factory=ThresholdParameter)
+    window_data_param: WindowDataParameter = field(default_factory=WindowDataParameter)
+    transform_param: TransformationParameter = field(default_factory=TransformationParameter)
+    blob_mode: str = "GLOBAL"  # Poseidon extension on LayerParameter level
+
+    def canonical_type(self) -> str:
+        t = self.type
+        if t in V1_TYPES:
+            return t
+        if t in V2_TYPE_TO_V1:
+            return V2_TYPE_TO_V1[t]
+        raise PrototxtError(f"layer {self.name!r}: unknown type {t!r}")
+
+    def param_spec(self, blob_index: int) -> ParamSpec:
+        """Effective (lr_mult, decay_mult) for param blob i, merging V1/V2 forms."""
+        spec = ParamSpec()
+        v2 = [p for p in self.param if isinstance(p, ParamSpec)]
+        names = [p for p in self.param if isinstance(p, str)]
+        if v2:
+            if blob_index < len(v2):
+                spec = v2[blob_index]
+        else:
+            if blob_index < len(names):
+                spec = ParamSpec(name=names[blob_index])
+        if blob_index < len(self.blobs_lr):
+            spec = dataclasses.replace(spec, lr_mult=self.blobs_lr[blob_index])
+        if blob_index < len(self.weight_decay):
+            spec = dataclasses.replace(spec, decay_mult=self.weight_decay[blob_index])
+        return spec
+
+
+def _build_layer(node: Node) -> LayerParameter:
+    # `param` is polymorphic: V1 repeated string names, V2 ParamSpec submessages.
+    params: List[Any] = []
+    clean = Node()
+    for k, v in node:
+        if k == "param":
+            params.append(build(ParamSpec, v) if isinstance(v, Node) else str(v))
+        else:
+            clean.add(k, v)
+    layer = build(LayerParameter, clean)
+    layer.param = params
+    return layer
+
+
+# --------------------------------------------------------------------------- #
+# NetParameter / SolverParameter
+# --------------------------------------------------------------------------- #
+
+@dataclass
+class NetParameter:
+    name: str = ""
+    layers: List[LayerParameter] = field(default_factory=list)
+    input: List[str] = field(default_factory=list)
+    input_dim: List[int] = field(default_factory=list)
+    force_backward: bool = False
+    state: NetState = field(default_factory=NetState)
+
+
+def _build_net(node: Node) -> NetParameter:
+    clean = Node()
+    layer_nodes = []
+    for k, v in node:
+        if k in ("layers", "layer"):
+            layer_nodes.append(v)
+        else:
+            clean.add(k, v)
+    from .upgrade_v0 import net_needs_v0_upgrade, upgrade_v0_layers
+    if net_needs_v0_upgrade(layer_nodes):
+        layer_nodes = upgrade_v0_layers(layer_nodes)
+    net = build(NetParameter, clean)
+    net.layers = [_build_layer(n) for n in layer_nodes]
+    for lp in net.layers:
+        _upgrade_data_transform(lp)
+    return net
+
+
+def _upgrade_data_transform(lp: LayerParameter) -> None:
+    """NetNeedsDataUpgrade/UpgradeNetDataTransformation: early V1 nets put
+    scale/mean_file/crop_size/mirror inside the data-layer params; the
+    pipeline reads transform_param, so migrate them (explicit
+    transform_param fields win)."""
+    src = {"DATA": lp.data_param, "IMAGE_DATA": lp.image_data_param,
+           "WINDOW_DATA": lp.window_data_param}.get(
+               lp.type if lp.type in V1_TYPES
+               else V2_TYPE_TO_V1.get(lp.type, ""))
+    if src is None:
+        return
+    t = lp.transform_param
+    if getattr(src, "scale", 1.0) != 1.0 and t.scale == 1.0:
+        t.scale = src.scale
+    if getattr(src, "mean_file", "") and not t.mean_file:
+        t.mean_file = src.mean_file
+    if getattr(src, "crop_size", 0) and not t.crop_size:
+        t.crop_size = src.crop_size
+    if getattr(src, "mirror", False) and not t.mirror:
+        t.mirror = src.mirror
+
+
+@dataclass
+class SolverParameter:
+    net: str = ""
+    net_param: Optional[NetParameter] = None
+    train_net: str = ""
+    test_net: List[str] = field(default_factory=list)
+    train_net_param: Optional[NetParameter] = None
+    test_net_param: List[NetParameter] = field(default_factory=list)
+    train_state: NetState = field(default_factory=lambda: NetState(phase="TRAIN"))
+    test_state: List[NetState] = field(default_factory=list)
+    test_iter: List[int] = field(default_factory=list)
+    test_interval: int = 0
+    test_compute_loss: bool = False
+    test_initialization: bool = True
+    base_lr: float = 0.0
+    display: int = 0
+    max_iter: int = 0
+    lr_policy: str = "fixed"
+    gamma: float = 0.0
+    power: float = 0.0
+    momentum: float = 0.0
+    weight_decay: float = 0.0
+    regularization_type: str = "L2"
+    stepsize: int = 0
+    stepvalue: List[int] = field(default_factory=list)
+    snapshot: int = 0
+    snapshot_prefix: str = ""
+    snapshot_diff: bool = False
+    snapshot_after_train: bool = True
+    solver_mode: str = "GPU"
+    device_id: str = "0"
+    random_seed: int = -1
+    solver_type: str = "SGD"
+    delta: float = 1e-8
+    debug_info: bool = False
+    iter_size: int = 1
+
+
+def _build_solver(node: Node) -> SolverParameter:
+    clean = Node()
+    net_param = None
+    train_net_param = None
+    test_net_params: List[Node] = []
+    for k, v in node:
+        if k == "net_param":
+            net_param = v
+        elif k == "train_net_param":
+            train_net_param = v
+        elif k == "test_net_param":
+            test_net_params.append(v)
+        else:
+            clean.add(k, v)
+    solver = build(SolverParameter, clean)
+    if net_param is not None:
+        solver.net_param = _build_net(net_param)
+    if train_net_param is not None:
+        solver.train_net_param = _build_net(train_net_param)
+    solver.test_net_param = [_build_net(n) for n in test_net_params]
+    return solver
+
+
+def load_net(path: str) -> NetParameter:
+    return _build_net(parse_file(path))
+
+
+def load_net_from_string(text: str) -> NetParameter:
+    return _build_net(parse(text))
+
+
+def load_solver(path: str) -> SolverParameter:
+    return _build_solver(parse_file(path))
+
+
+def load_solver_from_string(text: str) -> SolverParameter:
+    return _build_solver(parse(text))
+
+
+# --------------------------------------------------------------------------- #
+# Serialization back to prototxt (zoo compatibility: our programmatic models
+# export to text Caffe itself would parse).
+# --------------------------------------------------------------------------- #
+
+# Fields whose values are enum identifiers (emitted unquoted); everything else
+# stringy is a quoted string.
+_ENUM_FIELDS = {
+    "LayerParameter": {"type", "blob_mode", "blob_share_mode"},
+    "BlobProto": {"blob_mode"},
+    "PoolingParameter": {"pool", "engine"},
+    "ConvolutionParameter": {"engine"},
+    "ReLUParameter": {"engine"},
+    "SigmoidParameter": {"engine"},
+    "SoftmaxParameter": {"engine"},
+    "TanHParameter": {"engine"},
+    "EltwiseParameter": {"operation"},
+    "HingeLossParameter": {"norm"},
+    "LRNParameter": {"norm_region"},
+    "DataParameter": {"backend"},
+    "NetState": {"phase"},
+    "NetStateRule": {"phase"},
+    "SolverParameter": {"solver_mode", "solver_type"},
+}
+
+
+def _is_default(value: Any, default: Any) -> bool:
+    try:
+        return value == default
+    except Exception:
+        return False
+
+
+def to_node(msg: Any) -> Node:
+    """Generic dataclass -> Node, omitting default-valued fields."""
+    from .prototxt import Enum
+    cls_name = type(msg).__name__
+    enum_fields = _ENUM_FIELDS.get(cls_name, set())
+    defaults = type(msg)()
+    node = Node()
+
+    def emit(name: str, value: Any) -> None:
+        if dataclasses.is_dataclass(value):
+            sub = to_node(value)
+            if sub.fields:
+                node.add(name, sub)
+        elif isinstance(value, str) and name in enum_fields:
+            node.add(name, Enum(value))
+        else:
+            node.add(name, value)
+
+    for f in dataclasses.fields(msg):
+        value = getattr(msg, f.name)
+        if isinstance(value, list):
+            if f.name == "param" and cls_name == "LayerParameter":
+                for p in value:
+                    emit("param", p)
+                continue
+            for v in value:
+                emit(f.name, v)
+        else:
+            default = getattr(defaults, f.name, None)
+            if dataclasses.is_dataclass(value):
+                if value != default:
+                    emit(f.name, value)
+            elif not _is_default(value, default):
+                emit(f.name, value)
+    return node
+
+
+def net_to_prototxt(net: NetParameter) -> str:
+    from .prototxt import dumps
+    node = Node()
+    if net.name:
+        node.add("name", net.name)
+    for i, inp in enumerate(net.input):
+        node.add("input", inp)
+    for d in net.input_dim:
+        node.add("input_dim", d)
+    if net.force_backward:
+        node.add("force_backward", True)
+    for lp in net.layers:
+        node.add("layers", to_node(lp))
+    return dumps(node) + "\n"
+
+
+def solver_to_prototxt(sp: SolverParameter) -> str:
+    from .prototxt import dumps
+    return dumps(to_node(sp)) + "\n"

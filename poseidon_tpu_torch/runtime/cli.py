@@ -1,0 +1,95 @@
+"""Command line of the port (the ``serve`` command of
+``poseidon_tpu/runtime/cli.py``)::
+
+    python -m poseidon_tpu_torch serve --model=<deploy.prototxt> \\
+        [--weights=<.caffemodel|.solverstate.npz>] [--buckets 1,4,16,64] \\
+        [--host 127.0.0.1] [--port 0] [--max_delay_ms 5] [--max_queue 64] \\
+        [--deadline_ms 0] [--device cuda|cpu]
+
+It warms every bucket, logs ``serve: listening on <host>:<port>``, serves
+until SIGTERM/SIGINT, drains every admitted request, prints one
+``serving_final_stats`` JSON line and exits 0.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import signal
+from typing import List, Optional
+
+from .metrics import log
+
+
+def cmd_serve(args) -> int:
+    from ..serving.executor import BucketedExecutor, parse_buckets
+    from ..serving.server import InferenceServer
+
+    executor = BucketedExecutor.from_files(
+        args.model, args.weights or None, buckets=parse_buckets(args.buckets),
+        device=args.device or None)
+    log(f"serve: warmed buckets {executor.buckets} on {executor.device} "
+        f"({executor.net.name or 'net'}, {executor.net.param_count()} "
+        f"params)")
+    if args.host not in ("127.0.0.1", "localhost", "::1"):
+        log(f"serve: WARNING: binding {args.host!r} — the wire format is "
+            f"pickled frames (arbitrary code execution for anyone who can "
+            f"connect); serve only on loopback or a trusted network")
+    server = InferenceServer(
+        executor, host=args.host, port=args.port,
+        max_delay_s=args.max_delay_ms / 1e3, max_queue=args.max_queue,
+        default_deadline_s=(args.deadline_ms / 1e3
+                            if args.deadline_ms > 0 else None))
+    log(f"serve: listening on {server.host}:{server.port}")
+
+    def _graceful(signum, frame):
+        log(f"serve: signal {signum}; draining in-flight requests")
+        # the handler only flips flags; the drain runs on the main thread
+        server.request_stop()
+
+    signal.signal(signal.SIGTERM, _graceful)
+    signal.signal(signal.SIGINT, _graceful)
+    try:
+        server.wait_until_stopped()
+    except KeyboardInterrupt:
+        pass
+    server.shutdown(drain=True)
+    print(json.dumps({"serving_final_stats": server.stats_snapshot()}),
+          flush=True)
+    return 0
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog="poseidon_tpu_torch")
+    sub = p.add_subparsers(dest="cmd", required=True)
+    sv = sub.add_parser("serve", help="serve a deploy net over TCP "
+                                      "(dynamic micro-batching, bucketed "
+                                      "executor)")
+    sv.add_argument("--model", required=True, help="deploy prototxt")
+    sv.add_argument("--weights", default="",
+                    help="a .caffemodel or .solverstate.npz to serve; "
+                         "empty serves filler init (smoke mode)")
+    sv.add_argument("--buckets", default="1,4,16,64",
+                    help="batch bucket ladder; every bucket is warmed at "
+                         "startup")
+    sv.add_argument("--host", default="127.0.0.1",
+                    help="bind address; the protocol is pickle-framed and "
+                         "unauthenticated — loopback/trusted networks only")
+    sv.add_argument("--port", type=int, default=0,
+                    help="0 = ephemeral (printed at startup)")
+    sv.add_argument("--max_delay_ms", type=float, default=5.0,
+                    help="micro-batcher flush deadline")
+    sv.add_argument("--max_queue", type=int, default=64,
+                    help="admission bound; a full queue sheds explicitly")
+    sv.add_argument("--deadline_ms", type=float, default=0.0,
+                    help="default per-request deadline (0 = none)")
+    sv.add_argument("--device", default="",
+                    help="cuda (the default; refuses to run without a GPU) "
+                         "or cpu")
+    sv.set_defaults(fn=cmd_serve)
+    return p
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    args = build_parser().parse_args(argv)
+    return args.fn(args)

@@ -1,0 +1,5 @@
+"""Serving tier of the port: the bucketed executor over a PyTorch
+:class:`~poseidon_tpu_torch.core.net.Net` (``executor``), the micro-batcher
+(``batcher``), the socket front-end (``server``) and the client
+(``client``). Wire protocol and behaviour follow ``poseidon_tpu/serving``.
+"""

@@ -1,0 +1,107 @@
+"""Boundaries of the port: it imports neither jax nor any module of
+poseidon_tpu, and its entry points refuse to fall back to the CPU when no
+GPU is present and the caller did not ask for the CPU."""
+
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+ALEXNET = "examples/imagenet/alexnet_deploy.prototxt"
+
+_IMPORT_ALL = r"""
+import importlib, pkgutil, sys
+import poseidon_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(poseidon_tpu_torch.__path__,
+                                                "poseidon_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "jaxlib"
+             or m.startswith("jaxlib.") or m == "poseidon_tpu"
+             or m.startswith("poseidon_tpu."))
+print(len(names), bad)
+assert not bad, bad
+"""
+
+
+def test_port_imports_no_jax_and_nothing_of_poseidon_tpu():
+    out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+    n_modules = int(out.stdout.split()[0])
+    assert n_modules >= 20
+
+
+def _need_no_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("checks the no-GPU refusal; a GPU is present")
+
+
+def test_net_without_device_refuses_cpu_fallback():
+    _need_no_gpu()
+    from poseidon_tpu_torch.core.net import Net
+    from poseidon_tpu_torch.proto.messages import load_net
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Net(load_net(os.path.join(REPO, ALEXNET)))
+
+
+def test_executor_from_files_without_device_refuses():
+    _need_no_gpu()
+    from poseidon_tpu_torch.serving.executor import BucketedExecutor
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        BucketedExecutor.from_files(os.path.join(REPO, ALEXNET),
+                                    buckets=(1,))
+
+
+def test_serve_cli_without_device_refuses():
+    _need_no_gpu()
+    from poseidon_tpu_torch.runtime.cli import main
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        main(["serve", f"--model={os.path.join(REPO, ALEXNET)}",
+              "--buckets", "1"])
+
+
+def test_resolve_device_is_pure():
+    from poseidon_tpu_torch.numeric import resolve_device
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    try:
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = True
+        assert resolve_device("cpu") == torch.device("cpu")
+        assert torch.backends.cudnn.allow_tf32 is True
+        assert torch.backends.cuda.matmul.allow_tf32 is True
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
+
+
+def test_net_applies_f32_policy():
+    from poseidon_tpu_torch.core.net import Net
+    from poseidon_tpu_torch.proto.messages import load_net
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    try:
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = True
+        Net(load_net(os.path.join(REPO, ALEXNET)), device="cpu")
+        assert torch.backends.cudnn.allow_tf32 is False
+        assert torch.backends.cuda.matmul.allow_tf32 is False
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
+
+
+def test_kernel_sources_and_build_dir():
+    from poseidon_tpu_torch.ops import _build
+    assert _build.sources() == ["lrn_fwd"]
+    assert _build.BUILD_DIR == \
+        __import__("pathlib").Path(REPO) / "build" / "poseidon_tpu_torch"
+    assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+    lib = _build._lib_path("lrn_fwd")
+    assert lib.parent == _build.BUILD_DIR and lib.name.startswith(
+        "liblrn_fwd-")
