@@ -11,8 +11,11 @@ with ``nvcc`` at first use.
 
 Slice 1 is CNN serving: prototxt -> ``Net`` -> bucketed executor ->
 micro-batcher -> socket server, with the cross-channel LRN forward as a
-CUDA kernel. Entry points run on ``cuda`` unless the caller passes
-``device="cpu"``.
+CUDA kernel. Slice 2 is single-device training: LMDB data pipeline ->
+``Net`` with its loss -> a train step over one flat parameter arena ->
+``Engine`` and the ``train``/``test`` commands, with the LRN backward, the
+pooling backward and the fused SGD update as CUDA kernels. Entry points
+run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
 
 __version__ = "0.1.0"

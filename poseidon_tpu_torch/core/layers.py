@@ -1,13 +1,16 @@
-"""The serving subset of the layer catalog (``poseidon_tpu/core/layers.py``).
+"""The CNN subset of the layer catalog (``poseidon_tpu/core/layers.py``).
 
 A layer is an ``nn.Module`` without parameters of its own: ``setup`` infers
 top shapes from bottom shapes and declares ``ParamDef``s, ``forward`` maps
 (params, bottoms) to tops. The net owns the parameter tensors and passes
-each layer its own, so a hot swap replaces one dict reference.
+each layer its own, so a hot swap replaces one dict reference. Backward is
+autograd over the forward; the ops with hand-written kernels (LRN, pooling)
+are ``torch.autograd.Function``s whose backward is the kernel.
 
-Types in this slice: CONVOLUTION, INNER_PRODUCT, POOLING (MAX, AVE), LRN,
-RELU, DROPOUT, SOFTMAX, FLATTEN, SPLIT and CONCAT. Any other type raises
-``NotImplementedError`` naming it.
+Types: CONVOLUTION, INNER_PRODUCT, POOLING (MAX, AVE), LRN, RELU, DROPOUT,
+SOFTMAX, FLATTEN, SPLIT, CONCAT, SOFTMAX_LOSS and ACCURACY, plus the data
+layers (DATA and the other source types), whose tops the data pipeline
+provides. Any other type raises ``NotImplementedError`` naming it.
 """
 
 from __future__ import annotations
@@ -21,11 +24,18 @@ from torch import nn
 from ..ops import elementwise as E
 from ..ops import losses as L
 from ..ops import nn as NN
+from ..ops import pool as P
 from ..ops.lrn import lrn_across_channels
 from ..proto.messages import FillerParameter, LayerParameter
 from .blob import ParamDef
 
 Shape = Tuple[int, ...]
+
+LOSS_TYPES = {"SOFTMAX_LOSS"}
+# data layers: sources whose tops the data pipeline provides, so the net
+# takes them as external inputs (the pipeline says which ones it reads)
+DATA_SOURCE_TYPES = {"DATA", "IMAGE_DATA", "HDF5_DATA", "WINDOW_DATA",
+                     "MEMORY_DATA"}
 
 
 class Layer(nn.Module):
@@ -43,13 +53,24 @@ class Layer(nn.Module):
     def extra_repr(self) -> str:
         return f"{self.name!r}"
 
+    def loss_weights(self, n_tops: int) -> List[float]:
+        """Per-top loss weights: the prototxt's, else 1 on top 0 of a loss
+        layer and 0 elsewhere (Caffe's default)."""
+        lw = list(self.lp.loss_weight)
+        if not lw:
+            default = 1.0 if self.TYPE in LOSS_TYPES else 0.0
+            return [default if i == 0 else 0.0 for i in range(n_tops)]
+        if len(lw) != n_tops:
+            raise ValueError(f"{self.name}: loss_weight arity mismatch")
+        return lw
+
     def _param(self, name: str, shape: Shape, filler: FillerParameter,
                blob_index: int) -> ParamDef:
         spec = self.lp.param_spec(blob_index)
         if spec.name:
             raise NotImplementedError(
                 f"layer {self.name!r}: shared (named) params are not in the "
-                f"serving slice")
+                f"port yet")
         return ParamDef(name=name, shape=shape, filler=filler,
                         lr_mult=spec.lr_mult, decay_mult=spec.decay_mult)
 
@@ -159,14 +180,17 @@ class PoolingLayer(Layer):
         if self.method not in ("MAX", "AVE"):
             raise NotImplementedError(
                 f"layer {self.name!r}: {self.method} pooling is not in the "
-                f"serving slice")
-        oh = NN.pool_out_size(h, self.kernel[0], self.stride[0], self.pad[0])
-        ow = NN.pool_out_size(w, self.kernel[1], self.stride[1], self.pad[1])
+                f"port yet")
+        # the pooling Function (its backward: the kernel on a CUDA tensor,
+        # the plain version on a CPU tensor); chip_smoke.py swaps in the
+        # plain-backward reference to hold a training step against it
+        self.pool = P.max_pool if self.method == "MAX" else P.ave_pool
+        oh = P.pool_out_size(h, self.kernel[0], self.stride[0], self.pad[0])
+        ow = P.pool_out_size(w, self.kernel[1], self.stride[1], self.pad[1])
         return [(n, c, oh, ow)]
 
     def forward(self, params, bottoms, train):
-        pool = NN.max_pool if self.method == "MAX" else NN.ave_pool
-        return [pool(bottoms[0], self.kernel, self.stride, self.pad)]
+        return [self.pool(bottoms[0], self.kernel, self.stride, self.pad)]
 
 
 class LRNLayer(Layer):
@@ -179,9 +203,10 @@ class LRNLayer(Layer):
         self.beta = p.beta
         self.region = p.norm_region
         self.k = p.k
-        # the across-channels implementation: the kernel wrapper (its plain
-        # version on a CPU tensor); chip_smoke.py swaps in the plain
-        # version to hold a whole-net forward against it on the card
+        # the across-channels implementation: the kernels' autograd Function
+        # (the plain versions on a CPU tensor); chip_smoke.py swaps in the
+        # plain reference to hold a forward or a training step against it
+        # on the card
         self.across_channels = lrn_across_channels
         return [bottom_shapes[0]]
 
@@ -215,12 +240,17 @@ class ReLULayer(Layer):
 class DropoutLayer(Layer):
     TYPE = "DROPOUT"
 
+    def __init__(self, lp: LayerParameter):
+        super().__init__(lp)
+        # the net's dropout generator (on the net's device), set by the net
+        self.generator: Optional[torch.Generator] = None
+
     def setup(self, bottom_shapes):
         return [bottom_shapes[0]]
 
     def forward(self, params, bottoms, train):
         return [E.dropout(bottoms[0], self.lp.dropout_param.dropout_ratio,
-                          train)]
+                          train, self.generator)]
 
 
 class FlattenLayer(Layer):
@@ -266,11 +296,37 @@ class SoftmaxLayer(Layer):
         return [L.softmax(bottoms[0], axis=1)]
 
 
+class SoftmaxLossLayer(Layer):
+    TYPE = "SOFTMAX_LOSS"
+
+    def setup(self, bottom_shapes):
+        if len(self.lp.top) >= 2:
+            return [(), bottom_shapes[0]]
+        return [()]
+
+    def forward(self, params, bottoms, train):
+        loss = L.softmax_loss(bottoms[0], bottoms[1])
+        if len(self.lp.top) >= 2:
+            return [loss, L.softmax(bottoms[0], axis=1)]
+        return [loss]
+
+
+class AccuracyLayer(Layer):
+    TYPE = "ACCURACY"
+
+    def setup(self, bottom_shapes):
+        return [()]
+
+    def forward(self, params, bottoms, train):
+        return [L.accuracy(bottoms[0], bottoms[1],
+                           self.lp.accuracy_param.top_k)]
+
+
 REGISTRY: Dict[str, type] = {
     cls.TYPE: cls
     for cls in [ConvolutionLayer, InnerProductLayer, PoolingLayer, LRNLayer,
                 ReLULayer, DropoutLayer, FlattenLayer, ConcatLayer,
-                SplitLayer, SoftmaxLayer]
+                SplitLayer, SoftmaxLayer, SoftmaxLossLayer, AccuracyLayer]
 }
 
 
@@ -278,5 +334,5 @@ def create_layer(lp: LayerParameter) -> Layer:
     t = lp.canonical_type()
     if t not in REGISTRY:
         raise NotImplementedError(
-            f"layer {lp.name!r}: type {t} is not in the serving slice")
+            f"layer {lp.name!r}: type {t} is not in the port yet")
     return REGISTRY[t](lp)

@@ -1,21 +1,31 @@
 """Net: a prototxt-defined DAG as an ``nn.Module`` (the port of
-``poseidon_tpu/core/net.py``, TEST-phase serving subset).
+``poseidon_tpu/core/net.py``, NCHW, TRAIN and TEST phases).
 
 Construction filters the layers by phase (``filter_net``), takes the deploy
-net's ``input:``/``input_dim:`` blobs, infers every blob shape, declares the
-parameters, and folds each in-place ReLU that directly follows a conv into
-the conv's epilogue (``_plan_epilogues``, the same fold the JAX package
-makes, so both give the same blobs).
+net's ``input:``/``input_dim:`` blobs and the data layers' tops (shapes
+from ``source_shapes``, as the data pipeline gives them) as external
+inputs, infers every blob shape, declares the parameters, and folds each
+in-place ReLU that directly follows a conv into the conv's epilogue
+(``_plan_epilogues``, the same fold the JAX package makes, so both give the
+same blobs).
 
 Parameters are a plain ``{layer: {"w": tensor, "b": tensor}}`` tree on the
 net's device, the layout of the JAX package's params (OIHW conv weights,
-(out, in) fc weights). ``forward(inputs, params=None)`` runs the graph in
-order, rebinding each top name as it is produced, so in-place layers
-(``relu1: conv1 -> conv1``) behave as in Caffe.
+(out, in) fc weights). ``apply(params, inputs)`` runs the graph in order,
+rebinding each top name as it is produced, so in-place layers
+(``relu1: conv1 -> conv1``) behave as in Caffe, and returns the loss
+(sum over tops of loss_weight * top, Caffe's objective) with the outputs.
+Backward is autograd through ``apply``.
+
+The DWBP-ordered parameter table (REVERSE forward layer order, the order
+gradients materialize during backward) lays out the flat parameter arena
+(``arena_layout``, ``core/arena.py``) the training step packs parameters,
+gradients and momentum into.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -26,10 +36,17 @@ from ..numeric import apply_f32_policy, resolve_device
 from ..proto.messages import LayerParameter, NetParameter, NetState
 from .blob import ParamDef
 from .fillers import fill
-from .layers import Layer, create_layer
+from .layers import DATA_SOURCE_TYPES, Layer, create_layer
 
 Shape = Tuple[int, ...]
 Params = Dict[str, Dict[str, torch.Tensor]]
+
+
+@dataclass
+class NetOutputs:
+    loss: torch.Tensor
+    outputs: Dict[str, torch.Tensor]
+    blobs: Dict[str, torch.Tensor] = field(default_factory=dict)
 
 
 def filter_net(net_param: NetParameter,
@@ -53,7 +70,7 @@ def filter_net(net_param: NetParameter,
 
 class Net(nn.Module):
     def __init__(self, net_param: NetParameter, phase: str = "TEST",
-                 device=None):
+                 device=None, source_shapes: Optional[Dict[str, Shape]] = None):
         super().__init__()
         self.device = resolve_device(device)
         apply_f32_policy()
@@ -61,6 +78,9 @@ class Net(nn.Module):
         self.phase = phase
         self.state = NetState(phase=phase)
         self.name = net_param.name
+        # the dropout masks' random stream, on the net's device; the engine
+        # reseeds it from the solver's random_seed
+        self.generator = torch.Generator(device=self.device).manual_seed(0)
 
         blob_shapes: Dict[str, Shape] = {}
         if net_param.input:
@@ -69,9 +89,23 @@ class Net(nn.Module):
                 raise ValueError("input_dim must have 4 entries per input")
             for i, name in enumerate(net_param.input):
                 blob_shapes[name] = tuple(dims[4 * i:4 * i + 4])
+        # any supplied source shape is an external input (the tops of data
+        # layers, or direct feeds)
+        source_shapes = dict(source_shapes or {})
+        for name, shape in source_shapes.items():
+            blob_shapes[name] = tuple(shape)
 
         layers: List[Layer] = []
+        source_tops: List[str] = []
         for lp in filter_net(net_param, self.state):
+            if lp.canonical_type() in DATA_SOURCE_TYPES:
+                for top in lp.top:
+                    if top not in source_shapes:
+                        raise ValueError(
+                            f"data layer {lp.name!r}: shape for top {top!r} "
+                            f"must be supplied via source_shapes")
+                    source_tops.append(top)
+                continue
             layer = create_layer(lp)
             bottoms = []
             for b in lp.bottom:
@@ -90,6 +124,12 @@ class Net(nn.Module):
         self.layers = nn.ModuleList(layers)
         self.blob_shapes = blob_shapes
         self.input_names: List[str] = list(net_param.input)
+        for name in list(source_shapes) + source_tops:
+            if name not in self.input_names:
+                self.input_names.append(name)
+        for layer in self.layers:
+            if layer.TYPE == "DROPOUT":
+                layer.generator = self.generator
 
         produced, consumed = [], set()
         for layer in self.layers:
@@ -102,8 +142,26 @@ class Net(nn.Module):
         self.param_defs: Dict[str, List[ParamDef]] = {
             layer.name: layer.params for layer in self.layers if layer.params}
         self._layer_by_name = {l.name: l for l in self.layers}
+        # the static arena offset table: every ParamDef in DWBP order
+        # (reverse forward layer order), as the JAX package orders it
+        self._arena_order: List[Tuple[str, ParamDef]] = [
+            (layer.name, pdef)
+            for layer in reversed(self.layers)
+            if layer.name in self.param_defs
+            for pdef in self.param_defs[layer.name]]
+        self._arena_layouts: Dict = {}
         self._plan_epilogues()
         self.params: Optional[Params] = None
+
+    def arena_layout(self, bucket_mb: float = 4.0):
+        """The flat-parameter-arena layout of every param layer over the
+        DWBP-ordered table, cut into ~``bucket_mb`` MB buckets; cached per
+        bucket_mb. None when the net has no parameters."""
+        from .arena import build_arena
+        if bucket_mb not in self._arena_layouts:
+            self._arena_layouts[bucket_mb] = build_arena(self._arena_order,
+                                                         bucket_mb)
+        return self._arena_layouts[bucket_mb]
 
     def _plan_epilogues(self) -> None:
         """Fold each in-place ReLU that immediately consumes a conv's top
@@ -164,26 +222,41 @@ class Net(nn.Module):
         return out
 
     # ------------------------------------------------------------------ #
-    def forward(self, inputs: Dict[str, torch.Tensor],
-                params: Optional[Params] = None,
-                keep_blobs: bool = False) -> Dict[str, torch.Tensor]:
-        """Run the graph; returns the output blobs (every blob, by its last
-        value, with ``keep_blobs``)."""
+    def apply(self, params: Optional[Params],
+              inputs: Dict[str, torch.Tensor], train: Optional[bool] = None,
+              keep_blobs: bool = False) -> NetOutputs:
+        """Run the graph: the loss (Caffe's objective, sum over tops of
+        loss_weight * top, in f32), the output blobs, and every blob by its
+        last value with ``keep_blobs``. ``train`` defaults to the phase."""
         if params is None:
             params = self.params
         if params is None:
             raise RuntimeError("net has no params: call init() or pass "
                                "params=")
-        train = self.phase == "TRAIN"
+        if train is None:
+            train = self.phase == "TRAIN"
         blobs: Dict[str, torch.Tensor] = dict(inputs)
+        loss = torch.zeros((), dtype=torch.float32, device=self.device)
         for layer in self.layers:
             bottoms = [blobs[b] for b in layer.lp.bottom]
             tops = layer(params.get(layer.name, {}), bottoms, train)
-            for name, val in zip(layer.lp.top, tops):
+            weights = layer.loss_weights(len(tops))
+            for name, val, w in zip(layer.lp.top, tops, weights):
                 blobs[name] = val
-        if keep_blobs:
-            return blobs
-        return {name: blobs[name] for name in self.output_names}
+                if w:
+                    loss = loss + w * val.float().sum()
+        return NetOutputs(
+            loss=loss,
+            outputs={name: blobs[name] for name in self.output_names},
+            blobs=blobs if keep_blobs else {})
+
+    def forward(self, inputs: Dict[str, torch.Tensor],
+                params: Optional[Params] = None,
+                keep_blobs: bool = False) -> Dict[str, torch.Tensor]:
+        """Run the graph; returns the output blobs (every blob, by its last
+        value, with ``keep_blobs``)."""
+        out = self.apply(params, inputs, keep_blobs=keep_blobs)
+        return out.blobs if keep_blobs else out.outputs
 
     # ------------------------------------------------------------------ #
     def load_weights(self, params: Params,

@@ -9,8 +9,9 @@ build takes seconds):
 
 The output lands in ``build/poseidon_tpu_torch/`` at the root of the
 checkout, named by the source's content hash, so an edited source rebuilds
-and an unchanged one loads what is there. A failed build raises with the
-compiler's output: nothing falls back to a plain version.
+and an unchanged one loads what is there. ``build_all`` starts one nvcc per
+source at once. A failed build raises with the compiler's output: nothing
+falls back to a plain version.
 """
 
 from __future__ import annotations
@@ -56,20 +57,47 @@ def _lib_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
-def _build_one(name: str) -> None:
-    """Compile ``csrc/<name>.cu`` with nvcc into a temporary file, then move
-    the library into place atomically."""
+def _start(name: str):
+    """Start nvcc on ``csrc/<name>.cu`` into a temporary file; returns
+    (process, tmp path, final path)."""
     out = _lib_path(name)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.tmp.{os.getpid()}")
     cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    proc = subprocess.run(cmd, stdout=subprocess.PIPE,
-                          stderr=subprocess.STDOUT, text=True)
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, tmp, out
+
+
+def _finish(name: str, proc, tmp: Path, out: Path) -> None:
+    """Wait for one nvcc, then move the library into place atomically."""
+    log, _ = proc.communicate()
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed for {name}.cu "
-                           f"(exit {proc.returncode}):\n{proc.stdout}")
+                           f"(exit {proc.returncode}):\n{log}")
     os.replace(tmp, out)
+
+
+def _build_one(name: str) -> None:
+    _finish(name, *_start(name))
+
+
+def build_all(names: List[str]) -> None:
+    """Build every library of ``names`` that is not built yet, one nvcc per
+    source, all started together; raises on the first failure after every
+    compiler has exited."""
+    with _lock:
+        started = [(n, *_start(n)) for n in names
+                   if n not in _libs and not _lib_path(n).exists()]
+        errors = []
+        for name, proc, tmp, out in started:
+            try:
+                _finish(name, proc, tmp, out)
+            except RuntimeError as e:
+                errors.append(str(e))
+        if errors:
+            raise RuntimeError("\n".join(errors))
 
 
 def load(name: str) -> ctypes.CDLL:

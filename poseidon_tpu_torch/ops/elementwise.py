@@ -1,9 +1,9 @@
-"""Neuron and structural ops (the serving subset of
+"""Neuron and structural ops (the CNN subset of
 ``poseidon_tpu/ops/elementwise.py``): ReLU, dropout, flatten, concat."""
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 
@@ -14,13 +14,18 @@ def relu(x: torch.Tensor, negative_slope: float = 0.0) -> torch.Tensor:
     return torch.where(x > 0, x, negative_slope * x)
 
 
-def dropout(x: torch.Tensor, ratio: float, train: bool) -> torch.Tensor:
-    """Inverted dropout, as the JAX package computes it: kept units are
-    scaled by 1/(1-ratio) at TRAIN time, so TEST is the identity."""
+def dropout(x: torch.Tensor, ratio: float, train: bool,
+            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Inverted dropout, as the JAX package computes it: at TRAIN time each
+    unit is kept with probability 1-ratio (a mask drawn from ``generator``,
+    on x's device) and scaled by 1/(1-ratio); TEST is the identity. The
+    mask's random stream is torch's, not JAX's."""
     if not train or ratio == 0.0:
         return x
-    raise NotImplementedError("TRAIN-phase dropout belongs to the training "
-                              "slice; the serving slice runs TEST nets")
+    keep = 1.0 - ratio
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
+                                                   device=x.device))
 
 
 def flatten(x: torch.Tensor) -> torch.Tensor:

@@ -1,31 +1,24 @@
-"""Convolution, pooling, within-channel LRN and inner product, NCHW only
-(the serving subset of ``poseidon_tpu/ops/nn.py``).
+"""Convolution, within-channel LRN and inner product, NCHW only (the
+subset of ``poseidon_tpu/ops/nn.py`` that CNN serving and training use).
 
-The JAX package leaves convolution, pooling and GEMMs to XLA, not to
-Pallas, so the port leaves them to PyTorch's own operators (cuDNN and
-cuBLAS on the card) with the f32 policy of ``numeric.py``. What must stay
-Caffe-exact is wrapped around them here:
+The JAX package leaves convolution and GEMMs to XLA, not to Pallas, so the
+port leaves them to PyTorch's own operators (cuDNN and cuBLAS on the card)
+with the f32 policy of ``numeric.py``; conv output size stays Caffe's
+floor((in + 2*pad - k)/stride) + 1.
 
-- conv output size: floor((in + 2*pad - k)/stride) + 1
-- pool output size: ceil((in + 2*pad - k)/stride) + 1, minus one if the
-  last window would start in the padding (``pool_out_size``)
-- pooling runs over the Caffe-padded input cropped to exactly the extent
-  the output grid consumes (``_pool_pad_crop``), so no builtin ceil-mode
-  rule decides a window;
-- AVE pooling divides by the window clipped to the *padded* extent.
-
-The cross-channel LRN, the one op the JAX package gave a Pallas kernel on
-this path, lives in ``ops/lrn.py`` with its CUDA kernel.
+Pooling lives in ``ops/pool.py`` with its CUDA backward kernel, and the
+cross-channel LRN in ``ops/lrn.py`` with its CUDA kernels: the ops on this
+path the JAX package gave Pallas kernels.
 """
 
 from __future__ import annotations
 
-import math
 from typing import Optional, Tuple
 
-import numpy as np
 import torch
 import torch.nn.functional as F
+
+from .pool import ave_pool
 
 
 def conv_out_size(in_size: int, kernel: int, stride: int, pad: int) -> int:
@@ -49,57 +42,6 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
     elif act is not None:
         raise ValueError(f"unknown conv epilogue act {act!r}")
     return y
-
-
-def pool_out_size(in_size: int, kernel: int, stride: int, pad: int) -> int:
-    out = int(math.ceil((in_size + 2 * pad - kernel) / stride)) + 1
-    if pad > 0 and (out - 1) * stride >= in_size + pad:
-        out -= 1
-    return out
-
-
-def _pool_dims(x, kernel, stride, pad):
-    h, w = x.shape[2], x.shape[3]
-    return h, w, pool_out_size(h, kernel[0], stride[0], pad[0]), \
-        pool_out_size(w, kernel[1], stride[1], pad[1])
-
-
-def _pool_pad_crop(x, kernel, stride, pad, oh, ow, fill: float):
-    """The Caffe-padded input, cropped to exactly the extent the oh x ow
-    output grid consumes ((o-1)*s + k per spatial dim)."""
-    h, w = x.shape[2], x.shape[3]
-    hi_h = max((oh - 1) * stride[0] + kernel[0] - pad[0] - h, 0)
-    hi_w = max((ow - 1) * stride[1] + kernel[1] - pad[1] - w, 0)
-    xp = F.pad(x, (pad[1], hi_w, pad[0], hi_h), value=fill)
-    return xp[:, :, :(oh - 1) * stride[0] + kernel[0],
-              :(ow - 1) * stride[1] + kernel[1]]
-
-
-def max_pool(x: torch.Tensor, kernel, stride, pad) -> torch.Tensor:
-    h, w, oh, ow = _pool_dims(x, kernel, stride, pad)
-    xp = _pool_pad_crop(x, kernel, stride, pad, oh, ow, -math.inf)
-    return F.max_pool2d(xp, tuple(kernel), tuple(stride))
-
-
-def _ave_denom(h, w, oh, ow, kernel, stride, pad) -> np.ndarray:
-    """Caffe's AVE divisor: the window clipped to the padded extent
-    [start, in+pad), where start may be negative."""
-    def divisors(n_out, stride_, pad_, kernel_, in_):
-        starts = np.arange(n_out) * stride_ - pad_
-        ends = np.minimum(starts + kernel_, in_ + pad_)
-        return (ends - starts).astype(np.float32)
-
-    return np.outer(divisors(oh, stride[0], pad[0], kernel[0], h),
-                    divisors(ow, stride[1], pad[1], kernel[1], w))
-
-
-def ave_pool(x: torch.Tensor, kernel, stride, pad) -> torch.Tensor:
-    h, w, oh, ow = _pool_dims(x, kernel, stride, pad)
-    xp = _pool_pad_crop(x, kernel, stride, pad, oh, ow, 0.0)
-    summed = F.avg_pool2d(xp, tuple(kernel), tuple(stride),
-                          divisor_override=1)
-    denom = torch.from_numpy(_ave_denom(h, w, oh, ow, kernel, stride, pad))
-    return summed / denom.to(device=x.device, dtype=x.dtype)
 
 
 def lrn_within_channel(x: torch.Tensor, local_size: int, alpha: float,

@@ -8,7 +8,11 @@ serving slice uses:
 - the zero-copy binary tensor codec (wire codec v1), negotiated per
   connection, so a client of either package talks to a server of either
   package byte for byte;
-- the protobuf wire-format reader behind ``decode_caffemodel``.
+- the protobuf wire-format reader behind ``decode_caffemodel``;
+- the writers the training slice needs: ``Datum`` records
+  (``decode_datum``/``encode_datum``, for LMDB data), ``BlobProto``
+  (``encode_blob``/``read_blob_file``, for mean files) and
+  ``encode_caffemodel`` (snapshots).
 
 Payloads are either a codec frame (magic ``PTC\\x01``) or a pickle; the
 receiver tells them apart by the magic, as the JAX package does.
@@ -22,6 +26,7 @@ import pickle
 import socket
 import struct
 import weakref
+from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -460,3 +465,130 @@ def decode_caffemodel(buf: bytes) -> Dict[str, List[np.ndarray]]:
             if name:
                 weights[name] = blobs
     return weights
+
+
+# --------------------------------------------------------------------------- #
+# Protobuf writers, Datum, BlobProto files and .caffemodel encoding.
+# --------------------------------------------------------------------------- #
+
+def _write_varint(out: bytearray, value: int) -> None:
+    if value < 0:
+        value &= (1 << 64) - 1
+    while True:
+        bits = value & 0x7F
+        value >>= 7
+        if value:
+            out.append(bits | 0x80)
+        else:
+            out.append(bits)
+            return
+
+
+def _emit_tag(out: bytearray, fnum: int, wtype: int) -> None:
+    _write_varint(out, (fnum << 3) | wtype)
+
+
+def emit_varint_field(out: bytearray, fnum: int, value: int) -> None:
+    _emit_tag(out, fnum, WIRETYPE_VARINT)
+    _write_varint(out, value)
+
+
+def emit_bytes_field(out: bytearray, fnum: int, value: bytes) -> None:
+    _emit_tag(out, fnum, WIRETYPE_LEN)
+    _write_varint(out, len(value))
+    out.extend(value)
+
+
+def emit_packed_floats(out: bytearray, fnum: int, values: np.ndarray) -> None:
+    emit_bytes_field(out, fnum, np.asarray(values, dtype="<f4").tobytes())
+
+
+@dataclass
+class Datum:
+    channels: int = 0
+    height: int = 0
+    width: int = 0
+    data: bytes = b""
+    label: int = 0
+    float_data: Optional[np.ndarray] = None
+
+    def to_array(self) -> np.ndarray:
+        """(C, H, W) float32 array (uint8 bytes NOT mean-subtracted or
+        scaled)."""
+        if self.float_data is not None and len(self.float_data):
+            return np.asarray(self.float_data, np.float32).reshape(
+                self.channels, self.height, self.width)
+        arr = np.frombuffer(self.data, dtype=np.uint8)
+        return arr.reshape(self.channels, self.height,
+                           self.width).astype(np.float32)
+
+
+def decode_datum(buf: bytes) -> Datum:
+    d = Datum()
+    floats: List[np.ndarray] = []
+    for fnum, wtype, val in iter_fields(buf):
+        if fnum == 1:
+            d.channels = val
+        elif fnum == 2:
+            d.height = val
+        elif fnum == 3:
+            d.width = val
+        elif fnum == 4:
+            d.data = val
+        elif fnum == 5:
+            d.label = val
+        elif fnum == 6:
+            floats.append(_floats(wtype, val))
+    if floats:
+        d.float_data = np.concatenate(floats).astype(np.float32)
+    return d
+
+
+def encode_datum(d: Datum) -> bytes:
+    out = bytearray()
+    emit_varint_field(out, 1, d.channels)
+    emit_varint_field(out, 2, d.height)
+    emit_varint_field(out, 3, d.width)
+    if d.data:
+        emit_bytes_field(out, 4, d.data)
+    emit_varint_field(out, 5, d.label)
+    if d.float_data is not None and len(d.float_data):
+        emit_packed_floats(out, 6, d.float_data)
+    return bytes(out)
+
+
+def encode_blob(arr: np.ndarray) -> bytes:
+    """One BlobProto: the shape padded out to 4-D (num, channels, height,
+    width) with trailing ones, as Caffe's Blob::Reshape does, and the
+    data packed."""
+    shape = tuple(arr.shape)
+    if len(shape) > 4:
+        raise ValueError(f"blob rank > 4: {shape}")
+    shape = shape + (1,) * (4 - len(shape))
+    out = bytearray()
+    for fnum, dim in enumerate(shape, start=1):
+        emit_varint_field(out, fnum, dim)
+    emit_packed_floats(out, 5, np.asarray(arr, np.float32).ravel())
+    return bytes(out)
+
+
+def read_blob_file(path: str) -> np.ndarray:
+    """Read a .binaryproto BlobProto file (e.g. an image-mean file) as a
+    (num, channels, height, width) float32 array."""
+    with open(path, "rb") as f:
+        return decode_blob(f.read())
+
+
+def encode_caffemodel(net_name: str,
+                      layer_weights: Dict[str, List[np.ndarray]]) -> bytes:
+    """Serialize {layer: [blob arrays]} as a NetParameter binary that Caffe
+    (and ``decode_caffemodel`` of either package) reads."""
+    out = bytearray()
+    emit_bytes_field(out, 1, net_name.encode())
+    for lname, blobs in layer_weights.items():
+        layer = bytearray()
+        emit_bytes_field(layer, 4, lname.encode())
+        for arr in blobs:
+            emit_bytes_field(layer, 6, encode_blob(arr))
+        emit_bytes_field(out, 2, bytes(layer))
+    return bytes(out)

@@ -1,22 +1,111 @@
-"""Reading the JAX package's snapshot artifacts (numpy only).
+"""Snapshots: ``.solverstate.npz`` + ``.caffemodel`` (numpy only), in the
+JAX package's format (``poseidon_tpu/runtime/checkpoint.py``), so
+snapshots cross-load both ways.
 
-- ``.solverstate.npz`` written by ``poseidon_tpu/runtime/checkpoint.py``:
-  the ``params/`` group holds one array per leaf, keyed
-  ``params/<layer>\\x1f<param>`` (layer names may contain '/', so tree keys
-  are joined with the ASCII unit separator).
-- ``.caffemodel``: a binary NetParameter, merged by layer name and blob
-  order (Caffe's CopyTrainedLayersFrom).
+- ``snapshot()`` writes ``<prefix>_iter_<N>.caffemodel`` (a Caffe
+  NetParameter binary) and ``<prefix>_iter_<N>.solverstate.npz`` with
+  ``iter``, ``kind = "dense"``, one array per leaf under ``params/`` and
+  ``history/`` (and under ``comm_error/``, empty on one device). Tree keys
+  join layer and param names with the ASCII unit separator (layer names may
+  contain '/'). Both files are written to a temporary name and renamed.
+- ``restore()`` rebuilds (params, TrainState) from a dense .npz as CPU
+  tensors; ``restore_params`` reads the params alone.
+- ``load_caffemodel`` merges a .caffemodel's weights through
+  ``net.load_weights`` (Caffe's CopyTrainedLayersFrom).
 """
 
 from __future__ import annotations
 
-from typing import Dict
+import os
+from typing import Dict, Optional, Tuple
 
 import numpy as np
+import torch
 
-from ..proto.wire import decode_caffemodel
+from ..proto.wire import decode_caffemodel, encode_caffemodel
 
 _SEP = "\x1f"
+
+
+def _flatten(tree, prefix: str = "") -> Dict[str, np.ndarray]:
+    out: Dict[str, np.ndarray] = {}
+    for k, v in tree.items():
+        key = f"{prefix}{k}"
+        if isinstance(v, dict):
+            out.update(_flatten(v, key + _SEP))
+        else:
+            out[key] = (v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
+                        else np.asarray(v))
+    return out
+
+
+def _unflatten(flat: Dict[str, np.ndarray]):
+    tree: Dict = {}
+    for key, v in flat.items():
+        parts = key.split(_SEP)
+        node = tree
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = torch.from_numpy(np.array(v))
+    return tree
+
+
+def snapshot_paths(prefix: str, state) -> Tuple[str, str]:
+    it = int(state.solver.it)
+    return (f"{prefix}_iter_{it}.caffemodel",
+            f"{prefix}_iter_{it}.solverstate.npz")
+
+
+def snapshot(prefix: str, net, params, state) -> Tuple[str, str]:
+    """Write both artifacts (tmp + atomic rename); returns their paths."""
+    os.makedirs(os.path.dirname(prefix) or ".", exist_ok=True)
+    model_path, state_path = snapshot_paths(prefix, state)
+    pid = os.getpid()
+    tmp = f"{model_path}.tmp.{pid}"
+    with open(tmp, "wb") as f:
+        f.write(encode_caffemodel(net.name or "net",
+                                  net.export_weights(params)))
+    os.replace(tmp, model_path)
+
+    arrays = {"iter": np.asarray(int(state.solver.it)),
+              "kind": np.asarray("dense")}
+    arrays.update({f"params/{k}": v for k, v in _flatten(params).items()})
+    arrays.update({f"history/{k}": v
+                   for k, v in _flatten(state.solver.history).items()})
+    arrays.update({f"comm_error/{k}": v
+                   for k, v in _flatten(state.comm_error).items()})
+    tmp = f"{state_path}.tmp.{pid}"
+    with open(tmp, "wb") as f:
+        np.savez(f, **arrays)
+    os.replace(tmp, state_path)
+    return model_path, state_path
+
+
+def restore(state_path: str):
+    """(params, TrainState) from a dense .solverstate.npz, as CPU tensors.
+    SSP snapshots (``kind = "ssp"``) are not in the port yet and raise."""
+    from ..parallel.trainer import TrainState
+    from ..solvers.updates import SolverState
+    groups: Dict[str, Dict[str, np.ndarray]] = {}
+    it, kind = 0, "dense"
+    with np.load(state_path) as z:
+        for key in z.files:
+            if key == "iter":
+                it = int(z[key])
+            elif key == "kind":
+                kind = str(z[key])
+            else:
+                group, rest = key.split("/", 1)
+                groups.setdefault(group, {})[rest] = z[key]
+    if kind != "dense":
+        raise NotImplementedError(
+            f"{state_path}: {kind!r} snapshots are not in the port yet "
+            f"(dense only)")
+    state = TrainState(
+        solver=SolverState(it=it,
+                           history=_unflatten(groups.get("history", {}))),
+        comm_error=_unflatten(groups.get("comm_error", {})))
+    return _unflatten(groups.get("params", {})), state
 
 
 def restore_params(state_path: str) -> Dict[str, Dict[str, np.ndarray]]:
@@ -41,3 +130,22 @@ def load_caffemodel(path: str, net, params):
     with open(path, "rb") as f:
         weights = decode_caffemodel(f.read())
     return net.load_weights(params, weights)
+
+
+def latest_snapshot(prefix: str,
+                    suffix: str = ".solverstate.npz") -> Optional[str]:
+    """The newest ``<prefix>_iter_<N><suffix>`` by N, or None."""
+    d = os.path.dirname(prefix) or "."
+    base = os.path.basename(prefix)
+    best, best_it = None, -1
+    if not os.path.isdir(d):
+        return None
+    for name in os.listdir(d):
+        if name.startswith(base + "_iter_") and name.endswith(suffix):
+            try:
+                it = int(name[len(base + "_iter_"):-len(suffix)])
+            except ValueError:
+                continue
+            if it > best_it:
+                best, best_it = os.path.join(d, name), it
+    return best

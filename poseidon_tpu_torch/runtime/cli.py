@@ -1,14 +1,23 @@
-"""Command line of the port (the ``serve`` command of
-``poseidon_tpu/runtime/cli.py``)::
+"""Command line of the port (the ``train``, ``test`` and ``serve`` commands
+of ``poseidon_tpu/runtime/cli.py``)::
 
+    python -m poseidon_tpu_torch train --solver=<solver.prototxt> \\
+        [--snapshot=<.solverstate.npz>|auto] [--weights=<.caffemodel>] \\
+        [--output_dir .] [--device cuda|cpu]
+    python -m poseidon_tpu_torch test --model=<train_val.prototxt> \\
+        [--weights=<.caffemodel>] [--iterations 50] [--device cuda|cpu]
     python -m poseidon_tpu_torch serve --model=<deploy.prototxt> \\
         [--weights=<.caffemodel|.solverstate.npz>] [--buckets 1,4,16,64] \\
         [--host 127.0.0.1] [--port 0] [--max_delay_ms 5] [--max_queue 64] \\
         [--deadline_ms 0] [--device cuda|cpu]
 
-It warms every bucket, logs ``serve: listening on <host>:<port>``, serves
-until SIGTERM/SIGINT, drains every admitted request, prints one
-``serving_final_stats`` JSON line and exits 0.
+``train`` runs the solver on one GPU and writes the snapshots and the
+``<net>_train_outputs.csv`` / ``<net>_test<i>_outputs.csv`` files under
+``--output_dir``. ``test`` scores a net's TEST phase and prints one
+``<output>: <mean>`` line per scalar output. ``serve`` warms every bucket,
+logs ``serve: listening on <host>:<port>``, serves until SIGTERM/SIGINT,
+drains every admitted request, prints one ``serving_final_stats`` JSON line
+and exits 0. Every command runs on ``cuda`` unless ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -59,9 +68,84 @@ def cmd_serve(args) -> int:
     return 0
 
 
+def cmd_train(args) -> int:
+    from ..proto.messages import load_solver
+    from .engine import Engine
+
+    eng = Engine(load_solver(args.solver), output_dir=args.output_dir,
+                 device=args.device or None)
+    try:
+        if args.snapshot == "auto":
+            if eng.auto_resume() is None and args.weights:
+                eng.restore_from(args.weights)
+        elif args.snapshot:
+            eng.restore_from(args.snapshot)
+        elif args.weights:
+            eng.restore_from(args.weights)
+        eng.train()
+    finally:
+        eng.close()
+    return 0
+
+
+def cmd_test(args) -> int:
+    import torch
+
+    from ..core.net import Net
+    from ..data.pipeline import build_phase_pipelines
+    from ..parallel.trainer import build_eval_step
+    from ..proto.messages import load_net
+    from .checkpoint import load_caffemodel
+
+    net_param = load_net(args.model)
+    pipes, shapes = build_phase_pipelines(net_param, "TEST")
+    try:
+        net = Net(net_param, "TEST", device=args.device or None,
+                  source_shapes=shapes)
+        params = net.init(torch.Generator().manual_seed(0))
+        if args.weights:
+            params = load_caffemodel(args.weights, net, params)
+        ev = build_eval_step(net)
+        acc = {}
+        for _ in range(args.iterations):
+            batch = {}
+            for pipe in pipes:
+                for k, v in next(pipe).items():
+                    batch[k] = torch.from_numpy(v).to(net.device)
+            for k, v in ev(params, batch).items():
+                acc[k] = acc.get(k, 0.0) + float(v)
+    finally:
+        for p in pipes:
+            p.close()
+    for k in sorted(acc):
+        print(f"{k}: {acc[k] / args.iterations:.4f}", flush=True)
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="poseidon_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
+    t = sub.add_parser("train", help="train a model from a solver prototxt")
+    t.add_argument("--solver", required=True)
+    t.add_argument("--snapshot", default="",
+                   help="resume from a .solverstate.npz, or 'auto' for the "
+                        "newest one under the solver's snapshot_prefix")
+    t.add_argument("--weights", default="",
+                   help="initialize from a .caffemodel")
+    t.add_argument("--output_dir", default=".")
+    t.add_argument("--device", default="",
+                   help="cuda (the default; refuses to run without a GPU) "
+                        "or cpu")
+    t.set_defaults(fn=cmd_train)
+
+    te = sub.add_parser("test", help="score a net's TEST phase")
+    te.add_argument("--model", required=True)
+    te.add_argument("--weights", default="")
+    te.add_argument("--iterations", type=int, default=50)
+    te.add_argument("--device", default="",
+                    help="cuda (the default; refuses to run without a GPU) "
+                         "or cpu")
+    te.set_defaults(fn=cmd_test)
     sv = sub.add_parser("serve", help="serve a deploy net over TCP "
                                       "(dynamic micro-batching, bucketed "
                                       "executor)")

@@ -1,11 +1,53 @@
-"""Serving telemetry (the parts of ``poseidon_tpu/runtime/metrics.py`` the
-serving tier uses): ``log``, ``LatencyWindow`` and ``StatsRegistry``."""
+"""Telemetry (the parts of ``poseidon_tpu/runtime/metrics.py`` the port
+uses): ``log``, ``MetricsTable`` (the training and test output CSVs),
+``LatencyWindow`` and ``StatsRegistry`` (serving)."""
 
 from __future__ import annotations
 
+import os
 import threading
-from collections import deque
+import time
+from collections import defaultdict, deque
 from typing import Dict, List
+
+
+class MetricsTable:
+    """Per-window metric rows, written as the JAX engine's CSVs
+    (``<net>_train_outputs.csv``: iter,time,loss,...;
+    ``<net>_test<i>_outputs.csv``: iter,time,accuracy,loss)."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self.rows: List[Dict[str, float]] = []
+        self._window: Dict[str, List[float]] = defaultdict(list)
+        self._t0 = time.time()
+
+    def accumulate(self, metrics: Dict[str, float]) -> None:
+        for k, v in metrics.items():
+            self._window[k].append(float(v))
+
+    def flush_row(self, iteration: int) -> Dict[str, float]:
+        """Average the window into one row (keys sorted, as the JAX
+        engine's metrics dicts come back sorted) and start a new window."""
+        row = {"iter": iteration, "time": round(time.time() - self._t0, 3)}
+        for k in sorted(self._window):
+            vals = self._window[k]
+            row[k] = sum(vals) / max(len(vals), 1)
+        self._window.clear()
+        self.rows.append(row)
+        return row
+
+    def to_csv(self, path: str) -> None:
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        cols: List[str] = []
+        for row in self.rows:
+            for k in row:
+                if k not in cols:
+                    cols.append(k)
+        with open(path, "w") as f:
+            f.write(",".join(cols) + "\n")
+            for row in self.rows:
+                f.write(",".join(str(row.get(c, "")) for c in cols) + "\n")
 
 
 class StatsRegistry:

@@ -9,6 +9,13 @@ import pytest
 import torch
 
 from poseidon_tpu_torch.ops import lrn as port_lrn
+from poseidon_tpu_torch.ops import pool as port_pool
+from poseidon_tpu_torch.ops import sgd as port_sgd
+
+
+def _need_gpu():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
 
 
 @pytest.mark.gpu
@@ -31,3 +38,70 @@ def test_cuda_kernel_matches_plain_on_card(dtype, shape, local_size, tol):
     want = port_lrn.lrn_across_channels_plain(x, local_size, 1e-4, 0.75, 1.0)
     torch.testing.assert_close(got.float(), want.float(), rtol=tol,
                                atol=1e-6)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,shape,local_size,tol", [
+    (torch.float32, (4, 96, 55, 55), 5, 1e-5),
+    (torch.float32, (3, 37, 9, 9), 4, 1e-5),
+    (torch.bfloat16, (4, 256, 27, 27), 5, 2 ** -7),
+])
+def test_lrn_bwd_kernel_matches_plain_on_card(dtype, shape, local_size, tol):
+    """K5 through the autograd Function against the plain backward."""
+    _need_gpu()
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    g = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    xr = x.clone().requires_grad_(True)
+    before = port_lrn.LAUNCHES["lrn_bwd"]
+    port_lrn.lrn_across_channels(xr, local_size, 1e-4, 0.75, 1.0).backward(g)
+    torch.cuda.synchronize()
+    assert port_lrn.LAUNCHES["lrn_bwd"] == before + 1
+    want = port_lrn.lrn_bwd_plain(x, g, local_size, 1e-4, 0.75, 1.0)
+    torch.testing.assert_close(xr.grad.float(), want.float(), rtol=tol,
+                               atol=1e-6)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,shape,k,s,p,method", [
+    (torch.float32, (4, 96, 55, 55), 3, 2, 0, "max"),
+    (torch.bfloat16, (4, 256, 13, 13), 3, 2, 0, "max"),
+    (torch.float32, (2, 16, 13, 13), 2, 2, 1, "ave"),
+])
+def test_pool_bwd_kernel_matches_plain_on_card(dtype, shape, k, s, p, method):
+    """K6 through the autograd Function against the plain backward: the
+    same f32 sums in the same order, so bitwise."""
+    _need_gpu()
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    fn = port_pool.max_pool if method == "max" else port_pool.ave_pool
+    xr = x.clone().requires_grad_(True)
+    y = fn(xr, (k, k), (s, s), (p, p))
+    g = torch.randn(y.shape, generator=gen, device="cuda").to(dtype)
+    before = port_pool.LAUNCHES["pool_bwd"]
+    y.backward(g)
+    torch.cuda.synchronize()
+    assert port_pool.LAUNCHES["pool_bwd"] == before + 1
+    want = port_pool.pool_bwd_plain(x, g, (k, k), (s, s), (p, p), method)
+    assert torch.equal(xr.grad, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [4099, 60965224 + 7])
+def test_sgd_update_kernel_matches_plain_on_card(n):
+    """K7 against the plain rule: explicitly rounded, same order: bitwise."""
+    _need_gpu()
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    w = torch.randn(n, generator=gen, device="cuda")
+    g = torch.randn(n, generator=gen, device="cuda")
+    h = torch.randn(n, generator=gen, device="cuda") * 1e-3
+    seg = (torch.arange(n, device="cuda") // 97) % 2 == 1
+    lr = torch.where(seg, 2.0, 1.0).float()
+    dec = torch.where(seg, 0.0, 5e-4).float()
+    wk, hk, wp, hp = w.clone(), h.clone(), w.clone(), h.clone()
+    before = port_sgd.LAUNCHES["sgd_update"]
+    port_sgd.sgd_update_(wk, g, hk, 0.01, lr, dec, 0.9)
+    torch.cuda.synchronize()
+    assert port_sgd.LAUNCHES["sgd_update"] == before + 1
+    port_sgd.sgd_update_plain_(wp, g, hp, 0.01, lr, dec, 0.9)
+    assert torch.equal(wk, wp) and torch.equal(hk, hp)

@@ -65,6 +65,44 @@ def test_serve_cli_without_device_refuses():
               "--buckets", "1"])
 
 
+def test_engine_without_device_refuses():
+    _need_no_gpu()
+    from poseidon_tpu_torch.proto.messages import load_solver
+    from poseidon_tpu_torch.runtime.engine import Engine
+    sp = load_solver(os.path.join(REPO, "examples/mnist/lenet_solver.prototxt"))
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        Engine(sp)
+
+
+def test_train_and_test_cli_without_device_refuse(monkeypatch):
+    _need_no_gpu()
+    from poseidon_tpu_torch.runtime.cli import main
+    monkeypatch.chdir(REPO)
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        main(["train", "--solver=examples/mnist/lenet_solver.prototxt"])
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        main(["test", "--model=examples/mnist/lenet_train_test.prototxt",
+              "--iterations", "1"])
+
+
+def test_training_modules_import_neither_jax_nor_poseidon_tpu():
+    """The slice's new modules, each imported alone in a fresh process."""
+    mods = ["poseidon_tpu_torch.runtime.engine",
+            "poseidon_tpu_torch.parallel.trainer",
+            "poseidon_tpu_torch.solvers.updates",
+            "poseidon_tpu_torch.core.arena",
+            "poseidon_tpu_torch.data.pipeline",
+            "poseidon_tpu_torch.ops.pool", "poseidon_tpu_torch.ops.sgd"]
+    code = ("import importlib, sys\n"
+            f"for m in {mods!r}: importlib.import_module(m)\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'poseidon_tpu')]\n"
+            "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
 def test_resolve_device_is_pure():
     from poseidon_tpu_torch.numeric import resolve_device
     saved = (torch.backends.cudnn.allow_tf32,
@@ -98,7 +136,8 @@ def test_net_applies_f32_policy():
 
 def test_kernel_sources_and_build_dir():
     from poseidon_tpu_torch.ops import _build
-    assert _build.sources() == ["lrn_fwd"]
+    assert _build.sources() == ["lrn_bwd", "lrn_fwd", "pool_bwd",
+                                "sgd_update"]
     assert _build.BUILD_DIR == \
         __import__("pathlib").Path(REPO) / "build" / "poseidon_tpu_torch"
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
