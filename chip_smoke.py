@@ -18,13 +18,18 @@ Phases, in order; any failure exits non-zero without the final ``ok`` line:
    - pool_bwd (K6): pool1/pool2/pool5 MAX at batch 256 in f32, pool1 in
      bf16, a constant input (ties: first max wins), AVE with pad 1 and a
      ceil-mode clamp;
-   - sgd_update (K7): the AlexNet arena (60,965,224) and a ragged P+7.
-3. The serving slice: ``BucketedExecutor.from_files`` on AlexNet (3x227x227,
+   - sgd_update (K7): the AlexNet arena (60,965,224) and a ragged P+7;
+   - flash_fwd (K1): out and lse at the gpt_small prefill shapes
+     (1,12,16|64|256,64) f32 causal, (8,12,512,64) causal and not in f32
+     and bf16, the ring-chunk modes +1/0/-1 at (2,4,128,64), an odd
+     (1,3,48,16); the library yardstick is F.scaled_dot_product_attention.
+3. The CNN serving slice: ``BucketedExecutor.from_files`` on AlexNet (3x227x227,
    buckets 1/4/16/64, seeded filler weights) behind the port's
    ``InferenceServer`` on 127.0.0.1 port 0, driven by the port's
    ``ServingClient``. Launch counters are zeroed just before and read just
-   after: every forward must have launched the LRN kernel twice. Replies
-   are held against a direct ``Net`` forward on the card; one bucket-16
+   after: every forward must have launched the LRN kernel twice (and no
+   other kernel). Replies are held against a direct ``Net`` forward on the
+   card; one bucket-16
    forward is held against the same forward with the plain LRN on the card
    and against the CPU. Bucket-64 load runs LOAD_REQUESTS requests at one
    client and again at two; p50/p99 latency and img/s are printed with the
@@ -35,16 +40,32 @@ Phases, in order; any failure exits non-zero without the final ``ok`` line:
    ILSVRC-shaped LMDB written into a temporary directory (only the sources,
    the mean file and the cadence are overridden). Launch counters are
    zeroed just before and read just after: exactly 2 lrn_fwd per forward,
-   2 lrn_bwd, 3 pool_bwd and 1 sgd_update per step. Every loss must be
-   finite; the snapshot must restore bitwise. One step is held against the
+   2 lrn_bwd, 3 pool_bwd and 1 sgd_update per step, no flash_fwd. Every
+   loss must be finite; the snapshot must restore bitwise. One step is held against the
    same step with the plain versions swapped in on the card. Then the
    device step time (CUDA events over a fixed on-device batch), the loop's
    img/s and data-wait share, the top kernels of one profiled step and the
    peak device memory.
-5. Real data end to end: ``python -m poseidon_tpu_torch train`` on the
+5. The LM serving slice: ``serve --generate``'s executor
+   (``build_generate_executor("gpt_small")``: full width and depth, seeded
+   weights, page 64, rungs 1/2/4/8, prompt buckets 16/64/256) behind the
+   port's ``InferenceServer``, driven by the port's ``ServingClient``: a
+   seeded mix of LM_REQUESTS requests from LM_CLIENTS clients (prompts of
+   4..250 tokens hitting every bucket, max_new 32, a quarter streamed),
+   then LM_SOLO_REQUESTS from one client and one request alone. Launch
+   counters are zeroed just before and read just after: flash_fwd exactly
+   12 per prefill, no other kernel. Every reply has 32 tokens, every
+   streamed chunk list is cumulative, every page is free after the drain.
+   The alone-served request is held against the dense ``generate`` on the
+   card (tokens equal, logits within LM_TOL); one prefill's logits against
+   the CPU. Then time to first token and request latency p50/p99 with
+   their counts, generated tokens/s at 8 and 1 clients, CUDA-event prefill
+   time per bucket, per decode rung the profiled device busy time, the
+   CUDA-event span and the host wall time, and peak device memory.
+6. Real data end to end: ``python -m poseidon_tpu_torch train`` on the
    digits solver (1000 iterations, real UCI digits from the repo) into a
    temporary directory; the final test accuracy must reach DIGITS_MIN_ACC.
-6. One JSON line with every kernel's numbers, then the ``ok`` line.
+7. One JSON line with every kernel's numbers, then the ``ok`` line.
 """
 
 from __future__ import annotations
@@ -55,6 +76,7 @@ import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import traceback
 
@@ -82,6 +104,21 @@ LRN_ALPHA, LRN_BETA, LRN_K = 1e-4, 0.75, 1.0
 # kernel vs plain on the card: f32 differs by powf's last bits; bf16 may
 # flip one bf16 rounding step (2^-7 relative) where those bits sit on a tie
 KERNEL_TOL = {"float32": (1e-5, 1e-6), "bfloat16": (2 ** -7, 1e-6)}
+# flash_fwd (K1) vs plain: the kernel folds 64-key tiles with FMAs, the plain
+# version sums each row in one pass (the JAX package's own flash-vs-dense
+# test allows 2e-4/2e-5); bf16 out may flip one bf16 rounding step. lse is
+# f32 for both dtypes and is held at the f32 pair.
+FLASH_TOL = {"float32": (1e-4, 1e-5), "bfloat16": (2 ** -7, 1e-5)}
+# the LM serving slice: gpt_small at full width and depth (vocab 32768,
+# d 768, 12 heads, 12 layers, d_ff 3072, max_seq 512), seeded weights
+LM_PRESET = "gpt_small"
+LM_REQUESTS, LM_CLIENTS, LM_MAX_NEW = 64, 8, 32
+LM_SOLO_REQUESTS = 8
+LM_PROMPT_MIN, LM_PROMPT_MAX = 4, 250
+# logits of one request: paged (served) vs the dense generate on the card,
+# and one prefill on the card vs the CPU: f32 everywhere, but cuBLAS picks
+# other GEMM splits for other shapes and the CPU sums in another order
+LM_TOL = (1e-4, 1e-4)
 # whole-net comparisons (rtol, atol) on prob and every blob
 NET_TOL = (1e-4, 1e-6)
 # a training step with the kernels vs the same step with the plain versions
@@ -143,7 +180,8 @@ def bound_ms(nbytes: float, ops: float):
 
 def compare_case(kernel: str, label: str, got, want, dtype_name: str,
                  time_kernel, time_plain, time_library, nbytes: float,
-                 ops: float, card: str, extra: str = "") -> dict:
+                 ops: float, card: str, extra: str = "",
+                 tol=KERNEL_TOL) -> dict:
     """Hold a kernel's result against its plain version's (already computed
     on the same inputs), time kernel, plain and library, print one line and
     return the record; fails the smoke if they disagree."""
@@ -152,7 +190,7 @@ def compare_case(kernel: str, label: str, got, want, dtype_name: str,
     max_abs = float(diff.max()) if diff.numel() else 0.0
     max_rel = float((diff / want.float().abs().clamp_min(1e-30)).max()) \
         if diff.numel() else 0.0
-    rtol, atol = KERNEL_TOL[dtype_name]
+    rtol, atol = tol[dtype_name]
     ok = bool((diff <= atol + rtol * want.float().abs()).all())
     del diff
     ms = cuda_time_ms(time_kernel)
@@ -367,6 +405,103 @@ def phase_sgd(card: str, arena_total: int):
     return records
 
 
+def profiled_device_ms(fn, key: str = "", reps: int = 10) -> float:
+    """Device time of one call of ``fn``: the durations of its device ops
+    whose name holds ``key`` (all of them for ""), summed over ``reps``
+    calls under torch.profiler, divided by ``reps``."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA and key in e.name)
+    return us / reps / 1e3
+
+
+def flash_cases():
+    """(label, shape, dtype, causal, mode) of the K1 checks: the gpt_small
+    prefill launches first (the main path), then long and odd shapes."""
+    import torch
+    f32, bf16 = torch.float32, torch.bfloat16
+    return ([(f"prefill {s}", (1, 12, s, 64), f32, True, None)
+             for s in (16, 64, 256)]
+            + [("long causal", (8, 12, 512, 64), f32, True, None),
+               ("long", (8, 12, 512, 64), f32, False, None),
+               ("long causal", (8, 12, 512, 64), bf16, True, None),
+               ("long", (8, 12, 512, 64), bf16, False, None),
+               ("ring mode +1", (2, 4, 128, 64), f32, True, 1),
+               ("ring mode 0", (2, 4, 128, 64), f32, True, 0),
+               ("ring mode -1", (2, 4, 128, 64), f32, True, -1),
+               ("odd", (1, 3, 48, 16), f32, True, None)])
+
+
+def phase_flash(card: str):
+    """flash_fwd (K1) vs plain on the card, out and lse; returns the
+    per-case records (each lse error is folded into the record's max)."""
+    import torch
+    import torch.nn.functional as F
+    from poseidon_tpu_torch.ops import flash
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    records = []
+    for label, shape, dtype, causal, mode in flash_cases():
+        q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
+                   for _ in range(3))
+        out, lse = flash.flash_fwd_cuda(q, k, v, causal, None, mode)
+        torch.cuda.synchronize()
+        want_o, want_l = flash.flash_attention_fwd_plain(q, k, v, causal,
+                                                         None, mode)
+        dtype_name = str(dtype).replace("torch.", "")
+        rtol, atol = FLASH_TOL["float32"]
+        lse_err = float((lse - want_l).abs().max())
+        check(bool(torch.allclose(lse, want_l, rtol=rtol, atol=atol)),
+              f"flash_fwd lse disagrees with its plain version on {label} "
+              f"{dtype_name}: max_abs {lse_err}")
+        library = None
+        if mode is None or mode >= 0:
+            is_causal = causal and mode != 1
+            library = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                q, k, v, is_causal=is_causal)
+        b, h, s, d = shape
+        live = 0.5 if causal and mode in (None, 0) else 1.0
+        rec = compare_case(
+            "flash_fwd", label, out, want_o, dtype_name,
+            lambda: flash.flash_fwd_cuda(q, k, v, causal, None, mode),
+            lambda: flash.flash_attention_fwd_plain(q, k, v, causal, None,
+                                                    mode),
+            library, 4 * q.numel() * q.element_size() + b * h * s * 4,
+            4.0 * b * h * s * s * d * live, card,
+            extra=f" {tuple(shape)} causal={causal} mode={mode} lse "
+                  f"max_abs={lse_err:.3e}", tol=FLASH_TOL)
+        # small launches are paced by the host (wrapper, ctypes): the
+        # profiler's kernel durations give the device's share alone
+        dev = {"kernel": profiled_device_ms(
+                   lambda: flash.flash_fwd_cuda(q, k, v, causal, None, mode),
+                   key="flash_fwd_kernel"),
+               "plain": profiled_device_ms(
+                   lambda: flash.flash_attention_fwd_plain(q, k, v, causal,
+                                                           None, mode)),
+               "library": (None if library is None
+                           else profiled_device_ms(library))}
+        print(f"[flash_fwd] {label} {dtype_name}: device time a call "
+              f"(torch.profiler, mean of 10): kernel {dev['kernel']:.4f} ms, "
+              f"plain {dev['plain']:.4f} ms, library "
+              + ("n/a" if dev["library"] is None
+                 else f"{dev['library']:.4f} ms") + f" [{card}]", flush=True)
+        rec.update(shape=list(shape), causal=causal, mode=mode,
+                   lse_max_abs_err=lse_err, device_ms=dev,
+                   max_abs_err=max(rec["max_abs_err"], lse_err))
+        records.append(rec)
+        del q, k, v, out, lse, want_o, want_l, library
+    return records
+
+
 def sync(device) -> None:
     import torch
     if torch.device(device).type == "cuda":
@@ -420,8 +555,9 @@ def phase_slice(card: str, device=None,
     check(launches == 2 * forwards,
           f"lrn_fwd launched {launches} times for {forwards} forwards "
           f"(expected 2 per forward)")
-    check(counts["lrn_bwd"] == counts["pool_bwd"] == counts["sgd_update"] == 0,
-          f"serving launched a training kernel: {counts}")
+    check(counts["lrn_bwd"] == counts["pool_bwd"] == counts["sgd_update"]
+          == counts["flash_fwd"] == 0,
+          f"CNN serving launched a kernel of another path: {counts}")
     for run in (solo, load):
         check(run["ok"] == run["requests"], f"bucket-64 load failed: {run}")
         img_s = 64 * run["ok"] / run["wall_s"]
@@ -546,15 +682,16 @@ def phase_breakdown(ex, card: str, p50_socket_ms: float) -> None:
 
 
 def zero_launches() -> None:
-    from poseidon_tpu_torch.ops import lrn, pool, sgd
-    for table in (lrn.LAUNCHES, pool.LAUNCHES, sgd.LAUNCHES):
+    from poseidon_tpu_torch.ops import flash, lrn, pool, sgd
+    for table in (lrn.LAUNCHES, pool.LAUNCHES, sgd.LAUNCHES, flash.LAUNCHES):
         for k in table:
             table[k] = 0
 
 
 def read_launches() -> dict:
-    from poseidon_tpu_torch.ops import lrn, pool, sgd
-    return {**lrn.LAUNCHES, **pool.LAUNCHES, **sgd.LAUNCHES}
+    from poseidon_tpu_torch.ops import flash, lrn, pool, sgd
+    return {**lrn.LAUNCHES, **pool.LAUNCHES, **sgd.LAUNCHES,
+            **flash.LAUNCHES}
 
 
 def write_synthetic_ilsvrc(root: str):
@@ -783,7 +920,7 @@ def phase_train(card: str, root: str, device=None, batch_size=None) -> dict:
         test_forwards = TEST_ITER * (1 + TRAIN_ITERS // TEST_INTERVAL)
         want = {"lrn_fwd": 2 * (steps + test_forwards),
                 "lrn_bwd": 2 * steps, "pool_bwd": 3 * steps,
-                "sgd_update": steps}
+                "sgd_update": steps, "flash_fwd": 0}
         print(f"[train] Engine.train(): {steps} steps + {test_forwards} test "
               f"forwards in {wall:.2f} s; launches {counts} (expected "
               f"{want})", flush=True)
@@ -863,6 +1000,292 @@ def phase_digits(card: str) -> float:
     return acc
 
 
+def lm_traffic(ex, n_requests: int, seed: int = 0):
+    """A seeded mix of prompts: lengths uniform in [LM_PROMPT_MIN,
+    min(LM_PROMPT_MAX, largest bucket)], the first of them one per prompt
+    bucket so every bucket is hit; token ids uniform over the vocabulary."""
+    import numpy as np
+    rs = np.random.RandomState(seed)
+    hi = min(LM_PROMPT_MAX, ex.prompt_buckets[-1])
+    lengths = rs.randint(LM_PROMPT_MIN, hi + 1, size=n_requests)
+    lengths[:len(ex.prompt_buckets)] = [min(b, hi) for b in ex.prompt_buckets]
+    return [rs.randint(0, ex.cfg.vocab_size, size=int(n)).astype(np.int32)
+            for n in lengths]
+
+
+def paged_logits(ex, prompt, max_new: int):
+    """One request through the executor's paged path by hand (bucketed
+    prefill, then rung-1 decode steps): (tokens, per-step logits)."""
+    import numpy as np
+    sid = -1
+    ex.pool.alloc(sid, ex.reserve_len(len(prompt), max_new))
+    try:
+        logits, caches = ex.prefill(prompt)
+        ex.pool.write_prefill(sid, caches)
+        table = ex.pool.table([sid])
+        steps = [logits]
+        pos = len(prompt)
+        for _ in range(max_new - 1):
+            tok = np.array([int(np.argmax(steps[-1]))])
+            steps.append(ex.decode(tok, table, np.array([pos]))[0])
+            pos += 1
+    finally:
+        ex.pool.free(sid)
+    logits = np.stack(steps)
+    return np.argmax(logits, axis=-1), logits
+
+
+def phase_lm(card: str, device=None, preset: str = LM_PRESET,
+             n_requests: int = LM_REQUESTS,
+             solo_requests: int = LM_SOLO_REQUESTS) -> dict:
+    """The LM serving slice: ``serve --generate``'s executor behind the
+    port's InferenceServer, driven by the port's ServingClient. ``device``,
+    ``preset`` and the request counts are for a CPU rehearsal only."""
+    import numpy as np
+    import torch
+    from poseidon_tpu_torch.models.generate import generate, prefill_cached
+    from poseidon_tpu_torch.runtime.cli import build_generate_executor
+    from poseidon_tpu_torch.serving.client import ServingClient, run_load
+    from poseidon_tpu_torch.serving.server import InferenceServer
+
+    on_card = torch.device(device or "cuda").type == "cuda"
+    if on_card:
+        # the slice's own peak: weights, KV pool and activations above
+        # whatever earlier phases still hold
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    ex = build_generate_executor(preset, device=device)
+    cfg = ex.cfg
+    pool_bytes = sum(t.numel() * t.element_size()
+                     for pair in ex.pool.caches for t in pair)
+    print(f"[lm] {preset} on {ex.device}: {cfg.n_params()} params (vocab "
+          f"{cfg.vocab_size}, d {cfg.d_model}, {cfg.n_heads} heads, "
+          f"{cfg.n_layers} layers, d_ff {cfg.d_ff}, max_seq {cfg.max_seq}); "
+          f"page {ex.page_size}, rungs {ex.decode_rungs}, buckets "
+          f"{ex.prompt_buckets}; KV pool {ex.pool.num_pages} pages = "
+          f"{pool_bytes / 1e6:.1f} MB; built and warmed in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    if preset == "gpt_small":
+        check(cfg.n_params() == 135_697_920, f"gpt_small has "
+                                              f"{cfg.n_params()} params")
+    prompts = lm_traffic(ex, n_requests)
+    streamed = {}                 # request index -> [t_submit, t_first, chunks]
+    lock = threading.Lock()
+
+    def make_inputs(i):
+        inputs = {"prompt": prompts[i % len(prompts)],
+                  "max_new": LM_MAX_NEW}
+        if i % 4 == 0:
+            rec = [time.monotonic(), None, []]
+            with lock:
+                streamed[i] = rec
+
+            def on_tokens(toks, rec=rec):
+                if rec[1] is None:
+                    rec[1] = time.monotonic()
+                rec[2].append(len(toks))
+            inputs["on_tokens"] = on_tokens
+        return inputs
+
+    alone = prompts[1][:64]
+    zero_launches()
+    prefills0 = ex.prefills
+    server = InferenceServer(ex, port=0)
+    try:
+        load = run_load(server.addr, make_inputs, n_requests=n_requests,
+                        concurrency=LM_CLIENTS, op="generate")
+        sched = server.batcher.snapshot()
+        streamed_load = dict(streamed)
+        solo = run_load(server.addr, make_inputs, n_requests=solo_requests,
+                        concurrency=1, op="generate")
+        cli = ServingClient(server.addr)
+        try:
+            served_alone = cli.generate(alone, max_new=LM_MAX_NEW)
+        finally:
+            cli.close()
+    finally:
+        server.shutdown()
+    sync(ex.device)
+    counts = read_launches()
+    prefills = ex.prefills - prefills0
+    peak = torch.cuda.max_memory_allocated() - base if on_card else 0
+    per_prefill = cfg.n_layers if on_card else 0
+    print(f"[lm] {prefills} prefills, decode steps per rung "
+          f"{ex.decode_calls}; launches {counts} (flash_fwd expected "
+          f"{per_prefill} x {prefills})", flush=True)
+    check(counts["flash_fwd"] == per_prefill * prefills,
+          f"flash_fwd launched {counts['flash_fwd']} times for {prefills} "
+          f"prefills (expected {per_prefill} per prefill)")
+    check(all(v == 0 for k, v in counts.items() if k != "flash_fwd"),
+          f"LM serving launched a CNN kernel: {counts}")
+    for run, n in ((load, n_requests), (solo, solo_requests)):
+        check(run["ok"] == n and run["tokens"] == n * LM_MAX_NEW,
+              f"generate load: {run} (expected {n} replies of "
+              f"{LM_MAX_NEW} tokens)")
+    check(ex.pool.all_free(), "KV pages leaked after the drain")
+    for i, (_, t_first, chunks) in streamed_load.items():
+        check(chunks == list(range(1, LM_MAX_NEW + 1)),
+              f"request {i}: streamed chunk lengths {chunks}")
+    buckets_hit = sorted({ex.prompt_bucket_for(len(p)) for p in prompts})
+    check(buckets_hit == list(ex.prompt_buckets),
+          f"traffic hit buckets {buckets_hit}")
+    ttft = sched["ttft"]
+    client_ttft = sorted((t1 - t0_) * 1e3 for t0_, t1, _ in
+                         streamed_load.values())
+    print(f"[lm] {n_requests} requests from {LM_CLIENTS} clients (prompts "
+          f"{LM_PROMPT_MIN}..{max(len(p) for p in prompts)} tokens, max_new "
+          f"{LM_MAX_NEW}, {len(streamed_load)} streamed) in "
+          f"{load['wall_s']:.3f} s: request latency p50 {load['p50_ms']} ms "
+          f"p99 {load['p99_ms']} ms (n={load['ok']}); time to first token "
+          f"p50 {ttft.get('p50_ms')} ms p99 {ttft.get('p99_ms')} ms "
+          f"(n={ttft.get('count')}, scheduler: submit to first token; "
+          f"streamed clients see p50 "
+          f"{client_ttft[len(client_ttft) // 2]:.3f} ms, n="
+          f"{len(client_ttft)}); {load['goodput_tps']:.1f} generated "
+          f"tokens/s at {LM_CLIENTS} clients; decode batch fill "
+          f"{sched['fill']:.3f} [{card}]", flush=True)
+    print(f"[lm] {solo_requests} requests from 1 client: p50 "
+          f"{solo['p50_ms']} ms p99 {solo['p99_ms']} ms (n={solo['ok']}), "
+          f"{solo['goodput_tps']:.1f} generated tokens/s; the slice's peak "
+          f"device memory (weights, pool, activations) {peak / 2**30:.3f} "
+          f"GiB [{card}]", flush=True)
+
+    # the request served alone vs the dense generate on the same device
+    toks_p, logits_p = paged_logits(ex, alone, LM_MAX_NEW)
+    toks_d, logits_d = generate(ex._params, cfg,
+                                torch.from_numpy(alone[None]).to(ex.device),
+                                LM_MAX_NEW)
+    toks_d, logits_d = toks_d[0].cpu().numpy(), logits_d[0].cpu().numpy()
+    rtol, atol = LM_TOL
+    err = float(np.abs(logits_p - logits_d).max())
+    print(f"[lm] alone-served request ({len(alone)} prompt tokens): served "
+          f"tokens == paged tokens == dense generate tokens: "
+          f"{np.array_equal(served_alone['tokens'], toks_p)} / "
+          f"{np.array_equal(toks_p, toks_d)}; paged vs dense logits max_abs "
+          f"{err:.3e} (rtol {rtol:g}, atol {atol:g})", flush=True)
+    check(np.array_equal(served_alone["tokens"], toks_p)
+          and np.array_equal(toks_p, toks_d),
+          "the alone-served request's tokens differ from the dense path")
+    check(bool(np.allclose(logits_p, logits_d, rtol=rtol, atol=atol)),
+          f"paged and dense logits disagree ({err})")
+
+    # one prefill on the device vs the same prefill on the CPU
+    bucket = ex.prompt_buckets[min(1, len(ex.prompt_buckets) - 1)]
+    toks = np.zeros((1, bucket), np.int64)
+    toks[0, :len(prompts[2][:bucket])] = prompts[2][:bucket]
+    last = torch.tensor([min(len(prompts[2]), bucket) - 1])
+    cpu_params = {n: {l: v.cpu() for l, v in d.items()}
+                  for n, d in ex._params.items()}
+    with torch.inference_mode():
+        dev_logits, _ = prefill_cached(ex._params, cfg,
+                                       torch.from_numpy(toks).to(ex.device),
+                                       last.to(ex.device), bucket)
+        cpu_logits, _ = prefill_cached(cpu_params, cfg,
+                                       torch.from_numpy(toks), last, bucket)
+    dev_logits = dev_logits.cpu()
+    err_cpu = float((dev_logits - cpu_logits).abs().max())
+    print(f"[lm] bucket-{bucket} prefill first-token logits, {ex.device} vs "
+          f"CPU: max_abs {err_cpu:.3e} (rtol {rtol:g}, atol {atol:g})",
+          flush=True)
+    check(bool(torch.allclose(dev_logits, cpu_logits, rtol=rtol, atol=atol)),
+          f"prefill logits on {ex.device} and the CPU disagree ({err_cpu})")
+    del cpu_params
+
+    out = {"requests": n_requests, "clients": LM_CLIENTS,
+           "max_new": LM_MAX_NEW, "prefills": prefills,
+           "flash_launches": counts["flash_fwd"],
+           "decode_calls": dict(ex.decode_calls),
+           "p50_ms": load["p50_ms"], "p99_ms": load["p99_ms"],
+           "ttft": ttft, "tokens_per_s_8": load["goodput_tps"],
+           "tokens_per_s_1": solo["goodput_tps"],
+           "solo_p50_ms": solo["p50_ms"], "peak_bytes": peak,
+           "pool_bytes": pool_bytes, "alone_logits_max_abs": err,
+           "cpu_logits_max_abs": err_cpu}
+    if on_card:
+        out.update(phase_lm_timing(ex, card))
+    return out
+
+
+def phase_lm_timing(ex, card: str) -> dict:
+    """CUDA-event prefill time per bucket; per decode rung the device busy
+    time of a step (the sum of its device ops in torch.profiler, over 5
+    profiled steps), its CUDA-event span and its host wall time (tensors
+    in, logits back on the host; unprofiled, mean of 10), whose ratio is
+    the busy share; the top kernels of a step at the largest rung."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from poseidon_tpu_torch.models.generate import prefill_cached
+
+    prefill_ms = {}
+    with torch.inference_mode():
+        for b in ex.prompt_buckets:
+            toks = torch.zeros((1, b), dtype=torch.long, device=ex.device)
+            last = torch.tensor([b - 1], device=ex.device)
+            prefill_ms[b] = cuda_time_ms(
+                lambda: prefill_cached(ex._params, ex.cfg, toks, last, b),
+                warmup=2, reps=10)
+    print("[lm] prefill (CUDA events, mean of 10): " + ", ".join(
+        f"bucket {b} {ms:.3f} ms" for b, ms in prefill_ms.items())
+        + f" [{card}]", flush=True)
+    b = ex.prompt_buckets[-1]
+    toks = torch.zeros((1, b), dtype=torch.long, device=ex.device)
+    last = torch.tensor([b - 1], device=ex.device)
+    with torch.inference_mode():
+        prefill_busy = profiled_device_ms(
+            lambda: prefill_cached(ex._params, ex.cfg, toks, last, b))
+        prefill_flash = profiled_device_ms(
+            lambda: prefill_cached(ex._params, ex.cfg, toks, last, b),
+            key="flash_fwd_kernel")
+    print(f"[lm] bucket-{b} prefill: device busy {prefill_busy:.4f} ms "
+          f"(torch.profiler, mean of 10), of which flash_fwd "
+          f"{prefill_flash:.4f} ms in {ex.cfg.n_layers} launches [{card}]",
+          flush=True)
+    decode = {}
+    width = ex.pool.max_pages_per_seq
+    steps = 5
+    top = []
+    for r in ex.decode_rungs:
+        args = (np.zeros((r,), np.int64), np.zeros((r, width), np.int64),
+                np.zeros((r,), np.int64))
+        span = cuda_time_ms(lambda: ex._run_decode(*args), warmup=2, reps=10)
+        t0 = time.perf_counter()
+        for _ in range(10):
+            ex._run_decode(*args)       # returns host logits: synchronizes
+        wall = (time.perf_counter() - t0) / 10 * 1e3
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(steps):
+                ex._run_decode(*args)
+            torch.cuda.synchronize()
+        per_kernel, launches = {}, 0
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                launches += 1
+                per_kernel[e.name] = (per_kernel.get(e.name, 0.0)
+                                      + e.time_range.elapsed_us())
+        busy = sum(per_kernel.values()) / steps / 1e3
+        decode[r] = {"device_busy_ms": busy, "cuda_event_ms": span,
+                     "host_wall_ms": wall,
+                     "busy_share": busy / wall if wall else None,
+                     "device_ops_per_step": launches / steps}
+        top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:6]
+        print(f"[lm] decode rung {r}: device busy {busy:.3f} ms "
+              f"(torch.profiler, {launches / steps:.0f} device ops a step), "
+              f"CUDA-event span {span:.3f} ms, host wall {wall:.3f} ms a "
+              f"step: busy share {decode[r]['busy_share']:.3f} [{card}]",
+              flush=True)
+    if top:
+        print(f"[lm] rung {ex.decode_rungs[-1]} step, top kernels (mean ms "
+              f"a step):", flush=True)
+        for name, us in top:
+            print(f"  {us / steps / 1e3:8.4f} ms  {name[:90]}", flush=True)
+    return {"prefill_ms": prefill_ms, "prefill_busy_ms": prefill_busy,
+            "prefill_flash_ms": prefill_flash, "decode": decode}
+
+
 def kernel_entry(name: str, replaces: str, launches: int, records,
                  main_cases, **extra) -> dict:
     """One kernel's entry of the JSON line: launches on the main path, the
@@ -909,6 +1332,7 @@ def main() -> int:
         k5 = phase_lrn_bwd(card)
         k6 = phase_pool_bwd(card)
         k7 = phase_sgd(card, arena_total)
+        k1 = phase_flash(card)
         serving_launches, ex, solo = phase_slice(card)
         phase_net_checks(ex)
         phase_breakdown(ex, card, solo["p50_ms"])
@@ -916,6 +1340,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         with tempfile.TemporaryDirectory() as root:
             train = phase_train(card, root)
+        torch.cuda.empty_cache()
+        lm = phase_lm(card)
         torch.cuda.empty_cache()
         digits_acc = phase_digits(card)
     except Exception:  # noqa: BLE001 — any failed phase fails the smoke
@@ -934,12 +1360,21 @@ def main() -> int:
                      launches["pool_bwd"], k6, ("pool1", "pool2", "pool5")),
         kernel_entry("sgd_update", "poseidon_tpu/ops/pallas_kernels.py:838",
                      launches["sgd_update"], k7, ("alexnet arena",)),
+        kernel_entry("flash_fwd", "poseidon_tpu/ops/pallas_kernels.py:77",
+                     lm["flash_launches"], k1, ("prefill 256",),
+                     launches_by_path={"lm_serving": lm["flash_launches"],
+                                       "cnn_serving": 0,
+                                       "cnn_training": launches["flash_fwd"]},
+                     launches_per_prefill=(lm["flash_launches"]
+                                           // max(1, lm["prefills"])),
+                     profiled_ms_per_prefill_256=lm["prefill_flash_ms"]),
     ]
     summary = {"train_step_ms": train["step_ms"],
                "train_peak_bytes": train["peak_bytes"],
                "train_loop": train["loop"],
                "train_port_kernels": train["port_kernels"],
                "digits_final_accuracy": digits_acc,
+               "lm_serving": lm,
                "wall_s": time.perf_counter() - t_start}
     print(f"[summary] {json.dumps(summary)}", flush=True)
     print(card, flush=True)

@@ -14,8 +14,11 @@ micro-batcher -> socket server, with the cross-channel LRN forward as a
 CUDA kernel. Slice 2 is single-device training: LMDB data pipeline ->
 ``Net`` with its loss -> a train step over one flat parameter arena ->
 ``Engine`` and the ``train``/``test`` commands, with the LRN backward, the
-pooling backward and the fused SGD update as CUDA kernels. Entry points
-run on ``cuda`` unless the caller passes ``device="cpu"``.
+pooling backward and the fused SGD update as CUDA kernels. Slice 3 is LM
+serving: the transformer (``models``) -> bucketed prefill through the
+flash-attention forward (a CUDA kernel) -> paged KV pool -> continuous
+batching -> the ``generate`` wire op and ``serve --generate``. Entry
+points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
 
 __version__ = "0.1.0"

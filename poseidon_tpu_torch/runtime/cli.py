@@ -10,6 +10,9 @@ of ``poseidon_tpu/runtime/cli.py``)::
         [--weights=<.caffemodel|.solverstate.npz>] [--buckets 1,4,16,64] \\
         [--host 127.0.0.1] [--port 0] [--max_delay_ms 5] [--max_queue 64] \\
         [--deadline_ms 0] [--device cuda|cpu]
+    python -m poseidon_tpu_torch serve --generate --model tiny|gpt_small \
+        [--host 127.0.0.1] [--port 0] [--max_queue 64] [--deadline_ms 0] \
+        [--device cuda|cpu]
 
 ``train`` runs the solver on one GPU and writes the snapshots and the
 ``<net>_train_outputs.csv`` / ``<net>_test<i>_outputs.csv`` files under
@@ -17,7 +20,10 @@ of ``poseidon_tpu/runtime/cli.py``)::
 ``<output>: <mean>`` line per scalar output. ``serve`` warms every bucket,
 logs ``serve: listening on <host>:<port>``, serves until SIGTERM/SIGINT,
 drains every admitted request, prints one ``serving_final_stats`` JSON line
-and exits 0. Every command runs on ``cuda`` unless ``--device cpu``.
+and exits 0. ``serve --generate`` serves a transformer preset with seeded
+weights (paged KV cache, continuous batching, the ``generate`` wire op)
+behind the same front door and the same shutdown. Every command runs on
+``cuda`` unless ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -29,17 +35,65 @@ from typing import List, Optional
 
 from .metrics import log
 
+LLM_PRESETS = ("tiny", "gpt_small")
+
+
+def build_generate_executor(preset: str, device=None):
+    """A warmed paged-KV ``GenerateExecutor`` over a named transformer
+    preset with seeded weights (``--generate`` has no snapshot format yet,
+    as in the JAX package), with the built-in page size, decode rungs and
+    prompt buckets."""
+    import torch
+
+    from ..models.transformer import (TransformerConfig, gpt_small_config,
+                                      init_params)
+    from ..numeric import resolve_device
+    from ..serving.continuous import (DEFAULT_DECODE_RUNGS,
+                                      DEFAULT_PAGE_SIZE,
+                                      DEFAULT_PROMPT_BUCKETS,
+                                      GenerateExecutor)
+
+    device = resolve_device(device)   # refuse before drawing weights
+    if preset == "gpt_small":
+        cfg = gpt_small_config(max_seq=512)
+    elif preset == "tiny":
+        cfg = TransformerConfig(vocab_size=256, d_model=32, n_heads=4,
+                                n_layers=2, d_ff=128, max_seq=128)
+    else:
+        raise SystemExit(
+            f"--generate serves a transformer preset, not a deploy "
+            f"prototxt; --model must be one of {'|'.join(LLM_PRESETS)} "
+            f"(got {preset!r})")
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    # a preset smaller than the default ladder drops the buckets it cannot
+    # hold rather than refusing to serve
+    buckets = tuple(b for b in DEFAULT_PROMPT_BUCKETS if b < cfg.max_seq)
+    return GenerateExecutor(cfg, params, page_size=DEFAULT_PAGE_SIZE,
+                            decode_rungs=DEFAULT_DECODE_RUNGS,
+                            prompt_buckets=buckets, device=device)
+
 
 def cmd_serve(args) -> int:
-    from ..serving.executor import BucketedExecutor, parse_buckets
     from ..serving.server import InferenceServer
 
-    executor = BucketedExecutor.from_files(
-        args.model, args.weights or None, buckets=parse_buckets(args.buckets),
-        device=args.device or None)
-    log(f"serve: warmed buckets {executor.buckets} on {executor.device} "
-        f"({executor.net.name or 'net'}, {executor.net.param_count()} "
-        f"params)")
+    if args.generate:
+        if args.weights:
+            raise SystemExit("--generate serves seeded preset weights; "
+                             "--weights has no LLM snapshot format yet")
+        executor = build_generate_executor(args.model,
+                                           device=args.device or None)
+        log(f"serve: warmed generate executor ({args.model}, "
+            f"{executor.cfg.n_params()} params, page_size="
+            f"{executor.page_size}, rungs={executor.decode_rungs}, "
+            f"buckets={executor.prompt_buckets}) on {executor.device}")
+    else:
+        from ..serving.executor import BucketedExecutor, parse_buckets
+        executor = BucketedExecutor.from_files(
+            args.model, args.weights or None,
+            buckets=parse_buckets(args.buckets), device=args.device or None)
+        log(f"serve: warmed buckets {executor.buckets} on {executor.device} "
+            f"({executor.net.name or 'net'}, {executor.net.param_count()} "
+            f"params)")
     if args.host not in ("127.0.0.1", "localhost", "::1"):
         log(f"serve: WARNING: binding {args.host!r} — the wire format is "
             f"pickled frames (arbitrary code execution for anyone who can "
@@ -49,7 +103,8 @@ def cmd_serve(args) -> int:
         max_delay_s=args.max_delay_ms / 1e3, max_queue=args.max_queue,
         default_deadline_s=(args.deadline_ms / 1e3
                             if args.deadline_ms > 0 else None))
-    log(f"serve: listening on {server.host}:{server.port}")
+    log(f"serve: listening on {server.host}:{server.port}"
+        + (" (generate op)" if args.generate else ""))
 
     def _graceful(signum, frame):
         log(f"serve: signal {signum}; draining in-flight requests")
@@ -148,8 +203,15 @@ def build_parser() -> argparse.ArgumentParser:
     te.set_defaults(fn=cmd_test)
     sv = sub.add_parser("serve", help="serve a deploy net over TCP "
                                       "(dynamic micro-batching, bucketed "
-                                      "executor)")
-    sv.add_argument("--model", required=True, help="deploy prototxt")
+                                      "executor), or with --generate a "
+                                      "transformer LM (continuous batching)")
+    sv.add_argument("--model", required=True,
+                    help="deploy prototxt; with --generate a preset: "
+                         + "|".join(LLM_PRESETS))
+    sv.add_argument("--generate", action="store_true",
+                    help="serve the generate op: paged KV cache and "
+                         "continuous batching over a seeded transformer "
+                         "preset")
     sv.add_argument("--weights", default="",
                     help="a .caffemodel or .solverstate.npz to serve; "
                          "empty serves filler init (smoke mode)")

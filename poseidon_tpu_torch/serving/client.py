@@ -1,11 +1,13 @@
-"""Blocking serving client + load generator (the infer path of
-``poseidon_tpu/serving/client.py``, same wire protocol).
+"""Blocking serving client + load generator (the infer and generate paths
+of ``poseidon_tpu/serving/client.py``, same wire protocol).
 
 A connection that dies mid-request is redialed and the request RESENT with
 capped exponential backoff and full jitter (``runtime/retry.py``), which is
-safe because ``infer`` is read-only. A shed reply is the server's explicit
-backpressure signal and surfaces as :class:`ServingError` with
-``shed=True``; retrying into a full queue is the caller's decision.
+safe because ``infer`` is read-only (and a resent ``generate`` restarts
+its sequence: streamed chunks are cumulative). A shed reply is the
+server's explicit backpressure signal and surfaces as
+:class:`ServingError` with ``shed=True``; retrying into a full queue is the
+caller's decision.
 """
 
 from __future__ import annotations
@@ -72,18 +74,32 @@ class ServingClient:
         sk.settimeout(None)   # established: block (slow != dead)
         return sk
 
-    def _rpc(self, msg: Dict) -> Dict:
+    def _rpc(self, msg: Dict, on_tokens: Optional[Callable] = None) -> Dict:
+        """Send one request and return its reply. With ``on_tokens``, the
+        ``gen_chunk`` frames before the reply feed it; a resend stays safe
+        mid-stream because each chunk carries the CUMULATIVE tokens, so a
+        restarted generation replays the prefix."""
+        def exchange(sock: socket.socket) -> Dict:
+            send_frame(sock, msg)
+            while True:
+                reply = recv_frame(sock)
+                if on_tokens is None or not isinstance(reply, dict) \
+                        or reply.get("kind") != "gen_chunk":
+                    return reply
+                try:
+                    on_tokens([int(t) for t in reply["tokens"]])
+                except Exception:  # noqa: BLE001 — a broken sink must not
+                    pass           # kill the stream consumption
+
         try:
-            send_frame(self._sock, msg)
-            return recv_frame(self._sock)
+            return exchange(self._sock)
         except (OSError, EOFError) as e:
             first_err = e
 
         def attempt() -> Dict:
             sk = self._dial()
             try:
-                send_frame(sk, msg)
-                out = recv_frame(sk)
+                out = exchange(sk)
             except BaseException:
                 sk.close()
                 raise
@@ -107,19 +123,41 @@ class ServingClient:
         self.reconnects += 1
         return reply
 
-    # ---- ops -------------------------------------------------------------- #
-    def infer(self, inputs: Dict[str, np.ndarray],
-              deadline_ms: Optional[float] = None) -> Dict[str, np.ndarray]:
-        msg: Dict = {"kind": "infer", "inputs": inputs}
-        if deadline_ms is not None:
-            msg["deadline_ms"] = float(deadline_ms)
-        reply = self._rpc(msg)
+    @staticmethod
+    def _outputs(reply: Dict):
         if not reply.get("ok"):
             raise ServingError(
                 str(reply.get("error", "request refused")),
                 shed=bool(reply.get("shed")),
                 deadline_exceeded=bool(reply.get("deadline_exceeded")))
         return reply["outputs"]
+
+    # ---- ops -------------------------------------------------------------- #
+    def generate(self, prompt, max_new: Optional[int] = None,
+                 eos_id: Optional[int] = None,
+                 deadline_ms: Optional[float] = None,
+                 on_tokens: Optional[Callable] = None) -> Dict:
+        """LLM decode: returns ``{"tokens", "n_new", "prompt_len"}``.
+        ``on_tokens`` (optional) turns on streaming: it is called with the
+        cumulative generated-token list as decode progresses."""
+        inputs: Dict = {"prompt": np.asarray(prompt, np.int32)}
+        if max_new is not None:
+            inputs["max_new"] = int(max_new)
+        if eos_id is not None:
+            inputs["eos_id"] = int(eos_id)
+        msg: Dict = {"kind": "generate", "inputs": inputs}
+        if deadline_ms is not None:
+            msg["deadline_ms"] = float(deadline_ms)
+        if on_tokens is not None:
+            msg["stream"] = True
+        return self._outputs(self._rpc(msg, on_tokens))
+
+    def infer(self, inputs: Dict[str, np.ndarray],
+              deadline_ms: Optional[float] = None) -> Dict[str, np.ndarray]:
+        msg: Dict = {"kind": "infer", "inputs": inputs}
+        if deadline_ms is not None:
+            msg["deadline_ms"] = float(deadline_ms)
+        return self._outputs(self._rpc(msg))
 
     def stats(self) -> Dict:
         reply = self._rpc({"kind": "stats"})
@@ -143,13 +181,23 @@ class ServingClient:
 
 def run_load(addr: Tuple[str, int],
              make_inputs: Callable[[int], Dict[str, np.ndarray]],
-             n_requests: int = 200, concurrency: int = 4) -> Dict:
+             n_requests: int = 200, concurrency: int = 4,
+             op: str = "infer") -> Dict:
     """Closed-loop load: ``concurrency`` persistent connections, each
     firing its next request when the previous reply lands. Returns
     p50/p99/mean latency, goodput and shed/error counts (sheds are counted,
-    never retried)."""
+    never retried).
+
+    ``op="generate"`` drives the LLM decode op: ``make_inputs(i)`` then
+    returns ``ServingClient.generate`` keyword arguments (prompt, max_new,
+    eos_id, on_tokens) and the summary gains ``tokens`` and
+    ``goodput_tps`` (generated tokens per second over accepted
+    requests)."""
+    if op not in ("infer", "generate"):
+        raise ValueError(f"op must be infer|generate, got {op!r}")
     lat = LatencyWindow(maxlen=max(2048, n_requests))
     counters = {"ok": 0, "shed": 0, "deadline": 0, "error": 0}
+    tokens = {"v": 0}
     counters_lock = threading.Lock()
     next_i = {"v": 0}
     t_start = time.monotonic()
@@ -165,7 +213,12 @@ def run_load(addr: Tuple[str, int],
                     next_i["v"] = i + 1
                 t0 = time.monotonic()
                 try:
-                    cli.infer(make_inputs(i))
+                    if op == "generate":
+                        out = cli.generate(**make_inputs(i))
+                        with counters_lock:
+                            tokens["v"] += int(out.get("n_new", 0))
+                    else:
+                        cli.infer(make_inputs(i))
                     lat.record(time.monotonic() - t0)
                     key = "ok"
                 except ServingError as e:
@@ -186,7 +239,7 @@ def run_load(addr: Tuple[str, int],
         t.join()
     wall = max(time.monotonic() - t_start, 1e-9)
     summary = lat.summary()
-    return {
+    out = {
         **counters,
         "requests": n_requests,
         "concurrency": concurrency,
@@ -196,3 +249,6 @@ def run_load(addr: Tuple[str, int],
         "p99_ms": summary.get("p99_ms"),
         "mean_ms": summary.get("mean_ms"),
     }
+    if op == "generate":
+        out.update(tokens=tokens["v"], goodput_tps=tokens["v"] / wall)
+    return out

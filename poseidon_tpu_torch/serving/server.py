@@ -13,6 +13,12 @@ Request protocol (one frame per message):
   under backpressure; ``{"ok": False, "deadline_exceeded": True}`` when the
   deadline expired in queue; ``{"ok": False, "error": ...}`` on malformed
   inputs;
+- ``{"kind": "generate", "inputs": {"prompt": int array, "max_new": int?,
+  "eos_id": int?}, "deadline_ms": float?, "stream": bool?}`` -> ``{"ok":
+  True, "outputs": {"tokens", "n_new", "prompt_len"}}`` from an executor
+  that brings its own scheduler (``GenerateExecutor.make_batcher``); with
+  ``stream`` the reply is preceded by ``{"kind": "gen_chunk", "tokens":
+  int32 array}`` frames carrying the cumulative tokens so far;
 - ``{"kind": "stats"}`` -> latency percentiles, queue depth, batch fill,
   shed count;
 - ``{"kind": "health"}`` -> ``{"ok": True, "draining": bool}``;
@@ -31,6 +37,8 @@ import threading
 import time
 from typing import Dict, Optional
 
+import numpy as np
+
 from ..proto.wire import (WIRE_CODEC_VERSION, FrameError, mark_codec_socket,
                           recv_frame, send_frame)
 from ..runtime.metrics import StatsRegistry, log
@@ -40,7 +48,9 @@ __all__ = ["InferenceServer"]
 
 
 class InferenceServer:
-    """Serve a :class:`BucketedExecutor` over TCP (port 0 = ephemeral)."""
+    """Serve a :class:`BucketedExecutor` (micro-batched ``infer``) or a
+    :class:`GenerateExecutor` (continuously batched ``generate``) over TCP
+    (port 0 = ephemeral)."""
 
     def __init__(self, executor, host: str = "127.0.0.1", port: int = 0,
                  max_delay_s: float = 0.005, max_queue: int = 64,
@@ -48,8 +58,13 @@ class InferenceServer:
         self.executor = executor
         self.stats = StatsRegistry()
         self.default_deadline_s = default_deadline_s
-        self.batcher = DynamicBatcher(executor, max_delay_s=max_delay_s,
-                                      max_queue=max_queue)
+        # an executor that brings its own scheduler (GenerateExecutor ->
+        # ContinuousScheduler) plugs in here
+        mk = getattr(executor, "make_batcher", None)
+        self.batcher = (mk(max_delay_s=max_delay_s, max_queue=max_queue)
+                        if mk is not None else
+                        DynamicBatcher(executor, max_delay_s=max_delay_s,
+                                       max_queue=max_queue))
         self.bad_frames = 0
         self.server_errors = 0
         self.connections = 0
@@ -141,6 +156,8 @@ class InferenceServer:
             return {"ok": ok, "codec": WIRE_CODEC_VERSION}
         if kind == "infer":
             return self._handle_infer(msg)
+        if kind == "generate":
+            return self._handle_generate(msg, conn)
         if kind == "stats":
             return {"ok": True, "stats": self.stats_snapshot()}
         if kind == "health":
@@ -151,12 +168,28 @@ class InferenceServer:
         raise ValueError(f"unknown request kind {kind!r}")
 
     def _handle_infer(self, msg: Dict) -> Dict:
+        return self._submit(msg["inputs"], msg)
+
+    def _handle_generate(self, msg: Dict, conn=None) -> Dict:
+        """LLM decode over a scheduler of sequences, with ``infer``'s error
+        surface. Streaming rides the scheduler's per-token callback: each
+        chunk frame carries the cumulative tokens so far, written from the
+        scheduler thread while this handler thread blocks in submit; a
+        broken chunk send kills the stream, never the sequence."""
+        inputs = dict(msg["inputs"])
+        if msg.get("stream") and conn is not None:
+            def emit(tokens, _conn=conn):
+                send_frame(_conn, {"kind": "gen_chunk",
+                                   "tokens": np.asarray(tokens, np.int32)})
+            inputs["stream"] = emit
+        return self._submit(inputs, msg)
+
+    def _submit(self, inputs: Dict, msg: Dict) -> Dict:
         deadline_ms = msg.get("deadline_ms")
         deadline_s = (float(deadline_ms) / 1e3 if deadline_ms is not None
                       else self.default_deadline_s)
         try:
-            outputs = self.batcher.submit(msg["inputs"],
-                                          deadline_s=deadline_s)
+            outputs = self.batcher.submit(inputs, deadline_s=deadline_s)
             return {"ok": True, "outputs": outputs,
                     "params_version": self.executor.params_version}
         except ShedError as e:
@@ -185,13 +218,19 @@ class InferenceServer:
             "server_errors": self.server_errors,
             "connections": self.connections,
             "rows_served": self.executor.rows_served,
-            "rows_padded": self.executor.rows_padded,
-            "bucket_calls": dict(self.executor.calls),
-            "executor_bucket_fill": self.executor.bucket_fill(),
+            # CNN-executor-only telemetry; a GenerateExecutor reports its
+            # paged/decode counters through the batcher snapshot instead
+            "rows_padded": getattr(self.executor, "rows_padded", 0),
+            "bucket_calls": dict(getattr(self.executor, "calls", {})),
+            "executor_bucket_fill": getattr(self.executor, "bucket_fill",
+                                            lambda: None)(),
             "params_version": self.executor.params_version,
             "uptime_s": round(time.time() - self._started, 3),
             "draining": self.draining,
         }
+        scheduler = getattr(b, "snapshot", None)
+        if scheduler is not None:
+            snap["scheduler"] = scheduler()
         self.stats.set_section("serving", snap)
         return snap
 

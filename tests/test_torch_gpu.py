@@ -8,6 +8,7 @@ Imports nothing of JAX, so it runs wherever torch sees a GPU.
 import pytest
 import torch
 
+from poseidon_tpu_torch.ops import flash as port_flash
 from poseidon_tpu_torch.ops import lrn as port_lrn
 from poseidon_tpu_torch.ops import pool as port_pool
 from poseidon_tpu_torch.ops import sgd as port_sgd
@@ -105,3 +106,34 @@ def test_sgd_update_kernel_matches_plain_on_card(n):
     assert port_sgd.LAUNCHES["sgd_update"] == before + 1
     port_sgd.sgd_update_plain_(wp, g, hp, 0.01, lr, dec, 0.9)
     assert torch.equal(wk, wp) and torch.equal(hk, hp)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,shape,causal,mode", [
+    (torch.float32, (1, 12, 256, 64), True, None),
+    (torch.float32, (2, 4, 128, 64), False, None),
+    (torch.float32, (2, 4, 128, 64), True, 0),
+    (torch.float32, (2, 4, 128, 64), True, -1),
+    (torch.float32, (1, 3, 48, 16), True, None),
+    (torch.float32, (1, 2, 100, 128), True, None),
+    (torch.bfloat16, (2, 12, 256, 64), True, None),
+])
+def test_flash_fwd_kernel_matches_plain_on_card(dtype, shape, causal, mode):
+    """K1 through the routing wrapper against its plain version on the
+    card: out within f32 rtol 1e-4, atol 1e-5 (bf16: one bf16 step), lse
+    within rtol 1e-4, atol 1e-5 (the kernel folds key tiles, the plain
+    version sums in one pass)."""
+    _need_gpu()
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
+               for _ in range(3))
+    before = port_flash.LAUNCHES["flash_fwd"]
+    out, lse = port_flash.flash_attention_fwd(q, k, v, causal, None, mode)
+    torch.cuda.synchronize()
+    assert port_flash.LAUNCHES["flash_fwd"] == before + 1
+    want_o, want_l = port_flash.flash_attention_fwd_plain(q, k, v, causal,
+                                                          None, mode)
+    rtol = 2 ** -7 if dtype == torch.bfloat16 else 1e-4
+    torch.testing.assert_close(out.float(), want_o.float(), rtol=rtol,
+                               atol=1e-5)
+    torch.testing.assert_close(lse, want_l, rtol=1e-4, atol=1e-5)

@@ -65,6 +65,26 @@ def test_serve_cli_without_device_refuses():
               "--buckets", "1"])
 
 
+def test_serve_generate_cli_without_device_refuses():
+    _need_no_gpu()
+    from poseidon_tpu_torch.runtime.cli import main
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        main(["serve", "--generate", "--model", "tiny"])
+
+
+def test_generate_executor_without_device_refuses():
+    _need_no_gpu()
+    from poseidon_tpu_torch.models.transformer import (TransformerConfig,
+                                                       init_params)
+    from poseidon_tpu_torch.serving.continuous import GenerateExecutor
+    cfg = TransformerConfig(vocab_size=16, d_model=8, n_heads=2, n_layers=1,
+                            d_ff=16, max_seq=32)
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        GenerateExecutor(cfg, params, page_size=4, decode_rungs=(1,),
+                         prompt_buckets=(8,))
+
+
 def test_engine_without_device_refuses():
     _need_no_gpu()
     from poseidon_tpu_torch.proto.messages import load_solver
@@ -103,6 +123,24 @@ def test_training_modules_import_neither_jax_nor_poseidon_tpu():
     assert out.returncode == 0, out.stdout + out.stderr
 
 
+def test_lm_modules_import_neither_jax_nor_poseidon_tpu():
+    """The LM serving slice's modules, each imported alone in a fresh
+    process."""
+    mods = ["poseidon_tpu_torch.ops.attention", "poseidon_tpu_torch.ops.flash",
+            "poseidon_tpu_torch.models.transformer",
+            "poseidon_tpu_torch.models.generate",
+            "poseidon_tpu_torch.serving.kv_pool",
+            "poseidon_tpu_torch.serving.continuous"]
+    for mod in mods:
+        code = (f"import importlib, sys\nimportlib.import_module({mod!r})\n"
+                "bad = [m for m in sys.modules if m.split('.')[0] in "
+                "('jax', 'jaxlib', 'poseidon_tpu')]\n"
+                "assert not bad, bad\n")
+        out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                             capture_output=True, text=True, timeout=300)
+        assert out.returncode == 0, mod + out.stdout + out.stderr
+
+
 def test_resolve_device_is_pure():
     from poseidon_tpu_torch.numeric import resolve_device
     saved = (torch.backends.cudnn.allow_tf32,
@@ -136,8 +174,8 @@ def test_net_applies_f32_policy():
 
 def test_kernel_sources_and_build_dir():
     from poseidon_tpu_torch.ops import _build
-    assert _build.sources() == ["lrn_bwd", "lrn_fwd", "pool_bwd",
-                                "sgd_update"]
+    assert _build.sources() == ["flash_fwd", "lrn_bwd", "lrn_fwd",
+                                "pool_bwd", "sgd_update"]
     assert _build.BUILD_DIR == \
         __import__("pathlib").Path(REPO) / "build" / "poseidon_tpu_torch"
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
