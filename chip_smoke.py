@@ -11,7 +11,8 @@ Phases, in order; any failure exits non-zero without the final ``ok`` line:
    the AlexNet paths give them, with CUDA-event times for the kernel, the
    plain version and a one-call library yardstick the port never calls,
    beside the least time the card could take (bytes at its memory rate or
-   operations at its f32 rate, the larger):
+   operations at the peak rate of the operands' type, f32 67 or bf16 989
+   TFLOP/s, the larger):
    - lrn_fwd (K4): norm1/norm2 at serving bucket 64 (f32, bf16) and at
      training batch 256 (f32), an odd even-window case;
    - lrn_bwd (K5): norm1/norm2 at batch 256 in f32 and bf16, n=4 with C=37;
@@ -20,9 +21,19 @@ Phases, in order; any failure exits non-zero without the final ``ok`` line:
      ceil-mode clamp;
    - sgd_update (K7): the AlexNet arena (60,965,224) and a ragged P+7;
    - flash_fwd (K1): out and lse at the gpt_small prefill shapes
-     (1,12,16|64|256,64) f32 causal, (8,12,512,64) causal and not in f32
+     (1,12,16|64|256,64) f32 causal, its training shape (8,12,1024,64) f32
+     causal, the byte-level LM's training and decode-prefill shapes
+     (8,4,256,32) and (1,4,32,32), (8,12,512,64) causal and not in f32
      and bf16, the ring-chunk modes +1/0/-1 at (2,4,128,64), an odd
      (1,3,48,16); the library yardstick is F.scaled_dot_product_attention.
+   - flash_dq (K2) and flash_dkv (K3): dq, dk and dv against the plain
+     backward at the gpt_small training shape (8,12,1024,64) f32 causal
+     (the main case), the byte-level LM's (8,4,256,32), (8,12,512,64)
+     causal and not in f32 and bf16, the
+     ring-chunk modes +1/0/-1 at (2,4,128,64) with delta passed in, an odd
+     (1,3,48,16); the library yardstick is the backward of
+     F.scaled_dot_product_attention (forward + backward less the forward),
+     timed against K2+K3 together.
 3. The CNN serving slice: ``BucketedExecutor.from_files`` on AlexNet (3x227x227,
    buckets 1/4/16/64, seeded filler weights) behind the port's
    ``InferenceServer`` on 127.0.0.1 port 0, driven by the port's
@@ -62,10 +73,28 @@ Phases, in order; any failure exits non-zero without the final ``ok`` line:
    their counts, generated tokens/s at 8 and 1 clients, CUDA-event prefill
    time per bucket, per decode rung the profiled device busy time, the
    CUDA-event span and the host wall time, and peak device memory.
-6. Real data end to end: ``python -m poseidon_tpu_torch train`` on the
+6. The LM training slice: gpt_small at full width and depth (max_seq 1024,
+   remat on, seeded weights) trained by ``build_dp_sp_train_step`` at
+   batch 8 x seq 1024 with bench.py's SGD solver on one fixed seeded
+   batch. Launch counters are zeroed just before LMT_LOSS_STEPS steps and
+   read just after: exactly LMT_LAUNCHES per step, no CNN kernel. Every
+   loss finite and the last below the first. One step with the kernels
+   against the same step with the plain flash versions swapped in (loss
+   and every updated parameter at STEP_TOL, gradients at GRAD_TOL); remat
+   against none (loss equal, gradients at GRAD_TOL, peak memory without
+   remat); a snapshot restoring bitwise. Then the device step time,
+   tokens/s, MFU (6*P*T) and the executed share (8*P*T) over 67 TFLOP/s,
+   peak device memory and the top kernels of one profiled step.
+7. ``python -m poseidon_tpu_torch.models.train_lm --generate 48`` at its
+   defaults, through its ``main`` in this process: the loss must fall
+   below LM_CORPUS_MAX_LOSS by step 200, and the decode must print its
+   bytes. Launch counters are zeroed just before and read just after:
+   exactly 2 flash_fwd, 2 flash_dq and 2 flash_dkv a step (one a layer,
+   remat off), and 2 flash_fwd for the decode's prefill.
+8. Real data end to end: ``python -m poseidon_tpu_torch train`` on the
    digits solver (1000 iterations, real UCI digits from the repo) into a
    temporary directory; the final test accuracy must reach DIGITS_MIN_ACC.
-7. One JSON line with every kernel's numbers, then the ``ok`` line.
+9. One JSON line with every kernel's numbers, then the ``ok`` line.
 """
 
 from __future__ import annotations
@@ -80,11 +109,14 @@ import threading
 import time
 import traceback
 
-# Published H100 SXM rates (NVIDIA data sheet): the least time of a kernel
-# is the larger of bytes moved / memory rate and operations / f32 rate.
+# Published H100 SXM rates (NVIDIA data sheet, dense): the least time of a
+# kernel is the larger of bytes moved / memory rate and operations / the
+# peak rate for its operands' type (f32 outside the tensor cores, bf16 on
+# them).
 HBM_BYTES_PER_S = 3.35e12
 HBM_SOURCE = "H100 SXM data sheet, 3.35 TB/s"
 F32_OPS_PER_S = 67e12
+OPS_PER_S = {"float32": F32_OPS_PER_S, "bfloat16": 989e12}
 ALEXNET = "examples/imagenet/alexnet_deploy.prototxt"
 ALEXNET_TRAIN = "examples/imagenet/alexnet_train_val.prototxt"
 ALEXNET_SOLVER = "examples/imagenet/alexnet_solver.prototxt"
@@ -119,6 +151,31 @@ LM_PROMPT_MIN, LM_PROMPT_MAX = 4, 250
 # and one prefill on the card vs the CPU: f32 everywhere, but cuBLAS picks
 # other GEMM splits for other shapes and the CPU sums in another order
 LM_TOL = (1e-4, 1e-4)
+# flash_dq (K2) and flash_dkv (K3) vs plain: the kernels fold 64-row tiles
+# with FMAs, the plain version takes each gradient in one dense product;
+# bf16 outputs round to bf16 from f32 sums of up to S terms
+FLASH_BWD_TOL = {"float32": (1e-4, 1e-5), "bfloat16": (2 ** -7, 1e-3)}
+# the LM training slice: gpt_small (vocab 32768, d 768, 12 heads, 12
+# layers, d_ff 3072, max_seq 1024, remat on) at the JAX package's own
+# training shape (bench.py's lm block): batch 8 x seq 1024, SGD base_lr
+# 0.01, fixed, momentum 0.9, seeded tokens and targets, one fixed batch
+LMT_PRESET, LMT_BATCH, LMT_SEQ = "gpt_small", 8, 1024
+LMT_LOSS_STEPS = 20
+LMT_PARAMS = 136_091_136
+# per step: 12 flash_fwd in the forward, 12 more when the checkpointed
+# blocks recompute their forward in the backward, 12 flash_dq, 12 flash_dkv
+LMT_LAUNCHES = {"flash_fwd": 24, "flash_dq": 12, "flash_dkv": 12}
+# gradients (kernels vs plain versions; remat vs none): each leaf's max abs
+# difference over its max abs value; f32 throughout, but the kernels and the
+# plain versions sum attention in other orders, and a recomputed block
+# feeds the backward through another graph
+GRAD_TOL = 1e-4
+# models.train_lm at its defaults: the loss falls from ~5.5-6 (ln 256 and
+# the untrained head) and reached 2.36 by step 200 on the CPU; the JAX
+# script's docstring says "toward ~2". 3.0 leaves room for the other
+# summation orders of the card without passing a run that did not learn.
+LM_CORPUS_MAX_LOSS = 3.0
+LM_CORPUS_GENERATE = 48
 # whole-net comparisons (rtol, atol) on prob and every blob
 NET_TOL = (1e-4, 1e-6)
 # a training step with the kernels vs the same step with the plain versions
@@ -170,11 +227,11 @@ def phase_build() -> None:
           f"loaded in {time.perf_counter() - t0:.2f} s", flush=True)
 
 
-def bound_ms(nbytes: float, ops: float):
+def bound_ms(nbytes: float, ops: float, dtype_name: str = "float32"):
     """(least ms, "bytes" or "operations"): the larger of bytes over the
-    memory rate and f32 operations over the f32 rate."""
+    memory rate and operations over the peak rate for ``dtype_name``."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_OPS_PER_S * 1e3
+    t_ops = ops / OPS_PER_S[dtype_name] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -196,7 +253,7 @@ def compare_case(kernel: str, label: str, got, want, dtype_name: str,
     ms = cuda_time_ms(time_kernel)
     plain_ms = cuda_time_ms(time_plain)
     library_ms = None if time_library is None else cuda_time_ms(time_library)
-    least, by = bound_ms(nbytes, ops)
+    least, by = bound_ms(nbytes, ops, dtype_name)
     rec = {"case": label, "dtype": dtype_name, "max_abs_err": max_abs,
            "max_rel_err": max_rel, "tol_rtol_atol": [rtol, atol], "ms": ms,
            "plain_ms": plain_ms, "library_ms": library_ms, "bytes": nbytes,
@@ -206,7 +263,8 @@ def compare_case(kernel: str, label: str, got, want, dtype_name: str,
           f"max_rel={max_rel:.3e} (rtol {rtol:g}, atol {atol:g}) kernel "
           f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library {lib}, bound "
           f"{least:.4f} ms by {by} ({nbytes / 1e6:.1f} MB, "
-          f"{ops / 1e9:.3f} Gop; {HBM_SOURCE}, f32 67 TFLOP/s) [{card}]",
+          f"{ops / 1e9:.3f} Gop; {HBM_SOURCE}, {dtype_name} "
+          f"{OPS_PER_S[dtype_name] / 1e12:g} TFLOP/s) [{card}]",
           flush=True)
     check(ok, f"{kernel} disagrees with its plain version on {label} "
               f"{dtype_name}: max_abs {max_abs}")
@@ -426,12 +484,17 @@ def profiled_device_ms(fn, key: str = "", reps: int = 10) -> float:
 
 def flash_cases():
     """(label, shape, dtype, causal, mode) of the K1 checks: the gpt_small
-    prefill launches first (the main path), then long and odd shapes."""
+    prefill launches first (the serving path), the training shapes of
+    gpt_small and of the byte-level LM (and its decode's prefill), then
+    long and odd shapes."""
     import torch
     f32, bf16 = torch.float32, torch.bfloat16
     return ([(f"prefill {s}", (1, 12, s, 64), f32, True, None)
              for s in (16, 64, 256)]
-            + [("long causal", (8, 12, 512, 64), f32, True, None),
+            + [("train", (8, 12, 1024, 64), f32, True, None),
+               ("lm_corpus train", (8, 4, 256, 32), f32, True, None),
+               ("lm_corpus prefill", (1, 4, 32, 32), f32, True, None),
+               ("long causal", (8, 12, 512, 64), f32, True, None),
                ("long", (8, 12, 512, 64), f32, False, None),
                ("long causal", (8, 12, 512, 64), bf16, True, None),
                ("long", (8, 12, 512, 64), bf16, False, None),
@@ -500,6 +563,120 @@ def phase_flash(card: str):
         records.append(rec)
         del q, k, v, out, lse, want_o, want_l, library
     return records
+
+
+def flash_bwd_cases():
+    """(label, shape, dtype, causal, mode) of the K2/K3 checks: the gpt_small
+    training shape first (the main case), the byte-level LM's, then
+    shorter, bf16, ring-chunk (delta passed in) and odd shapes."""
+    import torch
+    f32, bf16 = torch.float32, torch.bfloat16
+    return [("train main", (8, 12, 1024, 64), f32, True, None),
+            ("lm_corpus train", (8, 4, 256, 32), f32, True, None),
+            ("long causal", (8, 12, 512, 64), f32, True, None),
+            ("long", (8, 12, 512, 64), f32, False, None),
+            ("long causal", (8, 12, 512, 64), bf16, True, None),
+            ("long", (8, 12, 512, 64), bf16, False, None),
+            ("ring mode +1", (2, 4, 128, 64), f32, True, 1),
+            ("ring mode 0", (2, 4, 128, 64), f32, True, 0),
+            ("ring mode -1", (2, 4, 128, 64), f32, True, -1),
+            ("odd", (1, 3, 48, 16), f32, True, None)]
+
+
+def sdpa_backward_ms(q, k, v, g, is_causal: bool):
+    """The library yardstick of K2+K3 together: F.scaled_dot_product_attention
+    forward + backward (torch.autograd.grad) less its forward alone, by CUDA
+    events and by the profiler's device time (ms, device ms)."""
+    import torch
+    import torch.nn.functional as F
+    qr, kr, vr = (t.detach().requires_grad_(True) for t in (q, k, v))
+
+    def fwd():
+        return F.scaled_dot_product_attention(qr, kr, vr,
+                                              is_causal=is_causal)
+
+    def fwd_bwd():
+        torch.autograd.grad(fwd(), (qr, kr, vr), g)
+
+    return (cuda_time_ms(fwd_bwd) - cuda_time_ms(fwd),
+            profiled_device_ms(fwd_bwd) - profiled_device_ms(fwd))
+
+
+def phase_flash_bwd(card: str):
+    """flash_dq (K2) and flash_dkv (K3) vs the plain backward on the card,
+    on the kernel forward's out and lse; returns (K2 records, K3 records).
+    The plain version and the library call compute dq, dk and dv in one
+    call, so their times are of the whole backward, in both kernels'
+    records."""
+    import torch
+    from poseidon_tpu_torch.ops import flash
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    dq_recs, dkv_recs = [], []
+    for label, shape, dtype, causal, mode in flash_bwd_cases():
+        q, k, v, g = (torch.randn(shape, generator=gen, device="cuda")
+                      .to(dtype) for _ in range(4))
+        out, lse = flash.flash_fwd_cuda(q, k, v, causal, None, mode)
+        # the ring passes its own delta in; the others take rowsum(dO*out)
+        delta = flash.flash_delta(g, out)
+        if mode is not None:
+            delta = delta * 0.5
+        args = (q, k, v, g, lse, delta, causal, None, mode)
+        dq = flash.flash_dq_cuda(*args)
+        dk, dv = flash.flash_dkv_cuda(*args)
+        torch.cuda.synchronize()
+        want = flash.flash_attention_bwd_plain(q, k, v, out, lse, g, causal,
+                                               None, mode, delta)
+        dtype_name = str(dtype).replace("torch.", "")
+        b, h, s, d = shape
+        live = 0.5 if causal and mode in (None, 0) else 1.0
+        n_bytes = q.numel() * q.element_size()
+        rows = 2 * b * h * s * 4               # lse and delta, f32
+        plain = lambda: flash.flash_attention_bwd_plain(  # noqa: E731
+            q, k, v, out, lse, g, causal, None, mode, delta)
+        library = (None, None)
+        if mode is None or mode >= 0:
+            library = sdpa_backward_ms(q, k, v, g, causal and mode != 1)
+        extra = f" {tuple(shape)} causal={causal} mode={mode}"
+        # K2 reads q, k, v, dO, lse, delta and writes dq: three S x S x D
+        # products; K3 the same reads, writes dk and dv: four products
+        rec_q = compare_case(
+            "flash_dq", label, dq, want[0], dtype_name,
+            lambda: flash.flash_dq_cuda(*args), plain, None,
+            5 * n_bytes + rows, 6.0 * b * h * s * s * d * live, card,
+            extra=extra, tol=FLASH_BWD_TOL)
+        rec_kv = compare_case(
+            "flash_dkv", label, torch.cat([dk.flatten(), dv.flatten()]),
+            torch.cat([want[1].flatten(), want[2].flatten()]), dtype_name,
+            lambda: flash.flash_dkv_cuda(*args), plain, None,
+            6 * n_bytes + rows, 8.0 * b * h * s * s * d * live, card,
+            extra=extra, tol=FLASH_BWD_TOL)
+        dev = {"flash_dq": profiled_device_ms(
+                   lambda: flash.flash_dq_cuda(*args), key="flash_dq_kernel"),
+               "flash_dkv": profiled_device_ms(
+                   lambda: flash.flash_dkv_cuda(*args),
+                   key="flash_dkv_kernel"),
+               "plain": profiled_device_ms(plain),
+               "library": library[1]}
+        both = rec_q["ms"] + rec_kv["ms"]
+        bound = rec_q["bound_ms"] + rec_kv["bound_ms"]
+        lib = ("n/a" if library[0] is None else
+               f"{library[0]:.4f} ms (device {library[1]:.4f} ms)")
+        print(f"[flash_bwd] {label} {dtype_name}{extra}: K2+K3 {both:.4f} ms "
+              f"(device {dev['flash_dq']:.4f} + {dev['flash_dkv']:.4f} ms, "
+              f"torch.profiler), bound {bound:.4f} ms, plain backward "
+              f"{rec_q['plain_ms']:.4f} ms (device {dev['plain']:.4f} ms), "
+              f"F.scaled_dot_product_attention "
+              f"backward {lib} [{card}]", flush=True)
+        for rec in (rec_q, rec_kv):
+            rec.update(shape=list(shape), causal=causal, mode=mode,
+                       library_ms=library[0], device_ms=dev,
+                       plain_and_library_cover="dq, dk and dv together")
+        dq_recs.append(rec_q)
+        dkv_recs.append(rec_kv)
+        del q, k, v, g, out, lse, delta, dq, dk, dv, want, plain, args
+        torch.cuda.empty_cache()
+    return dq_recs, dkv_recs
 
 
 def sync(device) -> None:
@@ -920,7 +1097,8 @@ def phase_train(card: str, root: str, device=None, batch_size=None) -> dict:
         test_forwards = TEST_ITER * (1 + TRAIN_ITERS // TEST_INTERVAL)
         want = {"lrn_fwd": 2 * (steps + test_forwards),
                 "lrn_bwd": 2 * steps, "pool_bwd": 3 * steps,
-                "sgd_update": steps, "flash_fwd": 0}
+                "sgd_update": steps, "flash_fwd": 0, "flash_dq": 0,
+                "flash_dkv": 0}
         print(f"[train] Engine.train(): {steps} steps + {test_forwards} test "
               f"forwards in {wall:.2f} s; launches {counts} (expected "
               f"{want})", flush=True)
@@ -1194,7 +1372,7 @@ def phase_lm(card: str, device=None, preset: str = LM_PRESET,
 
     out = {"requests": n_requests, "clients": LM_CLIENTS,
            "max_new": LM_MAX_NEW, "prefills": prefills,
-           "flash_launches": counts["flash_fwd"],
+           "flash_launches": counts["flash_fwd"], "launches": counts,
            "decode_calls": dict(ex.decode_calls),
            "p50_ms": load["p50_ms"], "p99_ms": load["p99_ms"],
            "ttft": ttft, "tokens_per_s_8": load["goodput_tps"],
@@ -1286,8 +1464,329 @@ def phase_lm_timing(ex, card: str) -> dict:
             "prefill_flash_ms": prefill_flash, "decode": decode}
 
 
+def lm_train_setup(preset: str, batch: int, seq: int, device):
+    """(cfg, solver, params, tokens, targets): gpt_small (or the tiny preset
+    of a CPU rehearsal) with seeded weights, the SGD solver of bench.py's
+    lm block, and seeded tokens and targets (RandomState(1), as there)."""
+    import numpy as np
+    import torch
+    from poseidon_tpu_torch.models import transformer as tfm
+    from poseidon_tpu_torch.proto.messages import SolverParameter
+
+    if preset == "gpt_small":
+        cfg = tfm.gpt_small_config(max_seq=seq)
+    else:
+        cfg = tfm.TransformerConfig(vocab_size=512, d_model=64, n_heads=2,
+                                    n_layers=2, d_ff=128, max_seq=seq,
+                                    remat=True)
+    sp = SolverParameter(base_lr=0.01, lr_policy="fixed", momentum=0.9)
+    params = tfm.init_params(cfg, torch.Generator().manual_seed(0),
+                             device=device)
+    rs = np.random.RandomState(1)
+    toks, tgts = (torch.from_numpy(rs.randint(
+        0, cfg.vocab_size, size=(batch, seq)).astype(np.int64)).to(device)
+        for _ in range(2))
+    return cfg, sp, params, toks, tgts
+
+
+def tree_clone(tree):
+    return {n: {l: v.clone() for l, v in d.items()} for n, d in tree.items()}
+
+
+def grad_errors(got, want):
+    """Each leaf's max abs difference over its max abs value; the worst
+    (error, leaf)."""
+    worst = (0.0, "")
+    for n in want:
+        for l in want[n]:
+            a, b = got[n][l].float(), want[n][l].float()
+            err = float((a - b).abs().max()) / max(float(b.abs().max()),
+                                                   1e-30)
+            worst = max(worst, (err, f"{n}/{l}"))
+    return worst
+
+
+def phase_lm_train(card: str, device=None, preset: str = LMT_PRESET,
+                   batch: int = LMT_BATCH, seq: int = LMT_SEQ,
+                   loss_steps: int = LMT_LOSS_STEPS,
+                   per_step=LMT_LAUNCHES) -> dict:
+    """The LM training slice: gpt_small at batch 8 x seq 1024 with remat,
+    trained by the port's build_dp_sp_train_step on the card. ``device``,
+    ``preset``, the shape and ``per_step`` (0 on the CPU, where the plain
+    versions count nothing) are for a CPU rehearsal only."""
+    import dataclasses
+    import functools
+    import numpy as np
+    import torch
+    from poseidon_tpu_torch.models import transformer as tfm
+    from poseidon_tpu_torch.ops import flash
+    from poseidon_tpu_torch.runtime.lm_checkpoint import restore_lm, save_lm
+    from poseidon_tpu_torch.solvers.updates import SolverState, init_state
+
+    dev = torch.device(device or "cuda")
+    on_card = dev.type == "cuda"
+    cfg, sp, params, toks, tgts = lm_train_setup(preset, batch, seq, dev)
+    n_par = cfg.n_params()
+    print(f"[lm_train] {preset} on {dev}: {n_par} params (vocab "
+          f"{cfg.vocab_size}, d {cfg.d_model}, {cfg.n_heads} heads, "
+          f"{cfg.n_layers} layers, d_ff {cfg.d_ff}, max_seq {cfg.max_seq}), "
+          f"remat {cfg.remat!r}; batch {batch} x seq {seq}; SGD base_lr "
+          f"{sp.base_lr} {sp.lr_policy} momentum {sp.momentum}", flush=True)
+    if preset == "gpt_small":
+        check(n_par == LMT_PARAMS, f"gpt_small has {n_par} params")
+    step = tfm.build_dp_sp_train_step(cfg, sp, dev)
+    state = init_state(params)
+
+    # the main path: LMT_LOSS_STEPS steps on the fixed batch, launch
+    # counters zeroed just before and read just after
+    zero_launches()
+    losses = []
+    for _ in range(loss_steps):
+        params, state, m = step(params, state, toks, tgts)
+        losses.append(float(m["loss"]))        # synchronizes the device
+    counts = read_launches()
+    want = {k: 0 for k in counts}
+    want.update({k: n * loss_steps for k, n in per_step.items()})
+    print(f"[lm_train] {loss_steps} steps: launches {counts} (expected "
+          f"{want}: per step {dict(per_step)}); loss {losses[0]:.6f} -> "
+          f"{losses[-1]:.6f} [{', '.join(f'{x:.4f}' for x in losses)}]",
+          flush=True)
+    check(counts == want, f"LM training launches {counts} != {want}")
+    check(all(np.isfinite(losses)), f"non-finite LM loss: {losses}")
+    check(losses[-1] < losses[0], f"LM loss did not fall over {loss_steps} "
+                                  f"steps on a fixed batch: {losses}")
+    check(state.it == loss_steps, f"solver iteration {state.it}")
+
+    # one step with the kernels vs the same step with the plain flash
+    # versions swapped into the transformer, on the card
+    p0, s0 = tree_clone(params), SolverState(state.it,
+                                             tree_clone(state.history))
+
+    def loss_and_grads_peak(cfg_x):
+        """loss_and_grads on p0, and the bytes it took above what was
+        allocated before it (activations and the returned gradients)."""
+        base = torch.cuda.memory_allocated() if on_card else 0
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        loss, grads = tfm.loss_and_grads(p0, cfg_x, toks, tgts)
+        sync(dev)
+        peak = torch.cuda.max_memory_allocated() - base if on_card else 0
+        return loss, grads, peak
+
+    loss_k, grads_k, peak_remat = loss_and_grads_peak(cfg)
+    pk, _, mk = step(p0, s0, toks, tgts)
+    before = read_launches()
+    tfm.maybe_flash_attention = functools.partial(
+        flash.maybe_flash_attention, plain=True)
+    try:
+        loss_p, grads_p = tfm.loss_and_grads(p0, cfg, toks, tgts)
+        pp, _, mp = step(p0, s0, toks, tgts)
+    finally:
+        tfm.maybe_flash_attention = flash.maybe_flash_attention
+    sync(dev)
+    check(read_launches() == before,
+          "the plain-version LM step launched a kernel: the swap did not take")
+    rtol, atol = STEP_TOL
+    check(abs(float(mk["loss"]) - float(mp["loss"]))
+          <= atol + rtol * abs(float(mp["loss"])),
+          f"LM step loss with kernels {float(mk['loss'])} vs plain "
+          f"{float(mp['loss'])}")
+    worst_p = 0.0
+    for n in pk:
+        for l in pk[n]:
+            err = float((pk[n][l] - pp[n][l]).abs().max())
+            worst_p = max(worst_p, err)
+            check(bool(torch.allclose(pk[n][l], pp[n][l], rtol=rtol,
+                                      atol=atol)),
+                  f"LM param {n}/{l} after one step: kernels vs plain "
+                  f"max_abs {err}")
+    g_err, g_leaf = grad_errors(grads_k, grads_p)
+    print(f"[lm_train] one step, kernels vs plain flash versions on the "
+          f"card: loss {float(mk['loss'])!r} vs {float(mp['loss'])!r}, every "
+          f"updated param within rtol {rtol:g} atol {atol:g} (max_abs "
+          f"{worst_p:.3e}); gradients max|diff|/max|grad| {g_err:.3e} at "
+          f"{g_leaf} (limit {GRAD_TOL:g})", flush=True)
+    check(g_err <= GRAD_TOL, f"LM gradients, kernels vs plain: {g_err} at "
+                             f"{g_leaf}")
+    del pk, pp, grads_p, mk, mp
+
+    # remat vs none: the same loss, gradients within GRAD_TOL; what a
+    # forward and backward take above what was live before it, with and
+    # without remat
+    cfg_none = dataclasses.replace(cfg, remat=False)
+    zero_launches()
+    loss_n, grads_n, peak_none = loss_and_grads_peak(cfg_none)
+    none_counts = read_launches()
+    r_err, r_leaf = grad_errors(grads_k, grads_n)
+    print(f"[lm_train] remat {cfg.remat!r} vs none: loss {float(loss_k)!r} "
+          f"vs {float(loss_n)!r} (equal: {bool(torch.equal(loss_k, loss_n))});"
+          f" gradients max|diff|/max|grad| {r_err:.3e} at {r_leaf}; launches "
+          f"without remat {none_counts}; a forward and backward's peak above "
+          f"what was live before it: {peak_remat / 2**30:.3f} GiB with "
+          f"remat, {peak_none / 2**30:.3f} GiB without [{card}]", flush=True)
+    check(bool(torch.equal(loss_k, loss_n)),
+          f"LM loss with remat {float(loss_k)} != without {float(loss_n)}")
+    check(r_err <= GRAD_TOL, f"LM gradients, remat vs none: {r_err} at "
+                             f"{r_leaf}")
+    del grads_k, grads_n, p0, s0
+
+    # the snapshot restores bitwise
+    with tempfile.TemporaryDirectory() as d:
+        path = save_lm(os.path.join(d, "gpt"), params, state)
+        rp, rstate = restore_lm(path)
+    check(rstate.it == state.it, f"restored iteration {rstate.it}")
+    for a_tree, b_tree in ((params, rp), (state.history, rstate.history)):
+        for n in a_tree:
+            for l in a_tree[n]:
+                check(torch.equal(a_tree[n][l].cpu(), b_tree[n][l]),
+                      f"{n}/{l} did not restore bitwise")
+    print(f"[lm_train] snapshot {os.path.basename(path)} restored bitwise "
+          f"(params and momentum)", flush=True)
+    del rp, rstate
+
+    out = {"preset": preset, "params": n_par, "batch": batch, "seq": seq,
+           "steps": loss_steps, "launches": counts,
+           "launches_per_step": {k: counts[k] // loss_steps
+                                 for k in per_step},
+           "losses": losses, "grad_err_kernels_vs_plain": g_err,
+           "grad_err_remat_vs_none": r_err,
+           "fwd_bwd_peak_bytes": {"remat": peak_remat, "none": peak_none},
+           "launches_no_remat": none_counts}
+    if on_card:
+        out.update(phase_lm_train_timing(step, params, state, toks, tgts,
+                                         n_par, card))
+    return out
+
+
+def phase_lm_train_timing(step, params, state, toks, tgts, n_par: int,
+                          card: str) -> dict:
+    """Device step time by CUDA events over TIMED_STEPS steps, tokens/s,
+    MFU by the 6*P*T convention and the executed share with the recompute
+    (8*P*T), both over 67 TFLOP/s, the peak device memory, and the top
+    kernels of one profiled step with K1, K2 and K3's shares."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    n_tok = toks.numel()
+    for _ in range(2):
+        params, state, _m = step(params, state, toks, tgts)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(TIMED_STEPS):
+        params, state, m = step(params, state, toks, tgts)
+    end.record()
+    torch.cuda.synchronize()
+    step_ms = start.elapsed_time(end) / TIMED_STEPS
+    peak = torch.cuda.max_memory_allocated()
+    check(bool(torch.isfinite(m["loss"])), "non-finite loss in timed steps")
+    tok_s = n_tok / step_ms * 1e3
+    mfu = 6.0 * n_par * n_tok / (step_ms / 1e3) / F32_OPS_PER_S
+    executed = 8.0 * n_par * n_tok / (step_ms / 1e3) / F32_OPS_PER_S
+    print(f"[lm_train] device step {step_ms:.3f} ms (CUDA events, mean of "
+          f"{TIMED_STEPS} steps, fixed on-device batch of {n_tok} tokens): "
+          f"{tok_s:.1f} tokens/s; MFU {mfu:.4f} (6*P*T, P={n_par}, T={n_tok},"
+          f" over f32 67 TFLOP/s); executed-FLOP share with the recompute "
+          f"{executed:.4f} (8*P*T); peak device memory {peak / 2**30:.3f} GiB"
+          f" [{card}]", flush=True)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, toks, tgts)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    per_kernel = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            per_kernel[e.name] = (per_kernel.get(e.name, 0.0)
+                                  + e.time_range.elapsed_us())
+    busy = sum(per_kernel.values())
+    ours = {}
+    if busy:
+        print(f"[lm_train] profiled step: device busy {busy / 1e3:.3f} ms of "
+              f"{wall_ms:.3f} ms wall ({len(per_kernel)} kernels); top 10:",
+              flush=True)
+        for name, us in sorted(per_kernel.items(),
+                               key=lambda kv: -kv[1])[:10]:
+            print(f"  {us / 1e3:8.3f} ms {100 * us / busy:5.1f}%  "
+                  f"{name[:90]}", flush=True)
+        for kernel in ("flash_fwd", "flash_dq", "flash_dkv"):
+            us = sum(v for k, v in per_kernel.items()
+                     if f"{kernel}_kernel" in k)
+            ours[kernel] = {"ms": us / 1e3, "share": us / busy}
+        print("[lm_train] port kernels in the profiled step: " + ", ".join(
+            f"{k} {v['ms']:.3f} ms ({100 * v['share']:.1f}%)"
+            for k, v in ours.items()) + f" [{card}]", flush=True)
+    else:
+        print("[lm_train] torch.profiler: no device time recorded",
+              flush=True)
+    return {"step_ms": step_ms, "tokens_per_s": tok_s, "mfu": mfu,
+            "executed_share": executed, "peak_bytes": peak,
+            "profiled_busy_ms": busy / 1e3, "profiled_wall_ms": wall_ms,
+            "port_kernels": ours}
+
+
+def phase_lm_corpus(card: str, extra_args=()) -> dict:
+    """``models.train_lm``'s ``main`` at its defaults (200 steps, seq 256,
+    batch 8, d 128, 2 layers, 4 heads, remat off) with ``--generate``, in
+    this process: the loss must fall below LM_CORPUS_MAX_LOSS by the last
+    step and the decode must print its bytes. Launch counters are zeroed
+    just before and read just after: on the card, one flash_fwd, flash_dq
+    and flash_dkv per layer a step (two flash_fwd with ``--remat``), and one
+    flash_fwd per layer for the decode's prefill; none on the CPU.
+    ``extra_args`` are for a CPU rehearsal only."""
+    import contextlib
+    import io
+    import math
+    from poseidon_tpu_torch.models import train_lm
+    from poseidon_tpu_torch.numeric import resolve_device
+
+    argv = ["--generate", str(LM_CORPUS_GENERATE), *extra_args]
+    args = train_lm.parse_args(argv)
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    zero_launches()
+    try:
+        with contextlib.redirect_stdout(buf):
+            train_lm.main(argv)
+    finally:
+        lines = buf.getvalue().splitlines()
+        for line in lines:
+            print(f"[lm_corpus] {line}", flush=True)
+    counts = read_launches()
+    wall = time.perf_counter() - t0
+    want = {k: 0 for k in counts}
+    if resolve_device(args.device).type == "cuda":
+        fwd_per_step = args.n_layers * (2 if args.remat else 1)
+        want.update(flash_fwd=args.steps * fwd_per_step + args.n_layers,
+                    flash_dq=args.steps * args.n_layers,
+                    flash_dkv=args.steps * args.n_layers)
+    steps = [(int(l.split()[1]), float(l.split()[3])) for l in lines
+             if l.startswith("step ")]
+    gen = [l for l in lines if l.startswith("generated: ")]
+    check(len(steps) >= 2, f"models.train_lm printed {len(steps)} step lines")
+    first, last = steps[0][1], steps[-1][1]
+    print(f"[lm_corpus] python -m poseidon_tpu_torch.models.train_lm "
+          f"{' '.join(argv)}: loss {first:.4f} at step {steps[0][0]} -> "
+          f"{last:.4f} at step {steps[-1][0]} (required < "
+          f"{LM_CORPUS_MAX_LOSS}) in {wall:.1f} s; launches {counts} "
+          f"(expected {want}) [{card}]", flush=True)
+    check(counts == want, f"models.train_lm launches {counts} != {want}")
+    check(all(math.isfinite(x) for _, x in steps),
+          f"non-finite loss: {steps}")
+    check(last < LM_CORPUS_MAX_LOSS and last < first,
+          f"models.train_lm loss {first} -> {last}")
+    check(len(gen) == 1 and len(gen[0]) > len("generated: ''"),
+          f"--generate printed {gen}")
+    return {"losses": steps, "wall_s": wall, "generated": gen[0],
+            "launches": counts}
+
+
 def kernel_entry(name: str, replaces: str, launches: int, records,
-                 main_cases, **extra) -> dict:
+                 main_cases, source=None, **extra) -> dict:
     """One kernel's entry of the JSON line: launches on the main path, the
     largest error over every case, and the sums of the main-path cases."""
     main = [r for r in records if r["case"] in main_cases
@@ -1296,7 +1795,7 @@ def kernel_entry(name: str, replaces: str, launches: int, records,
     least, by = bound_ms(sum(r["bytes"] for r in main),
                          sum(r["ops"] for r in main))
     return {"name": name, "route": "cuda",
-            "source": f"poseidon_tpu_torch/ops/csrc/{name}.cu",
+            "source": source or f"poseidon_tpu_torch/ops/csrc/{name}.cu",
             "replaces": replaces, "launches": launches,
             "max_abs_err": max(r["max_abs_err"] for r in records),
             "ms": sum(r["ms"] for r in main),
@@ -1333,6 +1832,7 @@ def main() -> int:
         k6 = phase_pool_bwd(card)
         k7 = phase_sgd(card, arena_total)
         k1 = phase_flash(card)
+        k2, k3 = phase_flash_bwd(card)
         serving_launches, ex, solo = phase_slice(card)
         phase_net_checks(ex)
         phase_breakdown(ex, card, solo["p50_ms"])
@@ -1343,6 +1843,9 @@ def main() -> int:
         torch.cuda.empty_cache()
         lm = phase_lm(card)
         torch.cuda.empty_cache()
+        lm_train = phase_lm_train(card)
+        torch.cuda.empty_cache()
+        lm_corpus = phase_lm_corpus(card)
         digits_acc = phase_digits(card)
     except Exception:  # noqa: BLE001 — any failed phase fails the smoke
         traceback.print_exc()
@@ -1363,18 +1866,39 @@ def main() -> int:
         kernel_entry("flash_fwd", "poseidon_tpu/ops/pallas_kernels.py:77",
                      lm["flash_launches"], k1, ("prefill 256",),
                      launches_by_path={"lm_serving": lm["flash_launches"],
+                                       "lm_training": lm_train["launches"][
+                                           "flash_fwd"],
+                                       "lm_corpus": lm_corpus["launches"][
+                                           "flash_fwd"],
                                        "cnn_serving": 0,
                                        "cnn_training": launches["flash_fwd"]},
                      launches_per_prefill=(lm["flash_launches"]
                                            // max(1, lm["prefills"])),
-                     profiled_ms_per_prefill_256=lm["prefill_flash_ms"]),
+                     profiled_ms_per_prefill_256=lm["prefill_flash_ms"],
+                     launches_per_training_step=lm_train[
+                         "launches_per_step"]["flash_fwd"]),
     ]
+    for name, line, recs in (("flash_dq", 208, k2), ("flash_dkv", 255, k3)):
+        kernels.append(kernel_entry(
+            name, f"poseidon_tpu/ops/pallas_kernels.py:{line}",
+            lm_train["launches"][name], recs, ("train main",),
+            source="poseidon_tpu_torch/ops/csrc/flash_bwd.cu",
+            launches_per_training_step=lm_train["launches_per_step"][name],
+            launches_by_path={"lm_training": lm_train["launches"][name],
+                              "lm_corpus": lm_corpus["launches"][name],
+                              "lm_serving": lm["launches"][name],
+                              "cnn_training": launches[name]},
+            profiled_ms_per_training_step=lm_train["port_kernels"][name][
+                "ms"],
+            plain_and_library_cover="dq, dk and dv together"))
     summary = {"train_step_ms": train["step_ms"],
                "train_peak_bytes": train["peak_bytes"],
                "train_loop": train["loop"],
                "train_port_kernels": train["port_kernels"],
                "digits_final_accuracy": digits_acc,
                "lm_serving": lm,
+               "lm_training": lm_train,
+               "lm_corpus": lm_corpus,
                "wall_s": time.perf_counter() - t_start}
     print(f"[summary] {json.dumps(summary)}", flush=True)
     print(card, flush=True)

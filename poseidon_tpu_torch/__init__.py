@@ -17,8 +17,12 @@ CUDA kernel. Slice 2 is single-device training: LMDB data pipeline ->
 pooling backward and the fused SGD update as CUDA kernels. Slice 3 is LM
 serving: the transformer (``models``) -> bucketed prefill through the
 flash-attention forward (a CUDA kernel) -> paged KV pool -> continuous
-batching -> the ``generate`` wire op and ``serve --generate``. Entry
-points run on ``cuda`` unless the caller passes ``device="cpu"``.
+batching -> the ``generate`` wire op and ``serve --generate``. Slice 4 is
+LM training on one device: checkpointed blocks (``core/remat.py``) ->
+gradients through the flash attention Function, whose backward is two
+CUDA kernels (dQ, dK/dV) -> the per-leaf SGD rule -> LM snapshots ->
+``python -m poseidon_tpu_torch.models.train_lm``. Entry points run on
+``cuda`` unless the caller passes ``device="cpu"``.
 """
 
 __version__ = "0.1.0"

@@ -1,1 +1,1 @@
-"""Layers and the net of the port."""
+"""Layers, the net and the remat policies of the port."""

@@ -1,2 +1,3 @@
 """Model families of the port beyond the prototxt CNNs: the transformer LM
-(``transformer``) and its KV-cached and paged decoding (``generate``)."""
+(``transformer``, with its one-device train step), its KV-cached and paged
+decoding (``generate``) and the byte-level LM script (``train_lm``)."""

@@ -1,5 +1,6 @@
-"""Transformer LM family: config, parameters and the forward pass (the port
-of ``poseidon_tpu/models/transformer.py:36-206``).
+"""Transformer LM family: config, parameters, the forward pass and the
+one-device training step (the port of ``poseidon_tpu/models/transformer.py
+:36-241``).
 
 A GPT-style decoder: token + learned position embeddings, pre-norm blocks
 (layer norm -> fused qkv -> causal attention -> wo residual; layer norm ->
@@ -13,23 +14,30 @@ Numerics follow the JAX package's f32 policy: every product in float32
 (TF32 off, ``numeric.apply_f32_policy``), layer norm in f32, GELU in its
 tanh form (``jax.nn.gelu``'s default; ``F.gelu``'s default is erf), f32
 logits. Attention routes through ``ops/flash.maybe_flash_attention``: the
-CUDA flash kernel on the card where the JAX package would run its Pallas
-kernel.
+CUDA flash kernels (forward, and dQ and dK/dV in the backward) on the card
+where the JAX package would run its Pallas kernels. ``cfg.remat`` wraps
+each block in a checkpoint (``core/remat.py``), as the JAX forward does.
 
-This slice serves: ``forward`` has no rematerialization, and the dp/sp/tp/
-pp train steps, ring attention and MoE blocks wait for later slices.
+``build_dp_sp_train_step`` is the one-device counterpart of the JAX
+package's data x seq step: the loss, the gradients by ``torch.autograd``,
+and the per-leaf SGD rule. Larger data or seq axes (NCCL, ring attention),
+the tp/pp steps and MoE blocks wait for later slices.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..core.remat import resolve_lm_policy, wrap_checkpoint
+from ..numeric import apply_f32_policy, resolve_device
 from ..ops.flash import maybe_flash_attention
+from ..proto.messages import SolverParameter
+from ..solvers.updates import SolverState, make_update_fn
 
 Params = Dict[str, Dict[str, torch.Tensor]]
 
@@ -42,6 +50,10 @@ class TransformerConfig:
     n_layers: int = 2
     d_ff: int = 512
     max_seq: int = 1024
+    # rematerialize block activations in the backward pass: a policy name
+    # of core/remat.REMAT_POLICIES or the legacy bool (True means
+    # nothing_saveable, False unset)
+    remat: "bool | str" = False
 
     def n_params(self) -> int:
         """Parameter count (embeddings + blocks + head)."""
@@ -50,11 +62,14 @@ class TransformerConfig:
         return v * d + self.max_seq * d + v * d + 2 * d + L * block
 
 
-def gpt_small_config(max_seq: int = 1024) -> TransformerConfig:
+def gpt_small_config(max_seq: int = 1024,
+                     remat: "bool | str" = True) -> TransformerConfig:
     """The GPT-2-small shape (768d x 12L x 12h, d_ff 3072) with a 32768
-    vocabulary and an untied head."""
+    vocabulary and an untied head (136,091,136 params at max_seq 1024);
+    remat on by default, as in the JAX package."""
     return TransformerConfig(vocab_size=32768, d_model=768, n_heads=12,
-                             n_layers=12, d_ff=3072, max_seq=max_seq)
+                             n_layers=12, d_ff=3072, max_seq=max_seq,
+                             remat=remat)
 
 
 def init_params(cfg: TransformerConfig, generator: torch.Generator,
@@ -162,10 +177,17 @@ def lm_head(params: Params, x: torch.Tensor) -> torch.Tensor:
 def forward(params: Params, cfg: TransformerConfig, tokens: torch.Tensor,
             *, seq_axis: Optional[str] = None,
             pos_offset=0) -> torch.Tensor:
-    """tokens (B, S) -> logits (B, S, V)."""
+    """tokens (B, S) -> logits (B, S, V). Each block is wrapped in the
+    checkpoint that ``resolve_lm_policy(cfg.remat)`` names (the identity
+    for ``none``)."""
     x = embed_tokens(params, tokens, pos_offset)
+
+    def block(x, blk):
+        return block_forward(cfg, x, blk, seq_axis=seq_axis)
+
+    block = wrap_checkpoint(block, resolve_lm_policy(cfg.remat))
     for i in range(len([k for k in params if k.startswith("block")])):
-        x = block_forward(cfg, x, params[f"block{i}"], seq_axis=seq_axis)
+        x = block(x, params[f"block{i}"])
     return lm_head(params, x)
 
 
@@ -173,3 +195,54 @@ def lm_loss(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     logp = torch.log_softmax(logits, dim=-1)
     picked = torch.gather(logp, -1, targets[..., None].long())[..., 0]
     return -picked.mean()
+
+
+def transformer_mults(params) -> Dict:
+    """(lr_mult, decay_mult) per leaf: weights (names starting with "w")
+    decay, gains and biases do not."""
+    return {lname: {p: (1.0, 1.0 if p.startswith("w") else 0.0)
+                    for p in lp}
+            for lname, lp in params.items()}
+
+
+def loss_and_grads(params: Params, cfg: TransformerConfig,
+                   tokens: torch.Tensor,
+                   targets: torch.Tensor) -> Tuple[torch.Tensor, Params]:
+    """The LM loss of one batch and its gradient for every leaf (a tree
+    like ``params``), by ``torch.autograd.grad`` through ``forward``."""
+    leaves = {n: {l: v.detach().requires_grad_(True) for l, v in d.items()}
+              for n, d in params.items()}
+    loss = lm_loss(forward(leaves, cfg, tokens), targets)
+    flat = [v for d in leaves.values() for v in d.values()]
+    grads = iter(torch.autograd.grad(loss, flat))
+    return loss.detach(), {n: {l: next(grads) for l in d}
+                           for n, d in leaves.items()}
+
+
+def build_dp_sp_train_step(cfg: TransformerConfig, sp: SolverParameter,
+                           device=None):
+    """One training step on one device, the counterpart of the JAX
+    package's ``build_dp_sp_train_step`` on a (1, 1) data x seq mesh:
+
+        step(params, state, tokens, targets) -> (params, state, {"loss"})
+
+    tokens and targets are (B, S) integer tensors, moved to the step's
+    device (the causal shift is the caller's, as in JAX). The gradients
+    come from ``loss_and_grads``; the update is ``make_update_fn(sp,
+    transformer_mults(params))``, the per-leaf rule (never the arena, as
+    in JAX), returning new parameter and momentum tensors. ``device`` is the
+    card unless the caller passes ``"cpu"``. Data-parallel training over
+    NCCL (ROADMAP slice 5) and ring attention over a seq axis (queue A item
+    10) are not ported."""
+    device = resolve_device(device)
+    apply_f32_policy()
+
+    def step(params: Params, state: SolverState, tokens: torch.Tensor,
+             targets: torch.Tensor):
+        loss, grads = loss_and_grads(params, cfg, tokens.to(device),
+                                     targets.to(device))
+        update = make_update_fn(sp, transformer_mults(params))
+        new_params, new_state = update(params, grads, state)
+        return new_params, new_state, {"loss": loss}
+
+    return step

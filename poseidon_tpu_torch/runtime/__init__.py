@@ -1,1 +1,1 @@
-"""Runtime of the port: checkpoint reading, metrics, retry, CLI."""
+"""Runtime of the port: checkpoints (CNN and LM), metrics, retry, CLI."""

@@ -10,7 +10,9 @@ Spec: ``src/caffe/solver.cpp``
 Regularization: L2 adds decay*w to the gradient, L1 adds decay*sign(w);
 local_lr = rate * lr_mult, local_decay = weight_decay * decay_mult.
 
-The flat rule (``make_flat_update_rule``) runs over the parameter arena
+``make_update_fn`` is the per-leaf rule over a parameter tree (the LM
+step's update). The flat rule (``make_flat_update_rule``) runs over the
+parameter arena
 with per-segment multiplier vectors and updates w and h in place. Its
 SGD + L2 arm — Caffe's default and AlexNet's solver — is the fused kernel
 of ``ops/sgd.py`` (CUDA on the card, the plain version on the CPU); the
@@ -113,6 +115,23 @@ def _leafwise_update(sp: SolverParameter, mults, rate: float, params, grads,
             new_params[lname][pname] = w - step
             new_hist[lname][pname] = h_new
     return new_params, new_hist
+
+
+def make_update_fn(sp: SolverParameter, mults: Dict[str, Dict[str, tuple]]):
+    """update(params, grads, state) -> (params, state): the per-leaf rule
+    over a ``{layer: {leaf: tensor}}`` tree at ``learning_rate(sp,
+    state.it)``, returning new parameter and history tensors and
+    ``state.it + 1``. ``mults`` maps layer -> leaf -> (lr_mult,
+    decay_mult). The LM train step's update, as in the JAX package (never
+    the arena or the fused kernel)."""
+    def update(params, grads, state: SolverState):
+        rate = learning_rate(sp, state.it)
+        with torch.no_grad():
+            new_params, new_hist = _leafwise_update(
+                sp, mults, rate, params, grads, state.history)
+        return new_params, SolverState(it=state.it + 1, history=new_hist)
+
+    return update
 
 
 def make_flat_update_rule(sp: SolverParameter, sgd_update=sgd_update_):

@@ -137,3 +137,74 @@ def test_flash_fwd_kernel_matches_plain_on_card(dtype, shape, causal, mode):
     torch.testing.assert_close(out.float(), want_o.float(), rtol=rtol,
                                atol=1e-5)
     torch.testing.assert_close(lse, want_l, rtol=1e-4, atol=1e-5)
+
+
+def _bwd_inputs(shape, dtype, causal, mode, seed):
+    """q, k, v, dO on the card, and the plain forward's out and lse."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v, g = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
+                  for _ in range(4))
+    out, lse = port_flash.flash_attention_fwd_plain(q, k, v, causal, None,
+                                                    mode)
+    return q, k, v, g, out, lse
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,shape,causal,mode", [
+    (torch.float32, (2, 12, 256, 64), True, None),
+    (torch.float32, (2, 4, 128, 64), False, None),
+    (torch.float32, (2, 4, 128, 64), True, 1),
+    (torch.float32, (2, 4, 128, 64), True, 0),
+    (torch.float32, (2, 4, 128, 64), True, -1),
+    (torch.float32, (1, 3, 48, 16), True, None),
+    (torch.float32, (1, 2, 100, 128), True, None),
+    (torch.bfloat16, (2, 12, 256, 64), True, None),
+])
+def test_flash_bwd_kernels_match_plain_on_card(dtype, shape, causal, mode):
+    """K2 (dQ) and K3 (dK/dV) through the routing wrapper against the plain
+    backward on the same out and lse, one launch each: f32 within rtol
+    1e-4, atol 1e-5 (tiles folded with FMAs vs one dense product); bf16
+    within one bf16 step (rtol 2^-7, atol 1e-3: the outputs round to bf16
+    from f32 sums of up to S terms)."""
+    _need_gpu()
+    q, k, v, g, out, lse = _bwd_inputs(shape, dtype, causal, mode, 5)
+    delta = None
+    if mode is not None:   # the ring passes delta in
+        delta = port_flash.flash_delta(g, out) * 0.5
+    before = dict(port_flash.LAUNCHES)
+    got = port_flash.flash_attention_bwd(q, k, v, out, lse, g, causal, None,
+                                         mode, delta)
+    torch.cuda.synchronize()
+    assert port_flash.LAUNCHES["flash_dq"] == before["flash_dq"] + 1
+    assert port_flash.LAUNCHES["flash_dkv"] == before["flash_dkv"] + 1
+    want = port_flash.flash_attention_bwd_plain(q, k, v, out, lse, g, causal,
+                                                None, mode, delta)
+    rtol, atol = (2 ** -7, 1e-3) if dtype == torch.bfloat16 else (1e-4, 1e-5)
+    for a, b in zip(got, want):
+        assert a.dtype == dtype
+        torch.testing.assert_close(a.float(), b.float(), rtol=rtol, atol=atol)
+
+
+@pytest.mark.gpu
+def test_flash_function_backward_on_card_gpt_small_shape():
+    """The autograd Function at a gpt_small-shaped head layout (B=1, 12
+    heads, S=1024, d 64, causal): kernels (one launch of each of K1, K2,
+    K3) against the same Function with the plain versions."""
+    _need_gpu()
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    shape = (1, 12, 1024, 64)
+    q, k, v, g = (torch.randn(shape, generator=gen, device="cuda")
+                  for _ in range(4))
+    grads = {}
+    for plain in (False, True):
+        ins = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        before = dict(port_flash.LAUNCHES)
+        out = port_flash.flash_attention(*ins, True, None, None, plain)
+        out.backward(g)
+        torch.cuda.synchronize()
+        n = 0 if plain else 1
+        for name in ("flash_fwd", "flash_dq", "flash_dkv"):
+            assert port_flash.LAUNCHES[name] == before[name] + n, name
+        grads[plain] = [t.grad for t in ins]
+    for a, b in zip(grads[False], grads[True]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)

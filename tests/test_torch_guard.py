@@ -174,11 +174,39 @@ def test_net_applies_f32_policy():
 
 def test_kernel_sources_and_build_dir():
     from poseidon_tpu_torch.ops import _build
-    assert _build.sources() == ["flash_fwd", "lrn_bwd", "lrn_fwd",
-                                "pool_bwd", "sgd_update"]
+    assert _build.sources() == ["flash_bwd", "flash_fwd", "lrn_bwd",
+                                "lrn_fwd", "pool_bwd", "sgd_update"]
     assert _build.BUILD_DIR == \
         __import__("pathlib").Path(REPO) / "build" / "poseidon_tpu_torch"
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     lib = _build._lib_path("lrn_fwd")
     assert lib.parent == _build.BUILD_DIR and lib.name.startswith(
         "liblrn_fwd-")
+
+
+def test_lm_training_modules_import_neither_jax_nor_poseidon_tpu():
+    """The LM training slice's new modules, imported together in a fresh
+    process."""
+    mods = ["poseidon_tpu_torch.core.remat",
+            "poseidon_tpu_torch.runtime.lm_checkpoint",
+            "poseidon_tpu_torch.models.train_lm"]
+    code = ("import importlib, sys\n"
+            f"for m in {mods!r}: importlib.import_module(m)\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'poseidon_tpu')]\n"
+            "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_lm_train_step_and_script_without_device_refuse():
+    _need_no_gpu()
+    from poseidon_tpu_torch.models import train_lm
+    from poseidon_tpu_torch.models.transformer import (
+        TransformerConfig, build_dp_sp_train_step)
+    from poseidon_tpu_torch.proto.messages import SolverParameter
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_dp_sp_train_step(TransformerConfig(), SolverParameter())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_lm.main(["--steps", "1"])

@@ -46,11 +46,13 @@ def _tokens(b, s, seed=1):
 
 
 def test_configs_and_param_counts_match_jax():
-    j = jax_tf.gpt_small_config(max_seq=512, remat=False)
+    j = jax_tf.gpt_small_config(max_seq=512)
     p = port_tf.gpt_small_config(max_seq=512)
     for f in dataclasses.fields(p):
         assert getattr(p, f.name) == getattr(j, f.name), f.name
     assert p.n_params() == j.n_params() == 135_697_920
+    assert p.remat is True and port_tf.TransformerConfig().remat is False
+    assert port_tf.gpt_small_config().n_params() == 136_091_136
     tiny = port_tf.TransformerConfig(vocab_size=256, d_model=32, n_heads=4,
                                      n_layers=2, d_ff=128, max_seq=128)
     assert tiny.n_params() == jax_tf.TransformerConfig(
