@@ -33,7 +33,12 @@ Phases, in order; any failure exits non-zero without the final ``ok`` line:
      ring-chunk modes +1/0/-1 at (2,4,128,64) with delta passed in, an odd
      (1,3,48,16); the library yardstick is the backward of
      F.scaled_dot_product_attention (forward + backward less the forward),
-     timed against K2+K3 together.
+     timed against K2+K3 together. Each case also prints the bound at the
+     3xTF32 rate (3 x operations over TF32's 495 TFLOP/s) and relaunches
+     both kernels on the same inputs, which must give bitwise-equal dq, dk
+     and dv; the registers, shared memory, spills and resident blocks per
+     SM of each kernel's f32 and bf16 instantiation at D = 64 are printed
+     once.
 3. The CNN serving slice: ``BucketedExecutor.from_files`` on AlexNet (3x227x227,
    buckets 1/4/16/64, seeded filler weights) behind the port's
    ``InferenceServer`` on 127.0.0.1 port 0, driven by the port's
@@ -84,7 +89,8 @@ Phases, in order; any failure exits non-zero without the final ``ok`` line:
    against none (loss equal, gradients at GRAD_TOL, peak memory without
    remat); a snapshot restoring bitwise. Then the device step time,
    tokens/s, MFU (6*P*T) and the executed share (8*P*T) over 67 TFLOP/s,
-   peak device memory and the top kernels of one profiled step.
+   peak device memory and the top kernels of one profiled step, in which
+   every port kernel launched on the step must show device time.
 7. ``python -m poseidon_tpu_torch.models.train_lm --generate 48`` at its
    defaults, through its ``main`` in this process: the loss must fall
    below LM_CORPUS_MAX_LOSS by step 200, and the decode must print its
@@ -117,6 +123,10 @@ HBM_BYTES_PER_S = 3.35e12
 HBM_SOURCE = "H100 SXM data sheet, 3.35 TB/s"
 F32_OPS_PER_S = 67e12
 OPS_PER_S = {"float32": F32_OPS_PER_S, "bfloat16": 989e12}
+# TF32 on the tensor cores: K2/K3 run each f32 product as three TF32
+# products (3xTF32), so their least f32 time on the tensor cores is
+# 3 x operations over this rate
+TF32_OPS_PER_S = 495e12
 ALEXNET = "examples/imagenet/alexnet_deploy.prototxt"
 ALEXNET_TRAIN = "examples/imagenet/alexnet_train_val.prototxt"
 ALEXNET_SOLVER = "examples/imagenet/alexnet_solver.prototxt"
@@ -151,9 +161,10 @@ LM_PROMPT_MIN, LM_PROMPT_MAX = 4, 250
 # and one prefill on the card vs the CPU: f32 everywhere, but cuBLAS picks
 # other GEMM splits for other shapes and the CPU sums in another order
 LM_TOL = (1e-4, 1e-4)
-# flash_dq (K2) and flash_dkv (K3) vs plain: the kernels fold 64-row tiles
-# with FMAs, the plain version takes each gradient in one dense product;
-# bf16 outputs round to bf16 from f32 sums of up to S terms
+# flash_dq (K2) and flash_dkv (K3) vs plain: the kernels sum 3xTF32
+# tensor-core products tile by tile, the plain version takes each gradient
+# in one dense f32 product, so they round differently; bf16 outputs round
+# to bf16 from f32 sums of up to S terms
 FLASH_BWD_TOL = {"float32": (1e-4, 1e-5), "bfloat16": (2 ** -7, 1e-3)}
 # the LM training slice: gpt_small (vocab 32768, d 768, 12 heads, 12
 # layers, d_ff 3072, max_seq 1024, remat on) at the JAX package's own
@@ -604,13 +615,27 @@ def sdpa_backward_ms(q, k, v, g, is_causal: bool):
 
 def phase_flash_bwd(card: str):
     """flash_dq (K2) and flash_dkv (K3) vs the plain backward on the card,
-    on the kernel forward's out and lse; returns (K2 records, K3 records).
+    on the kernel forward's out and lse; returns (K2 records, K3 records,
+    the kernels' attributes by dtype at D = 64).
     The plain version and the library call compute dq, dk and dv in one
     call, so their times are of the whole backward, in both kernels'
     records."""
     import torch
     from poseidon_tpu_torch.ops import flash
+    from poseidon_tpu_torch.ops.attention import NEG_INF
 
+    attrs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).replace("torch.", "")
+        attrs[name] = flash.flash_bwd_kernel_attrs(dtype, 64)
+        for kernel, a in attrs[name].items():
+            print(f"[flash_bwd] {kernel} {name} D=64: {a['registers']} "
+                  f"registers, {a['local_bytes']} B local (spills), "
+                  f"{a['dynamic_smem_bytes']} B dynamic + "
+                  f"{a['static_smem_bytes']} B static shared memory, "
+                  f"{a['threads']} threads, {a['blocks_per_sm']} resident "
+                  f"blocks per SM, tiles of {a['own_rows']} own and "
+                  f"{a['stream_rows']} streamed rows [{card}]", flush=True)
     gen = torch.Generator(device="cuda").manual_seed(5)
     dq_recs, dkv_recs = [], []
     for label, shape, dtype, causal, mode in flash_bwd_cases():
@@ -624,9 +649,26 @@ def phase_flash_bwd(card: str):
         args = (q, k, v, g, lse, delta, causal, None, mode)
         dq = flash.flash_dq_cuda(*args)
         dk, dv = flash.flash_dkv_cuda(*args)
+        # no atomics: a second launch on the same inputs is bitwise equal
+        repeat = (torch.equal(dq, flash.flash_dq_cuda(*args))
+                  and all(torch.equal(a, b) for a, b in
+                          zip((dk, dv), flash.flash_dkv_cuda(*args))))
         torch.cuda.synchronize()
         want = flash.flash_attention_bwd_plain(q, k, v, out, lse, g, causal,
                                                None, mode, delta)
+        # both against the same backward in f64 (the plain version computes
+        # in f64 for f64 input): how much of their difference is f32's own.
+        # A fully masked row's lse is NEG_INF rounded to f32; in f64 it is
+        # NEG_INF itself, so that p stays exp(0) = 1
+        lse64 = torch.where(lse == NEG_INF, NEG_INF, lse.double())
+        exact = flash.flash_attention_bwd_plain(
+            q.double(), k.double(), v.double(), out.double(), lse64,
+            g.double(), causal, None, mode, delta.double())
+        err64 = {name: max(float((a.double() - e).abs().max())
+                           for a, e in zip(got, exact))
+                 for name, got in (("kernels", (dq, dk, dv)),
+                                   ("plain", want))}
+        del exact
         dtype_name = str(dtype).replace("torch.", "")
         b, h, s, d = shape
         live = 0.5 if causal and mode in (None, 0) else 1.0
@@ -660,23 +702,39 @@ def phase_flash_bwd(card: str):
                "library": library[1]}
         both = rec_q["ms"] + rec_kv["ms"]
         bound = rec_q["bound_ms"] + rec_kv["bound_ms"]
+        for rec in (rec_q, rec_kv):
+            rec["bound_3xtf32_ms"] = 3 * rec["ops"] / TF32_OPS_PER_S * 1e3
+        tf32 = ""
+        if dtype == torch.float32:
+            tf32 = (f" ({rec_q['bound_3xtf32_ms']:.4f} + "
+                    f"{rec_kv['bound_3xtf32_ms']:.4f} ms at the 3xTF32 rate,"
+                    f" 3 x ops / {TF32_OPS_PER_S / 1e12:g} TFLOP/s)")
         lib = ("n/a" if library[0] is None else
                f"{library[0]:.4f} ms (device {library[1]:.4f} ms)")
         print(f"[flash_bwd] {label} {dtype_name}{extra}: K2+K3 {both:.4f} ms "
-              f"(device {dev['flash_dq']:.4f} + {dev['flash_dkv']:.4f} ms, "
-              f"torch.profiler), bound {bound:.4f} ms, plain backward "
-              f"{rec_q['plain_ms']:.4f} ms (device {dev['plain']:.4f} ms), "
-              f"F.scaled_dot_product_attention "
-              f"backward {lib} [{card}]", flush=True)
+              f"= {rec_q['ms']:.4f} + {rec_kv['ms']:.4f} (device "
+              f"{dev['flash_dq']:.4f} + {dev['flash_dkv']:.4f} ms, "
+              f"torch.profiler), bound {rec_q['bound_ms']:.4f} + "
+              f"{rec_kv['bound_ms']:.4f} = {bound:.4f} ms at "
+              f"{OPS_PER_S[dtype_name] / 1e12:g} TFLOP/s{tf32}, plain "
+              f"backward {rec_q['plain_ms']:.4f} ms (device "
+              f"{dev['plain']:.4f} ms), F.scaled_dot_product_attention "
+              f"backward {lib}; a second launch bitwise equal: {repeat}; "
+              f"max_abs from an f64 backward: kernels "
+              f"{err64['kernels']:.3e}, plain {err64['plain']:.3e} "
+              f"[{card}]", flush=True)
+        check(repeat, f"flash_dq/flash_dkv differ from run to run on {label} "
+                      f"{dtype_name}")
         for rec in (rec_q, rec_kv):
             rec.update(shape=list(shape), causal=causal, mode=mode,
                        library_ms=library[0], device_ms=dev,
+                       bitwise_repeat=repeat, max_abs_err_vs_f64=err64,
                        plain_and_library_cover="dq, dk and dv together")
         dq_recs.append(rec_q)
         dkv_recs.append(rec_kv)
         del q, k, v, g, out, lse, delta, dq, dk, dv, want, plain, args
         torch.cuda.empty_cache()
-    return dq_recs, dkv_recs
+    return dq_recs, dkv_recs, attrs
 
 
 def sync(device) -> None:
@@ -1655,6 +1713,12 @@ def phase_lm_train(card: str, device=None, preset: str = LMT_PRESET,
     if on_card:
         out.update(phase_lm_train_timing(step, params, state, toks, tgts,
                                          n_par, card))
+        for name, n in out["launches_per_step"].items():
+            ms = out["port_kernels"].get(name, {}).get("ms", 0.0)
+            check(n == 0 or ms > 0,
+                  f"{name} launched {n} times a step but the profiled step "
+                  f"shows no device time for it (a kernel renamed away from "
+                  f"'{name}_kernel'?)")
     return out
 
 
@@ -1832,7 +1896,7 @@ def main() -> int:
         k6 = phase_pool_bwd(card)
         k7 = phase_sgd(card, arena_total)
         k1 = phase_flash(card)
-        k2, k3 = phase_flash_bwd(card)
+        k2, k3, bwd_attrs = phase_flash_bwd(card)
         serving_launches, ex, solo = phase_slice(card)
         phase_net_checks(ex)
         phase_breakdown(ex, card, solo["p50_ms"])
@@ -1890,6 +1954,11 @@ def main() -> int:
                               "cnn_training": launches[name]},
             profiled_ms_per_training_step=lm_train["port_kernels"][name][
                 "ms"],
+            bound_3xtf32_ms=sum(r["bound_3xtf32_ms"] for r in recs
+                                if r["case"] == "train main"
+                                and r["dtype"] == "float32"),
+            attributes_d64={dt: a[f"{name}_kernel"]
+                            for dt, a in bwd_attrs.items()},
             plain_and_library_cover="dq, dk and dv together"))
     summary = {"train_step_ms": train["step_ms"],
                "train_peak_bytes": train["peak_bytes"],

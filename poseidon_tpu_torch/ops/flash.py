@@ -231,6 +231,31 @@ def flash_dkv_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dk, dv
 
 
+_ATTR_KEYS = ("registers", "static_smem_bytes", "dynamic_smem_bytes",
+              "local_bytes", "threads", "blocks_per_sm", "own_rows",
+              "stream_rows")
+
+
+def flash_bwd_kernel_attrs(dtype: torch.dtype, head_dim: int) -> dict:
+    """What the card reports for the K2 and K3 instantiations that take
+    ``dtype`` and ``head_dim`` (``cudaFuncGetAttributes``, and
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` at their shared
+    memory): ``{"flash_dq_kernel": {...}, "flash_dkv_kernel": {...}}`` keyed
+    by ``_ATTR_KEYS``. Needs the card."""
+    fn = _build.load("flash_bwd").poseidon_flash_bwd_attrs
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    attrs = {}
+    for which, name in enumerate(("flash_dq_kernel", "flash_dkv_kernel")):
+        buf = (ctypes.c_int * len(_ATTR_KEYS))()
+        rc = fn(which, _DTYPE_CODE[dtype], head_dim, buf)
+        if rc != 0:
+            raise RuntimeError(f"{name} attributes: cudaError {rc}")
+        attrs[name] = dict(zip(_ATTR_KEYS, buf))
+    return attrs
+
+
 def flash_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    g: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
                    causal: bool = False, scale: Optional[float] = None,

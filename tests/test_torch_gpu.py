@@ -159,13 +159,27 @@ def _bwd_inputs(shape, dtype, causal, mode, seed):
     (torch.float32, (1, 3, 48, 16), True, None),
     (torch.float32, (1, 2, 100, 128), True, None),
     (torch.bfloat16, (2, 12, 256, 64), True, None),
+    # S off the 64-row own tiles and the 32/64-row streamed tiles
+    (torch.float32, (1, 2, 200, 64), True, None),
+    (torch.float32, (1, 2, 1000, 64), False, None),
+    (torch.float32, (1, 2, 1000, 64), True, None),
+    # D padded up to the instantiation's 32/64/128 (zero-filled columns)
+    (torch.float32, (1, 2, 96, 24), True, None),
+    (torch.float32, (1, 2, 130, 80), True, None),
+    (torch.float32, (1, 2, 256, 128), False, None),
+    (torch.bfloat16, (1, 2, 200, 80), True, None),
+    # S smaller than one tile; a D off the 16-byte copies
+    (torch.float32, (1, 2, 20, 64), True, None),
+    (torch.float32, (1, 3, 7, 5), True, None),
+    (torch.bfloat16, (2, 4, 128, 64), False, None),
+    (torch.bfloat16, (2, 4, 128, 64), True, 1),
 ])
 def test_flash_bwd_kernels_match_plain_on_card(dtype, shape, causal, mode):
     """K2 (dQ) and K3 (dK/dV) through the routing wrapper against the plain
     backward on the same out and lse, one launch each: f32 within rtol
-    1e-4, atol 1e-5 (tiles folded with FMAs vs one dense product); bf16
-    within one bf16 step (rtol 2^-7, atol 1e-3: the outputs round to bf16
-    from f32 sums of up to S terms)."""
+    1e-4, atol 1e-5 (3xTF32 tensor-core products summed in another order
+    than one dense f32 product); bf16 within one bf16 step (rtol 2^-7,
+    atol 1e-3: the outputs round to bf16 from f32 sums of up to S terms)."""
     _need_gpu()
     q, k, v, g, out, lse = _bwd_inputs(shape, dtype, causal, mode, 5)
     delta = None
@@ -183,6 +197,26 @@ def test_flash_bwd_kernels_match_plain_on_card(dtype, shape, causal, mode):
     for a, b in zip(got, want):
         assert a.dtype == dtype
         torch.testing.assert_close(a.float(), b.float(), rtol=rtol, atol=atol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,shape,causal", [
+    (torch.float32, (2, 12, 512, 64), True),
+    (torch.bfloat16, (2, 12, 512, 64), True),
+    (torch.float32, (1, 2, 200, 128), False),
+])
+def test_flash_bwd_kernels_bitwise_from_run_to_run(dtype, shape, causal):
+    """Each block owns its output tile and nothing is added atomically: two
+    launches on the same inputs give bitwise-equal dq, dk and dv."""
+    _need_gpu()
+    q, k, v, g, out, lse = _bwd_inputs(shape, dtype, causal, None, 7)
+    delta = port_flash.flash_delta(g, out)
+    args = (q, k, v, g, lse, delta, causal)
+    first = port_flash.flash_bwd_cuda(*args)
+    second = port_flash.flash_bwd_cuda(*args)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.gpu
