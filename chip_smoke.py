@@ -15,7 +15,10 @@ Phases, in order; any failure exits non-zero without the final ``ok`` line:
    TFLOP/s, the larger):
    - lrn_fwd (K4): norm1/norm2 at serving bucket 64 (f32, bf16) and at
      training batch 256 (f32), an odd even-window case;
-   - lrn_bwd (K5): norm1/norm2 at batch 256 in f32 and bf16, n=4 with C=37;
+   - lrn_bwd (K5): norm1/norm2 at batch 256 in f32 and bf16, n=4 with C=37,
+     and the window's edges (n=1, n=32, C=2 below the halo, one h*w
+     position, batch 1 with C=131 off the 64-channel chunks); each case
+     prints whether it is bitwise equal to the plain version;
    - pool_bwd (K6): pool1/pool2/pool5 MAX at batch 256 in f32, pool1 in
      bf16, a constant input (ties: first max wins), AVE with pad 1 and a
      ceil-mode clamp;
@@ -26,6 +29,12 @@ Phases, in order; any failure exits non-zero without the final ``ok`` line:
      (8,4,256,32) and (1,4,32,32), (8,12,512,64) causal and not in f32
      and bf16, the ring-chunk modes +1/0/-1 at (2,4,128,64), an odd
      (1,3,48,16); the library yardstick is F.scaled_dot_product_attention.
+     f32 cases also print the bound at the 3xTF32 rate (3 x operations over
+     TF32's 495 TFLOP/s); each case relaunches the kernel on the same
+     inputs, which must give bitwise-equal out and lse; the registers,
+     shared memory, spills and resident blocks per SM of the
+     instantiations for each dtype and head dim the cases use (both key
+     splits) are printed once.
    - flash_dq (K2) and flash_dkv (K3): dq, dk and dv against the plain
      backward at the gpt_small training shape (8,12,1024,64) f32 causal
      (the main case), the byte-level LM's (8,4,256,32), (8,12,512,64)
@@ -123,7 +132,7 @@ HBM_BYTES_PER_S = 3.35e12
 HBM_SOURCE = "H100 SXM data sheet, 3.35 TB/s"
 F32_OPS_PER_S = 67e12
 OPS_PER_S = {"float32": F32_OPS_PER_S, "bfloat16": 989e12}
-# TF32 on the tensor cores: K2/K3 run each f32 product as three TF32
+# TF32 on the tensor cores: K1-K3 run each f32 product as three TF32
 # products (3xTF32), so their least f32 time on the tensor cores is
 # 3 x operations over this rate
 TF32_OPS_PER_S = 495e12
@@ -146,10 +155,12 @@ LRN_ALPHA, LRN_BETA, LRN_K = 1e-4, 0.75, 1.0
 # kernel vs plain on the card: f32 differs by powf's last bits; bf16 may
 # flip one bf16 rounding step (2^-7 relative) where those bits sit on a tie
 KERNEL_TOL = {"float32": (1e-5, 1e-6), "bfloat16": (2 ** -7, 1e-6)}
-# flash_fwd (K1) vs plain: the kernel folds 64-key tiles with FMAs, the plain
-# version sums each row in one pass (the JAX package's own flash-vs-dense
-# test allows 2e-4/2e-5); bf16 out may flip one bf16 rounding step. lse is
-# f32 for both dtypes and is held at the f32 pair.
+# flash_fwd (K1) vs plain: the kernel folds key tiles of tensor-core
+# products (f32 as 3xTF32, bf16 with P split into two bf16 parts) summed a
+# few MMAs at a time into f32 accumulators, the plain version sums each row
+# in one dense f32 pass (the JAX package's own flash-vs-dense test allows
+# 2e-4/2e-5); bf16 out may flip one bf16 rounding step. lse is f32 for both
+# dtypes and is held at the f32 pair.
 FLASH_TOL = {"float32": (1e-4, 1e-5), "bfloat16": (2 ** -7, 1e-5)}
 # the LM serving slice: gpt_small at full width and depth (vocab 32768,
 # d 768, 12 heads, 12 layers, d_ff 3072, max_seq 512), seeded weights
@@ -336,7 +347,14 @@ def phase_lrn_bwd(card: str):
              ("norm2", (256, 256, 27, 27), 5, torch.float32),
              ("norm1", (256, 96, 55, 55), 5, torch.bfloat16),
              ("norm2", (256, 256, 27, 27), 5, torch.bfloat16),
-             ("odd", (5, 37, 9, 9), 4, torch.float32)]
+             ("odd", (5, 37, 9, 9), 4, torch.float32),
+             # the window's edges and the tile's: one channel, the widest
+             # window, C below the halo, one position, a C off the chunks
+             ("n=1", (8, 16, 13, 13), 1, torch.float32),
+             ("n=32", (8, 70, 13, 13), 32, torch.float32),
+             ("C=2", (8, 2, 27, 27), 5, torch.float32),
+             ("hw=1", (64, 96, 1, 1), 5, torch.float32),
+             ("batch 1, C=131", (1, 131, 27, 27), 5, torch.float32)]
     records = []
     for label, shape, size, dtype in cases:
         x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
@@ -345,6 +363,7 @@ def phase_lrn_bwd(card: str):
         got = lrn.lrn_bwd_cuda(x, g, *args)
         torch.cuda.synchronize()
         want = lrn.lrn_bwd_plain(x, g, *args)
+        bitwise = torch.equal(got, want)
         library = None
         if size % 2 == 1:
             # one autograd call through torch's builtin LRN (the same window
@@ -359,8 +378,8 @@ def phase_lrn_bwd(card: str):
             lambda: lrn.lrn_bwd_cuda(x, g, *args),
             lambda: lrn.lrn_bwd_plain(x, g, *args), library,
             3 * x.numel() * x.element_size(), x.numel() * (3 * size + 10),
-            card, extra=f" {tuple(shape)} n={size}")
-        rec.update(shape=list(shape), local_size=size)
+            card, extra=f" {tuple(shape)} n={size} bitwise={bitwise}")
+        rec.update(shape=list(shape), local_size=size, bitwise=bitwise)
         records.append(rec)
         del x, g, got, want, library
     return records
@@ -516,12 +535,33 @@ def flash_cases():
 
 
 def phase_flash(card: str):
-    """flash_fwd (K1) vs plain on the card, out and lse; returns the
-    per-case records (each lse error is folded into the record's max)."""
+    """flash_fwd (K1) vs plain on the card, out and lse, and a second launch
+    bitwise equal to the first; returns the per-case records (each lse
+    error is folded into the record's max) and the attributes of each
+    instantiation the cases run."""
     import torch
     import torch.nn.functional as F
     from poseidon_tpu_torch.ops import flash
 
+    # the instantiations of each dtype and head dim the cases use, with
+    # whole key tiles (64-row blocks) and with the key split that the C
+    # entry takes for grids of fewer such blocks than the card has SMs
+    attrs = {}
+    for _, shape, dtype, _, _ in flash_cases():
+        name = str(dtype).replace("torch.", "")
+        dmax = next(m for m in (32, 64, 128) if shape[-1] <= m)
+        for split in (1, 2):
+            key = f"{name} D<={dmax} key split {split}"
+            if key in attrs:
+                continue
+            a = attrs[key] = flash.flash_fwd_kernel_attrs(dtype, dmax, split)
+            print(f"[flash_fwd] flash_fwd_kernel {key}: "
+                  f"{a['registers']} registers, {a['local_bytes']} B local "
+                  f"(spills), {a['dynamic_smem_bytes']} B dynamic + "
+                  f"{a['static_smem_bytes']} B static shared memory, "
+                  f"{a['threads']} threads, {a['blocks_per_sm']} resident "
+                  f"blocks per SM, {a['own_rows']} query rows a block, "
+                  f"{a['stream_rows']} key rows a tile [{card}]", flush=True)
     gen = torch.Generator(device="cuda").manual_seed(4)
     records = []
     for label, shape, dtype, causal, mode in flash_cases():
@@ -553,6 +593,13 @@ def phase_flash(card: str):
             4.0 * b * h * s * s * d * live, card,
             extra=f" {tuple(shape)} causal={causal} mode={mode} lse "
                   f"max_abs={lse_err:.3e}", tol=FLASH_TOL)
+        # no atomics: a second launch on the same inputs is bitwise equal
+        again = flash.flash_fwd_cuda(q, k, v, causal, None, mode)
+        repeat = torch.equal(out, again[0]) and torch.equal(lse, again[1])
+        check(repeat, f"flash_fwd differs from run to run on {label} "
+                      f"{dtype_name}")
+        rec["bound_3xtf32_ms"] = (3 * rec["ops"] / TF32_OPS_PER_S * 1e3
+                                  if dtype == torch.float32 else None)
         # small launches are paced by the host (wrapper, ctypes): the
         # profiler's kernel durations give the device's share alone
         dev = {"kernel": profiled_device_ms(
@@ -563,17 +610,22 @@ def phase_flash(card: str):
                                                            None, mode)),
                "library": (None if library is None
                            else profiled_device_ms(library))}
+        tf32 = ("" if rec["bound_3xtf32_ms"] is None else
+                f", bound {rec['bound_3xtf32_ms']:.4f} ms at the 3xTF32 "
+                f"rate (3 x ops / {TF32_OPS_PER_S / 1e12:g} TFLOP/s)")
         print(f"[flash_fwd] {label} {dtype_name}: device time a call "
               f"(torch.profiler, mean of 10): kernel {dev['kernel']:.4f} ms, "
               f"plain {dev['plain']:.4f} ms, library "
               + ("n/a" if dev["library"] is None
-                 else f"{dev['library']:.4f} ms") + f" [{card}]", flush=True)
+                 else f"{dev['library']:.4f} ms") + f"{tf32}; a second "
+              f"launch bitwise equal: {repeat} [{card}]", flush=True)
         rec.update(shape=list(shape), causal=causal, mode=mode,
                    lse_max_abs_err=lse_err, device_ms=dev,
+                   bitwise_repeat=repeat,
                    max_abs_err=max(rec["max_abs_err"], lse_err))
         records.append(rec)
-        del q, k, v, out, lse, want_o, want_l, library
-    return records
+        del q, k, v, out, lse, want_o, want_l, library, again
+    return records, attrs
 
 
 def flash_bwd_cases():
@@ -1895,7 +1947,7 @@ def main() -> int:
         k5 = phase_lrn_bwd(card)
         k6 = phase_pool_bwd(card)
         k7 = phase_sgd(card, arena_total)
-        k1 = phase_flash(card)
+        k1, fwd_attrs = phase_flash(card)
         k2, k3, bwd_attrs = phase_flash_bwd(card)
         serving_launches, ex, solo = phase_slice(card)
         phase_net_checks(ex)
@@ -1940,7 +1992,15 @@ def main() -> int:
                                            // max(1, lm["prefills"])),
                      profiled_ms_per_prefill_256=lm["prefill_flash_ms"],
                      launches_per_training_step=lm_train[
-                         "launches_per_step"]["flash_fwd"]),
+                         "launches_per_step"]["flash_fwd"],
+                     bound_3xtf32_ms=sum(r["bound_3xtf32_ms"] for r in k1
+                                         if r["case"] == "prefill 256"
+                                         and r["dtype"] == "float32"),
+                     training_launch={
+                         k: next(r for r in k1 if r["case"] == "train")[k]
+                         for k in ("ms", "device_ms", "bound_ms",
+                                   "bound_3xtf32_ms", "library_ms")},
+                     attributes=fwd_attrs),
     ]
     for name, line, recs in (("flash_dq", 208, k2), ("flash_dkv", 255, k3)):
         kernels.append(kernel_entry(

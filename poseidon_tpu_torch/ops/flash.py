@@ -14,6 +14,25 @@ tensors they launch ``csrc/flash_fwd.cu`` (the port of the TPU kernel
 ``_flash_dkv_kernel``) or raise: nothing falls back. Each launch adds one to
 its count in ``LAUNCHES``.
 
+All three kernels run their S x S x D products on Hopper's tensor cores
+with warp-level ``mma.sync`` and never a single TF32 pass: f32 as 3xTF32
+(each operand a TF32 big part and a remainder, three products), bf16 on
+bf16 tensor cores with f32 accumulation, the probabilities entering the
+second product as a bf16 big part and a bf16 remainder. The tensor core
+truncates its own sums, so each partial sum of a few MMAs is added into f32
+accumulators with one rounded add. The forward keeps the online softmax
+(running max, rescale, row sum) in f32 registers on the accumulator
+fragments, takes the query tile's operand fragments once (f32: split once
+into shared memory), streams key/value tiles through a ``cp.async`` ring,
+and, when its blocks of 64 query rows would number fewer than the card's
+SMs, launches blocks of 32 whose warp pairs split each key tile and merge
+by logsumexp. Their results are therefore not bitwise those of the plain
+versions:
+``chip_smoke.py`` and ``tests/test_torch_gpu.py`` hold them at the
+tolerances stated there, and ``tests/test_torch_flash_fwd_route.py`` /
+``tests/test_torch_flash_bwd_route.py`` pin the rounding against the Pallas
+kernels on the CPU.
+
 The plain versions are the dense formulation, computed in f32 (f64 for f64
 input, what ``gradcheck`` feeds): scores ``(q k^T) * scale``, masked entries
 set to ``NEG_INF = -1e30`` (not -inf, so a fully masked row in ``mode = -1``
@@ -236,6 +255,32 @@ _ATTR_KEYS = ("registers", "static_smem_bytes", "dynamic_smem_bytes",
               "stream_rows")
 
 
+def _attrs(fn, *args, name: str) -> dict:
+    """One attribute call's ``_ATTR_KEYS`` dict; raises on a CUDA error."""
+    buf = (ctypes.c_int * len(_ATTR_KEYS))()
+    rc = fn(*args, buf)
+    if rc != 0:
+        raise RuntimeError(f"{name} attributes: cudaError {rc}")
+    return dict(zip(_ATTR_KEYS, buf))
+
+
+def flash_fwd_kernel_attrs(dtype: torch.dtype, head_dim: int,
+                           key_split: int = 1) -> dict:
+    """What the card reports for the K1 instantiation that takes ``dtype``
+    and ``head_dim`` (``cudaFuncGetAttributes``, and
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` at its shared
+    memory), keyed by ``_ATTR_KEYS`` (own rows: the block's query rows;
+    stream rows: a key tile's). ``key_split`` 1 is the kernel of blocks of
+    64 query rows; 2 the one that short grids launch, blocks of 32 query
+    rows whose warp pairs split each key tile. Needs the card."""
+    fn = _build.load("flash_fwd").poseidon_flash_fwd_attrs
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return _attrs(fn, key_split, _DTYPE_CODE[dtype], head_dim,
+                  name="flash_fwd_kernel")
+
+
 def flash_bwd_kernel_attrs(dtype: torch.dtype, head_dim: int) -> dict:
     """What the card reports for the K2 and K3 instantiations that take
     ``dtype`` and ``head_dim`` (``cudaFuncGetAttributes``, and
@@ -246,14 +291,9 @@ def flash_bwd_kernel_attrs(dtype: torch.dtype, head_dim: int) -> dict:
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-    attrs = {}
-    for which, name in enumerate(("flash_dq_kernel", "flash_dkv_kernel")):
-        buf = (ctypes.c_int * len(_ATTR_KEYS))()
-        rc = fn(which, _DTYPE_CODE[dtype], head_dim, buf)
-        if rc != 0:
-            raise RuntimeError(f"{name} attributes: cudaError {rc}")
-        attrs[name] = dict(zip(_ATTR_KEYS, buf))
-    return attrs
+    return {name: _attrs(fn, which, _DTYPE_CODE[dtype], head_dim, name=name)
+            for which, name in enumerate(("flash_dq_kernel",
+                                          "flash_dkv_kernel"))}
 
 
 def flash_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

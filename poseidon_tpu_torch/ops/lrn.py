@@ -21,6 +21,16 @@ is the forward's mirrored, padded (post, pre).
 ``lrn_across_channels_reference`` runs the plain versions of both
 directions on any device: chip_smoke.py swaps it into the LRN layers to
 hold a whole training step against the kernels on the card.
+
+The kernels compute each element with explicitly rounded multiplies and
+adds, the window taps in ascending order from zero and the same ``powf``
+calls as the plain versions, so they are bitwise equal to them on the card.
+The forward (K4) walks C serially in one thread per (n, h*w) position. The
+backward (K5) is channel-parallel: a block stages a chunk of channels with
+its halo times 32 consecutive h*w positions in shared memory, computes each
+element's s and r once there, and forms dx from the r window; the halo of
+``local_size - 1`` channels on each side grows its shared memory with the
+window.
 """
 
 from __future__ import annotations
@@ -34,7 +44,8 @@ from . import _build
 
 # launches of each kernel of this module, counted where the kernel launches
 LAUNCHES = {"lrn_fwd": 0, "lrn_bwd": 0}
-# the ring of the backward kernel caps the window (csrc/lrn_bwd.cu)
+# the backward kernel's shared-memory halo grows with the window: capped
+# here and in csrc/lrn_bwd.cu (MAX_LRN_SIZE)
 MAX_CUDA_LOCAL_SIZE = 32
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}

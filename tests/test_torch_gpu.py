@@ -46,6 +46,14 @@ def test_cuda_kernel_matches_plain_on_card(dtype, shape, local_size, tol):
     (torch.float32, (4, 96, 55, 55), 5, 1e-5),
     (torch.float32, (3, 37, 9, 9), 4, 1e-5),
     (torch.bfloat16, (4, 256, 27, 27), 5, 2 ** -7),
+    # the window's edges: n = 1, the largest n; C below the halo; one
+    # position; batch 1 with a C that is no multiple of the 64-channel chunk
+    (torch.float32, (2, 16, 9, 9), 1, 1e-5),
+    (torch.float32, (2, 70, 5, 7), 32, 1e-5),
+    (torch.float32, (3, 2, 11, 11), 5, 1e-5),
+    (torch.float32, (5, 96, 1, 1), 5, 1e-5),
+    (torch.float32, (1, 131, 13, 13), 5, 1e-5),
+    (torch.bfloat16, (1, 131, 13, 13), 7, 2 ** -7),
 ])
 def test_lrn_bwd_kernel_matches_plain_on_card(dtype, shape, local_size, tol):
     """K5 through the autograd Function against the plain backward."""
@@ -61,6 +69,20 @@ def test_lrn_bwd_kernel_matches_plain_on_card(dtype, shape, local_size, tol):
     want = port_lrn.lrn_bwd_plain(x, g, local_size, 1e-4, 0.75, 1.0)
     torch.testing.assert_close(xr.grad.float(), want.float(), rtol=tol,
                                atol=1e-6)
+
+
+@pytest.mark.gpu
+def test_lrn_bwd_kernel_bitwise_equal_to_plain_on_card():
+    """K5 computes each element as the plain backward does (taps in
+    ascending order from zero, explicitly rounded, the same powf calls):
+    bitwise equal at norm1's shape."""
+    _need_gpu()
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    x, g = (torch.randn((4, 96, 55, 55), generator=gen, device="cuda")
+            for _ in range(2))
+    got = port_lrn.lrn_bwd_cuda(x, g, 5, 1e-4, 0.75, 1.0)
+    want = port_lrn.lrn_bwd_plain(x, g, 5, 1e-4, 0.75, 1.0)
+    assert torch.equal(got, want)
 
 
 @pytest.mark.gpu
@@ -108,22 +130,53 @@ def test_sgd_update_kernel_matches_plain_on_card(n):
     assert torch.equal(wk, wp) and torch.equal(hk, hp)
 
 
+# (dtype, (heads, S, D), causal, mode) of the K1 card checks
+FLASH_FWD_CASES = [
+    (torch.float32, (12, 256, 64), True, None),
+    (torch.float32, (4, 128, 64), False, None),
+    (torch.float32, (4, 128, 64), True, 1),
+    (torch.float32, (4, 128, 64), True, 0),
+    (torch.float32, (4, 128, 64), True, -1),
+    (torch.float32, (3, 48, 16), True, None),
+    (torch.float32, (2, 100, 128), True, None),
+    (torch.float32, (2, 100, 128), False, None),
+    (torch.bfloat16, (12, 256, 64), True, None),
+    # S off the 64-row query tiles and the key tiles
+    (torch.float32, (2, 200, 64), True, None),
+    (torch.float32, (2, 1000, 64), True, None),
+    (torch.float32, (2, 1000, 64), False, None),
+    # D padded up to the instantiation's 32/64/128 (zero-filled columns)
+    (torch.float32, (2, 96, 24), True, None),
+    (torch.float32, (2, 130, 80), True, None),
+    # S smaller than one tile; a D off the 16-byte copies
+    (torch.float32, (2, 20, 64), True, None),
+    (torch.float32, (3, 7, 5), True, None),
+    (torch.bfloat16, (2, 200, 80), True, None),
+    (torch.bfloat16, (2, 130, 128), True, None),
+    (torch.bfloat16, (4, 128, 64), True, 1),
+    (torch.bfloat16, (4, 128, 64), True, -1),
+]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype,shape,causal,mode", [
-    (torch.float32, (1, 12, 256, 64), True, None),
-    (torch.float32, (2, 4, 128, 64), False, None),
-    (torch.float32, (2, 4, 128, 64), True, 0),
-    (torch.float32, (2, 4, 128, 64), True, -1),
-    (torch.float32, (1, 3, 48, 16), True, None),
-    (torch.float32, (1, 2, 100, 128), True, None),
-    (torch.bfloat16, (2, 12, 256, 64), True, None),
-])
-def test_flash_fwd_kernel_matches_plain_on_card(dtype, shape, causal, mode):
+@pytest.mark.parametrize("grid", ["short", "full"])
+@pytest.mark.parametrize("dtype,hsd,causal,mode", FLASH_FWD_CASES)
+def test_flash_fwd_kernel_matches_plain_on_card(dtype, hsd, causal, mode,
+                                                grid):
     """K1 through the routing wrapper against its plain version on the
     card: out within f32 rtol 1e-4, atol 1e-5 (bf16: one bf16 step), lse
-    within rtol 1e-4, atol 1e-5 (the kernel folds key tiles, the plain
-    version sums in one pass)."""
+    within rtol 1e-4, atol 1e-5 (the kernel folds key tiles of 3xTF32 or
+    bf16 tensor-core products, the plain version sums in one pass). A
+    ``short`` grid (batch 1: fewer 64-row query tiles than the card has
+    SMs) takes the kernel's key split, a ``full`` one (the batch raised
+    until the tiles fill the SMs) the blocks of 64 rows."""
     _need_gpu()
+    h, s, d = hsd
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    tiles = h * -(-s // 64)
+    b = 1 if grid == "short" else -(-sms // tiles)
+    assert (b * tiles < sms) == (grid == "short")
+    shape = (b, h, s, d)
     gen = torch.Generator(device="cuda").manual_seed(4)
     q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
                for _ in range(3))
@@ -137,6 +190,49 @@ def test_flash_fwd_kernel_matches_plain_on_card(dtype, shape, causal, mode):
     torch.testing.assert_close(out.float(), want_o.float(), rtol=rtol,
                                atol=1e-5)
     torch.testing.assert_close(lse, want_l, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,shape,causal,mode", [
+    (torch.float32, (2, 12, 512, 64), True, None),
+    (torch.bfloat16, (2, 12, 512, 64), True, None),
+    (torch.float32, (1, 2, 200, 128), False, None),
+    (torch.float32, (2, 4, 128, 64), True, -1),
+    (torch.float32, (1, 12, 256, 64), True, None),
+])
+def test_flash_fwd_kernel_bitwise_from_run_to_run(dtype, shape, causal,
+                                                   mode):
+    """Each block owns its output rows and nothing is added atomically: two
+    launches on the same inputs give bitwise-equal out and lse."""
+    _need_gpu()
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
+               for _ in range(3))
+    first = port_flash.flash_fwd_cuda(q, k, v, causal, None, mode)
+    second = port_flash.flash_fwd_cuda(q, k, v, causal, None, mode)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_fwd_kernel_attrs_on_card(dtype):
+    """Every K1 instantiation (both key splits) reports its registers and
+    resident blocks; the f32 ones (the dtype of every path) spill nothing.
+    bf16 at D = 64 is held to three blocks an SM and spills a few bytes,
+    which measured faster than its unbounded build."""
+    _need_gpu()
+    for split in (1, 2):
+        for d in (32, 64, 128):
+            a = port_flash.flash_fwd_kernel_attrs(dtype, d, split)
+            assert a["registers"] > 0 and a["blocks_per_sm"] >= 1, (d, a)
+            assert a["own_rows"] == 64 // split, (d, a)
+            if dtype == torch.float32:
+                assert a["local_bytes"] == 0, (d, a)
+    if dtype == torch.float32:
+        assert port_flash.flash_fwd_kernel_attrs(dtype, 64)[
+            "blocks_per_sm"] == 3
 
 
 def _bwd_inputs(shape, dtype, causal, mode, seed):
