@@ -14,14 +14,28 @@ Phases, in order; any failure exits non-zero without the final ``ok`` line:
    operations at the peak rate of the operands' type, f32 67 or bf16 989
    TFLOP/s, the larger):
    - lrn_fwd (K4): norm1/norm2 at serving bucket 64 (f32, bf16) and at
-     training batch 256 (f32), an odd even-window case;
+     training batch 256 (f32), an odd even-window case, and the window's
+     and the tile's edges (n=1, n=32, C=2 below the halo, one h*w
+     position, batch 1 with C=131 off the 64-channel chunks); each case
+     must be bitwise equal to the plain version, and the registers, shared
+     memory, spills and resident blocks per SM of its tiles are printed
+     once;
    - lrn_bwd (K5): norm1/norm2 at batch 256 in f32 and bf16, n=4 with C=37,
      and the window's edges (n=1, n=32, C=2 below the halo, one h*w
      position, batch 1 with C=131 off the 64-channel chunks); each case
      prints whether it is bitwise equal to the plain version;
-   - pool_bwd (K6): pool1/pool2/pool5 MAX at batch 256 in f32, pool1 in
-     bf16, a constant input (ties: first max wins), AVE with pad 1 and a
-     ceil-mode clamp;
+   - pool_bwd (K6): pool1/pool2/pool5 MAX at batch 256 in f32, pool1 and
+     pool5 in bf16, a constant input (ties: first max wins), AVE with pad
+     1 and a ceil-mode clamp, a plane of several bands (1,2,600,600),
+     GoogLeNet's 3x3 s1 p1 MAX, 5x5 s3 AVE and 7x7 s1 AVE, rows and a
+     plane of -inf (flat index 0), a stride larger than the window, a
+     global MAX pool of 13x13 planes (one window of 169 taps); the
+     library yardstick is torch's max or avg pooling backward where its
+     ceil mode gives Caffe's shape. Each case must be bitwise equal to the
+     plain version (and a second launch to the first); small cases also
+     print the profiler's device time, since the host paces their launches;
+     the registers, shared memory, spills and resident blocks per SM at
+     each case's band plan are printed once;
    - sgd_update (K7): the AlexNet arena (60,965,224) and a ragged P+7;
    - flash_fwd (K1): out and lse at the gpt_small prefill shapes
      (1,12,16|64|256,64) f32 causal, its training shape (8,12,1024,64) f32
@@ -69,8 +83,10 @@ Phases, in order; any failure exits non-zero without the final ``ok`` line:
    loss must be finite; the snapshot must restore bitwise. One step is held against the
    same step with the plain versions swapped in on the card. Then the
    device step time (CUDA events over a fixed on-device batch), the loop's
-   img/s and data-wait share, the top kernels of one profiled step and the
-   peak device memory.
+   img/s and data-wait share, the top kernels of one profiled step (in
+   which every port kernel must show device time, and whose kernels may
+   not sum past PROFILE_BUSY_MARGIN times the step by CUDA events) and
+   the peak device memory.
 5. The LM serving slice: ``serve --generate``'s executor
    (``build_generate_executor("gpt_small")``: full width and depth, seeded
    weights, page 64, rungs 1/2/4/8, prompt buckets 16/64/256) behind the
@@ -116,6 +132,7 @@ from __future__ import annotations
 
 import csv
 import json
+import math
 import os
 import subprocess
 import sys
@@ -147,6 +164,9 @@ DIGITS_MIN_ACC = 0.90
 TRAIN_RECORDS, VAL_RECORDS, CLASSES = 512, 100, 1000
 TRAIN_ITERS, TEST_INTERVAL, TEST_ITER = 30, 15, 2
 TIMED_STEPS = 10
+# a profiled step's kernels may sum to at most this times the step's time
+# by CUDA events
+PROFILE_BUSY_MARGIN = 1.10
 BUCKETS = (1, 4, 16, 64)
 REQUEST_ROWS = (1, 3, 4, 9, 16, 33, 64)
 # bucket-64 requests per concurrency: enough that p99 is not just the max
@@ -295,7 +315,8 @@ def compare_case(kernel: str, label: str, got, want, dtype_name: str,
 
 
 def phase_kernels(card: str):
-    """lrn_fwd (K4) vs plain on the card; returns the per-case records."""
+    """lrn_fwd (K4) vs plain on the card; returns the per-case records and
+    the attributes of its tiles."""
     import torch
     import torch.nn.functional as F
     from poseidon_tpu_torch.ops import lrn
@@ -307,7 +328,24 @@ def phase_kernels(card: str):
              ("norm2 serving", (64, 256, 27, 27), 5, torch.bfloat16),
              ("norm1 train", (256, 96, 55, 55), 5, torch.float32),
              ("norm2 train", (256, 256, 27, 27), 5, torch.float32),
-             ("odd", (5, 37, 9, 9), 4, torch.float32)]
+             ("odd", (5, 37, 9, 9), 4, torch.float32),
+             # the window's edges and the tile's: one channel, the widest
+             # window, C below the halo, one position, a C off the chunks
+             ("n=1", (8, 16, 13, 13), 1, torch.float32),
+             ("n=32", (8, 70, 13, 13), 32, torch.float32),
+             ("C=2", (8, 2, 27, 27), 5, torch.float32),
+             ("hw=1", (64, 96, 1, 1), 5, torch.float32),
+             ("batch 1, C=131", (1, 131, 27, 27), 5, torch.float32)]
+    attrs = {}
+    for dtype, c, size in ((torch.float32, 96, 5), (torch.float32, 256, 5),
+                           (torch.bfloat16, 96, 5), (torch.float32, 70, 32)):
+        key = f"{str(dtype).replace('torch.', '')} C={c} n={size}"
+        a = attrs[key] = lrn.lrn_fwd_kernel_attrs(dtype, c, size)
+        print(f"[lrn_fwd] lrn_fwd_tile_kernel {key}: {a['registers']} "
+              f"registers, {a['dynamic_smem_bytes']} B dynamic shared "
+              f"(chunk {a['chunk']}), {a['local_bytes']} B spilled a thread, "
+              f"{a['blocks_per_sm']} blocks of {a['threads']} threads an SM "
+              f"[{card}]", flush=True)
     records = []
     for label, shape, size, dtype in cases:
         x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
@@ -315,6 +353,10 @@ def phase_kernels(card: str):
         torch.cuda.synchronize()
         want = lrn.lrn_across_channels_plain(x, size, LRN_ALPHA, LRN_BETA,
                                              LRN_K)
+        again = lrn.lrn_fwd_cuda(x, size, LRN_ALPHA, LRN_BETA, LRN_K)
+        bitwise = torch.equal(got, want)
+        check(torch.equal(got, again), f"lrn_fwd {label}: a second launch "
+                                       f"differs from the first")
         library = None
         if size % 2 == 1:
             # torch's builtin pads size//2 channels before the window, the
@@ -329,11 +371,13 @@ def phase_kernels(card: str):
                                                   LRN_BETA, LRN_K),
             library, 2 * x.numel() * x.element_size(),
             x.numel() * (2 * size + 4), card,
-            extra=f" {tuple(shape)} n={size}")
-        rec.update(shape=list(shape), local_size=size)
+            extra=f" {tuple(shape)} n={size} bitwise={bitwise}")
+        rec.update(shape=list(shape), local_size=size, bitwise=bitwise)
         records.append(rec)
-        del x, got, want
-    return records
+        check(bitwise, f"lrn_fwd {label}: not bitwise equal to the plain "
+                       f"version")
+        del x, got, want, again
+    return records, attrs
 
 
 def phase_lrn_bwd(card: str):
@@ -386,44 +430,92 @@ def phase_lrn_bwd(card: str):
 
 
 def phase_pool_bwd(card: str):
-    """pool_bwd (K6) vs plain on the card at AlexNet training shapes, plus
-    ties and an AVE case with pad and the ceil-mode clamp."""
+    """pool_bwd (K6) vs plain on the card at AlexNet training shapes and
+    the edges of its band plan and its geometry (the cases above); returns
+    the per-case records and the attributes of each case's band plan."""
     import torch
     import torch.nn.functional as F
     from poseidon_tpu_torch.ops import pool
 
     gen = torch.Generator(device="cuda").manual_seed(2)
-    cases = [("pool1", (256, 96, 55, 55), 3, 2, 0, "max", torch.float32),
-             ("pool2", (256, 256, 27, 27), 3, 2, 0, "max", torch.float32),
-             ("pool5", (256, 256, 13, 13), 3, 2, 0, "max", torch.float32),
-             ("pool1", (256, 96, 55, 55), 3, 2, 0, "max", torch.bfloat16),
-             ("ties", (8, 16, 27, 27), 3, 2, 0, "max", torch.float32),
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [("pool1", (256, 96, 55, 55), 3, 2, 0, "max", f32),
+             ("pool2", (256, 256, 27, 27), 3, 2, 0, "max", f32),
+             ("pool5", (256, 256, 13, 13), 3, 2, 0, "max", f32),
+             ("pool1", (256, 96, 55, 55), 3, 2, 0, "max", bf16),
+             ("pool5", (256, 256, 13, 13), 3, 2, 0, "max", bf16),
+             ("ties", (8, 16, 27, 27), 3, 2, 0, "max", f32),
              # 13 wide, k2 s2 pad 1: the ceil rule gives 8 windows, the
              # last starting in the padding, so Caffe clamps to 7
-             ("ave pad ceil", (8, 16, 13, 13), 2, 2, 1, "ave",
-              torch.float32)]
-    records = []
+             ("ave pad ceil", (8, 16, 13, 13), 2, 2, 1, "ave", f32),
+             # a plane of several bands
+             ("bands", (1, 2, 600, 600), 3, 2, 0, "max", f32),
+             # GoogLeNet's inception pool, loss-branch and final pools
+             ("googlenet 3x3 s1 p1", (32, 192, 28, 28), 3, 1, 1, "max", f32),
+             ("googlenet 5x5 s3", (32, 512, 14, 14), 5, 3, 0, "ave", f32),
+             ("googlenet 7x7 s1", (32, 1024, 7, 7), 7, 1, 0, "ave", f32),
+             # rows and a plane of -inf: a window with nothing above -inf
+             # sends its cotangent to flat index 0 of the plane
+             ("-inf rows", (8, 16, 27, 27), 3, 2, 0, "max", f32),
+             # inputs that no window covers
+             ("stride > kernel", (8, 16, 13, 13), 2, 3, 0, "max", f32),
+             # global MAX pooling: one window of 169 taps a plane
+             ("global 13x13", (256, 256, 13, 13), 13, 1, 0, "max", f32)]
+    records, attrs = [], {}
     for label, shape, k, st, pd, method, dtype in cases:
         if label == "ties":
             x = torch.full(shape, 0.5, device="cuda", dtype=dtype)
         else:
             x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        if label == "-inf rows":
+            x[:, :, :3] = -math.inf
+            x[0, 1] = -math.inf
         geom = ((k, k), (st, st), (pd, pd))
+        if label not in attrs:
+            a = attrs[label] = pool.pool_bwd_kernel_attrs(dtype, method,
+                                                          shape, *geom)
+            print(f"[pool_bwd] pool_bwd_band_kernel {label} "
+                  f"{str(dtype).replace('torch.', '')} {method}: "
+                  f"{a['registers']} registers, {a['dynamic_smem_bytes']} B "
+                  f"dynamic shared ({a['n_bands']} band(s) of "
+                  f"{a['band_rows']} rows, {a['planes_per_block']} plane(s) "
+                  f"a block), {a['local_bytes']} B spilled a thread, "
+                  f"{a['blocks_per_sm']} blocks of {a['threads']} threads an "
+                  f"SM [{card}]", flush=True)
         y = pool.pool_forward(x, *geom, method)
         g = torch.randn(y.shape, generator=gen, device="cuda").to(dtype)
         got = pool.pool_bwd_cuda(x, g, *geom, method)
         torch.cuda.synchronize()
         want = pool.pool_bwd_plain(x, g, *geom, method)
+        again = pool.pool_bwd_cuda(x, g, *geom, method)
+        bitwise = torch.equal(got, want)
+        check(torch.equal(got, again), f"pool_bwd {label}: a second launch "
+                                       f"differs from the first")
         if label == "ties":
             # every window routes its whole cotangent to its first tap
             check(bool((got[:, :, 1::2, :].float() == 0).all()
                        and (got[:, :, :, 1::2].float() == 0).all()),
                   "pool_bwd ties: a non-first tap got a gradient")
+        if label == "-inf rows":
+            # the -inf plane's windows all keep flat index 0: window (0, 0)
+            # sends its cotangent to (0, 0), every other one is dropped
+            check(bool(got[0, 1, 0, 0] == g[0, 1, 0, 0])
+                  and int((got[0, 1] != 0).sum()) <= 1,
+                  "pool_bwd -inf rows: flat index 0 not kept")
         library = None
-        if method == "max" and pd == 0:
-            _, idx = F.max_pool2d(x, k, st, return_indices=True)
+        # torch's pooling in ceil mode clamps the last window as Caffe does;
+        # a yardstick wherever its shape is Caffe's
+        ref = (F.max_pool2d if method == "max" else F.avg_pool2d)(
+            x, k, st, pd, ceil_mode=True)
+        if tuple(ref.shape) == tuple(y.shape) and method == "max":
+            _, idx = F.max_pool2d(x, k, st, pd, ceil_mode=True,
+                                  return_indices=True)
             library = lambda: torch.ops.aten.max_pool2d_with_indices_backward(  # noqa: E731,E501
-                g, x, [k, k], [st, st], [0, 0], [1, 1], False, idx)
+                g, x, [k, k], [st, st], [pd, pd], [1, 1], True, idx)
+        elif tuple(ref.shape) == tuple(y.shape):
+            library = lambda: torch.ops.aten.avg_pool2d_backward(  # noqa: E731
+                g, x, [k, k], [st, st], [pd, pd], True, True, None)
+        del ref
         windows = g.numel()
         # read x (max only) and g once, write dx once; per window k*k
         # compares (max) and k*k adds
@@ -434,11 +526,28 @@ def phase_pool_bwd(card: str):
             lambda: pool.pool_bwd_cuda(x, g, *geom, method),
             lambda: pool.pool_bwd_plain(x, g, *geom, method), library,
             nbytes, windows * k * k * (2 if method == "max" else 1), card,
-            extra=f" {method} {tuple(shape)}->{tuple(y.shape[2:])}")
-        rec.update(shape=list(shape), method=method)
+            extra=f" {method} {tuple(shape)}->{tuple(y.shape[2:])} "
+                  f"bitwise={bitwise}")
+        if nbytes < 5e7:
+            # small launches are paced by the host (wrapper, ctypes): the
+            # profiler's kernel durations give the device's share alone
+            dev = {"kernel": profiled_device_ms(
+                       lambda: pool.pool_bwd_cuda(x, g, *geom, method),
+                       key="pool_bwd_band_kernel"),
+                   "library": (None if library is None
+                               else profiled_device_ms(library))}
+            print(f"[pool_bwd] {label}: device time a call (torch.profiler, "
+                  f"mean of 10): kernel {dev['kernel']:.4f} ms, library "
+                  + ("n/a" if dev["library"] is None
+                     else f"{dev['library']:.4f} ms") + f" [{card}]",
+                  flush=True)
+            rec["device_ms"] = dev
+        rec.update(shape=list(shape), method=method, bitwise=bitwise)
         records.append(rec)
-        del x, y, g, got, want, library
-    return records
+        check(bitwise, f"pool_bwd {label}: not bitwise equal to the plain "
+                       f"version")
+        del x, y, g, got, want, again, library
+    return records, attrs
 
 
 def arena_mults(total: int, device):
@@ -1121,7 +1230,7 @@ def phase_train_profile(eng, batch, card: str) -> dict:
     peak device memory, and the top kernels of one profiled step."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     params, state = eng.params, eng.state
     step = eng.train_step.step
@@ -1144,16 +1253,33 @@ def phase_train_profile(eng, batch, card: str) -> dict:
           f"{TIMED_STEPS} steps, fixed on-device batch {n}): "
           f"{n / step_ms * 1e3:.1f} img/s; peak device memory "
           f"{peak / 2**30:.2f} GiB [{card}]", flush=True)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        params, state, m = step(params, state, batch)
-        torch.cuda.synchronize()
+    # the profiler misses the first kernels of the first step it traces
+    # (there: conv1 and norm1's lrn_fwd), so a warm-up step goes before the
+    # kept one. The schedule's "ProfilerStep#N" range also comes back as a
+    # device-side user annotation spanning the whole step, which summed as
+    # a kernel would count the step twice: annotations are no kernels.
+    kept = []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=lambda p: kept.extend(p.events())) as prof:
+        for _ in range(2):
+            params, state, m = step(params, state, batch)
+            torch.cuda.synchronize()
+            prof.step()
     per_kernel = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
+    for e in kept:
+        if (e.device_type == DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)
+                and not e.name.startswith("ProfilerStep")):
             per_kernel[e.name] = (per_kernel.get(e.name, 0.0)
                                   + e.time_range.elapsed_us())
     busy = sum(per_kernel.values())
+    # one step's kernels run one after another on one stream: their sum
+    # well past the step's time means an event was counted that is no
+    # kernel (tracing itself lengthens the kernels by a few per cent)
+    check(busy / 1e3 <= PROFILE_BUSY_MARGIN * step_ms,
+          f"profiled step: kernels sum to {busy / 1e3:.3f} ms, past "
+          f"{PROFILE_BUSY_MARGIN} x the step's {step_ms:.3f} ms")
     ours = {}
     if busy:
         print(f"[train] profiled step: device busy {busy / 1e3:.3f} ms "
@@ -1162,19 +1288,20 @@ def phase_train_profile(eng, batch, card: str) -> dict:
                                key=lambda kv: -kv[1])[:8]:
             print(f"  {us / 1e3:8.3f} ms {100 * us / busy:5.1f}%  "
                   f"{name[:90]}", flush=True)
-        # each port kernel by the names of its CUDA kernels (pool_bwd runs
-        # an argmax pass and a gather pass)
-        names = {"lrn_fwd": ("lrn_fwd_kernel",),
-                 "lrn_bwd": ("lrn_bwd_kernel",),
-                 "pool_bwd": ("pool_argmax_kernel", "pool_gather_kernel"),
-                 "sgd_update": ("sgd_update_kernel",)}
-        for kernel, keys in names.items():
-            us = sum(v for k, v in per_kernel.items()
-                     if any(key in k for key in keys))
+        # each port kernel by the name of its CUDA kernel
+        names = {"lrn_fwd": "lrn_fwd_tile_kernel",
+                 "lrn_bwd": "lrn_bwd_kernel",
+                 "pool_bwd": "pool_bwd_band_kernel",
+                 "sgd_update": "sgd_update_kernel"}
+        for kernel, key in names.items():
+            us = sum(v for k, v in per_kernel.items() if key in k)
             ours[kernel] = {"ms": us / 1e3, "share": us / busy}
         print("[train] port kernels in the profiled step: " + ", ".join(
             f"{k} {v['ms']:.3f} ms ({100 * v['share']:.1f}%)"
             for k, v in ours.items()) + f" [{card}]", flush=True)
+        for kernel, v in ours.items():
+            check(v["ms"] > 0, f"{kernel} ({names[kernel]}) launched on the "
+                               f"step but shows no device time")
     else:
         print("[train] torch.profiler: no device time recorded", flush=True)
     eng.params, eng.state = params, state
@@ -1856,7 +1983,6 @@ def phase_lm_corpus(card: str, extra_args=()) -> dict:
     ``extra_args`` are for a CPU rehearsal only."""
     import contextlib
     import io
-    import math
     from poseidon_tpu_torch.models import train_lm
     from poseidon_tpu_torch.numeric import resolve_device
 
@@ -1943,9 +2069,9 @@ def main() -> int:
         from poseidon_tpu_torch.proto.messages import load_net
         arena_total = Net(load_net(ALEXNET), "TEST",
                           device="cpu").param_count()
-        k4 = phase_kernels(card)
+        k4, k4_attrs = phase_kernels(card)
         k5 = phase_lrn_bwd(card)
-        k6 = phase_pool_bwd(card)
+        k6, k6_attrs = phase_pool_bwd(card)
         k7 = phase_sgd(card, arena_total)
         k1, fwd_attrs = phase_flash(card)
         k2, k3, bwd_attrs = phase_flash_bwd(card)
@@ -1972,11 +2098,13 @@ def main() -> int:
         kernel_entry("lrn_fwd", "poseidon_tpu/ops/pallas_kernels.py:443",
                      launches["lrn_fwd"], k4, ("norm1 train", "norm2 train"),
                      launches_by_path={"serving": serving_launches,
-                                       "training": launches["lrn_fwd"]}),
+                                       "training": launches["lrn_fwd"]},
+                     attributes=k4_attrs),
         kernel_entry("lrn_bwd", "poseidon_tpu/ops/pallas_kernels.py:601",
                      launches["lrn_bwd"], k5, ("norm1", "norm2")),
         kernel_entry("pool_bwd", "poseidon_tpu/ops/pallas_kernels.py:741",
-                     launches["pool_bwd"], k6, ("pool1", "pool2", "pool5")),
+                     launches["pool_bwd"], k6, ("pool1", "pool2", "pool5"),
+                     attributes=k6_attrs),
         kernel_entry("sgd_update", "poseidon_tpu/ops/pallas_kernels.py:838",
                      launches["sgd_update"], k7, ("alexnet arena",)),
         kernel_entry("flash_fwd", "poseidon_tpu/ops/pallas_kernels.py:77",

@@ -7,43 +7,74 @@
 //
 //   MAX: each window's cotangent goes to the FIRST maximum of the window
 //        (Caffe's strict `>` update over row-major taps), recomputed from x;
-//        pad positions count as -inf. A window with no value above -inf
-//        keeps the initial argmax, flat padded index 0 (the rule of the
-//        plain taps version, ops/nn.py:_pool_max_args).
+//        pad positions count as -inf and NaN never wins. A window with no
+//        value above -inf keeps the initial argmax, flat index 0 of the
+//        whole padded, cropped plane (width pwidth = (ow-1)*sw + kw): only
+//        window (0, 0) covers that position, so any other such window's
+//        cotangent is dropped (the rule of the plain taps version,
+//        ops/pool.py:pool_bwd_plain).
 //   AVE: each window's cotangent divided by Caffe's divisor (the window
 //        clipped to the padded extent) goes to every position it covers.
 //
 // Bound: memory. The arithmetic is a few compares per tap against reading
 // x and g once and writing dx once: at AlexNet's batch 256 in f32, pool1
 // moves 666.4 MB (0.199 ms at 3.35 TB/s), pool2 426.5 MB (0.127 ms), pool5
-// 98.0 MB (0.029 ms).
+// 98.0 MB (0.029 ms), 0.3555 ms for the three.
 //
-// Design: two passes, each one thread per element, no atomics, so the
-// result is deterministic.
-//   1. (MAX only) one thread per OUTPUT window finds the window's argmax
-//      once (k*k loads of x) and writes it, as a flat index into the
-//      padded plane, to an int32 scratch the wrapper allocates.
-//   2. one thread per INPUT element gathers over the output windows that
-//      cover it (at most ceil(k/s)^2): for MAX it adds a window's
-//      cotangent where the stored argmax is this element, for AVE it adds
-//      every covering window's cotangent over its divisor.
-// Contributions are summed in the plain version's order: taps (dh, dw)
-// row-major, i.e. covering windows with the output row and column
-// descending, with explicitly rounded adds and an IEEE division for AVE.
-// Index math is 32-bit inside a plane, and the one division that finds a
-// thread's plane is 32-bit too while the tensor holds fewer than 2^32
-// elements; the covering-window ranges come from two divisions per axis.
-// Padding and the ceil-mode crop fold into the index arithmetic. The TPU
-// kernel's 0/1 selection-matrix matmuls (a Mosaic workaround) and its VMEM
-// feasibility cap have no counterpart: any window works.
+// Design: one launch, one pass over shared-memory bands, no global scratch.
+// A block of 128 threads owns a band of dx rows of one plane, or the whole
+// plane of each of several consecutive planes (pool2's 27x27 planes go 5
+// to a block, pool5's 13x13 ones 24); the wrapper (ops/pool.py:
+// pool_band_plan) sizes the band to a shared-memory budget and passes
+// band_rows, planes_per_block and the most x rows and window rows any band
+// stages; the C entry checks that this fits 227 KB. For its band the block
+//   1. stages the x rows its covering windows read (MAX only) and
+//   2. the g rows of those windows, each plane's rows contiguous in NCHW,
+//      loaded coalesced, four loads in flight a thread, converted to f32;
+//   3. MAX: takes each window's first maximum once from shared memory and
+//      codes where its cotangent goes: the element (if it lies in this
+//      band) and the window's slot, its rank among the windows covering
+//      the element, output row and column descending (for tap (a, b) of
+//      window (oy, ox): min(a / sh, oh-1-oy) and min(b / sw, ow-1-ox), at
+//      most min(ceil(kh / sh), oh) x min(ceil(kw / sw), ow) slots, one for
+//      a global pool). Then, over the x rows' space zeroed as the band's
+//      dx, one pass a slot in ascending order adds each window's cotangent
+//      to its element: in a pass an element takes at most one window, so
+//      no atomics are needed and every element adds its windows in the
+//      plain version's order.
+//      AVE: divides each window's g by its divisor once, then each dx
+//      element gathers its covering windows (two small shared tables give
+//      the range of each band row and column) in that order;
+//   4. writes the band's dx coalesced, once.
+// Windows on a band boundary are recomputed by both neighbouring blocks,
+// identically. x and g come from device memory about once and dx is
+// written once. Threads walk (plane, row, column) with increments, not
+// divisions. A 3 x 3 window is a template instantiation (its taps
+// unrolled); other windows take their size at run time.
 //
-// (A first version, one pass with every covering window's argmax
-// recomputed per input element and 64-bit index math throughout, measured
-// 31x its bound on pool1; PERF.md keeps both times.)
+// Every dx element is summed from 0.0f with explicitly rounded adds in the
+// plain version's order (taps (dh, dw) row-major: covering windows with
+// the output row and column descending), and AVE's divisor is the product
+// of the two axis extents rounded once, the division IEEE: the kernel is
+// bitwise equal to the plain version. (MAX adds only the windows whose
+// argmax is the element; the plain version also adds 0.0f for the others,
+// which changes no sum: the running sum is never -0.0f.) A window with no
+// value above -inf keeps flat index 0 of the whole padded plane, never of
+// the band. Input beyond the ceil-mode crop, and input that a stride larger
+// than the window leaves uncovered, get 0. The TPU kernel's 0/1
+// selection-matrix matmuls (a Mosaic workaround) and its VMEM feasibility
+// cap have no counterpart. Index math is 32-bit inside a block; a block's
+// first plane is found with 64-bit math once.
 //
-// The kernels allocate nothing and launch on the caller's stream; the C
+// (Earlier versions, measured in PERF.md: one pass recomputing every
+// covering window's argmax per input element, 31x its bound on pool1; then
+// an argmax pass into an int32 scratch and a gather pass, 4.6x for the
+// three pools; this design 1.9x.)
+//
+// The kernel allocates nothing and launches on the caller's stream; the C
 // entry returns cudaGetLastError() so the wrapper can raise on a refused
-// launch.
+// launch. poseidon_pool_bwd_attrs reports its registers, shared memory,
+// spills and resident blocks per SM.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -52,22 +83,34 @@
 
 namespace {
 
-__device__ __forceinline__ float load_as_f32(const float* p, int64_t i) {
-  return p[i];
+constexpr int kThreads = 128;
+constexpr int kUnroll = 4;  // loads in flight a thread while staging
+constexpr int kMaxSmem = 227 * 1024;
+// A MAX argmax code is (slot << 16) | element: the element is below 2^16
+// (a block's shared memory holds at most 58,112 words) and the slot below
+// 2^15, so a code is never negative
+constexpr int kElemBits = 16;
+constexpr int kMaxSlots = 1 << 15;
+static_assert(kMaxSmem / 4 <= (1 << kElemBits), "element code overflows");
+
+__device__ __forceinline__ float load_as_f32(const float* p) { return *p; }
+
+__device__ __forceinline__ float load_as_f32(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
 }
 
-__device__ __forceinline__ float load_as_f32(const __nv_bfloat16* p,
-                                             int64_t i) {
-  return __bfloat162float(p[i]);
+__device__ __forceinline__ void store_from_f32(float* p, float v) { *p = v; }
+
+__device__ __forceinline__ void store_from_f32(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
 }
 
-__device__ __forceinline__ void store_from_f32(float* p, int64_t i, float v) {
-  p[i] = v;
+__host__ __device__ __forceinline__ int imin(int a, int b) {
+  return a < b ? a : b;
 }
 
-__device__ __forceinline__ void store_from_f32(__nv_bfloat16* p, int64_t i,
-                                               float v) {
-  p[i] = __float2bfloat16_rn(v);
+__host__ __device__ __forceinline__ int imax(int a, int b) {
+  return a > b ? a : b;
 }
 
 struct Geometry {
@@ -79,159 +122,463 @@ struct Geometry {
   int pwidth;    // width of the padded, cropped plane: (ow-1)*sw + kw
 };
 
+// first window along one axis that covers padded coordinate p
+__device__ __forceinline__ int cover_lo(int p, int kernel, int stride) {
+  const int first = p - kernel + 1;
+  return first <= 0 ? 0 : (first + stride - 1) / stride;
+}
+
+// last window along one axis that covers padded coordinate p
+__device__ __forceinline__ int cover_hi(int p, int stride, int n_out) {
+  return imin(p / stride, n_out - 1);
+}
+
+// Band j of band_rows dx rows: rows [r0, r1), the window rows that cover
+// them [oy0, oy0 + nwy), and the x rows those windows read [xr0, xr0 + nxr)
+// (ops/pool.py:pool_band computes the same to plan the shared memory).
+struct Band {
+  int r0, r1, oy0, nwy, xr0, nxr;
+};
+
+__device__ inline Band band_of(const Geometry& g, int band_rows,
+                                        int j) {
+  Band b;
+  b.r0 = j * band_rows;
+  b.r1 = imin(g.h, b.r0 + band_rows);
+  b.oy0 = cover_lo(b.r0 + g.ph, g.kh, g.sh);
+  const int hi = cover_hi(b.r1 - 1 + g.ph, g.sh, g.oh);
+  b.nwy = imax(0, hi - b.oy0 + 1);
+  b.xr0 = 0;
+  b.nxr = 0;
+  if (b.nwy > 0) {
+    b.xr0 = imax(0, b.oy0 * g.sh - g.ph);
+    b.nxr = imax(0, imin(g.h, hi * g.sh - g.ph + g.kh) - b.xr0);
+  }
+  return b;
+}
+
 // Caffe's AVE divisor of output row/column o: the window clipped to
 // [start, in + pad), start = o*stride - pad (may be negative).
 __device__ __forceinline__ int ave_extent(int o, int stride, int pad,
                                           int kernel, int in) {
   const int start = o * stride - pad;
-  const int end = min(start + kernel, in + pad);
+  const int end = imin(start + kernel, in + pad);
   return end - start;
 }
 
-// I: the element index type, uint32_t when the whole tensor has fewer than
-// 2^32 elements (a 32-bit division per thread), else int64_t
-template <typename T, typename I>
-__global__ void pool_argmax_kernel(const T* __restrict__ x,
-                                   int* __restrict__ arg, I total,
-                                   Geometry geo) {
-  const I idx = (I)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= total) return;
-  const I owin = (I)(geo.oh * geo.ow);
-  const I plane = idx / owin;
-  const int r = (int)(idx - plane * owin);
-  const int oy = r / geo.ow;
-  const int ox = r - oy * geo.ow;
-  const T* xp = x + (int64_t)plane * geo.h * geo.w;
-  // first-max-wins argmax over row-major taps; pad taps are -inf and never
-  // win, and a window with nothing above -inf keeps flat index 0
-  float mx = -INFINITY;
-  int best = 0;
-  for (int a = 0; a < geo.kh; ++a) {
-    const int wy = oy * geo.sh + a;        // padded row
-    const int y = wy - geo.ph;             // input row
-    if (y < 0 || y >= geo.h) continue;
-    for (int b = 0; b < geo.kw; ++b) {
-      const int wx = ox * geo.sw + b;
-      const int xx = wx - geo.pw;
-      if (xx < 0 || xx >= geo.w) continue;
-      const float v = load_as_f32(xp, y * geo.w + xx);
-      if (v > mx) {
-        mx = v;
-        best = wy * geo.pwidth + wx;
-      }
+// Walks a thread's elements of (planes, len) with a step of kThreads:
+// (p, off) advance by increments, one division pair at the start.
+struct Walk2 {
+  int p, off, dp, doff, len;
+  __device__ Walk2(int len_) : len(len_) {
+    const int t = threadIdx.x;
+    p = t / len;
+    off = t - p * len;
+    dp = kThreads / len;
+    doff = kThreads - dp * len;
+  }
+  __device__ void next() {
+    off += doff;
+    p += dp;
+    if (off >= len) {
+      off -= len;
+      ++p;
     }
   }
-  arg[idx] = best;
-}
+};
 
-// covering windows of padded coordinate p along one axis: o in [lo, hi]
-__device__ __forceinline__ void covering(int p, int kernel, int stride,
-                                         int n_out, int& lo, int& hi) {
-  hi = min(p / stride, n_out - 1);
-  const int first = p - kernel + 1;
-  lo = first <= 0 ? 0 : (first + stride - 1) / stride;
-}
+// The same over (planes, rows, cols).
+struct Walk3 {
+  int p, r, c, dp, dr, dc, rows, cols;
+  __device__ Walk3(int rows_, int cols_) : rows(rows_), cols(cols_) {
+    const int plane = rows * cols;
+    const int t = threadIdx.x;
+    p = t / plane;
+    int rem = t - p * plane;
+    r = rem / cols;
+    c = rem - r * cols;
+    dp = kThreads / plane;
+    rem = kThreads - dp * plane;
+    dr = rem / cols;
+    dc = rem - dr * cols;
+  }
+  __device__ void next() {
+    c += dc;
+    r += dr;
+    if (c >= cols) {
+      c -= cols;
+      ++r;
+    }
+    if (r >= rows) {
+      r -= rows;
+      ++p;
+    }
+    p += dp;
+  }
+};
 
-template <typename T, typename I, bool kMax>
-__global__ void pool_gather_kernel(const int* __restrict__ arg,
-                                   const T* __restrict__ g,
-                                   T* __restrict__ dx, I total,
-                                   Geometry geo) {
-  const I idx = (I)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= total) return;
-  const I hw = (I)(geo.h * geo.w);
-  const I plane = idx / hw;
-  const int r = (int)(idx - plane * hw);
-  const int ih = r / geo.w;
-  const int iw = r - ih * geo.w;
-  const int64_t obase = (int64_t)plane * geo.oh * geo.ow;
-  const T* gp = g + obase;
-  // this element on the padded plane
-  const int py = ih + geo.ph;
-  const int px = iw + geo.pw;
-  const int my_flat = py * geo.pwidth + px;
-  int oy_lo, oy_hi, ox_lo, ox_hi;
-  covering(py, geo.kh, geo.sh, geo.oh, oy_lo, oy_hi);
-  covering(px, geo.kw, geo.sw, geo.ow, ox_lo, ox_hi);
-
-  float acc = 0.0f;
-  // descending window index = ascending tap (dh, dw): the plain order
-  for (int oy = oy_hi; oy >= oy_lo; --oy) {
-    for (int ox = ox_hi; ox >= ox_lo; --ox) {
-      const int o = oy * geo.ow + ox;
-      const float gv = load_as_f32(gp, o);
-      float contrib;
-      if (kMax) {
-        contrib = (arg[obase + o] == my_flat) ? gv : 0.0f;
-      } else {
-        const float denom = __fmul_rn(
-            (float)ave_extent(oy, geo.sh, geo.ph, geo.kh, geo.h),
-            (float)ave_extent(ox, geo.sw, geo.pw, geo.kw, geo.w));
-        contrib = __fdiv_rn(gv, denom);
+// Copy len contiguous elements of each of np planes (plane stride gstride
+// in src) into dst (plane stride sstride) as f32, kUnroll loads in flight.
+template <typename T>
+__device__ __forceinline__ void stage(float* __restrict__ dst,
+                                      const T* __restrict__ src, int np,
+                                      int len, int gstride, int sstride) {
+  if (len <= 0) return;
+  Walk2 it(len);
+  while (it.p < np) {
+    float v[kUnroll];
+    int at[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      at[u] = -1;
+      if (it.p < np) {
+        v[u] = load_as_f32(src + it.p * gstride + it.off);
+        at[u] = it.p * sstride + it.off;
       }
-      acc = __fadd_rn(acc, contrib);
+      it.next();
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u)
+      if (at[u] >= 0) dst[at[u]] = v[u];
+  }
+}
+
+// The most windows along one axis that cover one input row (column): a
+// MAX element's slots on that axis, min(ceil(kernel / stride), n_out).
+__host__ __device__ __forceinline__ int slots(int kernel, int stride,
+                                              int n_out) {
+  return imin((kernel + stride - 1) / stride, n_out);
+}
+
+// Shared memory of a block, in 4-byte words (ops/pool.py:pool_smem_bytes
+// plans with the same). MAX: per plane x_rows * w of x, whose space then
+// holds the band's dx (band_rows * w), and win_rows * ow of g and of the
+// windows' argmax codes. AVE: per plane win_rows * ow of g / divisor, then
+// the covering-window tables, 2 per band row and 2 per column.
+inline long long smem_words(const Geometry& g, int is_max,
+                                          int band_rows, int ppb, int xcap,
+                                          int wcap) {
+  if (is_max)
+    return (long long)ppb * (imax(xcap, band_rows) * (long long)g.w +
+                             2LL * wcap * g.ow);
+  return (long long)ppb * wcap * g.ow + 2LL * band_rows + 2LL * g.w;
+}
+
+// Copy np planes of len f32 words from shared memory (plane stride len) to
+// dst (plane stride gstride).
+template <typename T>
+__device__ __forceinline__ void unstage(T* __restrict__ dst,
+                                        const float* __restrict__ src,
+                                        int np, int len, int gstride) {
+  if (len <= 0) return;
+  for (Walk2 it(len); it.p < np; it.next())
+    store_from_f32(dst + it.p * gstride + it.off, src[it.p * len + it.off]);
+}
+
+// K > 0: a K x K window at compile time (3, AlexNet's and most pools);
+// 0: geo.kh x geo.kw at run time.
+template <typename T, bool kMax, int K>
+__global__ void __launch_bounds__(kThreads)
+    pool_bwd_band_kernel(const T* __restrict__ x, const T* __restrict__ g,
+                         T* __restrict__ dx, long long planes, Geometry geo,
+                         int band_rows, int n_bands, int ppb, int xcap,
+                         int wcap) {
+  extern __shared__ float smem[];
+  const int kh = K > 0 ? K : geo.kh;
+  const int kw = K > 0 ? K : geo.kw;
+  const long long blk = blockIdx.x;
+  const long long group = blk / n_bands;
+  const Band b = band_of(geo, band_rows, (int)(blk - group * n_bands));
+  const long long p0 = group * ppb;
+  const int np = planes - p0 < ppb ? (int)(planes - p0) : ppb;
+  const int hw = geo.h * geo.w;
+  const int ohw = geo.oh * geo.ow;
+  const int nrows = b.r1 - b.r0;
+  const int bel = nrows * geo.w;       // a plane's dx elements in the band
+  const int wlen = b.nwy * geo.ow;     // a plane's windows
+  const int nwin = np * wlen;
+  T* dxb = dx + p0 * hw + b.r0 * geo.w;
+
+  if (kMax) {
+    // x (then dx) | g | argmax codes; planes packed at this band's sizes
+    float* sx = smem;
+    float* sg = sx + ppb * imax(xcap, band_rows) * geo.w;
+    int* sarg = reinterpret_cast<int*>(sg + ppb * wcap * geo.ow);
+    const int xlen = b.nxr * geo.w;
+    stage(sx, x + p0 * hw + b.xr0 * geo.w, np, xlen, hw, xlen);
+    stage(sg, g + p0 * ohw + b.oy0 * geo.ow, np, wlen, ohw, wlen);
+    __syncthreads();
+
+    // Each window's first maximum once (strict >, row-major taps). Its
+    // cotangent goes to that tap's element if the element is in this band
+    // (else the neighbouring band, which stages the window too, sends it),
+    // coded as (slot << kElemBits) | element: the slot ranks the window
+    // among those covering the element, output row and column descending.
+    // A window with nothing above -inf keeps flat index 0 of the padded
+    // plane, which only window (0, 0) covers, as its tap (0, 0).
+    const int sx_slots = slots(kw, geo.sw, geo.ow);
+    if (b.nwy > 0) {
+      int i = threadIdx.x;
+      for (Walk3 it(b.nwy, geo.ow); it.p < np; it.next(), i += kThreads) {
+        const int oy = b.oy0 + it.r;
+        const int ox = it.c;
+        const float* xp = sx + it.p * xlen;
+        const int y0 = oy * geo.sh - geo.ph;  // input row of tap a = 0
+        const int x0 = ox * geo.sw - geo.pw;
+        float mx = -INFINITY;
+        int ba = -1, bb = -1;
+#pragma unroll
+        for (int a = 0; a < kh; ++a) {
+          const int y = y0 + a;
+          if (y < 0 || y >= geo.h) continue;
+          const float* row = xp + (y - b.xr0) * geo.w;
+#pragma unroll
+          for (int c = 0; c < kw; ++c) {
+            const int xx = x0 + c;
+            if (xx < 0 || xx >= geo.w) continue;
+            const float v = row[xx];
+            if (v > mx) {
+              mx = v;
+              ba = a;
+              bb = c;
+            }
+          }
+        }
+        if (ba < 0 && oy == 0 && ox == 0 && geo.ph == 0 && geo.pw == 0)
+          ba = bb = 0;
+        int code = -1;
+        const int row = y0 + ba - b.r0;
+        if (ba >= 0 && row >= 0 && row < nrows)
+          code = (imin(ba / geo.sh, geo.oh - 1 - oy) * sx_slots +
+                  imin(bb / geo.sw, geo.ow - 1 - ox)) << kElemBits |
+                 (it.p * bel + row * geo.w + x0 + bb);
+        sarg[i] = code;
+      }
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < np * bel; i += kThreads) sx[i] = 0.0f;
+    __syncthreads();
+    // One pass a slot, ascending: in a pass each element takes at most one
+    // window, so the adds need no atomics and run in the plain version's
+    // order from 0.0f.
+    const int n_slots = slots(kh, geo.sh, geo.oh) * sx_slots;
+    for (int slot = 0; slot < n_slots; ++slot) {
+      for (int i = threadIdx.x; i < nwin; i += kThreads) {
+        const int code = sarg[i];
+        if (code >= 0 && (code >> kElemBits) == slot) {
+          const int e = code & ((1 << kElemBits) - 1);
+          sx[e] = __fadd_rn(sx[e], sg[i]);
+        }
+      }
+      __syncthreads();
+    }
+    unstage(dxb, sx, np, bel, hw);
+    return;
+  }
+
+  // AVE: each window's g / divisor once, then each dx element gathers its
+  // covering windows with the output row and column descending
+  float* sg = smem;
+  int* srow = reinterpret_cast<int*>(sg + ppb * wcap * geo.ow);
+  int* scol = srow + 2 * band_rows;
+  for (int r = threadIdx.x; r < nrows; r += kThreads) {
+    const int py = b.r0 + r + geo.ph;
+    srow[2 * r] = cover_lo(py, kh, geo.sh) - b.oy0;
+    srow[2 * r + 1] = cover_hi(py, geo.sh, geo.oh) - b.oy0;
+  }
+  for (int c = threadIdx.x; c < geo.w; c += kThreads) {
+    const int px = c + geo.pw;
+    scol[2 * c] = cover_lo(px, kw, geo.sw);
+    scol[2 * c + 1] = cover_hi(px, geo.sw, geo.ow);
+  }
+  stage(sg, g + p0 * ohw + b.oy0 * geo.ow, np, wlen, ohw, wlen);
+  __syncthreads();
+  if (b.nwy > 0) {
+    int i = threadIdx.x;
+    for (Walk3 it(b.nwy, geo.ow); it.p < np; it.next(), i += kThreads) {
+      const float denom = __fmul_rn(
+          (float)ave_extent(b.oy0 + it.r, geo.sh, geo.ph, kh, geo.h),
+          (float)ave_extent(it.c, geo.sw, geo.pw, kw, geo.w));
+      sg[i] = __fdiv_rn(sg[i], denom);
     }
   }
-  store_from_f32(dx, idx, acc);
+  __syncthreads();
+  if (nrows <= 0) return;
+  for (Walk3 it(nrows, geo.w); it.p < np; it.next()) {
+    const float* gv = sg + it.p * wlen;
+    const int ylo = srow[2 * it.r], yhi = srow[2 * it.r + 1];
+    const int xlo = scol[2 * it.c], xhi = scol[2 * it.c + 1];
+    float acc = 0.0f;
+    for (int wy = yhi; wy >= ylo; --wy)
+      for (int ox = xhi; ox >= xlo; --ox)
+        acc = __fadd_rn(acc, gv[wy * geo.ow + ox]);
+    store_from_f32(dxb + it.p * hw + it.r * geo.w + it.c, acc);
+  }
 }
 
-template <typename T, typename I>
-int launch_indexed(const void* x, const void* g, void* dx, int* arg,
-                   int64_t planes, const Geometry& geo, int is_max,
-                   cudaStream_t stream) {
-  const int threads = 256;
-  const int64_t total = planes * (int64_t)geo.h * geo.w;
-  const int64_t blocks = (total + threads - 1) / threads;
-  if (is_max) {
-    const int64_t windows = planes * (int64_t)geo.oh * geo.ow;
-    pool_argmax_kernel<T, I>
-        <<<(unsigned int)((windows + threads - 1) / threads), threads, 0,
-           stream>>>(static_cast<const T*>(x), arg, (I)windows, geo);
-    const int err = (int)cudaGetLastError();
-    if (err) return err;
-    pool_gather_kernel<T, I, true><<<(unsigned int)blocks, threads, 0,
-                                     stream>>>(
-        arg, static_cast<const T*>(g), static_cast<T*>(dx), (I)total, geo);
-  } else {
-    pool_gather_kernel<T, I, false><<<(unsigned int)blocks, threads, 0,
-                                      stream>>>(
-        nullptr, static_cast<const T*>(g), static_cast<T*>(dx), (I)total,
-        geo);
-  }
+// Dynamic shared memory above the 48 KB every launch may take must be opted
+// in to; launches within it skip the host call.
+template <typename F>
+cudaError_t allow_smem(F kernel, int bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+struct Launch {
+  int n_bands, bytes;
+  long long blocks;
+};
+
+// The launch of the wrapper's band plan; xcap and wcap are the most x rows
+// and window rows any band stages (ops/pool.py:pool_band_plan, checked
+// there over every band). Refuses a plan whose shared memory passes
+// kMaxSmem and a MAX window of more than kMaxSlots slots.
+int plan_launch(const Geometry& g, int is_max, long long planes,
+                int band_rows, int ppb, int xcap, int wcap, Launch& l) {
+  if (band_rows < 1 || ppb < 1 || planes < 1 || xcap < 0 || wcap < 0)
+    return 1;
+  if (ppb > 1 && band_rows < g.h) return 1;  // several planes: whole ones
+  if (is_max && slots(g.kh, g.sh, g.oh) * slots(g.kw, g.sw, g.ow) > kMaxSlots)
+    return 1;
+  l.n_bands = (g.h + band_rows - 1) / band_rows;
+  const long long words = smem_words(g, is_max, band_rows, ppb, xcap, wcap);
+  if (4 * words > kMaxSmem) return 1;
+  l.bytes = (int)(4 * words);
+  l.blocks = (planes + ppb - 1) / ppb * l.n_bands;
+  if (l.blocks > 0x7fffffffLL) return 1;
+  return 0;
+}
+
+template <typename T, bool kMax, int K>
+int launch_t(const void* x, const void* g, void* dx, long long planes,
+             const Geometry& geo, int band_rows, int ppb, int xcap, int wcap,
+             cudaStream_t stream) {
+  Launch l;
+  if (plan_launch(geo, kMax, planes, band_rows, ppb, xcap, wcap, l))
+    return (int)cudaErrorInvalidValue;
+  auto kernel = pool_bwd_band_kernel<T, kMax, K>;
+  const cudaError_t err = allow_smem(kernel, l.bytes);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<(unsigned int)l.blocks, kThreads, l.bytes, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(g), static_cast<T*>(dx),
+      planes, geo, band_rows, l.n_bands, ppb, xcap, wcap);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch(const void* x, const void* g, void* dx, int* arg, int64_t planes,
-           const Geometry& geo, int is_max, cudaStream_t stream) {
-  // + one block of headroom so idx never wraps in the 32-bit variant
-  if (planes * (int64_t)geo.h * geo.w + 256 < ((int64_t)1 << 32))
-    return launch_indexed<T, uint32_t>(x, g, dx, arg, planes, geo, is_max,
-                                       stream);
-  return launch_indexed<T, int64_t>(x, g, dx, arg, planes, geo, is_max,
-                                    stream);
+template <typename T, bool kMax, int K>
+int attrs_t(const Geometry& geo, int band_rows, int ppb, int xcap, int wcap,
+            int* out) {
+  Launch l;
+  if (plan_launch(geo, kMax, ppb, band_rows, ppb, xcap, wcap, l))
+    return (int)cudaErrorInvalidValue;
+  auto kernel = pool_bwd_band_kernel<T, kMax, K>;
+  cudaFuncAttributes fa;
+  cudaError_t err = cudaFuncGetAttributes(&fa, kernel);
+  if (err == cudaSuccess) err = allow_smem(kernel, l.bytes);
+  int blocks = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
+                                                        kThreads, l.bytes);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = fa.numRegs;
+  out[1] = (int)fa.sharedSizeBytes;
+  out[2] = l.bytes;
+  out[3] = (int)fa.localSizeBytes;
+  out[4] = kThreads;
+  out[5] = blocks;
+  return 0;
+}
+
+bool geometry(int h, int w, int oh, int ow, int kh, int kw, int sh, int sw,
+              int ph, int pw, Geometry& geo) {
+  if (h < 1 || w < 1 || oh < 1 || ow < 1 || kh < 1 || kw < 1 || sh < 1 ||
+      sw < 1 || ph < 0 || pw < 0)
+    return false;
+  geo = Geometry{h, w, oh, ow, kh, kw, sh, sw, ph, pw, (ow - 1) * sw + kw};
+  const long long pheight = (long long)(oh - 1) * sh + kh;
+  return (long long)h * w < (1LL << 31) &&
+         pheight * geo.pwidth < (1LL << 31);
+}
+
+// launch (0) or report attributes (1) of the instantiation for dtype,
+// is_max and the window
+// The band plan the wrapper passes: band_rows dx rows a block of ppb
+// planes, staging at most xcap x rows and wcap window rows a plane.
+struct Plan {
+  int band_rows, ppb, xcap, wcap;
+};
+
+template <typename T, bool kMax>
+int dispatch_k(int what, const void* x, const void* g, void* dx,
+               long long planes, const Geometry& geo, const Plan& p,
+               cudaStream_t stream, int* out) {
+  if (geo.kh == 3 && geo.kw == 3)
+    return what ? attrs_t<T, kMax, 3>(geo, p.band_rows, p.ppb, p.xcap,
+                                      p.wcap, out)
+                : launch_t<T, kMax, 3>(x, g, dx, planes, geo, p.band_rows,
+                                       p.ppb, p.xcap, p.wcap, stream);
+  return what ? attrs_t<T, kMax, 0>(geo, p.band_rows, p.ppb, p.xcap, p.wcap,
+                                    out)
+              : launch_t<T, kMax, 0>(x, g, dx, planes, geo, p.band_rows,
+                                     p.ppb, p.xcap, p.wcap, stream);
+}
+
+int dispatch(int what, int dtype, int is_max, const void* x, const void* g,
+             void* dx, long long planes, const Geometry& geo, Plan p,
+             cudaStream_t stream, int* out) {
+  p.band_rows = imin(p.band_rows, geo.h);
+  if (dtype == 0)
+    return is_max ? dispatch_k<float, true>(what, x, g, dx, planes, geo, p,
+                                            stream, out)
+                  : dispatch_k<float, false>(what, x, g, dx, planes, geo, p,
+                                             stream, out);
+  if (dtype == 1)
+    return is_max ? dispatch_k<__nv_bfloat16, true>(what, x, g, dx, planes,
+                                                    geo, p, stream, out)
+                  : dispatch_k<__nv_bfloat16, false>(what, x, g, dx, planes,
+                                                     geo, p, stream, out);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; is_max: 1 = MAX, 0 = AVE (x and arg
-// are then not read and may be null). x (planes, h, w), g and arg (planes,
-// oh, ow), dx (planes, h, w), all contiguous; arg is int32 scratch the
-// wrapper allocates. One plane must hold fewer than 2^31 elements.
-// Returns a cudaError_t.
+// dtype: 0 = float32, 1 = bfloat16; is_max: 1 = MAX, 0 = AVE (x is then not
+// read and may be null). x (planes, h, w), g (planes, oh, ow), dx (planes,
+// h, w), all contiguous. band_rows, planes_per_block, x_rows and win_rows
+// are the wrapper's band plan (ops/pool.py:pool_band_plan): a block takes
+// band_rows dx rows of one plane, or whole planes (band_rows >= h) of
+// planes_per_block consecutive planes, and stages at most x_rows x rows
+// and win_rows window rows a plane. One plane, padded, must hold fewer
+// than 2^31 elements. Returns a cudaError_t.
 extern "C" int poseidon_pool_bwd(const void* x, const void* g, void* dx,
-                                 void* arg, int dtype, int is_max,
-                                 long long planes, int h, int w, int oh,
-                                 int ow, int kh, int kw, int sh, int sw,
-                                 int ph, int pw, void* stream) {
-  if (kh < 1 || kw < 1 || sh < 1 || sw < 1 || ph < 0 || pw < 0)
+                                 int dtype, int is_max, long long planes,
+                                 int h, int w, int oh, int ow, int kh, int kw,
+                                 int sh, int sw, int ph, int pw,
+                                 int band_rows, int planes_per_block,
+                                 int x_rows, int win_rows, void* stream) {
+  Geometry geo;
+  if (!geometry(h, w, oh, ow, kh, kw, sh, sw, ph, pw, geo))
     return (int)cudaErrorInvalidValue;
-  Geometry geo{h, w, oh, ow, kh, kw, sh, sw, ph, pw, (ow - 1) * sw + kw};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  int* scratch = static_cast<int*>(arg);
-  if (dtype == 0)
-    return launch<float>(x, g, dx, scratch, planes, geo, is_max, st);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(x, g, dx, scratch, planes, geo, is_max, st);
-  return (int)cudaErrorInvalidValue;
+  return dispatch(0, dtype, is_max, x, g, dx, planes, geo,
+                  Plan{band_rows, planes_per_block, x_rows, win_rows},
+                  static_cast<cudaStream_t>(stream), nullptr);
+}
+
+// The instantiation for dtype, is_max and the window at a band plan:
+// out[6] = registers a thread, static shared bytes, dynamic shared bytes,
+// local (spill) bytes a thread, threads a block, resident blocks per SM.
+// Returns a cudaError_t.
+extern "C" int poseidon_pool_bwd_attrs(int dtype, int is_max, int h, int w,
+                                       int oh, int ow, int kh, int kw, int sh,
+                                       int sw, int ph, int pw, int band_rows,
+                                       int planes_per_block, int x_rows,
+                                       int win_rows, int* out) {
+  Geometry geo;
+  if (!geometry(h, w, oh, ow, kh, kw, sh, sw, ph, pw, geo))
+    return (int)cudaErrorInvalidValue;
+  return dispatch(1, dtype, is_max, nullptr, nullptr, nullptr,
+                  planes_per_block, geo,
+                  Plan{band_rows, planes_per_block, x_rows, win_rows},
+                  nullptr, out);
 }

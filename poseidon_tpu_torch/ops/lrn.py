@@ -25,12 +25,15 @@ hold a whole training step against the kernels on the card.
 The kernels compute each element with explicitly rounded multiplies and
 adds, the window taps in ascending order from zero and the same ``powf``
 calls as the plain versions, so they are bitwise equal to them on the card.
-The forward (K4) walks C serially in one thread per (n, h*w) position. The
-backward (K5) is channel-parallel: a block stages a chunk of channels with
-its halo times 32 consecutive h*w positions in shared memory, computes each
-element's s and r once there, and forms dx from the r window; the halo of
-``local_size - 1`` channels on each side grows its shared memory with the
-window.
+Both are channel-parallel tiles: a block stages a chunk of at most 64
+channels (C in equal chunks, chosen by the C entry) with its halo times a
+run of consecutive h*w positions (64 for the forward, 32 for the backward)
+in shared memory. The forward (K4) squares each element once there and
+forms y from the window of squares; the backward (K5) computes each
+element's s and r once and forms dx from the r window.
+The halo (``local_size - 1`` channels for the forward, on each side for
+the backward) grows their shared memory with the window, so both take
+``local_size`` up to MAX_CUDA_LOCAL_SIZE.
 """
 
 from __future__ import annotations
@@ -44,8 +47,8 @@ from . import _build
 
 # launches of each kernel of this module, counted where the kernel launches
 LAUNCHES = {"lrn_fwd": 0, "lrn_bwd": 0}
-# the backward kernel's shared-memory halo grows with the window: capped
-# here and in csrc/lrn_bwd.cu (MAX_LRN_SIZE)
+# the kernels' shared-memory halo grows with the window: capped here and
+# in csrc/lrn_fwd.cu and csrc/lrn_bwd.cu (MAX_LRN_SIZE)
 MAX_CUDA_LOCAL_SIZE = 32
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -94,6 +97,12 @@ def lrn_bwd_plain(x: torch.Tensor, g: torch.Tensor, local_size: int,
     return dx.to(x.dtype)
 
 
+def _check_window(name: str, local_size: int) -> None:
+    if not 1 <= local_size <= MAX_CUDA_LOCAL_SIZE:
+        raise ValueError(f"{name} takes local_size in [1, "
+                         f"{MAX_CUDA_LOCAL_SIZE}], got {local_size}")
+
+
 def _check_cuda(name: str, *ts: torch.Tensor) -> None:
     x = ts[0]
     for t in ts:
@@ -123,10 +132,11 @@ def _lib(name: str, args):
 def lrn_fwd_cuda(x: torch.Tensor, local_size: int, alpha: float, beta: float,
                  k: float = 1.0) -> torch.Tensor:
     """Launch the forward kernel on PyTorch's current stream."""
+    _check_window("lrn_fwd_cuda", local_size)
     _check_cuda("lrn_fwd_cuda", x)
-    if local_size < 1:
-        raise ValueError(f"local_size must be positive, got {local_size}")
     n, c, h, w = x.shape
+    if c * h * w >= 2 ** 31:
+        raise ValueError("lrn_fwd_cuda: an image must hold < 2^31 elements")
     y = torch.empty_like(x)
     if x.numel() == 0:
         return y
@@ -144,13 +154,33 @@ def lrn_fwd_cuda(x: torch.Tensor, local_size: int, alpha: float, beta: float,
     return y
 
 
+def lrn_fwd_kernel_attrs(dtype: torch.dtype, channels: int,
+                         local_size: int) -> dict:
+    """What the card reports for the forward kernel's instantiation that
+    takes ``dtype`` and ``local_size`` at the tile of ``channels``
+    (``cudaFuncGetAttributes``, and
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` at its shared
+    memory): registers, static/dynamic shared bytes, local (spill) bytes,
+    threads a block, resident blocks per SM, and the tile's channels
+    (``chunk``). Needs the card."""
+    fn = getattr(_build.load("lrn_fwd"), "poseidon_lrn_fwd_attrs")
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    keys = ("registers", "static_smem_bytes", "dynamic_smem_bytes",
+            "local_bytes", "threads", "blocks_per_sm", "chunk")
+    buf = (ctypes.c_int * len(keys))()
+    rc = fn(_DTYPE_CODE[dtype], channels, local_size, buf)
+    if rc != 0:
+        raise RuntimeError(f"lrn_fwd attributes: cudaError {rc}")
+    return dict(zip(keys, buf))
+
+
 def lrn_bwd_cuda(x: torch.Tensor, g: torch.Tensor, local_size: int,
                  alpha: float, beta: float, k: float = 1.0) -> torch.Tensor:
     """Launch the backward kernel on PyTorch's current stream."""
     _check_cuda("lrn_bwd_cuda", x, g)
-    if not 1 <= local_size <= MAX_CUDA_LOCAL_SIZE:
-        raise ValueError(f"lrn_bwd_cuda takes local_size in [1, "
-                         f"{MAX_CUDA_LOCAL_SIZE}], got {local_size}")
+    _check_window("lrn_bwd_cuda", local_size)
     n, c, h, w = x.shape
     dx = torch.empty_like(x)
     if x.numel() == 0:

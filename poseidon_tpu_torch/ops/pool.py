@@ -21,6 +21,14 @@ runs the taps formulation of ``ops/nn.py:_pool_bwd`` (``_pool_max_args``,
 ``_pool_scatter_taps``, ``_pool_unpad``). Torch's own pooling backward is
 never used.
 
+The kernel is one pass over shared-memory bands: a block stages the x and
+g rows of a band of dx rows (or of several whole small planes) and takes
+each window's argmax (MAX) or scaled cotangent (AVE) once; MAX sends each
+cotangent to its element in one pass a slot, AVE gathers, both in the
+plain version's order of adds. ``pool_band_plan`` sizes the band to a
+shared-memory budget here, where a CPU test can check it, and the wrapper
+hands it to the C entry.
+
 ``max_pool_reference`` / ``ave_pool_reference`` run the plain backward on
 any device: chip_smoke.py swaps them into the POOLING layers to hold a
 whole training step against the kernel on the card.
@@ -29,8 +37,9 @@ whole training step against the kernel on the card.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -42,6 +51,20 @@ from . import _build
 LAUNCHES = {"pool_bwd": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+# The backward kernel's band plan: a band's shared memory fits
+# POOL_SMEM_BUDGET bytes (POOL_SMEM_MAX, what a block can opt in to, when a
+# band of one row needs more), and a block takes several whole planes until
+# it holds about POOL_BLOCK_ELEMS dx elements within POOL_GROUP_SMEM bytes
+# (nine blocks of 128 threads an SM); a small tensor takes fewer planes,
+# then shorter bands, until the grid has POOL_MIN_BLOCKS blocks. A MAX
+# window takes at most POOL_MAX_SLOTS slots (csrc/pool_bwd.cu kMaxSlots).
+POOL_SMEM_BUDGET = 48 * 1024
+POOL_SMEM_MAX = 227 * 1024
+POOL_BLOCK_ELEMS = 4096
+POOL_GROUP_SMEM = 24 * 1024
+POOL_MIN_BLOCKS = 1024
+POOL_MAX_SLOTS = 1 << 15
 
 
 def pool_out_size(in_size: int, kernel: int, stride: int, pad: int) -> int:
@@ -144,22 +167,172 @@ def pool_bwd_plain(x: torch.Tensor, g: torch.Tensor, kernel, stride, pad,
     return dxp[:, :, pad[0]:pad[0] + h, pad[1]:pad[1] + w].to(x.dtype)
 
 
+class Band(NamedTuple):
+    """Band j of a plan: dx rows [r0, r1), the window rows covering them
+    [oy0, oy0 + nwy) and the x rows those windows read [xr0, xr0 + nxr)."""
+    r0: int
+    r1: int
+    oy0: int
+    nwy: int
+    xr0: int
+    nxr: int
+
+
+class BandPlan(NamedTuple):
+    """What the C entry launches: ``band_rows`` dx rows a block (all ``h``
+    when one band holds the plane, then ``planes_per_block`` whole planes a
+    block), and the shared memory of a block (``x_rows``, ``win_rows``:
+    the most any band stages per plane)."""
+    band_rows: int
+    n_bands: int
+    planes_per_block: int
+    x_rows: int
+    win_rows: int
+    smem_bytes: int
+
+
+def _cover_lo(p: int, kernel: int, stride: int) -> int:
+    """First window along an axis that covers padded coordinate p."""
+    first = p - kernel + 1
+    return 0 if first <= 0 else (first + stride - 1) // stride
+
+
+def _cover_hi(p: int, stride: int, n_out: int) -> int:
+    """Last window along an axis that covers padded coordinate p."""
+    return min(p // stride, n_out - 1)
+
+
+def pool_band(h: int, oh: int, kh: int, sh: int, ph: int, band_rows: int,
+              j: int) -> Band:
+    """Band j of ``band_rows`` dx rows (csrc/pool_bwd.cu:band_of)."""
+    r0 = j * band_rows
+    r1 = min(h, r0 + band_rows)
+    oy0 = _cover_lo(r0 + ph, kh, sh)
+    hi = _cover_hi(r1 - 1 + ph, sh, oh)
+    nwy = max(0, hi - oy0 + 1)
+    if nwy == 0:
+        return Band(r0, r1, oy0, 0, 0, 0)
+    xr0 = max(0, oy0 * sh - ph)
+    return Band(r0, r1, oy0, nwy, xr0, max(0, min(h, hi * sh - ph + kh)
+                                            - xr0))
+
+
+def pool_slots(oh: int, ow: int, kernel, stride) -> int:
+    """A MAX dx element's slots in the kernel: the most windows that
+    cover one input element, min(ceil(k / s), out) an axis."""
+    return (min(-(-kernel[0] // stride[0]), oh)
+            * min(-(-kernel[1] // stride[1]), ow))
+
+
+def pool_smem_bytes(w: int, ow: int, is_max: bool, band_rows: int,
+                    planes_per_block: int, x_rows: int,
+                    win_rows: int) -> int:
+    """A block's shared memory (csrc/pool_bwd.cu:smem_words) in 4-byte
+    words: for MAX, per plane x (whose space then holds the band's dx) and
+    the windows' g and argmax codes; for AVE, per plane the windows' g,
+    then two covering-window tables of 2 words per band row and column."""
+    if is_max:
+        return 4 * planes_per_block * (max(x_rows, band_rows) * w
+                                       + 2 * win_rows * ow)
+    return 4 * (planes_per_block * win_rows * ow + 2 * band_rows + 2 * w)
+
+
+def _plan_at(h: int, w: int, oh: int, ow: int, kernel, stride, pad,
+             is_max: bool, rows: int, ppb: int) -> BandPlan:
+    """The plan of ``rows`` dx rows a band (at most ``h``) and ``ppb``
+    planes a block, its shared memory the most any band stages."""
+    rows = min(rows, h)
+    n_bands = -(-h // rows)
+    bands = [pool_band(h, oh, kernel[0], stride[0], pad[0], rows, j)
+             for j in range(n_bands)]
+    xr = max(b.nxr for b in bands)
+    wr = max(b.nwy for b in bands)
+    return BandPlan(rows, n_bands, ppb, xr, wr, pool_smem_bytes(
+        w, ow, is_max, rows, ppb, xr, wr))
+
+
+@functools.lru_cache(maxsize=256)
+def pool_band_plan(planes: int, h: int, w: int, oh: int, ow: int, kernel,
+                   stride, pad, is_max: bool) -> BandPlan:
+    """The backward kernel's band plan for (planes, h, w) pooled to (oh,
+    ow): the tallest band within POOL_SMEM_BUDGET bytes of shared memory
+    (the whole plane where it fits, then several planes a block up to
+    POOL_BLOCK_ELEMS dx elements and POOL_GROUP_SMEM bytes), cut down for
+    a small tensor until the grid has POOL_MIN_BLOCKS blocks. Raises
+    ValueError for a MAX window of more than POOL_MAX_SLOTS slots, and
+    where even one row overflows POOL_SMEM_MAX."""
+    if is_max and pool_slots(oh, ow, kernel, stride) > POOL_MAX_SLOTS:
+        raise ValueError(f"pool_bwd: a MAX window {kernel}/{stride} over "
+                         f"a {oh}x{ow} output takes more than "
+                         f"{POOL_MAX_SLOTS} slots")
+
+    def plan(rows: int, ppb: int) -> BandPlan:
+        return _plan_at(h, w, oh, ow, kernel, stride, pad, is_max, rows, ppb)
+
+    for cap in (POOL_SMEM_BUDGET, POOL_SMEM_MAX):
+        best = next((p for p in (plan(rows, 1) for rows in range(h, 0, -1))
+                     if p.smem_bytes <= cap), None)
+        if best is not None:
+            break
+    else:
+        raise ValueError(f"pool_bwd: a band of one {w}-wide row needs more "
+                         f"than {POOL_SMEM_MAX} bytes of shared memory")
+    if planes * best.n_bands < POOL_MIN_BLOCKS:
+        bands = -(-POOL_MIN_BLOCKS // planes)
+        return plan(min(best.band_rows, -(-h // bands)), 1)
+    if best.n_bands > 1:
+        return best
+    ppb = max(1, min(POOL_BLOCK_ELEMS // (h * w), planes // POOL_MIN_BLOCKS))
+    while ppb > 1 and plan(h, ppb).smem_bytes > POOL_GROUP_SMEM:
+        ppb -= 1
+    return plan(h, ppb)
+
+
 def _lib():
     fn = _build.load("pool_bwd").poseidon_pool_bwd
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 4 + [
+        fn.argtypes = [ctypes.c_void_p] * 3 + [
             ctypes.c_int, ctypes.c_int, ctypes.c_longlong] + \
-            [ctypes.c_int] * 10 + [ctypes.c_void_p]
+            [ctypes.c_int] * 14 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
 
+_ATTR_KEYS = ("registers", "static_smem_bytes", "dynamic_smem_bytes",
+              "local_bytes", "threads", "blocks_per_sm")
+
+
+def pool_bwd_kernel_attrs(dtype: torch.dtype, method: str, shape, kernel,
+                          stride, pad) -> dict:
+    """What the card reports for the kernel instantiation that takes
+    ``dtype`` and ``method`` at the band plan of an (N, C, H, W) ``shape``
+    (``cudaFuncGetAttributes``, and
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` at the plan's shared
+    memory), keyed by ``_ATTR_KEYS`` plus the plan. Needs the card."""
+    fn = _build.load("pool_bwd").poseidon_pool_bwd_attrs
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_int] * 16 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    n, c, h, w = shape
+    oh = pool_out_size(h, kernel[0], stride[0], pad[0])
+    ow = pool_out_size(w, kernel[1], stride[1], pad[1])
+    plan = pool_band_plan(n * c, h, w, oh, ow, tuple(kernel), tuple(stride),
+                          tuple(pad), method == "max")
+    buf = (ctypes.c_int * len(_ATTR_KEYS))()
+    rc = fn(_DTYPE_CODE[dtype], int(method == "max"), h, w, oh, ow,
+            kernel[0], kernel[1], stride[0], stride[1], pad[0], pad[1],
+            plan.band_rows, plan.planes_per_block, plan.x_rows,
+            plan.win_rows, buf)
+    if rc != 0:
+        raise RuntimeError(f"pool_bwd attributes: cudaError {rc}")
+    return {**dict(zip(_ATTR_KEYS, buf)), **plan._asdict()}
+
+
 def pool_bwd_cuda(x: torch.Tensor, g: torch.Tensor, kernel, stride, pad,
                   method: str) -> torch.Tensor:
-    """Launch the backward kernel on PyTorch's current stream (for MAX an
-    argmax pass into an int32 scratch, then the gather pass: one launch of
-    the kernel, as counted). For "ave" x is read for its shape, dtype and
-    device only (an expanded tensor will do)."""
+    """Launch the backward kernel on PyTorch's current stream, one launch
+    at the band plan of ``pool_band_plan``. For "ave" x is read for its
+    shape, dtype and device only (an expanded tensor will do)."""
     if method not in ("max", "ave"):
         raise ValueError(f"pool_bwd_cuda: method must be 'max' or 'ave', "
                          f"got {method!r}")
@@ -181,22 +354,23 @@ def pool_bwd_cuda(x: torch.Tensor, g: torch.Tensor, kernel, stride, pad,
                          f"the pooling gives {(n, c, oh, ow)}")
     if min(*kernel, *stride) < 1 or min(pad) < 0:
         raise ValueError(f"pool_bwd_cuda: bad window {kernel}/{stride}/{pad}")
-    if h * w >= 2 ** 31:
+    padded = ((oh - 1) * stride[0] + kernel[0]) * \
+        ((ow - 1) * stride[1] + kernel[1])
+    if max(h * w, padded) >= 2 ** 31:
         raise ValueError("pool_bwd_cuda: a plane must hold < 2^31 elements")
     dx = torch.empty(x.shape, dtype=x.dtype, device=x.device)
     if x.numel() == 0:
         return dx
-    # the argmax pass's scratch: one int32 flat padded index per window
-    arg = (torch.empty(g.shape, dtype=torch.int32, device=x.device)
-           if method == "max" else None)
+    plan = pool_band_plan(n * c, h, w, oh, ow, tuple(kernel), tuple(stride),
+                          tuple(pad), method == "max")
     fn = _lib()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = fn(x.data_ptr() if method == "max" else None, g.data_ptr(),
-                dx.data_ptr(), arg.data_ptr() if method == "max" else None,
-                _DTYPE_CODE[x.dtype], int(method == "max"), n * c, h, w, oh,
-                ow, kernel[0], kernel[1], stride[0], stride[1], pad[0],
-                pad[1], stream)
+                dx.data_ptr(), _DTYPE_CODE[x.dtype], int(method == "max"),
+                n * c, h, w, oh, ow, kernel[0], kernel[1], stride[0],
+                stride[1], pad[0], pad[1], plan.band_rows,
+                plan.planes_per_block, plan.x_rows, plan.win_rows, stream)
     if rc != 0:
         raise RuntimeError(f"pool_bwd kernel launch failed: cudaError {rc}")
     LAUNCHES["pool_bwd"] += 1

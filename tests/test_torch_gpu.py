@@ -86,10 +86,67 @@ def test_lrn_bwd_kernel_bitwise_equal_to_plain_on_card():
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype,shape,local_size", [
+    (torch.float32, (4, 96, 55, 55), 5),      # norm1
+    (torch.bfloat16, (4, 256, 27, 27), 5),    # norm2
+    # the window's edges and the tile's: one channel, the widest window,
+    # an even window, C below the halo, one position, a C off the chunks
+    (torch.float32, (2, 16, 9, 9), 1),
+    (torch.float32, (2, 70, 5, 7), 32),
+    (torch.float32, (3, 37, 9, 9), 4),
+    (torch.float32, (3, 2, 11, 11), 5),
+    (torch.float32, (5, 96, 1, 1), 5),
+    (torch.float32, (1, 131, 13, 13), 5),
+    (torch.bfloat16, (1, 131, 13, 13), 7),
+])
+def test_lrn_fwd_kernel_bitwise_equal_to_plain_on_card(dtype, shape,
+                                                       local_size):
+    """K4 computes each element as the plain forward does (squares summed
+    in ascending order from zero, explicitly rounded, the same powf):
+    bitwise equal to it, and a second launch to the first."""
+    _need_gpu()
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    got = port_lrn.lrn_fwd_cuda(x, local_size, 1e-4, 0.75, 1.0)
+    again = port_lrn.lrn_fwd_cuda(x, local_size, 1e-4, 0.75, 1.0)
+    want = port_lrn.lrn_across_channels_plain(x, local_size, 1e-4, 0.75,
+                                              1.0)
+    assert torch.equal(got, want)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.gpu
+def test_lrn_fwd_kernel_attrs_on_card():
+    """K4's tile at norm1's and norm2's chunks (two of 48 channels, four
+    of 64) spills nothing and keeps at least four blocks an SM."""
+    _need_gpu()
+    for c, chunk in ((96, 48), (256, 64)):
+        a = port_lrn.lrn_fwd_kernel_attrs(torch.float32, c, 5)
+        assert a["local_bytes"] == 0 and a["blocks_per_sm"] >= 4, a
+        assert a["chunk"] == chunk, a
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("dtype,shape,k,s,p,method", [
     (torch.float32, (4, 96, 55, 55), 3, 2, 0, "max"),
     (torch.bfloat16, (4, 256, 13, 13), 3, 2, 0, "max"),
     (torch.float32, (2, 16, 13, 13), 2, 2, 1, "ave"),
+    # a plane of several bands
+    (torch.float32, (1, 2, 600, 600), 3, 2, 0, "max"),
+    # GoogLeNet's inception pool, loss-branch and final pools
+    (torch.float32, (2, 192, 28, 28), 3, 1, 1, "max"),
+    (torch.float32, (2, 512, 14, 14), 5, 3, 0, "ave"),
+    (torch.float32, (2, 1024, 7, 7), 7, 1, 0, "ave"),
+    (torch.bfloat16, (2, 64, 14, 14), 5, 3, 0, "ave"),
+    # inputs that no window covers; CIFAR's and LeNet's pools
+    (torch.float32, (2, 16, 13, 13), 2, 3, 0, "max"),
+    (torch.float32, (2, 32, 32, 32), 3, 2, 0, "max"),
+    (torch.float32, (2, 32, 16, 16), 3, 2, 0, "ave"),
+    (torch.float32, (2, 20, 24, 24), 2, 2, 0, "max"),
+    # global MAX pooling (one window of 169 taps) and a wide stride-1
+    # window: each element's slots are its covering windows, not its taps
+    (torch.float32, (2, 256, 13, 13), 13, 1, 0, "max"),
+    (torch.bfloat16, (2, 64, 15, 14), 12, 1, 0, "max"),
 ])
 def test_pool_bwd_kernel_matches_plain_on_card(dtype, shape, k, s, p, method):
     """K6 through the autograd Function against the plain backward: the
@@ -107,6 +164,41 @@ def test_pool_bwd_kernel_matches_plain_on_card(dtype, shape, k, s, p, method):
     assert port_pool.LAUNCHES["pool_bwd"] == before + 1
     want = port_pool.pool_bwd_plain(x, g, (k, k), (s, s), (p, p), method)
     assert torch.equal(xr.grad, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pad", [0, 1])
+def test_pool_bwd_kernel_minus_inf_rows_on_card(pad):
+    """Rows and a whole plane of -inf: a window with nothing above -inf
+    keeps flat index 0 of the padded plane, so window (0, 0) sends its
+    cotangent to input (0, 0) without padding and drops it with; bitwise
+    equal to the plain version, and a second launch to the first."""
+    _need_gpu()
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randn((4, 8, 27, 27), generator=gen, device="cuda")
+    x[:, :, :3] = -float("inf")
+    x[0, 1] = -float("inf")
+    x[1, 2, 5] = float("nan")
+    geom = ((3, 3), (2, 2), (pad, pad))
+    y = port_pool.pool_forward(x, *geom, "max")
+    g = torch.randn(y.shape, generator=gen, device="cuda")
+    got = port_pool.pool_bwd_cuda(x, g, *geom, "max")
+    again = port_pool.pool_bwd_cuda(x, g, *geom, "max")
+    want = port_pool.pool_bwd_plain(x, g, *geom, "max")
+    assert torch.equal(got, want)
+    assert torch.equal(got, again)
+    assert got[0, 1, 0, 0] == (g[0, 1, 0, 0] if pad == 0 else 0)
+
+
+@pytest.mark.gpu
+def test_pool_bwd_kernel_attrs_on_card():
+    """K6 at AlexNet's pool1/pool2/pool5 band plans spills nothing and keeps
+    at least four blocks an SM."""
+    _need_gpu()
+    for shape in ((256, 96, 55, 55), (256, 256, 27, 27), (256, 256, 13, 13)):
+        a = port_pool.pool_bwd_kernel_attrs(torch.float32, "max", shape,
+                                            (3, 3), (2, 2), (0, 0))
+        assert a["local_bytes"] == 0 and a["blocks_per_sm"] >= 4, a
 
 
 @pytest.mark.gpu
