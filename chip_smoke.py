@@ -87,7 +87,23 @@ Phases, in order; any failure exits non-zero without the final ``ok`` line:
    which every port kernel must show device time, and whose kernels may
    not sum past PROFILE_BUSY_MARGIN times the step by CUDA events) and
    the peak device memory.
-5. The LM serving slice: ``serve --generate``'s executor
+5. The data-parallel slice (``phase_dp``), AlexNet train_val at full
+   width in f32: a one-rank NCCL group in this process (a file store in a
+   temporary directory): the DENSE step (61 DWBP buckets of 4 MB) held
+   bitwise against the one-device step for DP_STEPS steps from the same
+   params, momentum and batch (cuDNN's deterministic algorithms on, both
+   arms), its launch counters zeroed just before and read just after (2
+   lrn_fwd, 2 lrn_bwd, 3 pool_bwd, 1 sgd_update a step); SFB on
+   ``auto_strategies``' picks (fc6-fc8) against DENSE after one step at
+   DP_SFB_TOL; the buckets issued in DWBP order, all but the first layer's
+   while backward still ran, with each one's window to the end of backward
+   by CUDA events; the device step of the one-device step, DENSE and
+   DENSE_FUSED in turns. Then two ``python -m poseidon_tpu_torch train``
+   processes on the one card (gloo, since they share it) under the
+   launcher env contract at DP_CLI_BATCH a rank, for each of DP_CLI_RUNS:
+   both exit 0, their DP_CLI_ITERS snapshots bitwise equal, every loss
+   finite, the wall time a step. One ``[dp]`` line sums it up.
+6. The LM serving slice: ``serve --generate``'s executor
    (``build_generate_executor("gpt_small")``: full width and depth, seeded
    weights, page 64, rungs 1/2/4/8, prompt buckets 16/64/256) behind the
    port's ``InferenceServer``, driven by the port's ``ServingClient``: a
@@ -103,7 +119,7 @@ Phases, in order; any failure exits non-zero without the final ``ok`` line:
    their counts, generated tokens/s at 8 and 1 clients, CUDA-event prefill
    time per bucket, per decode rung the profiled device busy time, the
    CUDA-event span and the host wall time, and peak device memory.
-6. The LM training slice: gpt_small at full width and depth (max_seq 1024,
+7. The LM training slice: gpt_small at full width and depth (max_seq 1024,
    remat on, seeded weights) trained by ``build_dp_sp_train_step`` at
    batch 8 x seq 1024 with bench.py's SGD solver on one fixed seeded
    batch. Launch counters are zeroed just before LMT_LOSS_STEPS steps and
@@ -116,16 +132,17 @@ Phases, in order; any failure exits non-zero without the final ``ok`` line:
    tokens/s, MFU (6*P*T) and the executed share (8*P*T) over 67 TFLOP/s,
    peak device memory and the top kernels of one profiled step, in which
    every port kernel launched on the step must show device time.
-7. ``python -m poseidon_tpu_torch.models.train_lm --generate 48`` at its
+8. ``python -m poseidon_tpu_torch.models.train_lm --generate 48`` at its
    defaults, through its ``main`` in this process: the loss must fall
    below LM_CORPUS_MAX_LOSS by step 200, and the decode must print its
    bytes. Launch counters are zeroed just before and read just after:
    exactly 2 flash_fwd, 2 flash_dq and 2 flash_dkv a step (one a layer,
    remat off), and 2 flash_fwd for the decode's prefill.
-8. Real data end to end: ``python -m poseidon_tpu_torch train`` on the
+9. Real data end to end: ``python -m poseidon_tpu_torch train`` on the
    digits solver (1000 iterations, real UCI digits from the repo) into a
    temporary directory; the final test accuracy must reach DIGITS_MIN_ACC.
-9. One JSON line with every kernel's numbers, then the ``ok`` line.
+10. One JSON line with every kernel's numbers (launches by path, ``dp``
+    among them), then the ``ok`` line.
 """
 
 from __future__ import annotations
@@ -224,6 +241,17 @@ NET_TOL = (1e-4, 1e-6)
 # on the card: the loss and every updated parameter; cuDNN's backward
 # algorithms may sum in another order from one call to the next
 STEP_TOL = (1e-4, 1e-6)
+# the data-parallel phase, AlexNet train_val at full width, f32: a one-rank
+# NCCL group at the one-device batch (held bitwise against the one-device
+# step for DP_STEPS steps, under cuDNN's deterministic algorithms), then
+# two `train` processes on the one card over gloo at DP_CLI_BATCH a rank
+DP_BATCH, DP_STEPS = 256, 3
+DP_CLI_BATCH, DP_CLI_ITERS, DP_CLI_TIMEOUT_S = 128, 3, 300
+DP_CLI_RUNS = (("sfb-auto", ("--strategy", "sfb", "--sfb-auto")),
+               ("dense", ()))
+# SFB (fc6-fc8) vs DENSE after one step: f32 throughout, but SFB takes each
+# FC weight gradient as one product of the gathered factors
+DP_SFB_TOL = (1e-4, 1e-6)
 
 
 class SmokeFailure(RuntimeError):
@@ -1090,6 +1118,13 @@ def read_launches() -> dict:
             **flash.LAUNCHES}
 
 
+def synthetic_ilsvrc_paths(root: str):
+    """(train LMDB, val LMDB, mean binaryproto) under ``root``."""
+    return (os.path.join(root, "ilsvrc12_train_lmdb"),
+            os.path.join(root, "ilsvrc12_val_lmdb"),
+            os.path.join(root, "ilsvrc12_mean.binaryproto"))
+
+
 def write_synthetic_ilsvrc(root: str):
     """Train and val LMDBs of 3x256x256 uint8 Datum records (class
     templates plus noise, examples/make_synthetic_db.py's recipe, CLASSES
@@ -1120,9 +1155,7 @@ def write_synthetic_ilsvrc(root: str):
                 data=img.tobytes(), label=label)))
         w.close()
 
-    train = os.path.join(root, "ilsvrc12_train_lmdb")
-    val = os.path.join(root, "ilsvrc12_val_lmdb")
-    mean = os.path.join(root, "ilsvrc12_mean.binaryproto")
+    train, val, mean = synthetic_ilsvrc_paths(root)
     write(train, TRAIN_RECORDS, 1)
     write(val, VAL_RECORDS, 2)
     with open(mean, "wb") as f:
@@ -1130,18 +1163,13 @@ def write_synthetic_ilsvrc(root: str):
     return train, val, mean
 
 
-def alexnet_solver(root: str, batch_size=None):
-    """alexnet_solver.prototxt over alexnet_train_val.prototxt with only the
-    data sources, the mean file, the cadence and the snapshot prefix
-    pointed at ``root``: every layer, width, batch, crop and mirror stays
-    (``batch_size`` cuts the batch for a CPU rehearsal only)."""
-    from poseidon_tpu_torch.proto.messages import load_net, load_solver
+def alexnet_net_param(root: str, batch_size=None):
+    """alexnet_train_val.prototxt with its data sources and mean file
+    pointed at the synthetic LMDBs under ``root`` (both data layers' batch
+    set to ``batch_size`` when given)."""
+    from poseidon_tpu_torch.proto.messages import load_net
 
-    t0 = time.perf_counter()
-    train_db, val_db, mean = write_synthetic_ilsvrc(root)
-    print(f"[train] synthetic ILSVRC-shaped LMDBs: {TRAIN_RECORDS} train + "
-          f"{VAL_RECORDS} val records of 3x256x256, {CLASSES} classes, "
-          f"written in {time.perf_counter() - t0:.1f} s", flush=True)
+    train_db, val_db, mean = synthetic_ilsvrc_paths(root)
     net_param = load_net(ALEXNET_TRAIN)
     for lp in net_param.layers:
         if lp.canonical_type() == "DATA":
@@ -1150,8 +1178,23 @@ def alexnet_solver(root: str, batch_size=None):
             lp.transform_param.mean_file = mean
             if batch_size:
                 lp.data_param.batch_size = batch_size
+    return net_param
+
+
+def alexnet_solver(root: str, batch_size=None):
+    """alexnet_solver.prototxt over alexnet_train_val.prototxt with only the
+    data sources, the mean file, the cadence and the snapshot prefix
+    pointed at ``root``: every layer, width, batch, crop and mirror stays
+    (``batch_size`` cuts the batch for a CPU rehearsal only)."""
+    from poseidon_tpu_torch.proto.messages import load_solver
+
+    t0 = time.perf_counter()
+    write_synthetic_ilsvrc(root)
+    print(f"[train] synthetic ILSVRC-shaped LMDBs: {TRAIN_RECORDS} train + "
+          f"{VAL_RECORDS} val records of 3x256x256, {CLASSES} classes, "
+          f"written in {time.perf_counter() - t0:.1f} s", flush=True)
     sp = load_solver(ALEXNET_SOLVER)
-    sp.net, sp.net_param = "", net_param
+    sp.net, sp.net_param = "", alexnet_net_param(root, batch_size)
     sp.max_iter, sp.display = TRAIN_ITERS, 10
     sp.test_interval, sp.test_iter = TEST_INTERVAL, [TEST_ITER]
     sp.snapshot, sp.snapshot_prefix = 0, os.path.join(root, "alexnet")
@@ -1384,6 +1427,323 @@ def phase_train(card: str, root: str, device=None, batch_size=None) -> dict:
         return {"launches": counts, "loop": loop, **prof}
     finally:
         eng.close()
+
+
+def tree_equal(a, b) -> bool:
+    import torch
+    return all(torch.equal(a[l][k], b[l][k]) for l in a for k in a[l])
+
+
+def tree_max_abs(a, b) -> float:
+    return max(float((a[l][k] - b[l][k]).abs().max()) for l in a
+               for k in a[l])
+
+
+def phase_dp(card: str, root: str, device=None, batch_size=None,
+             cli_batch=None) -> dict:
+    """Data-parallel AlexNet on the card (``device``, ``batch_size`` and
+    ``cli_batch`` are for a CPU rehearsal at a cut batch only):
+
+    1. a one-rank process group (NCCL on the card) in this process: the
+       DENSE step (4 MB DWBP buckets) against the one-device step from the
+       same params, momentum and batch, bitwise for DP_STEPS steps, its
+       K4-K7 launches counted (zeroed just before, read just after); SFB on
+       the auto picks against DENSE after one step; the device step of
+       DENSE, DENSE_FUSED and the one-device step in turns; from the issue
+       events, the buckets issued mid-backward and each one's window to
+       the end of backward;
+    2. two ``python -m poseidon_tpu_torch train`` processes on the one card
+       (gloo: they share it) under the launcher env contract, for each of
+       DP_CLI_RUNS: both exit 0, their snapshots are bitwise equal, every
+       loss finite; the wall time a step."""
+    import torch
+    from poseidon_tpu_torch.core.net import Net
+    from poseidon_tpu_torch.data.pipeline import build_phase_pipelines
+    from poseidon_tpu_torch.numeric import resolve_device
+    from poseidon_tpu_torch.parallel.strategies import (
+        DENSE_FUSED, CommConfig, auto_strategies)
+    from poseidon_tpu_torch.parallel.trainer import (TrainStep,
+                                                     init_train_state)
+    from poseidon_tpu_torch.proto.messages import load_solver
+    from poseidon_tpu_torch.runtime.cluster import init_distributed
+
+    t_phase = time.perf_counter()
+    dev = resolve_device(device)
+    net_param = alexnet_net_param(root, batch_size or DP_BATCH)
+    pipes, shapes = build_phase_pipelines(net_param, "TRAIN")
+    try:
+        batch = {k: torch.from_numpy(v).to(dev)
+                 for k, v in next(pipes[0]).items()}
+    finally:
+        for p in pipes:
+            p.close()
+    net = Net(net_param, "TRAIN", device=dev, source_shapes=shapes)
+    sp = load_solver(ALEXNET_SOLVER)
+    params0 = net.init(torch.Generator().manual_seed(1))
+    state0 = init_train_state(params0)
+    group = init_distributed(dev, rank=0, world=1, coordinator=(
+        "file://" + os.path.join(root, "dp_store")))
+    want_backend = "nccl" if dev.type == "cuda" else "gloo"
+    check(group.backend == want_backend,
+          f"one-rank group on {dev}: backend {group.backend}")
+
+    def run(step, n):
+        """n steps from params0; the losses and clones of the params and
+        momentum after the first and the last."""
+        net.generator.manual_seed(7)
+        params, state = step.load(params0, state0)
+        losses, kept = [], {}
+        for k in range(n):
+            params, state, m = step.step(params, state, batch)
+            losses.append(float(m["loss"]))
+            if k in (0, n - 1):
+                kept[k + 1] = (tree_clone(params),
+                               tree_clone(state.solver.history))
+        return losses, kept
+
+    def device_step_ms(step) -> float:
+        params, state = step.load(params0, state0)
+        for _ in range(2):
+            params, state, _m = step.step(params, state, batch)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(TIMED_STEPS):
+            params, state, _m = step.step(params, state, batch)
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / TIMED_STEPS
+
+    out = {"batch": shapes["data"][0], "backend": group.backend}
+    try:
+        one = TrainStep(net, sp)
+        dense = TrainStep(net, sp, group, CommConfig())
+        n_buckets = len(dense.sync.hooked)
+        print(f"[dp] one-rank {group.backend} group on {dev}: AlexNet "
+              f"{net.param_count()} params, batch {out['batch']}, "
+              f"{n_buckets} DWBP buckets of 4 MB [{card}]", flush=True)
+        deterministic = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            ref_losses, ref = run(one, DP_STEPS)
+            zero_launches()
+            losses, got = run(dense, DP_STEPS)
+            sync(dev)
+            launches = read_launches()
+            sfb_comm = CommConfig(layer_strategies=auto_strategies(net))
+            sfb = TrainStep(net, sp, group, sfb_comm)
+            sfb_losses, sfb_got = run(sfb, 1)
+            del sfb
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
+        on_card = dev.type == "cuda"
+        want = {k: 0 for k in launches}
+        if on_card:
+            want.update(lrn_fwd=2 * DP_STEPS, lrn_bwd=2 * DP_STEPS,
+                        pool_bwd=3 * DP_STEPS, sgd_update=DP_STEPS)
+        print(f"[dp] DENSE, {DP_STEPS} steps: launches {launches} "
+              f"(expected {want}) [{card}]", flush=True)
+        check(launches == want, f"dp launches {launches} != {want}")
+        check(all(math.isfinite(x) for x in losses), f"dp losses {losses}")
+        bitwise = (losses == ref_losses and all(
+            tree_equal(got[k][i], ref[k][i]) for k in got for i in (0, 1)))
+        print(f"[dp] one-rank DENSE vs the one-device step, {DP_STEPS} "
+              f"steps (cuDNN deterministic): losses {losses} vs "
+              f"{ref_losses}; params and momentum bitwise={bitwise} "
+              f"[{card}]", flush=True)
+        check(bitwise, "one-rank DENSE step differs from the one-device "
+                       "step: max_abs " + str(max(
+                           tree_max_abs(got[k][i], ref[k][i])
+                           for k in got for i in (0, 1))))
+        rtol, atol = DP_SFB_TOL
+        sfb_err = max(tree_max_abs(sfb_got[1][i], got[1][i]) for i in (0, 1))
+        sfb_ok = all(bool(torch.allclose(sfb_got[1][i][l][k],
+                                         got[1][i][l][k], rtol=rtol,
+                                         atol=atol))
+                     for i in (0, 1) for l in got[1][i] for k in got[1][i][l])
+        print(f"[dp] SFB on {sorted(sfb_comm.layer_strategies)} vs DENSE "
+              f"after one step: loss {sfb_losses[0]!r} vs {losses[0]!r}, "
+              f"max_abs {sfb_err:.3e} (rtol {rtol:g}, atol {atol:g}) "
+              f"[{card}]", flush=True)
+        check(sfb_ok and abs(sfb_losses[0] - losses[0])
+              <= atol + rtol * abs(losses[0]),
+              f"SFB vs DENSE after one step: max_abs {sfb_err}")
+        del got, ref, sfb_got
+        out.update(launches=launches, losses=losses, bitwise=bitwise,
+                   sfb_max_abs_err=sfb_err, n_buckets=n_buckets)
+
+        if on_card:
+            # in turns, each after two warm-up steps
+            times = {}
+            for name, step in (("one_device", one), ("dense", dense),
+                               ("dense_fused", None), ("dense_2", dense),
+                               ("one_device_2", one)):
+                if step is None:
+                    step = TrainStep(net, sp, group, CommConfig(
+                        default_strategy=DENSE_FUSED))
+                times[name] = device_step_ms(step)
+            out["step_ms"] = times
+        # the buckets issued while backward still ran (a warm step):
+        # host-side by the hooks, and on the card each one's window from
+        # its issue to the end of backward by CUDA events
+        first = next(l for l in net.layers if l.params).name
+        first_slots = {i for i, s in enumerate(dense.arena.slots)
+                       if s.layer == first}
+        n_first = sum(1 for b in dense.sync.hooked
+                      if first_slots & set(b.leaves))
+        params, state = dense.load(params0, state0)
+        params, state, _m = dense.step(params, state, batch)
+        windows = []
+        if on_card:
+            windows = issue_windows_ms(dense, params, state, batch)
+        else:
+            dense.step(params, state, batch)
+        mid = dense.sync.issued_mid_backward
+        check(dense.sync.issued == list(range(n_buckets)),
+              f"buckets issued out of DWBP order: {dense.sync.issued}")
+        check(mid >= n_buckets - n_first,
+              f"{mid} of {n_buckets} buckets issued mid-backward (the "
+              f"first layer's are in {n_first})")
+        out.update(issued_mid_backward=mid, windows_ms=windows)
+        if on_card:
+            check(len(windows) == n_buckets and windows[0] > 0,
+                  f"issue windows {windows}")
+            print(f"[dp] each bucket's window from its issue to the end of "
+                  f"backward (ms, CUDA events, bucket 0 first): "
+                  f"{[round(w, 3) for w in windows]} [{card}]", flush=True)
+        del one, dense
+    finally:
+        group.close()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    out["two_ranks"] = {name: dp_cli_run(card, root, name, flags, dev,
+                                         cli_batch or DP_CLI_BATCH)
+                        for name, flags in DP_CLI_RUNS}
+    out["wall_s"] = time.perf_counter() - t_phase
+    t = out.get("step_ms", {})
+    print("[dp] " + (
+        f"device step (CUDA events, {TIMED_STEPS} steps, batch "
+        f"{out['batch']}): one-device {t['one_device']:.3f} / "
+        f"{t['one_device_2']:.3f} ms, one-rank NCCL DENSE "
+        f"{t['dense']:.3f} / {t['dense_2']:.3f} ms, DENSE_FUSED "
+        f"{t['dense_fused']:.3f} ms; buckets issued mid-backward "
+        f"{out['issued_mid_backward']} of {out['n_buckets']}, the first "
+        f"{out['windows_ms'][0]:.3f} ms and the last "
+        f"{out['windows_ms'][-1]:.3f} ms before the end of backward; "
+        if t else "")
+        + "two ranks on one card over gloo, batch "
+        f"{cli_batch or DP_CLI_BATCH} a rank: " + ", ".join(
+            f"{name} {r['s_per_step']:.3f} s/step"
+            for name, r in out["two_ranks"].items())
+        + f"; phase wall {out['wall_s']:.1f} s [{card}]", flush=True)
+    return out
+
+
+def issue_windows_ms(step, params, state, batch) -> list:
+    """One data-parallel step with a CUDA event recorded at each bucket's
+    issue and one at the end of backward (as the sync's ``finish``
+    starts); per issued bucket, the ms from its issue to the end of
+    backward."""
+    import torch
+    sync = step.sync
+    issues, end = [], torch.cuda.Event(enable_timing=True)
+
+    def issue(bucket, _issue=sync._issue):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        issues.append(ev)
+        _issue(bucket)
+
+    def finish(_finish=sync.finish):
+        end.record()
+        _finish()
+
+    sync._issue, sync.finish = issue, finish
+    try:
+        step.step(params, state, batch)
+    finally:
+        del sync._issue, sync.finish        # back to the class's methods
+    end.synchronize()
+    return [ev.elapsed_time(end) for ev in issues]
+
+
+def dp_cli_run(card: str, root: str, name: str, flags, dev, batch: int
+               ) -> dict:
+    """Two ``train`` processes of the port under the env contract, sharing
+    the card (or the CPU); their snapshots must be bitwise equal."""
+    import numpy as np
+    from poseidon_tpu_torch.proto.messages import (load_solver,
+                                                   net_to_prototxt,
+                                                   solver_to_prototxt)
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(root, f"dp_{name}")
+    os.makedirs(work)
+    net_file = os.path.join(work, "train_val.prototxt")
+    with open(net_file, "w") as f:
+        f.write(net_to_prototxt(alexnet_net_param(root, batch)))
+    sp = load_solver(ALEXNET_SOLVER)
+    sp.net, sp.max_iter, sp.display = net_file, DP_CLI_ITERS, 1
+    sp.test_iter, sp.test_interval, sp.snapshot = [], 0, 0
+    sp.snapshot_prefix = "alexnet"
+    solver = os.path.join(work, "solver.prototxt")
+    with open(solver, "w") as f:
+        f.write(solver_to_prototxt(sp))
+    procs = []
+    t0 = time.perf_counter()
+    for r in range(2):
+        env = dict(os.environ, POSEIDON_PROC_ID=str(r),
+                   POSEIDON_NUM_PROCS="2", POSEIDON_COORDINATOR="file://"
+                   + os.path.join(work, "store"))
+        cmd = [sys.executable, "-m", "poseidon_tpu_torch", "train",
+               f"--solver={solver}", "--output_dir",
+               os.path.join(work, f"p{r}"), *flags]
+        if dev.type == "cpu":
+            cmd += ["--device", "cpu"]
+        procs.append(subprocess.Popen(cmd, cwd=here, env=env,
+                                      stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True))
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=DP_CLI_TIMEOUT_S)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    for r, log in enumerate(logs):
+        for line in log.splitlines():
+            print(f"[dp:{name}:rank{r}] {line}", flush=True)
+    for r, p in enumerate(procs):
+        check(p.returncode == 0, f"dp {name} rank {r} exited "
+                                 f"{p.returncode}")
+    check("backend gloo" in logs[0], f"dp {name}: two ranks sharing "
+                                     f"{dev.type} did not choose gloo")
+    stem = f"alexnet_iter_{DP_CLI_ITERS}"
+    a, b = (os.path.join(work, f"p{r}", stem) for r in range(2))
+    with np.load(a + ".solverstate.npz") as za, \
+            np.load(b + ".solverstate.npz") as zb:
+        check(sorted(za.files) == sorted(zb.files), "snapshot keys differ")
+        same = all(np.array_equal(za[k], zb[k]) for k in za.files)
+    with open(a + ".caffemodel", "rb") as fa, \
+            open(b + ".caffemodel", "rb") as fb:
+        same = same and fa.read() == fb.read()
+    check(same, f"dp {name}: the two ranks' snapshots differ")
+    with open(os.path.join(work, "p0", "AlexNet_train_outputs.csv")) as f:
+        rows = list(csv.DictReader(f))
+    losses = [float(r["loss"]) for r in rows]
+    check(len(losses) == DP_CLI_ITERS and all(map(math.isfinite, losses)),
+          f"dp {name} losses {losses}")
+    times = [float(r["time"]) for r in rows]
+    s_per_step = (times[-1] - times[0]) / (len(times) - 1)
+    print(f"[dp] two ranks, {' '.join(flags) or 'dense'}, batch {batch} a "
+          f"rank on one {dev.type} device over gloo: both exit 0 in "
+          f"{wall:.1f} s, snapshots {stem} bitwise equal, losses {losses}, "
+          f"{s_per_step:.3f} s a step after the first [{card}]", flush=True)
+    return {"losses": losses, "s_per_step": s_per_step, "wall_s": wall}
 
 
 def phase_digits(card: str) -> float:
@@ -2082,6 +2442,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         with tempfile.TemporaryDirectory() as root:
             train = phase_train(card, root)
+            torch.cuda.empty_cache()
+            dp = phase_dp(card, root)
         torch.cuda.empty_cache()
         lm = phase_lm(card)
         torch.cuda.empty_cache()
@@ -2094,19 +2456,27 @@ def main() -> int:
         return 1
 
     launches = train["launches"]
+    dp_launches = dp["launches"]
     kernels = [
         kernel_entry("lrn_fwd", "poseidon_tpu/ops/pallas_kernels.py:443",
                      launches["lrn_fwd"], k4, ("norm1 train", "norm2 train"),
                      launches_by_path={"serving": serving_launches,
-                                       "training": launches["lrn_fwd"]},
+                                       "training": launches["lrn_fwd"],
+                                       "dp": dp_launches["lrn_fwd"]},
                      attributes=k4_attrs),
         kernel_entry("lrn_bwd", "poseidon_tpu/ops/pallas_kernels.py:601",
-                     launches["lrn_bwd"], k5, ("norm1", "norm2")),
+                     launches["lrn_bwd"], k5, ("norm1", "norm2"),
+                     launches_by_path={"training": launches["lrn_bwd"],
+                                       "dp": dp_launches["lrn_bwd"]}),
         kernel_entry("pool_bwd", "poseidon_tpu/ops/pallas_kernels.py:741",
                      launches["pool_bwd"], k6, ("pool1", "pool2", "pool5"),
+                     launches_by_path={"training": launches["pool_bwd"],
+                                       "dp": dp_launches["pool_bwd"]},
                      attributes=k6_attrs),
         kernel_entry("sgd_update", "poseidon_tpu/ops/pallas_kernels.py:838",
-                     launches["sgd_update"], k7, ("alexnet arena",)),
+                     launches["sgd_update"], k7, ("alexnet arena",),
+                     launches_by_path={"training": launches["sgd_update"],
+                                       "dp": dp_launches["sgd_update"]}),
         kernel_entry("flash_fwd", "poseidon_tpu/ops/pallas_kernels.py:77",
                      lm["flash_launches"], k1, ("prefill 256",),
                      launches_by_path={"lm_serving": lm["flash_launches"],
@@ -2115,7 +2485,8 @@ def main() -> int:
                                        "lm_corpus": lm_corpus["launches"][
                                            "flash_fwd"],
                                        "cnn_serving": 0,
-                                       "cnn_training": launches["flash_fwd"]},
+                                       "cnn_training": launches["flash_fwd"],
+                                       "dp": dp_launches["flash_fwd"]},
                      launches_per_prefill=(lm["flash_launches"]
                                            // max(1, lm["prefills"])),
                      profiled_ms_per_prefill_256=lm["prefill_flash_ms"],
@@ -2139,7 +2510,8 @@ def main() -> int:
             launches_by_path={"lm_training": lm_train["launches"][name],
                               "lm_corpus": lm_corpus["launches"][name],
                               "lm_serving": lm["launches"][name],
-                              "cnn_training": launches[name]},
+                              "cnn_training": launches[name],
+                              "dp": dp_launches[name]},
             profiled_ms_per_training_step=lm_train["port_kernels"][name][
                 "ms"],
             bound_3xtf32_ms=sum(r["bound_3xtf32_ms"] for r in recs
@@ -2153,6 +2525,7 @@ def main() -> int:
                "train_loop": train["loop"],
                "train_port_kernels": train["port_kernels"],
                "digits_final_accuracy": digits_acc,
+               "dp": dp,
                "lm_serving": lm,
                "lm_training": lm_train,
                "lm_corpus": lm_corpus,

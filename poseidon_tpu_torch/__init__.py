@@ -21,8 +21,14 @@ batching -> the ``generate`` wire op and ``serve --generate``. Slice 4 is
 LM training on one device: checkpointed blocks (``core/remat.py``) ->
 gradients through the flash attention Function, whose backward is two
 CUDA kernels (dQ, dK/dV) -> the per-leaf SGD rule -> LM snapshots ->
-``python -m poseidon_tpu_torch.models.train_lm``. Entry points run on
-``cuda`` unless the caller passes ``device="cpu"``.
+``python -m poseidon_tpu_torch.models.train_lm``. Then the kernels were
+redesigned for Hopper. Data-parallel CNN training runs over
+``torch.distributed`` (NCCL on the card, gloo on the CPU): the launcher env
+contract (``runtime/cluster.py``) -> one process a rank with its shard of
+the records -> DWBP bucketed all-reduces issued from gradient-accumulation
+hooks while backward runs, and SFB for FC layers (``parallel/
+strategies.py``). Entry points run on ``cuda`` unless the caller passes
+``device="cpu"``.
 """
 
 __version__ = "0.1.0"

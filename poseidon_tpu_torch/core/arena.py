@@ -4,15 +4,16 @@ port of ``poseidon_tpu/core/arena.py``).
 - **Offset table** (``ArenaSlot``): every f32 parameter leaf gets a static
   ``[offset, offset+size)`` range in one flat buffer, in DWBP order —
   REVERSE forward layer order, the order gradients materialize during
-  backward — so a later data-parallel sync can cut the buffer into buckets
-  whose gradients exist first.
+  backward — so the data-parallel sync (``parallel/strategies.py``) cuts
+  the gradient buffer into buckets whose gradients exist first.
 - **Buckets** (``bucket_ranges``): the flat range cut at exact
   ``bucket_mb`` element boundaries (leaves may span buckets).
 - **Views** (``views``): the per-leaf tree as views of one flat tensor,
-  ``flat[off:off+n].view(shape)``, taken with one ``split``. Built from a
-  flat leaf that requires grad, autograd writes the whole gradient into
-  that leaf's ``.grad`` as one flat buffer. The JAX package needs a
-  custom-vjp for this; torch views do it natively.
+  ``flat[off:off+n].view(shape)``, taken with one ``split``. The train
+  step makes its leaves from the views of the parameter buffer and points
+  their ``.grad`` at the views of a gradient buffer, so autograd writes
+  the whole gradient into one flat buffer (``parallel/trainer.py``). The
+  JAX package needs a custom-vjp for this; torch views do it natively.
 - **Multiplier segments** (``mult_vectors``): per-leaf ``lr_mult`` and
   ``weight_decay * decay_mult`` expanded to f32 vectors over the buffer,
   so the whole update is one elementwise pass (``ops/sgd.py``).

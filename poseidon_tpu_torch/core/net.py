@@ -224,10 +224,12 @@ class Net(nn.Module):
     # ------------------------------------------------------------------ #
     def apply(self, params: Optional[Params],
               inputs: Dict[str, torch.Tensor], train: Optional[bool] = None,
-              keep_blobs: bool = False) -> NetOutputs:
+              keep_blobs: bool = False, comm=None) -> NetOutputs:
         """Run the graph: the loss (Caffe's objective, sum over tops of
         loss_weight * top, in f32), the output blobs, and every blob by its
-        last value with ``keep_blobs``. ``train`` defaults to the phase."""
+        last value with ``keep_blobs``. ``train`` defaults to the phase.
+        ``comm`` (a ``parallel/strategies.CommContext``) runs each of its
+        ``sfb_layers`` through its sufficient-factor product."""
         if params is None:
             params = self.params
         if params is None:
@@ -239,7 +241,12 @@ class Net(nn.Module):
         loss = torch.zeros((), dtype=torch.float32, device=self.device)
         for layer in self.layers:
             bottoms = [blobs[b] for b in layer.lp.bottom]
-            tops = layer(params.get(layer.name, {}), bottoms, train)
+            lparams = params.get(layer.name, {})
+            if comm is not None and layer.name in comm.sfb_layers:
+                tops = [comm.inner_product(bottoms[0], lparams["w"],
+                                           lparams.get("b"))]
+            else:
+                tops = layer(lparams, bottoms, train)
             weights = layer.loss_weights(len(tops))
             for name, val, w in zip(layer.lp.top, tops, weights):
                 blobs[name] = val

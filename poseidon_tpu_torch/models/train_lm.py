@@ -31,9 +31,9 @@ CORPUS = (Path(__file__).resolve().parents[2] / "examples" / "lm"
           / "train_lm.py")
 
 _LATER = {
-    "tp": "tensor parallelism (ROADMAP slice 6, queue A item 10)",
-    "pp": "pipeline parallelism (ROADMAP slice 6, queue A item 10)",
-    "ep": "MoE expert parallelism (ROADMAP slice 6, queue A item 10)",
+    "tp": "tensor parallelism (ROADMAP queue A item 10)",
+    "pp": "pipeline parallelism (ROADMAP queue A item 10)",
+    "ep": "MoE expert parallelism (ROADMAP queue A item 10)",
 }
 
 
@@ -74,8 +74,8 @@ def check_supported(args: argparse.Namespace) -> None:
     if args.data_axis > 1 or args.par_axis > 1:
         raise NotImplementedError(
             f"--data_axis {args.data_axis} --par_axis {args.par_axis}: more "
-            f"than one device (ROADMAP slice 5 and queue A item 10) is not "
-            f"ported yet; this script trains on one device")
+            f"than one device (LM data parallelism, ROADMAP queue A item "
+            f"10) is not ported yet; this script trains on one device")
 
 
 def load_corpus(seq: int):

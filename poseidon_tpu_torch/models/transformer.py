@@ -231,9 +231,9 @@ def build_dp_sp_train_step(cfg: TransformerConfig, sp: SolverParameter,
     come from ``loss_and_grads``; the update is ``make_update_fn(sp,
     transformer_mults(params))``, the per-leaf rule (never the arena, as
     in JAX), returning new parameter and momentum tensors. ``device`` is the
-    card unless the caller passes ``"cpu"``. Data-parallel training over
-    NCCL (ROADMAP slice 5) and ring attention over a seq axis (queue A item
-    10) are not ported."""
+    card unless the caller passes ``"cpu"``. Data-parallel LM training and
+    ring attention over a seq axis (ROADMAP queue A item 10) are not
+    ported."""
     device = resolve_device(device)
     apply_f32_policy()
 

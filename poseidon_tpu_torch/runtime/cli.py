@@ -3,7 +3,10 @@ of ``poseidon_tpu/runtime/cli.py``)::
 
     python -m poseidon_tpu_torch train --solver=<solver.prototxt> \\
         [--snapshot=<.solverstate.npz>|auto] [--weights=<.caffemodel>] \\
-        [--output_dir .] [--device cuda|cpu]
+        [--output_dir .] [--device cuda|cpu] [--strategy dense|sfb] \\
+        [--sfb-auto] [--grad-reduce mean|sum] [--wire_dtype f32|bf16|f16] \\
+        [--dwbp_bucket_mb N] [--param_arena true|false] \\
+        [--arena_bucket_mb N]
     python -m poseidon_tpu_torch test --model=<train_val.prototxt> \\
         [--weights=<.caffemodel>] [--iterations 50] [--device cuda|cpu]
     python -m poseidon_tpu_torch serve --model=<deploy.prototxt> \\
@@ -16,8 +19,16 @@ of ``poseidon_tpu/runtime/cli.py``)::
 
 ``train`` runs the solver on one GPU and writes the snapshots and the
 ``<net>_train_outputs.csv`` / ``<net>_test<i>_outputs.csv`` files under
-``--output_dir``. ``test`` scores a net's TEST phase and prints one
-``<output>: <mean>`` line per scalar output. ``serve`` warms every bucket,
+``--output_dir``. Data-parallel runs start one ``train`` process per rank
+under the env contract of ``runtime/cluster.py`` (``POSEIDON_PROC_ID``,
+``POSEIDON_NUM_PROCS``, ``POSEIDON_COORDINATOR``; ``scripts/launch.py``'s
+``launch_local(..., program=[python, "-m", "poseidon_tpu_torch"])`` sets
+them), with the comm flags of the JAX ``train`` command that the port
+covers; the others (``--strategy topk``, ``--topk_policy``,
+``--topk_block``, ``--dcn_slices``, ``--server_logic``,
+``--comm_budget_mbps``, ``--wire_dtype int8``) raise
+``NotImplementedError`` naming their ROADMAP item. ``test`` scores a net's
+TEST phase and prints one ``<output>: <mean>`` line per scalar output. ``serve`` warms every bucket,
 logs ``serve: listening on <host>:<port>``, serves until SIGTERM/SIGINT,
 drains every admitted request, prints one ``serving_final_stats`` JSON line
 and exits 0. ``serve --generate`` serves a transformer preset with seeded
@@ -123,12 +134,49 @@ def cmd_serve(args) -> int:
     return 0
 
 
+def bucket_mb_of(dwbp_bucket_mb: float, param_arena: bool,
+                 arena_bucket_mb: float) -> float:
+    """The JAX ``train`` command's three bucket knobs as the port's one
+    ``CommConfig.bucket_mb``: an explicit ``--dwbp_bucket_mb`` (>= 0)
+    wins, else the arena's ``--arena_bucket_mb``, else (``--param_arena
+    false``, the JAX package's per-leaf taps) one bucket a leaf."""
+    if dwbp_bucket_mb >= 0:
+        return dwbp_bucket_mb
+    return arena_bucket_mb if param_arena else 0.0
+
+
+def comm_from_args(args):
+    """The ``CommConfig`` of the ``train`` flags (the JAX CLI's
+    ``_engine_from_args`` for the flags this slice covers)."""
+    from ..parallel.strategies import TOPK_LATER, CommConfig
+
+    if args.strategy == "topk" or args.topk_policy or args.topk_block:
+        raise NotImplementedError(TOPK_LATER)
+    if args.dcn_slices > 1:
+        raise NotImplementedError(
+            "--dcn_slices (the two-tier mesh) is not in the port yet "
+            "(ROADMAP queue A item 8, its remainder)")
+    if args.comm_budget_mbps >= 0:
+        raise NotImplementedError(
+            "--comm_budget_mbps (managed communication) is not in the port "
+            "yet (ROADMAP queue A item 8, its remainder)")
+    # an SFB auto pick keeps DENSE as the default for the other layers
+    return CommConfig(
+        default_strategy="dense" if args.sfb_auto else args.strategy,
+        reduce=args.grad_reduce, wire_dtype=args.wire_dtype or None,
+        bucket_mb=bucket_mb_of(args.dwbp_bucket_mb,
+                               args.param_arena == "true",
+                               args.arena_bucket_mb),
+        server_logic=args.server_logic)
+
+
 def cmd_train(args) -> int:
     from ..proto.messages import load_solver
     from .engine import Engine
 
     eng = Engine(load_solver(args.solver), output_dir=args.output_dir,
-                 device=args.device or None)
+                 device=args.device or None, comm=comm_from_args(args),
+                 sfb_auto=args.sfb_auto)
     try:
         if args.snapshot == "auto":
             if eng.auto_resume() is None and args.weights:
@@ -191,6 +239,37 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--device", default="",
                    help="cuda (the default; refuses to run without a GPU) "
                         "or cpu")
+    t.add_argument("--strategy", default="dense",
+                   choices=["dense", "sfb", "topk"],
+                   help="default gradient sync strategy (topk: not in the "
+                        "port yet)")
+    t.add_argument("--sfb-auto", action="store_true",
+                   help="pick SFB per FC layer by the cost model (SACP)")
+    t.add_argument("--grad-reduce", default="mean", choices=["mean", "sum"])
+    t.add_argument("--wire_dtype", default="",
+                   choices=["", "f32", "bf16", "f16", "int8"],
+                   help="cast gradients (and SFB factors) to this dtype for "
+                        "every collective; empty = the gradient's dtype "
+                        "(int8: not in the port yet)")
+    t.add_argument("--dwbp_bucket_mb", type=float, default=-1.0,
+                   help="bucket size of the all-reduces issued during "
+                        "backward; 0 = one a leaf, negative = the arena's "
+                        "(--arena_bucket_mb)")
+    t.add_argument("--param_arena", default="true", choices=["true", "false"],
+                   help="false: one all-reduce a leaf. Unlike the JAX "
+                        "flag it keeps the arena and its one fused update: "
+                        "the JAX package's per-leaf update path is not "
+                        "in the port")
+    t.add_argument("--arena_bucket_mb", type=float, default=4.0,
+                   help="arena gradient-sync bucket size in MB, DWBP-"
+                        "ordered exact element ranges; <= 0 = one a leaf")
+    # comm flags of the JAX CLI that the port does not cover yet: each
+    # raises NotImplementedError naming its ROADMAP item
+    t.add_argument("--topk_policy", default="")
+    t.add_argument("--topk_block", type=int, default=0)
+    t.add_argument("--dcn_slices", type=int, default=0)
+    t.add_argument("--server_logic", default="inc")
+    t.add_argument("--comm_budget_mbps", type=float, default=-1.0)
     t.set_defaults(fn=cmd_train)
 
     te = sub.add_parser("test", help="score a net's TEST phase")

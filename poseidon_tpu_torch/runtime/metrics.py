@@ -105,5 +105,8 @@ class LatencyWindow:
         }
 
 
-def log(msg: str) -> None:
-    print(msg, flush=True)
+def log(msg: str, *, rank: int = 0) -> None:
+    """Rank-0-only progress logging, the reference's client0/thread0
+    idiom (a single process is rank 0)."""
+    if rank == 0:
+        print(msg, flush=True)

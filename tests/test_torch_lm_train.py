@@ -241,8 +241,8 @@ def test_train_lm_script_loss_falls_on_cpu(capsys):
     (["--mode", "pp"], "pipeline"),
     (["--mode", "ep"], "MoE"),
     (["--bf16"], "bf16"),
-    (["--par_axis", "2"], "slice 5"),
-    (["--data_axis", "2"], "slice 5"),
+    (["--par_axis", "2"], "queue A item 10"),
+    (["--data_axis", "2"], "queue A item 10"),
 ])
 def test_train_lm_script_refuses_unported_modes(flags, match):
     with pytest.raises(NotImplementedError, match=match):
