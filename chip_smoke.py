@@ -86,7 +86,23 @@ Phases, in order; any failure exits non-zero without the final ``ok`` line:
    img/s and data-wait share, the top kernels of one profiled step (in
    which every port kernel must show device time, and whose kernels may
    not sum past PROFILE_BUSY_MARGIN times the step by CUDA events) and
-   the peak device memory.
+   the peak device memory. ``Engine.train()`` runs under its defaults: the
+   native batcher, the CUDA-stream prefetcher and the in-flight window.
+   Then ``[loop]`` (``phase_loop``) on the same data, with the host's
+   ``os.cpu_count()`` and the card's name and power limit: (a) the
+   batchers alone in img/s (native f32 with crop 227, mirror and the mean
+   file; native uint8 on a mean-value variant of the layer; the Python
+   source and transformer); (b) the serial loop as it was (Python batches,
+   inline copies, window 1) for LOOP_SERIAL_STEPS steps and the pipelined
+   loop (native, prefetch 2, window 2) for LOOP_STEPS, one Engine build
+   each, their img/s and data-wait share from the host spans beside the
+   device step, the warm-up steps left out, the pipelined loop's K4-K7
+   launches zeroed just before and read just after (2/2/3/1 a step); (c)
+   under cuDNN's deterministic algorithms the serial and the pipelined
+   loop on native batches end bitwise equal, and the device transform of
+   the first uint8 batch is the native f32 batch bitwise; (d) the run
+   fails unless the pipelined loop read native batches through the CUDA
+   prefetch stage.
 5. The data-parallel slice (``phase_dp``), AlexNet train_val at full
    width in f32: a one-rank NCCL group in this process (a file store in a
    temporary directory): the DENSE step (61 DWBP buckets of 4 MB) held
@@ -142,7 +158,7 @@ Phases, in order; any failure exits non-zero without the final ``ok`` line:
    digits solver (1000 iterations, real UCI digits from the repo) into a
    temporary directory; the final test accuracy must reach DIGITS_MIN_ACC.
 10. One JSON line with every kernel's numbers (launches by path, ``dp``
-    among them), then the ``ok`` line.
+    and ``loop`` among them), then the ``ok`` line.
 """
 
 from __future__ import annotations
@@ -252,6 +268,23 @@ DP_CLI_RUNS = (("sfb-auto", ("--strategy", "sfb", "--sfb-auto")),
 # SFB (fc6-fc8) vs DENSE after one step: f32 throughout, but SFB takes each
 # FC weight gradient as one product of the gathered factors
 DP_SFB_TOL = (1e-4, 1e-6)
+
+
+# the [loop] phase, AlexNet train_val at full width, batch 256, on the
+# synthetic ILSVRC-shaped LMDB of [train]: the serial loop as it was
+# (Python batches, inline copies, a sync every step) for LOOP_SERIAL_STEPS
+# steps, then the pipelined loop (native batches, prefetch 2, window 2) for
+# LOOP_STEPS; each loop's rate leaves its first LOOP_WARMUP (serial:
+# LOOP_SERIAL_WARMUP) steps out. Then the serial and the pipelined loop on
+# native batches for LOOP_BITWISE_STEPS steps each, under cuDNN's
+# deterministic algorithms: final params bitwise equal.
+LOOP_SERIAL_STEPS, LOOP_SERIAL_WARMUP = 20, 2
+LOOP_STEPS, LOOP_WARMUP = 60, 10
+LOOP_BITWISE_STEPS = 4
+LOOP_BATCHER_BATCHES, LOOP_PYTHON_BATCHES = 6, 2
+# the uint8 variant of the train data layer: ILSVRC's per-channel BGR means
+# in place of the mean file (a mean_file stays on the host)
+LOOP_MEAN_VALUES = (104.0, 117.0, 123.0)
 
 
 class SmokeFailure(RuntimeError):
@@ -1429,6 +1462,273 @@ def phase_train(card: str, root: str, device=None, batch_size=None) -> dict:
         eng.close()
 
 
+def loop_solver(root: str, max_iter: int, batch_size=None):
+    """alexnet_solver's net at full width with no test net, no snapshot
+    and display every 10 steps (each display a hard sync, as in [train])."""
+    from poseidon_tpu_torch.proto.messages import load_solver
+
+    sp = load_solver(ALEXNET_SOLVER)
+    sp.net, sp.net_param = "", alexnet_net_param(root, batch_size)
+    sp.max_iter, sp.display = max_iter, 10
+    sp.test_interval, sp.test_iter = 0, []
+    sp.snapshot, sp.snapshot_prefix, sp.snapshot_after_train = 0, "", False
+    return sp
+
+
+def train_layer(root: str, batch_size=None):
+    from poseidon_tpu_torch.core.net import filter_net
+    from poseidon_tpu_torch.proto.messages import NetState
+    return next(lp for lp in filter_net(alexnet_net_param(root, batch_size),
+                                        NetState(phase="TRAIN"))
+                if lp.canonical_type() == "DATA")
+
+
+def mean_value_layer(root: str, batch_size=None):
+    """The train data layer with LOOP_MEAN_VALUES in place of the mean file
+    (a variant: the uint8 split needs a per-channel mean)."""
+    lp = train_layer(root, batch_size)
+    lp.transform_param.mean_file = ""
+    lp.transform_param.mean_value = list(LOOP_MEAN_VALUES)
+    return lp
+
+
+def loop_batchers(card: str, root: str, batch: int) -> dict:
+    """(a) The batchers alone, img/s: the native f32 batcher (crop 227,
+    mirror, mean file), the native uint8 batcher on the mean-value variant,
+    and the Python source + transformer the serial loop reads through."""
+    import numpy as np
+    from poseidon_tpu_torch.data.native import NativeLMDBBatcher
+    from poseidon_tpu_torch.data.pipeline import (_effective_transform,
+                                                  build_source)
+    from poseidon_tpu_torch.data.transformer import DataTransformer
+    from poseidon_tpu_torch.proto.wire import read_blob_file
+
+    train_db, _, mean = synthetic_ilsvrc_paths(root)
+    rs = np.random.RandomState(0)
+    out = {}
+    for name, kw, call in (
+            ("native_f32", {"mean": read_blob_file(mean)[0]}, "batch"),
+            ("native_u8", {"mean_values": np.asarray(LOOP_MEAN_VALUES,
+                                                     np.float32)},
+             "batch_u8")):
+        b = NativeLMDBBatcher(train_db, crop_size=227, mirror=True,
+                              train=True, **kw)
+        try:
+            fn = getattr(b, call)
+            fn(rs.randint(0, len(b), size=batch), seed=0)   # warm
+            t0 = time.perf_counter()
+            for i in range(LOOP_BATCHER_BATCHES):
+                fn(rs.randint(0, len(b), size=batch), seed=i + 1)
+            dt = time.perf_counter() - t0
+            out[name] = LOOP_BATCHER_BATCHES * batch / dt
+            threads = b.n_threads
+        finally:
+            b.close()
+    lp = train_layer(root, batch)
+    src = build_source(lp)
+    tf = DataTransformer(_effective_transform(lp), "TRAIN", seed=0)
+    try:
+        t0 = time.perf_counter()
+        for _ in range(LOOP_PYTHON_BATCHES):
+            idx = rs.randint(0, len(src), size=batch)
+            tf(np.stack([src.read(int(j))[0] for j in idx]))
+        out["python"] = LOOP_PYTHON_BATCHES * batch / (
+            time.perf_counter() - t0)
+    finally:
+        src.close()
+    print(f"[loop] (a) batchers alone at batch {batch} (host "
+          f"os.cpu_count() {os.cpu_count()}, native threads {threads}): "
+          f"native f32 (crop 227, mirror, mean file) {out['native_f32']:.1f}"
+          f" img/s over {LOOP_BATCHER_BATCHES} batches; native uint8 "
+          f"{out['native_u8']:.1f} img/s (a variant: mean_value "
+          f"{'/'.join(f'{v:g}' for v in LOOP_MEAN_VALUES)} in place of the "
+          f"mean file); Python source + transformer {out['python']:.1f} "
+          f"img/s over {LOOP_PYTHON_BATCHES} batches [{card}]", flush=True)
+    return out
+
+
+def loop_rate(events, first_iter: int, batch: int) -> dict:
+    """From one train() call's host spans: img/s over the steps from
+    ``first_iter`` on (from the start of that step's prefetch wait to the
+    end of the final hard sync), and the data-wait share of those steps
+    (prefetch waits over prefetch waits + dispatches + window waits)."""
+    def args(e):
+        return e.get("args") or {}
+
+    steps = [e for e in events if e["name"] == "prefetch_wait"
+             and args(e)["iter"] >= first_iter]
+    t0 = min(e["ts"] for e in steps)
+    final = [e for e in events if e["name"] == "hard_sync"
+             and args(e).get("boundary") == "final"]
+    t1 = max(e["ts"] + e["dur"] for e in final)
+    wait = sum(e["dur"] for e in steps)
+    busy = sum(e["dur"] for e in events
+               if e["name"] in ("dispatch", "dispatch_window")
+               and args(e)["iter"] >= first_iter)
+    n = len(steps)
+    return {"steps": n, "img_s": n * batch / ((t1 - t0) / 1e6),
+            "data_wait_share": wait / (wait + busy),
+            "wall_s": (t1 - t0) / 1e6}
+
+
+def run_loop(root: str, device, batch_size, steps: int, warmup: int,
+             **engine_kw) -> dict:
+    """One Engine build, one train() call of ``steps`` steps with the span
+    recorder on; the K4-K7 launches zeroed just before and read just
+    after. Returns the rate, the routes, the prefetch stage, the
+    launches."""
+    from poseidon_tpu_torch.runtime.engine import Engine
+    from poseidon_tpu_torch.runtime.spans import recorder
+
+    eng = Engine(loop_solver(root, steps, batch_size), output_dir=root,
+                 device=device, trace_out=os.path.join(root, "loop.json"),
+                 **engine_kw)
+    try:
+        batch = eng.train_net.blob_shapes["data"][0]
+        zero_launches()
+        eng.train()
+        sync(eng.device)
+        counts = read_launches()
+        rate = loop_rate(recorder.trace_events(), warmup, batch)
+        feed = eng._device_feed
+        rate.update(
+            routes=[p.route for p in eng.train_pipelines],
+            prefetch=(None if feed is None else
+                      "passthrough" if feed.passthrough else "cuda-stream"),
+            staged=0 if feed is None else feed.staged,
+            steps_in_flight=eng.stats["steps_in_flight"],
+            launches=counts, batch=batch)
+        check(eng.stats["train_iters"] == steps,
+              f"loop trained {eng.stats['train_iters']} steps")
+        return rate
+    finally:
+        eng.close()
+
+
+def loop_bitwise(card: str, root: str, device, batch_size) -> None:
+    """(c) The serial and the pipelined loop on native batches end bitwise
+    equal (cuDNN deterministic); the device transform of the first uint8
+    batch is the native f32 batch, bitwise."""
+    import torch
+    from poseidon_tpu_torch.data.pipeline import BatchPipeline
+    from poseidon_tpu_torch.runtime.engine import Engine, device_input_transform
+
+    saved = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    finals = []
+    try:
+        for kw in (dict(device_prefetch=0, max_in_flight=1),
+                   dict(device_prefetch=2, max_in_flight=2)):
+            eng = Engine(loop_solver(root, LOOP_BITWISE_STEPS, batch_size),
+                         output_dir=root, device=device, **kw)
+            try:
+                check([p.route for p in eng.train_pipelines] == ["native"],
+                      "bitwise arm not on native batches")
+                eng.train()
+                finals.append([{l: {k: v.clone() for k, v in d.items()}
+                                for l, d in t.items()}
+                               for t in (eng.params,
+                                         eng.state.solver.history)])
+            finally:
+                eng.close()
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = saved
+    (ps, hs), (pp, hp) = finals
+    check(tree_equal(ps, pp) and tree_equal(hs, hp),
+          f"serial vs pipelined loop after {LOOP_BITWISE_STEPS} steps: "
+          f"params max_abs {tree_max_abs(ps, pp)}, momentum "
+          f"{tree_max_abs(hs, hp)}")
+    lp = mean_value_layer(root, batch_size)
+    batch = lp.data_param.batch_size
+    u8 = BatchPipeline(lp, "TRAIN", batch, device_transform=True)
+    f32 = BatchPipeline(lp, "TRAIN", batch)
+    try:
+        check(u8.route == "native-u8" and f32.route == "native",
+              f"routes {u8.route}, {f32.route}")
+        b8, bf = next(u8), next(f32)
+        dev = torch.device(device or "cuda")
+        got = device_input_transform([u8], dev)(
+            {k: torch.from_numpy(v).to(dev) for k, v in b8.items()})
+        want = torch.from_numpy(bf["data"]).to(dev)
+        check(got["data"].dtype == torch.float32
+              and torch.equal(got["data"], want),
+              f"device transform vs host f32 batch: max_abs "
+              f"{float((got['data'] - want).abs().max())}")
+    finally:
+        u8.close()
+        f32.close()
+    print(f"[loop] (c) under cudnn.deterministic: the serial and the "
+          f"pipelined loop on native batches end bitwise equal after "
+          f"{LOOP_BITWISE_STEPS} steps (params and momentum); the device "
+          f"transform of the first uint8 batch {tuple(b8['data'].shape)} is "
+          f"the native f32 batch bitwise [{card}]", flush=True)
+
+
+def phase_loop(card: str, root: str, step_ms: float, device=None,
+               batch_size=None) -> dict:
+    """The CNN training loop as a pipeline (see LOOP_*): (a) the batchers
+    alone, (b) the serial and the pipelined loop beside the device step of
+    [train], (c) the bitwise checks, (d) no hidden fallback. ``device`` and
+    ``batch_size`` are for a CPU rehearsal at a cut batch only."""
+    import torch
+
+    t_phase = time.perf_counter()
+    cuda = torch.device(device or "cuda").type == "cuda"
+    print(f"[loop] host os.cpu_count() {os.cpu_count()}; {card}", flush=True)
+    batch = batch_size or train_layer(root).data_param.batch_size
+    batchers = loop_batchers(card, root, batch)
+    serial = run_loop(root, device, batch_size, LOOP_SERIAL_STEPS,
+                      LOOP_SERIAL_WARMUP, use_native=False,
+                      device_prefetch=0, max_in_flight=1)
+    piped = run_loop(root, device, batch_size, LOOP_STEPS, LOOP_WARMUP,
+                     device_prefetch=2, max_in_flight=2)
+    device_img_s = batch / step_ms * 1e3
+    for name, r, what, first in (
+            ("serial", serial, "Python batches, inline copy, window 1",
+             LOOP_SERIAL_WARMUP),
+            ("pipelined", piped, "native batches, CUDA-stream prefetch 2, "
+                                 "window 2", LOOP_WARMUP)):
+        print(f"[loop] (b) {name} loop ({what}): {r['img_s']:.1f} img/s "
+              f"over steps {first}-{first + r['steps'] - 1} "
+              f"({r['wall_s']:.2f} s), data-wait share "
+              f"{r['data_wait_share']:.3f}, mean steps in flight "
+              f"{r['steps_in_flight']}, routes {r['routes']}, prefetch "
+              f"{r['prefetch']}; the device step {step_ms:.3f} ms "
+              f"({device_img_s:.1f} img/s on the device alone) [{card}]",
+              flush=True)
+    # (d) no hidden fallback: the pipelined loop read native batches and,
+    # on the card, every batch came through the CUDA-stream stage
+    check(piped["routes"] == ["native"],
+          f"pipelined loop routes {piped['routes']}")
+    check(serial["routes"] == ["python"],
+          f"serial loop routes {serial['routes']}")
+    if cuda:
+        check(piped["prefetch"] == "cuda-stream"
+              and piped["staged"] >= LOOP_STEPS,
+              f"prefetch stage {piped['prefetch']}, {piped['staged']} "
+              f"batches staged for {LOOP_STEPS} steps")
+    want = {"lrn_fwd": 2 * LOOP_STEPS, "lrn_bwd": 2 * LOOP_STEPS,
+            "pool_bwd": 3 * LOOP_STEPS, "sgd_update": LOOP_STEPS,
+            "flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
+    if cuda:
+        check(piped["launches"] == want,
+              f"pipelined loop launches {piped['launches']} != {want}")
+    print(f"[loop] (d) pipelined loop: routes {piped['routes']}, prefetch "
+          f"{piped['prefetch']} ({piped['staged']} batches staged), "
+          f"launches {piped['launches']} in {LOOP_STEPS} steps (2/2/3/1 a "
+          f"step)", flush=True)
+    loop_bitwise(card, root, device, batch_size)
+    out = {"host_cpu_count": os.cpu_count(), "batchers_img_s": batchers,
+           "serial": serial, "pipelined": piped, "device_step_ms": step_ms,
+           "device_img_s": device_img_s,
+           "wall_s": time.perf_counter() - t_phase}
+    print(f"[loop] phase wall {out['wall_s']:.1f} s", flush=True)
+    return out
+
+
 def tree_equal(a, b) -> bool:
     import torch
     return all(torch.equal(a[l][k], b[l][k]) for l in a for k in a[l])
@@ -2443,6 +2743,8 @@ def main() -> int:
         with tempfile.TemporaryDirectory() as root:
             train = phase_train(card, root)
             torch.cuda.empty_cache()
+            loop = phase_loop(card, root, train["step_ms"])
+            torch.cuda.empty_cache()
             dp = phase_dp(card, root)
         torch.cuda.empty_cache()
         lm = phase_lm(card)
@@ -2457,26 +2759,31 @@ def main() -> int:
 
     launches = train["launches"]
     dp_launches = dp["launches"]
+    loop_launches = loop["pipelined"]["launches"]
     kernels = [
         kernel_entry("lrn_fwd", "poseidon_tpu/ops/pallas_kernels.py:443",
                      launches["lrn_fwd"], k4, ("norm1 train", "norm2 train"),
                      launches_by_path={"serving": serving_launches,
                                        "training": launches["lrn_fwd"],
-                                       "dp": dp_launches["lrn_fwd"]},
+                                       "dp": dp_launches["lrn_fwd"],
+                                       "loop": loop_launches["lrn_fwd"]},
                      attributes=k4_attrs),
         kernel_entry("lrn_bwd", "poseidon_tpu/ops/pallas_kernels.py:601",
                      launches["lrn_bwd"], k5, ("norm1", "norm2"),
                      launches_by_path={"training": launches["lrn_bwd"],
-                                       "dp": dp_launches["lrn_bwd"]}),
+                                       "dp": dp_launches["lrn_bwd"],
+                                       "loop": loop_launches["lrn_bwd"]}),
         kernel_entry("pool_bwd", "poseidon_tpu/ops/pallas_kernels.py:741",
                      launches["pool_bwd"], k6, ("pool1", "pool2", "pool5"),
                      launches_by_path={"training": launches["pool_bwd"],
-                                       "dp": dp_launches["pool_bwd"]},
+                                       "dp": dp_launches["pool_bwd"],
+                                       "loop": loop_launches["pool_bwd"]},
                      attributes=k6_attrs),
         kernel_entry("sgd_update", "poseidon_tpu/ops/pallas_kernels.py:838",
                      launches["sgd_update"], k7, ("alexnet arena",),
                      launches_by_path={"training": launches["sgd_update"],
-                                       "dp": dp_launches["sgd_update"]}),
+                                       "dp": dp_launches["sgd_update"],
+                                       "loop": loop_launches["sgd_update"]}),
         kernel_entry("flash_fwd", "poseidon_tpu/ops/pallas_kernels.py:77",
                      lm["flash_launches"], k1, ("prefill 256",),
                      launches_by_path={"lm_serving": lm["flash_launches"],
@@ -2486,7 +2793,8 @@ def main() -> int:
                                            "flash_fwd"],
                                        "cnn_serving": 0,
                                        "cnn_training": launches["flash_fwd"],
-                                       "dp": dp_launches["flash_fwd"]},
+                                       "dp": dp_launches["flash_fwd"],
+                                       "loop": loop_launches["flash_fwd"]},
                      launches_per_prefill=(lm["flash_launches"]
                                            // max(1, lm["prefills"])),
                      profiled_ms_per_prefill_256=lm["prefill_flash_ms"],
@@ -2511,7 +2819,8 @@ def main() -> int:
                               "lm_corpus": lm_corpus["launches"][name],
                               "lm_serving": lm["launches"][name],
                               "cnn_training": launches[name],
-                              "dp": dp_launches[name]},
+                              "dp": dp_launches[name],
+                              "loop": loop_launches[name]},
             profiled_ms_per_training_step=lm_train["port_kernels"][name][
                 "ms"],
             bound_3xtf32_ms=sum(r["bound_3xtf32_ms"] for r in recs
@@ -2526,6 +2835,7 @@ def main() -> int:
                "train_port_kernels": train["port_kernels"],
                "digits_final_accuracy": digits_acc,
                "dp": dp,
+               "loop": loop,
                "lm_serving": lm,
                "lm_training": lm_train,
                "lm_corpus": lm_corpus,

@@ -27,8 +27,11 @@ redesigned for Hopper. Data-parallel CNN training runs over
 contract (``runtime/cluster.py``) -> one process a rank with its shard of
 the records -> DWBP bucketed all-reduces issued from gradient-accumulation
 hooks while backward runs, and SFB for FC layers (``parallel/
-strategies.py``). Entry points run on ``cuda`` unless the caller passes
-``device="cpu"``.
+strategies.py``). The CNN training loop runs as a pipeline: LMDB records
+through the native C++ batcher (``data/native.py``), batches staged on the
+card by a CUDA-stream prefetcher, steps dispatched ahead of their metrics
+within a bounded window (``runtime/engine.py``). Entry points run on
+``cuda`` unless the caller passes ``device="cpu"``.
 """
 
 __version__ = "0.1.0"

@@ -5,6 +5,8 @@
 split over [0, n) (``ps/src/ml/include/ml/util/workload_manager.hpp``)
 applied to a seeded per-epoch permutation, so every shard sees a disjoint,
 reshuffled slice per epoch. A single GPU is shard 0 of 1.
+``sharded_source_path`` is the reference's ``_k`` suffix for databases
+partitioned ahead of time (``shared_file_system``).
 """
 
 from __future__ import annotations
@@ -45,3 +47,11 @@ def shard_indices(n: int, shard: Shard, epoch: int = 0,
         perm = np.arange(n)
     begin, end = contiguous_range(n, shard)
     return perm[begin:end]
+
+
+def sharded_source_path(source: str, shard_index: int,
+                        shared_file_system: bool) -> str:
+    """The reference's `_k` suffix convention for pre-partitioned databases."""
+    if shared_file_system:
+        return f"{source}_{shard_index}"
+    return source

@@ -21,6 +21,10 @@ One call of ``TrainStep.step`` is Caffe's ``Solver::Step`` iteration:
    current stream;
 4. the iteration count bumped; metrics averaged over the ranks.
 
+``input_transform`` (the TRAIN step only) runs on the batch before the
+forward: the card's half of the data plane's uint8 split, ``(x - mean) *
+scale`` in f32 (``runtime/engine.device_input_transform``).
+
 Parameters and momentum live in the step's arena buffers. The step takes
 and returns the canonical per-leaf trees, as the JAX step does; the trees
 it returns are views of its buffers, so feeding them back costs no copy
@@ -88,7 +92,8 @@ class TrainStep:
 
     def __init__(self, net: Net, sp: SolverParameter,
                  group: Optional[DataGroup] = None,
-                 comm: Optional[CommConfig] = None):
+                 comm: Optional[CommConfig] = None,
+                 input_transform: Optional[Callable] = None):
         if max(1, int(sp.iter_size)) > 1:
             raise NotImplementedError(
                 "iter_size > 1 (gradient accumulation) is not in the port "
@@ -98,6 +103,7 @@ class TrainStep:
         self.group = group
         self.comm = comm or CommConfig()
         self.comm.validate()
+        self.input_transform = input_transform
         self.arena = net.arena_layout()
         if self.arena is None:
             raise ValueError(f"net {net.name!r} has no parameters to train")
@@ -157,6 +163,8 @@ class TrainStep:
             self.flat_g.zero_()
         if self.sync is not None:
             self.sync.begin()
+        if self.input_transform is not None:
+            batch = self.input_transform(batch)
         out = self.net.apply(self._leaf_tree, batch, train=True,
                              comm=self._ctx)
         out.loss.backward()
@@ -175,8 +183,10 @@ class TrainStep:
 
 def build_train_step(net: Net, sp: SolverParameter,
                      group: Optional[DataGroup] = None,
-                     comm: Optional[CommConfig] = None) -> TrainStep:
-    return TrainStep(net, sp, group, comm)
+                     comm: Optional[CommConfig] = None,
+                     input_transform: Optional[Callable] = None
+                     ) -> TrainStep:
+    return TrainStep(net, sp, group, comm, input_transform)
 
 
 def build_eval_step(net: Net, group: Optional[DataGroup] = None

@@ -12,11 +12,14 @@ snapshots cross-load both ways.
   tensors; ``restore_params`` reads the params alone.
 - ``load_caffemodel`` merges a .caffemodel's weights through
   ``net.load_weights`` (Caffe's CopyTrainedLayersFrom).
+- ``AsyncSnapshotWriter`` takes the host copy at the sync point and runs
+  ``snapshot()`` on a background thread, one write in flight.
 """
 
 from __future__ import annotations
 
 import os
+import threading
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -79,6 +82,77 @@ def snapshot(prefix: str, net, params, state) -> Tuple[str, str]:
         np.savez(f, **arrays)
     os.replace(tmp, state_path)
     return model_path, state_path
+
+
+def host_state_copy(params, state):
+    """CPU copies of (params, TrainState): the snapshot's sync point (the
+    copy off the card waits for the steps that produced the values)."""
+    from ..parallel.trainer import TrainState
+    from ..solvers.updates import SolverState
+
+    def copy(tree):
+        return {k: copy(v) if isinstance(v, dict)
+                else v.detach().to("cpu", copy=True) for k, v in tree.items()}
+
+    return copy(params), TrainState(
+        solver=SolverState(it=int(state.solver.it),
+                           history=copy(state.solver.history)),
+        comm_error=copy(state.comm_error))
+
+
+class AsyncSnapshotWriter:
+    """Snapshot serialization off the training loop's critical path.
+
+    ``submit()`` takes the host copy on the caller's thread (the only sync
+    point), then hands ``snapshot()`` — encoding and the atomic tmp-rename
+    of both files — to a daemon thread. At most one write is in flight: a
+    new ``submit`` first joins the previous one. A write's failure is
+    re-raised, with its own exception, by the next ``submit()`` or
+    ``wait()``: the loop calls one at every snapshot boundary and at the
+    end of training, so a lost snapshot aborts the run at the next sync
+    boundary. A write torn by process death leaves at worst
+    ``*.tmp.<pid>`` files: only the rename creates the real names."""
+
+    def __init__(self):
+        self._thread: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
+        self._last: Optional[Tuple[str, str]] = None
+
+    def submit(self, prefix: str, net, params, state) -> Tuple[str, str]:
+        """Queue one snapshot; returns the (model, state) paths the write
+        will land at. Blocks only for the host copy (and any write still
+        running)."""
+        self.wait()
+        host_params, host_state = host_state_copy(params, state)
+
+        def _write():
+            try:
+                self._last = snapshot(prefix, net, host_params, host_state)
+            except BaseException as e:  # noqa: BLE001 — surfaced on join
+                self._error = e
+
+        self._thread = threading.Thread(target=_write, daemon=True,
+                                        name="AsyncSnapshotWriter")
+        self._thread.start()
+        return snapshot_paths(prefix, host_state)
+
+    def wait(self) -> Optional[Tuple[str, str]]:
+        """Join the write in flight, if any; re-raise its failure; return
+        the last completed (model, state) paths."""
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._error is not None:
+            err, self._error = self._error, None
+            from .metrics import log
+            log(f"async snapshot write FAILED ({type(err).__name__}: {err}); "
+                f"the snapshot it was writing does not exist — aborting at "
+                f"this sync boundary")
+            raise err
+        return self._last
+
+    def close(self) -> None:
+        self.wait()
 
 
 def restore(state_path: str):

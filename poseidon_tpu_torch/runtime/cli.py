@@ -6,7 +6,8 @@ of ``poseidon_tpu/runtime/cli.py``)::
         [--output_dir .] [--device cuda|cpu] [--strategy dense|sfb] \\
         [--sfb-auto] [--grad-reduce mean|sum] [--wire_dtype f32|bf16|f16] \\
         [--dwbp_bucket_mb N] [--param_arena true|false] \\
-        [--arena_bucket_mb N]
+        [--arena_bucket_mb N] [--device_prefetch N] [--max_in_flight N] \\
+        [--async_snapshot] [--device_transform] [--trace_out <file>]
     python -m poseidon_tpu_torch test --model=<train_val.prototxt> \\
         [--weights=<.caffemodel>] [--iterations 50] [--device cuda|cpu]
     python -m poseidon_tpu_torch serve --model=<deploy.prototxt> \\
@@ -19,7 +20,14 @@ of ``poseidon_tpu/runtime/cli.py``)::
 
 ``train`` runs the solver on one GPU and writes the snapshots and the
 ``<net>_train_outputs.csv`` / ``<net>_test<i>_outputs.csv`` files under
-``--output_dir``. Data-parallel runs start one ``train`` process per rank
+``--output_dir``, through the pipelined loop: LMDB data through the
+native C++ batcher (``g++`` builds it at first use into
+``build/poseidon_tpu_torch/``), ``--device_prefetch`` batches staged on the
+card ahead of the step, ``--max_in_flight`` steps dispatched before the
+oldest one's metrics are read, snapshots written in the background under
+``--async_snapshot``, uint8 batches normalized on the card under
+``--device_transform``, and a Chrome trace of the host spans under
+``--trace_out``. Data-parallel runs start one ``train`` process per rank
 under the env contract of ``runtime/cluster.py`` (``POSEIDON_PROC_ID``,
 ``POSEIDON_NUM_PROCS``, ``POSEIDON_COORDINATOR``; ``scripts/launch.py``'s
 ``launch_local(..., program=[python, "-m", "poseidon_tpu_torch"])`` sets
@@ -176,7 +184,12 @@ def cmd_train(args) -> int:
 
     eng = Engine(load_solver(args.solver), output_dir=args.output_dir,
                  device=args.device or None, comm=comm_from_args(args),
-                 sfb_auto=args.sfb_auto)
+                 sfb_auto=args.sfb_auto,
+                 device_prefetch=args.device_prefetch,
+                 max_in_flight=args.max_in_flight,
+                 async_snapshot=args.async_snapshot,
+                 device_transform=args.device_transform,
+                 trace_out=args.trace_out or None)
     try:
         if args.snapshot == "auto":
             if eng.auto_resume() is None and args.weights:
@@ -270,6 +283,35 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--dcn_slices", type=int, default=0)
     t.add_argument("--server_logic", default="inc")
     t.add_argument("--comm_budget_mbps", type=float, default=-1.0)
+    t.add_argument("--device_prefetch", type=int, default=None,
+                   help="device-side input prefetch depth: a background "
+                        "stage copies the next N host batches onto the "
+                        "card (pinned buffers, its own CUDA stream) while "
+                        "the current step runs; 0 copies each batch inline "
+                        "(default: the PipelineConfig policy, 2)")
+    t.add_argument("--max_in_flight", type=int, default=None,
+                   help="bounded in-flight dispatch window: dispatch step "
+                        "k+1 before step k's metrics are read, blocking "
+                        "only when this many dispatches are unread; 1 = "
+                        "the serial loop. Loss display and NaN detection "
+                        "lag by at most this many steps (default: the "
+                        "PipelineConfig policy, 2)")
+    t.add_argument("--async_snapshot", action="store_true", default=None,
+                   help="serialize mid-train snapshots on a background "
+                        "thread (host copy taken at the sync point; the "
+                        "atomic tmp-rename protocol and auto-resume "
+                        "semantics are unchanged; default: the "
+                        "PipelineConfig policy, off)")
+    t.add_argument("--device_transform", action="store_true",
+                   help="ship uint8 crops and apply (x - mean_value) * "
+                        "scale on the card (4x fewer host->device bytes; "
+                        "needs the native batcher, mean_value-style mean)")
+    t.add_argument("--trace_out", default="",
+                   help="host-side span timeline: record prefetch-wait/"
+                        "dispatch/hard-sync/snapshot spans and write "
+                        "Chrome trace-event JSON here (relative to "
+                        "--output_dir), refreshed atomically at every "
+                        "display boundary")
     t.set_defaults(fn=cmd_train)
 
     te = sub.add_parser("test", help="score a net's TEST phase")

@@ -430,3 +430,81 @@ def test_flash_function_backward_on_card_gpt_small_shape():
         grads[plain] = [t.grad for t in ins]
     for a, b in zip(grads[False], grads[True]):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+
+
+def _byte_lmdb(path, n=40, shape=(3, 20, 20), seed=0):
+    import numpy as np
+    from poseidon_tpu_torch.data.lmdb_reader import LMDBWriter
+    from poseidon_tpu_torch.proto import wire
+    rs = np.random.RandomState(seed)
+    w = LMDBWriter(path)
+    for i in range(n):
+        w.put(f"{i:08d}".encode(), wire.encode_datum(wire.Datum(
+            *shape, data=rs.randint(0, 256, size=shape).astype(np.uint8)
+            .tobytes(), label=int(rs.randint(10)))))
+    w.close()
+
+
+def _data_layer(path, tp):
+    from poseidon_tpu_torch.proto.messages import load_net_from_string
+    return load_net_from_string(
+        f'layers {{ name: "d" type: DATA top: "data" top: "label" '
+        f'data_param {{ source: "{path}" batch_size: 6 backend: LMDB }} '
+        f'transform_param {{ {tp} }} }}').layers[0]
+
+
+@pytest.mark.gpu
+def test_cuda_prefetcher_batches_are_the_inline_batches(tmp_path):
+    """The CUDA prefetch stage (pinned ring of depth + 1 = 3 slots, its own
+    stream, an event per batch) over 9 batches, the ring wrapping three
+    times: each batch bitwise the inline copy of the same pipeline's."""
+    _need_gpu()
+    from poseidon_tpu_torch.data.pipeline import (BatchPipeline,
+                                                  DevicePrefetcher,
+                                                  place_batch)
+    path = str(tmp_path / "lmdb")
+    _byte_lmdb(path)
+    lp = _data_layer(path, "crop_size: 16 mirror: true mean_value: 100 "
+                           "scale: 0.5")
+    pipes = [BatchPipeline(lp, "TRAIN", 6, seed=1) for _ in range(2)]
+    feed = DevicePrefetcher([pipes[0]], "cuda", depth=2)
+    try:
+        assert not feed.passthrough
+        for _ in range(9):
+            got = next(feed)
+            # the consumer's stream works on the batch before the check
+            got = {k: v * 1 for k, v in got.items()}
+            want = place_batch(next(pipes[1]), torch.device("cuda"))
+            torch.cuda.synchronize()
+            for k in want:
+                assert got[k].is_cuda and torch.equal(got[k], want[k]), k
+        assert feed.staged >= 9
+    finally:
+        feed.close()
+        for p in pipes:
+            p.close()
+
+
+@pytest.mark.gpu
+def test_device_transform_on_card_is_the_native_f32_batch(tmp_path):
+    _need_gpu()
+    from poseidon_tpu_torch.data.pipeline import BatchPipeline
+    from poseidon_tpu_torch.runtime.engine import device_input_transform
+    path = str(tmp_path / "lmdb")
+    _byte_lmdb(path, seed=2)
+    lp = _data_layer(path, "crop_size: 16 mirror: true mean_value: 104 "
+                           "mean_value: 117 mean_value: 123 "
+                           "scale: 0.017")
+    u8 = BatchPipeline(lp, "TRAIN", 6, seed=3, device_transform=True)
+    f32 = BatchPipeline(lp, "TRAIN", 6, seed=3)
+    try:
+        assert u8.route == "native-u8"
+        transform = device_input_transform([u8], torch.device("cuda"))
+        for _ in range(3):
+            got = transform({k: torch.from_numpy(v).cuda()
+                             for k, v in next(u8).items()})
+            want = torch.from_numpy(next(f32)["data"]).cuda()
+            assert torch.equal(got["data"], want)
+    finally:
+        u8.close()
+        f32.close()

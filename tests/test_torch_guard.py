@@ -210,3 +210,35 @@ def test_lm_train_step_and_script_without_device_refuse():
         build_dp_sp_train_step(TransformerConfig(), SolverParameter())
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train_lm.main(["--steps", "1"])
+
+
+def test_pipeline_modules_import_neither_jax_nor_poseidon_tpu():
+    """The pipelined loop's and the data sources' modules, each imported
+    alone in a fresh process."""
+    mods = ["poseidon_tpu_torch.config", "poseidon_tpu_torch.data.native",
+            "poseidon_tpu_torch.data.snappy",
+            "poseidon_tpu_torch.data.varint",
+            "poseidon_tpu_torch.data.leveldb_reader",
+            "poseidon_tpu_torch.data.sources",
+            "poseidon_tpu_torch.runtime.spans",
+            "poseidon_tpu_torch.runtime.metrics",
+            "poseidon_tpu_torch.runtime.checkpoint"]
+    for mod in mods:
+        code = (f"import importlib, sys\nimportlib.import_module({mod!r})\n"
+                "bad = [m for m in sys.modules if m.split('.')[0] in "
+                "('jax', 'jaxlib', 'poseidon_tpu')]\n"
+                "assert not bad, bad\n")
+        out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                             capture_output=True, text=True, timeout=300)
+        assert out.returncode == 0, mod + out.stdout + out.stderr
+
+
+def test_native_library_builds_from_the_checkout_alone():
+    """The data plane's C++ source is in the checkout and builds into the
+    port's build directory, not the JAX binding's ``native/build``."""
+    from poseidon_tpu_torch.data import native
+    assert native.SOURCE == __import__("pathlib").Path(REPO) / "native" / \
+        "poseidon_dataplane.cc"
+    assert native.SOURCE.exists()
+    assert native.lib_path().parent == \
+        __import__("pathlib").Path(REPO) / "build" / "poseidon_tpu_torch"
