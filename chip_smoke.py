@@ -119,7 +119,24 @@ Phases, in order; any failure exits non-zero without the final ``ok`` line:
    launcher env contract at DP_CLI_BATCH a rank, for each of DP_CLI_RUNS:
    both exit 0, their DP_CLI_ITERS snapshots bitwise equal, every loss
    finite, the wall time a step. One ``[dp]`` line sums it up.
-6. The LM serving slice: ``serve --generate``'s executor
+6. The managed-communication slice (``phase_topk``), AlexNet train_val at
+   full width in f32 on the same data: a one-rank NCCL group at batch 256
+   (a) TOPK at fraction 1 on every layer held bitwise against DENSE for
+   TOPK_STEPS steps (cuDNN deterministic), the residual zero; (b) TOPK on
+   fc6-fc8 at fraction 0.01, global and in blocks of 4096: every leaf,
+   every step, sent + residual = g + residual before (bitwise), at most k
+   sent, a nonzero residual, and exactly 2 lrn_fwd, 2 lrn_bwd, 3
+   pool_bwd and 1 sgd_update a step (counters zeroed just before each
+   run, read just after); (c) the device step of DENSE, TOPK-global and
+   TOPK-blocked in turns, and ``topk_compress`` alone on fc6's weight
+   (37,748,736 entries, k 377,487) beside its bytes' bound and
+   ``torch.topk`` alone; (d) four ``train --strategy topk --dcn_slices
+   2`` processes on the one card over gloo at 64 a rank: all exit 0,
+   snapshots bitwise equal, the residuals one row a slice and the rows
+   different; (e) the static comm table of AlexNet at batch 256 for
+   DENSE, the SFB auto picks and TOPK on a flat group of 8 and on 2
+   slices of 4 devices. One ``[topk]`` line sums it up.
+7. The LM serving slice: ``serve --generate``'s executor
    (``build_generate_executor("gpt_small")``: full width and depth, seeded
    weights, page 64, rungs 1/2/4/8, prompt buckets 16/64/256) behind the
    port's ``InferenceServer``, driven by the port's ``ServingClient``: a
@@ -135,7 +152,7 @@ Phases, in order; any failure exits non-zero without the final ``ok`` line:
    their counts, generated tokens/s at 8 and 1 clients, CUDA-event prefill
    time per bucket, per decode rung the profiled device busy time, the
    CUDA-event span and the host wall time, and peak device memory.
-7. The LM training slice: gpt_small at full width and depth (max_seq 1024,
+8. The LM training slice: gpt_small at full width and depth (max_seq 1024,
    remat on, seeded weights) trained by ``build_dp_sp_train_step`` at
    batch 8 x seq 1024 with bench.py's SGD solver on one fixed seeded
    batch. Launch counters are zeroed just before LMT_LOSS_STEPS steps and
@@ -148,17 +165,17 @@ Phases, in order; any failure exits non-zero without the final ``ok`` line:
    tokens/s, MFU (6*P*T) and the executed share (8*P*T) over 67 TFLOP/s,
    peak device memory and the top kernels of one profiled step, in which
    every port kernel launched on the step must show device time.
-8. ``python -m poseidon_tpu_torch.models.train_lm --generate 48`` at its
+9. ``python -m poseidon_tpu_torch.models.train_lm --generate 48`` at its
    defaults, through its ``main`` in this process: the loss must fall
    below LM_CORPUS_MAX_LOSS by step 200, and the decode must print its
    bytes. Launch counters are zeroed just before and read just after:
    exactly 2 flash_fwd, 2 flash_dq and 2 flash_dkv a step (one a layer,
    remat off), and 2 flash_fwd for the decode's prefill.
-9. Real data end to end: ``python -m poseidon_tpu_torch train`` on the
+10. Real data end to end: ``python -m poseidon_tpu_torch train`` on the
    digits solver (1000 iterations, real UCI digits from the repo) into a
    temporary directory; the final test accuracy must reach DIGITS_MIN_ACC.
-10. One JSON line with every kernel's numbers (launches by path, ``dp``
-    and ``loop`` among them), then the ``ok`` line.
+11. One JSON line with every kernel's numbers (launches by path, ``dp``,
+    ``topk`` and ``loop`` among them), then the ``ok`` line.
 """
 
 from __future__ import annotations
@@ -268,6 +285,21 @@ DP_CLI_RUNS = (("sfb-auto", ("--strategy", "sfb", "--sfb-auto")),
 # SFB (fc6-fc8) vs DENSE after one step: f32 throughout, but SFB takes each
 # FC weight gradient as one product of the gathered factors
 DP_SFB_TOL = (1e-4, 1e-6)
+
+
+# the [topk] phase, AlexNet train_val at full width, f32, on [train]'s
+# synthetic LMDB: a one-rank NCCL group at TOPK_BATCH, TOPK_STEPS steps
+# a run: TOPK at fraction 1 on every layer against DENSE (bitwise), then
+# TOPK on TOPK_LAYERS at the default fraction 0.01, globally and in blocks
+# of TOPK_BLOCK (conservation, the count sent, K4-K7 a step); then
+# TOPK_CLI_RANKS `train --strategy topk --dcn_slices TOPK_CLI_SLICES`
+# processes on the one card over gloo at TOPK_CLI_BATCH a rank
+TOPK_BATCH, TOPK_STEPS = 256, 3
+TOPK_LAYERS = ("fc6", "fc7", "fc8")
+TOPK_BLOCK = 4096
+TOPK_CLI_BATCH, TOPK_CLI_RANKS, TOPK_CLI_SLICES = 64, 4, 2
+# comm_stats' table: AlexNet at batch 256 a device on these groups
+TOPK_TABLE_GROUPS = ({"data": 8}, {"dcn": 2, "data": 4})
 
 
 # the [loop] phase, AlexNet train_val at full width, batch 256, on the
@@ -1968,21 +2000,23 @@ def issue_windows_ms(step, params, state, batch) -> list:
     return [ev.elapsed_time(end) for ev in issues]
 
 
-def dp_cli_run(card: str, root: str, name: str, flags, dev, batch: int
-               ) -> dict:
-    """Two ``train`` processes of the port under the env contract, sharing
-    the card (or the CPU); their snapshots must be bitwise equal."""
+def dp_cli_run(card: str, root: str, name: str, flags, dev, batch: int,
+               ranks: int = 2, tag: str = "dp") -> dict:
+    """``ranks`` ``train`` processes of the port under the env contract,
+    sharing the card (or the CPU); their snapshots must be bitwise equal.
+    The result names the first rank's snapshot (``state_path``)."""
     import numpy as np
     from poseidon_tpu_torch.proto.messages import (load_solver,
                                                    net_to_prototxt,
                                                    solver_to_prototxt)
 
     here = os.path.dirname(os.path.abspath(__file__))
-    work = os.path.join(root, f"dp_{name}")
+    work = os.path.join(root, f"{tag}_{name}")
     os.makedirs(work)
     net_file = os.path.join(work, "train_val.prototxt")
+    net_param = alexnet_net_param(root, batch)
     with open(net_file, "w") as f:
-        f.write(net_to_prototxt(alexnet_net_param(root, batch)))
+        f.write(net_to_prototxt(net_param))
     sp = load_solver(ALEXNET_SOLVER)
     sp.net, sp.max_iter, sp.display = net_file, DP_CLI_ITERS, 1
     sp.test_iter, sp.test_interval, sp.snapshot = [], 0, 0
@@ -1992,9 +2026,10 @@ def dp_cli_run(card: str, root: str, name: str, flags, dev, batch: int
         f.write(solver_to_prototxt(sp))
     procs = []
     t0 = time.perf_counter()
-    for r in range(2):
+    for r in range(ranks):
         env = dict(os.environ, POSEIDON_PROC_ID=str(r),
-                   POSEIDON_NUM_PROCS="2", POSEIDON_COORDINATOR="file://"
+                   POSEIDON_NUM_PROCS=str(ranks),
+                   POSEIDON_COORDINATOR="file://"
                    + os.path.join(work, "store"))
         cmd = [sys.executable, "-m", "poseidon_tpu_torch", "train",
                f"--solver={solver}", "--output_dir",
@@ -2016,34 +2051,323 @@ def dp_cli_run(card: str, root: str, name: str, flags, dev, batch: int
     wall = time.perf_counter() - t0
     for r, log in enumerate(logs):
         for line in log.splitlines():
-            print(f"[dp:{name}:rank{r}] {line}", flush=True)
+            print(f"[{tag}:{name}:rank{r}] {line}", flush=True)
     for r, p in enumerate(procs):
-        check(p.returncode == 0, f"dp {name} rank {r} exited "
+        check(p.returncode == 0, f"{tag} {name} rank {r} exited "
                                  f"{p.returncode}")
-    check("backend gloo" in logs[0], f"dp {name}: two ranks sharing "
+    check("backend gloo" in logs[0], f"{tag} {name}: {ranks} ranks sharing "
                                      f"{dev.type} did not choose gloo")
     stem = f"alexnet_iter_{DP_CLI_ITERS}"
-    a, b = (os.path.join(work, f"p{r}", stem) for r in range(2))
-    with np.load(a + ".solverstate.npz") as za, \
-            np.load(b + ".solverstate.npz") as zb:
-        check(sorted(za.files) == sorted(zb.files), "snapshot keys differ")
-        same = all(np.array_equal(za[k], zb[k]) for k in za.files)
-    with open(a + ".caffemodel", "rb") as fa, \
-            open(b + ".caffemodel", "rb") as fb:
-        same = same and fa.read() == fb.read()
-    check(same, f"dp {name}: the two ranks' snapshots differ")
-    with open(os.path.join(work, "p0", "AlexNet_train_outputs.csv")) as f:
+    first, *rest = (os.path.join(work, f"p{r}", stem) for r in range(ranks))
+    same = True
+    for other in rest:
+        with np.load(first + ".solverstate.npz") as za, \
+                np.load(other + ".solverstate.npz") as zb:
+            check(sorted(za.files) == sorted(zb.files),
+                  "snapshot keys differ")
+            same = same and all(np.array_equal(za[k], zb[k])
+                                for k in za.files)
+        with open(first + ".caffemodel", "rb") as fa, \
+                open(other + ".caffemodel", "rb") as fb:
+            same = same and fa.read() == fb.read()
+    check(same, f"{tag} {name}: the {ranks} ranks' snapshots differ")
+    with open(os.path.join(work, "p0",
+                           f"{net_param.name}_train_outputs.csv")) as f:
         rows = list(csv.DictReader(f))
     losses = [float(r["loss"]) for r in rows]
     check(len(losses) == DP_CLI_ITERS and all(map(math.isfinite, losses)),
-          f"dp {name} losses {losses}")
+          f"{tag} {name} losses {losses}")
     times = [float(r["time"]) for r in rows]
     s_per_step = (times[-1] - times[0]) / (len(times) - 1)
-    print(f"[dp] two ranks, {' '.join(flags) or 'dense'}, batch {batch} a "
-          f"rank on one {dev.type} device over gloo: both exit 0 in "
-          f"{wall:.1f} s, snapshots {stem} bitwise equal, losses {losses}, "
-          f"{s_per_step:.3f} s a step after the first [{card}]", flush=True)
-    return {"losses": losses, "s_per_step": s_per_step, "wall_s": wall}
+    print(f"[{tag}] {ranks} ranks, {' '.join(flags) or 'dense'}, batch "
+          f"{batch} a rank on one {dev.type} device over gloo: all exit 0 "
+          f"in {wall:.1f} s, snapshots {stem} bitwise equal, losses "
+          f"{losses}, {s_per_step:.3f} s a step after the first [{card}]",
+          flush=True)
+    return {"losses": losses, "s_per_step": s_per_step, "wall_s": wall,
+            "state_path": first + ".solverstate.npz"}
+
+
+def phase_topk(card: str, root: str, device=None, batch_size=None,
+               cli_batch=None) -> dict:
+    """TOPK managed communication and the two-tier group on the card
+    (``device``, ``batch_size`` and ``cli_batch`` are for a CPU rehearsal
+    at a cut batch only):
+
+    (a) a one-rank NCCL group: TOPK at fraction 1 on every layer against
+        the DENSE step, TOPK_STEPS steps from the same params, momentum,
+        batch and dropout seed under cuDNN's deterministic algorithms:
+        params and momentum bitwise equal, the residual zero;
+    (b) TOPK on TOPK_LAYERS at fraction 0.01, global and blocked: every
+        compressed leaf, every step, sends at most k entries, keeps a
+        nonzero residual and conserves sent + residual = g + residual
+        before, bitwise; K4-K7 launched 2/2/3/1 a step (zeroed just
+        before each run, read just after);
+    (c) on the card, the device step of DENSE, TOPK-global and
+        TOPK-blocked in turns (CUDA events, TIMED_STEPS steps), and
+        ``topk_compress`` alone on fc6's weight beside its bytes' bound
+        and ``torch.topk`` of the magnitudes alone;
+    (d) TOPK_CLI_RANKS ``train --strategy topk --dcn_slices
+        TOPK_CLI_SLICES`` processes sharing the card over gloo: all exit
+        0, their snapshots bitwise equal, the snapshot's residuals one row
+        a slice, the rows different;
+    (e) the static comm table (``runtime/comm_stats``) of AlexNet at batch
+        256 for DENSE, the SFB auto picks and TOPK on TOPK_TABLE_GROUPS,
+        at the H100's published link rates."""
+    import numpy as np
+    import torch
+    from poseidon_tpu_torch.core.net import Net
+    from poseidon_tpu_torch.data.pipeline import build_phase_pipelines
+    from poseidon_tpu_torch.numeric import resolve_device
+    from poseidon_tpu_torch.parallel import trainer as T
+    from poseidon_tpu_torch.parallel.strategies import (TOPK, CommConfig,
+                                                        auto_strategies)
+    from poseidon_tpu_torch.proto.messages import load_solver
+    from poseidon_tpu_torch.runtime.cluster import init_distributed
+    from poseidon_tpu_torch.runtime.comm_stats import (comm_summary,
+                                                       layer_comm_table)
+
+    t_phase = time.perf_counter()
+    dev = resolve_device(device)
+    on_card = dev.type == "cuda"
+    net_param = alexnet_net_param(root, batch_size or TOPK_BATCH)
+    pipes, shapes = build_phase_pipelines(net_param, "TRAIN")
+    try:
+        batch = {k: torch.from_numpy(v).to(dev)
+                 for k, v in next(pipes[0]).items()}
+    finally:
+        for p in pipes:
+            p.close()
+    net = Net(net_param, "TRAIN", device=dev, source_shapes=shapes)
+    sp = load_solver(ALEXNET_SOLVER)
+    params0 = net.init(torch.Generator().manual_seed(1))
+    group = init_distributed(dev, rank=0, world=1, coordinator=(
+        "file://" + os.path.join(root, "topk_store")))
+    check(group.backend == ("nccl" if on_card else "gloo"),
+          f"one-rank group on {dev}: backend {group.backend}")
+    fc_topk = {layer: TOPK for layer in TOPK_LAYERS}
+    configs = {"dense": CommConfig(),
+               "topk_all_1": CommConfig(default_strategy=TOPK,
+                                        topk_fraction=1.0),
+               "topk_global": CommConfig(layer_strategies=dict(fc_topk)),
+               "topk_blocked": CommConfig(layer_strategies=dict(fc_topk),
+                                          topk_block=TOPK_BLOCK)}
+
+    def start(step):
+        params, state = step.load(params0, T.init_train_state(
+            params0, step.comm, step.n_err_groups))
+        return params, state
+
+    def run(step, n):
+        """n steps from params0 with dropout seed 7: the losses, clones
+        of the params and momentum, the last state."""
+        net.generator.manual_seed(7)
+        params, state = start(step)
+        losses = []
+        for _ in range(n):
+            params, state, m = step.step(params, state, batch)
+            losses.append(float(m["loss"]))
+        return (losses, tree_clone(params), tree_clone(state.solver.history),
+                state)
+
+    def device_step_ms(step) -> float:
+        params, state = start(step)
+        for _ in range(2):
+            params, state, _m = step.step(params, state, batch)
+        torch.cuda.synchronize()
+        start_ev = torch.cuda.Event(enable_timing=True)
+        end_ev = torch.cuda.Event(enable_timing=True)
+        start_ev.record()
+        for _ in range(TIMED_STEPS):
+            params, state, _m = step.step(params, state, batch)
+        end_ev.record()
+        torch.cuda.synchronize()
+        return start_ev.elapsed_time(end_ev) / TIMED_STEPS
+
+    compress = T.topk_compress
+
+    def checking(records):
+        """``topk_compress`` that records, per call, conservation, the
+        count sent against k and whether the residual is nonzero."""
+        def wrapped(g, fraction, error, *args, **kw):
+            sent, resid = compress(g, fraction, error, *args, **kw)
+            records.append({
+                "conserved": bool(torch.equal(sent + resid, g + error)),
+                "sent": int(torch.count_nonzero(sent)),
+                "k": max(1, int(g.numel() * fraction)),
+                "resid_nonzero": bool(resid.abs().max() > 0)})
+            return sent, resid
+        return wrapped
+
+    out = {"batch": shapes["data"][0], "backend": group.backend}
+    per_step = ({"lrn_fwd": 2, "lrn_bwd": 2, "pool_bwd": 3, "sgd_update": 1}
+                if on_card else {})
+    try:
+        deterministic = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            dense = T.TrainStep(net, sp, group, configs["dense"])
+            d_losses, d_params, d_hist, _ = run(dense, TOPK_STEPS)
+            all_1 = T.TrainStep(net, sp, group, configs["topk_all_1"])
+            a_losses, a_params, a_hist, a_state = run(all_1, TOPK_STEPS)
+            resid_zero = all(not bool(v.any()) for lv in
+                             a_state.comm_error.values() for v in lv.values())
+            del all_1, a_state
+            runs = {}
+            for name in ("topk_global", "topk_blocked"):
+                step = T.TrainStep(net, sp, group, configs[name])
+                records = []
+                T.topk_compress = checking(records)
+                try:
+                    zero_launches()
+                    losses, *_ = run(step, TOPK_STEPS)
+                    sync(dev)
+                    launches = read_launches()
+                finally:
+                    T.topk_compress = compress
+                del step
+                runs[name] = {"losses": losses, "launches": launches,
+                              "records": records}
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
+        bitwise = (a_losses == d_losses and tree_equal(a_params, d_params)
+                   and tree_equal(a_hist, d_hist))
+        print(f"[topk] (a) one-rank {group.backend} group, AlexNet batch "
+              f"{out['batch']}: TOPK at fraction 1 on every layer vs DENSE, "
+              f"{TOPK_STEPS} steps (cuDNN deterministic): losses {a_losses} "
+              f"vs {d_losses}; params and momentum bitwise={bitwise}, "
+              f"residual zero={resid_zero} [{card}]", flush=True)
+        check(bitwise, "TOPK at fraction 1 differs from DENSE: max_abs "
+              + str(max(tree_max_abs(a_params, d_params),
+                        tree_max_abs(a_hist, d_hist))))
+        check(resid_zero, "TOPK at fraction 1 left a residual")
+        want = {k: 0 for k in read_launches()}
+        want.update({k: v * TOPK_STEPS for k, v in per_step.items()})
+        for name, r in runs.items():
+            recs = r["records"]
+            n_leaves = 2 * len(TOPK_LAYERS)
+            conserved = sum(x["conserved"] for x in recs)
+            within_k = all(x["sent"] <= x["k"] for x in recs)
+            nonzero = all(x["resid_nonzero"] for x in recs)
+            sent = [x["sent"] for x in recs[:n_leaves]]
+            how = ("" if name == "topk_global"
+                   else f", blocks of {TOPK_BLOCK}")
+            print(f"[topk] (b) {name} on {list(TOPK_LAYERS)} at fraction "
+                  f"0.01{how}, {TOPK_STEPS} steps: {conserved}/{len(recs)} "
+                  f"leaf-steps "
+                  f"conserve sent + residual = g + residual bitwise, sent <= "
+                  f"k {within_k}, residual nonzero {nonzero}, step 1 sent "
+                  f"{sent} of k {[x['k'] for x in recs[:n_leaves]]}; losses "
+                  f"{r['losses']}; launches {r['launches']} (expected "
+                  f"{want}) [{card}]", flush=True)
+            check(len(recs) == n_leaves * TOPK_STEPS
+                  and conserved == len(recs), f"{name}: conservation")
+            check(within_k and nonzero, f"{name}: count sent or residual")
+            check(all(map(math.isfinite, r["losses"])),
+                  f"{name} losses {r['losses']}")
+            check(r["launches"] == want,
+                  f"{name} launches {r['launches']} != {want}")
+        out.update(bitwise=bitwise, losses={
+            "dense": d_losses, "topk_all_1": a_losses,
+            **{n: r["losses"] for n, r in runs.items()}},
+            launches=runs["topk_global"]["launches"],
+            launches_blocked=runs["topk_blocked"]["launches"])
+        del d_params, d_hist, a_params, a_hist
+
+        if on_card:
+            times = {}
+            for name in ("dense", "topk_global", "topk_blocked",
+                         "topk_blocked_2", "topk_global_2", "dense_2"):
+                step = (dense if name.startswith("dense") else
+                        T.TrainStep(net, sp, group,
+                                    configs[name.removesuffix("_2")]))
+                times[name] = device_step_ms(step)
+                del step
+            out["step_ms"] = times
+            w = params0["fc6"]["w"]
+            gen = torch.Generator(device=dev).manual_seed(3)
+            g = torch.randn(w.shape, generator=gen, device=dev)
+            err = 0.1 * torch.randn(w.shape, generator=gen, device=dev)
+            k = max(1, int(g.numel() * 0.01))
+            least, by = bound_ms(16 * g.numel(), 0)
+            out["fc6_compress"] = {
+                "entries": g.numel(), "k": k,
+                "global_ms": cuda_time_ms(lambda: compress(g, 0.01, err)),
+                "blocked_ms": cuda_time_ms(lambda: compress(
+                    g, 0.01, err, block=TOPK_BLOCK)),
+                "torch_topk_ms": cuda_time_ms(lambda: torch.topk(
+                    g.abs().view(-1), k, sorted=False)),
+                "bound_ms": least, "bound_by": by}
+            c = out["fc6_compress"]
+            print(f"[topk] (c) device step (CUDA events, {TIMED_STEPS} "
+                  f"steps, batch {out['batch']}, in turns): DENSE "
+                  f"{times['dense']:.3f} / {times['dense_2']:.3f} ms, "
+                  f"TOPK-global {times['topk_global']:.3f} / "
+                  f"{times['topk_global_2']:.3f} ms, TOPK-blocked "
+                  f"{times['topk_blocked']:.3f} / "
+                  f"{times['topk_blocked_2']:.3f} ms; topk_compress on fc6's "
+                  f"weight ({c['entries']} entries, k {c['k']}): global "
+                  f"{c['global_ms']:.4f} ms, blocked {c['blocked_ms']:.4f} "
+                  f"ms, torch.topk of |x| alone {c['torch_topk_ms']:.4f} ms, "
+                  f"bound {least:.4f} ms ({by}: g, residual in, sent, "
+                  f"residual out at {HBM_SOURCE}) [{card}]", flush=True)
+        del dense
+    finally:
+        group.close()
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # (d) ranks in slices over gloo through the CLI
+    cli = dp_cli_run(card, root, "two_tier", (
+        "--strategy", "topk", "--dcn_slices", str(TOPK_CLI_SLICES)), dev,
+        cli_batch or TOPK_CLI_BATCH, ranks=TOPK_CLI_RANKS, tag="topk")
+    with np.load(cli["state_path"]) as z:
+        errs = {k: z[k] for k in z.files if k.startswith("comm_error/")}
+    rows_differ = all(not np.array_equal(v[0], v[1]) for v in errs.values())
+    shapes_ok = bool(errs) and all(v.shape[0] == TOPK_CLI_SLICES
+                                   for v in errs.values())
+    print(f"[topk] (d) {TOPK_CLI_RANKS} ranks in {TOPK_CLI_SLICES} slices "
+          f"over gloo: {len(errs)} residual leaves in the snapshot, "
+          f"{TOPK_CLI_SLICES} rows each={shapes_ok}, rows differ="
+          f"{rows_differ}, {cli['s_per_step']:.3f} s a step [{card}]",
+          flush=True)
+    check(shapes_ok and rows_differ, "two-tier snapshot residual rows")
+    out["two_tier"] = {k: v for k, v in cli.items() if k != "state_path"}
+
+    # (e) the static comm table at batch 256
+    full = Net(alexnet_net_param(root, TOPK_BATCH), "TRAIN", device="cpu",
+               source_shapes={"data": (TOPK_BATCH, 3, 227, 227),
+                              "label": (TOPK_BATCH,)})
+    table = {}
+    for shape in TOPK_TABLE_GROUPS:
+        dcn = "dcn" if "dcn" in shape else None
+        for name, cfg in (
+                ("dense", CommConfig(dcn_axis=dcn)),
+                ("sfb-auto", CommConfig(dcn_axis=dcn,
+                                        layer_strategies=auto_strategies(
+                                            full))),
+                ("topk", CommConfig(dcn_axis=dcn, default_strategy=TOPK))):
+            key = f"{name} {shape}"
+            table[key] = comm_summary(layer_comm_table(full, cfg, shape))
+            print(f"[topk] (e) comm_stats, AlexNet batch {TOPK_BATCH} a "
+                  f"device, {key}: {table[key]} (bytes a step a device; "
+                  f"est_comm_ms at the H100 SXM's published NVLink 450 GB/s "
+                  f"and NIC 50 GB/s, not measured)", flush=True)
+    out["comm_table"] = table
+    out["wall_s"] = time.perf_counter() - t_phase
+    t = out.get("step_ms")
+    print("[topk] " + (
+        f"TOPK at fraction 1 bitwise to DENSE={bitwise}; fc6-fc8 at 0.01 "
+        f"conserved, K4-K7 2/2/3/1 a step; device step DENSE "
+        f"{t['dense']:.3f}, TOPK-global {t['topk_global']:.3f}, "
+        f"TOPK-blocked {t['topk_blocked']:.3f} ms; fc6 compress global "
+        f"{out['fc6_compress']['global_ms']:.4f} / blocked "
+        f"{out['fc6_compress']['blocked_ms']:.4f} ms (bound "
+        f"{out['fc6_compress']['bound_ms']:.4f}); " if t else "")
+        + f"{TOPK_CLI_RANKS} gloo ranks in {TOPK_CLI_SLICES} slices "
+        f"bitwise, rows differ, {cli['s_per_step']:.3f} s a step; phase "
+        f"wall {out['wall_s']:.1f} s [{card}]", flush=True)
+    return out
 
 
 def phase_digits(card: str) -> float:
@@ -2746,6 +3070,8 @@ def main() -> int:
             loop = phase_loop(card, root, train["step_ms"])
             torch.cuda.empty_cache()
             dp = phase_dp(card, root)
+            torch.cuda.empty_cache()
+            topk = phase_topk(card, root)
         torch.cuda.empty_cache()
         lm = phase_lm(card)
         torch.cuda.empty_cache()
@@ -2759,6 +3085,7 @@ def main() -> int:
 
     launches = train["launches"]
     dp_launches = dp["launches"]
+    topk_launches = topk["launches"]
     loop_launches = loop["pipelined"]["launches"]
     kernels = [
         kernel_entry("lrn_fwd", "poseidon_tpu/ops/pallas_kernels.py:443",
@@ -2766,23 +3093,27 @@ def main() -> int:
                      launches_by_path={"serving": serving_launches,
                                        "training": launches["lrn_fwd"],
                                        "dp": dp_launches["lrn_fwd"],
+                                       "topk": topk_launches["lrn_fwd"],
                                        "loop": loop_launches["lrn_fwd"]},
                      attributes=k4_attrs),
         kernel_entry("lrn_bwd", "poseidon_tpu/ops/pallas_kernels.py:601",
                      launches["lrn_bwd"], k5, ("norm1", "norm2"),
                      launches_by_path={"training": launches["lrn_bwd"],
                                        "dp": dp_launches["lrn_bwd"],
+                                       "topk": topk_launches["lrn_bwd"],
                                        "loop": loop_launches["lrn_bwd"]}),
         kernel_entry("pool_bwd", "poseidon_tpu/ops/pallas_kernels.py:741",
                      launches["pool_bwd"], k6, ("pool1", "pool2", "pool5"),
                      launches_by_path={"training": launches["pool_bwd"],
                                        "dp": dp_launches["pool_bwd"],
+                                       "topk": topk_launches["pool_bwd"],
                                        "loop": loop_launches["pool_bwd"]},
                      attributes=k6_attrs),
         kernel_entry("sgd_update", "poseidon_tpu/ops/pallas_kernels.py:838",
                      launches["sgd_update"], k7, ("alexnet arena",),
                      launches_by_path={"training": launches["sgd_update"],
                                        "dp": dp_launches["sgd_update"],
+                                       "topk": topk_launches["sgd_update"],
                                        "loop": loop_launches["sgd_update"]}),
         kernel_entry("flash_fwd", "poseidon_tpu/ops/pallas_kernels.py:77",
                      lm["flash_launches"], k1, ("prefill 256",),
@@ -2794,6 +3125,7 @@ def main() -> int:
                                        "cnn_serving": 0,
                                        "cnn_training": launches["flash_fwd"],
                                        "dp": dp_launches["flash_fwd"],
+                                       "topk": topk_launches["flash_fwd"],
                                        "loop": loop_launches["flash_fwd"]},
                      launches_per_prefill=(lm["flash_launches"]
                                            // max(1, lm["prefills"])),
@@ -2820,6 +3152,7 @@ def main() -> int:
                               "lm_serving": lm["launches"][name],
                               "cnn_training": launches[name],
                               "dp": dp_launches[name],
+                              "topk": topk_launches[name],
                               "loop": loop_launches[name]},
             profiled_ms_per_training_step=lm_train["port_kernels"][name][
                 "ms"],
@@ -2835,6 +3168,7 @@ def main() -> int:
                "train_port_kernels": train["port_kernels"],
                "digits_final_accuracy": digits_acc,
                "dp": dp,
+               "topk": topk,
                "loop": loop,
                "lm_serving": lm,
                "lm_training": lm_train,

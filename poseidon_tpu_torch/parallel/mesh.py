@@ -1,11 +1,19 @@
-"""The data-parallel group (the port's counterpart of the flat ``("data",)``
-mesh of ``poseidon_tpu/parallel/mesh.py``).
+"""The data-parallel group (the port of ``poseidon_tpu/parallel/mesh.py``'s
+flat ``("data",)`` mesh and its two-tier ``("dcn", "data")`` mesh).
 
 One process per rank, one device per process: the group is this rank's
 place in the world, its device and the ``torch.distributed`` process group
 its collectives ride. A single process is a group of one with no process
-group, and every collective on it is the identity. The named SPMD mesh
-(fsdp, tp) and the two-tier DCN mesh are not in the port yet.
+group, and every collective on it is the identity.
+
+The two-tier group splits the world into ``slices`` of ``world // slices``
+ranks, JAX's ``make_mesh(axes=("dcn", "data"), shape=(S, n // S))``: rank
+r sits in slice r // (n / S) at index r % (n / S), so shard rows follow
+rank order as JAX's batch spec ``P(("dcn", "data"))`` does. ``intra()`` is
+this rank's slice (the fast tier) and ``cross()`` the ranks at its index in
+every slice (the slow tier); ``runtime/cluster.init_distributed`` builds
+both process groups. The named SPMD mesh (fsdp, tp) is not in the port
+yet.
 """
 
 from __future__ import annotations
@@ -15,6 +23,9 @@ from typing import Any, List, Optional
 
 import torch
 
+DATA_AXIS = "data"
+DCN_AXIS = "dcn"
+
 
 @dataclass(frozen=True)
 class DataGroup:
@@ -23,6 +34,9 @@ class DataGroup:
     device: torch.device
     backend: Optional[str] = None      # "nccl" | "gloo"; None alone
     pg: Optional[Any] = None           # the process group; None alone
+    slices: int = 1                    # the two-tier split of the world
+    slice_pg: Optional[Any] = None     # this rank's slice (> 1 rank)
+    cross_pg: Optional[Any] = None     # its index across slices (> 1)
 
     @classmethod
     def single(cls, device) -> "DataGroup":
@@ -31,6 +45,34 @@ class DataGroup:
     @property
     def distributed(self) -> bool:
         return self.pg is not None
+
+    @property
+    def slice_size(self) -> int:
+        return self.world // self.slices
+
+    @property
+    def slice_index(self) -> int:
+        return self.rank // self.slice_size
+
+    @property
+    def index_in_slice(self) -> int:
+        return self.rank % self.slice_size
+
+    def intra(self) -> "DataGroup":
+        """This rank's slice as a group of its own (the whole group when
+        there is one slice)."""
+        if self.slices == 1:
+            return self
+        return DataGroup(rank=self.index_in_slice, world=self.slice_size,
+                         device=self.device, backend=self.backend,
+                         pg=self.slice_pg)
+
+    def cross(self) -> "DataGroup":
+        """The ranks at this rank's index in every slice, in slice order
+        (a group of one when there is one slice)."""
+        return DataGroup(rank=self.slice_index, world=self.slices,
+                         device=self.device, backend=self.backend,
+                         pg=self.cross_pg)
 
     def all_reduce_(self, t: torch.Tensor, async_op: bool = False):
         """Sum ``t`` over the ranks in place; the work handle with
@@ -57,7 +99,8 @@ class DataGroup:
             dist.broadcast(t, src=src, group=self.pg)
 
     def close(self) -> None:
-        """Destroy the process group (``init_distributed`` started it)."""
+        """Destroy the process groups (``init_distributed`` started
+        them)."""
         if self.pg is not None:
             import torch.distributed as dist
             if dist.is_initialized():

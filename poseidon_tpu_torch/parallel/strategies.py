@@ -31,15 +31,33 @@ over the ranks and rebuilds the global ∇W locally, moving O(B(M+K))
 instead of O(MK). These products are plain GEMMs, as in JAX, where they
 run outside any Pallas kernel.
 
+**Managed communication — TOPK with error feedback** (ssp_aggr_*:
+bandwidth-budgeted, magnitude-prioritized partial pushes).
+``topk_compress`` keeps a ``topk_fraction`` of the entries of
+(gradient + residual), chosen by magnitude, at random or in a fixed
+rotation (the server's UpdateSortPolicy), globally or per block; the rest
+stays in the rank's residual for the next step, so nothing is lost, only
+delayed. The step (``parallel/trainer.py``) exchanges the sparsified
+tensor densely, as the JAX package does. The selection, gathers and
+scatters are library calls here as in JAX, where they run outside any
+Pallas kernel.
+
+**The two-tier mesh** (``CommConfig.dcn_axis``, a ``DataGroup`` with
+slices): DENSE and SFB ride the whole world, and TOPK is hierarchical: a
+dense sum inside each slice (the fast links), then the compressed
+exchange between slices, one residual a slice (the SSPAggr shape:
+full-rate inside a machine, budgeted bytes across).
+
 **DENSE_FUSED** reduces its buckets after the whole backward (the
-no-overlap A/B); **LOCAL** is never synced. TOPK compression, the two-tier
-(DCN) mesh, the SSP server logic and wire int8 raise
-``NotImplementedError`` naming their ROADMAP item.
+no-overlap A/B); **LOCAL** is never synced. The SSP server logic and wire
+int8 raise ``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
 
 import functools
+import hashlib
+import zlib
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -49,15 +67,13 @@ import torch.nn.functional as F
 DENSE = "dense"      # all-reduce hooked into backward (DWBP) — the default
 SFB = "sfb"          # sufficient-factor broadcast for FC layers
 LOCAL = "local"      # never synced (the reference's LOCAL blob mode)
-TOPK = "topk"        # magnitude top-k compressed sync: not in the port yet
+TOPK = "topk"        # top-k compressed sync with error feedback
 DENSE_FUSED = "dense_fused"   # every bucket after backward (no overlap)
 STRATEGIES = (DENSE, SFB, LOCAL, TOPK, DENSE_FUSED)
 
 WIRE_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16,
                "f16": torch.float16}
-
-TOPK_LATER = ("TOPK compressed gradient sync is not in the port yet "
-              "(ROADMAP queue A item 8, its remainder)")
+TOPK_POLICIES = ("magnitude", "random", "fixed_order")
 
 
 def _later(what: str, item: str) -> NotImplementedError:
@@ -67,43 +83,58 @@ def _later(what: str, item: str) -> NotImplementedError:
 
 @dataclass
 class CommConfig:
-    """Per-layer strategy and wire settings, the JAX fields this slice
+    """Per-layer strategy and wire settings, the JAX fields the port
     covers with the JAX defaults."""
     default_strategy: str = DENSE
     layer_strategies: Dict[str, str] = field(default_factory=dict)
     # "mean": synchronous SGD at the global batch; "sum": the reference's
     # PS accumulation (the rate scales with the world)
     reduce: str = "mean"
+    # the share of each TOPK leaf's entries sent a step
+    topk_fraction: float = 0.01
+    # which entries TOPK sends (the server's UpdateSortPolicy): the
+    # largest |g + residual| ("magnitude"), a fresh random subset a step
+    # ("random") or contiguous slabs in rotation ("fixed_order")
+    topk_policy: str = "magnitude"
+    # a per-step budget in MB a device for the TOPK layers (8 bytes an
+    # entry sent); when set, it decides the fraction
+    # (``budget_topk_fraction``)
+    bandwidth_budget_mb: Optional[float] = None
+    # magnitude/random TOPK pick the top entries within blocks of this
+    # many elements instead of one global selection
+    topk_block: Optional[int] = None
     # None, "f32", "bf16" or "f16": gradients (and SFB's factors) cross
-    # the wire in this dtype; sums come back to f32, the mean in f32
+    # the wire in this dtype; sums come back to f32, the mean in f32. TOPK
+    # folds the rounding of what it sends into its residual
     wire_dtype: Optional[str] = None
     # the size of each bucket of the arena's gradient buffer that goes out
     # as one all-reduce, in MB; <= 0: one bucket a leaf. The JAX package's
     # three knobs (dwbp_bucket_mb, param_arena, arena_bucket_mb) map onto
     # it in ``runtime/cli.py``'s ``bucket_mb_of``
     bucket_mb: float = 4.0
-    # the two-tier mesh's slow axis and the SSP server logic: later work
+    # the two-tier mesh's slow axis (the slices of the step's DataGroup):
+    # set, TOPK sums inside each slice and compresses between slices
     dcn_axis: Optional[str] = None
+    # the SSP server logic: later work
     server_logic: str = "inc"
 
     def __post_init__(self):
         self.validate()
 
     def validate(self) -> None:
-        """Raise for what the port cannot do (called again by the train
-        step: ``layer_strategies`` is filled in after construction)."""
-        if self.dcn_axis is not None:
-            raise _later("the two-tier (DCN) mesh, dcn_axis", "8, its "
-                         "remainder")
+        """Raise for a setting the port cannot run (called again by the
+        train step: ``layer_strategies`` is filled in after
+        construction)."""
         if self.server_logic != "inc":
             raise _later(f"server_logic {self.server_logic!r} (SSP)", "9")
         if self.reduce not in ("mean", "sum"):
             raise ValueError(f"reduce must be 'mean' or 'sum', got "
                              f"{self.reduce!r}")
+        if self.topk_policy not in TOPK_POLICIES:
+            raise ValueError(f"unknown topk_policy {self.topk_policy!r}; "
+                             f"choose from {TOPK_POLICIES}")
         self.wire_torch_dtype()
         for s in (self.default_strategy, *self.layer_strategies.values()):
-            if s == TOPK:
-                raise NotImplementedError(TOPK_LATER)
             if s not in STRATEGIES:
                 raise ValueError(f"unknown strategy {s!r}; choose from "
                                  f"{STRATEGIES}")
@@ -126,8 +157,114 @@ class CommConfig:
                 f"{sorted(WIRE_DTYPES)}") from None
 
 
-def topk_compress(*args, **kwargs):
-    raise NotImplementedError(TOPK_LATER)
+def comm_salt(layer: str, pname: str) -> int:
+    """A stable salt a tensor for the random policy, so that same-shaped
+    tensors of different layers draw unrelated subsets."""
+    return zlib.crc32(f"{layer}/{pname}".encode())
+
+
+def _top_mask(scores: torch.Tensor, k: int) -> torch.Tensor:
+    """The k highest scores of each row (the last dim), ties going to the
+    lower index as in ``lax.top_k`` (``torch.topk`` promises no order
+    among equal values): every entry above the k-th value, then as many
+    entries equal to it as are left, in index order."""
+    kth = torch.topk(scores, k, dim=-1, sorted=False).values.amin(
+        dim=-1, keepdim=True)
+    above = scores > kth
+    tied = scores == kth
+    room = k - above.sum(dim=-1, keepdim=True, dtype=torch.int32)
+    return above | (tied & (torch.cumsum(tied, dim=-1, dtype=torch.int32)
+                            <= room))
+
+
+def _global_select(flat: torch.Tensor, scores: torch.Tensor, k: int
+                   ) -> torch.Tensor:
+    """``flat`` at its k highest-scoring entries, zero elsewhere."""
+    return torch.where(_top_mask(scores, k), flat, 0.0)
+
+
+def _blocked_select(flat: torch.Tensor, scores: torch.Tensor, k: int,
+                    block: int) -> torch.Tensor:
+    """``flat`` at the top-scoring entries of each block of ``block``
+    elements, k // n_blocks (at least 1) a block, so at most k in all; the
+    last block is padded with -inf scores, which never win while a real
+    entry is left. Callers take this path only when k >= n_blocks."""
+    n = flat.numel()
+    nb = -(-n // block)
+    kb = max(1, k // nb)
+    pad = nb * block - n
+    fp = F.pad(flat, (0, pad)).view(nb, block)
+    sp = F.pad(scores, (0, pad), value=float("-inf")).view(nb, block)
+    return torch.where(_top_mask(sp, kb), fp, 0.0).reshape(-1)[:n]
+
+
+def _random_scores(n: int, salt: int, step: int, device) -> torch.Tensor:
+    """The random policy's scores: uniform [0, 1) from a generator on
+    ``device`` seeded from (17 + salt, step), never the global RNG. (JAX
+    draws from threefry with the same key parts; torch cannot reproduce
+    that stream, so the subsets differ from JAX's, not their law.)"""
+    # hashed: the CPU generator keeps only the low 32 bits of a seed
+    seed = hashlib.blake2b(f"{17 + salt}/{int(step)}".encode(),
+                           digest_size=8).digest()
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int.from_bytes(seed, "little"))
+    return torch.rand(n, generator=gen, device=device)
+
+
+def topk_compress(g: torch.Tensor, fraction: float, error: torch.Tensor,
+                  policy: str = "magnitude", step=None, salt: int = 0,
+                  block: Optional[int] = None, wire: Optional[str] = None):
+    """Budgeted sparsification with error feedback (JAX's
+    ``topk_compress``). Returns (sent, new_error), both of g's shape:
+    ``sent`` keeps ``max(1, int(n * fraction))`` entries of g + error
+    (fewer under ``block``) and zeroes the rest, which become the new
+    error. ``policy`` picks the entries (``step`` is required by random
+    and fixed_order); ``block`` switches magnitude and random to a
+    selection within blocks when every block gets a slot (k >= the block
+    count), else the global selection stays; ``wire`` rounds the sent
+    values to the wire dtype, the rounding joining the residual."""
+    flat = (g + error).reshape(-1)
+    n = flat.numel()
+    k = max(1, int(n * fraction))
+    use_block = bool(block) and n > block and k >= -(-n // block)
+    if policy in ("magnitude", "random"):
+        if policy == "magnitude":
+            scores = flat.abs()
+        elif step is None:
+            # a fixed subset every call would strand the rest in the
+            # residual for good
+            raise ValueError("random policy needs the step counter")
+        else:
+            scores = _random_scores(n, salt, step, flat.device)
+        sent = (_blocked_select(flat, scores, k, block) if use_block
+                else _global_select(flat, scores, k))
+    elif policy == "fixed_order":
+        if step is None:
+            raise ValueError("fixed_order policy needs the step counter")
+        n_slabs = -(-n // k)     # every entry once in n_slabs steps
+        start = (int(step) % n_slabs) * k
+        sent = torch.zeros_like(flat)
+        sent[start:start + k] = flat[start:start + k]
+    else:
+        raise ValueError(f"unknown topk_policy {policy!r}")
+    wd = WIRE_DTYPES.get(wire) if wire else None
+    if wd is not None and sent.dtype != wd:
+        sent = sent.to(wd).to(flat.dtype)
+    return sent.view(g.shape), (flat - sent).view(g.shape)
+
+
+def budget_topk_fraction(net, cfg: CommConfig) -> float:
+    """The fraction a per-step budget allows: 8 bytes an entry sent
+    (index and value), the budget spread over every TOPK layer's
+    parameters; ``topk_fraction`` without a budget or a TOPK layer."""
+    if cfg.bandwidth_budget_mb is None:
+        return cfg.topk_fraction
+    total = sum(p.count for lname, defs in net.param_defs.items()
+                for p in defs if cfg.strategy_for(lname) == TOPK)
+    if total == 0:
+        return cfg.topk_fraction
+    entries = cfg.bandwidth_budget_mb * 1e6 / 8.0
+    return float(min(1.0, max(entries / total, 1e-5)))
 
 
 def _to_wire(t: torch.Tensor, wd: Optional[torch.dtype]) -> torch.Tensor:

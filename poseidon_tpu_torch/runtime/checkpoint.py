@@ -5,7 +5,9 @@ snapshots cross-load both ways.
 - ``snapshot()`` writes ``<prefix>_iter_<N>.caffemodel`` (a Caffe
   NetParameter binary) and ``<prefix>_iter_<N>.solverstate.npz`` with
   ``iter``, ``kind = "dense"``, one array per leaf under ``params/`` and
-  ``history/`` (and under ``comm_error/``, empty on one device). Tree keys
+  ``history/``, and the TOPK residuals under ``comm_error/``, stacked
+  ``(groups, *shape)`` as the caller gathered them
+  (``TrainStep.gather_comm_error``; none without a TOPK layer). Tree keys
   join layer and param names with the ASCII unit separator (layer names may
   contain '/'). Both files are written to a temporary name and renamed.
 - ``restore()`` rebuilds (params, TrainState) from a dense .npz as CPU

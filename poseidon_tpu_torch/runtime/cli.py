@@ -3,8 +3,10 @@ of ``poseidon_tpu/runtime/cli.py``)::
 
     python -m poseidon_tpu_torch train --solver=<solver.prototxt> \\
         [--snapshot=<.solverstate.npz>|auto] [--weights=<.caffemodel>] \\
-        [--output_dir .] [--device cuda|cpu] [--strategy dense|sfb] \\
+        [--output_dir .] [--device cuda|cpu] [--strategy dense|sfb|topk] \\
         [--sfb-auto] [--grad-reduce mean|sum] [--wire_dtype f32|bf16|f16] \\
+        [--topk_policy magnitude|random|fixed_order] [--topk_block N] \\
+        [--dcn_slices N] \\
         [--dwbp_bucket_mb N] [--param_arena true|false] \\
         [--arena_bucket_mb N] [--device_prefetch N] [--max_in_flight N] \\
         [--async_snapshot] [--device_transform] [--trace_out <file>]
@@ -32,10 +34,11 @@ under the env contract of ``runtime/cluster.py`` (``POSEIDON_PROC_ID``,
 ``POSEIDON_NUM_PROCS``, ``POSEIDON_COORDINATOR``; ``scripts/launch.py``'s
 ``launch_local(..., program=[python, "-m", "poseidon_tpu_torch"])`` sets
 them), with the comm flags of the JAX ``train`` command that the port
-covers; the others (``--strategy topk``, ``--topk_policy``,
-``--topk_block``, ``--dcn_slices``, ``--server_logic``,
-``--comm_budget_mbps``, ``--wire_dtype int8``) raise
-``NotImplementedError`` naming their ROADMAP item. ``test`` scores a net's
+covers: TOPK at the JAX default fraction 0.01 (``--topk_policy``,
+``--topk_block``) and the two-tier group (``--dcn_slices``) among them.
+The others (``--mesh``, ``--server_logic``, ``--comm_budget_mbps``,
+``--wire_dtype int8``) raise ``NotImplementedError`` naming their ROADMAP
+item. ``test`` scores a net's
 TEST phase and prints one ``<output>: <mean>`` line per scalar output. ``serve`` warms every bucket,
 logs ``serve: listening on <host>:<port>``, serves until SIGTERM/SIGINT,
 drains every admitted request, prints one ``serving_final_stats`` JSON line
@@ -155,26 +158,31 @@ def bucket_mb_of(dwbp_bucket_mb: float, param_arena: bool,
 
 def comm_from_args(args):
     """The ``CommConfig`` of the ``train`` flags (the JAX CLI's
-    ``_engine_from_args`` for the flags this slice covers)."""
-    from ..parallel.strategies import TOPK_LATER, CommConfig
+    ``_engine_from_args`` for the flags the port covers)."""
+    from ..parallel.mesh import DCN_AXIS
+    from ..parallel.strategies import CommConfig
 
-    if args.strategy == "topk" or args.topk_policy or args.topk_block:
-        raise NotImplementedError(TOPK_LATER)
-    if args.dcn_slices > 1:
+    if args.mesh:
+        if args.dcn_slices > 1:
+            raise SystemExit("--mesh and --dcn_slices do not compose: the "
+                             "named mesh's axes carry the whole topology")
         raise NotImplementedError(
-            "--dcn_slices (the two-tier mesh) is not in the port yet "
-            "(ROADMAP queue A item 8, its remainder)")
+            "--mesh (the SPMD mesh planner, parallel/spmd.py) is not in "
+            "the port yet (ROADMAP queue A item 8, its last part)")
     if args.comm_budget_mbps >= 0:
         raise NotImplementedError(
-            "--comm_budget_mbps (managed communication) is not in the port "
-            "yet (ROADMAP queue A item 8, its remainder)")
+            "--comm_budget_mbps (the async tier's managed communication) "
+            "is not in the port yet (ROADMAP queue A item 9)")
     # an SFB auto pick keeps DENSE as the default for the other layers
     return CommConfig(
         default_strategy="dense" if args.sfb_auto else args.strategy,
-        reduce=args.grad_reduce, wire_dtype=args.wire_dtype or None,
+        reduce=args.grad_reduce, topk_policy=args.topk_policy,
+        wire_dtype=args.wire_dtype or None,
+        topk_block=args.topk_block or None,
         bucket_mb=bucket_mb_of(args.dwbp_bucket_mb,
                                args.param_arena == "true",
                                args.arena_bucket_mb),
+        dcn_axis=DCN_AXIS if args.dcn_slices > 1 else None,
         server_logic=args.server_logic)
 
 
@@ -189,7 +197,8 @@ def cmd_train(args) -> int:
                  max_in_flight=args.max_in_flight,
                  async_snapshot=args.async_snapshot,
                  device_transform=args.device_transform,
-                 trace_out=args.trace_out or None)
+                 trace_out=args.trace_out or None,
+                 dcn_slices=args.dcn_slices)
     try:
         if args.snapshot == "auto":
             if eng.auto_resume() is None and args.weights:
@@ -254,8 +263,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "or cpu")
     t.add_argument("--strategy", default="dense",
                    choices=["dense", "sfb", "topk"],
-                   help="default gradient sync strategy (topk: not in the "
-                        "port yet)")
+                   help="default gradient sync strategy (topk: top-k "
+                        "compressed sync with error feedback, fraction "
+                        "0.01)")
     t.add_argument("--sfb-auto", action="store_true",
                    help="pick SFB per FC layer by the cost model (SACP)")
     t.add_argument("--grad-reduce", default="mean", choices=["mean", "sum"])
@@ -276,11 +286,22 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--arena_bucket_mb", type=float, default=4.0,
                    help="arena gradient-sync bucket size in MB, DWBP-"
                         "ordered exact element ranges; <= 0 = one a leaf")
+    t.add_argument("--topk_policy", default="magnitude",
+                   choices=["magnitude", "random", "fixed_order"],
+                   help="which entries the TOPK budget sends (the "
+                        "server's UpdateSortPolicy)")
+    t.add_argument("--topk_block", type=int, default=0,
+                   help="blocked top-k: pick within blocks of this many "
+                        "elements instead of one global selection; 0 = "
+                        "global")
+    t.add_argument("--dcn_slices", type=int, default=0,
+                   help="split the ranks into N slices (the two-tier "
+                        "group): dense sync inside a slice, TOPK-"
+                        "compressed exchange between slices; N must "
+                        "divide the world")
     # comm flags of the JAX CLI that the port does not cover yet: each
     # raises NotImplementedError naming its ROADMAP item
-    t.add_argument("--topk_policy", default="")
-    t.add_argument("--topk_block", type=int, default=0)
-    t.add_argument("--dcn_slices", type=int, default=0)
+    t.add_argument("--mesh", default="")
     t.add_argument("--server_logic", default="inc")
     t.add_argument("--comm_budget_mbps", type=float, default=-1.0)
     t.add_argument("--device_prefetch", type=int, default=None,

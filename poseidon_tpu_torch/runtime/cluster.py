@@ -19,10 +19,11 @@
     one).
 
 A single process (world 1, no coordinator) initializes nothing, as in the
-JAX package. A world above 1 without a coordinator raises rather than
-training N unsynchronized replicas. Rendezvous retries with the shared
-backoff (``runtime/retry.py``), seeded by rank: under a launcher the
-coordinator may come up seconds after its peers.
+JAX package; it is one slice of one rank. A world above 1 without a
+coordinator raises rather than training N unsynchronized replicas.
+Rendezvous retries with the shared backoff (``runtime/retry.py``),
+seeded by rank: under a launcher the coordinator may come up seconds
+after its peers.
 """
 
 from __future__ import annotations
@@ -134,20 +135,48 @@ def _init_with_retry(backend: str, init_method: str, rank: int, world: int,
                        retry_on=(_Transient,))
 
 
+def _two_tier_groups(rank: int, world: int, slices: int):
+    """(this rank's slice group, its cross-slice group), each None where
+    it would hold one rank. Every rank creates every group, in the same
+    order, as ``new_group`` requires."""
+    import torch.distributed as dist
+
+    size = world // slices
+    mine_slice = mine_cross = None
+    if size > 1:
+        for s in range(slices):
+            pg = dist.new_group(list(range(s * size, (s + 1) * size)))
+            if rank // size == s:
+                mine_slice = pg
+    if slices > 1:
+        for i in range(size):
+            pg = dist.new_group(list(range(i, world, size)))
+            if rank % size == i:
+                mine_cross = pg
+    return mine_slice, mine_cross
+
+
 def init_distributed(device: torch.device, rank: Optional[int] = None,
                      world: Optional[int] = None,
-                     coordinator: Optional[str] = None):
+                     coordinator: Optional[str] = None, slices: int = 1):
     """The data group of this process. Arguments override the env
     contract; a coordinator (argument or env) starts a process group, even
-    of one rank, which the returned ``DataGroup``'s ``close`` destroys."""
+    of one rank, which the returned ``DataGroup``'s ``close`` destroys.
+    ``slices`` > 1 makes it the two-tier group (``parallel/mesh.py``)
+    with its slice and cross-slice process groups; a world it does not
+    divide exits, as the JAX CLI's ``--dcn_slices`` does."""
     from ..parallel.mesh import DataGroup
 
     e_rank, e_world, e_coord = env_world()
     rank = e_rank if rank is None else rank
     world = e_world if world is None else world
     coordinator = e_coord if coordinator is None else coordinator
+    slices = max(1, int(slices))
     if not 0 <= rank < world:
         raise ValueError(f"rank {rank} outside a world of {world}")
+    if world % slices:
+        raise SystemExit(f"--dcn_slices {slices} does not divide "
+                         f"{world} devices")
     if coordinator is None:
         if world > 1:
             raise ValueError(
@@ -162,5 +191,12 @@ def init_distributed(device: torch.device, rank: Optional[int] = None,
     log(f"distributed: {world} rank(s), backend {backend} ({why}); rank "
         f"{rank} on {dev}", rank=rank)
     import torch.distributed as dist
+    slice_pg, cross_pg = (_two_tier_groups(rank, world, slices)
+                          if slices > 1 else (None, None))
+    if slices > 1:
+        log(f"distributed: two tiers, {slices} slice(s) of "
+            f"{world // slices} rank(s); rank {rank} in slice "
+            f"{rank // (world // slices)}", rank=rank)
     return DataGroup(rank=rank, world=world, device=dev, backend=backend,
-                     pg=dist.group.WORLD)
+                     pg=dist.group.WORLD, slices=slices, slice_pg=slice_pg,
+                     cross_pg=cross_pg)

@@ -31,9 +31,13 @@ env contract (``runtime/cluster.py``): each rank reads its own
 ``Shard(rank, world)`` of the records, the step all-reduces as its
 ``CommConfig`` says (``parallel/strategies.py``), parameters and momentum
 are broadcast from rank 0 after init and restore, metrics are averaged over
-the ranks, only rank 0 logs and writes the CSVs, and every rank writes the
-(identical) snapshots, as in the JAX engine. Parameters are filled from
-``sp.random_seed`` (1 when unset) with a CPU ``torch.Generator``; the
+the ranks, only rank 0 logs (the static comm table once) and writes the
+CSVs, and every rank writes the (identical) snapshots, as in the JAX
+engine, with every residual group's TOPK residual gathered into them.
+``dcn_slices`` > 1 splits the world into that many slices (the two-tier
+group, ``parallel/mesh.py``) and sets ``CommConfig.dcn_axis``.
+Parameters are filled from ``sp.random_seed`` (1 when unset) with a CPU
+``torch.Generator``; the
 dropout generator is seeded from it with the rank folded in
 (``parallel/mesh.rank_seed``), so a seed gives the same run on any device;
 the random streams are torch's, not JAX's. Entry points run on ``cuda``
@@ -55,8 +59,8 @@ from ..data.pipeline import (BatchPipeline, DevicePrefetcher,
                              build_phase_pipelines, place_batch)
 from ..data.workload import Shard
 from ..numeric import resolve_device
-from ..parallel.mesh import DataGroup, rank_seed
-from ..parallel.strategies import CommConfig, auto_strategies
+from ..parallel.mesh import DCN_AXIS, DataGroup, rank_seed
+from ..parallel.strategies import TOPK, CommConfig, auto_strategies
 from ..parallel.trainer import (build_eval_step, build_train_step,
                                 init_train_state)
 from ..proto.messages import NetParameter, SolverParameter, load_net
@@ -64,6 +68,7 @@ from ..solvers.updates import learning_rate
 from .checkpoint import (AsyncSnapshotWriter, latest_snapshot,
                          load_caffemodel, restore, snapshot)
 from .cluster import init_distributed
+from .comm_stats import comm_summary, layer_comm_table
 from .metrics import AsyncScalarFetcher, MetricsTable, log
 from .spans import recorder as span_recorder
 
@@ -148,10 +153,12 @@ class Engine:
                  async_snapshot: Optional[bool] = None,
                  device_transform: bool = False, use_native: bool = True,
                  memory_data: Optional[Dict[str, np.ndarray]] = None,
-                 trace_out: Optional[str] = None):
+                 trace_out: Optional[str] = None, dcn_slices: int = 0):
         self.sp = sp
         self.output_dir = output_dir
         self.comm = comm or CommConfig()
+        if dcn_slices > 1 and self.comm.dcn_axis is None:
+            self.comm.dcn_axis = DCN_AXIS
         self.sfb_auto = sfb_auto
         pc = PipelineConfig()
         self.device_prefetch = max(0, int(
@@ -169,7 +176,8 @@ class Engine:
         self._device_feed: Optional[DevicePrefetcher] = None
         self._snap_writer = (AsyncSnapshotWriter() if self.async_snapshot
                              else None)
-        self.group: DataGroup = init_distributed(resolve_device(device))
+        self.group: DataGroup = init_distributed(
+            resolve_device(device), slices=max(1, dcn_slices))
         self.device = self.group.device
         self.rank, self.world = self.group.rank, self.group.world
         # --trace_out: the process-wide span recorder, owned (cleared,
@@ -235,22 +243,46 @@ class Engine:
         self.train_step = build_train_step(self.train_net, sp, group,
                                            self.comm, self._input_transform)
         self.eval_steps = [build_eval_step(n, group) for n in self.test_nets]
+        step = self.train_step
         if group is not None:
-            sync = self.train_step.sync
             batch = next(iter(train_shapes.values()))[0]
             log(f"data parallel: {self.world} ranks x batch {batch}, sync "
-                f"{self.train_step.kinds}, reduce {self.comm.reduce}, wire "
-                f"{self.comm.wire_dtype or 'f32'}, {len(sync.hooked)} DWBP "
-                f"bucket(s) of {self.comm.bucket_mb:g} MB, "
-                f"{len(sync.fused)} after backward", rank=self.rank)
+                f"{step.kinds}, reduce {self.comm.reduce}, wire "
+                f"{self.comm.wire_dtype or 'f32'}, {len(step.sync.hooked)} "
+                f"DWBP bucket(s) of {self.comm.bucket_mb:g} MB, "
+                f"{len(step.sync.fused)} after backward", rank=self.rank)
+        if step.topk_slots:
+            layers = [l for l, k in step.kinds.items() if k == TOPK]
+            log(f"TOPK on {layers}: fraction {step.topk_fraction:g}, policy "
+                f"{self.comm.topk_policy}, block {self.comm.topk_block}, "
+                f"{step.n_err_groups} residual group(s)"
+                + (f" (two tiers: {self.group.slices} slice(s) of "
+                   f"{self.group.slice_size})" if self.comm.dcn_axis
+                   else ""), rank=self.rank)
+        if group is not None or step.topk_slots:
+            self._log_comm_table()
         seed = sp.random_seed if sp.random_seed >= 0 else 1
         self.train_net.generator.manual_seed(rank_seed(seed, self.rank))
         params = self.train_net.init(torch.Generator().manual_seed(seed))
-        self.params, self.state = self.train_step.load(
-            params, init_train_state(params))
+        self.params, self.state = step.load(params, init_train_state(
+            params, self.comm, step.n_err_groups))
         self.metrics = MetricsTable("train")
         self.test_metrics = [MetricsTable(f"test_{i}")
                              for i in range(len(self.test_nets))]
+
+    def _log_comm_table(self) -> None:
+        """The static comm accounting of the step (``comm_stats``), once,
+        on rank 0."""
+        if self.rank != 0:
+            return
+        table = layer_comm_table(self.train_net, self.comm, self.group)
+        for layer, row in table.items():
+            log(f"comm: {layer} {row['strategy']}: ici "
+                f"{row['ici_bytes_per_step']} B, dcn "
+                f"{row['dcn_bytes_per_step']} B a step a device (dense "
+                f"{row['dense_alternative_bytes']} B)")
+        log(f"comm: {comm_summary(table)} (est_comm_ms at the H100 SXM's "
+            f"published link rates)")
 
     # ---------------------------------------------------------------- #
     def _next_batch(self, pipes: List[BatchPipeline]
@@ -270,7 +302,7 @@ class Engine:
         .solverstate.npz (either package's)."""
         if path.endswith(".caffemodel"):
             params = load_caffemodel(path, self.train_net, self.params)
-            self.params, self.state = self.train_step.load(params, self.state)
+            self.params = self.train_step.load_weights(params)
             log(f"Loaded weights from {path}", rank=self.rank)
             return
         params, state = restore(path)
@@ -296,14 +328,16 @@ class Engine:
         if not self.sp.snapshot_prefix:
             return None
         prefix = os.path.join(self.output_dir, self.sp.snapshot_prefix)
+        # every residual group's row (a collective), as JAX's gather
+        state = self.state._replace(comm_error=self.train_step
+                                    .gather_comm_error(self.state.comm_error))
         if self._snap_writer is not None:
             model, statef = self._snap_writer.submit(
-                prefix, self.train_net, self.params, self.state)
+                prefix, self.train_net, self.params, state)
             log(f"Snapshotting (async) to {model} / {statef}",
                 rank=self.rank)
             return statef
-        model, statef = snapshot(prefix, self.train_net, self.params,
-                                 self.state)
+        model, statef = snapshot(prefix, self.train_net, self.params, state)
         log(f"Snapshotting to {model} / {statef}", rank=self.rank)
         return statef
 

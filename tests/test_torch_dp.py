@@ -17,7 +17,9 @@ GEMMs sum in different orders), losses at rtol 1e-5. bf16-wire cases hold
 the same tolerance with a counted allowance (``BF16_FLIP_SHARE``), and a
 control run of each without the cast must break it. The two ranks end bitwise
 equal (but under LOCAL), and the DWBP buckets are issued in order, all but
-the first layer's before the first layer's backward starts. Nets without
+the first layer's before the first layer's backward starts. TOPK cases
+also hold each rank's error-feedback residual against its row of JAX's
+``comm_error`` (one row a device on the flat mesh). Nets without
 dropout: the two packages' random streams differ.
 """
 
@@ -39,6 +41,7 @@ if REPO not in sys.path:        # run as a script: the rank workers
 from poseidon_tpu_torch.core.net import Net, params_from_jax  # noqa: E402
 from poseidon_tpu_torch.parallel import strategies as S  # noqa: E402
 from poseidon_tpu_torch.parallel.mesh import DataGroup, rank_seed  # noqa: E402,E501
+from poseidon_tpu_torch.parallel import trainer as T  # noqa: E402
 from poseidon_tpu_torch.parallel.trainer import (  # noqa: E402
     build_train_step, init_train_state, param_mults)
 from poseidon_tpu_torch.proto.messages import (  # noqa: E402
@@ -63,8 +66,10 @@ PARAM_TOL = dict(rtol=1e-4, atol=1e-6)
 # within PARAM_TOL plus the bf16 steps it can have taken
 # (``_bf16_step_bound``). The same case with an f32 wire puts tens of
 # thousands outside (``test_bf16_wire_check_sees_a_dropped_cast``). f16's
-# steps are 8x finer: its case holds PARAM_TOL outright. PERF.md's parity
-# table has the readings.
+# steps are 8x finer: its case holds PARAM_TOL outright. A TOPK case
+# with a bf16 wire rounds what each rank sends, g + residual at the
+# selected entries, the same way: its bound is built from that (captured
+# in the worker). PERF.md's parity table has the readings.
 BF16_FLIP_SHARE = 1e-4
 SOLVER = dict(base_lr=0.01, momentum=0.9, weight_decay=5e-4, lr_policy="inv",
               gamma=1e-4, power=0.75)
@@ -138,12 +143,40 @@ CASES = {
     "narrow_alexnet_dense": Case("narrow_alexnet", {}, 0.01,
                                  dict(arena_bucket_mb=0.01)),
     "local": Case("lenet", dict(default_strategy=S.LOCAL)),
+    # TOPK with its error-feedback residual, one residual a rank
+    "topk": Case("lenet", dict(default_strategy=S.TOPK, topk_fraction=0.1)),
+    # a mixed net: ip1 compressed, the rest on the DENSE buckets
+    "topk_layer": Case("lenet", dict(layer_strategies={"ip1": S.TOPK},
+                                     topk_fraction=0.1), 0.4,
+                       dict(arena_bucket_mb=0.4)),
+    "topk_blocked": Case("lenet", dict(default_strategy=S.TOPK,
+                                       topk_fraction=0.1, topk_block=256)),
+    "topk_fixed_order": Case("lenet", dict(default_strategy=S.TOPK,
+                                           topk_fraction=0.1,
+                                           topk_policy="fixed_order")),
+    "topk_reduce_sum": Case("lenet", dict(default_strategy=S.TOPK,
+                                          topk_fraction=0.1, reduce="sum")),
+    "topk_wire_bf16": Case("lenet", dict(default_strategy=S.TOPK,
+                                         topk_fraction=0.1,
+                                         wire_dtype="bf16")),
 }
+TOPK_CASES = [c for c, spec in CASES.items()
+              if S.TOPK in (spec.fields.get("default_strategy"),
+                            *spec.fields.get("layer_strategies", {}).values())]
 BF16_CASES = [c for c, spec in CASES.items()
               if spec.fields.get("wire_dtype") == "bf16"]
 # the negative controls: each bf16-wire case on its own inputs with the
 # cast dropped (an f32 wire), held against the bf16 reference
 CONTROLS = {f"{c}_f32_wire": c for c in BF16_CASES}
+# the negative control of the TOPK selection: the topk case sending one
+# entry more a leaf (k + 1), which the parity check must tell apart
+K_CONTROLS = {"topk_k_plus_one": "topk"}
+RUNS = [*CASES, *CONTROLS, *K_CONTROLS]
+
+
+def _of(case):
+    """The case a run (a case or a control) takes its inputs from."""
+    return CONTROLS.get(case) or K_CONTROLS.get(case) or case
 
 
 def _net_text(name):
@@ -168,7 +201,7 @@ def _port_net(name, rows=B):
 def _fields(case):
     """(the Case, its CommConfig fields: a control's without the wire
     cast)."""
-    spec = CASES[CONTROLS.get(case, case)]
+    spec = CASES[_of(case)]
     fields = {k: (dict(v) if isinstance(v, dict) else v)
               for k, v in spec.fields.items()}
     if case in CONTROLS:
@@ -190,7 +223,7 @@ def _comm(case, net):
 def _run_case(group, case, d):
     net = _port_net(_fields(case)[0].net)
     comm = _comm(case, net)
-    with np.load(os.path.join(d, f"{CONTROLS.get(case, case)}.in.npz")) as z:
+    with np.load(os.path.join(d, f"{_of(case)}.in.npz")) as z:
         flat = {k: z[k] for k in z.files}
     params = {}
     for key, v in flat.items():
@@ -199,11 +232,13 @@ def _run_case(group, case, d):
             params.setdefault(layer, {})[p] = v
     params = params_from_jax(net, params)
     step = build_train_step(net, SolverParameter(**SOLVER), group, comm)
-    params, state = step.load(params, init_train_state(params))
+    params, state = step.load(params, init_train_state(
+        params, comm, step.n_err_groups))
     local, factors = None, {}
     if comm.wire_dtype == "bf16":
         # what this rank puts on the wire, before the cast: its gradient of
-        # the DENSE buckets as they go out, and the SFB layers' factors
+        # the DENSE buckets as they go out, g + residual of the TOPK
+        # leaves, and the SFB layers' factors
         local = torch.full_like(step.flat_g, float("nan"))
         issue = step.sync._issue
 
@@ -212,6 +247,15 @@ def _run_case(group, case, d):
             issue(bucket)
 
         step.sync._issue = capture
+        compress = T.topk_compress
+
+        def capture_topk(g, fraction, error, *a, salt, **kw):
+            s = next(s for s in step.topk_slots
+                     if S.comm_salt(s.layer, s.pname) == salt)
+            local[s.offset:s.offset + s.size] = (g + error).reshape(-1)
+            return compress(g, fraction, error, *a, salt=salt, **kw)
+
+        T.topk_compress = capture_topk
         ctx = step._ctx
         sfb_of = {id(step._leaf_tree[l]["w"]): l for l in ctx.sfb_layers}
         product = ctx.inner_product
@@ -226,6 +270,14 @@ def _run_case(group, case, d):
             return y
 
         ctx.inner_product = capture_factors
+    if case in K_CONTROLS:
+        compress = T.topk_compress
+
+        def one_more(g, fraction, *a, **kw):
+            k = max(1, int(g.numel() * fraction))
+            return compress(g, (k + 1.5) / g.numel(), *a, **kw)
+
+        T.topk_compress = one_more
     # the first layer's backward starts when its output's gradient exists:
     # count the buckets issued by then
     first = next(l for l in net.layers if l.params)
@@ -241,7 +293,10 @@ def _run_case(group, case, d):
     out = {"losses": [], "issued": [], "mid": [],
            "n_hooked": len(step.sync.hooked),
            "first_buckets": [b for b, bk in enumerate(step.sync.hooked)
-                             if first_slots & set(bk.leaves)]}
+                             if first_slots & set(bk.leaves)],
+           "bucket_layers": json.dumps(
+               [sorted({step.arena.slots[i].layer for i in bk.leaves})
+                for bk in step.sync.hooked])}
     r = group.rank
     for k in range(STEPS):
         batch = {key[len(f"batch{k}/"):]: torch.from_numpy(
@@ -265,7 +320,13 @@ def _run_case(group, case, d):
                     out[f"step{k + 1}/params/{layer}/{p}"] = v.numpy().copy()
                     out[f"step{k + 1}/history/{layer}/{p}"] = \
                         state.solver.history[layer][p].numpy().copy()
+            for layer, leaves in state.comm_error.items():
+                for p, v in leaves.items():
+                    assert v.shape[0] == 1      # this rank's row alone
+                    out[f"err{k + 1}/{layer}/{p}"] = v[0].numpy().copy()
     handle.remove()
+    if local is not None or case in K_CONTROLS:
+        T.topk_compress = compress
     out["before_first"] = before_first
     out["kinds"] = json.dumps(step.kinds)
     np.savez(os.path.join(d, f"{case}.rank{r}.npz"), **out)
@@ -277,11 +338,17 @@ def _worker(rank: int, world: int, store: str, d: str) -> int:
                                      coordinator=f"file://{store}")
     try:
         assert group.backend == "gloo" and group.world == world
-        for case in [*CASES, *CONTROLS]:
+        for case in RUNS:
             _run_case(group, case, d)
     finally:
         group.close()
     return 0
+
+
+if __name__ == "__main__":
+    # a rank worker: it stops here, before the reference side's imports
+    sys.exit(_worker(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3],
+                     sys.argv[4]))
 
 
 # --------------------------------------------------------------------- #
@@ -349,7 +416,7 @@ def dp_run(tmp_path_factory):
     for r, p in enumerate(procs):
         assert p.returncode == 0, f"rank {r}:\n{logs[r]}"
     results = {}
-    for case in [*CASES, *CONTROLS]:
+    for case in RUNS:
         results[case] = []
         for r in range(WORLD):
             with np.load(d / f"{case}.rank{r}.npz") as z:
@@ -367,17 +434,19 @@ def _jax_comm(spec, jnet):
 
 
 def _jax_reference(case, params, batches, rank=None):
-    """{step: (params, history, loss)} after steps 1 and STEPS."""
+    """{step: (params, history, loss, comm_error)} after steps 1 and
+    STEPS (comm_error stacked one row a device)."""
     spec = CASES[case]
     jnet = _jax_net(spec.net)
     sp = JaxSolver(**SOLVER)
+    comm = _jax_comm(spec, jnet)
     if rank is None:
-        ts = jax_step(jnet, sp, make_mesh(WORLD), _jax_comm(spec, jnet),
-                      donate=False)
+        ts = jax_step(jnet, sp, make_mesh(WORLD), comm, donate=False)
+        state = jax_state(params, comm, WORLD)
     else:       # LOCAL: one replica on its own rows
         ts = jax_step(jnet, sp, Mesh(np.array(jax.devices()[:1]), ("data",)),
                       donate=False)
-    state = jax_state(params)
+        state = jax_state(params)
     out = {}
     for k, b in enumerate(batches):
         if rank is not None:
@@ -387,18 +456,32 @@ def _jax_reference(case, params, batches, rank=None):
             out[k + 1] = (jax.tree_util.tree_map(np.asarray, params),
                           jax.tree_util.tree_map(np.asarray,
                                                  state.solver.history),
-                          float(m["loss"]))
+                          float(m["loss"]),
+                          jax.tree_util.tree_map(np.asarray,
+                                                 state.comm_error))
     return out
 
 
 def _assert_close(res, ref, step, what):
-    params, history, _ = ref[step]
+    params, history = ref[step][:2]
     for tree, kind in ((params, "params"), (history, "history")):
         for l, lv in tree.items():
             for p, v in lv.items():
                 np.testing.assert_allclose(
                     res[f"step{step}/{kind}/{l}/{p}"], v, **PARAM_TOL,
                     err_msg=f"{what}: {kind} {l}/{p} after step {step}")
+
+
+def _assert_residuals_close(res, ref, step, row, what):
+    """This rank's residual against its row of JAX's stacked
+    ``comm_error``."""
+    err = ref[step][3]
+    assert err, f"{what}: JAX kept no residual"
+    for l, lv in err.items():
+        for p, v in lv.items():
+            np.testing.assert_allclose(
+                res[f"err{step}/{l}/{p}"], v[row], **PARAM_TOL,
+                err_msg=f"{what}: residual {l}/{p} after step {step}")
 
 
 def _bf16_step(x):
@@ -454,26 +537,41 @@ def _bf16_step_bound(ranks, name, l, p, step):
                * _bf16_flip(ranks, l, p, j) for j in range(1, step + 1))
 
 
-def _bf16_wire_flips(res, ranks, ref, step, name):
-    """The parameters whose value or momentum is outside PARAM_TOL: (how
-    many, how many are allowed, the largest of |difference| - PARAM_TOL
-    over the bound, where in the worst case)."""
-    params, history, _ = ref[step]
+def _bf16_residual_bound(rank, l, p, step):
+    """How far those roundings can move a rank's TOPK residual: each
+    step's rounding of what the rank sends stays in its residual, so
+    roundings one step apart move it by one bf16 step of g + residual at
+    most, a step (``rank``: the bf16 run's captures of that rank)."""
+    return sum(_bf16_step(rank[f"grad{j}/{l}/{p}"])
+               for j in range(1, step + 1))
+
+
+def _bf16_wire_flips(res, ranks, ref, step, name, row):
+    """The parameters whose value, momentum or (TOPK) residual is outside
+    PARAM_TOL, the residual held against JAX's row ``row``: (how many,
+    how many are allowed, the largest of |difference| - PARAM_TOL over
+    the bound, where in the worst case)."""
+    params, history, _, err = ref[step]
     n, worst, where = 0, 0.0, None
     n_params = sum(v.size for lv in params.values() for v in lv.values())
     for l, lv in params.items():
         for p in lv:
             outside = None
-            for kind, want in (("params", params[l][p]),
-                               ("history", history[l][p])):
-                got = res[f"step{step}/{kind}/{l}/{p}"]
+            kinds = [("params", params[l][p]), ("history", history[l][p])]
+            if l in err:
+                kinds.append(("err", err[l][p][row]))
+            for kind, want in kinds:
+                got = res[f"err{step}/{l}/{p}" if kind == "err"
+                          else f"step{step}/{kind}/{l}/{p}"]
                 diff = np.abs(got.astype(np.float64) - want)
                 slack = PARAM_TOL["atol"] + PARAM_TOL["rtol"] * np.abs(want)
                 out = diff > slack
                 outside = out if outside is None else outside | out
                 if not out.any():
                     continue
-                bound = _bf16_step_bound(ranks, name, l, p, step)
+                bound = (_bf16_residual_bound(ranks[row], l, p, step)
+                         if kind == "err"
+                         else _bf16_step_bound(ranks, name, l, p, step))
                 ratio = (diff - slack)[out] / np.broadcast_to(
                     bound, diff.shape)[out]
                 ratio = np.where(np.isfinite(ratio), ratio, np.inf)
@@ -483,10 +581,11 @@ def _bf16_wire_flips(res, ranks, ref, step, name):
     return n, int(BF16_FLIP_SHARE * n_params), worst, where
 
 
-def _bf16_wire_within_allowance(res, ranks, ref, step, name, what):
+def _bf16_wire_within_allowance(res, ranks, ref, step, name, row, what):
     """(whether ``res`` holds PARAM_TOL but for at most BF16_FLIP_SHARE of
     the parameters, each within its bound, the reading as text)."""
-    n, allowed, worst, where = _bf16_wire_flips(res, ranks, ref, step, name)
+    n, allowed, worst, where = _bf16_wire_flips(res, ranks, ref, step, name,
+                                                row)
     ok = n <= allowed and worst <= 1.0
     return ok, (f"{what} after step {step}: {n} parameters outside "
                 f"PARAM_TOL (allowed {allowed}), the worst excess "
@@ -512,12 +611,14 @@ def test_dp_step_matches_jax_two_device_mesh(dp_run, case):
         for step in (1, STEPS):
             if case in BF16_CASES:
                 ok, reading = _bf16_wire_within_allowance(
-                    res, results[case], ref, step, CASES[case].net,
+                    res, results[case], ref, step, CASES[case].net, r,
                     f"{case} rank {r}")
                 print(reading)
                 assert ok, reading
             else:
                 _assert_close(res, ref, step, f"{case} rank {r}")
+            if case in TOPK_CASES and case not in BF16_CASES:
+                _assert_residuals_close(res, ref, step, r, f"{case} rank {r}")
     assert results[case][0]["losses"][-1] != results[case][0]["losses"][0]
 
 
@@ -531,9 +632,24 @@ def test_bf16_wire_check_sees_a_dropped_cast(dp_run, case):
         for step in (1, STEPS):
             ok, reading = _bf16_wire_within_allowance(
                 results[control][r], results[case], ref, step,
-                CASES[case].net, f"{control} rank {r}")
+                CASES[case].net, r, f"{control} rank {r}")
             print(reading)
             assert not ok, reading
+
+
+def test_topk_check_sees_one_entry_more_sent(dp_run):
+    """The topk case sending one entry more a leaf (k + 1) must miss JAX's
+    at PARAM_TOL, in the params or their residual, after 1 and 3 steps:
+    the parity check sees a single changed selection."""
+    inputs, results = dp_run
+    ref = _jax_reference("topk", *inputs["topk"])
+    for r in range(WORLD):
+        for step in (1, STEPS):
+            res = results["topk_k_plus_one"][r]
+            with pytest.raises(AssertionError):
+                _assert_close(res, ref, step, "k + 1")
+            with pytest.raises(AssertionError):
+                _assert_residuals_close(res, ref, step, r, "k + 1")
 
 
 @pytest.mark.parametrize("case", list(CASES))
@@ -550,9 +666,14 @@ def test_dp_ranks_end_bitwise_equal(dp_run, case):
 
 @pytest.mark.parametrize("case", [c for c in CASES
                                   if CASES[c].fields.get("default_strategy")
-                                  not in (S.LOCAL, S.DENSE_FUSED)])
+                                  not in (S.LOCAL, S.DENSE_FUSED, S.TOPK)])
 def test_dwbp_buckets_issued_in_order_during_backward(dp_run, case):
     for res in dp_run[1][case]:
+        if case == "topk_layer":
+            # the compressed layer rides no DENSE bucket: none waits on
+            # its leaves, none covers the range TOPK writes afterwards
+            layers = json.loads(str(res["bucket_layers"]))
+            assert all("ip1" not in b for b in layers) and layers
         n = int(res["n_hooked"])
         first = [int(b) for b in res["first_buckets"]]
         assert n >= 1 and first == list(range(n - len(first), n))
@@ -583,6 +704,9 @@ def test_sync_kinds_of_each_case(dp_run):
     assert kinds["sfb_auto"] == {"conv1": "dense", "conv2": "dense",
                                  "fc6": "sfb", "fc8": "dense"}
     assert set(kinds["local"].values()) == {"local"}
+    assert kinds["topk_layer"] == {"conv1": "dense", "conv2": "dense",
+                                   "ip1": "topk", "ip2": "dense"}
+    assert set(kinds["topk"].values()) == {"topk"}
 
 
 @pytest.mark.parametrize("name,rows", [("lenet", 4), ("lenet", 64),
@@ -672,37 +796,26 @@ def test_sfb_matmul_alone_matches_autograd_of_linear():
         torch.testing.assert_close(a, e, rtol=1e-6, atol=1e-6)
 
 
-@pytest.mark.parametrize("what", ["topk_default", "topk_layer", "dcn_axis",
-                                  "int8", "server_logic", "topk_compress"])
+@pytest.mark.parametrize("what", ["int8", "server_logic"])
 def test_unported_comm_raises_naming_its_roadmap_item(what):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A item"):
-        if what == "topk_default":
-            S.CommConfig(default_strategy=S.TOPK)
-        elif what == "topk_layer":
-            comm = S.CommConfig()
-            comm.layer_strategies["ip1"] = S.TOPK  # filled in after init
-            build_train_step(_port_net("lenet"), SolverParameter(**SOLVER),
-                             comm=comm)
-        elif what == "dcn_axis":
-            S.CommConfig(dcn_axis="dcn")
-        elif what == "int8":
+    # both belong to the async tier, ROADMAP queue A item 9
+    with pytest.raises(NotImplementedError,
+                       match=r"ROADMAP queue A item 9\)"):
+        if what == "int8":
             S.CommConfig(wire_dtype="int8")
-        elif what == "server_logic":
-            S.CommConfig(server_logic="adarevision")
         else:
-            S.topk_compress(None, 0.01, None)
+            S.CommConfig(server_logic="adarevision")
 
 
-@pytest.mark.parametrize("flags", [["--strategy", "topk"],
-                                   ["--topk_policy", "random"],
-                                   ["--dcn_slices", "2"],
-                                   ["--comm_budget_mbps", "4"],
+@pytest.mark.parametrize("flags", [["--comm_budget_mbps", "4"],
                                    ["--wire_dtype", "int8"],
                                    ["--server_logic", "adarevision"]])
 def test_cli_unported_comm_flags_raise(flags):
     from poseidon_tpu_torch.runtime.cli import build_parser, comm_from_args
     args = build_parser().parse_args(["train", "--solver=x"] + flags)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A item"):
+    # the async tier's flags: ROADMAP queue A item 9
+    with pytest.raises(NotImplementedError,
+                       match=r"ROADMAP queue A item 9\)"):
         comm_from_args(args)
 
 
@@ -831,7 +944,3 @@ def test_cli_two_rank_sfb_training_on_cpu(tmp_path):
                   for r in range(WORLD))
         assert ma.read_bytes() == mb.read_bytes()
 
-
-if __name__ == "__main__":
-    sys.exit(_worker(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3],
-                     sys.argv[4]))

@@ -508,3 +508,112 @@ def test_device_transform_on_card_is_the_native_f32_batch(tmp_path):
     finally:
         u8.close()
         f32.close()
+
+
+_TOPK_NET = """
+name: "TopkNet"
+input: "data" input_dim: 8 input_dim: 3 input_dim: 23 input_dim: 23
+input: "label" input_dim: 8 input_dim: 1 input_dim: 1 input_dim: 1
+layers { name: "conv1" type: CONVOLUTION bottom: "data" top: "conv1"
+  convolution_param { num_output: 16 kernel_size: 5 stride: 2
+    weight_filler { type: "gaussian" std: 0.1 } } }
+layers { name: "relu1" type: RELU bottom: "conv1" top: "conv1" }
+layers { name: "norm1" type: LRN bottom: "conv1" top: "norm1"
+  lrn_param { local_size: 5 alpha: 0.5 beta: 0.75 } }
+layers { name: "pool1" type: POOLING bottom: "norm1" top: "pool1"
+  pooling_param { pool: MAX kernel_size: 3 stride: 2 } }
+layers { name: "fc6" type: INNER_PRODUCT bottom: "pool1" top: "fc6"
+  inner_product_param { num_output: 64
+    weight_filler { type: "gaussian" std: 0.05 } } }
+layers { name: "relu6" type: RELU bottom: "fc6" top: "fc6" }
+layers { name: "fc8" type: INNER_PRODUCT bottom: "fc6" top: "fc8"
+  inner_product_param { num_output: 10 weight_filler { type: "xavier" } } }
+layers { name: "loss" type: SOFTMAX_LOSS bottom: "fc8" bottom: "label"
+  top: "loss" }
+"""
+
+
+def _topk_run(comm, steps=3):
+    """``steps`` TOPK-or-DENSE steps of a small LRN + MAX-pool net on the
+    card, one process; (losses, params, momentum, state)."""
+    from poseidon_tpu_torch.core.net import Net
+    from poseidon_tpu_torch.parallel import trainer as T
+    from poseidon_tpu_torch.proto.messages import (SolverParameter,
+                                                   load_net_from_string)
+    net = Net(load_net_from_string(_TOPK_NET), "TRAIN", device="cuda")
+    params = net.init(torch.Generator().manual_seed(0))
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    batch = {"data": torch.randn(8, 3, 23, 23, generator=gen,
+                                 device="cuda"),
+             "label": torch.randint(0, 10, (8, 1, 1, 1), generator=gen,
+                                    device="cuda").float()}
+    step = T.build_train_step(net, SolverParameter(
+        base_lr=0.01, momentum=0.9, weight_decay=5e-4), None, comm)
+    params, state = step.load(params, T.init_train_state(params, comm, 1))
+    losses = []
+    for _ in range(steps):
+        params, state, m = step.step(params, state, batch)
+        losses.append(float(m["loss"]))
+    clone = lambda t: {l: {k: v.clone() for k, v in d.items()}  # noqa: E731
+                       for l, d in t.items()}
+    return losses, clone(params), clone(state.solver.history), state
+
+
+@pytest.mark.gpu
+def test_topk_at_fraction_one_is_dense_on_card():
+    """TOPK on every layer at fraction 1 sends everything: its steps are
+    the DENSE steps, bitwise (cuDNN deterministic), the residual zero."""
+    _need_gpu()
+    from poseidon_tpu_torch.parallel.strategies import CommConfig
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        d_losses, d_params, d_hist, _ = _topk_run(CommConfig())
+        t_losses, t_params, t_hist, state = _topk_run(CommConfig(
+            default_strategy="topk", topk_fraction=1.0))
+    finally:
+        torch.backends.cudnn.deterministic = det
+    assert t_losses == d_losses
+    for a, b in ((t_params, d_params), (t_hist, d_hist)):
+        for l in a:
+            for k in a[l]:
+                assert torch.equal(a[l][k], b[l][k]), (l, k)
+    assert not any(bool(v.any()) for lv in state.comm_error.values()
+                   for v in lv.values())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("block", [None, 128])
+def test_topk_conserves_gradient_mass_on_card(block):
+    """TOPK on fc6 and fc8 at fraction 0.01 on the card: every leaf, every
+    step, sent + residual = g + residual before (bitwise), at most k sent,
+    a nonzero residual; K4, K6, K5 and K7 launched once each a step."""
+    _need_gpu()
+    from poseidon_tpu_torch.parallel import trainer as T
+    from poseidon_tpu_torch.parallel.strategies import CommConfig
+    records, compress = [], T.topk_compress
+
+    def checking(g, fraction, error, *a, **kw):
+        assert g.is_cuda and error.is_cuda
+        sent, resid = compress(g, fraction, error, *a, **kw)
+        records.append((bool(torch.equal(sent + resid, g + error)),
+                        int(torch.count_nonzero(sent)),
+                        max(1, int(g.numel() * fraction)),
+                        bool(resid.abs().max() > 0)))
+        return sent, resid
+
+    before = {**port_lrn.LAUNCHES, **port_pool.LAUNCHES,
+              **port_sgd.LAUNCHES}
+    T.topk_compress = checking
+    try:
+        losses, *_ = _topk_run(CommConfig(
+            layer_strategies={"fc6": "topk", "fc8": "topk"},
+            topk_block=block))
+    finally:
+        T.topk_compress = compress
+    after = {**port_lrn.LAUNCHES, **port_pool.LAUNCHES, **port_sgd.LAUNCHES}
+    assert {k: after[k] - before[k] for k in after} == {
+        "lrn_fwd": 3, "lrn_bwd": 3, "pool_bwd": 3, "sgd_update": 3}
+    assert len(records) == 4 * 3
+    assert all(c and sent <= k and nz for c, sent, k, nz in records)
+    assert all(map(lambda x: x == x and abs(x) < 1e4, losses))

@@ -233,6 +233,23 @@ def test_pipeline_modules_import_neither_jax_nor_poseidon_tpu():
         assert out.returncode == 0, mod + out.stdout + out.stderr
 
 
+def test_comm_modules_import_neither_jax_nor_poseidon_tpu():
+    """The managed-communication slice's modules (the static comm
+    accounting is new), each imported alone in a fresh process."""
+    mods = ["poseidon_tpu_torch.runtime.comm_stats",
+            "poseidon_tpu_torch.parallel.strategies",
+            "poseidon_tpu_torch.parallel.trainer",
+            "poseidon_tpu_torch.runtime.cluster"]
+    for mod in mods:
+        code = (f"import importlib, sys\nimportlib.import_module({mod!r})\n"
+                "bad = [m for m in sys.modules if m.split('.')[0] in "
+                "('jax', 'jaxlib', 'poseidon_tpu')]\n"
+                "assert not bad, bad\n")
+        out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                             capture_output=True, text=True, timeout=300)
+        assert out.returncode == 0, mod + out.stdout + out.stderr
+
+
 def test_native_library_builds_from_the_checkout_alone():
     """The data plane's C++ source is in the checkout and builds into the
     port's build directory, not the JAX binding's ``native/build``."""
