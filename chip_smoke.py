@@ -319,6 +319,30 @@ LOOP_BATCHER_BATCHES, LOOP_PYTHON_BATCHES = 6, 2
 LOOP_MEAN_VALUES = (104.0, 117.0, 123.0)
 
 
+# the bf16 phases. [bf16_train]: AlexNet train_val at batch 256 under
+# --bf16's policy (bf16 compute, conv_s2d) planned NHWC, BF16_TRAIN_ITERS
+# steps on [train]'s LMDB with a test pass every BF16_TEST_INTERVAL.
+BF16_TRAIN_ITERS, BF16_TEST_INTERVAL = 10, 5
+# a bf16 step with the kernels vs the plain versions (bitwise equal to
+# each other): cuDNN's bf16 backward algorithms may sum a gradient in
+# another order from one call to the next, moving a bf16 rounding (2^-8 of
+# an entry), which the update scales by the learning rate
+BF16_STEP_TOL = (1e-3, 1e-5)
+# conv1 with and without s2d in bf16: each output a bf16 rounding of an f32
+# sum taken in another order, so one bf16 step (2^-8 relative) apart at
+# most; held at 2^-7 of the output's largest magnitude
+BF16_CONV_TOL = 2 ** -7
+# [bf16_lm_train]: gpt_small's step with K1-K3's bf16 builds vs the plain
+# flash versions. The kernels' bf16 outputs may sit one bf16 step from the
+# plain version's (FLASH_TOL, FLASH_BWD_TOL), and every leaf's gradient is
+# the f32 cast of a bf16 GEMM's output (8 significant bits): the loss and
+# the params after one step within one bf16 step (rtol 2^-7, atol 1e-5;
+# the update scales a gradient's difference by lr 0.01), gradients within
+# 2^-4 of each leaf's largest
+BF16_LM_STEP_TOL = (2 ** -7, 1e-5)
+BF16_LM_GRAD_TOL = 2 ** -4
+
+
 class SmokeFailure(RuntimeError):
     pass
 
@@ -724,6 +748,8 @@ def flash_cases():
     return ([(f"prefill {s}", (1, 12, s, 64), f32, True, None)
              for s in (16, 64, 256)]
             + [("train", (8, 12, 1024, 64), f32, True, None),
+               # the gpt_small training launch under --bf16
+               ("train", (8, 12, 1024, 64), bf16, True, None),
                ("lm_corpus train", (8, 4, 256, 32), f32, True, None),
                ("lm_corpus prefill", (1, 4, 32, 32), f32, True, None),
                ("long causal", (8, 12, 512, 64), f32, True, None),
@@ -837,6 +863,8 @@ def flash_bwd_cases():
     import torch
     f32, bf16 = torch.float32, torch.bfloat16
     return [("train main", (8, 12, 1024, 64), f32, True, None),
+            # the gpt_small training launch under --bf16
+            ("train main", (8, 12, 1024, 64), bf16, True, None),
             ("lm_corpus train", (8, 4, 256, 32), f32, True, None),
             ("long causal", (8, 12, 512, 64), f32, True, None),
             ("long", (8, 12, 512, 64), f32, False, None),
@@ -1246,23 +1274,27 @@ def alexnet_net_param(root: str, batch_size=None):
     return net_param
 
 
-def alexnet_solver(root: str, batch_size=None):
+def alexnet_solver(root: str, batch_size=None, write: bool = True,
+                   iters: int = TRAIN_ITERS, test_interval: int = TEST_INTERVAL,
+                   prefix: str = "alexnet"):
     """alexnet_solver.prototxt over alexnet_train_val.prototxt with only the
     data sources, the mean file, the cadence and the snapshot prefix
     pointed at ``root``: every layer, width, batch, crop and mirror stays
-    (``batch_size`` cuts the batch for a CPU rehearsal only)."""
+    (``batch_size`` cuts the batch for a CPU rehearsal only). ``write``
+    writes the synthetic LMDBs first (a later phase reuses them)."""
     from poseidon_tpu_torch.proto.messages import load_solver
 
-    t0 = time.perf_counter()
-    write_synthetic_ilsvrc(root)
-    print(f"[train] synthetic ILSVRC-shaped LMDBs: {TRAIN_RECORDS} train + "
-          f"{VAL_RECORDS} val records of 3x256x256, {CLASSES} classes, "
-          f"written in {time.perf_counter() - t0:.1f} s", flush=True)
+    if write:
+        t0 = time.perf_counter()
+        write_synthetic_ilsvrc(root)
+        print(f"[train] synthetic ILSVRC-shaped LMDBs: {TRAIN_RECORDS} train "
+              f"+ {VAL_RECORDS} val records of 3x256x256, {CLASSES} classes, "
+              f"written in {time.perf_counter() - t0:.1f} s", flush=True)
     sp = load_solver(ALEXNET_SOLVER)
     sp.net, sp.net_param = "", alexnet_net_param(root, batch_size)
-    sp.max_iter, sp.display = TRAIN_ITERS, 10
-    sp.test_interval, sp.test_iter = TEST_INTERVAL, [TEST_ITER]
-    sp.snapshot, sp.snapshot_prefix = 0, os.path.join(root, "alexnet")
+    sp.max_iter, sp.display = iters, 10
+    sp.test_interval, sp.test_iter = test_interval, [TEST_ITER]
+    sp.snapshot, sp.snapshot_prefix = 0, os.path.join(root, prefix)
     return sp
 
 
@@ -1282,10 +1314,11 @@ def step_once(eng, params0, hist0, it0, batch, seed: int = 7):
     return float(m["loss"]), clone(params), clone(state.solver.history)
 
 
-def phase_step_vs_plain(eng, batch) -> float:
+def phase_step_vs_plain(eng, batch, tol=STEP_TOL, tag: str = "train"
+                        ) -> float:
     """One step with the kernels vs the same step with the plain versions
-    swapped into every LRN and POOLING layer and the update, on the card.
-    Returns the largest parameter difference."""
+    swapped into every LRN and POOLING layer and the update, on the card,
+    at ``tol`` (rtol, atol). Returns the largest parameter difference."""
     import torch
     from poseidon_tpu_torch.ops import lrn, pool, sgd
 
@@ -1313,7 +1346,7 @@ def phase_step_vs_plain(eng, batch) -> float:
         eng.train_step.sgd_update = sgd.sgd_update_
     check(read_launches() == before,
           "the plain-version step launched a kernel: the swap did not take")
-    rtol, atol = STEP_TOL
+    rtol, atol = tol
     check(abs(loss_k - loss_p) <= atol + rtol * abs(loss_p),
           f"step loss with kernels {loss_k} vs plain versions {loss_p}")
     worst = 0.0
@@ -1326,16 +1359,54 @@ def phase_step_vs_plain(eng, batch) -> float:
                 check(bool(torch.allclose(a, b, rtol=rtol, atol=atol)),
                       f"{what} {l}/{k} after one step: kernels vs plain "
                       f"versions max_abs {err}")
-    print(f"[train] one step, kernels vs plain versions on the card: loss "
+    print(f"[{tag}] one step, kernels vs plain versions on the card: loss "
           f"{loss_k!r} vs {loss_p!r}, every updated param and momentum "
           f"within rtol {rtol:g} atol {atol:g} (max_abs {worst:.3e})",
           flush=True)
     return worst
 
 
-def phase_train_profile(eng, batch, card: str) -> dict:
+# each port kernel of a CNN training step by the name of its CUDA kernel
+CNN_KERNEL_NAMES = {"lrn_fwd": "lrn_fwd_tile_kernel",
+                    "lrn_bwd": "lrn_bwd_kernel",
+                    "pool_bwd": "pool_bwd_band_kernel",
+                    "sgd_update": "sgd_update_kernel"}
+CNN_NHWC_KERNEL_NAMES = {"lrn_fwd_nhwc": "lrn_nhwc_fwd_kernel",
+                         "lrn_bwd_nhwc": "lrn_nhwc_bwd_kernel",
+                         # the argmax pass and the gather pass
+                         "pool_bwd_nhwc": "pool_nhwc_",
+                         "sgd_update": "sgd_update_kernel"}
+# a profiled step's kernels by kind: layout shuffles (cuDNN's transposes
+# and tensor transforms), torch's copies (the dtype casts, and the entry and
+# FC-boundary conversions of a channels-last graph), cuDNN's channel
+# slices of a grouped conv, the convolutions' library kernels (cuDNN) and
+# the GEMMs' (cuBLAS)
+TRANSPOSE_KEYS = ("transpose", "nchwtonhwc", "nhwctonchw", "tensortransform")
+COPY_KEYS = ("copy",)
+SLICE_KEYS = ("slicec",)
+CONV_KEYS = ("cudnn", "conv", "dgrad", "wgrad", "fprop", "implicit")
+GEMM_KEYS = ("gemm", "cutlass", "cublas", "nvjet")
+
+
+def kernel_kind(name: str, port_keys) -> str:
+    low = name.lower()
+    if any(k in name for k in port_keys):
+        return "port"
+    for kind, keys in (("transpose", TRANSPOSE_KEYS), ("copy", COPY_KEYS),
+                       ("slice", SLICE_KEYS), ("conv", CONV_KEYS),
+                       ("gemm", GEMM_KEYS)):
+        if any(k in low for k in keys):
+            return kind
+    return "other"
+
+
+def phase_train_profile(eng, batch, card: str, tag: str = "train",
+                        kernel_names=None) -> dict:
     """Device step time over TIMED_STEPS steps on a fixed on-device batch,
-    peak device memory, and the top kernels of one profiled step."""
+    peak device memory, and the top kernels of one profiled step, with
+    each port kernel's time (``kernel_names``: counter name -> CUDA kernel
+    name; every one must show device time) and the step's kernels by kind
+    (``kernel_kind``), with the layout shuffles counted."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
@@ -1357,7 +1428,7 @@ def phase_train_profile(eng, batch, card: str) -> dict:
     peak = torch.cuda.max_memory_allocated()
     check(bool(torch.isfinite(m["loss"])), "non-finite loss in timed steps")
     n = batch["data"].shape[0]
-    print(f"[train] device step {step_ms:.3f} ms (CUDA events, mean of "
+    print(f"[{tag}] device step {step_ms:.3f} ms (CUDA events, mean of "
           f"{TIMED_STEPS} steps, fixed on-device batch {n}): "
           f"{n / step_ms * 1e3:.1f} img/s; peak device memory "
           f"{peak / 2**30:.2f} GiB [{card}]", flush=True)
@@ -1374,14 +1445,24 @@ def phase_train_profile(eng, batch, card: str) -> dict:
             params, state, m = step(params, state, batch)
             torch.cuda.synchronize()
             prof.step()
-    per_kernel = {}
+    per_kernel, launches = {}, {}
     for e in kept:
         if (e.device_type == DeviceType.CUDA
                 and not getattr(e, "is_user_annotation", False)
                 and not e.name.startswith("ProfilerStep")):
             per_kernel[e.name] = (per_kernel.get(e.name, 0.0)
                                   + e.time_range.elapsed_us())
+            launches[e.name] = launches.get(e.name, 0) + 1
     busy = sum(per_kernel.values())
+    names = dict(CNN_KERNEL_NAMES if kernel_names is None else kernel_names)
+    kinds = {}
+    for name, us in per_kernel.items():
+        k = kinds.setdefault(kernel_kind(name, names.values()),
+                             {"ms": 0.0, "launches": 0})
+        k["ms"] += us / 1e3
+        k["launches"] += launches[name]
+    for k in kinds.values():
+        k["share"] = k["ms"] * 1e3 / busy if busy else 0.0
     # one step's kernels run one after another on one stream: their sum
     # well past the step's time means an event was counted that is no
     # kernel (tracing itself lengthens the kernels by a few per cent)
@@ -1390,31 +1471,35 @@ def phase_train_profile(eng, batch, card: str) -> dict:
           f"{PROFILE_BUSY_MARGIN} x the step's {step_ms:.3f} ms")
     ours = {}
     if busy:
-        print(f"[train] profiled step: device busy {busy / 1e3:.3f} ms "
-              f"({len(per_kernel)} kernels); top 8:", flush=True)
+        print(f"[{tag}] profiled step: device busy {busy / 1e3:.3f} ms "
+              f"({len(per_kernel)} kernels, {sum(launches.values())} "
+              f"launches); top 8:", flush=True)
         for name, us in sorted(per_kernel.items(),
                                key=lambda kv: -kv[1])[:8]:
             print(f"  {us / 1e3:8.3f} ms {100 * us / busy:5.1f}%  "
-                  f"{name[:90]}", flush=True)
-        # each port kernel by the name of its CUDA kernel
-        names = {"lrn_fwd": "lrn_fwd_tile_kernel",
-                 "lrn_bwd": "lrn_bwd_kernel",
-                 "pool_bwd": "pool_bwd_band_kernel",
-                 "sgd_update": "sgd_update_kernel"}
+                  f"x{launches[name]:<3d} {name[:84]}", flush=True)
         for kernel, key in names.items():
             us = sum(v for k, v in per_kernel.items() if key in k)
             ours[kernel] = {"ms": us / 1e3, "share": us / busy}
-        print("[train] port kernels in the profiled step: " + ", ".join(
+        print(f"[{tag}] port kernels in the profiled step: " + ", ".join(
             f"{k} {v['ms']:.3f} ms ({100 * v['share']:.1f}%)"
             for k, v in ours.items()) + f" [{card}]", flush=True)
+        print(f"[{tag}] the step's kernels by kind: " + ", ".join(
+            f"{k} {v['ms']:.3f} ms ({100 * v['share']:.1f}%, "
+            f"{v['launches']} launches)" for k, v in sorted(kinds.items()))
+            + f" [{card}]", flush=True)
         for kernel, v in ours.items():
             check(v["ms"] > 0, f"{kernel} ({names[kernel]}) launched on the "
                                f"step but shows no device time")
     else:
-        print("[train] torch.profiler: no device time recorded", flush=True)
+        print(f"[{tag}] torch.profiler: no device time recorded",
+              flush=True)
     eng.params, eng.state = params, state
     return {"step_ms": step_ms, "peak_bytes": peak, "profiled_busy_ms":
-            busy / 1e3, "port_kernels": ours}
+            busy / 1e3, "port_kernels": ours, "kinds": kinds,
+            "transpose_launches": kinds.get("transpose", {}).get(
+                "launches", 0),
+            "copy_launches": kinds.get("copy", {}).get("launches", 0)}
 
 
 def phase_train(card: str, root: str, device=None, batch_size=None) -> dict:
@@ -1440,10 +1525,10 @@ def phase_train(card: str, root: str, device=None, batch_size=None) -> dict:
         counts = read_launches()
         steps = eng.stats["train_iters"]
         test_forwards = TEST_ITER * (1 + TRAIN_ITERS // TEST_INTERVAL)
-        want = {"lrn_fwd": 2 * (steps + test_forwards),
-                "lrn_bwd": 2 * steps, "pool_bwd": 3 * steps,
-                "sgd_update": steps, "flash_fwd": 0, "flash_dq": 0,
-                "flash_dkv": 0}
+        want = {k: 0 for k in counts}
+        want.update({"lrn_fwd": 2 * (steps + test_forwards),
+                     "lrn_bwd": 2 * steps, "pool_bwd": 3 * steps,
+                     "sgd_update": steps})
         print(f"[train] Engine.train(): {steps} steps + {test_forwards} test "
               f"forwards in {wall:.2f} s; launches {counts} (expected "
               f"{want})", flush=True)
@@ -1494,13 +1579,22 @@ def phase_train(card: str, root: str, device=None, batch_size=None) -> dict:
         eng.close()
 
 
-def loop_solver(root: str, max_iter: int, batch_size=None):
+def loop_solver(root: str, max_iter: int, batch_size=None,
+                mean_values=None):
     """alexnet_solver's net at full width with no test net, no snapshot
-    and display every 10 steps (each display a hard sync, as in [train])."""
+    and display every 10 steps (each display a hard sync, as in [train]);
+    with ``mean_values``, the train data layer subtracts them in place of
+    the mean file (what the uint8 device transform needs)."""
     from poseidon_tpu_torch.proto.messages import load_solver
 
     sp = load_solver(ALEXNET_SOLVER)
     sp.net, sp.net_param = "", alexnet_net_param(root, batch_size)
+    if mean_values is not None:
+        for lp in sp.net_param.layers:
+            if lp.canonical_type() == "DATA" and any(
+                    r.phase == "TRAIN" for r in lp.include):
+                lp.transform_param.mean_file = ""
+                lp.transform_param.mean_value = list(mean_values)
     sp.max_iter, sp.display = max_iter, 10
     sp.test_interval, sp.test_iter = 0, []
     sp.snapshot, sp.snapshot_prefix, sp.snapshot_after_train = 0, "", False
@@ -1604,7 +1698,7 @@ def loop_rate(events, first_iter: int, batch: int) -> dict:
 
 
 def run_loop(root: str, device, batch_size, steps: int, warmup: int,
-             **engine_kw) -> dict:
+             mean_values=None, **engine_kw) -> dict:
     """One Engine build, one train() call of ``steps`` steps with the span
     recorder on; the K4-K7 launches zeroed just before and read just
     after. Returns the rate, the routes, the prefetch stage, the
@@ -1612,9 +1706,9 @@ def run_loop(root: str, device, batch_size, steps: int, warmup: int,
     from poseidon_tpu_torch.runtime.engine import Engine
     from poseidon_tpu_torch.runtime.spans import recorder
 
-    eng = Engine(loop_solver(root, steps, batch_size), output_dir=root,
-                 device=device, trace_out=os.path.join(root, "loop.json"),
-                 **engine_kw)
+    eng = Engine(loop_solver(root, steps, batch_size, mean_values),
+                 output_dir=root, device=device,
+                 trace_out=os.path.join(root, "loop.json"), **engine_kw)
     try:
         batch = eng.train_net.blob_shapes["data"][0]
         zero_launches()
@@ -1742,9 +1836,9 @@ def phase_loop(card: str, root: str, step_ms: float, device=None,
               and piped["staged"] >= LOOP_STEPS,
               f"prefetch stage {piped['prefetch']}, {piped['staged']} "
               f"batches staged for {LOOP_STEPS} steps")
-    want = {"lrn_fwd": 2 * LOOP_STEPS, "lrn_bwd": 2 * LOOP_STEPS,
-            "pool_bwd": 3 * LOOP_STEPS, "sgd_update": LOOP_STEPS,
-            "flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
+    want = {k: 0 for k in piped["launches"]}
+    want.update({"lrn_fwd": 2 * LOOP_STEPS, "lrn_bwd": 2 * LOOP_STEPS,
+                 "pool_bwd": 3 * LOOP_STEPS, "sgd_update": LOOP_STEPS})
     if cuda:
         check(piped["launches"] == want,
               f"pipelined loop launches {piped['launches']} != {want}")
@@ -1758,6 +1852,256 @@ def phase_loop(card: str, root: str, step_ms: float, device=None,
            "device_img_s": device_img_s,
            "wall_s": time.perf_counter() - t_phase}
     print(f"[loop] phase wall {out['wall_s']:.1f} s", flush=True)
+    return out
+
+
+def phase_layout(card: str):
+    """[layout]: K4-, K5- and K6-NHWC against their plain versions on the
+    same channels-last tensors at AlexNet's norm1, norm2, pool1, pool2 and
+    pool5 at batch 256, f32 and bf16, each bitwise (the run fails
+    otherwise), with its time, its bytes bound and the library call on the
+    same tensor; then conv1's forward and backward with and without the
+    space-to-depth rewrite in bf16 and NHWC. Returns (K4-NHWC records,
+    K5-NHWC records, K6-NHWC records, the conv1 timings)."""
+    import torch
+    import torch.nn.functional as F
+    from poseidon_tpu_torch.numeric import policy_scope
+    from poseidon_tpu_torch.ops import lrn, pool
+    from poseidon_tpu_torch.ops.nn import conv2d
+
+    cl = torch.channels_last
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    f32, bf16 = torch.float32, torch.bfloat16
+    rand = lambda shape, dt: torch.randn(  # noqa: E731
+        shape, generator=gen, device="cuda").to(dt).contiguous(
+            memory_format=cl)
+    args = (5, LRN_ALPHA, LRN_BETA, LRN_K)
+    k4, k5, k6 = [], [], []
+    for label, shape in (("norm1", (256, 96, 55, 55)),
+                         ("norm2", (256, 256, 27, 27))):
+        for dt in (f32, bf16):
+            name = str(dt).replace("torch.", "")
+            x, g = rand(shape, dt), rand(shape, dt)
+            y = lrn.lrn_fwd_nhwc_cuda(x, *args)
+            torch.cuda.synchronize()
+            want = lrn.lrn_across_channels_plain(x, *args)
+            bitwise = torch.equal(y, want)
+            check(y.is_contiguous(memory_format=cl),
+                  f"lrn_fwd_nhwc {label}: output not channels-last")
+            rec = compare_case(
+                "lrn_fwd_nhwc", label, y, want, name,
+                lambda: lrn.lrn_fwd_nhwc_cuda(x, *args),
+                lambda: lrn.lrn_across_channels_plain(x, *args),
+                lambda: F.local_response_norm(x, *args),
+                2 * x.numel() * x.element_size(), x.numel() * (2 * 5 + 4),
+                card, extra=f" {tuple(shape)} channels-last "
+                            f"bitwise={bitwise}")
+            rec.update(shape=list(shape), bitwise=bitwise)
+            k4.append(rec)
+            check(bitwise, f"lrn_fwd_nhwc {label} {name}: not bitwise equal "
+                           f"to the plain version")
+            dx = lrn.lrn_bwd_nhwc_cuda(x, g, *args)
+            torch.cuda.synchronize()
+            want = lrn.lrn_bwd_plain(x, g, *args)
+            bitwise = torch.equal(dx, want)
+            xr = x.detach().requires_grad_(True)
+            yr = F.local_response_norm(xr, *args)
+            rec = compare_case(
+                "lrn_bwd_nhwc", label, dx, want, name,
+                lambda: lrn.lrn_bwd_nhwc_cuda(x, g, *args),
+                lambda: lrn.lrn_bwd_plain(x, g, *args),
+                lambda: torch.autograd.grad(yr, xr, g, retain_graph=True),
+                3 * x.numel() * x.element_size(), x.numel() * (3 * 5 + 10),
+                card, extra=f" {tuple(shape)} channels-last "
+                            f"bitwise={bitwise}")
+            rec.update(shape=list(shape), bitwise=bitwise)
+            k5.append(rec)
+            check(bitwise, f"lrn_bwd_nhwc {label} {name}: not bitwise equal "
+                           f"to the plain version")
+            del x, g, y, dx, want, xr, yr
+            torch.cuda.empty_cache()
+    for label, shape in (("pool1", (256, 96, 55, 55)),
+                         ("pool2", (256, 256, 27, 27)),
+                         ("pool5", (256, 256, 13, 13))):
+        for dt in (f32, bf16):
+            name = str(dt).replace("torch.", "")
+            geom = ((3, 3), (2, 2), (0, 0))
+            x = rand(shape, dt)
+            y = pool.pool_forward(x, *geom, "max")
+            check(y.is_contiguous(memory_format=cl),
+                  f"{label}: the pooling forward left channels-last")
+            g = rand(y.shape, dt)
+            dx = pool.pool_bwd_nhwc_cuda(x, g, *geom, "max")
+            torch.cuda.synchronize()
+            want = pool.pool_bwd_plain(x, g, *geom, "max")
+            again = pool.pool_bwd_nhwc_cuda(x, g, *geom, "max")
+            bitwise = torch.equal(dx, want)
+            check(torch.equal(dx, again), f"pool_bwd_nhwc {label}: a second "
+                                          f"launch differs from the first")
+            _, idx = F.max_pool2d(x, 3, 2, 0, ceil_mode=True,
+                                  return_indices=True)
+            library = lambda: torch.ops.aten.max_pool2d_with_indices_backward(  # noqa: E731,E501
+                g, x, [3, 3], [2, 2], [0, 0], [1, 1], True, idx)
+            rec = compare_case(
+                "pool_bwd_nhwc", label, dx, want, name,
+                lambda: pool.pool_bwd_nhwc_cuda(x, g, *geom, "max"),
+                lambda: pool.pool_bwd_plain(x, g, *geom, "max"), library,
+                (2 * x.numel() + g.numel()) * x.element_size(),
+                g.numel() * 9 * 2, card,
+                extra=f" max {tuple(shape)}->{tuple(y.shape[2:])} "
+                      f"channels-last bitwise={bitwise}")
+            rec.update(shape=list(shape), method="max", bitwise=bitwise)
+            k6.append(rec)
+            check(bitwise, f"pool_bwd_nhwc {label} {name}: not bitwise "
+                           f"equal to the plain version")
+            del x, y, g, dx, want, again, idx, library
+            torch.cuda.empty_cache()
+
+    # conv1 forward + backward in bf16, NHWC, with and without s2d
+    x = rand((256, 3, 227, 227), f32)
+    w = (torch.randn((96, 3, 11, 11), generator=gen, device="cuda") / 11
+         ).requires_grad_(True)
+    b = torch.zeros(96, device="cuda", requires_grad=True)
+    conv1 = {}
+    with policy_scope(compute_dtype=bf16):
+        outs = {}
+        for strategy in ("direct", "s2d"):
+            def fwd_bwd(strategy=strategy):
+                y = conv2d(x, w, b, (4, 4), (0, 0), act="relu",
+                           strategy=strategy)
+                torch.autograd.grad(y, (w, b), torch.ones_like(y))
+                return y
+
+            outs[strategy] = fwd_bwd().float()
+            fwd = lambda strategy=strategy: conv2d(  # noqa: E731
+                x, w, b, (4, 4), (0, 0), act="relu", strategy=strategy)
+            conv1[strategy] = {"fwd_bwd_ms": cuda_time_ms(fwd_bwd),
+                               "fwd_ms": cuda_time_ms(fwd)}
+            check(outs[strategy].is_contiguous(memory_format=cl),
+                  f"conv1 {strategy}: output not channels-last")
+    scale = float(outs["direct"].abs().max())
+    diff = float((outs["s2d"] - outs["direct"]).abs().max())
+    check(diff <= BF16_CONV_TOL * scale, f"conv1 s2d vs direct in bf16: "
+          f"max_abs {diff} of {scale}")
+    conv1["s2d_vs_direct_max_abs"] = diff
+    print(f"[layout] conv1 (96x3x11x11/s4 at 227, batch 256) bf16 NHWC: "
+          f"direct forward {conv1['direct']['fwd_ms']:.4f} ms, forward + "
+          f"backward {conv1['direct']['fwd_bwd_ms']:.4f} ms; s2d forward "
+          f"{conv1['s2d']['fwd_ms']:.4f} ms, forward + backward "
+          f"{conv1['s2d']['fwd_bwd_ms']:.4f} ms; s2d vs direct max_abs "
+          f"{diff:.3e} of {scale:.3e} (limit {BF16_CONV_TOL:g} of it) "
+          f"[{card}]", flush=True)
+    del x, w, b, outs
+    torch.cuda.empty_cache()
+    return k4, k5, k6, conv1
+
+
+def phase_bf16_train(card: str, root: str, f32: dict, device=None,
+                     batch_size=None) -> dict:
+    """[bf16_train]: AlexNet train_val at batch 256 under ``--bf16``'s
+    policy (bf16 compute, s2d on) planned NHWC, through Engine.train() on
+    [train]'s synthetic LMDB; ``f32`` is [train]'s result (the f32 NCHW
+    step of this call). ``device`` and ``batch_size`` are for a CPU
+    rehearsal at a cut batch only."""
+    import torch
+    from poseidon_tpu_torch.numeric import policy_scope
+    from poseidon_tpu_torch.runtime.engine import Engine
+
+    t_phase = time.perf_counter()
+    cuda = torch.device(device or "cuda").type == "cuda"
+    out = {}
+    with policy_scope(compute_dtype=torch.bfloat16, conv_s2d=True,
+                      conv_layout="NHWC"):
+        sp = alexnet_solver(root, batch_size, write=False,
+                            iters=BF16_TRAIN_ITERS,
+                            test_interval=BF16_TEST_INTERVAL,
+                            prefix="alexnet_bf16")
+        eng = Engine(sp, output_dir=root, device=device)
+        try:
+            net = eng.train_net
+            check(net.conv_layout == "NHWC", f"bf16 net planned "
+                                             f"{net.conv_layout}")
+            print(f"[bf16_train] AlexNet train net on {eng.device}: "
+                  f"{net.param_count()} params, batch "
+                  f"{net.blob_shapes['data']}, bf16 compute, conv_s2d on, "
+                  f"NHWC (channels-last) [{card}]", flush=True)
+            zero_launches()
+            eng.train()
+            sync(eng.device)
+            counts = read_launches()
+            steps = eng.stats["train_iters"]
+            test_fwd = TEST_ITER * (1 + BF16_TRAIN_ITERS
+                                    // BF16_TEST_INTERVAL)
+            want = {k: 0 for k in counts}
+            if cuda:
+                want.update({"lrn_fwd_nhwc": 2 * (steps + test_fwd),
+                             "lrn_bwd_nhwc": 2 * steps,
+                             "pool_bwd_nhwc": 3 * steps,
+                             "sgd_update": steps})
+            print(f"[bf16_train] Engine.train(): {steps} steps + {test_fwd} "
+                  f"test forwards; launches {counts} (expected {want})",
+                  flush=True)
+            check(steps == BF16_TRAIN_ITERS, f"trained {steps} steps")
+            check(counts == want, f"bf16 launch counts {counts} != {want}")
+            batch = eng._next_batch(eng.train_pipelines)
+            with torch.no_grad():
+                blobs = net.apply(eng.params, batch, train=True,
+                                  keep_blobs=True).blobs
+            for name in ("conv1", "norm1", "pool1", "conv5", "pool5"):
+                check(blobs[name].dtype == torch.bfloat16,
+                      f"{name} is {blobs[name].dtype} under bf16")
+                check(blobs[name].is_contiguous(
+                          memory_format=torch.channels_last),
+                      f"{name} is not channels-last under NHWC")
+            del blobs
+            out["max_param_diff_vs_plain"] = phase_step_vs_plain(
+                eng, batch, BF16_STEP_TOL, "bf16_train")
+            if cuda:
+                prof = phase_train_profile(eng, batch, card, "bf16_train",
+                                           CNN_NHWC_KERNEL_NAMES)
+                out.update(prof)
+                speedup = f32["step_ms"] / prof["step_ms"]
+                print(f"[bf16_train] device step {prof['step_ms']:.3f} ms "
+                      f"(bf16, NHWC) vs {f32['step_ms']:.3f} ms (f32, NCHW, "
+                      f"[train] of this run): {speedup:.3f}x; transpose "
+                      f"kernels a step {prof['transpose_launches']}"
+                      f" vs {f32['transpose_launches']}, copy kernels "
+                      f"{prof['copy_launches']} vs {f32['copy_launches']}; "
+                      f"peak device memory {prof['peak_bytes'] / 2**30:.2f} "
+                      f"vs {f32['peak_bytes'] / 2**30:.2f} GiB [{card}]",
+                      flush=True)
+                check(prof["transpose_launches"] < f32["transpose_launches"],
+                      f"the NHWC step runs {prof['transpose_launches']} "
+                      f"transpose kernels, the NCHW one "
+                      f"{f32['transpose_launches']}")
+            out["launches"] = counts
+        finally:
+            eng.close()
+        # the loop's img/s through the uint8 device transform
+        loop = run_loop(root, device, batch_size, LOOP_STEPS, LOOP_WARMUP,
+                        mean_values=LOOP_MEAN_VALUES, device_prefetch=2,
+                        max_in_flight=2, device_transform=True)
+    loop_want = {k: 0 for k in loop["launches"]}
+    if cuda:
+        loop_want.update({"lrn_fwd_nhwc": 2 * LOOP_STEPS,
+                          "lrn_bwd_nhwc": 2 * LOOP_STEPS,
+                          "pool_bwd_nhwc": 3 * LOOP_STEPS,
+                          "sgd_update": LOOP_STEPS})
+    print(f"[bf16_train] pipelined loop (native uint8 batches, the device "
+          f"transform, prefetch 2, window 2; mean_value variant of the data "
+          f"layer): {loop['img_s']:.1f} img/s over steps "
+          f"{LOOP_WARMUP}-{LOOP_WARMUP + loop['steps'] - 1}, data-wait share "
+          f"{loop['data_wait_share']:.3f}, routes {loop['routes']}, prefetch "
+          f"{loop['prefetch']}; launches {loop['launches']} [{card}]",
+          flush=True)
+    check(loop["routes"] == ["native-u8"], f"bf16 loop routes "
+                                           f"{loop['routes']}")
+    if cuda:
+        check(loop["launches"] == loop_want,
+              f"bf16 loop launches {loop['launches']} != {loop_want}")
+    out["loop"] = loop
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"[bf16_train] phase wall {out['wall_s']:.1f} s", flush=True)
     return out
 
 
@@ -2370,15 +2714,16 @@ def phase_topk(card: str, root: str, device=None, batch_size=None,
     return out
 
 
-def phase_digits(card: str) -> float:
+def phase_digits(card: str, flags=(), tag: str = "digits") -> float:
     """The CLI on real data: the digits solver, 1000 iterations, on the
-    card; returns the final test accuracy."""
+    card (its default layout: NHWC there), with ``flags`` added; returns
+    the final test accuracy."""
     here = os.path.dirname(os.path.abspath(__file__))
     with tempfile.TemporaryDirectory() as out_dir:
         t0 = time.perf_counter()
         proc = subprocess.run(
             [sys.executable, "-m", "poseidon_tpu_torch", "train",
-             f"--solver={DIGITS_SOLVER}", "--output_dir", out_dir],
+             f"--solver={DIGITS_SOLVER}", "--output_dir", out_dir, *flags],
             cwd=here, capture_output=True, text=True, timeout=900)
         wall = time.perf_counter() - t0
         check(proc.returncode == 0,
@@ -2389,8 +2734,15 @@ def phase_digits(card: str) -> float:
             rows = list(csv.DictReader(f))
     final = rows[-1]
     acc = float(final["accuracy"])
-    print(f"[digits] python -m poseidon_tpu_torch train --solver="
-          f"{DIGITS_SOLVER}: {len(rows)} test rows, iteration "
+    policy = [ln for ln in proc.stdout.splitlines()
+              if "numeric policy:" in ln]
+    check(bool(policy), "the train command logged no numeric policy")
+    print(f"[{tag}] python -m poseidon_tpu_torch train --solver="
+          f"{DIGITS_SOLVER} {' '.join(flags)}: {policy[0].strip()}",
+          flush=True)
+    print(f"[{tag}] python -m poseidon_tpu_torch train --solver="
+          f"{DIGITS_SOLVER} {' '.join(flags)}: {len(rows)} test rows, "
+          f"iteration "
           f"{final['iter']} accuracy {acc:.4f} loss {float(final['loss']):.4f}"
           f" (recorded for the JAX package: 0.9417; required >= "
           f"{DIGITS_MIN_ACC}) in {wall:.1f} s [{card}]", flush=True)
@@ -2730,11 +3082,15 @@ def grad_errors(got, want):
 def phase_lm_train(card: str, device=None, preset: str = LMT_PRESET,
                    batch: int = LMT_BATCH, seq: int = LMT_SEQ,
                    loss_steps: int = LMT_LOSS_STEPS,
-                   per_step=LMT_LAUNCHES) -> dict:
+                   per_step=LMT_LAUNCHES, tag: str = "lm_train",
+                   step_tol=STEP_TOL, grad_tol: float = GRAD_TOL,
+                   peak=("float32", F32_OPS_PER_S)) -> dict:
     """The LM training slice: gpt_small at batch 8 x seq 1024 with remat,
-    trained by the port's build_dp_sp_train_step on the card. ``device``,
-    ``preset``, the shape and ``per_step`` (0 on the CPU, where the plain
-    versions count nothing) are for a CPU rehearsal only."""
+    trained by the port's build_dp_sp_train_step on the card, under the
+    numeric policy the caller set (``[bf16_lm_train]`` runs it under bf16
+    with its tolerances and the bf16 peak). ``device``, ``preset``, the
+    shape and ``per_step`` (0 on the CPU, where the plain versions count
+    nothing) are for a CPU rehearsal only."""
     import dataclasses
     import functools
     import numpy as np
@@ -2748,7 +3104,7 @@ def phase_lm_train(card: str, device=None, preset: str = LMT_PRESET,
     on_card = dev.type == "cuda"
     cfg, sp, params, toks, tgts = lm_train_setup(preset, batch, seq, dev)
     n_par = cfg.n_params()
-    print(f"[lm_train] {preset} on {dev}: {n_par} params (vocab "
+    print(f"[{tag}] {preset} on {dev}: {n_par} params (vocab "
           f"{cfg.vocab_size}, d {cfg.d_model}, {cfg.n_heads} heads, "
           f"{cfg.n_layers} layers, d_ff {cfg.d_ff}, max_seq {cfg.max_seq}), "
           f"remat {cfg.remat!r}; batch {batch} x seq {seq}; SGD base_lr "
@@ -2768,7 +3124,7 @@ def phase_lm_train(card: str, device=None, preset: str = LMT_PRESET,
     counts = read_launches()
     want = {k: 0 for k in counts}
     want.update({k: n * loss_steps for k, n in per_step.items()})
-    print(f"[lm_train] {loss_steps} steps: launches {counts} (expected "
+    print(f"[{tag}] {loss_steps} steps: launches {counts} (expected "
           f"{want}: per step {dict(per_step)}); loss {losses[0]:.6f} -> "
           f"{losses[-1]:.6f} [{', '.join(f'{x:.4f}' for x in losses)}]",
           flush=True)
@@ -2807,7 +3163,7 @@ def phase_lm_train(card: str, device=None, preset: str = LMT_PRESET,
     sync(dev)
     check(read_launches() == before,
           "the plain-version LM step launched a kernel: the swap did not take")
-    rtol, atol = STEP_TOL
+    rtol, atol = step_tol
     check(abs(float(mk["loss"]) - float(mp["loss"]))
           <= atol + rtol * abs(float(mp["loss"])),
           f"LM step loss with kernels {float(mk['loss'])} vs plain "
@@ -2822,12 +3178,12 @@ def phase_lm_train(card: str, device=None, preset: str = LMT_PRESET,
                   f"LM param {n}/{l} after one step: kernels vs plain "
                   f"max_abs {err}")
     g_err, g_leaf = grad_errors(grads_k, grads_p)
-    print(f"[lm_train] one step, kernels vs plain flash versions on the "
+    print(f"[{tag}] one step, kernels vs plain flash versions on the "
           f"card: loss {float(mk['loss'])!r} vs {float(mp['loss'])!r}, every "
           f"updated param within rtol {rtol:g} atol {atol:g} (max_abs "
           f"{worst_p:.3e}); gradients max|diff|/max|grad| {g_err:.3e} at "
-          f"{g_leaf} (limit {GRAD_TOL:g})", flush=True)
-    check(g_err <= GRAD_TOL, f"LM gradients, kernels vs plain: {g_err} at "
+          f"{g_leaf} (limit {grad_tol:g})", flush=True)
+    check(g_err <= grad_tol, f"LM gradients, kernels vs plain: {g_err} at "
                              f"{g_leaf}")
     del pk, pp, grads_p, mk, mp
 
@@ -2839,7 +3195,7 @@ def phase_lm_train(card: str, device=None, preset: str = LMT_PRESET,
     loss_n, grads_n, peak_none = loss_and_grads_peak(cfg_none)
     none_counts = read_launches()
     r_err, r_leaf = grad_errors(grads_k, grads_n)
-    print(f"[lm_train] remat {cfg.remat!r} vs none: loss {float(loss_k)!r} "
+    print(f"[{tag}] remat {cfg.remat!r} vs none: loss {float(loss_k)!r} "
           f"vs {float(loss_n)!r} (equal: {bool(torch.equal(loss_k, loss_n))});"
           f" gradients max|diff|/max|grad| {r_err:.3e} at {r_leaf}; launches "
           f"without remat {none_counts}; a forward and backward's peak above "
@@ -2847,7 +3203,7 @@ def phase_lm_train(card: str, device=None, preset: str = LMT_PRESET,
           f"remat, {peak_none / 2**30:.3f} GiB without [{card}]", flush=True)
     check(bool(torch.equal(loss_k, loss_n)),
           f"LM loss with remat {float(loss_k)} != without {float(loss_n)}")
-    check(r_err <= GRAD_TOL, f"LM gradients, remat vs none: {r_err} at "
+    check(r_err <= grad_tol, f"LM gradients, remat vs none: {r_err} at "
                              f"{r_leaf}")
     del grads_k, grads_n, p0, s0
 
@@ -2861,7 +3217,7 @@ def phase_lm_train(card: str, device=None, preset: str = LMT_PRESET,
             for l in a_tree[n]:
                 check(torch.equal(a_tree[n][l].cpu(), b_tree[n][l]),
                       f"{n}/{l} did not restore bitwise")
-    print(f"[lm_train] snapshot {os.path.basename(path)} restored bitwise "
+    print(f"[{tag}] snapshot {os.path.basename(path)} restored bitwise "
           f"(params and momentum)", flush=True)
     del rp, rstate
 
@@ -2875,7 +3231,7 @@ def phase_lm_train(card: str, device=None, preset: str = LMT_PRESET,
            "launches_no_remat": none_counts}
     if on_card:
         out.update(phase_lm_train_timing(step, params, state, toks, tgts,
-                                         n_par, card))
+                                         n_par, card, tag, peak))
         for name, n in out["launches_per_step"].items():
             ms = out["port_kernels"].get(name, {}).get("ms", 0.0)
             check(n == 0 or ms > 0,
@@ -2886,15 +3242,18 @@ def phase_lm_train(card: str, device=None, preset: str = LMT_PRESET,
 
 
 def phase_lm_train_timing(step, params, state, toks, tgts, n_par: int,
-                          card: str) -> dict:
+                          card: str, tag: str = "lm_train",
+                          peak=("float32", F32_OPS_PER_S)) -> dict:
     """Device step time by CUDA events over TIMED_STEPS steps, tokens/s,
     MFU by the 6*P*T convention and the executed share with the recompute
-    (8*P*T), both over 67 TFLOP/s, the peak device memory, and the top
-    kernels of one profiled step with K1, K2 and K3's shares."""
+    (8*P*T), both over ``peak`` (the dense rate of the products' type: f32
+    67, bf16 989 TFLOP/s), the peak device memory, and the top kernels of
+    one profiled step with K1, K2 and K3's shares."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    peak_name, peak_ops = peak
     n_tok = toks.numel()
     for _ in range(2):
         params, state, _m = step(params, state, toks, tgts)
@@ -2908,17 +3267,18 @@ def phase_lm_train_timing(step, params, state, toks, tgts, n_par: int,
     end.record()
     torch.cuda.synchronize()
     step_ms = start.elapsed_time(end) / TIMED_STEPS
-    peak = torch.cuda.max_memory_allocated()
+    peak_mem = torch.cuda.max_memory_allocated()
     check(bool(torch.isfinite(m["loss"])), "non-finite loss in timed steps")
     tok_s = n_tok / step_ms * 1e3
-    mfu = 6.0 * n_par * n_tok / (step_ms / 1e3) / F32_OPS_PER_S
-    executed = 8.0 * n_par * n_tok / (step_ms / 1e3) / F32_OPS_PER_S
-    print(f"[lm_train] device step {step_ms:.3f} ms (CUDA events, mean of "
+    mfu = 6.0 * n_par * n_tok / (step_ms / 1e3) / peak_ops
+    executed = 8.0 * n_par * n_tok / (step_ms / 1e3) / peak_ops
+    print(f"[{tag}] device step {step_ms:.3f} ms (CUDA events, mean of "
           f"{TIMED_STEPS} steps, fixed on-device batch of {n_tok} tokens): "
           f"{tok_s:.1f} tokens/s; MFU {mfu:.4f} (6*P*T, P={n_par}, T={n_tok},"
-          f" over f32 67 TFLOP/s); executed-FLOP share with the recompute "
-          f"{executed:.4f} (8*P*T); peak device memory {peak / 2**30:.3f} GiB"
-          f" [{card}]", flush=True)
+          f" over {peak_name} {peak_ops / 1e12:g} TFLOP/s, the H100 SXM's "
+          f"dense peak); executed-FLOP share with the recompute "
+          f"{executed:.4f} (8*P*T); peak device memory "
+          f"{peak_mem / 2**30:.3f} GiB [{card}]", flush=True)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -2933,7 +3293,7 @@ def phase_lm_train_timing(step, params, state, toks, tgts, n_par: int,
     busy = sum(per_kernel.values())
     ours = {}
     if busy:
-        print(f"[lm_train] profiled step: device busy {busy / 1e3:.3f} ms of "
+        print(f"[{tag}] profiled step: device busy {busy / 1e3:.3f} ms of "
               f"{wall_ms:.3f} ms wall ({len(per_kernel)} kernels); top 10:",
               flush=True)
         for name, us in sorted(per_kernel.items(),
@@ -2944,14 +3304,15 @@ def phase_lm_train_timing(step, params, state, toks, tgts, n_par: int,
             us = sum(v for k, v in per_kernel.items()
                      if f"{kernel}_kernel" in k)
             ours[kernel] = {"ms": us / 1e3, "share": us / busy}
-        print("[lm_train] port kernels in the profiled step: " + ", ".join(
+        print(f"[{tag}] port kernels in the profiled step: " + ", ".join(
             f"{k} {v['ms']:.3f} ms ({100 * v['share']:.1f}%)"
             for k, v in ours.items()) + f" [{card}]", flush=True)
     else:
-        print("[lm_train] torch.profiler: no device time recorded",
+        print(f"[{tag}] torch.profiler: no device time recorded",
               flush=True)
     return {"step_ms": step_ms, "tokens_per_s": tok_s, "mfu": mfu,
-            "executed_share": executed, "peak_bytes": peak,
+            "mfu_peak": f"{peak_name} {peak_ops / 1e12:g} TFLOP/s",
+            "executed_share": executed, "peak_bytes": peak_mem,
             "profiled_busy_ms": busy / 1e3, "profiled_wall_ms": wall_ms,
             "port_kernels": ours}
 
@@ -3011,15 +3372,27 @@ def phase_lm_corpus(card: str, extra_args=()) -> dict:
             "launches": counts}
 
 
+def bf16_launch(records, case: str) -> dict:
+    """The bf16 record of ``case`` (the gpt_small training launch under
+    --bf16): its times, bound and library time."""
+    rec = next(r for r in records if r["case"] == case
+               and r["dtype"] == "bfloat16")
+    return {k: rec.get(k) for k in ("ms", "device_ms", "bound_ms", "bound_by",
+                                    "library_ms", "plain_ms",
+                                    "max_abs_err")}
+
+
 def kernel_entry(name: str, replaces: str, launches: int, records,
-                 main_cases, source=None, **extra) -> dict:
+                 main_cases, source=None, dtype: str = "float32",
+                 **extra) -> dict:
     """One kernel's entry of the JSON line: launches on the main path, the
-    largest error over every case, and the sums of the main-path cases."""
+    largest error over every case, and the sums of the main-path cases in
+    the main path's ``dtype``."""
     main = [r for r in records if r["case"] in main_cases
-            and r["dtype"] == "float32"]
+            and r["dtype"] == dtype]
     libs = [r["library_ms"] for r in main]
     least, by = bound_ms(sum(r["bytes"] for r in main),
-                         sum(r["ops"] for r in main))
+                         sum(r["ops"] for r in main), dtype)
     return {"name": name, "route": "cuda",
             "source": source or f"poseidon_tpu_torch/ops/csrc/{name}.cu",
             "replaces": replaces, "launches": launches,
@@ -3029,7 +3402,8 @@ def kernel_entry(name: str, replaces: str, launches: int, records,
             "bound_ms": least, "bound_by": by,
             "library_ms": (None if any(v is None for v in libs)
                            else sum(libs)),
-            "main_cases": list(main_cases), **extra, "cases": records}
+            "main_cases": list(main_cases), "main_dtype": dtype, **extra,
+            "cases": records}
 
 
 def main() -> int:
@@ -3050,6 +3424,7 @@ def main() -> int:
               f"device {torch.cuda.get_device_name(0)}", flush=True)
         phase_build()
         from poseidon_tpu_torch.core.net import Net
+        from poseidon_tpu_torch.numeric import policy_scope
         from poseidon_tpu_torch.proto.messages import load_net
         arena_total = Net(load_net(ALEXNET), "TEST",
                           device="cpu").param_count()
@@ -3059,6 +3434,7 @@ def main() -> int:
         k7 = phase_sgd(card, arena_total)
         k1, fwd_attrs = phase_flash(card)
         k2, k3, bwd_attrs = phase_flash_bwd(card)
+        k4n, k5n, k6n, conv1 = phase_layout(card)
         serving_launches, ex, solo = phase_slice(card)
         phase_net_checks(ex)
         phase_breakdown(ex, card, solo["p50_ms"])
@@ -3069,6 +3445,8 @@ def main() -> int:
             torch.cuda.empty_cache()
             loop = phase_loop(card, root, train["step_ms"])
             torch.cuda.empty_cache()
+            bf16 = phase_bf16_train(card, root, train)
+            torch.cuda.empty_cache()
             dp = phase_dp(card, root)
             torch.cuda.empty_cache()
             topk = phase_topk(card, root)
@@ -3077,13 +3455,21 @@ def main() -> int:
         torch.cuda.empty_cache()
         lm_train = phase_lm_train(card)
         torch.cuda.empty_cache()
+        with policy_scope(compute_dtype=torch.bfloat16):
+            bf16_lm = phase_lm_train(card, tag="bf16_lm_train",
+                                     step_tol=BF16_LM_STEP_TOL,
+                                     grad_tol=BF16_LM_GRAD_TOL,
+                                     peak=("bfloat16", OPS_PER_S["bfloat16"]))
+        torch.cuda.empty_cache()
         lm_corpus = phase_lm_corpus(card)
         digits_acc = phase_digits(card)
+        bf16_digits_acc = phase_digits(card, ("--bf16",), "bf16_digits")
     except Exception:  # noqa: BLE001 — any failed phase fails the smoke
         traceback.print_exc()
         return 1
 
     launches = train["launches"]
+    bf16_launches = bf16["launches"]
     dp_launches = dp["launches"]
     topk_launches = topk["launches"]
     loop_launches = loop["pipelined"]["launches"]
@@ -3094,27 +3480,35 @@ def main() -> int:
                                        "training": launches["lrn_fwd"],
                                        "dp": dp_launches["lrn_fwd"],
                                        "topk": topk_launches["lrn_fwd"],
-                                       "loop": loop_launches["lrn_fwd"]},
+                                       "loop": loop_launches["lrn_fwd"],
+                                       "bf16_train": bf16_launches[
+                                           "lrn_fwd"]},
                      attributes=k4_attrs),
         kernel_entry("lrn_bwd", "poseidon_tpu/ops/pallas_kernels.py:601",
                      launches["lrn_bwd"], k5, ("norm1", "norm2"),
                      launches_by_path={"training": launches["lrn_bwd"],
                                        "dp": dp_launches["lrn_bwd"],
                                        "topk": topk_launches["lrn_bwd"],
-                                       "loop": loop_launches["lrn_bwd"]}),
+                                       "loop": loop_launches["lrn_bwd"],
+                                       "bf16_train": bf16_launches[
+                                           "lrn_bwd"]}),
         kernel_entry("pool_bwd", "poseidon_tpu/ops/pallas_kernels.py:741",
                      launches["pool_bwd"], k6, ("pool1", "pool2", "pool5"),
                      launches_by_path={"training": launches["pool_bwd"],
                                        "dp": dp_launches["pool_bwd"],
                                        "topk": topk_launches["pool_bwd"],
-                                       "loop": loop_launches["pool_bwd"]},
+                                       "loop": loop_launches["pool_bwd"],
+                                       "bf16_train": bf16_launches[
+                                           "pool_bwd"]},
                      attributes=k6_attrs),
         kernel_entry("sgd_update", "poseidon_tpu/ops/pallas_kernels.py:838",
                      launches["sgd_update"], k7, ("alexnet arena",),
                      launches_by_path={"training": launches["sgd_update"],
                                        "dp": dp_launches["sgd_update"],
                                        "topk": topk_launches["sgd_update"],
-                                       "loop": loop_launches["sgd_update"]}),
+                                       "loop": loop_launches["sgd_update"],
+                                       "bf16_train": bf16_launches[
+                                           "sgd_update"]}),
         kernel_entry("flash_fwd", "poseidon_tpu/ops/pallas_kernels.py:77",
                      lm["flash_launches"], k1, ("prefill 256",),
                      launches_by_path={"lm_serving": lm["flash_launches"],
@@ -3126,7 +3520,11 @@ def main() -> int:
                                        "cnn_training": launches["flash_fwd"],
                                        "dp": dp_launches["flash_fwd"],
                                        "topk": topk_launches["flash_fwd"],
-                                       "loop": loop_launches["flash_fwd"]},
+                                       "loop": loop_launches["flash_fwd"],
+                                       "bf16_lm_training": bf16_lm[
+                                           "launches"]["flash_fwd"],
+                                       "bf16_train": bf16_launches[
+                                           "flash_fwd"]},
                      launches_per_prefill=(lm["flash_launches"]
                                            // max(1, lm["prefills"])),
                      profiled_ms_per_prefill_256=lm["prefill_flash_ms"],
@@ -3139,6 +3537,11 @@ def main() -> int:
                          k: next(r for r in k1 if r["case"] == "train")[k]
                          for k in ("ms", "device_ms", "bound_ms",
                                    "bound_3xtf32_ms", "library_ms")},
+                     bf16_training_launch=bf16_launch(k1, "train"),
+                     launches_per_bf16_training_step=bf16_lm[
+                         "launches_per_step"]["flash_fwd"],
+                     profiled_ms_per_bf16_training_step=bf16_lm[
+                         "port_kernels"]["flash_fwd"]["ms"],
                      attributes=fwd_attrs),
     ]
     for name, line, recs in (("flash_dq", 208, k2), ("flash_dkv", 255, k3)):
@@ -3153,15 +3556,46 @@ def main() -> int:
                               "cnn_training": launches[name],
                               "dp": dp_launches[name],
                               "topk": topk_launches[name],
-                              "loop": loop_launches[name]},
+                              "loop": loop_launches[name],
+                              "bf16_lm_training": bf16_lm["launches"][name],
+                              "bf16_train": bf16_launches[name]},
             profiled_ms_per_training_step=lm_train["port_kernels"][name][
                 "ms"],
+            bf16_training_launch=bf16_launch(recs, "train main"),
+            launches_per_bf16_training_step=bf16_lm["launches_per_step"][
+                name],
+            profiled_ms_per_bf16_training_step=bf16_lm["port_kernels"][
+                name]["ms"],
             bound_3xtf32_ms=sum(r["bound_3xtf32_ms"] for r in recs
                                 if r["case"] == "train main"
                                 and r["dtype"] == "float32"),
             attributes_d64={dt: a[f"{name}_kernel"]
                             for dt, a in bwd_attrs.items()},
             plain_and_library_cover="dq, dk and dv together"))
+    # the channels-last kernels, whose main path is [bf16_train]'s
+    # Engine.train() (bf16, NHWC)
+    for name, line, src, recs, cases in (
+            ("lrn_fwd_nhwc", 443, "lrn_fwd", k4n, ("norm1", "norm2")),
+            ("lrn_bwd_nhwc", 601, "lrn_bwd", k5n, ("norm1", "norm2")),
+            ("pool_bwd_nhwc", 741, "pool_bwd", k6n,
+             ("pool1", "pool2", "pool5"))):
+        kernels.append(kernel_entry(
+            name, f"poseidon_tpu/ops/pallas_kernels.py:{line}",
+            bf16_launches[name], recs, cases,
+            source=f"poseidon_tpu_torch/ops/csrc/{src}.cu",
+            dtype="bfloat16",
+            launches_by_path={"bf16_train": bf16_launches[name],
+                              "bf16_loop": bf16["loop"]["launches"][name],
+                              "training": launches[name],
+                              "loop": loop_launches[name],
+                              "dp": dp_launches[name],
+                              "topk": topk_launches[name],
+                              "lm_training": lm_train["launches"][name]},
+            f32_main={k: sum(r[k] for r in recs if r["case"] in cases
+                             and r["dtype"] == "float32")
+                      for k in ("ms", "plain_ms", "library_ms", "bytes")},
+            profiled_ms_per_bf16_training_step=bf16["port_kernels"][name][
+                "ms"]))
     summary = {"train_step_ms": train["step_ms"],
                "train_peak_bytes": train["peak_bytes"],
                "train_loop": train["loop"],
@@ -3173,6 +3607,10 @@ def main() -> int:
                "lm_serving": lm,
                "lm_training": lm_train,
                "lm_corpus": lm_corpus,
+               "layout_conv1": conv1,
+               "bf16_train": bf16,
+               "bf16_lm_training": bf16_lm,
+               "bf16_digits_final_accuracy": bf16_digits_acc,
                "wall_s": time.perf_counter() - t_start}
     print(f"[summary] {json.dumps(summary)}", flush=True)
     print(card, flush=True)

@@ -1,10 +1,15 @@
-"""Step-pipeline policy of the training loop (the port's copy of
-``poseidon_tpu/config.py``'s ``PipelineConfig``; the rest of that module is
-later work)."""
+"""Configuration of the port (the port's copy of ``poseidon_tpu/config.py``
+for what it covers): the step-pipeline policy of the training loop
+(``PipelineConfig``) and the numeric policy, whose names are re-exported
+from ``numeric.py`` as the JAX package's ``config`` re-exports them. The
+fault-tolerance and mesh configs are later work."""
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+
+from .numeric import (Policy, policy, policy_scope,  # noqa: F401
+                      resolve_conv_layout, set_perf_policy, set_policy)
 
 
 @dataclass

@@ -111,6 +111,8 @@ class ConvolutionLayer(Layer):
         # set by the net's epilogue plan when an in-place ReLU immediately
         # consumes this conv's top
         self.fused_relu_slope: Optional[float] = None
+        # the net's conv lowering ("" leaves it to the policy's conv_s2d)
+        self.conv_strategy: str = ""
 
     def setup(self, bottom_shapes):
         cp = self.lp.convolution_param
@@ -138,7 +140,8 @@ class ConvolutionLayer(Layer):
         act = "relu" if self.fused_relu_slope is not None else None
         return [NN.conv2d(x, params["w"], params.get("b"), self.stride,
                           self.pad, self.group, act=act,
-                          act_slope=self.fused_relu_slope or 0.0)
+                          act_slope=self.fused_relu_slope or 0.0,
+                          strategy=self.conv_strategy)
                 for x in bottoms]
 
 

@@ -1,5 +1,5 @@
 """Net: a prototxt-defined DAG as an ``nn.Module`` (the port of
-``poseidon_tpu/core/net.py``, NCHW, TRAIN and TEST phases).
+``poseidon_tpu/core/net.py``, TRAIN and TEST phases, NCHW or NHWC).
 
 Construction filters the layers by phase (``filter_net``), takes the deploy
 net's ``input:``/``input_dim:`` blobs and the data layers' tops (shapes
@@ -8,6 +8,21 @@ inputs, infers every blob shape, declares the parameters, and folds each
 in-place ReLU that directly follows a conv into the conv's epilogue
 (``_plan_epilogues``, the same fold the JAX package makes, so both give the
 same blobs).
+
+The activation layout is a graph-level plan fixed at construction
+(``conv_layout``: the argument, else the numeric policy's; "auto" resolved
+per device by ``numeric.resolve_conv_layout``), applied the torch way:
+under "NHWC" every 4-D external input becomes ``torch.channels_last`` at
+entry and the bottoms of the spatial layers (conv, pooling, LRN) are
+brought to it, as JAX's ``_plan_layouts`` runs them NHWC; ReLU and concat
+keep their inputs' memory format; logical shapes stay NCHW, so the inner
+product's flatten is the genuine boundary (one gather into Caffe's
+C-major order). A 4-D dropout draws its mask over the logical NCHW shape,
+so its units are the same in both layouts (JAX makes dropout a
+canonical-layout layer for this). Parameters, their gradients and
+snapshots stay canonical OIHW/NCHW in either layout. ``conv_strategy``
+(the argument, else the policy's) is resolved the same way and handed to
+every conv layer.
 
 Parameters are a plain ``{layer: {"w": tensor, "b": tensor}}`` tree on the
 net's device, the layout of the JAX package's params (OIHW conv weights,
@@ -32,7 +47,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..numeric import apply_f32_policy, resolve_device
+from ..numeric import (apply_policy, check_conv_strategy, policy,
+                       resolve_conv_layout, resolve_device)
 from ..proto.messages import LayerParameter, NetParameter, NetState
 from .blob import ParamDef
 from .fillers import fill
@@ -40,6 +56,19 @@ from .layers import DATA_SOURCE_TYPES, Layer, create_layer
 
 Shape = Tuple[int, ...]
 Params = Dict[str, Dict[str, torch.Tensor]]
+
+
+# the layers that run natively in the planned layout (JAX's
+# LAYOUT_SPATIAL); the others keep whatever memory format they are given
+SPATIAL_TYPES = frozenset({"CONVOLUTION", "POOLING", "LRN"})
+
+
+def to_channels_last(t: torch.Tensor) -> torch.Tensor:
+    """A 4-D tensor in ``torch.channels_last`` (itself when it already is);
+    anything else as it is."""
+    if t.dim() != 4:
+        return t
+    return t.contiguous(memory_format=torch.channels_last)
 
 
 @dataclass
@@ -70,10 +99,17 @@ def filter_net(net_param: NetParameter,
 
 class Net(nn.Module):
     def __init__(self, net_param: NetParameter, phase: str = "TEST",
-                 device=None, source_shapes: Optional[Dict[str, Shape]] = None):
+                 device=None, source_shapes: Optional[Dict[str, Shape]] = None,
+                 conv_layout: Optional[str] = None,
+                 conv_strategy: Optional[str] = None):
         super().__init__()
         self.device = resolve_device(device)
-        apply_f32_policy()
+        apply_policy()
+        self.conv_layout = resolve_conv_layout(
+            conv_layout or policy().conv_layout, self.device.type)
+        self.conv_strategy = check_conv_strategy(
+            conv_strategy if conv_strategy is not None
+            else policy().conv_strategy)
         self.net_param = net_param
         self.phase = phase
         self.state = NetState(phase=phase)
@@ -130,6 +166,8 @@ class Net(nn.Module):
         for layer in self.layers:
             if layer.TYPE == "DROPOUT":
                 layer.generator = self.generator
+            if layer.TYPE == "CONVOLUTION":
+                layer.conv_strategy = self.conv_strategy
 
         produced, consumed = [], set()
         for layer in self.layers:
@@ -237,10 +275,14 @@ class Net(nn.Module):
                                "params=")
         if train is None:
             train = self.phase == "TRAIN"
-        blobs: Dict[str, torch.Tensor] = dict(inputs)
+        nhwc = self.conv_layout == "NHWC"
+        blobs: Dict[str, torch.Tensor] = {
+            k: to_channels_last(v) if nhwc else v for k, v in inputs.items()}
         loss = torch.zeros((), dtype=torch.float32, device=self.device)
         for layer in self.layers:
             bottoms = [blobs[b] for b in layer.lp.bottom]
+            if nhwc and layer.TYPE in SPATIAL_TYPES:
+                bottoms = [to_channels_last(b) for b in bottoms]
             lparams = params.get(layer.name, {})
             if comm is not None and layer.name in comm.sfb_layers:
                 tops = [comm.inner_product(bottoms[0], lparams["w"],

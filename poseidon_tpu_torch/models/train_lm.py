@@ -15,9 +15,11 @@ JAX script's display lines (``step N  loss L  T tok/s``); ``--generate N``
 greedy-decodes N bytes from a 32-byte corpus prompt with the port's dense
 ``generate``.
 
-Only ``--mode sp`` at one device is ported: ``tp``, ``pp``, ``ep``,
-``--bf16`` and a data or mode axis larger than 1 raise, naming the part of
-the ROADMAP that brings each.
+``--bf16`` sets ``compute_dtype`` to bfloat16 and nothing else, as the JAX
+script does (no s2d: the LM has no conv); the policy holds for ``main``
+and is restored when it returns. Only ``--mode sp`` at one device is
+ported: ``tp``, ``pp``, ``ep`` and a data or mode axis larger than 1
+raise, naming the part of the ROADMAP that brings each.
 """
 
 from __future__ import annotations
@@ -68,9 +70,6 @@ def check_supported(args: argparse.Namespace) -> None:
     if args.mode != "sp":
         raise NotImplementedError(f"--mode {args.mode}: {_LATER[args.mode]} "
                                   f"is not ported yet; use --mode sp")
-    if args.bf16:
-        raise NotImplementedError("--bf16: the bf16 perf policy is not "
-                                  "ported yet (ROADMAP, queue A item 2)")
     if args.data_axis > 1 or args.par_axis > 1:
         raise NotImplementedError(
             f"--data_axis {args.data_axis} --par_axis {args.par_axis}: more "
@@ -91,6 +90,16 @@ def main(argv: Optional[List[str]] = None) -> None:
     args = parse_args(argv)
     check_supported(args)
 
+    import torch
+
+    from ..numeric import policy_scope
+
+    with policy_scope(**({"compute_dtype": torch.bfloat16} if args.bf16
+                         else {})):
+        _main(args)
+
+
+def _main(args: argparse.Namespace) -> None:
     import numpy as np
     import torch
 
@@ -101,7 +110,8 @@ def main(argv: Optional[List[str]] = None) -> None:
     from .generate import generate
 
     device = resolve_device(args.device)
-    print(f"device: {device} (one device: data=1 x seq=1)", flush=True)
+    print(f"device: {device} (one device: data=1 x seq=1)"
+          + (", bf16 compute" if args.bf16 else ""), flush=True)
     cfg = tfm.TransformerConfig(
         vocab_size=256, d_model=args.d_model, n_heads=args.n_heads,
         n_layers=args.n_layers, d_ff=4 * args.d_model, max_seq=args.seq,

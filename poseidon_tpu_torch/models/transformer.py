@@ -10,10 +10,13 @@ package's names and layouts (every weight is ``(out, in)``: ``_dense``
 contracts x's last dim with w's dim 1, i.e. ``F.linear(x, w)``), so a JAX
 tree crosses with ``params_from_jax``.
 
-Numerics follow the JAX package's f32 policy: every product in float32
-(TF32 off, ``numeric.apply_f32_policy``), layer norm in f32, GELU in its
-tanh form (``jax.nn.gelu``'s default; ``F.gelu``'s default is erf), f32
-logits. Attention routes through ``ops/flash.maybe_flash_attention``: the
+Numerics follow the JAX package's numeric policy (``numeric.py``): every
+dense product takes its operands in ``compute_dtype`` (float32 with TF32
+off by default; bfloat16 under ``--bf16``, whose q, k and v then reach the
+flash kernels' bf16 builds), the residual stream keeps the embeddings'
+float32 (each sublayer's output is cast back to it), layer norm runs in
+f32 and returns its input's dtype, GELU in its tanh form
+(``jax.nn.gelu``'s default; ``F.gelu``'s default is erf), f32 logits. Attention routes through ``ops/flash.maybe_flash_attention``: the
 CUDA flash kernels (forward, and dQ and dK/dV in the backward) on the card
 where the JAX package would run its Pallas kernels. ``cfg.remat`` wraps
 each block in a checkpoint (``core/remat.py``), as the JAX forward does.
@@ -34,7 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core.remat import resolve_lm_policy, wrap_checkpoint
-from ..numeric import apply_f32_policy, resolve_device
+from ..numeric import apply_policy, policy, resolve_device
 from ..ops.flash import maybe_flash_attention
 from ..proto.messages import SolverParameter
 from ..solvers.updates import SolverState, make_update_fn
@@ -125,7 +128,10 @@ def _layer_norm(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
 
 
 def _dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    return F.linear(x, w)
+    """x's last dim against w's dim 1, both in the policy's compute
+    dtype (the output stays in it)."""
+    cd = policy().compute_dtype
+    return F.linear(x.to(cd), w.to(cd))
 
 
 def attention_sublayer(cfg: TransformerConfig, x: torch.Tensor, blk,
@@ -235,7 +241,7 @@ def build_dp_sp_train_step(cfg: TransformerConfig, sp: SolverParameter,
     ring attention over a seq axis (ROADMAP queue A item 10) are not
     ported."""
     device = resolve_device(device)
-    apply_f32_policy()
+    apply_policy()
 
     def step(params: Params, state: SolverState, tokens: torch.Tensor,
              targets: torch.Tensor):

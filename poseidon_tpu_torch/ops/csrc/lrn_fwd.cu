@@ -1,4 +1,5 @@
-// Cross-channel LRN forward for Hopper (sm_90a), NCHW.
+// Cross-channel LRN forward for Hopper (sm_90a), NCHW; the channels-last
+// (NHWC) kernel follows the NCHW one (poseidon_lrn_nhwc_fwd).
 //
 // Replaces poseidon_tpu/ops/pallas_kernels.py:_lrn_kernel (the Pallas TPU
 // kernel reached through _lrn_fused_fwd_impl / lrn_fused):
@@ -257,3 +258,161 @@ extern "C" int poseidon_lrn_fwd_attrs(int dtype, int channels, int size,
                      : attrs_t<__nv_bfloat16, 0>(channels, size, out);
   return (int)cudaErrorInvalidValue;
 }
+
+// ---------------------------------------------------------------------------
+// The channels-last (NHWC) forward: poseidon_tpu/ops/pallas_kernels.py:
+// _lrn_kernel in its layout="NHWC" form (_lrn_specs keeps channels minor).
+//
+// In NHWC a run of consecutive pixels with all their channels is one
+// contiguous stretch of memory, and the channel window slides along the
+// contiguous axis. A block of 256 threads owns a run of `pixels`
+// consecutive pixels of the N*H*W (about kNhwcElems elements: 42 pixels at
+// AlexNet's norm1 C = 96, 16 at norm2's 256) and copies them, coalesced,
+// into shared memory, each pixel's channels into a row with zeros around
+// them (pre before, post after); then every element is formed by one
+// thread from its row: the window's taps squared and summed, one powf. A
+// warp takes a pixel, its lanes the channels.
+// There is no halo to re-read and no channel chunking; a pixel's row must
+// fit one block (MAX_NHWC_CHANNELS, checked by the wrapper). Bound:
+// memory, the same bytes as the NCHW kernel (0.2916 ms for AlexNet's pair
+// at batch 256 in f32). The arithmetic is the NCHW kernel's and the plain
+// version's (window taps from zero in ascending order, the zeros past the
+// channel range included, explicitly rounded, the same powf), so it is
+// bitwise equal to ops/lrn.py:lrn_across_channels_plain on the same
+// channels-last tensor.
+
+#define MAX_NHWC_CHANNELS 4096
+
+namespace {
+namespace nhwc {
+
+constexpr int kNhwcElems = 4096;  // elements a forward block, about
+constexpr int kMaxSmem = 227 * 1024;
+
+// A block's 8 warps take a pixel each and their 32 lanes the pixel's
+// channels (consecutive lanes on consecutive channels: coalesced loads and
+// stores, conflict-free shared rows); no thread divides to find its
+// element.
+constexpr int kLanes = 32;
+constexpr int kWarps = kThreads / kLanes;
+
+// Copy np pixels of C contiguous channels into rows of `row` floats,
+// pixel r's channel c at r * row + lead + c.
+template <typename T>
+__device__ __forceinline__ void stage_rows(float* __restrict__ dst,
+                                           const T* __restrict__ src,
+                                           int np, int channels, int row,
+                                           int lead) {
+  const int lane = threadIdx.x % kLanes;
+  for (int r = threadIdx.x / kLanes; r < np; r += kWarps) {
+    const T* s = src + r * channels;
+    float* d = dst + r * row + lead;
+#pragma unroll 4
+    for (int c = lane; c < channels; c += kLanes) d[c] = load_as_f32(s + c);
+  }
+}
+
+// Zero the `before` floats ahead of each pixel's channels and the `after`
+// floats behind them, in rows of `row` floats.
+__device__ __forceinline__ void zero_margins(float* __restrict__ dst, int np,
+                                             int channels, int row,
+                                             int before, int after) {
+  const int lane = threadIdx.x % kLanes;
+  for (int r = threadIdx.x / kLanes; r < np; r += kWarps)
+    for (int t = lane; t < before + after; t += kLanes)
+      dst[r * row + (t < before ? t : channels + t)] = 0.0f;
+}
+
+// Block b: pixels [b * pixels, b * pixels + pixels) of all n*h*w pixels.
+template <typename T, int SIZE>
+__global__ void __launch_bounds__(kThreads)
+    lrn_nhwc_fwd_kernel(const T* __restrict__ x, T* __restrict__ y,
+                        long long n_pixels, int channels, int pixels,
+                        int size, float alpha_over_size, float neg_beta,
+                        float k) {
+  const int n = SIZE > 0 ? SIZE : size;
+  const int pre = (n - 1) / 2;
+  const long long p0 = (long long)blockIdx.x * pixels;
+  const int np = (int)(n_pixels - p0 < pixels ? n_pixels - p0 : pixels);
+  const int row = channels + n - 1;
+  extern __shared__ float sx[];
+  T* yb = y + p0 * channels;
+
+  zero_margins(sx, np, channels, row, pre, n - 1 - pre);
+  stage_rows(sx, x + p0 * channels, np, channels, row, pre);
+  __syncthreads();
+
+  const int lane = threadIdx.x % kLanes;
+  for (int r = threadIdx.x / kLanes; r < np; r += kWarps) {
+    for (int c = lane; c < channels; c += kLanes) {
+      // the window of channel c is row entries c .. c + n - 1
+      const float* w = sx + r * row + c;
+      float acc = 0.0f;
+#pragma unroll
+      for (int t = 0; t < (SIZE > 0 ? SIZE : MAX_LRN_SIZE); ++t) {
+        if (SIZE == 0 && t >= n) break;
+        acc = __fadd_rn(acc, __fmul_rn(w[t], w[t]));
+      }
+      const float scale = __fadd_rn(k, __fmul_rn(alpha_over_size, acc));
+      store_from_f32(yb + r * channels + c,
+                     __fmul_rn(w[pre], powf(scale, neg_beta)));
+    }
+  }
+}
+
+// Pixels a block: about `elems` elements, at least one pixel, within the
+// shared memory a block can take at `floats_a_pixel`.
+int pixels_of(int channels, int elems, int floats_a_pixel) {
+  int p = elems / channels;
+  if (p < 1) p = 1;
+  const int cap = kMaxSmem / (4 * floats_a_pixel);
+  return p < cap ? p : cap;
+}
+
+bool valid(long long n_pixels, int channels, int size) {
+  return n_pixels >= 1 && channels >= 1 && channels <= MAX_NHWC_CHANNELS &&
+         size >= 1 && size <= MAX_LRN_SIZE;
+}
+
+template <typename T, int SIZE>
+int fwd_t(const void* x, void* y, long long n_pixels, int channels, int size,
+          float alpha_over_size, float beta, float k, cudaStream_t stream) {
+  const int row = channels + size - 1;
+  const int pixels = pixels_of(channels, kNhwcElems, row);
+  const long long blocks = (n_pixels + pixels - 1) / pixels;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const int bytes = 4 * pixels * row;
+  auto kernel = lrn_nhwc_fwd_kernel<T, SIZE>;
+  const cudaError_t err = allow_smem(kernel, bytes);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<(unsigned int)blocks, kThreads, bytes, stream>>>(
+      static_cast<const T*>(x), static_cast<T*>(y), n_pixels, channels,
+      pixels, size, alpha_over_size, -beta, k);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace nhwc
+}  // namespace
+
+// x, y: n_pixels pixels of C contiguous channels (an NHWC tensor, n_pixels
+// = N*H*W). dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t (0 =
+// launched).
+extern "C" int poseidon_lrn_nhwc_fwd(const void* x, void* y, int dtype,
+                                     long long n_pixels, int channels,
+                                     int size, float alpha_over_size,
+                                     float beta, float k, void* stream) {
+  if (!nhwc::valid(n_pixels, channels, size))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  using namespace nhwc;
+  if (dtype == 0) {
+    auto f = size == 5 ? fwd_t<float, 5> : fwd_t<float, 0>;
+    return f(x, y, n_pixels, channels, size, alpha_over_size, beta, k, st);
+  }
+  if (dtype == 1) {
+    auto f = size == 5 ? fwd_t<__nv_bfloat16, 5> : fwd_t<__nv_bfloat16, 0>;
+    return f(x, y, n_pixels, channels, size, alpha_over_size, beta, k, st);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+

@@ -1,4 +1,5 @@
-// Pooling backward (MAX and AVE) for Hopper (sm_90a), NCHW.
+// Pooling backward (MAX and AVE) for Hopper (sm_90a), NCHW; the channels-
+// last (NHWC) kernel follows the NCHW one (poseidon_pool_nhwc_bwd).
 //
 // Replaces poseidon_tpu/ops/pallas_kernels.py:_pool_bwd_kernel (the Pallas
 // TPU kernel reached through pool_bwd_plane, routed by ops/nn.py:_pool_bwd):
@@ -581,4 +582,269 @@ extern "C" int poseidon_pool_bwd_attrs(int dtype, int is_max, int h, int w,
                   planes_per_block, geo,
                   Plan{band_rows, planes_per_block, x_rows, win_rows},
                   nullptr, out);
+}
+
+// ---------------------------------------------------------------------------
+// The channels-last (NHWC) backward: the same gradient where the JAX package
+// runs _pool_bwd_kernel on an NHWC graph (ops/nn.py:_pool_bwd transposes the
+// padded plane and the cotangent to NCHW around its NCHW-only kernel and
+// the result back). This kernel computes it straight on channels-last
+// tensors, C the fast axis, so no transpose is needed.
+//
+// Design: two passes, every access coalesced across C (a warp's lanes on
+// consecutive channels of one pixel), no shared memory and no window
+// taken twice. A thread owns one (window, channel) in the first pass and
+// one (input element, channel) in the second; a block is 32 channels x 8
+// columns of one row of one image, from its block and thread indices, so
+// no thread divides to find its element, and AlexNet's 3 x 3, stride 2
+// window is compiled in (the divisions by the stride become shifts, and
+// the gather issues the loads of its at most 2 x 2 windows together
+// before adding: the pass is held by memory latency otherwise).
+//   1. MAX only: each window's first maximum, as the tap's index in the
+//      window (a byte; 16 bits for windows of more than 254 taps), into a
+//      scratch the wrapper allocates beside dx (one entry a cotangent
+//      element: 1/4 of g's bytes in f32).
+//   2. Each dx element gathers its covering windows, output row and column
+//      descending, adding a window's cotangent when its argmax tap is this
+//      element (MAX), or the cotangent over Caffe's divisor (AVE); dx is
+//      written once.
+// Bound: memory, the same bytes as the NCHW kernel (0.3555 ms for AlexNet's
+// three pools at batch 256 in f32); the scratch adds a write and about
+// two reads of a quarter of g's bytes.
+//
+// The rules are the NCHW kernel's: first maximum by strict `>` over
+// row-major taps, pad and NaN never winning, a window with no value above
+// -inf keeping flat index 0 of the padded plane (only window (0, 0) covers
+// it, at its tap (0, 0)); every dx element summed from 0.0f with rounded
+// adds in the plain version's order; AVE's divisor the product of the two
+// axis extents rounded once, the division IEEE (taken at each gather of a
+// window: the same float every time). So it is bitwise equal to
+// ops/pool.py:pool_bwd_plain on the same channels-last tensors. A 3 x 3,
+// stride 2 window is a template instantiation; others take their size at
+// run time.
+
+namespace {
+namespace nhwc {
+
+// A block is 32 channels (a warp's lanes) x kCols columns of one row of
+// one image: no thread divides to find its element.
+constexpr int kLanes = 32;
+constexpr int kCols = 8;
+
+struct Geometry {
+  int h, w;    // input plane
+  int oh, ow;  // output plane
+  int kh, kw;  // window
+  int sh, sw;  // stride
+  int ph, pw;  // padding before (top, left)
+};
+
+// first window along one axis that covers padded coordinate p
+__device__ __forceinline__ int cover_lo(int p, int kernel, int stride) {
+  const int first = p - kernel + 1;
+  return first <= 0 ? 0 : (first + stride - 1) / stride;
+}
+
+// last window along one axis that covers padded coordinate p
+__device__ __forceinline__ int cover_hi(int p, int stride, int n_out) {
+  return imin(p / stride, n_out - 1);
+}
+
+// Pass 1, MAX: block (b, row * col_blocks + cb, img) takes channels
+// [32 b, 32 b + 32) of output columns [8 cb, 8 cb + 8) of output row `row`.
+// Code: the first maximum's tap a * kw + b, or `none` where no value is
+// above -inf (0 for window (0, 0): flat index 0 of the padded plane is its
+// tap (0, 0)). K, S > 0: the window and the stride at compile time (3 and
+// 2, AlexNet's pools), so the divisions by the stride are shifts.
+template <typename T, int K, int S, typename C>
+__global__ void __launch_bounds__(kLanes * kCols)
+    pool_nhwc_argmax_kernel(const T* __restrict__ x, C* __restrict__ code,
+                            Geometry geo, int channels, C none) {
+  const int kh = K > 0 ? K : geo.kh, kw = K > 0 ? K : geo.kw;
+  const int sh = S > 0 ? S : geo.sh, sw = S > 0 ? S : geo.sw;
+  const int col_blocks = (geo.ow + kCols - 1) / kCols;
+  const int oy = blockIdx.y / col_blocks;
+  const int ox = (blockIdx.y - oy * col_blocks) * kCols + threadIdx.y;
+  const int c = blockIdx.x * kLanes + threadIdx.x;
+  if (c >= channels || ox >= geo.ow) return;
+  const long long img = blockIdx.z;
+  const T* xi = x + img * geo.h * geo.w * (long long)channels + c;
+  const int y0 = oy * sh - geo.ph;
+  const int x0 = ox * sw - geo.pw;
+  float mx = -INFINITY;
+  int best = -1;
+#pragma unroll
+  for (int a = 0; a < kh; ++a) {
+    const int y = y0 + a;
+    if (y < 0 || y >= geo.h) continue;
+#pragma unroll
+    for (int b = 0; b < kw; ++b) {
+      const int xx = x0 + b;
+      if (xx < 0 || xx >= geo.w) continue;
+      const float v = load_as_f32(xi + (y * geo.w + xx) * channels);
+      if (v > mx) {
+        mx = v;
+        best = a * kw + b;
+      }
+    }
+  }
+  if (best < 0) best = (oy == 0 && ox == 0) ? 0 : (int)none;
+  code[img * geo.oh * geo.ow * (long long)channels +
+       (oy * geo.ow + ox) * channels + c] = (C)best;
+}
+
+// Pass 2: block (b, y * col_blocks + cb, img) takes channels [32 b, ...)
+// of input columns [8 cb, 8 cb + 8) of input row y; each element gathers
+// its covering windows.
+template <typename T, bool kMax, int K, int S, typename C>
+__global__ void __launch_bounds__(kLanes * kCols)
+    pool_nhwc_bwd_kernel(const T* __restrict__ g, const C* __restrict__ code,
+                         T* __restrict__ dx, Geometry geo, int channels) {
+  const int kh = K > 0 ? K : geo.kh, kw = K > 0 ? K : geo.kw;
+  const int sh = S > 0 ? S : geo.sh, sw = S > 0 ? S : geo.sw;
+  const int col_blocks = (geo.w + kCols - 1) / kCols;
+  const int y = blockIdx.y / col_blocks;
+  const int xx = (blockIdx.y - y * col_blocks) * kCols + threadIdx.y;
+  const int c = blockIdx.x * kLanes + threadIdx.x;
+  if (c >= channels || xx >= geo.w) return;
+  const long long img = blockIdx.z;
+  const long long goff = img * geo.oh * geo.ow * (long long)channels + c;
+  const T* gi = g + goff;
+  const C* ci = kMax ? code + goff : nullptr;
+  const int py = y + geo.ph, px = xx + geo.pw;
+  const int ylo = cover_lo(py, kh, sh), yhi = cover_hi(py, sh, geo.oh);
+  const int xlo = cover_lo(px, kw, sw), xhi = cover_hi(px, sw, geo.ow);
+  float acc = 0.0f;
+  if (K > 0 && S > 0) {
+    // at most ceil(K / S) covering windows an axis, known at compile time:
+    // every load is issued before the first add, so a thread waits on
+    // memory once, not once a window (the adds keep their order)
+    constexpr int kMw = K > 0 && S > 0 ? (K + S - 1) / S : 1;
+    float gv[kMw][kMw];
+    bool take[kMw][kMw];
+#pragma unroll
+    for (int u = 0; u < kMw; ++u) {
+#pragma unroll
+      for (int v = 0; v < kMw; ++v) {
+        const int oy = yhi - u, ox = xhi - v;
+        take[u][v] = oy >= ylo && ox >= xlo;
+        gv[u][v] = 0.0f;
+        if (take[u][v]) {
+          const int j = (oy * geo.ow + ox) * channels;
+          gv[u][v] = load_as_f32(gi + j);
+          if (kMax)
+            take[u][v] = (int)ci[j] == (py - oy * sh) * kw + (px - ox * sw);
+          else
+            gv[u][v] = __fdiv_rn(gv[u][v], __fmul_rn(
+                (float)ave_extent(oy, sh, geo.ph, kh, geo.h),
+                (float)ave_extent(ox, sw, geo.pw, kw, geo.w)));
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kMw; ++u)
+#pragma unroll
+      for (int v = 0; v < kMw; ++v)
+        if (take[u][v]) acc = __fadd_rn(acc, gv[u][v]);
+    store_from_f32(dx + img * geo.h * geo.w * (long long)channels +
+                       (y * geo.w + xx) * channels + c,
+                   acc);
+    return;
+  }
+  for (int oy = yhi; oy >= ylo; --oy) {
+    const int a = py - oy * sh;
+    float ey = 0.0f;
+    if (!kMax) ey = (float)ave_extent(oy, sh, geo.ph, kh, geo.h);
+    for (int ox = xhi; ox >= xlo; --ox) {
+      const int j = (oy * geo.ow + ox) * channels;
+      if (kMax) {
+        if ((int)ci[j] == a * kw + (px - ox * sw))
+          acc = __fadd_rn(acc, load_as_f32(gi + j));
+      } else {
+        const float denom = __fmul_rn(
+            ey, (float)ave_extent(ox, sw, geo.pw, kw, geo.w));
+        acc = __fadd_rn(acc, __fdiv_rn(load_as_f32(gi + j), denom));
+      }
+    }
+  }
+  store_from_f32(dx + img * geo.h * geo.w * (long long)channels +
+                     (y * geo.w + xx) * channels + c,
+                 acc);
+}
+
+template <typename T, bool kMax, int K, int S, typename C>
+int launch_t(const void* x, const void* g, void* code, void* dx,
+             long long batch, int channels, const Geometry& geo,
+             cudaStream_t stream) {
+  const dim3 block(kLanes, kCols);
+  const unsigned int lanes = (channels + kLanes - 1) / kLanes;
+  const long long out_rows = (long long)geo.oh * ((geo.ow + kCols - 1) / kCols);
+  const long long in_rows = (long long)geo.h * ((geo.w + kCols - 1) / kCols);
+  if (batch > 65535 || out_rows > 65535 || in_rows > 65535)
+    return (int)cudaErrorInvalidValue;
+  if (kMax) {
+    pool_nhwc_argmax_kernel<T, K, S, C>
+        <<<dim3(lanes, (unsigned int)out_rows, (unsigned int)batch), block,
+           0, stream>>>(static_cast<const T*>(x), static_cast<C*>(code), geo,
+                        channels, (C)(sizeof(C) == 1 ? 0xff : 0xffff));
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  pool_nhwc_bwd_kernel<T, kMax, K, S, C>
+      <<<dim3(lanes, (unsigned int)in_rows, (unsigned int)batch), block, 0,
+         stream>>>(static_cast<const T*>(g), static_cast<const C*>(code),
+                   static_cast<T*>(dx), geo, channels);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, bool kMax>
+int launch_k(const void* x, const void* g, void* code, void* dx,
+             long long batch, int channels, const Geometry& geo,
+             cudaStream_t stream) {
+  if (geo.kh == 3 && geo.kw == 3 && geo.sh == 2 && geo.sw == 2)
+    return launch_t<T, kMax, 3, 2, uint8_t>(x, g, code, dx, batch, channels,
+                                            geo, stream);
+  if (geo.kh * geo.kw <= 254)
+    return launch_t<T, kMax, 0, 0, uint8_t>(x, g, code, dx, batch, channels,
+                                            geo, stream);
+  return launch_t<T, kMax, 0, 0, uint16_t>(x, g, code, dx, batch, channels,
+                                           geo, stream);
+}
+
+}  // namespace nhwc
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16; is_max: 1 = MAX, 0 = AVE (x and code
+// are then not read and may be null). x (batch, h, w, C), g (batch, oh, ow,
+// C), dx (batch, h, w, C), all contiguous (NHWC tensors); code: MAX's
+// scratch of batch * oh * ow * C entries of one byte (two where kh * kw >
+// 254; at most 65534 taps). The batch, h * ceil(w / 8) and oh * ceil(ow /
+// 8) are at most 65535, and one image must hold fewer than 2^31 elements of
+// x and of g. Returns a cudaError_t.
+extern "C" int poseidon_pool_nhwc_bwd(const void* x, const void* g,
+                                      void* code, void* dx, int dtype,
+                                      int is_max, long long batch,
+                                      int channels, int h, int w, int oh,
+                                      int ow, int kh, int kw, int sh, int sw,
+                                      int ph, int pw, void* stream) {
+  if (batch < 1 || channels < 1 || h < 1 || w < 1 || oh < 1 || ow < 1 ||
+      kh < 1 || kw < 1 || sh < 1 || sw < 1 || ph < 0 || pw < 0 ||
+      (long long)kh * kw > 65534)
+    return (int)cudaErrorInvalidValue;
+  if ((long long)h * w * channels >= (1LL << 31) ||
+      (long long)oh * ow * channels >= (1LL << 31))
+    return (int)cudaErrorInvalidValue;
+  const nhwc::Geometry geo{h, w, oh, ow, kh, kw, sh, sw, ph, pw};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  using namespace nhwc;
+  if (dtype == 0) {
+    auto f = is_max ? launch_k<float, true> : launch_k<float, false>;
+    return f(x, g, code, dx, batch, channels, geo, st);
+  }
+  if (dtype == 1) {
+    auto f = is_max ? launch_k<__nv_bfloat16, true>
+                    : launch_k<__nv_bfloat16, false>;
+    return f(x, g, code, dx, batch, channels, geo, st);
+  }
+  return (int)cudaErrorInvalidValue;
 }

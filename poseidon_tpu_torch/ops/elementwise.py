@@ -19,7 +19,10 @@ def dropout(x: torch.Tensor, ratio: float, train: bool,
     """Inverted dropout, as the JAX package computes it: at TRAIN time each
     unit is kept with probability 1-ratio (a mask drawn from ``generator``,
     on x's device) and scaled by 1/(1-ratio); TEST is the identity. The
-    mask's random stream is torch's, not JAX's."""
+    mask's random stream is torch's, not JAX's. The mask is drawn as a
+    contiguous tensor of x's logical shape, so a channels-last x drops the
+    same units as an NCHW one (the draw never follows the memory
+    layout)."""
     if not train or ratio == 0.0:
         return x
     keep = 1.0 - ratio

@@ -13,10 +13,18 @@ import math
 import numpy as np
 import torch
 
+from ..numeric import memory_format
+
 _LOG_FLT_MIN = math.log(float(np.finfo(np.float32).tiny))
 
 
 def softmax(x: torch.Tensor, axis: int = 1) -> torch.Tensor:
+    """Softmax over ``axis``; a channels-last 4-D x over its channels is
+    taken on the NHWC view, so the result stays channels-last (torch's
+    softmax would gather the NCHW order first)."""
+    if axis == 1 and memory_format(x) == torch.channels_last:
+        return torch.softmax(x.permute(0, 2, 3, 1), dim=-1).permute(
+            0, 3, 1, 2)
     return torch.softmax(x, dim=axis)
 
 

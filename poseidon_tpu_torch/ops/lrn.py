@@ -34,6 +34,18 @@ element's s and r once and forms dx from the r window.
 The halo (``local_size - 1`` channels for the forward, on each side for
 the backward) grows their shared memory with the window, so both take
 ``local_size`` up to MAX_CUDA_LOCAL_SIZE.
+
+A channels-last (NHWC) tensor has kernels of its own, the second entry
+points of ``csrc/lrn_fwd.cu`` and ``csrc/lrn_bwd.cu`` (the TPU kernels'
+``layout="NHWC"`` form): a block stages a run of whole
+pixels, each pixel's C channels contiguous, and slides the window along
+them, with the same arithmetic, so they too are bitwise equal to the plain
+versions; they take C up to MAX_NHWC_CHANNELS and count their launches in
+``LAUNCHES["lrn_fwd_nhwc"]`` and ``LAUNCHES["lrn_bwd_nhwc"]``. The autograd
+Function routes by memory format: a channels-last CUDA tensor to the NHWC
+kernels, any other CUDA tensor (made NCHW-contiguous) to the NCHW ones; it
+never converts a channels-last tensor to NCHW, and its gradient comes back
+in the input's memory format, as the plain versions' results do.
 """
 
 from __future__ import annotations
@@ -43,20 +55,27 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+from ..numeric import memory_format
 from . import _build
 
 # launches of each kernel of this module, counted where the kernel launches
-LAUNCHES = {"lrn_fwd": 0, "lrn_bwd": 0}
+LAUNCHES = {"lrn_fwd": 0, "lrn_bwd": 0, "lrn_fwd_nhwc": 0,
+            "lrn_bwd_nhwc": 0}
 # the kernels' shared-memory halo grows with the window: capped here and
 # in csrc/lrn_fwd.cu and csrc/lrn_bwd.cu (MAX_LRN_SIZE)
 MAX_CUDA_LOCAL_SIZE = 32
+# the NHWC kernels stage whole pixels (the backward three rows of C floats
+# a pixel) in one block's shared memory: MAX_NHWC_CHANNELS of
+# csrc/lrn_fwd.cu and csrc/lrn_bwd.cu
+MAX_NHWC_CHANNELS = 4096
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def _window_sum(t: torch.Tensor, before: int, after: int) -> torch.Tensor:
-    """Channel-window sum of (N, C, H, W): pad (before, after) channels with
-    zeros and add the before+after+1 shifted slices in ascending order."""
+    """Channel-window sum of (N, C, H, W), in t's memory format: pad
+    (before, after) channels with zeros and add the before+after+1 shifted
+    slices in ascending order."""
     c = t.shape[1]
     tp = F.pad(t, (0, 0, 0, 0, before, after))
     out = torch.zeros_like(t)
@@ -74,7 +93,7 @@ def _compute(t: torch.Tensor) -> torch.Tensor:
 def lrn_across_channels_plain(x: torch.Tensor, local_size: int, alpha: float,
                               beta: float, k: float = 1.0) -> torch.Tensor:
     """ACROSS_CHANNELS LRN on (N, C, H, W): computed in f32, returned in
-    x's dtype, window taps summed in ascending order."""
+    x's dtype and memory format, window taps summed in ascending order."""
     pre = (local_size - 1) // 2
     post = local_size - pre - 1
     xf = _compute(x)
@@ -85,7 +104,8 @@ def lrn_across_channels_plain(x: torch.Tensor, local_size: int, alpha: float,
 def lrn_bwd_plain(x: torch.Tensor, g: torch.Tensor, local_size: int,
                   alpha: float, beta: float, k: float = 1.0) -> torch.Tensor:
     """dx of ACROSS_CHANNELS LRN from (x, g): Caffe's analytic gradient,
-    computed in f32 with s recomputed from x, returned in x's dtype."""
+    computed in f32 with s recomputed from x, returned in x's dtype and
+    memory format."""
     pre = (local_size - 1) // 2
     post = local_size - pre - 1
     xf = _compute(x)
@@ -94,7 +114,7 @@ def lrn_bwd_plain(x: torch.Tensor, g: torch.Tensor, local_size: int,
     r = gf * xf * scale.pow(-beta - 1.0)
     rsum = _window_sum(r, post, pre)
     dx = gf * scale.pow(-beta) - (2.0 * alpha * beta / local_size) * xf * rsum
-    return dx.to(x.dtype)
+    return dx.to(x.dtype).contiguous(memory_format=memory_format(x))
 
 
 def _check_window(name: str, local_size: int) -> None:
@@ -103,7 +123,8 @@ def _check_window(name: str, local_size: int) -> None:
                          f"{MAX_CUDA_LOCAL_SIZE}], got {local_size}")
 
 
-def _check_cuda(name: str, *ts: torch.Tensor) -> None:
+def _check_cuda(name: str, *ts: torch.Tensor,
+                fmt: torch.memory_format = torch.contiguous_format) -> None:
     x = ts[0]
     for t in ts:
         if not t.is_cuda:
@@ -114,15 +135,18 @@ def _check_cuda(name: str, *ts: torch.Tensor) -> None:
         if t.dim() != 4:
             raise ValueError(f"{name} takes (N, C, H, W), got shape "
                              f"{tuple(t.shape)}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} needs a contiguous NCHW tensor")
+        if not t.is_contiguous(memory_format=fmt):
+            raise ValueError(f"{name} needs a "
+                             + ("channels-last (NHWC)" if fmt ==
+                                torch.channels_last else "contiguous NCHW")
+                             + " tensor")
         if t.shape != x.shape or t.dtype != x.dtype or t.device != x.device:
             raise ValueError(f"{name}: operands differ in shape, dtype or "
                              f"device")
 
 
-def _lib(name: str, args):
-    fn = getattr(_build.load(name), f"poseidon_{name}")
+def _lib(name: str, args, entry: str = ""):
+    fn = getattr(_build.load(name), entry or f"poseidon_{name}")
     if fn.argtypes is None:
         fn.argtypes = args
         fn.restype = ctypes.c_int
@@ -202,6 +226,90 @@ def lrn_bwd_cuda(x: torch.Tensor, g: torch.Tensor, local_size: int,
     return dx
 
 
+def _check_channels(name: str, c: int) -> None:
+    if c > MAX_NHWC_CHANNELS:
+        raise ValueError(f"{name} stages a pixel's channels in one block: "
+                         f"C must be at most {MAX_NHWC_CHANNELS}, got {c}")
+
+
+def lrn_fwd_nhwc_cuda(x: torch.Tensor, local_size: int, alpha: float,
+                      beta: float, k: float = 1.0) -> torch.Tensor:
+    """Launch the NHWC forward kernel on PyTorch's current stream; x is a
+    channels-last (N, C, H, W) tensor, y comes back channels-last."""
+    _check_window("lrn_fwd_nhwc_cuda", local_size)
+    _check_cuda("lrn_fwd_nhwc_cuda", x, fmt=torch.channels_last)
+    n, c, h, w = x.shape
+    _check_channels("lrn_fwd_nhwc_cuda", c)
+    y = torch.empty_like(x, memory_format=torch.channels_last)
+    if x.numel() == 0:
+        return y
+    fn = _lib("lrn_fwd", [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                           ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                           ctypes.c_float, ctypes.c_float, ctypes.c_float,
+                           ctypes.c_void_p], entry="poseidon_lrn_nhwc_fwd")
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = fn(x.data_ptr(), y.data_ptr(), _DTYPE_CODE[x.dtype], n * h * w,
+                c, local_size, alpha / local_size, beta, k, stream)
+    if rc != 0:
+        raise RuntimeError(f"lrn_fwd_nhwc kernel launch failed: cudaError "
+                           f"{rc}")
+    LAUNCHES["lrn_fwd_nhwc"] += 1
+    return y
+
+
+def lrn_bwd_nhwc_cuda(x: torch.Tensor, g: torch.Tensor, local_size: int,
+                      alpha: float, beta: float,
+                      k: float = 1.0) -> torch.Tensor:
+    """Launch the NHWC backward kernel on PyTorch's current stream; x and g
+    channels-last, dx comes back channels-last."""
+    _check_window("lrn_bwd_nhwc_cuda", local_size)
+    _check_cuda("lrn_bwd_nhwc_cuda", x, g, fmt=torch.channels_last)
+    n, c, h, w = x.shape
+    _check_channels("lrn_bwd_nhwc_cuda", c)
+    dx = torch.empty_like(x, memory_format=torch.channels_last)
+    if x.numel() == 0:
+        return dx
+    fn = _lib("lrn_bwd", [ctypes.c_void_p, ctypes.c_void_p,
+                           ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                           ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                           ctypes.c_float, ctypes.c_float, ctypes.c_float,
+                           ctypes.c_float, ctypes.c_void_p],
+              entry="poseidon_lrn_nhwc_bwd")
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = fn(x.data_ptr(), g.data_ptr(), dx.data_ptr(),
+                _DTYPE_CODE[x.dtype], n * h * w, c, local_size,
+                alpha / local_size, -beta, -beta - 1.0,
+                2.0 * alpha * beta / local_size, k, stream)
+    if rc != 0:
+        raise RuntimeError(f"lrn_bwd_nhwc kernel launch failed: cudaError "
+                           f"{rc}")
+    LAUNCHES["lrn_bwd_nhwc"] += 1
+    return dx
+
+
+def lrn_fwd_device(x: torch.Tensor, local_size: int, alpha: float,
+                   beta: float, k: float = 1.0) -> torch.Tensor:
+    """The forward kernel for a CUDA tensor's memory format: NHWC for a
+    channels-last tensor, else NCHW (a non-contiguous x made contiguous)."""
+    if memory_format(x) == torch.channels_last:
+        return lrn_fwd_nhwc_cuda(x, local_size, alpha, beta, k)
+    return lrn_fwd_cuda(x.contiguous(), local_size, alpha, beta, k)
+
+
+def lrn_bwd_device(x: torch.Tensor, g: torch.Tensor, local_size: int,
+                   alpha: float, beta: float, k: float = 1.0) -> torch.Tensor:
+    """The backward kernel for x's memory format; g is brought to x's
+    format (autograd may hand it over in another one)."""
+    fmt = memory_format(x)
+    if fmt == torch.channels_last:
+        return lrn_bwd_nhwc_cuda(x, g.contiguous(memory_format=fmt),
+                                 local_size, alpha, beta, k)
+    return lrn_bwd_cuda(x.contiguous(), g.contiguous(), local_size, alpha,
+                        beta, k)
+
+
 class LRNAcrossChannels(torch.autograd.Function):
     """ACROSS_CHANNELS LRN with Caffe's analytic backward. ``plain`` runs the
     plain versions whatever the device; otherwise a CPU tensor takes the
@@ -214,7 +322,7 @@ class LRNAcrossChannels(torch.autograd.Function):
         ctx.plain = plain or x.device.type == "cpu"
         if ctx.plain:
             return lrn_across_channels_plain(x, local_size, alpha, beta, k)
-        return lrn_fwd_cuda(x.contiguous(), local_size, alpha, beta, k)
+        return lrn_fwd_device(x, local_size, alpha, beta, k)
 
     @staticmethod
     def backward(ctx, g):
@@ -222,7 +330,7 @@ class LRNAcrossChannels(torch.autograd.Function):
         if ctx.plain:
             dx = lrn_bwd_plain(x, g, *ctx.args)
         else:
-            dx = lrn_bwd_cuda(x.contiguous(), g.contiguous(), *ctx.args)
+            dx = lrn_bwd_device(x, g, *ctx.args)
         return dx, None, None, None, None, None
 
 

@@ -1,6 +1,6 @@
-"""Caffe pooling (MAX and AVE, NCHW): the forward, the hand-written CUDA
-backward kernel, its wrapper, its plain PyTorch version, and the autograd
-Functions the POOLING layer calls.
+"""Caffe pooling (MAX and AVE, NCHW or channels-last): the forward, the
+hand-written CUDA backward kernels, their wrappers, their plain PyTorch
+version, and the autograd Functions the POOLING layer calls.
 
 What must stay Caffe-exact, here as in ``poseidon_tpu/ops/nn.py``:
 
@@ -29,6 +29,21 @@ plain version's order of adds. ``pool_band_plan`` sizes the band to a
 shared-memory budget here, where a CPU test can check it, and the wrapper
 hands it to the C entry.
 
+A channels-last (NHWC) tensor has a kernel of its own, the second entry
+point of ``csrc/pool_bwd.cu`` (``pool_bwd_nhwc_cuda``, counted in
+``LAUNCHES["pool_bwd_nhwc"]`` once a call): for MAX a first pass writes
+each window's argmax tap into a byte scratch the wrapper allocates, then
+each dx element gathers its covering windows in the plain version's order,
+every access coalesced along C, so it too is bitwise equal to the plain
+version.
+The JAX package transposes an NHWC plane to NCHW around its kernel; the
+port does not, as the result is the same. The forward keeps its input's
+memory format (the pad, the crop and torch's pooling all do), and the
+Function routes the backward by memory format: a channels-last CUDA
+tensor to the NHWC kernel, any other CUDA tensor (made NCHW-contiguous) to
+the NCHW one, never converting a channels-last tensor to NCHW; dx comes
+back in the input's memory format, as the plain version's does.
+
 ``max_pool_reference`` / ``ave_pool_reference`` run the plain backward on
 any device: chip_smoke.py swaps them into the POOLING layers to hold a
 whole training step against the kernel on the card.
@@ -45,10 +60,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..numeric import memory_format
 from . import _build
 
 # launches of this module's kernel, counted where the kernel launches
-LAUNCHES = {"pool_bwd": 0}
+LAUNCHES = {"pool_bwd": 0, "pool_bwd_nhwc": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -105,7 +121,8 @@ def _ave_denom(h, w, oh, ow, kernel, stride, pad) -> np.ndarray:
 
 def pool_forward(x: torch.Tensor, kernel, stride, pad,
                  method: str) -> torch.Tensor:
-    """Caffe MAX ("max") or AVE ("ave") pooling of (N, C, H, W)."""
+    """Caffe MAX ("max") or AVE ("ave") pooling of (N, C, H, W), in x's
+    memory format."""
     h, w, oh, ow = _pool_dims(x, kernel, stride, pad)
     if method == "max":
         xp = _pool_pad_crop(x, kernel, stride, pad, oh, ow, -math.inf)
@@ -124,7 +141,8 @@ def pool_bwd_plain(x: torch.Tensor, g: torch.Tensor, kernel, stride, pad,
     = -inf, initial argmax flat index 0) recomputed from the padded input;
     for AVE the divisor-scaled cotangent. Contributions are added onto the
     padded plane tap by tap in row-major order, in f32, then the padding is
-    cropped off; returned in x's dtype."""
+    cropped off; returned in x's dtype and in x's memory format (for AVE,
+    where x may be an expanded stand-in, in g's)."""
     n, c = x.shape[0], x.shape[1]
     h, w, oh, ow = _pool_dims(x, kernel, stride, pad)
     ph = stride[0] * (oh - 1) + kernel[0]
@@ -164,7 +182,9 @@ def pool_bwd_plain(x: torch.Tensor, g: torch.Tensor, kernel, stride, pad,
     # un-pad: drop the pad rows/cols, zero-fill any input extent the
     # ceil-mode crop never consumed
     dxp = F.pad(dxp, (0, max(pad[1] + w - pw, 0), 0, max(pad[0] + h - ph, 0)))
-    return dxp[:, :, pad[0]:pad[0] + h, pad[1]:pad[1] + w].to(x.dtype)
+    fmt = memory_format(x if method == "max" else g)
+    return dxp[:, :, pad[0]:pad[0] + h, pad[1]:pad[1] + w].to(x.dtype) \
+        .contiguous(memory_format=fmt)
 
 
 class Band(NamedTuple):
@@ -377,6 +397,94 @@ def pool_bwd_cuda(x: torch.Tensor, g: torch.Tensor, kernel, stride, pad,
     return dx
 
 
+def _nhwc_lib():
+    fn = _build.load("pool_bwd").poseidon_pool_nhwc_bwd
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 4 + [
+            ctypes.c_int, ctypes.c_int, ctypes.c_longlong] + \
+            [ctypes.c_int] * 11 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def pool_bwd_nhwc_cuda(x: torch.Tensor, g: torch.Tensor, kernel, stride,
+                       pad, method: str) -> torch.Tensor:
+    """Launch the NHWC backward kernel on PyTorch's current stream: x and g
+    channels-last (N, C, H, W) tensors, dx comes back channels-last. For
+    "ave" x is read for its shape, dtype and device only (an expanded
+    tensor will do); for "max" the argmax pass writes a scratch of one
+    byte a cotangent element (two for windows of more than 254 taps)."""
+    if method not in ("max", "ave"):
+        raise ValueError(f"pool_bwd_nhwc_cuda: method must be 'max' or "
+                         f"'ave', got {method!r}")
+    for t in (x, g) if method == "max" else (g,):
+        if not t.is_cuda:
+            raise ValueError("pool_bwd_nhwc_cuda needs CUDA tensors")
+        if t.dtype not in _DTYPE_CODE:
+            raise TypeError(f"pool_bwd_nhwc_cuda takes float32 or bfloat16, "
+                            f"got {t.dtype}")
+        if t.dim() != 4 or not t.is_contiguous(
+                memory_format=torch.channels_last):
+            raise ValueError("pool_bwd_nhwc_cuda takes channels-last "
+                             "(N, C, H, W) tensors")
+    if g.dtype != x.dtype or g.device != x.device:
+        raise ValueError("pool_bwd_nhwc_cuda: x and g differ in dtype or "
+                         "device")
+    n, c = x.shape[0], x.shape[1]
+    h, w, oh, ow = _pool_dims(x, kernel, stride, pad)
+    if tuple(g.shape) != (n, c, oh, ow):
+        raise ValueError(f"pool_bwd_nhwc_cuda: g has shape "
+                         f"{tuple(g.shape)}, the pooling gives "
+                         f"{(n, c, oh, ow)}")
+    if min(*kernel, *stride) < 1 or min(pad) < 0:
+        raise ValueError(f"pool_bwd_nhwc_cuda: bad window "
+                         f"{kernel}/{stride}/{pad}")
+    if max(h * w, oh * ow) * c >= 2 ** 31:
+        raise ValueError("pool_bwd_nhwc_cuda: an image must hold < 2^31 "
+                         "elements")
+    if (max(n, h * -(-w // 8), oh * -(-ow // 8)) > 65535
+            or kernel[0] * kernel[1] > 65534):
+        raise ValueError("pool_bwd_nhwc_cuda: the batch and a plane's rows "
+                         "times its blocks of 8 columns take at most 65535, "
+                         "a window at most 65534 taps")
+    dx = torch.empty(x.shape, dtype=x.dtype, device=x.device,
+                     memory_format=torch.channels_last)
+    if x.numel() == 0:
+        return dx
+    code = None
+    if method == "max":
+        code = torch.empty(g.numel(), device=x.device, dtype=(
+            torch.uint8 if kernel[0] * kernel[1] <= 254 else torch.int16))
+    fn = _nhwc_lib()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = fn(x.data_ptr() if code is not None else None, g.data_ptr(),
+                code.data_ptr() if code is not None else None,
+                dx.data_ptr(), _DTYPE_CODE[x.dtype], int(method == "max"),
+                n, c, h, w, oh, ow, kernel[0], kernel[1], stride[0],
+                stride[1], pad[0], pad[1], stream)
+    if rc != 0:
+        raise RuntimeError(f"pool_bwd_nhwc kernel launch failed: cudaError "
+                           f"{rc}")
+    LAUNCHES["pool_bwd_nhwc"] += 1
+    return dx
+
+
+def pool_bwd_device(x: torch.Tensor, g: torch.Tensor, kernel, stride, pad,
+                    method: str, fmt: torch.memory_format) -> torch.Tensor:
+    """The backward kernel for the input's memory format ``fmt``: NHWC for
+    channels-last, else NCHW; g is brought to that format (autograd may
+    hand it over in another one), x too where it is read (MAX)."""
+    if fmt == torch.channels_last:
+        if method == "max":
+            x = x.contiguous(memory_format=fmt)
+        return pool_bwd_nhwc_cuda(x, g.contiguous(memory_format=fmt),
+                                  kernel, stride, pad, method)
+    if method == "max":
+        x = x.contiguous()
+    return pool_bwd_cuda(x, g.contiguous(), kernel, stride, pad, method)
+
+
 class Pool2d(torch.autograd.Function):
     """Caffe pooling whose backward is the kernel on a CUDA tensor and the
     plain version on a CPU tensor (or anywhere, with ``plain``)."""
@@ -385,6 +493,7 @@ class Pool2d(torch.autograd.Function):
     def forward(ctx, x, kernel, stride, pad, method, plain):
         ctx.geom = (tuple(kernel), tuple(stride), tuple(pad), method)
         ctx.plain = plain or x.device.type == "cpu"
+        ctx.fmt = memory_format(x)
         if method == "max":
             ctx.save_for_backward(x)
         else:
@@ -401,12 +510,11 @@ class Pool2d(torch.autograd.Function):
         else:
             x = ctx.like.expand(ctx.x_shape)
         if ctx.plain:
+            if method == "ave":
+                g = g.contiguous(memory_format=ctx.fmt)
             dx = pool_bwd_plain(x, g, kernel, stride, pad, method)
         else:
-            if method == "max":
-                x = x.contiguous()
-            dx = pool_bwd_cuda(x, g.contiguous(), kernel, stride, pad,
-                               method)
+            dx = pool_bwd_device(x, g, kernel, stride, pad, method, ctx.fmt)
         return dx, None, None, None, None, None
 
 

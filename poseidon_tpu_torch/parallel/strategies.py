@@ -64,6 +64,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..numeric import policy
+
 DENSE = "dense"      # all-reduce hooked into backward (DWBP) — the default
 SFB = "sfb"          # sufficient-factor broadcast for FC layers
 LOCAL = "local"      # never synced (the reference's LOCAL blob mode)
@@ -287,32 +289,42 @@ def wire_all_reduce(g: torch.Tensor, group, reduce: str,
 
 
 class SFBMatmul(torch.autograd.Function):
-    """FC forward on the local shard, ``x2 @ w.T + b``; the backward keeps
-    the input gradient local and rebuilds the global ∇W from the
-    all-gathered factors (rank order), accumulated in f32 and divided by
-    the world for the mean; the bias gradient goes through
+    """FC forward on the local shard, ``x2 @ w.T + b`` with the operands in
+    the policy's compute dtype (its output stays in it); the backward keeps
+    the input gradient local (compute-dtype operands, f32 accumulation,
+    cast to x2's dtype) and rebuilds the global ∇W from the all-gathered
+    factors (rank order) as one product of compute-dtype operands
+    accumulated in f32 (JAX's ``preferred_element_type=accum_dtype``),
+    divided by the world for the mean; the bias gradient goes through
     ``wire_all_reduce``. The wire dtype applies to the factors."""
 
     @staticmethod
     def forward(ctx, x2, w, b, comm):
+        cd = policy().compute_dtype
         ctx.save_for_backward(x2, w)
         ctx.comm = comm
-        ctx.has_bias = b is not None
-        return F.linear(x2, w, b)
+        ctx.cd = cd
+        ctx.b_dtype = None if b is None else b.dtype
+        return F.linear(x2.to(cd), w.to(cd), None if b is None else b.to(cd))
 
     @staticmethod
     def backward(ctx, g):
         x2, w = ctx.saved_tensors
-        cfg, group = ctx.comm.cfg, ctx.comm.group
+        cfg, group, cd = ctx.comm.cfg, ctx.comm.group, ctx.cd
+        acc = policy().accum_dtype
         wd = cfg.wire_torch_dtype()
-        gx = g.mm(w) if ctx.needs_input_grad[0] else None
+        # compute-dtype values are exact in f32, so an f32 product of them
+        # is the compute-dtype product with f32 accumulation
+        gx = (g.to(cd).to(acc).mm(w.to(cd).to(acc)).to(x2.dtype)
+              if ctx.needs_input_grad[0] else None)
         big_g = group.all_gather(_to_wire(g, wd))       # (B_global, M)
         big_x = group.all_gather(_to_wire(x2, wd))      # (B_global, K)
-        gw = big_g.float().t().mm(big_x.float())        # (M, K), f32 sum
+        gw = big_g.to(cd).to(acc).t().mm(big_x.to(cd).to(acc))  # (M, K)
         if cfg.reduce == "mean":
             gw = gw / group.world
-        gb = (wire_all_reduce(g.sum(0), group, cfg.reduce, cfg.wire_dtype)
-              if ctx.has_bias else None)
+        gb = (wire_all_reduce(g.sum(0), group, cfg.reduce,
+                              cfg.wire_dtype).to(ctx.b_dtype)
+              if ctx.b_dtype is not None else None)
         return gx, gw.to(w.dtype), gb, None
 
 

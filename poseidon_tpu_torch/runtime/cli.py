@@ -9,7 +9,8 @@ of ``poseidon_tpu/runtime/cli.py``)::
         [--dcn_slices N] \\
         [--dwbp_bucket_mb N] [--param_arena true|false] \\
         [--arena_bucket_mb N] [--device_prefetch N] [--max_in_flight N] \\
-        [--async_snapshot] [--device_transform] [--trace_out <file>]
+        [--async_snapshot] [--device_transform] [--trace_out <file>] \\
+        [--bf16] [--conv_layout nchw|nhwc|auto] [--conv_strategy direct|s2d]
     python -m poseidon_tpu_torch test --model=<train_val.prototxt> \\
         [--weights=<.caffemodel>] [--iterations 50] [--device cuda|cpu]
     python -m poseidon_tpu_torch serve --model=<deploy.prototxt> \\
@@ -29,7 +30,13 @@ card ahead of the step, ``--max_in_flight`` steps dispatched before the
 oldest one's metrics are read, snapshots written in the background under
 ``--async_snapshot``, uint8 batches normalized on the card under
 ``--device_transform``, and a Chrome trace of the host spans under
-``--trace_out``. Data-parallel runs start one ``train`` process per rank
+``--trace_out``. ``--bf16`` trains under the perf numeric policy
+(``numeric.set_perf_policy``: bfloat16 activations and conv/GEMM operands,
+f32 parameters, momentum and update, the space-to-depth stem);
+``--conv_layout`` plans the CNN graph NCHW or NHWC (channels-last), unset
+meaning "auto" (NHWC on the card, NCHW on the CPU), and
+``--conv_strategy`` forces a conv lowering net-wide. The policy holds for
+the command and is restored when it returns. Data-parallel runs start one ``train`` process per rank
 under the env contract of ``runtime/cluster.py`` (``POSEIDON_PROC_ID``,
 ``POSEIDON_NUM_PROCS``, ``POSEIDON_COORDINATOR``; ``scripts/launch.py``'s
 ``launch_local(..., program=[python, "-m", "poseidon_tpu_torch"])`` sets
@@ -186,7 +193,28 @@ def comm_from_args(args):
         server_logic=args.server_logic)
 
 
+def train_policy(args) -> dict:
+    """The numeric-policy fields the ``train`` flags set (JAX's
+    ``cmd_train``: ``--bf16`` is ``set_perf_policy``, then the layout and
+    strategy flags; an unset ``--conv_layout`` is "auto", as in JAX without
+    a tuned plan)."""
+    import torch
+    out = {"conv_layout": (args.conv_layout or "auto").upper()}
+    if args.bf16:
+        out.update(compute_dtype=torch.bfloat16, conv_s2d=True)
+    if args.conv_strategy:
+        out["conv_strategy"] = args.conv_strategy
+    return out
+
+
 def cmd_train(args) -> int:
+    from ..numeric import policy_scope
+
+    with policy_scope(**train_policy(args)):
+        return _train(args)
+
+
+def _train(args) -> int:
     from ..proto.messages import load_solver
     from .engine import Engine
 
@@ -327,6 +355,27 @@ def build_parser() -> argparse.ArgumentParser:
                    help="ship uint8 crops and apply (x - mean_value) * "
                         "scale on the card (4x fewer host->device bytes; "
                         "needs the native batcher, mean_value-style mean)")
+    t.add_argument("--bf16", action="store_true",
+                   help="the bf16 training path (numeric.set_perf_policy): "
+                        "bfloat16 activations and conv/GEMM operands, f32 "
+                        "parameters, momentum, update and softmax "
+                        "statistics, the space-to-depth stem rewrite; "
+                        "accuracy band numeric.BF16_SMOKE_*. Default f32 "
+                        "keeps Caffe numerics")
+    t.add_argument("--conv_layout", default="", type=lambda s: s.lower(),
+                   choices=["", "nchw", "nhwc", "auto"],
+                   help="activation layout of the whole CNN graph "
+                        "(core/net.py plans conv/pool/LRN natively in it; "
+                        "snapshots stay canonical NCHW). Unset = 'auto': "
+                        "NHWC (channels-last) on the card, NCHW on the CPU")
+    t.add_argument("--conv_strategy", default="",
+                   choices=["", "direct", "s2d"],
+                   help="conv lowering forced net-wide: 'direct', or 's2d' "
+                        "(the space-to-depth stem rewrite where a conv's "
+                        "shape allows it); empty = the policy's conv_s2d "
+                        "(on under --bf16). The JAX package's measured "
+                        "'auto' and 'im2col' need ops/conv_tune.py, not in "
+                        "the port yet")
     t.add_argument("--trace_out", default="",
                    help="host-side span timeline: record prefetch-wait/"
                         "dispatch/hard-sync/snapshot spans and write "

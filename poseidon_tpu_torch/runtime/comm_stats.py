@@ -32,6 +32,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Dict, Optional, Union
 
+from ..numeric import policy
 from ..parallel.mesh import DATA_AXIS, DataGroup
 from ..parallel.strategies import (DENSE, LOCAL, SFB, TOPK, CommConfig,
                                    budget_topk_fraction)
@@ -41,8 +42,6 @@ from ..parallel.strategies import (DENSE, LOCAL, SFB, TOPK, CommConfig,
 # ConnectX-7 400 Gb/s NIC a GPU between nodes
 NVLINK_GBPS = 450.0
 NIC_GBPS = 50.0
-# the port keeps the f32 policy only: gradients are 4 bytes
-GRAD_BYTES = 4
 
 
 @dataclass
@@ -91,7 +90,9 @@ def layer_comm_table(net, comm: Optional[CommConfig],
     # exchanged bytes ride the wire dtype when one is set; the dense
     # alternative stays at the gradient's
     wd = comm.wire_torch_dtype()
-    wire_bytes = wd.itemsize if wd is not None else GRAD_BYTES
+    # gradients are counted at the policy's compute dtype, as in JAX
+    grad_bytes = policy().compute_dtype.itemsize
+    wire_bytes = wd.itemsize if wd is not None else grad_bytes
     n_ici, n_dcn = _tiers(comm, group)
     n_total = n_ici * n_dcn
     fast_n = n_total if n_dcn == 1 else n_ici
@@ -104,7 +105,7 @@ def layer_comm_table(net, comm: Optional[CommConfig],
             continue
         strategy = comm.strategy_for(layer.name)
         param_count = sum(p.count for p in defs)
-        param_bytes = param_count * GRAD_BYTES
+        param_bytes = param_count * grad_bytes
         sent_param_bytes = param_count * wire_bytes
         dense_ici = _allreduce_bytes(param_bytes, fast_n)
         dense_dcn = _allreduce_bytes(param_bytes, n_dcn)

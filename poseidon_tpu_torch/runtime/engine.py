@@ -58,7 +58,7 @@ from ..core.net import Net
 from ..data.pipeline import (BatchPipeline, DevicePrefetcher,
                              build_phase_pipelines, place_batch)
 from ..data.workload import Shard
-from ..numeric import resolve_device
+from ..numeric import policy, resolve_device
 from ..parallel.mesh import DCN_AXIS, DataGroup, rank_seed
 from ..parallel.strategies import TOPK, CommConfig, auto_strategies
 from ..parallel.trainer import (build_eval_step, build_train_step,
@@ -214,6 +214,13 @@ class Engine:
             use_native=self.use_native)
         self.train_net = Net(train_param, "TRAIN", device=self.device,
                              source_shapes=train_shapes)
+        pol = policy()
+        log(f"numeric policy: compute {str(pol.compute_dtype)[6:]}, params "
+            f"{str(pol.param_dtype)[6:]}, accumulation "
+            f"{str(pol.accum_dtype)[6:]}; conv_layout "
+            f"{self.train_net.conv_layout} (policy {pol.conv_layout}), "
+            f"conv_s2d {pol.conv_s2d}, conv_strategy "
+            f"{self.train_net.conv_strategy or '(policy)'}", rank=self.rank)
         self.test_nets: List[Net] = []
         for tp in test_params:
             pipes, shapes = build_phase_pipelines(

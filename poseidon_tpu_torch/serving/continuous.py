@@ -46,7 +46,7 @@ import numpy as np
 import torch
 
 from ..models.generate import paged_decode_step, prefill_cached
-from ..numeric import apply_f32_policy, resolve_device
+from ..numeric import apply_policy, resolve_device
 from ..runtime.metrics import LatencyWindow, log
 from .batcher import DeadlineError, ShedError, ShuttingDownError
 from .kv_pool import PagedKVPool, PoolExhausted
@@ -102,7 +102,7 @@ class GenerateExecutor:
                  max_seq_len: Optional[int] = None,
                  num_pages: Optional[int] = None,
                  default_max_new: int = 32, device=None):
-        apply_f32_policy()
+        apply_policy()
         self.device = resolve_device(device)
         self.cfg = cfg
         self.page_size = int(page_size)

@@ -613,7 +613,158 @@ def test_topk_conserves_gradient_mass_on_card(block):
         T.topk_compress = compress
     after = {**port_lrn.LAUNCHES, **port_pool.LAUNCHES, **port_sgd.LAUNCHES}
     assert {k: after[k] - before[k] for k in after} == {
-        "lrn_fwd": 3, "lrn_bwd": 3, "pool_bwd": 3, "sgd_update": 3}
+        "lrn_fwd": 3, "lrn_bwd": 3, "pool_bwd": 3, "sgd_update": 3,
+        # the channels-last kernels: none on this NCHW path
+        "lrn_fwd_nhwc": 0, "lrn_bwd_nhwc": 0, "pool_bwd_nhwc": 0}
     assert len(records) == 4 * 3
     assert all(c and sent <= k and nz for c, sent, k, nz in records)
     assert all(map(lambda x: x == x and abs(x) < 1e4, losses))
+
+
+# --------------------------------------------------------------------------- #
+# the channels-last (NHWC) kernels: K4, K5 and K6 on channels-last tensors
+# --------------------------------------------------------------------------- #
+
+_NHWC_LRN_CASES = [
+    (torch.float32, (4, 96, 55, 55), 5),
+    (torch.bfloat16, (4, 96, 55, 55), 5),
+    (torch.float32, (4, 256, 27, 27), 5),
+    (torch.bfloat16, (4, 256, 27, 27), 5),
+    (torch.float32, (3, 37, 9, 9), 4),
+    # the window's edges, C below the halo, one position (both layouts at
+    # once: routed as NCHW), batch 1 with C = 131, a C past one warp's
+    # multiple, the widest window
+    (torch.float32, (2, 16, 9, 9), 1),
+    (torch.float32, (2, 70, 5, 7), 32),
+    (torch.float32, (3, 2, 11, 11), 5),
+    (torch.float32, (5, 96, 1, 1), 5),
+    (torch.float32, (1, 131, 13, 13), 5),
+    (torch.bfloat16, (1, 131, 13, 13), 7),
+    (torch.float32, (2, 1000, 3, 3), 5),
+]
+
+
+def _channels_last(t):
+    return t.contiguous(memory_format=torch.channels_last)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,shape,local_size", _NHWC_LRN_CASES)
+def test_lrn_nhwc_kernels_bitwise_equal_to_plain_on_card(dtype, shape,
+                                                         local_size):
+    """K4-NHWC and K5-NHWC through the autograd Function on channels-last
+    tensors: bitwise equal to the plain versions on the same tensors, the
+    output and the gradient channels-last, and no NCHW kernel launched."""
+    _need_gpu()
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    x = _channels_last(torch.randn(shape, generator=gen,
+                                   device="cuda").to(dtype))
+    g = _channels_last(torch.randn(shape, generator=gen,
+                                   device="cuda").to(dtype))
+    both = x.is_contiguous()   # one position: NCHW and NHWC at once
+    before = dict(port_lrn.LAUNCHES)
+    xr = x.clone().requires_grad_(True)
+    y = port_lrn.lrn_across_channels(xr, local_size, 1e-4, 0.75, 1.0)
+    y.backward(g)
+    torch.cuda.synchronize()
+    after = port_lrn.LAUNCHES
+    fwd, bwd = ("lrn_fwd", "lrn_bwd") if both else ("lrn_fwd_nhwc",
+                                                    "lrn_bwd_nhwc")
+    assert after[fwd] == before[fwd] + 1 and after[bwd] == before[bwd] + 1
+    assert sum(after.values()) == sum(before.values()) + 2
+    if not both:
+        assert y.is_contiguous(memory_format=torch.channels_last)
+        assert xr.grad.is_contiguous(memory_format=torch.channels_last)
+    want_y = port_lrn.lrn_across_channels_plain(x, local_size, 1e-4, 0.75,
+                                                1.0)
+    want_dx = port_lrn.lrn_bwd_plain(x, g, local_size, 1e-4, 0.75, 1.0)
+    assert torch.equal(y, want_y)
+    assert torch.equal(xr.grad, want_dx)
+    if not both:
+        # a second launch gives the same bits
+        assert torch.equal(port_lrn.lrn_fwd_nhwc_cuda(
+            x, local_size, 1e-4, 0.75, 1.0), want_y)
+
+
+@pytest.mark.gpu
+def test_lrn_nhwc_refuses_too_many_channels_on_card():
+    _need_gpu()
+    x = _channels_last(torch.zeros(1, port_lrn.MAX_NHWC_CHANNELS + 1, 2, 2,
+                                   device="cuda"))
+    with pytest.raises(ValueError, match="MAX_NHWC|at most"):
+        port_lrn.lrn_fwd_nhwc_cuda(x, 5, 1e-4, 0.75, 1.0)
+
+
+_NHWC_POOL_CASES = [
+    (torch.float32, (4, 96, 55, 55), (3, 3), (2, 2), (0, 0), "max"),
+    (torch.bfloat16, (4, 96, 55, 55), (3, 3), (2, 2), (0, 0), "max"),
+    (torch.float32, (4, 256, 27, 27), (3, 3), (2, 2), (0, 0), "max"),
+    (torch.float32, (4, 256, 13, 13), (3, 3), (2, 2), (0, 0), "max"),
+    (torch.bfloat16, (4, 256, 13, 13), (3, 3), (2, 2), (0, 0), "max"),
+    (torch.float32, (2, 32, 17, 17), (3, 3), (2, 2), (1, 1), "ave"),
+    (torch.bfloat16, (2, 32, 17, 17), (3, 3), (2, 2), (1, 1), "ave"),
+    (torch.float32, (2, 64, 28, 28), (3, 3), (1, 1), (1, 1), "max"),
+    (torch.float32, (2, 40, 14, 14), (5, 5), (3, 3), (0, 0), "ave"),
+    (torch.float32, (2, 24, 7, 7), (7, 7), (1, 1), (0, 0), "ave"),
+    # batch 1, C = 2, a stride past the window, a global pool, several
+    # bands of a wide plane, a C off the 32-channel chunks
+    (torch.float32, (1, 2, 12, 12), (3, 3), (2, 2), (0, 0), "max"),
+    (torch.float32, (2, 3, 10, 10), (2, 2), (3, 3), (0, 0), "max"),
+    (torch.float32, (2, 16, 13, 13), (13, 13), (1, 1), (0, 0), "max"),
+    (torch.float32, (1, 32, 90, 300), (3, 3), (2, 2), (0, 0), "max"),
+    (torch.float32, (2, 45, 11, 11), (3, 3), (2, 2), (1, 1), "max"),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,shape,k,s,p,method", _NHWC_POOL_CASES)
+def test_pool_nhwc_kernel_bitwise_equal_to_plain_on_card(dtype, shape, k, s,
+                                                         p, method):
+    """K6-NHWC through the autograd Function on channels-last tensors:
+    bitwise equal to the plain backward on the same tensors, dx
+    channels-last, no NCHW kernel launched; a second launch equal."""
+    _need_gpu()
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    x = _channels_last(torch.randn(shape, generator=gen,
+                                   device="cuda").to(dtype))
+    oh = port_pool.pool_out_size(shape[2], k[0], s[0], p[0])
+    ow = port_pool.pool_out_size(shape[3], k[1], s[1], p[1])
+    g = _channels_last(torch.randn((shape[0], shape[1], oh, ow),
+                                   generator=gen, device="cuda").to(dtype))
+    fn = port_pool.max_pool if method == "max" else port_pool.ave_pool
+    before = dict(port_pool.LAUNCHES)
+    xr = x.clone().requires_grad_(True)
+    y = fn(xr, k, s, p)
+    assert y.is_contiguous(memory_format=torch.channels_last)
+    y.backward(g)
+    torch.cuda.synchronize()
+    assert port_pool.LAUNCHES["pool_bwd_nhwc"] == \
+        before["pool_bwd_nhwc"] + 1
+    assert port_pool.LAUNCHES["pool_bwd"] == before["pool_bwd"]
+    assert xr.grad.is_contiguous(memory_format=torch.channels_last)
+    want = port_pool.pool_bwd_plain(x, g, k, s, p, method)
+    assert torch.equal(xr.grad, want)
+    again = port_pool.pool_bwd_nhwc_cuda(x, g, k, s, p, method)
+    assert torch.equal(again, xr.grad)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pad", [0, 1])
+def test_pool_nhwc_kernel_minus_inf_rows_and_ties_on_card(pad):
+    """Rows and a whole plane of -inf (a window of nothing above -inf keeps
+    flat index 0) and a constant plane (first max wins), channels-last."""
+    _need_gpu()
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    x = torch.randn((2, 40, 11, 11), generator=gen, device="cuda")
+    x[0, :, :4] = -float("inf")
+    x[1, 3] = -float("inf")
+    x[1, 5] = 0.25
+    x = _channels_last(x)
+    oh = port_pool.pool_out_size(11, 3, 2, pad)
+    g = _channels_last(torch.randn((2, 40, oh, oh), generator=gen,
+                                   device="cuda"))
+    got = port_pool.pool_bwd_nhwc_cuda(x, g, (3, 3), (2, 2), (pad, pad),
+                                       "max")
+    torch.cuda.synchronize()
+    want = port_pool.pool_bwd_plain(x, g, (3, 3), (2, 2), (pad, pad), "max")
+    assert torch.equal(got, want)

@@ -240,9 +240,12 @@ def test_train_lm_script_loss_falls_on_cpu(capsys):
     (["--mode", "tp"], "tensor parallelism"),
     (["--mode", "pp"], "pipeline"),
     (["--mode", "ep"], "MoE"),
-    (["--bf16"], "bf16"),
-    (["--par_axis", "2"], "queue A item 10"),
-    (["--data_axis", "2"], "queue A item 10"),
+    # --bf16 is ported (tests/test_torch_bf16.py runs it); the ids of the
+    # cases after it are kept
+    pytest.param(["--par_axis", "2"], "queue A item 10",
+                 id="flags4-queue A item 10"),
+    pytest.param(["--data_axis", "2"], "queue A item 10",
+                 id="flags5-queue A item 10"),
 ])
 def test_train_lm_script_refuses_unported_modes(flags, match):
     with pytest.raises(NotImplementedError, match=match):
