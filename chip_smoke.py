@@ -62,6 +62,15 @@ Phases, in order; any failure exits non-zero without the final ``ok`` line:
      and dv; the registers, shared memory, spills and resident blocks per
      SM of each kernel's f32 and bf16 instantiation at D = 64 are printed
      once.
+   - ``[layout]``: K4-, K5- and K6-NHWC on channels-last tensors at
+     AlexNet's norm and pool shapes, batch 256, f32 and bf16, each bitwise
+     equal to its plain version (the run fails otherwise; K6-NHWC also on
+     a second launch), with the library call on the same tensors; the
+     registers, shared memory, spills and resident blocks per SM of K5-
+     and K6-NHWC; the powf floor (the two powf an element of the LRN
+     pair alone) beside K5-NHWC's pair; each kernel's time over its
+     library call's in this run; conv1 in bf16 NHWC with and without the
+     space-to-depth rewrite.
 3. The CNN serving slice: ``BucketedExecutor.from_files`` on AlexNet (3x227x227,
    buckets 1/4/16/64, seeded filler weights) behind the port's
    ``InferenceServer`` on 127.0.0.1 port 0, driven by the port's
@@ -1373,8 +1382,7 @@ CNN_KERNEL_NAMES = {"lrn_fwd": "lrn_fwd_tile_kernel",
                     "sgd_update": "sgd_update_kernel"}
 CNN_NHWC_KERNEL_NAMES = {"lrn_fwd_nhwc": "lrn_nhwc_fwd_kernel",
                          "lrn_bwd_nhwc": "lrn_nhwc_bwd_kernel",
-                         # the argmax pass and the gather pass
-                         "pool_bwd_nhwc": "pool_nhwc_",
+                         "pool_bwd_nhwc": "pool_nhwc_band_kernel",
                          "sgd_update": "sgd_update_kernel"}
 # a profiled step's kernels by kind: layout shuffles (cuDNN's transposes
 # and tensor transforms), torch's copies (the dtype casts, and the entry and
@@ -1862,7 +1870,9 @@ def phase_layout(card: str):
     otherwise), with its time, its bytes bound and the library call on the
     same tensor; then conv1's forward and backward with and without the
     space-to-depth rewrite in bf16 and NHWC. Returns (K4-NHWC records,
-    K5-NHWC records, K6-NHWC records, the conv1 timings)."""
+    K5-NHWC records, K6-NHWC records, the conv1 timings,
+    ``layout_kernel_report``'s attributes, powf floor and library
+    ratios)."""
     import torch
     import torch.nn.functional as F
     from poseidon_tpu_torch.numeric import policy_scope
@@ -1920,9 +1930,7 @@ def phase_layout(card: str):
                            f"to the plain version")
             del x, g, y, dx, want, xr, yr
             torch.cuda.empty_cache()
-    for label, shape in (("pool1", (256, 96, 55, 55)),
-                         ("pool2", (256, 256, 27, 27)),
-                         ("pool5", (256, 256, 13, 13))):
+    for label, shape in LAYOUT_POOLS:
         for dt in (f32, bf16):
             name = str(dt).replace("torch.", "")
             geom = ((3, 3), (2, 2), (0, 0))
@@ -1956,6 +1964,7 @@ def phase_layout(card: str):
                            f"equal to the plain version")
             del x, y, g, dx, want, again, idx, library
             torch.cuda.empty_cache()
+    extra = layout_kernel_report(card, k4, k5, k6)
 
     # conv1 forward + backward in bf16, NHWC, with and without s2d
     x = rand((256, 3, 227, 227), f32)
@@ -1993,7 +2002,74 @@ def phase_layout(card: str):
           f"[{card}]", flush=True)
     del x, w, b, outs
     torch.cuda.empty_cache()
-    return k4, k5, k6, conv1
+    return k4, k5, k6, conv1, extra
+
+
+LAYOUT_POOLS = (("pool1", (256, 96, 55, 55)), ("pool2", (256, 256, 27, 27)),
+                ("pool5", (256, 256, 13, 13)))
+
+
+def layout_kernel_report(card: str, k4, k5, k6) -> dict:
+    """[layout]'s K5-NHWC and K6-NHWC attributes at AlexNet's shapes (K5: 4
+    channels a lane; K6: 16-byte vectors, 4 f32 or 8 bf16 channels), the
+    powf floor (the two powf an element of the LRN pair's elements alone,
+    from registers: the least time K5-NHWC's unchanged arithmetic allows)
+    beside K5-NHWC's pair and its bytes bound, and each NHWC kernel's time
+    over its library call's in this run, the yardstick that holds between
+    calls."""
+    import torch
+    from poseidon_tpu_torch.ops import lrn, pool
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    attrs = {}
+    for dt in (f32, bf16):
+        name, vec = str(dt).replace("torch.", ""), lrn.MAX_NHWC_LANE_CHANNELS
+        a = attrs[f"lrn_bwd_nhwc {name}"] = lrn.lrn_bwd_nhwc_kernel_attrs(
+            dt, vec, 5)
+        print(f"[layout] lrn_nhwc_bwd_kernel {name} ({vec} channels a lane, "
+              f"n=5): {a['registers']} registers, {a['local_bytes']} B "
+              f"spilled a thread, {a['static_smem_bytes']} + "
+              f"{a['dynamic_smem_bytes']} B shared, {a['blocks_per_sm']} "
+              f"blocks of {a['threads']} threads an SM [{card}]", flush=True)
+        for label, shape in LAYOUT_POOLS:
+            a = attrs[f"pool_bwd_nhwc {label} {name}"] = \
+                pool.pool_bwd_nhwc_kernel_attrs(dt, "max", shape, (3, 3),
+                                                (2, 2), (0, 0))
+            print(f"[layout] pool_nhwc_band_kernel {label} {name}: "
+                  f"{a['registers']} registers, {a['dynamic_smem_bytes']} B "
+                  f"dynamic shared ({a['vec']} channels a vector, "
+                  f"{a['group_vecs']} vectors a group, {a['n_groups']} "
+                  f"groups, bands of {a['band_rows']} rows x "
+                  f"{a['n_bands']}), {a['local_bytes']} B spilled a thread, "
+                  f"{a['blocks_per_sm']} blocks of {a['threads']} threads "
+                  f"an SM [{card}]", flush=True)
+    n_elems = sum(math.prod(r["shape"]) for r in k5
+                  if r["dtype"] == "float32")
+    floor_ms = cuda_time_ms(lambda: lrn.lrn_powf_floor_cuda(
+        n_elems, 5, LRN_ALPHA, LRN_BETA, LRN_K))
+    pair = {r["dtype"]: sum(q["ms"] for q in k5 if q["dtype"] == r["dtype"])
+            for r in k5}
+    bound = {dt: bound_ms(sum(q["bytes"] for q in k5 if q["dtype"] == dt),
+                          sum(q["ops"] for q in k5 if q["dtype"] == dt),
+                          dt)[0] for dt in pair}
+    print(f"[layout] powf floor: the two powf an element of the LRN pair's "
+          f"{n_elems} elements alone, from registers, {floor_ms:.4f} ms; "
+          f"K5-NHWC pair float32 {pair['float32']:.4f} ms (bytes bound "
+          f"{bound['float32']:.4f}), bfloat16 {pair['bfloat16']:.4f} ms "
+          f"(bytes bound {bound['bfloat16']:.4f}) [{card}]", flush=True)
+    ratios = {}
+    for name, recs in (("lrn_fwd_nhwc", k4), ("lrn_bwd_nhwc", k5),
+                       ("pool_bwd_nhwc", k6)):
+        for dt in ("float32", "bfloat16"):
+            main = [r for r in recs if r["dtype"] == dt]
+            ms = sum(r["ms"] for r in main)
+            lib = sum(r["library_ms"] for r in main)
+            ratios[f"{name} {dt}"] = ms / lib
+            print(f"[layout] {name} {dt}: {ms:.4f} ms against the library's "
+                  f"{lib:.4f} ms in this run: {ms / lib:.3f}x [{card}]",
+                  flush=True)
+    return {"attributes": attrs, "powf_floor_ms": floor_ms,
+            "powf_floor_elements": n_elems, "library_ratio": ratios}
 
 
 def phase_bf16_train(card: str, root: str, f32: dict, device=None,
@@ -3434,7 +3510,7 @@ def main() -> int:
         k7 = phase_sgd(card, arena_total)
         k1, fwd_attrs = phase_flash(card)
         k2, k3, bwd_attrs = phase_flash_bwd(card)
-        k4n, k5n, k6n, conv1 = phase_layout(card)
+        k4n, k5n, k6n, conv1, layout = phase_layout(card)
         serving_launches, ex, solo = phase_slice(card)
         phase_net_checks(ex)
         phase_breakdown(ex, card, solo["p50_ms"])
@@ -3595,7 +3671,16 @@ def main() -> int:
                              and r["dtype"] == "float32")
                       for k in ("ms", "plain_ms", "library_ms", "bytes")},
             profiled_ms_per_bf16_training_step=bf16["port_kernels"][name][
-                "ms"]))
+                "ms"],
+            library_ratio={dt: layout["library_ratio"][f"{name} {dt}"]
+                           for dt in ("float32", "bfloat16")},
+            **({"attributes": {k: v for k, v in
+                               layout["attributes"].items()
+                               if k.startswith(name)}}
+               if name != "lrn_fwd_nhwc" else {}),
+            **({"powf_floor_ms": layout["powf_floor_ms"],
+                "powf_floor_elements": layout["powf_floor_elements"]}
+               if name == "lrn_bwd_nhwc" else {})))
     summary = {"train_step_ms": train["step_ms"],
                "train_peak_bytes": train["peak_bytes"],
                "train_loop": train["loop"],

@@ -8,8 +8,9 @@ build takes seconds):
          -Xcompiler -fPIC -o build/poseidon_tpu_torch/lib<name>-<hash>.so <name>.cu
 
 The output lands in ``build/poseidon_tpu_torch/`` at the root of the
-checkout, named by the source's content hash, so an edited source rebuilds
-and an unchanged one loads what is there. ``build_all`` starts one nvcc per
+checkout, named by the content hash of the source and of the shared headers
+(``csrc/*.cuh``), so an edited source or header rebuilds and an unchanged
+one loads what is there. ``build_all`` starts one nvcc per
 source at once. A failed build raises with the compiler's output: nothing
 falls back to a plain version.
 """
@@ -52,9 +53,12 @@ def sources() -> List[str]:
 
 
 def _lib_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """The library's path, named by the content of its source and of every
+    header under ``csrc/`` (which a source may include)."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def _start(name: str):

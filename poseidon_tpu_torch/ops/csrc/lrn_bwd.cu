@@ -59,6 +59,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "vec.cuh"
+
 #define MAX_LRN_SIZE 32
 
 namespace {
@@ -246,150 +248,286 @@ extern "C" int poseidon_lrn_bwd(const void* x, const void* g, void* dx,
   return (int)cudaErrorInvalidValue;
 }
 
+
 // ---------------------------------------------------------------------------
 // The channels-last (NHWC) backward: poseidon_tpu/ops/pallas_kernels.py:
-// _lrn_bwd_kernel in its layout="NHWC" form.
+// _lrn_bwd_kernel in its layout="NHWC" form, the same s, r and dx on tensors
+// whose C channels of a pixel are contiguous.
 //
-// A block of 256 threads owns a run of `pixels` consecutive pixels of the
-// N*H*W (about kNhwcElems / 2 elements: 21 pixels at AlexNet's norm1, 8 at
-// norm2) and stages, per pixel, x in a row with pre zeros before and post
-// after, g in a row with post zeros before and pre after (r then takes
-// g's place), and the first term: each element's s, r and first term are
-// computed once, then each dx from the r window. All C channels of a pixel
-// are in the block, so r is zero outside [0, C) and x needs no halo beyond
-// the forward's window. Bound: memory, the same bytes as the NCHW kernel
-// (0.4374 ms for AlexNet's pair at batch 256 in f32). The arithmetic is
-// the NCHW kernel's and the plain version's, so it is bitwise equal to
-// ops/lrn.py:lrn_bwd_plain on the same channels-last tensors.
+// Bound: by its bytes, memory (0.4374 ms for AlexNet's pair at batch 256 in
+// f32, 0.2188 in bf16); by its instructions, the two powf an element, which
+// stay because the plain version calls pow twice (poseidon_lrn_powf_floor
+// times them alone: on the H100 they take longer than the bytes). So the
+// design spends as little else as it can: no shared memory, no barrier,
+// every element loaded and stored once as part of a vector, the window
+// sums from registers.
+//
+// Design: registers and warp shuffles. A warp owns a run of `pixels`
+// consecutive pixels, one contiguous stream of pixels * C elements, and
+// walks it in rounds of 32 * V elements: lane l holds the V consecutive
+// elements at l * V of the round, loaded and stored as one access (V = 4
+// where C and the pointers allow: 16 bytes in f32, 8 in bf16; else 2 or 1:
+// the wrapper's ops/vector.vector_width). V divides C, so a lane's elements
+// lie in one pixel; a round may end one pixel and start the next, so no
+// lane idles but in a run's last round (the C entry picks the run: about
+// kRounds rounds, whole ones where a few pixels fill them: norm1 20 pixels
+// in 15 rounds, norm2 8 in 16). The window taps beyond a lane's own
+// elements (pre before and post after for s, post before and pre after for
+// r) come from the lanes next to it by __shfl_sync, from the previous
+// round for lane 0 and the next for lane 31; a tap in another pixel (its
+// channel outside [0, C)) is zero. r of a neighbour is that lane's own r,
+// so no channel's s or powf is computed twice. The rounds are a pipeline:
+// at step k the loads of round k+2 are issued, round k+1 is converted,
+// then round k's s, r and first term and round k-1's dx are computed, so a
+// round's loads are in flight while the warp computes.
+//
+// Both window sums start from 0.0f and add the taps in ascending order with
+// __fmul_rn and __fadd_rn, each element takes the same two powf, and the
+// terms are formed in the plain version's order: the kernel is bitwise
+// equal to ops/lrn.py:lrn_bwd_plain on the same channels-last tensors. A
+// window of 5 (AlexNet's) is compiled in for every V; other windows (1 to
+// MAX_LRN_SIZE) take their size at run time with V = 1, a tap at a time.
 
 #define MAX_NHWC_CHANNELS 4096
+// channels a lane, at most: at 8 (16 bytes of bf16) a lane holds about 112
+// registers and an SM 4 blocks, which ran slower than 4 channels (71-80
+// registers, 6-7 blocks)
+#define MAX_NHWC_LANE_CHANNELS 4
 
 namespace {
 namespace nhwc {
 
-constexpr int kNhwcElems = 4096;  // elements a forward block, about
-constexpr int kMaxSmem = 227 * 1024;
-
-// A block's 8 warps take a pixel each and their 32 lanes the pixel's
-// channels (consecutive lanes on consecutive channels: coalesced loads and
-// stores, conflict-free shared rows); no thread divides to find its
-// element.
 constexpr int kLanes = 32;
-constexpr int kWarps = kThreads / kLanes;
+constexpr int kWarps = 4;  // warps a block
+constexpr int kThreadsBwd = kLanes * kWarps;
+constexpr int kRounds = 16;            // rounds a warp's run, about
+constexpr int kMinWarps = 132 * 32;    // warps to fill the card's SMs
+constexpr unsigned kAll = 0xffffffffu;
 
-// Copy np pixels of C contiguous channels into rows of `row` floats,
-// pixel r's channel c at r * row + lead + c.
-template <typename T>
-__device__ __forceinline__ void stage_rows(float* __restrict__ dst,
-                                           const T* __restrict__ src,
-                                           int np, int channels, int row,
-                                           int lead) {
-  const int lane = threadIdx.x % kLanes;
-  for (int r = threadIdx.x / kLanes; r < np; r += kWarps) {
-    const T* s = src + r * channels;
-    float* d = dst + r * row + lead;
-#pragma unroll 4
-    for (int c = lane; c < channels; c += kLanes) d[c] = load_as_f32(s, c);
+// The window sums of a lane's V elements: out[i] = the sum over t of
+// e[i + t], t = 0 .. LO + HI, where e is the lane's elements with LO taps
+// before (from the lanes below, lane 0 from `prev`) and HI after (from the
+// lanes above, lane 31 from `next`), zero outside [0, C). c is the channel
+// of the lane's first element. (One shuffle a tap, each lane sending the
+// round its reader wants, saved no time and cost a spill in f32.)
+template <int V, int LO, int HI>
+__device__ __forceinline__ void window(const float (&prev)[V],
+                                       const float (&cur)[V],
+                                       const float (&next)[V], int c,
+                                       int channels, int lane,
+                                       float (&out)[V]) {
+  float e[LO + V + HI];
+#pragma unroll
+  for (int h = -LO; h < 0; ++h) {
+    const int s = -((-h + V - 1) / V);  // lanes away, rounded down
+    const int j = h - s * V;
+    const int src = lane + s;
+    const float a = __shfl_sync(kAll, cur[j], src & (kLanes - 1));
+    const float b = __shfl_sync(kAll, prev[j], src & (kLanes - 1));
+    e[LO + h] = c + h >= 0 ? (src >= 0 ? a : b) : 0.0f;
+  }
+#pragma unroll
+  for (int i = 0; i < V; ++i) e[LO + i] = cur[i];
+#pragma unroll
+  for (int h = V; h < V + HI; ++h) {
+    const int s = h / V, j = h % V;
+    const int src = lane + s;
+    const float a = __shfl_sync(kAll, cur[j], src & (kLanes - 1));
+    const float b = __shfl_sync(kAll, next[j], src & (kLanes - 1));
+    e[LO + h] = c + h < channels ? (src < kLanes ? a : b) : 0.0f;
+  }
+#pragma unroll
+  for (int i = 0; i < V; ++i) {
+    float acc = 0.0f;
+#pragma unroll
+    for (int t = 0; t <= LO + HI; ++t) acc = __fadd_rn(acc, e[i + t]);
+    out[i] = acc;
   }
 }
 
-// Zero the `before` floats ahead of each pixel's channels and the `after`
-// floats behind them, in rows of `row` floats.
-__device__ __forceinline__ void zero_margins(float* __restrict__ dst, int np,
-                                             int channels, int row,
-                                             int before, int after) {
-  const int lane = threadIdx.x % kLanes;
-  for (int r = threadIdx.x / kLanes; r < np; r += kWarps)
-    for (int t = lane; t < before + after; t += kLanes)
-      dst[r * row + (t < before ? t : channels + t)] = 0.0f;
+// The same for one element a lane (V = 1) and a window of n taps, lo of
+// them before, taken at run time a tap at a time.
+__device__ __forceinline__ float window_rt(float prev, float cur, float next,
+                                          int c, int channels, int lane,
+                                          int lo, int n) {
+  float acc = 0.0f;
+  for (int t = 0; t < n; ++t) {
+    const int d = t - lo;
+    const int src = lane + d;
+    const float a = __shfl_sync(kAll, cur, src & (kLanes - 1));
+    const float b = __shfl_sync(kAll, d < 0 ? prev : next,
+                                src & (kLanes - 1));
+    const float v = (src >= 0 && src < kLanes) ? a : b;
+    acc = __fadd_rn(acc, (c + d >= 0 && c + d < channels) ? v : 0.0f);
+  }
+  return acc;
 }
 
-// Shared rows of a backward pixel: x (pre zeros, C, post zeros), g then r
-// (post zeros, C, pre zeros), the first term (C).
-__host__ __device__ __forceinline__ int bwd_row(int channels, int size) {
-  return 3 * channels + 2 * (size - 1);
+// The raw words of x and g at a lane's elements of round j, zero past the
+// run's len elements
+template <typename T, int V>
+__device__ __forceinline__ void fetch_round(const T* __restrict__ x,
+                                            const T* __restrict__ g, int j,
+                                            int lane, int len, unsigned* wx,
+                                            unsigned* wg) {
+  constexpr int W = vec::words<V * (int)sizeof(T)>();
+  const int at = j * kLanes * V + lane * V;
+#pragma unroll
+  for (int i = 0; i < W; ++i) wx[i] = wg[i] = 0u;
+  if (at < len) {
+    vec::load_raw<T, V>(x + at, wx);
+    vec::load_raw<T, V>(g + at, wg);
+  }
 }
 
-template <typename T, int SIZE>
-__global__ void __launch_bounds__(kThreads)
+// SIZE > 0: the window at compile time; 0: `size` at run time (V = 1).
+template <typename T, int V, int SIZE>
+__global__ void __launch_bounds__(kThreadsBwd)
     lrn_nhwc_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g,
                         T* __restrict__ dx, long long n_pixels, int channels,
                         int pixels, int size, float alpha_over_size,
                         float neg_beta, float neg_beta_m1, float coef,
                         float k) {
-  const int n = SIZE > 0 ? SIZE : size;
-  const int pre = (n - 1) / 2;
-  const int post = n - 1 - pre;
-  const long long p0 = (long long)blockIdx.x * pixels;
-  const int np = (int)(n_pixels - p0 < pixels ? n_pixels - p0 : pixels);
-  const int xrow = channels + n - 1;
-  const int rrow = channels + n - 1;
-  extern __shared__ float smem[];
-  float* sx = smem;
-  float* sr = sx + np * xrow;
-  float* sf = sr + np * rrow;
-  const long long base = p0 * channels;
-
-  zero_margins(sx, np, channels, xrow, pre, post);
-  zero_margins(sr, np, channels, rrow, post, pre);
-  stage_rows(sx, x + base, np, channels, xrow, pre);
-  stage_rows(sr, g + base, np, channels, rrow, post);
-  __syncthreads();
-
-  // s, r (in g's place) and the first term of each element, once; a warp
-  // takes a pixel, its lanes the channels
+  static_assert(SIZE > 0 || V == 1, "a run-time window takes V = 1");
+  constexpr int kPre = SIZE > 0 ? (SIZE - 1) / 2 : 0;
+  constexpr int kPost = SIZE > 0 ? SIZE - 1 - kPre : 0;
+  constexpr int R = kLanes * V;  // elements a round
+  constexpr int W = vec::words<V * (int)sizeof(T)>();
   const int lane = threadIdx.x % kLanes;
-  for (int r = threadIdx.x / kLanes; r < np; r += kWarps) {
-    for (int c = lane; c < channels; c += kLanes) {
-      const float* w = sx + r * xrow + c;  // x[c - pre + t] at w[t]
-      float acc = 0.0f;
-#pragma unroll
-      for (int t = 0; t < (SIZE > 0 ? SIZE : MAX_LRN_SIZE); ++t) {
-        if (SIZE == 0 && t >= n) break;
-        acc = __fadd_rn(acc, __fmul_rn(w[t], w[t]));
-      }
-      const float s = __fadd_rn(k, __fmul_rn(alpha_over_size, acc));
-      float* gr = sr + r * rrow + post + c;
-      const float gj = *gr;
-      *gr = __fmul_rn(__fmul_rn(gj, w[pre]), powf(s, neg_beta_m1));
-      sf[r * channels + c] = __fmul_rn(gj, powf(s, neg_beta));
-    }
-  }
-  __syncthreads();
+  const long long p0 =
+      ((long long)blockIdx.x * kWarps + threadIdx.x / kLanes) * pixels;
+  if (p0 >= n_pixels) return;  // the whole warp
+  const long long np = n_pixels - p0 < pixels ? n_pixels - p0 : pixels;
+  const int len = (int)np * channels;
+  const int rounds = (len + R - 1) / R;
+  const int step = R % channels;  // a lane's channel advances by this a round
+  const int pre = SIZE > 0 ? kPre : (size - 1) / 2;
+  const int post = SIZE > 0 ? kPost : size - 1 - pre;
+  x += p0 * channels;
+  g += p0 * channels;
+  dx += p0 * channels;
 
-  for (int r = threadIdx.x / kLanes; r < np; r += kWarps) {
-    for (int c = lane; c < channels; c += kLanes) {
-      const float* rw = sr + r * rrow + c;  // r[c - post + t] at rw[t]
-      float rsum = 0.0f;
+
+  // x, g and the squares of rounds k-1, k, k+1; r of k-2, k-1, k; the
+  // first term of k-1, k; the channel of the lane's first element in
+  // rounds k-1 and k
+  float xp[V], xc[V], xn[V], gc[V], gn[V], qp[V], qc[V], qn[V];
+  float rp2[V], rp[V], rc[V], fp[V], fc[V];
+  unsigned wx[W], wg[W], wx2[W], wg2[W];
+  fetch_round<T, V>(x, g, 0, lane, len, wx, wg);
+  vec::unpack<T, V>(wx, xc);
+  vec::unpack<T, V>(wg, gc);
+  fetch_round<T, V>(x, g, 1, lane, len, wx, wg);
 #pragma unroll
-      for (int t = 0; t < (SIZE > 0 ? SIZE : MAX_LRN_SIZE); ++t) {
-        if (SIZE == 0 && t >= n) break;
-        rsum = __fadd_rn(rsum, rw[t]);
+  for (int i = 0; i < V; ++i) {
+    qc[i] = __fmul_rn(xc[i], xc[i]);
+    xp[i] = qp[i] = rp2[i] = rp[i] = fp[i] = 0.0f;
+  }
+  int c_prev = 0, c_cur = (lane * V) % channels;
+
+  for (int kk = 0; kk <= rounds; ++kk) {
+    fetch_round<T, V>(x, g, kk + 2, lane, len, wx2, wg2);
+    vec::unpack<T, V>(wx, xn);
+    vec::unpack<T, V>(wg, gn);
+#pragma unroll
+    for (int i = 0; i < V; ++i) qn[i] = __fmul_rn(xn[i], xn[i]);
+
+    // s, r and the first term of round kk
+    if (kk < rounds) {
+      float ws[V];
+      if (SIZE > 0) {
+        window<V, kPre, kPost>(qp, qc, qn, c_cur, channels, lane, ws);
+      } else {
+        ws[0] = window_rt(qp[0], qc[0], qn[0], c_cur, channels, lane, pre,
+                          size);
       }
-      const float xc = sx[r * xrow + pre + c];
-      const float second = __fmul_rn(__fmul_rn(coef, xc), rsum);
-      const int i = r * channels + c;
-      store_from_f32(dx, base + i, __fsub_rn(sf[i], second));
+#pragma unroll
+      for (int i = 0; i < V; ++i) {
+        const float s = __fadd_rn(k, __fmul_rn(alpha_over_size, ws[i]));
+        rc[i] = __fmul_rn(__fmul_rn(gc[i], xc[i]), powf(s, neg_beta_m1));
+        fc[i] = __fmul_rn(gc[i], powf(s, neg_beta));
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < V; ++i) rc[i] = fc[i] = 0.0f;
     }
+
+    // dx of round kk-1 from the r window (post before, pre after)
+    if (kk > 0) {
+      float rs[V], out[V];
+      if (SIZE > 0) {
+        window<V, kPost, kPre>(rp2, rp, rc, c_prev, channels, lane, rs);
+      } else {
+        rs[0] = window_rt(rp2[0], rp[0], rc[0], c_prev, channels, lane,
+                          post, size);
+      }
+#pragma unroll
+      for (int i = 0; i < V; ++i)
+        out[i] = __fsub_rn(fp[i], __fmul_rn(__fmul_rn(coef, xp[i]), rs[i]));
+      const int at = (kk - 1) * R + lane * V;
+      if (at < len) vec::store<T, V>(dx + at, out);
+    }
+
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      xp[i] = xc[i];
+      xc[i] = xn[i];
+      gc[i] = gn[i];
+      qp[i] = qc[i];
+      qc[i] = qn[i];
+      rp2[i] = rp[i];
+      rp[i] = rc[i];
+      fp[i] = fc[i];
+    }
+#pragma unroll
+    for (int i = 0; i < W; ++i) {
+      wx[i] = wx2[i];
+      wg[i] = wg2[i];
+    }
+    c_prev = c_cur;
+    c_cur += step;
+    if (c_cur >= channels) c_cur -= channels;
   }
 }
 
-// Dynamic shared memory above the 48 KB every launch may take must be
-// opted in to; launches within it skip the host call.
-template <typename F>
-cudaError_t allow_smem(F kernel, int bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+// The powf floor: only the two powf an element of the backward, over n
+// elements from registers (s from the element's index, in the range the
+// layer's s takes), one float a thread written so that nothing is dropped.
+__global__ void __launch_bounds__(256)
+    lrn_powf_floor_kernel(long long n, float alpha_over_size,
+                          float neg_beta, float neg_beta_m1, float k,
+                          float* __restrict__ out) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  float acc = 0.0f;
+  for (long long i = t; i < n; i += stride) {
+    const float s =
+        __fadd_rn(k, __fmul_rn(alpha_over_size, (float)(int)(i & 1023)));
+    acc = __fadd_rn(acc, __fadd_rn(powf(s, neg_beta_m1), powf(s, neg_beta)));
+  }
+  out[t] = acc;
 }
 
-// Pixels a block: about `elems` elements, at least one pixel, within the
-// shared memory a block can take at `floats_a_pixel`.
-int pixels_of(int channels, int elems, int floats_a_pixel) {
-  int p = elems / channels;
+int gcd(int a, int b) {
+  while (b) {
+    const int t = a % b;
+    a = b;
+    b = t;
+  }
+  return a;
+}
+
+// Pixels a warp's run: about kRounds rounds, in whole rounds where a few
+// pixels fill them (`unit` pixels end on a round), fewer when the tensor
+// is too small to give every SM kMinWarps / 132 warps.
+int pixels_per_warp(long long n_pixels, int channels, int round_elems) {
+  const int unit = round_elems / gcd(channels, round_elems);
+  long long p = (long long)kRounds * round_elems / channels;
   if (p < 1) p = 1;
-  const int cap = kMaxSmem / (4 * floats_a_pixel);
-  return p < cap ? p : cap;
+  if (unit <= p) p = p / unit * unit;
+  const long long cap = (n_pixels + kMinWarps - 1) / kMinWarps;
+  if (p > cap) p = cap;
+  return (int)p;
 }
 
 bool valid(long long n_pixels, int channels, int size) {
@@ -397,51 +535,129 @@ bool valid(long long n_pixels, int channels, int size) {
          size >= 1 && size <= MAX_LRN_SIZE;
 }
 
-template <typename T, int SIZE>
-int bwd_t(const void* x, const void* g, void* dx, long long n_pixels,
-          int channels, int size, float alpha_over_size, float neg_beta,
-          float neg_beta_m1, float coef, float k, cudaStream_t stream) {
-  const int row = bwd_row(channels, size);
-  const int pixels = pixels_of(channels, kNhwcElems / 2, row);
-  const long long blocks = (n_pixels + pixels - 1) / pixels;
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  const int bytes = 4 * pixels * row;
-  auto kernel = lrn_nhwc_bwd_kernel<T, SIZE>;
-  const cudaError_t err = allow_smem(kernel, bytes);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<(unsigned int)blocks, kThreads, bytes, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(g),
-      static_cast<T*>(dx), n_pixels, channels, pixels, size, alpha_over_size,
-      neg_beta, neg_beta_m1, coef, k);
+// the channels of a lane: 1, 2 or 4 (MAX_NHWC_LANE_CHANNELS)
+bool valid_vec(int v) {
+  return v >= 1 && v <= MAX_NHWC_LANE_CHANNELS && (v & (v - 1)) == 0;
+}
+
+bool aligned(const void* p, int bytes) {
+  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
+}
+
+struct Args {
+  const void* x;
+  const void* g;
+  void* dx;
+  long long n_pixels;
+  int channels, size;
+  float alpha_over_size, neg_beta, neg_beta_m1, coef, k;
+};
+
+// launch (out == nullptr) or report attributes of one instantiation
+template <typename T, int V, int SIZE>
+int run_t(const Args& a, cudaStream_t stream, int* out) {
+  auto kernel = lrn_nhwc_bwd_kernel<T, V, SIZE>;
+  if (out) {
+    cudaFuncAttributes fa;
+    cudaError_t err = cudaFuncGetAttributes(&fa, kernel);
+    int blocks = 0;
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
+                                                          kThreadsBwd, 0);
+    if (err != cudaSuccess) return (int)err;
+    out[0] = fa.numRegs;
+    out[1] = (int)fa.sharedSizeBytes;
+    out[2] = 0;
+    out[3] = (int)fa.localSizeBytes;
+    out[4] = kThreadsBwd;
+    out[5] = blocks;
+    return 0;
+  }
+  const int pixels = pixels_per_warp(a.n_pixels, a.channels, kLanes * V);
+  const long long warps = (a.n_pixels + pixels - 1) / pixels;
+  const long long blocks = (warps + kWarps - 1) / kWarps;
+  if (blocks > 0x7fffffffLL ||
+      (long long)pixels * a.channels >= (1LL << 31))
+    return (int)cudaErrorInvalidValue;
+  kernel<<<(unsigned int)blocks, kThreadsBwd, 0, stream>>>(
+      static_cast<const T*>(a.x), static_cast<const T*>(a.g),
+      static_cast<T*>(a.dx), a.n_pixels, a.channels, pixels, a.size,
+      a.alpha_over_size, a.neg_beta, a.neg_beta_m1, a.coef, a.k);
   return (int)cudaGetLastError();
+}
+
+// the instantiation for dtype, vec and the window; a window other than 5
+// runs one element a lane
+template <typename T>
+int run(int vec, const Args& a, cudaStream_t stream, int* out) {
+  if (a.size != 5) return run_t<T, 1, 0>(a, stream, out);
+  switch (vec) {
+    case 1:
+      return run_t<T, 1, 5>(a, stream, out);
+    case 2:
+      return run_t<T, 2, 5>(a, stream, out);
+    default:
+      return run_t<T, 4, 5>(a, stream, out);
+  }
+}
+
+int dispatch(int dtype, int vec, const Args& a, cudaStream_t stream,
+             int* out) {
+  if (!valid_vec(vec)) return (int)cudaErrorInvalidValue;
+  if (dtype == 0) return run<float>(vec, a, stream, out);
+  if (dtype == 1) return run<__nv_bfloat16>(vec, a, stream, out);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace nhwc
 }  // namespace
 
-// x, g, dx as the forward's. The scalars arrive rounded to float from the
-// wrapper's doubles (alpha/size, -beta, -beta-1, 2*alpha*beta/size), the
-// same floats the plain version's scalar operands round to. Returns a
+// x, g, dx channels-last (n_pixels, C) tensors, C at most MAX_NHWC_CHANNELS;
+// vec: the channels a lane moves as one access (ops/vector.vector_width),
+// 1, 2 or 4, dividing C, every pointer aligned to vec elements. The scalars arrive rounded to float from
+// the wrapper's doubles (alpha/size, -beta, -beta-1, 2*alpha*beta/size),
+// the same floats the plain version's scalar operands round to. Returns a
 // cudaError_t.
 extern "C" int poseidon_lrn_nhwc_bwd(const void* x, const void* g, void* dx,
                                      int dtype, long long n_pixels,
-                                     int channels, int size,
+                                     int channels, int vec, int size,
                                      float alpha_over_size, float neg_beta,
                                      float neg_beta_m1, float coef, float k,
                                      void* stream) {
-  if (!nhwc::valid(n_pixels, channels, size))
+  if (!nhwc::valid(n_pixels, channels, size) || !nhwc::valid_vec(vec) ||
+      channels % vec != 0)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  using namespace nhwc;
-  if (dtype == 0) {
-    auto f = size == 5 ? bwd_t<float, 5> : bwd_t<float, 0>;
-    return f(x, g, dx, n_pixels, channels, size, alpha_over_size, neg_beta,
-             neg_beta_m1, coef, k, st);
-  }
-  if (dtype == 1) {
-    auto f = size == 5 ? bwd_t<__nv_bfloat16, 5> : bwd_t<__nv_bfloat16, 0>;
-    return f(x, g, dx, n_pixels, channels, size, alpha_over_size, neg_beta,
-             neg_beta_m1, coef, k, st);
-  }
-  return (int)cudaErrorInvalidValue;
+  const int bytes = vec * (dtype == 0 ? 4 : 2);
+  if (!nhwc::aligned(x, bytes) || !nhwc::aligned(g, bytes) ||
+      !nhwc::aligned(dx, bytes))
+    return (int)cudaErrorInvalidValue;
+  const nhwc::Args a{x,    g,        dx,          n_pixels, channels,
+                     size, alpha_over_size, neg_beta, neg_beta_m1, coef, k};
+  return nhwc::dispatch(dtype, vec, a, static_cast<cudaStream_t>(stream),
+                        nullptr);
+}
+
+// The instantiation for dtype, vec and the window: out[6] = registers a
+// thread, static shared bytes, dynamic shared bytes, local (spill) bytes a
+// thread, threads a block, resident blocks per SM. Returns a cudaError_t.
+extern "C" int poseidon_lrn_nhwc_bwd_attrs(int dtype, int vec, int size,
+                                           int* out) {
+  if (size < 1 || size > MAX_LRN_SIZE) return (int)cudaErrorInvalidValue;
+  nhwc::Args a{};
+  a.size = size;
+  return nhwc::dispatch(dtype, vec, a, nullptr, out);
+}
+
+// The two powf of the backward alone over n elements (see
+// lrn_powf_floor_kernel): out holds blocks * 256 floats. Returns a
+// cudaError_t.
+extern "C" int poseidon_lrn_powf_floor(long long n, int blocks,
+                                       float alpha_over_size, float neg_beta,
+                                       float neg_beta_m1, float k, void* out,
+                                       void* stream) {
+  if (n < 1 || blocks < 1) return (int)cudaErrorInvalidValue;
+  nhwc::lrn_powf_floor_kernel<<<blocks, 256, 0,
+                                static_cast<cudaStream_t>(stream)>>>(
+      n, alpha_over_size, neg_beta, neg_beta_m1, k, static_cast<float*>(out));
+  return (int)cudaGetLastError();
 }

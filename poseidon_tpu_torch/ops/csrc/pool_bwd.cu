@@ -82,6 +82,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "vec.cuh"
+
 namespace {
 
 constexpr int kThreads = 128;
@@ -124,13 +126,15 @@ struct Geometry {
 };
 
 // first window along one axis that covers padded coordinate p
-__device__ __forceinline__ int cover_lo(int p, int kernel, int stride) {
+__host__ __device__ __forceinline__ int cover_lo(int p, int kernel,
+                                                 int stride) {
   const int first = p - kernel + 1;
   return first <= 0 ? 0 : (first + stride - 1) / stride;
 }
 
 // last window along one axis that covers padded coordinate p
-__device__ __forceinline__ int cover_hi(int p, int stride, int n_out) {
+__host__ __device__ __forceinline__ int cover_hi(int p, int stride,
+                                                 int n_out) {
   return imin(p / stride, n_out - 1);
 }
 
@@ -141,7 +145,7 @@ struct Band {
   int r0, r1, oy0, nwy, xr0, nxr;
 };
 
-__device__ inline Band band_of(const Geometry& g, int band_rows,
+__host__ __device__ inline Band band_of(const Geometry& g, int band_rows,
                                         int j) {
   Band b;
   b.r0 = j * band_rows;
@@ -188,18 +192,19 @@ struct Walk2 {
   }
 };
 
-// The same over (planes, rows, cols).
-struct Walk3 {
+// The same over (planes, rows, cols), a step of kStride.
+template <int kStride>
+struct Walk3Of {
   int p, r, c, dp, dr, dc, rows, cols;
-  __device__ Walk3(int rows_, int cols_) : rows(rows_), cols(cols_) {
+  __device__ Walk3Of(int rows_, int cols_) : rows(rows_), cols(cols_) {
     const int plane = rows * cols;
     const int t = threadIdx.x;
     p = t / plane;
     int rem = t - p * plane;
     r = rem / cols;
     c = rem - r * cols;
-    dp = kThreads / plane;
-    rem = kThreads - dp * plane;
+    dp = kStride / plane;
+    rem = kStride - dp * plane;
     dr = rem / cols;
     dc = rem - dr * cols;
   }
@@ -217,6 +222,7 @@ struct Walk3 {
     p += dp;
   }
 };
+using Walk3 = Walk3Of<kThreads>;
 
 // Copy len contiguous elements of each of np planes (plane stride gstride
 // in src) into dst (plane stride sstride) as f32, kUnroll loads in flight.
@@ -591,26 +597,39 @@ extern "C" int poseidon_pool_bwd_attrs(int dtype, int is_max, int h, int w,
 // the result back). This kernel computes it straight on channels-last
 // tensors, C the fast axis, so no transpose is needed.
 //
-// Design: two passes, every access coalesced across C (a warp's lanes on
-// consecutive channels of one pixel), no shared memory and no window
-// taken twice. A thread owns one (window, channel) in the first pass and
-// one (input element, channel) in the second; a block is 32 channels x 8
-// columns of one row of one image, from its block and thread indices, so
-// no thread divides to find its element, and AlexNet's 3 x 3, stride 2
-// window is compiled in (the divisions by the stride become shifts, and
-// the gather issues the loads of its at most 2 x 2 windows together
-// before adding: the pass is held by memory latency otherwise).
-//   1. MAX only: each window's first maximum, as the tap's index in the
-//      window (a byte; 16 bits for windows of more than 254 taps), into a
-//      scratch the wrapper allocates beside dx (one entry a cotangent
-//      element: 1/4 of g's bytes in f32).
-//   2. Each dx element gathers its covering windows, output row and column
-//      descending, adding a window's cotangent when its argmax tap is this
-//      element (MAX), or the cotangent over Caffe's divisor (AVE); dx is
-//      written once.
 // Bound: memory, the same bytes as the NCHW kernel (0.3555 ms for AlexNet's
-// three pools at batch 256 in f32); the scratch adds a write and about
-// two reads of a quarter of g's bytes.
+// three pools at batch 256 in f32, 0.1778 in bf16). What held the kernel's
+// earlier designs far above it was the latency of small loads: a thread
+// moved one 2- or 4-byte channel a load.
+//
+// Design: one launch, no global scratch, 16-byte channel vectors. A block
+// of 256 threads owns a band of dx rows of one image times a group of
+// channels; a thread moves V channels as one access (V = 16 bytes /
+// element size where C and the pointers allow, else 8, 4 or 2 bytes). The
+// wrapper (ops/pool.py:pool_nhwc_plan) picks V, the group (about 64 bytes
+// of a pixel: 16 channels in f32, 32 in bf16, so a band can be tall) and
+// the band's rows within a shared-memory budget, and passes the most x
+// rows and window rows a band stages; the C entry checks every band
+// against them and the total against 227 KB. For its band the block
+//   1. copies the x rows its covering windows read (MAX only) and the g
+//      rows of those windows into shared memory with cp.async, V channels
+//      a copy, coalesced along C;
+//   2. MAX: takes each window's first maximum once from shared memory and
+//      writes the tap it is at (a 16-bit code a channel) beside the
+//      window's g;
+//   3. each dx element gathers its covering windows from shared memory in
+//      K6's slot order (output row and column descending), adding a
+//      window's g where its code is this element's tap (MAX), or g over
+//      Caffe's divisor (AVE), from 0.0f in f32, and writes its V channels
+//      once. At most ceil(K/S) x ceil(K/S) windows cover an element; for a
+//      3 x 3, stride 2 window (compiled in at full width) their loads are
+//      issued together before the adds.
+// Windows on a band boundary are computed by both neighbouring blocks,
+// identically, as in the NCHW kernel, so x and g come from device memory
+// about once (a band's halo rows mostly from L2) and dx is written once.
+// A gather in slot order adds what K6's slot passes add, in the same
+// order, without an f32 tile of dx in shared memory, its zeroing and a
+// barrier a slot; the codes take 2 bytes a channel.
 //
 // The rules are the NCHW kernel's: first maximum by strict `>` over
 // row-major taps, pad and NaN never winning, a window with no value above
@@ -619,232 +638,380 @@ extern "C" int poseidon_pool_bwd_attrs(int dtype, int is_max, int h, int w,
 // adds in the plain version's order; AVE's divisor the product of the two
 // axis extents rounded once, the division IEEE (taken at each gather of a
 // window: the same float every time). So it is bitwise equal to
-// ops/pool.py:pool_bwd_plain on the same channels-last tensors. A 3 x 3,
-// stride 2 window is a template instantiation; others take their size at
-// run time.
+// ops/pool.py:pool_bwd_plain on the same channels-last tensors.
 
 namespace {
 namespace nhwc {
 
-// A block is 32 channels (a warp's lanes) x kCols columns of one row of
-// one image: no thread divides to find its element.
-constexpr int kLanes = 32;
-constexpr int kCols = 8;
+constexpr int kThreadsNhwc = 256;
+// the code of a window with nothing above -inf, bar window (0, 0): no tap
+constexpr int kNone = 0xffff;
+using Walk = Walk3Of<kThreadsNhwc>;
 
-struct Geometry {
-  int h, w;    // input plane
-  int oh, ow;  // output plane
-  int kh, kw;  // window
-  int sh, sw;  // stride
-  int ph, pw;  // padding before (top, left)
-};
-
-// first window along one axis that covers padded coordinate p
-__device__ __forceinline__ int cover_lo(int p, int kernel, int stride) {
-  const int first = p - kernel + 1;
-  return first <= 0 ? 0 : (first + stride - 1) / stride;
+// A block's shared memory in bytes (ops/pool.py:pool_nhwc_smem_bytes plans
+// with the same): a pixel's group is gvec vectors of vec elements, vb
+// bytes each; MAX stages x_rows * w pixels of x, win_rows * ow of g and
+// the windows' codes (2 bytes a channel), AVE the g rows alone.
+inline long long smem_bytes(const Geometry& g, int is_max, int vec, int vb,
+                            int gvec, int xcap, int wcap) {
+  const long long gb = (long long)wcap * g.ow * gvec * vb;
+  if (!is_max) return gb;
+  return (long long)xcap * g.w * gvec * vb + gb +
+         (long long)wcap * g.ow * gvec * vec * 2;
 }
 
-// last window along one axis that covers padded coordinate p
-__device__ __forceinline__ int cover_hi(int p, int stride, int n_out) {
-  return imin(p / stride, n_out - 1);
+// rows x cols pixels of nv vectors from src (a pixel every `channels`
+// elements) into dst (a pixel every gvec vectors), one cp.async a vector
+template <typename T, int V>
+__device__ __forceinline__ void stage_tile(unsigned char* __restrict__ dst,
+                                           const T* __restrict__ src,
+                                           int rows, int cols, int nv,
+                                           int gvec, int channels) {
+  constexpr int VB = V * (int)sizeof(T);
+  if (rows <= 0 || nv <= 0) return;
+  for (Walk it(cols, nv); it.p < rows; it.next())
+    vec::copy_async<VB>(dst + ((it.p * cols + it.r) * gvec + it.c) * VB,
+                        src + (it.p * cols + it.r) * channels + it.c * V);
 }
 
-// Pass 1, MAX: block (b, row * col_blocks + cb, img) takes channels
-// [32 b, 32 b + 32) of output columns [8 cb, 8 cb + 8) of output row `row`.
-// Code: the first maximum's tap a * kw + b, or `none` where no value is
-// above -inf (0 for window (0, 0): flat index 0 of the padded plane is its
-// tap (0, 0)). K, S > 0: the window and the stride at compile time (3 and
-// 2, AlexNet's pools), so the divisions by the stride are shifts.
-template <typename T, int K, int S, typename C>
-__global__ void __launch_bounds__(kLanes * kCols)
-    pool_nhwc_argmax_kernel(const T* __restrict__ x, C* __restrict__ code,
-                            Geometry geo, int channels, C none) {
+// Block b: channel group b % n_groups of band (b / n_groups) % n_bands of
+// image b / (n_groups * n_bands). K, S > 0: the window and the stride at
+// compile time (3 and 2, AlexNet's pools).
+template <typename T, int V, bool kMax, int K, int S>
+__global__ void __launch_bounds__(kThreadsNhwc)
+    pool_nhwc_band_kernel(const T* __restrict__ x, const T* __restrict__ g,
+                          T* __restrict__ dx, Geometry geo, int channels,
+                          int gvec, int n_groups, int band_rows, int n_bands,
+                          int xcap, int wcap) {
+  extern __shared__ __align__(16) unsigned char smem_nhwc[];
+  constexpr int VB = V * (int)sizeof(T);
+  constexpr int kWords = vec::words<VB>(), kCodeWords = vec::words<2 * V>();
   const int kh = K > 0 ? K : geo.kh, kw = K > 0 ? K : geo.kw;
   const int sh = S > 0 ? S : geo.sh, sw = S > 0 ? S : geo.sw;
-  const int col_blocks = (geo.ow + kCols - 1) / kCols;
-  const int oy = blockIdx.y / col_blocks;
-  const int ox = (blockIdx.y - oy * col_blocks) * kCols + threadIdx.y;
-  const int c = blockIdx.x * kLanes + threadIdx.x;
-  if (c >= channels || ox >= geo.ow) return;
-  const long long img = blockIdx.z;
-  const T* xi = x + img * geo.h * geo.w * (long long)channels + c;
-  const int y0 = oy * sh - geo.ph;
-  const int x0 = ox * sw - geo.pw;
-  float mx = -INFINITY;
-  int best = -1;
+  const int grp = (int)(blockIdx.x % n_groups);
+  const unsigned rest = blockIdx.x / n_groups;
+  const Band b = band_of(geo, band_rows, (int)(rest % n_bands));
+  const long long img = rest / n_bands;
+  const int c0 = grp * gvec * V;
+  const int nv = imin(gvec, (channels - c0) / V);  // this group's vectors
+  const long long in_img = (long long)geo.h * geo.w * channels;
+  const T* xi = x + img * in_img + c0;
+  const T* gi = g + img * (long long)geo.oh * geo.ow * channels + c0;
+  T* dxi = dx + img * in_img + c0;
+  const int gpitch = gvec * VB;  // bytes of a pixel's group
+  // x (MAX) | g | codes (MAX)
+  unsigned char* sx = smem_nhwc;
+  unsigned char* sg = sx + (kMax ? xcap * geo.w * gpitch : 0);
+  uint16_t* scode = reinterpret_cast<uint16_t*>(sg + wcap * geo.ow * gpitch);
+
+  if (kMax)
+    stage_tile<T, V>(sx, xi + b.xr0 * geo.w * channels, b.nxr, geo.w, nv,
+                     gvec, channels);
+  stage_tile<T, V>(sg, gi + b.oy0 * geo.ow * channels, b.nwy, geo.ow, nv,
+                   gvec, channels);
+  __pipeline_commit();
+  __pipeline_wait_prior(0);
+  __syncthreads();
+
+  if (kMax) {
+    // each window's first maximum once, V channels a thread: the tap a * kw
+    // + c it is at, or kNone (0 for window (0, 0): flat index 0 of the
+    // padded plane is its tap (0, 0))
+    if (b.nwy > 0) {
+      for (Walk it(geo.ow, nv); it.p < b.nwy; it.next()) {
+        const int oy = b.oy0 + it.p, ox = it.r;
+        const int y0 = oy * sh - geo.ph, x0 = ox * sw - geo.pw;
+        float mx[V];
+        int best[V];
 #pragma unroll
-  for (int a = 0; a < kh; ++a) {
-    const int y = y0 + a;
-    if (y < 0 || y >= geo.h) continue;
+        for (int j = 0; j < V; ++j) {
+          mx[j] = -INFINITY;
+          best[j] = -1;
+        }
 #pragma unroll
-    for (int b = 0; b < kw; ++b) {
-      const int xx = x0 + b;
-      if (xx < 0 || xx >= geo.w) continue;
-      const float v = load_as_f32(xi + (y * geo.w + xx) * channels);
-      if (v > mx) {
-        mx = v;
-        best = a * kw + b;
+        for (int a = 0; a < kh; ++a) {
+          const int y = y0 + a;
+          if (y < 0 || y >= geo.h) continue;
+          const unsigned char* row =
+              sx + ((y - b.xr0) * geo.w * gvec + it.c) * VB;
+#pragma unroll
+          for (int c = 0; c < kw; ++c) {
+            const int xx = x0 + c;
+            if (xx < 0 || xx >= geo.w) continue;
+            float v[V];
+            vec::load<T, V>(reinterpret_cast<const T*>(row + xx * gpitch), v);
+#pragma unroll
+            for (int j = 0; j < V; ++j) {
+              if (v[j] > mx[j]) {
+                mx[j] = v[j];
+                best[j] = a * kw + c;
+              }
+            }
+          }
+        }
+        const int none = (oy == 0 && ox == 0) ? 0 : kNone;
+#pragma unroll
+        for (int j = 0; j < V; ++j) best[j] = best[j] >= 0 ? best[j] : none;
+        vec::store_u16<V>(scode + ((it.p * geo.ow + ox) * gvec + it.c) * V,
+                          best);
       }
     }
+    __syncthreads();
   }
-  if (best < 0) best = (oy == 0 && ox == 0) ? 0 : (int)none;
-  code[img * geo.oh * geo.ow * (long long)channels +
-       (oy * geo.ow + ox) * channels + c] = (C)best;
-}
 
-// Pass 2: block (b, y * col_blocks + cb, img) takes channels [32 b, ...)
-// of input columns [8 cb, 8 cb + 8) of input row y; each element gathers
-// its covering windows.
-template <typename T, bool kMax, int K, int S, typename C>
-__global__ void __launch_bounds__(kLanes * kCols)
-    pool_nhwc_bwd_kernel(const T* __restrict__ g, const C* __restrict__ code,
-                         T* __restrict__ dx, Geometry geo, int channels) {
-  const int kh = K > 0 ? K : geo.kh, kw = K > 0 ? K : geo.kw;
-  const int sh = S > 0 ? S : geo.sh, sw = S > 0 ? S : geo.sw;
-  const int col_blocks = (geo.w + kCols - 1) / kCols;
-  const int y = blockIdx.y / col_blocks;
-  const int xx = (blockIdx.y - y * col_blocks) * kCols + threadIdx.y;
-  const int c = blockIdx.x * kLanes + threadIdx.x;
-  if (c >= channels || xx >= geo.w) return;
-  const long long img = blockIdx.z;
-  const long long goff = img * geo.oh * geo.ow * (long long)channels + c;
-  const T* gi = g + goff;
-  const C* ci = kMax ? code + goff : nullptr;
-  const int py = y + geo.ph, px = xx + geo.pw;
-  const int ylo = cover_lo(py, kh, sh), yhi = cover_hi(py, sh, geo.oh);
-  const int xlo = cover_lo(px, kw, sw), xhi = cover_hi(px, sw, geo.ow);
-  float acc = 0.0f;
-  if (K > 0 && S > 0) {
-    // at most ceil(K / S) covering windows an axis, known at compile time:
-    // every load is issued before the first add, so a thread waits on
-    // memory once, not once a window (the adds keep their order)
-    constexpr int kMw = K > 0 && S > 0 ? (K + S - 1) / S : 1;
-    float gv[kMw][kMw];
-    bool take[kMw][kMw];
+  // each dx element gathers its covering windows, output row and column
+  // descending (K6's slots in ascending order)
+  const int nrows = b.r1 - b.r0;
+  for (Walk it(geo.w, nv); it.p < nrows; it.next()) {
+    const int y = b.r0 + it.p, xx = it.r;
+    const int py = y + geo.ph, px = xx + geo.pw;
+    const int ylo = cover_lo(py, kh, sh), yhi = cover_hi(py, sh, geo.oh);
+    const int xlo = cover_lo(px, kw, sw), xhi = cover_hi(px, sw, geo.ow);
+    float acc[V];
 #pragma unroll
-    for (int u = 0; u < kMw; ++u) {
+    for (int j = 0; j < V; ++j) acc[j] = 0.0f;
+    // window (oy, ox)'s g and codes as raw words (unpacked at their add,
+    // so the windows in flight hold few registers)
+    auto fetch = [&](int oy, int ox, unsigned (&gw)[kWords],
+                     unsigned (&cw)[kCodeWords]) {
+      const int wi = ((oy - b.oy0) * geo.ow + ox) * gvec + it.c;
+      vec::load_raw<T, V>(reinterpret_cast<const T*>(sg + wi * VB), gw);
+      if (kMax) vec::load_raw<uint16_t, V>(scode + wi * V, cw);
+    };
+    auto add = [&](int oy, int ox, const unsigned (&gw)[kWords],
+                   const unsigned (&cw)[kCodeWords]) {
+      float gv[V];
+      vec::unpack<T, V>(gw, gv);
+      if (kMax) {
+        int cd[V];
+        vec::unpack_u16<V>(cw, cd);
+        const int tap = (py - oy * sh) * kw + (px - ox * sw);
 #pragma unroll
-      for (int v = 0; v < kMw; ++v) {
-        const int oy = yhi - u, ox = xhi - v;
-        take[u][v] = oy >= ylo && ox >= xlo;
-        gv[u][v] = 0.0f;
-        if (take[u][v]) {
-          const int j = (oy * geo.ow + ox) * channels;
-          gv[u][v] = load_as_f32(gi + j);
-          if (kMax)
-            take[u][v] = (int)ci[j] == (py - oy * sh) * kw + (px - ox * sw);
-          else
-            gv[u][v] = __fdiv_rn(gv[u][v], __fmul_rn(
-                (float)ave_extent(oy, sh, geo.ph, kh, geo.h),
-                (float)ave_extent(ox, sw, geo.pw, kw, geo.w)));
+        for (int j = 0; j < V; ++j)
+          if (cd[j] == tap) acc[j] = __fadd_rn(acc[j], gv[j]);
+      } else {
+        const float d =
+            __fmul_rn((float)ave_extent(oy, sh, geo.ph, kh, geo.h),
+                      (float)ave_extent(ox, sw, geo.pw, kw, geo.w));
+#pragma unroll
+        for (int j = 0; j < V; ++j)
+          acc[j] = __fadd_rn(acc[j], __fdiv_rn(gv[j], d));
+      }
+    };
+    if (K > 0 && S > 0) {
+      // at most ceil(K / S) covering windows an axis, known at compile
+      // time: every load is issued before the first add
+      constexpr int kMw = K > 0 && S > 0 ? (K + S - 1) / S : 1;
+      unsigned gw[kMw][kMw][kWords], cw[kMw][kMw][kCodeWords];
+#pragma unroll
+      for (int u = 0; u < kMw; ++u)
+#pragma unroll
+        for (int v = 0; v < kMw; ++v)
+          if (yhi - u >= ylo && xhi - v >= xlo)
+            fetch(yhi - u, xhi - v, gw[u][v], cw[u][v]);
+#pragma unroll
+      for (int u = 0; u < kMw; ++u)
+#pragma unroll
+        for (int v = 0; v < kMw; ++v)
+          if (yhi - u >= ylo && xhi - v >= xlo)
+            add(yhi - u, xhi - v, gw[u][v], cw[u][v]);
+    } else {
+      for (int oy = yhi; oy >= ylo; --oy) {
+        for (int ox = xhi; ox >= xlo; --ox) {
+          unsigned gw[kWords], cw[kCodeWords];
+          fetch(oy, ox, gw, cw);
+          add(oy, ox, gw, cw);
         }
       }
     }
-#pragma unroll
-    for (int u = 0; u < kMw; ++u)
-#pragma unroll
-      for (int v = 0; v < kMw; ++v)
-        if (take[u][v]) acc = __fadd_rn(acc, gv[u][v]);
-    store_from_f32(dx + img * geo.h * geo.w * (long long)channels +
-                       (y * geo.w + xx) * channels + c,
-                   acc);
-    return;
+    vec::store<T, V>(dxi + (y * geo.w + xx) * channels + it.c * V, acc);
   }
-  for (int oy = yhi; oy >= ylo; --oy) {
-    const int a = py - oy * sh;
-    float ey = 0.0f;
-    if (!kMax) ey = (float)ave_extent(oy, sh, geo.ph, kh, geo.h);
-    for (int ox = xhi; ox >= xlo; --ox) {
-      const int j = (oy * geo.ow + ox) * channels;
-      if (kMax) {
-        if ((int)ci[j] == a * kw + (px - ox * sw))
-          acc = __fadd_rn(acc, load_as_f32(gi + j));
-      } else {
-        const float denom = __fmul_rn(
-            ey, (float)ave_extent(ox, sw, geo.pw, kw, geo.w));
-        acc = __fadd_rn(acc, __fdiv_rn(load_as_f32(gi + j), denom));
-      }
-    }
-  }
-  store_from_f32(dx + img * geo.h * geo.w * (long long)channels +
-                     (y * geo.w + xx) * channels + c,
-                 acc);
 }
 
-template <typename T, bool kMax, int K, int S, typename C>
-int launch_t(const void* x, const void* g, void* code, void* dx,
-             long long batch, int channels, const Geometry& geo,
-             cudaStream_t stream) {
-  const dim3 block(kLanes, kCols);
-  const unsigned int lanes = (channels + kLanes - 1) / kLanes;
-  const long long out_rows = (long long)geo.oh * ((geo.ow + kCols - 1) / kCols);
-  const long long in_rows = (long long)geo.h * ((geo.w + kCols - 1) / kCols);
-  if (batch > 65535 || out_rows > 65535 || in_rows > 65535)
-    return (int)cudaErrorInvalidValue;
-  if (kMax) {
-    pool_nhwc_argmax_kernel<T, K, S, C>
-        <<<dim3(lanes, (unsigned int)out_rows, (unsigned int)batch), block,
-           0, stream>>>(static_cast<const T*>(x), static_cast<C*>(code), geo,
-                        channels, (C)(sizeof(C) == 1 ? 0xff : 0xffff));
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
+// The wrapper's plan: vec elements a vector, gvec vectors a block's group,
+// band_rows dx rows a band, at most xcap x rows and wcap window rows a band
+struct Plan {
+  int vec, gvec, band_rows, xcap, wcap;
+};
+
+struct Launch {
+  int n_groups, n_bands, bytes;
+  long long blocks;
+};
+
+// Refuses a plan whose vector does not divide C or passes 16 bytes, a band
+// that stages more rows than the plan's x_rows and win_rows, shared memory
+// past 227 KB, or a grid past 2^31 - 1 blocks.
+int plan_launch(const Geometry& g, int is_max, int elem_bytes,
+                long long batch, int channels, const Plan& p, Launch& l) {
+  if (p.vec < 1 || channels % p.vec != 0 || p.vec * elem_bytes > 16 ||
+      (p.vec & (p.vec - 1)) != 0 || p.gvec < 1 || p.band_rows < 1 ||
+      p.xcap < 0 || p.wcap < 0 || batch < 1)
+    return 1;
+  const int rows = imin(p.band_rows, g.h);
+  l.n_bands = (g.h + rows - 1) / rows;
+  for (int j = 0; j < l.n_bands; ++j) {
+    const Band b = band_of(g, rows, j);
+    if (b.nwy > p.wcap || (is_max && b.nxr > p.xcap)) return 1;
   }
-  pool_nhwc_bwd_kernel<T, kMax, K, S, C>
-      <<<dim3(lanes, (unsigned int)in_rows, (unsigned int)batch), block, 0,
-         stream>>>(static_cast<const T*>(g), static_cast<const C*>(code),
-                   static_cast<T*>(dx), geo, channels);
+  l.n_groups = (channels / p.vec + p.gvec - 1) / p.gvec;
+  const long long bytes = smem_bytes(g, is_max, p.vec, p.vec * elem_bytes,
+                                     p.gvec, p.xcap, p.wcap);
+  if (bytes > kMaxSmem) return 1;
+  l.bytes = (int)bytes;
+  l.blocks = batch * l.n_groups * l.n_bands;
+  if (l.blocks > 0x7fffffffLL) return 1;
+  return 0;
+}
+
+struct Args {
+  const void* x;
+  const void* g;
+  void* dx;
+  long long batch;
+  int channels;
+  Geometry geo;
+  Plan plan;
+};
+
+// launch (out == nullptr) or report the attributes of one instantiation
+template <typename T, int V, bool kMax, int K, int S>
+int run_t(const Args& a, cudaStream_t stream, int* out) {
+  Launch l;
+  if (plan_launch(a.geo, kMax, (int)sizeof(T), a.batch, a.channels, a.plan,
+                  l))
+    return (int)cudaErrorInvalidValue;
+  auto kernel = pool_nhwc_band_kernel<T, V, kMax, K, S>;
+  cudaError_t err = allow_smem(kernel, l.bytes);
+  if (err != cudaSuccess) return (int)err;
+  if (out) {
+    cudaFuncAttributes fa;
+    err = cudaFuncGetAttributes(&fa, kernel);
+    int blocks = 0;
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, kernel, kThreadsNhwc, l.bytes);
+    if (err != cudaSuccess) return (int)err;
+    out[0] = fa.numRegs;
+    out[1] = (int)fa.sharedSizeBytes;
+    out[2] = l.bytes;
+    out[3] = (int)fa.localSizeBytes;
+    out[4] = kThreadsNhwc;
+    out[5] = blocks;
+    return 0;
+  }
+  kernel<<<(unsigned int)l.blocks, kThreadsNhwc, l.bytes, stream>>>(
+      static_cast<const T*>(a.x), static_cast<const T*>(a.g),
+      static_cast<T*>(a.dx), a.geo, a.channels, a.plan.gvec, l.n_groups,
+      imin(a.plan.band_rows, a.geo.h), l.n_bands, a.plan.xcap, a.plan.wcap);
   return (int)cudaGetLastError();
 }
 
+// a 3 x 3, stride 2 window compiled in at the full 16-byte width
+template <typename T, int V, bool kMax>
+int run_w(const Args& a, cudaStream_t stream, int* out) {
+  const Geometry& g = a.geo;
+  if constexpr (V * sizeof(T) == 16) {
+    if (g.kh == 3 && g.kw == 3 && g.sh == 2 && g.sw == 2)
+      return run_t<T, V, kMax, 3, 2>(a, stream, out);
+  }
+  return run_t<T, V, kMax, 0, 0>(a, stream, out);
+}
+
 template <typename T, bool kMax>
-int launch_k(const void* x, const void* g, void* code, void* dx,
-             long long batch, int channels, const Geometry& geo,
-             cudaStream_t stream) {
-  if (geo.kh == 3 && geo.kw == 3 && geo.sh == 2 && geo.sw == 2)
-    return launch_t<T, kMax, 3, 2, uint8_t>(x, g, code, dx, batch, channels,
-                                            geo, stream);
-  if (geo.kh * geo.kw <= 254)
-    return launch_t<T, kMax, 0, 0, uint8_t>(x, g, code, dx, batch, channels,
-                                            geo, stream);
-  return launch_t<T, kMax, 0, 0, uint16_t>(x, g, code, dx, batch, channels,
-                                           geo, stream);
+int run_v(const Args& a, cudaStream_t stream, int* out) {
+  switch (a.plan.vec) {
+    case 1:
+      return run_w<T, 1, kMax>(a, stream, out);
+    case 2:
+      return run_w<T, 2, kMax>(a, stream, out);
+    case 4:
+      return run_w<T, 4, kMax>(a, stream, out);
+    default:
+      if constexpr (sizeof(T) == 2) return run_w<T, 8, kMax>(a, stream, out);
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+int dispatch(int dtype, int is_max, const Args& a, cudaStream_t stream,
+             int* out) {
+  if (dtype == 0)
+    return is_max ? run_v<float, true>(a, stream, out)
+                  : run_v<float, false>(a, stream, out);
+  if (dtype == 1)
+    return is_max ? run_v<__nv_bfloat16, true>(a, stream, out)
+                  : run_v<__nv_bfloat16, false>(a, stream, out);
+  return (int)cudaErrorInvalidValue;
+}
+
+// the geometry of an NHWC call: the NCHW kernel's rules, at most 65534 taps
+// a window (a 16-bit code, 0xffff for none), an image of x or g under 2^31
+// elements
+bool geometry_nhwc(int channels, int h, int w, int oh, int ow, int kh, int kw,
+                   int sh, int sw, int ph, int pw, Geometry& geo) {
+  if (channels < 1 || (long long)kh * kw > 65534 ||
+      !geometry(h, w, oh, ow, kh, kw, sh, sw, ph, pw, geo))
+    return false;
+  return (long long)h * w * channels < (1LL << 31) &&
+         (long long)oh * ow * channels < (1LL << 31);
+}
+
+bool aligned(const void* p, int bytes) {
+  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
 
 }  // namespace nhwc
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; is_max: 1 = MAX, 0 = AVE (x and code
-// are then not read and may be null). x (batch, h, w, C), g (batch, oh, ow,
-// C), dx (batch, h, w, C), all contiguous (NHWC tensors); code: MAX's
-// scratch of batch * oh * ow * C entries of one byte (two where kh * kw >
-// 254; at most 65534 taps). The batch, h * ceil(w / 8) and oh * ceil(ow /
-// 8) are at most 65535, and one image must hold fewer than 2^31 elements of
-// x and of g. Returns a cudaError_t.
-extern "C" int poseidon_pool_nhwc_bwd(const void* x, const void* g,
-                                      void* code, void* dx, int dtype,
-                                      int is_max, long long batch,
+// dtype: 0 = float32, 1 = bfloat16; is_max: 1 = MAX, 0 = AVE (x is then not
+// read and may be null). x (batch, h, w, C), g (batch, oh, ow, C), dx
+// (batch, h, w, C), all contiguous (NHWC tensors). vec, group_vecs,
+// band_rows, x_rows and win_rows are the wrapper's plan
+// (ops/pool.py:pool_nhwc_plan): vec channels a vector (a power of two
+// within 16 bytes that divides C, every pointer read or written aligned to
+// it), group_vecs vectors a block's channel group, band_rows dx rows a
+// block, at most x_rows x rows and win_rows window rows a band. A window
+// takes at most 65534 taps; an image of x or g holds fewer than 2^31
+// elements. Returns a cudaError_t.
+extern "C" int poseidon_pool_nhwc_bwd(const void* x, const void* g, void* dx,
+                                      int dtype, int is_max, long long batch,
                                       int channels, int h, int w, int oh,
                                       int ow, int kh, int kw, int sh, int sw,
-                                      int ph, int pw, void* stream) {
-  if (batch < 1 || channels < 1 || h < 1 || w < 1 || oh < 1 || ow < 1 ||
-      kh < 1 || kw < 1 || sh < 1 || sw < 1 || ph < 0 || pw < 0 ||
-      (long long)kh * kw > 65534)
+                                      int ph, int pw, int vec, int group_vecs,
+                                      int band_rows, int x_rows,
+                                      int win_rows, void* stream) {
+  Geometry geo;
+  if (!nhwc::geometry_nhwc(channels, h, w, oh, ow, kh, kw, sh, sw, ph, pw,
+                           geo))
     return (int)cudaErrorInvalidValue;
-  if ((long long)h * w * channels >= (1LL << 31) ||
-      (long long)oh * ow * channels >= (1LL << 31))
+  const int bytes = vec * (dtype == 0 ? 4 : 2);
+  if (vec < 1 || !nhwc::aligned(g, bytes) || !nhwc::aligned(dx, bytes) ||
+      (is_max && !nhwc::aligned(x, bytes)))
     return (int)cudaErrorInvalidValue;
-  const nhwc::Geometry geo{h, w, oh, ow, kh, kw, sh, sw, ph, pw};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  using namespace nhwc;
-  if (dtype == 0) {
-    auto f = is_max ? launch_k<float, true> : launch_k<float, false>;
-    return f(x, g, code, dx, batch, channels, geo, st);
-  }
-  if (dtype == 1) {
-    auto f = is_max ? launch_k<__nv_bfloat16, true>
-                    : launch_k<__nv_bfloat16, false>;
-    return f(x, g, code, dx, batch, channels, geo, st);
-  }
-  return (int)cudaErrorInvalidValue;
+  const nhwc::Plan plan{vec, group_vecs, band_rows, x_rows, win_rows};
+  return nhwc::dispatch(dtype, is_max,
+                        nhwc::Args{x, g, dx, batch, channels, geo, plan},
+                        static_cast<cudaStream_t>(stream), nullptr);
+}
+
+// The instantiation for dtype, is_max, the window and vec at a plan:
+// out[6] = registers a thread, static shared bytes, dynamic shared bytes,
+// local (spill) bytes a thread, threads a block, resident blocks per SM.
+// Returns a cudaError_t.
+extern "C" int poseidon_pool_nhwc_bwd_attrs(int dtype, int is_max,
+                                            int channels, int h, int w,
+                                            int oh, int ow, int kh, int kw,
+                                            int sh, int sw, int ph, int pw,
+                                            int vec, int group_vecs,
+                                            int band_rows, int x_rows,
+                                            int win_rows, int* out) {
+  Geometry geo;
+  if (!nhwc::geometry_nhwc(channels, h, w, oh, ow, kh, kw, sh, sw, ph, pw,
+                           geo))
+    return (int)cudaErrorInvalidValue;
+  const nhwc::Plan plan{vec, group_vecs, band_rows, x_rows, win_rows};
+  return nhwc::dispatch(dtype, is_max,
+                        nhwc::Args{nullptr, nullptr, nullptr, 1, channels,
+                                   geo, plan},
+                        nullptr, out);
 }

@@ -37,11 +37,16 @@ the backward) grows their shared memory with the window, so both take
 
 A channels-last (NHWC) tensor has kernels of its own, the second entry
 points of ``csrc/lrn_fwd.cu`` and ``csrc/lrn_bwd.cu`` (the TPU kernels'
-``layout="NHWC"`` form): a block stages a run of whole
-pixels, each pixel's C channels contiguous, and slides the window along
-them, with the same arithmetic, so they too are bitwise equal to the plain
-versions; they take C up to MAX_NHWC_CHANNELS and count their launches in
-``LAUNCHES["lrn_fwd_nhwc"]`` and ``LAUNCHES["lrn_bwd_nhwc"]``. The autograd
+``layout="NHWC"`` form), with the same arithmetic, so they too are bitwise
+equal to the plain versions. The forward stages a run of whole pixels, each
+pixel's C channels contiguous, in shared memory and slides the window along
+them. The backward keeps a pixel's channels in a warp's registers, V
+consecutive channels a lane moved as one access (``ops/vector.vector_width``
+picks V from C and the pointers, at most MAX_NHWC_LANE_CHANNELS: 16 bytes in
+f32, 8 in bf16), and takes the window's taps from the neighbouring lanes by
+warp shuffles: no shared memory. Both take C up to MAX_NHWC_CHANNELS and
+count their launches in ``LAUNCHES["lrn_fwd_nhwc"]`` and
+``LAUNCHES["lrn_bwd_nhwc"]``. The autograd
 Function routes by memory format: a channels-last CUDA tensor to the NHWC
 kernels, any other CUDA tensor (made NCHW-contiguous) to the NCHW ones; it
 never converts a channels-last tensor to NCHW, and its gradient comes back
@@ -57,6 +62,7 @@ import torch.nn.functional as F
 
 from ..numeric import memory_format
 from . import _build
+from .vector import vector_width
 
 # launches of each kernel of this module, counted where the kernel launches
 LAUNCHES = {"lrn_fwd": 0, "lrn_bwd": 0, "lrn_fwd_nhwc": 0,
@@ -64,10 +70,13 @@ LAUNCHES = {"lrn_fwd": 0, "lrn_bwd": 0, "lrn_fwd_nhwc": 0,
 # the kernels' shared-memory halo grows with the window: capped here and
 # in csrc/lrn_fwd.cu and csrc/lrn_bwd.cu (MAX_LRN_SIZE)
 MAX_CUDA_LOCAL_SIZE = 32
-# the NHWC kernels stage whole pixels (the backward three rows of C floats
-# a pixel) in one block's shared memory: MAX_NHWC_CHANNELS of
-# csrc/lrn_fwd.cu and csrc/lrn_bwd.cu
+# the NHWC forward stages whole pixels in one block's shared memory:
+# MAX_NHWC_CHANNELS of csrc/lrn_fwd.cu, and of csrc/lrn_bwd.cu, which takes
+# the forward's tensors
 MAX_NHWC_CHANNELS = 4096
+# channels a lane of the NHWC backward, at most (csrc/lrn_bwd.cu: more
+# cost registers and blocks an SM)
+MAX_NHWC_LANE_CHANNELS = 4
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -258,11 +267,24 @@ def lrn_fwd_nhwc_cuda(x: torch.Tensor, local_size: int, alpha: float,
     return y
 
 
+# argument types of the NHWC backward's C entries
+_NHWC_BWD_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                  ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                  ctypes.c_int, ctypes.c_float, ctypes.c_float,
+                  ctypes.c_float, ctypes.c_float, ctypes.c_float,
+                  ctypes.c_void_p]
+_NHWC_BWD_ATTRS_ARGS = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_POWF_FLOOR_ARGS = [ctypes.c_longlong, ctypes.c_int] + [ctypes.c_float] * 4 \
+    + [ctypes.c_void_p] * 2
+
+
 def lrn_bwd_nhwc_cuda(x: torch.Tensor, g: torch.Tensor, local_size: int,
                       alpha: float, beta: float,
                       k: float = 1.0) -> torch.Tensor:
     """Launch the NHWC backward kernel on PyTorch's current stream; x and g
-    channels-last, dx comes back channels-last."""
+    channels-last, dx comes back channels-last. A lane moves
+    ``vector_width`` channels as one access: MAX_NHWC_LANE_CHANNELS where C
+    and the pointers allow."""
     _check_window("lrn_bwd_nhwc_cuda", local_size)
     _check_cuda("lrn_bwd_nhwc_cuda", x, g, fmt=torch.channels_last)
     n, c, h, w = x.shape
@@ -270,16 +292,13 @@ def lrn_bwd_nhwc_cuda(x: torch.Tensor, g: torch.Tensor, local_size: int,
     dx = torch.empty_like(x, memory_format=torch.channels_last)
     if x.numel() == 0:
         return dx
-    fn = _lib("lrn_bwd", [ctypes.c_void_p, ctypes.c_void_p,
-                           ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-                           ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                           ctypes.c_float, ctypes.c_float, ctypes.c_float,
-                           ctypes.c_float, ctypes.c_void_p],
-              entry="poseidon_lrn_nhwc_bwd")
+    vec = vector_width(c, x.element_size(), x.data_ptr(), g.data_ptr(),
+                       dx.data_ptr(), most=MAX_NHWC_LANE_CHANNELS)
+    fn = _lib("lrn_bwd", _NHWC_BWD_ARGS, entry="poseidon_lrn_nhwc_bwd")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = fn(x.data_ptr(), g.data_ptr(), dx.data_ptr(),
-                _DTYPE_CODE[x.dtype], n * h * w, c, local_size,
+                _DTYPE_CODE[x.dtype], n * h * w, c, vec, local_size,
                 alpha / local_size, -beta, -beta - 1.0,
                 2.0 * alpha * beta / local_size, k, stream)
     if rc != 0:
@@ -287,6 +306,40 @@ def lrn_bwd_nhwc_cuda(x: torch.Tensor, g: torch.Tensor, local_size: int,
                            f"{rc}")
     LAUNCHES["lrn_bwd_nhwc"] += 1
     return dx
+
+
+def lrn_bwd_nhwc_kernel_attrs(dtype: torch.dtype, vec: int,
+                              local_size: int) -> dict:
+    """What the card reports for the NHWC backward's instantiation that
+    takes ``dtype``, ``vec`` channels a lane and ``local_size``: registers,
+    static/dynamic shared bytes, local (spill) bytes, threads a block and
+    resident blocks per SM. Needs the card."""
+    fn = _lib("lrn_bwd", _NHWC_BWD_ATTRS_ARGS,
+              entry="poseidon_lrn_nhwc_bwd_attrs")
+    keys = ("registers", "static_smem_bytes", "dynamic_smem_bytes",
+            "local_bytes", "threads", "blocks_per_sm")
+    buf = (ctypes.c_int * len(keys))()
+    rc = fn(_DTYPE_CODE[dtype], vec, local_size, buf)
+    if rc != 0:
+        raise RuntimeError(f"lrn_bwd_nhwc attributes: cudaError {rc}")
+    return dict(zip(keys, buf))
+
+
+def lrn_powf_floor_cuda(n: int, local_size: int, alpha: float, beta: float,
+                        k: float = 1.0, device="cuda",
+                        blocks: int = 132 * 16) -> torch.Tensor:
+    """The backward's two powf an element alone, over ``n`` elements from
+    registers (the least time its unchanged arithmetic allows); returns the
+    kernel's per-thread sums. A measurement, not on any path."""
+    out = torch.empty(blocks * 256, dtype=torch.float32, device=device)
+    fn = _lib("lrn_bwd", _POWF_FLOOR_ARGS, entry="poseidon_lrn_powf_floor")
+    with torch.cuda.device(out.device):
+        stream = torch.cuda.current_stream(out.device).cuda_stream
+        rc = fn(n, blocks, alpha / local_size, -beta, -beta - 1.0, k,
+                out.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"lrn_powf_floor launch failed: cudaError {rc}")
+    return out
 
 
 def lrn_fwd_device(x: torch.Tensor, local_size: int, alpha: float,

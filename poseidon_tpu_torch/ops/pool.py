@@ -31,11 +31,14 @@ hands it to the C entry.
 
 A channels-last (NHWC) tensor has a kernel of its own, the second entry
 point of ``csrc/pool_bwd.cu`` (``pool_bwd_nhwc_cuda``, counted in
-``LAUNCHES["pool_bwd_nhwc"]`` once a call): for MAX a first pass writes
-each window's argmax tap into a byte scratch the wrapper allocates, then
-each dx element gathers its covering windows in the plain version's order,
-every access coalesced along C, so it too is bitwise equal to the plain
-version.
+``LAUNCHES["pool_bwd_nhwc"]`` once a call): one launch, no scratch. A
+block stages the x and g rows of a band of dx rows of one image and a group
+of its channels in shared memory with cp.async, a vector of up to 16 bytes
+of channels a copy, takes each window's argmax (MAX) once there, and each
+dx element gathers its covering windows in the plain version's order, so it
+too is bitwise equal to the plain version. ``pool_nhwc_plan`` picks the
+vector width (``ops/vector.vector_width``), the channel group and the band
+here, where a CPU test can check them.
 The JAX package transposes an NHWC plane to NCHW around its kernel; the
 port does not, as the result is the same. The forward keeps its input's
 memory format (the pad, the crop and torch's pooling all do), and the
@@ -62,6 +65,7 @@ import torch.nn.functional as F
 
 from ..numeric import memory_format
 from . import _build
+from .vector import vector_width
 
 # launches of this module's kernel, counted where the kernel launches
 LAUNCHES = {"pool_bwd": 0, "pool_bwd_nhwc": 0}
@@ -81,6 +85,15 @@ POOL_BLOCK_ELEMS = 4096
 POOL_GROUP_SMEM = 24 * 1024
 POOL_MIN_BLOCKS = 1024
 POOL_MAX_SLOTS = 1 << 15
+# The NHWC kernel's plan: a block takes about POOL_NHWC_GROUP_BYTES of each
+# pixel's channels and the tallest band whose shared memory fits
+# POOL_NHWC_SMEM_BUDGET (three blocks of 256 threads an SM; POOL_SMEM_MAX
+# when a band of one row needs more), fewer rows for a small tensor until
+# the grid has POOL_MIN_BLOCKS blocks. A window takes at most
+# POOL_NHWC_MAX_TAPS taps (a 16-bit code, one value kept for none).
+POOL_NHWC_GROUP_BYTES = 64
+POOL_NHWC_SMEM_BUDGET = 72 * 1024
+POOL_NHWC_MAX_TAPS = 65534
 
 
 def pool_out_size(in_size: int, kernel: int, stride: int, pad: int) -> int:
@@ -397,23 +410,145 @@ def pool_bwd_cuda(x: torch.Tensor, g: torch.Tensor, kernel, stride, pad,
     return dx
 
 
+class NhwcPlan(NamedTuple):
+    """What the NHWC C entry launches: ``vec`` channels a vector,
+    ``group_vecs`` vectors of each pixel a block (``n_groups`` groups),
+    ``band_rows`` dx rows a block (``n_bands`` bands), and the shared memory
+    of a block (``x_rows``, ``win_rows``: the most any band stages)."""
+    vec: int
+    group_vecs: int
+    n_groups: int
+    band_rows: int
+    n_bands: int
+    x_rows: int
+    win_rows: int
+    smem_bytes: int
+
+
+def pool_nhwc_smem_bytes(w: int, ow: int, is_max: bool, vec: int,
+                         elem_size: int, group_vecs: int, x_rows: int,
+                         win_rows: int) -> int:
+    """A block's shared memory (csrc/pool_bwd.cu:nhwc::smem_bytes): a pixel's
+    group of ``group_vecs`` vectors; for MAX ``x_rows`` rows of x, then
+    ``win_rows`` rows of g and of the windows' codes (2 bytes a channel);
+    for AVE the g rows alone."""
+    g_bytes = win_rows * ow * group_vecs * vec * elem_size
+    if not is_max:
+        return g_bytes
+    return (x_rows * w * group_vecs * vec * elem_size + g_bytes
+            + win_rows * ow * group_vecs * vec * 2)
+
+
+@functools.lru_cache(maxsize=256)
+def pool_nhwc_plan(batch: int, channels: int, h: int, w: int, oh: int,
+                   ow: int, kernel, stride, pad, is_max: bool,
+                   elem_size: int, vec: int) -> NhwcPlan:
+    """The NHWC kernel's plan for (batch, h, w, channels) pooled to (oh, ow)
+    with ``vec`` channels a vector: groups of about POOL_NHWC_GROUP_BYTES of
+    a pixel, split evenly; then the tallest band within
+    POOL_NHWC_SMEM_BUDGET bytes (POOL_SMEM_MAX if one row needs more), its
+    rows evened out over the plane, cut down for a small tensor until the
+    grid has POOL_MIN_BLOCKS blocks. Raises ValueError where even one row
+    overflows POOL_SMEM_MAX."""
+    nvp = channels // vec
+    group = max(1, min(nvp, POOL_NHWC_GROUP_BYTES // (vec * elem_size)))
+    n_groups = -(-nvp // group)
+    group = -(-nvp // n_groups)
+
+    def plan(rows: int) -> NhwcPlan:
+        rows = min(rows, h)
+        n_bands = -(-h // rows)
+        bands = [pool_band(h, oh, kernel[0], stride[0], pad[0], rows, j)
+                 for j in range(n_bands)]
+        xr = max(b.nxr for b in bands) if is_max else 0
+        wr = max(b.nwy for b in bands)
+        return NhwcPlan(vec, group, n_groups, rows, n_bands, xr, wr,
+                        pool_nhwc_smem_bytes(w, ow, is_max, vec, elem_size,
+                                             group, xr, wr))
+
+    def tallest(top: int, cap: int):
+        return next((p for p in (plan(rows) for rows in range(top, 0, -1))
+                     if p.smem_bytes <= cap), None)
+
+    for cap in (POOL_NHWC_SMEM_BUDGET, POOL_SMEM_MAX):
+        best = tallest(h, cap)
+        if best is not None:
+            break
+    else:
+        raise ValueError(f"pool_bwd_nhwc: a band of one {w}-pixel row of "
+                         f"{group * vec} channels needs more than "
+                         f"{POOL_SMEM_MAX} bytes of shared memory")
+    rows = -(-h // best.n_bands)
+    if batch * n_groups * best.n_bands < POOL_MIN_BLOCKS:
+        bands = -(-POOL_MIN_BLOCKS // (batch * n_groups))
+        rows = min(rows, -(-h // bands))
+    return tallest(rows, cap) or best
+
+
 def _nhwc_lib():
     fn = _build.load("pool_bwd").poseidon_pool_nhwc_bwd
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 4 + [
-            ctypes.c_int, ctypes.c_int, ctypes.c_longlong] + \
-            [ctypes.c_int] * 11 + [ctypes.c_void_p]
+        fn.argtypes = _NHWC_ARGS
         fn.restype = ctypes.c_int
     return fn
+
+
+# argument types of the NHWC C entries
+_NHWC_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int,
+                                      ctypes.c_longlong] + \
+    [ctypes.c_int] * 16 + [ctypes.c_void_p]
+_NHWC_ATTRS_ARGS = [ctypes.c_int] * 18 + [ctypes.c_void_p]
+
+
+def _nhwc_geometry(name: str, x: torch.Tensor, kernel, stride, pad):
+    """(h, w, oh, ow) of a call, refusing what the NHWC kernel does not
+    take."""
+    c = x.shape[1]
+    h, w, oh, ow = _pool_dims(x, kernel, stride, pad)
+    if min(*kernel, *stride) < 1 or min(pad) < 0:
+        raise ValueError(f"{name}: bad window {kernel}/{stride}/{pad}")
+    if max(h * w, oh * ow) * c >= 2 ** 31:
+        raise ValueError(f"{name}: an image must hold < 2^31 elements")
+    if kernel[0] * kernel[1] > POOL_NHWC_MAX_TAPS:
+        raise ValueError(f"{name}: a window takes at most "
+                         f"{POOL_NHWC_MAX_TAPS} taps (POOL_NHWC_MAX_TAPS)")
+    return h, w, oh, ow
+
+
+def pool_bwd_nhwc_kernel_attrs(dtype: torch.dtype, method: str, shape,
+                               kernel, stride, pad) -> dict:
+    """What the card reports for the NHWC kernel's instantiation that takes
+    ``dtype`` and ``method`` at the plan of a fresh channels-last (N, C, H,
+    W) tensor of ``shape`` (16-byte aligned), keyed by ``_ATTR_KEYS`` plus
+    the plan. Needs the card."""
+    fn = _build.load("pool_bwd").poseidon_pool_nhwc_bwd_attrs
+    if fn.argtypes is None:
+        fn.argtypes = _NHWC_ATTRS_ARGS
+        fn.restype = ctypes.c_int
+    n, c, h, w = shape
+    oh = pool_out_size(h, kernel[0], stride[0], pad[0])
+    ow = pool_out_size(w, kernel[1], stride[1], pad[1])
+    size = torch.empty((), dtype=dtype).element_size()
+    plan = pool_nhwc_plan(n, c, h, w, oh, ow, tuple(kernel), tuple(stride),
+                          tuple(pad), method == "max", size,
+                          vector_width(c, size))
+    buf = (ctypes.c_int * len(_ATTR_KEYS))()
+    rc = fn(_DTYPE_CODE[dtype], int(method == "max"), c, h, w, oh, ow,
+            kernel[0], kernel[1], stride[0], stride[1], pad[0], pad[1],
+            plan.vec, plan.group_vecs, plan.band_rows, plan.x_rows,
+            plan.win_rows, buf)
+    if rc != 0:
+        raise RuntimeError(f"pool_bwd_nhwc attributes: cudaError {rc}")
+    return {**dict(zip(_ATTR_KEYS, buf)), **plan._asdict()}
 
 
 def pool_bwd_nhwc_cuda(x: torch.Tensor, g: torch.Tensor, kernel, stride,
                        pad, method: str) -> torch.Tensor:
     """Launch the NHWC backward kernel on PyTorch's current stream: x and g
-    channels-last (N, C, H, W) tensors, dx comes back channels-last. For
-    "ave" x is read for its shape, dtype and device only (an expanded
-    tensor will do); for "max" the argmax pass writes a scratch of one
-    byte a cotangent element (two for windows of more than 254 taps)."""
+    channels-last (N, C, H, W) tensors, dx comes back channels-last; one
+    launch at the plan of ``pool_nhwc_plan``, allocating nothing but dx.
+    For "ave" x is read for its shape, dtype and device only (an expanded
+    tensor will do)."""
     if method not in ("max", "ave"):
         raise ValueError(f"pool_bwd_nhwc_cuda: method must be 'max' or "
                          f"'ave', got {method!r}")
@@ -431,38 +566,33 @@ def pool_bwd_nhwc_cuda(x: torch.Tensor, g: torch.Tensor, kernel, stride,
         raise ValueError("pool_bwd_nhwc_cuda: x and g differ in dtype or "
                          "device")
     n, c = x.shape[0], x.shape[1]
-    h, w, oh, ow = _pool_dims(x, kernel, stride, pad)
+    h, w, oh, ow = _nhwc_geometry("pool_bwd_nhwc_cuda", x, kernel, stride,
+                                  pad)
     if tuple(g.shape) != (n, c, oh, ow):
         raise ValueError(f"pool_bwd_nhwc_cuda: g has shape "
                          f"{tuple(g.shape)}, the pooling gives "
                          f"{(n, c, oh, ow)}")
-    if min(*kernel, *stride) < 1 or min(pad) < 0:
-        raise ValueError(f"pool_bwd_nhwc_cuda: bad window "
-                         f"{kernel}/{stride}/{pad}")
-    if max(h * w, oh * ow) * c >= 2 ** 31:
-        raise ValueError("pool_bwd_nhwc_cuda: an image must hold < 2^31 "
-                         "elements")
-    if (max(n, h * -(-w // 8), oh * -(-ow // 8)) > 65535
-            or kernel[0] * kernel[1] > 65534):
-        raise ValueError("pool_bwd_nhwc_cuda: the batch and a plane's rows "
-                         "times its blocks of 8 columns take at most 65535, "
-                         "a window at most 65534 taps")
     dx = torch.empty(x.shape, dtype=x.dtype, device=x.device,
                      memory_format=torch.channels_last)
     if x.numel() == 0:
         return dx
-    code = None
-    if method == "max":
-        code = torch.empty(g.numel(), device=x.device, dtype=(
-            torch.uint8 if kernel[0] * kernel[1] <= 254 else torch.int16))
+    is_max = method == "max"
+    ptrs = (g.data_ptr(), dx.data_ptr()) + ((x.data_ptr(),) if is_max
+                                            else ())
+    plan = pool_nhwc_plan(n, c, h, w, oh, ow, tuple(kernel), tuple(stride),
+                          tuple(pad), is_max, x.element_size(),
+                          vector_width(c, x.element_size(), *ptrs))
+    if n * plan.n_groups * plan.n_bands > 2 ** 31 - 1:
+        raise ValueError("pool_bwd_nhwc_cuda: a grid of at most 2^31 - 1 "
+                         "blocks (batch x channel groups x bands)")
     fn = _nhwc_lib()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = fn(x.data_ptr() if code is not None else None, g.data_ptr(),
-                code.data_ptr() if code is not None else None,
-                dx.data_ptr(), _DTYPE_CODE[x.dtype], int(method == "max"),
-                n, c, h, w, oh, ow, kernel[0], kernel[1], stride[0],
-                stride[1], pad[0], pad[1], stream)
+        rc = fn(x.data_ptr() if is_max else None, g.data_ptr(),
+                dx.data_ptr(), _DTYPE_CODE[x.dtype], int(is_max), n, c, h,
+                w, oh, ow, kernel[0], kernel[1], stride[0], stride[1],
+                pad[0], pad[1], plan.vec, plan.group_vecs, plan.band_rows,
+                plan.x_rows, plan.win_rows, stream)
     if rc != 0:
         raise RuntimeError(f"pool_bwd_nhwc kernel launch failed: cudaError "
                            f"{rc}")

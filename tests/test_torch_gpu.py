@@ -768,3 +768,166 @@ def test_pool_nhwc_kernel_minus_inf_rows_and_ties_on_card(pad):
     torch.cuda.synchronize()
     want = port_pool.pool_bwd_plain(x, g, (3, 3), (2, 2), (pad, pad), "max")
     assert torch.equal(got, want)
+
+
+# --------------------------------------------------------------------------- #
+# K5-NHWC (registers and warp shuffles) and K6-NHWC (one launch over
+# shared-memory bands): vector widths, alignment, bands, no scratch
+# --------------------------------------------------------------------------- #
+
+def _nhwc_pool_inputs(shape, k, s, p, dtype, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = _channels_last(torch.randn(shape, generator=gen,
+                                   device="cuda").to(dtype))
+    oh = port_pool.pool_out_size(shape[2], k[0], s[0], p[0])
+    ow = port_pool.pool_out_size(shape[3], k[1], s[1], p[1])
+    g = _channels_last(torch.randn((shape[0], shape[1], oh, ow),
+                                   generator=gen, device="cuda").to(dtype))
+    return x, g
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("channels", [2, 3, 131])
+def test_nhwc_bwd_kernels_c_off_the_vector_on_card(dtype, channels):
+    """C not a multiple of the 16-byte vector: K5-NHWC and K6-NHWC (MAX and
+    AVE) take a narrower vector in the same kernel, bitwise equal to the
+    plain versions."""
+    _need_gpu()
+    from poseidon_tpu_torch.ops.vector import vector_width
+    shape = (3, channels, 15, 13)
+    size = torch.empty((), dtype=dtype).element_size()
+    assert vector_width(channels, size) < 16 // size
+    x, g = _nhwc_pool_inputs(shape, (3, 3), (2, 2), (1, 1), dtype, 31)
+    for method in ("max", "ave"):
+        got = port_pool.pool_bwd_nhwc_cuda(x, g, (3, 3), (2, 2), (1, 1),
+                                           method)
+        torch.cuda.synchronize()
+        assert torch.equal(got, port_pool.pool_bwd_plain(
+            x, g, (3, 3), (2, 2), (1, 1), method))
+    gl = _channels_last(torch.randn_like(x))
+    dx = port_lrn.lrn_bwd_nhwc_cuda(x, gl, 5, 1e-4, 0.75, 1.0)
+    torch.cuda.synchronize()
+    assert torch.equal(dx, port_lrn.lrn_bwd_plain(x, gl, 5, 1e-4, 0.75, 1.0))
+
+
+def _offset_channels_last(shape, dtype, offset, gen):
+    """A channels-last (N, C, H, W) tensor starting `offset` elements into
+    its storage."""
+    n, c, h, w = shape
+    buf = torch.randn(n * c * h * w + offset, generator=gen,
+                      device="cuda").to(dtype)
+    return buf[offset:].view(n, h, w, c).permute(0, 3, 1, 2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["batch slice", "storage offset"])
+def test_nhwc_bwd_kernels_off_16_byte_alignment_on_card(dtype, kind):
+    """x, g whose data_ptr is not 16-byte aligned: a channels-last slice of
+    a larger batch (C = 6) and a view one element into its storage (C =
+    96). The kernels take the vector the pointers allow, bitwise equal to
+    the plain versions."""
+    _need_gpu()
+    gen = torch.Generator(device="cuda").manual_seed(32)
+    k, s, p = (3, 3), (2, 2), (0, 0)
+    if kind == "batch slice":
+        # an image of x is 6 * 121 elements, of g 6 * 25: both off 16 bytes
+        x = _channels_last(torch.randn((3, 6, 11, 11), generator=gen,
+                                       device="cuda").to(dtype))[1:]
+        gl = _channels_last(torch.randn((3, 6, 11, 11), generator=gen,
+                                        device="cuda").to(dtype))[1:]
+        g = _channels_last(torch.randn((3, 6, 5, 5), generator=gen,
+                                       device="cuda").to(dtype))[1:]
+    else:
+        x = _offset_channels_last((2, 96, 11, 11), dtype, 1, gen)
+        gl = _offset_channels_last((2, 96, 11, 11), dtype, 1, gen)
+        g = _offset_channels_last((2, 96, 5, 5), dtype, 1, gen)
+    assert x.is_contiguous(memory_format=torch.channels_last)
+    assert x.data_ptr() % 16 and g.data_ptr() % 16
+    got = port_pool.pool_bwd_nhwc_cuda(x, g, k, s, p, "max")
+    dx = port_lrn.lrn_bwd_nhwc_cuda(x, gl, 5, 1e-4, 0.75, 1.0)
+    torch.cuda.synchronize()
+    assert torch.equal(got, port_pool.pool_bwd_plain(x, g, k, s, p, "max"))
+    assert torch.equal(dx, port_lrn.lrn_bwd_plain(x, gl, 5, 1e-4, 0.75, 1.0))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("method", ["max", "ave"])
+def test_pool_nhwc_band_boundary_inside_a_window_row_on_card(dtype, method):
+    """A plan of several bands whose boundaries fall inside a window row
+    (the row is covered by two windows, computed by both blocks): bitwise
+    equal to the plain version."""
+    _need_gpu()
+    shape, k, s, p = (2, 64, 121, 57), (3, 3), (2, 2), (1, 1)
+    x, g = _nhwc_pool_inputs(shape, k, s, p, dtype, 33)
+    oh = port_pool.pool_out_size(121, 3, 2, 1)
+    ow = port_pool.pool_out_size(57, 3, 2, 1)
+    plan = port_pool.pool_nhwc_plan(2, 64, 121, 57, oh, ow, k, s, p,
+                                    method == "max", x.element_size(),
+                                    16 // x.element_size())
+    assert plan.n_bands > 1
+    inside = [j * plan.band_rows for j in range(1, plan.n_bands)
+              if port_pool.pool_band(121, oh, 3, 2, 1, plan.band_rows, j)
+              .oy0 * 2 - 1 < j * plan.band_rows]
+    assert inside, plan
+    got = port_pool.pool_bwd_nhwc_cuda(x, g, k, s, p, method)
+    torch.cuda.synchronize()
+    assert torch.equal(got, port_pool.pool_bwd_plain(x, g, k, s, p, method))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("method", ["max", "ave"])
+def test_pool_nhwc_allocates_no_scratch_on_card(method):
+    """One call allocates dx and nothing else: the memory allocated across
+    the call is dx's bytes (as the caching allocator rounds them)."""
+    _need_gpu()
+    x, g = _nhwc_pool_inputs((8, 96, 55, 55), (3, 3), (2, 2), (0, 0),
+                             torch.bfloat16, 34)
+    port_pool.pool_bwd_nhwc_cuda(x, g, (3, 3), (2, 2), (0, 0), method)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    dx = port_pool.pool_bwd_nhwc_cuda(x, g, (3, 3), (2, 2), (0, 0), method)
+    torch.cuda.synchronize()
+    dx_bytes = -(-dx.numel() * dx.element_size() // 512) * 512
+    assert torch.cuda.max_memory_allocated() - before == dx_bytes
+    assert torch.cuda.memory_allocated() - before == dx_bytes
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_nhwc_bwd_kernels_bitwise_from_run_to_run_on_card(dtype):
+    """Two launches of K5-NHWC and of K6-NHWC on the same inputs give the
+    same bits, at norm1's and pool1's widths."""
+    _need_gpu()
+    x, g = _nhwc_pool_inputs((8, 96, 55, 55), (3, 3), (2, 2), (0, 0), dtype,
+                             35)
+    gl = _channels_last(torch.randn_like(x))
+    first = (port_lrn.lrn_bwd_nhwc_cuda(x, gl, 5, 1e-4, 0.75, 1.0),
+             port_pool.pool_bwd_nhwc_cuda(x, g, (3, 3), (2, 2), (0, 0),
+                                          "max"))
+    second = (port_lrn.lrn_bwd_nhwc_cuda(x, gl, 5, 1e-4, 0.75, 1.0),
+              port_pool.pool_bwd_nhwc_cuda(x, g, (3, 3), (2, 2), (0, 0),
+                                           "max"))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    assert torch.equal(first[0], port_lrn.lrn_bwd_plain(x, gl, 5, 1e-4,
+                                                        0.75, 1.0))
+
+
+@pytest.mark.gpu
+def test_nhwc_bwd_kernel_attrs_on_card():
+    """K5-NHWC uses no shared memory; K6-NHWC's plan fits its budget; no
+    spills at AlexNet's widths."""
+    _need_gpu()
+    for dtype in (torch.float32, torch.bfloat16):
+        a = port_lrn.lrn_bwd_nhwc_kernel_attrs(
+            dtype, port_lrn.MAX_NHWC_LANE_CHANNELS, 5)
+        assert a["static_smem_bytes"] == a["dynamic_smem_bytes"] == 0
+        assert a["local_bytes"] == 0 and a["blocks_per_sm"] >= 1
+        a = port_pool.pool_bwd_nhwc_kernel_attrs(
+            dtype, "max", (256, 96, 55, 55), (3, 3), (2, 2), (0, 0))
+        assert a["dynamic_smem_bytes"] <= port_pool.POOL_NHWC_SMEM_BUDGET
+        assert a["local_bytes"] == 0 and a["blocks_per_sm"] >= 1
