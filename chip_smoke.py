@@ -66,11 +66,13 @@ Phases, in order; any failure exits non-zero without the final ``ok`` line:
      AlexNet's norm and pool shapes, batch 256, f32 and bf16, each bitwise
      equal to its plain version (the run fails otherwise; K6-NHWC also on
      a second launch), with the library call on the same tensors; the
-     registers, shared memory, spills and resident blocks per SM of K5-
-     and K6-NHWC; the powf floor (the two powf an element of the LRN
-     pair alone) beside K5-NHWC's pair; each kernel's time over its
-     library call's in this run; conv1 in bf16 NHWC with and without the
-     space-to-depth rewrite.
+     registers, shared memory, spills and resident blocks per SM of K4-
+     (at 4 and 8 bf16 channels a lane), K5- and K6-NHWC; K4-NHWC's bf16
+     pair at 8 and at 4 channels a lane, in turns, each bitwise; the powf
+     floors (the pair's powf alone: one an element beside K4-NHWC's pair,
+     two beside K5-NHWC's); each kernel's time over its library call's in
+     this run; conv1 in bf16 NHWC with and without the space-to-depth
+     rewrite.
 3. The CNN serving slice: ``BucketedExecutor.from_files`` on AlexNet (3x227x227,
    buckets 1/4/16/64, seeded filler weights) behind the port's
    ``InferenceServer`` on 127.0.0.1 port 0, driven by the port's
@@ -1871,8 +1873,8 @@ def phase_layout(card: str):
     same tensor; then conv1's forward and backward with and without the
     space-to-depth rewrite in bf16 and NHWC. Returns (K4-NHWC records,
     K5-NHWC records, K6-NHWC records, the conv1 timings,
-    ``layout_kernel_report``'s attributes, powf floor and library
-    ratios)."""
+    ``layout_kernel_report``'s attributes, powf floors, library ratios and
+    K4-NHWC's bf16 pair at both lane widths)."""
     import torch
     import torch.nn.functional as F
     from poseidon_tpu_torch.numeric import policy_scope
@@ -2009,21 +2011,72 @@ LAYOUT_POOLS = (("pool1", (256, 96, 55, 55)), ("pool2", (256, 256, 27, 27)),
                 ("pool5", (256, 256, 13, 13)))
 
 
+def lrn_fwd_width_report(card: str) -> dict:
+    """K4-NHWC's bf16 pair (norm1 + norm2 at batch 256) at 8 and at 4
+    channels a lane (16 and 8 bytes), timed in turns (8, 4, 4, 8) on the
+    same tensors, each width bitwise equal to the plain version; returns
+    {channels a lane: [ms, ms]}."""
+    import torch
+    from poseidon_tpu_torch.ops import lrn
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    args = (5, LRN_ALPHA, LRN_BETA, LRN_K)
+    xs = [torch.randn(shape, generator=gen, device="cuda").to(
+        torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        for shape in ((256, 96, 55, 55), (256, 256, 27, 27))]
+    for x in xs:
+        want = lrn.lrn_across_channels_plain(x, *args)
+        for v in (8, 4):
+            y = lrn.lrn_fwd_nhwc_cuda(x, *args, lane_channels=v)
+            torch.cuda.synchronize()
+            check(torch.equal(y, want), f"lrn_fwd_nhwc {tuple(x.shape)} "
+                  f"bfloat16 at {v} channels a lane: not bitwise equal to "
+                  f"the plain version")
+        del want, y
+    torch.cuda.empty_cache()
+    ms = {8: [], 4: []}
+    for v in (8, 4, 4, 8):
+        ms[v].append(sum(cuda_time_ms(
+            lambda x=x, v=v: lrn.lrn_fwd_nhwc_cuda(
+                x, *args, lane_channels=v))
+            for x in xs))
+    print(f"[layout] lrn_fwd_nhwc bfloat16 pair in turns: 8 channels a lane "
+          f"(16 bytes) {ms[8][0]:.4f}, {ms[8][1]:.4f} ms; 4 channels a lane "
+          f"(8 bytes) {ms[4][0]:.4f}, {ms[4][1]:.4f} ms; bitwise at both "
+          f"[{card}]", flush=True)
+    return ms
+
+
 def layout_kernel_report(card: str, k4, k5, k6) -> dict:
-    """[layout]'s K5-NHWC and K6-NHWC attributes at AlexNet's shapes (K5: 4
-    channels a lane; K6: 16-byte vectors, 4 f32 or 8 bf16 channels), the
-    powf floor (the two powf an element of the LRN pair's elements alone,
-    from registers: the least time K5-NHWC's unchanged arithmetic allows)
-    beside K5-NHWC's pair and its bytes bound, and each NHWC kernel's time
-    over its library call's in this run, the yardstick that holds between
-    calls."""
+    """[layout]'s K4-, K5- and K6-NHWC attributes at AlexNet's shapes (K4:
+    4 f32 channels a lane, 4 and 8 bf16; K5: 4 channels a lane; K6:
+    16-byte vectors, 4 f32 or 8 bf16 channels), K4-NHWC's bf16 pair at
+    both widths (``lrn_fwd_width_report``), the powf floors (the powf of
+    the LRN pair's elements alone, from registers: one an element beside
+    K4-NHWC's pair, two beside K5-NHWC's, the least time each kernel's
+    unchanged arithmetic allows) with each pair's bytes bound, and each
+    NHWC kernel's time over its library call's in this run, the yardstick
+    that holds between calls."""
     import torch
     from poseidon_tpu_torch.ops import lrn, pool
 
     f32, bf16 = torch.float32, torch.bfloat16
     attrs = {}
-    for dt in (f32, bf16):
-        name, vec = str(dt).replace("torch.", ""), lrn.MAX_NHWC_LANE_CHANNELS
+    for dt, vecs in ((f32, (4,)), (bf16, (4, 8))):
+        name = str(dt).replace("torch.", "")
+        for vec in vecs:
+            a = attrs[f"lrn_fwd_nhwc {name} {vec} a lane"] = \
+                lrn.lrn_fwd_nhwc_kernel_attrs(dt, vec, 5)
+            print(f"[layout] lrn_nhwc_fwd_kernel {name} ({vec} channels a "
+                  f"lane, n=5): {a['registers']} registers, "
+                  f"{a['local_bytes']} B spilled a thread, "
+                  f"{a['static_smem_bytes']} + {a['dynamic_smem_bytes']} B "
+                  f"shared, {a['blocks_per_sm']} blocks of {a['threads']} "
+                  f"threads an SM [{card}]", flush=True)
+            check(a["static_smem_bytes"] == a["dynamic_smem_bytes"] == 0
+                  and a["local_bytes"] == 0, f"lrn_nhwc_fwd_kernel {name} "
+                  f"at {vec} a lane takes shared memory or spills: {a}")
+        vec = lrn.MAX_NHWC_LANE_CHANNELS
         a = attrs[f"lrn_bwd_nhwc {name}"] = lrn.lrn_bwd_nhwc_kernel_attrs(
             dt, vec, 5)
         print(f"[layout] lrn_nhwc_bwd_kernel {name} ({vec} channels a lane, "
@@ -2043,20 +2096,26 @@ def layout_kernel_report(card: str, k4, k5, k6) -> dict:
                   f"{a['n_bands']}), {a['local_bytes']} B spilled a thread, "
                   f"{a['blocks_per_sm']} blocks of {a['threads']} threads "
                   f"an SM [{card}]", flush=True)
+    widths = lrn_fwd_width_report(card)
     n_elems = sum(math.prod(r["shape"]) for r in k5
                   if r["dtype"] == "float32")
-    floor_ms = cuda_time_ms(lambda: lrn.lrn_powf_floor_cuda(
-        n_elems, 5, LRN_ALPHA, LRN_BETA, LRN_K))
-    pair = {r["dtype"]: sum(q["ms"] for q in k5 if q["dtype"] == r["dtype"])
-            for r in k5}
-    bound = {dt: bound_ms(sum(q["bytes"] for q in k5 if q["dtype"] == dt),
-                          sum(q["ops"] for q in k5 if q["dtype"] == dt),
-                          dt)[0] for dt in pair}
-    print(f"[layout] powf floor: the two powf an element of the LRN pair's "
-          f"{n_elems} elements alone, from registers, {floor_ms:.4f} ms; "
-          f"K5-NHWC pair float32 {pair['float32']:.4f} ms (bytes bound "
-          f"{bound['float32']:.4f}), bfloat16 {pair['bfloat16']:.4f} ms "
-          f"(bytes bound {bound['bfloat16']:.4f}) [{card}]", flush=True)
+    floors = {}
+    for powfs, kernel, recs in ((1, "K4-NHWC", k4), (2, "K5-NHWC", k5)):
+        floor_ms = floors[powfs] = cuda_time_ms(
+            lambda powfs=powfs: lrn.lrn_powf_floor_cuda(
+                n_elems, 5, LRN_ALPHA, LRN_BETA, LRN_K, powfs=powfs))
+        pair = {r["dtype"]: sum(q["ms"] for q in recs
+                                if q["dtype"] == r["dtype"]) for r in recs}
+        bound = {dt: bound_ms(sum(q["bytes"] for q in recs
+                                  if q["dtype"] == dt),
+                              sum(q["ops"] for q in recs if q["dtype"] == dt),
+                              dt)[0] for dt in pair}
+        print(f"[layout] powf floor: {'the' if powfs == 1 else 'the two'} "
+              f"powf an element of the LRN pair's {n_elems} elements alone, "
+              f"from registers, {floor_ms:.4f} ms; {kernel} pair float32 "
+              f"{pair['float32']:.4f} ms (bytes bound "
+              f"{bound['float32']:.4f}), bfloat16 {pair['bfloat16']:.4f} ms "
+              f"(bytes bound {bound['bfloat16']:.4f}) [{card}]", flush=True)
     ratios = {}
     for name, recs in (("lrn_fwd_nhwc", k4), ("lrn_bwd_nhwc", k5),
                        ("pool_bwd_nhwc", k6)):
@@ -2068,8 +2127,9 @@ def layout_kernel_report(card: str, k4, k5, k6) -> dict:
             print(f"[layout] {name} {dt}: {ms:.4f} ms against the library's "
                   f"{lib:.4f} ms in this run: {ms / lib:.3f}x [{card}]",
                   flush=True)
-    return {"attributes": attrs, "powf_floor_ms": floor_ms,
-            "powf_floor_elements": n_elems, "library_ratio": ratios}
+    return {"attributes": attrs, "powf_floor_ms": floors[2],
+            "powf_floor_1_ms": floors[1], "powf_floor_elements": n_elems,
+            "library_ratio": ratios, "lrn_fwd_nhwc_bf16_widths": widths}
 
 
 def phase_bf16_train(card: str, root: str, f32: dict, device=None,
@@ -3674,13 +3734,16 @@ def main() -> int:
                 "ms"],
             library_ratio={dt: layout["library_ratio"][f"{name} {dt}"]
                            for dt in ("float32", "bfloat16")},
-            **({"attributes": {k: v for k, v in
-                               layout["attributes"].items()
-                               if k.startswith(name)}}
-               if name != "lrn_fwd_nhwc" else {}),
+            attributes={k: v for k, v in layout["attributes"].items()
+                        if k.startswith(name)},
             **({"powf_floor_ms": layout["powf_floor_ms"],
                 "powf_floor_elements": layout["powf_floor_elements"]}
-               if name == "lrn_bwd_nhwc" else {})))
+               if name == "lrn_bwd_nhwc" else {}),
+            **({"powf_floor_ms": layout["powf_floor_1_ms"],
+                "powf_floor_elements": layout["powf_floor_elements"],
+                "bf16_ms_by_lane_channels": layout[
+                    "lrn_fwd_nhwc_bf16_widths"]}
+               if name == "lrn_fwd_nhwc" else {})))
     summary = {"train_step_ms": train["step_ms"],
                "train_peak_bytes": train["peak_bytes"],
                "train_loop": train["loop"],

@@ -59,6 +59,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "lrn_nhwc.cuh"
 #include "vec.cuh"
 
 #define MAX_LRN_SIZE 32
@@ -275,11 +276,12 @@ extern "C" int poseidon_lrn_bwd(const void* x, const void* g, void* dx,
 // elements (pre before and post after for s, post before and pre after for
 // r) come from the lanes next to it by __shfl_sync, from the previous
 // round for lane 0 and the next for lane 31; a tap in another pixel (its
-// channel outside [0, C)) is zero. r of a neighbour is that lane's own r,
-// so no channel's s or powf is computed twice. The rounds are a pipeline:
-// at step k the loads of round k+2 are issued, round k+1 is converted,
-// then round k's s, r and first term and round k-1's dx are computed, so a
-// round's loads are in flight while the warp computes.
+// channel outside [0, C)) is zero (the window, the run and the helpers
+// shared with K4-NHWC are in lrn_nhwc.cuh). r of a neighbour is that lane's
+// own r, so no channel's s or powf is computed twice. The rounds are a
+// pipeline: at step k the loads of round k+2 are issued, round k+1 is
+// converted, then round k's s, r and first term and round k-1's dx are
+// computed, so a round's loads are in flight while the warp computes.
 //
 // Both window sums start from 0.0f and add the taps in ascending order with
 // __fmul_rn and __fadd_rn, each element takes the same two powf, and the
@@ -288,7 +290,6 @@ extern "C" int poseidon_lrn_bwd(const void* x, const void* g, void* dx,
 // window of 5 (AlexNet's) is compiled in for every V; other windows (1 to
 // MAX_LRN_SIZE) take their size at run time with V = 1, a tap at a time.
 
-#define MAX_NHWC_CHANNELS 4096
 // channels a lane, at most: at 8 (16 bytes of bf16) a lane holds about 112
 // registers and an SM 4 blocks, which ran slower than 4 channels (71-80
 // registers, 6-7 blocks)
@@ -297,71 +298,11 @@ extern "C" int poseidon_lrn_bwd(const void* x, const void* g, void* dx,
 namespace {
 namespace nhwc {
 
-constexpr int kLanes = 32;
-constexpr int kWarps = 4;  // warps a block
+using namespace lrn_nhwc;
+
+constexpr int kWarps = 4;   // warps a block
+constexpr int kRounds = 16;  // rounds a warp's run, about
 constexpr int kThreadsBwd = kLanes * kWarps;
-constexpr int kRounds = 16;            // rounds a warp's run, about
-constexpr int kMinWarps = 132 * 32;    // warps to fill the card's SMs
-constexpr unsigned kAll = 0xffffffffu;
-
-// The window sums of a lane's V elements: out[i] = the sum over t of
-// e[i + t], t = 0 .. LO + HI, where e is the lane's elements with LO taps
-// before (from the lanes below, lane 0 from `prev`) and HI after (from the
-// lanes above, lane 31 from `next`), zero outside [0, C). c is the channel
-// of the lane's first element. (One shuffle a tap, each lane sending the
-// round its reader wants, saved no time and cost a spill in f32.)
-template <int V, int LO, int HI>
-__device__ __forceinline__ void window(const float (&prev)[V],
-                                       const float (&cur)[V],
-                                       const float (&next)[V], int c,
-                                       int channels, int lane,
-                                       float (&out)[V]) {
-  float e[LO + V + HI];
-#pragma unroll
-  for (int h = -LO; h < 0; ++h) {
-    const int s = -((-h + V - 1) / V);  // lanes away, rounded down
-    const int j = h - s * V;
-    const int src = lane + s;
-    const float a = __shfl_sync(kAll, cur[j], src & (kLanes - 1));
-    const float b = __shfl_sync(kAll, prev[j], src & (kLanes - 1));
-    e[LO + h] = c + h >= 0 ? (src >= 0 ? a : b) : 0.0f;
-  }
-#pragma unroll
-  for (int i = 0; i < V; ++i) e[LO + i] = cur[i];
-#pragma unroll
-  for (int h = V; h < V + HI; ++h) {
-    const int s = h / V, j = h % V;
-    const int src = lane + s;
-    const float a = __shfl_sync(kAll, cur[j], src & (kLanes - 1));
-    const float b = __shfl_sync(kAll, next[j], src & (kLanes - 1));
-    e[LO + h] = c + h < channels ? (src < kLanes ? a : b) : 0.0f;
-  }
-#pragma unroll
-  for (int i = 0; i < V; ++i) {
-    float acc = 0.0f;
-#pragma unroll
-    for (int t = 0; t <= LO + HI; ++t) acc = __fadd_rn(acc, e[i + t]);
-    out[i] = acc;
-  }
-}
-
-// The same for one element a lane (V = 1) and a window of n taps, lo of
-// them before, taken at run time a tap at a time.
-__device__ __forceinline__ float window_rt(float prev, float cur, float next,
-                                          int c, int channels, int lane,
-                                          int lo, int n) {
-  float acc = 0.0f;
-  for (int t = 0; t < n; ++t) {
-    const int d = t - lo;
-    const int src = lane + d;
-    const float a = __shfl_sync(kAll, cur, src & (kLanes - 1));
-    const float b = __shfl_sync(kAll, d < 0 ? prev : next,
-                                src & (kLanes - 1));
-    const float v = (src >= 0 && src < kLanes) ? a : b;
-    acc = __fadd_rn(acc, (c + d >= 0 && c + d < channels) ? v : 0.0f);
-  }
-  return acc;
-}
 
 // The raw words of x and g at a lane's elements of round j, zero past the
 // run's len elements
@@ -490,9 +431,12 @@ __global__ void __launch_bounds__(kThreadsBwd)
   }
 }
 
-// The powf floor: only the two powf an element of the backward, over n
+// The powf floor: only the powf an element of an LRN kernel, over n
 // elements from registers (s from the element's index, in the range the
 // layer's s takes), one float a thread written so that nothing is dropped.
+// POWFS = 2: the backward's two (s^(-beta-1) and s^(-beta)); 1: the
+// forward's one (s^(-beta)).
+template <int POWFS>
 __global__ void __launch_bounds__(256)
     lrn_powf_floor_kernel(long long n, float alpha_over_size,
                           float neg_beta, float neg_beta_m1, float k,
@@ -503,31 +447,13 @@ __global__ void __launch_bounds__(256)
   for (long long i = t; i < n; i += stride) {
     const float s =
         __fadd_rn(k, __fmul_rn(alpha_over_size, (float)(int)(i & 1023)));
-    acc = __fadd_rn(acc, __fadd_rn(powf(s, neg_beta_m1), powf(s, neg_beta)));
+    if (POWFS == 2)
+      acc = __fadd_rn(acc,
+                      __fadd_rn(powf(s, neg_beta_m1), powf(s, neg_beta)));
+    else
+      acc = __fadd_rn(acc, powf(s, neg_beta));
   }
   out[t] = acc;
-}
-
-int gcd(int a, int b) {
-  while (b) {
-    const int t = a % b;
-    a = b;
-    b = t;
-  }
-  return a;
-}
-
-// Pixels a warp's run: about kRounds rounds, in whole rounds where a few
-// pixels fill them (`unit` pixels end on a round), fewer when the tensor
-// is too small to give every SM kMinWarps / 132 warps.
-int pixels_per_warp(long long n_pixels, int channels, int round_elems) {
-  const int unit = round_elems / gcd(channels, round_elems);
-  long long p = (long long)kRounds * round_elems / channels;
-  if (p < 1) p = 1;
-  if (unit <= p) p = p / unit * unit;
-  const long long cap = (n_pixels + kMinWarps - 1) / kMinWarps;
-  if (p > cap) p = cap;
-  return (int)p;
 }
 
 bool valid(long long n_pixels, int channels, int size) {
@@ -538,10 +464,6 @@ bool valid(long long n_pixels, int channels, int size) {
 // the channels of a lane: 1, 2 or 4 (MAX_NHWC_LANE_CHANNELS)
 bool valid_vec(int v) {
   return v >= 1 && v <= MAX_NHWC_LANE_CHANNELS && (v & (v - 1)) == 0;
-}
-
-bool aligned(const void* p, int bytes) {
-  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
 
 struct Args {
@@ -573,7 +495,8 @@ int run_t(const Args& a, cudaStream_t stream, int* out) {
     out[5] = blocks;
     return 0;
   }
-  const int pixels = pixels_per_warp(a.n_pixels, a.channels, kLanes * V);
+  const int pixels = pixels_per_warp(a.n_pixels, a.channels, kLanes * V,
+                                     kRounds);
   const long long warps = (a.n_pixels + pixels - 1) / pixels;
   const long long blocks = (warps + kWarps - 1) / kWarps;
   if (blocks > 0x7fffffffLL ||
@@ -648,16 +571,19 @@ extern "C" int poseidon_lrn_nhwc_bwd_attrs(int dtype, int vec, int size,
   return nhwc::dispatch(dtype, vec, a, nullptr, out);
 }
 
-// The two powf of the backward alone over n elements (see
-// lrn_powf_floor_kernel): out holds blocks * 256 floats. Returns a
+// The powf of an LRN kernel alone over n elements (see
+// lrn_powf_floor_kernel): powfs = 2 for the backward's two an element, 1
+// for the forward's one; out holds blocks * 256 floats. Returns a
 // cudaError_t.
-extern "C" int poseidon_lrn_powf_floor(long long n, int blocks,
+extern "C" int poseidon_lrn_powf_floor(long long n, int blocks, int powfs,
                                        float alpha_over_size, float neg_beta,
                                        float neg_beta_m1, float k, void* out,
                                        void* stream) {
-  if (n < 1 || blocks < 1) return (int)cudaErrorInvalidValue;
-  nhwc::lrn_powf_floor_kernel<<<blocks, 256, 0,
-                                static_cast<cudaStream_t>(stream)>>>(
+  if (n < 1 || blocks < 1 || (powfs != 1 && powfs != 2))
+    return (int)cudaErrorInvalidValue;
+  auto kernel = powfs == 2 ? nhwc::lrn_powf_floor_kernel<2>
+                           : nhwc::lrn_powf_floor_kernel<1>;
+  kernel<<<blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
       n, alpha_over_size, neg_beta, neg_beta_m1, k, static_cast<float*>(out));
   return (int)cudaGetLastError();
 }

@@ -55,6 +55,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "lrn_nhwc.cuh"
+#include "vec.cuh"
+
 #define MAX_LRN_SIZE 32
 
 namespace {
@@ -263,110 +266,142 @@ extern "C" int poseidon_lrn_fwd_attrs(int dtype, int channels, int size,
 // The channels-last (NHWC) forward: poseidon_tpu/ops/pallas_kernels.py:
 // _lrn_kernel in its layout="NHWC" form (_lrn_specs keeps channels minor).
 //
-// In NHWC a run of consecutive pixels with all their channels is one
-// contiguous stretch of memory, and the channel window slides along the
-// contiguous axis. A block of 256 threads owns a run of `pixels`
-// consecutive pixels of the N*H*W (about kNhwcElems elements: 42 pixels at
-// AlexNet's norm1 C = 96, 16 at norm2's 256) and copies them, coalesced,
-// into shared memory, each pixel's channels into a row with zeros around
-// them (pre before, post after); then every element is formed by one
-// thread from its row: the window's taps squared and summed, one powf. A
-// warp takes a pixel, its lanes the channels.
-// There is no halo to re-read and no channel chunking; a pixel's row must
-// fit one block (MAX_NHWC_CHANNELS, checked by the wrapper). Bound:
-// memory, the same bytes as the NCHW kernel (0.2916 ms for AlexNet's pair
-// at batch 256 in f32). The arithmetic is the NCHW kernel's and the plain
-// version's (window taps from zero in ascending order, the zeros past the
-// channel range included, explicitly rounded, the same powf), so it is
+// Bound: by its bytes, memory (0.2916 ms for AlexNet's pair at batch 256 in
+// f32, 0.1458 in bf16); by its instructions, the one powf an element, which
+// stays because the plain version calls pow (poseidon_lrn_powf_floor with
+// powfs = 1 times it alone). So the design spends as little else as it
+// can: no shared memory, no barrier, every element loaded and stored once
+// as part of a vector, each squared once, the window sums from registers.
+//
+// Design: K5-NHWC's (lrn_bwd.cu) with one input stream, on the schedule of
+// lrn_nhwc.cuh. A warp owns a run of `pixels` consecutive pixels, one
+// contiguous stream of pixels * C elements, and walks it in rounds of 32 * V
+// elements: lane l holds the V consecutive elements at l * V of the round,
+// loaded and stored as one access (V from the wrapper's
+// ops/vector.vector_width: 16 bytes where C and the pointers allow, 4 f32
+// or 8 bf16 channels; else fewer). V divides C, so a lane's elements lie in
+// one pixel; a round may end one pixel and start the next (the C entry
+// picks the run: about kRounds rounds, whole ones where a few pixels fill
+// them: norm1 16 pixels in 12 rounds in f32, 32 in bf16; norm2 6 and 12).
+// Blocks of 4 warps. Each element is squared once; the window's taps beyond a lane's
+// own V squares (pre before, post after) come from the lanes next to it by
+// __shfl_sync, from the previous round for lane 0 and the next for lane 31,
+// and a tap in another pixel (its channel outside [0, C)) is zero. With
+// MAX_LRN_SIZE 32 and V = 1 a tap lies at most 16 lanes away, so one
+// neighbouring round is always enough. The rounds are a pipeline: at step
+// k the loads of round k+2 are issued, round k+1 is converted and squared,
+// then round k's y is computed and stored, so a round's loads are in flight
+// while the warp takes its powf.
+//
+// The window sum starts from 0.0f and adds the squares in ascending tap
+// order (zeros past the channel range included) with __fmul_rn and
+// __fadd_rn, scale = k + alpha/size * sum, y = x * powf(scale, -beta): the
+// NCHW kernel's arithmetic and the plain version's, so the kernel is
 // bitwise equal to ops/lrn.py:lrn_across_channels_plain on the same
-// channels-last tensor.
+// channels-last tensor. A window of 5 (AlexNet's) is compiled in for every
+// V; other windows (1 to MAX_LRN_SIZE) take their size at run time with
+// V = 1, a tap at a time. A pixel's C is capped at MAX_NHWC_CHANNELS, as
+// the backward's, which takes the forward's tensors.
+//
+// (The first version staged a block's pixels in shared memory as f32 rows
+// with zero margins, then squared every tap of every window again; PERF.md
+// keeps both times.)
 
-#define MAX_NHWC_CHANNELS 4096
+// channels a lane, at most: 8 bf16 channels are 16 bytes
+#define MAX_NHWC_FWD_LANE_CHANNELS 8
 
 namespace {
 namespace nhwc {
 
-constexpr int kNhwcElems = 4096;  // elements a forward block, about
-constexpr int kMaxSmem = 227 * 1024;
+using namespace lrn_nhwc;
 
-// A block's 8 warps take a pixel each and their 32 lanes the pixel's
-// channels (consecutive lanes on consecutive channels: coalesced loads and
-// stores, conflict-free shared rows); no thread divides to find its
-// element.
-constexpr int kLanes = 32;
-constexpr int kWarps = kThreads / kLanes;
+// warps a block and rounds a warp's run, about: blocks of 8 warps and runs
+// of 16 rounds (K5-NHWC's) ran 1-5% slower on the H100 (PERF.md)
+constexpr int kWarps = 4;
+constexpr int kRounds = 12;
+constexpr int kThreadsFwd = kLanes * kWarps;
 
-// Copy np pixels of C contiguous channels into rows of `row` floats,
-// pixel r's channel c at r * row + lead + c.
-template <typename T>
-__device__ __forceinline__ void stage_rows(float* __restrict__ dst,
-                                           const T* __restrict__ src,
-                                           int np, int channels, int row,
-                                           int lead) {
-  const int lane = threadIdx.x % kLanes;
-  for (int r = threadIdx.x / kLanes; r < np; r += kWarps) {
-    const T* s = src + r * channels;
-    float* d = dst + r * row + lead;
-#pragma unroll 4
-    for (int c = lane; c < channels; c += kLanes) d[c] = load_as_f32(s + c);
-  }
+// The raw words of x at a lane's elements of round j, zero past the run's
+// len elements
+template <typename T, int V>
+__device__ __forceinline__ void fetch_round(const T* __restrict__ x, int j,
+                                            int lane, int len, unsigned* w) {
+  constexpr int W = vec::words<V * (int)sizeof(T)>();
+  const int at = j * kLanes * V + lane * V;
+#pragma unroll
+  for (int i = 0; i < W; ++i) w[i] = 0u;
+  if (at < len) vec::load_raw<T, V>(x + at, w);
 }
 
-// Zero the `before` floats ahead of each pixel's channels and the `after`
-// floats behind them, in rows of `row` floats.
-__device__ __forceinline__ void zero_margins(float* __restrict__ dst, int np,
-                                             int channels, int row,
-                                             int before, int after) {
-  const int lane = threadIdx.x % kLanes;
-  for (int r = threadIdx.x / kLanes; r < np; r += kWarps)
-    for (int t = lane; t < before + after; t += kLanes)
-      dst[r * row + (t < before ? t : channels + t)] = 0.0f;
-}
-
-// Block b: pixels [b * pixels, b * pixels + pixels) of all n*h*w pixels.
-template <typename T, int SIZE>
-__global__ void __launch_bounds__(kThreads)
+// SIZE > 0: the window at compile time; 0: `size` at run time (V = 1).
+template <typename T, int V, int SIZE>
+__global__ void __launch_bounds__(kThreadsFwd)
     lrn_nhwc_fwd_kernel(const T* __restrict__ x, T* __restrict__ y,
                         long long n_pixels, int channels, int pixels,
                         int size, float alpha_over_size, float neg_beta,
                         float k) {
-  const int n = SIZE > 0 ? SIZE : size;
-  const int pre = (n - 1) / 2;
-  const long long p0 = (long long)blockIdx.x * pixels;
-  const int np = (int)(n_pixels - p0 < pixels ? n_pixels - p0 : pixels);
-  const int row = channels + n - 1;
-  extern __shared__ float sx[];
-  T* yb = y + p0 * channels;
-
-  zero_margins(sx, np, channels, row, pre, n - 1 - pre);
-  stage_rows(sx, x + p0 * channels, np, channels, row, pre);
-  __syncthreads();
-
+  static_assert(SIZE > 0 || V == 1, "a run-time window takes V = 1");
+  constexpr int kPre = SIZE > 0 ? (SIZE - 1) / 2 : 0;
+  constexpr int kPost = SIZE > 0 ? SIZE - 1 - kPre : 0;
+  constexpr int R = kLanes * V;  // elements a round
+  constexpr int W = vec::words<V * (int)sizeof(T)>();
   const int lane = threadIdx.x % kLanes;
-  for (int r = threadIdx.x / kLanes; r < np; r += kWarps) {
-    for (int c = lane; c < channels; c += kLanes) {
-      // the window of channel c is row entries c .. c + n - 1
-      const float* w = sx + r * row + c;
-      float acc = 0.0f;
-#pragma unroll
-      for (int t = 0; t < (SIZE > 0 ? SIZE : MAX_LRN_SIZE); ++t) {
-        if (SIZE == 0 && t >= n) break;
-        acc = __fadd_rn(acc, __fmul_rn(w[t], w[t]));
-      }
-      const float scale = __fadd_rn(k, __fmul_rn(alpha_over_size, acc));
-      store_from_f32(yb + r * channels + c,
-                     __fmul_rn(w[pre], powf(scale, neg_beta)));
-    }
-  }
-}
+  const long long p0 =
+      ((long long)blockIdx.x * kWarps + threadIdx.x / kLanes) * pixels;
+  if (p0 >= n_pixels) return;  // the whole warp
+  const long long np = n_pixels - p0 < pixels ? n_pixels - p0 : pixels;
+  const int len = (int)np * channels;
+  const int rounds = (len + R - 1) / R;
+  const int step = R % channels;  // a lane's channel advances by this a round
+  const int pre = SIZE > 0 ? kPre : (size - 1) / 2;
+  x += p0 * channels;
+  y += p0 * channels;
 
-// Pixels a block: about `elems` elements, at least one pixel, within the
-// shared memory a block can take at `floats_a_pixel`.
-int pixels_of(int channels, int elems, int floats_a_pixel) {
-  int p = elems / channels;
-  if (p < 1) p = 1;
-  const int cap = kMaxSmem / (4 * floats_a_pixel);
-  return p < cap ? p : cap;
+  // x of round k; the squares of rounds k-1, k, k+1; the raw words of
+  // rounds k+1 and k+2; the channel of the lane's first element in round k
+  float xc[V], xn[V], qp[V], qc[V], qn[V];
+  unsigned w[W], w2[W];
+  fetch_round<T, V>(x, 0, lane, len, w);
+  vec::unpack<T, V>(w, xc);
+  fetch_round<T, V>(x, 1, lane, len, w);
+#pragma unroll
+  for (int i = 0; i < V; ++i) {
+    qc[i] = __fmul_rn(xc[i], xc[i]);
+    qp[i] = 0.0f;
+  }
+  int c = (lane * V) % channels;
+
+  for (int kk = 0; kk < rounds; ++kk) {
+    fetch_round<T, V>(x, kk + 2, lane, len, w2);
+    vec::unpack<T, V>(w, xn);
+#pragma unroll
+    for (int i = 0; i < V; ++i) qn[i] = __fmul_rn(xn[i], xn[i]);
+
+    float ws[V], out[V];
+    if (SIZE > 0) {
+      window<V, kPre, kPost>(qp, qc, qn, c, channels, lane, ws);
+    } else {
+      ws[0] = window_rt(qp[0], qc[0], qn[0], c, channels, lane, pre, size);
+    }
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      const float scale = __fadd_rn(k, __fmul_rn(alpha_over_size, ws[i]));
+      out[i] = __fmul_rn(xc[i], powf(scale, neg_beta));
+    }
+    const int at = kk * R + lane * V;
+    if (at < len) vec::store<T, V>(y + at, out);
+
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      xc[i] = xn[i];
+      qp[i] = qc[i];
+      qc[i] = qn[i];
+    }
+#pragma unroll
+    for (int i = 0; i < W; ++i) w[i] = w2[i];
+    c += step;
+    if (c >= channels) c -= channels;
+  }
 }
 
 bool valid(long long n_pixels, int channels, int size) {
@@ -374,45 +409,113 @@ bool valid(long long n_pixels, int channels, int size) {
          size >= 1 && size <= MAX_LRN_SIZE;
 }
 
-template <typename T, int SIZE>
-int fwd_t(const void* x, void* y, long long n_pixels, int channels, int size,
-          float alpha_over_size, float beta, float k, cudaStream_t stream) {
-  const int row = channels + size - 1;
-  const int pixels = pixels_of(channels, kNhwcElems, row);
-  const long long blocks = (n_pixels + pixels - 1) / pixels;
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  const int bytes = 4 * pixels * row;
-  auto kernel = lrn_nhwc_fwd_kernel<T, SIZE>;
-  const cudaError_t err = allow_smem(kernel, bytes);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<(unsigned int)blocks, kThreads, bytes, stream>>>(
-      static_cast<const T*>(x), static_cast<T*>(y), n_pixels, channels,
-      pixels, size, alpha_over_size, -beta, k);
+// the channels of a lane: 1, 2, 4 or 8 (MAX_NHWC_FWD_LANE_CHANNELS), at
+// most 16 bytes
+bool valid_vec(int v, int dtype) {
+  return v >= 1 && v <= MAX_NHWC_FWD_LANE_CHANNELS && (v & (v - 1)) == 0 &&
+         v * (dtype == 0 ? 4 : 2) <= 16;
+}
+
+struct Args {
+  const void* x;
+  void* y;
+  long long n_pixels;
+  int channels, size;
+  float alpha_over_size, neg_beta, k;
+};
+
+// launch (out == nullptr) or report attributes of one instantiation
+template <typename T, int V, int SIZE>
+int run_t(const Args& a, cudaStream_t stream, int* out) {
+  auto kernel = lrn_nhwc_fwd_kernel<T, V, SIZE>;
+  if (out) {
+    cudaFuncAttributes fa;
+    cudaError_t err = cudaFuncGetAttributes(&fa, kernel);
+    int blocks = 0;
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
+                                                          kThreadsFwd, 0);
+    if (err != cudaSuccess) return (int)err;
+    out[0] = fa.numRegs;
+    out[1] = (int)fa.sharedSizeBytes;
+    out[2] = 0;
+    out[3] = (int)fa.localSizeBytes;
+    out[4] = kThreadsFwd;
+    out[5] = blocks;
+    return 0;
+  }
+  const int pixels = pixels_per_warp(a.n_pixels, a.channels, kLanes * V,
+                                     kRounds);
+  const long long warps = (a.n_pixels + pixels - 1) / pixels;
+  const long long blocks = (warps + kWarps - 1) / kWarps;
+  if (blocks > 0x7fffffffLL ||
+      (long long)pixels * a.channels >= (1LL << 31))
+    return (int)cudaErrorInvalidValue;
+  kernel<<<(unsigned int)blocks, kThreadsFwd, 0, stream>>>(
+      static_cast<const T*>(a.x), static_cast<T*>(a.y), a.n_pixels,
+      a.channels, pixels, a.size, a.alpha_over_size, a.neg_beta, a.k);
   return (int)cudaGetLastError();
+}
+
+// the instantiation for dtype, vec and the window; a window other than 5
+// runs one element a lane
+template <typename T>
+int run(int vec, const Args& a, cudaStream_t stream, int* out) {
+  if (a.size != 5) return run_t<T, 1, 0>(a, stream, out);
+  switch (vec) {
+    case 1:
+      return run_t<T, 1, 5>(a, stream, out);
+    case 2:
+      return run_t<T, 2, 5>(a, stream, out);
+    case 4:
+      return run_t<T, 4, 5>(a, stream, out);
+    default:
+      if constexpr (sizeof(T) == 2) return run_t<T, 8, 5>(a, stream, out);
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+int dispatch(int dtype, int vec, const Args& a, cudaStream_t stream,
+             int* out) {
+  if (!valid_vec(vec, dtype)) return (int)cudaErrorInvalidValue;
+  if (dtype == 0) return run<float>(vec, a, stream, out);
+  if (dtype == 1) return run<__nv_bfloat16>(vec, a, stream, out);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace nhwc
 }  // namespace
 
 // x, y: n_pixels pixels of C contiguous channels (an NHWC tensor, n_pixels
-// = N*H*W). dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t (0 =
-// launched).
+// = N*H*W), C at most MAX_NHWC_CHANNELS. dtype: 0 = float32, 1 = bfloat16.
+// vec: the channels a lane moves as one access (ops/vector.vector_width),
+// 1, 2, 4 or 8 within 16 bytes, dividing C, both pointers aligned to vec
+// elements. The scalars arrive rounded to float from the wrapper's doubles
+// (alpha/size, beta), the same floats the plain version's scalar operands
+// round to. Returns a cudaError_t (0 = launched).
 extern "C" int poseidon_lrn_nhwc_fwd(const void* x, void* y, int dtype,
                                      long long n_pixels, int channels,
-                                     int size, float alpha_over_size,
+                                     int vec, int size, float alpha_over_size,
                                      float beta, float k, void* stream) {
-  if (!nhwc::valid(n_pixels, channels, size))
+  if (!nhwc::valid(n_pixels, channels, size) ||
+      !nhwc::valid_vec(vec, dtype) || channels % vec != 0)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  using namespace nhwc;
-  if (dtype == 0) {
-    auto f = size == 5 ? fwd_t<float, 5> : fwd_t<float, 0>;
-    return f(x, y, n_pixels, channels, size, alpha_over_size, beta, k, st);
-  }
-  if (dtype == 1) {
-    auto f = size == 5 ? fwd_t<__nv_bfloat16, 5> : fwd_t<__nv_bfloat16, 0>;
-    return f(x, y, n_pixels, channels, size, alpha_over_size, beta, k, st);
-  }
-  return (int)cudaErrorInvalidValue;
+  const int bytes = vec * (dtype == 0 ? 4 : 2);
+  if (!nhwc::aligned(x, bytes) || !nhwc::aligned(y, bytes))
+    return (int)cudaErrorInvalidValue;
+  const nhwc::Args a{x, y, n_pixels, channels, size, alpha_over_size, -beta,
+                     k};
+  return nhwc::dispatch(dtype, vec, a, static_cast<cudaStream_t>(stream),
+                        nullptr);
 }
 
+// The instantiation for dtype, vec and the window: out[6] = registers a
+// thread, static shared bytes, dynamic shared bytes, local (spill) bytes a
+// thread, threads a block, resident blocks per SM. Returns a cudaError_t.
+extern "C" int poseidon_lrn_nhwc_fwd_attrs(int dtype, int vec, int size,
+                                           int* out) {
+  if (size < 1 || size > MAX_LRN_SIZE) return (int)cudaErrorInvalidValue;
+  nhwc::Args a{};
+  a.size = size;
+  return nhwc::dispatch(dtype, vec, a, nullptr, out);
+}

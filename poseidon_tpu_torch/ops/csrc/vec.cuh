@@ -1,4 +1,5 @@
-// Vector accesses of the channels-last kernels (lrn_bwd.cu, pool_bwd.cu):
+// Vector accesses of the channels-last kernels (lrn_fwd.cu, lrn_bwd.cu,
+// pool_bwd.cu):
 // V consecutive elements of float or bfloat16 moved as one access of
 // V * sizeof(T) bytes (16, 8, 4 or 2), converted to and from f32 exactly as
 // __bfloat162float and __float2bfloat16_rn convert one element.

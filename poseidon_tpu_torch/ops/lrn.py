@@ -38,15 +38,14 @@ the backward) grows their shared memory with the window, so both take
 A channels-last (NHWC) tensor has kernels of its own, the second entry
 points of ``csrc/lrn_fwd.cu`` and ``csrc/lrn_bwd.cu`` (the TPU kernels'
 ``layout="NHWC"`` form), with the same arithmetic, so they too are bitwise
-equal to the plain versions. The forward stages a run of whole pixels, each
-pixel's C channels contiguous, in shared memory and slides the window along
-them. The backward keeps a pixel's channels in a warp's registers, V
-consecutive channels a lane moved as one access (``ops/vector.vector_width``
-picks V from C and the pointers, at most MAX_NHWC_LANE_CHANNELS: 16 bytes in
-f32, 8 in bf16), and takes the window's taps from the neighbouring lanes by
-warp shuffles: no shared memory. Both take C up to MAX_NHWC_CHANNELS and
-count their launches in ``LAUNCHES["lrn_fwd_nhwc"]`` and
-``LAUNCHES["lrn_bwd_nhwc"]``. The autograd
+equal to the plain versions. Both keep a warp's run of pixels in registers,
+V consecutive channels a lane moved as one access (``ops/vector.vector_width``
+picks V from C and the pointers: at most MAX_NHWC_FWD_LANE_CHANNELS for the
+forward, 16 bytes in f32 and bf16; at most MAX_NHWC_LANE_CHANNELS for the
+backward, 16 bytes in f32, 8 in bf16), and take the window's taps from the
+neighbouring lanes by warp shuffles (``csrc/lrn_nhwc.cuh``): no shared
+memory. Both take C up to MAX_NHWC_CHANNELS and count their launches in
+``LAUNCHES["lrn_fwd_nhwc"]`` and ``LAUNCHES["lrn_bwd_nhwc"]``. The autograd
 Function routes by memory format: a channels-last CUDA tensor to the NHWC
 kernels, any other CUDA tensor (made NCHW-contiguous) to the NCHW ones; it
 never converts a channels-last tensor to NCHW, and its gradient comes back
@@ -70,13 +69,15 @@ LAUNCHES = {"lrn_fwd": 0, "lrn_bwd": 0, "lrn_fwd_nhwc": 0,
 # the kernels' shared-memory halo grows with the window: capped here and
 # in csrc/lrn_fwd.cu and csrc/lrn_bwd.cu (MAX_LRN_SIZE)
 MAX_CUDA_LOCAL_SIZE = 32
-# the NHWC forward stages whole pixels in one block's shared memory:
-# MAX_NHWC_CHANNELS of csrc/lrn_fwd.cu, and of csrc/lrn_bwd.cu, which takes
-# the forward's tensors
+# channels a pixel of the NHWC kernels, at most: MAX_NHWC_CHANNELS of
+# csrc/lrn_nhwc.cuh, which both C entries refuse past
 MAX_NHWC_CHANNELS = 4096
 # channels a lane of the NHWC backward, at most (csrc/lrn_bwd.cu: more
 # cost registers and blocks an SM)
 MAX_NHWC_LANE_CHANNELS = 4
+# channels a lane of the NHWC forward, at most (csrc/lrn_fwd.cu: 16 bytes
+# of bf16; f32 stops at 4 by vector_width's 16 bytes)
+MAX_NHWC_FWD_LANE_CHANNELS = 8
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -237,14 +238,26 @@ def lrn_bwd_cuda(x: torch.Tensor, g: torch.Tensor, local_size: int,
 
 def _check_channels(name: str, c: int) -> None:
     if c > MAX_NHWC_CHANNELS:
-        raise ValueError(f"{name} stages a pixel's channels in one block: "
-                         f"C must be at most {MAX_NHWC_CHANNELS}, got {c}")
+        raise ValueError(f"{name}: C must be at most MAX_NHWC_CHANNELS "
+                         f"({MAX_NHWC_CHANNELS}), got {c}")
+
+
+# argument types of the NHWC forward's C entries
+_NHWC_FWD_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                  ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                  ctypes.c_int, ctypes.c_float, ctypes.c_float,
+                  ctypes.c_float, ctypes.c_void_p]
+_NHWC_FWD_ATTRS_ARGS = [ctypes.c_int] * 3 + [ctypes.c_void_p]
 
 
 def lrn_fwd_nhwc_cuda(x: torch.Tensor, local_size: int, alpha: float,
-                      beta: float, k: float = 1.0) -> torch.Tensor:
+                      beta: float, k: float = 1.0, *,
+                      lane_channels: int = MAX_NHWC_FWD_LANE_CHANNELS
+                      ) -> torch.Tensor:
     """Launch the NHWC forward kernel on PyTorch's current stream; x is a
-    channels-last (N, C, H, W) tensor, y comes back channels-last."""
+    channels-last (N, C, H, W) tensor, y comes back channels-last. A lane
+    moves ``vector_width`` channels as one access, at most
+    ``lane_channels`` (a measurement may ask for fewer)."""
     _check_window("lrn_fwd_nhwc_cuda", local_size)
     _check_cuda("lrn_fwd_nhwc_cuda", x, fmt=torch.channels_last)
     n, c, h, w = x.shape
@@ -252,19 +265,42 @@ def lrn_fwd_nhwc_cuda(x: torch.Tensor, local_size: int, alpha: float,
     y = torch.empty_like(x, memory_format=torch.channels_last)
     if x.numel() == 0:
         return y
-    fn = _lib("lrn_fwd", [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                           ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                           ctypes.c_float, ctypes.c_float, ctypes.c_float,
-                           ctypes.c_void_p], entry="poseidon_lrn_nhwc_fwd")
+    vec = vector_width(c, x.element_size(), x.data_ptr(), y.data_ptr(),
+                       most=lane_channels)
+    fn = _lib("lrn_fwd", _NHWC_FWD_ARGS, entry="poseidon_lrn_nhwc_fwd")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = fn(x.data_ptr(), y.data_ptr(), _DTYPE_CODE[x.dtype], n * h * w,
-                c, local_size, alpha / local_size, beta, k, stream)
+                c, vec, local_size, alpha / local_size, beta, k, stream)
     if rc != 0:
         raise RuntimeError(f"lrn_fwd_nhwc kernel launch failed: cudaError "
                            f"{rc}")
     LAUNCHES["lrn_fwd_nhwc"] += 1
     return y
+
+
+def _nhwc_attrs(lib: str, entry: str, args, dtype: torch.dtype, vec: int,
+                local_size: int) -> dict:
+    """An NHWC kernel's attributes from the C entry ``entry`` of
+    ``csrc/<lib>.cu``."""
+    fn = _lib(lib, args, entry=entry)
+    keys = ("registers", "static_smem_bytes", "dynamic_smem_bytes",
+            "local_bytes", "threads", "blocks_per_sm")
+    buf = (ctypes.c_int * len(keys))()
+    rc = fn(_DTYPE_CODE[dtype], vec, local_size, buf)
+    if rc != 0:
+        raise RuntimeError(f"{entry}: cudaError {rc}")
+    return dict(zip(keys, buf))
+
+
+def lrn_fwd_nhwc_kernel_attrs(dtype: torch.dtype, vec: int,
+                              local_size: int) -> dict:
+    """What the card reports for the NHWC forward's instantiation that
+    takes ``dtype``, ``vec`` channels a lane and ``local_size``: registers,
+    static/dynamic shared bytes, local (spill) bytes, threads a block and
+    resident blocks per SM. Needs the card."""
+    return _nhwc_attrs("lrn_fwd", "poseidon_lrn_nhwc_fwd_attrs",
+                       _NHWC_FWD_ATTRS_ARGS, dtype, vec, local_size)
 
 
 # argument types of the NHWC backward's C entries
@@ -274,8 +310,8 @@ _NHWC_BWD_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                   ctypes.c_float, ctypes.c_float, ctypes.c_float,
                   ctypes.c_void_p]
 _NHWC_BWD_ATTRS_ARGS = [ctypes.c_int] * 3 + [ctypes.c_void_p]
-_POWF_FLOOR_ARGS = [ctypes.c_longlong, ctypes.c_int] + [ctypes.c_float] * 4 \
-    + [ctypes.c_void_p] * 2
+_POWF_FLOOR_ARGS = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int] \
+    + [ctypes.c_float] * 4 + [ctypes.c_void_p] * 2
 
 
 def lrn_bwd_nhwc_cuda(x: torch.Tensor, g: torch.Tensor, local_size: int,
@@ -314,28 +350,25 @@ def lrn_bwd_nhwc_kernel_attrs(dtype: torch.dtype, vec: int,
     takes ``dtype``, ``vec`` channels a lane and ``local_size``: registers,
     static/dynamic shared bytes, local (spill) bytes, threads a block and
     resident blocks per SM. Needs the card."""
-    fn = _lib("lrn_bwd", _NHWC_BWD_ATTRS_ARGS,
-              entry="poseidon_lrn_nhwc_bwd_attrs")
-    keys = ("registers", "static_smem_bytes", "dynamic_smem_bytes",
-            "local_bytes", "threads", "blocks_per_sm")
-    buf = (ctypes.c_int * len(keys))()
-    rc = fn(_DTYPE_CODE[dtype], vec, local_size, buf)
-    if rc != 0:
-        raise RuntimeError(f"lrn_bwd_nhwc attributes: cudaError {rc}")
-    return dict(zip(keys, buf))
+    return _nhwc_attrs("lrn_bwd", "poseidon_lrn_nhwc_bwd_attrs",
+                       _NHWC_BWD_ATTRS_ARGS, dtype, vec, local_size)
 
 
 def lrn_powf_floor_cuda(n: int, local_size: int, alpha: float, beta: float,
                         k: float = 1.0, device="cuda",
-                        blocks: int = 132 * 16) -> torch.Tensor:
-    """The backward's two powf an element alone, over ``n`` elements from
-    registers (the least time its unchanged arithmetic allows); returns the
+                        blocks: int = 132 * 16,
+                        powfs: int = 2) -> torch.Tensor:
+    """An LRN kernel's powf alone, over ``n`` elements from registers (the
+    least time its unchanged arithmetic allows): ``powfs`` = 2 for the
+    backward's two an element, 1 for the forward's one; returns the
     kernel's per-thread sums. A measurement, not on any path."""
+    if powfs not in (1, 2):
+        raise ValueError(f"lrn_powf_floor_cuda: powfs is 1 or 2, got {powfs}")
     out = torch.empty(blocks * 256, dtype=torch.float32, device=device)
     fn = _lib("lrn_bwd", _POWF_FLOOR_ARGS, entry="poseidon_lrn_powf_floor")
     with torch.cuda.device(out.device):
         stream = torch.cuda.current_stream(out.device).cuda_stream
-        rc = fn(n, blocks, alpha / local_size, -beta, -beta - 1.0, k,
+        rc = fn(n, blocks, powfs, alpha / local_size, -beta, -beta - 1.0, k,
                 out.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"lrn_powf_floor launch failed: cudaError {rc}")

@@ -1,6 +1,7 @@
 """The vector width of the channels-last kernels (``csrc/vec.cuh``): how many
-consecutive channels a thread of K5-NHWC (``csrc/lrn_bwd.cu``) or K6-NHWC
-(``csrc/pool_bwd.cu``) moves as one access. Decided here, where a CPU test
+consecutive channels a thread of K4-NHWC (``csrc/lrn_fwd.cu``), K5-NHWC
+(``csrc/lrn_bwd.cu``) or K6-NHWC (``csrc/pool_bwd.cu``) moves as one
+access. Decided here, where a CPU test
 reaches it, and passed to the C entries, which refuse a width that does not
 divide C or that a pointer is not aligned to."""
 

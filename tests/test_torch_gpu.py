@@ -771,8 +771,8 @@ def test_pool_nhwc_kernel_minus_inf_rows_and_ties_on_card(pad):
 
 
 # --------------------------------------------------------------------------- #
-# K5-NHWC (registers and warp shuffles) and K6-NHWC (one launch over
-# shared-memory bands): vector widths, alignment, bands, no scratch
+# K4-NHWC and K5-NHWC (registers and warp shuffles) and K6-NHWC (one launch
+# over shared-memory bands): vector widths, alignment, bands, no scratch
 # --------------------------------------------------------------------------- #
 
 def _nhwc_pool_inputs(shape, k, s, p, dtype, seed):
@@ -786,19 +786,36 @@ def _nhwc_pool_inputs(shape, k, s, p, dtype, seed):
     return x, g
 
 
+def _lrn_fwd_nhwc_bitwise(x, local_size=5):
+    """K4-NHWC on x, one launch, bitwise equal to the plain version."""
+    before = port_lrn.LAUNCHES["lrn_fwd_nhwc"]
+    y = port_lrn.lrn_fwd_nhwc_cuda(x, local_size, 1e-4, 0.75, 1.0)
+    torch.cuda.synchronize()
+    assert port_lrn.LAUNCHES["lrn_fwd_nhwc"] == before + 1
+    assert y.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(y, port_lrn.lrn_across_channels_plain(
+        x, local_size, 1e-4, 0.75, 1.0))
+    return y
+
+
 @pytest.mark.gpu
+@pytest.mark.parametrize("direction", ["bwd", "fwd"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("channels", [2, 3, 131])
-def test_nhwc_bwd_kernels_c_off_the_vector_on_card(dtype, channels):
+def test_nhwc_bwd_kernels_c_off_the_vector_on_card(dtype, channels,
+                                                   direction):
     """C not a multiple of the 16-byte vector: K5-NHWC and K6-NHWC (MAX and
-    AVE) take a narrower vector in the same kernel, bitwise equal to the
-    plain versions."""
+    AVE), and K4-NHWC (``fwd``), take a narrower vector in the same kernel,
+    bitwise equal to the plain versions."""
     _need_gpu()
     from poseidon_tpu_torch.ops.vector import vector_width
     shape = (3, channels, 15, 13)
     size = torch.empty((), dtype=dtype).element_size()
     assert vector_width(channels, size) < 16 // size
     x, g = _nhwc_pool_inputs(shape, (3, 3), (2, 2), (1, 1), dtype, 31)
+    if direction == "fwd":
+        _lrn_fwd_nhwc_bitwise(x)
+        return
     for method in ("max", "ave"):
         got = port_pool.pool_bwd_nhwc_cuda(x, g, (3, 3), (2, 2), (1, 1),
                                            method)
@@ -821,13 +838,15 @@ def _offset_channels_last(shape, dtype, offset, gen):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("direction", ["bwd", "fwd"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("kind", ["batch slice", "storage offset"])
-def test_nhwc_bwd_kernels_off_16_byte_alignment_on_card(dtype, kind):
-    """x, g whose data_ptr is not 16-byte aligned: a channels-last slice of
-    a larger batch (C = 6) and a view one element into its storage (C =
-    96). The kernels take the vector the pointers allow, bitwise equal to
-    the plain versions."""
+def test_nhwc_bwd_kernels_off_16_byte_alignment_on_card(dtype, kind,
+                                                        direction):
+    """x, g whose data_ptr is not 16-byte aligned (2 or 4 bytes off): a
+    channels-last slice of a larger batch (C = 6) and a view one element
+    into its storage (C = 96). The kernels (``fwd``: K4-NHWC) take the
+    vector the pointers allow, bitwise equal to the plain versions."""
     _need_gpu()
     gen = torch.Generator(device="cuda").manual_seed(32)
     k, s, p = (3, 3), (2, 2), (0, 0)
@@ -845,6 +864,9 @@ def test_nhwc_bwd_kernels_off_16_byte_alignment_on_card(dtype, kind):
         g = _offset_channels_last((2, 96, 5, 5), dtype, 1, gen)
     assert x.is_contiguous(memory_format=torch.channels_last)
     assert x.data_ptr() % 16 and g.data_ptr() % 16
+    if direction == "fwd":
+        _lrn_fwd_nhwc_bitwise(x)
+        return
     got = port_pool.pool_bwd_nhwc_cuda(x, g, k, s, p, "max")
     dx = port_lrn.lrn_bwd_nhwc_cuda(x, gl, 5, 1e-4, 0.75, 1.0)
     torch.cuda.synchronize()
@@ -897,13 +919,23 @@ def test_pool_nhwc_allocates_no_scratch_on_card(method):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("direction", ["bwd", "fwd"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_nhwc_bwd_kernels_bitwise_from_run_to_run_on_card(dtype):
-    """Two launches of K5-NHWC and of K6-NHWC on the same inputs give the
-    same bits, at norm1's and pool1's widths."""
+def test_nhwc_bwd_kernels_bitwise_from_run_to_run_on_card(dtype, direction):
+    """Two launches of K5-NHWC and of K6-NHWC (``fwd``: of K4-NHWC, at each
+    lane width) on the same inputs give the same bits, at norm1's and
+    pool1's widths."""
     _need_gpu()
     x, g = _nhwc_pool_inputs((8, 96, 55, 55), (3, 3), (2, 2), (0, 0), dtype,
                              35)
+    if direction == "fwd":
+        want = _lrn_fwd_nhwc_bitwise(x)
+        for lanes in (1, 2, 4, 8):
+            got = port_lrn.lrn_fwd_nhwc_cuda(x, 5, 1e-4, 0.75, 1.0,
+                                             lane_channels=lanes)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), lanes
+        return
     gl = _channels_last(torch.randn_like(x))
     first = (port_lrn.lrn_bwd_nhwc_cuda(x, gl, 5, 1e-4, 0.75, 1.0),
              port_pool.pool_bwd_nhwc_cuda(x, g, (3, 3), (2, 2), (0, 0),
@@ -919,10 +951,17 @@ def test_nhwc_bwd_kernels_bitwise_from_run_to_run_on_card(dtype):
 
 @pytest.mark.gpu
 def test_nhwc_bwd_kernel_attrs_on_card():
-    """K5-NHWC uses no shared memory; K6-NHWC's plan fits its budget; no
-    spills at AlexNet's widths."""
+    """K4-NHWC and K5-NHWC use no shared memory; K6-NHWC's plan fits its
+    budget; no spills at AlexNet's widths (K4-NHWC at every lane width
+    within 16 bytes)."""
     _need_gpu()
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype, widths in ((torch.float32, (1, 2, 4)),
+                          (torch.bfloat16, (1, 2, 4, 8))):
+        for vec in widths:
+            a = port_lrn.lrn_fwd_nhwc_kernel_attrs(dtype, vec, 5)
+            assert a["static_smem_bytes"] == a["dynamic_smem_bytes"] == 0
+            assert a["local_bytes"] == 0 and a["blocks_per_sm"] >= 1, (
+                dtype, vec, a)
         a = port_lrn.lrn_bwd_nhwc_kernel_attrs(
             dtype, port_lrn.MAX_NHWC_LANE_CHANNELS, 5)
         assert a["static_smem_bytes"] == a["dynamic_smem_bytes"] == 0
@@ -931,3 +970,80 @@ def test_nhwc_bwd_kernel_attrs_on_card():
             dtype, "max", (256, 96, 55, 55), (3, 3), (2, 2), (0, 0))
         assert a["dynamic_smem_bytes"] <= port_pool.POOL_NHWC_SMEM_BUDGET
         assert a["local_bytes"] == 0 and a["blocks_per_sm"] >= 1
+
+
+_LRN_FWD_NHWC_EDGES = [
+    # one pixel; C = 1 and C = 2 at n = 5; a C off the lane widths
+    (torch.float32, (1, 96, 1, 1), 5),
+    (torch.bfloat16, (1, 256, 1, 1), 5),
+    (torch.float32, (3, 1, 7, 9), 5),
+    (torch.bfloat16, (3, 1, 7, 9), 5),
+    (torch.float32, (3, 2, 7, 9), 5),
+    (torch.bfloat16, (3, 2, 7, 9), 5),
+    # n_pixels not a multiple of the run (pixels_per_warp: 16 pixels a run
+    # of norm1's width in f32, 32 in bf16, 2 at C = 131, 4 at a window of
+    # 7 with C = 96), the runs' last one cut short
+    (torch.float32, (29, 96, 55, 55), 5),
+    (torch.bfloat16, (57, 96, 55, 55), 5),
+    (torch.float32, (1, 131, 251, 257), 5),
+    (torch.bfloat16, (3, 96, 89, 83), 7),
+    (torch.float32, (2, 70, 21, 23), 32),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,shape,local_size", _LRN_FWD_NHWC_EDGES)
+def test_lrn_fwd_nhwc_edges_on_card(dtype, shape, local_size):
+    """K4-NHWC at its edges, called directly on channels-last tensors:
+    bitwise equal to the plain version, one launch."""
+    _need_gpu()
+    gen = torch.Generator(device="cuda").manual_seed(36)
+    x = _channels_last(torch.randn(shape, generator=gen,
+                                   device="cuda").to(dtype))
+    _lrn_fwd_nhwc_bitwise(x, local_size)
+
+
+@pytest.mark.gpu
+def test_lrn_fwd_nhwc_entry_refuses_a_width_off_c_or_the_pointers():
+    """The C entry refuses a lane width that does not divide C, that a
+    pointer is not aligned to, or that passes 16 bytes, and launches
+    nothing."""
+    _need_gpu()
+    fn = port_lrn._lib("lrn_fwd", port_lrn._NHWC_FWD_ARGS,
+                       entry="poseidon_lrn_nhwc_fwd")
+    buf = torch.zeros(2 * 96 * 9 + 1, device="cuda")
+    y = torch.zeros_like(buf)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call(x_ptr, dtype, channels, vec):
+        return fn(x_ptr, y.data_ptr(), dtype, 18 * 96 // channels, channels,
+                  vec, 5, 1e-4 / 5, 0.75, 1.0, stream)
+
+    assert call(buf.data_ptr(), 0, 96, 4) == 0
+    assert call(buf.data_ptr(), 0, 6, 4) != 0          # 4 does not divide 6
+    assert call(buf.data_ptr() + 4, 0, 96, 4) != 0     # x 4 bytes off
+    assert call(buf.data_ptr() + 4, 0, 96, 1) == 0
+    assert call(buf.data_ptr(), 0, 96, 8) != 0         # 32 bytes of f32
+    assert call(buf.data_ptr(), 1, 96, 8) == 0         # 16 bytes of bf16
+    assert call(buf.data_ptr(), 0, 96, 3) != 0         # not a power of two
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lrn_fwd_nhwc_allocates_no_scratch_on_card(dtype):
+    """One call allocates y and nothing else: the memory allocated across
+    the call is y's bytes (as the caching allocator rounds them)."""
+    _need_gpu()
+    gen = torch.Generator(device="cuda").manual_seed(37)
+    x = _channels_last(torch.randn((8, 96, 55, 55), generator=gen,
+                                   device="cuda").to(dtype))
+    port_lrn.lrn_fwd_nhwc_cuda(x, 5, 1e-4, 0.75, 1.0)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    y = port_lrn.lrn_fwd_nhwc_cuda(x, 5, 1e-4, 0.75, 1.0)
+    torch.cuda.synchronize()
+    y_bytes = -(-y.numel() * y.element_size() // 512) * 512
+    assert torch.cuda.max_memory_allocated() - before == y_bytes
+    assert torch.cuda.memory_allocated() - before == y_bytes

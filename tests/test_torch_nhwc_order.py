@@ -1,11 +1,17 @@
-"""The order of operations of K5-NHWC and K6-NHWC, the channels-last LRN
-and pooling backward kernels (``ops/csrc/lrn_bwd.cu``,
-``ops/csrc/pool_bwd.cu``), checked on the CPU.
+"""The order of operations of K4-NHWC, K5-NHWC and K6-NHWC, the
+channels-last LRN forward, LRN backward and pooling backward kernels
+(``ops/csrc/lrn_fwd.cu``, ``ops/csrc/lrn_bwd.cu``, ``ops/csrc/pool_bwd.cu``),
+checked on the CPU.
 
 The CUDA kernels cannot run here, so this file writes out each design's
 schedule with numpy and torch and holds it BITWISE against the plain
 versions on the same channels-last tensors, in float32 and bfloat16:
 
+- K4-NHWC: K5-NHWC's runs, rounds and lanes (below) with one stream: each
+  element squared once, the window of squares from the neighbouring lanes
+  and rounds, zero outside the pixel, from 0.0 in ascending tap order,
+  ``pow`` once over the whole tensor; against JAX's Pallas
+  ``lrn_fused(layout="NHWC")`` in interpret mode too;
 - K5-NHWC: a warp's run of pixels as one stream of pixels * C elements,
   walked in rounds of 32 lanes x V elements; each window tap beyond a
   lane's own V elements taken the kernel's way, from the lane ``s`` away
@@ -45,7 +51,7 @@ from hypothesis import given, settings
 from hypothesis import strategies as st
 
 from poseidon_tpu.ops import nn as JNN
-from poseidon_tpu.ops.pallas_kernels import lrn_fused_bwd
+from poseidon_tpu.ops.pallas_kernels import lrn_fused, lrn_fused_bwd
 from poseidon_tpu_torch.ops import lrn as port_lrn
 from poseidon_tpu_torch.ops import pool as port_pool
 from poseidon_tpu_torch.ops.vector import VECTOR_BYTES, vector_width
@@ -106,22 +112,21 @@ def _lane_window(a, lo, hi, chan, channels, vec, rounds=True):
     return out
 
 
-def _lrn_lane_schedule(x, g, size, alpha, beta, k, vec, pixels,
-                       rounds=True):
-    """dx as K5-NHWC forms it: each warp's run of ``pixels`` pixels a
-    stream of rounds of 32 lanes x ``vec`` elements (a window other than 5
-    runs one element a lane), the windows from neighbouring lanes."""
-    n, c, h, w = x.shape
-    vec = vec if size == 5 else 1
-    pre = (size - 1) // 2
-    post = size - 1 - pre
-    n_pix = n * h * w
+def _nhwc(t):
+    return t.float().permute(0, 2, 3, 1).reshape(-1).numpy()
+
+
+def _warp_runs(n_pix, c, vec, pixels):
+    """The warps' runs of ``pixels`` pixels as streams of rounds of 32
+    lanes x ``vec`` elements: (stream, unstream, chan), stream taking a
+    flat NHWC array to (runs, rounds, 32, vec), zero past each run's end,
+    unstream the way back, chan the channel of each lane's first element,
+    (round * 32 vec + lane vec) % C."""
     runs = -(-n_pix // pixels)
     rnd = LANES * vec
     n_rounds = -(-pixels * c // rnd)
 
     def stream(flat):
-        # each run's stream, zero past its end, as (runs, rounds, 32, vec)
         flat = np.concatenate([flat, np.zeros(runs * pixels * c - flat.size,
                                               F32)]).reshape(runs, -1)
         flat = np.concatenate([flat, np.zeros((runs, n_rounds * rnd
@@ -131,21 +136,137 @@ def _lrn_lane_schedule(x, g, size, alpha, beta, k, vec, pixels,
     def unstream(a):
         return a.reshape(runs, -1)[:, :pixels * c].reshape(-1)[:n_pix * c]
 
-    def nhwc(t):
-        return t.float().permute(0, 2, 3, 1).reshape(-1).numpy()
-
-    xs, gs = stream(nhwc(x)), stream(nhwc(g))
-    # the channel of each lane's first element: (round * 32 V + lane V) % C
     pos = (np.arange(n_rounds)[:, None] * rnd + np.arange(LANES) * vec) % c
-    chan = np.broadcast_to(pos, (runs, n_rounds, LANES))
+    return stream, unstream, np.broadcast_to(pos, (runs, n_rounds, LANES))
+
+
+def _lrn_fwd_lane_schedule(x, size, alpha, beta, k, vec, pixels,
+                           rounds=True):
+    """y as K4-NHWC forms it: each warp's run of ``pixels`` pixels a stream
+    of rounds of 32 lanes x ``vec`` elements (a window other than 5 runs
+    one element a lane), each element squared once, the window of squares
+    from the neighbouring lanes (lane 0 from the previous round, lane 31
+    from the next; ``rounds=False``, a negative control, from their own),
+    zero outside the pixel."""
+    n, c, h, w = x.shape
+    vec = vec if size == 5 else 1
+    pre = (size - 1) // 2
+    stream, unstream, chan = _warp_runs(n * h * w, c, vec, pixels)
+    xs = stream(_nhwc(x))
+    ws = _lane_window(xs * xs, pre, size - 1 - pre, chan, c, vec, rounds)
+    s = F32(k) + F32(alpha / size) * ws
+    # pow over the whole tensor in the plain version's layout
+    s_t = torch.from_numpy(unstream(s).copy()).reshape(n, h, w, c).permute(
+        0, 3, 1, 2)
+    y = _nhwc(x) * _nhwc(s_t.pow(-beta))
+    return torch.from_numpy(y.copy()).reshape(n, h, w, c).permute(
+        0, 3, 1, 2).to(x.dtype)
+
+
+FWD_CHANNELS = [1, 2, 3, 7, 16, 96, 131, 256]
+
+
+@pytest.mark.parametrize("size", [1, 3, 4, 5, 9])
+@pytest.mark.parametrize("channels", FWD_CHANNELS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_lrn_fwd_lane_schedule_bitwise_to_plain(dtype, channels, size):
+    """K4-NHWC's schedule at every lane width the C entry takes (1, 2, 4
+    and, in bf16, 8 channels a lane, where it divides C) and runs of 1, 3
+    and 8 pixels: runs of one pixel, rounds that end mid-pixel, runs that
+    end mid-round, a last run cut short (30 pixels)."""
+    x, _ = _inputs((2, channels, 3, 5), dtype, 11 * size + channels)
+    want = port_lrn.lrn_across_channels_plain(x, size, ALPHA, BETA,
+                                              K).contiguous()
+    most = 16 // x.element_size()
+    for vec in [v for v in (1, 2, 4, 8) if v <= most and channels % v == 0]:
+        for pixels in (1, 3, 8):
+            got = _lrn_fwd_lane_schedule(x, size, ALPHA, BETA, K, vec,
+                                         pixels)
+            assert torch.equal(got, want), (vec, pixels)
+
+
+def test_lrn_fwd_lane_schedule_alexnet_runs():
+    """norm1's and norm2's widths at the runs the C entry picks on the card
+    (pixels_per_warp at 12 rounds: 16 and 6 pixels in f32, 32 and 12 in
+    bf16), whole rounds a run."""
+    for c, runs in ((96, {torch.float32: 16, torch.bfloat16: 32}),
+                    (256, {torch.float32: 6, torch.bfloat16: 12})):
+        for dtype, pixels in runs.items():
+            x, _ = _inputs((2, c, 7, 9), dtype, c + pixels)
+            vec = vector_width(c, x.element_size(),
+                               most=port_lrn.MAX_NHWC_FWD_LANE_CHANNELS)
+            assert vec * x.element_size() == 16
+            assert pixels * c % (LANES * vec) == 0
+            got = _lrn_fwd_lane_schedule(x, 5, ALPHA, BETA, K, vec, pixels)
+            assert torch.equal(got, port_lrn.lrn_across_channels_plain(
+                x, 5, ALPHA, BETA, K).contiguous())
+
+
+def test_lrn_fwd_lane_schedule_needs_the_neighbouring_rounds():
+    """Negative control: lane 0 and lane 31 taking their taps from their
+    own round, not the previous and next, breaks the result, so the tests
+    above see the rounds."""
+    x, _ = _inputs((2, 96, 3, 5), torch.float32, 4)
+    got = _lrn_fwd_lane_schedule(x, 5, ALPHA, BETA, K, 4, 8, rounds=False)
+    assert not torch.equal(got, port_lrn.lrn_across_channels_plain(
+        x, 5, ALPHA, BETA, K).contiguous())
+
+
+@pytest.mark.parametrize("size,channels", [(5, 16), (4, 7), (5, 96),
+                                           (9, 131)])
+def test_lrn_fwd_lane_schedule_vs_pallas_nhwc_interpret(size, channels):
+    x, _ = _inputs((2, channels, 4, 5), torch.float32, 50 + size)
+    got = _lrn_fwd_lane_schedule(x, size, ALPHA, BETA, K,
+                                 vector_width(channels, 4), 4)
+    ref = np.asarray(lrn_fused(
+        jnp.asarray(x.permute(0, 2, 3, 1).numpy()), size, ALPHA, BETA, K,
+        interpret=True, layout="NHWC")).transpose(0, 3, 1, 2)
+    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("vec", [4, 8])
+def test_lrn_fwd_lane_schedule_bf16_vs_pallas_nhwc_interpret(vec):
+    x, _ = _inputs((2, 16, 4, 5), torch.bfloat16, 55)
+    got = _lrn_fwd_lane_schedule(x, 5, ALPHA, BETA, K, vec, 4)
+    xh = jnp.asarray(x.float().permute(0, 2, 3, 1).numpy(), jnp.bfloat16)
+    ref = np.asarray(lrn_fused(xh, 5, ALPHA, BETA, K, interpret=True,
+                               layout="NHWC").astype(jnp.float32)
+                     ).transpose(0, 3, 1, 2)
+    np.testing.assert_allclose(got.float().numpy(), ref, rtol=2 ** -7,
+                               atol=1e-6)
+
+
+def test_lrn_fwd_lane_width_alexnet():
+    """K4-NHWC's lanes take 16 bytes at AlexNet's widths: 4 f32 or 8 bf16
+    channels; fewer for an odd C or a pointer off 16 bytes."""
+    most = port_lrn.MAX_NHWC_FWD_LANE_CHANNELS
+    assert vector_width(96, 4, most=most) == 4
+    assert vector_width(96, 2, most=most) == 8
+    assert vector_width(256, 2, most=most) == 8
+    assert vector_width(131, 2, most=most) == 1
+    assert vector_width(96, 2, 1 << 20 | 8, most=most) == 4
+
+
+def _lrn_lane_schedule(x, g, size, alpha, beta, k, vec, pixels,
+                       rounds=True):
+    """dx as K5-NHWC forms it: each warp's run of ``pixels`` pixels a
+    stream of rounds of 32 lanes x ``vec`` elements (a window other than 5
+    runs one element a lane), the windows from neighbouring lanes."""
+    n, c, h, w = x.shape
+    vec = vec if size == 5 else 1
+    pre = (size - 1) // 2
+    post = size - 1 - pre
+    stream, unstream, chan = _warp_runs(n * h * w, c, vec, pixels)
+    xs, gs = stream(_nhwc(x)), stream(_nhwc(g))
     ws = _lane_window(xs * xs, pre, post, chan, c, vec, rounds)
     s = F32(k) + F32(alpha / size) * ws
     # pow over the whole tensor in the plain version's layout
     s_t = torch.from_numpy(unstream(s).copy()).reshape(n, h, w, c).permute(
         0, 3, 1, 2)
-    p1 = nhwc(s_t.pow(-beta - 1.0))
-    p0 = nhwc(s_t.pow(-beta))
-    xf, gf = nhwc(x), nhwc(g)
+    p1 = _nhwc(s_t.pow(-beta - 1.0))
+    p0 = _nhwc(s_t.pow(-beta))
+    xf, gf = _nhwc(x), _nhwc(g)
     r = stream((gf * xf) * p1)
     first = gf * p0
     rs = unstream(_lane_window(r, post, pre, chan, c, vec, rounds))
@@ -494,6 +615,9 @@ def _c_params(source: str, entry: str):
     ("lrn_bwd.cu", "poseidon_lrn_nhwc_bwd_attrs",
      port_lrn._NHWC_BWD_ATTRS_ARGS),
     ("lrn_bwd.cu", "poseidon_lrn_powf_floor", port_lrn._POWF_FLOOR_ARGS),
+    ("lrn_fwd.cu", "poseidon_lrn_nhwc_fwd", port_lrn._NHWC_FWD_ARGS),
+    ("lrn_fwd.cu", "poseidon_lrn_nhwc_fwd_attrs",
+     port_lrn._NHWC_FWD_ATTRS_ARGS),
 ])
 def test_c_entries_match_the_wrappers_argument_lists(source, entry, args):
     """Each NHWC C entry takes as many parameters as its wrapper passes,
