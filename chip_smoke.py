@@ -191,6 +191,7 @@ Phases, in order; any failure exits non-zero without the final ``ok`` line:
 
 from __future__ import annotations
 
+import contextlib
 import csv
 import json
 import math
@@ -311,6 +312,37 @@ TOPK_BLOCK = 4096
 TOPK_CLI_BATCH, TOPK_CLI_RANKS, TOPK_CLI_SLICES = 64, 4, 2
 # comm_stats' table: AlexNet at batch 256 a device on these groups
 TOPK_TABLE_GROUPS = ({"data": 8}, {"dcn": 2, "data": 4})
+
+
+# the [ssp] phase, AlexNet train_val at full width, f32, on [train]'s
+# synthetic LMDB: (a) the SSP step in this process over a one-rank NCCL
+# group, NCHW at SSP_BATCH and NHWC at SSP_CLI_BATCH, staleness
+# SSP_STALENESS, SSP_STEPS = 2 (s + 1) steps, DENSE and then TOPK at 0.01
+# on TOPK_LAYERS, each with the kernels and with their plain versions
+# (cuDNN deterministic), then (NCHW) the local, boundary and sync device
+# steps in turns over SSP_TIMED_PERIODS periods; (b) two
+# `train --staleness SSP_STALENESS` processes on the card over gloo at
+# SSP_CLI_BATCH a rank for SSP_CLI_ITERS iterations, an SSP snapshot at the
+# end; (c) two `train --async_ssp --staleness 1 --async_sync_every 2`
+# processes for ASYNC_CLI_ITERS iterations, then again under
+# --comm_budget_mbps ASYNC_BUDGET_MBPS (low enough that a flush of the
+# 244 MB arena overdraws the bucket, so partial pushes must happen)
+SSP_BATCH, SSP_STALENESS = 256, 2
+SSP_STEPS = 2 * (SSP_STALENESS + 1)
+SSP_TIMED_PERIODS = 3
+SSP_CLI_BATCH, SSP_CLI_ITERS = 128, 9
+ASYNC_CLI_ITERS, ASYNC_BUDGET_MBPS = 8, 100.0
+ASYNC_TOKEN = "chip-smoke-async-token"
+# a child `train` that reports its kernel launches when it returns: the
+# entry point a user calls (runtime/cli.main), then the counters
+LAUNCH_REPORT = (
+    "import json, sys\n"
+    "from poseidon_tpu_torch.runtime.cli import main\n"
+    "rc = main(sys.argv[1:])\n"
+    "from poseidon_tpu_torch.ops import flash, lrn, pool, sgd\n"
+    "print('[launches] ' + json.dumps({**lrn.LAUNCHES, **pool.LAUNCHES, "
+    "**sgd.LAUNCHES, **flash.LAUNCHES}), flush=True)\n"
+    "sys.exit(rc)\n")
 
 
 # the [loop] phase, AlexNet train_val at full width, batch 256, on the
@@ -1325,36 +1357,50 @@ def step_once(eng, params0, hist0, it0, batch, seed: int = 7):
     return float(m["loss"]), clone(params), clone(state.solver.history)
 
 
+class plain_versions:
+    """Within the block, every LRN and POOLING layer of ``net`` and the
+    step's update run their plain versions (no kernel launches)."""
+
+    def __init__(self, net, step):
+        self.net, self.step = net, step
+
+    def __enter__(self):
+        from poseidon_tpu_torch.ops import lrn, pool, sgd
+        for l in self.net.layers:
+            if l.TYPE == "LRN":
+                l.across_channels = lrn.lrn_across_channels_reference
+            elif l.TYPE == "POOLING":
+                l.pool = (pool.max_pool_reference if l.method == "MAX"
+                          else pool.ave_pool_reference)
+        self.step.sgd_update = sgd.sgd_update_plain_
+        return self
+
+    def __exit__(self, *exc):
+        from poseidon_tpu_torch.ops import lrn, pool, sgd
+        for l in self.net.layers:
+            if l.TYPE == "LRN":
+                l.across_channels = lrn.lrn_across_channels
+            elif l.TYPE == "POOLING":
+                l.pool = pool.max_pool if l.method == "MAX" else pool.ave_pool
+        self.step.sgd_update = sgd.sgd_update_
+        return False
+
+
 def phase_step_vs_plain(eng, batch, tol=STEP_TOL, tag: str = "train"
                         ) -> float:
     """One step with the kernels vs the same step with the plain versions
     swapped into every LRN and POOLING layer and the update, on the card,
     at ``tol`` (rtol, atol). Returns the largest parameter difference."""
     import torch
-    from poseidon_tpu_torch.ops import lrn, pool, sgd
 
     clone = lambda t: {l: {k: v.clone() for k, v in d.items()}  # noqa: E731
                        for l, d in t.items()}
     p0, h0 = clone(eng.params), clone(eng.state.solver.history)
     it0 = eng.iteration()
     loss_k, pk, hk = step_once(eng, p0, h0, it0, batch)
-    lrn_layers = [l for l in eng.train_net.layers if l.TYPE == "LRN"]
-    pool_layers = [l for l in eng.train_net.layers if l.TYPE == "POOLING"]
     before = read_launches()
-    try:
-        for l in lrn_layers:
-            l.across_channels = lrn.lrn_across_channels_reference
-        for l in pool_layers:
-            l.pool = (pool.max_pool_reference if l.method == "MAX"
-                      else pool.ave_pool_reference)
-        eng.train_step.sgd_update = sgd.sgd_update_plain_
+    with plain_versions(eng.train_net, eng.train_step):
         loss_p, pp, hp = step_once(eng, p0, h0, it0, batch)
-    finally:
-        for l in lrn_layers:
-            l.across_channels = lrn.lrn_across_channels
-        for l in pool_layers:
-            l.pool = pool.max_pool if l.method == "MAX" else pool.ave_pool
-        eng.train_step.sgd_update = sgd.sgd_update_
     check(read_launches() == before,
           "the plain-version step launched a kernel: the swap did not take")
     rtol, atol = tol
@@ -2429,9 +2475,9 @@ def phase_dp(card: str, root: str, device=None, batch_size=None,
         group.close()
     if dev.type == "cuda":
         torch.cuda.empty_cache()
-    out["two_ranks"] = {name: dp_cli_run(card, root, name, flags, dev,
-                                         cli_batch or DP_CLI_BATCH)
-                        for name, flags in DP_CLI_RUNS}
+    out["two_ranks"] = {name: without_logs(dp_cli_run(
+        card, root, name, flags, dev, cli_batch or DP_CLI_BATCH))
+        for name, flags in DP_CLI_RUNS}
     out["wall_s"] = time.perf_counter() - t_phase
     t = out.get("step_ms", {})
     print("[dp] " + (
@@ -2480,11 +2526,22 @@ def issue_windows_ms(step, params, state, batch) -> list:
     return [ev.elapsed_time(end) for ev in issues]
 
 
+def without_logs(run: dict) -> dict:
+    """A ``dp_cli_run`` result for the summary line (the logs are printed
+    already)."""
+    return {k: v for k, v in run.items() if k != "logs"}
+
+
 def dp_cli_run(card: str, root: str, name: str, flags, dev, batch: int,
-               ranks: int = 2, tag: str = "dp") -> dict:
+               ranks: int = 2, tag: str = "dp", iters: int = DP_CLI_ITERS,
+               env_extra=None, group: bool = True,
+               same_snapshots: bool = True) -> dict:
     """``ranks`` ``train`` processes of the port under the env contract,
-    sharing the card (or the CPU); their snapshots must be bitwise equal.
-    The result names the first rank's snapshot (``state_path``)."""
+    sharing the card (or the CPU), each reporting its kernel launches
+    when it returns (``LAUNCH_REPORT``); with ``same_snapshots`` their
+    snapshots must be bitwise equal, with ``group`` they must have formed
+    a gloo group. The result names the first rank's snapshot
+    (``state_path``), every rank's log and launches."""
     import numpy as np
     from poseidon_tpu_torch.proto.messages import (load_solver,
                                                    net_to_prototxt,
@@ -2498,7 +2555,7 @@ def dp_cli_run(card: str, root: str, name: str, flags, dev, batch: int,
     with open(net_file, "w") as f:
         f.write(net_to_prototxt(net_param))
     sp = load_solver(ALEXNET_SOLVER)
-    sp.net, sp.max_iter, sp.display = net_file, DP_CLI_ITERS, 1
+    sp.net, sp.max_iter, sp.display = net_file, iters, 1
     sp.test_iter, sp.test_interval, sp.snapshot = [], 0, 0
     sp.snapshot_prefix = "alexnet"
     solver = os.path.join(work, "solver.prototxt")
@@ -2510,8 +2567,8 @@ def dp_cli_run(card: str, root: str, name: str, flags, dev, batch: int,
         env = dict(os.environ, POSEIDON_PROC_ID=str(r),
                    POSEIDON_NUM_PROCS=str(ranks),
                    POSEIDON_COORDINATOR="file://"
-                   + os.path.join(work, "store"))
-        cmd = [sys.executable, "-m", "poseidon_tpu_torch", "train",
+                   + os.path.join(work, "store"), **(env_extra or {}))
+        cmd = [sys.executable, "-c", LAUNCH_REPORT, "train",
                f"--solver={solver}", "--output_dir",
                os.path.join(work, f"p{r}"), *flags]
         if dev.type == "cpu":
@@ -2535,12 +2592,19 @@ def dp_cli_run(card: str, root: str, name: str, flags, dev, batch: int,
     for r, p in enumerate(procs):
         check(p.returncode == 0, f"{tag} {name} rank {r} exited "
                                  f"{p.returncode}")
-    check("backend gloo" in logs[0], f"{tag} {name}: {ranks} ranks sharing "
-                                     f"{dev.type} did not choose gloo")
-    stem = f"alexnet_iter_{DP_CLI_ITERS}"
+    check(not group or "backend gloo" in logs[0],
+          f"{tag} {name}: {ranks} ranks sharing {dev.type} did not choose "
+          f"gloo")
+    launches = []
+    for r, log in enumerate(logs):
+        lines = [ln for ln in log.splitlines()
+                 if ln.startswith("[launches] ")]
+        check(len(lines) == 1, f"{tag} {name} rank {r}: no launch report")
+        launches.append(json.loads(lines[0][len("[launches] "):]))
+    stem = f"alexnet_iter_{iters}"
     first, *rest = (os.path.join(work, f"p{r}", stem) for r in range(ranks))
     same = True
-    for other in rest:
+    for other in (rest if same_snapshots else ()):
         with np.load(first + ".solverstate.npz") as za, \
                 np.load(other + ".solverstate.npz") as zb:
             check(sorted(za.files) == sorted(zb.files),
@@ -2555,17 +2619,19 @@ def dp_cli_run(card: str, root: str, name: str, flags, dev, batch: int,
                            f"{net_param.name}_train_outputs.csv")) as f:
         rows = list(csv.DictReader(f))
     losses = [float(r["loss"]) for r in rows]
-    check(len(losses) == DP_CLI_ITERS and all(map(math.isfinite, losses)),
+    check(len(losses) == iters and all(map(math.isfinite, losses)),
           f"{tag} {name} losses {losses}")
     times = [float(r["time"]) for r in rows]
     s_per_step = (times[-1] - times[0]) / (len(times) - 1)
     print(f"[{tag}] {ranks} ranks, {' '.join(flags) or 'dense'}, batch "
-          f"{batch} a rank on one {dev.type} device over gloo: all exit 0 "
-          f"in {wall:.1f} s, snapshots {stem} bitwise equal, losses "
-          f"{losses}, {s_per_step:.3f} s a step after the first [{card}]",
-          flush=True)
+          f"{batch} a rank on one {dev.type} device"
+          f"{' over gloo' if group else ''}: all exit 0 in {wall:.1f} s, "
+          f"snapshots {stem}{' bitwise equal' if same_snapshots else ''}, "
+          f"losses {losses}, {s_per_step:.3f} s a step after the first "
+          f"[{card}]", flush=True)
     return {"losses": losses, "s_per_step": s_per_step, "wall_s": wall,
-            "state_path": first + ".solverstate.npz"}
+            "state_path": first + ".solverstate.npz", "logs": logs,
+            "launches": launches}
 
 
 def phase_topk(card: str, root: str, device=None, batch_size=None,
@@ -2812,7 +2878,8 @@ def phase_topk(card: str, root: str, device=None, batch_size=None,
           f"{rows_differ}, {cli['s_per_step']:.3f} s a step [{card}]",
           flush=True)
     check(shapes_ok and rows_differ, "two-tier snapshot residual rows")
-    out["two_tier"] = {k: v for k, v in cli.items() if k != "state_path"}
+    out["two_tier"] = without_logs(cli)
+    del out["two_tier"]["state_path"]
 
     # (e) the static comm table at batch 256
     full = Net(alexnet_net_param(root, TOPK_BATCH), "TRAIN", device="cpu",
@@ -2847,6 +2914,402 @@ def phase_topk(card: str, root: str, device=None, batch_size=None,
         + f"{TOPK_CLI_RANKS} gloo ranks in {TOPK_CLI_SLICES} slices "
         f"bitwise, rows differ, {cli['s_per_step']:.3f} s a step; phase "
         f"wall {out['wall_s']:.1f} s [{card}]", flush=True)
+    return out
+
+
+def sum_launches(per_rank) -> dict:
+    return {k: sum(r[k] for r in per_rank) for k in per_rank[0]}
+
+
+ASYNC_TIER_KEYS = ("async_final_clock", "async_gate_blocks",
+                   "async_blocked_s", "async_comm_bytes_sent",
+                   "async_comm_bytes_recv", "async_comm_partial_pushes",
+                   "async_comm_full_pushes", "async_d2h_ms_per_flush",
+                   "async_push_ms_per_flush", "async_refresh_ms_per_flush",
+                   "async_gate_ms_per_flush", "async_h2d_ms_per_flush")
+
+
+def async_tier_report(log: str, rank: int) -> dict:
+    """The numbers of a rank's ``async-SSP tier (rank r): k=v, ...``
+    line."""
+    head = f"async-SSP tier (rank {rank}): "
+    lines = [ln for ln in log.splitlines() if ln.startswith(head)]
+    check(len(lines) == 1, f"rank {rank}: no async-SSP tier report")
+    out = {}
+    for part in lines[0][len(head):].split(", "):
+        k, _, v = part.partition("=")
+        if k in ASYNC_TIER_KEYS:
+            out[k] = float(v)
+    check(sorted(out) == sorted(ASYNC_TIER_KEYS),
+          f"rank {rank}: tier report {lines[0]}")
+    return out
+
+
+def phase_ssp(card: str, root: str, device=None, batch_size=None,
+              cli_batch=None) -> dict:
+    """SSP on the card, both forms (``device``, ``batch_size`` and
+    ``cli_batch`` are for a CPU rehearsal at a cut batch only):
+
+    (a) the compiled SSP step (``parallel/trainer.SSPTrainStep``) in this
+        process over a one-rank NCCL group, staleness SSP_STALENESS,
+        SSP_STEPS steps from the same params, batch and dropout seed under
+        cuDNN's deterministic algorithms, in both layouts: NCHW at
+        SSP_BATCH, then NHWC at SSP_CLI_BATCH (the layout and batch of the
+        ranks of (b) and (c)). In each: DENSE, then TOPK at 0.01 on
+        TOPK_LAYERS, each with the kernels (K4-K6, or their NHWC entries,
+        and K7 launched exactly 2/2/3/1 a step, zeroed just before, read
+        just after) and with their plain versions (no launch), the anchor,
+        local params and momentum held at STEP_TOL; DENSE against the
+        sync step (one group): the local params after the first period's
+        local steps bitwise, the anchor after its boundary, whose fold is
+        the identity up to rounding, at STEP_TOL. On the card, NCHW, the
+        device ms of a local step, of a boundary step and of the sync
+        step, in turns;
+    (b) two ``train --staleness SSP_STALENESS`` processes sharing the card
+        over gloo, SSP_CLI_ITERS iterations and a snapshot at the end: all
+        exit 0 with finite losses, the anchors (.caffemodel) and SSP
+        snapshots bitwise equal across ranks, the snapshot ``kind`` "ssp"
+        with a row a rank, restored by the port and loaded into an
+        ``SSPTrainStep``; each rank launched K4-K6's NHWC entries and K7
+        2/2/3/1 a step (an unflagged ``train`` plans NHWC on the card);
+    (c) two ``train --async_ssp --staleness 1 --async_sync_every 2``
+        processes (rank 0 hosts the ParamService at an explicit
+        POSEIDON_ASYNC_SERVICE address behind an HMAC token),
+        ASYNC_CLI_ITERS iterations, then again under --comm_budget_mbps
+        ASYNC_BUDGET_MBPS: all exit 0 with finite losses and launch
+        2/2/3/1 a step as in (b); each worker's
+        final clock, gate blocks and blocked seconds, bytes pushed and
+        pulled and partial pushes (> 0 in the managed run), and the tier's
+        ms a clock (D2H, push enqueue, refresh, gate, H2D)."""
+    import socket
+    import numpy as np
+    import torch
+    from poseidon_tpu_torch.core.net import Net
+    from poseidon_tpu_torch.data.pipeline import build_phase_pipelines
+    from poseidon_tpu_torch.numeric import resolve_device
+    from poseidon_tpu_torch.parallel import trainer as T
+    from poseidon_tpu_torch.parallel.strategies import TOPK, CommConfig
+    from poseidon_tpu_torch.proto.messages import load_solver
+    from poseidon_tpu_torch.runtime import checkpoint as CK
+    from poseidon_tpu_torch.runtime.cluster import init_distributed
+
+    t_phase = time.perf_counter()
+    dev = resolve_device(device)
+    on_card = dev.type == "cuda"
+    sp = load_solver(ALEXNET_SOLVER)
+    group = init_distributed(dev, rank=0, world=1, coordinator=(
+        "file://" + os.path.join(root, "ssp_store")))
+    check(group.backend == ("nccl" if on_card else "gloo"),
+          f"one-rank group on {dev}: backend {group.backend}")
+    configs = {"dense": CommConfig(),
+               "topk": CommConfig(layer_strategies={
+                   layer: TOPK for layer in TOPK_LAYERS})}
+    period = SSP_STALENESS + 1
+    rtol, atol = STEP_TOL
+    out = {"backend": group.backend, "staleness": SSP_STALENESS,
+           "steps": SSP_STEPS, "layouts": {}}
+
+    def build(layout, rows):
+        """The AlexNet train net planned ``layout`` at ``rows`` images, its
+        first batch on the device and its params from seed 1."""
+        net_param = alexnet_net_param(root, rows)
+        pipes, shapes = build_phase_pipelines(net_param, "TRAIN")
+        try:
+            batch = {k: torch.from_numpy(v).to(dev)
+                     for k, v in next(pipes[0]).items()}
+        finally:
+            for p in pipes:
+                p.close()
+        net = Net(net_param, "TRAIN", device=dev, source_shapes=shapes,
+                  conv_layout=layout)
+        check(net.conv_layout == layout, f"net planned {net.conv_layout}")
+        return net, batch, net.init(torch.Generator().manual_seed(1))
+
+    def run(net, step, batch, params0, n, plain):
+        """n steps from params0 with dropout seed 7: losses, launches and
+        clones of the anchor, local params, momentum and last state, and
+        (``first``) of the local params after the first period's local
+        steps and of the anchor after its boundary."""
+        net.generator.manual_seed(7)
+        anchor, state = step.load(params0, T.init_ssp_state(
+            params0, step.n_groups, step.comm))
+        losses, first = [], {}
+        zero_launches()
+        with (plain_versions(net, step) if plain
+              else contextlib.nullcontext()):
+            for i in range(n):
+                anchor, state, m = step.step(anchor, state, batch)
+                losses.append(float(m["loss"]))
+                if i + 1 == SSP_STALENESS:
+                    first[i + 1] = tree_clone(state.local_params)
+                elif i + 1 == period:
+                    first[i + 1] = tree_clone(anchor)
+        sync(dev)
+        return {"losses": losses, "launches": read_launches(),
+                "anchor": tree_clone(anchor),
+                "local": tree_clone(state.local_params),
+                "history": tree_clone(state.local_history),
+                "state": state, "first": first}
+
+    def vs_plain(layout, net, batch, params0, want):
+        """DENSE and TOPK SSP runs with the kernels against their plain
+        versions; DENSE against the sync step up to the first boundary."""
+        rows = batch["data"].shape[0]
+        runs = {}
+        for name, cfg in configs.items():
+            step = T.SSPTrainStep(net, sp, SSP_STALENESS, group, cfg)
+            k = run(net, step, batch, params0, SSP_STEPS, plain=False)
+            p = run(net, step, batch, params0, SSP_STEPS, plain=True)
+            worst = 0.0
+            for what in ("anchor", "local", "history"):
+                for l in k[what]:
+                    for key in k[what][l]:
+                        a, b = k[what][l][key], p[what][l][key]
+                        err = float((a - b).abs().max())
+                        worst = max(worst, err)
+                        check(bool(torch.allclose(a, b, rtol=rtol,
+                                                  atol=atol)),
+                              f"SSP {layout} {name} {what} {l}/{key}: "
+                              f"kernels vs plain max_abs {err}")
+            check(all(abs(x - y) <= atol + rtol * abs(y) for x, y in
+                      zip(k["losses"], p["losses"])),
+                  f"SSP {layout} {name} losses {k['losses']} vs "
+                  f"{p['losses']}")
+            check(all(map(math.isfinite, k["losses"])),
+                  f"SSP {layout} {name} losses {k['losses']}")
+            check(k["launches"] == want,
+                  f"SSP {layout} {name} launches {k['launches']} != {want}")
+            check(not any(p["launches"].values()),
+                  f"SSP {layout} {name}: the plain run launched a kernel")
+            resid = [bool(v.abs().max() > 0) for lv in
+                     k["state"].comm_error.values() for v in lv.values()]
+            check(name != "topk" or (resid and all(resid)),
+                  f"SSP {layout} TOPK left no residual at its boundaries")
+            print(f"[ssp] (a) one-rank {group.backend} group, AlexNet "
+                  f"{layout} batch {rows}, staleness {SSP_STALENESS}, "
+                  f"{name}: {SSP_STEPS} steps ({SSP_STEPS // period} "
+                  f"boundaries) with the kernels vs their plain versions "
+                  f"(cuDNN deterministic): anchor, local params and "
+                  f"momentum within rtol {rtol:g} atol {atol:g} (max_abs "
+                  f"{worst:.3e}); losses {k['losses']}; launches "
+                  f"{k['launches']} (expected {want}) [{card}]", flush=True)
+            runs[name] = {"losses": k["losses"], "launches": k["launches"],
+                          "max_abs_vs_plain": worst}
+            if name == "dense":
+                dense_first = k["first"]
+            del k, p, step
+        # one group: the SSP local steps are the sync step without its
+        # one-rank all-reduce (bitwise), and the boundary folds a mean over
+        # one group, anchor + (local - anchor), the identity up to
+        # rounding (STEP_TOL). Held at the first boundary: past it that
+        # rounding reaches ReLU and max-pool decisions and the two runs
+        # part as any two summation orders do.
+        sync_step = T.TrainStep(net, sp, group, CommConfig())
+        net.generator.manual_seed(7)
+        params, state = sync_step.load(params0, T.init_train_state(
+            params0, sync_step.comm, sync_step.n_err_groups))
+        vs_sync = {}
+        for i in range(period):
+            params, state, _m = sync_step.step(params, state, batch)
+            if i + 1 in dense_first:
+                ssp_tree = dense_first[i + 1]
+                vs_sync[i + 1] = {
+                    "max_abs": tree_max_abs(tree_clone(params), ssp_tree),
+                    "bitwise": tree_equal(params, ssp_tree),
+                    "close": all(bool(torch.allclose(
+                        ssp_tree[l][key], params[l][key], rtol=rtol,
+                        atol=atol)) for l in params for key in params[l])}
+        local, fold = vs_sync[SSP_STALENESS], vs_sync[period]
+        print(f"[ssp] (a) one group, {layout}, DENSE vs the sync step: the "
+              f"local params after {SSP_STALENESS} steps max_abs "
+              f"{local['max_abs']:.3e} (bitwise {local['bitwise']}), the "
+              f"anchor after the boundary at step {period} max_abs "
+              f"{fold['max_abs']:.3e} (bitwise {fold['bitwise']}); within "
+              f"rtol {rtol:g} atol {atol:g}: {local['close']}, "
+              f"{fold['close']} [{card}]", flush=True)
+        check(local["bitwise"] and fold["close"],
+              f"one-group SSP {layout} vs sync: {vs_sync}")
+        return {"batch": rows, "runs": runs,
+                "launches": runs["dense"]["launches"],
+                "launches_topk": runs["topk"]["launches"],
+                "vs_sync": {str(n): v for n, v in vs_sync.items()}
+                }, sync_step
+
+    def step_times(net, batch, params0, sync_step):
+        """Device ms a step, in turns sync, SSP, SSP, sync, each over
+        SSP_TIMED_PERIODS periods after a warm-up."""
+        ssp = T.SSPTrainStep(net, sp, SSP_STALENESS, group,
+                             configs["dense"])
+
+        def ssp_times():
+            """(local steps, boundary steps), mean ms."""
+            anchor, state = ssp.load(params0, T.init_ssp_state(
+                params0, 1, ssp.comm))
+            for _ in range(period):
+                anchor, state, _m = ssp.step(anchor, state, batch)
+            torch.cuda.synchronize()
+            local, boundary = [], []
+            for _ in range(SSP_TIMED_PERIODS * period):
+                s0 = torch.cuda.Event(enable_timing=True)
+                s1 = torch.cuda.Event(enable_timing=True)
+                s0.record()
+                anchor, state, _m = ssp.step(anchor, state, batch)
+                s1.record()
+                torch.cuda.synchronize()
+                (boundary if state.it % period == 0 else local).append(
+                    s0.elapsed_time(s1))
+            return sum(local) / len(local), sum(boundary) / len(boundary)
+
+        def sync_time():
+            params, state = sync_step.load(params0, T.init_train_state(
+                params0, sync_step.comm, sync_step.n_err_groups))
+            for _ in range(2):
+                params, state, _m = sync_step.step(params, state, batch)
+            torch.cuda.synchronize()
+            ms = []
+            for _ in range(SSP_TIMED_PERIODS * period):
+                s0 = torch.cuda.Event(enable_timing=True)
+                s1 = torch.cuda.Event(enable_timing=True)
+                s0.record()
+                params, state, _m = sync_step.step(params, state, batch)
+                s1.record()
+                torch.cuda.synchronize()
+                ms.append(s0.elapsed_time(s1))
+            return sum(ms) / len(ms)
+
+        t = {}
+        t["sync"] = sync_time()
+        t["local"], t["boundary"] = ssp_times()
+        t["local_2"], t["boundary_2"] = ssp_times()
+        t["sync_2"] = sync_time()
+        print(f"[ssp] (a) device step (CUDA events, one step a pair, "
+              f"{SSP_TIMED_PERIODS * period} steps a run, {net.conv_layout} "
+              f"batch {batch['data'].shape[0]}, in turns sync, SSP, SSP, "
+              f"sync): sync {t['sync']:.3f} / {t['sync_2']:.3f} ms, SSP "
+              f"local {t['local']:.3f} / {t['local_2']:.3f} ms, SSP "
+              f"boundary {t['boundary']:.3f} / {t['boundary_2']:.3f} ms "
+              f"[{card}]", flush=True)
+        return t
+
+    # (a) in both layouts: NCHW at SSP_BATCH, and NHWC at the ranks' batch
+    # of (b) and (c), the layout an unflagged `train` plans on the card
+    nchw_step = {"lrn_fwd": 2, "lrn_bwd": 2, "pool_bwd": 3, "sgd_update": 1}
+    nhwc_step = {"lrn_fwd_nhwc": 2, "lrn_bwd_nhwc": 2, "pool_bwd_nhwc": 3,
+                 "sgd_update": 1}
+    cases = (("NCHW", batch_size or SSP_BATCH, nchw_step),
+             ("NHWC", cli_batch or SSP_CLI_BATCH, nhwc_step))
+    deterministic = torch.backends.cudnn.deterministic
+    try:
+        for layout, rows, per_step in cases:
+            net, batch, params0 = build(layout, rows)
+            want = {k: 0 for k in read_launches()}
+            if on_card:
+                want.update({k: v * SSP_STEPS for k, v in per_step.items()})
+            torch.backends.cudnn.deterministic = True
+            try:
+                res, sync_step = vs_plain(layout, net, batch, params0, want)
+            finally:
+                torch.backends.cudnn.deterministic = deterministic
+            out["layouts"][layout] = res
+            if on_card and layout == "NCHW":
+                out["step_ms"] = step_times(net, batch, params0, sync_step)
+            del sync_step, batch, params0
+            if on_card:
+                torch.cuda.empty_cache()
+    finally:
+        group.close()
+
+    def want_cli(iters):
+        """A child rank's launches: (a)'s NHWC count a step, per
+        iteration."""
+        out_ = {k: 0 for k in read_launches()}
+        if on_card:
+            out_.update({k: v * iters for k, v in nhwc_step.items()})
+        return out_
+
+    # (b) two `train --staleness` ranks over gloo, an SSP snapshot
+    cli = dp_cli_run(card, root, "ssp", ("--staleness", str(SSP_STALENESS)),
+                     dev, cli_batch or SSP_CLI_BATCH, tag="ssp",
+                     iters=SSP_CLI_ITERS)
+    with np.load(cli["state_path"]) as z:
+        kind = str(z["kind"])
+        rows = {k: z[k].shape[0] for k in z.files
+                if k.startswith("local_params/")}
+    anchor, st = CK.restore(cli["state_path"])
+    step = T.SSPTrainStep(net, sp, SSP_STALENESS, None, CommConfig())
+    anchor, st = step.load(*CK.coerce_state(anchor, st,
+                                            staleness=SSP_STALENESS,
+                                            n_dev=2, comm=CommConfig()))
+    restored = (isinstance(st, T.SSPState) and st.it == SSP_CLI_ITERS
+                and all(bool(torch.isfinite(v).all()) for lv in
+                        anchor.values() for v in lv.values()))
+    print(f"[ssp] (b) two `train --staleness {SSP_STALENESS}` ranks over "
+          f"gloo: snapshot kind {kind!r}, local rows {sorted(set(rows.values()))}"
+          f", restored into an SSPTrainStep at iteration {st.it}: "
+          f"{restored}; launches a rank {cli['launches']} [{card}]",
+          flush=True)
+    check(kind == "ssp" and set(rows.values()) == {2} and restored,
+          "SSP snapshot kind, rows or restore")
+    check(all(r == want_cli(SSP_CLI_ITERS) for r in cli["launches"]),
+          f"SSP ranks' launches {cli['launches']}")
+    del step, anchor, st
+    out["cli"] = without_logs(cli)
+    del out["cli"]["state_path"]
+
+    # (c) two async ranks, dense and then managed
+    out["async"] = {}
+    for name, flags in (
+            ("dense", ()),
+            ("managed", ("--comm_budget_mbps", str(ASYNC_BUDGET_MBPS)))):
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        run_ = dp_cli_run(
+            card, root, f"async_{name}",
+            ("--async_ssp", "--staleness", "1", "--async_sync_every", "2",
+             *flags), dev, cli_batch or SSP_CLI_BATCH, tag="async_ssp",
+            iters=ASYNC_CLI_ITERS, group=False, same_snapshots=False,
+            env_extra={"POSEIDON_ASYNC_SERVICE": f"127.0.0.1:{port}",
+                       "POSEIDON_ASYNC_TOKEN": ASYNC_TOKEN})
+        workers = [async_tier_report(log, r)
+                   for r, log in enumerate(run_["logs"])]
+        for r, w in enumerate(workers):
+            print(f"[ssp] (c) async {name}, rank {r}: final clock "
+                  f"{w['async_final_clock']:g}, gate blocks "
+                  f"{w['async_gate_blocks']:g}, blocked "
+                  f"{w['async_blocked_s']:g} s, pushed "
+                  f"{w['async_comm_bytes_sent']:.0f} B, pulled "
+                  f"{w['async_comm_bytes_recv']:.0f} B, partial pushes "
+                  f"{w['async_comm_partial_pushes']:g}; tier ms a flush: "
+                  f"D2H {w['async_d2h_ms_per_flush']:g}, push "
+                  f"{w['async_push_ms_per_flush']:g}, refresh "
+                  f"{w['async_refresh_ms_per_flush']:g}, gate "
+                  f"{w['async_gate_ms_per_flush']:g}, H2D "
+                  f"{w['async_h2d_ms_per_flush']:g} [{card}]", flush=True)
+            check(w["async_final_clock"] == ASYNC_CLI_ITERS // 2 - 1,
+                  f"async {name} rank {r} final clock")
+        check(all(r == want_cli(ASYNC_CLI_ITERS)
+                  for r in run_["launches"]),
+              f"async {name} ranks' launches {run_['launches']}")
+        partial = sum(w["async_comm_partial_pushes"] for w in workers)
+        check(name != "managed" or partial > 0,
+              "the managed run made no partial push")
+        out["async"][name] = {"workers": workers,
+                              **{k: v for k, v in without_logs(run_).items()
+                                 if k != "state_path"}}
+    # the launches of a path: every rank of its run (the dense async run)
+    out["cli_launches"] = sum_launches(cli["launches"])
+    out["async_launches"] = sum_launches(out["async"]["dense"]["launches"])
+    out["wall_s"] = time.perf_counter() - t_phase
+    t = out.get("step_ms")
+    print("[ssp] " + (
+        f"local {t['local']:.3f} / {t['local_2']:.3f} ms, boundary "
+        f"{t['boundary']:.3f} / {t['boundary_2']:.3f} ms, sync "
+        f"{t['sync']:.3f} / {t['sync_2']:.3f} ms; " if t else "")
+        + f"SSP kernels vs plain held in NCHW and NHWC, K4-K7 2/2/3/1 a "
+        f"step; two SSP ranks "
+        f"bitwise, kind ssp restored; async dense and managed runs done; "
+        f"phase wall {out['wall_s']:.1f} s [{card}]", flush=True)
     return out
 
 
@@ -3586,6 +4049,8 @@ def main() -> int:
             dp = phase_dp(card, root)
             torch.cuda.empty_cache()
             topk = phase_topk(card, root)
+            torch.cuda.empty_cache()
+            ssp = phase_ssp(card, root)
         torch.cuda.empty_cache()
         lm = phase_lm(card)
         torch.cuda.empty_cache()
@@ -3744,6 +4209,16 @@ def main() -> int:
                 "bf16_ms_by_lane_channels": layout[
                     "lrn_fwd_nhwc_bf16_widths"]}
                if name == "lrn_fwd_nhwc" else {})))
+    # the SSP paths: the compiled step in this process (DENSE, in each
+    # layout), the two `train --staleness` ranks, the two async-SSP ranks
+    # (every rank's)
+    for entry in kernels:
+        name = entry["name"]
+        entry["launches_by_path"].update(
+            ssp=ssp["layouts"]["NCHW"]["launches"][name],
+            ssp_nhwc=ssp["layouts"]["NHWC"]["launches"][name],
+            ssp_cli=ssp["cli_launches"][name],
+            async_ssp=ssp["async_launches"][name])
     summary = {"train_step_ms": train["step_ms"],
                "train_peak_bytes": train["peak_bytes"],
                "train_loop": train["loop"],
@@ -3751,6 +4226,7 @@ def main() -> int:
                "digits_final_accuracy": digits_acc,
                "dp": dp,
                "topk": topk,
+               "ssp": ssp,
                "loop": loop,
                "lm_serving": lm,
                "lm_training": lm_train,

@@ -6,13 +6,15 @@ split over [0, n) (``ps/src/ml/include/ml/util/workload_manager.hpp``)
 applied to a seeded per-epoch permutation, so every shard sees a disjoint,
 reshuffled slice per epoch. A single GPU is shard 0 of 1.
 ``sharded_source_path`` is the reference's ``_k`` suffix for databases
-partitioned ahead of time (``shared_file_system``).
+partitioned ahead of time (``shared_file_system``). ``member_shard`` and
+``elastic_shard_indices`` key the split by the async-SSP tier's CURRENT
+member list (elastic membership) instead of the launch rank and world.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Iterable, Tuple
 
 import numpy as np
 
@@ -47,6 +49,28 @@ def shard_indices(n: int, shard: Shard, epoch: int = 0,
         perm = np.arange(n)
     begin, end = contiguous_range(n, shard)
     return perm[begin:end]
+
+
+def member_shard(members: Iterable[int], worker: int) -> Shard:
+    """Worker ``worker``'s shard under the current member list: its
+    position in the sorted list is the shard index and the member count
+    the shard count, so every member computes the same partition from the
+    membership set alone."""
+    ms = sorted(set(members))
+    if worker not in ms:
+        raise ValueError(f"worker {worker} not in member list {ms}")
+    return Shard(ms.index(worker), len(ms))
+
+
+def elastic_shard_indices(n: int, worker: int, members: Iterable[int],
+                          epoch: int = 0, shuffle: bool = True,
+                          seed: int = 0) -> np.ndarray:
+    """Indices ``worker`` reads for ``epoch`` under the current member
+    list: the epoch permutation is every member's, and the member list
+    only decides how many contiguous ranges it is cut into, so shards are
+    disjoint and cover [0, n) for any membership."""
+    return shard_indices(n, member_shard(members, worker), epoch=epoch,
+                         shuffle=shuffle, seed=seed)
 
 
 def sharded_source_path(source: str, shard_index: int,

@@ -49,8 +49,15 @@ exchange between slices, one residual a slice (the SSPAggr shape:
 full-rate inside a machine, budgeted bytes across).
 
 **DENSE_FUSED** reduces its buckets after the whole backward (the
-no-overlap A/B); **LOCAL** is never synced. The SSP server logic and wire
-int8 raise ``NotImplementedError`` naming their ROADMAP item.
+no-overlap A/B); **LOCAL** is never synced.
+
+**SSP server logic** (``CommConfig.server_logic``, read by the SSP step
+of ``parallel/trainer.py``): ``"inc"`` adds the groups' deltas to the
+anchor; ``"adarevision"`` applies each group's raw gradient sum by the
+delay-corrected AdaGrad rule with ``adarev_init_step``. The int8 wire is
+the async tier's delta format only (``parallel/async_ssp.py``, taken by
+``train --async_ssp --wire_dtype int8``): the compiled collectives take
+bf16/f16, and ``CommConfig`` refuses int8 as the JAX CLI does.
 """
 
 from __future__ import annotations
@@ -76,11 +83,7 @@ STRATEGIES = (DENSE, SFB, LOCAL, TOPK, DENSE_FUSED)
 WIRE_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16,
                "f16": torch.float16}
 TOPK_POLICIES = ("magnitude", "random", "fixed_order")
-
-
-def _later(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not in the port yet (ROADMAP "
-                               f"queue A item {item})")
+SERVER_LOGICS = ("inc", "adarevision")
 
 
 @dataclass
@@ -117,8 +120,14 @@ class CommConfig:
     # the two-tier mesh's slow axis (the slices of the step's DataGroup):
     # set, TOPK sums inside each slice and compresses between slices
     dcn_axis: Optional[str] = None
-    # the SSP server logic: later work
+    # the SSP server logic (``build_ssp_train_step``): "inc" adds the
+    # deltas to the anchor; "adarevision" is the delay-corrected AdaGrad
+    # server rule over each group's raw gradient sum. It ignores
+    # ``reduce``: every group's whole sum is applied in turn, so size
+    # ``adarev_init_step`` by the group count
     server_logic: str = "inc"
+    # the adarevision server's init_step_size (its gflags default)
+    adarev_init_step: float = 0.1
 
     def __post_init__(self):
         self.validate()
@@ -127,8 +136,9 @@ class CommConfig:
         """Raise for a setting the port cannot run (called again by the
         train step: ``layer_strategies`` is filled in after
         construction)."""
-        if self.server_logic != "inc":
-            raise _later(f"server_logic {self.server_logic!r} (SSP)", "9")
+        if self.server_logic not in SERVER_LOGICS:
+            raise ValueError(f"unknown server_logic {self.server_logic!r}; "
+                             f"choose from {SERVER_LOGICS}")
         if self.reduce not in ("mean", "sum"):
             raise ValueError(f"reduce must be 'mean' or 'sum', got "
                              f"{self.reduce!r}")
@@ -148,9 +158,10 @@ class CommConfig:
         if self.wire_dtype is None:
             return None
         if self.wire_dtype == "int8":
-            raise _later("wire int8 (the managed async tier's DCN format; "
-                         "the JAX package refuses it without --async_ssp)",
-                         "9")
+            raise ValueError(
+                "wire_dtype int8 is the async tier's delta format "
+                "(train --async_ssp --wire_dtype int8); compiled "
+                "collectives take bf16/f16")
         try:
             return WIRE_DTYPES[self.wire_dtype]
         except KeyError:

@@ -48,12 +48,17 @@ reconciled with the step's strategies and group count
 step returns hold that row alone, ``(1, *shape)``, and
 ``gather_comm_error`` stacks every group's row again for a snapshot.
 
+``SSPTrainStep`` (``build_ssp_train_step``) is JAX's SSP step over the
+same arena: local steps and a fold into the anchor every staleness+1
+iterations (its docstring); its state is ``SSPState``.
+
 ``iter_size > 1`` (gradient accumulation) is later work and raises.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, NamedTuple, Optional
+import dataclasses
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -62,9 +67,10 @@ from ..ops.sgd import sgd_update_
 from ..proto.messages import SolverParameter
 from ..solvers.updates import SolverState, init_state, make_arena_update_fn
 from .mesh import DataGroup
-from .strategies import (TOPK, BucketSync, CommConfig, CommContext,
-                         budget_topk_fraction, comm_salt, sync_kinds,
-                         topk_compress, wire_all_reduce)
+from .strategies import (DENSE_FUSED, LOCAL, SFB, TOPK, BucketSync,
+                         CommConfig, CommContext, budget_topk_fraction,
+                         comm_salt, sync_kinds, topk_compress,
+                         wire_all_reduce)
 
 
 def param_mults(net: Net) -> Dict[str, Dict[str, tuple]]:
@@ -191,10 +197,7 @@ class TrainStep:
         self.kinds = sync_kinds(net, self.comm)
         self.sync: Optional[BucketSync] = None
         self._ctx: Optional[CommContext] = None
-        if group is not None and group.distributed:
-            self._ctx = CommContext(self.comm, group, self.kinds)
-            self.sync = BucketSync(group, self.comm, self.arena.slots,
-                                   self.kinds, self.leaves, self.flat_g)
+        self._init_sync(group)
         # the TOPK stage: its leaves' arena slots (in the net's layer
         # order, as JAX walks them), the fraction, the residual groups and
         # this rank's row
@@ -213,6 +216,13 @@ class TrainStep:
         self._update = make_arena_update_fn(
             sp, self.arena, dev,
             sgd_update=lambda *a: self.sgd_update(*a))
+
+    def _init_sync(self, group: Optional[DataGroup]) -> None:
+        """The per-step gradient exchange: every rank, every step."""
+        if group is not None and group.distributed:
+            self._ctx = CommContext(self.comm, group, self.kinds)
+            self.sync = BucketSync(group, self.comm, self.arena.slots,
+                                   self.kinds, self.leaves, self.flat_g)
 
     def params(self):
         """The current parameters: per-leaf views of the arena."""
@@ -341,3 +351,392 @@ def build_eval_step(net: Net, group: Optional[DataGroup] = None
                 group)
 
     return eval_step
+
+
+# --------------------------------------------------------------------------- #
+# SSP (staleness > 0): bounded staleness as periodic reconciliation
+# --------------------------------------------------------------------------- #
+
+class SSPState(NamedTuple):
+    """The SSP carry (JAX's ``SSPState``): each group's divergent local
+    parameters and momentum, the anchor they diverged from, the iteration,
+    the TOPK residuals of the boundary's delta exchange, and under
+    ``server_logic="adarevision"`` the server's accumulators
+    ({layer: {param: {"z", "zmax"}}}, started at 1) and each group's raw
+    gradient sum since its last boundary.
+
+    Two forms, as ``TrainState.comm_error`` has: a STACKED form, one row a
+    group in group order (``(groups, *shape)`` for ``local_params``,
+    ``local_history``, ``comm_error`` and ``adarev_gsum``: JAX's snapshot
+    layout, what ``init_ssp_state``, ``restore`` and
+    ``SSPTrainStep.gather_state`` give), and the form a running
+    ``SSPTrainStep`` returns: this rank's group alone, ``local_params``,
+    ``local_history`` and ``adarev_gsum`` as per-leaf views of the step's
+    buffers and ``comm_error`` as ``(1, *shape)`` rows."""
+    local_params: Dict
+    local_history: Dict
+    anchor_params: Dict
+    it: int
+    comm_error: Dict
+    adarev_server: Dict
+    adarev_gsum: Dict
+
+
+def init_adarev_state(params, comm: Optional[CommConfig],
+                      n_groups: int) -> Tuple[Dict, Dict]:
+    """(adarev_server, adarev_gsum) for ``server_logic="adarevision"``:
+    z/zmax start at 1 (the AdaRevisionRow constructor), the gradient sums
+    at 0, stacked (n_groups, *shape); both empty under "inc". LOCAL layers
+    have neither."""
+    comm = comm or CommConfig()
+    if comm.server_logic != "adarevision":
+        return {}, {}
+    server = {lname: {pn: {"z": torch.ones_like(v), "zmax":
+                           torch.ones_like(v)} for pn, v in lp.items()}
+              for lname, lp in params.items()
+              if comm.strategy_for(lname) != LOCAL}
+    gsum = {lname: {pn: torch.zeros((n_groups,) + tuple(v.shape),
+                                    dtype=v.dtype, device=v.device)
+                    for pn, v in lp.items()}
+            for lname, lp in params.items()
+            if comm.strategy_for(lname) != LOCAL}
+    return server, gsum
+
+
+def init_ssp_state(params, n_groups: int,
+                   comm: Optional[CommConfig] = None) -> SSPState:
+    """The stacked SSP state of a fresh start: every group's local copy is
+    ``params``, momentum zero, iteration 0."""
+    def stack(tree):
+        return {l: {p: v[None].expand((n_groups,) + tuple(v.shape)).clone()
+                    for p, v in lp.items()} for l, lp in tree.items()}
+
+    zeros = {l: {p: torch.zeros_like(v) for p, v in lp.items()}
+             for l, lp in params.items()}
+    server, gsum = init_adarev_state(params, comm, n_groups)
+    return SSPState(local_params=stack(params), local_history=stack(zeros),
+                    anchor_params=params, it=0,
+                    comm_error=init_comm_error(params, comm, n_groups),
+                    adarev_server=server, adarev_gsum=gsum)
+
+
+def _runs(slots, keep) -> List[Tuple[int, int]]:
+    """Maximal contiguous [lo, hi) ranges of the slots ``keep`` admits."""
+    out: List[Tuple[int, int]] = []
+    for s in slots:
+        if not keep(s):
+            continue
+        if out and out[-1][1] == s.offset:
+            out[-1] = (out[-1][0], s.offset + s.size)
+        else:
+            out.append((s.offset, s.offset + s.size))
+    return out
+
+
+class SSPTrainStep(TrainStep):
+    """Staleness-s data parallelism (JAX's ``build_ssp_train_step``,
+    ssp_consistency_controller.cpp:37-161) over the port's ``DataGroup``.
+
+    Each group runs local steps on its own parameters (the arena update,
+    the SGD kernel on the card, included) with no per-step gradient
+    exchange on a flat group. When the iteration count, after its
+    increment, is a multiple of s+1, the groups' deltas from the anchor
+    are summed and folded in, ``anchor + scale * sum`` with ``scale =
+    1/groups`` under ``reduce="mean"``, and every group restarts from the
+    new anchor:
+
+    - DENSE (and DENSE_FUSED, and SFB inside a two-tier slice): the flat
+      delta's ranges in ``bucket_mb`` buckets, one all-reduce each, at the
+      wire dtype;
+    - TOPK: ``topk_compress`` of each leaf's delta against this group's
+      residual, its rotation counter ``it // (s+1)`` (once a boundary, so
+      a rotation never skips slabs);
+    - LOCAL: never synced; the local copy stays;
+    - ``server_logic="adarevision"``: the groups' raw gradient sums since
+      the last boundary are all-gathered and applied in group order by
+      the delay-corrected AdaGrad rule (adarevision_server_table_logic.
+      cpp:52-175), ``reduce`` and the wire ignored as in JAX.
+
+    On a two-tier group (``comm.dcn_axis``) a group is a slice: inside it
+    DENSE and SFB sync every step during backward, and TOPK, LOCAL and
+    DENSE_FUSED gradients are reduced after backward (``comm.reduce``,
+    the wire dtype), so a slice's ranks hold one copy; the boundary runs
+    across the slices. SFB on a flat group is refused: it is a per-step
+    exchange and flat SSP has no per-step exchange for it to ride.
+
+    The step returns (anchor, state, metrics): the anchor is the engine's
+    view of the parameters (what the parameter server holds); the loss
+    and scalar outputs are averaged over every rank every step."""
+
+    def __init__(self, net: Net, sp: SolverParameter, staleness: int,
+                 group: Optional[DataGroup] = None,
+                 comm: Optional[CommConfig] = None,
+                 input_transform: Optional[Callable] = None):
+        comm = comm or CommConfig()
+        comm.validate()
+        if staleness < 1:
+            raise ValueError(f"SSP needs staleness >= 1, got {staleness}")
+        self.two_tier = comm.dcn_axis is not None
+        for lname in net.param_defs:
+            if comm.strategy_for(lname) == SFB and not self.two_tier:
+                raise ValueError(
+                    f"layer {lname!r}: SFB is a per-step backward-time "
+                    f"exchange and cannot compose with flat-mesh SSP local "
+                    f"steps; use DENSE or TOPK (delta compression), or a "
+                    f"two-tier mesh (comm.dcn_axis) where SFB rides the "
+                    f"intra-slice tier")
+        self.adarev = comm.server_logic == "adarevision"
+        if self.adarev and any(comm.strategy_for(l) == TOPK
+                               for l in net.param_defs):
+            raise ValueError(
+                "server_logic='adarevision' does not compose with TOPK "
+                "delta compression: the server logic consumes each group's "
+                "RAW accumulated gradient (adarevision_server_table_logic."
+                "cpp applies -eta*u + (eta_old-eta)*g_bck per update), "
+                "while TOPK rewrites the delta; pick one")
+        self.staleness = staleness
+        self.period = staleness + 1
+        super().__init__(net, sp, group, comm, input_transform)
+        self.flat_a = torch.zeros_like(self.flat_w)       # the anchor
+        # the groups and the tier the boundary runs across
+        self.cross = (self._comm_group.cross() if self.two_tier
+                      else self._comm_group)
+        self.n_groups = self.n_err_groups
+        self.row = self.err_row
+        slot_kind = {s: self.comm.strategy_for(s.layer)
+                     for s in self.arena.slots}
+        self.nonlocal_runs = _runs(self.arena.slots,
+                                   lambda s: slot_kind[s] != LOCAL)
+        # the delta buckets: every non-LOCAL, non-TOPK range, cut at
+        # bucket_mb elements as the per-step sync's buckets are
+        step = (max(1, int(self.comm.bucket_mb * 1e6) // 4)
+                if self.comm.bucket_mb > 0 else None)
+        self.delta_buckets: List[Tuple[int, int]] = []
+        dense = lambda s: slot_kind[s] not in (LOCAL, TOPK)  # noqa: E731
+        runs = (_runs(self.arena.slots, dense) if step is not None else
+                [(s.offset, s.offset + s.size) for s in self.arena.slots
+                 if dense(s)])
+        for lo, hi in runs:
+            cut = step or (hi - lo)
+            self.delta_buckets += [(b, min(b + cut, hi))
+                                   for b in range(lo, hi, cut)]
+        if self.adarev:
+            self.flat_u = torch.zeros_like(self.flat_w)   # raw grad sum
+            self.flat_z = torch.ones_like(self.flat_w)
+            self.flat_zmax = torch.ones_like(self.flat_w)
+
+    def _init_sync(self, group: Optional[DataGroup]) -> None:
+        """Flat: no per-step exchange. Two tiers: the per-step tier inside
+        the slice, DENSE hooked into backward, SFB on the slice's factors,
+        and TOPK, LOCAL and DENSE_FUSED reduced after backward."""
+        if group is None or not group.distributed \
+                or self.comm.dcn_axis is None:
+            return
+        intra = group.intra()
+        if intra.pg is None:
+            return
+        cfg = dataclasses.replace(self.comm, dcn_axis=None)
+        kinds = {l: (DENSE_FUSED if k in (TOPK, LOCAL) else k)
+                 for l, k in self.kinds.items()}
+        self._ctx = CommContext(cfg, intra, kinds)
+        self.sync = BucketSync(intra, cfg, self.arena.slots, kinds,
+                               self.leaves, self.flat_g)
+
+    # ---------------------------------------------------------------- #
+    def _pack_rows(self, tree: Dict, row: int, out: torch.Tensor) -> None:
+        """Row ``row`` of a stacked tree into a flat buffer (absent leaves
+        keep what the buffer holds)."""
+        for s in self.arena.slots:
+            v = tree.get(s.layer, {}).get(s.pname)
+            if v is not None:
+                out[s.offset:s.offset + s.size].copy_(
+                    v[row].reshape(-1).to(out.device, torch.float32))
+
+    def _nonlocal(self, tree: Dict) -> Dict:
+        return {l: v for l, v in tree.items()
+                if self.comm.strategy_for(l) != LOCAL}
+
+    def load(self, params, state: SSPState):
+        """Copy a stacked ``SSPState`` in (this rank's group row; the
+        anchor is rank 0's) and return (anchor, running state)."""
+        if not isinstance(state, SSPState):
+            raise TypeError("SSPTrainStep.load takes an SSPState "
+                            "(runtime/checkpoint.coerce_state converts)")
+        r = self.row
+        with torch.no_grad():
+            self.arena.pack(state.anchor_params, self.flat_a)
+            if self.group is not None:
+                self.group.broadcast_(self.flat_a)
+            self._pack_rows(state.local_params, r, self.flat_w)
+            self.flat_h.zero_()
+            self._pack_rows(state.local_history, r, self.flat_h)
+            if self.adarev:
+                self.flat_u.zero_()
+                self._pack_rows(state.adarev_gsum, r, self.flat_u)
+                for s in self.arena.slots:
+                    zz = state.adarev_server.get(s.layer, {}).get(s.pname)
+                    if zz is None:
+                        continue
+                    for key, buf in (("z", self.flat_z),
+                                     ("zmax", self.flat_zmax)):
+                        buf[s.offset:s.offset + s.size].copy_(
+                            zz[key].reshape(-1).to(buf.device))
+        stacked = reconcile_comm_error(state.anchor_params,
+                                       state.comm_error, self.comm,
+                                       self.n_groups)
+        rows = {lname: {k: v[r:r + 1].to(self.flat_w.device,
+                                         dtype=torch.float32,
+                                         copy=True)
+                        for k, v in lv.items()}
+                for lname, lv in stacked.items()}
+        return self.arena.unpack(self.flat_a), self._state(
+            int(state.it), rows)
+
+    def load_weights(self, params):
+        """New weights as the anchor and every group's local copy
+        (momentum, residuals and accumulators stay)."""
+        with torch.no_grad():
+            self.arena.pack(params, self.flat_a)
+            if self.group is not None:
+                self.group.broadcast_(self.flat_a)
+            self.flat_w.copy_(self.flat_a)
+        return self.arena.unpack(self.flat_a)
+
+    def _state(self, it: int, comm_error: Dict) -> SSPState:
+        server, gsum = {}, {}
+        if self.adarev:
+            z = self.arena.unpack(self.flat_z)
+            zm = self.arena.unpack(self.flat_zmax)
+            server = {l: {p: {"z": z[l][p], "zmax": zm[l][p]} for p in lp}
+                      for l, lp in self._nonlocal(z).items()}
+            gsum = self._nonlocal(self.arena.unpack(self.flat_u))
+        return SSPState(local_params=self.params(),
+                        local_history=self.arena.unpack(self.flat_h),
+                        anchor_params=self.arena.unpack(self.flat_a),
+                        it=it, comm_error=comm_error,
+                        adarev_server=server, adarev_gsum=gsum)
+
+    def gather_state(self, state: SSPState) -> SSPState:
+        """The stacked form of a running state, every group's row in
+        group order (one a rank, or the first rank's of each slice), the
+        form a snapshot stores. A collective: every rank calls it."""
+        every = self.group.slice_size if (
+            self.two_tier and self.group is not None) else 1
+
+        def rows(flat: torch.Tensor) -> torch.Tensor:
+            if self.group is None or not self.group.distributed:
+                return flat[None]
+            return self.group.all_gather(flat[None])[::every]
+
+        def stack(flat: torch.Tensor, only_nonlocal: bool) -> Dict:
+            st = rows(flat)
+            out: Dict = {}
+            for s in self.arena.slots:
+                if only_nonlocal and \
+                        self.comm.strategy_for(s.layer) == LOCAL:
+                    continue
+                out.setdefault(s.layer, {})[s.pname] = \
+                    st[:, s.offset:s.offset + s.size].reshape(
+                        (st.shape[0],) + tuple(s.shape))
+            return out
+
+        return state._replace(
+            local_params=stack(self.flat_w, False),
+            local_history=stack(self.flat_h, False),
+            comm_error=self.gather_comm_error(state.comm_error),
+            adarev_gsum=stack(self.flat_u, True) if self.adarev else {})
+
+    # ---------------------------------------------------------------- #
+    def _adarev_fold(self) -> None:
+        """The server's ApplyRowOpLog over this boundary's arriving
+        updates, one group's sum after another in group order; g_bck (the
+        mass applied since the sender's snapshot) is 0 at the boundary's
+        start and grows by each applied update."""
+        eta0 = float(self.comm.adarev_init_step)
+        for lo, hi in self.nonlocal_runs:
+            u_all = self.cross.all_gather(self.flat_u[None, lo:hi])
+            p = self.flat_a[lo:hi]
+            z = self.flat_z[lo:hi]
+            zmax = self.flat_zmax[lo:hi]
+            g_bck = torch.zeros_like(p)
+            for u in u_all:
+                eta_old = eta0 / torch.sqrt(zmax)
+                z.copy_(z + u * (u + 2.0 * g_bck))
+                torch.maximum(zmax, z, out=zmax)
+                eta = eta0 / torch.sqrt(zmax)
+                p.copy_(p - eta * u + (eta_old - eta) * g_bck)
+                g_bck = g_bck + u
+            self.flat_u[lo:hi].zero_()
+
+    def _boundary(self, state_err: Dict, it: int) -> Dict:
+        """Fold the groups' deltas into the anchor and restart every group
+        from it; returns the new TOPK residual rows."""
+        cfg = self.comm
+        scale = 1.0 / self.n_groups if cfg.reduce == "mean" else 1.0
+        out = dict(state_err)
+        if self.adarev:
+            self._adarev_fold()
+        else:
+            for lo, hi in self.delta_buckets:
+                delta = self.flat_w[lo:hi] - self.flat_a[lo:hi]
+                summed = wire_all_reduce(delta, self.cross, "sum",
+                                         cfg.wire_dtype)
+                if scale != 1.0:
+                    summed = scale * summed
+                self.flat_a[lo:hi] += summed
+            for s in self.topk_slots:
+                a = self.flat_a[s.offset:s.offset + s.size].view(s.shape)
+                w = self.flat_w[s.offset:s.offset + s.size].view(s.shape)
+                sent, resid = topk_compress(
+                    w - a, self.topk_fraction,
+                    state_err[s.layer][s.pname][0], cfg.topk_policy,
+                    it // self.period, salt=comm_salt(s.layer, s.pname),
+                    block=cfg.topk_block, wire=cfg.wire_dtype)
+                summed = wire_all_reduce(sent, self.cross, "sum",
+                                         cfg.wire_dtype)
+                if scale != 1.0:
+                    summed = scale * summed
+                a += summed
+                out[s.layer] = {**out.get(s.layer, {}),
+                                s.pname: resid[None]}
+        for lo, hi in self.nonlocal_runs:
+            self.flat_w[lo:hi].copy_(self.flat_a[lo:hi])
+        return out
+
+    def step(self, params, state: SSPState, batch: Dict[str, torch.Tensor]):
+        """-> (anchor, state, metrics): one local step, and on every
+        (s+1)-th iteration the boundary."""
+        with torch.no_grad():
+            self.arena.pack(state.local_params, self.flat_w)
+            self.arena.pack(state.local_history, self.flat_h)
+            self.arena.pack(state.anchor_params, self.flat_a)
+            self.flat_g.zero_()
+        if self.sync is not None:
+            self.sync.begin()
+        if self.input_transform is not None:
+            batch = self.input_transform(batch)
+        out = self.net.apply(self._leaf_tree, batch, train=True,
+                             comm=self._ctx)
+        out.loss.backward()
+        if self.sync is not None:
+            self.sync.finish()
+        it = int(state.it)
+        comm_error = state.comm_error
+        with torch.no_grad():
+            if self.adarev:
+                # the client's oplog: raw gradient mass since the last sync
+                self.flat_u += self.flat_g
+            self._update(self.flat_w, self.flat_g, self.flat_h, it)
+            it += 1
+            if it % self.period == 0:
+                comm_error = self._boundary(comm_error, it)
+        return (self.arena.unpack(self.flat_a), self._state(it, comm_error),
+                _rank_mean(_scalar_metrics(out), self.group))
+
+
+def build_ssp_train_step(net: Net, sp: SolverParameter, staleness: int,
+                         group: Optional[DataGroup] = None,
+                         comm: Optional[CommConfig] = None,
+                         input_transform: Optional[Callable] = None
+                         ) -> SSPTrainStep:
+    return SSPTrainStep(net, sp, staleness, group, comm, input_transform)

@@ -7,7 +7,15 @@ serving slice uses:
   with its configurable frame cap and malformed-frame containment;
 - the zero-copy binary tensor codec (wire codec v1), negotiated per
   connection, so a client of either package talks to a server of either
-  package byte for byte;
+  package byte for byte, with its kill-switch (``POSEIDON_WIRE_CODEC`` /
+  ``set_wire_codec``) and its encode/decode telemetry (``wire_stats``);
+- bf16 leaves without ``ml_dtypes``: ``Bf16Array`` is a uint16 array of
+  bf16 bit patterns that rides the codec under the dtype NAME
+  ``bfloat16``, the name the JAX package's bf16 arrays carry, so a bf16
+  frame from either package decodes to the same f32 values in the other;
+- the shared-secret HMAC handshake of the async-SSP tier
+  (``server_handshake``/``client_handshake``), run over raw bytes before
+  any frame is parsed;
 - the protobuf wire-format reader behind ``decode_caffemodel``;
 - the writers the training slice needs: ``Datum`` records
   (``decode_datum``/``encode_datum``, for LMDB data), ``BlobProto``
@@ -25,6 +33,8 @@ import os
 import pickle
 import socket
 import struct
+import threading
+import time
 import weakref
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
@@ -89,7 +99,68 @@ def max_frame_bytes() -> int:
 
 CODEC_MAGIC = b"PTC\x01"
 WIRE_CODEC_VERSION = 1
+WIRE_CODEC_ENV = "POSEIDON_WIRE_CODEC"
+_codec_override: Optional[bool] = None
 _codec_socks: "weakref.WeakSet" = weakref.WeakSet()
+
+_wire_stats_lock = threading.Lock()
+_wire_stats = {
+    "frames_encoded": 0, "encode_ns": 0, "encoded_bytes": 0,
+    "frames_decoded": 0, "decode_ns": 0, "decoded_bytes": 0,
+    "pickle_frames_sent": 0, "pickle_frames_recv": 0,
+}
+
+
+def wire_stats() -> Dict[str, int]:
+    """Process-wide codec telemetry: (de)serialization time and bytes
+    (socket time excluded), and the pickle frames sent and received."""
+    with _wire_stats_lock:
+        return dict(_wire_stats)
+
+
+def reset_wire_stats() -> None:
+    with _wire_stats_lock:
+        for k in _wire_stats:
+            _wire_stats[k] = 0
+
+
+def wire_codec_enabled() -> bool:
+    """Codec kill-switch: :func:`set_wire_codec` wins, then the
+    ``POSEIDON_WIRE_CODEC`` env, then on. Off: negotiation is never
+    offered or accepted and every frame is the pickle wire."""
+    if _codec_override is not None:
+        return _codec_override
+    env = os.environ.get(WIRE_CODEC_ENV)
+    if env is not None:
+        return env.strip().lower() not in ("0", "off", "false", "no", "")
+    return True
+
+
+def set_wire_codec(on: Optional[bool]) -> None:
+    """Process-wide codec override (None restores env/default)."""
+    global _codec_override
+    _codec_override = on
+
+
+class Bf16Array(np.ndarray):
+    """bf16 values as their uint16 bit patterns (the high half of the f32
+    bits). The codec sends it under the dtype name ``bfloat16`` and
+    decodes that name back into one, so the port needs no bf16 numpy
+    dtype. Rounding from f32 is torch's (round to nearest even), the
+    rounding of ``ml_dtypes``."""
+
+
+def bf16_from_f32(v: np.ndarray) -> Bf16Array:
+    """Round f32 values to bf16 (nearest even) and keep the bits."""
+    import torch
+    t = torch.from_numpy(np.ascontiguousarray(v, np.float32))
+    bits = t.to(torch.bfloat16).view(torch.int16).numpy().view(np.uint16)
+    return bits.reshape(np.shape(v)).view(Bf16Array)
+
+
+def bf16_to_f32(b: np.ndarray) -> np.ndarray:
+    """The exact f32 value of each bf16 bit pattern."""
+    return (np.asarray(b).astype(np.uint32) << 16).view(np.float32)
 
 
 def mark_codec_socket(sock: socket.socket) -> None:
@@ -107,6 +178,12 @@ class _CodecUnsupported(Exception):
 
 
 _MAX_SKELETON_DEPTH = 64
+BF16_NAME = "bfloat16"
+
+
+def _dtype_from_name(name: str) -> np.dtype:
+    """A wire dtype name; ``bfloat16`` reads as its uint16 bits."""
+    return np.dtype(np.uint16) if name == BF16_NAME else np.dtype(name)
 
 
 def _dtype_wire_ok(dt: np.dtype) -> bool:
@@ -142,9 +219,10 @@ def _enc_skeleton(obj, out: bytearray, arrays: List[np.ndarray],
         out += b"y" + struct.pack("!I", len(obj))
         out += obj
     elif isinstance(obj, np.ndarray):
-        if not _dtype_wire_ok(obj.dtype) or obj.ndim > 255:
+        bf16 = isinstance(obj, Bf16Array)
+        if not (bf16 or _dtype_wire_ok(obj.dtype)) or obj.ndim > 255:
             raise _CodecUnsupported(f"array dtype {obj.dtype}")
-        nm = obj.dtype.name.encode("ascii")
+        nm = (BF16_NAME if bf16 else obj.dtype.name).encode("ascii")
         out += b"a" + struct.pack("!B", len(nm)) + nm
         out += struct.pack("!B", obj.ndim)
         for d in obj.shape:
@@ -243,7 +321,8 @@ def _dec_skeleton(cur: _DecCursor, depth: int):
         return bytes(cur.take(n))
     if tag == b"a":
         (nml,) = struct.unpack("!B", cur.take(1))
-        dt = np.dtype(bytes(cur.take(nml)).decode("ascii"))
+        name = bytes(cur.take(nml)).decode("ascii")
+        dt = _dtype_from_name(name)
         (nd,) = struct.unpack("!B", cur.take(1))
         shape = tuple(struct.unpack("!Q", cur.take(8))[0]
                       for _ in range(nd))
@@ -251,7 +330,8 @@ def _dec_skeleton(cur: _DecCursor, depth: int):
         for d in shape:
             count *= d
         raw = cur.take_data(count * dt.itemsize)
-        return np.frombuffer(raw, dtype=dt).reshape(shape)
+        arr = np.frombuffer(raw, dtype=dt).reshape(shape)
+        return arr.view(Bf16Array) if name == BF16_NAME else arr
     if tag == b"z":
         (nml,) = struct.unpack("!B", cur.take(1))
         dt = np.dtype(bytes(cur.take(nml)).decode("ascii"))
@@ -324,18 +404,26 @@ def send_frame(sock: socket.socket, obj, codec: Optional[bool] = None) -> int:
     ``codec=None`` resolves per socket (set during negotiation)."""
     if codec is None:
         codec = socket_uses_codec(sock)
-    if codec:
+    if codec and wire_codec_enabled():
+        t0 = time.perf_counter_ns()
         enc = encode_codec_payload(obj)
+        dt = time.perf_counter_ns() - t0
         if enc is not None:
             parts, n = enc
             _check_cap(n)
             _sendmsg_all(sock, [struct.pack("!Q", n)] + parts)
+            with _wire_stats_lock:
+                _wire_stats["frames_encoded"] += 1
+                _wire_stats["encode_ns"] += dt
+                _wire_stats["encoded_bytes"] += n
             return n + 8
     buf = io.BytesIO()
     pickle.dump(obj, buf, protocol=pickle.HIGHEST_PROTOCOL)
     data = buf.getvalue()
     _check_cap(len(data))
     sock.sendall(struct.pack("!Q", len(data)) + data)
+    with _wire_stats_lock:
+        _wire_stats["pickle_frames_sent"] += 1
     return len(data) + 8
 
 
@@ -353,9 +441,11 @@ def recv_exact(sock: socket.socket, n: int) -> bytes:
     return b"".join(chunks)
 
 
-def recv_frame(sock: socket.socket):
-    """Receive one frame. The payload buffer is allocated once, sized by
-    the cap-checked length prefix; codec frames are detected by magic."""
+def recv_frame_sized(sock: socket.socket):
+    """Receive one frame; returns (obj, wire bytes: header + payload), the
+    pull side of the managed tier's bandwidth accounting. The payload
+    buffer is allocated once, sized by the cap-checked length prefix;
+    codec frames are detected by magic."""
     (n,) = struct.unpack("!Q", recv_exact(sock, 8))
     cap = max_frame_bytes()
     if n > cap:
@@ -366,17 +456,122 @@ def recv_frame(sock: socket.socket):
     payload = bytearray(n)
     view = memoryview(payload)
     got = 0
-    while got < n:
-        r = sock.recv_into(view[got:], min(n - got, 1 << 20))
-        if r == 0:
-            raise FrameError(f"mid-message EOF in payload ({got}/{n} bytes)")
-        got += r
-    if n >= len(CODEC_MAGIC) and payload[:4] == CODEC_MAGIC:
-        return decode_codec_payload(payload)
     try:
-        return pickle.loads(bytes(payload))
+        while got < n:
+            r = sock.recv_into(view[got:], min(n - got, 1 << 20))
+            if r == 0:
+                raise FrameError(
+                    f"mid-message EOF in payload ({got}/{n} bytes)")
+            got += r
+    except FrameError:
+        raise
+    except ConnectionError as e:
+        raise FrameError(f"mid-message EOF in payload ({e})") from e
+    if n >= len(CODEC_MAGIC) and payload[:4] == CODEC_MAGIC:
+        t0 = time.perf_counter_ns()
+        obj = decode_codec_payload(payload)
+        with _wire_stats_lock:
+            _wire_stats["frames_decoded"] += 1
+            _wire_stats["decode_ns"] += time.perf_counter_ns() - t0
+            _wire_stats["decoded_bytes"] += n
+        return obj, n + 8
+    try:
+        obj = pickle.loads(bytes(payload))
     except Exception as e:  # noqa: BLE001 — any undecodable payload
         raise FrameError(f"bad frame payload: {type(e).__name__}: {e}") from e
+    with _wire_stats_lock:
+        _wire_stats["pickle_frames_recv"] += 1
+    return obj, n + 8
+
+
+def recv_frame(sock: socket.socket):
+    """Receive one frame (see :func:`recv_frame_sized`)."""
+    return recv_frame_sized(sock)[0]
+
+
+# --------------------------------------------------------------------------- #
+# Shared-secret connection handshake (the JAX package's, byte for byte).
+# Frame payloads may be pickles, so an auth-enabled tier authenticates every
+# connection MUTUALLY over raw bytes before either side parses a frame:
+#
+#   server -> client : MAGIC + nonce_s                 (challenge)
+#   client -> server : HMAC(token, nonce_s) + nonce_c  (proof + challenge)
+#   server -> client : HMAC(token, nonce_c + b"srv")   (proof)
+#
+# Digests are HMAC-SHA256, compared in constant time. The token rides the
+# launcher env (POSEIDON_ASYNC_TOKEN).
+# --------------------------------------------------------------------------- #
+
+AUTH_MAGIC = b"PSDNAUTH"
+AUTH_NONCE_LEN = 16
+AUTH_DIGEST_LEN = 32  # sha256
+_AUTH_SERVER_TAG = b"srv"
+
+
+class AuthError(ConnectionError):
+    """Handshake failed: bad token, wrong protocol bytes, or a peer that
+    speaks frames at an auth-required service."""
+
+
+def _hmac_digest(token: str, nonce: bytes) -> bytes:
+    import hashlib
+    import hmac
+    return hmac.new(token.encode("utf-8"), nonce, hashlib.sha256).digest()
+
+
+def server_handshake(sock: socket.socket, token: str,
+                     timeout_s: float = 5.0) -> bool:
+    """Authenticate one inbound connection and prove our own token back.
+    True on success; False (the caller then closes the socket without
+    reading a frame) on any mismatch, timeout or protocol violation."""
+    import hmac
+    nonce = os.urandom(AUTH_NONCE_LEN)
+    prev = sock.gettimeout()
+    sock.settimeout(timeout_s)
+    try:
+        sock.sendall(AUTH_MAGIC + nonce)
+        got = recv_exact(sock, AUTH_DIGEST_LEN + AUTH_NONCE_LEN)
+        digest, nonce_c = got[:AUTH_DIGEST_LEN], got[AUTH_DIGEST_LEN:]
+        if not hmac.compare_digest(digest, _hmac_digest(token, nonce)):
+            return False
+        sock.sendall(_hmac_digest(token, nonce_c + _AUTH_SERVER_TAG))
+        return True
+    except (OSError, ConnectionError, socket.timeout):
+        return False
+    finally:
+        try:
+            sock.settimeout(prev)
+        except OSError:
+            pass
+
+
+def client_handshake(sock: socket.socket, token: str,
+                     timeout_s: float = 5.0) -> None:
+    """Answer the server's challenge and verify the server's proof before
+    the caller parses any frame; AuthError on a protocol mismatch (a
+    service without a token sends no challenge) or a server that cannot
+    prove the token."""
+    import hmac
+    prev = sock.gettimeout()
+    sock.settimeout(timeout_s)
+    try:
+        head = recv_exact(sock, len(AUTH_MAGIC) + AUTH_NONCE_LEN)
+        if not head.startswith(AUTH_MAGIC):
+            raise AuthError("peer did not offer an auth challenge "
+                            "(token configured on one side only?)")
+        nonce_s = head[len(AUTH_MAGIC):]
+        nonce_c = os.urandom(AUTH_NONCE_LEN)
+        sock.sendall(_hmac_digest(token, nonce_s) + nonce_c)
+        proof = recv_exact(sock, AUTH_DIGEST_LEN)
+        if not hmac.compare_digest(
+                proof, _hmac_digest(token, nonce_c + _AUTH_SERVER_TAG)):
+            raise AuthError("peer failed to prove the shared token "
+                            "(spoofed service?)")
+    finally:
+        try:
+            sock.settimeout(prev)
+        except OSError:
+            pass
 
 
 # --------------------------------------------------------------------------- #

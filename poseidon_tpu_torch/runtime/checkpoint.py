@@ -3,19 +3,27 @@ JAX package's format (``poseidon_tpu/runtime/checkpoint.py``), so
 snapshots cross-load both ways.
 
 - ``snapshot()`` writes ``<prefix>_iter_<N>.caffemodel`` (a Caffe
-  NetParameter binary) and ``<prefix>_iter_<N>.solverstate.npz`` with
-  ``iter``, ``kind = "dense"``, one array per leaf under ``params/`` and
-  ``history/``, and the TOPK residuals under ``comm_error/``, stacked
-  ``(groups, *shape)`` as the caller gathered them
-  (``TrainStep.gather_comm_error``; none without a TOPK layer). Tree keys
-  join layer and param names with the ASCII unit separator (layer names may
-  contain '/'). Both files are written to a temporary name and renamed.
-- ``restore()`` rebuilds (params, TrainState) from a dense .npz as CPU
-  tensors; ``restore_params`` reads the params alone.
+  NetParameter binary) and ``<prefix>_iter_<N>.solverstate.npz``. A dense
+  state (``TrainState``) stores ``iter``, ``kind = "dense"``, one array a
+  leaf under ``params/`` and ``history/``, and the TOPK residuals under
+  ``comm_error/``, stacked ``(groups, *shape)`` as the caller gathered
+  them (``TrainStep.gather_comm_error``; none without a TOPK layer). An
+  SSP state (``SSPState``, stacked by ``SSPTrainStep.gather_state``)
+  stores ``kind = "ssp"``, the anchor under ``params/`` (and in the
+  .caffemodel), and the stacked rows under ``local_params/``,
+  ``local_history/``, ``adarev_gsum/`` and ``comm_error/``, with
+  ``adarev_server/`` (its z/zmax) beside them. Tree keys join layer and
+  param names with the ASCII unit separator (layer names may contain
+  '/'). Both files are written to a temporary name and renamed.
+- ``restore()`` rebuilds (params, TrainState or SSPState) as CPU
+  tensors, by the snapshot's kind; ``coerce_state`` converts between the
+  kinds for the mode a run is in (JAX's rules); ``restore_params`` reads
+  the params alone.
 - ``load_caffemodel`` merges a .caffemodel's weights through
   ``net.load_weights`` (Caffe's CopyTrainedLayersFrom).
 - ``AsyncSnapshotWriter`` takes the host copy at the sync point and runs
   ``snapshot()`` on a background thread, one write in flight.
+- ``latest_snapshot`` and ``sweep_stale_tmp`` live in ``ckpt_files``.
 """
 
 from __future__ import annotations
@@ -28,6 +36,7 @@ import numpy as np
 import torch
 
 from ..proto.wire import decode_caffemodel, encode_caffemodel
+from .ckpt_files import latest_snapshot, sweep_stale_tmp  # noqa: F401
 
 _SEP = "\x1f"
 
@@ -55,28 +64,47 @@ def _unflatten(flat: Dict[str, np.ndarray]):
     return tree
 
 
+def _is_ssp(state) -> bool:
+    from ..parallel.trainer import SSPState
+    return isinstance(state, SSPState)
+
+
+def _state_it(state) -> int:
+    return int(state.it if _is_ssp(state) else state.solver.it)
+
+
 def snapshot_paths(prefix: str, state) -> Tuple[str, str]:
-    it = int(state.solver.it)
+    it = _state_it(state)
     return (f"{prefix}_iter_{it}.caffemodel",
             f"{prefix}_iter_{it}.solverstate.npz")
 
 
 def snapshot(prefix: str, net, params, state) -> Tuple[str, str]:
-    """Write both artifacts (tmp + atomic rename); returns their paths."""
+    """Write both artifacts (tmp + atomic rename); returns their paths.
+    The .caffemodel holds the agreed view: the anchor under SSP."""
     os.makedirs(os.path.dirname(prefix) or ".", exist_ok=True)
     model_path, state_path = snapshot_paths(prefix, state)
+    ssp = _is_ssp(state)
+    model_params = state.anchor_params if ssp else params
     pid = os.getpid()
     tmp = f"{model_path}.tmp.{pid}"
     with open(tmp, "wb") as f:
         f.write(encode_caffemodel(net.name or "net",
-                                  net.export_weights(params)))
+                                  net.export_weights(model_params)))
     os.replace(tmp, model_path)
 
-    arrays = {"iter": np.asarray(int(state.solver.it)),
-              "kind": np.asarray("dense")}
-    arrays.update({f"params/{k}": v for k, v in _flatten(params).items()})
-    arrays.update({f"history/{k}": v
-                   for k, v in _flatten(state.solver.history).items()})
+    arrays = {"iter": np.asarray(_state_it(state)),
+              "kind": np.asarray("ssp" if ssp else "dense")}
+    arrays.update({f"params/{k}": v
+                   for k, v in _flatten(model_params).items()})
+    if ssp:
+        for group in ("local_params", "local_history", "adarev_server",
+                      "adarev_gsum"):
+            arrays.update({f"{group}/{k}": v for k, v in
+                           _flatten(getattr(state, group)).items()})
+    else:
+        arrays.update({f"history/{k}": v
+                       for k, v in _flatten(state.solver.history).items()})
     arrays.update({f"comm_error/{k}": v
                    for k, v in _flatten(state.comm_error).items()})
     tmp = f"{state_path}.tmp.{pid}"
@@ -86,20 +114,25 @@ def snapshot(prefix: str, net, params, state) -> Tuple[str, str]:
     return model_path, state_path
 
 
+def _copy_tree(tree):
+    return {k: _copy_tree(v) if isinstance(v, dict)
+            else v.detach().to("cpu", copy=True) for k, v in tree.items()}
+
+
 def host_state_copy(params, state):
-    """CPU copies of (params, TrainState): the snapshot's sync point (the
-    copy off the card waits for the steps that produced the values)."""
+    """CPU copies of (params, state): the snapshot's sync point (the copy
+    off the card waits for the steps that produced the values)."""
+    if _is_ssp(state):
+        return _copy_tree(params), state._replace(**{
+            f: _copy_tree(getattr(state, f)) for f in (
+                "local_params", "local_history", "anchor_params",
+                "comm_error", "adarev_server", "adarev_gsum")})
     from ..parallel.trainer import TrainState
     from ..solvers.updates import SolverState
-
-    def copy(tree):
-        return {k: copy(v) if isinstance(v, dict)
-                else v.detach().to("cpu", copy=True) for k, v in tree.items()}
-
-    return copy(params), TrainState(
+    return _copy_tree(params), TrainState(
         solver=SolverState(it=int(state.solver.it),
-                           history=copy(state.solver.history)),
-        comm_error=copy(state.comm_error))
+                           history=_copy_tree(state.solver.history)),
+        comm_error=_copy_tree(state.comm_error))
 
 
 class AsyncSnapshotWriter:
@@ -158,9 +191,10 @@ class AsyncSnapshotWriter:
 
 
 def restore(state_path: str):
-    """(params, TrainState) from a dense .solverstate.npz, as CPU tensors.
-    SSP snapshots (``kind = "ssp"``) are not in the port yet and raise."""
-    from ..parallel.trainer import TrainState
+    """(params, state) from a .solverstate.npz of either package, as CPU
+    tensors: a ``TrainState`` for a dense snapshot, a stacked
+    ``SSPState`` for an SSP one (``coerce_state`` converts)."""
+    from ..parallel.trainer import SSPState, TrainState
     from ..solvers.updates import SolverState
     groups: Dict[str, Dict[str, np.ndarray]] = {}
     it, kind = 0, "dense"
@@ -173,15 +207,81 @@ def restore(state_path: str):
             else:
                 group, rest = key.split("/", 1)
                 groups.setdefault(group, {})[rest] = z[key]
-    if kind != "dense":
-        raise NotImplementedError(
-            f"{state_path}: {kind!r} snapshots are not in the port yet "
-            f"(dense only)")
-    state = TrainState(
+    if kind not in ("dense", "ssp"):
+        raise ValueError(f"{state_path}: unknown snapshot kind {kind!r}")
+    params = _unflatten(groups.get("params", {}))
+    err = _unflatten(groups.get("comm_error", {}))
+    if kind == "ssp":
+        return params, SSPState(
+            local_params=_unflatten(groups.get("local_params", {})),
+            local_history=_unflatten(groups.get("local_history", {})),
+            anchor_params=params, it=it, comm_error=err,
+            adarev_server=_unflatten(groups.get("adarev_server", {})),
+            adarev_gsum=_unflatten(groups.get("adarev_gsum", {})))
+    return params, TrainState(
         solver=SolverState(it=it,
                            history=_unflatten(groups.get("history", {}))),
-        comm_error=_unflatten(groups.get("comm_error", {})))
-    return _unflatten(groups.get("params", {})), state
+        comm_error=err)
+
+
+def _same_shapes(a: Dict, b: Dict) -> bool:
+    """Same tree structure and leaf shapes."""
+    if not isinstance(a, dict) or not isinstance(b, dict):
+        return (not isinstance(a, dict) and not isinstance(b, dict)
+                and tuple(a.shape) == tuple(b.shape))
+    return sorted(a) == sorted(b) and all(_same_shapes(a[k], b[k])
+                                          for k in a)
+
+
+def coerce_state(params, state, *, staleness: int, n_dev: int, comm=None):
+    """A restored (params, state) in the mode a run is in (JAX's
+    ``coerce_state``):
+
+    - dense -> SSP: fresh per-group copies of the params, momentum and
+      residuals restarting (the reference's thread-0 fallback), the
+      iteration kept;
+    - SSP -> dense: the anchor, with fresh momentum and residuals;
+    - SSP with another group count: fresh copies of the anchor;
+    - the same mode: residuals reconciled with the current strategies
+      (``reconcile_comm_error``), and the adarevision accumulators kept
+      only where their structure and shapes still match (else z/zmax
+      restart at 1 and the gradient sums at 0).
+
+    On a mode change residuals and momentum restart: dense residuals hold
+    gradient mass a step, SSP ones parameter-delta mass a period."""
+    from ..parallel.trainer import (SSPState, TrainState, init_adarev_state,
+                                    init_comm_error, init_ssp_state,
+                                    reconcile_comm_error)
+    from ..solvers.updates import SolverState, init_state
+
+    want_ssp = staleness > 0
+    is_ssp = isinstance(state, SSPState)
+    if want_ssp and not is_ssp:
+        return params, init_ssp_state(params, n_dev, comm)._replace(
+            it=int(state.solver.it))
+    if not want_ssp and is_ssp:
+        anchor = state.anchor_params
+        return anchor, TrainState(
+            solver=SolverState(it=int(state.it),
+                               history=init_state(anchor).history),
+            comm_error=init_comm_error(anchor, comm, n_dev))
+    if is_ssp:
+        leaves = [v for lp in state.local_params.values()
+                  for v in lp.values()]
+        if leaves and leaves[0].shape[0] != n_dev:
+            return state.anchor_params, init_ssp_state(
+                state.anchor_params, n_dev, comm)._replace(it=int(state.it))
+    state = state._replace(comm_error=reconcile_comm_error(
+        params, state.comm_error, comm, n_dev))
+    if not is_ssp:
+        return params, state
+    server, gsum = init_adarev_state(params, comm, n_dev)
+    if server and _same_shapes(server, state.adarev_server):
+        return params, state._replace(
+            adarev_gsum=(state.adarev_gsum
+                         if _same_shapes(gsum, state.adarev_gsum)
+                         else gsum))
+    return params, state._replace(adarev_server=server, adarev_gsum=gsum)
 
 
 def restore_params(state_path: str) -> Dict[str, Dict[str, np.ndarray]]:
@@ -206,22 +306,3 @@ def load_caffemodel(path: str, net, params):
     with open(path, "rb") as f:
         weights = decode_caffemodel(f.read())
     return net.load_weights(params, weights)
-
-
-def latest_snapshot(prefix: str,
-                    suffix: str = ".solverstate.npz") -> Optional[str]:
-    """The newest ``<prefix>_iter_<N><suffix>`` by N, or None."""
-    d = os.path.dirname(prefix) or "."
-    base = os.path.basename(prefix)
-    best, best_it = None, -1
-    if not os.path.isdir(d):
-        return None
-    for name in os.listdir(d):
-        if name.startswith(base + "_iter_") and name.endswith(suffix):
-            try:
-                it = int(name[len(base + "_iter_"):-len(suffix)])
-            except ValueError:
-                continue
-            if it > best_it:
-                best, best_it = os.path.join(d, name), it
-    return best

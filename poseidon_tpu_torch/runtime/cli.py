@@ -6,7 +6,12 @@ of ``poseidon_tpu/runtime/cli.py``)::
         [--output_dir .] [--device cuda|cpu] [--strategy dense|sfb|topk] \\
         [--sfb-auto] [--grad-reduce mean|sum] [--wire_dtype f32|bf16|f16] \\
         [--topk_policy magnitude|random|fixed_order] [--topk_block N] \\
-        [--dcn_slices N] \\
+        [--dcn_slices N] [--staleness S] \\
+        [--server_logic inc|adarevision] [--adarev_init_step X] \\
+        [--async_ssp [--async_sync_every N] [--comm_budget_mbps X] \\
+         [--comm_priority_frac X] [--comm_adaptive] \\
+         [--async_{heartbeat,liveness_timeout,reconnect_deadline,\\
+                   gate_timeout,first_gate_timeout}_s X]] \\
         [--dwbp_bucket_mb N] [--param_arena true|false] \\
         [--arena_bucket_mb N] [--device_prefetch N] [--max_in_flight N] \\
         [--async_snapshot] [--device_transform] [--trace_out <file>] \\
@@ -43,9 +48,18 @@ under the env contract of ``runtime/cluster.py`` (``POSEIDON_PROC_ID``,
 them), with the comm flags of the JAX ``train`` command that the port
 covers: TOPK at the JAX default fraction 0.01 (``--topk_policy``,
 ``--topk_block``) and the two-tier group (``--dcn_slices``) among them.
-The others (``--mesh``, ``--server_logic``, ``--comm_budget_mbps``,
-``--wire_dtype int8``) raise ``NotImplementedError`` naming their ROADMAP
-item. ``test`` scores a net's
+``--staleness S`` trains by SSP (each rank's local steps, the deltas
+folded into the anchor every S+1 iterations; ``--server_logic
+adarevision`` folds raw gradient sums by the delay-corrected AdaGrad
+rule). ``--async_ssp`` trains by the wait-free async tier instead: no
+process group, rank 0 hosts the parameter service (at
+``POSEIDON_ASYNC_SERVICE=host:port``, or the coordinator's port + 1), the
+reads gated on ``--staleness``, every connection authenticated by HMAC
+when ``POSEIDON_ASYNC_TOKEN`` is set, managed communication under
+``--comm_budget_mbps``, and ``--wire_dtype bf16|f16|int8`` compressing
+the deltas with exact error feedback. ``--mesh`` and ``--slice`` raise
+``NotImplementedError`` naming their ROADMAP item. ``test`` scores a
+net's
 TEST phase and prints one ``<output>: <mean>`` line per scalar output. ``serve`` warms every bucket,
 logs ``serve: listening on <host>:<port>``, serves until SIGTERM/SIGINT,
 drains every admitted request, prints one ``serving_final_stats`` JSON line
@@ -175,22 +189,68 @@ def comm_from_args(args):
                              "named mesh's axes carry the whole topology")
         raise NotImplementedError(
             "--mesh (the SPMD mesh planner, parallel/spmd.py) is not in "
-            "the port yet (ROADMAP queue A item 8, its last part)")
-    if args.comm_budget_mbps >= 0:
-        raise NotImplementedError(
-            "--comm_budget_mbps (the async tier's managed communication) "
-            "is not in the port yet (ROADMAP queue A item 9)")
+            "the port yet (ROADMAP queue A item 9, part 5)")
+    # --wire_dtype rides two tiers: the compiled collectives (bf16/f16)
+    # and the async tier's delta payloads, which also take int8; int8
+    # never enters the compiled config
+    wire = args.wire_dtype or None
+    if wire == "int8":
+        if not args.async_ssp:
+            raise SystemExit(
+                "--wire_dtype int8 is a managed-tier (async DCN) wire "
+                "format; compiled collectives take bf16/f16")
+        wire = None
     # an SFB auto pick keeps DENSE as the default for the other layers
     return CommConfig(
         default_strategy="dense" if args.sfb_auto else args.strategy,
         reduce=args.grad_reduce, topk_policy=args.topk_policy,
-        wire_dtype=args.wire_dtype or None,
+        wire_dtype=wire,
         topk_block=args.topk_block or None,
         bucket_mb=bucket_mb_of(args.dwbp_bucket_mb,
                                args.param_arena == "true",
                                args.arena_bucket_mb),
         dcn_axis=DCN_AXIS if args.dcn_slices > 1 else None,
-        server_logic=args.server_logic)
+        server_logic=args.server_logic,
+        adarev_init_step=args.adarev_init_step)
+
+
+# the async tier's fault knobs: a negative flag keeps the FaultConfig (or
+# tier) default, as in the JAX CLI
+_ASYNC_FAULT_FLAGS = (("heartbeat_s", "async_heartbeat_s"),
+                      ("liveness_timeout_s", "async_liveness_timeout_s"),
+                      ("reconnect_deadline_s", "async_reconnect_deadline_s"),
+                      ("gate_timeout_s", "async_gate_timeout_s"),
+                      ("first_gate_timeout_s", "async_first_gate_timeout_s"))
+
+
+def async_from_args(args):
+    """(engine staleness, async tier arguments or None) of the ``train``
+    flags, as the JAX CLI's ``_engine_from_args``: under ``--async_ssp``
+    the staleness bound belongs to the tier and the local step is the
+    synchronous one."""
+    if args.slice:
+        raise NotImplementedError(
+            "--slice (the two-tier fabric, parallel/fabric.py) is not in "
+            "the port yet (ROADMAP queue A item 9, part 6)")
+    if not args.async_ssp:
+        return args.staleness, None
+    cfg = {"staleness": args.staleness,
+           "sync_every": args.async_sync_every}
+    for key, flag in _ASYNC_FAULT_FLAGS:
+        v = getattr(args, flag)
+        if v is not None and v >= 0:
+            cfg[key] = v
+    # negative budget: the ManagedCommConfig default (off); 0 is an
+    # explicit "unlimited"
+    if args.comm_budget_mbps >= 0:
+        cfg["comm_budget_mbps"] = args.comm_budget_mbps
+    if args.comm_priority_frac > 0:
+        cfg["comm_priority_frac"] = args.comm_priority_frac
+    if args.comm_adaptive:
+        cfg["comm_adaptive"] = True
+    if args.wire_dtype:
+        cfg["comm_wire_dtype"] = args.wire_dtype
+    return 0, cfg
 
 
 def train_policy(args) -> dict:
@@ -218,8 +278,11 @@ def _train(args) -> int:
     from ..proto.messages import load_solver
     from .engine import Engine
 
+    comm = comm_from_args(args)
+    staleness, async_cfg = async_from_args(args)
     eng = Engine(load_solver(args.solver), output_dir=args.output_dir,
-                 device=args.device or None, comm=comm_from_args(args),
+                 device=args.device or None, comm=comm,
+                 staleness=staleness, async_ssp=async_cfg,
                  sfb_auto=args.sfb_auto,
                  device_prefetch=args.device_prefetch,
                  max_in_flight=args.max_in_flight,
@@ -301,7 +364,8 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["", "f32", "bf16", "f16", "int8"],
                    help="cast gradients (and SFB factors) to this dtype for "
                         "every collective; empty = the gradient's dtype "
-                        "(int8: not in the port yet)")
+                        "(int8: the async tier's deltas only, with "
+                        "--async_ssp)")
     t.add_argument("--dwbp_bucket_mb", type=float, default=-1.0,
                    help="bucket size of the all-reduces issued during "
                         "backward; 0 = one a leaf, negative = the arena's "
@@ -327,11 +391,79 @@ def build_parser() -> argparse.ArgumentParser:
                         "group): dense sync inside a slice, TOPK-"
                         "compressed exchange between slices; N must "
                         "divide the world")
-    # comm flags of the JAX CLI that the port does not cover yet: each
-    # raises NotImplementedError naming its ROADMAP item
+    t.add_argument("--staleness", type=int, default=0,
+                   help="SSP bound s: devices run local steps, reconciling "
+                        "every s+1 iters (0 = synchronous, the reference's "
+                        "recommended setting)")
+    t.add_argument("--server_logic", default="inc",
+                   choices=["inc", "adarevision"],
+                   help="SSP anchor update rule: plain delta increment "
+                        "(inc) or delay-corrected AdaGrad (the server's "
+                        "adarevision_server_table_logic); needs --staleness")
+    t.add_argument("--adarev_init_step", type=float, default=0.1,
+                   help="adarevision server init_step_size; scales the SUM "
+                        "of group updates (reduce is ignored — the server "
+                        "applies every group's full update, the reference's "
+                        "RowBatchInc semantics), so ~base_lr/n_groups is "
+                        "the stable regime")
+    t.add_argument("--async_ssp", action="store_true",
+                   help="wait-free asynchronous SSP across launcher "
+                        "processes (the Bösen execution model, "
+                        "parallel/async_ssp.py): each process trains on "
+                        "its own device, parameter increments stream to a "
+                        "rank-0 service, reads gate on --staleness; no "
+                        "process group, no cross-process barrier")
+    t.add_argument("--async_sync_every", type=int, default=1,
+                   help="optimizer iterations per async-SSP flush clock")
+    t.add_argument("--comm_budget_mbps", type=float, default=-1.0,
+                   help="managed communication (SSPAggr): per-link "
+                        "bandwidth budget in Mbit/s for the async-SSP "
+                        "tier, metered as a token bucket over ACTUAL "
+                        "frame bytes on both push and pull channels. A "
+                        "tight budget switches to magnitude-prioritized "
+                        "PARTIAL pushes (top --comm_priority_frac of the "
+                        "delta by |value|, TOPK index+value wire form) "
+                        "with the exact complement carried locally and "
+                        "force-flushed every staleness+1 clocks; read "
+                        "gates run on fully-flushed (durable) clocks so "
+                        "the SSP bound is preserved exactly. <= 0 = "
+                        "unlimited — byte-for-byte the dense path")
+    t.add_argument("--comm_priority_frac", type=float, default=-1.0,
+                   help="fraction of delta entries a budget-tight partial "
+                        "push ships, ranked by |value| across the whole "
+                        "update (default 0.1); negative = the "
+                        "ManagedCommConfig default")
+    t.add_argument("--comm_adaptive", action="store_true",
+                   help="adaptive push cadence: under congestion (token-"
+                        "bucket deficit or flushes queuing behind a slow "
+                        "link) intermediate clocks ship as ~100-byte "
+                        "ticks and the payload rides the next boundary "
+                        "flush, recovering as the link drains "
+                        "(cadence_backoffs counts escalations)")
+    t.add_argument("--async_heartbeat_s", type=float, default=-1.0,
+                   help="async-SSP client heartbeat cadence (liveness "
+                        "signal when the flush queue is idle); negative = "
+                        "FaultConfig default")
+    t.add_argument("--async_liveness_timeout_s", type=float, default=-1.0,
+                   help="async-SSP service evicts a worker silent this "
+                        "long (survivors' gates unblock; 0 disables — the "
+                        "reference's hang-forever semantics); negative = "
+                        "FaultConfig default")
+    t.add_argument("--async_reconnect_deadline_s", type=float, default=-1.0,
+                   help="async-SSP client gives up reconnecting (and "
+                        "surfaces permanent failure to the training loop) "
+                        "after this long; negative = FaultConfig default")
+    t.add_argument("--async_gate_timeout_s", type=float, default=-1.0,
+                   help="async-SSP read-gate backstop per clock; negative "
+                        "= tier default (120 s)")
+    t.add_argument("--async_first_gate_timeout_s", type=float, default=-1.0,
+                   help="async-SSP FIRST-clock gate backstop (covers "
+                        "peers' first kernel builds); negative = "
+                        "max(1800 s, 10x gate timeout)")
+    # flags of the JAX CLI that the port does not cover yet: each raises
+    # NotImplementedError naming its ROADMAP item
     t.add_argument("--mesh", default="")
-    t.add_argument("--server_logic", default="inc")
-    t.add_argument("--comm_budget_mbps", type=float, default=-1.0)
+    t.add_argument("--slice", action="store_true")
     t.add_argument("--device_prefetch", type=int, default=None,
                    help="device-side input prefetch depth: a background "
                         "stage copies the next N host batches onto the "

@@ -42,7 +42,7 @@ from .retry import retry_with_backoff
 # how long a process keeps redialing the coordinator before giving up
 # (env-overridable, as in the JAX package), and the process group's timeout
 # for every collective after it
-_RENDEZVOUS_DEADLINE_S = float(
+RENDEZVOUS_DEADLINE_S = float(
     os.environ.get("POSEIDON_RENDEZVOUS_DEADLINE_S", "60"))
 _COLLECTIVE_TIMEOUT_S = 600.0
 
@@ -53,10 +53,19 @@ _TRANSIENT_RENDEZVOUS = ("timed out", "timeout", "refused", "connect",
 
 
 def env_world() -> Tuple[int, int, Optional[str]]:
-    """(rank, n_procs, coordinator) from the launcher env contract."""
+    """(rank, n_procs, coordinator) from the launcher env contract. Under
+    ``--async_ssp`` the roster is a starting point: a process launched
+    with ``POSEIDON_PROC_ID >= POSEIDON_NUM_PROCS`` is an elastic joiner,
+    admitted into the live job by the tier's service."""
     return (int(os.environ.get("POSEIDON_PROC_ID", "0")),
             int(os.environ.get("POSEIDON_NUM_PROCS", "1")),
             os.environ.get("POSEIDON_COORDINATOR"))
+
+
+def is_elastic_joiner(rank: int, n_procs: int) -> bool:
+    """True when this process joins a live async-SSP job from outside the
+    launch roster (``POSEIDON_PROC_ID >= POSEIDON_NUM_PROCS``)."""
+    return rank >= n_procs
 
 
 @dataclass(frozen=True)
@@ -102,6 +111,20 @@ def choose_backend(device: torch.device, rank: int, world: int
             f"tensors through the host")
 
 
+def local_device(device: torch.device, rank: int) -> torch.device:
+    """The device of a rank that joins no process group (the async-SSP
+    tier's independent processes): ``device`` on the CPU, else
+    ``cuda:(rank % count)``, made current."""
+    if device.type != "cuda":
+        return device
+    count = torch.cuda.device_count()
+    if count == 0:
+        raise RuntimeError("a CUDA device was asked for and none is visible")
+    dev = torch.device("cuda", rank % count)
+    torch.cuda.set_device(dev)
+    return dev
+
+
 def init_method_of(coordinator: str) -> str:
     """``host:port`` -> ``tcp://host:port``; a URL stays as it is."""
     return coordinator if "://" in coordinator else f"tcp://{coordinator}"
@@ -130,7 +153,7 @@ def _init_with_retry(backend: str, init_method: str, rank: int, world: int,
                 raise            # misconfiguration: fail fast
             raise _Transient(str(e)) from e
 
-    retry_with_backoff(attempt, deadline=_RENDEZVOUS_DEADLINE_S, base=0.2,
+    retry_with_backoff(attempt, deadline=RENDEZVOUS_DEADLINE_S, base=0.2,
                        cap=5.0, rng=random.Random(rank),
                        retry_on=(_Transient,))
 

@@ -23,8 +23,11 @@ the fast tier (inside a slice), "dcn" the slow one (between slices).
 ``est_comm_ms`` applies a rate model to those bytes. Its defaults are the
 NVIDIA H100 SXM's published link rates, not measurements: NVLink 4 at
 450 GB/s a direction a GPU inside a node, and one 400 Gb/s NIC (50 GB/s)
-a GPU between nodes. The membership and managed-comm counters of the
-JAX module belong to the async tier (ROADMAP queue A item 9).
+a GPU between nodes.
+
+``membership_counters``/``format_membership`` and
+``managed_comm_counters``/``format_comm`` normalize the async-SSP tier's
+churn and per-link counters for the engine's display line.
 """
 
 from __future__ import annotations
@@ -181,3 +184,61 @@ def comm_summary(table: Dict[str, Dict],
         out["est_comm_fraction_if_unoverlapped"] = round(
             min(1.0, est_ms / measured_step_ms), 4)
     return out
+
+
+# --------------------------------------------------------------------------- #
+# elastic-membership telemetry (the async-SSP tier's churn counters)
+# --------------------------------------------------------------------------- #
+
+def membership_counters(service=None, client=None) -> Dict[str, float]:
+    """The async tier's membership-churn counters: the rank-0
+    ``ParamService``'s authoritative admissions/evictions/rejoins, or any
+    other rank's client-side view (member count, failed peers,
+    reconnects). Either argument may be None."""
+    out: Dict[str, float] = {}
+    if service is not None:
+        # full membership: a finished worker is still a member (only
+        # retire removes a slot), matching the data-assignment key
+        out["members"] = float(len(service.members))
+        out["admissions"] = float(service.admissions)
+        out["evictions"] = float(service.evictions)
+        out["rejoins"] = float(service.rejoins)
+        out["failed"] = float(len(service.failed_workers))
+        out["retired"] = float(len(service.retired))
+    elif client is not None:
+        out["members"] = float(len(client.members))
+        out["failed"] = float(len(client.failed))
+        out["reconnects"] = float(client.reconnects)
+    return out
+
+
+def format_membership(counters: Dict[str, float]) -> str:
+    """One display line: ``members = 3, admissions = 1, ...``."""
+    return ", ".join(f"{k} = {int(v)}" for k, v in sorted(counters.items()))
+
+
+# --------------------------------------------------------------------------- #
+# managed-communication telemetry (the async-SSP tier's per-link counters)
+# --------------------------------------------------------------------------- #
+
+def managed_comm_counters(client=None) -> Dict[str, float]:
+    """The client's per-link counters (frame bytes on both channels, the
+    deferred fraction, measured goodput, cadence backoffs, partial and
+    full pushes, wire bytes saved); empty without a client."""
+    if client is None or not hasattr(client, "comm_counters"):
+        return {}
+    return dict(client.comm_counters())
+
+
+def format_comm(counters: Dict[str, float]) -> str:
+    """One display line next to ``[membership]``:
+    ``bytes_sent = 1.2 MB, deferred_fraction = 0.310, ...``."""
+    def fmt(k: str, v: float) -> str:
+        if k.startswith("bytes") or k == "wire_bytes_saved":
+            if v >= 1e6:
+                return f"{k} = {v / 1e6:.1f} MB"
+            return f"{k} = {v / 1e3:.1f} kB"
+        if k in ("deferred_fraction", "effective_mbps"):
+            return f"{k} = {v:.3f}"
+        return f"{k} = {int(v)}"
+    return ", ".join(fmt(k, v) for k, v in sorted(counters.items()))

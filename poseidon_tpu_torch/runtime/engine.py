@@ -36,6 +36,19 @@ CSVs, and every rank writes the (identical) snapshots, as in the JAX
 engine, with every residual group's TOPK residual gathered into them.
 ``dcn_slices`` > 1 splits the world into that many slices (the two-tier
 group, ``parallel/mesh.py``) and sets ``CommConfig.dcn_axis``.
+
+``staleness`` > 0 trains by SSP (``parallel/trainer.SSPTrainStep``):
+each group runs local steps and every staleness+1 iterations the deltas
+fold into the anchor, which is the engine's ``params`` (and the
+.caffemodel); the SSP snapshot stacks every group's local copy, gathered
+to every rank. ``async_ssp`` (a dict of ``runtime/async_tier.
+AsyncSSPTier`` arguments, ``staleness`` among them) trains by the
+wait-free async tier instead: no process group is made, rank and world
+come from the launcher env, each process runs the local synchronous step
+on its own device, and the tier's ``after_iters`` runs after every step
+(a clock boundary hard-syncs the in-flight window first, span
+``hard_sync`` with boundary ``async_clock``), ``finish`` at the end; a
+change of membership reshards the train data (``reshard_data``).
 Parameters are filled from ``sp.random_seed`` (1 when unset) with a CPU
 ``torch.Generator``; the
 dropout generator is seeded from it with the rank folded in
@@ -61,13 +74,14 @@ from ..data.workload import Shard
 from ..numeric import policy, resolve_device
 from ..parallel.mesh import DCN_AXIS, DataGroup, rank_seed
 from ..parallel.strategies import TOPK, CommConfig, auto_strategies
-from ..parallel.trainer import (build_eval_step, build_train_step,
+from ..parallel.trainer import (build_eval_step, build_ssp_train_step,
+                                build_train_step, init_ssp_state,
                                 init_train_state)
 from ..proto.messages import NetParameter, SolverParameter, load_net
 from ..solvers.updates import learning_rate
-from .checkpoint import (AsyncSnapshotWriter, latest_snapshot,
-                         load_caffemodel, restore, snapshot)
-from .cluster import init_distributed
+from .checkpoint import (AsyncSnapshotWriter, coerce_state, latest_snapshot,
+                         load_caffemodel, restore, snapshot, sweep_stale_tmp)
+from .cluster import env_world, init_distributed, local_device
 from .comm_stats import comm_summary, layer_comm_table
 from .metrics import AsyncScalarFetcher, MetricsTable, log
 from .spans import recorder as span_recorder
@@ -153,8 +167,12 @@ class Engine:
                  async_snapshot: Optional[bool] = None,
                  device_transform: bool = False, use_native: bool = True,
                  memory_data: Optional[Dict[str, np.ndarray]] = None,
-                 trace_out: Optional[str] = None, dcn_slices: int = 0):
+                 trace_out: Optional[str] = None, dcn_slices: int = 0,
+                 staleness: int = 0, async_ssp: Optional[Dict] = None):
         self.sp = sp
+        self.staleness = max(0, int(staleness))
+        self._async_cfg = async_ssp
+        self._async_tier = None
         self.output_dir = output_dir
         self.comm = comm or CommConfig()
         if dcn_slices > 1 and self.comm.dcn_axis is None:
@@ -176,10 +194,22 @@ class Engine:
         self._device_feed: Optional[DevicePrefetcher] = None
         self._snap_writer = (AsyncSnapshotWriter() if self.async_snapshot
                              else None)
-        self.group: DataGroup = init_distributed(
-            resolve_device(device), slices=max(1, dcn_slices))
+        if async_ssp is not None:
+            # independent processes: no process group; the tier's service
+            # is the only exchange
+            rank, world, _ = env_world()
+            self.group = DataGroup.single(local_device(
+                resolve_device(device), rank))
+            self.rank, self.world = rank, world
+        else:
+            self.group = init_distributed(resolve_device(device),
+                                          slices=max(1, dcn_slices))
+            self.rank, self.world = self.group.rank, self.group.world
         self.device = self.group.device
-        self.rank, self.world = self.group.rank, self.group.world
+        # an elastic joiner (rank outside the launch world) builds with the
+        # whole range; the tier reshards it at join
+        self._data_shard = (Shard(self.rank, self.world)
+                            if self.rank < self.world else Shard(0, 1))
         # --trace_out: the process-wide span recorder, owned (cleared,
         # enabled, dumped and disabled) by this engine
         self._trace_out: Optional[str] = None
@@ -207,11 +237,10 @@ class Engine:
     def _build(self) -> None:
         sp = self.sp
         train_param, test_params = resolve_nets(sp)
-        shard = Shard(self.rank, self.world)
-        self.train_pipelines, train_shapes = build_phase_pipelines(
-            train_param, "TRAIN", shard=shard, memory_data=self.memory_data,
-            device_transform=self.device_transform,
-            use_native=self.use_native)
+        self._train_param = train_param
+        shard = self._data_shard
+        self.train_pipelines, train_shapes = self._build_train_pipelines(
+            shard)
         self.train_net = Net(train_param, "TRAIN", device=self.device,
                              source_shapes=train_shapes)
         pol = policy()
@@ -242,16 +271,36 @@ class Engine:
                 "byte-backed records, and mean_value-style mean — a "
                 "mean_file must stay host-side); using the host transform",
                 rank=self.rank)
+        if self.comm.server_logic != "inc" and self.staleness == 0:
+            log(f"WARNING: --server_logic {self.comm.server_logic} requires "
+                f"--staleness > 0 (there is no server in the synchronous "
+                f"step); training plain sync SGD", rank=self.rank)
         if self.sfb_auto:
-            # the cost model's picks land before the step is built
-            self.comm.layer_strategies.update(
-                auto_strategies(self.train_net))
+            if self.staleness > 0 and self.comm.dcn_axis is None:
+                log("sfb_auto: SFB does not compose with flat-mesh SSP "
+                    "staleness; keeping DENSE delta sync for all layers "
+                    "(on a two-tier mesh SFB rides the intra-slice tier)",
+                    rank=self.rank)
+            else:
+                # the cost model's picks land before the step is built
+                self.comm.layer_strategies.update(
+                    auto_strategies(self.train_net))
         group = self.group if self.group.distributed else None
-        self.train_step = build_train_step(self.train_net, sp, group,
-                                           self.comm, self._input_transform)
+        if self.staleness > 0:
+            self.train_step = build_ssp_train_step(
+                self.train_net, sp, self.staleness, group, self.comm,
+                self._input_transform)
+        else:
+            self.train_step = build_train_step(
+                self.train_net, sp, group, self.comm, self._input_transform)
         self.eval_steps = [build_eval_step(n, group) for n in self.test_nets]
         step = self.train_step
-        if group is not None:
+        if self.staleness > 0:
+            log(f"SSP: staleness {self.staleness} (sync every "
+                f"{self.staleness + 1} iters) over {step.n_groups} "
+                f"group(s), server logic {self.comm.server_logic}, "
+                f"{len(step.delta_buckets)} delta bucket(s)", rank=self.rank)
+        elif group is not None:
             batch = next(iter(train_shapes.values()))[0]
             log(f"data parallel: {self.world} ranks x batch {batch}, sync "
                 f"{step.kinds}, reduce {self.comm.reduce}, wire "
@@ -266,16 +315,55 @@ class Engine:
                 + (f" (two tiers: {self.group.slices} slice(s) of "
                    f"{self.group.slice_size})" if self.comm.dcn_axis
                    else ""), rank=self.rank)
-        if group is not None or step.topk_slots:
+        if (group is not None or step.topk_slots) and self.staleness == 0:
+            # the per-step table; an SSP step exchanges at its boundary
             self._log_comm_table()
         seed = sp.random_seed if sp.random_seed >= 0 else 1
         self.train_net.generator.manual_seed(rank_seed(seed, self.rank))
         params = self.train_net.init(torch.Generator().manual_seed(seed))
-        self.params, self.state = step.load(params, init_train_state(
-            params, self.comm, step.n_err_groups))
+        self.params, self.state = step.load(params, self._fresh_state(
+            params))
         self.metrics = MetricsTable("train")
         self.test_metrics = [MetricsTable(f"test_{i}")
                              for i in range(len(self.test_nets))]
+
+    def _fresh_state(self, params):
+        """The stacked start state of the step's mode."""
+        step = self.train_step
+        if self.staleness > 0:
+            return init_ssp_state(params, step.n_groups, self.comm)
+        return init_train_state(params, self.comm, step.n_err_groups)
+
+    def _build_train_pipelines(self, shard: Shard):
+        return build_phase_pipelines(
+            self._train_param, "TRAIN", shard=shard,
+            memory_data=self.memory_data,
+            device_transform=self.device_transform,
+            use_native=self.use_native)
+
+    def reshard_data(self, shard: Shard) -> bool:
+        """Re-key the TRAIN data (elastic membership: the async tier calls
+        this when the member list changes, with ``data/workload.
+        member_shard``'s shard): the train pipelines, and the prefetcher
+        reading them, are rebuilt on the new range; the test pipelines
+        keep theirs. No-op for the same shard."""
+        if shard == self._data_shard:
+            return False
+        old = self._data_shard
+        feed = self._device_feed is not None
+        if feed:
+            self._device_feed.close()
+            self._device_feed = None
+        for p in self.train_pipelines:
+            p.close()
+        self.train_pipelines, _ = self._build_train_pipelines(shard)
+        self._data_shard = shard
+        if feed:
+            self._device_feed = DevicePrefetcher(
+                self.train_pipelines, self.device, depth=self.device_prefetch)
+        log(f"resharded data assignment: shard {old.index}/{old.count} -> "
+            f"{shard.index}/{shard.count}", rank=self.rank)
+        return True
 
     def _log_comm_table(self) -> None:
         """The static comm accounting of the step (``comm_stats``), once,
@@ -302,17 +390,26 @@ class Engine:
         return place_batch(host, self.device)
 
     def iteration(self) -> int:
-        return int(self.state.solver.it)
+        return int(self.state.it if self.staleness > 0
+                   else self.state.solver.it)
 
     def restore_from(self, path: str) -> None:
         """Weights from a .caffemodel, or params + solver state from a
-        .solverstate.npz (either package's)."""
+        .solverstate.npz of either package and either kind, converted to
+        this run's mode (``coerce_state``). Under SSP a .caffemodel
+        restarts the SSP state from its weights, as in JAX."""
         if path.endswith(".caffemodel"):
             params = load_caffemodel(path, self.train_net, self.params)
-            self.params = self.train_step.load_weights(params)
+            if self.staleness > 0:
+                self.params, self.state = self.train_step.load(
+                    params, self._fresh_state(params))
+            else:
+                self.params = self.train_step.load_weights(params)
             log(f"Loaded weights from {path}", rank=self.rank)
             return
-        params, state = restore(path)
+        params, state = coerce_state(
+            *restore(path), staleness=self.staleness,
+            n_dev=self.train_step.n_err_groups, comm=self.comm)
         self.params, self.state = self.train_step.load(params, state)
         log(f"Restored solver state from {path} (iter {self.iteration()})",
             rank=self.rank)
@@ -323,6 +420,11 @@ class Engine:
         if not self.sp.snapshot_prefix:
             return None
         prefix = os.path.join(self.output_dir, self.sp.snapshot_prefix)
+        removed = sweep_stale_tmp(prefix)
+        if removed:
+            log(f"auto-resume: swept {len(removed)} stale snapshot tmp "
+                f"file(s): {', '.join(os.path.basename(r) for r in removed)}",
+                rank=self.rank)
         path = latest_snapshot(prefix)
         if path is None:
             log(f"auto-resume: no snapshot under {prefix!r}; starting fresh",
@@ -335,9 +437,13 @@ class Engine:
         if not self.sp.snapshot_prefix:
             return None
         prefix = os.path.join(self.output_dir, self.sp.snapshot_prefix)
-        # every residual group's row (a collective), as JAX's gather
-        state = self.state._replace(comm_error=self.train_step
-                                    .gather_comm_error(self.state.comm_error))
+        # every group's rows (a collective), as JAX's gather
+        if self.staleness > 0:
+            state = self.train_step.gather_state(self.state)
+        else:
+            state = self.state._replace(
+                comm_error=self.train_step.gather_comm_error(
+                    self.state.comm_error))
         if self._snap_writer is not None:
             model, statef = self._snap_writer.submit(
                 prefix, self.train_net, self.params, state)
@@ -401,6 +507,14 @@ class Engine:
         if self.device_prefetch > 0 and self._device_feed is None:
             self._device_feed = DevicePrefetcher(
                 self.train_pipelines, self.device, depth=self.device_prefetch)
+        if self._async_cfg is not None and self._async_tier is None:
+            from .async_tier import AsyncSSPTier
+            # every worker starts from the service's anchor, written into
+            # the arena in place; the data follows the member list
+            self._async_tier = AsyncSSPTier(self.train_step,
+                                            **self._async_cfg)
+            self.params = self.train_step.params()
+            self.reshard_data(self._async_tier.data_shard())
         if sp.test_interval and sp.test_initialization and self.test_nets:
             self._test_all(it)
         # the dispatch window: metrics drain to host floats on the
@@ -434,6 +548,13 @@ class Engine:
                 self.stats["train_step_s"] += time.perf_counter() - t0
                 self.stats["train_iters"] += 1
                 self._check_divergence(fetcher)
+                tier = self._async_tier
+                if tier is not None:
+                    if tier.due(1):
+                        # a clock moves the whole arena through the host:
+                        # the window drains first, so no NaN is pushed
+                        last = self._hard_sync(fetcher, "async_clock", last)
+                    tier.after_iters(self, 1)
                 last = self._absorb(fetcher.take_drained(), last)
                 if sp.display and it % sp.display == 0:
                     last = self._hard_sync(fetcher, "display", last)
@@ -444,6 +565,14 @@ class Engine:
                                        if k not in ("iter", "time"))
                     log(f"Iteration {it}, lr = {lr:.6g}, {extras}",
                         rank=self.rank)
+                    if tier is not None:
+                        from .comm_stats import format_comm, format_membership
+                        log("    [membership] " + format_membership(
+                            tier.membership_counters()), rank=self.rank)
+                        cc = tier.comm_counters()
+                        if cc:
+                            log("    [comm] " + format_comm(cc),
+                                rank=self.rank)
                     self._dump_trace()
                 if sp.test_interval and it % sp.test_interval == 0 and \
                         self.test_nets:
@@ -454,6 +583,11 @@ class Engine:
             self.stats["steps_in_flight"] = round(fetcher.mean_in_flight(),
                                                   3)
             fetcher.close()
+        if self._async_tier is not None:
+            # the last clock flushed and (rank 0) the final anchor in the
+            # arena BEFORE the after-train snapshot
+            self.stats.update(self._async_tier.finish(self))
+            self._async_tier = None
         if sp.snapshot_after_train:
             with span_recorder.span("snapshot", "ckpt",
                                     {"boundary": "after_train"}):
@@ -500,6 +634,10 @@ class Engine:
                 self._snap_writer.close()
             except BaseException as e:  # noqa: BLE001 — re-raised below
                 err = e
+        if self._async_tier is not None:
+            # an aborted run: finish() was not reached
+            self._async_tier.close()
+            self._async_tier = None
         if self._device_feed is not None:
             # before the pipelines: its thread consumes them
             self._device_feed.close()

@@ -25,10 +25,12 @@ def retry_with_backoff(
     cap: float = 2.0,
     rng: Optional[random.Random] = None,
     retry_on: Tuple[Type[BaseException], ...] = (OSError,),
+    should_stop: Optional[Callable[[], bool]] = None,
 ) -> T:
-    """Call ``fn()`` until it returns or the ``deadline`` (seconds from now)
-    passes. Exceptions outside ``retry_on`` propagate immediately; on
-    deadline exhaustion the LAST retryable exception is re-raised."""
+    """Call ``fn()`` until it returns, the ``deadline`` (seconds from now)
+    passes, or ``should_stop()`` goes true. Exceptions outside
+    ``retry_on`` propagate immediately; on deadline exhaustion (or a stop)
+    the LAST retryable exception is re-raised."""
     rng = rng or random.Random()
     t_end = time.monotonic() + deadline
     attempt = 0
@@ -37,7 +39,7 @@ def retry_with_backoff(
             return fn()
         except retry_on:
             now = time.monotonic()
-            if now >= t_end:
+            if now >= t_end or (should_stop is not None and should_stop()):
                 raise
             delay = rng.uniform(0.0, min(cap, base * (2.0 ** attempt)))
             time.sleep(min(delay, max(0.0, t_end - now)))

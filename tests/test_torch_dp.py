@@ -798,25 +798,45 @@ def test_sfb_matmul_alone_matches_autograd_of_linear():
 
 @pytest.mark.parametrize("what", ["int8", "server_logic"])
 def test_unported_comm_raises_naming_its_roadmap_item(what):
-    # both belong to the async tier, ROADMAP queue A item 9
-    with pytest.raises(NotImplementedError,
-                       match=r"ROADMAP queue A item 9\)"):
-        if what == "int8":
+    # both came with the async tier (ROADMAP queue A item 9): the int8 wire
+    # is its delta format, refused by the compiled collectives as the JAX
+    # CLI refuses it; the SSP server logics are accepted, others refused
+    if what == "int8":
+        with pytest.raises(ValueError, match="async tier's delta format"):
             S.CommConfig(wire_dtype="int8")
-        else:
-            S.CommConfig(server_logic="adarevision")
+    else:
+        c = S.CommConfig(server_logic="adarevision", adarev_init_step=0.2)
+        assert (c.server_logic, c.adarev_init_step) == ("adarevision", 0.2)
+        with pytest.raises(ValueError, match="unknown server_logic"):
+            S.CommConfig(server_logic="nonesuch")
 
 
 @pytest.mark.parametrize("flags", [["--comm_budget_mbps", "4"],
                                    ["--wire_dtype", "int8"],
                                    ["--server_logic", "adarevision"]])
 def test_cli_unported_comm_flags_raise(flags):
-    from poseidon_tpu_torch.runtime.cli import build_parser, comm_from_args
+    # the async tier's flags (ROADMAP queue A item 9), ported: each builds
+    # what the JAX CLI builds, and int8 without --async_ssp exits as there
+    from poseidon_tpu_torch.runtime.cli import (async_from_args,
+                                                build_parser, comm_from_args)
     args = build_parser().parse_args(["train", "--solver=x"] + flags)
-    # the async tier's flags: ROADMAP queue A item 9
-    with pytest.raises(NotImplementedError,
-                       match=r"ROADMAP queue A item 9\)"):
-        comm_from_args(args)
+    if flags[0] == "--wire_dtype":
+        with pytest.raises(SystemExit, match="managed-tier"):
+            comm_from_args(args)
+        args = build_parser().parse_args(
+            ["train", "--solver=x", "--async_ssp"] + flags)
+        assert comm_from_args(args).wire_dtype is None
+        assert async_from_args(args)[1]["comm_wire_dtype"] == "int8"
+        return
+    c = comm_from_args(args)
+    assert c.server_logic == ("adarevision" if "adarevision" in flags
+                              else "inc")
+    assert async_from_args(args) == (0, None)
+    args = build_parser().parse_args(
+        ["train", "--solver=x", "--async_ssp", "--staleness", "2"] + flags)
+    staleness, cfg = async_from_args(args)
+    assert staleness == 0 and cfg["staleness"] == 2
+    assert cfg.get("comm_budget_mbps") == (4.0 if "4" in flags else None)
 
 
 def test_cli_comm_flags_build_the_jax_config():

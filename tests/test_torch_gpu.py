@@ -1047,3 +1047,161 @@ def test_lrn_fwd_nhwc_allocates_no_scratch_on_card(dtype):
     y_bytes = -(-y.numel() * y.element_size() // 512) * 512
     assert torch.cuda.max_memory_allocated() - before == y_bytes
     assert torch.cuda.memory_allocated() - before == y_bytes
+
+
+# --------------------------------------------------------------------- #
+# SSP and the async tier's arena copies on the card
+
+_SSP_NET = """
+name: "SSPTiny"
+layers { name: "src" type: MEMORY_DATA top: "data" top: "label"
+  memory_data_param { batch_size: 8 channels: 3 height: 19 width: 19 } }
+layers { name: "conv1" type: CONVOLUTION bottom: "data" top: "conv1"
+  convolution_param { num_output: 16 kernel_size: 3
+    weight_filler { type: "gaussian" std: 0.1 } } }
+layers { name: "relu1" type: RELU bottom: "conv1" top: "conv1" }
+layers { name: "pool1" type: POOLING bottom: "conv1" top: "pool1"
+  pooling_param { pool: MAX kernel_size: 3 stride: 2 } }
+layers { name: "norm1" type: LRN bottom: "pool1" top: "norm1"
+  lrn_param { local_size: 5 alpha: 0.0001 beta: 0.75 } }
+layers { name: "ip1" type: INNER_PRODUCT bottom: "norm1" top: "ip1"
+  inner_product_param { num_output: 10
+    weight_filler { type: "gaussian" std: 0.05 } } }
+layers { name: "loss" type: SOFTMAX_LOSS bottom: "ip1" bottom: "label"
+  top: "loss" }
+"""
+
+
+def _ssp_net_and_batch():
+    from poseidon_tpu_torch.core.net import Net
+    from poseidon_tpu_torch.proto.messages import load_net_from_string
+    net = Net(load_net_from_string(_SSP_NET), "TRAIN", device="cuda",
+              source_shapes={"data": (8, 3, 19, 19), "label": (8,)})
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    batch = {"data": torch.randn(8, 3, 19, 19, generator=gen,
+                                 device="cuda"),
+             "label": torch.randint(0, 10, (8,), generator=gen,
+                                    device="cuda").float()}
+    return net, batch
+
+
+def _solver():
+    from poseidon_tpu_torch.proto.messages import SolverParameter
+    return SolverParameter(base_lr=0.01, momentum=0.9, weight_decay=5e-4,
+                           lr_policy="fixed")
+
+
+@pytest.mark.gpu
+def test_ssp_step_kernels_vs_plain_on_card():
+    """The SSP step (staleness 1, two boundaries) with K4-K7 against the
+    same steps with their plain versions, cuDNN deterministic."""
+    _need_gpu()
+    from poseidon_tpu_torch.parallel import trainer as T
+    from poseidon_tpu_torch.parallel.strategies import CommConfig
+    net, batch = _ssp_net_and_batch()
+    params0 = net.init(torch.Generator().manual_seed(1))
+    step = T.SSPTrainStep(net, _solver(), 1, None, CommConfig())
+
+    def run(plain):
+        lrns = [l for l in net.layers if l.TYPE == "LRN"]
+        pools = [l for l in net.layers if l.TYPE == "POOLING"]
+        if plain:
+            for l in lrns:
+                l.across_channels = port_lrn.lrn_across_channels_reference
+            for l in pools:
+                l.pool = port_pool.max_pool_reference
+            step.sgd_update = port_sgd.sgd_update_plain_
+        try:
+            anchor, st = step.load(params0, T.init_ssp_state(
+                params0, 1, step.comm))
+            for _ in range(4):
+                anchor, st, m = step.step(anchor, st, batch)
+            torch.cuda.synchronize()
+            return ({l: {k: v.clone() for k, v in d.items()}
+                     for l, d in anchor.items()}, float(m["loss"]))
+        finally:
+            for l in lrns:
+                l.across_channels = port_lrn.lrn_across_channels
+            for l in pools:
+                l.pool = port_pool.max_pool
+            step.sgd_update = port_sgd.sgd_update_
+
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        before = dict(port_sgd.LAUNCHES)
+        got, loss_k = run(False)
+        assert port_sgd.LAUNCHES["sgd_update"] == \
+            before["sgd_update"] + 4
+        want, loss_p = run(True)
+    finally:
+        torch.backends.cudnn.deterministic = det
+    assert abs(loss_k - loss_p) <= 1e-6 + 1e-4 * abs(loss_p)
+    for l in want:
+        for k in want[l]:
+            torch.testing.assert_close(got[l][k], want[l][k], rtol=1e-4,
+                                       atol=1e-6)
+
+
+@pytest.mark.gpu
+def test_arena_mirror_round_trip_is_bitwise_and_pinned_on_card():
+    _need_gpu()
+    import types
+
+    from poseidon_tpu_torch.runtime.async_tier import ArenaMirror
+    net, _ = _ssp_net_and_batch()
+    arena = net.arena_layout()
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    flat = torch.randn(arena.total, generator=gen, device="cuda")
+    mirror = ArenaMirror(types.SimpleNamespace(arena=arena, flat_w=flat))
+    assert mirror.host.is_pinned()
+    host = mirror.d2h()
+    assert torch.equal(torch.from_numpy(host), flat.cpu())
+    new = host * 3.0 - 1.0
+    ptr = flat.data_ptr()
+    mirror.h2d(new)
+    torch.cuda.synchronize()
+    assert flat.data_ptr() == ptr
+    assert torch.equal(flat.cpu(), torch.from_numpy(new))
+
+
+@pytest.mark.gpu
+def test_arena_refresh_in_place_feeds_the_forward_and_k7_on_card():
+    """A refresh written into the arena by the tier's H2D keeps the
+    storage (no new tensor) and the next step's forward and K7 read the
+    refreshed weights: the step equals a step loaded with them."""
+    _need_gpu()
+    import types
+
+    from poseidon_tpu_torch.parallel import trainer as T
+    from poseidon_tpu_torch.runtime.async_tier import ArenaMirror
+    net, batch = _ssp_net_and_batch()
+    params0 = net.init(torch.Generator().manual_seed(2))
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        a = T.TrainStep(net, _solver())
+        pa, sa = a.load(params0, T.init_train_state(params0))
+        mirror = ArenaMirror(types.SimpleNamespace(arena=a.arena,
+                                                   flat_w=a.flat_w))
+        ptr = a.flat_w.data_ptr()
+        refreshed = mirror.d2h() * 0.5
+        mirror.h2d(refreshed)
+        assert a.flat_w.data_ptr() == ptr
+        before = port_sgd.LAUNCHES["sgd_update"]
+        pa, sa, ma = a.step(a.params(), sa, batch)
+        assert port_sgd.LAUNCHES["sgd_update"] == before + 1
+        got = {l: {k: v.clone() for k, v in d.items()}
+               for l, d in pa.items()}
+        b = T.TrainStep(net, _solver())
+        want_in = {l: {k: v.cuda() for k, v in d.items()} for l, d in
+                   a.arena.unpack(torch.from_numpy(refreshed)).items()}
+        pb, sb = b.load(want_in, T.init_train_state(want_in))
+        pb, sb, mb = b.step(pb, sb, batch)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = det
+    assert float(ma["loss"]) == float(mb["loss"])
+    for l in got:
+        for k in got[l]:
+            assert torch.equal(got[l][k], pb[l][k]), f"{l}/{k}"

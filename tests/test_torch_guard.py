@@ -1,6 +1,8 @@
 """Boundaries of the port: it imports neither jax nor any module of
-poseidon_tpu, and its entry points refuse to fall back to the CPU when no
-GPU is present and the caller did not ask for the CPU."""
+poseidon_tpu (nor ``ml_dtypes``, which the card machine lacks: the async
+tier's bf16 wire round-trips without it), and its entry points refuse to
+fall back to the CPU when no GPU is present and the caller did not ask for
+the CPU."""
 
 import os
 import subprocess
@@ -19,10 +21,20 @@ names = [m.name for m in pkgutil.walk_packages(poseidon_tpu_torch.__path__,
                                                 "poseidon_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
+# a bf16-wire round trip of the async tier: quantize, encode, decode, widen
+import numpy as np
+from poseidon_tpu_torch.parallel import async_ssp
+from poseidon_tpu_torch.proto import wire
+v = np.linspace(-3, 3, 17, dtype=np.float32)
+q, resid, _ = async_ssp._quantize_leaf(v, "bf16")
+parts, _ = wire.encode_codec_payload({"d": q})
+back = wire.decode_codec_payload(bytearray(b"".join(bytes(p) for p in parts)))
+assert np.array_equal(async_ssp._dense_f32(back["d"]) + resid, v)
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m.startswith("jaxlib.") or m == "poseidon_tpu"
-             or m.startswith("poseidon_tpu."))
+             or m.startswith("poseidon_tpu.") or m == "ml_dtypes"
+             or m.startswith("ml_dtypes."))
 print(len(names), bad)
 assert not bad, bad
 """

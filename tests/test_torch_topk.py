@@ -705,7 +705,7 @@ def test_cli_dcn_slices_must_divide_the_world_and_mesh_refuses():
     with pytest.raises(SystemExit, match="do not compose"):
         comm_from_args(_args("--mesh", "dp2,fsdp2,tp1", "--dcn_slices",
                              "2"))
-    with pytest.raises(NotImplementedError, match="queue A item 8"):
+    with pytest.raises(NotImplementedError, match="queue A item 9, part 5"):
         comm_from_args(_args("--mesh", "dp2,fsdp2,tp1"))
 
 
