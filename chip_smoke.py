@@ -345,6 +345,46 @@ LAUNCH_REPORT = (
     "sys.exit(rc)\n")
 
 
+# the [spmd] phase, AlexNet train_val at full width, f32 (unflagged
+# `train` ranks plan NHWC on the card), on [train]'s synthetic LMDB, every
+# child under cuDNN's deterministic algorithms (SPMD_LAUNCH): (a) two
+# `train --mesh fsdp2` ranks, then two `--mesh fsdp2,replicated` ranks;
+# (b) two `--mesh tp2` ranks, then two `--mesh tp2,replicated`; (c) two
+# `--mesh fsdp2 --staleness 2` ranks; SPMD_CLI_ITERS iterations each at
+# SPMD_CLI_BATCH a rank, the ranks sharing the card over gloo; (b) also
+# runs both arms for SPMD_TP_GATE_ITERS iterations, at once, and both arms
+# in one pair of processes (spmd_tp_pair). (d) in this process, K7
+# on AlexNet's shard-major fsdp shards for each of SPMD_FSDP and at
+# tp2's two lengths.
+SPMD_CLI_BATCH, SPMD_CLI_ITERS = 128, 6
+SPMD_FSDP = (2, 4)
+# tp shards re-associate the FC contractions (cuBLAS blocks an (M/2, K)
+# product otherwise than the (M, K) one; dx sums two partial products):
+# for SPMD_TP_GATE_ITERS iterations (momentum carried into the second
+# update) (b)'s params and momentum stay within the train-step tolerance
+# of its replicated control. From the second forward on those ulps part
+# ReLU and max-pool decisions, and a unit that flips moves its filter's
+# (or its bias's) gradient by a whole term: the pair (spmd_tp_pair) reads
+# the distance and the decisions apart after every iteration and fails if
+# an element leaves the tolerance before a decision has parted, or if an
+# arm's K7 call does not receive the params and momentum its previous
+# call left (the carry between steps, bitwise). After SPMD_CLI_ITERS the
+# CLI runs' losses are held at SPMD_TP_LOSS_RTOL and their distance is
+# reported
+SPMD_TP_TOL = (1e-4, 1e-6)
+SPMD_TP_GATE_ITERS = 2
+SPMD_TP_LOSS_RTOL = 1e-5
+SPMD_LAUNCH = (
+    "import torch\n"
+    "torch.backends.cudnn.deterministic = True\n"
+    + LAUNCH_REPORT.replace(
+        "sys.exit(rc)\n",
+        "if torch.cuda.is_available():\n"
+        "    print('[peak] %d' % torch.cuda.max_memory_allocated(), "
+        "flush=True)\n"
+        "sys.exit(rc)\n"))
+
+
 # the [loop] phase, AlexNet train_val at full width, batch 256, on the
 # synthetic ILSVRC-shaped LMDB of [train]: the serial loop as it was
 # (Python batches, inline copies, a sync every step) for LOOP_SERIAL_STEPS
@@ -2535,7 +2575,8 @@ def without_logs(run: dict) -> dict:
 def dp_cli_run(card: str, root: str, name: str, flags, dev, batch: int,
                ranks: int = 2, tag: str = "dp", iters: int = DP_CLI_ITERS,
                env_extra=None, group: bool = True,
-               same_snapshots: bool = True) -> dict:
+               same_snapshots: bool = True,
+               launcher: str = LAUNCH_REPORT) -> dict:
     """``ranks`` ``train`` processes of the port under the env contract,
     sharing the card (or the CPU), each reporting its kernel launches
     when it returns (``LAUNCH_REPORT``); with ``same_snapshots`` their
@@ -2568,7 +2609,7 @@ def dp_cli_run(card: str, root: str, name: str, flags, dev, batch: int,
                    POSEIDON_NUM_PROCS=str(ranks),
                    POSEIDON_COORDINATOR="file://"
                    + os.path.join(work, "store"), **(env_extra or {}))
-        cmd = [sys.executable, "-c", LAUNCH_REPORT, "train",
+        cmd = [sys.executable, "-c", launcher, "train",
                f"--solver={solver}", "--output_dir",
                os.path.join(work, f"p{r}"), *flags]
         if dev.type == "cpu":
@@ -2622,7 +2663,8 @@ def dp_cli_run(card: str, root: str, name: str, flags, dev, batch: int,
     check(len(losses) == iters and all(map(math.isfinite, losses)),
           f"{tag} {name} losses {losses}")
     times = [float(r["time"]) for r in rows]
-    s_per_step = (times[-1] - times[0]) / (len(times) - 1)
+    s_per_step = ((times[-1] - times[0]) / (len(times) - 1)
+                  if len(times) > 1 else float("nan"))
     print(f"[{tag}] {ranks} ranks, {' '.join(flags) or 'dense'}, batch "
           f"{batch} a rank on one {dev.type} device"
           f"{' over gloo' if group else ''}: all exit 0 in {wall:.1f} s, "
@@ -3310,6 +3352,472 @@ def phase_ssp(card: str, root: str, device=None, batch_size=None,
         f"step; two SSP ranks "
         f"bitwise, kind ssp restored; async dense and managed runs done; "
         f"phase wall {out['wall_s']:.1f} s [{card}]", flush=True)
+    return out
+
+
+def snapshot_arrays(path: str) -> dict:
+    import numpy as np
+    with np.load(path) as z:
+        return {k: z[k] for k in z.files}
+
+
+def peak_bytes(logs) -> list:
+    """Every rank's ``torch.cuda.max_memory_allocated`` (SPMD_LAUNCH)."""
+    return [int(next(ln for ln in log.splitlines()
+                     if ln.startswith("[peak] ")).split()[1])
+            for log in logs]
+
+
+def spmd_tp_pair_rank(root: str, rank: str, device: str, batch: str,
+                      iters: str, out: str) -> int:
+    """One of the two ranks of [spmd] (b)'s in-process tp2 pair (started
+    by ``spmd_tp_pair``): the tp2 step and its replicated control on one
+    two-rank gloo mesh, AlexNet train_val at ``batch`` under cuDNN's
+    deterministic algorithms, fed the same params, batches (the LMDB's
+    first ``iters``) and dropout streams, planned and seeded as the
+    Engine of a ``train --mesh tp2`` rank plans and seeds them.
+    After each iteration: both arms' losses; the distance between their
+    canonical params and momentum (``export``); the ReLU decisions (the
+    sign of each ReLU's top) and max-pool argmaxes (recomputed from each
+    pool's input) of that iteration's forward that differ between the
+    arms. Every K7 call runs the kernel and, on copies of its inputs, the
+    plain version: its arm, length, launches, whether they agree bitwise
+    and whether it received the params and momentum that the previous
+    call of its arm and length left (bitwise; None for the first). Rank 0
+    writes the iterations, every rank its K7 calls, as JSON to ``out`` +
+    ``.rank<r>``."""
+    import torch
+    import torch.nn.functional as F
+    from poseidon_tpu_torch.config import MeshConfig
+    from poseidon_tpu_torch.core.net import Net
+    from poseidon_tpu_torch.data.pipeline import build_phase_pipelines
+    from poseidon_tpu_torch.ops import sgd
+    from poseidon_tpu_torch.parallel import spmd
+    from poseidon_tpu_torch.parallel.mesh import rank_seed
+    from poseidon_tpu_torch.parallel.strategies import CommConfig
+    from poseidon_tpu_torch.parallel.trainer import init_train_state
+    from poseidon_tpu_torch.proto.messages import load_solver
+    from poseidon_tpu_torch.runtime.cluster import init_distributed
+
+    torch.backends.cudnn.deterministic = True
+    rank, batch, iters = int(rank), int(batch), int(iters)
+    rtol, atol = SPMD_TP_TOL
+    cfg = MeshConfig(tp=2)
+    group = init_distributed(torch.device(device), rank=rank, world=2,
+                             coordinator="file://" + out + ".store",
+                             mesh_cfg=cfg)
+    try:
+        dev = group.device
+        net_param = alexnet_net_param(root, batch)
+        pipes, shapes = build_phase_pipelines(net_param, "TRAIN")
+        try:
+            batches = [{k: torch.from_numpy(v).to(dev)
+                        for k, v in next(pipes[0]).items()}
+                       for _ in range(iters)]
+        finally:
+            for p in pipes:
+                p.close()
+        # planned as an unflagged `train` plans it ("auto": NHWC on the
+        # card, NCHW on the CPU)
+        net = Net(net_param, "TRAIN", device=dev, source_shapes=shapes,
+                  conv_layout="auto")
+        sp = load_solver(ALEXNET_SOLVER)
+        seed = sp.random_seed if sp.random_seed >= 0 else 1
+        params0 = net.init(torch.Generator().manual_seed(seed))
+        net.generator.manual_seed(rank_seed(seed, group.batch_index))
+        comm = CommConfig()
+        k7, left = [], {}
+
+        def checked(arm):
+            def update(w, g, h, rate, lr, dec, mom):
+                key = (arm, w.numel())
+                carried = (None if key not in left else bool(
+                    torch.equal(w, left[key][0])
+                    and torch.equal(h, left[key][1])))
+                wp, hp = w.clone(), h.clone()
+                sgd.sgd_update_plain_(wp, g, hp, rate, lr, dec, mom)
+                before = sgd.LAUNCHES["sgd_update"]
+                sgd.sgd_update_(w, g, h, rate, lr, dec, mom)
+                k7.append({"arm": arm, "length": w.numel(),
+                           "launches": sgd.LAUNCHES["sgd_update"] - before,
+                           "bitwise": bool(torch.equal(w, wp)
+                                           and torch.equal(h, hp)),
+                           "carried": carried})
+                left[key] = (w.clone(), h.clone())
+            return update
+
+        arms = {}
+        for arm, shard in (("tp2", True), ("control", False)):
+            plan = spmd.ShardingPlan.build(net, cfg, comm, shard_params=shard,
+                                           enable_tp=shard)
+            step = spmd.SpmdTrainStep(net, sp, group, plan, comm)
+            step.sgd_update = checked(arm)
+            arms[arm] = [step, *step.load(params0, init_train_state(
+                params0, comm, plan.n_dp))]
+        apply, seen = net.apply, {}
+
+        def keep_blobs(*a, **kw):
+            res = apply(*a, **{**kw, "keep_blobs": True})
+            seen["blobs"] = res.blobs
+            return res
+
+        net.apply = keep_blobs
+        relus = [l for l in net.layers if l.TYPE == "RELU"]
+        pools = [l for l in net.layers
+                 if l.TYPE == "POOLING" and l.method == "MAX"]
+        rows = []
+        for k, feed in enumerate(batches):
+            stream = net.generator.get_state()
+            losses, blobs = {}, {}
+            for arm, rec in arms.items():
+                net.generator.set_state(stream)
+                rec[1], rec[2], m = rec[0].step(rec[1], rec[2], feed)
+                losses[arm] = float(m["loss"])
+                blobs[arm] = seen.pop("blobs")
+            a, b = blobs["tp2"], blobs["control"]
+            flips = {l.name: int(((a[l.lp.top[0]] > 0)
+                                  != (b[l.lp.top[0]] > 0)).sum())
+                     for l in relus}
+            for l in pools:
+                idx = [F.max_pool2d(x[l.lp.bottom[0]].float(), l.kernel,
+                                    l.stride, l.pad, ceil_mode=True,
+                                    return_indices=True)[1] for x in (a, b)]
+                flips[l.name] = int((idx[0] != idx[1]).sum())
+            del a, b, blobs
+            trees = {arm: rec[0].export(rec[1], rec[2])
+                     for arm, rec in arms.items()}
+            if rank == 0:
+                err, outside = 0.0, {}
+                for what in ("params", "history"):
+                    got, want = ((p if what == "params" else st.solver.history)
+                                 for p, st in (trees["tp2"], trees["control"]))
+                    for lname, lv in want.items():
+                        for pname, w in lv.items():
+                            d = (got[lname][pname] - w).abs()
+                            err = max(err, float(d.max()))
+                            n = int((d > atol + rtol * w.abs()).sum())
+                            if n:
+                                outside[f"{what}/{lname}/{pname}"] = n
+                rows.append({"iteration": k + 1, "losses": losses,
+                             "max_abs": err, "outside": outside,
+                             "flips": flips})
+            del trees
+        with open(f"{out}.rank{rank}", "w") as f:
+            json.dump({"iterations": rows, "k7": k7}, f)
+    finally:
+        group.close()
+    return 0
+
+
+def spmd_tp_pair(card: str, root: str, dev, batch: int, iters: int,
+                 tp_lengths) -> dict:
+    """[spmd] (b)'s in-process tp2 pair (``spmd_tp_pair_rank``) as two
+    processes sharing the card: prints the distance and the differing
+    decisions after each iteration, and fails unless the first
+    SPMD_TP_GATE_ITERS iterations end within SPMD_TP_TOL, no element
+    leaves the tolerance before a decision has parted the arms (that
+    iteration's forward or an earlier one), every K7 call agrees
+    bitwise with the plain version (one launch each on the card) and
+    receives what its arm's previous call left, and K7 ran at
+    ``tp_lengths`` in the tp2 arm."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    out = os.path.join(root, "spmd_tp_pair")
+    cmd = ("import sys, chip_smoke; "
+           "sys.exit(chip_smoke.spmd_tp_pair_rank(*sys.argv[1:]))")
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", cmd, root, str(r), dev.type, str(batch),
+         str(iters), out], cwd=here, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=DP_CLI_TIMEOUT_S)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        for line in log.splitlines():
+            print(f"[spmd:tp_pair:rank{r}] {line}", flush=True)
+        check(p.returncode == 0, f"tp2 pair rank {r} exited {p.returncode}")
+    res = []
+    for r in range(2):
+        with open(f"{out}.rank{r}") as f:
+            res.append(json.load(f))
+    rtol, atol = SPMD_TP_TOL
+    for row in res[0]["iterations"]:
+        relu = {k: v for k, v in row["flips"].items() if k.startswith("relu")}
+        pool = {k: v for k, v in row["flips"].items()
+                if not k.startswith("relu")}
+        print(f"[spmd] (b) pair, iteration {row['iteration']}: loss tp2 "
+              f"{row['losses']['tp2']!r} control "
+              f"{row['losses']['control']!r}; params and momentum max_abs "
+              f"{row['max_abs']:.3e}, elements outside rtol {rtol:g} atol "
+              f"{atol:g}: {sum(row['outside'].values())} in "
+              f"{len(row['outside'])} leaves; in this iteration's forward "
+              f"ReLU decisions differing {relu}, max-pool argmaxes "
+              f"differing {pool} [{card}]", flush=True)
+    calls = res[0]["k7"] + res[1]["k7"]
+    on_card = dev.type == "cuda"
+    lengths = sorted({c["length"] for c in calls if c["arm"] == "tp2"})
+    print(f"[spmd] (b) pair: K7 {len(calls)} calls on the two ranks, at "
+          f"{lengths} (tp2) and "
+          f"{sorted({c['length'] for c in calls if c['arm'] == 'control'})}"
+          f" (control), every one bitwise to plain: "
+          f"{all(c['bitwise'] for c in calls)} [{card}]", flush=True)
+    carried = [c["carried"] for c in calls if c["carried"] is not None]
+    print(f"[spmd] (b) pair: K7 received the params and momentum its "
+          f"arm's previous call left, bitwise, at {sum(carried)} of "
+          f"{len(carried)} later calls [{card}]", flush=True)
+    check(all(c["bitwise"] for c in calls), "K7 in the tp2 pair vs plain")
+    check(all(carried) and len(carried) == len(calls) - 6,
+          "the tp2 pair's params or momentum changed between steps")
+    check(all(c["launches"] == int(on_card) for c in calls),
+          "K7 in the tp2 pair: launches a call")
+    check(lengths == sorted(tp_lengths),
+          f"K7 in the tp2 pair at {lengths}, not {sorted(tp_lengths)}")
+    rows = res[0]["iterations"]
+    check(not any(row["outside"] for row in rows[:SPMD_TP_GATE_ITERS]),
+          f"the tp2 pair left PARAM_TOL within {SPMD_TP_GATE_ITERS} "
+          f"iterations: {[row['outside'] for row in rows]}")
+    parted = [any(row["flips"].values()) for row in rows]
+    first = {"outside": next((r["iteration"] for r in rows if r["outside"]),
+                             None),
+             "apart": next((r["iteration"] for r, p in zip(rows, parted)
+                            if p), None)}
+    print(f"[spmd] (b) pair: the first iteration outside rtol {rtol:g} "
+          f"atol {atol:g}: {first['outside']}; the first forward with a "
+          f"decision apart: {first['apart']} [{card}]", flush=True)
+    check(first["outside"] is None or (first["apart"] is not None
+                                       and first["apart"]
+                                       <= first["outside"]),
+          f"the tp2 pair left the tolerance before any decision parted: "
+          f"{first}")
+    return {"iterations": rows, "k7_calls": len(calls),
+            "k7_tp2_lengths": lengths, "first": first}
+
+
+def spmd_k7_shards(card: str, net, sp, tp_layouts) -> list:
+    """(d) K7 on AlexNet's fsdp shards: for each F of SPMD_FSDP, the
+    shard-major multiplier segments of fsdp ranks 0 and F-1 with random
+    w, g, h of the shard's length, kernel vs plain bitwise; the same at
+    tp2's two lengths (``tp_layouts``: its arena, whole, and a rank's tp
+    leaves, each with its own multiplier vectors); then a shard taken at
+    an offset off 16 bytes, which the kernel refuses (the SPMD step
+    copies its shard into allocated buffers instead)."""
+    import torch
+    from poseidon_tpu_torch.ops import sgd
+    from poseidon_tpu_torch.parallel import spmd
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    records = []
+    rate, mom = 0.01, 0.9
+    cases = []
+    for f in SPMD_FSDP:
+        layout = net.arena_layout(4.0, align=f)
+        lr_all, dec_all = spmd.shard_mult_vectors(layout, sp, f)
+        n = layout.padded_total // f
+        cases += [(f"fsdp{f} shard {fi}", layout.padded_total,
+                   lr_all[fi * n:(fi + 1) * n], dec_all[fi * n:(fi + 1) * n])
+                  for fi in (0, f - 1)]
+    for label, layout in zip(("tp2 arena", "tp2 tp leaves"), tp_layouts):
+        cases.append((label, layout.padded_total,
+                      *layout.mult_vectors(sp.weight_decay)))
+    for label, total, lr_np, dec_np in cases:
+        n = len(lr_np)
+        lr = torch.from_numpy(lr_np.copy()).cuda()
+        dec = torch.from_numpy(dec_np.copy()).cuda()
+        w = torch.randn(n, generator=gen, device="cuda")
+        g = torch.randn(n, generator=gen, device="cuda")
+        h = torch.randn(n, generator=gen, device="cuda") * 1e-3
+        wk, hk, wp, hp = w.clone(), h.clone(), w.clone(), h.clone()
+        sgd.sgd_update_cuda_(wk, g, hk, rate, lr, dec, mom)
+        torch.cuda.synchronize()
+        sgd.sgd_update_plain_(wp, g, hp, rate, lr, dec, mom)
+        bitwise = torch.equal(wk, wp) and torch.equal(hk, hp)
+        got, want = torch.cat([wk, hk]), torch.cat([wp, hp])
+        del wk, hk, wp, hp
+        p = torch.nn.Parameter(w.clone())
+        p.grad = g.clone()
+        opt = torch.optim.SGD([p], lr=rate, momentum=mom,
+                              weight_decay=5e-4, foreach=True)
+        rec = compare_case(
+            "sgd_update", label, got, want, "float32",
+            lambda: sgd.sgd_update_cuda_(w, g, h, rate, lr, dec, mom),
+            lambda: sgd.sgd_update_plain_(w, g, h, rate, lr, dec, mom),
+            opt.step, 7 * n * 4, 8 * n, card,
+            extra=f" P={n} of padded_total {total}, bitwise={bitwise}")
+        check(bitwise, f"K7 on the {label} is not bitwise")
+        rec.update(length=n, bitwise=bitwise)
+        records.append(rec)
+        del w, g, h, lr, dec, got, want, p, opt
+        torch.cuda.empty_cache()
+    buf = torch.zeros(1 + 1024, device="cuda")
+    view = buf[1:]
+    try:
+        sgd.sgd_update_cuda_(view, view, view, rate, view, view, mom)
+        refused = False
+    except ValueError as e:
+        refused = "16-byte aligned" in str(e)
+    print(f"[spmd] (d) K7 on a shard at an offset off 16 bytes: refused="
+          f"{refused} (the step copies its shard into allocated buffers, "
+          f"aligned whatever the shard's offset) [{card}]", flush=True)
+    check(refused, "K7 took a vector off 16 bytes")
+    return records
+
+
+def phase_spmd(card: str, root: str, device=None, cli_batch=None) -> dict:
+    """The SPMD mesh planner on the card (``device`` and ``cli_batch``
+    are for a CPU rehearsal at a cut batch): (a), (b), (c) and (d) of
+    the SPMD_* constants' comment. Two ranks sharing one card over gloo
+    measure correctness and the host's staging, not a link."""
+    import numpy as np
+    import torch
+    from poseidon_tpu_torch.config import MeshConfig
+    from poseidon_tpu_torch.core.net import Net
+    from poseidon_tpu_torch.numeric import resolve_device
+    from poseidon_tpu_torch.parallel import spmd
+    from poseidon_tpu_torch.proto.messages import load_solver
+
+    t_phase = time.perf_counter()
+    dev = resolve_device(device)
+    on_card = dev.type == "cuda"
+    batch = cli_batch or SPMD_CLI_BATCH
+    iters = SPMD_CLI_ITERS
+    out = {"batch": batch, "iters": iters, "arms": {}}
+    per_step = {"lrn_fwd_nhwc": 2, "lrn_bwd_nhwc": 2, "pool_bwd_nhwc": 3,
+                "sgd_update": 1}
+
+    def want(k7: int, n: int = iters):
+        w = {k: 0 for k in read_launches()}
+        if on_card:
+            w.update({k: v * n for k, v in per_step.items()})
+            w["sgd_update"] = k7 * n
+        return w
+
+    def arm(name, flags, k7=1, n=iters):
+        run_ = dp_cli_run(card, root, name, flags, dev, batch, tag="spmd",
+                          iters=n, launcher=SPMD_LAUNCH)
+        peaks = peak_bytes(run_["logs"]) if on_card else []
+        check(all(r == want(k7, n) for r in run_["launches"]),
+              f"spmd {name} ranks' launches {run_['launches']} != "
+              f"{want(k7, n)}")
+        res = {**without_logs(run_), "peak_bytes": peaks}
+        out["arms"][name] = res
+        print(f"[spmd] {name}: {' '.join(flags)}, "
+              f"{run_['s_per_step'] * 1e3:.1f} ms a step (wall, after the "
+              f"first), peak "
+              f"{[round(p / 2**30, 3) for p in peaks]} GiB a rank, "
+              f"launches a rank {run_['launches'][0]} [{card}]", flush=True)
+        return run_
+
+    # (a) fsdp2 against its replicated control
+    sh = arm("fsdp2", ("--mesh", "fsdp2"))
+    log0 = sh["logs"][0]
+    line = next(ln for ln in log0.splitlines() if "spmd: " in ln)
+    padded = int(line.split(" f32 (align 2)")[0].rsplit(" ", 1)[1])
+    shard = int(line.split("the update over a ")[1].split("-f32")[0])
+    print(f"[spmd] (a) {line.strip()} [{card}]", flush=True)
+    check(shard * 2 == padded, f"K7 runs over {shard} of {padded} f32")
+    rep = arm("fsdp2_replicated", ("--mesh", "fsdp2,replicated"))
+    a, b = (snapshot_arrays(r["state_path"]) for r in (sh, rep))
+    same = sorted(a) == sorted(b) and all(np.array_equal(a[k], b[k])
+                                          for k in a)
+    print(f"[spmd] (a) fsdp2 vs fsdp2,replicated: snapshots bitwise={same}; "
+          f"losses {sh['losses']} vs {rep['losses']}; K7 1 a step over the "
+          f"{shard}-f32 shard (padded_total {padded}) [{card}]", flush=True)
+    check(same, "fsdp2 and its replicated control differ")
+    out.update(fsdp2_bitwise=same, padded_total=padded, shard=shard)
+
+    # (b) tp2 against its replicated control
+    rtol, atol = SPMD_TP_TOL
+
+    def distance(x, y, n):
+        """max_abs over params and momentum, and the elements (and their
+        leaves) outside rtol/atol."""
+        a, b = (snapshot_arrays(r["state_path"]) for r in (x, y))
+        keys = [k for k in b if k.startswith(("params/", "history/"))]
+        err = max(float(np.abs(a[k] - b[k]).max()) for k in keys)
+        outside = {k: int((np.abs(a[k] - b[k])
+                           > atol + rtol * np.abs(b[k])).sum())
+                   for k in keys}
+        outside = {k: v for k, v in outside.items() if v}
+        print(f"[spmd] (b) tp2 vs tp2,replicated after {n} iteration(s): "
+              f"params and momentum max_abs {err:.3e}; elements outside "
+              f"rtol {rtol:g} atol {atol:g}: {outside or 0} [{card}]",
+              flush=True)
+        return err, outside
+
+    # the same pair in one pair of processes: the distance after every
+    # iteration and the decisions that part the runs; K7 against plain at
+    # every call, at the two lengths a tp2 rank updates (its arena whole,
+    # its tp leaves), as the step lays them out
+    sp = load_solver(ALEXNET_SOLVER)
+    net = Net(alexnet_net_param(root, batch), "TRAIN", device="cpu",
+              source_shapes={"data": (batch, 3, 227, 227),
+                             "label": (batch,)})
+    tp_layouts = spmd.step_layouts(
+        net, spmd.ShardingPlan.build(net, MeshConfig(tp=2)))[::2]
+    out["tp2_pair"] = spmd_tp_pair(card, root, dev, batch, iters,
+                                   [lay.padded_total for lay in tp_layouts])
+    # the short pair of CLI runs, both arms at once (no time is read):
+    # momentum carries into its second update
+    from concurrent.futures import ThreadPoolExecutor
+    n_gate = min(SPMD_TP_GATE_ITERS, iters)
+    with ThreadPoolExecutor(2) as pool:
+        tp1 = pool.submit(arm, f"tp2_{n_gate}", ("--mesh", "tp2"), k7=2,
+                          n=n_gate)
+        tpr1 = pool.submit(arm, f"tp2_replicated_{n_gate}",
+                           ("--mesh", "tp2,replicated"), n=n_gate)
+        tp1, tpr1 = tp1.result(), tpr1.result()
+    err1, outside1 = distance(tp1, tpr1, n_gate)
+    check(not outside1, f"tp2 vs its replicated control after {n_gate} "
+                        f"iterations: {outside1}")
+    tp = arm("tp2", ("--mesh", "tp2"), k7=2)
+    plan_line = next(ln for ln in tp["logs"][0].splitlines()
+                     if "sharding plan:" in ln)
+    print(f"[spmd] (b) {plan_line.strip()} [{card}]", flush=True)
+    check("tp {'fc6': 'column', 'fc7': 'column', 'fc8': 'column'}"
+          in plan_line, "tp2 plan")
+    tpr = arm("tp2_replicated", ("--mesh", "tp2,replicated"))
+    err, outside = distance(tp, tpr, iters)
+    losses_ok = bool(np.allclose(tp["losses"], tpr["losses"],
+                                 rtol=SPMD_TP_LOSS_RTOL, atol=0))
+    print(f"[spmd] (b) tp2 vs tp2,replicated losses within rtol "
+          f"{SPMD_TP_LOSS_RTOL:g} over {iters} iterations: {losses_ok} "
+          f"[{card}]", flush=True)
+    check(losses_ok, f"tp2 losses {tp['losses']} vs {tpr['losses']}")
+    rows = out["tp2_pair"]["iterations"]
+    print(f"[spmd] (b) the pair's losses equal to the CLI runs' (the same "
+          f"seeds and batches): tp2 "
+          f"{[r['losses']['tp2'] for r in rows] == tp['losses']}, control "
+          f"{[r['losses']['control'] for r in rows] == tpr['losses']} "
+          f"[{card}]", flush=True)
+    out.update(tp2_max_abs_gate=err1, tp2_max_abs=err,
+               tp2_outside=outside, tp2_plan=plan_line.strip())
+
+    # (c) SSP on the fsdp mesh: the DENSE deltas reshard at the boundary
+    ssp = arm("fsdp2_ssp", ("--mesh", "fsdp2", "--staleness", "2"))
+    out["ssp_losses"] = ssp["losses"]
+
+    # (d) K7 on the shards and at tp2's lengths, and the sharded state's
+    # bytes a rank
+    out["k7"] = spmd_k7_shards(card, net, sp, tp_layouts) if on_card else []
+    fs = spmd.sharded_state_bytes(net, spmd.ShardingPlan.build(
+        net, MeshConfig(fsdp=2)))
+    rs = spmd.sharded_state_bytes(net, spmd.ShardingPlan.build(
+        net, MeshConfig(fsdp=2, shard=False), shard_params=False))
+    out.update(sharded_state_bytes=fs, replicated_state_bytes=rs)
+    print(f"[spmd] (d) params + momentum a rank: fsdp2 sharded state "
+          f"{fs['total']} B against the replicated arm's {rs['total']} B "
+          f"({fs['total'] / rs['total']:.3f}x) [{card}]", flush=True)
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"[spmd] fsdp2 bitwise to its control, tp2 within rtol "
+          f"{rtol:g} atol {atol:g} of its control after {n_gate} "
+          f"iterations and past it only after decisions part, SSP on fsdp2 "
+          f"done, K7 on the shards and at tp2's lengths bitwise; phase wall "
+          f"{out['wall_s']:.1f} s [{card}]", flush=True)
     return out
 
 
@@ -4051,6 +4559,8 @@ def main() -> int:
             topk = phase_topk(card, root)
             torch.cuda.empty_cache()
             ssp = phase_ssp(card, root)
+            torch.cuda.empty_cache()
+            spmd = phase_spmd(card, root)
         torch.cuda.empty_cache()
         lm = phase_lm(card)
         torch.cuda.empty_cache()
@@ -4219,6 +4729,14 @@ def main() -> int:
             ssp_nhwc=ssp["layouts"]["NHWC"]["launches"][name],
             ssp_cli=ssp["cli_launches"][name],
             async_ssp=ssp["async_launches"][name])
+        # the SPMD paths: every rank of each `train --mesh` run
+        entry["launches_by_path"].update(
+            {f"spmd_{arm}": sum_launches(r["launches"])[name]
+             for arm, r in spmd["arms"].items()})
+        if name == "sgd_update":
+            entry["cases"] += spmd["k7"]
+            entry["max_abs_err"] = max(r["max_abs_err"]
+                                       for r in entry["cases"])
     summary = {"train_step_ms": train["step_ms"],
                "train_peak_bytes": train["peak_bytes"],
                "train_loop": train["loop"],
@@ -4227,6 +4745,7 @@ def main() -> int:
                "dp": dp,
                "topk": topk,
                "ssp": ssp,
+               "spmd": {k: v for k, v in spmd.items() if k != "k7"},
                "loop": loop,
                "lm_serving": lm,
                "lm_training": lm_train,

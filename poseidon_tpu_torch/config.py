@@ -4,7 +4,8 @@ for what it covers): the step-pipeline policy of the training loop
 (``FaultConfig``) and managed-communication policy
 (``ManagedCommConfig``), each with the JAX package's defaults, and the
 numeric policy, whose names are re-exported from ``numeric.py`` as the JAX
-package's ``config`` re-exports them. The mesh configs are later work."""
+package's ``config`` re-exports them, and the named SPMD mesh request
+(``MeshConfig``, ``train --mesh``). The fabric config is later work."""
 
 from __future__ import annotations
 
@@ -21,6 +22,78 @@ def __getattr__(name: str):
         from . import numeric
         return getattr(numeric, name)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    """Named-axis SPMD mesh request (``--mesh dp2,fsdp2,tp1``), the JAX
+    package's ``MeshConfig``:
+
+      ``data`` — classic data parallelism (replicated params, batch shards);
+      ``fsdp`` — batch shards PLUS parameter-arena sharding: arena buckets
+                 live 1/fsdp per rank, gradients reduce-scatter, params
+                 all-gather (the ZeRO trade);
+      ``tp``   — tensor parallelism: FC layers take column/row weight
+                 shards, activations reshard at planner-chosen points.
+
+    Sizes of 1 deactivate an axis; one rank a device, so the world is
+    ``n_devices``. ``parallel/spmd.py`` plans a net on it."""
+
+    data: int = 1
+    fsdp: int = 1
+    tp: int = 1
+    # False = the replicated CONTROL arm on the same mesh (same batch
+    # shards, same hierarchical reduction order, sharding mechanism off),
+    # spelled ``--mesh dp2,fsdp2,replicated``
+    shard: bool = True
+
+    _KEYS = (("dp", "data"), ("data", "data"), ("fsdp", "fsdp"),
+             ("tp", "tp"))
+
+    @classmethod
+    def parse(cls, spec: str) -> "MeshConfig":
+        """``"dp2,fsdp2,tp1"`` (any subset, any order) -> MeshConfig.
+        Unknown axis names and repeated axes fail loudly; a
+        ``replicated`` token selects the control arm."""
+        sizes = {}
+        shard = True
+        for part in filter(None, (p.strip() for p in spec.split(","))):
+            if part == "replicated":
+                shard = False
+                continue
+            for key, axis in cls._KEYS:
+                if part.startswith(key) and part[len(key):].isdigit():
+                    if axis in sizes:
+                        raise ValueError(
+                            f"--mesh {spec!r}: axis {axis!r} given twice")
+                    sizes[axis] = int(part[len(key):])
+                    break
+            else:
+                raise ValueError(
+                    f"--mesh {spec!r}: cannot parse {part!r} (expected "
+                    f"dpN / fsdpN / tpN or 'replicated', e.g. "
+                    f"'dp2,fsdp2,tp1')")
+        cfg = cls(shard=shard, **sizes)
+        for name, size in (("data", cfg.data), ("fsdp", cfg.fsdp),
+                           ("tp", cfg.tp)):
+            if size < 1:
+                raise ValueError(f"--mesh {spec!r}: {name} size must be "
+                                 f">= 1, got {size}")
+        return cfg
+
+    @property
+    def n_devices(self) -> int:
+        return self.data * self.fsdp * self.tp
+
+    @property
+    def active(self) -> bool:
+        """True when the request needs the SPMD planner (any sharding
+        beyond plain data parallelism)."""
+        return self.fsdp > 1 or self.tp > 1
+
+    def describe(self) -> str:
+        return (f"dp{self.data},fsdp{self.fsdp},tp{self.tp}"
+                + ("" if self.shard else ",replicated"))
 
 
 @dataclass

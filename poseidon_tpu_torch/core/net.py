@@ -191,15 +191,19 @@ class Net(nn.Module):
         self._plan_epilogues()
         self.params: Optional[Params] = None
 
-    def arena_layout(self, bucket_mb: float = 4.0):
-        """The flat-parameter-arena layout of every param layer over the
-        DWBP-ordered table, cut into ~``bucket_mb`` MB buckets; cached per
-        bucket_mb. None when the net has no parameters."""
+    def arena_layout(self, bucket_mb: float = 4.0, align: int = 1,
+                     layers=None):
+        """The flat-parameter-arena layout over the DWBP-ordered table (of
+        the ``layers`` given, else every param layer), cut into
+        ~``bucket_mb`` MB buckets aligned to ``align``; cached. None when
+        nothing qualifies."""
         from .arena import build_arena
-        if bucket_mb not in self._arena_layouts:
-            self._arena_layouts[bucket_mb] = build_arena(self._arena_order,
-                                                         bucket_mb)
-        return self._arena_layouts[bucket_mb]
+        key = (bucket_mb, align, None if layers is None
+               else frozenset(layers))
+        if key not in self._arena_layouts:
+            self._arena_layouts[key] = build_arena(
+                self._arena_order, bucket_mb, align, key[2])
+        return self._arena_layouts[key]
 
     def _plan_epilogues(self) -> None:
         """Fold each in-place ReLU that immediately consumes a conv's top
@@ -267,7 +271,11 @@ class Net(nn.Module):
         loss_weight * top, in f32), the output blobs, and every blob by its
         last value with ``keep_blobs``. ``train`` defaults to the phase.
         ``comm`` (a ``parallel/strategies.CommContext``) runs each of its
-        ``sfb_layers`` through its sufficient-factor product."""
+        ``routed_layers`` through its ``layer_product`` (the
+        sufficient-factor product, or a tensor-parallel shard's on a
+        named mesh). A leaf whose shape differs from its definition is
+        reshaped when its count agrees; otherwise only a leaf the comm's
+        plan tensor-shards may pass (JAX's ``_layer_params``)."""
         if params is None:
             params = self.params
         if params is None:
@@ -283,10 +291,10 @@ class Net(nn.Module):
             bottoms = [blobs[b] for b in layer.lp.bottom]
             if nhwc and layer.TYPE in SPATIAL_TYPES:
                 bottoms = [to_channels_last(b) for b in bottoms]
-            lparams = params.get(layer.name, {})
-            if comm is not None and layer.name in comm.sfb_layers:
-                tops = [comm.inner_product(bottoms[0], lparams["w"],
-                                           lparams.get("b"))]
+            lparams = self._layer_params(params, layer, comm)
+            if comm is not None and layer.name in comm.routed_layers:
+                tops = [comm.layer_product(layer.name, bottoms[0],
+                                           lparams["w"], lparams.get("b"))]
             else:
                 tops = layer(lparams, bottoms, train)
             weights = layer.loss_weights(len(tops))
@@ -298,6 +306,24 @@ class Net(nn.Module):
             loss=loss,
             outputs={name: blobs[name] for name in self.output_names},
             blobs=blobs if keep_blobs else {})
+
+    @staticmethod
+    def _layer_params(params: Params, layer: Layer, comm=None
+                      ) -> Dict[str, torch.Tensor]:
+        lparams = params.get(layer.name, {})
+        for pdef in layer.params:
+            v = lparams.get(pdef.name)
+            if v is None or tuple(v.shape) == pdef.shape:
+                continue
+            if v.numel() == pdef.count:
+                lparams = {**lparams, pdef.name: v.reshape(pdef.shape)}
+            elif comm is None or not comm.is_tp_leaf(layer.name, pdef.name):
+                raise ValueError(
+                    f"layer {layer.name!r} param {pdef.name!r}: got shape "
+                    f"{tuple(v.shape)} for defined shape {pdef.shape} — "
+                    f"size mismatch with no tensor-parallel plan covering "
+                    f"this leaf")
+        return lparams
 
     def forward(self, inputs: Dict[str, torch.Tensor],
                 params: Optional[Params] = None,

@@ -62,6 +62,7 @@ bf16/f16, and ``CommConfig`` refuses int8 as the JAX CLI does.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import hashlib
 import zlib
@@ -117,6 +118,12 @@ class CommConfig:
     # three knobs (dwbp_bucket_mb, param_arena, arena_bucket_mb) map onto
     # it in ``runtime/cli.py``'s ``bucket_mb_of``
     bucket_mb: float = 4.0
+    # the SPMD planner's arena (``parallel/spmd.py``, ``train --mesh``):
+    # False leaves every DENSE layer outside the arena, each leaf synced on
+    # its own (JAX's --param_arena false); an fsdp mesh then has nothing
+    # to shard and refuses. The flat data-parallel step reads
+    # ``bucket_mb`` alone
+    param_arena: bool = True
     # the two-tier mesh's slow axis (the slices of the step's DataGroup):
     # set, TOPK sums inside each slice and compresses between slices
     dcn_axis: Optional[str] = None
@@ -307,13 +314,16 @@ class SFBMatmul(torch.autograd.Function):
     factors (rank order) as one product of compute-dtype operands
     accumulated in f32 (JAX's ``preferred_element_type=accum_dtype``),
     divided by the world for the mean; the bias gradient goes through
-    ``wire_all_reduce``. The wire dtype applies to the factors."""
+    ``wire_all_reduce``. The wire dtype applies to the factors. ``layer``
+    names the three collectives for ``comm.collective`` (the SPMD
+    census)."""
 
     @staticmethod
-    def forward(ctx, x2, w, b, comm):
+    def forward(ctx, x2, w, b, comm, layer=None):
         cd = policy().compute_dtype
         ctx.save_for_backward(x2, w)
         ctx.comm = comm
+        ctx.layer = layer
         ctx.cd = cd
         ctx.b_dtype = None if b is None else b.dtype
         return F.linear(x2.to(cd), w.to(cd), None if b is None else b.to(cd))
@@ -328,31 +338,53 @@ class SFBMatmul(torch.autograd.Function):
         # is the compute-dtype product with f32 accumulation
         gx = (g.to(cd).to(acc).mm(w.to(cd).to(acc)).to(x2.dtype)
               if ctx.needs_input_grad[0] else None)
-        big_g = group.all_gather(_to_wire(g, wd))       # (B_global, M)
-        big_x = group.all_gather(_to_wire(x2, wd))      # (B_global, K)
+        n, m, k = g.shape[0] * group.world, g.shape[1], x2.shape[1]
+        label = ctx.comm.collective
+        with label(f"sfb_gfactor_{ctx.layer}", "all_gather", n * m):
+            big_g = group.all_gather(_to_wire(g, wd))       # (B_global, M)
+        with label(f"sfb_xfactor_{ctx.layer}", "all_gather", n * k):
+            big_x = group.all_gather(_to_wire(x2, wd))      # (B_global, K)
         gw = big_g.to(cd).to(acc).t().mm(big_x.to(cd).to(acc))  # (M, K)
         if cfg.reduce == "mean":
             gw = gw / group.world
-        gb = (wire_all_reduce(g.sum(0), group, cfg.reduce,
-                              cfg.wire_dtype).to(ctx.b_dtype)
-              if ctx.b_dtype is not None else None)
-        return gx, gw.to(w.dtype), gb, None
+        gb = None
+        if ctx.b_dtype is not None:
+            with label(f"sfb_bias_{ctx.layer}", "all_reduce", m):
+                gb = wire_all_reduce(g.sum(0), group, cfg.reduce,
+                                     cfg.wire_dtype).to(ctx.b_dtype)
+        return gx, gw.to(w.dtype), gb, None, None
 
 
 class CommContext:
     """Threaded through ``Net.apply``, which runs each layer named in
-    ``sfb_layers`` (the SFB layers of ``sync_kinds``) through
-    ``inner_product`` in place of the layer's own forward."""
+    ``routed_layers`` (here the SFB layers of ``sync_kinds``) through
+    ``layer_product`` in place of the layer's own forward, and asks
+    ``is_tp_leaf`` before refusing a leaf of the wrong size."""
 
     def __init__(self, cfg: CommConfig, group, kinds: Dict[str, str]):
         self.cfg = cfg
         self.group = group
         self.sfb_layers = frozenset(l for l, k in kinds.items() if k == SFB)
 
+    @property
+    def routed_layers(self):
+        return self.sfb_layers
+
+    def is_tp_leaf(self, layer: str, pname: str) -> bool:
+        return False
+
+    def collective(self, name: str, kind: str, elems: int):
+        """A context around one collective, named as the JAX package's
+        scopes; nothing here (the SPMD context labels and counts it)."""
+        return contextlib.nullcontext()
+
+    def layer_product(self, layer: str, x, w, b) -> torch.Tensor:
+        return self.inner_product(x, w, b)
+
     def inner_product(self, x, w, b) -> torch.Tensor:
         """The SFB product of an InnerProduct layer: x (N, ...) flattened
         to (N, K), w (M, K)."""
-        return SFBMatmul.apply(x.reshape(x.shape[0], -1), w, b, self)
+        return SFBMatmul.apply(x.reshape(x.shape[0], -1), w, b, self, None)
 
 
 def auto_strategies(net, min_sfb_rank_saving: float = 2.0) -> Dict[str, str]:
@@ -442,12 +474,16 @@ class BucketSync:
 
     def __init__(self, group, cfg: CommConfig, slots: Sequence,
                  kinds: Dict[str, str], leaves: Sequence[torch.Tensor],
-                 flat_g: torch.Tensor):
+                 flat_g: torch.Tensor,
+                 hooked: Optional[List[Bucket]] = None):
         self.group = group
         self.cfg = cfg
         self.flat_g = flat_g
         self.wire = cfg.wire_torch_dtype()
-        self.hooked = plan_buckets(slots, kinds, DENSE, cfg.bucket_mb)
+        # the hooked buckets: the DENSE runs cut at bucket_mb, unless the
+        # caller's layout fixes them (the SPMD step's aligned arena)
+        self.hooked = (plan_buckets(slots, kinds, DENSE, cfg.bucket_mb)
+                       if hooked is None else hooked)
         self.fused = plan_buckets(slots, kinds, DENSE_FUSED, cfg.bucket_mb)
         self._of_leaf: Dict[int, List[int]] = {}
         for b, bucket in enumerate(self.hooked):

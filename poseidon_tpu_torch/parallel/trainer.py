@@ -67,7 +67,7 @@ from ..ops.sgd import sgd_update_
 from ..proto.messages import SolverParameter
 from ..solvers.updates import SolverState, init_state, make_arena_update_fn
 from .mesh import DataGroup
-from .strategies import (DENSE_FUSED, LOCAL, SFB, TOPK, BucketSync,
+from .strategies import (DENSE, DENSE_FUSED, LOCAL, SFB, TOPK, BucketSync,
                          CommConfig, CommContext, budget_topk_fraction,
                          comm_salt, sync_kinds, topk_compress,
                          wire_all_reduce)
@@ -274,6 +274,17 @@ class TrainStep:
                         for k, v in lv.items()}
                 for lname, lv in comm_error.items()}
 
+    def canonical_params(self, params):
+        """The canonical parameter tree eval and snapshots take (these
+        params already are; an SPMD step gathers its tp shards)."""
+        return params
+
+    def export(self, params, state):
+        """Canonical (params, state) for a snapshot, every residual
+        group's row stacked. A collective: every rank calls it."""
+        return params, state._replace(
+            comm_error=self.gather_comm_error(state.comm_error))
+
     def _topk_stage(self, state: TrainState) -> Dict:
         """Compress, exchange and write back each TOPK leaf's gradient
         (JAX's managed-comm tier); returns the new residuals."""
@@ -334,15 +345,28 @@ class TrainStep:
 def build_train_step(net: Net, sp: SolverParameter,
                      group: Optional[DataGroup] = None,
                      comm: Optional[CommConfig] = None,
-                     input_transform: Optional[Callable] = None
-                     ) -> TrainStep:
+                     input_transform: Optional[Callable] = None,
+                     plan=None, sharded_state: bool = False):
+    """The train step: ``TrainStep`` on one device or over a data group;
+    with an active ``plan`` (``spmd.ShardingPlan``, ``train --mesh``) the
+    SPMD step over the group's named mesh (``spmd.SpmdTrainStep``)."""
+    if plan is not None and plan.active:
+        from .spmd import SpmdTrainStep
+        return SpmdTrainStep(net, sp, group, plan, comm, input_transform,
+                             sharded_state=sharded_state)
+    if sharded_state:
+        raise ValueError("sharded_state needs an fsdp plan (--mesh)")
     return TrainStep(net, sp, group, comm, input_transform)
 
 
-def build_eval_step(net: Net, group: Optional[DataGroup] = None
-                    ) -> Callable:
+def build_eval_step(net: Net, group: Optional[DataGroup] = None,
+                    plan=None) -> Callable:
     """Test-phase forward: eval(params, batch) -> {loss, scalar outputs}
-    as 0-d device tensors, averaged over the ranks."""
+    as 0-d device tensors, averaged over the ranks. With an active
+    ``plan`` the batch shards over (data, fsdp) and tp replicas evaluate
+    redundantly on canonical params: the mean is over the joint group."""
+    if plan is not None and plan.active:
+        group = group.mesh.joint
 
     def eval_step(params, batch):
         with torch.no_grad():
@@ -471,11 +495,31 @@ class SSPTrainStep(TrainStep):
     def __init__(self, net: Net, sp: SolverParameter, staleness: int,
                  group: Optional[DataGroup] = None,
                  comm: Optional[CommConfig] = None,
-                 input_transform: Optional[Callable] = None):
+                 input_transform: Optional[Callable] = None,
+                 plan=None):
         comm = comm or CommConfig()
         comm.validate()
         if staleness < 1:
             raise ValueError(f"SSP needs staleness >= 1, got {staleness}")
+        self.mesh = None
+        if plan is not None and plan.active:
+            if plan.mesh_cfg.tp > 1:
+                raise ValueError(
+                    "SSP staleness does not compose with tensor "
+                    "parallelism: tp layers exchange activations every "
+                    "step, which a local-step tier has no slot for; use "
+                    "--mesh dpN,fsdpN")
+            if comm.dcn_axis is not None:
+                raise ValueError("--mesh and --dcn_slices do not compose")
+            if comm.server_logic == "adarevision":
+                raise ValueError(
+                    "server_logic='adarevision' consumes per-leaf raw "
+                    "gradient sums and does not compose with the fsdp-"
+                    "sharded delta exchange")
+            if group is None or group.mesh is None:
+                raise ValueError("an SSP plan needs the named mesh's groups "
+                                 "(init_distributed(mesh_cfg=...))")
+            self.mesh = group.mesh
         self.two_tier = comm.dcn_axis is not None
         for lname in net.param_defs:
             if comm.strategy_for(lname) == SFB and not self.two_tier:
@@ -512,7 +556,24 @@ class SSPTrainStep(TrainStep):
         step = (max(1, int(self.comm.bucket_mb * 1e6) // 4)
                 if self.comm.bucket_mb > 0 else None)
         self.delta_buckets: List[Tuple[int, int]] = []
-        dense = lambda s: slot_kind[s] not in (LOCAL, TOPK)  # noqa: E731
+        # on an fsdp mesh the DENSE deltas go through JAX's fsdp-aligned
+        # arena (DENSE layers only): reduce-scatter over fsdp, all-reduce
+        # over data, all-gather back, bucket by bucket; the delta buckets
+        # then leave DENSE out
+        self.fsdp_layout = None
+        if self.mesh is not None and self.comm.param_arena:
+            dense_layers = frozenset(l for l in net.param_defs
+                                     if self.comm.strategy_for(l) == DENSE)
+            if dense_layers:
+                self.fsdp_layout = net.arena_layout(
+                    self.comm.bucket_mb, align=self.mesh.cfg.fsdp,
+                    layers=dense_layers)
+                slot_of = {(s.layer, s.pname): s for s in self.arena.slots}
+                self._dense_slots = [slot_of[(s.layer, s.pname)]
+                                     for s in self.fsdp_layout.slots]
+        apart = ((LOCAL, TOPK, DENSE) if self.fsdp_layout is not None
+                 else (LOCAL, TOPK))
+        dense = lambda s: slot_kind[s] not in apart  # noqa: E731
         runs = (_runs(self.arena.slots, dense) if step is not None else
                 [(s.offset, s.offset + s.size) for s in self.arena.slots
                  if dense(s)])
@@ -616,6 +677,10 @@ class SSPTrainStep(TrainStep):
                         it=it, comm_error=comm_error,
                         adarev_server=server, adarev_gsum=gsum)
 
+    def export(self, params, state: SSPState):
+        """(anchor, stacked state) for a snapshot. A collective."""
+        return params, self.gather_state(state)
+
     def gather_state(self, state: SSPState) -> SSPState:
         """The stacked form of a running state, every group's row in
         group order (one a rank, or the first rank's of each slice), the
@@ -668,6 +733,42 @@ class SSPTrainStep(TrainStep):
                 g_bck = g_bck + u
             self.flat_u[lo:hi].zero_()
 
+    def _fsdp_delta_exchange(self, scale: float) -> None:
+        """The DENSE deltas in the fsdp-aligned layout's order, each bucket
+        reduce-scattered over fsdp, its shard all-reduced over data and
+        all-gathered back (JAX's ``delta_{rs,ar,ag}_bucket<i>``), then
+        folded into the anchor: the same sums, the slow tier's bytes split
+        by the fsdp size."""
+        from .spmd import CENSUS
+        lay, mesh = self.fsdp_layout, self.mesh
+        f = mesh.cfg.fsdp
+        wd = self.comm.wire_torch_dtype()
+        delta = self.flat_w.new_zeros(lay.padded_total)
+        for ls, ps in zip(lay.slots, self._dense_slots):
+            torch.sub(self.flat_w[ps.offset:ps.offset + ps.size],
+                      self.flat_a[ps.offset:ps.offset + ps.size],
+                      out=delta[ls.offset:ls.offset + ls.size])
+        wire = delta if wd is None else delta.to(wd)
+        summed = torch.empty_like(wire)
+        for i, (lo, hi) in enumerate(lay.bucket_ranges):
+            sh = wire.new_empty((hi - lo) // f)
+            with CENSUS.collective(f"delta_rs_bucket{i}", "reduce_scatter",
+                                   "fsdp", sh.numel()):
+                mesh.fsdp.reduce_scatter_(sh, wire[lo:hi])
+            if mesh.cfg.data > 1:
+                with CENSUS.collective(f"delta_ar_bucket{i}", "all_reduce",
+                                       "data", sh.numel()):
+                    mesh.data.all_reduce_(sh)
+            with CENSUS.collective(f"delta_ag_bucket{i}", "all_gather",
+                                   "fsdp", hi - lo):
+                mesh.fsdp.all_gather_into(summed[lo:hi], sh)
+        summed = summed.float()
+        if scale != 1.0:
+            summed = scale * summed
+        for ls, ps in zip(lay.slots, self._dense_slots):
+            self.flat_a[ps.offset:ps.offset + ps.size] += \
+                summed[ls.offset:ls.offset + ls.size]
+
     def _boundary(self, state_err: Dict, it: int) -> Dict:
         """Fold the groups' deltas into the anchor and restart every group
         from it; returns the new TOPK residual rows."""
@@ -677,6 +778,8 @@ class SSPTrainStep(TrainStep):
         if self.adarev:
             self._adarev_fold()
         else:
+            if self.fsdp_layout is not None:
+                self._fsdp_delta_exchange(scale)
             for lo, hi in self.delta_buckets:
                 delta = self.flat_w[lo:hi] - self.flat_a[lo:hi]
                 summed = wire_all_reduce(delta, self.cross, "sum",
@@ -737,6 +840,7 @@ class SSPTrainStep(TrainStep):
 def build_ssp_train_step(net: Net, sp: SolverParameter, staleness: int,
                          group: Optional[DataGroup] = None,
                          comm: Optional[CommConfig] = None,
-                         input_transform: Optional[Callable] = None
-                         ) -> SSPTrainStep:
-    return SSPTrainStep(net, sp, staleness, group, comm, input_transform)
+                         input_transform: Optional[Callable] = None,
+                         plan=None) -> SSPTrainStep:
+    return SSPTrainStep(net, sp, staleness, group, comm, input_transform,
+                        plan)

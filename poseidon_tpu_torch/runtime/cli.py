@@ -6,7 +6,7 @@ of ``poseidon_tpu/runtime/cli.py``)::
         [--output_dir .] [--device cuda|cpu] [--strategy dense|sfb|topk] \\
         [--sfb-auto] [--grad-reduce mean|sum] [--wire_dtype f32|bf16|f16] \\
         [--topk_policy magnitude|random|fixed_order] [--topk_block N] \\
-        [--dcn_slices N] [--staleness S] \\
+        [--dcn_slices N] [--mesh dpD,fsdpF,tpT[,replicated]] [--staleness S] \\
         [--server_logic inc|adarevision] [--adarev_init_step X] \\
         [--async_ssp [--async_sync_every N] [--comm_budget_mbps X] \\
          [--comm_priority_frac X] [--comm_adaptive] \\
@@ -57,10 +57,16 @@ process group, rank 0 hosts the parameter service (at
 reads gated on ``--staleness``, every connection authenticated by HMAC
 when ``POSEIDON_ASYNC_TOKEN`` is set, managed communication under
 ``--comm_budget_mbps``, and ``--wire_dtype bf16|f16|int8`` compressing
-the deltas with exact error feedback. ``--mesh`` and ``--slice`` raise
-``NotImplementedError`` naming their ROADMAP item. ``test`` scores a
-net's
-TEST phase and prints one ``<output>: <mean>`` line per scalar output. ``serve`` warms every bucket,
+the deltas with exact error feedback. ``--mesh dp2,fsdp2,tp1`` trains
+over the named SPMD mesh (``parallel/spmd.py``: one rank a device, the
+world exactly the mesh's size; the fsdp-sharded arena buckets of
+``--arena_bucket_mb``, column/row tensor-parallel FC layers; a trailing
+``replicated`` runs the control arm; the fsdp arm keeps the full buffers
+on every rank, so it saves no memory: only the ``sharded_state`` API of
+``SpmdTrainStep`` holds 1/F a rank) and composes with ``--staleness``
+(the fsdp delta exchange) but not with ``--dcn_slices``; ``--slice``
+raises ``NotImplementedError`` naming its ROADMAP item. ``test`` scores a
+net's TEST phase and prints one ``<output>: <mean>`` line per scalar output. ``serve`` warms every bucket,
 logs ``serve: listening on <host>:<port>``, serves until SIGTERM/SIGINT,
 drains every admitted request, prints one ``serving_final_stats`` JSON line
 and exits 0. ``serve --generate`` serves a transformer preset with seeded
@@ -183,13 +189,21 @@ def comm_from_args(args):
     from ..parallel.mesh import DCN_AXIS
     from ..parallel.strategies import CommConfig
 
+    bucket_mb = bucket_mb_of(args.dwbp_bucket_mb, args.param_arena == "true",
+                             args.arena_bucket_mb)
     if args.mesh:
         if args.dcn_slices > 1:
             raise SystemExit("--mesh and --dcn_slices do not compose: the "
                              "named mesh's axes carry the whole topology")
-        raise NotImplementedError(
-            "--mesh (the SPMD mesh planner, parallel/spmd.py) is not in "
-            "the port yet (ROADMAP queue A item 9, part 5)")
+        if mesh_from_args(args).active:
+            # the planned mesh buckets the arena by --arena_bucket_mb, as
+            # JAX's; a DWBP bucket request has no meaning there
+            if args.dwbp_bucket_mb >= 0:
+                from .metrics import log
+                log("WARNING: dwbp_bucket_mb is superseded by the arena's "
+                    "bucketed reduce-scatter schedule on a named mesh; "
+                    "ignoring")
+            bucket_mb = args.arena_bucket_mb
     # --wire_dtype rides two tiers: the compiled collectives (bf16/f16)
     # and the async tier's delta payloads, which also take int8; int8
     # never enters the compiled config
@@ -206,12 +220,16 @@ def comm_from_args(args):
         reduce=args.grad_reduce, topk_policy=args.topk_policy,
         wire_dtype=wire,
         topk_block=args.topk_block or None,
-        bucket_mb=bucket_mb_of(args.dwbp_bucket_mb,
-                               args.param_arena == "true",
-                               args.arena_bucket_mb),
+        bucket_mb=bucket_mb, param_arena=args.param_arena == "true",
         dcn_axis=DCN_AXIS if args.dcn_slices > 1 else None,
         server_logic=args.server_logic,
         adarev_init_step=args.adarev_init_step)
+
+
+def mesh_from_args(args):
+    """The ``config.MeshConfig`` of ``--mesh`` (None unset)."""
+    from ..config import MeshConfig
+    return MeshConfig.parse(args.mesh) if args.mesh else None
 
 
 # the async tier's fault knobs: a negative flag keeps the FaultConfig (or
@@ -289,7 +307,7 @@ def _train(args) -> int:
                  async_snapshot=args.async_snapshot,
                  device_transform=args.device_transform,
                  trace_out=args.trace_out or None,
-                 dcn_slices=args.dcn_slices)
+                 dcn_slices=args.dcn_slices, mesh_cfg=mesh_from_args(args))
     try:
         if args.snapshot == "auto":
             if eng.auto_resume() is None and args.weights:
@@ -460,9 +478,19 @@ def build_parser() -> argparse.ArgumentParser:
                    help="async-SSP FIRST-clock gate backstop (covers "
                         "peers' first kernel builds); negative = "
                         "max(1800 s, 10x gate timeout)")
-    # flags of the JAX CLI that the port does not cover yet: each raises
+    t.add_argument("--mesh", default="",
+                   help="named SPMD mesh spec, e.g. 'dp2,fsdp2,tp1' "
+                        "(axes: dp = data parallel, fsdp = sharded "
+                        "parameter arena with reduce-scatter/all-gather "
+                        "buckets, tp = tensor-parallel FC column/row "
+                        "shards planned per layer; one rank a device, "
+                        "the world exactly dp*fsdp*tp); a trailing "
+                        "'replicated' runs the control arm. fsdp here "
+                        "keeps the full buffers on every rank and saves "
+                        "no memory (only the sharded_state API holds 1/F "
+                        "a rank). Empty = the flat data group")
+    # a flag of the JAX CLI that the port does not cover yet: it raises
     # NotImplementedError naming its ROADMAP item
-    t.add_argument("--mesh", default="")
     t.add_argument("--slice", action="store_true")
     t.add_argument("--device_prefetch", type=int, default=None,
                    help="device-side input prefetch depth: a background "

@@ -179,15 +179,49 @@ def _two_tier_groups(rank: int, world: int, slices: int):
     return mine_slice, mine_cross
 
 
+def build_mesh_groups(cfg, rank: int, device: torch.device,
+                      backend: Optional[str], ranks=None):
+    """``parallel/mesh.MeshGroups`` of ``cfg`` over the global ``ranks``
+    (default: the whole world, which must be ``cfg.n_devices``), its
+    groups made with ``new_group``: every rank of the world calls this,
+    those outside ``ranks`` too, since ``new_group`` is collective; they
+    get None. Groups of one rank get no process group."""
+    import torch.distributed as dist
+
+    from ..parallel.mesh import DataGroup, MeshGroups, mesh_axis_ranks
+
+    ranks = list(range(cfg.n_devices)) if ranks is None else list(ranks)
+    if len(ranks) != cfg.n_devices:
+        raise ValueError(f"mesh {cfg.describe()} needs {cfg.n_devices} "
+                         f"ranks, got {len(ranks)}")
+    mine = {}
+    for axis, groups in mesh_axis_ranks(cfg).items():
+        for members in groups:
+            glob = [ranks[i] for i in members]
+            pg = dist.new_group(glob) if len(glob) > 1 else None
+            if rank in glob:
+                mine[axis] = DataGroup(rank=glob.index(rank),
+                                       world=len(glob), device=device,
+                                       backend=backend, pg=pg)
+    if rank not in ranks:
+        return None
+    return MeshGroups(cfg=cfg, data=mine["data"], fsdp=mine["fsdp"],
+                      tp=mine["tp"], joint=mine["joint"])
+
+
 def init_distributed(device: torch.device, rank: Optional[int] = None,
                      world: Optional[int] = None,
-                     coordinator: Optional[str] = None, slices: int = 1):
+                     coordinator: Optional[str] = None, slices: int = 1,
+                     mesh_cfg=None):
     """The data group of this process. Arguments override the env
     contract; a coordinator (argument or env) starts a process group, even
     of one rank, which the returned ``DataGroup``'s ``close`` destroys.
     ``slices`` > 1 makes it the two-tier group (``parallel/mesh.py``)
     with its slice and cross-slice process groups; a world it does not
-    divide exits, as the JAX CLI's ``--dcn_slices`` does."""
+    divide exits, as the JAX CLI's ``--dcn_slices`` does. An active
+    ``mesh_cfg`` (``config.MeshConfig``) needs a world of exactly its
+    ``n_devices`` ranks (one a device; JAX's message otherwise) and makes
+    the group carry the named mesh (``DataGroup.mesh``)."""
     from ..parallel.mesh import DataGroup
 
     e_rank, e_world, e_coord = env_world()
@@ -200,6 +234,10 @@ def init_distributed(device: torch.device, rank: Optional[int] = None,
     if world % slices:
         raise SystemExit(f"--dcn_slices {slices} does not divide "
                          f"{world} devices")
+    if mesh_cfg is not None and mesh_cfg.n_devices != world:
+        raise SystemExit(
+            f"--mesh {mesh_cfg.describe()} needs {mesh_cfg.n_devices} "
+            f"devices; {world} available")
     if coordinator is None:
         if world > 1:
             raise ValueError(
@@ -220,6 +258,13 @@ def init_distributed(device: torch.device, rank: Optional[int] = None,
         log(f"distributed: two tiers, {slices} slice(s) of "
             f"{world // slices} rank(s); rank {rank} in slice "
             f"{rank // (world // slices)}", rank=rank)
+    mesh = None
+    if mesh_cfg is not None and mesh_cfg.active:
+        mesh = build_mesh_groups(mesh_cfg, rank, dev, backend)
+        d, f, t = mesh.coords
+        log(f"distributed: mesh {mesh_cfg.describe()}; rank {rank} at "
+            f"data {d}, fsdp {f}, tp {t} (batch shard {mesh.batch_index})",
+            rank=rank)
     return DataGroup(rank=rank, world=world, device=dev, backend=backend,
                      pg=dist.group.WORLD, slices=slices, slice_pg=slice_pg,
-                     cross_pg=cross_pg)
+                     cross_pg=cross_pg, mesh=mesh)

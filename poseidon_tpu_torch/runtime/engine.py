@@ -168,8 +168,23 @@ class Engine:
                  device_transform: bool = False, use_native: bool = True,
                  memory_data: Optional[Dict[str, np.ndarray]] = None,
                  trace_out: Optional[str] = None, dcn_slices: int = 0,
-                 staleness: int = 0, async_ssp: Optional[Dict] = None):
+                 staleness: int = 0, async_ssp: Optional[Dict] = None,
+                 mesh_cfg=None):
         self.sp = sp
+        # the named SPMD mesh (``--mesh dp2,fsdp2,tp1``,
+        # ``config.MeshConfig``): the planner (``parallel/spmd.py``) plans
+        # the train net below; an inactive one (``--mesh dp2``) is plain
+        # data parallelism over exactly that many ranks
+        self.mesh_cfg = mesh_cfg
+        self.plan = None
+        if mesh_cfg is not None and mesh_cfg.active:
+            if dcn_slices > 1 or (comm is not None
+                                  and comm.dcn_axis is not None):
+                raise ValueError("--mesh and --dcn_slices do not compose")
+            if async_ssp is not None:
+                raise ValueError("--mesh does not compose with --async_ssp "
+                                 "(the fabric, parallel/fabric.py, is not "
+                                 "in the port yet)")
         self.staleness = max(0, int(staleness))
         self._async_cfg = async_ssp
         self._async_tier = None
@@ -203,12 +218,15 @@ class Engine:
             self.rank, self.world = rank, world
         else:
             self.group = init_distributed(resolve_device(device),
-                                          slices=max(1, dcn_slices))
+                                          slices=max(1, dcn_slices),
+                                          mesh_cfg=mesh_cfg)
             self.rank, self.world = self.group.rank, self.group.world
         self.device = self.group.device
         # an elastic joiner (rank outside the launch world) builds with the
-        # whole range; the tier reshards it at join
-        self._data_shard = (Shard(self.rank, self.world)
+        # whole range; the tier reshards it at join. On a named mesh the tp
+        # replicas of a batch shard read the same records
+        self._data_shard = (Shard(self.group.batch_index,
+                                  self.group.batch_shards)
                             if self.rank < self.world else Shard(0, 1))
         # --trace_out: the process-wide span recorder, owned (cleared,
         # enabled, dumped and disabled) by this engine
@@ -286,20 +304,46 @@ class Engine:
                 self.comm.layer_strategies.update(
                     auto_strategies(self.train_net))
         group = self.group if self.group.distributed else None
+        if self.mesh_cfg is not None and self.mesh_cfg.active:
+            from ..parallel.spmd import ShardingPlan
+            self.plan = ShardingPlan.build(
+                self.train_net, self.mesh_cfg, self.comm,
+                shard_params=self.mesh_cfg.shard,
+                enable_tp=self.mesh_cfg.shard)
+            log(f"sharding plan: {self.plan.describe()}", rank=self.rank)
         if self.staleness > 0:
             self.train_step = build_ssp_train_step(
                 self.train_net, sp, self.staleness, group, self.comm,
-                self._input_transform)
+                self._input_transform, plan=self.plan)
         else:
             self.train_step = build_train_step(
-                self.train_net, sp, group, self.comm, self._input_transform)
-        self.eval_steps = [build_eval_step(n, group) for n in self.test_nets]
+                self.train_net, sp, group, self.comm, self._input_transform,
+                plan=self.plan)
+        self.eval_steps = [build_eval_step(n, group, plan=self.plan)
+                           for n in self.test_nets]
         step = self.train_step
         if self.staleness > 0:
             log(f"SSP: staleness {self.staleness} (sync every "
                 f"{self.staleness + 1} iters) over {step.n_groups} "
                 f"group(s), server logic {self.comm.server_logic}, "
-                f"{len(step.delta_buckets)} delta bucket(s)", rank=self.rank)
+                f"{len(step.delta_buckets)} delta bucket(s)"
+                + (f", the DENSE deltas in {step.fsdp_layout.n_buckets} "
+                   f"fsdp-aligned bucket(s) (reduce-scatter, all-reduce, "
+                   f"all-gather)" if step.fsdp_layout is not None else ""),
+                rank=self.rank)
+        elif self.plan is not None:
+            arena = step.arena
+            log(f"spmd: {self.world} ranks x batch "
+                f"{next(iter(train_shapes.values()))[0]}, "
+                f"{self.plan.n_dp} batch shard(s), sync {step.kinds}, "
+                f"reduce {self.comm.reduce}, wire "
+                f"{self.comm.wire_dtype or 'f32'}, "
+                + (f"{arena.n_buckets} arena bucket(s) of "
+                   f"{self.comm.bucket_mb:g} MB over {arena.padded_total} "
+                   f"f32 (align {arena.align}), the update over "
+                   + (f"a {step.w_sh.numel()}-f32 shard a rank"
+                      if step.w_sh is not None else "the whole arena")
+                   if arena is not None else "no arena"), rank=self.rank)
         elif group is not None:
             batch = next(iter(train_shapes.values()))[0]
             log(f"data parallel: {self.world} ranks x batch {batch}, sync "
@@ -315,11 +359,14 @@ class Engine:
                 + (f" (two tiers: {self.group.slices} slice(s) of "
                    f"{self.group.slice_size})" if self.comm.dcn_axis
                    else ""), rank=self.rank)
-        if (group is not None or step.topk_slots) and self.staleness == 0:
+        if (group is not None or step.topk_slots) and self.staleness == 0 \
+                and self.plan is None:
             # the per-step table; an SSP step exchanges at its boundary
             self._log_comm_table()
         seed = sp.random_seed if sp.random_seed >= 0 else 1
-        self.train_net.generator.manual_seed(rank_seed(seed, self.rank))
+        # tp replicas draw the same dropout masks (the batch-shard index)
+        self.train_net.generator.manual_seed(
+            rank_seed(seed, self.group.batch_index))
         params = self.train_net.init(torch.Generator().manual_seed(seed))
         self.params, self.state = step.load(params, self._fresh_state(
             params))
@@ -399,7 +446,9 @@ class Engine:
         this run's mode (``coerce_state``). Under SSP a .caffemodel
         restarts the SSP state from its weights, as in JAX."""
         if path.endswith(".caffemodel"):
-            params = load_caffemodel(path, self.train_net, self.params)
+            params = load_caffemodel(
+                path, self.train_net,
+                self.train_step.canonical_params(self.params))
             if self.staleness > 0:
                 self.params, self.state = self.train_step.load(
                     params, self._fresh_state(params))
@@ -437,20 +486,16 @@ class Engine:
         if not self.sp.snapshot_prefix:
             return None
         prefix = os.path.join(self.output_dir, self.sp.snapshot_prefix)
-        # every group's rows (a collective), as JAX's gather
-        if self.staleness > 0:
-            state = self.train_step.gather_state(self.state)
-        else:
-            state = self.state._replace(
-                comm_error=self.train_step.gather_comm_error(
-                    self.state.comm_error))
+        # canonical trees with every group's rows (a collective), as JAX's
+        # gather
+        params, state = self.train_step.export(self.params, self.state)
         if self._snap_writer is not None:
             model, statef = self._snap_writer.submit(
-                prefix, self.train_net, self.params, state)
+                prefix, self.train_net, params, state)
             log(f"Snapshotting (async) to {model} / {statef}",
                 rank=self.rank)
             return statef
-        model, statef = snapshot(prefix, self.train_net, self.params, state)
+        model, statef = snapshot(prefix, self.train_net, params, state)
         log(f"Snapshotting to {model} / {statef}", rank=self.rank)
         return statef
 
@@ -461,9 +506,10 @@ class Engine:
         iters = (self.sp.test_iter[test_id]
                  if test_id < len(self.sp.test_iter) else 50)
         acc: Dict[str, float] = {}
+        params = self.train_step.canonical_params(self.params)
         for _ in range(iters):
             batch = self._next_batch(self.test_pipelines[test_id])
-            for k, v in ev(self.params, batch).items():
+            for k, v in ev(params, batch).items():
                 acc[k] = acc.get(k, 0.0) + float(v)
         out = {k: v / iters for k, v in sorted(acc.items())}
         msg = ", ".join(f"{k} = {v:.4f}" for k, v in out.items())

@@ -1205,3 +1205,165 @@ def test_arena_refresh_in_place_feeds_the_forward_and_k7_on_card():
     for l in got:
         for k in got[l]:
             assert torch.equal(got[l][k], pb[l][k]), f"{l}/{k}"
+
+
+def _lenet_on(device, rows):
+    from poseidon_tpu_torch.core.net import Net
+    from poseidon_tpu_torch.proto.messages import load_net
+    import os
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "examples/mnist/lenet_train_test.prototxt")
+    return Net(load_net(path), "TRAIN",
+               device=device, source_shapes={"data": (rows, 1, 28, 28),
+                                             "label": (rows,)})
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("f", [2, 4])
+def test_k7_on_fsdp_shards_bitwise_on_card(f):
+    """K7 over each fsdp rank's shard of LeNet's aligned arena, with its
+    shard-major multiplier segments, bitwise against the plain version;
+    a vector off 16 bytes is refused (the step copies its shard into
+    allocated buffers)."""
+    _need_gpu()
+    from poseidon_tpu_torch.parallel import spmd
+    from poseidon_tpu_torch.proto.messages import SolverParameter
+    layout = _lenet_on("cpu", 2).arena_layout(0.3, align=f)
+    lr_all, dec_all = spmd.shard_mult_vectors(
+        layout, SolverParameter(weight_decay=5e-4), f)
+    n = layout.padded_total // f
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    for fi in range(f):
+        lr = torch.from_numpy(lr_all[fi * n:(fi + 1) * n].copy()).cuda()
+        dec = torch.from_numpy(dec_all[fi * n:(fi + 1) * n].copy()).cuda()
+        w, g, h = (torch.randn(n, generator=gen, device="cuda")
+                   for _ in range(3))
+        wk, hk, wp, hp = w.clone(), h.clone(), w.clone(), h.clone()
+        before = port_sgd.LAUNCHES["sgd_update"]
+        port_sgd.sgd_update_(wk, g, hk, 0.01, lr, dec, 0.9)
+        torch.cuda.synchronize()
+        assert port_sgd.LAUNCHES["sgd_update"] == before + 1
+        port_sgd.sgd_update_plain_(wp, g, hp, 0.01, lr, dec, 0.9)
+        assert torch.equal(wk, wp) and torch.equal(hk, hp), fi
+    buf = torch.zeros(1025, device="cuda")
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        port_sgd.sgd_update_cuda_(buf[1:], buf[1:], buf[1:], 0.01, buf[1:],
+                                  buf[1:], 0.9)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("spec", ["tp2", "dp1,fsdp2,tp2"])
+def test_k7_at_tp_step_lengths_bitwise_on_card(spec):
+    """K7 over both flat buffers a tp rank's step updates (its arena, or
+    the arena's fsdp shard, and its tp leaves; ``spmd.step_layouts``),
+    each with its own multiplier vectors, bitwise against the plain
+    version, one launch a call."""
+    _need_gpu()
+    from poseidon_tpu_torch.config import MeshConfig
+    from poseidon_tpu_torch.parallel import spmd
+    from poseidon_tpu_torch.proto.messages import SolverParameter
+    cfg = MeshConfig.parse(spec)
+    net = _lenet_on("cpu", 2)
+    sp = SolverParameter(weight_decay=5e-4)
+    arena, _full, local = spmd.step_layouts(
+        net, spmd.ShardingPlan.build(net, cfg), 0.3)
+    f = cfg.fsdp
+    n_sh = arena.padded_total // f
+    lr_sh, dec_sh = spmd.shard_mult_vectors(arena, sp, f)
+    vectors = [(lr_sh[:n_sh], dec_sh[:n_sh])]
+    if local is not None:
+        vectors.append(local.mult_vectors(sp.weight_decay))
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    for lr_np, dec_np in vectors:
+        lr = torch.from_numpy(lr_np.copy()).cuda()
+        dec = torch.from_numpy(dec_np.copy()).cuda()
+        w, g, h = (torch.randn(len(lr_np), generator=gen, device="cuda")
+                   for _ in range(3))
+        wk, hk, wp, hp = w.clone(), h.clone(), w.clone(), h.clone()
+        before = port_sgd.LAUNCHES["sgd_update"]
+        port_sgd.sgd_update_(wk, g, hk, 0.01, lr, dec, 0.9)
+        torch.cuda.synchronize()
+        assert port_sgd.LAUNCHES["sgd_update"] == before + 1
+        port_sgd.sgd_update_plain_(wp, g, hp, 0.01, lr, dec, 0.9)
+        assert torch.equal(wk, wp) and torch.equal(hk, hp), len(lr_np)
+
+
+def _fsdp2_pair_worker(rank, store, q):
+    import numpy as np
+    from poseidon_tpu_torch.config import MeshConfig
+    from poseidon_tpu_torch.parallel import spmd
+    from poseidon_tpu_torch.parallel.strategies import CommConfig
+    from poseidon_tpu_torch.parallel.trainer import (build_train_step,
+                                                     init_train_state)
+    from poseidon_tpu_torch.proto.messages import SolverParameter
+    from poseidon_tpu_torch.runtime import cluster
+    torch.backends.cudnn.deterministic = True
+    cfg = MeshConfig(fsdp=2)
+    group = cluster.init_distributed(torch.device("cuda"), rank=rank,
+                                     world=2, coordinator=f"file://{store}",
+                                     mesh_cfg=cfg)
+    try:
+        out = {"backend": group.backend}
+        rs = np.random.RandomState(0)
+        xs = [torch.from_numpy(rs.randn(8, 1, 28, 28).astype(np.float32))
+              for _ in range(3)]
+        ys = [torch.from_numpy(rs.randint(0, 10, 8).astype(np.float32))
+              for _ in range(3)]
+        for shard in (True, False):
+            net = _lenet_on(group.device, 4)
+            params = net.init(torch.Generator().manual_seed(0))
+            comm = CommConfig(bucket_mb=0.3)
+            plan = spmd.ShardingPlan.build(net, cfg, comm,
+                                           shard_params=shard)
+            step = build_train_step(net, SolverParameter(
+                base_lr=0.01, momentum=0.9, weight_decay=5e-4), group, comm,
+                plan=plan)
+            p, s = step.load(params, init_train_state(params, comm, 2))
+            before = port_sgd.LAUNCHES["sgd_update"]
+            for x, y in zip(xs, ys):
+                p, s, _m = step.step(p, s, {
+                    "data": x[rank * 4:(rank + 1) * 4].cuda(),
+                    "label": y[rank * 4:(rank + 1) * 4].cuda()})
+            torch.cuda.synchronize()
+            cp, cs = step.export(p, s)
+            out[shard] = ({f"{l}/{k}": v.cpu().numpy() for l, lv in cp.items()
+                           for k, v in lv.items()},
+                          port_sgd.LAUNCHES["sgd_update"] - before,
+                          step.w_sh.numel() if step.w_sh is not None else 0,
+                          step.arena.padded_total)
+        q.put((rank, out))
+    finally:
+        group.close()
+
+
+@pytest.mark.gpu
+def test_gloo_fsdp2_pair_on_card(tmp_path):
+    """Two fsdp2 ranks sharing the card over gloo (CUDA tensors through
+    reduce-scatter and all-gather): the sharded arm bitwise to its
+    replicated control and across ranks, K7 once a step over the
+    padded_total / 2 shard."""
+    _need_gpu()
+    import numpy as np
+    import torch.multiprocessing as mp
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    procs = [ctx.Process(target=_fsdp2_pair_worker,
+                         args=(r, str(tmp_path / "store"), q))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    try:
+        res = dict(q.get(timeout=300) for _ in procs)
+    finally:
+        for p in procs:
+            p.join(60)
+            if p.is_alive():
+                p.kill()
+    assert all(p.exitcode == 0 for p in procs)
+    assert res[0]["backend"] == "gloo"
+    sharded, launches, shard, padded = res[0][True]
+    assert launches == 3 and shard * 2 == padded
+    for r in (0, 1):
+        for arm in (True, False):
+            for k, v in res[r][arm][0].items():
+                np.testing.assert_array_equal(v, sharded[k], err_msg=k)

@@ -21,6 +21,11 @@ names = [m.name for m in pkgutil.walk_packages(poseidon_tpu_torch.__path__,
                                                 "poseidon_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
+# the mesh planner among them (its Functions, context and step build at
+# import; nothing of JAX's comes with them)
+assert "poseidon_tpu_torch.parallel.spmd" in names
+from poseidon_tpu_torch.parallel import spmd
+assert spmd.SpmdTrainStep and spmd.TPColMatmul and spmd.ShardingPlan
 # a bf16-wire round trip of the async tier: quantize, encode, decode, widen
 import numpy as np
 from poseidon_tpu_torch.parallel import async_ssp

@@ -21,8 +21,9 @@ JAX package on the CPU.
   --async_ssp --staleness 1`` ranks of the digits solver learn (test
   accuracy over 0.75 after 120 iterations; the async order of arrival is
   not deterministic, so these hold convergence, not bitwise equality);
-  the SSP ranks' snapshots are bitwise equal and of kind "ssp"; ``--mesh``
-  and ``--slice`` still raise naming their item.
+  the SSP ranks' snapshots are bitwise equal and of kind "ssp";
+  ``--slice`` still raises naming its item, and ``--mesh`` (ported) parses
+  and raises only where JAX's does, with ``--dcn_slices``.
 """
 
 import os
@@ -666,9 +667,22 @@ def test_cli_train_async_ssp_two_ranks_learn_digits(tmp_path):
 @pytest.mark.parametrize("flags,item", [(["--mesh", "dp2,fsdp1,tp1"], "5"),
                                         (["--slice"], "6")])
 def test_cli_mesh_and_slice_raise_naming_their_item(flags, item):
+    from poseidon_tpu_torch.config import MeshConfig
     from poseidon_tpu_torch.runtime.cli import (async_from_args,
-                                                build_parser, comm_from_args)
+                                                build_parser, comm_from_args,
+                                                mesh_from_args)
     args = build_parser().parse_args(["train", "--solver=x", *flags])
+    if item == "5":
+        # the mesh planner is ported: the flag parses, and only the
+        # composition JAX refuses raises
+        assert mesh_from_args(args) == MeshConfig(data=2)
+        comm_from_args(args)
+        async_from_args(args)
+        both = build_parser().parse_args(
+            ["train", "--solver=x", *flags, "--dcn_slices", "2"])
+        with pytest.raises(SystemExit, match="do not compose"):
+            comm_from_args(both)
+        return
     with pytest.raises(NotImplementedError,
                        match=rf"ROADMAP queue A item 9, part {item}\)"):
         comm_from_args(args)

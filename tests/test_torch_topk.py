@@ -705,8 +705,11 @@ def test_cli_dcn_slices_must_divide_the_world_and_mesh_refuses():
     with pytest.raises(SystemExit, match="do not compose"):
         comm_from_args(_args("--mesh", "dp2,fsdp2,tp1", "--dcn_slices",
                              "2"))
-    with pytest.raises(NotImplementedError, match="queue A item 9, part 5"):
-        comm_from_args(_args("--mesh", "dp2,fsdp2,tp1"))
+    # the mesh alone is ported: its arena rides --arena_bucket_mb
+    comm = comm_from_args(_args("--mesh", "dp2,fsdp2,tp1",
+                                "--arena_bucket_mb", "2"))
+    assert comm.bucket_mb == 2.0 and comm.param_arena
+    assert comm.dcn_axis is None
 
 
 @pytest.mark.parametrize("slices", [0, 2])
