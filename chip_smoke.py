@@ -385,6 +385,42 @@ SPMD_LAUNCH = (
         "sys.exit(rc)\n"))
 
 
+# the [fabric] phase, AlexNet train_val at full width, f32, planned NHWC
+# on the card, under cuDNN's deterministic algorithms: (a) in this
+# process, two SliceWorkers (parallel/fabric.py) over a loopback
+# ParamService, each slice's local step the one-device train step at
+# FABRIC_BATCH on seeded batches, FABRIC_CLOCKS clocks at staleness
+# FABRIC_STALENESS, slice 1 killed at FABRIC_KILL (every member lost, its
+# client abandoned raw) and re-admitted under its id at FABRIC_REJOIN,
+# then the fixed-membership replay; each push applied before its refresh
+# and the slices dispatched in order, so the two anchors and loss
+# trajectories must be bitwise equal. (b) `train --async_ssp --slice
+# --mesh fsdp2` as 2 slices x 2 gloo ranks sharing the card at
+# FABRIC_CLI_BATCH a rank, FABRIC_CLI_ITERS iterations, a clock every
+# FABRIC_CLI_SYNC (FABRIC_LAUNCH: every K7 call also runs the plain
+# version on copies of its inputs and must agree bitwise)
+FABRIC_BATCH = 64
+FABRIC_CLOCKS, FABRIC_KILL, FABRIC_REJOIN, FABRIC_STALENESS = 5, 2, 3, 1
+FABRIC_CLI_BATCH, FABRIC_CLI_ITERS, FABRIC_CLI_SYNC = 64, 4, 2
+FABRIC_LAUNCH = (
+    "import json, sys, torch\n"
+    "torch.backends.cudnn.deterministic = True\n"
+    "from poseidon_tpu_torch.ops import sgd\n"
+    "from poseidon_tpu_torch.parallel import spmd\n"
+    "k7 = []\n"
+    "def checked(w, g, h, rate, lr, dec, mom):\n"
+    "    wp, hp = w.clone(), h.clone()\n"
+    "    sgd.sgd_update_plain_(wp, g, hp, rate, lr, dec, mom)\n"
+    "    before = sgd.LAUNCHES['sgd_update']\n"
+    "    sgd.sgd_update_(w, g, h, rate, lr, dec, mom)\n"
+    "    k7.append({'length': w.numel(), 'launches': "
+    "sgd.LAUNCHES['sgd_update'] - before, 'bitwise': bool(torch.equal(w, wp)"
+    " and torch.equal(h, hp))})\n"
+    "spmd.sgd_update_ = checked\n"
+    + SPMD_LAUNCH.split("torch.backends.cudnn.deterministic = True\n", 1)[1]
+    .replace("sys.exit(rc)\n", "print('[k7] ' + json.dumps(k7), "
+             "flush=True)\nsys.exit(rc)\n"))
+
 # the [loop] phase, AlexNet train_val at full width, batch 256, on the
 # synthetic ILSVRC-shaped LMDB of [train]: the serial loop as it was
 # (Python batches, inline copies, a sync every step) for LOOP_SERIAL_STEPS
@@ -2576,13 +2612,14 @@ def dp_cli_run(card: str, root: str, name: str, flags, dev, batch: int,
                ranks: int = 2, tag: str = "dp", iters: int = DP_CLI_ITERS,
                env_extra=None, group: bool = True,
                same_snapshots: bool = True,
-               launcher: str = LAUNCH_REPORT) -> dict:
+               launcher: str = LAUNCH_REPORT, rank_env=None) -> dict:
     """``ranks`` ``train`` processes of the port under the env contract,
     sharing the card (or the CPU), each reporting its kernel launches
     when it returns (``LAUNCH_REPORT``); with ``same_snapshots`` their
     snapshots must be bitwise equal, with ``group`` they must have formed
-    a gloo group. The result names the first rank's snapshot
-    (``state_path``), every rank's log and launches."""
+    a gloo group. ``rank_env(r)`` adds rank r's own variables. The result
+    names the first rank's snapshot (``state_path``), every rank's log and
+    launches."""
     import numpy as np
     from poseidon_tpu_torch.proto.messages import (load_solver,
                                                    net_to_prototxt,
@@ -2608,7 +2645,8 @@ def dp_cli_run(card: str, root: str, name: str, flags, dev, batch: int,
         env = dict(os.environ, POSEIDON_PROC_ID=str(r),
                    POSEIDON_NUM_PROCS=str(ranks),
                    POSEIDON_COORDINATOR="file://"
-                   + os.path.join(work, "store"), **(env_extra or {}))
+                   + os.path.join(work, "store"), **(env_extra or {}),
+                   **(rank_env(r) if rank_env else {}))
         cmd = [sys.executable, "-c", launcher, "train",
                f"--solver={solver}", "--output_dir",
                os.path.join(work, f"p{r}"), *flags]
@@ -3821,6 +3859,299 @@ def phase_spmd(card: str, root: str, device=None, cli_batch=None) -> dict:
     return out
 
 
+def fabric_chaos(card: str, root: str, dev, batch: int) -> dict:
+    """[fabric] (a): the chaos run and its fixed-membership replay in this
+    process (the FABRIC_* constants' comment), then one dispatch's step
+    with the kernels against the same step with the plain versions at
+    STEP_TOL. The launches of each arm are zeroed just before it and read
+    just after."""
+    import numpy as np
+    import torch
+    from poseidon_tpu_torch.core.net import Net
+    from poseidon_tpu_torch.parallel import fabric as F
+    from poseidon_tpu_torch.parallel.async_ssp import (ParamService,
+                                                       _tree_copy,
+                                                       _tree_sub)
+    from poseidon_tpu_torch.parallel.trainer import (build_train_step,
+                                                     init_train_state)
+    from poseidon_tpu_torch.proto.messages import load_solver
+
+    fast = dict(heartbeat_s=0.1, reconnect_deadline_s=30.0,
+                backoff_base_s=0.01, backoff_cap_s=0.1)
+    sp = load_solver(ALEXNET_SOLVER)
+    shapes = {"data": (batch, 3, 227, 227), "label": (batch,)}
+    nets = [Net(alexnet_net_param(root, batch), "TRAIN", device=dev,
+                source_shapes=shapes, conv_layout="auto") for _ in (0, 1)]
+    steps = [build_train_step(n, sp) for n in nets]
+    init = {l: {k: v.detach().cpu().numpy() for k, v in d.items()}
+            for l, d in nets[0].init(torch.Generator().manual_seed(1))
+            .items()}
+
+    def to_dev(tree):
+        return {l: {k: torch.from_numpy(np.array(v, np.float32)).to(dev)
+                    for k, v in d.items()} for l, d in tree.items()}
+
+    def to_host(tree):
+        return {l: {k: v.detach().cpu().numpy() for k, v in d.items()}
+                for l, d in tree.items()}
+
+    def feed(sid, clock):
+        g = torch.Generator(device=dev).manual_seed(1000 + 17 * sid + clock)
+        return {"data": torch.randn(shapes["data"], generator=g,
+                                    device=dev),
+                "label": torch.randint(0, 1000, shapes["label"],
+                                       generator=g, device=dev
+                                       ).to(torch.float32)}
+
+    state0 = init_train_state(to_dev(init))
+
+    def wait_for(pred, what, timeout_s=120.0):
+        deadline = time.time() + timeout_s
+        while not pred():
+            check(time.time() < deadline, f"[fabric] timed out: {what}")
+            time.sleep(0.005)
+
+    def drive(chaos: bool) -> dict:
+        svc = ParamService(_tree_copy(init), n_workers=2,
+                           record_events=True, liveness_timeout_s=0.0)
+        addr = ("127.0.0.1", svc.port)
+        sw = [F.SliceWorker(sid, [0, 1], addr, FABRIC_STALENESS,
+                            n_slices=2, client_opts=fast) for sid in (0, 1)]
+        caches = [c for c, _ in (sw[0].join(), sw[1].join())]
+        states = [state0, state0]
+        losses = {0: [], 1: []}
+        t0 = time.perf_counter()
+
+        def dispatch(sid, clock):
+            w = sw[sid]
+            w.gate(clock, timeout_s=300)
+            prev = _tree_copy(caches[sid])
+            nets[sid].generator.manual_seed(7 + 100 * sid + clock)
+            p, states[sid], m = steps[sid].step(to_dev(caches[sid]),
+                                                states[sid],
+                                                feed(sid, clock))
+            caches[sid] = to_host(p)
+            losses[sid].append((clock, float(m["loss"])))
+            pushed = w.push(_tree_sub(caches[sid], prev))
+            wait_for(lambda: w.client.poll_view().get(sid, -1) >= pushed,
+                     f"slice {sid} clock {pushed} applied")
+            caches[sid], _ = w.refresh()
+
+        try:
+            for clock in range(FABRIC_CLOCKS):
+                if chaos and clock == FABRIC_KILL:
+                    check(sw[1].fail_member(1) == "shrunk"
+                          and sw[1].fail_member(0) == "dead",
+                          "slice 1's members did not die in order")
+                    sw[1].client.abandon()
+                    wait_for(lambda: 1 in svc.failed_workers,
+                             "slice 1 evicted")
+                if clock == FABRIC_REJOIN:
+                    if chaos:
+                        sw[1] = F.SliceWorker(1, [10, 11], addr,
+                                              FABRIC_STALENESS, n_slices=2,
+                                              client_opts=fast)
+                        caches[1], _ = sw[1].join()
+                        check(sw[1].client.clock == FABRIC_KILL - 1,
+                              "the re-admitted slice's rendezvous clock")
+                    else:
+                        caches[1], _ = sw[1].refresh()
+                    states[1] = state0
+                dispatch(0, clock)
+                if not (FABRIC_KILL <= clock < FABRIC_REJOIN):
+                    dispatch(1, clock)
+            sw[0].mark_done()
+            sw[1].mark_done()
+            wait_for(lambda: svc.clocks[0] >= FABRIC_CLOCKS - 1,
+                     "the survivor's last clock")
+            applied = [(e[1], e[2]) for e in svc.events
+                       if e[0] == "push" and not e[4]]
+            return {"anchor": _tree_copy(svc.anchor), "losses": losses,
+                    "applied": applied, "rejoins": svc.rejoins,
+                    "wall_s": time.perf_counter() - t0}
+        finally:
+            for w in sw:
+                w.close()
+            svc.close()
+
+    out = {}
+    arms = {}
+    for name, chaos in (("chaos", True), ("replay", False)):
+        zero_launches()
+        arms[name] = drive(chaos)
+        arms[name]["launches"] = read_launches()
+    c, r = arms["chaos"], arms["replay"]
+    same = all(np.array_equal(c["anchor"][l][k], r["anchor"][l][k])
+               for l in r["anchor"] for k in r["anchor"][l])
+    dispatched = {name: sum(len(v) for v in a["losses"].values())
+                  for name, a in arms.items()}
+    once = len(c["applied"]) == len(set(c["applied"])) == dispatched["chaos"]
+    print(f"[fabric] (a) 2 slices x one-device AlexNet f32 NHWC at {batch}, "
+          f"{FABRIC_CLOCKS} clocks, staleness {FABRIC_STALENESS}: slice 1 "
+          f"killed at clock {FABRIC_KILL}, re-admitted at {FABRIC_REJOIN} "
+          f"(rejoins {c['rejoins']}); chaos anchor bitwise to the replay: "
+          f"{same}; losses equal: {c['losses'] == r['losses']}; every "
+          f"(slice, clock) applied once: {once}; wall {c['wall_s']:.1f} s "
+          f"/ {r['wall_s']:.1f} s for {dispatched['chaos']} / "
+          f"{dispatched['replay']} dispatches [{card}]", flush=True)
+    check(same and c["losses"] == r["losses"],
+          "the chaos run differs from its fixed-membership replay")
+    check(once and c["rejoins"] >= 1, "a (slice, clock) applied twice, "
+                                      "or slice 1 never re-admitted")
+    check(all(math.isfinite(v) for ls in c["losses"].values()
+              for _, v in ls), f"chaos losses {c['losses']}")
+    per_step = {"lrn_fwd_nhwc": 2, "lrn_bwd_nhwc": 2, "pool_bwd_nhwc": 3,
+                "sgd_update": 1}
+    for name, a in arms.items():
+        want = {k: 0 for k in a["launches"]}
+        if dev.type == "cuda":
+            want.update({k: v * dispatched[name]
+                         for k, v in per_step.items()})
+        check(a["launches"] == want,
+              f"[fabric] {name} launches {a['launches']} != {want}")
+    # one dispatch's step, the kernels against their plain versions
+    rtol, atol = STEP_TOL
+    runs = []
+    for plain in (False, True):
+        before = read_launches()
+        nets[0].generator.manual_seed(7)
+        ctx = (plain_versions(nets[0], steps[0]) if plain
+               else contextlib.nullcontext())
+        with ctx:
+            p, st, m = steps[0].step(to_dev(init), state0, feed(0, 0))
+        runs.append((float(m["loss"]), to_host(p),
+                     to_host(st.solver.history)))
+        if plain:
+            check(read_launches() == before,
+                  "the plain-version step launched a kernel")
+    worst = 0.0
+    for i in (1, 2):
+        for l in runs[0][i]:
+            for k in runs[0][i][l]:
+                a, b = runs[0][i][l][k], runs[1][i][l][k]
+                worst = max(worst, float(np.abs(a - b).max()))
+                check(bool(np.allclose(a, b, rtol=rtol, atol=atol)),
+                      f"[fabric] {l}/{k}: kernels vs plain versions")
+    print(f"[fabric] (a) one dispatch's step, kernels vs plain versions: "
+          f"loss {runs[0][0]!r} vs {runs[1][0]!r}, params and momentum "
+          f"within rtol {rtol:g} atol {atol:g} (max_abs {worst:.3e}) "
+          f"[{card}]", flush=True)
+    out.update(batch=batch, bitwise=same, applied_once=once,
+               rejoins=c["rejoins"], dispatches=dispatched,
+               launches=c["launches"], replay_launches=r["launches"],
+               wall_s={k: a["wall_s"] for k, a in arms.items()},
+               step_vs_plain_max_abs=worst)
+    return out
+
+
+FABRIC_FLUSH_KEYS = ("gather", "d2h", "push", "refresh", "gate", "h2d",
+                     "broadcast")
+
+
+def phase_fabric(card: str, root: str, device=None, batch=None,
+                 cli_batch=None) -> dict:
+    """The two-tier fabric on the card (``device``, ``batch`` and
+    ``cli_batch`` are for a CPU rehearsal at a cut batch): (a)
+    ``fabric_chaos``; (b) the CLI's slices (the FABRIC_* constants'
+    comment): every rank exits 0 (a non-finite loss on any rank exits
+    non-zero) and launches K4-/K5-/K6-NHWC and K7 2/2/3/1 a step, rank
+    0's losses finite; every member's parameters bitwise its leader's
+    after every refresh (their digests); every K7 call bitwise to its
+    plain version on copies of its inputs, one launch each over the
+    rank's fsdp shard; the ms a flush by phase of each slice's leader and
+    members, and each rank's peak."""
+    import socket
+    import numpy as np
+    import torch
+    from poseidon_tpu_torch.numeric import resolve_device
+
+    t_phase = time.perf_counter()
+    dev = resolve_device(device)
+    on_card = dev.type == "cuda"
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        out = {"chaos": fabric_chaos(card, root, dev, batch or FABRIC_BATCH)}
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    torch.cuda.empty_cache() if on_card else None
+
+    # (b) the CLI: 2 slices x 2 gloo ranks, fsdp2 inside each slice
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    iters = FABRIC_CLI_ITERS
+    run_ = dp_cli_run(
+        card, root, "fsdp2_slices",
+        ("--async_ssp", "--slice", "--mesh", "fsdp2", "--staleness", "1",
+         "--async_sync_every", str(FABRIC_CLI_SYNC)), dev,
+        cli_batch or FABRIC_CLI_BATCH, ranks=4, tag="fabric", iters=iters,
+        same_snapshots=False, launcher=FABRIC_LAUNCH,
+        env_extra={"POSEIDON_ASYNC_SERVICE": f"127.0.0.1:{port}",
+                   "POSEIDON_ASYNC_TOKEN": ASYNC_TOKEN,
+                   "POSEIDON_FABRIC_DIGEST": "1"},
+        rank_env=lambda r: {"POSEIDON_SLICE_ID": str(r // 2),
+                            "POSEIDON_SLICE_SIZE": "2"})
+    logs = run_["logs"]
+    want = {k: 0 for k in read_launches()}
+    if on_card:
+        want.update({"lrn_fwd_nhwc": 2 * iters, "lrn_bwd_nhwc": 2 * iters,
+                     "pool_bwd_nhwc": 3 * iters, "sgd_update": iters})
+    check(all(r == want for r in run_["launches"]),
+          f"fabric ranks' launches {run_['launches']} != {want}")
+    refreshes = 1 + iters // FABRIC_CLI_SYNC
+    for sid in (0, 1):
+        check(f"fabric tier: slice {sid} of 2 (2 process(es)/slice"
+              in logs[2 * sid], f"slice {sid}'s leader did not speak")
+        digests = [[ln.split()[-1] for ln in logs[2 * sid + m].splitlines()
+                    if ln.startswith(f"fabric digest: slice {sid} ")]
+                   for m in (0, 1)]
+        check(digests[0] == digests[1]
+              and len(digests[0]) == refreshes + (sid == 0),
+              f"slice {sid}'s member parted from its leader: {digests}")
+    k7 = []
+    for r, log in enumerate(logs):
+        line = next(ln for ln in log.splitlines() if ln.startswith("[k7] "))
+        k7.append(json.loads(line[len("[k7] "):]))
+    shard = k7[0][0]["length"] if k7[0] else 0
+    k7_ok = (all(len(calls) == iters for calls in k7)
+             and all(c["bitwise"] and c["length"] == shard
+                     and c["launches"] == (1 if on_card else 0)
+                     for calls in k7 for c in calls))
+    print(f"[fabric] (b) K7 on each rank's fsdp2 shard ({shard} f32): "
+          f"{sum(map(len, k7))} calls, each bitwise to its plain version "
+          f"with {'one launch' if on_card else 'no launch (CPU)'}: "
+          f"{k7_ok} [{card}]", flush=True)
+    check(k7_ok, f"fabric K7 calls {k7}")
+    flush = {}
+    for r, log in enumerate(logs):
+        head = (f"async-SSP tier (rank {r // 2}): " if r % 2 == 0
+                else "fabric member (rank ")
+        line = next(ln for ln in log.splitlines() if ln.startswith(head))
+        vals = dict(part.partition("=")[::2] for part in
+                    line.split("): ", 1)[1].split(", "))
+        flush[r] = {k: float(vals[f"async_{k}_ms_per_flush"])
+                    for k in FABRIC_FLUSH_KEYS
+                    if f"async_{k}_ms_per_flush" in vals}
+        print(f"[fabric] (b) rank {r} ({'leader' if r % 2 == 0 else 'member'}"
+              f" of slice {r // 2}) ms a flush: "
+              + ", ".join(f"{k} {v:g}" for k, v in flush[r].items())
+              + f" [{card}]", flush=True)
+    peaks = peak_bytes(logs) if on_card else []
+    out["cli"] = {**{k: v for k, v in without_logs(run_).items()
+                     if k != "state_path"},
+                  "k7_calls": sum(map(len, k7)), "k7_bitwise": k7_ok,
+                  "shard": shard, "flush_ms": flush, "peak_bytes": peaks,
+                  "refreshes": refreshes}
+    out["cli_launches"] = sum_launches(run_["launches"])
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"[fabric] chaos bitwise to its replay, 2 slices x 2 fsdp2 ranks "
+          f"by the CLI: members bitwise to their leaders, K7 bitwise; peak "
+          f"{[round(p / 2**30, 3) for p in peaks]} GiB a rank; phase wall "
+          f"{out['wall_s']:.1f} s [{card}]", flush=True)
+    return out
+
+
 def phase_digits(card: str, flags=(), tag: str = "digits") -> float:
     """The CLI on real data: the digits solver, 1000 iterations, on the
     card (its default layout: NHWC there), with ``flags`` added; returns
@@ -4561,6 +4892,8 @@ def main() -> int:
             ssp = phase_ssp(card, root)
             torch.cuda.empty_cache()
             spmd = phase_spmd(card, root)
+            torch.cuda.empty_cache()
+            fabric = phase_fabric(card, root)
         torch.cuda.empty_cache()
         lm = phase_lm(card)
         torch.cuda.empty_cache()
@@ -4733,7 +5066,15 @@ def main() -> int:
         entry["launches_by_path"].update(
             {f"spmd_{arm}": sum_launches(r["launches"])[name]
              for arm, r in spmd["arms"].items()})
+        # the fabric's paths: the in-process chaos arm, and every rank of
+        # the CLI's two slices
+        entry["launches_by_path"].update(
+            fabric_chaos=fabric["chaos"]["launches"][name],
+            fabric_cli=fabric["cli_launches"][name])
         if name == "sgd_update":
+            entry["fabric_cli_k7"] = {
+                k: fabric["cli"][k] for k in ("k7_calls", "k7_bitwise",
+                                              "shard")}
             entry["cases"] += spmd["k7"]
             entry["max_abs_err"] = max(r["max_abs_err"]
                                        for r in entry["cases"])
@@ -4746,6 +5087,7 @@ def main() -> int:
                "topk": topk,
                "ssp": ssp,
                "spmd": {k: v for k, v in spmd.items() if k != "k7"},
+               "fabric": fabric,
                "loop": loop,
                "lm_serving": lm,
                "lm_training": lm_train,

@@ -4,8 +4,9 @@ for what it covers): the step-pipeline policy of the training loop
 (``FaultConfig``) and managed-communication policy
 (``ManagedCommConfig``), each with the JAX package's defaults, and the
 numeric policy, whose names are re-exported from ``numeric.py`` as the JAX
-package's ``config`` re-exports them, and the named SPMD mesh request
-(``MeshConfig``, ``train --mesh``). The fabric config is later work."""
+package's ``config`` re-exports them, the named SPMD mesh request
+(``MeshConfig``, ``train --mesh``) and the two-tier fabric's policy
+(``FabricConfig``, ``train --async_ssp --slice``)."""
 
 from __future__ import annotations
 
@@ -188,3 +189,39 @@ def set_managed_comm_config(**kwargs) -> None:
         if not hasattr(_managed_comm, k):
             raise AttributeError(k)
         setattr(_managed_comm, k, v)
+
+
+@dataclass
+class FabricConfig:
+    """Two-tier fabric policy (``parallel/fabric.py``): an SPMD slice as one
+    elastic SSP worker. Inside a slice the named dp/fsdp/tp mesh runs the
+    step synchronously over the slice's own process group; between slices
+    ONE leader process a slice speaks the async-SSP protocol. These knobs
+    govern the slice-granular robustness machinery only; the per-process
+    async tier ignores them. The JAX package's names and defaults."""
+
+    # mirror the leader's oplog (clock, pending-as-sent, residual) into
+    # the slice ledger after every push; False trades failover coverage
+    # (a successor resumes from the service anchor only) for zero copies
+    ledger_mirroring: bool = True
+    # a slice that shrinks below this many live members retires instead
+    # of re-cutting its inner data shard (1 = never auto-retire)
+    min_members: int = 1
+    # seconds a successor leader waits for the service to register the
+    # dead leader's disconnect before re-dialing (0 = dial immediately;
+    # the hello/admit path is idempotent either way)
+    failover_grace_s: float = 0.0
+
+
+_fabric = FabricConfig()
+
+
+def fabric_config() -> FabricConfig:
+    return _fabric
+
+
+def set_fabric_config(**kwargs) -> None:
+    for k, v in kwargs.items():
+        if not hasattr(_fabric, k):
+            raise AttributeError(k)
+        setattr(_fabric, k, v)

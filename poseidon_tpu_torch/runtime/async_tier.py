@@ -26,25 +26,37 @@ names no host or port, and then the env or the port is required. The
 client's rendezvous deadline is the cluster's
 (``POSEIDON_RENDEZVOUS_DEADLINE_S``): an unreachable service raises,
 nothing falls back to training alone.
+
+**The fabric** (``train --async_ssp --slice``, ``parallel/fabric.py``):
+``FabricTier`` is the tier of a slice's leader, with the slice id as its
+worker id and ``SliceArena`` in place of ``ArenaMirror`` (the slice's
+canonical arena gathered over the slice group, exchanged as one flat
+leaf, the refresh broadcast to the members); ``SliceMember`` is the hook
+of the slice's other ranks, which never dial the service.
 """
 
 from __future__ import annotations
 
+import hashlib
 import os
 import time
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..data.workload import Shard, member_shard
 from ..parallel.async_ssp import AsyncSSPClient, ParamService
-from .cluster import RENDEZVOUS_DEADLINE_S, env_world, is_elastic_joiner
+from .cluster import (RENDEZVOUS_DEADLINE_S, env_world, is_elastic_joiner,
+                      slice_world)
 from .metrics import log
 from .spans import recorder as _spans
 
 SERVICE_ENV = "POSEIDON_ASYNC_SERVICE"
 DEFAULT_SERVICE_PORT = 12356
+# set (to anything) to have every slice member log its parameters'
+# digest after each refresh (SliceArena)
+DIGEST_ENV = "POSEIDON_FABRIC_DIGEST"
 
 
 def resolve_service_addr(coordinator: Optional[str],
@@ -101,18 +113,154 @@ class ArenaMirror:
                 tree[s.layer][s.pname], np.float32).reshape(-1)
         return out
 
-    def d2h(self) -> np.ndarray:
-        """A copy of the device arena (waits for the steps in flight)."""
-        self.host.copy_(self.step.flat_w)
-        return self._np.copy()
+    # the phases d2h and h2d add to a tier's ``timings`` (seconds)
+    phases = ("d2h_s", "h2d_s")
 
-    def h2d(self, flat: np.ndarray) -> None:
+    def d2h(self, timings: Optional[Dict] = None) -> np.ndarray:
+        """A copy of the device arena (waits for the steps in flight)."""
+        t0 = time.perf_counter()
+        self.host.copy_(self.step.flat_w)
+        out = self._np.copy()
+        if timings is not None:
+            timings["d2h_s"] += time.perf_counter() - t0
+        return out
+
+    def h2d(self, flat: np.ndarray, timings: Optional[Dict] = None,
+            members=()) -> None:
         """``flat`` into the device arena in place (same storage, so the
         forward and the update see it). The copy completes before this
         returns: the host buffer is rewritten by the next call."""
+        t0 = time.perf_counter()
         np.copyto(self._np, flat)
         with torch.no_grad():
             self.step.flat_w.copy_(self.host)
+        if timings is not None:
+            timings["h2d_s"] += time.perf_counter() - t0
+
+
+class SliceArena:
+    """The two-tier fabric's side of the arena (``parallel/fabric.py``'s
+    process model): the slice's canonical parameters through the slice's
+    own process group (``step.group``), in the canonical one-device layout
+    (``Net.arena_layout()``), exchanged as the one-leaf arena tree.
+
+    Every member of the slice calls ``d2h`` and ``h2d`` in the same order
+    (both are collectives); only the leader holds the host buffer.
+
+    - ``d2h``: the gather (``canonical_params``: tp leaves all-gathered;
+      the canonical step's arena is whole after every update, its fsdp
+      shards all-gathered in the step) packed into a device buffer, then,
+      on the leader, one D2H into a (pinned, on a GPU) host buffer.
+    - ``h2d``: on the leader one H2D of the refreshed flat; then a
+      header (the live slice ids) and ``step.load_weights`` broadcast from
+      the leader, each member writing the arena and its own tp shards
+      into its own buffers.
+
+    ``phases`` are the timings each adds to: gather and broadcast on
+    every member, the copies on the leader alone.
+
+    With ``POSEIDON_FABRIC_DIGEST`` set, every member logs the sha256 of
+    its canonical parameters after each ``h2d`` (a gather more): the
+    members of a slice print the same digest as their leader."""
+
+    HEADER = 256     # int64 slots: the member count, then the ids
+
+    def __init__(self, step, leader: bool, slice_id: int = 0):
+        from ..parallel.mesh import DataGroup
+        self.step = step
+        self.leader = leader
+        self.slice_id = slice_id
+        self.phases = (("gather_s", "d2h_s", "h2d_s", "broadcast_s")
+                       if leader else ("gather_s", "broadcast_s"))
+        self.group = step.group or DataGroup.single(step.net.device)
+        self.layout = step.net.arena_layout()
+        dev = step.net.device
+        self.canon = torch.zeros(self.layout.total, dtype=torch.float32,
+                                 device=dev)
+        self._header = torch.zeros(self.HEADER, dtype=torch.int64,
+                                   device=dev)
+        self.host = None
+        if leader:
+            self.host = torch.empty(self.layout.total, dtype=torch.float32,
+                                    pin_memory=dev.type == "cuda")
+            self._np = self.host.numpy()
+        self.digest = bool(os.environ.get(DIGEST_ENV))
+        self.refreshes = 0
+
+    def tree_of(self, flat: np.ndarray) -> Dict:
+        from ..parallel.fabric import arena_tree
+        return arena_tree(flat)
+
+    def flat_of(self, tree: Dict) -> np.ndarray:
+        from ..parallel.fabric import arena_flat
+        return arena_flat(tree)
+
+    def _sync(self) -> None:
+        if self.canon.device.type == "cuda":
+            torch.cuda.synchronize(self.canon.device)
+
+    def _gather(self) -> None:
+        with torch.no_grad():
+            self.layout.pack(self.step.canonical_params(self.step.params()),
+                             self.canon)
+        self._sync()
+
+    def d2h(self, timings: Optional[Dict] = None) -> Optional[np.ndarray]:
+        """Every member: the gather. The leader: the canonical flat on the
+        host (None elsewhere)."""
+        t0 = time.perf_counter()
+        self._gather()
+        t1 = time.perf_counter()
+        out = None
+        if self.leader:
+            self.host.copy_(self.canon)
+            out = self._np.copy()
+        if timings is not None:
+            timings["gather_s"] += t1 - t0
+            if self.leader:
+                timings["d2h_s"] += time.perf_counter() - t1
+        return out
+
+    def h2d(self, flat: Optional[np.ndarray],
+            timings: Optional[Dict] = None, members=()) -> List[int]:
+        """The leader's ``flat`` (and its live slice ids ``members``) to
+        every member, written into each member's step; returns the ids."""
+        t0 = time.perf_counter()
+        if self.leader:
+            members = sorted(members)
+            if len(members) >= self.HEADER:
+                raise ValueError(f"{len(members)} live slices do not fit "
+                                 f"the fabric's {self.HEADER}-slot header")
+            np.copyto(self._np, flat)
+            head = torch.zeros(self.HEADER, dtype=torch.int64)
+            head[0] = len(members)
+            head[1:1 + len(members)] = torch.tensor(members,
+                                                    dtype=torch.int64)
+            with torch.no_grad():
+                self.canon.copy_(self.host)
+                self._header.copy_(head)
+        t1 = time.perf_counter()
+        with torch.no_grad():
+            self.group.broadcast_(self._header)
+            # the leader's arena and tp leaves to every member, each
+            # member's own shard written into its own allocations
+            self.step.load_weights(self.layout.unpack(self.canon))
+        self._sync()
+        head = self._header.cpu()
+        ids = [int(v) for v in head[1:1 + int(head[0])]]
+        if timings is not None:
+            if self.leader:
+                timings["h2d_s"] += t1 - t0
+            timings["broadcast_s"] += time.perf_counter() - t1
+        self.refreshes += 1
+        if self.digest:
+            self._gather()
+            digest = hashlib.sha256(
+                self.canon.cpu().numpy().tobytes()).hexdigest()
+            log(f"fabric digest: slice {self.slice_id} rank-in-slice "
+                f"{self.group.rank} refresh {self.refreshes} sha256 "
+                f"{digest}")
+        return ids
 
 
 class AsyncSSPTier:
@@ -129,10 +277,10 @@ class AsyncSSPTier:
                  comm_priority_frac: Optional[float] = None,
                  comm_adaptive: Optional[bool] = None,
                  comm_wire_dtype: Optional[str] = None):
-        self.rank, self.n_procs, coord = env_world()
+        self.rank, self.n_procs, coord = self._identity()
         self.staleness = staleness
         self.sync_every = max(1, sync_every)
-        self.mirror = ArenaMirror(step)
+        self.mirror = self._make_mirror(step)
         # managed communication (SSPAggr): None knobs resolve against the
         # global ManagedCommConfig; budget <= 0 keeps the dense path
         from .. import config as _config
@@ -189,16 +337,18 @@ class AsyncSSPTier:
             log(f"async-SSP tier: rank {self.rank} rejoined at clock "
                 f"{applied}; push stream resumes at {applied + 1}",
                 rank=self.rank)
-        self._prev = self.mirror.flat_of(cache)
-        self.mirror.h2d(self._prev)
-        self._iters_since = 0
         self._members: Tuple[int, ...] = tuple(sorted(self.client.members))
+        self._prev = self.mirror.flat_of(cache)
+        self.mirror.h2d(self._prev, members=self._live())
+        self._iters_since = 0
         # seconds summed over the flushes (one a clock in the engine's
-        # loop): device->host copy, push enqueue (the delta and the
-        # non-blocking send), refresh (pull + cache rebuild), gate,
-        # host->device copy
-        self.timings = {"d2h_s": 0.0, "push_s": 0.0, "refresh_s": 0.0,
-                        "gate_s": 0.0, "h2d_s": 0.0, "flushes": 0}
+        # loop): the mirror's phases (device->host copy, and host->device
+        # copy; the fabric's gather and broadcast too), push enqueue (the
+        # delta and the non-blocking send), refresh (pull + cache
+        # rebuild), gate
+        self.timings = {**{k: 0.0 for k in self.mirror.phases},
+                        "push_s": 0.0, "refresh_s": 0.0, "gate_s": 0.0,
+                        "flushes": 0}
         managed = (f", managed comm {self.comm_budget_mbps:g} Mbit/s "
                    f"(priority_frac {self.comm_priority_frac:g}, "
                    f"adaptive {'on' if self.comm_adaptive else 'off'})"
@@ -210,22 +360,42 @@ class AsyncSSPTier:
             f"{host}:{port}{managed}", rank=self.rank)
 
     # ------------------------------------------------------------------ #
+    def _identity(self) -> Tuple[int, int, Optional[str]]:
+        """(worker id, worker count, coordinator): the identity this
+        process speaks the protocol under. Here one launcher rank is one
+        SSP worker; ``FabricTier`` makes one SLICE one worker."""
+        return env_world()
+
+    def _make_mirror(self, step):
+        return ArenaMirror(step)
+
+    def _mirror(self) -> None:
+        """After every push: nothing here (a worker's oplog dies with it,
+        the bounded-loss failure model); ``FabricTier`` mirrors the
+        leader's oplog into the slice ledger."""
+
+    def _live(self) -> Tuple[int, ...]:
+        """The current member list, this worker in it."""
+        return tuple(sorted(set(self.client.members) | {self.rank}))
+
+    def _shard_of(self, members) -> Shard:
+        return member_shard(members, self.rank)
+
     def data_shard(self) -> Shard:
         """This worker's record shard under the CURRENT member list."""
-        members = set(self.client.members) | {self.rank}
-        return member_shard(members, self.rank)
+        return self._shard_of(self._live())
 
     def sync_membership(self, engine) -> bool:
         """Reshard the engine's data if membership changed since the last
         look (called at creation and after every flush)."""
-        mem = tuple(sorted(set(self.client.members) | {self.rank}))
+        mem = self._live()
         if mem == self._members:
             return False
         old, self._members = self._members, mem
         log(f"async-SSP tier: membership changed {list(old)} -> "
             f"{list(mem)}; resharding data assignment", rank=self.rank)
         if engine is not None and hasattr(engine, "reshard_data"):
-            engine.reshard_data(member_shard(mem, self.rank))
+            engine.reshard_data(self._shard_of(mem))
         return True
 
     def membership_counters(self) -> Dict[str, float]:
@@ -254,12 +424,12 @@ class AsyncSSPTier:
 
     def _flush(self, engine) -> None:
         t = self.timings
-        t0 = time.perf_counter()
         with _spans.span("async_d2h", "async", {"rank": self.rank}):
-            cur = self.mirror.d2h()
+            cur = self.mirror.d2h(t)
         t1 = time.perf_counter()
         delta = self.mirror.tree_of(cur - self._prev)
         clock = self.client.push(delta)
+        self._mirror()
         # exception safety: if refresh() raises, a retrying caller must
         # never re-derive (and double-push) the delta just enqueued
         self._prev = cur
@@ -268,6 +438,7 @@ class AsyncSSPTier:
             # the remaining windows' updates are in the first flush; the
             # clock advances on empty deltas
             clock = self.client.push({})
+            self._mirror()
             self._iters_since -= self.sync_every
         t2 = time.perf_counter()
         cache, _ = self.client.refresh()
@@ -279,13 +450,10 @@ class AsyncSSPTier:
         self.client.gate(clock + 1, timeout_s=timeout)
         t4 = time.perf_counter()
         with _spans.span("async_h2d", "async", {"rank": self.rank}):
-            self.mirror.h2d(self._prev)
-        t5 = time.perf_counter()
-        t["d2h_s"] += t1 - t0
+            self.mirror.h2d(self._prev, t, self._live())
         t["push_s"] += t2 - t1
         t["refresh_s"] += t3 - t2
         t["gate_s"] += t4 - t3
-        t["h2d_s"] += t5 - t4
         t["flushes"] += 1
         self.sync_membership(engine)
 
@@ -317,7 +485,8 @@ class AsyncSSPTier:
             # the final anchor is the job's result: into rank 0's arena so
             # the snapshot and the eval see every worker's updates
             with self.service._lock:
-                self.mirror.h2d(self.mirror.flat_of(self.service.anchor))
+                final = self.mirror.flat_of(self.service.anchor).copy()
+            self.mirror.h2d(final, members=self._live())
             time.sleep(0.2)
             self.service.close()
         self.client.close()
@@ -340,3 +509,154 @@ class AsyncSSPTier:
                 closer()
             except Exception:  # noqa: BLE001 — teardown best effort
                 pass
+
+
+def require_slice(sw=None):
+    """``sw``, else this process's slice (``runtime/cluster.slice_world``);
+    refused when the slice env is unset."""
+    sw = sw if sw is not None else slice_world()
+    if sw is None:
+        raise ValueError(
+            "--slice requires the slice env contract: set "
+            "POSEIDON_SLICE_ID and POSEIDON_SLICE_SIZE "
+            "(runtime/cluster.slice_world)")
+    return sw
+
+
+def _slice_shard(step, members, slice_id: int) -> Shard:
+    """The two-tier shard of this rank: outer by the live slice ids,
+    inner by the step's batch shard (tp replicas share one)."""
+    from ..parallel.fabric import two_tier_shard
+    group = step.group
+    index, count = ((group.batch_index, group.batch_shards)
+                    if group is not None else (0, 1))
+    return two_tier_shard(members, slice_id, range(count), index)
+
+
+class FabricTier(AsyncSSPTier):
+    """The two-tier fabric's engine hook on a slice's LEADER (``train
+    --async_ssp --slice``; ``parallel/fabric.py``). The DCN identity is
+    the SLICE id and the roster is counted in whole slices, so the
+    service gates, shards and admits/retires whole slices. The exchange
+    is ``SliceArena``'s: the slice's canonical arena gathered over the
+    slice group, pushed as one flat leaf, the refresh broadcast back to
+    every member. After every push the leader's oplog is mirrored into
+    the slice ledger (``_mirror``). The data shard is two-tier: outer by
+    live slice id, inner by the step's batch shard.
+
+    Refused: no slice env; a process that is not its slice's leader (a
+    second client under one slice id would fork the push-seq stream and
+    break exactly-once; the other members run ``SliceMember``)."""
+
+    def __init__(self, step, staleness: int, slice_assignment=None,
+                 **kwargs):
+        from ..config import fabric_config
+        from ..parallel.fabric import SliceLedger
+        sw = require_slice(slice_assignment)
+        if not sw.is_leader:
+            raise ValueError(
+                f"rank-in-slice {sw.rank_in_slice} of slice {sw.slice_id} "
+                f"is not the leader: only the leader (rank-in-slice 0) "
+                f"speaks the DCN protocol — a second client under slice id "
+                f"{sw.slice_id} would fork the push-seq stream and break "
+                f"exactly-once. Non-leader ranks run the intra-slice SPMD "
+                f"program only.")
+        self.slice_assignment = sw
+        self.ledger = SliceLedger()
+        self._fabric_cfg = fabric_config()
+        super().__init__(step, staleness, **kwargs)
+        log(f"fabric tier: slice {sw.slice_id} of {self.n_procs} "
+            f"({sw.slice_size} process(es)/slice, leader rank-in-slice 0) "
+            f"speaking the DCN tier as worker {self.rank}")
+
+    def _identity(self) -> Tuple[int, int, Optional[str]]:
+        _, _, coord = env_world()
+        sw = self.slice_assignment
+        return sw.slice_id, sw.n_slices, coord
+
+    def _make_mirror(self, step):
+        return SliceArena(step, leader=True,
+                          slice_id=self.slice_assignment.slice_id)
+
+    def _mirror(self) -> None:
+        if self._fabric_cfg.ledger_mirroring:
+            self.ledger.mirror(self.client)
+
+    def _shard_of(self, members) -> Shard:
+        return _slice_shard(self.mirror.step, members, self.rank)
+
+
+class SliceMember:
+    """The engine hook on a slice's non-leader ranks (``train --async_ssp
+    --slice``): no client, no service. It takes part in the leader's
+    collectives in the leader's order: the service seed's gather (slice 0
+    only), the join's broadcast, at every flush the gather and the
+    refresh broadcast, at the end the final anchor's broadcast (slice 0
+    only); the broadcast's header carries the live slice ids, which
+    re-cut this rank's two-tier data shard. It blocks in the broadcast
+    while its leader waits at the gate."""
+
+    def __init__(self, step, staleness: int = 0, sync_every: int = 1,
+                 slice_assignment=None, **_dcn_options):
+        sw = require_slice(slice_assignment)
+        if sw.is_leader:
+            raise ValueError(f"rank-in-slice 0 leads slice {sw.slice_id}: "
+                             f"it runs FabricTier")
+        self.slice_assignment = sw
+        self.rank = env_world()[0]
+        self.sync_every = max(1, sync_every)
+        self.mirror = SliceArena(step, leader=False, slice_id=sw.slice_id)
+        if sw.slice_id == 0:
+            self.mirror.d2h()           # the service's seed
+        self._members = tuple(self.mirror.h2d(None))   # the join's anchor
+        self._iters_since = 0
+        self.timings = {**{k: 0.0 for k in self.mirror.phases},
+                        "flushes": 0}
+
+    def data_shard(self) -> Shard:
+        return _slice_shard(self.mirror.step, self._members,
+                            self.slice_assignment.slice_id)
+
+    def membership_counters(self) -> Dict[str, float]:
+        return {"members": float(len(self._members))}
+
+    def comm_counters(self) -> Dict[str, float]:
+        return {}
+
+    def due(self, n_iters: int) -> bool:
+        return self._iters_since + n_iters >= self.sync_every
+
+    def after_iters(self, engine, n_iters: int) -> None:
+        self._iters_since += n_iters
+        if self._iters_since < self.sync_every:
+            return
+        with _spans.span("async_flush", "async", {"rank": self.rank}):
+            self.mirror.d2h(self.timings)
+            while self._iters_since >= self.sync_every:
+                self._iters_since -= self.sync_every
+            mem = tuple(self.mirror.h2d(None, self.timings))
+        self.timings["flushes"] += 1
+        if mem != self._members:
+            self._members = mem
+            if engine is not None and hasattr(engine, "reshard_data"):
+                engine.reshard_data(self.data_shard())
+
+    def finish(self, engine) -> Dict[str, float]:
+        if self._iters_since:
+            self._iters_since = self.sync_every  # force the flush
+            self.after_iters(engine, 0)
+        if self.slice_assignment.slice_id == 0:
+            self.mirror.h2d(None)       # the final anchor
+        flushes = max(1, self.timings["flushes"])
+        out = {f"async_{k.removesuffix('_s')}_ms_per_flush":
+               round(1e3 * v / flushes, 3)
+               for k, v in self.timings.items() if k != "flushes"}
+        out["async_flushes"] = float(self.timings["flushes"])
+        sw = self.slice_assignment
+        log(f"fabric member (rank {self.rank}, rank-in-slice "
+            f"{sw.rank_in_slice} of slice {sw.slice_id}): "
+            + ", ".join(f"{k}={v}" for k, v in out.items()))
+        return out
+
+    def close(self) -> None:
+        """Nothing to tear down: the slice group is the engine's."""

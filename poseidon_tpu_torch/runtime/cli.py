@@ -8,7 +8,8 @@ of ``poseidon_tpu/runtime/cli.py``)::
         [--topk_policy magnitude|random|fixed_order] [--topk_block N] \\
         [--dcn_slices N] [--mesh dpD,fsdpF,tpT[,replicated]] [--staleness S] \\
         [--server_logic inc|adarevision] [--adarev_init_step X] \\
-        [--async_ssp [--async_sync_every N] [--comm_budget_mbps X] \\
+        [--async_ssp [--slice] [--async_sync_every N] \\
+         [--comm_budget_mbps X] \\
          [--comm_priority_frac X] [--comm_adaptive] \\
          [--async_{heartbeat,liveness_timeout,reconnect_deadline,\\
                    gate_timeout,first_gate_timeout}_s X]] \\
@@ -64,8 +65,14 @@ world exactly the mesh's size; the fsdp-sharded arena buckets of
 ``replicated`` runs the control arm; the fsdp arm keeps the full buffers
 on every rank, so it saves no memory: only the ``sharded_state`` API of
 ``SpmdTrainStep`` holds 1/F a rank) and composes with ``--staleness``
-(the fsdp delta exchange) but not with ``--dcn_slices``; ``--slice``
-raises ``NotImplementedError`` naming its ROADMAP item. ``test`` scores a
+(the fsdp delta exchange) but not with ``--dcn_slices``. ``--async_ssp
+--slice [--mesh M]`` trains by the two-tier fabric (``parallel/fabric.py``):
+under ``POSEIDON_SLICE_ID``/``POSEIDON_SLICE_SIZE`` the processes form
+slices of contiguous ranks, each slice runs the mesh synchronously over
+its own process group (``runtime/cluster.init_slice_group``), and its
+leader speaks the async tier with the slice id as its worker id.
+``--slice`` without ``--async_ssp`` is refused, and so is a mesh of more
+than one device under ``--async_ssp`` without ``--slice``. ``test`` scores a
 net's TEST phase and prints one ``<output>: <mean>`` line per scalar output. ``serve`` warms every bucket,
 logs ``serve: listening on <host>:<port>``, serves until SIGTERM/SIGINT,
 drains every admitted request, prints one ``serving_final_stats`` JSON line
@@ -246,14 +253,21 @@ def async_from_args(args):
     flags, as the JAX CLI's ``_engine_from_args``: under ``--async_ssp``
     the staleness bound belongs to the tier and the local step is the
     synchronous one."""
-    if args.slice:
-        raise NotImplementedError(
-            "--slice (the two-tier fabric, parallel/fabric.py) is not in "
-            "the port yet (ROADMAP queue A item 9, part 6)")
     if not args.async_ssp:
+        if args.slice:
+            raise SystemExit("--slice composes the two-tier fabric on top "
+                             "of the async tier; it requires --async_ssp")
         return args.staleness, None
+    mesh = mesh_from_args(args)
+    if not args.slice and mesh is not None and mesh.n_devices > 1:
+        from .engine import mesh_async_refusal
+        raise SystemExit(mesh_async_refusal(mesh))
     cfg = {"staleness": args.staleness,
            "sync_every": args.async_sync_every}
+    if args.slice:
+        # the leader of each slice speaks the tier as the slice
+        # (runtime/async_tier.FabricTier); the slice env names the slices
+        cfg["slice"] = True
     for key, flag in _ASYNC_FAULT_FLAGS:
         v = getattr(args, flag)
         if v is not None and v >= 0:
@@ -491,7 +505,14 @@ def build_parser() -> argparse.ArgumentParser:
                         "a rank). Empty = the flat data group")
     # a flag of the JAX CLI that the port does not cover yet: it raises
     # NotImplementedError naming its ROADMAP item
-    t.add_argument("--slice", action="store_true")
+    t.add_argument("--slice", action="store_true",
+                   help="two-tier fabric (parallel/fabric.py): under "
+                        "--async_ssp and the POSEIDON_SLICE_ID/"
+                        "POSEIDON_SLICE_SIZE env contract, each slice of "
+                        "contiguous ranks trains synchronously over its "
+                        "own process group (--mesh inside the slice) and "
+                        "its leader speaks the async tier with the slice "
+                        "id as its worker id")
     t.add_argument("--device_prefetch", type=int, default=None,
                    help="device-side input prefetch depth: a background "
                         "stage copies the next N host batches onto the "

@@ -19,7 +19,22 @@
     one).
 
 A single process (world 1, no coordinator) initializes nothing, as in the
-JAX package; it is one slice of one rank. A world above 1 without a
+JAX package; it is one slice of one rank.
+
+The two-tier fabric's half (``train --async_ssp --slice``,
+``parallel/fabric.py``): ``slice_env`` and ``slice_world`` read
+``POSEIDON_SLICE_ID`` / ``POSEIDON_SLICE_SIZE`` as the JAX package does
+(the same results and refusals for the same env), and
+``init_slice_group`` makes the slice's OWN process group: its members
+rendezvous at a store of their own, one per slice id
+(``slice_init_method``: the coordinator's port + 2 + the slice id, since
+port + 1 is the async service's; a ``file://`` coordinator's path +
+``.slice<k>``), with rank = rank-in-slice and world = slice size. No
+global world exists in this mode, so a slice that dies takes no other
+slice's group with it, and a joiner slice re-forms its group under its
+own id. Where JAX counts devices (a slice member cannot share one), the
+port counts them by the backend rule above: gloo ranks may share a card,
+NCCL ranks may not. A world above 1 without a
 coordinator raises rather than training N unsynchronized replicas.
 Rendezvous retries with the shared backoff (``runtime/retry.py``),
 seeded by rank: under a launcher the coordinator may come up seconds
@@ -45,6 +60,11 @@ from .retry import retry_with_backoff
 RENDEZVOUS_DEADLINE_S = float(
     os.environ.get("POSEIDON_RENDEZVOUS_DEADLINE_S", "60"))
 _COLLECTIVE_TIMEOUT_S = 600.0
+# a slice's group: its members wait in the leader's refresh broadcast
+# while the leader waits at the async tier's gate, whose first wait may
+# last 1800 s (runtime/async_tier.py); the broadcast outlasts it, and
+# raises after it
+_SLICE_COLLECTIVE_TIMEOUT_S = 2400.0
 
 # init_process_group reports both a coordinator that is not up yet and a
 # permanent misconfiguration as RuntimeError; only these look transient
@@ -66,6 +86,164 @@ def is_elastic_joiner(rank: int, n_procs: int) -> bool:
     """True when this process joins a live async-SSP job from outside the
     launch roster (``POSEIDON_PROC_ID >= POSEIDON_NUM_PROCS``)."""
     return rank >= n_procs
+
+
+@dataclass(frozen=True)
+class SliceAssignment:
+    """This process's place in the two-tier fabric: its slice, how many
+    processes the slice spans, and its rank within the slice (0 = the
+    slice's leader, the one process that speaks the async-SSP protocol)."""
+
+    slice_id: int
+    slice_size: int
+    rank_in_slice: int
+    n_slices: int        # whole slices in the launch roster
+
+    @property
+    def is_leader(self) -> bool:
+        return self.rank_in_slice == 0
+
+    @property
+    def is_joiner_slice(self) -> bool:
+        """The slice sits outside the launch roster: admitted mid-run, not
+        launched (the slice-granular ``is_elastic_joiner``)."""
+        return self.slice_id >= self.n_slices
+
+
+def slice_env(n_visible_devices: Optional[int] = None
+              ) -> Optional[Tuple[int, int]]:
+    """(slice_id, slice_size) from ``POSEIDON_SLICE_ID`` /
+    ``POSEIDON_SLICE_SIZE``, or None when neither is set (the per-process
+    path unchanged). Refused loudly: one variable without the other; a
+    slice id below 0 or a size below 1; a slice larger than
+    ``n_visible_devices`` when the caller counts devices
+    (``slice_device_limit``: only where members cannot share one)."""
+    sid = os.environ.get("POSEIDON_SLICE_ID")
+    ssz = os.environ.get("POSEIDON_SLICE_SIZE")
+    if sid is None and ssz is None:
+        return None
+    if sid is None or ssz is None:
+        raise ValueError(
+            "POSEIDON_SLICE_ID and POSEIDON_SLICE_SIZE must be set "
+            f"together (got SLICE_ID={sid!r}, SLICE_SIZE={ssz!r}); the "
+            "slice contract is all-or-nothing")
+    slice_id, slice_size = int(sid), int(ssz)
+    if slice_id < 0:
+        raise ValueError(f"POSEIDON_SLICE_ID must be >= 0, got {slice_id}")
+    if slice_size < 1:
+        raise ValueError(
+            f"POSEIDON_SLICE_SIZE must be >= 1, got {slice_size}")
+    if n_visible_devices is not None and slice_size > n_visible_devices:
+        raise ValueError(
+            f"slice {slice_id} spans {slice_size} processes but only "
+            f"{n_visible_devices} device(s) are visible — a slice member "
+            f"cannot share a device; shrink POSEIDON_SLICE_SIZE or widen "
+            f"the device set")
+    return slice_id, slice_size
+
+
+def slice_world(n_visible_devices: Optional[int] = None
+                ) -> Optional[SliceAssignment]:
+    """This process's whole slice assignment, or None when the slice env
+    is unset. Slice k owns the contiguous ranks [k*size, (k+1)*size), so
+    every process derives the assignment from its own env. Refused
+    loudly: a launch roster that is not a whole number of slices (orphan
+    ranks), and a rank outside its declared slice's block (an
+    overlapping assignment). A slice id past the roster is a joiner
+    slice; its ranks sit past the roster too."""
+    se = slice_env(n_visible_devices)
+    if se is None:
+        return None
+    slice_id, slice_size = se
+    rank, n_procs, _ = env_world()
+    if n_procs % slice_size:
+        raise ValueError(
+            f"launch roster of {n_procs} processes is not a whole number "
+            f"of {slice_size}-process slices — "
+            f"{n_procs % slice_size} rank(s) would belong to no slice")
+    rank_in_slice = rank - slice_id * slice_size
+    if not (0 <= rank_in_slice < slice_size):
+        owner = rank // slice_size
+        raise ValueError(
+            f"overlapping slice assignment: rank {rank} declares slice "
+            f"{slice_id} but the contiguous-block contract puts it in "
+            f"slice {owner} (slice k owns ranks [k*{slice_size}, "
+            f"(k+1)*{slice_size}))")
+    return SliceAssignment(slice_id=slice_id, slice_size=slice_size,
+                           rank_in_slice=rank_in_slice,
+                           n_slices=n_procs // slice_size)
+
+
+def slice_device_limit(device: torch.device,
+                       backend: Optional[str] = None) -> Optional[int]:
+    """The ``n_visible_devices`` a slice is checked against, by the
+    backend rule: the visible card count for NCCL ranks (each needs a card
+    of its own), None where ranks may share one (CPU tensors, gloo). With
+    no backend asked for, the rule picks gloo for a slice larger than the
+    card count, so only an explicit NCCL request is ever refused."""
+    if device.type != "cuda" or backend != "nccl":
+        return None
+    return torch.cuda.device_count()
+
+
+def slice_init_method(coordinator: Optional[str], slice_id: int) -> str:
+    """Where slice ``slice_id``'s members rendezvous (the module
+    docstring's rule)."""
+    if not coordinator:
+        raise ValueError(
+            "a slice of more than one process needs POSEIDON_COORDINATOR "
+            "(host:port or a file:// URL) for its own rendezvous")
+    if coordinator.startswith("file://"):
+        return f"{coordinator}.slice{slice_id}"
+    host, port = coordinator.split("://", 1)[-1].rsplit(":", 1)
+    return f"tcp://{host}:{int(port) + 2 + slice_id}"
+
+
+def init_slice_group(device: torch.device, sw: SliceAssignment,
+                     coordinator: Optional[str] = None,
+                     backend: Optional[str] = None):
+    """The data group of slice ``sw``'s own process group (rank =
+    rank-in-slice, world = slice size, ``slice_init_method``'s store). A
+    rank takes ``cuda:(global rank % count)``, so the slices of one host
+    hold disjoint cards where they fit. The backend: ``backend`` when given
+    (NCCL refused where members would share a card), else the rule's
+    pick. A slice of one process makes no group."""
+    import torch.distributed as dist
+
+    from ..parallel.mesh import DataGroup
+
+    rank, _, e_coord = env_world()
+    coordinator = e_coord if coordinator is None else coordinator
+    if device.type == "cuda":
+        count = torch.cuda.device_count()
+        if count == 0:
+            raise RuntimeError(
+                "a CUDA device was asked for and none is visible")
+        limit = slice_device_limit(device, backend)
+        if limit is not None and sw.slice_size > limit:
+            raise ValueError(
+                f"slice {sw.slice_id} spans {sw.slice_size} NCCL ranks but "
+                f"only {limit} device(s) are visible — NCCL ranks cannot "
+                f"share a device (gloo ranks can)")
+        dev = torch.device("cuda", rank % count)
+        torch.cuda.set_device(dev)
+        if backend is None:
+            backend = "nccl" if sw.slice_size <= count else "gloo"
+        why = (f"{sw.slice_size} rank(s) a slice on {count} visible "
+               f"GPU(s)" + (", sharing them" if backend == "gloo" else ""))
+    else:
+        dev = device
+        backend, why = "gloo", "CPU tensors"
+    if sw.slice_size == 1:
+        return DataGroup.single(dev)
+    _init_with_retry(backend, slice_init_method(coordinator, sw.slice_id),
+                     sw.rank_in_slice, sw.slice_size, dev,
+                     timeout_s=_SLICE_COLLECTIVE_TIMEOUT_S)
+    log(f"distributed: slice {sw.slice_id} of {sw.slice_size} rank(s), "
+        f"backend {backend} ({why}); rank {rank} is rank-in-slice "
+        f"{sw.rank_in_slice} on {dev}", rank=sw.rank_in_slice)
+    return DataGroup(rank=sw.rank_in_slice, world=sw.slice_size, device=dev,
+                     backend=backend, pg=dist.group.WORLD)
 
 
 @dataclass(frozen=True)
@@ -131,7 +309,8 @@ def init_method_of(coordinator: str) -> str:
 
 
 def _init_with_retry(backend: str, init_method: str, rank: int, world: int,
-                     device: torch.device) -> None:
+                     device: torch.device,
+                     timeout_s: float = _COLLECTIVE_TIMEOUT_S) -> None:
     import torch.distributed as dist
 
     class _Transient(OSError):
@@ -146,7 +325,7 @@ def _init_with_retry(backend: str, init_method: str, rank: int, world: int,
             dist.init_process_group(
                 backend, init_method=init_method, rank=rank,
                 world_size=world,
-                timeout=datetime.timedelta(seconds=_COLLECTIVE_TIMEOUT_S),
+                timeout=datetime.timedelta(seconds=timeout_s),
                 **kw)
         except RuntimeError as e:
             if not any(s in str(e).lower() for s in _TRANSIENT_RENDEZVOUS):

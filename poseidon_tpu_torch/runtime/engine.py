@@ -48,7 +48,11 @@ come from the launcher env, each process runs the local synchronous step
 on its own device, and the tier's ``after_iters`` runs after every step
 (a clock boundary hard-syncs the in-flight window first, span
 ``hard_sync`` with boundary ``async_clock``), ``finish`` at the end; a
-change of membership reshards the train data (``reshard_data``).
+change of membership reshards the train data (``reshard_data``). With
+``async_ssp["slice"]`` (``--slice``) the processes form slices
+(``parallel/fabric.py``): each slice's ranks make the slice's own process
+group and named mesh (``mesh_cfg``) and read the two-tier shard, the
+slice's leader runs ``FabricTier`` and the other members ``SliceMember``.
 Parameters are filled from ``sp.random_seed`` (1 when unset) with a CPU
 ``torch.Generator``; the
 dropout generator is seeded from it with the rank folded in
@@ -158,6 +162,16 @@ def device_input_transform(pipes: List[BatchPipeline], device
     return transform
 
 
+def mesh_async_refusal(mesh_cfg) -> str:
+    """The refusal of a multi-device mesh under the async tier without the
+    fabric: one process a device, so an N-device mesh is N processes, and
+    in the port that is a slice."""
+    return (f"--mesh {mesh_cfg.describe()} spans {mesh_cfg.n_devices} "
+            f"devices, which the async tier's one-process workers cannot "
+            f"hold: run the mesh as a slice (--async_ssp --slice with "
+            f"POSEIDON_SLICE_ID/POSEIDON_SLICE_SIZE, parallel/fabric.py)")
+
+
 class Engine:
     def __init__(self, sp: SolverParameter, output_dir: str = ".",
                  device=None, comm: Optional[CommConfig] = None,
@@ -181,10 +195,13 @@ class Engine:
             if dcn_slices > 1 or (comm is not None
                                   and comm.dcn_axis is not None):
                 raise ValueError("--mesh and --dcn_slices do not compose")
-            if async_ssp is not None:
-                raise ValueError("--mesh does not compose with --async_ssp "
-                                 "(the fabric, parallel/fabric.py, is not "
-                                 "in the port yet)")
+        self._slice = None
+        if async_ssp is not None and async_ssp.get("slice"):
+            from .async_tier import require_slice
+            self._slice = require_slice()
+        elif async_ssp is not None and mesh_cfg is not None \
+                and mesh_cfg.n_devices > 1:
+            raise ValueError(mesh_async_refusal(mesh_cfg))
         self.staleness = max(0, int(staleness))
         self._async_cfg = async_ssp
         self._async_tier = None
@@ -209,7 +226,15 @@ class Engine:
         self._device_feed: Optional[DevicePrefetcher] = None
         self._snap_writer = (AsyncSnapshotWriter() if self.async_snapshot
                              else None)
-        if async_ssp is not None:
+        if self._slice is not None:
+            # the fabric: the slice's own process group and mesh; between
+            # slices the tier's service is the only exchange
+            from ..parallel.fabric import slice_submesh
+            from .cluster import init_slice_group
+            self.rank, self.world, _ = env_world()
+            self.group = slice_submesh(mesh_cfg, init_slice_group(
+                resolve_device(device), self._slice))
+        elif async_ssp is not None:
             # independent processes: no process group; the tier's service
             # is the only exchange
             rank, world, _ = env_world()
@@ -224,10 +249,16 @@ class Engine:
         self.device = self.group.device
         # an elastic joiner (rank outside the launch world) builds with the
         # whole range; the tier reshards it at join. On a named mesh the tp
-        # replicas of a batch shard read the same records
+        # replicas of a batch shard read the same records; a slice's ranks
+        # read the two-tier shard of the launch roster
         self._data_shard = (Shard(self.group.batch_index,
                                   self.group.batch_shards)
                             if self.rank < self.world else Shard(0, 1))
+        if self._slice is not None and not self._slice.is_joiner_slice:
+            from ..parallel.fabric import two_tier_shard
+            self._data_shard = two_tier_shard(
+                range(self._slice.n_slices), self._slice.slice_id,
+                range(self.group.batch_shards), self.group.batch_index)
         # --trace_out: the process-wide span recorder, owned (cleared,
         # enabled, dumped and disabled) by this engine
         self._trace_out: Optional[str] = None
@@ -333,7 +364,7 @@ class Engine:
                 rank=self.rank)
         elif self.plan is not None:
             arena = step.arena
-            log(f"spmd: {self.world} ranks x batch "
+            log(f"spmd: {self.group.world} ranks x batch "
                 f"{next(iter(train_shapes.values()))[0]}, "
                 f"{self.plan.n_dp} batch shard(s), sync {step.kinds}, "
                 f"reduce {self.comm.reduce}, wire "
@@ -346,8 +377,8 @@ class Engine:
                    if arena is not None else "no arena"), rank=self.rank)
         elif group is not None:
             batch = next(iter(train_shapes.values()))[0]
-            log(f"data parallel: {self.world} ranks x batch {batch}, sync "
-                f"{step.kinds}, reduce {self.comm.reduce}, wire "
+            log(f"data parallel: {self.group.world} ranks x batch {batch}, "
+                f"sync {step.kinds}, reduce {self.comm.reduce}, wire "
                 f"{self.comm.wire_dtype or 'f32'}, {len(step.sync.hooked)} "
                 f"DWBP bucket(s) of {self.comm.bucket_mb:g} MB, "
                 f"{len(step.sync.fused)} after backward", rank=self.rank)
@@ -364,9 +395,12 @@ class Engine:
             # the per-step table; an SSP step exchanges at its boundary
             self._log_comm_table()
         seed = sp.random_seed if sp.random_seed >= 0 else 1
-        # tp replicas draw the same dropout masks (the batch-shard index)
-        self.train_net.generator.manual_seed(
-            rank_seed(seed, self.group.batch_index))
+        # tp replicas draw the same dropout masks (the batch-shard index;
+        # a slice's, offset by its slice id)
+        self.train_net.generator.manual_seed(rank_seed(
+            seed, self.group.batch_index + (
+                self._slice.slice_id * self.group.batch_shards
+                if self._slice is not None else 0)))
         params = self.train_net.init(torch.Generator().manual_seed(seed))
         self.params, self.state = step.load(params, self._fresh_state(
             params))
@@ -554,11 +588,18 @@ class Engine:
             self._device_feed = DevicePrefetcher(
                 self.train_pipelines, self.device, depth=self.device_prefetch)
         if self._async_cfg is not None and self._async_tier is None:
-            from .async_tier import AsyncSSPTier
+            from .async_tier import AsyncSSPTier, FabricTier, SliceMember
             # every worker starts from the service's anchor, written into
-            # the arena in place; the data follows the member list
-            self._async_tier = AsyncSSPTier(self.train_step,
-                                            **self._async_cfg)
+            # the arena in place; the data follows the member list. Under
+            # --slice the leader speaks for the slice and the other
+            # members follow its gathers and broadcasts
+            cfg = dict(self._async_cfg)
+            tier_cls = AsyncSSPTier
+            if cfg.pop("slice", False):
+                tier_cls = (FabricTier if self._slice.is_leader
+                            else SliceMember)
+                cfg["slice_assignment"] = self._slice
+            self._async_tier = tier_cls(self.train_step, **cfg)
             self.params = self.train_step.params()
             self.reshard_data(self._async_tier.data_shard())
         if sp.test_interval and sp.test_initialization and self.test_nets:

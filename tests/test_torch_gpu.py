@@ -1166,6 +1166,31 @@ def test_arena_mirror_round_trip_is_bitwise_and_pinned_on_card():
 
 
 @pytest.mark.gpu
+def test_slice_arena_round_trip_is_bitwise_and_in_place_on_card():
+    """The fabric leader's side of the arena (``SliceArena``) on a
+    one-device step: the gather and the pinned D2H give the canonical
+    flat bitwise; the H2D and the broadcast write a refresh into the
+    step's own storage bitwise and hand back the live slice ids."""
+    _need_gpu()
+    from poseidon_tpu_torch.parallel import trainer as T
+    from poseidon_tpu_torch.runtime.async_tier import SliceArena
+    net, _ = _ssp_net_and_batch()
+    step = T.TrainStep(net, _solver())
+    step.load_weights(net.init(torch.Generator().manual_seed(4)))
+    arena = SliceArena(step, leader=True)
+    assert arena.host.is_pinned()
+    timings = {k: 0.0 for k in arena.phases}
+    flat = arena.d2h(timings)
+    assert torch.equal(torch.from_numpy(flat), step.flat_w.cpu())
+    new = flat * 0.5 + 1.0
+    ptr = step.flat_w.data_ptr()
+    assert arena.h2d(new, timings, members=(3, 0)) == [0, 3]
+    assert step.flat_w.data_ptr() == ptr
+    assert torch.equal(step.flat_w.cpu(), torch.from_numpy(new))
+    assert all(v >= 0.0 for v in timings.values())
+
+
+@pytest.mark.gpu
 def test_arena_refresh_in_place_feeds_the_forward_and_k7_on_card():
     """A refresh written into the arena by the tier's H2D keeps the
     storage (no new tensor) and the next step's forward and K7 read the

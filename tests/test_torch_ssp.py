@@ -683,7 +683,8 @@ def test_cli_mesh_and_slice_raise_naming_their_item(flags, item):
         with pytest.raises(SystemExit, match="do not compose"):
             comm_from_args(both)
         return
-    with pytest.raises(NotImplementedError,
-                       match=rf"ROADMAP queue A item 9, part {item}\)"):
-        comm_from_args(args)
+    # the fabric is ported: --slice parses, and without --async_ssp it is
+    # refused with the JAX CLI's message
+    comm_from_args(args)
+    with pytest.raises(SystemExit, match="it requires --async_ssp"):
         async_from_args(args)
