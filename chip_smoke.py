@@ -42,7 +42,10 @@ Phases, in order; any failure exits non-zero without the final ``ok`` line:
      causal, the byte-level LM's training and decode-prefill shapes
      (8,4,256,32) and (1,4,32,32), (8,12,512,64) causal and not in f32
      and bf16, the ring-chunk modes +1/0/-1 at (2,4,128,64), an odd
-     (1,3,48,16); the library yardstick is F.scaled_dot_product_attention.
+     (1,3,48,16), and ``[lm_par]``'s call sites in f32 and bf16 (a seq
+     rank's ring blocks, modes 0 and +1 at (4,12,512,64); a tp or Ulysses
+     rank's 6 heads at (4,6,1024,64)); the library yardstick is
+     F.scaled_dot_product_attention.
      f32 cases also print the bound at the 3xTF32 rate (3 x operations over
      TF32's 495 TFLOP/s); each case relaunches the kernel on the same
      inputs, which must give bitwise-equal out and lse; the registers,
@@ -54,7 +57,8 @@ Phases, in order; any failure exits non-zero without the final ``ok`` line:
      (the main case), the byte-level LM's (8,4,256,32), (8,12,512,64)
      causal and not in f32 and bf16, the
      ring-chunk modes +1/0/-1 at (2,4,128,64) with delta passed in, an odd
-     (1,3,48,16); the library yardstick is the backward of
+     (1,3,48,16), ``[lm_par]``'s call sites as for K1 (the ring blocks
+     with delta passed in); the library yardstick is the backward of
      F.scaled_dot_product_attention (forward + backward less the forward),
      timed against K2+K3 together. Each case also prints the bound at the
      3xTF32 rate (3 x operations over TF32's 495 TFLOP/s) and relaunches
@@ -182,11 +186,35 @@ Phases, in order; any failure exits non-zero without the final ``ok`` line:
    bytes. Launch counters are zeroed just before and read just after:
    exactly 2 flash_fwd, 2 flash_dq and 2 flash_dkv a step (one a layer,
    remat off), and 2 flash_fwd for the decode's prefill.
-10. Real data end to end: ``python -m poseidon_tpu_torch train`` on the
+10. ``[lm_par]``, LM sequence and tensor parallelism, every rank a gloo
+   process sharing the card (a correctness path): one job of LMP_RANKS
+   ranks runs (a) ``ring_flash_attention`` and ``ulysses_attention`` over
+   a seq group of 2, a rank's block (4,12,512,64) of a causal sequence of
+   1024, f32 and bf16: out, dq, dk, dv against K1-K3 and against the
+   plain versions on the gathered sequence (FLASH_TOL / FLASH_BWD_TOL;
+   bf16's atol LMP_BF16_ATOL_SHARE of the largest magnitude), exact
+   launches a rank (ring: rank r runs r + 1 of K1 forward and of K2 and K3
+   backward; Ulysses one each), the card ms of each rank's ring forward
+   and backward beside the one-device flash; (b) gpt_small at full width
+   and depth (remat on), f32, global batch 4 x 1024: the one-device step
+   (the control, rank 0), then sp2 (data 1 x seq 2), tp2 (data 1 x model
+   2) and sp2xtp2 (data 1 x seq 2 x model 2), each from the control's
+   weights, a warm-up and LMP_STEPS steps: after step 1 the loss within
+   LMP_LOSS_RTOL and every leaf within LMP_TOL of the control's, after
+   the last the max abs difference; exact K1-K3 launches a rank (24 (r+1)
+   K1 and 12 (r+1) K2 and K3 a step at seq index r; 24/12/12 under tp);
+   the wall a step, the peak memory a rank and the bytes a rank sends a
+   step by kind (ring K/V, ring dK/dV, tp all-reduces, gradient
+   all-reduces); (c) two ``train_lm --mode sp --par_axis 2`` and two
+   ``--mode tp --par_axis 2`` ranks at gpt_small's width (LMP_CLI_ARGS),
+   at once: exit 0, finite losses falling, rank 0's display lines with
+   tok/s, each rank's launches.
+11. Real data end to end: ``python -m poseidon_tpu_torch train`` on the
    digits solver (1000 iterations, real UCI digits from the repo) into a
    temporary directory; the final test accuracy must reach DIGITS_MIN_ACC.
-11. One JSON line with every kernel's numbers (launches by path, ``dp``,
-    ``topk`` and ``loop`` among them), then the ``ok`` line.
+12. One JSON line with every kernel's numbers (launches by path, ``dp``,
+    ``topk``, ``loop`` and ``lm_par_*`` among them), then the ``ok``
+    line.
 """
 
 from __future__ import annotations
@@ -280,6 +308,55 @@ GRAD_TOL = 1e-4
 # summation orders of the card without passing a run that did not learn.
 LM_CORPUS_MAX_LOSS = 3.0
 LM_CORPUS_GENERATE = 48
+# the [lm_par] phase: LM sequence and tensor parallelism, every rank a
+# gloo process sharing the card (NCCL cannot put two ranks on one GPU), so
+# a correctness path, not a speed claim. (a) ring flash attention and
+# Ulysses over a seq group of 2 at gpt_small's attention shape, a rank's
+# block LMP_ATT_SHAPE (a global sequence of 1024), causal, f32 and bf16,
+# against the flash kernels and the plain versions on the gathered
+# sequence; (b) gpt_small at full width and depth (remat on), f32, global
+# batch LMP_BATCH x LMP_SEQ, seeded as [lm_train], the one-device step (the
+# control) and each of LMP_ARMS from the control's weights: a warm-up
+# step, then LMP_STEPS steps from the same weights; (c) two `train_lm
+# --mode sp --par_axis 2` and two `--mode tp --par_axis 2` ranks
+LMP_RANKS = 4
+LMP_ATT_SHAPE = (4, 12, 512, 64)
+LMP_ATT_SHAPE_TINY = (1, 4, 64, 16)     # a CPU rehearsal's
+LMP_BATCH, LMP_SEQ, LMP_STEPS = 4, 1024, 3
+LMP_ARMS = {"sp2": (("data", "seq"), (1, 2), "sp"),
+            "tp2": (("data", "model"), (1, 2), "tp"),
+            "sp2xtp2": (("data", "seq", "model"), (1, 2, 2), "tp")}
+# after step 1 every arm against the control: the loss and every leaf
+# (the ring regroups attention's sums, tp the wo and w2 contractions)
+LMP_LOSS_RTOL = 1e-5
+LMP_TOL = (1e-4, 1e-6)
+# the ring's outputs against the gathered sequence in bf16: FLASH_TOL's
+# (FLASH_BWD_TOL's) rtol, and an atol of its atol or 2^-7 of the largest
+# magnitude in the reference's block a head (this rank's rows of one
+# (batch, head)), whichever is larger:
+# each ring block's out (and dq, dk, dv) leaves K1 (K2, K3) in bf16 and is
+# merged in f32, and delta comes from the merged bf16 output, so an entry
+# whose blocks nearly cancel sits a bf16 rounding of a block's value from
+# the one-pass kernel (as in JAX's ring; tests/test_torch_sequence.py
+# pins it on the CPU). A row's own largest magnitude is too small a scale
+# for a late key's dk, which few queries feed. Ulysses runs one K1-K3
+# pass over its heads and is held at FLASH_TOL / FLASH_BWD_TOL.
+LMP_BF16_ATOL_SHARE = 2 ** -7
+# (c) at gpt_small's width: the script's default lr 0.05 (sized for its
+# d 128) diverges there (read on the card: 5.84 -> 15.68 in 6 steps);
+# 0.005 falls smoothly (on the CPU at seq 128: 5.98 -> 3.73)
+LMP_CLI_ARGS = ("--d_model", "768", "--n_heads", "12", "--n_layers", "12",
+                "--seq", "1024", "--batch", "4", "--steps", "6",
+                "--display", "2", "--remat", "--lr", "0.005")
+LMP_TIMEOUT_S = 600
+# a child `train_lm` rank that reports its kernel launches when it returns
+LMP_CLI_LAUNCH = (
+    "import json, sys\n"
+    "from poseidon_tpu_torch.models.train_lm import main\n"
+    "main(sys.argv[1:])\n"
+    "from poseidon_tpu_torch.ops import flash\n"
+    "print('[launches] ' + json.dumps(flash.LAUNCHES), flush=True)\n")
+
 # whole-net comparisons (rtol, atol) on prob and every blob
 NET_TOL = (1e-4, 1e-6)
 # a training step with the kernels vs the same step with the plain versions
@@ -878,7 +955,27 @@ def flash_cases():
                ("ring mode +1", (2, 4, 128, 64), f32, True, 1),
                ("ring mode 0", (2, 4, 128, 64), f32, True, 0),
                ("ring mode -1", (2, 4, 128, 64), f32, True, -1),
-               ("odd", (1, 3, 48, 16), f32, True, None)])
+               ("odd", (1, 3, 48, 16), f32, True, None)]
+            + lm_par_flash_cases())
+
+
+def lm_par_flash_cases():
+    """(label, shape, dtype, causal, mode) of K1-K3 at every [lm_par] call
+    site, in f32 and bf16: a seq rank's ring blocks (the diagonal, mode 0,
+    and a past block, mode +1, delta passed in) with all 12 heads (sp2)
+    and with a tp rank's 6 (sp2xtp2), a tp rank's (or Ulysses') 6 heads
+    over the whole sequence, and the control's 12 heads at batch 4."""
+    import torch
+    b, h, s_local, d = LMP_ATT_SHAPE
+    return [(label, shape, dtype, True, mode)
+            for dtype in (torch.float32, torch.bfloat16)
+            for label, shape, mode in (
+                ("lm_par ring mode 0", LMP_ATT_SHAPE, 0),
+                ("lm_par ring mode +1", LMP_ATT_SHAPE, 1),
+                ("lm_par sp2xtp2 ring mode 0", (b, h // 2, s_local, d), 0),
+                ("lm_par sp2xtp2 ring mode +1", (b, h // 2, s_local, d), 1),
+                ("lm_par tp heads", (b, h // 2, 2 * s_local, d), None),
+                ("lm_par control", (b, h, 2 * s_local, d), None))]
 
 
 def phase_flash(card: str):
@@ -992,7 +1089,7 @@ def flash_bwd_cases():
             ("ring mode +1", (2, 4, 128, 64), f32, True, 1),
             ("ring mode 0", (2, 4, 128, 64), f32, True, 0),
             ("ring mode -1", (2, 4, 128, 64), f32, True, -1),
-            ("odd", (1, 3, 48, 16), f32, True, None)]
+            ("odd", (1, 3, 48, 16), f32, True, None)] + lm_par_flash_cases()
 
 
 def sdpa_backward_ms(q, k, v, g, is_causal: bool):
@@ -4810,6 +4907,432 @@ def phase_lm_corpus(card: str, extra_args=()) -> dict:
             "launches": counts}
 
 
+def lmp_flash_want(per_layer: int, layers: int, remat: bool,
+                   steps: int) -> dict:
+    """K1, K2 and K3 launches of ``steps`` LM steps whose attention makes
+    ``per_layer`` launches of each kernel a layer a direction."""
+    fwd = per_layer * layers * (2 if remat else 1)
+    return {"flash_fwd": fwd * steps,
+            "flash_dq": per_layer * layers * steps,
+            "flash_dkv": per_layer * layers * steps}
+
+
+def lmp_compare(got, want, dtype_name: str, tol, ring: bool) -> tuple:
+    """(ok, max_abs, the largest share of its tolerance an entry uses) of
+    ``got`` against ``want`` (B, H, S, D) at ``tol``; a ring's bf16 atol
+    is at least LMP_BF16_ATOL_SHARE of the largest magnitude in want's
+    (S, D) block of each (batch, head)."""
+    rtol, atol = tol[dtype_name]
+    got, want = got.float(), want.float()
+    if ring and dtype_name == "bfloat16":
+        atol = (LMP_BF16_ATOL_SHARE * want.abs().amax(
+            (-2, -1), keepdim=True)).clamp(min=atol)
+    err = (got - want).abs()
+    bound = atol + rtol * want.abs()
+    return (bool((err <= bound).all()), float(err.max()),
+            float((err / bound).max()))
+
+
+def lmp_attention(card: str, rank: int, dev, shape=LMP_ATT_SHAPE) -> dict:
+    """(a) on a rank of the seq group of 2: ring flash attention and
+    Ulysses on this rank's block of seeded (B, H, 1024, D) q, k, v and
+    cotangent, in f32 and bf16: out, dq, dk, dv against the flash
+    kernels and the plain versions on the gathered sequence, each
+    direction's launches, and the card ms of a ring forward and backward
+    beside the one-device flash on the whole sequence."""
+    import torch
+    from poseidon_tpu_torch.ops import flash
+    from poseidon_tpu_torch.parallel import sequence as seq_mod
+    from poseidon_tpu_torch.runtime import cluster
+
+    group = cluster.build_named_groups(("seq",), (2,), rank, dev, "gloo",
+                                       ranks=range(2))
+    if group is None:
+        return {}
+    seq = group["seq"]
+    b, h, s_local, d = shape
+    full = (b, h, 2 * s_local, d)
+    rows = slice(rank * s_local, (rank + 1) * s_local)
+    on_card = dev.type == "cuda"
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).replace("torch.", "")
+        gen = torch.Generator(device=dev).manual_seed(17)
+        q, k, v, g = (torch.randn(full, generator=gen, device=dev)
+                      .to(dtype) for _ in range(4))
+        # the references on the gathered sequence: K1-K3, and the plain
+        # versions
+        refs = {}
+        for ref, plain in (("kernels", False), ("plain", True)):
+            leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+            o = flash.flash_attention(*leaves, True, None, None, plain)
+            grads = torch.autograd.grad(o, leaves, g)
+            refs[ref] = [t[:, :, rows].detach() for t in (o, *grads)]
+        for kind in ("ring", "ulysses"):
+            leaves = [t[:, :, rows].clone().requires_grad_(True)
+                      for t in (q, k, v)]
+            sync(dev)
+            zero_launches()
+            if kind == "ring":
+                o = seq_mod.ring_flash_attention(*leaves, seq, True)
+            else:
+                o = seq_mod.ulysses_attention(*leaves, seq, causal=True)
+            sync(dev)
+            fwd = read_launches()
+            zero_launches()
+            grads = torch.autograd.grad(o, leaves, g[:, :, rows])
+            sync(dev)
+            bwd = read_launches()
+            per = rank + 1 if kind == "ring" else 1
+            want_fwd = {"flash_fwd": per if on_card else 0}
+            want_bwd = {"flash_dq": per if on_card else 0,
+                        "flash_dkv": per if on_card else 0}
+            got_fwd = {k2: fwd[k2] for k2 in want_fwd}
+            got_bwd = {k2: bwd[k2] for k2 in want_bwd}
+            check(got_fwd == want_fwd and got_bwd == want_bwd
+                  and fwd["flash_dq"] == fwd["flash_dkv"] == 0
+                  and bwd["flash_fwd"] == 0,
+                  f"{kind} {name} rank {rank}: launches forward {fwd}, "
+                  f"backward {bwd}; expected {want_fwd}, {want_bwd}")
+            rec = {"launches_fwd": got_fwd, "launches_bwd": got_bwd}
+            for ref, want in refs.items():
+                for tname, a, w, tol in zip(
+                        ("out", "dq", "dk", "dv"), (o, *grads), want,
+                        (FLASH_TOL,) + (FLASH_BWD_TOL,) * 3):
+                    ok, err, used = lmp_compare(a.detach(), w, name, tol,
+                                                kind == "ring")
+                    rec[f"{tname}_vs_{ref}"] = err
+                    rec["tol_used"] = max(rec.get("tol_used", 0.0), used)
+                    check(ok, f"{kind} {name} rank {rank}: {tname} vs the "
+                              f"{ref} on the gathered sequence, max_abs "
+                              f"{err}")
+            out[f"{kind} {name}"] = rec
+        if on_card:
+            ql, kl, vl, gl = (t[:, :, rows].contiguous() for t in (q, k, v, g))
+            o_l, lse_l = seq_mod.ring_flash_fwd(ql, kl, vl, seq, True)
+            ring_fwd = cuda_time_ms(lambda: seq_mod.ring_flash_fwd(
+                ql, kl, vl, seq, True), warmup=1, reps=5)
+            ring_bwd = cuda_time_ms(lambda: seq_mod.ring_flash_bwd(
+                ql, kl, vl, o_l, lse_l, gl, seq, True), warmup=1, reps=5)
+            o_f, lse_f = flash.flash_fwd_cuda(q, k, v, True)
+            delta = flash.flash_delta(g, o_f)
+            one_fwd = cuda_time_ms(lambda: flash.flash_fwd_cuda(q, k, v,
+                                                                True))
+            one_bwd = cuda_time_ms(lambda: flash.flash_bwd_cuda(
+                q, k, v, g, lse_f, delta, True))
+            out[f"ms {name}"] = {"ring_fwd": ring_fwd, "ring_bwd": ring_bwd,
+                                 "one_device_fwd": one_fwd,
+                                 "one_device_bwd": one_bwd}
+        del q, k, v, g, refs
+    return out
+
+
+def lmp_canonical(params, kind: str, groups, cfg):
+    """The arm's params in the canonical one-device layout (a tp arm's
+    shards all-gathered over its tp group)."""
+    from poseidon_tpu_torch.models import transformer as tfm
+    if kind != "tp":
+        return params
+    return tfm.from_tp_layout(tfm.tp_unshard(params, groups["model"]), cfg)
+
+
+def lmp_steps(card: str, rank: int, dev, preset: str) -> dict:
+    """(b) on this rank: the control (rank 0 alone: the one-device step,
+    a warm-up, then LMP_STEPS steps) and then each arm of LMP_ARMS, every
+    rank of the job building every arm's groups."""
+    import numpy as np
+    import torch
+    from poseidon_tpu_torch.models import transformer as tfm
+    from poseidon_tpu_torch.parallel import mesh as mesh_mod
+    from poseidon_tpu_torch.runtime import cluster
+    from poseidon_tpu_torch.solvers.updates import init_state
+
+    on_card = dev.type == "cuda"
+    cfg, sp, params0, toks, tgts = lm_train_setup(preset, LMP_BATCH,
+                                                  LMP_SEQ, dev)
+    out = {}
+    control = None
+    if rank == 0:
+        step = tfm.build_dp_sp_train_step(cfg, sp, dev)
+        step(params0, init_state(params0), toks, tgts)     # the warm-up
+        sync(dev)
+        zero_launches()
+        p, st = params0, init_state(params0)
+        losses, kept, walls = [], {}, []
+        for i in range(LMP_STEPS):
+            t0 = time.perf_counter()
+            p, st, m = step(p, st, toks, tgts)
+            losses.append(float(m["loss"]))                # synchronizes
+            walls.append(time.perf_counter() - t0)
+            if i in (0, LMP_STEPS - 1):
+                kept[i + 1] = tree_clone(p)
+        counts = read_launches()
+        control = (losses, kept)
+        out["control"] = {"losses": losses, "launches": counts,
+                          "wall_s": walls}
+        want = (lmp_flash_want(1, cfg.n_layers, True, LMP_STEPS)
+                if on_card else {})
+        check(all(counts[k] == want.get(k, 0) for k in counts),
+              f"[lm_par] control launches {counts} != {want}")
+    for arm, (axes, shape, kind) in LMP_ARMS.items():
+        n = int(np.prod(shape))
+        groups = cluster.build_named_groups(axes, shape, rank, dev, "gloo",
+                                            ranks=range(n))
+        if groups is None:
+            continue
+        b_loc = LMP_BATCH // groups.size("data")
+        s_loc = LMP_SEQ // groups.size("seq")
+        di, si = groups.index("data"), groups.index("seq")
+        tk = toks[di * b_loc:(di + 1) * b_loc, si * s_loc:(si + 1) * s_loc]
+        tg = tgts[di * b_loc:(di + 1) * b_loc, si * s_loc:(si + 1) * s_loc]
+        if kind == "sp":
+            params = params0
+            step = tfm.build_dp_sp_train_step(cfg, sp, groups=groups)
+        else:
+            params = tfm.tp_shard(tfm.to_tp_layout(params0, cfg), cfg,
+                                  groups.index("model"), groups.size("model"))
+            step = tfm.build_dp_tp_train_step(
+                cfg, sp, groups, seq_axis="seq" if "seq" in axes else None)
+        step(params, init_state(params), tk, tg)           # the warm-up
+        sync(dev)
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        zero_launches()
+        mesh_mod.EXCHANGED.clear()
+        p, st = params, init_state(params)
+        losses, walls, dist = [], [], {}
+        for i in range(LMP_STEPS):
+            t0 = time.perf_counter()
+            p, st, m = step(p, st, tk, tg)
+            losses.append(float(m["loss"]))                # synchronizes
+            walls.append(time.perf_counter() - t0)
+            if i not in (0, LMP_STEPS - 1):
+                continue
+            canon = lmp_canonical(p, kind, groups, cfg)
+            if control is not None:
+                ref = control[1][i + 1]
+                worst = max(float((canon[a][b] - ref[a][b]).abs().max())
+                            for a in ref for b in ref[a])
+                dist[f"max_abs_step{i + 1}"] = worst
+                if i == 0:
+                    want_loss = control[0][0]
+                    check(abs(losses[0] - want_loss)
+                          <= LMP_LOSS_RTOL * abs(want_loss),
+                          f"[lm_par] {arm} step 1 loss {losses[0]!r} vs the "
+                          f"control's {want_loss!r}")
+                    rtol, atol = LMP_TOL
+                    for a in ref:
+                        for b in ref[a]:
+                            check(bool(torch.allclose(canon[a][b], ref[a][b],
+                                                      rtol=rtol, atol=atol)),
+                                  f"[lm_par] {arm} step 1 {a}/{b} vs the "
+                                  f"control: max_abs "
+                                  f"{float((canon[a][b] - ref[a][b]).abs().max())}")
+            del canon
+        counts = read_launches()
+        per = groups.index("seq") + 1 if "seq" in axes else 1
+        want = (lmp_flash_want(per, cfg.n_layers, True, LMP_STEPS)
+                if on_card else {})
+        check(all(counts[k] == want.get(k, 0) for k in counts),
+              f"[lm_par] {arm} rank {rank} launches {counts} != {want}")
+        out[arm] = {
+            "rank": rank, "coords": {a: groups.index(a) for a in axes},
+            "losses": losses, "wall_s": walls,
+            "launches": counts,
+            "exchanged_bytes_a_step": {k: v / LMP_STEPS for k, v in
+                                       mesh_mod.EXCHANGED.items()},
+            "peak_bytes": (torch.cuda.max_memory_allocated() if on_card
+                           else 0), **dist}
+        del p, st, params, step
+        if on_card:
+            torch.cuda.empty_cache()
+    return out
+
+
+def lm_par_rank(rank: str, world: str, store: str, out_dir: str,
+                device: str = "cuda", preset: str = LMT_PRESET) -> int:
+    """One rank of ``[lm_par]``'s (a) and (b) job: a gloo group of
+    ``world`` processes (sharing the card, or on the CPU for a
+    rehearsal); writes its results to ``<out_dir>/rank<r>.json``."""
+    import torch
+    from poseidon_tpu_torch.runtime import cluster
+
+    rank, world = int(rank), int(world)
+    group = cluster.init_distributed(torch.device(device), rank=rank,
+                                     world=world,
+                                     coordinator=f"file://{store}")
+    try:
+        card = card_line() if group.device.type == "cuda" else "cpu"
+        res = {"backend": group.backend,
+               "attention": lmp_attention(
+                   card, rank, group.device,
+                   LMP_ATT_SHAPE if preset == LMT_PRESET
+                   else LMP_ATT_SHAPE_TINY),
+               "steps": lmp_steps(card, rank, group.device, preset)}
+    finally:
+        group.close()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def lmp_launch(cmds, envs, timeout: float = LMP_TIMEOUT_S):
+    """Start every command at once from the repo's root; (return codes,
+    logs) once all have ended (any still running at the timeout is
+    killed)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    procs = [subprocess.Popen(cmd, cwd=here, env=env,
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd, env in zip(cmds, envs)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return [p.returncode for p in procs], logs
+
+
+def phase_lm_par(card: str, device=None, preset: str = LMT_PRESET,
+                 cli_args=LMP_CLI_ARGS) -> dict:
+    """LM sequence and tensor parallelism on the card (the header's
+    ``[lm_par]``): (a) and (b) as one job of LMP_RANKS gloo ranks sharing
+    the card, then (c) the two CLI pairs at once. ``device``, ``preset``
+    and ``cli_args`` are for a CPU rehearsal only."""
+    device = device or "cuda"
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as work:
+        env = dict(os.environ, OMP_NUM_THREADS="4")
+        codes, logs = lmp_launch(
+            [[sys.executable, "-c",
+              "import sys, chip_smoke as cs; "
+              "sys.exit(cs.lm_par_rank(*sys.argv[1:]))", str(r),
+              str(LMP_RANKS), os.path.join(work, "store"), work, device,
+              preset] for r in range(LMP_RANKS)], [env] * LMP_RANKS)
+        for r, log in enumerate(logs):
+            for line in log.splitlines():
+                print(f"[lm_par:rank{r}] {line}", flush=True)
+        check(all(c == 0 for c in codes), f"[lm_par] ranks exited {codes}")
+        ranks = []
+        for r in range(LMP_RANKS):
+            with open(os.path.join(work, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        job_s = time.perf_counter() - t0
+        check(all(r["backend"] == "gloo" for r in ranks),
+              "[lm_par] the ranks did not choose gloo")
+        for r, res in enumerate(ranks[:2]):
+            for key, rec in res["attention"].items():
+                if key.startswith("ms "):
+                    print(f"[lm_par] (a) rank {r} {key[3:]}: ring forward "
+                          f"{rec['ring_fwd']:.3f} ms, backward "
+                          f"{rec['ring_bwd']:.3f} ms (the seq group of 2 "
+                          f"over gloo, K/V staged through the host); the "
+                          f"one-device flash on the whole sequence "
+                          f"{rec['one_device_fwd']:.4f} / "
+                          f"{rec['one_device_bwd']:.4f} ms [{card}]",
+                          flush=True)
+                else:
+                    errs = ", ".join(f"{k} {v:.3e}" for k, v in rec.items()
+                                     if k.endswith(("kernels", "plain")))
+                    print(f"[lm_par] (a) rank {r} {key}: launches forward "
+                          f"{rec['launches_fwd']}, backward "
+                          f"{rec['launches_bwd']}; max_abs against the "
+                          f"gathered sequence: {errs}; the largest share "
+                          f"of its tolerance an entry used "
+                          f"{rec['tol_used']:.3f} [{card}]", flush=True)
+        control = ranks[0]["steps"]["control"]
+        print(f"[lm_par] (b) control (one device, {LMP_BATCH} x {LMP_SEQ}): "
+              f"losses {control['losses']}, wall a step "
+              f"{[round(w, 4) for w in control['wall_s']]} s, launches "
+              f"{control['launches']} [{card}]", flush=True)
+        arms = {}
+        for arm in LMP_ARMS:
+            per_rank = [r["steps"][arm] for r in ranks if arm in r["steps"]]
+            head = per_rank[0]
+            arms[arm] = {"ranks": per_rank,
+                         "max_abs_step1": head.get("max_abs_step1"),
+                         "max_abs_step3": head.get(
+                             f"max_abs_step{LMP_STEPS}"),
+                         "wall_s_a_step": max(max(r["wall_s"][1:])
+                                              for r in per_rank),
+                         "launches": sum_launches([r["launches"]
+                                                   for r in per_rank])}
+            for r in per_rank:
+                sent = {k: int(v)
+                        for k, v in r["exchanged_bytes_a_step"].items()}
+                print(f"[lm_par] (b) {arm} rank {r['rank']} {r['coords']}: "
+                      f"losses {r['losses']}, wall a step "
+                      f"{[round(w, 3) for w in r['wall_s']]} s, launches "
+                      f"{r['launches']}, bytes sent a step {sent}, peak "
+                      f"{r['peak_bytes'] / 2**30:.3f} GiB [{card}]",
+                      flush=True)
+            print(f"[lm_par] (b) {arm}: after step 1 within rtol "
+                  f"{LMP_TOL[0]:g} atol {LMP_TOL[1]:g} of the control (max_abs "
+                  f"{head.get('max_abs_step1')!r}), loss within "
+                  f"{LMP_LOSS_RTOL:g}; after step {LMP_STEPS} max_abs "
+                  f"{head.get(f'max_abs_step{LMP_STEPS}')!r} [{card}]",
+                  flush=True)
+
+    # (c) the CLI: two sp ranks and two tp ranks at once, on the card
+    t1 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as work:
+        cmds, envs = [], []
+        for mode in ("sp", "tp"):
+            for r in range(2):
+                envs.append(dict(os.environ, POSEIDON_PROC_ID=str(r),
+                                 POSEIDON_NUM_PROCS="2", OMP_NUM_THREADS="4",
+                                 POSEIDON_COORDINATOR="file://"
+                                 + os.path.join(work, f"{mode}.store")))
+                cmds.append([sys.executable, "-c", LMP_CLI_LAUNCH,
+                             "--mode", mode, "--par_axis", "2", *cli_args]
+                            + (["--device", "cpu"] if device == "cpu"
+                               else []))
+        codes, logs = lmp_launch(cmds, envs)
+    cli = {}
+    for i, mode in enumerate(("sp", "tp")):
+        for r in range(2):
+            for line in logs[2 * i + r].splitlines():
+                print(f"[lm_par:{mode}:rank{r}] {line}", flush=True)
+        check(codes[2 * i] == codes[2 * i + 1] == 0,
+              f"[lm_par] train_lm --mode {mode} ranks exited "
+              f"{codes[2 * i:2 * i + 2]}")
+        lines = logs[2 * i].splitlines()
+        steps = [ln.split() for ln in lines if ln.startswith("step ")]
+        losses = [float(x[3]) for x in steps]
+        shown = [x for x in steps if "tok/s" in x]
+        launches = [json.loads(ln[len("[launches] "):])
+                    for log in logs[2 * i:2 * i + 2]
+                    for ln in log.splitlines()
+                    if ln.startswith("[launches] ")]
+        check(any(ln.startswith("mesh: data=1 x ") for ln in lines)
+              and shown and len(launches) == 2,
+              f"[lm_par] train_lm --mode {mode}: no mesh, display or launch "
+              f"lines")
+        check(all(math.isfinite(x) for x in losses)
+              and losses[-1] < losses[0],
+              f"[lm_par] train_lm --mode {mode} losses {losses}")
+        cli[mode] = {"losses": losses,
+                     "tok_s": [float(x[4].replace(",", "")) for x in shown],
+                     "launches": launches}
+        print(f"[lm_par] (c) train_lm --mode {mode} --par_axis 2, two ranks: "
+              f"losses {losses}, tok/s {cli[mode]['tok_s']}, launches "
+              f"{launches} [{card}]", flush=True)
+    wall = time.perf_counter() - t0
+    print(f"[lm_par] phase {wall:.1f} s ((a)+(b) job {job_s:.1f} s, (c) "
+          f"{time.perf_counter() - t1:.1f} s) [{card}]", flush=True)
+    launches = {arm: a["launches"] for arm, a in arms.items()}
+    launches["control"] = control["launches"]
+    launches.update({f"cli_{m}": sum_launches(c["launches"])
+                     for m, c in cli.items()})
+    return {"attention": [r["attention"] for r in ranks[:2]],
+            "control": control, "arms": arms, "cli": cli,
+            "launches": launches, "wall_s": wall}
+
+
 def bf16_launch(records, case: str) -> dict:
     """The bf16 record of ``case`` (the gpt_small training launch under
     --bf16): its times, bound and library time."""
@@ -4906,6 +5429,8 @@ def main() -> int:
                                      peak=("bfloat16", OPS_PER_S["bfloat16"]))
         torch.cuda.empty_cache()
         lm_corpus = phase_lm_corpus(card)
+        torch.cuda.empty_cache()
+        lm_par = phase_lm_par(card)
         digits_acc = phase_digits(card)
         bf16_digits_acc = phase_digits(card, ("--bf16",), "bf16_digits")
     except Exception:  # noqa: BLE001 — any failed phase fails the smoke
@@ -5071,6 +5596,11 @@ def main() -> int:
         entry["launches_by_path"].update(
             fabric_chaos=fabric["chaos"]["launches"][name],
             fabric_cli=fabric["cli_launches"][name])
+        # the LM's sp and tp paths: every rank of each [lm_par] arm, the
+        # control, and the two train_lm pairs
+        entry["launches_by_path"].update(
+            {f"lm_par_{path}": counts.get(name, 0)
+             for path, counts in lm_par["launches"].items()})
         if name == "sgd_update":
             entry["fabric_cli_k7"] = {
                 k: fabric["cli"][k] for k in ("k7_calls", "k7_bitwise",
@@ -5095,6 +5625,7 @@ def main() -> int:
                "layout_conv1": conv1,
                "bf16_train": bf16,
                "bf16_lm_training": bf16_lm,
+               "lm_par": lm_par,
                "bf16_digits_final_accuracy": bf16_digits_acc,
                "wall_s": time.perf_counter() - t_start}
     print(f"[summary] {json.dumps(summary)}", flush=True)

@@ -21,10 +21,23 @@ CUDA flash kernels (forward, and dQ and dK/dV in the backward) on the card
 where the JAX package would run its Pallas kernels. ``cfg.remat`` wraps
 each block in a checkpoint (``core/remat.py``), as the JAX forward does.
 
-``build_dp_sp_train_step`` is the one-device counterpart of the JAX
-package's data x seq step: the loss, the gradients by ``torch.autograd``,
-and the per-leaf SGD rule. Larger data or seq axes (NCCL, ring attention),
-the tp/pp steps and MoE blocks wait for later slices.
+``build_dp_sp_train_step`` is the JAX package's data x seq step: one
+device by default, or this rank's place on a ``("data", "seq")`` mesh
+(``parallel/mesh.NamedGroups``): tokens arrive as the rank's (B/data,
+S/seq) block, attention runs as a ring over the seq group
+(``parallel/sequence.ring_attention``), positions start at the seq index
+x S/seq, and the gradients and the loss are averaged over both axes.
+
+The tensor-parallel half (Megatron): ``to_tp_layout`` reorders each
+block's fused qkv rows head-major, ``tp_shard`` takes a rank's slices
+(rows of ``wqkv`` and ``w1``, columns of ``wo`` and ``w2``; the rest
+replicated), ``tp_block_forward`` runs a rank's heads and FFN columns
+between Megatron's conjugate pair (``make_fg_ops``: ``f`` the identity
+forward and an all-reduce backward at each column-parallel input, ``g``
+an all-reduce forward and the identity backward after each row-parallel
+product), and ``build_dp_tp_train_step`` trains over ``("data",
+"model")`` or, with ``seq_axis``, ``("data", "seq", "model")``. The
+pipeline step and MoE blocks wait for the next slice (ROADMAP A.10).
 """
 
 from __future__ import annotations
@@ -39,6 +52,8 @@ import torch.nn.functional as F
 from ..core.remat import resolve_lm_policy, wrap_checkpoint
 from ..numeric import apply_policy, policy, resolve_device
 from ..ops.flash import maybe_flash_attention
+from ..parallel.mesh import MODEL_AXIS, DataGroup, NamedGroups, note_exchange
+from ..parallel.sequence import ring_attention
 from ..proto.messages import SolverParameter
 from ..solvers.updates import SolverState, make_update_fn
 
@@ -134,20 +149,25 @@ def _dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return F.linear(x.to(cd), w.to(cd))
 
 
+def _attend(q, k, v, seq_group: Optional[DataGroup]) -> torch.Tensor:
+    """Causal attention of (B, H, S, Dh) blocks: a ring over ``seq_group``
+    when it spans more than one rank, else the flash path."""
+    if seq_group is not None and seq_group.world > 1:
+        return ring_attention(q, k, v, seq_group, causal=True)
+    return maybe_flash_attention(q, k, v, causal=True)
+
+
 def attention_sublayer(cfg: TransformerConfig, x: torch.Tensor, blk,
-                       *, seq_axis: Optional[str] = None) -> torch.Tensor:
-    """ln1 -> fused qkv -> flash attention -> wo residual."""
-    if seq_axis is not None:
-        raise NotImplementedError(
-            "ring attention over a sequence axis is not ported yet "
-            "(ROADMAP, queue A: the LM family's sequence parallelism)")
+                       *, seq_group: Optional[DataGroup] = None
+                       ) -> torch.Tensor:
+    """ln1 -> fused qkv -> flash (or ring) attention -> wo residual."""
     b, s, _ = x.shape
     h = _layer_norm(x, blk["ln1_g"], blk["ln1_b"])
     qkv = _dense(h, blk["wqkv"])                       # (B, S, 3*D)
     d_head = cfg.d_model // cfg.n_heads
     qkv = qkv.reshape(b, s, 3, cfg.n_heads, d_head)
     q, k, v = (qkv[:, :, j].transpose(1, 2) for j in range(3))  # (B,H,S,Dh)
-    att = maybe_flash_attention(q, k, v, causal=True)
+    att = _attend(q, k, v, seq_group)
     att = att.transpose(1, 2).reshape(b, s, cfg.d_model)
     return x + _dense(att, blk["wo"]).to(x.dtype)
 
@@ -160,9 +180,9 @@ def ffn_sublayer(x: torch.Tensor, blk) -> torch.Tensor:
 
 
 def block_forward(cfg: TransformerConfig, x: torch.Tensor, blk,
-                  *, seq_axis: Optional[str] = None) -> torch.Tensor:
+                  *, seq_group: Optional[DataGroup] = None) -> torch.Tensor:
     """One decoder block: attention sublayer + GELU FFN residual."""
-    return ffn_sublayer(attention_sublayer(cfg, x, blk, seq_axis=seq_axis),
+    return ffn_sublayer(attention_sublayer(cfg, x, blk, seq_group=seq_group),
                         blk)
 
 
@@ -181,15 +201,16 @@ def lm_head(params: Params, x: torch.Tensor) -> torch.Tensor:
 
 
 def forward(params: Params, cfg: TransformerConfig, tokens: torch.Tensor,
-            *, seq_axis: Optional[str] = None,
+            *, seq_group: Optional[DataGroup] = None,
             pos_offset=0) -> torch.Tensor:
-    """tokens (B, S) -> logits (B, S, V). Each block is wrapped in the
-    checkpoint that ``resolve_lm_policy(cfg.remat)`` names (the identity
-    for ``none``)."""
+    """tokens (B, S_local) -> logits (B, S_local, V). With ``seq_group``
+    attention runs as a ring over it; everything else is
+    local. Each block is wrapped in the checkpoint that
+    ``resolve_lm_policy(cfg.remat)`` names (the identity for ``none``)."""
     x = embed_tokens(params, tokens, pos_offset)
 
     def block(x, blk):
-        return block_forward(cfg, x, blk, seq_axis=seq_axis)
+        return block_forward(cfg, x, blk, seq_group=seq_group)
 
     block = wrap_checkpoint(block, resolve_lm_policy(cfg.remat))
     for i in range(len([k for k in params if k.startswith("block")])):
@@ -211,42 +232,283 @@ def transformer_mults(params) -> Dict:
             for lname, lp in params.items()}
 
 
-def loss_and_grads(params: Params, cfg: TransformerConfig,
-                   tokens: torch.Tensor,
-                   targets: torch.Tensor) -> Tuple[torch.Tensor, Params]:
-    """The LM loss of one batch and its gradient for every leaf (a tree
-    like ``params``), by ``torch.autograd.grad`` through ``forward``."""
+def _grads(params: Params, loss_fn) -> Tuple[torch.Tensor, Params]:
+    """``loss_fn(leaves)`` and its gradient for every leaf (a tree like
+    ``params``), by ``torch.autograd.grad``."""
     leaves = {n: {l: v.detach().requires_grad_(True) for l, v in d.items()}
               for n, d in params.items()}
-    loss = lm_loss(forward(leaves, cfg, tokens), targets)
+    loss = loss_fn(leaves)
     flat = [v for d in leaves.values() for v in d.values()]
     grads = iter(torch.autograd.grad(loss, flat))
     return loss.detach(), {n: {l: next(grads) for l in d}
                            for n, d in leaves.items()}
 
 
+def loss_and_grads(params: Params, cfg: TransformerConfig,
+                   tokens: torch.Tensor, targets: torch.Tensor, *,
+                   seq_group: Optional[DataGroup] = None,
+                   pos_offset=0) -> Tuple[torch.Tensor, Params]:
+    """The LM loss of one batch (this rank's block under ``seq_group``) and
+    its gradient for every leaf, through ``forward``."""
+    return _grads(params, lambda p: lm_loss(
+        forward(p, cfg, tokens, seq_group=seq_group, pos_offset=pos_offset),
+        targets))
+
+
+def average_(tree: Params, loss: torch.Tensor, group: DataGroup):
+    """Average every leaf of ``tree`` and the loss over ``group`` (JAX's
+    pmean): one all-reduce of the leaves packed into one f32 buffer and one
+    of the loss, each divided by the group's size. Returns (tree, loss);
+    a group of one returns them as they are."""
+    if group.world == 1:
+        return tree, loss
+    leaves = [v for d in tree.values() for v in d.values()]
+    flat = torch.cat([v.reshape(-1) for v in leaves])
+    note_exchange("grad_all_reduce", flat)
+    group.all_reduce_(flat)
+    flat /= group.world
+    loss = loss.reshape(1).clone()
+    group.all_reduce_(loss)
+    loss = loss[0] / group.world
+    out, at = {}, 0
+    for n, d in tree.items():
+        out[n] = {}
+        for l, v in d.items():
+            out[n][l] = flat[at:at + v.numel()].view_as(v)
+            at += v.numel()
+    return out, loss
+
+
 def build_dp_sp_train_step(cfg: TransformerConfig, sp: SolverParameter,
-                           device=None):
-    """One training step on one device, the counterpart of the JAX
-    package's ``build_dp_sp_train_step`` on a (1, 1) data x seq mesh:
+                           device=None, *,
+                           groups: Optional[NamedGroups] = None):
+    """The training step of the JAX package's ``build_dp_sp_train_step``:
 
         step(params, state, tokens, targets) -> (params, state, {"loss"})
 
-    tokens and targets are (B, S) integer tensors, moved to the step's
-    device (the causal shift is the caller's, as in JAX). The gradients
-    come from ``loss_and_grads``; the update is ``make_update_fn(sp,
-    transformer_mults(params))``, the per-leaf rule (never the arena, as
-    in JAX), returning new parameter and momentum tensors. ``device`` is the
-    card unless the caller passes ``"cpu"``. Data-parallel LM training and
-    ring attention over a seq axis (ROADMAP queue A item 10) are not
-    ported."""
-    device = resolve_device(device)
+    Without ``groups``, one device: tokens and targets are (B, S) integer
+    tensors (the causal shift is the caller's, as in JAX), moved to the
+    step's device, the card unless the caller passes ``"cpu"``. With
+    ``groups`` (this rank's place on a ``(data, seq)`` mesh; the step runs
+    on its device) they are this rank's (B/data, S/seq) block: attention
+    runs as a ring over the seq group, positions start at the seq index x
+    S/seq, and the gradients and the loss are averaged over both axes
+    (``average_`` over the mesh's joint group; params stay replicated).
+    The update is
+    ``make_update_fn(sp, transformer_mults(params))``, the per-leaf rule
+    (never the arena, as in JAX), returning new parameter and momentum
+    tensors."""
+    if groups is None:
+        device, seq, sync = resolve_device(device), None, None
+    else:
+        device, seq, sync = groups.device, groups["seq"], groups.joint
     apply_policy()
 
     def step(params: Params, state: SolverState, tokens: torch.Tensor,
              targets: torch.Tensor):
-        loss, grads = loss_and_grads(params, cfg, tokens.to(device),
-                                     targets.to(device))
+        tokens, targets = tokens.to(device), targets.to(device)
+        offset = 0 if seq is None else seq.rank * tokens.shape[1]
+        loss, grads = loss_and_grads(params, cfg, tokens, targets,
+                                     seq_group=seq, pos_offset=offset)
+        if sync is not None:
+            grads, loss = average_(grads, loss, sync)
+        update = make_update_fn(sp, transformer_mults(params))
+        new_params, new_state = update(params, grads, state)
+        return new_params, new_state, {"loss": loss}
+
+    return step
+
+
+# ------------------------------------------------------------------------ #
+# Tensor parallelism (Megatron): dp x tp over a ("data", "model") mesh
+
+# the dim a tp-sharded block leaf splits on (JAX's tp_param_specs):
+# wqkv's head-major rows and w1's rows (column-parallel), wo's and w2's
+# input columns (row-parallel); every other leaf is replicated
+TP_SPLIT_DIM = {"wqkv": 0, "w1": 0, "wo": 1, "w2": 1}
+
+
+def _check_tp_divisibility(cfg: TransformerConfig, n_tp: int,
+                           tp_axis: str = MODEL_AXIS) -> None:
+    if cfg.n_heads % n_tp or cfg.d_ff % n_tp:
+        raise ValueError(
+            f"n_heads={cfg.n_heads} and d_ff={cfg.d_ff} must both divide "
+            f"by the {n_tp} tensor-parallel ranks of axis {tp_axis!r}")
+
+
+class _CopyToTP(torch.autograd.Function):
+    """Megatron's ``f``: the identity forward, an all-reduce of the
+    cotangent over the tp group backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        note_exchange("tp_all_reduce", g)
+        ctx.group.all_reduce_(g)
+        return g, None
+
+
+class _ReduceFromTP(torch.autograd.Function):
+    """Megatron's ``g``: an all-reduce over the tp group forward, the
+    identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        y = x.contiguous().clone()
+        note_exchange("tp_all_reduce", y)
+        group.all_reduce_(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def make_fg_ops(tp_group: DataGroup):
+    """Megatron's conjugate pair over ``tp_group``: ``f`` (identity
+    forward, all-reduce backward) at each column-parallel region's input,
+    ``g`` (all-reduce forward, identity backward) after each row-parallel
+    product. A raw all-reduce in the differentiated path would double-count
+    (JAX's note: its transpose is another all-reduce, which multiplies an
+    already-replicated cotangent by the rank count)."""
+    def f_op(x):
+        return _CopyToTP.apply(x, tp_group)
+
+    def g_op(x):
+        return _ReduceFromTP.apply(x, tp_group)
+
+    return f_op, g_op
+
+
+def tp_block_forward(cfg: TransformerConfig, x: torch.Tensor, blk, f_op,
+                     g_op, *, seq_group: Optional[DataGroup] = None
+                     ) -> torch.Tensor:
+    """One decoder block with this rank's tensor-parallel slices: its heads'
+    (q, k, v) rows and FFN columns, the partial outputs summed by ``g_op``.
+    With ``seq_group`` this rank's heads attend as a ring over it
+    (the ring never crosses heads, so tp and sp compose)."""
+    b, s, _ = x.shape
+    dh = cfg.d_model // cfg.n_heads
+    h = f_op(_layer_norm(x, blk["ln1_g"], blk["ln1_b"]))
+    qkv = _dense(h, blk["wqkv"])                  # (B, S, Hl*3*dh)
+    hl = qkv.shape[-1] // (3 * dh)                # this rank's heads
+    qkv = qkv.reshape(b, s, hl, 3, dh)
+    q, k, v = (qkv[:, :, :, j].transpose(1, 2) for j in range(3))
+    att = _attend(q, k, v, seq_group)
+    att = att.transpose(1, 2).reshape(b, s, hl * dh)
+    x = x + g_op(_dense(att, blk["wo"])).to(x.dtype)
+    h = f_op(_layer_norm(x, blk["ln2_g"], blk["ln2_b"]))
+    ff = _dense(F.gelu(_dense(h, blk["w1"]), approximate="tanh"), blk["w2"])
+    return x + g_op(ff).to(x.dtype)
+
+
+def _relayout_qkv(tree, cfg: TransformerConfig, to_tp: bool):
+    dh = cfg.d_model // cfg.n_heads
+    shape = ((3, cfg.n_heads) if to_tp else (cfg.n_heads, 3)) + (
+        dh, cfg.d_model)
+    out = {k: dict(v) for k, v in tree.items()}
+    for lname, lp in out.items():
+        if lname.startswith("block"):
+            lp["wqkv"] = lp["wqkv"].reshape(shape).transpose(0, 1).reshape(
+                3 * cfg.d_model, cfg.d_model)
+    return out
+
+
+def to_tp_layout(params, cfg: TransformerConfig):
+    """Each block's fused qkv rows from [q heads; k heads; v heads] to
+    head-major [(q, k, v) of head 0; ...], so a contiguous row split gives
+    each tp rank the whole q, k and v of its heads; other leaves as they
+    are. Takes any tree of the params' shapes (the momentum too);
+    ``from_tp_layout`` inverts."""
+    return _relayout_qkv(params, cfg, True)
+
+
+def from_tp_layout(params, cfg: TransformerConfig):
+    return _relayout_qkv(params, cfg, False)
+
+
+def tp_shard(tree, cfg: TransformerConfig, t: int, n_tp: int):
+    """Rank ``t`` of ``n_tp``'s slices of a tp-layout tree (JAX's
+    ``tp_param_specs``): the ``t``-th of ``n_tp`` even blocks of each
+    ``TP_SPLIT_DIM`` leaf, the other leaves whole."""
+    _check_tp_divisibility(cfg, n_tp)
+    out = {}
+    for lname, lp in tree.items():
+        out[lname] = dict(lp)
+        if lname.startswith("block"):
+            for leaf, dim in TP_SPLIT_DIM.items():
+                size = lp[leaf].shape[dim] // n_tp
+                out[lname][leaf] = lp[leaf].narrow(
+                    dim, t * size, size).contiguous()
+    return out
+
+
+def tp_unshard(tree, tp_group: DataGroup):
+    """The full tp-layout tree from every rank's ``tp_shard`` slices (an
+    all-gather over ``tp_group`` a sharded leaf, in leaf order on every
+    rank)."""
+    out = {}
+    for lname, lp in tree.items():
+        out[lname] = dict(lp)
+        if lname.startswith("block"):
+            for leaf, dim in TP_SPLIT_DIM.items():
+                v = lp[leaf]
+                if dim:
+                    v = tp_group.all_gather(v.transpose(0, dim).contiguous())
+                    v = v.transpose(0, dim).contiguous()
+                else:
+                    v = tp_group.all_gather(v)
+                out[lname][leaf] = v
+    return out
+
+
+def build_dp_tp_train_step(cfg: TransformerConfig, sp: SolverParameter,
+                           groups: NamedGroups,
+                           seq_axis: Optional[str] = None):
+    """The JAX package's ``build_dp_tp_train_step`` over this rank's
+    ``(data, model)`` groups, or ``(data, seq, model)`` with
+    ``seq_axis``:
+
+        step(params, state, tokens, targets) -> (params, state, {"loss"})
+
+    params and the momentum are this rank's ``tp_shard`` of the tp layout;
+    tokens and targets its (B/data, S) block (S/seq with ``seq_axis``).
+    Each block runs ``tp_block_forward``; the f/g pair leaves every
+    replicated leaf's gradient whole and alike on the tp ranks and every
+    sharded leaf's gradient complete locally, so nothing is summed over tp
+    (a sum would double-count, JAX's note); everything is averaged over
+    the mesh's joint group: data, and seq when the mesh has it (a second
+    data-like axis for every leaf)."""
+    tp = groups[MODEL_AXIS]
+    _check_tp_divisibility(cfg, tp.world)
+    seq = groups[seq_axis] if seq_axis is not None else None
+    sync, device = groups.joint, groups.device
+    f_op, g_op = make_fg_ops(tp)
+    apply_policy()
+
+    def block(x, blk):
+        return tp_block_forward(cfg, x, blk, f_op, g_op, seq_group=seq)
+
+    block = wrap_checkpoint(block, resolve_lm_policy(cfg.remat))
+
+    def step(params: Params, state: SolverState, tokens: torch.Tensor,
+             targets: torch.Tensor):
+        tokens, targets = tokens.to(device), targets.to(device)
+        offset = 0 if seq is None else seq.rank * tokens.shape[1]
+
+        def loss_fn(p):
+            x = embed_tokens(p, tokens, offset)
+            for i in range(cfg.n_layers):
+                x = block(x, p[f"block{i}"])
+            return lm_loss(lm_head(p, x), targets)
+
+        loss, grads = _grads(params, loss_fn)
+        grads, loss = average_(grads, loss, sync)
         update = make_update_fn(sp, transformer_mults(params))
         new_params, new_state = update(params, grads, state)
         return new_params, new_state, {"loss": loss}

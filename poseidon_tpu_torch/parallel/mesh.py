@@ -23,12 +23,25 @@ that differ from it along that axis alone, in axis order) plus the joint
 ``(data, fsdp)`` group, whose rank is the batch-shard index ``d*F + f``:
 tp replicas share one batch shard, one dropout stream and one TOPK
 residual. ``runtime/cluster.init_distributed(mesh_cfg=...)`` builds it.
+
+``MeshGroups`` is the SPMD case of the general form, ``NamedGroups``, that
+any other named mesh takes (the LM's ``("data", "seq")``, ``("data",
+"model")`` and ``("data", "seq", "model")``, ``train_lm --mode sp|tp``):
+``named_axis_ranks(axes, shape)`` reshapes the ranks row-major, as JAX's
+``make_mesh(axes=..., shape=...)`` reshapes ``jax.devices()``, and
+``NamedGroups`` holds one ``DataGroup`` an axis plus the joint group of
+the data-like axes (every axis but ``model``), over which the LM steps
+average their gradients. ``runtime/cluster.build_named_groups`` (or
+``init_distributed(named=...)``) builds it; either mesh rides in
+``DataGroup.mesh``. ``DataGroup.ppermute_`` (the ring shift) and
+``all_to_all`` are the sequence-parallel exchanges; ``EXCHANGED`` counts
+the bytes a rank puts into them and into the LM's all-reduces, by kind.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -37,6 +50,18 @@ DCN_AXIS = "dcn"
 # the named SPMD mesh's axis order (JAX's ``SPMD_AXES``): fsdp between
 # data and tp, so the fsdp collectives ride the inner groups
 SPMD_AXES = ("data", "fsdp", "tp")
+# the LM's tensor-parallel axis (JAX's name); every other axis of a named
+# mesh is data-like: the LM steps average their gradients over it
+MODEL_AXIS = "model"
+
+# payload bytes this process put into each kind of exchange (a ring
+# shift's tensor, an all-to-all's send buffer, an all-reduce's tensor),
+# counted by the callers that name the kind
+EXCHANGED: Dict[str, int] = {}
+
+
+def note_exchange(kind: str, t: torch.Tensor) -> None:
+    EXCHANGED[kind] = EXCHANGED.get(kind, 0) + t.numel() * t.element_size()
 
 
 def balanced_shape(n: int, k: int) -> Tuple[int, ...]:
@@ -70,7 +95,7 @@ class DataGroup:
     slices: int = 1                    # the two-tier split of the world
     slice_pg: Optional[Any] = None     # this rank's slice (> 1 rank)
     cross_pg: Optional[Any] = None     # its index across slices (> 1)
-    mesh: Optional["MeshGroups"] = None   # the named SPMD mesh, when set
+    mesh: Optional["NamedGroups"] = None   # the named mesh, when set
 
     @classmethod
     def single(cls, device) -> "DataGroup":
@@ -83,7 +108,8 @@ class DataGroup:
     @property
     def batch_index(self) -> int:
         """Which batch shard this rank reads (and its dropout stream): the
-        rank, or ``d*F + f`` on a named mesh (tp replicas share one)."""
+        rank, or its index in the joint group on a named mesh (``d*F + f``
+        on the SPMD mesh: tp replicas share one)."""
         return self.mesh.batch_index if self.mesh is not None else self.rank
 
     @property
@@ -163,6 +189,68 @@ class DataGroup:
         dist.all_gather(parts, t, group=self.pg)
         return torch.cat(parts, dim=0)
 
+    def _staged(self, t: torch.Tensor) -> bool:
+        """gloo moves CPU tensors only through send/recv and all-to-all:
+        a CUDA tensor goes through a pinned host buffer on its way."""
+        return self.backend == "gloo" and t.is_cuda
+
+    @staticmethod
+    def _pinned(t: torch.Tensor) -> torch.Tensor:
+        """A pinned host copy of ``t``."""
+        return torch.empty(t.shape, dtype=t.dtype,
+                           pin_memory=True).copy_(t)
+
+    def ppermute_(self, out: torch.Tensor, t: torch.Tensor,
+                  shift: int = 1) -> torch.Tensor:
+        """The ring shift: ``t`` to the rank at index ``(i + shift) % n``,
+        ``out`` from ``(i - shift) % n``, both posted in one
+        ``batch_isend_irecv`` (send first, on every rank) to the global
+        ranks; returns ``out``. A group of one copies. Under gloo a CUDA
+        tensor is staged through pinned host buffers (a device-to-host
+        copy, the exchange, a host-to-device copy); under NCCL the device
+        tensors go as they are."""
+        if self.pg is None:
+            return out.copy_(t)
+        import torch.distributed as dist
+        dst = dist.get_global_rank(self.pg, (self.rank + shift) % self.world)
+        src = dist.get_global_rank(self.pg, (self.rank - shift) % self.world)
+        t = t.contiguous()
+        if self._staged(t):
+            send = self._pinned(t)
+            recv = torch.empty_like(send, pin_memory=True)
+        else:
+            send, recv = t, (out if out.is_contiguous()
+                             else torch.empty_like(t))
+        reqs = dist.batch_isend_irecv([
+            dist.P2POp(dist.isend, send, dst, group=self.pg),
+            dist.P2POp(dist.irecv, recv, src, group=self.pg)])
+        for req in reqs:
+            req.wait()
+        if recv is not out:
+            out.copy_(recv)
+        return out
+
+    def all_to_all(self, t: torch.Tensor) -> torch.Tensor:
+        """``t``'s dim-0 chunk j to the rank at index j; returns the chunks
+        received, chunk j from index j (dim 0 must be the group's size). A
+        group of one returns ``t``. Under gloo a CUDA tensor is staged
+        through pinned host buffers, as in ``ppermute_``."""
+        if self.pg is None:
+            return t
+        if t.shape[0] != self.world:
+            raise ValueError(f"all_to_all takes dim 0 of the group's size "
+                             f"{self.world}, got {tuple(t.shape)}")
+        import torch.distributed as dist
+        t = t.contiguous()
+        if self._staged(t):
+            send = self._pinned(t)
+            recv = torch.empty_like(send, pin_memory=True)
+            dist.all_to_all_single(recv, send, group=self.pg)
+            return recv.to(t.device)
+        out = torch.empty_like(t)
+        dist.all_to_all_single(out, t, group=self.pg)
+        return out
+
     def broadcast_(self, t: torch.Tensor, src: int = 0) -> None:
         """``t`` from the group's rank ``src`` to every rank."""
         if self.pg is not None:
@@ -191,37 +279,74 @@ def mesh_axis_ranks(cfg) -> dict:
     order every rank creates them: the data, fsdp and tp groups (the ranks
     that differ along that axis alone, in axis order) and the joint
     ``(data, fsdp)`` groups (one a tp index, in batch-shard order)."""
-    n = cfg.n_devices
-    coords = [mesh_coords(r, cfg) for r in range(n)]
+    return named_axis_ranks(SPMD_AXES, (cfg.data, cfg.fsdp, cfg.tp),
+                            joint=("data", "fsdp"))
 
-    def groups(axis: int) -> List[List[int]]:
-        keys = sorted({tuple(c for i, c in enumerate(co) if i != axis)
-                       for co in coords})
-        return [[r for r in range(n)
-                 if tuple(c for i, c in enumerate(coords[r]) if i != axis)
-                 == k] for k in keys]
 
-    return {"data": groups(0), "fsdp": groups(1), "tp": groups(2),
-            "joint": [[r for r in range(n) if coords[r][2] == t]
-                      for t in range(cfg.tp)]}
+def named_coords(rank: int, shape: Sequence[int]) -> Tuple[int, ...]:
+    """Rank r's coordinates on a mesh of ``shape``, row-major (the last
+    axis varies fastest), as JAX reshapes its devices."""
+    coords = []
+    for size in reversed(tuple(shape)):
+        coords.append(rank % size)
+        rank //= size
+    return tuple(reversed(coords))
+
+
+def named_axis_ranks(axes: Sequence[str], shape: Sequence[int],
+                     joint: Sequence[str] = ()) -> Dict[str, List[List[int]]]:
+    """{axis: [rank lists]} of a named mesh of ``shape``: for each axis the
+    groups of ranks that differ along it alone, and under ``"joint"`` (when
+    ``joint`` names axes) the groups that differ along those axes alone;
+    each group in rank order, which is row-major over the axes it spans,
+    and the groups in the order of the other axes' coordinates: the order
+    every rank creates them in."""
+    axes, shape = tuple(axes), tuple(int(n) for n in shape)
+    if len(axes) != len(shape):
+        raise ValueError(f"shape {shape} has {len(shape)} dims for "
+                         f"{len(axes)} axes {axes}")
+    n = 1
+    for size in shape:
+        n *= size
+    coords = [named_coords(r, shape) for r in range(n)]
+
+    def groups(span) -> List[List[int]]:
+        def key(r):
+            return tuple(c for i, c in enumerate(coords[r]) if i not in span)
+        return [[r for r in range(n) if key(r) == k]
+                for k in sorted({key(r) for r in range(n)})]
+
+    out = {a: groups({i}) for i, a in enumerate(axes)}
+    if joint:
+        out["joint"] = groups({axes.index(a) for a in joint})
+    return out
 
 
 @dataclass(frozen=True)
-class MeshGroups:
-    """This rank's place on the named SPMD mesh: its (data, fsdp, tp)
-    coordinates and a ``DataGroup`` an axis (``data``, ``fsdp``, ``tp``)
-    and for the joint ``(data, fsdp)`` axes (``joint``), each with the
-    rank's index along it; a group of one rank has no process group and
-    its collectives are the identity."""
-    cfg: Any                     # config.MeshConfig
-    data: DataGroup
-    fsdp: DataGroup
-    tp: DataGroup
+class NamedGroups:
+    """This rank's place on a general named mesh: one ``DataGroup`` an
+    axis (its rank is the index along the axis) and ``joint``, the group
+    of the data-like axes ``joint_axes`` (rank: the row-major index over
+    them), over which the LM steps average. A group of one rank has no
+    process group and its collectives are the identity."""
+    axes: Tuple[str, ...]
+    shape: Tuple[int, ...]
+    groups: Dict[str, DataGroup]
     joint: DataGroup
+    joint_axes: Tuple[str, ...]
+
+    def __getitem__(self, axis: str) -> DataGroup:
+        return self.groups[axis]
 
     @property
-    def coords(self) -> Tuple[int, int, int]:
-        return self.data.rank, self.fsdp.rank, self.tp.rank
+    def device(self) -> torch.device:
+        return self.joint.device
+
+    def size(self, axis: str) -> int:
+        return self.groups[axis].world if axis in self.groups else 1
+
+    def index(self, axis: str) -> int:
+        return self.groups[axis].rank if axis in self.groups else 0
 
     @property
     def batch_index(self) -> int:
@@ -229,8 +354,41 @@ class MeshGroups:
 
     @property
     def n_dp(self) -> int:
-        """Distinct batch shards = data * fsdp (tp replicas share one)."""
-        return self.cfg.data * self.cfg.fsdp
+        """Ranks of the joint group (tp replicas share one index)."""
+        return self.joint.world
+
+    def describe(self) -> str:
+        return " x ".join(f"{a}={n}" for a, n in zip(self.axes, self.shape))
+
+
+def data_like_axes(axes: Sequence[str]) -> Tuple[str, ...]:
+    """The axes the LM steps average over: every one but ``model``."""
+    return tuple(a for a in axes if a != MODEL_AXIS)
+
+
+@dataclass(frozen=True)
+class MeshGroups(NamedGroups):
+    """This rank's place on the named SPMD mesh: the ``NamedGroups`` of
+    ``SPMD_AXES`` with the joint ``(data, fsdp)`` group, and the
+    ``MeshConfig`` it was built from; ``data``, ``fsdp`` and ``tp`` name
+    the axes' groups and ``coords`` the rank's (data, fsdp, tp)."""
+    cfg: Any                     # config.MeshConfig
+
+    @property
+    def data(self) -> DataGroup:
+        return self.groups["data"]
+
+    @property
+    def fsdp(self) -> DataGroup:
+        return self.groups["fsdp"]
+
+    @property
+    def tp(self) -> DataGroup:
+        return self.groups["tp"]
+
+    @property
+    def coords(self) -> Tuple[int, int, int]:
+        return self.data.rank, self.fsdp.rank, self.tp.rank
 
 
 def rank_seed(seed: int, rank: int) -> int:

@@ -21,6 +21,11 @@
 A single process (world 1, no coordinator) initializes nothing, as in the
 JAX package; it is one slice of one rank.
 
+``build_named_groups`` makes the groups of a general named mesh (the
+LM's ``("data", "seq")``, ``("data", "model")``, ``("data", "seq",
+"model")``; ``parallel/mesh.NamedGroups``) beside ``build_mesh_groups``'
+SPMD mesh; ``init_distributed(named=(axes, shape))`` starts it.
+
 The two-tier fabric's half (``train --async_ssp --slice``,
 ``parallel/fabric.py``): ``slice_env`` and ``slice_world`` read
 ``POSEIDON_SLICE_ID`` / ``POSEIDON_SLICE_SIZE`` as the JAX package does
@@ -44,6 +49,7 @@ after its peers.
 from __future__ import annotations
 
 import datetime
+import functools
 import os
 import random
 from dataclasses import dataclass
@@ -361,37 +367,76 @@ def _two_tier_groups(rank: int, world: int, slices: int):
 def build_mesh_groups(cfg, rank: int, device: torch.device,
                       backend: Optional[str], ranks=None):
     """``parallel/mesh.MeshGroups`` of ``cfg`` over the global ``ranks``
-    (default: the whole world, which must be ``cfg.n_devices``), its
-    groups made with ``new_group``: every rank of the world calls this,
-    those outside ``ranks`` too, since ``new_group`` is collective; they
-    get None. Groups of one rank get no process group."""
-    import torch.distributed as dist
-
-    from ..parallel.mesh import DataGroup, MeshGroups, mesh_axis_ranks
+    (default: the whole world, which must be ``cfg.n_devices``): the
+    named groups of ``SPMD_AXES`` with the joint ``(data, fsdp)`` group
+    (``build_named_groups``). Every rank of the world calls this, those
+    outside ``ranks`` too, since ``new_group`` is collective; they get
+    None. Groups of one rank get no process group."""
+    from ..parallel.mesh import SPMD_AXES, MeshGroups
 
     ranks = list(range(cfg.n_devices)) if ranks is None else list(ranks)
     if len(ranks) != cfg.n_devices:
         raise ValueError(f"mesh {cfg.describe()} needs {cfg.n_devices} "
                          f"ranks, got {len(ranks)}")
+    return build_named_groups(SPMD_AXES, (cfg.data, cfg.fsdp, cfg.tp),
+                              rank, device, backend, ranks,
+                              joint=("data", "fsdp"),
+                              make=functools.partial(MeshGroups, cfg=cfg))
+
+
+def build_named_groups(axes, shape, rank: int, device: torch.device,
+                       backend: Optional[str], ranks=None, joint=None,
+                       make=None):
+    """``parallel/mesh.NamedGroups`` of the named mesh ``axes`` x ``shape``
+    over the global ``ranks`` (default: ranks 0..prod(shape)-1), its groups
+    made with ``new_group`` in ``named_axis_ranks``' order: every rank of
+    the world calls this, those outside ``ranks`` too (they get None).
+    ``joint`` names the data-like axes (default: every axis but
+    ``model``); a joint of one axis is that axis's group. Groups of one
+    rank get no process group, so a one-process mesh of ones needs no
+    ``torch.distributed`` at all. ``make`` builds the result from
+    ``NamedGroups``' fields (``build_mesh_groups`` makes ``MeshGroups``)."""
+    from ..parallel.mesh import (DataGroup, NamedGroups, data_like_axes,
+                                 named_axis_ranks)
+
+    axes, shape = tuple(axes), tuple(int(n) for n in shape)
+    n = 1
+    for size in shape:
+        n *= size
+    ranks = list(range(n)) if ranks is None else list(ranks)
+    if len(ranks) != n:
+        raise ValueError(f"mesh {dict(zip(axes, shape))} needs {n} ranks, "
+                         f"got {len(ranks)}")
+    joint = data_like_axes(axes) if joint is None else tuple(joint)
     mine = {}
-    for axis, groups in mesh_axis_ranks(cfg).items():
+    table = named_axis_ranks(axes, shape,
+                             joint=joint if len(joint) > 1 else ())
+    for axis, groups in table.items():
         for members in groups:
             glob = [ranks[i] for i in members]
-            pg = dist.new_group(glob) if len(glob) > 1 else None
+            pg = None
+            if len(glob) > 1:
+                import torch.distributed as dist
+                pg = dist.new_group(glob)
             if rank in glob:
                 mine[axis] = DataGroup(rank=glob.index(rank),
                                        world=len(glob), device=device,
                                        backend=backend, pg=pg)
     if rank not in ranks:
         return None
-    return MeshGroups(cfg=cfg, data=mine["data"], fsdp=mine["fsdp"],
-                      tp=mine["tp"], joint=mine["joint"])
+    if len(joint) == 1:
+        mine["joint"] = mine[joint[0]]
+    elif not joint:
+        mine["joint"] = DataGroup.single(device)
+    return (make or NamedGroups)(axes=axes, shape=shape,
+                                 groups={a: mine[a] for a in axes},
+                                 joint=mine["joint"], joint_axes=joint)
 
 
 def init_distributed(device: torch.device, rank: Optional[int] = None,
                      world: Optional[int] = None,
                      coordinator: Optional[str] = None, slices: int = 1,
-                     mesh_cfg=None):
+                     mesh_cfg=None, named=None):
     """The data group of this process. Arguments override the env
     contract; a coordinator (argument or env) starts a process group, even
     of one rank, which the returned ``DataGroup``'s ``close`` destroys.
@@ -400,7 +445,9 @@ def init_distributed(device: torch.device, rank: Optional[int] = None,
     divide exits, as the JAX CLI's ``--dcn_slices`` does. An active
     ``mesh_cfg`` (``config.MeshConfig``) needs a world of exactly its
     ``n_devices`` ranks (one a device; JAX's message otherwise) and makes
-    the group carry the named mesh (``DataGroup.mesh``)."""
+    the group carry the named mesh (``DataGroup.mesh``). ``named`` =
+    ``(axes, shape)`` makes it carry a general named mesh there instead
+    (``build_named_groups``); its ranks must number the world."""
     from ..parallel.mesh import DataGroup
 
     e_rank, e_world, e_coord = env_world()
@@ -417,13 +464,25 @@ def init_distributed(device: torch.device, rank: Optional[int] = None,
         raise SystemExit(
             f"--mesh {mesh_cfg.describe()} needs {mesh_cfg.n_devices} "
             f"devices; {world} available")
+    if named is not None:
+        n_named = 1
+        for size in named[1]:
+            n_named *= int(size)
+        if n_named != world:
+            raise SystemExit(f"mesh {dict(zip(*named))} needs {n_named} "
+                             f"devices; {world} available")
     if coordinator is None:
         if world > 1:
             raise ValueError(
                 f"a world of {world} processes needs POSEIDON_COORDINATOR "
                 f"(host:port of rank 0, or an init_method URL); without it "
                 f"each process would train alone")
-        return DataGroup.single(device)
+        if named is None:
+            return DataGroup.single(device)
+        return DataGroup(rank=0, world=1, device=torch.device(device),
+                         mesh=build_named_groups(*named, 0,
+                                                 torch.device(device),
+                                                 None))
     backend, dev, why = choose_backend(device, rank, world)
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
@@ -443,6 +502,11 @@ def init_distributed(device: torch.device, rank: Optional[int] = None,
         d, f, t = mesh.coords
         log(f"distributed: mesh {mesh_cfg.describe()}; rank {rank} at "
             f"data {d}, fsdp {f}, tp {t} (batch shard {mesh.batch_index})",
+            rank=rank)
+    if named is not None:
+        mesh = build_named_groups(*named, rank, dev, backend)
+        log(f"distributed: mesh {mesh.describe()}; rank {rank} at "
+            + ", ".join(f"{a} {mesh.index(a)}" for a in mesh.axes),
             rank=rank)
     return DataGroup(rank=rank, world=world, device=dev, backend=backend,
                      pg=dist.group.WORLD, slices=slices, slice_pg=slice_pg,

@@ -841,12 +841,14 @@ def test_engine_refuses_a_mesh_under_async_without_slice():
 
 
 # the child `train` of the CLI run: every service records its events
-# (dumped when main returns); slice w pushes clock c once every lower
-# slice's clock c is applied (the apply order, pinned), and each leader's
-# refresh after clock c waits until every slice's clock c is applied and,
-# after it, until every slice has refreshed clock c: every slice then
-# reads every slice's previous clock, the path the in-process reference
-# takes
+# (dumped when main returns); each leader's join waits until every slice
+# has joined (else a slice that starts late under load would join at an
+# anchor that already holds another slice's first clock); slice w pushes
+# clock c once every lower slice's clock c is applied (the apply order,
+# pinned), and each leader's refresh after clock c waits until every
+# slice's clock c is applied and, after it, until every slice has
+# refreshed clock c: every slice then reads every slice's previous clock,
+# the path the in-process reference takes
 FABRIC_CHILD = """
 import json, os, sys, time
 from poseidon_tpu_torch.parallel import async_ssp as A
@@ -874,6 +876,14 @@ def lockstep(self):
                      for w in range(n)), f"clock {c} refreshed")
     return res
 A.AsyncSSPClient.refresh = lockstep
+join = A.AsyncSSPClient.join
+def joined(self, *a, **kw):
+    res = join(self, *a, **kw)
+    open(os.path.join(out, f"joined.{self.worker}"), "w").close()
+    wait(lambda: all(os.path.exists(os.path.join(out, f"joined.{w}"))
+                     for w in range(n)), "every slice joined")
+    return res
+A.AsyncSSPClient.join = joined
 push = A.AsyncSSPClient.push
 def ordered(self, delta, force_full=False):
     c = self.clock + 1

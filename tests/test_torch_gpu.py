@@ -1392,3 +1392,131 @@ def test_gloo_fsdp2_pair_on_card(tmp_path):
         for arm in (True, False):
             for k, v in res[r][arm][0].items():
                 np.testing.assert_array_equal(v, sharded[k], err_msg=k)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,shape,mode", [
+    (torch.float32, (4, 12, 512, 64), 0),
+    (torch.float32, (4, 12, 512, 64), 1),
+    (torch.bfloat16, (4, 12, 512, 64), 0),
+    (torch.bfloat16, (4, 12, 512, 64), 1),
+    (torch.float32, (4, 6, 512, 64), 0),
+    (torch.float32, (4, 6, 512, 64), 1),
+    (torch.bfloat16, (4, 6, 512, 64), 0),
+    (torch.bfloat16, (4, 6, 512, 64), 1),
+    (torch.float32, (4, 6, 1024, 64), None),
+    (torch.bfloat16, (4, 6, 1024, 64), None),
+    (torch.float32, (4, 12, 1024, 64), None),
+    (torch.bfloat16, (4, 12, 1024, 64), None),
+])
+def test_flash_kernels_at_lm_par_call_sites_on_card(dtype, shape, mode):
+    """K1-K3 at the LM's sp and tp call sites: a seq rank's ring blocks of
+    gpt_small at a global sequence of 1024 (the diagonal, mode 0, and a
+    past block, mode +1, delta passed in as the ring does) with 12 heads
+    (sp) and a tp rank's 6 (sp x tp), a tp or Ulysses rank's 6 heads over
+    the whole sequence, and the one-device control's 12 at batch 4,
+    against the plain versions at the tolerances of the tests above."""
+    _need_gpu()
+    q, k, v, g, _out, _lse = _bwd_inputs(shape, dtype, True, mode, 11)
+    before = dict(port_flash.LAUNCHES)
+    out, lse = port_flash.flash_attention_fwd(q, k, v, True, None, mode)
+    want_o, want_l = port_flash.flash_attention_fwd_plain(q, k, v, True,
+                                                          None, mode)
+    delta = port_flash.flash_delta(g, out) if mode is not None else None
+    got = port_flash.flash_attention_bwd(q, k, v, out, lse, g, True, None,
+                                         mode, delta)
+    want = port_flash.flash_attention_bwd_plain(q, k, v, out, lse, g, True,
+                                                None, mode, delta)
+    torch.cuda.synchronize()
+    assert all(port_flash.LAUNCHES[n] == before[n] + 1
+               for n in ("flash_fwd", "flash_dq", "flash_dkv"))
+    bf16 = dtype == torch.bfloat16
+    torch.testing.assert_close(out.float(), want_o.float(),
+                               rtol=2 ** -7 if bf16 else 1e-4, atol=1e-5)
+    torch.testing.assert_close(lse, want_l, rtol=1e-4, atol=1e-5)
+    rtol, atol = (2 ** -7, 1e-3) if bf16 else (1e-4, 1e-5)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a.float(), b.float(), rtol=rtol, atol=atol)
+
+
+def _seq_pair_worker(rank, store, q):
+    from poseidon_tpu_torch.parallel import sequence
+    from poseidon_tpu_torch.runtime import cluster
+    group = cluster.init_distributed(torch.device("cuda"), rank=rank,
+                                     world=2, coordinator=f"file://{store}",
+                                     named=(("seq",), (2,)))
+    try:
+        seq = group.mesh["seq"]
+        out = {"backend": group.backend}
+        gen = torch.Generator(device="cuda").manual_seed(3)
+        # the staged exchanges round-trip CUDA tensors exactly
+        t = torch.randn(2, 3, 5, generator=gen, device="cuda") + rank
+        shifted = seq.ppermute_(torch.empty_like(t), t)
+        swapped = seq.all_to_all(t)
+        out["exchanges"] = (shifted.is_cuda and swapped.is_cuda,
+                            shifted.cpu(), swapped.cpu(), t.cpu())
+        q_, k, v, g = (torch.randn(2, 4, 256, 64, generator=gen,
+                                   device="cuda") for _ in range(4))
+        rows = slice(rank * 128, (rank + 1) * 128)
+        full = [x.clone().requires_grad_(True) for x in (q_, k, v)]
+        ref = port_flash.flash_attention(*full, True)
+        ref_g = torch.autograd.grad(ref, full, g)
+        for kind in ("ring", "ulysses"):
+            loc = [x[:, :, rows].clone().requires_grad_(True)
+                   for x in (q_, k, v)]
+            before = dict(port_flash.LAUNCHES)
+            o = (sequence.ring_flash_attention(*loc, seq, True)
+                 if kind == "ring" else
+                 sequence.ulysses_attention(*loc, seq, causal=True))
+            grads = torch.autograd.grad(o, loc, g[:, :, rows])
+            torch.cuda.synchronize()
+            launches = {n: port_flash.LAUNCHES[n] - before[n]
+                        for n in ("flash_fwd", "flash_dq", "flash_dkv")}
+            errs = [float((a - b[:, :, rows]).abs().max())
+                    for a, b in zip((o, *grads), (ref, *ref_g))]
+            out[kind] = (launches, errs)
+        q.put((rank, out))
+    finally:
+        group.close()
+
+
+@pytest.mark.gpu
+def test_ring_and_ulysses_gloo_pair_on_card(tmp_path):
+    """Two gloo ranks sharing the card: ``ppermute_`` and ``all_to_all``
+    move CUDA tensors (staged through pinned host buffers) exactly; ring
+    flash attention and Ulysses over the pair match the flash kernels on
+    the gathered sequence (f32 rtol 1e-4, atol 1e-5 as K1-K3's own
+    checks: max abs well inside it), rank r running r + 1 of each kernel
+    in the ring and one in Ulysses."""
+    _need_gpu()
+    import torch.multiprocessing as mp
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    procs = [ctx.Process(target=_seq_pair_worker,
+                         args=(r, str(tmp_path / "store"), q))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    try:
+        res = dict(q.get(timeout=300) for _ in procs)
+    finally:
+        for p in procs:
+            p.join(60)
+            if p.is_alive():
+                p.kill()
+    assert all(p.exitcode == 0 for p in procs)
+    assert res[0]["backend"] == "gloo"
+    for r in (0, 1):
+        on_card, shifted, swapped, t = res[r]["exchanges"]
+        other = res[1 - r]["exchanges"][3]
+        assert on_card and torch.equal(shifted, other)
+        assert torch.equal(swapped[r], t[r])
+        assert torch.equal(swapped[1 - r], other[r])
+        launches, errs = res[r]["ring"]
+        assert launches == {"flash_fwd": r + 1, "flash_dq": r + 1,
+                            "flash_dkv": r + 1}, launches
+        assert max(errs) < 1e-4, errs
+        launches, errs = res[r]["ulysses"]
+        assert launches == {"flash_fwd": 1, "flash_dq": 1,
+                            "flash_dkv": 1}, launches
+        assert max(errs) < 1e-4, errs

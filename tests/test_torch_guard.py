@@ -26,6 +26,8 @@ for name in names:
 assert "poseidon_tpu_torch.parallel.spmd" in names
 from poseidon_tpu_torch.parallel import spmd
 assert spmd.SpmdTrainStep and spmd.TPColMatmul and spmd.ShardingPlan
+# the sequence-parallel exchanges (ring flash attention, Ulysses)
+assert "poseidon_tpu_torch.parallel.sequence" in names
 # a bf16-wire round trip of the async tier: quantize, encode, decode, widen
 import numpy as np
 from poseidon_tpu_torch.parallel import async_ssp
@@ -51,6 +53,26 @@ def test_port_imports_no_jax_and_nothing_of_poseidon_tpu():
     assert out.returncode == 0, out.stdout + out.stderr
     n_modules = int(out.stdout.split()[0])
     assert n_modules >= 20
+
+
+_IMPORT_SEQUENCE = r"""
+import sys
+from poseidon_tpu_torch.parallel import sequence
+from poseidon_tpu_torch.models import transformer
+assert sequence.RingFlashAttention and sequence.ulysses_attention
+assert transformer.build_dp_tp_train_step and transformer.tp_shard
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "poseidon_tpu"))
+assert not bad, bad
+"""
+
+
+def test_sequence_module_imports_no_jax():
+    """``parallel/sequence.py`` and the LM's sp/tp steps on their own:
+    neither ``jax`` nor ``poseidon_tpu`` comes with them."""
+    out = subprocess.run([sys.executable, "-c", _IMPORT_SEQUENCE], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
 
 
 def _need_no_gpu():

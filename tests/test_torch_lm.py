@@ -242,7 +242,9 @@ def test_unported_branches_raise(model):
         base = pcfg
 
     x = torch.zeros(1, 4, 32)
-    with pytest.raises(NotImplementedError, match="ring attention"):
+    # ring attention is ported (tests/test_torch_sequence.py) and takes
+    # the seq group as ``seq_group``: JAX's axis-name keyword is refused
+    with pytest.raises(TypeError, match="seq_axis"):
         port_tf.attention_sublayer(pcfg, x, tp["block0"], seq_axis="seq")
     with pytest.raises(NotImplementedError, match="MoE"):
         port_gen.prefill_cached(tp, MoELike(), torch.zeros(1, 4,

@@ -236,19 +236,29 @@ def test_train_lm_script_loss_falls_on_cpu(capsys):
     assert "tok/s" in out and "generated: " in out and out.endswith("done\n")
 
 
-@pytest.mark.parametrize("flags,match", [
-    (["--mode", "tp"], "tensor parallelism"),
-    (["--mode", "pp"], "pipeline"),
-    (["--mode", "ep"], "MoE"),
+@pytest.mark.parametrize("flags,exc,match", [
+    # tp and larger axes train now (tests/test_torch_lm_parallel.py runs
+    # them over two ranks); in one process a mesh of two is refused with
+    # the JAX script's message. The cases keep their ids.
+    pytest.param(["--mode", "tp", "--par_axis", "2"], SystemExit,
+                 r"mesh 1x2 != 1 devices", id="flags0-tensor parallelism"),
+    pytest.param(["--mode", "pp"], NotImplementedError, "pipeline",
+                 id="flags1-pipeline"),
+    pytest.param(["--mode", "ep"], NotImplementedError, "MoE",
+                 id="flags2-MoE"),
     # --bf16 is ported (tests/test_torch_bf16.py runs it); the ids of the
     # cases after it are kept
-    pytest.param(["--par_axis", "2"], "queue A item 10",
+    pytest.param(["--par_axis", "2"], SystemExit, r"mesh 1x2 != 1 devices",
                  id="flags4-queue A item 10"),
-    pytest.param(["--data_axis", "2"], "queue A item 10",
+    pytest.param(["--data_axis", "2"], SystemExit, r"mesh 2x1 != 1 devices",
                  id="flags5-queue A item 10"),
 ])
-def test_train_lm_script_refuses_unported_modes(flags, match):
-    with pytest.raises(NotImplementedError, match=match):
+def test_train_lm_script_refuses_unported_modes(monkeypatch, flags, exc,
+                                                match):
+    """pp and ep are not ported (the next part of ROADMAP A.10); a mesh
+    larger than the world (one process here) is refused."""
+    monkeypatch.delenv("POSEIDON_NUM_PROCS", raising=False)
+    with pytest.raises(exc, match=match):
         port_train_lm.main(["--device", "cpu", *flags])
 
 
