@@ -44,7 +44,10 @@ Phases, in order; any failure exits non-zero without the final ``ok`` line:
      and bf16, the ring-chunk modes +1/0/-1 at (2,4,128,64), an odd
      (1,3,48,16), and ``[lm_par]``'s call sites in f32 and bf16 (a seq
      rank's ring blocks, modes 0 and +1 at (4,12,512,64); a tp or Ulysses
-     rank's 6 heads at (4,6,1024,64)); the library yardstick is
+     rank's 6 heads at (4,6,1024,64)) and ``[lm_pp_ep]``'s (a pp2
+     microbatch's, an ep2 rank's and the CLI pairs' (2,12,1024,64), a
+     pp2xtp2 rank's (2,6,1024,64); the MoE decode's prefill is the
+     (1,12,64,64) prefill case); the library yardstick is
      F.scaled_dot_product_attention.
      f32 cases also print the bound at the 3xTF32 rate (3 x operations over
      TF32's 495 TFLOP/s); each case relaunches the kernel on the same
@@ -57,8 +60,8 @@ Phases, in order; any failure exits non-zero without the final ``ok`` line:
      (the main case), the byte-level LM's (8,4,256,32), (8,12,512,64)
      causal and not in f32 and bf16, the
      ring-chunk modes +1/0/-1 at (2,4,128,64) with delta passed in, an odd
-     (1,3,48,16), ``[lm_par]``'s call sites as for K1 (the ring blocks
-     with delta passed in); the library yardstick is the backward of
+     (1,3,48,16), ``[lm_par]``'s and ``[lm_pp_ep]``'s call sites as for
+     K1 (the ring blocks with delta passed in); the library yardstick is the backward of
      F.scaled_dot_product_attention (forward + backward less the forward),
      timed against K2+K3 together. Each case also prints the bound at the
      3xTF32 rate (3 x operations over TF32's 495 TFLOP/s) and relaunches
@@ -209,12 +212,37 @@ Phases, in order; any failure exits non-zero without the final ``ok`` line:
    ``--mode tp --par_axis 2`` ranks at gpt_small's width (LMP_CLI_ARGS),
    at once: exit 0, finite losses falling, rank 0's display lines with
    tok/s, each rank's launches.
-11. Real data end to end: ``python -m poseidon_tpu_torch train`` on the
+11. ``[lm_pp_ep]``, LM pipeline and expert parallelism, every rank a gloo
+   process sharing the card (a correctness path): one job of LPE_RANKS
+   ranks runs (a) gpt_small at full width and depth (remat on), f32,
+   global batch 4 x 1024: the one-device step (the control, rank 0), then
+   pp2 (data 1 x stage 2, 6 layers a stage, LPE_MICRO microbatches) and
+   pp2xtp2 (data 1 x stage 2 x model 2), each from the control's weights
+   (``pp_shard`` of ``to_pp_layout``), a warm-up and LMP_STEPS steps:
+   after step 1 the loss within LMP_LOSS_RTOL and every leaf within
+   LMP_TOL of the control's, after the last the max abs difference; the
+   stage ranks' non-block leaves bitwise alike; (b) the same width with
+   LPE_EXPERTS experts a layer (``MoEConfig``, capacity factor 1.25, so
+   tokens drop): ep2 (data 1 x expert 2) against a one-device control
+   that routes each rank's row block as its own source (its losses and
+   gradients summed at the global normalizer: ep2's function, drops
+   included), the same checks plus each layer's dropped tokens equal in
+   both arms; and a dropless cached decode (``generate`` with the
+   ``MoEConfig``, a prompt of LPE_DECODE_PROMPT tokens) equal to
+   ``moe_forward``'s argmax on the grown sequence. Exact K1-K3 launches a
+   rank, the wall a step, the peak memory a rank and the bytes a rank
+   sends a step by kind (pp activations and cotangents, the stage sum,
+   tp all-reduces, the ep dispatch and return, the gradient sums); (c)
+   two ``train_lm --mode pp --par_axis 2 --microbatches 2`` and two
+   ``--mode ep --par_axis 2 --experts 8`` ranks at LMP_CLI_ARGS, at once:
+   exit 0, finite losses falling, rank 0's display lines, each rank's
+   launches exact.
+12. Real data end to end: ``python -m poseidon_tpu_torch train`` on the
    digits solver (1000 iterations, real UCI digits from the repo) into a
    temporary directory; the final test accuracy must reach DIGITS_MIN_ACC.
-12. One JSON line with every kernel's numbers (launches by path, ``dp``,
-    ``topk``, ``loop`` and ``lm_par_*`` among them), then the ``ok``
-    line.
+13. One JSON line with every kernel's numbers (launches by path, ``dp``,
+    ``topk``, ``loop``, ``lm_par_*`` and ``lm_pp_ep_*`` among them), then
+    the ``ok`` line.
 """
 
 from __future__ import annotations
@@ -356,6 +384,24 @@ LMP_CLI_LAUNCH = (
     "main(sys.argv[1:])\n"
     "from poseidon_tpu_torch.ops import flash\n"
     "print('[launches] ' + json.dumps(flash.LAUNCHES), flush=True)\n")
+
+# the [lm_pp_ep] phase: LM pipeline and expert parallelism, every rank a
+# gloo process sharing the card, a correctness path as [lm_par]: (a)
+# gpt_small (remat, f32, LMP_BATCH x LMP_SEQ) as the one-device control
+# and LPE_PP_ARMS; (b) the same width with LPE_EXPERTS experts a layer as
+# ep2 and its per-source control, and a dropless MoE decode; (c) the
+# train_lm pp and ep pairs at LMP_CLI_ARGS. Step 1 against the control at
+# [lm_par]'s LMP_LOSS_RTOL and LMP_TOL.
+LPE_RANKS = 4
+LPE_MICRO = 2
+LPE_PP_ARMS = {"pp2": (("data", "stage"), (1, 2), False),
+               "pp2xtp2": (("data", "stage", "model"), (1, 2, 2), True)}
+LPE_EXPERTS = 8
+LPE_EP_SHAPE = (1, 2)
+LPE_DECODE_PROMPT, LPE_DECODE_NEW = 64, 8
+LPE_CLI_MODES = {"pp": ("--par_axis", "2", "--microbatches", "2"),
+                 "ep": ("--par_axis", "2", "--experts", "8")}
+LPE_TIMEOUT_S = 600
 
 # whole-net comparisons (rtol, atol) on prob and every blob
 NET_TOL = (1e-4, 1e-6)
@@ -956,7 +1002,7 @@ def flash_cases():
                ("ring mode 0", (2, 4, 128, 64), f32, True, 0),
                ("ring mode -1", (2, 4, 128, 64), f32, True, -1),
                ("odd", (1, 3, 48, 16), f32, True, None)]
-            + lm_par_flash_cases())
+            + lm_par_flash_cases() + lm_pp_ep_flash_cases())
 
 
 def lm_par_flash_cases():
@@ -976,6 +1022,20 @@ def lm_par_flash_cases():
                 ("lm_par sp2xtp2 ring mode +1", (b, h // 2, s_local, d), 1),
                 ("lm_par tp heads", (b, h // 2, 2 * s_local, d), None),
                 ("lm_par control", (b, h, 2 * s_local, d), None))]
+
+
+def lm_pp_ep_flash_cases():
+    """(label, shape, dtype, causal, mode) of K1-K3 at every [lm_pp_ep]
+    call site, in f32 and bf16: a pp2 microbatch's, an ep2 rank's and the
+    CLI pairs' 2 rows x 12 heads (LMP_BATCH / 2 rows of LMP_SEQ) and a
+    pp2xtp2 rank's 6 heads. The MoE decode's prefill is (1,12,64,64), the
+    "prefill 64" case."""
+    import torch
+    b, h, s, d = LMP_BATCH // 2, 12, LMP_SEQ, 64
+    return [(label, shape, dtype, True, None)
+            for dtype in (torch.float32, torch.bfloat16)
+            for label, shape in (("lm_pp_ep pp2 and ep2", (b, h, s, d)),
+                                 ("lm_pp_ep pp2xtp2", (b, h // 2, s, d)))]
 
 
 def phase_flash(card: str):
@@ -1078,18 +1138,19 @@ def flash_bwd_cases():
     shorter, bf16, ring-chunk (delta passed in) and odd shapes."""
     import torch
     f32, bf16 = torch.float32, torch.bfloat16
-    return [("train main", (8, 12, 1024, 64), f32, True, None),
-            # the gpt_small training launch under --bf16
-            ("train main", (8, 12, 1024, 64), bf16, True, None),
-            ("lm_corpus train", (8, 4, 256, 32), f32, True, None),
-            ("long causal", (8, 12, 512, 64), f32, True, None),
-            ("long", (8, 12, 512, 64), f32, False, None),
-            ("long causal", (8, 12, 512, 64), bf16, True, None),
-            ("long", (8, 12, 512, 64), bf16, False, None),
-            ("ring mode +1", (2, 4, 128, 64), f32, True, 1),
-            ("ring mode 0", (2, 4, 128, 64), f32, True, 0),
-            ("ring mode -1", (2, 4, 128, 64), f32, True, -1),
-            ("odd", (1, 3, 48, 16), f32, True, None)] + lm_par_flash_cases()
+    return ([("train main", (8, 12, 1024, 64), f32, True, None),
+             # the gpt_small training launch under --bf16
+             ("train main", (8, 12, 1024, 64), bf16, True, None),
+             ("lm_corpus train", (8, 4, 256, 32), f32, True, None),
+             ("long causal", (8, 12, 512, 64), f32, True, None),
+             ("long", (8, 12, 512, 64), f32, False, None),
+             ("long causal", (8, 12, 512, 64), bf16, True, None),
+             ("long", (8, 12, 512, 64), bf16, False, None),
+             ("ring mode +1", (2, 4, 128, 64), f32, True, 1),
+             ("ring mode 0", (2, 4, 128, 64), f32, True, 0),
+             ("ring mode -1", (2, 4, 128, 64), f32, True, -1),
+             ("odd", (1, 3, 48, 16), f32, True, None)]
+            + lm_par_flash_cases() + lm_pp_ep_flash_cases())
 
 
 def sdpa_backward_ms(q, k, v, g, is_causal: bool):
@@ -5027,6 +5088,99 @@ def lmp_attention(card: str, rank: int, dev, shape=LMP_ATT_SHAPE) -> dict:
     return out
 
 
+def lm_control(tag: str, dev, step, params, tk, tg, want: dict,
+               what: str):
+    """A one-device control of an LM phase (``tag``) on this rank: a
+    warm-up, then LMP_STEPS steps from ``params``; ((losses, {1: tree,
+    LMP_STEPS: tree}), record) with its launches exactly ``want``."""
+    from poseidon_tpu_torch.solvers.updates import init_state
+    step(params, init_state(params), tk, tg)               # the warm-up
+    sync(dev)
+    zero_launches()
+    p, st = params, init_state(params)
+    losses, kept, walls = [], {}, []
+    for i in range(LMP_STEPS):
+        t0 = time.perf_counter()
+        p, st, m = step(p, st, tk, tg)
+        losses.append(float(m["loss"]))                    # synchronizes
+        walls.append(time.perf_counter() - t0)
+        if i in (0, LMP_STEPS - 1):
+            kept[i + 1] = tree_clone(p)
+    counts = read_launches()
+    check(all(counts[k] == want.get(k, 0) for k in counts),
+          f"[{tag}] {what} launches {counts} != {want}")
+    return (losses, kept), {"losses": losses, "launches": counts,
+                            "wall_s": walls}
+
+
+def lm_arm(tag: str, arm: str, rank: int, dev, step, params, tk, tg,
+           canonical, control, want: dict, digest_layers=()) -> dict:
+    """One arm of an LM phase (``tag``) on this rank: a warm-up, then LMP_STEPS steps from
+    ``params`` (this rank's shards); after step 1 and the last, the
+    canonical tree (``canonical``, a collective every rank of the arm
+    calls) against the control's (rank 0): after step 1 the loss within
+    LMP_LOSS_RTOL and every leaf within LMP_TOL. The launches exactly
+    ``want``; the record holds the walls, the bytes sent a step by kind,
+    the peak memory and, for ``digest_layers``, the digest of this rank's
+    leaves of them after the last step."""
+    import torch
+    from poseidon_tpu_torch.parallel import mesh as mesh_mod
+    from poseidon_tpu_torch.solvers.updates import init_state
+
+    on_card = dev.type == "cuda"
+    step(params, init_state(params), tk, tg)               # the warm-up
+    sync(dev)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    mesh_mod.EXCHANGED.clear()
+    p, st = params, init_state(params)
+    losses, walls, dist = [], [], {}
+    for i in range(LMP_STEPS):
+        t0 = time.perf_counter()
+        p, st, m = step(p, st, tk, tg)
+        losses.append(float(m["loss"]))                    # synchronizes
+        walls.append(time.perf_counter() - t0)
+        if i not in (0, LMP_STEPS - 1):
+            continue
+        sent = dict(mesh_mod.EXCHANGED)
+        canon = canonical(p)
+        mesh_mod.EXCHANGED.clear()
+        mesh_mod.EXCHANGED.update(sent)        # the gathers are not the step's
+        if control is not None:
+            ref = control[1][i + 1]
+            dist[f"max_abs_step{i + 1}"] = max(
+                float((canon[a][b] - ref[a][b]).abs().max())
+                for a in ref for b in ref[a])
+            if i == 0:
+                want_loss = control[0][0]
+                check(abs(losses[0] - want_loss)
+                      <= LMP_LOSS_RTOL * abs(want_loss),
+                      f"[{tag}] {arm} step 1 loss {losses[0]!r} vs the "
+                      f"control's {want_loss!r}")
+                rtol, atol = LMP_TOL
+                for a in ref:
+                    for b in ref[a]:
+                        check(bool(torch.allclose(canon[a][b], ref[a][b],
+                                                  rtol=rtol, atol=atol)),
+                              f"[{tag}] {arm} step 1 {a}/{b} vs the "
+                              f"control: max_abs "
+                              f"{float((canon[a][b] - ref[a][b]).abs().max())}")
+        del canon
+    counts = read_launches()
+    check(all(counts[k] == want.get(k, 0) for k in counts),
+          f"[{tag}] {arm} rank {rank} launches {counts} != {want}")
+    rec = {"rank": rank, "losses": losses, "wall_s": walls,
+           "launches": counts,
+           "exchanged_bytes_a_step": {k: v / LMP_STEPS for k, v in
+                                      mesh_mod.EXCHANGED.items()},
+           "peak_bytes": (torch.cuda.max_memory_allocated() if on_card
+                          else 0), **dist}
+    if digest_layers:
+        rec["digest"] = lpe_digest(p, digest_layers)
+    return rec
+
+
 def lmp_canonical(params, kind: str, groups, cfg):
     """The arm's params in the canonical one-device layout (a tp arm's
     shards all-gathered over its tp group)."""
@@ -5043,9 +5197,7 @@ def lmp_steps(card: str, rank: int, dev, preset: str) -> dict:
     import numpy as np
     import torch
     from poseidon_tpu_torch.models import transformer as tfm
-    from poseidon_tpu_torch.parallel import mesh as mesh_mod
     from poseidon_tpu_torch.runtime import cluster
-    from poseidon_tpu_torch.solvers.updates import init_state
 
     on_card = dev.type == "cuda"
     cfg, sp, params0, toks, tgts = lm_train_setup(preset, LMP_BATCH,
@@ -5053,27 +5205,11 @@ def lmp_steps(card: str, rank: int, dev, preset: str) -> dict:
     out = {}
     control = None
     if rank == 0:
-        step = tfm.build_dp_sp_train_step(cfg, sp, dev)
-        step(params0, init_state(params0), toks, tgts)     # the warm-up
-        sync(dev)
-        zero_launches()
-        p, st = params0, init_state(params0)
-        losses, kept, walls = [], {}, []
-        for i in range(LMP_STEPS):
-            t0 = time.perf_counter()
-            p, st, m = step(p, st, toks, tgts)
-            losses.append(float(m["loss"]))                # synchronizes
-            walls.append(time.perf_counter() - t0)
-            if i in (0, LMP_STEPS - 1):
-                kept[i + 1] = tree_clone(p)
-        counts = read_launches()
-        control = (losses, kept)
-        out["control"] = {"losses": losses, "launches": counts,
-                          "wall_s": walls}
-        want = (lmp_flash_want(1, cfg.n_layers, True, LMP_STEPS)
-                if on_card else {})
-        check(all(counts[k] == want.get(k, 0) for k in counts),
-              f"[lm_par] control launches {counts} != {want}")
+        control, out["control"] = lm_control(
+            "lm_par", dev, tfm.build_dp_sp_train_step(cfg, sp, dev),
+            params0, toks, tgts,
+            lmp_flash_want(1, cfg.n_layers, True, LMP_STEPS)
+            if on_card else {}, "control")
     for arm, (axes, shape, kind) in LMP_ARMS.items():
         n = int(np.prod(shape))
         groups = cluster.build_named_groups(axes, shape, rank, dev, "gloo",
@@ -5093,57 +5229,14 @@ def lmp_steps(card: str, rank: int, dev, preset: str) -> dict:
                                   groups.index("model"), groups.size("model"))
             step = tfm.build_dp_tp_train_step(
                 cfg, sp, groups, seq_axis="seq" if "seq" in axes else None)
-        step(params, init_state(params), tk, tg)           # the warm-up
-        sync(dev)
-        if on_card:
-            torch.cuda.reset_peak_memory_stats()
-        zero_launches()
-        mesh_mod.EXCHANGED.clear()
-        p, st = params, init_state(params)
-        losses, walls, dist = [], [], {}
-        for i in range(LMP_STEPS):
-            t0 = time.perf_counter()
-            p, st, m = step(p, st, tk, tg)
-            losses.append(float(m["loss"]))                # synchronizes
-            walls.append(time.perf_counter() - t0)
-            if i not in (0, LMP_STEPS - 1):
-                continue
-            canon = lmp_canonical(p, kind, groups, cfg)
-            if control is not None:
-                ref = control[1][i + 1]
-                worst = max(float((canon[a][b] - ref[a][b]).abs().max())
-                            for a in ref for b in ref[a])
-                dist[f"max_abs_step{i + 1}"] = worst
-                if i == 0:
-                    want_loss = control[0][0]
-                    check(abs(losses[0] - want_loss)
-                          <= LMP_LOSS_RTOL * abs(want_loss),
-                          f"[lm_par] {arm} step 1 loss {losses[0]!r} vs the "
-                          f"control's {want_loss!r}")
-                    rtol, atol = LMP_TOL
-                    for a in ref:
-                        for b in ref[a]:
-                            check(bool(torch.allclose(canon[a][b], ref[a][b],
-                                                      rtol=rtol, atol=atol)),
-                                  f"[lm_par] {arm} step 1 {a}/{b} vs the "
-                                  f"control: max_abs "
-                                  f"{float((canon[a][b] - ref[a][b]).abs().max())}")
-            del canon
-        counts = read_launches()
         per = groups.index("seq") + 1 if "seq" in axes else 1
-        want = (lmp_flash_want(per, cfg.n_layers, True, LMP_STEPS)
-                if on_card else {})
-        check(all(counts[k] == want.get(k, 0) for k in counts),
-              f"[lm_par] {arm} rank {rank} launches {counts} != {want}")
-        out[arm] = {
-            "rank": rank, "coords": {a: groups.index(a) for a in axes},
-            "losses": losses, "wall_s": walls,
-            "launches": counts,
-            "exchanged_bytes_a_step": {k: v / LMP_STEPS for k, v in
-                                       mesh_mod.EXCHANGED.items()},
-            "peak_bytes": (torch.cuda.max_memory_allocated() if on_card
-                           else 0), **dist}
-        del p, st, params, step
+        out[arm] = lm_arm(
+            "lm_par", arm, rank, dev, step, params, tk, tg,
+            lambda p: lmp_canonical(p, kind, groups, cfg), control,
+            lmp_flash_want(per, cfg.n_layers, True, LMP_STEPS)
+            if on_card else {})
+        out[arm]["coords"] = {a: groups.index(a) for a in axes}
+        del params, step
         if on_card:
             torch.cuda.empty_cache()
     return out
@@ -5333,6 +5426,407 @@ def phase_lm_par(card: str, device=None, preset: str = LMT_PRESET,
             "launches": launches, "wall_s": wall}
 
 
+def lpe_canonical(params, groups, tp: bool, cfg):
+    """A pp (or pp x tp) rank's shards gathered into the canonical tree."""
+    from poseidon_tpu_torch.models import transformer as tfm
+    tree = tfm.from_pp_layout(tfm.pp_unshard(
+        params, groups["stage"], groups["model"] if tp else None), cfg)
+    return tfm.from_tp_layout(tree, cfg) if tp else tree
+
+
+def lpe_digest(tree, layers) -> str:
+    """The sha256 of ``layers``' leaves' bytes, in tree order."""
+    import hashlib
+    h = hashlib.sha256()
+    for n in layers:
+        for v in tree[n].values():
+            h.update(v.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def lpe_pp(card: str, rank: int, dev, preset: str) -> dict:
+    """(a) on this rank: the control (rank 0 alone) and each arm of
+    LPE_PP_ARMS, every rank of the job building every arm's groups."""
+    import numpy as np
+    import torch
+    from poseidon_tpu_torch.models import transformer as tfm
+    from poseidon_tpu_torch.runtime import cluster
+
+    on_card = dev.type == "cuda"
+    cfg, sp, params0, toks, tgts = lm_train_setup(preset, LMP_BATCH,
+                                                  LMP_SEQ, dev)
+    out, control = {}, None
+    if rank == 0:
+        control, out["control"] = lm_control(
+            "lm_pp_ep", dev, tfm.build_dp_sp_train_step(cfg, sp, dev),
+            params0, toks,
+            tgts, lmp_flash_want(1, cfg.n_layers, True, LMP_STEPS)
+            if on_card else {}, "control")
+    for arm, (axes, shape, tp) in LPE_PP_ARMS.items():
+        n = int(np.prod(shape))
+        groups = cluster.build_named_groups(axes, shape, rank, dev, "gloo",
+                                            ranks=range(n))
+        if groups is None:
+            continue
+        tree = tfm.to_tp_layout(params0, cfg) if tp else params0
+        params = tfm.pp_shard(tfm.to_pp_layout(tree, cfg), cfg,
+                              groups.index("stage"), groups.size("stage"),
+                              groups.index("model"), groups.size("model"))
+        step = tfm.build_dp_pp_train_step(cfg, sp, groups, LPE_MICRO)
+        per_stage = cfg.n_layers // groups.size("stage")
+        rec = lm_arm(
+            "lm_pp_ep", arm, rank, dev, step, params, toks, tgts,
+            lambda p: lpe_canonical(p, groups, tp, cfg), control,
+            lmp_flash_want(LPE_MICRO, per_stage, True, LMP_STEPS)
+            if on_card else {},
+            digest_layers=[k for k in params if k != "blocks"])
+        rec["coords"] = {a: groups.index(a) for a in axes}
+        out[arm] = rec
+        del params, step
+        if on_card:
+            torch.cuda.empty_cache()
+    return out
+
+
+def lpe_moe_control_step(mcfg, sp, n_src: int):
+    """The one-device control of an ep step over ``n_src`` sources: each
+    source's row block routed as its own source (all experts local, the
+    block's capacity), its token-loss sum over the GLOBAL token count plus
+    aux / n_src, the blocks' losses and gradients summed: the function
+    the ep step computes, drops included."""
+    import torch
+    from poseidon_tpu_torch.models import moe
+    from poseidon_tpu_torch.models import transformer as tfm
+    from poseidon_tpu_torch.solvers.updates import make_update_fn
+
+    def step(params, state, toks, tgts):
+        b = toks.shape[0] // n_src
+
+        def loss_fn(p):
+            total = 0.0
+            for src in range(n_src):
+                rows = slice(src * b, (src + 1) * b)
+                logits, aux = moe.moe_forward(p, mcfg, toks[rows])
+                logp = torch.log_softmax(logits, dim=-1)
+                picked = torch.gather(logp, -1, tgts[rows][..., None])
+                total = (total - picked.sum() / float(toks.numel())
+                         + aux / float(n_src))
+            return total
+
+        loss, grads = tfm._grads(params, loss_fn)
+        update = make_update_fn(sp, tfm.transformer_mults(params))
+        params, state = update(params, grads, state)
+        return params, state, {"loss": loss}
+
+    return step
+
+
+def lpe_drops(params, mcfg, toks, group=None) -> list:
+    """Each MoE layer's dropped tokens in one forward of ``toks`` (over the
+    expert ``group`` when given), counted from the routing itself: the
+    layer input's top-1 expert (the first of ties), then each expert's
+    tokens past the capacity."""
+    import torch
+    from poseidon_tpu_torch.models import moe
+    from poseidon_tpu_torch.models import transformer as tfm
+
+    b_sz, s = toks.shape
+    bcfg = mcfg.base
+    cap = moe.resolved_capacity(mcfg, b_sz * s)
+    drops = []
+    with torch.no_grad():
+        x = tfm.embed_tokens(params, toks)
+        for i in range(bcfg.n_layers):
+            blk = params[f"block{i}"]
+            x = tfm.attention_sublayer(bcfg, x, blk)
+            h = tfm._layer_norm(x, blk["ln2_g"], blk["ln2_b"]).reshape(
+                b_sz * s, bcfg.d_model)
+            top = torch.softmax((h @ blk["wg"].T).float(), -1).argmax(-1)
+            load = torch.bincount(top, minlength=mcfg.n_experts)
+            drops.append(int((load - cap).clamp(min=0).sum()))
+            y, _ = moe.moe_ffn(h, blk["wg"], blk["w1e"], blk["w2e"], mcfg,
+                               expert_group=group)
+            x = x + y.reshape(x.shape).to(x.dtype)
+    return drops
+
+
+def lpe_ep(card: str, rank: int, dev, preset: str) -> dict:
+    """(b) on this rank: the per-source control and the MoE decode (rank
+    0), then ep2 over ranks 0..1, from one seeded MoE model at the dense
+    control's width with LPE_EXPERTS experts a layer."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from poseidon_tpu_torch.models import moe
+    from poseidon_tpu_torch.models.generate import generate
+    from poseidon_tpu_torch.runtime import cluster
+
+    on_card = dev.type == "cuda"
+    cfg, sp, _, toks, tgts = lm_train_setup(preset, LMP_BATCH, LMP_SEQ,
+                                            "cpu")
+    toks, tgts = toks.to(dev), tgts.to(dev)
+    mcfg = moe.MoEConfig(base=cfg, n_experts=LPE_EXPERTS)
+    n = int(np.prod(LPE_EP_SHAPE))
+    # every rank of the job builds the mesh's groups (new_group's order)
+    groups = cluster.build_named_groups(("data", "expert"), LPE_EP_SHAPE,
+                                        rank, dev, "gloo", ranks=range(n))
+    if groups is None:
+        return {}
+    params0 = moe.init_moe_params(mcfg, torch.Generator().manual_seed(0),
+                                  dev)
+    b = LMP_BATCH // n
+    out, control = {}, None
+    if rank == 0:
+        out["n_params"] = sum(v.numel() for d in params0.values()
+                              for v in d.values())
+        out["control_drops"] = [lpe_drops(params0, mcfg,
+                                          toks[s * b:(s + 1) * b])
+                                for s in range(n)]
+        control, out["control"] = lm_control(
+            "lm_pp_ep", dev, lpe_moe_control_step(mcfg, sp, n), params0,
+            toks, tgts,
+            lmp_flash_want(n, cfg.n_layers, True, LMP_STEPS)
+            if on_card else {}, "ep control")
+        # the dropless cached decode against moe_forward's argmax
+        prompt = toks[:1, :LPE_DECODE_PROMPT]
+        sync(dev)
+        zero_launches()
+        with torch.inference_mode():
+            got, logits = generate(params0, mcfg, prompt, LPE_DECODE_NEW)
+        sync(dev)
+        counts = read_launches()
+        want = {"flash_fwd": cfg.n_layers} if on_card else {}
+        check(all(counts[k] == want.get(k, 0) for k in counts),
+              f"[lm_pp_ep] MoE decode launches {counts} != {want}")
+        full = dataclasses.replace(
+            mcfg, capacity=LPE_DECODE_PROMPT + LPE_DECODE_NEW)
+        seq, worst = prompt, 0.0
+        with torch.inference_mode():
+            for t in range(LPE_DECODE_NEW):
+                ref = moe.moe_forward(params0, full, seq)[0][:, -1]
+                worst = max(worst, float((ref - logits[:, t]).abs().max()))
+                check(torch.equal(ref.argmax(-1), got[:, t]),
+                      f"[lm_pp_ep] MoE decode token {t}: "
+                      f"{got[:, t].tolist()} vs moe_forward's argmax "
+                      f"{ref.argmax(-1).tolist()}")
+                seq = torch.cat([seq, got[:, t:t + 1]], dim=1)
+        out["decode"] = {"tokens": got[0].tolist(), "launches": counts,
+                         "max_abs_logits": worst}
+    expert = groups["expert"]
+    rows = slice(groups.batch_index * b, (groups.batch_index + 1) * b)
+    params = moe.ep_shard(params0, mcfg, expert.rank, expert.world)
+    del params0
+    drops = lpe_drops(params, mcfg, toks[rows], expert)
+    rec = lm_arm("lm_pp_ep", "ep2", rank, dev,
+                 moe.build_dp_ep_train_step(mcfg, sp, groups),
+                 params, toks[rows], tgts[rows],
+                  lambda p: moe.ep_unshard(p, expert), control,
+                  lmp_flash_want(1, cfg.n_layers, True, LMP_STEPS)
+                  if on_card else {})
+    rec.update(drops=drops, coords={"data": groups.index("data"),
+                                    "expert": expert.rank})
+    out["ep2"] = rec
+    return out
+
+
+def lm_pp_ep_rank(rank: str, world: str, store: str, out_dir: str,
+                  device: str = "cuda", preset: str = LMT_PRESET) -> int:
+    """One rank of ``[lm_pp_ep]``'s (a) and (b) job: a gloo group of
+    ``world`` processes (sharing the card, or on the CPU for a
+    rehearsal); writes its results to ``<out_dir>/rank<r>.json``."""
+    import torch
+    from poseidon_tpu_torch.runtime import cluster
+
+    rank, world = int(rank), int(world)
+    group = cluster.init_distributed(torch.device(device), rank=rank,
+                                     world=world,
+                                     coordinator=f"file://{store}")
+    try:
+        card = card_line() if group.device.type == "cuda" else "cpu"
+        res = {"backend": group.backend,
+               "pp": lpe_pp(card, rank, group.device, preset)}
+        if group.device.type == "cuda":
+            torch.cuda.empty_cache()
+        res["ep"] = lpe_ep(card, rank, group.device, preset)
+    finally:
+        group.close()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def lpe_print_arm(arm: str, per_rank, card: str) -> None:
+    for r in per_rank:
+        sent = {k: int(v) for k, v in r["exchanged_bytes_a_step"].items()}
+        print(f"[lm_pp_ep] {arm} rank {r['rank']} {r['coords']}: losses "
+              f"{r['losses']}, wall a step "
+              f"{[round(w, 3) for w in r['wall_s']]} s, launches "
+              f"{r['launches']}, bytes sent a step {sent}, peak "
+              f"{r['peak_bytes'] / 2**30:.3f} GiB [{card}]", flush=True)
+    head = per_rank[0]
+    print(f"[lm_pp_ep] {arm}: after step 1 within rtol {LMP_TOL[0]:g} atol "
+          f"{LMP_TOL[1]:g} of the control (max_abs "
+          f"{head.get('max_abs_step1')!r}), loss within "
+          f"{LMP_LOSS_RTOL:g}; after step {LMP_STEPS} max_abs "
+          f"{head.get(f'max_abs_step{LMP_STEPS}')!r} [{card}]", flush=True)
+
+
+def lpe_arm_summary(per_rank) -> dict:
+    head = per_rank[0]
+    return {"ranks": per_rank,
+            "max_abs_step1": head.get("max_abs_step1"),
+            f"max_abs_step{LMP_STEPS}": head.get(f"max_abs_step{LMP_STEPS}"),
+            "wall_s_a_step": max(max(r["wall_s"][1:]) for r in per_rank),
+            "launches": sum_launches([r["launches"] for r in per_rank])}
+
+
+def phase_lm_pp_ep(card: str, device=None, preset: str = LMT_PRESET,
+                   cli_args=LMP_CLI_ARGS) -> dict:
+    """LM pipeline and expert parallelism on the card (the header's
+    ``[lm_pp_ep]``): (a) and (b) as one job of LPE_RANKS gloo ranks
+    sharing the card, then (c) the two CLI pairs at once. ``device``,
+    ``preset`` and ``cli_args`` are for a CPU rehearsal only."""
+    device = device or "cuda"
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as work:
+        env = dict(os.environ, OMP_NUM_THREADS="4")
+        codes, logs = lmp_launch(
+            [[sys.executable, "-c",
+              "import sys, chip_smoke as cs; "
+              "sys.exit(cs.lm_pp_ep_rank(*sys.argv[1:]))", str(r),
+              str(LPE_RANKS), os.path.join(work, "store"), work, device,
+              preset] for r in range(LPE_RANKS)], [env] * LPE_RANKS,
+            timeout=LPE_TIMEOUT_S)
+        for r, log in enumerate(logs):
+            for line in log.splitlines():
+                print(f"[lm_pp_ep:rank{r}] {line}", flush=True)
+        check(all(c == 0 for c in codes), f"[lm_pp_ep] ranks exited {codes}")
+        ranks = []
+        for r in range(LPE_RANKS):
+            with open(os.path.join(work, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    job_s = time.perf_counter() - t0
+    check(all(r["backend"] == "gloo" for r in ranks),
+          "[lm_pp_ep] the ranks did not choose gloo")
+    arms, launches = {}, {}
+    for kind, control_key in (("pp", "control"), ("ep", "control")):
+        control = ranks[0][kind][control_key]
+        launches[f"{kind}_control"] = control["launches"]
+        print(f"[lm_pp_ep] ({'a' if kind == 'pp' else 'b'}) {kind} control "
+              f"(one device, {LMP_BATCH} x {LMP_SEQ}"
+              + ("" if kind == "pp" else
+                 f", {LPE_EXPERTS} experts, "
+                 f"{ranks[0]['ep']['n_params']:,} params, each rank's rows "
+                 f"its own source") + f"): losses {control['losses']}, wall "
+              f"a step {[round(w, 4) for w in control['wall_s']]} s, "
+              f"launches {control['launches']} [{card}]", flush=True)
+    for arm in list(LPE_PP_ARMS) + ["ep2"]:
+        kind = "ep" if arm == "ep2" else "pp"
+        per_rank = [r[kind][arm] for r in ranks if arm in r[kind]]
+        lpe_print_arm(arm, per_rank, card)
+        arms[arm] = lpe_arm_summary(per_rank)
+        launches[arm] = arms[arm]["launches"]
+    # the stage ranks' non-block leaves bitwise alike (and the tp ranks')
+    for arm in LPE_PP_ARMS:
+        digests = {r["rank"]: r["digest"][:16] for r in arms[arm]["ranks"]}
+        by_tp = {}
+        for r in arms[arm]["ranks"]:
+            by_tp.setdefault(r["coords"].get("model", 0), set()).add(
+                r["digest"])
+        check(all(len(d) == 1 for d in by_tp.values()),
+              f"[lm_pp_ep] {arm}: the stage ranks' non-block leaves differ "
+              f"after step {LMP_STEPS} (sha256 by rank {digests})")
+        print(f"[lm_pp_ep] {arm}: the stage ranks' non-block leaves (embed, "
+              f"pos, ln_f, head) bitwise alike after step {LMP_STEPS}; "
+              f"every rank's alike: {len(set(digests.values())) == 1} "
+              f"[{card}]", flush=True)
+    control_drops = ranks[0]["ep"]["control_drops"]
+    for rec in arms["ep2"]["ranks"]:
+        src = rec["coords"]["data"] * LPE_EP_SHAPE[1] + rec["coords"][
+            "expert"]
+        check(rec["drops"] == control_drops[src],
+              f"[lm_pp_ep] ep2 rank {rec['rank']} drops {rec['drops']} vs "
+              f"the control's {control_drops[src]}")
+    print(f"[lm_pp_ep] (b) tokens dropped a layer at step 1, source by "
+          f"source (capacity factor 1.25): ep2 "
+          f"{[r['drops'] for r in arms['ep2']['ranks']]}, control "
+          f"{control_drops} [{card}]", flush=True)
+    decode = ranks[0]["ep"]["decode"]
+    launches["ep_decode"] = decode["launches"]
+    print(f"[lm_pp_ep] (b) MoE decode (dropless, prompt "
+          f"{LPE_DECODE_PROMPT}, {LPE_DECODE_NEW} new): tokens "
+          f"{decode['tokens']} equal to moe_forward's argmax, logits max_abs "
+          f"{decode['max_abs_logits']:.3e}, launches {decode['launches']} "
+          f"[{card}]", flush=True)
+
+    # (c) the CLI: two pp ranks and two ep ranks at once
+    t1 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as work:
+        cmds, envs = [], []
+        for mode, flags in LPE_CLI_MODES.items():
+            for r in range(2):
+                envs.append(dict(os.environ, POSEIDON_PROC_ID=str(r),
+                                 POSEIDON_NUM_PROCS="2", OMP_NUM_THREADS="4",
+                                 POSEIDON_COORDINATOR="file://"
+                                 + os.path.join(work, f"{mode}.store")))
+                cmds.append([sys.executable, "-c", LMP_CLI_LAUNCH,
+                             "--mode", mode, *flags, *cli_args]
+                            + (["--device", "cpu"] if device == "cpu"
+                               else []))
+        codes, logs = lmp_launch(cmds, envs, timeout=LPE_TIMEOUT_S)
+    cli = {}
+    for i, mode in enumerate(LPE_CLI_MODES):
+        for r in range(2):
+            for line in logs[2 * i + r].splitlines():
+                print(f"[lm_pp_ep:{mode}:rank{r}] {line}", flush=True)
+        check(codes[2 * i] == codes[2 * i + 1] == 0,
+              f"[lm_pp_ep] train_lm --mode {mode} ranks exited "
+              f"{codes[2 * i:2 * i + 2]}")
+        lines = logs[2 * i].splitlines()
+        steps = [ln.split() for ln in lines if ln.startswith("step ")]
+        losses = [float(x[3]) for x in steps]
+        shown = [x for x in steps if "tok/s" in x]
+        counts = [json.loads(ln[len("[launches] "):])
+                  for log in logs[2 * i:2 * i + 2]
+                  for ln in log.splitlines()
+                  if ln.startswith("[launches] ")]
+        check(any(ln.startswith("mesh: data=1 x ") for ln in lines)
+              and shown and len(counts) == 2,
+              f"[lm_pp_ep] train_lm --mode {mode}: no mesh, display or "
+              f"launch lines")
+        check(all(math.isfinite(x) for x in losses)
+              and losses[-1] < losses[0],
+              f"[lm_pp_ep] train_lm --mode {mode} losses {losses}")
+        n_steps = int(cli_args[cli_args.index("--steps") + 1])
+        n_layers = int(cli_args[cli_args.index("--n_layers") + 1])
+        per = ((LPE_MICRO, n_layers // 2) if mode == "pp"
+               else (1, n_layers))
+        want = (lmp_flash_want(*per, True, n_steps) if device != "cpu"
+                else {})
+        check(all(c[k] == want.get(k, 0) for c in counts for k in c),
+              f"[lm_pp_ep] train_lm --mode {mode} launches {counts} != "
+              f"{want} a rank")
+        cli[mode] = {"losses": losses,
+                     "tok_s": [float(x[4].replace(",", "")) for x in shown],
+                     "launches": counts}
+        print(f"[lm_pp_ep] (c) train_lm --mode {mode} "
+              f"{' '.join(LPE_CLI_MODES[mode])}, two ranks: losses "
+              f"{losses}, tok/s {cli[mode]['tok_s']}, launches {counts} "
+              f"[{card}]", flush=True)
+    wall = time.perf_counter() - t0
+    print(f"[lm_pp_ep] phase {wall:.1f} s ((a)+(b) job {job_s:.1f} s, (c) "
+          f"{time.perf_counter() - t1:.1f} s) [{card}]", flush=True)
+    launches.update({f"cli_{m}": sum_launches(c["launches"])
+                     for m, c in cli.items()})
+    return {"controls": {k: ranks[0][k]["control"] for k in ("pp", "ep")},
+            "arms": arms, "drops": {"control": control_drops,
+                                    "ep2": [r["drops"] for r in
+                                            arms["ep2"]["ranks"]]},
+            "decode": decode, "cli": cli, "launches": launches,
+            "wall_s": wall}
+
+
 def bf16_launch(records, case: str) -> dict:
     """The bf16 record of ``case`` (the gpt_small training launch under
     --bf16): its times, bound and library time."""
@@ -5431,6 +5925,8 @@ def main() -> int:
         lm_corpus = phase_lm_corpus(card)
         torch.cuda.empty_cache()
         lm_par = phase_lm_par(card)
+        torch.cuda.empty_cache()
+        lm_pp_ep = phase_lm_pp_ep(card)
         digits_acc = phase_digits(card)
         bf16_digits_acc = phase_digits(card, ("--bf16",), "bf16_digits")
     except Exception:  # noqa: BLE001 — any failed phase fails the smoke
@@ -5601,6 +6097,11 @@ def main() -> int:
         entry["launches_by_path"].update(
             {f"lm_par_{path}": counts.get(name, 0)
              for path, counts in lm_par["launches"].items()})
+        # the LM's pp and ep paths: every rank of each [lm_pp_ep] arm, the
+        # two controls, the MoE decode and the two train_lm pairs
+        entry["launches_by_path"].update(
+            {f"lm_pp_ep_{path}": counts.get(name, 0)
+             for path, counts in lm_pp_ep["launches"].items()})
         if name == "sgd_update":
             entry["fabric_cli_k7"] = {
                 k: fabric["cli"][k] for k in ("k7_calls", "k7_bitwise",
@@ -5626,6 +6127,7 @@ def main() -> int:
                "bf16_train": bf16,
                "bf16_lm_training": bf16_lm,
                "lm_par": lm_par,
+               "lm_pp_ep": lm_pp_ep,
                "bf16_digits_final_accuracy": bf16_digits_acc,
                "wall_s": time.perf_counter() - t_start}
     print(f"[summary] {json.dumps(summary)}", flush=True)

@@ -1,5 +1,5 @@
 """Autoregressive decoding with a KV cache for the transformer family (the
-port of ``poseidon_tpu/models/generate.py``, dense models only).
+port of ``poseidon_tpu/models/generate.py``), for dense and MoE models.
 
 Prefill and decode share ``_block_cached``: prefill runs it once over the
 whole prompt (S = P), writing the caches, and routes its attention through
@@ -18,22 +18,32 @@ caches bitwise on one device when both see the same cache length.
 Unlike the JAX package's functional updates, the caches here are written
 IN PLACE (``_block_cached`` into the dense caches it is given,
 ``paged_decode_step`` into the page pools), and returned for symmetry.
-MoE configs raise ``NotImplementedError``: MoE decode is a later slice.
+
+An ``MoEConfig`` (``models/moe.py``) routes each block's FFN through
+``moe_ffn`` with every expert local, DROPLESS: the capacity is the call's
+token count, so every routed token reaches its expert; prefill routes its
+tokens in chunks of 256 (routing is per token, so chunking changes
+nothing), as JAX bounds its one-hot dispatch tensor. ``paged_decode_step``
+serves dense models only and refuses an ``MoEConfig`` with JAX's message.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..ops.flash import maybe_flash_attention
+from .moe import moe_ffn
 from .transformer import (TransformerConfig, _dense, _layer_norm,
                           embed_tokens, ffn_sublayer, lm_head)
 
-_NO_MOE = ("MoE decode is not ported yet (ROADMAP, queue A); the port "
-           "serves dense TransformerConfig models")
+# tokens an MoE prefill routes a call: JAX's chunk, which bounds its
+# one-hot dispatch tensor (the port's gathers need no bound; the same
+# chunks give the experts' products JAX's shapes)
+MOE_PREFILL_CHUNK = 256
 
 
 def _attend_cached(q, ck, cv, q_pos0):
@@ -66,9 +76,8 @@ def _block_cached(cfg: TransformerConfig, x, blk, ck, cv, pos0: int, *,
     attending against the cache. Returns (x_out, ck, cv). ``prefill`` marks
     the first call, where the cache holds nothing but this call's own keys:
     attention is then causal self-attention over the prompt, routed
-    through the flash path."""
-    if moe_cfg is not None:
-        raise NotImplementedError(_NO_MOE)
+    through the flash path. With ``moe_cfg`` the FFN is the dropless
+    switch FFN (all experts local, capacity = the chunk's tokens)."""
     b, s, _ = x.shape
     q, k, v = _qkv(cfg, x, blk)
     ck[:, :, pos0:pos0 + s] = k.to(ck.dtype)
@@ -79,7 +88,19 @@ def _block_cached(cfg: TransformerConfig, x, blk, ck, cv, pos0: int, *,
         att = _attend_cached(q, ck, cv, pos0)
     att = att.transpose(1, 2).reshape(b, s, cfg.d_model)
     x = x + _dense(att, blk["wo"]).to(x.dtype)
-    return ffn_sublayer(x, blk), ck, cv
+    if moe_cfg is None:
+        return ffn_sublayer(x, blk), ck, cv
+    h = _layer_norm(x, blk["ln2_g"], blk["ln2_b"])
+    flat = h.reshape(b * s, cfg.d_model)
+    chunk = min(flat.shape[0], MOE_PREFILL_CHUNK)
+    outs = []
+    for lo in range(0, flat.shape[0], chunk):
+        part = flat[lo:lo + chunk]
+        dec = dataclasses.replace(moe_cfg, capacity=part.shape[0])
+        outs.append(moe_ffn(part, blk["wg"], blk["w1e"], blk["w2e"],
+                            dec)[0])
+    y = torch.cat(outs) if len(outs) > 1 else outs[0]
+    return x + y.reshape(b, s, cfg.d_model).to(x.dtype), ck, cv
 
 
 def _split_cfg(cfg):
@@ -189,7 +210,9 @@ def paged_decode_step(params, cfg, tok: torch.Tensor, caches,
     all-scratch table row, pos 0, tok 0."""
     bcfg, moe_cfg = _split_cfg(cfg)
     if moe_cfg is not None:
-        raise NotImplementedError(_NO_MOE)
+        raise NotImplementedError(
+            "paged decode serves dense TransformerConfig models; MoE "
+            "decode stays on the dense-cache generate() path")
     psz = caches[0][0].shape[2]
     pos = pos.long()
     page_table = page_table.long()

@@ -1,5 +1,5 @@
-"""Byte-level character LM: the port of ``examples/lm/train_lm.py``'s
-``--mode sp`` and ``--mode tp``, on one device or one process a rank.
+"""Byte-level character LM: the port of ``examples/lm/train_lm.py``, every
+``--mode`` (sp, tp, pp, ep), on one device or one process a rank.
 
     python -m poseidon_tpu_torch.models.train_lm                 # the card
     python -m poseidon_tpu_torch.models.train_lm --device cpu --steps 40
@@ -9,8 +9,8 @@
         python -m poseidon_tpu_torch.models.train_lm --mode sp --par_axis 2
 
 Same flags and defaults as the JAX script (``--steps 200 --seq 256 --batch
-8 --d_model 128 --n_layers 2 --n_heads 4 --lr 0.05 --remat --display 20
---generate N``), plus ``--device``. The corpus is the same bytes: the JAX
+8 --d_model 128 --n_layers 2 --n_heads 4 --lr 0.05 --microbatches 2
+--experts 8 --remat --display 20 --generate N``), plus ``--device``. The corpus is the same bytes: the JAX
 script's own source file, read as data from ``examples/lm/train_lm.py``
 and tiled so any ``--seq`` fits; batches are drawn from
 ``np.random.RandomState(0)`` as its ``sample_batch`` draws them. The loss
@@ -25,16 +25,23 @@ and is restored when it returns.
 
 The mesh is the JAX script's: the world is ``POSEIDON_NUM_PROCS`` ranks
 (one a device); ``--par_axis`` sizes the mode's axis (``seq`` for sp,
-``model`` for tp; 0 picks the largest of 4, 3, 2 and 1 that divides the
-world) and ``--data_axis`` the data axis (0: the rest); both must
-multiply to the world, and the batch, the sequence and (tp) the heads and
-d_ff must divide as the JAX script requires, with its messages. Every
-rank draws the same global batch and trains on its block of it (rows by
-its data index; sp: columns by its seq index); a tp rank holds its
-``tp_shard`` of the params. Rank 0 prints the mesh and the display
-lines; ``--generate`` runs in one process only (tp params gathered back
-to the canonical layout first). ``--mode pp|ep`` raise: the pipeline and
-MoE come in the next slice.
+``model`` for tp, ``stage`` for pp, ``expert`` for ep; 0 picks the
+largest of 4, 3, 2 and 1 that divides the world) and ``--data_axis`` the
+data axis (0: the rest); both must multiply to the world, and the batch
+(over data, or data x expert under ep), the sequence (sp), the heads and
+d_ff (tp), the layers and the local batch's microbatches (pp) and the
+experts (ep) must divide as the JAX script requires, with its messages.
+Every rank draws the same global batch and trains on its block of it
+(rows by its data index, or by ``data * E + expert`` under ep; sp:
+columns by its seq index). A tp rank holds its ``tp_shard`` of the
+params, a pp rank its stage's ``pp_shard`` of ``to_pp_layout`` (the
+pipeline step, ``--microbatches`` a rank's rows), an ep rank its
+``ep_shard`` of a ``MoEConfig`` model of ``--experts`` experts (the
+default capacity factor, so tokens drop as in training). Rank 0 prints
+the mesh and the display lines; ``--generate`` runs in one process only
+(tp and pp params gathered back to the canonical layout first; an ep
+model decodes dropless through its ``MoEConfig``). The script writes no
+snapshot, as the JAX script writes none.
 """
 
 from __future__ import annotations
@@ -47,11 +54,7 @@ from typing import List, Optional
 CORPUS = (Path(__file__).resolve().parents[2] / "examples" / "lm"
           / "train_lm.py")
 
-_LATER = {
-    "pp": "pipeline parallelism (ROADMAP A.10, its next part)",
-    "ep": "MoE expert parallelism (ROADMAP A.10, its next part)",
-}
-_AXIS = {"sp": "seq", "tp": "model"}
+_AXIS = {"sp": "seq", "tp": "model", "pp": "stage", "ep": "expert"}
 
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
@@ -68,29 +71,24 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap.add_argument("--data_axis", type=int, default=0,
                     help="data-axis size; 0 = auto (ranks/par_axis)")
     ap.add_argument("--par_axis", type=int, default=0,
-                    help="size of the mode's axis (seq or model ranks); "
-                         "0 = auto (up to 4)")
+                    help="size of the mode's axis (seq/model/stage/expert "
+                         "ranks); 0 = auto (up to 4)")
+    ap.add_argument("--microbatches", type=int, default=2, help="pp only")
+    ap.add_argument("--experts", type=int, default=8, help="ep only")
     ap.add_argument("--bf16", action="store_true")
     ap.add_argument("--remat", action="store_true")
     ap.add_argument("--display", type=int, default=20)
     ap.add_argument("--generate", type=int, default=0, metavar="N",
                     help="after training, greedy-decode N bytes from a "
-                         "corpus prompt")
+                         "corpus prompt (all modes; MoE decodes dropless)")
     ap.add_argument("--device", default=None,
                     help="the card unless 'cpu' is asked for")
     return ap.parse_args(argv)
 
 
-def check_supported(args: argparse.Namespace) -> None:
-    """Raise for what the port does not run yet."""
-    if args.mode in _LATER:
-        raise NotImplementedError(f"--mode {args.mode}: {_LATER[args.mode]} "
-                                  f"is not ported yet; use --mode sp or tp")
-
-
 def plan_mesh(args: argparse.Namespace, n_dev: int):
     """(data axis, par axis) over ``n_dev`` ranks, with the JAX script's
-    refusals (``SystemExit``, its messages)."""
+    refusals (``SystemExit``, its messages, in its order)."""
     if args.par_axis:
         par_ax = args.par_axis
     else:  # largest divisor of the device count, at most 4
@@ -100,9 +98,10 @@ def plan_mesh(args: argparse.Namespace, n_dev: int):
         raise SystemExit(f"mesh {data_ax}x{par_ax} != {n_dev} devices "
                          f"(pick --data_axis/--par_axis that multiply to "
                          f"{n_dev})")
-    if args.batch % data_ax or (args.mode == "sp" and args.seq % par_ax):
+    batch_div = data_ax * (par_ax if args.mode == "ep" else 1)
+    if args.batch % batch_div or (args.mode == "sp" and args.seq % par_ax):
         raise SystemExit(
-            f"--batch {args.batch} must divide by {data_ax}"
+            f"--batch {args.batch} must divide by {batch_div}"
             + (f" and --seq {args.seq} by {par_ax}"
                if args.mode == "sp" else ""))
     if args.mode == "tp" and (args.n_heads % par_ax
@@ -110,6 +109,18 @@ def plan_mesh(args: argparse.Namespace, n_dev: int):
         raise SystemExit(f"--n_heads {args.n_heads} and d_ff "
                          f"{4 * args.d_model} must divide by the "
                          f"model axis {par_ax}")
+    if args.mode == "pp":
+        if args.n_layers % par_ax:
+            raise SystemExit(f"--n_layers {args.n_layers} must divide by "
+                             f"the stage axis {par_ax} (try --n_layers "
+                             f"{par_ax})")
+        if (args.batch // data_ax) % args.microbatches:
+            raise SystemExit(f"local batch {args.batch // data_ax} must "
+                             f"divide by --microbatches "
+                             f"{args.microbatches}")
+    if args.mode == "ep" and args.experts % par_ax:
+        raise SystemExit(f"--experts {args.experts} must divide by the "
+                         f"expert axis {par_ax}")
     return data_ax, par_ax
 
 
@@ -124,7 +135,6 @@ def load_corpus(seq: int):
 
 def main(argv: Optional[List[str]] = None) -> None:
     args = parse_args(argv)
-    check_supported(args)
     from ..runtime.cluster import env_world
     args.mesh = plan_mesh(args, env_world()[1])
 
@@ -155,6 +165,7 @@ def _train(args: argparse.Namespace, group) -> None:
 
     from ..proto.messages import SolverParameter
     from ..solvers.updates import init_state
+    from . import moe
     from . import transformer as tfm
     from .generate import generate
 
@@ -172,21 +183,36 @@ def _train(args: argparse.Namespace, group) -> None:
         n_layers=args.n_layers, d_ff=4 * args.d_model, max_seq=args.seq,
         remat=args.remat)
     sp = SolverParameter(base_lr=args.lr, lr_policy="fixed", momentum=0.9)
-    params = tfm.init_params(cfg, torch.Generator().manual_seed(0),
-                             device=device)
-    if args.mode == "sp":
-        step = tfm.build_dp_sp_train_step(cfg, sp, groups=mesh)
+    gen = torch.Generator().manual_seed(0)
+    gen_cfg = cfg            # the config --generate decodes with
+    if args.mode == "ep":
+        gen_cfg = moe.MoEConfig(base=cfg, n_experts=args.experts)
+        params = moe.ep_shard(moe.init_moe_params(gen_cfg, gen, device),
+                              gen_cfg, mesh.index("expert"), par_ax)
+        step = moe.build_dp_ep_train_step(gen_cfg, sp, mesh)
     else:
-        params = tfm.tp_shard(tfm.to_tp_layout(params, cfg), cfg,
-                              mesh.index("model"), par_ax)
-        step = tfm.build_dp_tp_train_step(cfg, sp, mesh)
+        params = tfm.init_params(cfg, gen, device=device)
+        if args.mode == "sp":
+            step = tfm.build_dp_sp_train_step(cfg, sp, groups=mesh)
+        elif args.mode == "tp":
+            params = tfm.tp_shard(tfm.to_tp_layout(params, cfg), cfg,
+                                  mesh.index("model"), par_ax)
+            step = tfm.build_dp_tp_train_step(cfg, sp, mesh)
+        else:
+            params = tfm.pp_shard(tfm.to_pp_layout(params, cfg), cfg,
+                                  mesh.index("stage"), par_ax)
+            step = tfm.build_dp_pp_train_step(cfg, sp, mesh,
+                                              args.microbatches)
 
     corpus = load_corpus(args.seq)
     rs = np.random.RandomState(0)
-    b_local = args.batch // data_ax
+    # ep shards the batch over data x expert (row block d * E + e, the
+    # joint group's rank); the other modes over data
+    shard, n_shards = ((mesh.batch_index, mesh.n_dp) if args.mode == "ep"
+                       else (mesh.index("data"), data_ax))
+    b_local = args.batch // n_shards
     s_local = args.seq // (par_ax if args.mode == "sp" else 1)
-    rows = slice(mesh.index("data") * b_local,
-                 (mesh.index("data") + 1) * b_local)
+    rows = slice(shard * b_local, (shard + 1) * b_local)
     cols = slice(mesh.index("seq") * s_local,
                  (mesh.index("seq") + 1) * s_local)
 
@@ -228,14 +254,19 @@ def _train(args: argparse.Namespace, group) -> None:
             raise SystemExit(f"--generate {args.generate} must be < "
                              f"max_seq - 8 = {cfg.max_seq - 8} (learned "
                              f"positions cover prompt + generation)")
+        # decoding runs on canonical (one-device) params; MoE decodes
+        # dropless with every expert local
         if args.mode == "tp":
-            # decoding runs on canonical (one-device) params
             params = tfm.from_tp_layout(
                 tfm.tp_unshard(params, mesh["model"]), cfg)
+        elif args.mode == "pp":
+            params = tfm.from_pp_layout(
+                tfm.pp_unshard(params, mesh["stage"]), cfg)
         p_len = max(1, min(32, cfg.max_seq - args.generate))
         prompt = torch.from_numpy(corpus[None, :p_len].astype(np.int64))
         with torch.inference_mode():
-            toks, _ = generate(params, cfg, prompt.to(device), args.generate)
+            toks, _ = generate(params, gen_cfg, prompt.to(device),
+                               args.generate)
         text = bytes(toks[0].cpu().numpy().astype(np.uint8)).decode(
             "utf-8", errors="replace")
         print(f"prompt: "

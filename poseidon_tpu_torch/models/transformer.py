@@ -52,7 +52,8 @@ import torch.nn.functional as F
 from ..core.remat import resolve_lm_policy, wrap_checkpoint
 from ..numeric import apply_policy, policy, resolve_device
 from ..ops.flash import maybe_flash_attention
-from ..parallel.mesh import MODEL_AXIS, DataGroup, NamedGroups, note_exchange
+from ..parallel.mesh import (MODEL_AXIS, STAGE_AXIS, DataGroup, NamedGroups,
+                             note_exchange)
 from ..parallel.sequence import ring_attention
 from ..proto.messages import SolverParameter
 from ..solvers.updates import SolverState, make_update_fn
@@ -188,10 +189,15 @@ def block_forward(cfg: TransformerConfig, x: torch.Tensor, blk,
 
 def embed_tokens(params: Params, tokens: torch.Tensor,
                  pos_offset=0) -> torch.Tensor:
-    """Token + positional embedding."""
+    """Token + positional embedding, as row lookups whose backward is
+    ``F.embedding``'s: deterministic, so ranks that hold a replicated
+    embedding (tp ranks, pipeline stages) compute its gradient bit for bit
+    alike. (An index's backward accumulates repeated tokens' rows in a
+    thread-dependent order on the CPU.)"""
     positions = pos_offset + torch.arange(tokens.shape[-1],
                                           device=tokens.device)
-    return params["embed"]["w"][tokens] + params["pos"]["w"][positions]
+    return (F.embedding(tokens, params["embed"]["w"])
+            + F.embedding(positions, params["pos"]["w"]))
 
 
 def lm_head(params: Params, x: torch.Tensor) -> torch.Tensor:
@@ -255,28 +261,40 @@ def loss_and_grads(params: Params, cfg: TransformerConfig,
         targets))
 
 
-def average_(tree: Params, loss: torch.Tensor, group: DataGroup):
-    """Average every leaf of ``tree`` and the loss over ``group`` (JAX's
-    pmean): one all-reduce of the leaves packed into one f32 buffer and one
-    of the loss, each divided by the group's size. Returns (tree, loss);
-    a group of one returns them as they are."""
+def sum_over(tree: Params, loss: Optional[torch.Tensor], group: DataGroup,
+             kind: str, keys, mean: bool = False
+             ) -> Tuple[Params, Optional[torch.Tensor]]:
+    """Sum the ``keys`` ((layer, leaf) pairs) of ``tree`` and the loss
+    (unless None) over ``group`` (JAX's psum; with ``mean``, divided by
+    the group's size: its pmean): one all-reduce of those leaves packed
+    into one f32 buffer (counted under ``kind``) and one of the loss.
+    Returns (tree, loss), the other leaves as they were; a group of one
+    returns them as they are."""
     if group.world == 1:
         return tree, loss
-    leaves = [v for d in tree.values() for v in d.values()]
-    flat = torch.cat([v.reshape(-1) for v in leaves])
-    note_exchange("grad_all_reduce", flat)
+    flat = torch.cat([tree[n][l].reshape(-1) for n, l in keys])
+    note_exchange(kind, flat)
     group.all_reduce_(flat)
-    flat /= group.world
-    loss = loss.reshape(1).clone()
-    group.all_reduce_(loss)
-    loss = loss[0] / group.world
-    out, at = {}, 0
-    for n, d in tree.items():
-        out[n] = {}
-        for l, v in d.items():
-            out[n][l] = flat[at:at + v.numel()].view_as(v)
-            at += v.numel()
+    if mean:
+        flat /= group.world
+    out, at = {n: dict(d) for n, d in tree.items()}, 0
+    for n, l in keys:
+        v = tree[n][l]
+        out[n][l] = flat[at:at + v.numel()].view_as(v)
+        at += v.numel()
+    if loss is not None:
+        loss = loss.reshape(1).clone()
+        group.all_reduce_(loss)
+        loss = loss[0] / group.world if mean else loss[0]
     return out, loss
+
+
+def average_(tree: Params, loss: torch.Tensor, group: DataGroup):
+    """Average every leaf of ``tree`` and the loss over ``group`` (JAX's
+    pmean): ``sum_over`` every leaf, divided by the group's size. Returns
+    (tree, loss); a group of one returns them as they are."""
+    keys = [(n, l) for n in tree for l in tree[n]]
+    return sum_over(tree, loss, group, "grad_all_reduce", keys, mean=True)
 
 
 def build_dp_sp_train_step(cfg: TransformerConfig, sp: SolverParameter,
@@ -432,6 +450,14 @@ def from_tp_layout(params, cfg: TransformerConfig):
     return _relayout_qkv(params, cfg, False)
 
 
+def _block(v: torch.Tensor, dim: int, i: int, n: int) -> torch.Tensor:
+    """The ``i``-th of ``n`` even blocks of ``v`` along ``dim``, in storage
+    of its own (a view would keep the whole tensor alive on the rank)."""
+    size = v.shape[dim] // n
+    return v.narrow(dim, i * size, size).clone(
+        memory_format=torch.contiguous_format)
+
+
 def tp_shard(tree, cfg: TransformerConfig, t: int, n_tp: int):
     """Rank ``t`` of ``n_tp``'s slices of a tp-layout tree (JAX's
     ``tp_param_specs``): the ``t``-th of ``n_tp`` even blocks of each
@@ -442,10 +468,16 @@ def tp_shard(tree, cfg: TransformerConfig, t: int, n_tp: int):
         out[lname] = dict(lp)
         if lname.startswith("block"):
             for leaf, dim in TP_SPLIT_DIM.items():
-                size = lp[leaf].shape[dim] // n_tp
-                out[lname][leaf] = lp[leaf].narrow(
-                    dim, t * size, size).contiguous()
+                out[lname][leaf] = _block(lp[leaf], dim, t, n_tp)
     return out
+
+
+def _gather_dim(group: DataGroup, v: torch.Tensor, dim: int) -> torch.Tensor:
+    """Every rank's ``v`` concatenated along ``dim`` in rank order."""
+    if not dim:
+        return group.all_gather(v)
+    v = group.all_gather(v.transpose(0, dim).contiguous())
+    return v.transpose(0, dim).contiguous()
 
 
 def tp_unshard(tree, tp_group: DataGroup):
@@ -457,13 +489,7 @@ def tp_unshard(tree, tp_group: DataGroup):
         out[lname] = dict(lp)
         if lname.startswith("block"):
             for leaf, dim in TP_SPLIT_DIM.items():
-                v = lp[leaf]
-                if dim:
-                    v = tp_group.all_gather(v.transpose(0, dim).contiguous())
-                    v = v.transpose(0, dim).contiguous()
-                else:
-                    v = tp_group.all_gather(v)
-                out[lname][leaf] = v
+                out[lname][leaf] = _gather_dim(tp_group, lp[leaf], dim)
     return out
 
 
@@ -508,6 +534,220 @@ def build_dp_tp_train_step(cfg: TransformerConfig, sp: SolverParameter,
             return lm_loss(lm_head(p, x), targets)
 
         loss, grads = _grads(params, loss_fn)
+        grads, loss = average_(grads, loss, sync)
+        update = make_update_fn(sp, transformer_mults(params))
+        new_params, new_state = update(params, grads, state)
+        return new_params, new_state, {"loss": loss}
+
+    return step
+
+
+# ------------------------------------------------------------------------ #
+# Pipeline parallelism (GPipe): dp x pp over a ("data", "stage") mesh
+
+# the dim a tp-sharded leaf of the stacked pp layout splits on: one past
+# its TP_SPLIT_DIM, behind the layer axis (JAX's pp_param_specs with
+# tp_axis: wqkv and w1 on dim 1, wo and w2 on dim 2)
+PP_TP_SPLIT_DIM = {leaf: dim + 1 for leaf, dim in TP_SPLIT_DIM.items()}
+
+
+def to_pp_layout(params, cfg: TransformerConfig):
+    """Stack the block leaves along a leading layer axis: ``{"block0":
+    {...}, ...}`` becomes ``{"blocks": {leaf: (n_layers, ...)}}``, the
+    other layers as they are (JAX's layout). Takes any tree of the params'
+    shapes (the momentum too); ``from_pp_layout`` inverts."""
+    out = {k: dict(v) for k, v in params.items() if not k.startswith("block")}
+    names = sorted((k for k in params if k.startswith("block")),
+                   key=lambda k: int(k[len("block"):]))
+    out["blocks"] = {leaf: torch.stack([params[n][leaf] for n in names])
+                     for leaf in params[names[0]]}
+    return out
+
+
+def from_pp_layout(params, cfg: TransformerConfig):
+    out = {k: dict(v) for k, v in params.items() if k != "blocks"}
+    n_layers = next(iter(params["blocks"].values())).shape[0]
+    for i in range(n_layers):
+        out[f"block{i}"] = {leaf: v[i] for leaf, v in params["blocks"].items()}
+    return out
+
+
+def _check_pp_divisibility(n_layers: int, n_stage: int) -> None:
+    if n_layers % n_stage:
+        raise ValueError(f"n_layers={n_layers} not divisible by "
+                         f"{n_stage} pipeline stages")
+
+
+def pp_shard(tree, cfg: TransformerConfig, stage: int, n_stage: int,
+             t: int = 0, n_tp: int = 1):
+    """Stage ``stage`` of ``n_stage``'s part of a pp-layout tree (JAX's
+    ``pp_param_specs``): its contiguous run of ``n_layers / n_stage``
+    layers of every stacked leaf, the other layers whole. With ``n_tp`` >
+    1 (a tree in ``to_pp_layout(to_tp_layout(...))``) each
+    ``PP_TP_SPLIT_DIM`` leaf is further cut to tp rank ``t``'s block."""
+    n_layers = next(iter(tree["blocks"].values())).shape[0]
+    _check_pp_divisibility(n_layers, n_stage)
+    if n_tp > 1:
+        _check_tp_divisibility(cfg, n_tp)
+    per = n_layers // n_stage
+    out = {k: dict(v) for k, v in tree.items()}
+    for leaf, v in tree["blocks"].items():
+        v = v.narrow(0, stage * per, per)
+        dim = PP_TP_SPLIT_DIM.get(leaf)
+        out["blocks"][leaf] = (_block(v, dim, t, n_tp) if dim is not None
+                               else _block(v, 0, 0, 1))
+    return out
+
+
+def pp_unshard(tree, stage_group: Optional[DataGroup],
+               tp_group: Optional[DataGroup] = None):
+    """The whole pp-layout tree from every rank's ``pp_shard`` part: each
+    stacked leaf all-gathered over ``tp_group`` on its ``PP_TP_SPLIT_DIM``
+    and over ``stage_group`` on the layer axis (each when given), in leaf
+    order on every rank."""
+    out = {k: dict(v) for k, v in tree.items()}
+    for leaf, v in tree["blocks"].items():
+        if tp_group is not None and leaf in PP_TP_SPLIT_DIM:
+            v = _gather_dim(tp_group, v, PP_TP_SPLIT_DIM[leaf])
+        if stage_group is not None:
+            v = stage_group.all_gather(v)
+        out["blocks"][leaf] = v
+    return out
+
+
+def build_dp_pp_train_step(cfg: TransformerConfig, sp: SolverParameter,
+                           groups: NamedGroups, microbatches: int):
+    """The JAX package's ``build_dp_pp_train_step`` over this rank's
+    ``(data, stage)`` groups, or ``(data, stage, model)`` (tp on when the
+    mesh has the ``model`` axis):
+
+        step(params, state, tokens, targets) -> (params, state, {"loss"})
+
+    params and the momentum are this stage's ``pp_shard`` of the pp
+    layout (of ``to_pp_layout(to_tp_layout(...))`` and rank t's tp slices
+    with tp); tokens and targets this rank's (B/data, S) rows, split
+    into ``microbatches`` microbatches of bm rows.
+
+    The schedule is GPipe's, one process a stage: every microbatch's
+    forward in order (stage 0 embeds it, the other stages receive it from
+    the previous stage; each stage runs its layers and sends the result
+    on; the last stage applies ``ln_f`` and the head and sums the token
+    losses), then every backward in reverse microbatch order (the last
+    stage from its loss, the others from the cotangent the next stage
+    sends back; each stage sends the cotangent of its input back as soon
+    as it exists). JAX runs the same ticks as one SPMD scan in which
+    every stage executes every tick under masked selects (the embedding
+    and head on every stage, kept by the first and last; m + n - 1 ticks,
+    the pipe's fill and drain on garbage) and differentiates it whole;
+    the port runs only the live work. The same microbatches pass through
+    the same layers in the same order, and the selects JAX masks with add
+    exact zeros, so both compute the same function and the same
+    gradients: the loss is the sum of the retired microbatches' token
+    losses over ``m * bm * S``, summed over stage (it lives on the last
+    stage) and averaged over data.
+
+    Gradients: block leaves stay stage-local (their cotangents arrive
+    from the next stage). Embed and pos get gradient on stage 0 only,
+    ``head`` and ``ln_f`` on the last stage only; each is summed over the
+    stage group with zeros elsewhere, so the sum is exact and every
+    stage's copy stays bitwise alike; never over ``model`` (the f/g pair
+    leaves them whole on every tp rank, as in JAX). Then everything is
+    averaged over data (``average_`` over the mesh's joint group, which
+    holds ``data`` alone) and ``make_update_fn(sp, transformer_mults(p))``
+    updates each leaf. With tp each layer runs ``tp_block_forward``
+    between the f/g pair over the model group (the 3-D dp x pp x tp
+    step).
+
+    Remat: under ``cfg.remat`` one tick is
+    checkpointed: a stage's whole run of layers for one microbatch, as
+    JAX checkpoints its tick (the embedding and the head sit outside the
+    port's checkpoint; JAX recomputes them inside its tick, which changes
+    no value). Requires n_layers % n_stage == 0 and local batch %
+    microbatches == 0 (JAX's messages)."""
+    stage = groups[STAGE_AXIS]
+    n_stage = stage.world
+    _check_pp_divisibility(cfg.n_layers, n_stage)
+    per = cfg.n_layers // n_stage
+    first, last = stage.rank == 0, stage.rank == n_stage - 1
+    sync, device = groups.joint, groups.device
+    if MODEL_AXIS in groups.axes:
+        model = groups[MODEL_AXIS]
+        _check_tp_divisibility(cfg, model.world)
+        f_op, g_op = make_fg_ops(model)
+
+        def layer(h, blk):
+            return tp_block_forward(cfg, h, blk, f_op, g_op)
+    else:
+        def layer(h, blk):
+            return block_forward(cfg, h, blk)
+
+    def run_stage(x, blocks):
+        for i in range(per):
+            x = layer(x, {leaf: v[i] for leaf, v in blocks.items()})
+        return x
+
+    tick = wrap_checkpoint(run_stage, resolve_lm_policy(cfg.remat))
+    # the leaves this stage's work reaches; the others get zero gradient
+    reach = ["blocks"] + (["embed", "pos"] if first else []) + (
+        ["ln_f", "head"] if last else [])
+    apply_policy()
+
+    def step(params: Params, state: SolverState, tokens: torch.Tensor,
+             targets: torch.Tensor):
+        tokens, targets = tokens.to(device), targets.to(device)
+        b_local, s_len = tokens.shape
+        m = microbatches
+        if b_local % m:
+            raise ValueError(f"local batch {b_local} not divisible by "
+                             f"{m} microbatches")
+        bm = b_local // m
+        tok_mb = tokens.reshape(m, bm, s_len)
+        tgt_mb = targets.reshape(m, bm, s_len)
+        n_tokens = float(m * bm * s_len)
+        p = {n: {l: v.detach().requires_grad_(n in reach)
+                 for l, v in d.items()} for n, d in params.items()}
+        keys = [(n, l) for n in p if n in reach for l in p[n]]
+        wrt = [p[n][l] for n, l in keys]
+        loss = torch.zeros((), device=device)
+        live = []
+        for j in range(m):
+            if first:
+                x = embed_tokens(p, tok_mb[j])
+            else:
+                x = torch.empty((bm, s_len, cfg.d_model), device=device)
+                stage.shift_(None, x, 1)
+                x.requires_grad_(True)
+            y = tick(x, p["blocks"])
+            if last:
+                logp = torch.log_softmax(lm_head(p, y), dim=-1)
+                picked = torch.gather(logp, -1, tgt_mb[j][..., None].long())
+                y = -picked.sum() / n_tokens
+                loss = loss + y.detach()
+            else:
+                note_exchange("pp_activation", y)
+                stage.shift_(y.detach(), None, 1)
+            live.append((x, y))
+        acc = None
+        for j in reversed(range(m)):
+            x, y = live.pop()
+            g_y = None
+            if not last:
+                g_y = torch.empty_like(y)
+                stage.shift_(None, g_y, -1)
+            gs = torch.autograd.grad(y, wrt + ([] if first else [x]), g_y)
+            if not first:
+                note_exchange("pp_cotangent", gs[-1])
+                stage.shift_(gs[-1], None, -1)
+                gs = gs[:-1]
+            acc = list(gs) if acc is None else [a + g for a, g in
+                                                zip(acc, gs)]
+            del x, y
+        got = dict(zip(keys, acc))
+        grads = {n: {l: got[(n, l)] if (n, l) in got else torch.zeros_like(v)
+                     for l, v in d.items()} for n, d in p.items()}
+        grads, loss = sum_over(grads, loss, stage, "pp_stage_all_reduce",
+                               [(n, l) for n in grads if n != "blocks"
+                                for l in grads[n]])
         grads, loss = average_(grads, loss, sync)
         update = make_update_fn(sp, transformer_mults(params))
         new_params, new_state = update(params, grads, state)

@@ -30,12 +30,17 @@ any other named mesh takes (the LM's ``("data", "seq")``, ``("data",
 ``named_axis_ranks(axes, shape)`` reshapes the ranks row-major, as JAX's
 ``make_mesh(axes=..., shape=...)`` reshapes ``jax.devices()``, and
 ``NamedGroups`` holds one ``DataGroup`` an axis plus the joint group of
-the data-like axes (every axis but ``model``), over which the LM steps
-average their gradients. ``runtime/cluster.build_named_groups`` (or
+the data-like axes (every axis but ``model`` and ``stage``), over which
+the LM steps average their gradients (the pipeline's ``("data",
+"stage")`` and ``("data", "stage", "model")`` average over ``data``
+alone; ``("data", "expert")``'s joint group is the batch shard, rank
+``d * E + e``). ``runtime/cluster.build_named_groups`` (or
 ``init_distributed(named=...)``) builds it; either mesh rides in
-``DataGroup.mesh``. ``DataGroup.ppermute_`` (the ring shift) and
-``all_to_all`` are the sequence-parallel exchanges; ``EXCHANGED`` counts
-the bytes a rank puts into them and into the LM's all-reduces, by kind.
+``DataGroup.mesh``. The LM's exchanges: ``DataGroup.ppermute_`` (the
+ring shift), ``shift_`` (one neighbour's send or receive: the pipeline's
+stage shift), ``all_to_all`` and its differentiable form ``AllToAll``
+(Ulysses, the MoE dispatch and return); ``EXCHANGED`` counts the bytes a
+rank puts into them and into the LM's all-reduces, by kind.
 """
 
 from __future__ import annotations
@@ -50,13 +55,15 @@ DCN_AXIS = "dcn"
 # the named SPMD mesh's axis order (JAX's ``SPMD_AXES``): fsdp between
 # data and tp, so the fsdp collectives ride the inner groups
 SPMD_AXES = ("data", "fsdp", "tp")
-# the LM's tensor-parallel axis (JAX's name); every other axis of a named
-# mesh is data-like: the LM steps average their gradients over it
+# the LM's tensor-parallel and pipeline axes (JAX's names); every other
+# axis of a named mesh is data-like: the LM steps average their gradients
+# over it
 MODEL_AXIS = "model"
+STAGE_AXIS = "stage"
 
 # payload bytes this process put into each kind of exchange (a ring
-# shift's tensor, an all-to-all's send buffer, an all-reduce's tensor),
-# counted by the callers that name the kind
+# shift's or a stage shift's tensor, an all-to-all's send buffer, an
+# all-reduce's tensor), counted by the callers that name the kind
 EXCHANGED: Dict[str, int] = {}
 
 
@@ -211,22 +218,38 @@ class DataGroup:
         tensors go as they are."""
         if self.pg is None:
             return out.copy_(t)
+        return self.shift_(t, out, shift)
+
+    def shift_(self, send: Optional[torch.Tensor],
+               out: Optional[torch.Tensor], shift: int = 1
+               ) -> Optional[torch.Tensor]:
+        """One neighbour's half of a shift: ``send`` (when given) to the
+        rank at index ``(i + shift) % n`` and ``out`` (when given) filled
+        from ``(i - shift) % n``, posted in one ``batch_isend_irecv`` and
+        waited for; returns ``out``. A pipeline stage sends forward with
+        ``shift=1`` and its cotangents back with ``shift=-1``; the first
+        and last stages post one side only. Staged as ``ppermute_``."""
         import torch.distributed as dist
-        dst = dist.get_global_rank(self.pg, (self.rank + shift) % self.world)
-        src = dist.get_global_rank(self.pg, (self.rank - shift) % self.world)
-        t = t.contiguous()
-        if self._staged(t):
-            send = self._pinned(t)
-            recv = torch.empty_like(send, pin_memory=True)
-        else:
-            send, recv = t, (out if out.is_contiguous()
-                             else torch.empty_like(t))
-        reqs = dist.batch_isend_irecv([
-            dist.P2POp(dist.isend, send, dst, group=self.pg),
-            dist.P2POp(dist.irecv, recv, src, group=self.pg)])
-        for req in reqs:
+        ops, recv = [], None
+        if send is not None:
+            dst = dist.get_global_rank(self.pg,
+                                       (self.rank + shift) % self.world)
+            send = send.contiguous()
+            if self._staged(send):
+                send = self._pinned(send)
+            ops.append(dist.P2POp(dist.isend, send, dst, group=self.pg))
+        if out is not None:
+            src = dist.get_global_rank(self.pg,
+                                       (self.rank - shift) % self.world)
+            if self._staged(out):
+                recv = torch.empty(out.shape, dtype=out.dtype,
+                                   pin_memory=True)
+            else:
+                recv = out if out.is_contiguous() else torch.empty_like(out)
+            ops.append(dist.P2POp(dist.irecv, recv, src, group=self.pg))
+        for req in dist.batch_isend_irecv(ops):
             req.wait()
-        if recv is not out:
+        if recv is not None and recv is not out:
             out.copy_(recv)
         return out
 
@@ -265,6 +288,27 @@ class DataGroup:
             import torch.distributed as dist
             if dist.is_initialized():
                 dist.destroy_process_group()
+
+
+class AllToAll(torch.autograd.Function):
+    """``DataGroup.all_to_all`` as a differentiable exchange: chunk j of
+    dim 0 to index j forward; the cotangent's chunk j back to index j
+    backward (the exchange is its own transpose). Both directions count
+    under ``kind`` in ``EXCHANGED``. Ulysses' re-shards and the MoE
+    dispatch and return ride it."""
+
+    @staticmethod
+    def forward(ctx, x, group: DataGroup, kind: str):
+        ctx.group, ctx.kind = group, kind
+        note_exchange(kind, x)
+        out = group.all_to_all(x)
+        return x.view_as(x) if out is x else out
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous()
+        note_exchange(ctx.kind, g)
+        return ctx.group.all_to_all(g), None, None
 
 
 def mesh_coords(rank: int, cfg) -> Tuple[int, int, int]:
@@ -362,8 +406,10 @@ class NamedGroups:
 
 
 def data_like_axes(axes: Sequence[str]) -> Tuple[str, ...]:
-    """The axes the LM steps average over: every one but ``model``."""
-    return tuple(a for a in axes if a != MODEL_AXIS)
+    """The axes the LM steps average over: every one but ``model`` and
+    ``stage`` (a pipeline keeps its block gradients stage-local and sums
+    the others over ``stage``, never averages them)."""
+    return tuple(a for a in axes if a not in (MODEL_AXIS, STAGE_AXIS))
 
 
 @dataclass(frozen=True)

@@ -33,7 +33,8 @@ whose backward is the reverse shift.
 v from sequence blocks to head groups ((B, H, S/n, D) -> (B, H/n, S, D)),
 ``ops/flash.maybe_flash_attention`` runs this rank's H/n heads over the
 whole sequence (K1-K3 on the card), and a second ``all_to_all`` restores
-the sequence blocks; each exchange's backward is the inverse exchange.
+the sequence blocks; both ride ``mesh.AllToAll``, so each exchange's
+backward is the inverse exchange.
 
 ``parallel/mesh.EXCHANGED`` counts the bytes a rank sends: ``ring_kv``
 (K/V shifts, forward and backward), ``ring_dkv`` (dK/dV shifts) and
@@ -50,7 +51,7 @@ from ..ops.attention import (NEG_INF, block_attend, finalize_block_acc,
                              init_block_acc)
 from ..ops.flash import (flash_attention_bwd, flash_attention_fwd,
                          flash_delta, maybe_flash_attention, pick_block)
-from .mesh import DataGroup, note_exchange
+from .mesh import AllToAll, DataGroup, note_exchange
 
 
 def _chunk_mode(my: int, src: int, causal: bool) -> int:
@@ -225,8 +226,7 @@ def _seq_to_heads(x: torch.Tensor, group: DataGroup) -> torch.Tensor:
     n = group.world
     b, h, s, d = x.shape
     send = x.reshape(b, n, h // n, s, d).transpose(0, 1)
-    note_exchange("ulysses", send)
-    recv = group.all_to_all(send)               # (n, B, H/n, S/n, D)
+    recv = AllToAll.apply(send, group, "ulysses")   # (n, B, H/n, S/n, D)
     return recv.permute(1, 2, 0, 3, 4).reshape(b, h // n, n * s, d)
 
 
@@ -236,24 +236,8 @@ def _heads_to_seq(x: torch.Tensor, group: DataGroup) -> torch.Tensor:
     b, hl, big_s, d = x.shape
     s = big_s // n
     send = x.reshape(b, hl, n, s, d).permute(2, 0, 1, 3, 4)
-    note_exchange("ulysses", send)
-    recv = group.all_to_all(send)               # (n, B, H/n, S/n, D)
+    recv = AllToAll.apply(send, group, "ulysses")   # (n, B, H/n, S/n, D)
     return recv.transpose(0, 1).reshape(b, n * hl, s, d)
-
-
-class _AllToAll(torch.autograd.Function):
-    """``_seq_to_heads`` (or ``_heads_to_seq``) with the inverse exchange
-    as its backward."""
-
-    @staticmethod
-    def forward(ctx, x, group, to_heads):
-        ctx.group, ctx.to_heads = group, to_heads
-        return (_seq_to_heads if to_heads else _heads_to_seq)(x, group)
-
-    @staticmethod
-    def backward(ctx, g):
-        back = _heads_to_seq if ctx.to_heads else _seq_to_heads
-        return back(g, ctx.group), None, None
 
 
 def ulysses_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -267,8 +251,8 @@ def ulysses_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, h, s, d = q.shape
     if h % n:
         raise ValueError(f"heads ({h}) must divide by axis size ({n})")
-    qkv = _AllToAll.apply(torch.stack((q, k, v)).reshape(3 * b, h, s, d),
-                          group, True)
+    qkv = _seq_to_heads(torch.stack((q, k, v)).reshape(3 * b, h, s, d),
+                        group)
     qh, kh, vh = qkv.reshape(3, b, h // n, n * s, d).unbind(0)
     out = maybe_flash_attention(qh, kh, vh, causal=causal, scale=scale)
-    return _AllToAll.apply(out, group, False)
+    return _heads_to_seq(out, group)

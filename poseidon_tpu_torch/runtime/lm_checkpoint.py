@@ -10,14 +10,18 @@ in the other.
 
 Snapshots are always in the canonical layout (per-block dicts, one-device
 shapes), so a run under one parallelism resumes under another.
-``layout`` names the transforms the live trees carry, as in JAX: ``()``
-for sp (canonical already) and ``("tp",)`` for tp. A tp rank's trees are
-its ``tp_shard`` slices: with ``tp_group`` they are all-gathered over it
-first (every rank of the group calls ``save_lm``, and every rank writes
-the same bytes), then ``from_tp_layout`` undoes the head-major qkv rows.
-``restore_lm(path, cfg, layout=("tp",))`` re-applies the layout to the
-whole tree; the tp step takes the rank's ``tp_shard`` of it. The pipeline
-layout (``"pp"``) waits for the pipeline step (ROADMAP A.10).
+``layout`` names the transforms the live trees carry, in the order they
+were applied, as in JAX: ``()`` for sp and ep (canonical already),
+``("tp",)`` for tp, ``("pp",)`` for pp and ``("tp", "pp")`` for the 3-D
+step (``to_pp_layout(to_tp_layout(...))``). A rank's trees are its
+shards; the groups gather them first (every rank of a group calls
+``save_lm``, and every rank writes the same bytes): ``tp_group`` a tp
+rank's ``tp_shard`` slices (under ``"pp"``, the stacked leaves' slices
+one dim further in), ``pp_group`` a stage's run of layers (``pp_shard``),
+``ep_group`` an MoE tree's experts (``ep_shard``). Then the layouts are
+undone in reverse order (``from_pp_layout``, ``from_tp_layout``).
+``restore_lm(path, cfg, layout=...)`` re-applies the layouts to the whole
+tree; a step takes its rank's shard of it.
 """
 
 from __future__ import annotations
@@ -31,38 +35,48 @@ from ..solvers.updates import SolverState
 from .checkpoint import _flatten, _unflatten, latest_snapshot
 
 
+_LAYOUTS = ("tp", "pp")
+
+
 def _check_layout(layout: Sequence[str], cfg) -> Tuple[str, ...]:
     layout = tuple(layout)
     for name in layout:
-        if name == "pp":
-            raise NotImplementedError(
-                "the pipeline layout ('pp') waits for the pipeline step "
-                "(ROADMAP A.10, its next part)")
-        if name != "tp":
-            raise ValueError(f"unknown LM layout {name!r} (want 'tp')")
+        if name not in _LAYOUTS:
+            raise ValueError(f"unknown LM layout {name!r} (want one of "
+                             f"{_LAYOUTS})")
     if layout and cfg is None:
         raise ValueError(f"layout {layout} needs the model's cfg")
     return layout
 
 
-def _canonical(tree: Dict, cfg, layout, tp_group) -> Dict:
-    from ..models.transformer import from_tp_layout, tp_unshard
-    if "tp" in layout:
-        if tp_group is not None:
-            tree = tp_unshard(tree, tp_group)
-        tree = from_tp_layout(tree, cfg)
+def _canonical(tree: Dict, cfg, layout, tp_group, pp_group,
+               ep_group) -> Dict:
+    from ..models import transformer as tfm
+    from ..models.moe import ep_unshard
+    if ep_group is not None:
+        tree = ep_unshard(tree, ep_group)
+    if "pp" in layout:
+        tree = tfm.pp_unshard(tree, pp_group,
+                              tp_group if "tp" in layout else None)
+    elif "tp" in layout and tp_group is not None:
+        tree = tfm.tp_unshard(tree, tp_group)
+    undo = {"tp": tfm.from_tp_layout, "pp": tfm.from_pp_layout}
+    for name in reversed(layout):
+        tree = undo[name](tree, cfg)
     return tree
 
 
 def save_lm(prefix: str, params: Dict, state: SolverState, cfg=None, *,
-            layout: Sequence[str] = (), tp_group=None) -> str:
+            layout: Sequence[str] = (), tp_group=None, pp_group=None,
+            ep_group=None) -> str:
     """Write ``<prefix>_iter_N.lmstate.npz`` (N = ``state.it``) in the
     canonical layout; returns its path. ``layout`` names the transforms
-    ``params`` and the momentum carry; ``tp_group`` (a tp rank's group)
-    gathers their shards first."""
+    ``params`` and the momentum carry; ``tp_group``, ``pp_group`` and
+    ``ep_group`` (this rank's groups) gather their shards first."""
     layout = _check_layout(layout, cfg)
-    params = _canonical(params, cfg, layout, tp_group)
-    history = _canonical(state.history, cfg, layout, tp_group)
+    params, history = (_canonical(t, cfg, layout, tp_group, pp_group,
+                                  ep_group)
+                       for t in (params, state.history))
     it = int(state.it)
     os.makedirs(os.path.dirname(prefix) or ".", exist_ok=True)
     path = f"{prefix}_iter_{it}.lmstate.npz"
@@ -81,7 +95,7 @@ def restore_lm(path: str, cfg=None, *,
     """(params, SolverState) from a canonical snapshot, as CPU tensors,
     with ``layout`` re-applied for the resuming topology (which need not
     match the saving one)."""
-    from ..models.transformer import to_tp_layout
+    from ..models.transformer import to_pp_layout, to_tp_layout
     layout = _check_layout(layout, cfg)
     groups: Dict[str, Dict[str, np.ndarray]] = {"params": {}, "history": {}}
     with np.load(path) as z:
@@ -92,9 +106,9 @@ def restore_lm(path: str, cfg=None, *,
                 groups[head][rest] = z[key]
     params = _unflatten(groups["params"])
     history = _unflatten(groups["history"])
-    if "tp" in layout:
-        params, history = to_tp_layout(params, cfg), to_tp_layout(history,
-                                                                  cfg)
+    redo = {"tp": to_tp_layout, "pp": to_pp_layout}
+    for name in layout:
+        params, history = redo[name](params, cfg), redo[name](history, cfg)
     return params, SolverState(it=it, history=history)
 
 

@@ -1520,3 +1520,134 @@ def test_ring_and_ulysses_gloo_pair_on_card(tmp_path):
         assert launches == {"flash_fwd": 1, "flash_dq": 1,
                             "flash_dkv": 1}, launches
         assert max(errs) < 1e-4, errs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,shape", [
+    (torch.float32, (2, 12, 1024, 64)),
+    (torch.bfloat16, (2, 12, 1024, 64)),
+    (torch.float32, (2, 6, 1024, 64)),
+    (torch.bfloat16, (2, 6, 1024, 64)),
+])
+def test_flash_kernels_at_lm_pp_ep_call_sites_on_card(dtype, shape):
+    """K1-K3 at the LM's pp and ep call sites, causal over the whole
+    sequence: a pp2 microbatch and an ep2 rank of gpt_small at 4 x 1024
+    (2 rows, 12 heads; the CLI pairs run the same shape) and a pp2 x tp2
+    rank's 6 heads, against the plain versions at the tolerances of the
+    sp and tp sites."""
+    test_flash_kernels_at_lm_par_call_sites_on_card(dtype, shape, None)
+
+
+def _pp_ep_pair_worker(rank, store, q):
+    from poseidon_tpu_torch.models import moe
+    from poseidon_tpu_torch.models import transformer as tfm
+    from poseidon_tpu_torch.proto.messages import SolverParameter
+    from poseidon_tpu_torch.runtime import cluster
+    from poseidon_tpu_torch.solvers.updates import init_state
+    dev = torch.device("cuda")
+    group = cluster.init_distributed(dev, rank=rank, world=2,
+                                     coordinator=f"file://{store}")
+    try:
+        out = {"backend": group.backend}
+        cfg = tfm.TransformerConfig(vocab_size=256, d_model=128, n_heads=4,
+                                    n_layers=4, d_ff=512, max_seq=256,
+                                    remat=True)
+        sp = SolverParameter(base_lr=0.05, lr_policy="fixed", momentum=0.9)
+        toks = torch.randint(0, 256, (4, 257),
+                             generator=torch.Generator().manual_seed(5))
+        tokens, targets = toks[:, :-1].to(dev), toks[:, 1:].to(dev)
+        pp = cluster.build_named_groups(("data", "stage"), (1, 2), rank,
+                                        dev, "gloo")
+        stage = pp["stage"]
+        # the stage shift moves CUDA tensors (staged) each way
+        t = torch.full((3, 5), float(rank + 1), device=dev)
+        got = torch.empty_like(t)
+        for shift in (1, -1):
+            sends = (rank == 0) == (shift == 1)
+            stage.shift_(t if sends else None, None if sends else got,
+                         shift)
+        out["shift"] = (got.is_cuda, float(got.mean()))
+        # pp2 (2 microbatches, remat) against the one-device step
+        p0 = tfm.init_params(cfg, torch.Generator().manual_seed(1), dev)
+        params = tfm.pp_shard(tfm.to_pp_layout(p0, cfg), cfg, rank, 2)
+        step = tfm.build_dp_pp_train_step(cfg, sp, pp, 2)
+        before = dict(port_flash.LAUNCHES)
+        params, _, m = step(params, init_state(params), tokens, targets)
+        torch.cuda.synchronize()
+        out["pp_launches"] = {n: port_flash.LAUNCHES[n] - before[n]
+                              for n in ("flash_fwd", "flash_dq",
+                                        "flash_dkv")}
+        canon = tfm.from_pp_layout(tfm.pp_unshard(params, stage), cfg)
+        if rank == 0:
+            one = tfm.build_dp_sp_train_step(cfg, sp, dev)
+            want, _, wm = one(p0, init_state(p0), tokens, targets)
+            out["pp"] = (float(m["loss"]), float(wm["loss"]),
+                         max(float((canon[a][b] - want[a][b]).abs().max())
+                             for a in want for b in want[a]))
+        # ep2 (4 experts, the default capacity factor) against the
+        # per-source control
+        mcfg = moe.MoEConfig(base=cfg, n_experts=4)
+        ep = cluster.build_named_groups(("data", "expert"), (1, 2), rank,
+                                        dev, "gloo")
+        m0 = moe.init_moe_params(mcfg, torch.Generator().manual_seed(2), dev)
+        params = moe.ep_shard(m0, mcfg, rank, 2)
+        step = moe.build_dp_ep_train_step(mcfg, sp, ep)
+        rows = slice(2 * rank, 2 * rank + 2)
+        params, _, m = step(params, init_state(params), tokens[rows],
+                            targets[rows])
+        canon = moe.ep_unshard(params, ep["expert"])
+        if rank == 0:
+            def loss_fn(p):
+                total = 0.0
+                for blk in range(2):
+                    r = slice(2 * blk, 2 * blk + 2)
+                    logits, aux = moe.moe_forward(p, mcfg, tokens[r])
+                    logp = torch.log_softmax(logits, dim=-1)
+                    picked = torch.gather(logp, -1, targets[r][..., None])
+                    total = total - picked.sum() / tokens.numel() + aux / 2
+                return total
+            loss, grads = tfm._grads(m0, loss_fn)
+            upd = moe.make_update_fn(sp, tfm.transformer_mults(m0))
+            want, _ = upd(m0, grads, init_state(m0))
+            out["ep"] = (float(m["loss"]), float(loss),
+                         max(float((canon[a][b] - want[a][b]).abs().max())
+                             for a in want for b in want[a]))
+        q.put((rank, out))
+    finally:
+        group.close()
+
+
+@pytest.mark.gpu
+def test_pp_and_ep_gloo_pair_on_card(tmp_path):
+    """Two gloo ranks sharing the card: the stage shift moves CUDA tensors
+    both ways; a pp2 step (2 microbatches, remat, 2 layers a stage) runs
+    K1 8 times and K2, K3 4 times a rank and equals the one-device step
+    (loss 1e-5, every leaf within 1e-5); an ep2 step of 4 experts at the
+    default capacity factor equals the control that routes each rank's
+    rows as its own source (the same bounds)."""
+    _need_gpu()
+    import torch.multiprocessing as mp
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    procs = [ctx.Process(target=_pp_ep_pair_worker,
+                         args=(r, str(tmp_path / "store"), q))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    try:
+        res = dict(q.get(timeout=300) for _ in procs)
+    finally:
+        for p in procs:
+            p.join(60)
+            if p.is_alive():
+                p.kill()
+    assert all(p.exitcode == 0 for p in procs)
+    assert res[0]["backend"] == "gloo"
+    for r in (0, 1):
+        assert res[r]["shift"] == (True, float(2 - r))
+        assert res[r]["pp_launches"] == {"flash_fwd": 8, "flash_dq": 4,
+                                         "flash_dkv": 4}, res[r]
+    for kind in ("pp", "ep"):
+        got, want, worst = res[0][kind]
+        assert got == pytest.approx(want, rel=1e-5), kind
+        assert worst < 1e-5, (kind, worst)

@@ -28,6 +28,8 @@ from poseidon_tpu_torch.parallel import spmd
 assert spmd.SpmdTrainStep and spmd.TPColMatmul and spmd.ShardingPlan
 # the sequence-parallel exchanges (ring flash attention, Ulysses)
 assert "poseidon_tpu_torch.parallel.sequence" in names
+# the mixture of experts and its expert-parallel step
+assert "poseidon_tpu_torch.models.moe" in names
 # a bf16-wire round trip of the async tier: quantize, encode, decode, widen
 import numpy as np
 from poseidon_tpu_torch.parallel import async_ssp
@@ -71,6 +73,26 @@ def test_sequence_module_imports_no_jax():
     """``parallel/sequence.py`` and the LM's sp/tp steps on their own:
     neither ``jax`` nor ``poseidon_tpu`` comes with them."""
     out = subprocess.run([sys.executable, "-c", _IMPORT_SEQUENCE], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+_IMPORT_MOE = r"""
+import sys
+from poseidon_tpu_torch.models import generate, moe, train_lm, transformer
+from poseidon_tpu_torch.parallel import mesh
+assert moe.build_dp_ep_train_step and moe.moe_ffn and mesh.AllToAll
+assert transformer.build_dp_pp_train_step and transformer.pp_shard
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "poseidon_tpu"))
+assert not bad, bad
+"""
+
+
+def test_moe_module_imports_no_jax():
+    """``models/moe.py`` and the pipeline step on their own: neither
+    ``jax`` nor ``poseidon_tpu`` comes with them."""
+    out = subprocess.run([sys.executable, "-c", _IMPORT_MOE], cwd=REPO,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr
 

@@ -236,20 +236,41 @@ def test_sampling_draws_from_the_generator(model):
 
 
 def test_unported_branches_raise(model):
-    _, pcfg, _, tp = model
-
-    class MoELike:
-        base = pcfg
-
+    """The name is kept: MoE prefill is ported (``models/moe.py``) and
+    returns JAX's logits and caches; paged decode still refuses an
+    ``MoEConfig`` with JAX's message, as JAX's does; JAX's axis-name
+    keyword is refused (the port takes the seq group)."""
+    from poseidon_tpu.models import moe as jax_moe
+    from poseidon_tpu_torch.models import moe as port_moe
+    jcfg, pcfg, _, tp = model
     x = torch.zeros(1, 4, 32)
     # ring attention is ported (tests/test_torch_sequence.py) and takes
     # the seq group as ``seq_group``: JAX's axis-name keyword is refused
     with pytest.raises(TypeError, match="seq_axis"):
         port_tf.attention_sublayer(pcfg, x, tp["block0"], seq_axis="seq")
-    with pytest.raises(NotImplementedError, match="MoE"):
-        port_gen.prefill_cached(tp, MoELike(), torch.zeros(1, 4,
-                                                          dtype=torch.long),
-                                torch.tensor([3]), 4)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        port_gen.paged_decode_step(tp, MoELike(), torch.zeros(1), (),
+    jm = jax_moe.MoEConfig(base=jcfg, n_experts=4)
+    pm = port_moe.MoEConfig(base=pcfg, n_experts=4)
+    jp = jax.tree_util.tree_map(
+        np.asarray, jax_moe.init_moe_params(jm, jax.random.PRNGKey(2)))
+    toks = _tokens(2, 6, seed=3)
+    last = np.array([5, 3], np.int32)
+    jl, jc = jax_gen.prefill_cached(jp, jm, jnp.asarray(toks),
+                                    jnp.asarray(last), 10)
+    pl, pc = port_gen.prefill_cached(port_tf.params_from_jax(jp), pm,
+                                     torch.from_numpy(toks).long(),
+                                     torch.from_numpy(last), 10)
+    np.testing.assert_allclose(pl.numpy(), np.asarray(jl), rtol=RTOL,
+                               atol=ATOL)
+    for (pk, pv), (jk, jv) in zip(pc, jc):
+        np.testing.assert_allclose(pk.numpy(), np.asarray(jk), rtol=RTOL,
+                                   atol=ATOL)
+        np.testing.assert_allclose(pv.numpy(), np.asarray(jv), rtol=RTOL,
+                                   atol=ATOL)
+    with pytest.raises(NotImplementedError) as want:
+        jax_gen.paged_decode_step(jp, jm, jnp.zeros(1, jnp.int32), (),
+                                  jnp.zeros((1, 1), jnp.int32),
+                                  jnp.zeros(1, jnp.int32))
+    with pytest.raises(NotImplementedError) as got:
+        port_gen.paged_decode_step(tp, pm, torch.zeros(1), (),
                                    torch.zeros(1, 1), torch.zeros(1))
+    assert str(got.value) == str(want.value) and "MoE" in str(got.value)

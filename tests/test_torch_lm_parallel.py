@@ -347,7 +347,8 @@ def test_tp_snapshot_resumes_one_device(lm_run):
 
 def test_jax_tp_snapshot_loads_in_the_port(tmp_path, lm_run):
     """JAX writes from a tp layout; the port restores it canonical and,
-    with ``layout=("tp",)``, in the tp layout, both exact."""
+    with ``layout=("tp",)`` or ``("pp",)``, in the tp or pp layout, all
+    exact."""
     jcfg, cfg = _jax_cfg(), _port_cfg(False)
     params = lm_run["params"]
     rs = np.random.RandomState(5)
@@ -368,8 +369,11 @@ def test_jax_tp_snapshot_loads_in_the_port(tmp_path, lm_run):
     want = jax_tf.to_tp_layout(params, jcfg)
     for key, v in _flat(want).items():
         assert np.array_equal(_flat(p_tp)[key], np.asarray(v)), key
-    with pytest.raises(NotImplementedError, match="ROADMAP A.10"):
-        port_ckpt.restore_lm(path, cfg, layout=("pp",))
+    # and in the pp layout, as JAX's to_pp_layout of the same snapshot
+    p_pp, st_pp = port_ckpt.restore_lm(path, cfg, layout=("pp",))
+    for got, want in ((p_pp, params), (st_pp.history, hist)):
+        for key, v in _flat(jax_tf.to_pp_layout(want, jcfg)).items():
+            assert np.array_equal(_flat(got)[key], np.asarray(v)), key
 
 
 def test_tp_layout_and_shards_match_jax(lm_run):
@@ -490,17 +494,47 @@ def test_train_lm_refusals_match_jax(monkeypatch, flags):
     assert str(got.value) == str(want.value) and str(want.value)
 
 
-@pytest.mark.parametrize("mode,match", [("pp", "pipeline"), ("ep", "MoE")])
-def test_train_lm_pp_ep_name_the_next_slice(mode, match):
+@pytest.mark.parametrize("mode,flags", [
+    pytest.param("pp", ["--par_axis", "2", "--n_layers", "3"],
+                 id="pp-pipeline"),
+    pytest.param("ep", ["--par_axis", "4", "--experts", "6"], id="ep-MoE"),
+])
+def test_train_lm_pp_ep_name_the_next_slice(monkeypatch, mode, flags):
+    """pp and ep train now (``tests/test_torch_pp.py``,
+    ``test_torch_moe.py``); a pipeline whose layers the stage axis does
+    not divide, or experts the expert axis does not divide, is refused
+    with the JAX script's ``SystemExit`` message on 8 devices."""
+    for var in ("POSEIDON_COORDINATOR", "POSEIDON_PROC_ID"):
+        monkeypatch.delenv(var, raising=False)
+    monkeypatch.setattr(sys, "argv", ["train_lm.py", "--mode", mode, *flags])
+    with pytest.raises(SystemExit) as want:
+        _jax_script().main()
+    monkeypatch.setenv("POSEIDON_NUM_PROCS", "8")
     from poseidon_tpu_torch.models import train_lm
-    with pytest.raises(NotImplementedError,
-                       match=f"{match}.*ROADMAP A.10, its next part"):
-        train_lm.main(["--device", "cpu", "--mode", mode])
+    with pytest.raises(SystemExit) as got:
+        train_lm.main(["--device", "cpu", "--mode", mode, *flags])
+    assert str(got.value) == str(want.value)
+    assert str(want.value).endswith(
+        {"pp": "(try --n_layers 2)", "ep": "the expert axis 4"}[mode])
 
 
 def test_lm_checkpoint_refuses_a_pipeline_layout(tmp_path):
-    p0 = port_tf.init_params(_port_cfg(False), torch.Generator()
-                             .manual_seed(0))
-    with pytest.raises(NotImplementedError, match="ROADMAP A.10"):
-        port_ckpt.save_lm(str(tmp_path / "lm"), p0, init_state(p0),
-                          _port_cfg(False), layout=("tp", "pp"))
+    """The 3-D layout is saved now (the name is kept): a tree in
+    ``to_pp_layout(to_tp_layout(...))`` writes the canonical tree, and
+    JAX's ``restore_lm`` reads it back as the tree it started from."""
+    cfg = _port_cfg(False)
+    p0 = port_tf.init_params(cfg, torch.Generator().manual_seed(0))
+    h0 = {n: {l: v * 0.5 for l, v in d.items()} for n, d in p0.items()}
+    path = port_ckpt.save_lm(
+        str(tmp_path / "lm"),
+        port_tf.to_pp_layout(port_tf.to_tp_layout(p0, cfg), cfg),
+        init_state(p0)._replace(history=port_tf.to_pp_layout(
+            port_tf.to_tp_layout(h0, cfg), cfg)),
+        cfg, layout=("tp", "pp"))
+    jp, jst = jax_ckpt.restore_lm(path, _jax_cfg())
+    for got, want in ((jp, p0), (jst.history, h0)):
+        for key, v in _flat(want).items():
+            assert np.array_equal(np.asarray(_flat(got)[key]), v), key
+    with pytest.raises(ValueError, match="unknown LM layout"):
+        port_ckpt.save_lm(str(tmp_path / "lm"), p0, init_state(p0), cfg,
+                          layout=("fsdp",))

@@ -242,10 +242,14 @@ def test_train_lm_script_loss_falls_on_cpu(capsys):
     # the JAX script's message. The cases keep their ids.
     pytest.param(["--mode", "tp", "--par_axis", "2"], SystemExit,
                  r"mesh 1x2 != 1 devices", id="flags0-tensor parallelism"),
-    pytest.param(["--mode", "pp"], NotImplementedError, "pipeline",
+    # pp and ep train now (tests/test_torch_pp.py, test_torch_moe.py); in
+    # one process a pipeline or expert mesh that cannot be built is
+    # refused with the JAX script's messages
+    pytest.param(["--mode", "pp", "--microbatches", "3"], SystemExit,
+                 r"^local batch 8 must divide by --microbatches 3$",
                  id="flags1-pipeline"),
-    pytest.param(["--mode", "ep"], NotImplementedError, "MoE",
-                 id="flags2-MoE"),
+    pytest.param(["--mode", "ep", "--par_axis", "2"], SystemExit,
+                 r"^mesh 1x2 != 1 devices", id="flags2-MoE"),
     # --bf16 is ported (tests/test_torch_bf16.py runs it); the ids of the
     # cases after it are kept
     pytest.param(["--par_axis", "2"], SystemExit, r"mesh 1x2 != 1 devices",
@@ -255,8 +259,9 @@ def test_train_lm_script_loss_falls_on_cpu(capsys):
 ])
 def test_train_lm_script_refuses_unported_modes(monkeypatch, flags, exc,
                                                 match):
-    """pp and ep are not ported (the next part of ROADMAP A.10); a mesh
-    larger than the world (one process here) is refused."""
+    """A mesh the world (one process here) cannot hold, or a local batch
+    the microbatches do not divide, is refused with the JAX script's
+    ``SystemExit`` message."""
     monkeypatch.delenv("POSEIDON_NUM_PROCS", raising=False)
     with pytest.raises(exc, match=match):
         port_train_lm.main(["--device", "cpu", *flags])
