@@ -91,6 +91,41 @@ Phases, in order; any failure exits non-zero without the final ``ok`` line:
    and against the CPU. Bucket-64 load runs LOAD_REQUESTS requests at one
    client and again at two; p50/p99 latency and img/s are printed with the
    request count beside them.
+   Then ``[fleet]``: (a) AlexNet deploy as 3 replicas on cuda:0
+   (``build_serving_fleet`` with devices 0,0,0, seed-0 filler weights,
+   each batcher admitting FLEET_MAX_QUEUE requests) behind
+   ``InferenceServer(fleet=...)``: replies of 1, 4, 16 and 64 rows from
+   each replica within NET_TOL of a direct forward; bucket-64 closed loops
+   at 1, 2, 3 and 6 clients (p50/p99, img/s, the front door's and replica
+   0's batcher's p50, every replica routed at 3), beside ``[slice]``'s
+   one-engine runs of the same call at 1 and 2; open loops from clients
+   enough for their rate: probes at 1.5, 2 and 3x the best closed loop up
+   to the first that sheds, the best goodput of the closed loops and
+   probes the capacity (saturated if a probe shed), then 0.5x and 1.5x of
+   the capacity (goodput, sheds, late fires, the rate the requests left
+   at, whether the offered rate was realized; the 0.5x loop must realize
+   it); a rolling
+   reload to seed-1 weights under load (no request errors, at most one
+   replica draining in the transition log, every reply during the roll
+   within NET_TOL of exactly one of the two forwards on the rows where
+   they differ, every later one of the new); replica 0 killed mid-load
+   (its executor made to raise): no accepted request lost, one DEAD
+   replica; K4 launches exactly 2 x the replicas' forwards (counters
+   zeroed before the build, warm-ups included). (b) gpt_small
+   ``--generate`` (f32, max_seq 512) as 2 replicas: 32 prompts from 8
+   clients with greedy tokens equal to one GenerateExecutor's (that pass,
+   straight into the executor's scheduler, and the same prompts through
+   the socket to a 1-replica fleet, timed beside the fleet's waves), a
+   rolling reload to seed-1 weights, the same prompts again equal to the seed-1
+   executor's; K1 exactly 12 x the replicas' prefills; K1 against its
+   plain version at their prefill shapes is ``[flash_fwd]``'s "prefill"
+   cases, printed again. (c) ``serve --replicas 2 --devices 0,0 --watch
+   <prefix> --poll_s 0.5 --metrics_port 0`` as a child: a reply at the
+   seed-0 forward, a seed-1 ``<prefix>_iter_2.solverstate.npz`` and the
+   ``reload`` op, replies at the seed-1 forward, ``serving.replicas.0.*``
+   and ``.1.*`` rows on the metrics endpoint, exit 0 on SIGTERM with the
+   final stats line; then ``bench_serve --replicas 2 --offered_rps R``'s
+   JSON line; each child's K4 launches exactly 2 x its forwards.
 4. The training slice: full-width AlexNet (alexnet_train_val.prototxt and
    alexnet_solver.prototxt: batch 256, crop 227, mirror, mean file) trained
    by ``Engine.train()`` for TRAIN_ITERS steps from a synthetic
@@ -199,13 +234,15 @@ Phases, in order; any failure exits non-zero without the final ``ok`` line:
    launches a rank (ring: rank r runs r + 1 of K1 forward and of K2 and K3
    backward; Ulysses one each), the card ms of each rank's ring forward
    and backward beside the one-device flash; (b) gpt_small at full width
-   and depth (remat on), f32, global batch 4 x 1024: the one-device step
+   and LMP_LAYERS of its 12 layers (remat on), f32, global batch 4 x
+   1024: the one-device step
    (the control, rank 0), then sp2 (data 1 x seq 2), tp2 (data 1 x model
    2) and sp2xtp2 (data 1 x seq 2 x model 2), each from the control's
    weights, a warm-up and LMP_STEPS steps: after step 1 the loss within
    LMP_LOSS_RTOL and every leaf within LMP_TOL of the control's, after
-   the last the max abs difference; exact K1-K3 launches a rank (24 (r+1)
-   K1 and 12 (r+1) K2 and K3 a step at seq index r; 24/12/12 under tp);
+   the last the max abs difference; exact K1-K3 launches a rank (2 L
+   (r+1) K1 and L (r+1) K2 and K3 a step at seq index r, L the layers;
+   2L/L/L under tp);
    the wall a step, the peak memory a rank and the bytes a rank sends a
    step by kind (ring K/V, ring dK/dV, tp all-reduces, gradient
    all-reduces); (c) two ``train_lm --mode sp --par_axis 2`` and two
@@ -214,9 +251,10 @@ Phases, in order; any failure exits non-zero without the final ``ok`` line:
    tok/s, each rank's launches.
 11. ``[lm_pp_ep]``, LM pipeline and expert parallelism, every rank a gloo
    process sharing the card (a correctness path): one job of LPE_RANKS
-   ranks runs (a) gpt_small at full width and depth (remat on), f32,
-   global batch 4 x 1024: the one-device step (the control, rank 0), then
-   pp2 (data 1 x stage 2, 6 layers a stage, LPE_MICRO microbatches) and
+   ranks runs (a) gpt_small at full width and LMP_LAYERS layers (remat
+   on), f32, global batch 4 x 1024: the one-device step (the control,
+   rank 0), then pp2 (data 1 x stage 2, half the layers a stage,
+   LPE_MICRO microbatches) and
    pp2xtp2 (data 1 x stage 2 x model 2), each from the control's weights
    (``pp_shard`` of ``to_pp_layout``), a warm-up and LMP_STEPS steps:
    after step 1 the loss within LMP_LOSS_RTOL and every leaf within
@@ -241,8 +279,8 @@ Phases, in order; any failure exits non-zero without the final ``ok`` line:
    digits solver (1000 iterations, real UCI digits from the repo) into a
    temporary directory; the final test accuracy must reach DIGITS_MIN_ACC.
 13. One JSON line with every kernel's numbers (launches by path, ``dp``,
-    ``topk``, ``loop``, ``lm_par_*`` and ``lm_pp_ep_*`` among them), then
-    the ``ok`` line.
+    ``topk``, ``loop``, ``lm_par_*``, ``lm_pp_ep_*`` and ``fleet_cnn``,
+    ``fleet_generate``, ``fleet_cli`` among them), then the ``ok`` line.
 """
 
 from __future__ import annotations
@@ -342,7 +380,8 @@ LM_CORPUS_GENERATE = 48
 # Ulysses over a seq group of 2 at gpt_small's attention shape, a rank's
 # block LMP_ATT_SHAPE (a global sequence of 1024), causal, f32 and bf16,
 # against the flash kernels and the plain versions on the gathered
-# sequence; (b) gpt_small at full width and depth (remat on), f32, global
+# sequence; (b) gpt_small at full width and LMP_LAYERS layers (remat on),
+# f32, global
 # batch LMP_BATCH x LMP_SEQ, seeded as [lm_train], the one-device step (the
 # control) and each of LMP_ARMS from the control's weights: a warm-up
 # step, then LMP_STEPS steps from the same weights; (c) two `train_lm
@@ -351,6 +390,10 @@ LMP_RANKS = 4
 LMP_ATT_SHAPE = (4, 12, 512, 64)
 LMP_ATT_SHAPE_TINY = (1, 4, 64, 16)     # a CPU rehearsal's
 LMP_BATCH, LMP_SEQ, LMP_STEPS = 4, 1024, 3
+# the depth of (b), of [lm_pp_ep]'s (a) and (b) and of both phases' CLI
+# ranks: gpt_small's width at half its 12 layers, cut to keep the whole
+# smoke inside 1000 s of its 1200 s limit (1032 s at 12 on one H100)
+LMP_LAYERS = 6
 LMP_ARMS = {"sp2": (("data", "seq"), (1, 2), "sp"),
             "tp2": (("data", "model"), (1, 2), "tp"),
             "sp2xtp2": (("data", "seq", "model"), (1, 2, 2), "tp")}
@@ -373,7 +416,8 @@ LMP_BF16_ATOL_SHARE = 2 ** -7
 # (c) at gpt_small's width: the script's default lr 0.05 (sized for its
 # d 128) diverges there (read on the card: 5.84 -> 15.68 in 6 steps);
 # 0.005 falls smoothly (on the CPU at seq 128: 5.98 -> 3.73)
-LMP_CLI_ARGS = ("--d_model", "768", "--n_heads", "12", "--n_layers", "12",
+LMP_CLI_ARGS = ("--d_model", "768", "--n_heads", "12",
+                "--n_layers", str(LMP_LAYERS),
                 "--seq", "1024", "--batch", "4", "--steps", "6",
                 "--display", "2", "--remat", "--lr", "0.005")
 LMP_TIMEOUT_S = 600
@@ -405,6 +449,44 @@ LPE_TIMEOUT_S = 600
 
 # whole-net comparisons (rtol, atol) on prob and every blob
 NET_TOL = (1e-4, 1e-6)
+# the [fleet] phase, the serving fleet on the card: (a) AlexNet deploy as
+# FLEET_REPLICAS replicas on cuda:0 (`build_serving_fleet`, devices 0,0,0,
+# buckets 1/4/16/64, seeded filler weights) behind InferenceServer(fleet=),
+# each replica's batcher admitting FLEET_MAX_QUEUE requests so that an
+# overloaded fleet sheds: every bucket's reply from each replica; bucket-64
+# closed loops of FLEET_CLOSED_REQUESTS at FLEET_CLOSED_CLIENTS clients (1
+# and 2 as [slice]'s engine runs, FLEET_REPLICAS, and two a replica); open
+# loops, each planned for FLEET_OPEN_S from 2 x rate x the deepest closed
+# loop's p99 clients (at most FLEET_OPEN_MAX_CLIENTS): probes at
+# FLEET_PROBE_LOADS x the best closed loop up to the first that sheds, the
+# best goodput of the closed loops and probes the capacity, then
+# FLEET_OPEN_LOADS of the capacity; a rate is realized if at most
+# FLEET_OPEN_LATE_SHARE of the requests fired late and they left at 0.95
+# of it or more (the 0.5x loop must realize it); a rolling reload to
+# seed-1 weights under FLEET_ROLL_CLIENTS clients; replica 0 killed (its executor made to raise) under a closed loop of
+# FLEET_KILL_REQUESTS. (b) gpt_small --generate (f32, max_seq 512) as
+# FLEET_LM_REPLICAS replicas: FLEET_LM_REQUESTS prompts from LM_CLIENTS
+# clients (max_new FLEET_LM_MAX_NEW), a rolling reload to seed-1 weights,
+# the same prompts again, all beside one executor's scheduler and a
+# 1-replica fleet on the same prompts. (c) `serve --replicas 2 --devices 0,0 --watch
+# <prefix> --poll_s 0.5 --metrics_port 0` and `bench_serve --replicas 2
+# --offered_rps R` as subprocesses.
+FLEET_REPLICAS = 3
+FLEET_MAX_QUEUE = 4
+FLEET_CLOSED_REQUESTS = 60
+FLEET_CLOSED_CLIENTS = (1, 2, 3, 6)
+FLEET_PROBE_LOADS = (1.5, 2.0, 3.0)
+FLEET_OPEN_LOADS = (0.5, 1.5)
+FLEET_OPEN_S = 3.0
+FLEET_OPEN_MAX_CLIENTS = 64
+FLEET_OPEN_LATE_SHARE = 0.05
+FLEET_ROLL_CLIENTS = 3
+FLEET_KILL_REQUESTS = 60
+FLEET_LM_REPLICAS = 2
+FLEET_LM_REQUESTS = 32
+FLEET_LM_MAX_NEW = 16
+FLEET_CLI_REQUESTS = 40
+FLEET_TIMEOUT_S = 300
 # a training step with the kernels vs the same step with the plain versions
 # on the card: the loss and every updated parameter; cuDNN's backward
 # algorithms may sum in another order from one call to the next
@@ -478,7 +560,10 @@ LAUNCH_REPORT = (
 # runs both arms for SPMD_TP_GATE_ITERS iterations, at once, and both arms
 # in one pair of processes (spmd_tp_pair). (d) in this process, K7
 # on AlexNet's shard-major fsdp shards for each of SPMD_FSDP and at
-# tp2's two lengths.
+# tp2's two lengths. The pairs run two at a time (four gloo processes on
+# the card): fsdp2 beside its control, spmd_tp_pair beside (c), each tp2
+# run beside its control, so their walls a step are read under
+# contention.
 SPMD_CLI_BATCH, SPMD_CLI_ITERS = 128, 6
 SPMD_FSDP = (2, 4)
 # tp shards re-associate the FC contractions (cuBLAS blocks an (M/2, K)
@@ -1305,7 +1390,7 @@ def sync(device) -> None:
 def phase_slice(card: str, device=None,
                 load_requests: int = LOAD_REQUESTS):
     """The serving path on the card; returns (LRN launches in the run,
-    the executor)."""
+    the executor, the bucket-64 runs at one client and at two)."""
     import numpy as np
     import torch
     from poseidon_tpu_torch.serving.client import ServingClient, run_load
@@ -1333,10 +1418,14 @@ def phase_slice(card: str, device=None,
         finally:
             cli.close()
         big = requests[64]
+        c0 = server.batcher.latency.count
         solo = run_load(server.addr, lambda i: {"data": big},
                         n_requests=load_requests, concurrency=1)
+        solo["server"] = window_tail(server.batcher.latency, c0)
+        c0 = server.batcher.latency.count
         load = run_load(server.addr, lambda i: {"data": big},
                         n_requests=load_requests, concurrency=2)
+        load["server"] = window_tail(server.batcher.latency, c0)
     finally:
         server.shutdown()
     sync(ex.device)
@@ -1358,7 +1447,8 @@ def phase_slice(card: str, device=None,
         print(f"[slice] bucket 64 via socket, concurrency "
               f"{run['concurrency']}, {run['requests']} requests in "
               f"{run['wall_s']:.3f} s: p50 {run['p50_ms']} ms, p99 "
-              f"{run['p99_ms']} ms, {img_s:.1f} img/s [{card}]", flush=True)
+              f"{run['p99_ms']} ms, {img_s:.1f} img/s; batcher p50 "
+              f"{run['server']['p50_ms']} ms [{card}]", flush=True)
 
     # replies vs a direct forward of the same rows on the card
     rtol, atol = NET_TOL
@@ -1379,7 +1469,7 @@ def phase_slice(card: str, device=None,
               f"{err:.3e}", flush=True)
         check(bool(np.allclose(prob, direct, rtol=rtol, atol=atol)),
               f"reply of {n} rows disagrees with a direct forward: {err}")
-    return launches, ex, solo
+    return launches, ex, solo, load
 
 
 def phase_net_checks(ex) -> float:
@@ -1473,6 +1563,720 @@ def phase_breakdown(ex, card: str, p50_socket_ms: float) -> None:
     for name, us in sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]:
         print(f"  {us / 1e3:8.3f} ms {100 * us / busy:5.1f}%  {name[:90]}",
               flush=True)
+
+
+def fleet_forward(net, params, x):
+    """prob of a direct forward of ``x`` through ``net`` at ``params``."""
+    import torch
+    with torch.inference_mode():
+        return net({"data": torch.from_numpy(x).to(net.device)},
+                   params)["prob"].float().cpu().numpy()
+
+
+def fleet_which(prob, old, new, rows) -> str:
+    """"old" or "new": which params' forward ``prob`` matches at NET_TOL
+    on ``rows`` (rows where the two forwards differ beyond it); anything
+    else (both, neither) fails the run."""
+    import numpy as np
+    rtol, atol = NET_TOL
+    is_old = bool(np.allclose(prob[rows], old[rows], rtol=rtol, atol=atol))
+    is_new = bool(np.allclose(prob[rows], new[rows], rtol=rtol, atol=atol))
+    check(is_old != is_new, f"a reply matches {'both' if is_old else 'neither'}"
+                            f" of the old and new params' forwards")
+    return "old" if is_old else "new"
+
+
+def window_tail(win, count0: int) -> dict:
+    """p50/p99/mean (ms) of what a LatencyWindow recorded after its count
+    stood at ``count0``: the server's side of one load run."""
+    from poseidon_tpu_torch.runtime.metrics import LatencyWindow
+    new = win.count - count0
+    samples = win.samples()
+    check(0 < new <= len(samples), f"{new} new samples in a window of "
+                                   f"{len(samples)}")
+    tail = LatencyWindow()
+    for v in samples[len(samples) - new:]:
+        tail.record(v)
+    return tail.summary()
+
+
+def fleet_max_draining(transitions) -> int:
+    """The most replicas DRAINING at once, read from the transition log."""
+    draining = most = 0
+    for _, old, new in transitions:
+        if new == "DRAINING":
+            draining += 1
+        elif old == "DRAINING":
+            draining -= 1
+        most = max(most, draining)
+    return most
+
+
+def fleet_cnn(card: str, dev, model: str, slice_runs) -> dict:
+    """(a) of the FLEET_* comment."""
+    import numpy as np
+    import torch
+    from poseidon_tpu_torch.core.net import Net
+    from poseidon_tpu_torch.proto.messages import load_net
+    from poseidon_tpu_torch.runtime.cli import build_serving_fleet
+    from poseidon_tpu_torch.serving.client import ServingClient, run_load
+    from poseidon_tpu_torch.serving.fleet import DEAD
+    from poseidon_tpu_torch.serving.server import InferenceServer
+
+    on_card = dev.type == "cuda"
+    ref_net = Net(load_net(model), "TEST", device=dev)
+    row_shape = tuple(ref_net.blob_shapes["data"][1:])
+    per_forward = (sum(l.TYPE == "LRN" for l in ref_net.layers)
+                   if on_card else 0)
+    rs = np.random.RandomState(3)
+    reqs = {n: rs.randn(n, *row_shape).astype(np.float32) for n in BUCKETS}
+    big = reqs[BUCKETS[-1]]
+    p_old = ref_net.init(torch.Generator().manual_seed(0))
+    want = {n: fleet_forward(ref_net, p_old, x) for n, x in reqs.items()}
+    p_new = ref_net.init(torch.Generator().manual_seed(1))
+    big_new = fleet_forward(ref_net, p_new, big)
+    new_host = {l: {k: v.cpu().numpy() for k, v in d.items()}
+                for l, d in p_new.items()}
+    rtol, atol = NET_TOL
+    rows = ~np.all(np.isclose(big_new, want[BUCKETS[-1]], rtol=rtol,
+                              atol=atol), axis=1)
+    check(int(rows.sum()) >= BUCKETS[-1] // 2,
+          f"seed 0 and seed 1 agree on {BUCKETS[-1] - int(rows.sum())} of "
+          f"{BUCKETS[-1]} rows: the roll could not tell them apart")
+    name = ref_net.name or "net"
+    del ref_net, p_old, p_new
+    if on_card:
+        torch.cuda.empty_cache()
+
+    transitions, tr_lock = [], threading.Lock()
+
+    def observer(index, old, new, reason):
+        with tr_lock:
+            transitions.append((index, old, new))
+
+    zero_launches()
+    t0 = time.perf_counter()
+    mgr = build_serving_fleet(
+        model, "", ",".join(map(str, BUCKETS)), FLEET_REPLICAS,
+        devices_spec=",".join("0" * FLEET_REPLICAS) if on_card else "",
+        max_delay_s=0.002, max_queue=FLEET_MAX_QUEUE,
+        device="" if on_card else "cpu", on_transition=observer)
+    build_s = time.perf_counter() - t0
+    server = InferenceServer(fleet=mgr)
+    out = {"replicas": FLEET_REPLICAS, "max_queue": FLEET_MAX_QUEUE,
+           "build_s": build_s, "net": name}
+    try:
+        labels = [rep.device_label for rep in mgr.replicas]
+        print(f"[fleet] (a) {FLEET_REPLICAS} {name} replicas on {labels}, "
+              f"buckets {BUCKETS}, built and warmed in {build_s:.2f} s",
+              flush=True)
+        worst = 0.0
+        for rep in mgr.replicas:
+            for n, x in reqs.items():
+                got = rep.batcher.submit({"data": x})["prob"]
+                err = float(np.abs(got - want[n]).max())
+                worst = max(worst, err)
+                check(bool(np.allclose(got, want[n], rtol=rtol, atol=atol)),
+                      f"replica {rep.index}, {n} rows: reply vs direct "
+                      f"forward {err}")
+        print(f"[fleet] (a) replies of {list(BUCKETS)} rows from each "
+              f"replica vs a direct forward: max_abs {worst:.3e} (rtol "
+              f"{rtol:g}, atol {atol:g})", flush=True)
+        out["reply_max_abs"] = worst
+
+        def routed():
+            return [rep.routed for rep in mgr.replicas]
+
+        closed = {}
+        rep0 = mgr.replicas[0].batcher
+        for conc in FLEET_CLOSED_CLIENTS:
+            before = routed()
+            door0, rep00 = mgr.latency.count, rep0.latency.count
+            run = run_load(server.addr, lambda i: {"data": big},
+                           n_requests=FLEET_CLOSED_REQUESTS,
+                           concurrency=conc)
+            spread = [a - b for a, b in zip(routed(), before)]
+            check(run["ok"] == FLEET_CLOSED_REQUESTS,
+                  f"closed loop at {conc}: {run}")
+            run["routed"] = spread
+            run["img_s"] = BUCKETS[-1] * run["ok"] / run["wall_s"]
+            # where a request's time goes: the front door (route, submit,
+            # reply) and replica 0's batcher (queue + forward)
+            run["door"] = window_tail(mgr.latency, door0)
+            run["replica0"] = (window_tail(rep0.latency, rep00)
+                               if spread[0] else None)
+            closed[conc] = run
+            print(f"[fleet] (a) bucket {BUCKETS[-1]}, {FLEET_REPLICAS} "
+                  f"replicas, closed loop at {conc} client(s), "
+                  f"{run['requests']} requests in {run['wall_s']:.3f} s: "
+                  f"p50 {run['p50_ms']} ms, p99 {run['p99_ms']} ms, "
+                  f"{run['img_s']:.1f} img/s, {run['goodput_rps']:.2f} req/s, "
+                  f"routed {spread}; front door p50 {run['door']['p50_ms']} "
+                  f"ms, replica 0's batcher p50 "
+                  f"{(run['replica0'] or {}).get('p50_ms')} ms [{card}]",
+                  flush=True)
+        check(all(n > 0 for n in closed[FLEET_REPLICAS]["routed"]),
+              f"a concurrency-{FLEET_REPLICAS} load left a replica out: "
+              f"{closed[FLEET_REPLICAS]['routed']}")
+        for run in slice_runs:
+            conc = run["concurrency"]
+            if conc not in closed:
+                continue
+            mine = closed[conc]
+            print(f"[fleet] (a) at concurrency {conc}, [slice]'s one engine "
+                  f"in this run: p50 {run['p50_ms']} ms, p99 "
+                  f"{run['p99_ms']} ms, "
+                  f"{BUCKETS[-1] * run['ok'] / run['wall_s']:.1f} img/s, "
+                  f"batcher p50 {run['server']['p50_ms']} ms; the fleet: "
+                  f"p50 {mine['p50_ms']} ms, p99 {mine['p99_ms']} ms, "
+                  f"{mine['img_s']:.1f} img/s, front door p50 "
+                  f"{mine['door']['p50_ms']} ms, replica 0's batcher p50 "
+                  f"{(mine['replica0'] or {}).get('p50_ms')} ms [{card}]",
+                  flush=True)
+        out["closed"] = {str(k): v for k, v in closed.items()}
+        best = max(run["goodput_rps"] for run in closed.values())
+        p99_s = closed[FLEET_CLOSED_CLIENTS[-1]]["p99_ms"] / 1e3
+
+        def open_loop(rate):
+            """One open loop at ``rate`` req/s for FLEET_OPEN_S, from
+            enough clients that each request's slot finds one free (twice
+            the rate times the deepest closed loop's p99)."""
+            n = max(12, int(rate * FLEET_OPEN_S))
+            clients = min(FLEET_OPEN_MAX_CLIENTS,
+                          max(FLEET_REPLICAS, math.ceil(2 * rate * p99_s)))
+            fired = []
+
+            def fire(i):
+                fired.append(time.monotonic())
+                return {"data": big}
+
+            run = run_load(server.addr, fire, n_requests=n,
+                           concurrency=clients, offered_rps=rate)
+            check(run["error"] == 0 and run["ok"] + run["shed"]
+                  + run["deadline"] == n and run["ok"] > 0,
+                  f"open loop at {rate:.2f} req/s: {run}")
+            # the rate the requests left at, first fire to last
+            span = max(fired) - min(fired)
+            run["fired_rps"] = (n - 1) / span if span > 0 else 0.0
+            run["realized"] = bool(
+                run["late_fires"] <= FLEET_OPEN_LATE_SHARE * n
+                and run["fired_rps"] >= 0.95 * rate)
+            return run
+
+        def open_line(label, run):
+            print(f"[fleet] (a) open loop {label} ({run['offered_rps']:.2f} "
+                  f"offered, {run['requests']} requests, "
+                  f"{run['concurrency']} clients): goodput "
+                  f"{run['goodput_rps']:.2f} req/s "
+                  f"({BUCKETS[-1] * run['goodput_rps']:.1f} img/s), fired "
+                  f"at {run['fired_rps']:.2f} req/s, achieved "
+                  f"{run['achieved_rps']:.2f} (tail included), shed "
+                  f"{run['shed']}, late fires {run['late_fires']}, p50 "
+                  f"{run['p50_ms']} ms, p99 {run['p99_ms']} ms; offered "
+                  f"rate realized: {run['realized']} [{card}]", flush=True)
+
+        # capacity: the best goodput at any load measured here, closed loops
+        # and open-loop probes at rising rates above the best closed loop
+        # up to the first that sheds (closed loops move in convoys and may
+        # not saturate the fleet; past saturation goodput collapses, since
+        # a shed request's 40 MB is read all the same); a lower bound
+        # unless a probe shed
+        probes = []
+        for load in FLEET_PROBE_LOADS:
+            run = open_loop(load * best)
+            probes.append(run)
+            open_line(f"probe at {load}x the best closed loop's {best:.2f} "
+                      f"req/s", run)
+            if run["shed"]:
+                break
+        capacity = max(best, *(run["goodput_rps"] for run in probes))
+        saturated = probes[-1]["shed"] > 0
+        print(f"[fleet] (a) capacity {capacity:.2f} req/s, the best goodput "
+              f"of the closed loops and probes; saturated (a probe shed): "
+              f"{saturated}", flush=True)
+        out.update(capacity_rps=capacity, saturated=saturated, probes=probes,
+                   open={})
+        for frac in FLEET_OPEN_LOADS:
+            run = open_loop(frac * capacity)
+            out["open"][str(frac)] = run
+            open_line(f"at {frac}x of {capacity:.2f} req/s", run)
+        check(out["open"][str(FLEET_OPEN_LOADS[0])]["realized"],
+              f"the open loop at {FLEET_OPEN_LOADS[0]}x did not realize its "
+              f"rate: {out['open'][str(FLEET_OPEN_LOADS[0])]}")
+
+        # the rolling reload under load
+        replies, errors, stop = [], [], threading.Event()
+        rep_lock = threading.Lock()
+
+        def hammer():
+            cli = ServingClient(server.addr)
+            try:
+                while not stop.is_set():
+                    t_sub = time.monotonic()
+                    try:
+                        prob = cli.infer({"data": big})["prob"]
+                    except Exception as e:  # noqa: BLE001 — checked below
+                        errors.append(e)
+                        return
+                    with rep_lock:
+                        replies.append((t_sub, time.monotonic(), prob))
+            finally:
+                cli.close()
+
+        def wait_replies(cond, what):
+            t_end = time.monotonic() + FLEET_TIMEOUT_S
+            while not cond() and not errors:
+                check(time.monotonic() < t_end, what)
+                time.sleep(0.005)
+
+        threads = [threading.Thread(target=hammer, daemon=True)
+                   for _ in range(FLEET_ROLL_CLIENTS)]
+        for t in threads:
+            t.start()
+        try:
+            wait_replies(lambda: len(replies) >= 6, "no replies before "
+                                                    "the roll")
+            t_roll0 = time.monotonic()
+            swapped = mgr.rolling_reload(new_host)
+            t_roll1 = time.monotonic()
+            wait_replies(lambda: sum(r[0] > t_roll1 for r in replies) >= 6,
+                         "no replies after the roll")
+        finally:
+            stop.set()
+            for t in threads:
+                t.join(timeout=FLEET_TIMEOUT_S)
+        check(not errors, f"a request failed during the roll: {errors[:1]}")
+        kinds = {"before": {"old": 0, "new": 0},
+                 "during": {"old": 0, "new": 0},
+                 "after": {"old": 0, "new": 0}}
+        for t_sub, t_done, prob in replies:
+            when = ("before" if t_done < t_roll0 else
+                    "after" if t_sub > t_roll1 else "during")
+            kinds[when][fleet_which(prob, want[BUCKETS[-1]], big_new,
+                                    rows)] += 1
+        most = fleet_max_draining(transitions)
+        print(f"[fleet] (a) rolling reload to seed-1 weights under "
+              f"{FLEET_ROLL_CLIENTS} clients: {swapped} replicas swapped in "
+              f"{t_roll1 - t_roll0:.3f} s, {len(replies)} replies, none "
+              f"failed (old/new before {kinds['before']}, during "
+              f"{kinds['during']}, after {kinds['after']}; each checked on "
+              f"the {int(rows.sum())} rows where the two differ); at most "
+              f"{most} replica draining in the transition log, witness "
+              f"{mgr.max_concurrent_draining} [{card}]", flush=True)
+        check(swapped == FLEET_REPLICAS, f"{swapped} replicas swapped")
+        check(kinds["before"]["new"] == 0 and kinds["after"]["old"] == 0,
+              f"replies on the wrong params around the roll: {kinds}")
+        check(most == 1 and mgr.max_concurrent_draining == 1,
+              f"{most} replicas draining at once")
+        out["roll"] = {"swapped": swapped, "s": t_roll1 - t_roll0,
+                       "replies": kinds, "max_draining": most}
+
+        # replica 0 killed mid-load
+        victim = mgr.replicas[0].executor
+        die = threading.Event()
+        real_infer = victim.infer
+
+        def infer(inputs):
+            if die.is_set():
+                raise RuntimeError("replica killed by the smoke")
+            return real_infer(inputs)
+
+        victim.infer = infer
+        box = {}
+        loader = threading.Thread(target=lambda: box.update(run=run_load(
+            server.addr, lambda i: {"data": big},
+            n_requests=FLEET_KILL_REQUESTS, concurrency=FLEET_REPLICAS)),
+            daemon=True)
+        routed0 = mgr.routed_total
+        loader.start()
+        t_end = time.monotonic() + FLEET_TIMEOUT_S
+        while mgr.routed_total - routed0 < FLEET_KILL_REQUESTS // 4:
+            check(time.monotonic() < t_end, "the kill's load never started")
+            time.sleep(0.002)
+        die.set()
+        loader.join(timeout=FLEET_TIMEOUT_S)
+        run = box["run"]
+        states = mgr.state_counts()
+        print(f"[fleet] (a) replica 0 killed mid-load ({FLEET_KILL_REQUESTS} "
+              f"requests, {FLEET_REPLICAS} clients): ok {run['ok']}, shed "
+              f"{run['shed']}, deadline {run['deadline']}, errors "
+              f"{run['error']}; states {states}, deaths {mgr.deaths}, "
+              f"failovers {mgr.failovers}; p99 {run['p99_ms']} ms [{card}]",
+              flush=True)
+        check(run["error"] == 0 and run["deadline"] == 0
+              and run["ok"] + run["shed"] == FLEET_KILL_REQUESTS,
+              f"the kill lost an accepted request: {run}")
+        check(states[DEAD] == 1 and mgr.deaths == 1,
+              f"the killed replica is not DEAD: {states}")
+        out["kill"] = {**run, "states": states, "failovers": mgr.failovers}
+        out["stats"] = {k: v for k, v in server.stats_snapshot().items()
+                        if k != "replicas"}
+    finally:
+        server.shutdown()
+    sync(dev)
+    counts = read_launches()
+    forwards = sum(rep.executor.forwards for rep in mgr.replicas)
+    k4 = counts["lrn_fwd"] + counts["lrn_fwd_nhwc"]
+    print(f"[fleet] (a) {forwards} forwards over the replicas "
+          f"({[rep.executor.forwards for rep in mgr.replicas]}, warm-ups "
+          f"included); launches {counts} (K4 expected {per_forward} x "
+          f"{forwards})", flush=True)
+    check(k4 == per_forward * forwards,
+          f"K4 launched {k4} times for {forwards} forwards")
+    check(all(v == 0 for k, v in counts.items()
+              if k not in ("lrn_fwd", "lrn_fwd_nhwc")),
+          f"the CNN fleet launched a kernel of another path: {counts}")
+    out.update(launches=counts, forwards=forwards)
+    return out
+
+
+def fleet_lm_tokens(addr_or_sched, prompts, clients: int) -> list:
+    """Greedy tokens of every prompt (max_new FLEET_LM_MAX_NEW), from
+    ``clients`` threads: through a socket address, or straight into a
+    scheduler."""
+    from poseidon_tpu_torch.serving.client import ServingClient
+    out = [None] * len(prompts)
+    errors = []
+    nxt = {"v": 0}
+    lock = threading.Lock()
+
+    def worker():
+        cli = (ServingClient(addr_or_sched)
+               if isinstance(addr_or_sched, tuple) else None)
+        try:
+            while True:
+                with lock:
+                    i = nxt["v"]
+                    if i >= len(prompts):
+                        return
+                    nxt["v"] = i + 1
+                try:
+                    if cli is not None:
+                        r = cli.generate(prompts[i], max_new=FLEET_LM_MAX_NEW)
+                    else:
+                        r = addr_or_sched.submit(
+                            {"prompt": prompts[i],
+                             "max_new": FLEET_LM_MAX_NEW}, timeout_s=300)
+                    out[i] = [int(t) for t in r["tokens"]]
+                except Exception as e:  # noqa: BLE001 — checked below
+                    errors.append(e)
+        finally:
+            if cli is not None:
+                cli.close()
+
+    threads = [threading.Thread(target=worker, daemon=True)
+               for _ in range(clients)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=FLEET_TIMEOUT_S)
+    check(not errors, f"a generate request failed: {errors[:1]}")
+    return out
+
+
+def fleet_generate(card: str, dev, preset: str, k1_records) -> dict:
+    """(b) of the FLEET_* comment."""
+    from poseidon_tpu_torch.runtime.cli import (build_generate_executor,
+                                                build_generate_fleet)
+    from poseidon_tpu_torch.serving.server import InferenceServer
+
+    on_card = dev.type == "cuda"
+    want, new_host, one_s = [], None, []
+    for seed in (0, 1):
+        ref = build_generate_executor(preset, device=dev, seed=seed)
+        if seed == 0:
+            prompts = lm_traffic(ref, FLEET_LM_REQUESTS, seed=5)
+            n_layers = ref.cfg.n_layers
+        sched = ref.make_batcher(max_queue=FLEET_LM_REQUESTS)
+        try:
+            # the same traffic through one executor's scheduler, straight
+            # into it (no socket): the fleet's same-traffic baseline
+            t0 = time.perf_counter()
+            want.append(fleet_lm_tokens(sched, prompts, LM_CLIENTS))
+            one_s.append(time.perf_counter() - t0)
+        finally:
+            sched.close()
+        if seed == 1:
+            new_host = {n: {l: v.cpu() for l, v in d.items()}
+                        for n, d in ref._params.items()}
+        del ref
+    # and through the socket and the router to one replica: what the
+    # front door costs, apart from the second replica (outside the launch
+    # count below)
+    solo = build_generate_fleet(preset, 1, "0" if on_card else "",
+                                device="" if on_card else "cpu")
+    server = InferenceServer(fleet=solo)
+    try:
+        t0 = time.perf_counter()
+        got_solo = fleet_lm_tokens(server.addr, prompts, LM_CLIENTS)
+        solo_s = time.perf_counter() - t0
+    finally:
+        server.shutdown()
+    check(got_solo == want[0], "one generate replica's tokens differ from "
+                               "one executor's")
+    del solo
+    transitions, tr_lock = [], threading.Lock()
+
+    def observer(index, old, new, reason):
+        with tr_lock:
+            transitions.append((index, old, new))
+
+    t0 = time.perf_counter()
+    mgr = build_generate_fleet(
+        preset, FLEET_LM_REPLICAS,
+        ",".join("0" * FLEET_LM_REPLICAS) if on_card else "",
+        device="" if on_card else "cpu", on_transition=observer)
+    build_s = time.perf_counter() - t0
+    zero_launches()
+    server = InferenceServer(fleet=mgr)
+    try:
+        t0 = time.perf_counter()
+        got0 = fleet_lm_tokens(server.addr, prompts, LM_CLIENTS)
+        wave0_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        swapped = mgr.rolling_reload(new_host)
+        roll_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        got1 = fleet_lm_tokens(server.addr, prompts, LM_CLIENTS)
+        wave1_s = time.perf_counter() - t0
+        routed = [rep.routed for rep in mgr.replicas]
+    finally:
+        server.shutdown()
+    sync(dev)
+    counts = read_launches()
+    prefills = sum(rep.executor.prefills for rep in mgr.replicas)
+    per_prefill = n_layers if on_card else 0
+    same0 = sum(a == b for a, b in zip(got0, want[0]))
+    same1 = sum(a == b for a, b in zip(got1, want[1]))
+    most = fleet_max_draining(transitions)
+    tokens = FLEET_LM_REQUESTS * FLEET_LM_MAX_NEW
+    print(f"[fleet] (b) the same {FLEET_LM_REQUESTS} prompts from "
+          f"{LM_CLIENTS} clients straight into one executor's scheduler: "
+          f"{one_s[0]:.3f} s ({tokens / one_s[0]:.1f} tokens/s) at seed 0, "
+          f"{one_s[1]:.3f} s ({tokens / one_s[1]:.1f} tokens/s) at seed 1; "
+          f"through the socket to a 1-replica fleet {solo_s:.3f} s "
+          f"({tokens / solo_s:.1f} tokens/s, tokens equal) [{card}]",
+          flush=True)
+    print(f"[fleet] (b) {FLEET_LM_REPLICAS} {preset} generate replicas "
+          f"(built and warmed in {build_s:.2f} s), {FLEET_LM_REQUESTS} "
+          f"prompts from {LM_CLIENTS} clients, max_new {FLEET_LM_MAX_NEW}: "
+          f"wave 1 {wave0_s:.3f} s ({tokens / wave0_s:.1f} tokens/s), tokens "
+          f"equal to one executor's for {same0}/{FLEET_LM_REQUESTS}; rolling "
+          f"reload to seed-1 weights ({swapped} swapped in {roll_s:.3f} s, at "
+          f"most {most} draining); wave 2 {wave1_s:.3f} s "
+          f"({tokens / wave1_s:.1f} tokens/s), tokens equal to the seed-1 "
+          f"executor's for {same1}/{FLEET_LM_REQUESTS}; routed {routed} "
+          f"[{card}]", flush=True)
+    check(same0 == same1 == FLEET_LM_REQUESTS,
+          "generate replicas' tokens differ from one executor's")
+    check(want[0] != want[1], "seed 0 and seed 1 generate the same tokens")
+    check(swapped == FLEET_LM_REPLICAS and most == 1,
+          f"the generate roll: {swapped} swapped, {most} draining")
+    print(f"[fleet] (b) {prefills} prefills over the replicas "
+          f"({[rep.executor.prefills for rep in mgr.replicas]}); launches "
+          f"{counts} (flash_fwd expected {per_prefill} x {prefills})",
+          flush=True)
+    check(counts["flash_fwd"] == per_prefill * prefills,
+          f"flash_fwd launched {counts['flash_fwd']} times for {prefills} "
+          f"prefills")
+    check(all(v == 0 for k, v in counts.items() if k != "flash_fwd"),
+          f"the generate fleet launched a kernel of another path: {counts}")
+    prefill = [r for r in k1_records if r["case"].startswith("prefill ")]
+    if prefill:
+        print(f"[fleet] (b) K1 vs plain at these replicas' prefill shapes "
+              f"(the [flash_fwd] cases {[r['case'] for r in prefill]}): "
+              f"max_abs {max(r['max_abs_err'] for r in prefill):.3e} (rtol "
+              f"{FLASH_TOL['float32'][0]:g}, atol {FLASH_TOL['float32'][1]:g})",
+              flush=True)
+    return {"replicas": FLEET_LM_REPLICAS, "build_s": build_s,
+            "wave_s": [wave0_s, wave1_s], "roll_s": roll_s,
+            "tokens_per_s": [tokens / wave0_s, tokens / wave1_s],
+            "one_executor_tokens_per_s": [tokens / t for t in one_s],
+            "one_replica_tokens_per_s": tokens / solo_s,
+            "prefills": prefills, "launches": counts, "routed": routed}
+
+
+def fleet_child(cmd, here: str):
+    """Start a child with its output read line by line on a daemon thread;
+    returns (process, lines)."""
+    proc = subprocess.Popen(cmd, cwd=here, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    lines = []
+
+    def pump():
+        for line in proc.stdout:
+            lines.append(line.rstrip("\n"))
+
+    threading.Thread(target=pump, daemon=True).start()
+    return proc, lines
+
+
+def fleet_launches(lines, tag: str) -> dict:
+    found = [ln for ln in lines if ln.startswith("[launches] ")]
+    check(len(found) == 1, f"{tag}: no launch report")
+    return json.loads(found[0][len("[launches] "):])
+
+
+def fleet_cli(card: str, dev, root: str, model: str, rate: float) -> dict:
+    """(c) of the FLEET_* comment."""
+    import re
+    import signal
+    import urllib.request
+
+    import numpy as np
+    import torch
+    from poseidon_tpu_torch.core.net import Net
+    from poseidon_tpu_torch.parallel.trainer import init_train_state
+    from poseidon_tpu_torch.proto.messages import load_net
+    from poseidon_tpu_torch.runtime.checkpoint import snapshot
+    from poseidon_tpu_torch.serving.client import ServingClient
+
+    on_card = dev.type == "cuda"
+    here = os.path.dirname(os.path.abspath(__file__))
+    place = ["--devices", "0,0"] if on_card else ["--device", "cpu"]
+    buckets = ",".join(map(str, BUCKETS))
+    net = Net(load_net(model), "TEST", device=dev)
+    per_forward = (sum(l.TYPE == "LRN" for l in net.layers)
+                   if on_card else 0)
+    x = np.random.RandomState(4).randn(
+        4, *net.blob_shapes["data"][1:]).astype(np.float32)
+    p_old = net.init(torch.Generator().manual_seed(0))
+    want_old = fleet_forward(net, p_old, x)
+    p_new = net.init(torch.Generator().manual_seed(1))
+    want_new = fleet_forward(net, p_new, x)
+    prefix = os.path.join(root, "fleet_cli", "alexnet")
+    rtol, atol = NET_TOL
+    out = {}
+    t0 = time.perf_counter()
+    proc, lines = fleet_child(
+        [sys.executable, "-c", LAUNCH_REPORT, "serve", f"--model={model}",
+         "--buckets", buckets, "--replicas", "2", *place, "--watch", prefix,
+         "--poll_s", "0.5", "--metrics_port", "0"], here)
+    try:
+        port = metrics = None
+        t_end = time.monotonic() + FLEET_TIMEOUT_S
+        while not (port and metrics):
+            check(proc.poll() is None and time.monotonic() < t_end,
+                  "serve --replicas never logged its addresses: "
+                  + "\n".join(lines[-20:]))
+            for ln in list(lines):
+                m = re.search(r"listening on [\d.]+:(\d+) \(2 replicas\)",
+                              ln)
+                port = int(m.group(1)) if m else port
+                m = re.search(r"metrics endpoint on http://[\d.]+:(\d+)/",
+                              ln)
+                metrics = int(m.group(1)) if m else metrics
+            time.sleep(0.05)
+        up_s = time.perf_counter() - t0
+        cli = ServingClient(("127.0.0.1", port))
+        try:
+            got = cli.infer({"data": x})["prob"]
+            err_old = float(np.abs(got - want_old).max())
+            check(bool(np.allclose(got, want_old, rtol=rtol, atol=atol)),
+                  f"serve's reply vs the seed-0 forward {err_old}")
+            state = init_train_state(p_new)
+            snapshot(prefix, net, p_new,
+                     state._replace(solver=state.solver._replace(it=2)))
+            reply = cli.reload()
+            check(reply.get("ok") and str(reply.get("path")).endswith(
+                "alexnet_iter_2.solverstate.npz")
+                and reply.get("reload_generation") == 1,
+                  f"the reload op: {reply}")
+            got = cli.infer({"data": x})["prob"]
+            err_new = float(np.abs(got - want_new).max())
+            check(bool(np.allclose(got, want_new, rtol=rtol, atol=atol)),
+                  f"serve's reply after the reload vs the seed-1 forward "
+                  f"{err_new}")
+            cli.stats()
+        finally:
+            cli.close()
+        body = urllib.request.urlopen(f"http://127.0.0.1:{metrics}/",
+                                      timeout=30).read().decode()
+        rows = {i: sorted(ln.split("=")[0] for ln in body.splitlines()
+                          if ln.startswith(f"serving.replicas.{i}."))
+                for i in (0, 1)}
+        check(all(rows.values()), f"the metrics endpoint has no replica "
+                                  f"rows: {body[:400]}")
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=FLEET_TIMEOUT_S)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    time.sleep(0.2)                  # the pump's last lines
+    for ln in lines:
+        print(f"[fleet:serve] {ln}", flush=True)
+    check(rc == 0, f"serve exited {rc} on SIGTERM")
+    final = [ln for ln in lines if "serving_final_stats" in ln]
+    check(len(final) == 1, "serve printed no final stats line")
+    stats = json.loads(final[0])["serving_final_stats"]
+    serve_counts = fleet_launches(lines, "serve")
+    serve_fwd = 2 * len(BUCKETS) + stats["batches"]
+    print(f"[fleet] (c) `serve --replicas 2 {' '.join(place)} --watch "
+          f"--poll_s 0.5 --metrics_port 0` up in {up_s:.2f} s; reply vs "
+          f"seed-0 forward max_abs {err_old:.3e}, after the reload op (gen "
+          f"{stats['reload_generation']}, reloads {stats['reloads']}) vs "
+          f"seed-1 {err_new:.3e}; metrics rows a replica "
+          f"{[len(r) for r in rows.values()]}; SIGTERM exit {rc}; launches "
+          f"{serve_counts} (K4 expected {per_forward} x {serve_fwd}) "
+          f"[{card}]", flush=True)
+    check(serve_counts["lrn_fwd"] + serve_counts["lrn_fwd_nhwc"]
+          == per_forward * serve_fwd, "serve's K4 launches")
+
+    proc, lines = fleet_child(
+        [sys.executable, "-c", LAUNCH_REPORT, "bench_serve",
+         f"--model={model}", "--buckets", buckets, "--replicas", "2",
+         *place, "--offered_rps", f"{rate:.3f}", "--requests",
+         str(FLEET_CLI_REQUESTS), "--concurrency", "8", "--batch", "16"],
+        here)
+    rc = proc.wait(timeout=FLEET_TIMEOUT_S)
+    time.sleep(0.2)
+    for ln in lines:
+        print(f"[fleet:bench_serve] {ln}", flush=True)
+    check(rc == 0, f"bench_serve exited {rc}")
+    result = json.loads(next(ln for ln in lines
+                             if ln.startswith('{"metric"')))
+    bench_counts = fleet_launches(lines, "bench_serve")
+    bench_fwd = 2 * len(BUCKETS) + result["batches"]
+    print(f"[fleet] (c) `bench_serve --replicas 2 --offered_rps "
+          f"{rate:.3f}`: ok {result['ok']}, shed {result['shed']}, p50 "
+          f"{result['p50_ms']} ms, p99 {result['p99_ms']} ms, achieved "
+          f"{result['achieved_rps']:.2f} req/s, late fires "
+          f"{result['late_fires']}, routed {result['routing']}; launches "
+          f"{bench_counts} (K4 expected {per_forward} x {bench_fwd}) "
+          f"[{card}]", flush=True)
+    check(result["ok"] > 0, f"bench_serve: {result}")
+    check(bench_counts["lrn_fwd"] + bench_counts["lrn_fwd_nhwc"]
+          == per_forward * bench_fwd, "bench_serve's K4 launches")
+    out.update(serve_up_s=up_s, serve_stats_batches=stats["batches"],
+               bench=result, launches={k: serve_counts[k] + bench_counts[k]
+                                       for k in serve_counts})
+    return out
+
+
+def phase_fleet(card: str, k1_records=(), slice_runs=(), device=None,
+                model: str = ALEXNET, preset: str = LM_PRESET) -> dict:
+    """The serving fleet on the card: (a), (b) and (c) of the FLEET_*
+    comment. ``device``, ``model`` and ``preset`` are for a CPU rehearsal
+    only (a deploy net with a 'data' input and a 'prob' output)."""
+    from poseidon_tpu_torch.numeric import resolve_device
+
+    t0 = time.perf_counter()
+    dev = resolve_device(device)
+    cnn = fleet_cnn(card, dev, model, slice_runs)
+    gen = fleet_generate(card, dev, preset, k1_records)
+    with tempfile.TemporaryDirectory() as root:
+        cli = fleet_cli(card, dev, root, model, cnn["capacity_rps"])
+    out = {"cnn": cnn, "generate": gen, "cli": cli,
+           "launches": {"fleet_cnn": cnn["launches"],
+                        "fleet_generate": gen["launches"],
+                        "fleet_cli": cli["launches"]},
+           "wall_s": time.perf_counter() - t0}
+    print(f"[fleet] {cnn['net']} x{FLEET_REPLICAS} and {preset} "
+          f"x{FLEET_LM_REPLICAS} behind one door, rolled and killed with no "
+          f"request lost, the CLI's fleet, watch and metrics; phase wall "
+          f"{out['wall_s']:.1f} s [{card}]", flush=True)
+    return out
 
 
 def zero_launches() -> None:
@@ -3908,15 +4712,25 @@ def phase_spmd(card: str, root: str, device=None, cli_batch=None) -> dict:
               f"launches a rank {run_['launches'][0]} [{card}]", flush=True)
         return run_
 
+    # every pair of CLI runs below runs beside another pair (four gloo
+    # processes on the card): the walls a step are read under contention
+    from concurrent.futures import ThreadPoolExecutor
+
+    def together(*calls):
+        with ThreadPoolExecutor(len(calls)) as pool:
+            futures = [pool.submit(fn, *a, **kw) for fn, a, kw in calls]
+            return [f.result() for f in futures]
+
     # (a) fsdp2 against its replicated control
-    sh = arm("fsdp2", ("--mesh", "fsdp2"))
+    sh, rep = together(
+        (arm, ("fsdp2", ("--mesh", "fsdp2")), {}),
+        (arm, ("fsdp2_replicated", ("--mesh", "fsdp2,replicated")), {}))
     log0 = sh["logs"][0]
     line = next(ln for ln in log0.splitlines() if "spmd: " in ln)
     padded = int(line.split(" f32 (align 2)")[0].rsplit(" ", 1)[1])
     shard = int(line.split("the update over a ")[1].split("-f32")[0])
     print(f"[spmd] (a) {line.strip()} [{card}]", flush=True)
     check(shard * 2 == padded, f"K7 runs over {shard} of {padded} f32")
-    rep = arm("fsdp2_replicated", ("--mesh", "fsdp2,replicated"))
     a, b = (snapshot_arrays(r["state_path"]) for r in (sh, rep))
     same = sorted(a) == sorted(b) and all(np.array_equal(a[k], b[k])
                                           for k in a)
@@ -3955,28 +4769,31 @@ def phase_spmd(card: str, root: str, device=None, cli_batch=None) -> dict:
                              "label": (batch,)})
     tp_layouts = spmd.step_layouts(
         net, spmd.ShardingPlan.build(net, MeshConfig(tp=2)))[::2]
-    out["tp2_pair"] = spmd_tp_pair(card, root, dev, batch, iters,
-                                   [lay.padded_total for lay in tp_layouts])
-    # the short pair of CLI runs, both arms at once (no time is read):
-    # momentum carries into its second update
-    from concurrent.futures import ThreadPoolExecutor
+    # the pair of processes beside (c)'s SSP pair on the fsdp mesh, whose
+    # DENSE deltas reshard at the boundary
+    out["tp2_pair"], ssp = together(
+        (spmd_tp_pair, (card, root, dev, batch, iters,
+                        [lay.padded_total for lay in tp_layouts]), {}),
+        (arm, ("fsdp2_ssp", ("--mesh", "fsdp2", "--staleness", "2")), {}))
+    out["ssp_losses"] = ssp["losses"]
+    # the short pair of CLI runs, both arms at once: momentum carries into
+    # its second update
     n_gate = min(SPMD_TP_GATE_ITERS, iters)
-    with ThreadPoolExecutor(2) as pool:
-        tp1 = pool.submit(arm, f"tp2_{n_gate}", ("--mesh", "tp2"), k7=2,
-                          n=n_gate)
-        tpr1 = pool.submit(arm, f"tp2_replicated_{n_gate}",
-                           ("--mesh", "tp2,replicated"), n=n_gate)
-        tp1, tpr1 = tp1.result(), tpr1.result()
+    tp1, tpr1 = together(
+        (arm, (f"tp2_{n_gate}", ("--mesh", "tp2")), {"k7": 2, "n": n_gate}),
+        (arm, (f"tp2_replicated_{n_gate}", ("--mesh", "tp2,replicated")),
+         {"n": n_gate}))
     err1, outside1 = distance(tp1, tpr1, n_gate)
     check(not outside1, f"tp2 vs its replicated control after {n_gate} "
                         f"iterations: {outside1}")
-    tp = arm("tp2", ("--mesh", "tp2"), k7=2)
+    tp, tpr = together(
+        (arm, ("tp2", ("--mesh", "tp2")), {"k7": 2}),
+        (arm, ("tp2_replicated", ("--mesh", "tp2,replicated")), {}))
     plan_line = next(ln for ln in tp["logs"][0].splitlines()
                      if "sharding plan:" in ln)
     print(f"[spmd] (b) {plan_line.strip()} [{card}]", flush=True)
     check("tp {'fc6': 'column', 'fc7': 'column', 'fc8': 'column'}"
           in plan_line, "tp2 plan")
-    tpr = arm("tp2_replicated", ("--mesh", "tp2,replicated"))
     err, outside = distance(tp, tpr, iters)
     losses_ok = bool(np.allclose(tp["losses"], tpr["losses"],
                                  rtol=SPMD_TP_LOSS_RTOL, atol=0))
@@ -3992,10 +4809,6 @@ def phase_spmd(card: str, root: str, device=None, cli_batch=None) -> dict:
           f"[{card}]", flush=True)
     out.update(tp2_max_abs_gate=err1, tp2_max_abs=err,
                tp2_outside=outside, tp2_plan=plan_line.strip())
-
-    # (c) SSP on the fsdp mesh: the DENSE deltas reshard at the boundary
-    ssp = arm("fsdp2_ssp", ("--mesh", "fsdp2", "--staleness", "2"))
-    out["ssp_losses"] = ssp["losses"]
 
     # (d) K7 on the shards and at tp2's lengths, and the sharded state's
     # bytes a rank
@@ -4633,10 +5446,14 @@ def phase_lm_timing(ex, card: str) -> dict:
             "prefill_flash_ms": prefill_flash, "decode": decode}
 
 
-def lm_train_setup(preset: str, batch: int, seq: int, device):
-    """(cfg, solver, params, tokens, targets): gpt_small (or the tiny preset
-    of a CPU rehearsal) with seeded weights, the SGD solver of bench.py's
-    lm block, and seeded tokens and targets (RandomState(1), as there)."""
+def lm_train_setup(preset: str, batch: int, seq: int, device,
+                   n_layers: int = 0):
+    """(cfg, solver, params, tokens, targets): gpt_small (``n_layers`` of
+    its layers when given, or the tiny preset of a CPU rehearsal) with
+    seeded weights, the SGD solver of bench.py's lm block, and seeded
+    tokens and targets (RandomState(1), as there)."""
+    import dataclasses
+
     import numpy as np
     import torch
     from poseidon_tpu_torch.models import transformer as tfm
@@ -4644,6 +5461,8 @@ def lm_train_setup(preset: str, batch: int, seq: int, device):
 
     if preset == "gpt_small":
         cfg = tfm.gpt_small_config(max_seq=seq)
+        if n_layers:
+            cfg = dataclasses.replace(cfg, n_layers=n_layers)
     else:
         cfg = tfm.TransformerConfig(vocab_size=512, d_model=64, n_heads=2,
                                     n_layers=2, d_ff=128, max_seq=seq,
@@ -5201,7 +6020,7 @@ def lmp_steps(card: str, rank: int, dev, preset: str) -> dict:
 
     on_card = dev.type == "cuda"
     cfg, sp, params0, toks, tgts = lm_train_setup(preset, LMP_BATCH,
-                                                  LMP_SEQ, dev)
+                                                  LMP_SEQ, dev, LMP_LAYERS)
     out = {}
     control = None
     if rank == 0:
@@ -5454,7 +6273,7 @@ def lpe_pp(card: str, rank: int, dev, preset: str) -> dict:
 
     on_card = dev.type == "cuda"
     cfg, sp, params0, toks, tgts = lm_train_setup(preset, LMP_BATCH,
-                                                  LMP_SEQ, dev)
+                                                  LMP_SEQ, dev, LMP_LAYERS)
     out, control = {}, None
     if rank == 0:
         control, out["control"] = lm_control(
@@ -5564,7 +6383,7 @@ def lpe_ep(card: str, rank: int, dev, preset: str) -> dict:
 
     on_card = dev.type == "cuda"
     cfg, sp, _, toks, tgts = lm_train_setup(preset, LMP_BATCH, LMP_SEQ,
-                                            "cpu")
+                                            "cpu", LMP_LAYERS)
     toks, tgts = toks.to(dev), tgts.to(dev)
     mcfg = moe.MoEConfig(base=cfg, n_experts=LPE_EXPERTS)
     n = int(np.prod(LPE_EP_SHAPE))
@@ -5890,10 +6709,12 @@ def main() -> int:
         k1, fwd_attrs = phase_flash(card)
         k2, k3, bwd_attrs = phase_flash_bwd(card)
         k4n, k5n, k6n, conv1, layout = phase_layout(card)
-        serving_launches, ex, solo = phase_slice(card)
+        serving_launches, ex, solo, load = phase_slice(card)
         phase_net_checks(ex)
         phase_breakdown(ex, card, solo["p50_ms"])
         del ex
+        torch.cuda.empty_cache()
+        fleet = phase_fleet(card, k1, (solo, load))
         torch.cuda.empty_cache()
         with tempfile.TemporaryDirectory() as root:
             train = phase_train(card, root)
@@ -6102,6 +6923,11 @@ def main() -> int:
         entry["launches_by_path"].update(
             {f"lm_pp_ep_{path}": counts.get(name, 0)
              for path, counts in lm_pp_ep["launches"].items()})
+        # the serving fleet's paths: the CNN replicas, the generate
+        # replicas, and the serve and bench_serve children
+        entry["launches_by_path"].update(
+            {path: counts.get(name, 0)
+             for path, counts in fleet["launches"].items()})
         if name == "sgd_update":
             entry["fabric_cli_k7"] = {
                 k: fabric["cli"][k] for k in ("k7_calls", "k7_bitwise",
@@ -6128,6 +6954,7 @@ def main() -> int:
                "bf16_lm_training": bf16_lm,
                "lm_par": lm_par,
                "lm_pp_ep": lm_pp_ep,
+               "fleet": fleet,
                "bf16_digits_final_accuracy": bf16_digits_acc,
                "wall_s": time.perf_counter() - t_start}
     print(f"[summary] {json.dumps(summary)}", flush=True)

@@ -5,8 +5,9 @@ for what it covers): the step-pipeline policy of the training loop
 (``ManagedCommConfig``), each with the JAX package's defaults, and the
 numeric policy, whose names are re-exported from ``numeric.py`` as the JAX
 package's ``config`` re-exports them, the named SPMD mesh request
-(``MeshConfig``, ``train --mesh``) and the two-tier fabric's policy
-(``FabricConfig``, ``train --async_ssp --slice``)."""
+(``MeshConfig``, ``train --mesh``), the two-tier fabric's policy
+(``FabricConfig``, ``train --async_ssp --slice``) and the serving fleet's
+(``FleetConfig``, ``serve --replicas``)."""
 
 from __future__ import annotations
 
@@ -225,3 +226,40 @@ def set_fabric_config(**kwargs) -> None:
         if not hasattr(_fabric, k):
             raise AttributeError(k)
         setattr(_fabric, k, v)
+
+
+@dataclass
+class FleetConfig:
+    """Serving-fleet policy (``serving/fleet.py``): how many replicas the
+    front door fans out to, where they pin, and the health and reload
+    knobs, with the JAX package's defaults. replicas=1 with no device
+    pinning is the single-engine path."""
+
+    # engines behind the front door, each its own executor + micro-batcher
+    replicas: int = 1
+    # comma-separated CUDA device indices to pin replicas to ("" =
+    # round-robin over every visible GPU when replicas > 1)
+    devices: str = ""
+    # consecutive dispatch failures (or wedged-submit timeouts) before a
+    # replica is marked DEAD and its queue reroutes
+    failure_threshold: int = 1
+    # rolling reload: how long one replica may take to drain before its
+    # swap is skipped this pass
+    drain_timeout_s: float = 30.0
+    # how often the server refreshes the stats-registry "serving" section
+    # for the metrics endpoint (<= 0 = only on stats-op reads)
+    stats_refresh_s: float = 2.0
+
+
+_fleet = FleetConfig()
+
+
+def fleet_config() -> FleetConfig:
+    return _fleet
+
+
+def set_fleet_config(**kwargs) -> None:
+    for k, v in kwargs.items():
+        if not hasattr(_fleet, k):
+            raise AttributeError(k)
+        setattr(_fleet, k, v)

@@ -33,6 +33,15 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
+_count_lock = threading.Lock()
+
+
+def count_launch(table: Dict[str, int], name: str) -> None:
+    """Add one to ``table[name]`` (a module's ``LAUNCHES``) under one lock
+    shared by every kernel module: serving replicas launch kernels from
+    several threads, and a bare ``+= 1`` could lose a count."""
+    with _count_lock:
+        table[name] += 1
 
 
 def nvcc_path() -> str:

@@ -209,7 +209,7 @@ def _launch(name: str, ptrs, q: torch.Tensor, scale, causal, mode) -> None:
                 stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
-    LAUNCHES[name] += 1
+    _build.count_launch(LAUNCHES, name)
 
 
 def flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

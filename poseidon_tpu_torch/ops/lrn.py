@@ -184,7 +184,7 @@ def lrn_fwd_cuda(x: torch.Tensor, local_size: int, alpha: float, beta: float,
                 h * w, local_size, alpha / local_size, beta, k, stream)
     if rc != 0:
         raise RuntimeError(f"lrn_fwd kernel launch failed: cudaError {rc}")
-    LAUNCHES["lrn_fwd"] += 1
+    _build.count_launch(LAUNCHES, "lrn_fwd")
     return y
 
 
@@ -232,7 +232,7 @@ def lrn_bwd_cuda(x: torch.Tensor, g: torch.Tensor, local_size: int,
                 2.0 * alpha * beta / local_size, k, stream)
     if rc != 0:
         raise RuntimeError(f"lrn_bwd kernel launch failed: cudaError {rc}")
-    LAUNCHES["lrn_bwd"] += 1
+    _build.count_launch(LAUNCHES, "lrn_bwd")
     return dx
 
 
@@ -275,7 +275,7 @@ def lrn_fwd_nhwc_cuda(x: torch.Tensor, local_size: int, alpha: float,
     if rc != 0:
         raise RuntimeError(f"lrn_fwd_nhwc kernel launch failed: cudaError "
                            f"{rc}")
-    LAUNCHES["lrn_fwd_nhwc"] += 1
+    _build.count_launch(LAUNCHES, "lrn_fwd_nhwc")
     return y
 
 
@@ -340,7 +340,7 @@ def lrn_bwd_nhwc_cuda(x: torch.Tensor, g: torch.Tensor, local_size: int,
     if rc != 0:
         raise RuntimeError(f"lrn_bwd_nhwc kernel launch failed: cudaError "
                            f"{rc}")
-    LAUNCHES["lrn_bwd_nhwc"] += 1
+    _build.count_launch(LAUNCHES, "lrn_bwd_nhwc")
     return dx
 
 

@@ -406,7 +406,7 @@ def pool_bwd_cuda(x: torch.Tensor, g: torch.Tensor, kernel, stride, pad,
                 plan.planes_per_block, plan.x_rows, plan.win_rows, stream)
     if rc != 0:
         raise RuntimeError(f"pool_bwd kernel launch failed: cudaError {rc}")
-    LAUNCHES["pool_bwd"] += 1
+    _build.count_launch(LAUNCHES, "pool_bwd")
     return dx
 
 
@@ -596,7 +596,7 @@ def pool_bwd_nhwc_cuda(x: torch.Tensor, g: torch.Tensor, kernel, stride,
     if rc != 0:
         raise RuntimeError(f"pool_bwd_nhwc kernel launch failed: cudaError "
                            f"{rc}")
-    LAUNCHES["pool_bwd_nhwc"] += 1
+    _build.count_launch(LAUNCHES, "pool_bwd_nhwc")
     return dx
 
 

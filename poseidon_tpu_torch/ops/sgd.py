@@ -84,7 +84,7 @@ def sgd_update_cuda_(w: torch.Tensor, g: torch.Tensor, h: torch.Tensor,
                 props.multi_processor_count, stream)
     if rc != 0:
         raise RuntimeError(f"sgd_update kernel launch failed: cudaError {rc}")
-    LAUNCHES["sgd_update"] += 1
+    _build.count_launch(LAUNCHES, "sgd_update")
 
 
 def sgd_update_(w: torch.Tensor, g: torch.Tensor, h: torch.Tensor,

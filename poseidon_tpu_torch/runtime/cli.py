@@ -1,5 +1,5 @@
-"""Command line of the port (the ``train``, ``test`` and ``serve`` commands
-of ``poseidon_tpu/runtime/cli.py``)::
+"""Command line of the port (the ``train``, ``test``, ``serve`` and
+``bench_serve`` commands of ``poseidon_tpu/runtime/cli.py``)::
 
     python -m poseidon_tpu_torch train --solver=<solver.prototxt> \\
         [--snapshot=<.solverstate.npz>|auto] [--weights=<.caffemodel>] \\
@@ -22,10 +22,15 @@ of ``poseidon_tpu/runtime/cli.py``)::
     python -m poseidon_tpu_torch serve --model=<deploy.prototxt> \\
         [--weights=<.caffemodel|.solverstate.npz>] [--buckets 1,4,16,64] \\
         [--host 127.0.0.1] [--port 0] [--max_delay_ms 5] [--max_queue 64] \\
-        [--deadline_ms 0] [--device cuda|cpu]
-    python -m poseidon_tpu_torch serve --generate --model tiny|gpt_small \
-        [--host 127.0.0.1] [--port 0] [--max_queue 64] [--deadline_ms 0] \
-        [--device cuda|cpu]
+        [--deadline_ms 0] [--watch <prefix>|auto] [--poll_s 1] \\
+        [--replicas N] [--devices 0,0] [--metrics_port P] [--device cuda|cpu]
+    python -m poseidon_tpu_torch serve --generate --model tiny|gpt_small \\
+        [--host 127.0.0.1] [--port 0] [--max_queue 64] [--deadline_ms 0] \\
+        [--replicas N] [--devices 0,0] [--metrics_port P] [--device cuda|cpu]
+    python -m poseidon_tpu_torch bench_serve [--model <deploy.prototxt>] \\
+        [--weights ...] [--buckets 1,4,16,64] [--requests 200] \\
+        [--concurrency 4] [--batch 8] [--replicas N] [--devices ...] \\
+        [--offered_rps R] [--device cuda|cpu]
 
 ``train`` runs the solver on one GPU and writes the snapshots and the
 ``<net>_train_outputs.csv`` / ``<net>_test<i>_outputs.csv`` files under
@@ -78,8 +83,14 @@ logs ``serve: listening on <host>:<port>``, serves until SIGTERM/SIGINT,
 drains every admitted request, prints one ``serving_final_stats`` JSON line
 and exits 0. ``serve --generate`` serves a transformer preset with seeded
 weights (paged KV cache, continuous batching, the ``generate`` wire op)
-behind the same front door and the same shutdown. Every command runs on
-``cuda`` unless ``--device cpu``.
+behind the same front door and the same shutdown. ``--replicas N`` (or
+``--devices``) serves N replicas behind that door (``serving/fleet.py``:
+least-loaded routing, failover, rolling reload); ``--watch`` hot-reloads
+newer snapshots under a prefix (through the fleet, one replica draining
+at a time); ``--metrics_port`` serves the stats as ``key=value`` lines
+over HTTP. ``bench_serve`` stands the server up in process, drives it
+closed- or open-loop (``--offered_rps``) and prints one JSON line. Every
+command runs on ``cuda`` unless ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -93,12 +104,112 @@ from .metrics import log
 
 LLM_PRESETS = ("tiny", "gpt_small")
 
+# bench_serve's built-in deploy net when no --model is given (the JAX
+# package's, kept as the port's own copy)
+_BENCH_SERVE_NET = """
+name: "bench_serve_synthetic"
+input: "data"
+input_dim: 1 input_dim: 3 input_dim: 32 input_dim: 32
+layers { name: "conv1" type: CONVOLUTION bottom: "data" top: "conv1"
+  convolution_param { num_output: 16 kernel_size: 3
+    weight_filler { type: "xavier" } } }
+layers { name: "relu1" type: RELU bottom: "conv1" top: "conv1" }
+layers { name: "pool1" type: POOLING bottom: "conv1" top: "pool1"
+  pooling_param { pool: MAX kernel_size: 2 stride: 2 } }
+layers { name: "fc" type: INNER_PRODUCT bottom: "pool1" top: "fc"
+  inner_product_param { num_output: 10 weight_filler { type: "xavier" } } }
+layers { name: "prob" type: SOFTMAX bottom: "fc" top: "prob" }
+"""
 
-def build_generate_executor(preset: str, device=None):
+
+def _build_serving_executor(model: str, weights: str, buckets: str,
+                            device=None):
+    """Shared by serve and bench_serve: a deploy net (or the built-in
+    synthetic one) with optional weights (seed-0 filler weights otherwise)
+    -> a warmed ``BucketedExecutor`` on ``device`` (``cuda`` unless the
+    caller passes ``"cpu"``), the fleet's placement unit."""
+    import torch
+
+    from ..core.net import Net
+    from ..numeric import resolve_device
+    from ..proto.messages import load_net_from_string
+    from ..serving.executor import (BucketedExecutor, load_serving_params,
+                                    parse_buckets)
+    bucket_sizes = parse_buckets(buckets)
+    if model:
+        return BucketedExecutor.from_files(model, weights or None,
+                                           buckets=bucket_sizes,
+                                           device=device)
+    net = Net(load_net_from_string(_BENCH_SERVE_NET), "TEST",
+              device=resolve_device(device))
+    params = net.init(torch.Generator().manual_seed(0))
+    if weights:
+        params = load_serving_params(net, params, weights)
+    return BucketedExecutor(net, params, buckets=bucket_sizes)
+
+
+def _resolve_fleet_devices(spec: str, n_replicas: int, device: str = "",
+                           n_devices=None):
+    """``--devices "0,2,3"`` -> those CUDA devices; "" -> round-robin over
+    every visible GPU when the fleet has more than one replica (a single
+    replica keeps the default device). ``n_devices`` defaults to
+    ``torch.cuda.device_count()``; an index that does not exist fails
+    loudly (the JAX package's messages), as does a fleet with no GPU
+    unless ``device`` is ``cpu``, which puts every replica on the CPU
+    and takes no ``--devices``."""
+    import torch
+
+    from ..numeric import resolve_device
+    if device and torch.device(device).type == "cpu":
+        if spec:
+            raise SystemExit(f"--devices {spec!r}: device indices name GPUs; "
+                             f"--device cpu puts every replica on the CPU")
+        return [torch.device("cpu")]
+    if n_devices is None:
+        resolve_device(device or None)   # no GPU, no CPU asked for: refuse
+        n_devices = torch.cuda.device_count()
+    local = [torch.device("cuda", i) for i in range(n_devices)]
+    if spec:
+        try:
+            idxs = [int(tok) for tok in spec.split(",") if tok.strip()]
+        except ValueError:
+            raise SystemExit(f"--devices {spec!r}: expected comma-separated "
+                             f"device indices") from None
+        bad = [i for i in idxs if i < 0 or i >= len(local)]
+        if bad:
+            raise SystemExit(f"--devices {spec!r}: no such device index "
+                             f"{bad} (have {len(local)} local devices)")
+        return [local[i] for i in idxs]
+    if n_replicas <= 1:
+        return []
+    return local
+
+
+def build_serving_fleet(model: str, weights: str, buckets: str,
+                        n_replicas: int, devices_spec: str = "",
+                        max_delay_s: float = 0.005, max_queue: int = 64,
+                        device: str = "", **manager_kw):
+    """N warmed replicas under one ``ReplicaManager``, round-robin over
+    the resolved devices (replicas > devices is fine: every replica on
+    one card is its own executor and batcher)."""
+    from ..serving.fleet import ReplicaManager
+    devices = _resolve_fleet_devices(devices_spec, n_replicas, device)
+
+    def factory(dev):
+        return _build_serving_executor(
+            model, weights, buckets,
+            device=dev if dev is not None else (device or None))
+
+    return ReplicaManager.build(factory, n_replicas, devices=devices,
+                                max_delay_s=max_delay_s,
+                                max_queue=max_queue, **manager_kw)
+
+
+def build_generate_executor(preset: str, device=None, seed: int = 0):
     """A warmed paged-KV ``GenerateExecutor`` over a named transformer
-    preset with seeded weights (``--generate`` has no snapshot format yet,
-    as in the JAX package), with the built-in page size, decode rungs and
-    prompt buckets."""
+    preset with weights drawn from ``seed`` (``--generate`` has no
+    snapshot format yet, as in the JAX package), with the built-in page
+    size, decode rungs and prompt buckets."""
     import torch
 
     from ..models.transformer import (TransformerConfig, gpt_small_config,
@@ -120,7 +231,7 @@ def build_generate_executor(preset: str, device=None):
             f"--generate serves a transformer preset, not a deploy "
             f"prototxt; --model must be one of {'|'.join(LLM_PRESETS)} "
             f"(got {preset!r})")
-    params = init_params(cfg, torch.Generator().manual_seed(0))
+    params = init_params(cfg, torch.Generator().manual_seed(seed))
     # a preset smaller than the default ladder drops the buckets it cannot
     # hold rather than refusing to serve
     buckets = tuple(b for b in DEFAULT_PROMPT_BUCKETS if b < cfg.max_seq)
@@ -129,38 +240,137 @@ def build_generate_executor(preset: str, device=None):
                             prompt_buckets=buckets, device=device)
 
 
+def build_generate_fleet(preset: str, n_replicas: int, devices_spec: str = "",
+                         max_queue: int = 64, device: str = "",
+                         **manager_kw):
+    """N warmed generate replicas (``build_generate_executor``) under one
+    ``ReplicaManager``, placed as ``build_serving_fleet`` places CNN
+    replicas."""
+    from ..serving.fleet import ReplicaManager
+    devices = _resolve_fleet_devices(devices_spec, n_replicas, device)
+
+    def factory(dev):
+        return build_generate_executor(
+            preset, device=dev if dev is not None else (device or None))
+
+    return ReplicaManager.build(factory, n_replicas, devices=devices,
+                                max_queue=max_queue, **manager_kw)
+
+
+def _watch_prefix(args):
+    """(the snapshot prefix to watch or "", the --weights snapshot the
+    reloader starts from or None): ``--watch auto`` derives the prefix
+    from ``--weights``' ``_iter_`` naming, and a ``--weights`` snapshot
+    under the watched prefix seeds the reloader so its first poll swaps
+    only to something strictly newer."""
+    watch = args.watch
+    if watch == "auto":
+        if args.weights and "_iter_" in args.weights:
+            watch = args.weights.split("_iter_")[0]
+        else:
+            # checked before the warm-up
+            raise SystemExit(
+                "--watch auto needs --weights pointing at a "
+                "<prefix>_iter_N artifact to derive the prefix from; "
+                "pass the snapshot prefix explicitly instead")
+    serving_snap = (args.weights if watch and args.weights
+                    and "_iter_" in args.weights
+                    and args.weights.split("_iter_")[0] == watch
+                    else None)
+    return watch, serving_snap
+
+
 def cmd_serve(args) -> int:
+    """Serve a deploy net over TCP (dynamic micro-batching, the bucketed
+    executor, hot reload under ``--watch``, graceful drain on SIGTERM), or
+    with ``--generate`` a transformer preset through the paged-KV
+    continuous batcher. ``--replicas N`` (or ``--devices``) puts a fleet
+    behind the same front door: least-loaded routing, per-replica health
+    and failover, rolling reload."""
+    from ..config import fleet_config
+    from ..serving.reloader import CheckpointReloader, FleetReloader
     from ..serving.server import InferenceServer
 
+    replicas = max(1, args.replicas)
+    fleet_mode = replicas > 1 or bool(args.devices)
+    manager = executor = reloader = None
     if args.generate:
-        if args.weights:
-            raise SystemExit("--generate serves seeded preset weights; "
-                             "--weights has no LLM snapshot format yet")
-        executor = build_generate_executor(args.model,
-                                           device=args.device or None)
-        log(f"serve: warmed generate executor ({args.model}, "
-            f"{executor.cfg.n_params()} params, page_size="
-            f"{executor.page_size}, rungs={executor.decode_rungs}, "
-            f"buckets={executor.prompt_buckets}) on {executor.device}")
+        if args.weights or args.watch:
+            raise SystemExit("--generate serves preset-initialized params; "
+                             "--weights/--watch have no LLM snapshot format "
+                             "to load yet")
+        watch = ""
+        if fleet_mode:
+            manager = build_generate_fleet(args.model, replicas,
+                                           args.devices, args.max_queue,
+                                           device=args.device)
+            ref = manager.reference_executor()
+            log(f"serve: warmed {len(manager.replicas)} generate replicas "
+                f"({args.model}, {ref.cfg.n_params()} params each, "
+                f"page_size={ref.page_size}, rungs={ref.decode_rungs}, "
+                f"buckets={ref.prompt_buckets}) on "
+                f"{[r.device_label for r in manager.replicas]}")
+        else:
+            executor = build_generate_executor(args.model,
+                                               device=args.device or None)
+            log(f"serve: warmed generate executor ({args.model}, "
+                f"{executor.cfg.n_params()} params, page_size="
+                f"{executor.page_size}, rungs={executor.decode_rungs}, "
+                f"buckets={executor.prompt_buckets}) on {executor.device}")
     else:
-        from ..serving.executor import BucketedExecutor, parse_buckets
-        executor = BucketedExecutor.from_files(
-            args.model, args.weights or None,
-            buckets=parse_buckets(args.buckets), device=args.device or None)
-        log(f"serve: warmed buckets {executor.buckets} on {executor.device} "
-            f"({executor.net.name or 'net'}, {executor.net.param_count()} "
-            f"params)")
+        watch, serving_snap = _watch_prefix(args)
+        if fleet_mode:
+            manager = build_serving_fleet(
+                args.model, args.weights, args.buckets, replicas,
+                args.devices, max_delay_s=args.max_delay_ms / 1e3,
+                max_queue=args.max_queue, device=args.device)
+            ref = manager.reference_executor()
+            log(f"serve: warmed {len(manager.replicas)} replicas, buckets "
+                f"{ref.buckets} ({ref.net.name or 'net'}, "
+                f"{ref.net.param_count()} params each) on "
+                f"{[r.device_label for r in manager.replicas]}")
+            if watch:
+                reloader = FleetReloader(manager, watch, poll_s=args.poll_s,
+                                         current_path=serving_snap)
+        else:
+            executor = _build_serving_executor(args.model, args.weights,
+                                               args.buckets,
+                                               device=args.device or None)
+            log(f"serve: warmed buckets {executor.buckets} on "
+                f"{executor.device} ({executor.net.name or 'net'}, "
+                f"{executor.net.param_count()} params)")
+            if watch:
+                reloader = CheckpointReloader(executor, watch,
+                                              poll_s=args.poll_s,
+                                              current_path=serving_snap)
+        if watch:
+            log(f"serve: watching {watch!r} for newer snapshots "
+                f"(every {args.poll_s}s)")
     if args.host not in ("127.0.0.1", "localhost", "::1"):
         log(f"serve: WARNING: binding {args.host!r} — the wire format is "
             f"pickled frames (arbitrary code execution for anyone who can "
             f"connect); serve only on loopback or a trusted network")
     server = InferenceServer(
-        executor, host=args.host, port=args.port,
+        executor=executor, fleet=manager, host=args.host, port=args.port,
         max_delay_s=args.max_delay_ms / 1e3, max_queue=args.max_queue,
         default_deadline_s=(args.deadline_ms / 1e3
-                            if args.deadline_ms > 0 else None))
+                            if args.deadline_ms > 0 else None),
+        reloader=reloader,
+        # the refresher keeps the registry section live for any metrics
+        # endpoint, and for the fleet's health rows
+        stats_refresh_s=(fleet_config().stats_refresh_s
+                         if fleet_mode or args.metrics_port >= 0 else 0.0))
+    tags = (["generate op"] if args.generate else []) \
+        + ([f"{replicas} replicas"] if fleet_mode else [])
     log(f"serve: listening on {server.host}:{server.port}"
-        + (" (generate op)" if args.generate else ""))
+        + (f" ({', '.join(tags)})" if tags else ""))
+    metrics_srv = None
+    if args.metrics_port >= 0:
+        from .metrics import MetricsServer
+        server.stats_snapshot()        # seed the section before a poll
+        metrics_srv = MetricsServer(server.stats, port=args.metrics_port)
+        log(f"serve: metrics endpoint on "
+            f"http://127.0.0.1:{metrics_srv.port}/")
 
     def _graceful(signum, frame):
         log(f"serve: signal {signum}; draining in-flight requests")
@@ -174,8 +384,100 @@ def cmd_serve(args) -> int:
     except KeyboardInterrupt:
         pass
     server.shutdown(drain=True)
+    if metrics_srv is not None:
+        metrics_srv.close()
     print(json.dumps({"serving_final_stats": server.stats_snapshot()}),
           flush=True)
+    return 0
+
+
+def run_serving_bench(executor, requests: int, concurrency: int, batch: int,
+                      max_delay_ms: float = 5.0, max_queue: int = 64,
+                      deadline_ms=None, fleet=None, offered_rps=None):
+    """The in-process serving bench of ``bench_serve``: a port-0 server
+    and the load generator, request sizes cycling 1..batch over the bucket
+    ladder. Pass ``fleet`` (a ReplicaManager; ``executor=None``) to stand
+    the fleet behind the front door, ``offered_rps`` for the open loop.
+    Returns (run_load's result, the server's stats snapshot)."""
+    import numpy as np
+
+    from ..serving.client import run_load
+    from ..serving.server import InferenceServer
+
+    # in the fleet form the batching knobs live on the replicas (set when
+    # the fleet was built)
+    server = (InferenceServer(fleet=fleet) if fleet is not None else
+              InferenceServer(executor=executor,
+                              max_delay_s=max_delay_ms / 1e3,
+                              max_queue=max_queue))
+    ref = executor if executor is not None else fleet.reference_executor()
+    name = ref.input_names[0]
+    row_shape = tuple(ref.net.blob_shapes[name][1:])
+    max_rows = max(1, min(batch, ref.max_batch))
+    frames = np.random.RandomState(0).randn(
+        max_rows, *row_shape).astype(np.float32)
+
+    def make_inputs(i):
+        return {name: frames[: 1 + i % max_rows]}
+
+    try:
+        result = run_load(server.addr, make_inputs, n_requests=requests,
+                          concurrency=concurrency, deadline_ms=deadline_ms,
+                          offered_rps=offered_rps)
+        stats = server.stats_snapshot()
+    finally:
+        server.shutdown()
+    return result, stats
+
+
+def cmd_bench_serve(args) -> int:
+    """In-process serving microbenchmark: the server on port 0 driven by
+    the load generator; prints ONE JSON line (p50/p99, throughput, shed
+    and fill telemetry). ``--replicas N`` benches the fleet path;
+    ``--offered_rps R`` switches to the open loop."""
+    replicas = max(1, args.replicas)
+    offered = args.offered_rps if args.offered_rps > 0 else None
+    if replicas > 1 or args.devices:
+        fleet = build_serving_fleet(
+            args.model, args.weights, args.buckets, replicas, args.devices,
+            max_delay_s=args.max_delay_ms / 1e3, max_queue=args.max_queue,
+            device=args.device)
+        executor = None
+    else:
+        fleet = None
+        executor = _build_serving_executor(args.model, args.weights,
+                                           args.buckets,
+                                           device=args.device or None)
+    result, stats = run_serving_bench(
+        executor, args.requests, args.concurrency, args.batch,
+        max_delay_ms=args.max_delay_ms, max_queue=args.max_queue,
+        deadline_ms=args.deadline_ms if args.deadline_ms > 0 else None,
+        fleet=fleet, offered_rps=offered)
+    if fleet is not None:
+        result["replicas"] = replicas
+        result["routing"] = stats["routing"]
+        result["states"] = stats["states"]
+        result["batches"] = stats["batches"]
+        fills = [r.get("batch_fill") for r in stats["replicas"].values()
+                 if r.get("batch_fill") is not None]
+        result["batch_fill"] = (round(sum(fills) / len(fills), 4)
+                                if fills else None)
+    else:
+        result["batch_fill"] = stats["batch_fill"]
+        result["batches"] = stats["batches"]
+        result["bucket_calls"] = stats["bucket_calls"]
+    if not result.get("ok") or result.get("p99_ms") is None:
+        # every request shed or errored: fail loudly, never a clean line
+        # (result first: its integer "error" count must not clobber the
+        # diagnostic string)
+        print(json.dumps({**result, "metric": "serving_p99_ms",
+                          "value": 0.0, "unit": "ms",
+                          "error_counts": result.get("error"),
+                          "error": "no successful requests"}),
+              flush=True)
+        return 1
+    print(json.dumps({"metric": "serving_p99_ms", "value": result["p99_ms"],
+                      "unit": "ms", **result}), flush=True)
     return 0
 
 
@@ -589,7 +891,8 @@ def build_parser() -> argparse.ArgumentParser:
                          "empty serves filler init (smoke mode)")
     sv.add_argument("--buckets", default="1,4,16,64",
                     help="batch bucket ladder; every bucket is warmed at "
-                         "startup")
+                         "startup (the JAX package's TunedPlan ladder and "
+                         "--tuned_plan are not in the port)")
     sv.add_argument("--host", default="127.0.0.1",
                     help="bind address; the protocol is pickle-framed and "
                          "unauthenticated — loopback/trusted networks only")
@@ -601,11 +904,60 @@ def build_parser() -> argparse.ArgumentParser:
                     help="admission bound; a full queue sheds explicitly")
     sv.add_argument("--deadline_ms", type=float, default=0.0,
                     help="default per-request deadline (0 = none)")
+    sv.add_argument("--watch", default="",
+                    help="snapshot prefix to poll for hot reload (e.g. "
+                         "out/snap/lenet), or 'auto' to derive it from "
+                         "--weights' _iter_ naming")
+    sv.add_argument("--poll_s", type=float, default=1.0,
+                    help="hot-reload watch cadence")
+    _fleet_flags(sv)
+    sv.add_argument("--metrics_port", type=int, default=-1,
+                    help="serve live fleet health over HTTP on this port "
+                         "(0 = ephemeral, printed at startup); -1 = off")
     sv.add_argument("--device", default="",
                     help="cuda (the default; refuses to run without a GPU) "
                          "or cpu")
     sv.set_defaults(fn=cmd_serve)
+
+    bs = sub.add_parser(
+        "bench_serve", help="serving latency microbenchmark (in-process "
+                            "server + load generator, ONE JSON line)")
+    bs.add_argument("--model", default="",
+                    help="deploy prototxt; empty uses a built-in synthetic "
+                         "conv net")
+    bs.add_argument("--weights", default="")
+    bs.add_argument("--buckets", default="1,4,16,64")
+    bs.add_argument("--requests", type=int, default=200)
+    bs.add_argument("--concurrency", type=int, default=4)
+    bs.add_argument("--batch", type=int, default=8,
+                    help="request sizes cycle 1..batch (exercises the "
+                         "bucket ladder)")
+    bs.add_argument("--max_delay_ms", type=float, default=5.0)
+    bs.add_argument("--max_queue", type=int, default=64)
+    bs.add_argument("--deadline_ms", type=float, default=0.0)
+    _fleet_flags(bs)
+    bs.add_argument("--offered_rps", type=float, default=0.0,
+                    help="open-loop mode: fixed arrival rate (req/s); "
+                         "0 = closed loop")
+    bs.add_argument("--device", default="",
+                    help="cuda (the default; refuses to run without a GPU) "
+                         "or cpu")
+    bs.set_defaults(fn=cmd_bench_serve)
     return p
+
+
+def _fleet_flags(sp) -> None:
+    """``--replicas`` and ``--devices``, shared by serve and bench_serve."""
+    sp.add_argument("--replicas", type=int, default=1,
+                    help="serving replicas behind the one front door, each "
+                         "its own executor + batcher (least-loaded routing, "
+                         "per-replica health, rolling reload); 1 = the "
+                         "single-engine path")
+    sp.add_argument("--devices", default="",
+                    help="comma-separated CUDA device indices to pin "
+                         "replicas to, round-robin (e.g. '0,1', or '0,0' "
+                         "for two on one card); empty = every visible GPU "
+                         "when --replicas > 1")
 
 
 def main(argv: Optional[List[str]] = None) -> int:

@@ -1,10 +1,12 @@
 """Telemetry (the parts of ``poseidon_tpu/runtime/metrics.py`` the port
 uses): ``log``, ``MetricsTable`` (the training and test output CSVs),
 ``AsyncScalarFetcher`` (the training loop's in-flight window),
-``LatencyWindow`` and ``StatsRegistry`` (serving)."""
+``LatencyWindow``, ``StatsRegistry`` and ``MetricsServer`` (serving and
+its live metrics endpoint)."""
 
 from __future__ import annotations
 
+import io
 import math
 import os
 import threading
@@ -226,13 +228,31 @@ class AsyncScalarFetcher:
 
 
 class StatsRegistry:
-    """Named sections of run-level stats (the serving `stats` op registers
-    its snapshot as the "serving" section). Thread-safe: handler threads
-    and the main thread touch one registry."""
+    """Run-level counters, timers, gauges and named sections (the serving
+    `stats` op registers its snapshot as the "serving" section), rendered
+    as flat ``key=value`` lines or as a YAML document, as the JAX
+    package's. Thread-safe: handler threads, the stats refresher and the
+    live metrics endpoint (:class:`MetricsServer`) touch one registry."""
 
     def __init__(self):
+        self.counters: Dict[str, float] = defaultdict(float)
+        self.timers: Dict[str, float] = defaultdict(float)
+        self.gauges: Dict[str, float] = {}
         self.sections: Dict[str, dict] = {}
         self._lock = threading.Lock()
+
+    def add(self, name: str, value: float = 1.0) -> None:
+        with self._lock:
+            self.counters[name] += value
+
+    def add_time(self, name: str, seconds: float) -> None:
+        with self._lock:
+            self.timers[name] += seconds
+
+    def set_gauge(self, name: str, value: float) -> None:
+        """Last-value-wins instantaneous reading."""
+        with self._lock:
+            self.gauges[name] = value
 
     def set_section(self, name: str, data: dict) -> None:
         with self._lock:
@@ -241,7 +261,122 @@ class StatsRegistry:
     def snapshot(self) -> Dict[str, dict]:
         """A consistent copy of everything (one lock hold)."""
         with self._lock:
-            return {k: dict(v) for k, v in self.sections.items()}
+            return {"counters": dict(self.counters),
+                    "timers_sec": {k: round(v, 6)
+                                   for k, v in self.timers.items()},
+                    "gauges": dict(self.gauges),
+                    "sections": {k: dict(v)
+                                 for k, v in self.sections.items()}}
+
+    def render_text(self) -> str:
+        """Flat ``key=value`` lines, what ``--metrics_port`` serves:
+        sections flatten with dotted keys; non-scalar leaves are skipped
+        (the YAML has them). Byte for byte the JAX package's rendering,
+        since clients parse it."""
+        snap = self.snapshot()
+        lines = []
+
+        def emit(prefix: str, tree: dict) -> None:
+            for k in sorted(tree):
+                v = tree[k]
+                if isinstance(v, dict):
+                    emit(f"{prefix}{k}.", v)
+                elif isinstance(v, (int, float)) and not isinstance(v, bool):
+                    lines.append(f"{prefix}{k}={v}")
+
+        emit("", snap["counters"])
+        emit("", snap["gauges"])
+        emit("", {f"{k}_sec": v for k, v in snap["timers_sec"].items()})
+        emit("", snap["sections"])
+        return "\n".join(lines) + "\n"
+
+    @staticmethod
+    def _write_tree(f, tree: dict, indent: int) -> None:
+        pad = "  " * indent
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                f.write(f"{pad}{k}:\n")
+                StatsRegistry._write_tree(f, v, indent + 1)
+            else:
+                f.write(f"{pad}{k}: {'null' if v is None else v}\n")
+
+    def render_yaml(self) -> str:
+        """The whole stats.yaml document: one renderer for ``dump_yaml``
+        and the live ``/yaml`` endpoint."""
+        snap = self.snapshot()
+        f = io.StringIO()
+        f.write("counters:\n")
+        for k in sorted(snap["counters"]):
+            f.write(f"  {k}: {snap['counters'][k]}\n")
+        f.write("timers_sec:\n")
+        for k in sorted(snap["timers_sec"]):
+            f.write(f"  {k}: {snap['timers_sec'][k]}\n")
+        if snap["gauges"]:
+            f.write("gauges:\n")
+            for k in sorted(snap["gauges"]):
+                f.write(f"  {k}: {snap['gauges'][k]}\n")
+        for name in sorted(snap["sections"]):
+            f.write(f"{name}:\n")
+            self._write_tree(f, snap["sections"][name], 1)
+        return f.getvalue()
+
+    def dump_yaml(self, path: str) -> None:
+        """Atomic write (tmp + os.replace): a reader never sees a torn
+        file, and a killed writer leaves only a ``.tmp.<pid>`` file."""
+        doc = self.render_yaml()
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        tmp = f"{path}.tmp.{os.getpid()}"
+        with open(tmp, "w") as f:
+            f.write(doc)
+        os.replace(tmp, path)
+
+
+class MetricsServer:
+    """The ``--metrics_port`` endpoint: a read-only HTTP server over a
+    :class:`StatsRegistry`, on a daemon thread.
+
+    GET /        -> flat key=value lines (``render_text``)
+    GET /yaml    -> the stats.yaml document, rendered live
+
+    ``port=0`` binds an ephemeral port (read it back from ``.port``)."""
+
+    def __init__(self, registry: StatsRegistry, port: int = 0,
+                 host: str = "127.0.0.1"):
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+        reg = registry
+
+        class Handler(BaseHTTPRequestHandler):
+            def do_GET(self):          # noqa: N802 — stdlib contract
+                if self.path.rstrip("/") == "/yaml":
+                    body = reg.render_yaml().encode()
+                else:
+                    body = reg.render_text().encode()
+                try:
+                    self.send_response(200)
+                    self.send_header("Content-Type",
+                                     "text/plain; charset=utf-8")
+                    self.send_header("Content-Length", str(len(body)))
+                    self.end_headers()
+                    self.wfile.write(body)
+                except OSError:
+                    pass            # the poller went away mid-reply
+
+            def log_message(self, *args):  # no request log on stderr
+                pass
+
+        self._srv = ThreadingHTTPServer((host, port), Handler)
+        self._srv.daemon_threads = True
+        self.host = host
+        self.port = self._srv.server_address[1]
+        self._thread = threading.Thread(target=self._srv.serve_forever,
+                                        daemon=True)
+        self._thread.start()
+
+    def close(self) -> None:
+        self._srv.shutdown()
+        self._srv.server_close()
+        self._thread.join(timeout=5.0)
 
 
 class LatencyWindow:
@@ -264,6 +399,13 @@ class LatencyWindow:
         return data[max(0, min(len(data) - 1,
                                int(round(q / 100.0 * (len(data) - 1)))))]
 
+    def percentile(self, q: float) -> Optional[float]:
+        """Nearest-rank percentile (q in [0, 100]) over the window, in
+        seconds; None while empty."""
+        with self._lock:
+            data = sorted(self._samples)
+        return self._rank(data, q) if data else None
+
     def summary(self) -> Dict[str, float]:
         """{count, p50_ms, p99_ms, mean_ms} over the window (empty -> just
         count=0)."""
@@ -276,6 +418,31 @@ class LatencyWindow:
             "count": count,
             "p50_ms": round(self._rank(data, 50.0) * 1e3, 3),
             "p99_ms": round(self._rank(data, 99.0) * 1e3, 3),
+            "mean_ms": round(sum(data) / len(data) * 1e3, 3),
+        }
+
+    def samples(self) -> List[float]:
+        """A copy of the current window (seconds)."""
+        with self._lock:
+            return list(self._samples)
+
+    @classmethod
+    def merged_summary(cls, windows) -> Dict[str, float]:
+        """One summary over the POOLED samples of many windows (the
+        fleet's: per-replica percentiles do not average, so the union is
+        ranked again). Counts sum over lifetimes."""
+        data: List[float] = []
+        total = 0
+        for w in windows:
+            data.extend(w.samples())
+            total += w.count
+        if not data:
+            return {"count": 0}
+        data.sort()
+        return {
+            "count": total,
+            "p50_ms": round(cls._rank(data, 50.0) * 1e3, 3),
+            "p99_ms": round(cls._rank(data, 99.0) * 1e3, 3),
             "mean_ms": round(sum(data) / len(data) * 1e3, 3),
         }
 

@@ -50,9 +50,10 @@ class ShedError(RuntimeError):
 
 
 class ShuttingDownError(ShedError):
-    """Admission refused because the batcher is closing (a typed marker,
-    so callers tell a shutdown shed from a queue-full shed without
-    matching on message text)."""
+    """Admission refused because the batcher is closing — the TYPED
+    marker the fleet router needs to tell a shutdown shed (surface it)
+    from a queue-full shed (try another replica) without matching on
+    message text."""
 
 
 class DeadlineError(RuntimeError):
@@ -103,6 +104,7 @@ class DynamicBatcher:
         self.batches = 0
         self.batched_rows = 0
         self._fill_sum = 0.0               # sum of rows/max_batch per flush
+        self._inflight_rows = 0            # rows in the batch being dispatched
         self._thread = threading.Thread(target=self._loop, daemon=True)
         self._thread.start()
 
@@ -155,6 +157,41 @@ class DynamicBatcher:
         with self._lock:
             return len(self._q)
 
+    @property
+    def inflight_rows(self) -> int:
+        """Rows in the micro-batch currently on the executor (0 between
+        flushes)."""
+        with self._lock:
+            return self._inflight_rows
+
+    def load_score(self) -> float:
+        """The fleet router's signal: queued requests plus the in-flight
+        batch's fill fraction. 0.0 = idle; +1 per queued request; the
+        fractional part is how full the batch on the device is — two
+        replicas with empty queues still order by who is dispatching
+        more."""
+        with self._lock:
+            return len(self._q) + self._inflight_rows / self.max_batch
+
+    def idle(self) -> bool:
+        """Nothing queued AND nothing on the executor — the rolling
+        reloader's swap-is-safe condition (paired read: both halves from
+        one lock hold)."""
+        with self._lock:
+            return not self._q and self._inflight_rows == 0
+
+    def wait_idle(self, timeout_s: float = 30.0,
+                  poll_s: float = 0.005) -> bool:
+        """Block until :meth:`idle` (the drain half of drain-and-swap).
+        Returns False on timeout — a batcher that cannot drain is wedged,
+        which is the failure detector's business, not the reloader's."""
+        deadline = time.monotonic() + timeout_s
+        while time.monotonic() < deadline:
+            if self.idle():
+                return True
+            time.sleep(poll_s)
+        return self.idle()
+
     def fill_ratio(self) -> Optional[float]:
         """Mean rows/max_batch over all flushed micro-batches."""
         with self._lock:      # paired read: both fields from one flush
@@ -183,6 +220,11 @@ class DynamicBatcher:
                             r = self._q.popleft()
                             batch.append(r)
                             rows += r.rows
+                        # counted under the SAME lock hold that popped the
+                        # queue: idle() can never observe "queue empty,
+                        # nothing in flight" while popped requests are
+                        # still owed results
+                        self._inflight_rows = rows
                         return batch
                     self._wake.wait(timeout=self.max_delay_s - age)
                 elif self._closing:
@@ -203,7 +245,7 @@ class DynamicBatcher:
                 if r.deadline is not None and now > r.deadline:
                     # counter shared with the handler threads' /stats
                     # reads and submit's shed accounting — same lock as
-                    # the rest of the telemetry (THR004)
+                    # the rest of the telemetry
                     with self._lock:
                         self.deadline_expired += 1
                     r.error = DeadlineError(
@@ -213,6 +255,8 @@ class DynamicBatcher:
                 else:
                     live.append(r)
             if not live:
+                with self._lock:
+                    self._inflight_rows = 0
                 continue
             rows = sum(r.rows for r in live)
             try:
@@ -225,10 +269,12 @@ class DynamicBatcher:
                 for r in live:
                     r.error = e
                     r.event.set()
+                with self._lock:
+                    self._inflight_rows = 0
                 continue
             # flush-thread counters race the /stats handler threads (and
             # fill_ratio's two-field read) without the lock: a lost
-            # increment here understates load forever (THR004)
+            # increment here understates load forever
             with self._lock:
                 self.batches += 1
                 self.batched_rows += rows
@@ -242,6 +288,8 @@ class DynamicBatcher:
                     for k, v in out.items()}
                 off += r.rows
                 r.event.set()
+            with self._lock:
+                self._inflight_rows = 0
 
     # ---- shutdown -------------------------------------------------------- #
     def close(self, drain: bool = True, timeout_s: float = 30.0) -> None:

@@ -1,5 +1,6 @@
-"""Blocking serving client + load generator (the infer and generate paths
-of ``poseidon_tpu/serving/client.py``, same wire protocol).
+"""Blocking serving client + load generator (the port of
+``poseidon_tpu/serving/client.py``, same wire protocol: infer, generate,
+stats, health and reload; closed- and open-loop load).
 
 A connection that dies mid-request is redialed and the request RESENT with
 capped exponential backoff and full jitter (``runtime/retry.py``), which is
@@ -168,6 +169,10 @@ class ServingClient:
     def health(self) -> Dict:
         return self._rpc({"kind": "health"})
 
+    def reload(self) -> Dict:
+        """One hot-reload poll on the server now; its reply as it is."""
+        return self._rpc({"kind": "reload"})
+
     def close(self) -> None:
         try:
             send_frame(self._sock, {"kind": "bye"})
@@ -182,11 +187,25 @@ class ServingClient:
 def run_load(addr: Tuple[str, int],
              make_inputs: Callable[[int], Dict[str, np.ndarray]],
              n_requests: int = 200, concurrency: int = 4,
+             deadline_ms: Optional[float] = None,
+             offered_rps: Optional[float] = None,
              op: str = "infer") -> Dict:
-    """Closed-loop load: ``concurrency`` persistent connections, each
-    firing its next request when the previous reply lands. Returns
-    p50/p99/mean latency, goodput and shed/error counts (sheds are counted,
-    never retried).
+    """Drive ``n_requests`` requests through ``concurrency`` persistent
+    client connections; returns p50/p99/mean latency, goodput and
+    shed/deadline/error counts (sheds are counted, never retried).
+
+    Two load models:
+
+    - **closed loop** (``offered_rps=None``): each connection fires its
+      next request when the previous reply lands, so the load throttles
+      itself to what the server sustains;
+    - **open loop** (``offered_rps=R``): request i has the fixed arrival
+      time ``t0 + i/R``, whatever the replies do. A connection sleeps
+      until its request's slot; one still waiting on a reply when its next
+      slot passes fires late, and is COUNTED (``late_fires``: nonzero
+      means the concurrency could not realize the offered rate). The
+      summary gains ``offered_rps``, ``achieved_rps`` (requests sent a
+      second) and ``late_fires``.
 
     ``op="generate"`` drives the LLM decode op: ``make_inputs(i)`` then
     returns ``ServingClient.generate`` keyword arguments (prompt, max_new,
@@ -195,9 +214,13 @@ def run_load(addr: Tuple[str, int],
     requests)."""
     if op not in ("infer", "generate"):
         raise ValueError(f"op must be infer|generate, got {op!r}")
+    if offered_rps is not None and offered_rps <= 0:
+        # a zero rate would divide by zero in every worker thread
+        raise ValueError(f"offered_rps must be > 0, got {offered_rps}")
     lat = LatencyWindow(maxlen=max(2048, n_requests))
     counters = {"ok": 0, "shed": 0, "deadline": 0, "error": 0}
     tokens = {"v": 0}
+    late = {"v": 0}
     counters_lock = threading.Lock()
     next_i = {"v": 0}
     t_start = time.monotonic()
@@ -211,14 +234,25 @@ def run_load(addr: Tuple[str, int],
                     if i >= n_requests:
                         return
                     next_i["v"] = i + 1
+                if offered_rps is not None:
+                    slot = t_start + i / offered_rps
+                    lag = time.monotonic() - slot
+                    if lag < 0:
+                        time.sleep(-lag)
+                    elif lag > 0.5 / offered_rps:
+                        # past its slot by over half a period: the open
+                        # loop is partially closed
+                        with counters_lock:
+                            late["v"] += 1
                 t0 = time.monotonic()
                 try:
                     if op == "generate":
-                        out = cli.generate(**make_inputs(i))
+                        out = cli.generate(deadline_ms=deadline_ms,
+                                           **make_inputs(i))
                         with counters_lock:
                             tokens["v"] += int(out.get("n_new", 0))
                     else:
-                        cli.infer(make_inputs(i))
+                        cli.infer(make_inputs(i), deadline_ms=deadline_ms)
                     lat.record(time.monotonic() - t0)
                     key = "ok"
                 except ServingError as e:
@@ -244,6 +278,7 @@ def run_load(addr: Tuple[str, int],
         "requests": n_requests,
         "concurrency": concurrency,
         "wall_s": wall,
+        "throughput_rps": counters["ok"] / wall,
         "goodput_rps": counters["ok"] / wall,
         "p50_ms": summary.get("p50_ms"),
         "p99_ms": summary.get("p99_ms"),
@@ -251,4 +286,8 @@ def run_load(addr: Tuple[str, int],
     }
     if op == "generate":
         out.update(tokens=tokens["v"], goodput_tps=tokens["v"] / wall)
+    if offered_rps is not None:
+        out.update(offered_rps=float(offered_rps),
+                   achieved_rps=sum(counters.values()) / wall,
+                   late_fires=late["v"])
     return out

@@ -78,6 +78,11 @@ def _align(n: int, m: int) -> int:
     return -(-int(n) // int(m)) * int(m)
 
 
+def _dtype_name(dtype: torch.dtype) -> str:
+    """``torch.float32`` -> ``float32``, the JAX package's spelling."""
+    return str(dtype).replace("torch.", "")
+
+
 # --------------------------------------------------------------------------- #
 # the decode engine
 # --------------------------------------------------------------------------- #
@@ -139,7 +144,8 @@ class GenerateExecutor:
 
         # make_batcher() reads this: "static" builds the A/B control arm
         self.scheduler_mode = "continuous"
-        self.params_version = 0       # the wire protocol's reply field
+        self._swap_lock = threading.Lock()
+        self.params_version = 0       # bumped by every swap_params
         self.rows_served = 0          # tokens delivered to completed rows
         self.prefills = 0
         self.decode_calls: Dict[int, int] = {r: 0 for r in self.decode_rungs}
@@ -241,6 +247,40 @@ class GenerateExecutor:
         return ContinuousScheduler(self, max_queue=max_queue,
                                    mode=self.scheduler_mode)
 
+    def swap_params(self, new_params: Dict) -> int:
+        """Rolling-reload contract (as ``BucketedExecutor``'s): validate
+        the incoming standard-layout ``{name: {leaf: array or tensor}}``
+        tree against the serving one (same leaves, shapes and dtypes, with
+        the JAX package's messages), copy it to this replica's device and
+        swap atomically. A prefill or decode step that already read the
+        old tree finishes on it. Returns the new params version. A replica
+        is one device: JAX's tp-layout branch comes with tp-sharded
+        generate replicas (ROADMAP A.1, part 2)."""
+        cur_keys = {n: sorted(d) for n, d in self._params.items()}
+        new_keys = {n: sorted(d) for n, d in new_params.items()}
+        if sorted(cur_keys.items()) != sorted(new_keys.items()):
+            raise ValueError("params tree structure mismatch: the snapshot "
+                             "was taken from a different model")
+        new: Dict = {}
+        for name in sorted(cur_keys):
+            new[name] = {}
+            for leaf in cur_keys[name]:
+                c = self._params[name][leaf]
+                n = torch.as_tensor(new_params[name][leaf])
+                if tuple(c.shape) != tuple(n.shape) or c.dtype != n.dtype:
+                    raise ValueError(
+                        f"params leaf mismatch: {tuple(n.shape)}/"
+                        f"{_dtype_name(n.dtype)} vs serving "
+                        f"{tuple(c.shape)}/{_dtype_name(c.dtype)}")
+                # the copy rides the device's default stream, the one every
+                # replica's steps run on, so a step that reads the new
+                # tree is ordered after it
+                new[name][leaf] = n.to(self.device, copy=True)
+        with self._swap_lock:
+            self._params = new
+            self.params_version += 1
+            return self.params_version
+
     def snapshot(self) -> Dict:
         return {
             "page_size": self.page_size,
@@ -305,6 +345,10 @@ class ContinuousScheduler:
         self._seq_counter = 0
         self._active: List[_GenSeq] = []    # loop-thread-owned
         self._n_active = 0                  # lock-guarded mirror for stats
+        # a sequence popped from the queue and not yet in the active set
+        # (its prefill runs outside the lock): counted so idle() cannot
+        # read "nothing queued, nothing active" mid-prefill
+        self._admitting = 0
         self.latency = LatencyWindow()
         self.ttft = LatencyWindow()         # submit -> first token
         self.shed_count = 0
@@ -405,8 +449,11 @@ class ContinuousScheduler:
             return len(self._q) + self._n_active / self.max_batch
 
     def idle(self) -> bool:
+        """Nothing queued, admitting or active: the rolling reload's
+        swap-is-safe condition (one lock hold)."""
         with self._lock:
-            return not self._q and self._n_active == 0
+            return not self._q and not self._n_active \
+                and not self._admitting
 
     def wait_idle(self, timeout_s: float = 30.0,
                   poll_s: float = 0.005) -> bool:
@@ -483,6 +530,7 @@ class ContinuousScheduler:
                 if not self.executor.pool.can_admit(total):
                     break               # wait for retirements to free pages
                 self._q.popleft()
+                self._admitting = 1
                 self._seq_counter += 1
                 req.seq_id = self._seq_counter
             # pool alloc + prefill OUTSIDE the lock (device work)
@@ -494,10 +542,13 @@ class ContinuousScheduler:
                 self.executor.pool.free(req.seq_id)
                 with self._lock:
                     self._q.appendleft(req)
+                    self._admitting = 0
                 log(f"serving: admission raced the pool: {e}")
                 break
             except BaseException as e:  # noqa: BLE001 — fan out the error
                 self._complete(req, error=e)
+                with self._lock:
+                    self._admitting = 0
                 continue
             tok0 = int(np.argmax(logits))
             req.out_tokens.append(tok0)
@@ -510,10 +561,13 @@ class ContinuousScheduler:
             if (req.eos_id is not None and tok0 == req.eos_id) \
                     or req.max_new <= 1:
                 self._complete(req)
+                with self._lock:
+                    self._admitting = 0
             else:
                 with self._lock:
                     self._active.append(req)
                     self._n_active = len(self._active)
+                    self._admitting = 0
             admitted = True
         return admitted
 

@@ -1,5 +1,6 @@
-"""Threaded socket front-end for the serving tier (the single-executor path
-of ``poseidon_tpu/serving/server.py``, same wire protocol).
+"""Threaded socket front-end for the serving tier (the port of
+``poseidon_tpu/serving/server.py``, same wire protocol): one executor, or a
+fleet of replicas (``serving/fleet.ReplicaManager``) behind the one door.
 
 A corrupt peer (torn frame, garbage header, undecodable payload) gets ITS
 connection logged and dropped; everyone else keeps being served. One thread
@@ -19,8 +20,13 @@ Request protocol (one frame per message):
   that brings its own scheduler (``GenerateExecutor.make_batcher``); with
   ``stream`` the reply is preceded by ``{"kind": "gen_chunk", "tokens":
   int32 array}`` frames carrying the cumulative tokens so far;
+- ``infer`` and ``generate`` replies carry ``params_version``, and in the
+  fleet form ``replica``, the index of the replica that served;
 - ``{"kind": "stats"}`` -> latency percentiles, queue depth, batch fill,
-  shed count;
+  shed count, reload counts; in the fleet form one row per replica
+  (state, load, reload generation) and the pooled latency;
+- ``{"kind": "reload"}`` -> one hot-reload poll now (when a reloader is
+  attached), and what it found;
 - ``{"kind": "health"}`` -> ``{"ok": True, "draining": bool}``;
 - ``{"kind": "bye"}`` -> close this connection.
 
@@ -48,20 +54,38 @@ __all__ = ["InferenceServer"]
 
 
 class InferenceServer:
-    """Serve a :class:`BucketedExecutor` (micro-batched ``infer``) or a
-    :class:`GenerateExecutor` (continuously batched ``generate``) over TCP
-    (port 0 = ephemeral)."""
+    """Serve a :class:`BucketedExecutor` (micro-batched ``infer``), a
+    :class:`GenerateExecutor` (continuously batched ``generate``) or a
+    whole :class:`~poseidon_tpu_torch.serving.fleet.ReplicaManager` over
+    TCP (port 0 = ephemeral).
 
-    def __init__(self, executor, host: str = "127.0.0.1", port: int = 0,
+    Exactly one of ``executor`` / ``fleet`` must be given. In the fleet
+    form every request goes through the manager's least-loaded router; the
+    batching and admission knobs live on each replica's batcher (set when
+    the fleet was built), so this constructor's ``max_delay_s`` and
+    ``max_queue`` are unused there. ``reloader`` answers the ``reload`` op;
+    ``stats_refresh_s > 0`` refreshes the registry's "serving" section on
+    a timer, so a live metrics endpoint shows health without anyone
+    calling the stats op."""
+
+    def __init__(self, executor=None, host: str = "127.0.0.1", port: int = 0,
                  max_delay_s: float = 0.005, max_queue: int = 64,
-                 default_deadline_s: Optional[float] = None):
+                 default_deadline_s: Optional[float] = None,
+                 reloader=None, stats: Optional[StatsRegistry] = None,
+                 fleet=None, stats_refresh_s: float = 0.0):
+        if (executor is None) == (fleet is None):
+            raise ValueError("pass exactly one of executor= or fleet=")
         self.executor = executor
-        self.stats = StatsRegistry()
+        self.fleet = fleet
+        self.reloader = reloader
+        self.stats = stats or StatsRegistry()
         self.default_deadline_s = default_deadline_s
         # an executor that brings its own scheduler (GenerateExecutor ->
-        # ContinuousScheduler) plugs in here
-        mk = getattr(executor, "make_batcher", None)
-        self.batcher = (mk(max_delay_s=max_delay_s, max_queue=max_queue)
+        # ContinuousScheduler) plugs in here, as in fleet.Replica
+        mk = (getattr(executor, "make_batcher", None)
+              if executor is not None else None)
+        self.batcher = (None if fleet is not None else
+                        mk(max_delay_s=max_delay_s, max_queue=max_queue)
                         if mk is not None else
                         DynamicBatcher(executor, max_delay_s=max_delay_s,
                                        max_queue=max_queue))
@@ -82,6 +106,21 @@ class InferenceServer:
                                                daemon=True)
         self._accept_thread.start()
         self._started = time.time()
+        self._refresh_thread = None
+        self._stats_refresh_s = float(stats_refresh_s)
+        if self._stats_refresh_s > 0:
+            self._refresh_thread = threading.Thread(
+                target=self._stats_refresh_loop, daemon=True)
+            self._refresh_thread.start()
+
+    def _stats_refresh_loop(self) -> None:
+        """Keep the registry's "serving" section current for the live
+        metrics endpoint."""
+        while not self._stop.wait(self._stats_refresh_s):
+            try:
+                self.stats_snapshot()
+            except Exception:  # noqa: BLE001 — telemetry never kills serving
+                pass
 
     # ---- accept/handle --------------------------------------------------- #
     def _accept_loop(self) -> None:
@@ -161,8 +200,24 @@ class InferenceServer:
         if kind == "stats":
             return {"ok": True, "stats": self.stats_snapshot()}
         if kind == "health":
+            if self.fleet is not None:
+                return {"ok": True, "draining": self.draining,
+                        "states": self.fleet.state_counts(),
+                        "reload_generation": self.fleet.reload_generation}
             return {"ok": True, "draining": self.draining,
                     "params_version": self.executor.params_version}
+        if kind == "reload":
+            if self.reloader is None:
+                return {"ok": False, "error": "no reloader attached"}
+            reloaded = self.reloader.check_now()
+            reply = {"ok": True, "reloaded": reloaded,
+                     "path": self.reloader.current_path,
+                     "last_error": self.reloader.last_error}
+            if self.fleet is not None:
+                reply["reload_generation"] = self.fleet.reload_generation
+            else:
+                reply["params_version"] = self.executor.params_version
+            return reply
         if kind == "bye":
             return None
         raise ValueError(f"unknown request kind {kind!r}")
@@ -189,6 +244,12 @@ class InferenceServer:
         deadline_s = (float(deadline_ms) / 1e3 if deadline_ms is not None
                       else self.default_deadline_s)
         try:
+            if self.fleet is not None:
+                outputs, rep = self.fleet.submit(inputs,
+                                                 deadline_s=deadline_s)
+                return {"ok": True, "outputs": outputs,
+                        "replica": rep.index,
+                        "params_version": rep.executor.params_version}
             outputs = self.batcher.submit(inputs, deadline_s=deadline_s)
             return {"ok": True, "outputs": outputs,
                     "params_version": self.executor.params_version}
@@ -200,9 +261,31 @@ class InferenceServer:
             return {"ok": False, "error": f"{type(e).__name__}: {e}"}
 
     # ---- introspection ---------------------------------------------------- #
+    def _reloader_row(self) -> Optional[Dict]:
+        r = self.reloader
+        return None if r is None else {
+            "reloads": r.reloads, "failed_reloads": r.failed_reloads,
+            "last_error": r.last_error, "current_path": r.current_path}
+
     def stats_snapshot(self) -> Dict:
         """The `stats` payload, also registered as the StatsRegistry
-        "serving" section."""
+        "serving" section. With a fleet: the manager's totals plus one row
+        per replica (state, queue depth, batch fill, sheds, reload
+        generation)."""
+        if self.fleet is not None:
+            snap = self.fleet.stats_snapshot()
+            snap.update({
+                "bad_frames": self.bad_frames,
+                "server_errors": self.server_errors,
+                "connections": self.connections,
+                "uptime_s": round(time.time() - self._started, 3),
+                "draining": self.draining,
+                "reloads": (0 if self.reloader is None
+                            else self.reloader.reloads),
+                "reloader": self._reloader_row(),
+            })
+            self.stats.set_section("serving", snap)
+            return snap
         b = self.batcher
         fill = b.fill_ratio()
         snap = {
@@ -225,6 +308,9 @@ class InferenceServer:
             "executor_bucket_fill": getattr(self.executor, "bucket_fill",
                                             lambda: None)(),
             "params_version": self.executor.params_version,
+            "reloads": (0 if self.reloader is None
+                        else self.reloader.reloads),
+            "reloader": self._reloader_row(),
             "uptime_s": round(time.time() - self._started, 3),
             "draining": self.draining,
         }
@@ -260,7 +346,14 @@ class InferenceServer:
             self._srv.close()
         except OSError:
             pass
-        self.batcher.close(drain=drain, timeout_s=timeout_s)
+        if self.reloader is not None:
+            self.reloader.close()
+        if self.fleet is not None:
+            self.fleet.shutdown(drain=drain, timeout_s=timeout_s)
+        else:
+            self.batcher.close(drain=drain, timeout_s=timeout_s)
+        # the batcher completing a request only sets its event: wait for
+        # every received-but-unreplied request to hit the wire
         deadline = time.time() + timeout_s
         while time.time() < deadline:
             with self._lock:
@@ -269,6 +362,8 @@ class InferenceServer:
             time.sleep(0.005)
         self._done.set()
         self._accept_thread.join(timeout=timeout_s)
+        if self._refresh_thread is not None:
+            self._refresh_thread.join(timeout=timeout_s)
 
     def close(self) -> None:
         self.shutdown()

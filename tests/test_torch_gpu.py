@@ -1651,3 +1651,50 @@ def test_pp_and_ep_gloo_pair_on_card(tmp_path):
         got, want, worst = res[0][kind]
         assert got == pytest.approx(want, rel=1e-5), kind
         assert worst < 1e-5, (kind, worst)
+
+
+@pytest.mark.gpu
+def test_fleet_on_card():
+    """Two AlexNet deploy replicas on cuda:0 behind the fleet: each
+    replica's replies within NET_TOL (rtol 1e-4, atol 1e-6) of a direct
+    forward on the card, eight concurrent requests through the router,
+    and exactly two LRN forward launches a forward, warm-ups included."""
+    _need_gpu()
+    import threading
+
+    import numpy as np
+
+    from poseidon_tpu_torch.runtime.cli import build_serving_fleet
+
+    x = {n: np.random.RandomState(n).randn(n, 3, 227, 227)
+         .astype(np.float32) for n in (1, 4, 16)}
+    for k in port_lrn.LAUNCHES:
+        port_lrn.LAUNCHES[k] = 0
+    mgr = build_serving_fleet("examples/imagenet/alexnet_deploy.prototxt",
+                              "", "1,4,16", 2, devices_spec="0,0")
+    try:
+        for rep in mgr.replicas:
+            assert rep.device_label == "cuda:0"
+            for n, rows in x.items():
+                got = rep.batcher.submit({"data": rows})["prob"]
+                with torch.inference_mode():
+                    want = rep.executor.net(
+                        {"data": torch.from_numpy(rows).cuda()},
+                        rep.executor._params)["prob"].cpu().numpy()
+                np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-6)
+        outs = []
+        threads = [threading.Thread(
+            target=lambda: outs.append(mgr.submit({"data": x[4]})[1].index),
+            daemon=True) for _ in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        assert len(outs) == 8
+    finally:
+        mgr.shutdown()
+    torch.cuda.synchronize()
+    forwards = sum(rep.executor.forwards for rep in mgr.replicas)
+    # the check's direct forwards (one a size a replica) launched K4 too
+    direct = 2 * len(mgr.replicas) * len(x)
+    assert port_lrn.LAUNCHES["lrn_fwd"] == 2 * forwards + direct

@@ -202,6 +202,34 @@ def test_lm_modules_import_neither_jax_nor_poseidon_tpu():
         assert out.returncode == 0, mod + out.stdout + out.stderr
 
 
+@pytest.mark.parametrize("mod", ["poseidon_tpu_torch.serving.fleet",
+                                 "poseidon_tpu_torch.serving.reloader"])
+def test_fleet_modules_import_neither_jax_nor_poseidon_tpu(mod):
+    """The serving fleet's modules, each imported alone in a fresh
+    process."""
+    code = (f"import importlib, sys\nimportlib.import_module({mod!r})\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'poseidon_tpu')]\n"
+            "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, mod + out.stdout + out.stderr
+
+
+def test_serve_fleet_cli_without_device_refuses():
+    """`serve --replicas 2` with no GPU and no --device cpu refuses before
+    any replica is built; with --device cpu, --devices is refused."""
+    _need_no_gpu()
+    from poseidon_tpu_torch.runtime.cli import main
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        main(["serve", f"--model={os.path.join(REPO, ALEXNET)}",
+              "--buckets", "1", "--replicas", "2"])
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        main(["serve", "--generate", "--model", "tiny", "--replicas", "2"])
+    with pytest.raises(SystemExit, match="--device cpu"):
+        main(["bench_serve", "--devices", "0,0", "--device", "cpu"])
+
+
 def test_resolve_device_is_pure():
     from poseidon_tpu_torch.numeric import resolve_device
     saved = (torch.backends.cudnn.allow_tf32,

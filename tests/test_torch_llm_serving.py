@@ -1,7 +1,9 @@
 """The port's LLM serving tier on the CPU: paged decode against the dense
 path, the KV page pool, the continuous scheduler, the ``generate`` op over
 the socket (with the port's client and with the JAX package's), and
-``serve --generate`` as a subprocess.
+``serve --generate`` as a subprocess, and generate replicas behind the
+fleet (a replica killed mid-generation, a rolling reload,
+``GenerateExecutor.swap_params``' refusals).
 
 The contracts are the JAX package's (tests/test_llm_serving.py), held
 inside the port: paged decode is BITWISE equal to the port's dense
@@ -485,3 +487,173 @@ def test_serve_generate_cli_subprocess_sigterm_drains():
         if proc.poll() is None:
             proc.kill()
             proc.wait()
+
+
+# --------------------------------------------------------------------------- #
+# generate replicas behind the fleet
+# --------------------------------------------------------------------------- #
+
+def _jax_weights(jcfg, seed):
+    """(JAX numpy tree, the port's tree) of JAX's init at ``seed``."""
+    from poseidon_tpu.models.transformer import init_params
+    jp = jax.tree_util.tree_map(np.asarray,
+                                init_params(jcfg, jax.random.PRNGKey(seed)))
+    return jp, port_tf.params_from_jax(jp)
+
+
+def _poisonable_executor(cfg, params):
+    """A real GenerateExecutor whose decode dies once ``die`` is set: the
+    replica-death lever for a scheduler of sequences (poisoning decode,
+    not prefill, kills a replica mid-generation)."""
+    ex = _executor(cfg, params)
+    ex.die = threading.Event()
+    real_decode = ex.decode
+
+    def decode(tok, table, pos):
+        if ex.die.is_set():
+            raise RuntimeError("device lost")
+        return real_decode(tok, table, pos)
+
+    ex.decode = decode
+    return ex
+
+
+def test_kill_one_of_three_mid_generation_chaos(model):
+    """3 generate replicas under socket load through the fault proxy; one
+    dies mid-generation, then every connection is severed. No accepted
+    request is lost (the fleet prefills again on a survivor), every reply
+    holds JAX's greedy tokens for its prompt, and every pool is free."""
+    from poseidon_tpu.models.generate import generate as jax_generate
+    from poseidon_tpu_torch.runtime.faults import FaultProxy
+    from poseidon_tpu_torch.serving.fleet import DEAD, ReplicaManager
+
+    jcfg, jp, cfg, params = model
+    prompt = _prompts(4, 6)
+    want, _ = jax_generate(jp, jcfg, jnp.asarray(prompt), 4)
+    want = np.asarray(want)
+    exs = [_poisonable_executor(cfg, params) for _ in range(3)]
+    mgr = ReplicaManager(exs, max_queue=64)
+    srv = InferenceServer(fleet=mgr)
+    proxy = FaultProxy(srv.addr)
+    got, got_lock = [], threading.Lock()
+
+    def make_inputs(i):
+        def on_tokens(toks, i=i):
+            if len(toks) == 4:
+                with got_lock:
+                    got.append((i % 4, list(toks)))
+        return {"prompt": prompt[i % 4], "max_new": 4,
+                "on_tokens": on_tokens}
+
+    def served():
+        return sum(ex.rows_served for ex in exs)
+
+    try:
+        box = {}
+
+        def load():
+            box["result"] = run_load(proxy.addr, make_inputs,
+                                     n_requests=120, concurrency=6,
+                                     op="generate")
+
+        t = threading.Thread(target=load, daemon=True)
+        t.start()
+        deadline = time.monotonic() + 60
+        while served() < 40:
+            assert time.monotonic() < deadline, "load never started"
+            time.sleep(0.005)
+        exs[0].die.set()                 # decode dies mid-generation
+        while served() < 120:
+            assert time.monotonic() < deadline, "load stalled"
+            time.sleep(0.005)
+        proxy.sever_all()
+        t.join(timeout=90.0)
+        assert not t.is_alive(), "load generator wedged"
+        r = box["result"]
+        assert r["error"] == 0 and r["deadline"] == 0, r
+        assert r["ok"] + r["shed"] == 120, r
+        assert r["ok"] > 0 and r["tokens"] == r["ok"] * 4
+        assert mgr.state_counts()[DEAD] == 1
+        assert mgr.deaths == 1 and mgr.failovers >= 1
+        assert exs[1].rows_served + exs[2].rows_served > 0
+        assert got and all(toks == list(want[k]) for k, toks in got)
+    finally:
+        proxy.close()
+        srv.shutdown()
+    for i, ex in enumerate(exs):
+        assert ex.pool.all_free(), f"replica {i} leaked pages"
+
+
+def test_rolling_reload_swaps_generate_replicas(model):
+    """rolling_reload drains and swaps generate replicas one at a time;
+    afterwards every replica serves the new params: tokens equal JAX's
+    generate on the new weights, versions bumped."""
+    from poseidon_tpu.models.generate import generate as jax_generate
+    from poseidon_tpu_torch.serving.fleet import ReplicaManager
+
+    jcfg, jp_a, cfg, params_a = model
+    jp_b, params_b = _jax_weights(jcfg, 9)
+    prompt = _prompts(1, 6)
+    toks_a = np.asarray(jax_generate(jp_a, jcfg, jnp.asarray(prompt), 5)[0])
+    toks_b = np.asarray(jax_generate(jp_b, jcfg, jnp.asarray(prompt), 5)[0])
+    assert not np.array_equal(toks_a, toks_b), "seeds collide; bad fixture"
+
+    exs = [_executor(cfg, params_a) for _ in range(2)]
+    mgr = ReplicaManager(exs, max_queue=16)
+    try:
+        out, _ = mgr.submit({"prompt": prompt[0], "max_new": 5})
+        np.testing.assert_array_equal(out["tokens"], toks_a[0])
+        assert mgr.rolling_reload(params_b) == 2
+        assert mgr.max_concurrent_draining <= 1
+        replicas = set()
+        for _ in range(4):
+            out, rep = mgr.submit({"prompt": prompt[0], "max_new": 5})
+            np.testing.assert_array_equal(out["tokens"], toks_b[0])
+            replicas.add(rep.index)
+        assert all(ex.params_version == 1 for ex in exs)
+        # each replica, not only the one the router prefers
+        for rep in mgr.replicas:
+            out = rep.batcher.submit({"prompt": prompt[0], "max_new": 5})
+            np.testing.assert_array_equal(out["tokens"], toks_b[0])
+    finally:
+        mgr.shutdown()
+    assert all(ex.pool.all_free() for ex in exs)
+
+
+def test_generate_swap_params_refuses_a_wrong_tree(model):
+    """swap_params validates the standard-layout tree against the serving
+    one with the JAX package's messages, leaves the serving params alone
+    on a refusal, and copies an accepted tree to the replica's device."""
+    from poseidon_tpu.serving.continuous import \
+        GenerateExecutor as JaxGenerateExecutor
+
+    jcfg, jp, cfg, params = model
+    ex = _executor(cfg, params)
+    jex = JaxGenerateExecutor(jcfg, jp, page_size=4, decode_rungs=(1,),
+                              prompt_buckets=(8,), max_seq_len=24)
+    missing = {n: dict(d) for n, d in params.items()}
+    missing.pop(sorted(missing)[-1])
+    jmissing = dict(jp)
+    jmissing.pop(sorted(jmissing)[-1])
+    name = sorted(params)[0]
+    leaf = sorted(params[name])[0]
+    shape = {n: dict(d) for n, d in params.items()}
+    shape[name][leaf] = shape[name][leaf][..., :-1]
+    jshape = {n: dict(d) for n, d in jp.items()}
+    jshape[name][leaf] = jshape[name][leaf][..., :-1]
+    f64 = {n: dict(d) for n, d in params.items()}
+    f64[name][leaf] = f64[name][leaf].double()
+    for ours, theirs in ((missing, jmissing), (shape, jshape)):
+        with pytest.raises(ValueError) as want:
+            jex.swap_params(theirs)
+        with pytest.raises(ValueError) as got:
+            ex.swap_params(ours)
+        assert str(got.value) == str(want.value)
+    with pytest.raises(ValueError, match="float64/float64|float64 vs"):
+        ex.swap_params(f64)
+    assert ex.params_version == 0 and ex._params[name][leaf].shape == \
+        params[name][leaf].shape
+    assert ex.swap_params({n: {l: v.numpy() * 2 for l, v in d.items()}
+                           for n, d in params.items()}) == 1
+    assert ex._params[name][leaf].device == ex.device
+    assert ex._params[name][leaf] is not params[name][leaf]
