@@ -47,7 +47,8 @@ Phases, in order; any failure exits non-zero without the final ``ok`` line:
      rank's 6 heads at (4,6,1024,64)) and ``[lm_pp_ep]``'s (a pp2
      microbatch's, an ep2 rank's and the CLI pairs' (2,12,1024,64), a
      pp2xtp2 rank's (2,6,1024,64); the MoE decode's prefill is the
-     (1,12,64,64) prefill case); the library yardstick is
+     (1,12,64,64) prefill case) and ``[lm_tp_serve]``'s (a tp2 shard's
+     prefill, (1,6,16|64|256,64) f32); the library yardstick is
      F.scaled_dot_product_attention.
      f32 cases also print the bound at the 3xTF32 rate (3 x operations over
      TF32's 495 TFLOP/s); each case relaunches the kernel on the same
@@ -205,6 +206,22 @@ Phases, in order; any failure exits non-zero without the final ``ok`` line:
    their counts, generated tokens/s at 8 and 1 clients, CUDA-event prefill
    time per bucket, per decode rung the profiled device busy time, the
    CUDA-event span and the host wall time, and peak device memory.
+   Then ``[lm_tp_serve]``: the same gpt_small as a tp2 ``GenerateExecutor``
+   (``mesh_cfg`` tp 2, both shards on cuda:0, built through
+   ``build_generate_executor``) beside the one-device executor from the
+   same weights: (a) prefill logits at every bucket within LM_TOL, and the
+   tokens of LM_REQUESTS requests from LM_CLIENTS clients equal, or each
+   flip shown as an f32 near-tie (the two top logits within LM_TOL of each
+   other at the first step that differs, both arms fed the same prefix);
+   (b) launch counters zeroed before the tp2 traffic and read after it:
+   flash_fwd exactly 2 x 12 a prefill (K1 itself is held against its
+   plain version at the shards' (1,6,16|64|256,64) in ``[flash_fwd]``);
+   (c) ``swap_params`` to seed-1 weights while LMTP_SWAP_REQUESTS
+   requests are in flight: each completes, and the requests submitted
+   after the swap give the seed-1 one-device executor's tokens; (d)
+   generated tokens/s at 8 and at 1 client, and a decode step's host wall
+   beside its profiled device busy time at rungs 1 and 8, both executors
+   in this call.
 8. The LM training slice: gpt_small at full width and depth (max_seq 1024,
    remat on, seeded weights) trained by ``build_dp_sp_train_step`` at
    batch 8 x seq 1024 with bench.py's SGD solver on one fixed seeded
@@ -279,8 +296,9 @@ Phases, in order; any failure exits non-zero without the final ``ok`` line:
    digits solver (1000 iterations, real UCI digits from the repo) into a
    temporary directory; the final test accuracy must reach DIGITS_MIN_ACC.
 13. One JSON line with every kernel's numbers (launches by path, ``dp``,
-    ``topk``, ``loop``, ``lm_par_*``, ``lm_pp_ep_*`` and ``fleet_cnn``,
-    ``fleet_generate``, ``fleet_cli`` among them), then the ``ok`` line.
+    ``topk``, ``loop``, ``lm_par_*``, ``lm_pp_ep_*``, ``lm_tp_serve`` and
+    ``fleet_cnn``, ``fleet_generate``, ``fleet_cli`` among them), then the
+    ``ok`` line.
 """
 
 from __future__ import annotations
@@ -348,6 +366,13 @@ LM_PROMPT_MIN, LM_PROMPT_MAX = 4, 250
 # and one prefill on the card vs the CPU: f32 everywhere, but cuBLAS picks
 # other GEMM splits for other shapes and the CPU sums in another order
 LM_TOL = (1e-4, 1e-4)
+# the [lm_tp_serve] phase: gpt_small served tensor-parallel over LMTP_TP
+# shards, every shard on cuda:0 (the machine has one GPU, so a check of
+# the tp path's correctness and launches, not of tp on cards of their
+# own), beside the one-device executor from the same seed-0 weights
+LMTP_TP = 2
+LMTP_SWAP_REQUESTS = 8
+LMTP_TIMING_RUNGS = (1, 8)
 # flash_dq (K2) and flash_dkv (K3) vs plain: the kernels sum 3xTF32
 # tensor-core products tile by tile, the plain version takes each gradient
 # in one dense f32 product, so they round differently; bf16 outputs round
@@ -391,9 +416,10 @@ LMP_ATT_SHAPE = (4, 12, 512, 64)
 LMP_ATT_SHAPE_TINY = (1, 4, 64, 16)     # a CPU rehearsal's
 LMP_BATCH, LMP_SEQ, LMP_STEPS = 4, 1024, 3
 # the depth of (b), of [lm_pp_ep]'s (a) and (b) and of both phases' CLI
-# ranks: gpt_small's width at half its 12 layers, cut to keep the whole
-# smoke inside 1000 s of its 1200 s limit (1032 s at 12 on one H100)
-LMP_LAYERS = 6
+# ranks: gpt_small's width at a third of its 12 layers, cut to keep the
+# whole smoke inside 1000 s of its 1200 s limit (1032 s at 12 layers and
+# 950.6 s at 6 on one H100, before [lm_tp_serve] added ~50 s)
+LMP_LAYERS = 4
 LMP_ARMS = {"sp2": (("data", "seq"), (1, 2), "sp"),
             "tp2": (("data", "model"), (1, 2), "tp"),
             "sp2xtp2": (("data", "seq", "model"), (1, 2, 2), "tp")}
@@ -1087,7 +1113,17 @@ def flash_cases():
                ("ring mode 0", (2, 4, 128, 64), f32, True, 0),
                ("ring mode -1", (2, 4, 128, 64), f32, True, -1),
                ("odd", (1, 3, 48, 16), f32, True, None)]
-            + lm_par_flash_cases() + lm_pp_ep_flash_cases())
+            + lm_par_flash_cases() + lm_pp_ep_flash_cases()
+            + lm_tp_flash_cases())
+
+
+def lm_tp_flash_cases():
+    """(label, shape, dtype, causal, mode) of K1 at ``[lm_tp_serve]``'s
+    call sites: a tp shard's prefill, its H/LMTP_TP heads at each gpt_small
+    prompt bucket, f32."""
+    import torch
+    return [(f"lm_tp_serve prefill {s}", (1, 12 // LMTP_TP, s, 64),
+             torch.float32, True, None) for s in (16, 64, 256)]
 
 
 def lm_par_flash_cases():
@@ -1930,10 +1966,10 @@ def fleet_cnn(card: str, dev, model: str, slice_runs) -> dict:
     return out
 
 
-def fleet_lm_tokens(addr_or_sched, prompts, clients: int) -> list:
-    """Greedy tokens of every prompt (max_new FLEET_LM_MAX_NEW), from
-    ``clients`` threads: through a socket address, or straight into a
-    scheduler."""
+def fleet_lm_tokens(addr_or_sched, prompts, clients: int,
+                    max_new: int = FLEET_LM_MAX_NEW) -> list:
+    """Greedy tokens of every prompt (``max_new`` each), from ``clients``
+    threads: through a socket address, or straight into a scheduler."""
     from poseidon_tpu_torch.serving.client import ServingClient
     out = [None] * len(prompts)
     errors = []
@@ -1952,11 +1988,11 @@ def fleet_lm_tokens(addr_or_sched, prompts, clients: int) -> list:
                     nxt["v"] = i + 1
                 try:
                     if cli is not None:
-                        r = cli.generate(prompts[i], max_new=FLEET_LM_MAX_NEW)
+                        r = cli.generate(prompts[i], max_new=max_new)
                     else:
                         r = addr_or_sched.submit(
-                            {"prompt": prompts[i],
-                             "max_new": FLEET_LM_MAX_NEW}, timeout_s=300)
+                            {"prompt": prompts[i], "max_new": max_new},
+                            timeout_s=300)
                     out[i] = [int(t) for t in r["tokens"]]
                 except Exception as e:  # noqa: BLE001 — checked below
                     errors.append(e)
@@ -5373,10 +5409,7 @@ def phase_lm_timing(ex, card: str) -> dict:
     profiled steps), its CUDA-event span and its host wall time (tensors
     in, logits back on the host; unprofiled, mean of 10), whose ratio is
     the busy share; the top kernels of a step at the largest rung."""
-    import numpy as np
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from poseidon_tpu_torch.models.generate import prefill_cached
 
     prefill_ms = {}
@@ -5404,46 +5437,275 @@ def phase_lm_timing(ex, card: str) -> dict:
           f"{prefill_flash:.4f} ms in {ex.cfg.n_layers} launches [{card}]",
           flush=True)
     decode = {}
-    width = ex.pool.max_pages_per_seq
-    steps = 5
     top = []
     for r in ex.decode_rungs:
-        args = (np.zeros((r,), np.int64), np.zeros((r, width), np.int64),
-                np.zeros((r,), np.int64))
-        span = cuda_time_ms(lambda: ex._run_decode(*args), warmup=2, reps=10)
-        t0 = time.perf_counter()
-        for _ in range(10):
-            ex._run_decode(*args)       # returns host logits: synchronizes
-        wall = (time.perf_counter() - t0) / 10 * 1e3
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(steps):
-                ex._run_decode(*args)
-            torch.cuda.synchronize()
-        per_kernel, launches = {}, 0
-        for e in prof.events():
-            if e.device_type == DeviceType.CUDA:
-                launches += 1
-                per_kernel[e.name] = (per_kernel.get(e.name, 0.0)
-                                      + e.time_range.elapsed_us())
-        busy = sum(per_kernel.values()) / steps / 1e3
-        decode[r] = {"device_busy_ms": busy, "cuda_event_ms": span,
-                     "host_wall_ms": wall,
-                     "busy_share": busy / wall if wall else None,
-                     "device_ops_per_step": launches / steps}
-        top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:6]
-        print(f"[lm] decode rung {r}: device busy {busy:.3f} ms "
-              f"(torch.profiler, {launches / steps:.0f} device ops a step), "
-              f"CUDA-event span {span:.3f} ms, host wall {wall:.3f} ms a "
-              f"step: busy share {decode[r]['busy_share']:.3f} [{card}]",
-              flush=True)
+        decode[r], top = decode_step_timing(ex, r)
+        print(f"[lm] decode rung {r}: device busy "
+              f"{decode[r]['device_busy_ms']:.3f} ms (torch.profiler, "
+              f"{decode[r]['device_ops_per_step']:.0f} device ops a step), "
+              f"CUDA-event span {decode[r]['cuda_event_ms']:.3f} ms, host "
+              f"wall {decode[r]['host_wall_ms']:.3f} ms a step: busy share "
+              f"{decode[r]['busy_share']:.3f} [{card}]", flush=True)
     if top:
         print(f"[lm] rung {ex.decode_rungs[-1]} step, top kernels (mean ms "
               f"a step):", flush=True)
-        for name, us in top:
-            print(f"  {us / steps / 1e3:8.4f} ms  {name[:90]}", flush=True)
+        for name, ms in top:
+            print(f"  {ms:8.4f} ms  {name[:90]}", flush=True)
     return {"prefill_ms": prefill_ms, "prefill_busy_ms": prefill_busy,
             "prefill_flash_ms": prefill_flash, "decode": decode}
+
+
+def decode_step_timing(ex, r: int, steps: int = 5):
+    """One decode step of ``ex`` at rung ``r`` (inactive rows, the scratch
+    page): its device busy time (the sum of its device ops in
+    torch.profiler over ``steps`` profiled steps), its CUDA-event span and
+    its host wall time (tensors in, logits back on the host; unprofiled,
+    mean of 10), whose ratio is the busy share. Returns (that dict, the
+    step's top 6 kernels as (name, mean ms a step))."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    args = (np.zeros((r,), np.int64),
+            np.zeros((r, ex.pool.max_pages_per_seq), np.int64),
+            np.zeros((r,), np.int64))
+    span = cuda_time_ms(lambda: ex._run_decode(*args), warmup=2, reps=10)
+    t0 = time.perf_counter()
+    for _ in range(10):
+        ex._run_decode(*args)       # returns host logits: synchronizes
+    wall = (time.perf_counter() - t0) / 10 * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            ex._run_decode(*args)
+        torch.cuda.synchronize()
+    per_kernel, launches = {}, 0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            launches += 1
+            per_kernel[e.name] = (per_kernel.get(e.name, 0.0)
+                                  + e.time_range.elapsed_us())
+    busy = sum(per_kernel.values()) / steps / 1e3
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:6]
+    return ({"device_busy_ms": busy, "cuda_event_ms": span,
+             "host_wall_ms": wall, "busy_share": busy / wall if wall else None,
+             "device_ops_per_step": launches / steps},
+            [(name, us / steps / 1e3) for name, us in top])
+
+
+def forced_logits(ex, prompt, tokens):
+    """Per-step logits (len(tokens), V) of one request through ``ex``'s
+    paged path by hand, fed ``tokens`` (not its own argmax): step 0 from
+    the prefill, step i from the rung-1 decode of tokens[i - 1]."""
+    import numpy as np
+    sid = -1
+    ex.pool.alloc(sid, ex.reserve_len(len(prompt), len(tokens)))
+    try:
+        logits, caches = ex.prefill(prompt)
+        ex.pool.write_prefill(sid, caches)
+        table = ex.pool.table([sid])
+        steps = [logits]
+        for i, tok in enumerate(tokens[:-1]):
+            steps.append(ex.decode(np.array([tok]), table,
+                                   np.array([len(prompt) + i]))[0])
+    finally:
+        ex.pool.free(sid)
+    return np.stack(steps)
+
+
+def lm_tp_flips(one, tp, prompts, want, got) -> list:
+    """Each request whose tp tokens (``got``) differ from the one-device
+    executor's (``want``): both arms fed the one-device tokens (the same
+    prefix), the first step whose tokens differ must be an f32 near-tie:
+    the one-device logits of the two tokens within LM_TOL of each other,
+    and the two arms' logits there within LM_TOL. Returns one record a
+    flip; fails otherwise."""
+    import numpy as np
+    rtol, atol = LM_TOL
+    flips = []
+    for i, (w, g) in enumerate(zip(want, got)):
+        if w == g:
+            continue
+        k = next(j for j, (a, b) in enumerate(zip(w, g)) if a != b)
+        lo = forced_logits(one, prompts[i], w)[k]
+        lt = forced_logits(tp, prompts[i], w)[k]
+        a, b = w[k], g[k]
+        gap = float(abs(lo[a] - lo[b]))
+        err = float(np.abs(lo - lt).max())
+        rec = {"request": i, "step": k, "one": a, "tp": b, "top2_gap": gap,
+               "logits_max_abs": err}
+        print(f"[lm_tp_serve] request {i} flips at step {k}: one-device "
+              f"token {a}, tp token {b}; one-device logits {lo[a]:.7g} vs "
+              f"{lo[b]:.7g} (gap {gap:.3e}), the arms' logits max_abs "
+              f"{err:.3e} (rtol {rtol:g}, atol {atol:g})", flush=True)
+        check(gap <= atol + rtol * abs(float(lo[a]))
+              and bool(np.allclose(lo, lt, rtol=rtol, atol=atol)),
+              f"request {i}: tp and one-device tokens part at step {k} "
+              f"without a near-tie ({rec})")
+        flips.append(rec)
+    return flips
+
+
+def phase_lm_tp_serve(card: str, device=None, preset: str = LM_PRESET,
+                      n_requests: int = LM_REQUESTS,
+                      solo_requests: int = LM_SOLO_REQUESTS,
+                      swap_requests: int = LMTP_SWAP_REQUESTS) -> dict:
+    """``[lm_tp_serve]`` (the module docstring's item 7). ``device``,
+    ``preset`` and the request counts are for a CPU rehearsal only."""
+    import numpy as np
+    import torch
+    from poseidon_tpu_torch.config import MeshConfig
+    from poseidon_tpu_torch.models.transformer import init_params
+    from poseidon_tpu_torch.runtime.cli import build_generate_executor
+
+    t_phase = time.perf_counter()
+    dev = torch.device(device or "cuda:0")
+    on_card = dev.type == "cuda"
+    group = (str(dev),) * LMTP_TP
+    t0 = time.perf_counter()
+    one = build_generate_executor(preset, device=dev)
+    one_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tp = build_generate_executor(preset, mesh_cfg=MeshConfig(tp=LMTP_TP),
+                                 devices=group)
+    tp_s = time.perf_counter() - t0
+    cfg = one.cfg
+    print(f"[lm_tp_serve] {preset} as tp{LMTP_TP} over {list(group)} "
+          f"(mesh {tp.snapshot()['mesh']}; {cfg.n_heads // LMTP_TP} heads "
+          f"and d_ff {cfg.d_ff // LMTP_TP} a shard), built and warmed in "
+          f"{tp_s:.2f} s, beside one device ({one_s:.2f} s); seed-0 weights",
+          flush=True)
+
+    # (a) prefill logits at every bucket
+    rtol, atol = LM_TOL
+    prompts = lm_traffic(one, n_requests)
+    prefill_err = {}
+    for b, prompt in zip(one.prompt_buckets, prompts):
+        lo, _ = one._run_prefill(prompt)
+        lt, _ = tp._run_prefill(prompt)
+        prefill_err[b] = float(np.abs(lo - lt).max())
+        check(bool(np.allclose(lt, lo, rtol=rtol, atol=atol)),
+              f"tp{LMTP_TP} prefill logits at bucket {b} disagree with one "
+              f"device's ({prefill_err[b]})")
+    print(f"[lm_tp_serve] (a) prefill first-token logits, tp{LMTP_TP} vs "
+          f"one device, max_abs by bucket {prefill_err} (rtol {rtol:g}, atol "
+          f"{atol:g})", flush=True)
+
+    def serve(ex, reqs, clients):
+        """Greedy tokens of ``reqs`` from ``clients`` threads straight into
+        ``ex``'s scheduler, and the generated tokens/s."""
+        sched = ex.make_batcher(max_queue=len(reqs))
+        try:
+            t0 = time.perf_counter()
+            toks = fleet_lm_tokens(sched, reqs, clients, LM_MAX_NEW)
+            return toks, len(reqs) * LM_MAX_NEW / (time.perf_counter() - t0)
+        finally:
+            sched.close()
+
+    # (a), (b), (d): the same traffic through each scheduler in turns (one
+    # device at 8 clients, tp at 8 and at 1, one device at 1); the launch
+    # counters span the tp runs alone
+    solo = prompts[:solo_requests]
+    want, one_8 = serve(one, prompts, LM_CLIENTS)
+    zero_launches()
+    prefills0 = tp.prefills
+    got, tp_8 = serve(tp, prompts, LM_CLIENTS)
+    got_1, tp_1 = serve(tp, solo, 1)
+    sync(dev)
+    counts = read_launches()
+    prefills = tp.prefills - prefills0
+    want_1, one_1 = serve(one, solo, 1)
+    check(tp.pool.all_free() and one.pool.all_free(),
+          "KV pages leaked after the drain")
+    check(all(len(t) == LM_MAX_NEW for t in got + want + got_1 + want_1),
+          f"a reply without {LM_MAX_NEW} tokens")
+    flips = (lm_tp_flips(one, tp, prompts, want, got)
+             + lm_tp_flips(one, tp, solo, want_1, got_1))
+    same = sum(a == b for a, b in zip(got, want))
+    per_prefill = LMTP_TP * cfg.n_layers if on_card else 0
+    print(f"[lm_tp_serve] (a) {n_requests} requests from {LM_CLIENTS} "
+          f"clients, max_new {LM_MAX_NEW}: tp{LMTP_TP} tokens equal to one "
+          f"device's for {same}/{n_requests} ({len(flips)} near-tie flips "
+          f"in all, the {solo_requests} 1-client requests included); (b) "
+          f"{prefills} tp prefills, launches {counts} (flash_fwd expected "
+          f"{per_prefill} x {prefills})", flush=True)
+    check(counts["flash_fwd"] == per_prefill * prefills,
+          f"flash_fwd launched {counts['flash_fwd']} times for {prefills} "
+          f"tp{LMTP_TP} prefills (expected {per_prefill} a prefill)")
+    check(all(v == 0 for k, v in counts.items() if k != "flash_fwd"),
+          f"tp serving launched a kernel of another path: {counts}")
+
+    # (c) swap_params to seed-1 weights while requests are in flight
+    new = init_params(cfg, torch.Generator().manual_seed(1))
+    swap_prompts = lm_traffic(one, 2 * swap_requests, seed=7)
+    before, after = swap_prompts[:swap_requests], swap_prompts[swap_requests:]
+    sched = tp.make_batcher(max_queue=2 * swap_requests)
+    box = {}
+    try:
+        flight = threading.Thread(
+            target=lambda: box.update(toks=fleet_lm_tokens(
+                sched, before, LM_CLIENTS, LM_MAX_NEW)), daemon=True)
+        flight.start()
+        deadline = time.monotonic() + 120
+        while not sched.inflight_rows:
+            check(time.monotonic() < deadline, "the swap's traffic stalled")
+            time.sleep(0.001)
+        t0 = time.perf_counter()
+        version = tp.swap_params(new)
+        swap_s = time.perf_counter() - t0
+        inflight = sched.inflight_rows
+        got_new = fleet_lm_tokens(sched, after, LM_CLIENTS, LM_MAX_NEW)
+        flight.join(timeout=300)
+        check(not flight.is_alive() and "toks" in box,
+              "requests in flight during the swap did not complete")
+    finally:
+        sched.close()
+    one.swap_params(new)
+    want_new, _ = serve(one, after, LM_CLIENTS)
+    flips_new = lm_tp_flips(one, tp, after, want_new, got_new)
+    same_new = sum(a == b for a, b in zip(got_new, want_new))
+    print(f"[lm_tp_serve] (c) swap_params to seed-1 weights in {swap_s:.3f} "
+          f"s with {inflight} sequences in flight (version {version}): the "
+          f"{swap_requests} requests in flight completed; the "
+          f"{swap_requests} submitted after it equal the seed-1 one-device "
+          f"executor's tokens for {same_new}/{swap_requests} "
+          f"({len(flips_new)} near-tie flips)", flush=True)
+    check(all(len(t) == LM_MAX_NEW for t in box["toks"]),
+          "a request in flight during the swap came back short")
+
+    # (d) tokens/s and a decode step's host wall beside its device time
+    print(f"[lm_tp_serve] (d) generated tokens/s, one device / tp{LMTP_TP}: "
+          f"{one_8:.1f} / {tp_8:.1f} at {LM_CLIENTS} clients "
+          f"({tp_8 / one_8:.3f}x), {one_1:.1f} / {tp_1:.1f} at 1 client "
+          f"({tp_1 / one_1:.3f}x) [{card}]", flush=True)
+    decode = {}
+    if on_card:
+        for r in LMTP_TIMING_RUNGS:
+            for arm, ex in (("one", one), (f"tp{LMTP_TP}", tp)):
+                decode[f"{arm} rung {r}"], _ = decode_step_timing(ex, r)
+            a, b = decode[f"one rung {r}"], decode[f"tp{LMTP_TP} rung {r}"]
+            print(f"[lm_tp_serve] (d) decode rung {r}, one device / "
+                  f"tp{LMTP_TP}: host wall {a['host_wall_ms']:.3f} / "
+                  f"{b['host_wall_ms']:.3f} ms a step "
+                  f"({b['host_wall_ms'] / a['host_wall_ms']:.3f}x), device "
+                  f"busy {a['device_busy_ms']:.3f} / "
+                  f"{b['device_busy_ms']:.3f} ms ({a['device_ops_per_step']:.0f}"
+                  f" / {b['device_ops_per_step']:.0f} device ops), busy share "
+                  f"{a['busy_share']:.3f} / {b['busy_share']:.3f} [{card}]",
+                  flush=True)
+    wall = time.perf_counter() - t_phase
+    print(f"[lm_tp_serve] phase wall {wall:.1f} s", flush=True)
+    return {"tp": LMTP_TP, "devices": list(group),
+            "mesh": tp.snapshot()["mesh"], "build_s": tp_s,
+            "prefill_logits_max_abs": prefill_err,
+            "requests": n_requests, "tokens_equal": same, "flips": flips,
+            "prefills": prefills, "launches": counts,
+            "launches_per_prefill": counts["flash_fwd"] // max(1, prefills),
+            "swap": {"s": swap_s, "inflight": inflight,
+                     "tokens_equal": same_new, "flips": flips_new},
+            "tokens_per_s": {"one": {LM_CLIENTS: one_8, 1: one_1},
+                             f"tp{LMTP_TP}": {LM_CLIENTS: tp_8, 1: tp_1}},
+            "decode": decode, "wall_s": wall}
 
 
 def lm_train_setup(preset: str, batch: int, seq: int, device,
@@ -6735,6 +6997,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         lm = phase_lm(card)
         torch.cuda.empty_cache()
+        lm_tp = phase_lm_tp_serve(card)
+        torch.cuda.empty_cache()
         lm_train = phase_lm_train(card)
         torch.cuda.empty_cache()
         with policy_scope(compute_dtype=torch.bfloat16):
@@ -6813,6 +7077,7 @@ def main() -> int:
                                            "flash_fwd"]},
                      launches_per_prefill=(lm["flash_launches"]
                                            // max(1, lm["prefills"])),
+                     launches_per_tp_prefill=lm_tp["launches_per_prefill"],
                      profiled_ms_per_prefill_256=lm["prefill_flash_ms"],
                      launches_per_training_step=lm_train[
                          "launches_per_step"]["flash_fwd"],
@@ -6923,6 +7188,9 @@ def main() -> int:
         entry["launches_by_path"].update(
             {f"lm_pp_ep_{path}": counts.get(name, 0)
              for path, counts in lm_pp_ep["launches"].items()})
+        # the tp-sharded generate executor's traffic
+        entry["launches_by_path"]["lm_tp_serve"] = lm_tp["launches"].get(
+            name, 0)
         # the serving fleet's paths: the CNN replicas, the generate
         # replicas, and the serve and bench_serve children
         entry["launches_by_path"].update(
@@ -6947,6 +7215,7 @@ def main() -> int:
                "fabric": fabric,
                "loop": loop,
                "lm_serving": lm,
+               "lm_tp_serve": lm_tp,
                "lm_training": lm_train,
                "lm_corpus": lm_corpus,
                "layout_conv1": conv1,

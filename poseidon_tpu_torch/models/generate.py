@@ -25,6 +25,16 @@ token count, so every routed token reaches its expert; prefill routes its
 tokens in chunks of 256 (routing is per token, so chunking changes
 nothing), as JAX bounds its one-hot dispatch tensor. ``paged_decode_step``
 serves dense models only and refuses an ``MoEConfig`` with JAX's message.
+
+``tp_layout=`` marks head-major ``wqkv`` rows (``to_tp_layout``), as in
+the JAX package. ``tp_prefill_cached`` and ``tp_paged_decode_step`` serve a
+model tensor-parallel from ONE controller, where the JAX package compiles
+one GSPMD program over a mesh: each shard holds its heads' q/k/v rows,
+``wo`` columns, ``w1`` rows and ``w2`` columns (``tp_shard``) and its heads'
+KV caches on its own device; the controller takes each layer norm once,
+sends its output to every shard (Megatron's ``f``), and sums the shards'
+partial ``wo`` and ``w2`` products back in rank order (``g``). The dense
+leaves have no bias, so nothing is added once a shard.
 """
 
 from __future__ import annotations
@@ -38,7 +48,11 @@ import torch
 from ..ops.flash import maybe_flash_attention
 from .moe import moe_ffn
 from .transformer import (TransformerConfig, _dense, _layer_norm,
-                          embed_tokens, ffn_sublayer, lm_head)
+                          embed_tokens, ffn_product, ffn_sublayer, lm_head)
+
+# JAX's refusal of an MoE config in paged decode (models/generate.py)
+MOE_PAGED_REFUSAL = ("paged decode serves dense TransformerConfig models; "
+                     "MoE decode stays on the dense-cache generate() path")
 
 # tokens an MoE prefill routes a call: JAX's chunk, which bounds its
 # one-hot dispatch tensor (the port's gathers need no bound; the same
@@ -60,34 +74,53 @@ def _attend_cached(q, ck, cv, q_pos0):
     return torch.einsum("bhst,bhtd->bhsd", probs, cv.float())
 
 
-def _qkv(cfg: TransformerConfig, x, blk):
-    """ln1 -> fused qkv -> (q, k, v) each (B, H, S, Dh): the qkv rows are
-    [q heads; k heads; v heads]."""
-    b, s, _ = x.shape
+def _split_qkv(cfg: TransformerConfig, qkv, tp_layout: bool):
+    """Fused projections (B, S, 3*Hl*Dh) -> (q, k, v) each (B, Hl, S, Dh):
+    rows [q heads; k heads; v heads], or head-major [(q, k, v) of head 0;
+    ...] under ``tp_layout`` (``transformer.to_tp_layout``). Hl is the heads
+    the rows hold: all of them, or a tp shard's."""
+    b, s, n = qkv.shape
     dh = cfg.d_model // cfg.n_heads
-    h = _layer_norm(x, blk["ln1_g"], blk["ln1_b"])
-    qkv = _dense(h, blk["wqkv"]).reshape(b, s, 3, cfg.n_heads, dh)
+    hl = n // (3 * dh)
+    if tp_layout:
+        qkv = qkv.reshape(b, s, hl, 3, dh)
+        return tuple(qkv[:, :, :, j].transpose(1, 2) for j in range(3))
+    qkv = qkv.reshape(b, s, 3, hl, dh)
     return tuple(qkv[:, :, j].transpose(1, 2) for j in range(3))
 
 
-def _block_cached(cfg: TransformerConfig, x, blk, ck, cv, pos0: int, *,
-                  moe_cfg=None, prefill: bool = False):
-    """One decoder block writing this call's K/V at ``pos0`` (in place) and
-    attending against the cache. Returns (x_out, ck, cv). ``prefill`` marks
-    the first call, where the cache holds nothing but this call's own keys:
-    attention is then causal self-attention over the prompt, routed
-    through the flash path. With ``moe_cfg`` the FFN is the dropless
-    switch FFN (all experts local, capacity = the chunk's tokens)."""
-    b, s, _ = x.shape
-    q, k, v = _qkv(cfg, x, blk)
+def _attn_cached(cfg: TransformerConfig, h, wqkv, wo, ck, cv, pos0: int, *,
+                 prefill: bool, tp_layout: bool):
+    """The attention of ``_block_cached`` from its ln1 output ``h``: write
+    this call's K/V at ``pos0`` (in place), attend, and return ``att @
+    wo^T`` (B, S, D). Given a tp shard's ``wqkv`` rows, ``wo`` columns and
+    caches, it is the shard form: that shard's heads and its partial
+    product."""
+    b, s, _ = h.shape
+    q, k, v = _split_qkv(cfg, _dense(h, wqkv), tp_layout)
     ck[:, :, pos0:pos0 + s] = k.to(ck.dtype)
     cv[:, :, pos0:pos0 + s] = v.to(cv.dtype)
     if prefill:
         att = maybe_flash_attention(q, k, v, causal=True)
     else:
         att = _attend_cached(q, ck, cv, pos0)
-    att = att.transpose(1, 2).reshape(b, s, cfg.d_model)
-    x = x + _dense(att, blk["wo"]).to(x.dtype)
+    return _dense(att.transpose(1, 2).reshape(b, s, -1), wo)
+
+
+def _block_cached(cfg: TransformerConfig, x, blk, ck, cv, pos0: int, *,
+                  moe_cfg=None, prefill: bool = False,
+                  tp_layout: bool = False):
+    """One decoder block writing this call's K/V at ``pos0`` (in place) and
+    attending against the cache. Returns (x_out, ck, cv). ``prefill`` marks
+    the first call, where the cache holds nothing but this call's own keys:
+    attention is then causal self-attention over the prompt, routed
+    through the flash path. With ``moe_cfg`` the FFN is the dropless
+    switch FFN (all experts local, capacity = the chunk's tokens).
+    ``tp_layout`` marks head-major ``wqkv`` rows (``to_tp_layout``)."""
+    b, s, _ = x.shape
+    h = _layer_norm(x, blk["ln1_g"], blk["ln1_b"])
+    x = x + _attn_cached(cfg, h, blk["wqkv"], blk["wo"], ck, cv, pos0,
+                         prefill=prefill, tp_layout=tp_layout).to(x.dtype)
     if moe_cfg is None:
         return ffn_sublayer(x, blk), ck, cv
     h = _layer_norm(x, blk["ln2_g"], blk["ln2_b"])
@@ -109,12 +142,24 @@ def _split_cfg(cfg):
     return (base, cfg) if base is not None else (cfg, None)
 
 
-def _zero_caches(bcfg: TransformerConfig, b: int, total: int, device):
+def _check_dense(cfg) -> TransformerConfig:
+    """The base config of a dense model; an ``MoEConfig`` is refused with
+    JAX's paged-decode message."""
+    bcfg, moe_cfg = _split_cfg(cfg)
+    if moe_cfg is not None:
+        raise NotImplementedError(MOE_PAGED_REFUSAL)
+    return bcfg
+
+
+def _zero_caches(bcfg: TransformerConfig, b: int, total: int, device,
+                 heads: Optional[int] = None):
+    """Per-layer (K, V) dense caches (b, heads, total, Dh), all heads
+    unless a tp shard's count is given."""
     dh = bcfg.d_model // bcfg.n_heads
-    return tuple(
-        (torch.zeros((b, bcfg.n_heads, total, dh), device=device),
-         torch.zeros((b, bcfg.n_heads, total, dh), device=device))
-        for _ in range(bcfg.n_layers))
+    shape = (b, heads or bcfg.n_heads, total, dh)
+    return tuple((torch.zeros(shape, device=device),
+                  torch.zeros(shape, device=device))
+                 for _ in range(bcfg.n_layers))
 
 
 def _forward_cached(params, cfg, tokens, caches, pos0: int, *,
@@ -136,7 +181,7 @@ def _forward_cached(params, cfg, tokens, caches, pos0: int, *,
 
 
 def prefill_cached(params, cfg, tokens: torch.Tensor, last_idx: torch.Tensor,
-                   total: int):
+                   total: int, *, tp_layout: bool = False):
     """Serving prefill: tokens (B, Pb) right-padded prompts, ``last_idx``
     (B,) the index of each row's last REAL token, ``total`` the cache
     length to allocate. Returns (logits at last_idx (B, V), dense per-layer
@@ -144,18 +189,24 @@ def prefill_cached(params, cfg, tokens: torch.Tensor, last_idx: torch.Tensor,
 
     Padding positions write garbage K/V past last_idx; decode's visibility
     mask never exposes a position before the decode loop has overwritten
-    it with a real token's K/V."""
+    it with a real token's K/V. ``tp_layout`` marks head-major ``wqkv``
+    rows (``to_tp_layout``)."""
     bcfg, moe_cfg = _split_cfg(cfg)
     b, _ = tokens.shape
     caches = _zero_caches(bcfg, b, total, tokens.device)
     x = embed_tokens(params, tokens, pos_offset=0)
     for i in range(bcfg.n_layers):
         x, _, _ = _block_cached(bcfg, x, params[f"block{i}"], *caches[i], 0,
-                                moe_cfg=moe_cfg, prefill=True)
-    logits = lm_head(params, x)                        # (B, Pb, V)
+                                moe_cfg=moe_cfg, prefill=True,
+                                tp_layout=tp_layout)
+    return _pick_last(lm_head(params, x), last_idx), caches
+
+
+def _pick_last(logits, last_idx):
+    """(B, Pb, V) logits -> (B, V) at each row's ``last_idx``."""
     idx = last_idx.long().to(logits.device)[:, None, None].expand(
         -1, 1, logits.shape[-1])
-    return torch.gather(logits, 1, idx)[:, 0], caches
+    return torch.gather(logits, 1, idx)[:, 0]
 
 
 def _attend_paged(q, ck, cv, pos):
@@ -173,31 +224,59 @@ def _attend_paged(q, ck, cv, pos):
     return torch.einsum("bhst,bhtd->bhsd", probs, cv.float())
 
 
-def _block_paged(cfg: TransformerConfig, x, blk, pk, pv, page_table,
-                 slot_pages, slots, pos):
-    """One decoder block over PAGED caches: scatter this token's K/V into
-    each row's (page, slot) in place, gather the row's pages back into a
-    (B,H,T,Dh) view, attend with the ragged mask."""
-    b, s, _ = x.shape                                  # s == 1
-    dh = cfg.d_model // cfg.n_heads
-    q, k, v = _qkv(cfg, x, blk)
-    # (B,H,1,Dh) -> per-row scatter at [(page, slot)]; inactive rows all
+def _attn_paged(cfg: TransformerConfig, h, wqkv, wo, pk, pv, page_table,
+                slot_pages, slots, pos, *, tp_layout: bool):
+    """The attention of ``_block_paged`` from its ln1 output ``h``: scatter
+    this token's K/V into each row's (page, slot) in place, gather the
+    row's pages back into a (B,Hl,T,Dh) view, attend with the ragged mask,
+    return ``att @ wo^T`` (B, 1, D). Given a tp shard's ``wqkv`` rows,
+    ``wo`` columns and page pools, it is the shard form."""
+    b, s, _ = h.shape                                  # s == 1
+    q, k, v = _split_qkv(cfg, _dense(h, wqkv), tp_layout)
+    hl, dh = q.shape[1], q.shape[3]
+    # (B,Hl,1,Dh) -> per-row scatter at [(page, slot)]; inactive rows all
     # point at the scratch page 0 slot 0, harmless by construction
     pk[slot_pages, :, slots, :] = k[:, :, 0, :].to(pk.dtype)
     pv[slot_pages, :, slots, :] = v[:, :, 0, :].to(pv.dtype)
-    # page-table indirection: (B, P_seq) -> (B, P_seq, H, psz, Dh) ->
-    # (B, H, P_seq*psz, Dh); pages sit in sequence order, so gathered index
+    # page-table indirection: (B, P_seq) -> (B, P_seq, Hl, psz, Dh) ->
+    # (B, Hl, P_seq*psz, Dh); pages sit in sequence order, so gathered index
     # j IS absolute position j
-    ck = pk[page_table].permute(0, 2, 1, 3, 4).reshape(b, cfg.n_heads, -1, dh)
-    cv = pv[page_table].permute(0, 2, 1, 3, 4).reshape(b, cfg.n_heads, -1, dh)
+    ck = pk[page_table].permute(0, 2, 1, 3, 4).reshape(b, hl, -1, dh)
+    cv = pv[page_table].permute(0, 2, 1, 3, 4).reshape(b, hl, -1, dh)
     att = _attend_paged(q, ck, cv, pos)
-    att = att.transpose(1, 2).reshape(b, s, cfg.d_model)
-    x = x + _dense(att, blk["wo"]).to(x.dtype)
+    return _dense(att.transpose(1, 2).reshape(b, s, hl * dh), wo)
+
+
+def _block_paged(cfg: TransformerConfig, x, blk, pk, pv, page_table,
+                 slot_pages, slots, pos, *, tp_layout: bool = False):
+    """One decoder block over PAGED caches (``_attn_paged``), then the FFN.
+    ``tp_layout`` marks head-major ``wqkv`` rows (``to_tp_layout``)."""
+    h = _layer_norm(x, blk["ln1_g"], blk["ln1_b"])
+    x = x + _attn_paged(cfg, h, blk["wqkv"], blk["wo"], pk, pv, page_table,
+                        slot_pages, slots, pos,
+                        tp_layout=tp_layout).to(x.dtype)
     return ffn_sublayer(x, blk), pk, pv
 
 
+def _paged_indices(page_table, pos, psz: int):
+    """(page_table, pos, slot_pages, slots) as longs: each row's page and
+    slot for the token it writes at ``pos``."""
+    pos = pos.long()
+    page_table = page_table.long()
+    slot_pages = torch.gather(page_table, 1,
+                              torch.div(pos, psz,
+                                        rounding_mode="floor")[:, None])[:, 0]
+    return page_table, pos, slot_pages, pos % psz
+
+
+def _decode_embed(params, tok, pos):
+    return (params["embed"]["w"][tok.long()[:, None]]
+            + params["pos"]["w"][pos][:, None, :])
+
+
 def paged_decode_step(params, cfg, tok: torch.Tensor, caches,
-                      page_table: torch.Tensor, pos: torch.Tensor):
+                      page_table: torch.Tensor, pos: torch.Tensor, *,
+                      tp_layout: bool = False):
     """ONE token for every row against paged KV caches: the serving decode
     step.
 
@@ -207,26 +286,111 @@ def paged_decode_step(params, cfg, tok: torch.Tensor, caches,
     sequence order, unused entries page 0 (the reserved scratch page); pos
     (B,) int - the absolute position this token is written at. Returns
     (logits (B, V), caches). Inactive rows (padding up to the rung): an
-    all-scratch table row, pos 0, tok 0."""
-    bcfg, moe_cfg = _split_cfg(cfg)
-    if moe_cfg is not None:
-        raise NotImplementedError(
-            "paged decode serves dense TransformerConfig models; MoE "
-            "decode stays on the dense-cache generate() path")
-    psz = caches[0][0].shape[2]
-    pos = pos.long()
-    page_table = page_table.long()
-    slot_pages = torch.gather(page_table, 1,
-                              torch.div(pos, psz,
-                                        rounding_mode="floor")[:, None])[:, 0]
-    slots = pos % psz
-    x = (params["embed"]["w"][tok.long()[:, None]]
-         + params["pos"]["w"][pos][:, None, :])
+    all-scratch table row, pos 0, tok 0. ``tp_layout`` marks head-major
+    ``wqkv`` rows (``to_tp_layout``)."""
+    bcfg = _check_dense(cfg)
+    page_table, pos, slot_pages, slots = _paged_indices(
+        page_table, pos, caches[0][0].shape[2])
+    x = _decode_embed(params, tok, pos)
     for i in range(bcfg.n_layers):
         pk, pv = caches[i]
         x, _, _ = _block_paged(bcfg, x, params[f"block{i}"], pk, pv,
-                               page_table, slot_pages, slots, pos)
+                               page_table, slot_pages, slots, pos,
+                               tp_layout=tp_layout)
     return lm_head(params, x)[:, -1], caches
+
+
+# --------------------------------------------------------------------------- #
+# Tensor-parallel serving: one controller over head-sharded weights and KV
+# pools (the counterpart of the JAX package's GSPMD-placed tp executor)
+# --------------------------------------------------------------------------- #
+
+
+def _tp_reduce(parts, device):
+    """Megatron's ``g``: the shards' partial products summed on ``device``
+    in rank order 0, 1, ... (out of place: no shard's buffer is written)."""
+    y = parts[0]
+    for part in parts[1:]:
+        y = y + part.to(device)
+    return y
+
+
+def _tp_block(x, blocks, attend):
+    """One decoder block over tp shards, driven from the controller: ln1
+    once on ``x``'s device (shard 0's), its output sent to each shard's
+    device (Megatron's ``f``), ``attend(t, h_t)`` each shard's partial
+    attention, the partials summed back in rank order and added to the
+    residual once; then the same for ln2 and the FFN. ``blocks`` are the
+    shards' trees of this block; the replicated ln leaves are read from
+    shard 0's."""
+    dev = x.device
+    h = _layer_norm(x, blocks[0]["ln1_g"], blocks[0]["ln1_b"])
+    y = _tp_reduce([attend(t, h.to(blk["wqkv"].device))
+                    for t, blk in enumerate(blocks)], dev)
+    x = x + y.to(x.dtype)
+    h = _layer_norm(x, blocks[0]["ln2_g"], blocks[0]["ln2_b"])
+    y = _tp_reduce([ffn_product(h.to(blk["w1"].device), blk["w1"],
+                                 blk["w2"]) for blk in blocks], dev)
+    return x + y.to(x.dtype)
+
+
+def tp_prefill_cached(shards, cfg, tokens: torch.Tensor,
+                      last_idx: torch.Tensor, total: int):
+    """``prefill_cached`` over tp shards. ``shards`` is one tree a rank:
+    rank t's ``tp_shard`` of the tp-layout params on its device. The
+    replicated leaves are read from shard 0 only (the controller's, where
+    ``tokens`` lie); the other shards need only their blocks' ``wqkv``,
+    ``wo``, ``w1`` and ``w2`` slices. Each shard attends its H/tp heads
+    through the flash path. Returns (logits at last_idx (B, V) on shard 0's device, one
+    tuple of dense per-layer caches a shard, each (B, H/tp, total, Dh) on
+    its shard's device)."""
+    bcfg = _check_dense(cfg)
+    b, _ = tokens.shape
+    caches = [_zero_caches(bcfg, b, total, sh["block0"]["wqkv"].device,
+                           heads=bcfg.n_heads // len(shards))
+              for sh in shards]
+    x = embed_tokens(shards[0], tokens, pos_offset=0)
+    for i in range(bcfg.n_layers):
+        blocks = [sh[f"block{i}"] for sh in shards]
+
+        def attend(t, h, i=i, blocks=blocks):
+            return _attn_cached(bcfg, h, blocks[t]["wqkv"], blocks[t]["wo"],
+                                *caches[t][i], 0, prefill=True,
+                                tp_layout=True)
+
+        x = _tp_block(x, blocks, attend)
+    return _pick_last(lm_head(shards[0], x), last_idx), tuple(caches)
+
+
+def tp_paged_decode_step(shards, cfg, tok: torch.Tensor, caches,
+                         page_table: torch.Tensor, pos: torch.Tensor):
+    """``paged_decode_step`` over tp shards (``tp_prefill_cached``'s
+    ``shards``): ``caches`` holds one tuple of per-layer (pk, pv) page pools
+    a shard, each (num_pages, H/tp, page_size, Dh) on its shard's device
+    and updated IN PLACE; a page id is the same page on every shard.
+    ``tok``, ``page_table`` and ``pos`` lie on shard 0's device. Returns
+    (logits (B, V) there, caches)."""
+    bcfg = _check_dense(cfg)
+    page_table, pos, slot_pages, slots = _paged_indices(
+        page_table, pos, caches[0][0][0].shape[2])
+    # the indices on each shard's device, copied once a device
+    index = {}
+    for sh in shards:
+        dev = sh["block0"]["wqkv"].device
+        if dev not in index:
+            index[dev] = tuple(v.to(dev) for v in (page_table, slot_pages,
+                                                   slots, pos))
+    x = _decode_embed(shards[0], tok, pos)
+    for i in range(bcfg.n_layers):
+        blocks = [sh[f"block{i}"] for sh in shards]
+
+        def attend(t, h, i=i, blocks=blocks):
+            return _attn_paged(bcfg, h, blocks[t]["wqkv"], blocks[t]["wo"],
+                               *caches[t][i], *index[h.device],
+                               tp_layout=True)
+
+        x = _tp_block(x, blocks, attend)
+    return lm_head(shards[0], x)[:, -1], caches
 
 
 def generate(params, cfg, prompt: torch.Tensor, max_new: int, *,

@@ -173,11 +173,17 @@ def attention_sublayer(cfg: TransformerConfig, x: torch.Tensor, blk,
     return x + _dense(att, blk["wo"]).to(x.dtype)
 
 
+def ffn_product(h: torch.Tensor, w1: torch.Tensor,
+                w2: torch.Tensor) -> torch.Tensor:
+    """``gelu(h @ w1^T) @ w2^T`` (tanh GELU) from the ln2 output; with a tp
+    rank's ``w1`` rows and ``w2`` columns, that rank's partial product."""
+    return _dense(F.gelu(_dense(h, w1), approximate="tanh"), w2)
+
+
 def ffn_sublayer(x: torch.Tensor, blk) -> torch.Tensor:
     """ln2 -> tanh-GELU FFN -> residual."""
     h = _layer_norm(x, blk["ln2_g"], blk["ln2_b"])
-    ff = _dense(F.gelu(_dense(h, blk["w1"]), approximate="tanh"), blk["w2"])
-    return x + ff.to(x.dtype)
+    return x + ffn_product(h, blk["w1"], blk["w2"]).to(x.dtype)
 
 
 def block_forward(cfg: TransformerConfig, x: torch.Tensor, blk,
@@ -421,8 +427,7 @@ def tp_block_forward(cfg: TransformerConfig, x: torch.Tensor, blk, f_op,
     att = att.transpose(1, 2).reshape(b, s, hl * dh)
     x = x + g_op(_dense(att, blk["wo"])).to(x.dtype)
     h = f_op(_layer_norm(x, blk["ln2_g"], blk["ln2_b"]))
-    ff = _dense(F.gelu(_dense(h, blk["w1"]), approximate="tanh"), blk["w2"])
-    return x + g_op(ff).to(x.dtype)
+    return x + g_op(ffn_product(h, blk["w1"], blk["w2"])).to(x.dtype)
 
 
 def _relayout_qkv(tree, cfg: TransformerConfig, to_tp: bool):

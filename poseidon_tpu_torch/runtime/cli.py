@@ -205,11 +205,14 @@ def build_serving_fleet(model: str, weights: str, buckets: str,
                                 max_queue=max_queue, **manager_kw)
 
 
-def build_generate_executor(preset: str, device=None, seed: int = 0):
+def build_generate_executor(preset: str, device=None, seed: int = 0,
+                            mesh_cfg=None, devices=None):
     """A warmed paged-KV ``GenerateExecutor`` over a named transformer
     preset with weights drawn from ``seed`` (``--generate`` has no
     snapshot format yet, as in the JAX package), with the built-in page
-    size, decode rungs and prompt buckets."""
+    size, decode rungs and prompt buckets; tensor-parallel under an active
+    ``mesh_cfg`` over ``devices`` (``GenerateExecutor``'s), a library path
+    with no CLI flag, as in the JAX package."""
     import torch
 
     from ..models.transformer import (TransformerConfig, gpt_small_config,
@@ -220,7 +223,8 @@ def build_generate_executor(preset: str, device=None, seed: int = 0):
                                       DEFAULT_PROMPT_BUCKETS,
                                       GenerateExecutor)
 
-    device = resolve_device(device)   # refuse before drawing weights
+    if mesh_cfg is None or not mesh_cfg.active:
+        device = resolve_device(device)   # refuse before drawing weights
     if preset == "gpt_small":
         cfg = gpt_small_config(max_seq=512)
     elif preset == "tiny":
@@ -237,7 +241,8 @@ def build_generate_executor(preset: str, device=None, seed: int = 0):
     buckets = tuple(b for b in DEFAULT_PROMPT_BUCKETS if b < cfg.max_seq)
     return GenerateExecutor(cfg, params, page_size=DEFAULT_PAGE_SIZE,
                             decode_rungs=DEFAULT_DECODE_RUNGS,
-                            prompt_buckets=buckets, device=device)
+                            prompt_buckets=buckets, device=device,
+                            mesh_cfg=mesh_cfg, devices=devices)
 
 
 def build_generate_fleet(preset: str, n_replicas: int, devices_spec: str = "",

@@ -1,5 +1,5 @@
 """Iteration-level continuous batching for LLM decode (the port of
-``poseidon_tpu/serving/continuous.py``, one device).
+``poseidon_tpu/serving/continuous.py``).
 
 A CNN request is one dispatch; an LLM request is a SEQUENCE of decode
 steps of varying length. Continuous batching re-decides membership every
@@ -30,6 +30,15 @@ front door serves it unchanged. Per-sequence deadlines: expired in queue ->
 next iteration boundary. Beyond the JAX package it records time to first
 token (submit to the first generated token) in ``ttft``.
 
+A tp-sharded replica (``GenerateExecutor(mesh_cfg=MeshConfig(tp=T))``)
+is ONE controller over T shards, as the JAX package's tp executor is one
+object over a GSPMD mesh: head-major weights cut by ``tp_shard``, a KV pool
+sharded on its head axis, prefill and decode through
+``models/generate.py``'s ``tp_prefill_cached`` and
+``tp_paged_decode_step``. PyTorch issues kernels asynchronously, so one
+host thread drives shards on several GPUs at once; the scheduler, the
+fleet and ``swap_params``' contract stay as they are.
+
 Thread model: ONE scheduler thread (a daemon) owns the active set, the
 pool and every device call. Handler threads only touch the bounded queue
 and the telemetry counters, both under ``_lock``.
@@ -45,7 +54,10 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..models.generate import paged_decode_step, prefill_cached
+from ..models.generate import (MOE_PAGED_REFUSAL, paged_decode_step,
+                               prefill_cached, tp_paged_decode_step,
+                               tp_prefill_cached)
+from ..models.transformer import TP_SPLIT_DIM, to_tp_layout, tp_shard
 from ..numeric import apply_policy, resolve_device
 from ..runtime.metrics import LatencyWindow, log
 from .batcher import DeadlineError, ShedError, ShuttingDownError
@@ -83,20 +95,56 @@ def _dtype_name(dtype: torch.dtype) -> str:
     return str(dtype).replace("torch.", "")
 
 
+def _as_tensors(tree) -> Dict:
+    """A ``{name: {leaf: array or tensor}}`` tree as tensors (no copy)."""
+    return {name: {leaf: torch.as_tensor(v) for leaf, v in d.items()}
+            for name, d in tree.items()}
+
+
+def _tp_devices(tp: int, devices) -> Tuple[torch.device, ...]:
+    """The device of each of ``tp`` shards: ``devices`` as given (a device
+    may repeat), else the first ``tp`` CUDA devices; never the CPU unless
+    named, never two shards on one card unless named."""
+    if devices is None:
+        have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if have < tp:
+            raise RuntimeError(
+                f"tp={tp} places a shard on each of the first {tp} CUDA "
+                f"devices and {have} are available; pass devices= to place "
+                f"the shards yourself (a device may repeat)")
+        return tuple(torch.device("cuda", i) for i in range(tp))
+    devs = tuple(resolve_device(d) for d in devices)
+    if len(devs) != tp:
+        raise ValueError(f"devices= names {len(devs)} devices for tp={tp} "
+                         f"shards")
+    return devs
+
+
 # --------------------------------------------------------------------------- #
 # the decode engine
 # --------------------------------------------------------------------------- #
 
 
 class GenerateExecutor:
-    """Transformer decode over a paged KV pool on one device.
+    """Transformer decode over a paged KV pool, on one device or
+    tensor-parallel over shards.
 
     The LLM sibling of :class:`BucketedExecutor`: prompts pad to a prompt
-    bucket, decode steps run at a rung. ``params`` is a ``{name: {leaf:
-    tensor}}`` tree (``models/transformer.py``); it moves to ``device``
-    (``cuda`` unless the caller passes ``"cpu"``). Construction warms
-    every bucket and rung. The KV pool lives here; the
-    :class:`ContinuousScheduler` drives it."""
+    bucket, decode steps run at a rung. ``params`` is a standard-layout
+    ``{name: {leaf: tensor}}`` tree (``models/transformer.py``); it moves
+    to ``device`` (``cuda`` unless the caller passes ``"cpu"``).
+    Construction warms every bucket and rung. The KV pool lives here; the
+    :class:`ContinuousScheduler` drives it.
+
+    ``mesh_cfg`` with ``tp`` > 1 serves the model tensor-parallel, as the
+    JAX package's tp executor: the params go to the head-major layout
+    (``to_tp_layout``) and rank t's ``tp_shard`` lands on ``devices[t]``
+    (by default the first ``tp`` CUDA devices; a device may repeat), the
+    pool shards its heads the same way, and one controller drives every
+    shard from the scheduler's thread. JAX replicates such a replica over
+    the ``data`` and ``fsdp`` axes; here more copies are more replicas
+    (``ReplicaManager``, ``serve --replicas``), so those axes are refused.
+    """
 
     input_names = ("prompt",)
 
@@ -106,9 +154,33 @@ class GenerateExecutor:
                  prompt_buckets: Sequence[int] = DEFAULT_PROMPT_BUCKETS,
                  max_seq_len: Optional[int] = None,
                  num_pages: Optional[int] = None,
-                 default_max_new: int = 32, device=None):
+                 default_max_new: int = 32, device=None, mesh_cfg=None,
+                 devices: Optional[Sequence] = None):
+        if getattr(cfg, "base", None) is not None:
+            raise NotImplementedError(MOE_PAGED_REFUSAL)
         apply_policy()
-        self.device = resolve_device(device)
+        self.mesh_cfg = None
+        if mesh_cfg is not None and mesh_cfg.active:
+            if device is not None:
+                raise ValueError("pass device= or mesh_cfg=, not both")
+            if mesh_cfg.tp > 1 and (cfg.n_heads % mesh_cfg.tp
+                                    or cfg.d_ff % mesh_cfg.tp):
+                raise ValueError(
+                    f"n_heads={cfg.n_heads} and d_ff={cfg.d_ff} must both "
+                    f"divide tp={mesh_cfg.tp}")
+            if mesh_cfg.data > 1 or mesh_cfg.fsdp > 1:
+                raise ValueError(
+                    f"mesh {mesh_cfg.describe()}: a generate replica shards "
+                    f"over tp only; for more copies of it serve more "
+                    f"replicas (ReplicaManager, serve --replicas)")
+            self.mesh_cfg = mesh_cfg
+            self.devices = _tp_devices(mesh_cfg.tp, devices)
+        elif devices is not None:
+            raise ValueError("devices= places tp shards; pass it with "
+                             "mesh_cfg=")
+        else:
+            self.devices = (resolve_device(device),)
+        self.device = self.devices[0]
         self.cfg = cfg
         self.page_size = int(page_size)
         self.decode_rungs = tuple(sorted(set(int(r) for r in decode_rungs)))
@@ -129,9 +201,14 @@ class GenerateExecutor:
             raise ValueError(f"largest prompt bucket "
                              f"{max(self.prompt_buckets)} leaves no room "
                              f"to generate within {self.max_seq_len}")
-        self._params = {name: {leaf: v.to(self.device)
+        params = _as_tensors(params)
+        # the standard-layout (global) shapes swap_params validates against
+        self._shapes = {name: {leaf: (tuple(v.shape), v.dtype)
                                for leaf, v in d.items()}
                         for name, d in params.items()}
+        # a tree on one device, or one tree a tp shard: the whole set is
+        # read once a step and replaced in one assignment
+        self._params = self._place(params, copy=False)
 
         pages_per_seq = -(-self.max_seq_len // self.page_size)
         if num_pages is None:
@@ -140,7 +217,7 @@ class GenerateExecutor:
         self.pool = PagedKVPool(cfg, num_pages=num_pages,
                                 page_size=self.page_size,
                                 max_seq_len=self.max_seq_len,
-                                device=self.device)
+                                devices=self.devices)
 
         # make_batcher() reads this: "static" builds the A/B control arm
         self.scheduler_mode = "continuous"
@@ -163,8 +240,32 @@ class GenerateExecutor:
             self._run_decode(np.zeros((r,), np.int64),
                              np.zeros((r, width), np.int64),
                              np.zeros((r,), np.int64))
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        for dev in set(self.devices):
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+
+    def _place(self, params, copy: bool):
+        """A standard-layout tree of tensors on this replica's device, or
+        its tp shards (``to_tp_layout``, ``tp_shard``) each on its own
+        device. ``copy`` copies even where a tensor already lies on the
+        device."""
+        def put(tree, dev):
+            return {name: {leaf: v.to(dev, copy=copy)
+                           for leaf, v in d.items()}
+                    for name, d in tree.items()}
+
+        if self.mesh_cfg is None:
+            return put(params, self.device)
+        full = to_tp_layout(params, self.cfg)
+        shards = []
+        for t, dev in enumerate(self.devices):
+            shard = tp_shard(full, self.cfg, t, self.mesh_cfg.tp)
+            if t:   # the controller reads the replicated leaves on shard 0
+                shard = {name: {leaf: d[leaf] for leaf in TP_SPLIT_DIM}
+                         for name, d in shard.items()
+                         if name.startswith("block")}
+            shards.append(put(shard, dev))
+        return tuple(shards)
 
     def prompt_bucket_for(self, p: int) -> int:
         for b in self.prompt_buckets:
@@ -197,22 +298,27 @@ class GenerateExecutor:
         bucket = self.prompt_bucket_for(p)
         toks = np.zeros((1, bucket), np.int64)
         toks[0, :p] = prompt
-        params = self._params
+        params = self._params           # one read: swap-safe
+        prefill = (tp_prefill_cached if self.mesh_cfg is not None
+                   else prefill_cached)
         with torch.inference_mode():
-            logits, caches = prefill_cached(
+            logits, caches = prefill(
                 params, self.cfg, torch.from_numpy(toks).to(self.device),
                 torch.tensor([p - 1], device=self.device),
                 _align(bucket, self.page_size))
             return logits[0].cpu().numpy(), caches
 
     def _run_decode(self, tok, table, pos) -> np.ndarray:
-        params = self._params
+        params = self._params           # one read: swap-safe
         dev = self.device
+        if self.mesh_cfg is not None:
+            step, caches = tp_paged_decode_step, self.pool.shard_caches
+        else:
+            step, caches = paged_decode_step, self.pool.caches
         with torch.inference_mode():
-            logits, _ = paged_decode_step(
-                params, self.cfg, torch.as_tensor(tok).to(dev),
-                self.pool.caches, torch.as_tensor(table).to(dev),
-                torch.as_tensor(pos).to(dev))
+            logits, _ = step(params, self.cfg, torch.as_tensor(tok).to(dev),
+                             caches, torch.as_tensor(table).to(dev),
+                             torch.as_tensor(pos).to(dev))
             return logits.cpu().numpy()
 
     def prefill(self, prompt: np.ndarray):
@@ -250,32 +356,32 @@ class GenerateExecutor:
     def swap_params(self, new_params: Dict) -> int:
         """Rolling-reload contract (as ``BucketedExecutor``'s): validate
         the incoming standard-layout ``{name: {leaf: array or tensor}}``
-        tree against the serving one (same leaves, shapes and dtypes, with
-        the JAX package's messages), copy it to this replica's device and
-        swap atomically. A prefill or decode step that already read the
-        old tree finishes on it. Returns the new params version. A replica
-        is one device: JAX's tp-layout branch comes with tp-sharded
-        generate replicas (ROADMAP A.1, part 2)."""
-        cur_keys = {n: sorted(d) for n, d in self._params.items()}
+        tree against the serving one's global shapes (same leaves, shapes
+        and dtypes, with the JAX package's messages), copy it to this
+        replica's device, or convert it to the tp layout and copy each
+        shard to its device, and swap the whole set in one assignment. A
+        prefill or decode step that already read the old set finishes on
+        it; none sees old and new shards together. Returns the new params
+        version."""
+        new_params = _as_tensors(new_params)
+        cur_keys = {n: sorted(d) for n, d in self._shapes.items()}
         new_keys = {n: sorted(d) for n, d in new_params.items()}
         if sorted(cur_keys.items()) != sorted(new_keys.items()):
             raise ValueError("params tree structure mismatch: the snapshot "
                              "was taken from a different model")
-        new: Dict = {}
         for name in sorted(cur_keys):
-            new[name] = {}
             for leaf in cur_keys[name]:
-                c = self._params[name][leaf]
-                n = torch.as_tensor(new_params[name][leaf])
-                if tuple(c.shape) != tuple(n.shape) or c.dtype != n.dtype:
+                shape, dtype = self._shapes[name][leaf]
+                n = new_params[name][leaf]
+                if shape != tuple(n.shape) or dtype != n.dtype:
                     raise ValueError(
                         f"params leaf mismatch: {tuple(n.shape)}/"
                         f"{_dtype_name(n.dtype)} vs serving "
-                        f"{tuple(c.shape)}/{_dtype_name(c.dtype)}")
-                # the copy rides the device's default stream, the one every
-                # replica's steps run on, so a step that reads the new
-                # tree is ordered after it
-                new[name][leaf] = n.to(self.device, copy=True)
+                        f"{shape}/{_dtype_name(dtype)}")
+        # the copies ride each device's default stream, the one every
+        # replica's steps run on, so a step that reads the new set is
+        # ordered after them
+        new = self._place(new_params, copy=True)
         with self._swap_lock:
             self._params = new
             self.params_version += 1
@@ -290,6 +396,9 @@ class GenerateExecutor:
             "decode_calls": dict(self.decode_calls),
             "pool": self.pool.snapshot(),
             "device": str(self.device),
+            "devices": [str(d) for d in self.devices],
+            "mesh": (self.mesh_cfg.describe()
+                     if self.mesh_cfg is not None else None),
         }
 
 

@@ -213,7 +213,9 @@ class ReplicaManager:
               **kwargs) -> "ReplicaManager":
         """Build N replicas through ``factory(device_or_None) -> executor``
         (construction IS the warm-up: every bucket runs once inside the
-        factory). Replicas are visible in WARMING while their factory
+        factory). An entry of ``devices`` is handed over as it is, so it
+        may be a device group, as a tp-sharded generate replica takes
+        (``devices=[("cuda:0", "cuda:1"), ...]``, labelled ``str(group)``). Replicas are visible in WARMING while their factory
         runs; ``warm_async=True`` warms them on background threads so the
         fleet starts serving as soon as the FIRST replica is ready."""
         mgr = cls((), **kwargs)

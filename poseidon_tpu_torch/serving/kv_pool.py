@@ -13,6 +13,12 @@ sequence is shared by every layer. Page 0 is the reserved SCRATCH page:
 inactive decode rows point their table at it, so their writes are harmless
 by construction.
 
+A tp-sharded pool (``devices=``, one device a tp shard, a device may
+repeat) splits the HEAD axis, as the JAX package shards its pool
+``P(None, "tp", None, None)``: shard t holds heads [t*H/tp, (t+1)*H/tp)
+of every page, ``(num_pages, H/tp, page_size, d_head)`` on its device. One
+allocator serves every shard, so a page id is the same page on each.
+
 The pools are updated IN PLACE, where the JAX package donates them:
 ``write_prefill`` copies a prefill's caches into the sequence's pages, and
 the decode step scatters each new token's K/V into its page.
@@ -50,7 +56,8 @@ class PagedKVPool:
     single sequence and fixes the page-table width."""
 
     def __init__(self, cfg, num_pages: int, page_size: int,
-                 max_seq_len: Optional[int] = None, device="cpu"):
+                 max_seq_len: Optional[int] = None, device="cpu",
+                 devices: Optional[Sequence] = None):
         if num_pages < 2:
             raise ValueError(f"need >= 2 pages (one is scratch), "
                              f"got {num_pages}")
@@ -61,13 +68,23 @@ class PagedKVPool:
         self.page_size = int(page_size)
         self.max_seq_len = int(max_seq_len or cfg.max_seq)
         self.max_pages_per_seq = -(-self.max_seq_len // self.page_size)
-        self.device = torch.device(device)
+        self.devices = tuple(torch.device(d)
+                             for d in (devices or (device,)))
+        self.device = self.devices[0]
+        if cfg.n_heads % len(self.devices):
+            raise ValueError(f"n_heads={cfg.n_heads} must divide the "
+                             f"{len(self.devices)} shards of the pool")
         dh = cfg.d_model // cfg.n_heads
-        shape = (self.num_pages, cfg.n_heads, self.page_size, dh)
-        self.caches: Tuple = tuple(
-            (torch.zeros(shape, device=self.device),
-             torch.zeros(shape, device=self.device))
-            for _ in range(cfg.n_layers))
+        shape = (self.num_pages, cfg.n_heads // len(self.devices),
+                 self.page_size, dh)
+        # one tuple of per-layer (pk, pv) a shard
+        self.shard_caches: Tuple = tuple(
+            tuple((torch.zeros(shape, device=dev),
+                   torch.zeros(shape, device=dev))
+                  for _ in range(cfg.n_layers))
+            for dev in self.devices)
+        # the whole pool on one device; shard 0's heads under tp
+        self.caches: Tuple = self.shard_caches[0]
         self._lock = threading.Lock()
         # LIFO free list (recently freed pages are cache-warm); page 0 is
         # the scratch page and never allocated
@@ -161,8 +178,11 @@ class PagedKVPool:
     def write_prefill(self, seq_id: int, dense_caches) -> None:
         """Copy a prefill's dense per-layer caches (B=1, shape (1, H, T, Dh)
         with T page-aligned) into the sequence's first T/page_size pages, in
-        place: the hand-off from the prompt phase to paged decode."""
-        t = int(dense_caches[0][0].shape[2])
+        place: the hand-off from the prompt phase to paged decode. A
+        tp-sharded pool takes one such tuple a shard, (1, H/tp, T, Dh) on
+        the shard's device, and writes that shard's heads."""
+        shards = (dense_caches,) if len(self.devices) == 1 else dense_caches
+        t = int(shards[0][0][0].shape[2])
         if t % self.page_size:
             raise ValueError(f"prefill cache length {t} is not "
                              f"page-aligned (page_size {self.page_size})")
@@ -171,13 +191,15 @@ class PagedKVPool:
         if n > len(pages):
             raise ValueError(f"prefill needs {n} pages, seq {seq_id} "
                              f"holds {len(pages)}")
-        h = self.cfg.n_heads
         dh = self.cfg.d_model // self.cfg.n_heads
-        idx = torch.as_tensor(pages[:n], dtype=torch.long, device=self.device)
-        for (pk, pv), (ck, cv) in zip(self.caches, dense_caches):
-            for pool, dense in ((pk, ck), (pv, cv)):
-                pool[idx] = dense[0].reshape(h, n, self.page_size, dh) \
-                    .transpose(0, 1).to(pool.dtype)
+        for pools, dense_shard, dev in zip(self.shard_caches, shards,
+                                           self.devices):
+            idx = torch.as_tensor(pages[:n], dtype=torch.long, device=dev)
+            for (pk, pv), (ck, cv) in zip(pools, dense_shard):
+                for pool, dense in ((pk, ck), (pv, cv)):
+                    pool[idx] = dense[0].reshape(
+                        pool.shape[1], n, self.page_size, dh) \
+                        .transpose(0, 1).to(pool.dtype)
 
     # ---- introspection ---------------------------------------------------- #
     def snapshot(self) -> Dict:

@@ -1698,3 +1698,63 @@ def test_fleet_on_card():
     # the check's direct forwards (one a size a replica) launched K4 too
     direct = 2 * len(mgr.replicas) * len(x)
     assert port_lrn.LAUNCHES["lrn_fwd"] == 2 * forwards + direct
+
+
+@pytest.mark.gpu
+def test_tp2_generate_executor_on_card():
+    """A tp2 ``GenerateExecutor`` with both shards on cuda:0 beside the
+    one-device executor from the same weights (a small transformer whose
+    shards take K1 at (1, 2, 16|64, 16)): prefill logits within LM_TOL
+    (rtol 1e-4, atol 1e-4), equal greedy tokens from 4 concurrent
+    requests, and exactly 2 x n_layers K1 launches a tp prefill."""
+    _need_gpu()
+    import threading
+
+    import numpy as np
+
+    from poseidon_tpu_torch.config import MeshConfig
+    from poseidon_tpu_torch.models.transformer import (TransformerConfig,
+                                                       init_params)
+    from poseidon_tpu_torch.serving.continuous import GenerateExecutor
+
+    cfg = TransformerConfig(vocab_size=256, d_model=64, n_heads=4,
+                            n_layers=2, d_ff=256, max_seq=128)
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    kw = dict(page_size=16, decode_rungs=(1, 2, 4), prompt_buckets=(16, 64))
+    one = GenerateExecutor(cfg, params, device="cuda:0", **kw)
+    tp = GenerateExecutor(cfg, params, mesh_cfg=MeshConfig(tp=2),
+                          devices=("cuda:0", "cuda:0"), **kw)
+    rs = np.random.RandomState(3)
+    prompts = [rs.randint(0, 256, n).astype(np.int32) for n in (5, 16, 40, 9)]
+    for p in prompts:
+        np.testing.assert_allclose(tp._run_prefill(p)[0],
+                                   one._run_prefill(p)[0], rtol=1e-4,
+                                   atol=1e-4)
+
+    def serve(ex):
+        sched = ex.make_batcher(max_queue=8)
+        out = [None] * len(prompts)
+        try:
+            threads = [threading.Thread(
+                target=lambda i=i: out.__setitem__(i, sched.submit(
+                    {"prompt": prompts[i], "max_new": 12})["tokens"]),
+                daemon=True) for i in range(len(prompts))]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=120)
+        finally:
+            sched.close()
+        return out
+
+    toks = {"one": serve(one)}
+    torch.cuda.synchronize()
+    port_flash.LAUNCHES["flash_fwd"] = 0
+    prefills0 = tp.prefills
+    toks["tp"] = serve(tp)
+    torch.cuda.synchronize()
+    assert port_flash.LAUNCHES["flash_fwd"] == \
+        2 * cfg.n_layers * (tp.prefills - prefills0)
+    for a, b in zip(toks["one"], toks["tp"]):
+        np.testing.assert_array_equal(a, b)
+    assert tp.pool.all_free() and tp.snapshot()["mesh"] == "dp1,fsdp1,tp2"
