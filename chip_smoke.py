@@ -190,6 +190,27 @@ Phases, in order; any failure exits non-zero without the final ``ok`` line:
    different; (e) the static comm table of AlexNet at batch 256 for
    DENSE, the SFB auto picks and TOPK on a flat group of 8 and on 2
    slices of 4 devices. One ``[topk]`` line sums it up.
+6b. ``[zoo]`` (``phase_zoo``, after the SSP, mesh and fabric phases): (a)
+   GoogLeNet from ``models/zoo.py`` (aux heads, 1000 classes) at batch 32
+   x 3 x 224 x 224 in f32, planned "auto" (NHWC on the card) as an
+   unflagged ``train`` plans it, bvlc_googlenet's quick solver, synthetic
+   uint8-range images less the ILSVRC means: one warm-up step, then 5
+   steps by CUDA events (ms a step, img/s, peak memory), the launch
+   counters zeroed just before and read just after: exactly 2 K4-NHWC, 2
+   K5-NHWC, 16 K6-NHWC (13 MAX, 3 AVE) and 1 K7 a step; one step with the
+   kernels against the same step with the plain versions at STEP_TOL;
+   the device step of TIMED_STEPS more and one profiled step's kernels
+   by kind (every port kernel must show device time);
+   K6-NHWC alone at the inception modules' 3x3 s1 p1 pools (32, C,
+   28|14|7, 28|14|7), bitwise to plain, beside the library's backward and
+   the bytes bound (CUDA events and the profiler's device time). (b) The
+   catalog net (``examples/catalog/layer_catalog.prototxt``: every layer
+   type beyond the CNN core, STOCHASTIC pooling, a shared conv weight,
+   the uniform, sparse gaussian and positive_unitball fillers), one
+   forward and backward on the card against the CPU at NET_TOL, and the
+   siamese example net 3 SGD steps on the card against the CPU at
+   NET_TOL, each sharer's blob its owner's arena leaf, K6 2 and K7 1 a
+   step. The phase must take at most 60 s.
 7. The LM serving slice: ``serve --generate``'s executor
    (``build_generate_executor("gpt_small")``: full width and depth, seeded
    weights, page 64, rungs 1/2/4/8, prompt buckets 16/64/256) behind the
@@ -295,16 +316,17 @@ Phases, in order; any failure exits non-zero without the final ``ok`` line:
 12. Real data end to end: ``python -m poseidon_tpu_torch train`` on the
    digits solver (1000 iterations, real UCI digits from the repo) into a
    temporary directory; the final test accuracy must reach DIGITS_MIN_ACC.
-13. One JSON line with every kernel's numbers (launches by path, ``dp``,
-    ``topk``, ``loop``, ``lm_par_*``, ``lm_pp_ep_*``, ``lm_tp_serve`` and
-    ``fleet_cnn``, ``fleet_generate``, ``fleet_cli`` among them), then the
-    ``ok`` line.
+13. One JSON line with every kernel's numbers (launches by path, ``zoo_*``,
+    ``dp``, ``topk``, ``loop``, ``lm_par_*``, ``lm_pp_ep_*``,
+    ``lm_tp_serve`` and ``fleet_cnn``, ``fleet_generate``, ``fleet_cli``
+    among them), then the ``ok`` line.
 """
 
 from __future__ import annotations
 
 import contextlib
 import csv
+import gc
 import json
 import math
 import os
@@ -696,6 +718,34 @@ BF16_LM_STEP_TOL = (2 ** -7, 1e-5)
 BF16_LM_GRAD_TOL = 2 ** -4
 
 
+# [zoo]: GoogLeNet from models/zoo.py (aux heads, 1000 classes) at
+# bvlc_googlenet's train batch, f32, planned as an unflagged `train` plans
+# it ("auto": NHWC on the card; the catalog and siamese nets too, the CPU
+# references NCHW), bvlc_googlenet's quick solver; synthetic
+# uint8-range images from ZOO_SEED less the ILSVRC means. ZOO_WARMUP
+# steps, then ZOO_TIMED_STEPS by CUDA events; the port kernels of one
+# step (13 MAX and 3 AVE pools, 2 LRNs): exactly ZOO_LAUNCHES. K6-NHWC
+# alone at the inception modules' 3x3 s1 p1 MAX pools (ZOO_POOLS). Then the
+# catalog net (examples/catalog) forward and backward on the card against
+# the CPU, and the siamese example net for ZOO_SIAMESE_STEPS steps.
+ZOO_BATCH = 32
+ZOO_SEED = 21
+ZOO_WARMUP, ZOO_TIMED_STEPS = 1, 5
+ZOO_LAUNCHES = {"lrn_fwd_nhwc": 2, "lrn_bwd_nhwc": 2, "pool_bwd_nhwc": 16,
+                "sgd_update": 1}
+ZOO_SOLVER = dict(base_lr=0.01, lr_policy="poly", power=0.5,
+                  max_iter=2400000, momentum=0.9, weight_decay=2e-4)
+ZOO_POOLS = (("inception_3a/pool", (32, 192, 28, 28)),
+             ("inception_3b/pool", (32, 256, 28, 28)),
+             ("inception_4a/pool", (32, 480, 14, 14)),
+             ("inception_4b/pool", (32, 512, 14, 14)),
+             ("inception_4e/pool", (32, 528, 14, 14)),
+             ("inception_5a/pool", (32, 832, 7, 7)))
+ZOO_CATALOG = "examples/catalog/layer_catalog.prototxt"
+ZOO_SIAMESE = "examples/siamese/mnist_siamese_train_test.prototxt"
+ZOO_SIAMESE_BATCH, ZOO_SIAMESE_STEPS = 64, 3
+
+
 class SmokeFailure(RuntimeError):
     pass
 
@@ -1072,23 +1122,82 @@ def phase_sgd(card: str, arena_total: int):
     return records
 
 
-def profiled_device_ms(fn, key: str = "", reps: int = 10) -> float:
+# The device kernel each launch counter counts, one a counted launch: the
+# names torch.profiler gives those kernels' device ops.
+COUNTED_KERNELS = {"lrn_fwd": "lrn_fwd_tile_kernel",
+                   "lrn_bwd": "lrn_bwd_kernel",
+                   "lrn_fwd_nhwc": "lrn_nhwc_fwd_kernel",
+                   "lrn_bwd_nhwc": "lrn_nhwc_bwd_kernel",
+                   "pool_bwd": "pool_bwd_band_kernel",
+                   "pool_bwd_nhwc": "pool_nhwc_band_kernel",
+                   "sgd_update": "sgd_update_kernel",
+                   "flash_fwd": "flash_fwd_kernel",
+                   "flash_dq": "flash_dq_kernel",
+                   "flash_dkv": "flash_dkv_kernel"}
+
+
+def profiled_device_ms(fn, key: str = "", reps: int = 10,
+                       tries: int = 10) -> float:
     """Device time of one call of ``fn``: the durations of its device ops
-    whose name holds ``key`` (all of them for ""), summed over ``reps``
-    calls under torch.profiler, divided by ``reps``."""
+    whose name holds ``key`` (a port kernel's name, or "" for all ops),
+    summed over ``reps`` calls under torch.profiler, divided by ``reps``.
+    Each session traces a dropped round of ``reps`` calls, then a kept
+    one. The profiler can lose device ops launched through the port's
+    ctypes libraries (whole sessions of small K6-NHWC launches, or some of
+    them), so a kept round counts before it is summed: each port kernel
+    must show exactly ``reps`` x its launch counter's rise over one call,
+    and without a ``key`` (no counter speaks for library ops) the round's
+    op count must be a nonzero multiple of ``reps`` equal to another
+    session's, and the two sessions' sums are averaged. A session that
+    fails its count runs again, up to ``tries``; then SmokeFailure, so no
+    0 and no partial sum is returned. The schedule's step annotations are
+    no device ops."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
+    before = read_launches()
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == DeviceType.CUDA and key in e.name)
-    return us / reps / 1e3
+    want = {COUNTED_KERNELS[k]: reps * (n - before[k])
+            for k, n in read_launches().items() if n != before[k]}
+    check(not key or key in want,
+          f"profiled_device_ms: key {key!r} names no kernel that one call "
+          f"launched (launches {want} over {reps} calls)")
+    seen, counts = {}, []
+    for _ in range(tries):
+        kept = []
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1),
+                     on_trace_ready=lambda p: kept.extend(p.events())
+                     ) as prof:
+            for _ in range(2):
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        ops = [e for e in kept if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)
+               and not e.name.startswith("ProfilerStep")]
+        got = {name: sum(name in e.name for e in ops) for name in want}
+        mine = [e.time_range.elapsed_us() for e in ops if key in e.name]
+        counts.append((len(mine), got))
+        if got != want:
+            print(f"[profiler] a session recorded port kernels {got} of "
+                  f"{want}: rerun", flush=True)
+            continue
+        if key:
+            return sum(mine) / reps / 1e3
+        n = len(mine)
+        if n and n % reps == 0:
+            if n in seen:
+                return (seen[n] + sum(mine)) / (2 * reps) / 1e3
+            seen[n] = sum(mine)
+    raise SmokeFailure(
+        f"profiled_device_ms: {tries} sessions of {reps} calls recorded "
+        f"(ops named {key!r}, port kernels) {counts}; want port kernels "
+        f"{want}" + ("" if key else " and two equal nonzero multiples of "
+                     f"{reps} ops"))
 
 
 def flash_cases():
@@ -2422,7 +2531,7 @@ def step_once(eng, params0, hist0, it0, batch, seed: int = 7):
     from poseidon_tpu_torch.parallel.trainer import TrainState
     from poseidon_tpu_torch.solvers.updates import SolverState
 
-    eng.train_net.generator.manual_seed(seed)
+    eng.train_net.manual_seed(seed)
     params, state = eng.train_step.load(
         params0, TrainState(SolverState(it0, hist0), {}))
     params, state, m = eng.train_step.step(params, state, batch)
@@ -2443,7 +2552,7 @@ class plain_versions:
         for l in self.net.layers:
             if l.TYPE == "LRN":
                 l.across_channels = lrn.lrn_across_channels_reference
-            elif l.TYPE == "POOLING":
+            elif l.TYPE == "POOLING" and l.method in ("MAX", "AVE"):
                 l.pool = (pool.max_pool_reference if l.method == "MAX"
                           else pool.ave_pool_reference)
         self.step.sgd_update = sgd.sgd_update_plain_
@@ -2454,7 +2563,7 @@ class plain_versions:
         for l in self.net.layers:
             if l.TYPE == "LRN":
                 l.across_channels = lrn.lrn_across_channels
-            elif l.TYPE == "POOLING":
+            elif l.TYPE == "POOLING" and l.method in ("MAX", "AVE"):
                 l.pool = pool.max_pool if l.method == "MAX" else pool.ave_pool
         self.step.sgd_update = sgd.sgd_update_
         return False
@@ -6908,6 +7017,336 @@ def phase_lm_pp_ep(card: str, device=None, preset: str = LMT_PRESET,
             "wall_s": wall}
 
 
+def zoo_googlenet(card: str, device=None, batch: int = ZOO_BATCH) -> dict:
+    """[zoo] (a): GoogLeNet trained at full width (``device`` and ``batch``
+    are for a CPU rehearsal at a cut batch only)."""
+    import types
+
+    import torch
+    from poseidon_tpu_torch.core.net import Net
+    from poseidon_tpu_torch.models import zoo
+    from poseidon_tpu_torch.parallel.trainer import (build_train_step,
+                                                     init_train_state)
+    from poseidon_tpu_torch.proto.messages import SolverParameter
+
+    dev = torch.device(device or "cuda")
+    on_card = dev.type == "cuda"
+    if on_card:
+        # the step's own peak: weights, state and activations above what
+        # earlier phases still hold once their garbage is collected
+        gc.collect()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+    net = Net(zoo.googlenet(), "TRAIN", device=dev,
+              source_shapes=zoo.googlenet_shapes(batch), conv_layout="auto")
+    if on_card:
+        check(net.conv_layout == "NHWC",
+              f"GoogLeNet planned {net.conv_layout} on the card, not the "
+              f"NHWC an unflagged train plans")
+    step = build_train_step(net, SolverParameter(**ZOO_SOLVER))
+    params = net.init(torch.Generator().manual_seed(ZOO_SEED))
+    params, state = step.load(params, init_train_state(params))
+    gen = torch.Generator().manual_seed(ZOO_SEED)
+    img = torch.randint(0, 256, (batch, 3, 224, 224), generator=gen,
+                        dtype=torch.uint8)
+    mean = torch.tensor(LOOP_MEAN_VALUES).view(1, 3, 1, 1)
+    data = {"data": (img.float() - mean).to(dev),
+            "label": torch.randint(0, 1000, (batch,), generator=gen)
+            .float().to(dev)}
+    pools = [l for l in net.layers if l.TYPE == "POOLING"]
+    print(f"[zoo] GoogLeNet (aux heads, 1000 classes) on {dev}: "
+          f"{net.param_count()} params, batch {tuple(data['data'].shape)}, "
+          f"{net.conv_layout}, {sum(l.method == 'MAX' for l in pools)} MAX "
+          f"and {sum(l.method == 'AVE' for l in pools)} AVE pools, arena "
+          f"{step.arena.total} f32 (owners only)", flush=True)
+    net.manual_seed(ZOO_SEED)
+    losses = []
+    for _ in range(ZOO_WARMUP):
+        params, state, m = step.step(params, state, data)
+        losses.append(float(m["loss"]))
+    sync(dev)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+    zero_launches()
+    t0 = time.perf_counter()
+    if on_card:
+        start.record()
+    timed = []
+    for _ in range(ZOO_TIMED_STEPS):
+        params, state, m = step.step(params, state, data)
+        timed.append(m["loss"])
+    if on_card:
+        end.record()
+    sync(dev)
+    wall_ms = (time.perf_counter() - t0) * 1e3 / ZOO_TIMED_STEPS
+    step_ms = (start.elapsed_time(end) / ZOO_TIMED_STEPS if on_card
+               else wall_ms)
+    counts = read_launches()
+    losses += [float(v) for v in timed]
+    check(all(math.isfinite(v) for v in losses),
+          f"GoogLeNet loss not finite: {losses}")
+    want = {k: 0 for k in counts}
+    want.update({k: v * ZOO_TIMED_STEPS for k, v in ZOO_LAUNCHES.items()})
+    peak = torch.cuda.max_memory_allocated() - base if on_card else None
+    rate = batch / (step_ms / 1e3)
+    print(f"[zoo] GoogLeNet {ZOO_TIMED_STEPS} f32 steps after "
+          f"{ZOO_WARMUP} warm-up: {step_ms:.3f} ms a step by CUDA events "
+          f"({wall_ms:.3f} ms host wall), {rate:.1f} img/s, peak device "
+          f"memory {peak} B above the phase's start, losses {losses}; "
+          f"launches {counts} (expected "
+          f"{want}) [{card}]", flush=True)
+    if on_card:
+        check(counts == want, f"GoogLeNet launch counts {counts} != {want}")
+    shim = types.SimpleNamespace(params=params, state=state, train_net=net,
+                                 train_step=step,
+                                 iteration=lambda: int(state.solver.it))
+    worst = phase_step_vs_plain(shim, data, tag="zoo")
+    # where the step's time goes: one profiled step's kernels by kind
+    prof = (phase_train_profile(shim, data, card, tag="zoo",
+                                kernel_names=CNN_NHWC_KERNEL_NAMES)
+            if on_card else {})
+    return {"step_ms": step_ms, "wall_ms": wall_ms, "img_s": rate,
+            "peak_bytes": peak, "losses": losses, "launches": counts,
+            "per_step": ZOO_LAUNCHES, "params": net.param_count(),
+            "layout": net.conv_layout, "batch": batch,
+            "step_vs_plain_max_abs": worst, "profile": prof}
+
+
+def zoo_inception_pools(card: str) -> list:
+    """[zoo]: K6-NHWC alone at the inception modules' 3x3 s1 p1 MAX pools,
+    batch 32, f32, channels-last: bitwise to its plain version, its CUDA-
+    event and profiled device times beside the library's backward and the
+    bytes bound (records only)."""
+    import torch
+    import torch.nn.functional as F
+    from poseidon_tpu_torch.ops import pool
+
+    gen = torch.Generator(device="cuda").manual_seed(ZOO_SEED)
+    cl = torch.channels_last
+    geom = ((3, 3), (1, 1), (1, 1))
+    records = []
+    for label, shape in ZOO_POOLS:
+        x = torch.randn(shape, generator=gen, device="cuda").contiguous(
+            memory_format=cl)
+        y = pool.pool_forward(x, *geom, "max")
+        g = torch.randn(y.shape, generator=gen, device="cuda").contiguous(
+            memory_format=cl)
+        dx = pool.pool_bwd_nhwc_cuda(x, g, *geom, "max")
+        torch.cuda.synchronize()
+        want = pool.pool_bwd_plain(x, g, *geom, "max")
+        bitwise = torch.equal(dx, want)
+        _, idx = F.max_pool2d(x, 3, 1, 1, ceil_mode=True,
+                              return_indices=True)
+        library = lambda: torch.ops.aten.max_pool2d_with_indices_backward(  # noqa: E731,E501
+            g, x, [3, 3], [1, 1], [1, 1], [1, 1], True, idx)
+        rec = compare_case(
+            "pool_bwd_nhwc", label, dx, want, "float32",
+            lambda: pool.pool_bwd_nhwc_cuda(x, g, *geom, "max"),
+            lambda: pool.pool_bwd_plain(x, g, *geom, "max"), library,
+            (2 * x.numel() + g.numel()) * x.element_size(),
+            g.numel() * 9 * 2, card,
+            extra=f" max 3x3 s1 p1 {tuple(shape)} channels-last "
+                  f"bitwise={bitwise}")
+        dev = {"kernel": profiled_device_ms(
+                   lambda: pool.pool_bwd_nhwc_cuda(x, g, *geom, "max"),
+                   key="pool_nhwc_band_kernel"),
+               "library": profiled_device_ms(library)}
+        print(f"[zoo] K6-NHWC {label} {tuple(shape)}: device time a call "
+              f"(torch.profiler, mean of 10): kernel {dev['kernel']:.4f} "
+              f"ms, library {dev['library']:.4f} ms, bound "
+              f"{rec['bound_ms']:.4f} ms [{card}]", flush=True)
+        rec.update(shape=list(shape), method="max", bitwise=bitwise,
+                   device_ms=dev)
+        records.append(rec)
+        check(bitwise, f"pool_bwd_nhwc {label}: not bitwise equal to the "
+                       f"plain version")
+        del x, y, g, dx, want, idx, library
+    torch.cuda.empty_cache()
+    return records
+
+
+def catalog_inputs(seed: int = 0) -> dict:
+    """The catalog net's inputs (its prototxt's header says what each is)."""
+    import numpy as np
+    rs = np.random.RandomState(seed)
+    return {"data": rs.rand(4, 3, 12, 12).astype(np.float32),
+            "label": rs.randint(0, 5, (4, 1, 1, 1)).astype(np.float32),
+            "target": rs.rand(4, 5, 1, 1).astype(np.float32),
+            "sim": rs.randint(0, 2, (4, 1, 1, 1)).astype(np.float32),
+            "H": rs.rand(1, 1, 5, 5).astype(np.float32)}
+
+
+def zoo_catalog(card: str, device=None) -> dict:
+    """[zoo] (b): the catalog net, one forward and backward on the card
+    against the same net and params on the CPU, at NET_TOL: the loss,
+    the tops, every owner gradient and the float inputs' gradients."""
+    import torch
+    from poseidon_tpu_torch.core.net import Net
+    from poseidon_tpu_torch.proto.messages import load_net
+
+    dev = torch.device(device or "cuda")
+    inputs = catalog_inputs(ZOO_SEED)
+    diff = ("data", "target", "H")
+    init = Net(load_net(ZOO_CATALOG), "TRAIN", device="cpu").init(
+        torch.Generator().manual_seed(ZOO_SEED))
+
+    def run(d):
+        net = Net(load_net(ZOO_CATALOG), "TRAIN", device=d,
+                  conv_layout="auto")
+        params = {l: {k: v.to(d).clone().requires_grad_(True)
+                      for k, v in lv.items()} for l, lv in init.items()}
+        feeds = {k: torch.from_numpy(v).to(d).requires_grad_(k in diff)
+                 for k, v in inputs.items()}
+        out = net.apply(params, feeds, keep_blobs=True)
+        out.loss.backward()
+        sync(torch.device(d))
+        got = {"loss": out.loss.detach().reshape(1)}
+        got.update({f"top {k}": out.blobs[k].detach().float()
+                    for k in ("logits", "prob", "top2", "sp", "mv", "f2")})
+        got.update({f"d{l}/{k}": v.grad for l, lv in params.items()
+                    for k, v in lv.items()})
+        got.update({f"d{k}": feeds[k].grad for k in diff})
+        return net, {k: v.cpu() for k, v in got.items()}
+
+    zero_launches()
+    net, card_out = run(dev)
+    counts = read_launches()
+    _, cpu_out = run("cpu")
+    rtol, atol = NET_TOL
+    errs = {}
+    for k, want in cpu_out.items():
+        got = card_out[k]
+        errs[k] = float((got - want).abs().max())
+        check(bool(torch.allclose(got, want, rtol=rtol, atol=atol)),
+              f"catalog net {k}: card vs CPU max_abs {errs[k]}")
+    types_ = sorted({l.TYPE for l in net.layers})
+    loss_card, loss_cpu = float(card_out["loss"]), float(cpu_out["loss"])
+    print(f"[zoo] catalog net ({len(types_)} layer types {types_}, "
+          f"STOCHASTIC pooling, conv_a/conv_b sharing one weight) on "
+          f"{dev} {net.conv_layout} vs the CPU: loss {loss_card!r} vs "
+          f"{loss_cpu!r}, every top and gradient within rtol {rtol:g} atol "
+          f"{atol:g} (max_abs {max(errs.values()):.3e}); launches {counts} "
+          f"[{card}]", flush=True)
+    return {"max_abs": errs, "launches": counts, "types": types_,
+            "layout": net.conv_layout}
+
+
+def zoo_siamese(card: str, device=None) -> dict:
+    """[zoo] (b): the siamese example net (named params) trained
+    ZOO_SIAMESE_STEPS steps on the card against the CPU from the same
+    params and batches, at NET_TOL; each sharer's blobs are its owner's
+    leaves, one tensor in the arena; the K6 and K7 launches exact."""
+    import numpy as np
+    import torch
+    from poseidon_tpu_torch.core.net import Net
+    from poseidon_tpu_torch.parallel.trainer import (build_train_step,
+                                                     init_train_state)
+    from poseidon_tpu_torch.proto.messages import load_net, load_solver
+
+    dev = torch.device(device or "cuda")
+    n = ZOO_SIAMESE_BATCH
+    shapes = {"pair_data": (n, 2, 28, 28), "sim": (n,)}
+    sp = load_solver("examples/siamese/mnist_siamese_solver.prototxt")
+    rs = np.random.RandomState(ZOO_SEED)
+    batches = [{"pair_data": rs.rand(*shapes["pair_data"]).astype(
+                    np.float32),
+                "sim": rs.randint(0, 2, size=(n,)).astype(np.float32)}
+               for _ in range(ZOO_SIAMESE_STEPS)]
+    init = None
+    runs = {}
+    for d in (dev, torch.device("cpu")):
+        net = Net(load_net(ZOO_SIAMESE), "TRAIN", device=d,
+                  source_shapes=shapes, conv_layout="auto")
+        if init is None:
+            init = net.init(torch.Generator().manual_seed(ZOO_SEED))
+        params = {l: {k: v.to(d).clone() for k, v in lv.items()}
+                  for l, lv in init.items()}
+        step = build_train_step(net, sp)
+        params, state = step.load(params, init_train_state(params))
+        leaves = step._leaf_tree
+        lo = step.flat_w.data_ptr()
+        hi = lo + step.flat_w.numel() * step.flat_w.element_size()
+        for sharer, owner in (("conv1_p", "conv1"), ("ip1_p", "ip1"),
+                              ("feat_p", "feat")):
+            got = net._layer_params(leaves, net._layer_by_name[sharer])
+            for k in ("w", "b"):
+                check(got[k] is leaves[owner][k]
+                      and lo <= got[k].data_ptr() < hi,
+                      f"siamese {sharer}/{k} is not {owner}'s arena leaf")
+        zero_launches()
+        losses = []
+        for b in batches:
+            params, state, m = step.step(
+                params, state, {k: torch.from_numpy(v).to(d)
+                                for k, v in b.items()})
+            losses.append(float(m["loss"]))
+        runs[d.type] = {"losses": losses, "launches": read_launches(),
+                        "params": {l: {k: v.detach().cpu().clone()
+                                       for k, v in lv.items()}
+                                   for l, lv in params.items()},
+                        "layout": net.conv_layout,
+                        "owners": list(net.param_defs)}
+        del net, step, params, state, leaves
+    card_run, cpu_run = runs[dev.type], runs["cpu"]
+    rtol, atol = NET_TOL
+    check(np.allclose(card_run["losses"], cpu_run["losses"], rtol=rtol,
+                      atol=atol),
+          f"siamese losses card {card_run['losses']} vs CPU "
+          f"{cpu_run['losses']}")
+    worst = 0.0
+    for l, lv in cpu_run["params"].items():
+        for k, want in lv.items():
+            got = card_run["params"][l][k]
+            err = float((got - want).abs().max())
+            worst = max(worst, err)
+            check(bool(torch.allclose(got, want, rtol=rtol, atol=atol)),
+                  f"siamese {l}/{k} after {ZOO_SIAMESE_STEPS} steps: card vs "
+                  f"CPU max_abs {err}")
+    counts = card_run["launches"]
+    if dev.type == "cuda":
+        k6 = "pool_bwd_nhwc" if card_run["layout"] == "NHWC" else "pool_bwd"
+        want = {k: 0 for k in counts}
+        want.update({k6: 2 * ZOO_SIAMESE_STEPS,
+                     "sgd_update": ZOO_SIAMESE_STEPS})
+        check(counts == want, f"siamese launch counts {counts} != {want}")
+    print(f"[zoo] siamese net (owners {card_run['owners']}, sharers one "
+          f"tensor with their owners in the arena) {ZOO_SIAMESE_STEPS} SGD "
+          f"steps at batch {n} on {dev} {card_run['layout']} vs the CPU: "
+          f"losses {card_run['losses']} vs {cpu_run['losses']}, every param "
+          f"within rtol {rtol:g} atol {atol:g} (max_abs {worst:.3e}); "
+          f"launches {counts} [{card}]", flush=True)
+    return {"losses": card_run["losses"], "cpu_losses": cpu_run["losses"],
+            "max_abs": worst, "launches": counts,
+            "layout": card_run["layout"]}
+
+
+def phase_zoo(card: str, device=None, batch: int = ZOO_BATCH) -> dict:
+    """[zoo]: GoogLeNet from the model zoo trained at full width, K6-NHWC
+    at its inception pools, the catalog net and the siamese net against
+    the CPU (``device`` and ``batch`` for a CPU rehearsal only)."""
+    import torch
+    t0 = time.perf_counter()
+    googlenet = zoo_googlenet(card, device, batch)
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+    pools = zoo_inception_pools(card) if device is None else []
+    catalog = zoo_catalog(card, device)
+    siamese = zoo_siamese(card, device)
+    wall = time.perf_counter() - t0
+    print(f"[zoo] phase wall {wall:.1f} s (budget 60 s) [{card}]",
+          flush=True)
+    if device is None:
+        check(wall <= 60.0, f"[zoo] took {wall:.1f} s, over its 60 s")
+    return {"googlenet": googlenet, "inception_pools": pools,
+            "catalog": catalog, "siamese": siamese,
+            "launches": {"zoo_googlenet": googlenet["launches"],
+                         "zoo_catalog": catalog["launches"],
+                         "zoo_siamese": siamese["launches"]},
+            "wall_s": wall}
+
+
 def bf16_launch(records, case: str) -> dict:
     """The bf16 record of ``case`` (the gpt_small training launch under
     --bf16): its times, bound and library time."""
@@ -6994,6 +7433,8 @@ def main() -> int:
             spmd = phase_spmd(card, root)
             torch.cuda.empty_cache()
             fabric = phase_fabric(card, root)
+        torch.cuda.empty_cache()
+        zoo = phase_zoo(card)
         torch.cuda.empty_cache()
         lm = phase_lm(card)
         torch.cuda.empty_cache()
@@ -7191,6 +7632,16 @@ def main() -> int:
         # the tp-sharded generate executor's traffic
         entry["launches_by_path"]["lm_tp_serve"] = lm_tp["launches"].get(
             name, 0)
+        # [zoo]'s paths: GoogLeNet's timed steps, the catalog net's
+        # forward and backward, the siamese steps
+        entry["launches_by_path"].update(
+            {path: counts.get(name, 0)
+             for path, counts in zoo["launches"].items()})
+        if name == "pool_bwd_nhwc":
+            entry["zoo_inception_cases"] = zoo["inception_pools"]
+            entry["max_abs_err"] = max(
+                [entry["max_abs_err"]]
+                + [r["max_abs_err"] for r in zoo["inception_pools"]])
         # the serving fleet's paths: the CNN replicas, the generate
         # replicas, and the serve and bench_serve children
         entry["launches_by_path"].update(
@@ -7224,6 +7675,7 @@ def main() -> int:
                "lm_par": lm_par,
                "lm_pp_ep": lm_pp_ep,
                "fleet": fleet,
+               "zoo": zoo,
                "bf16_digits_final_accuracy": bf16_digits_acc,
                "wall_s": time.perf_counter() - t_start}
     print(f"[summary] {json.dumps(summary)}", flush=True)

@@ -26,11 +26,23 @@ every conv layer.
 
 Parameters are a plain ``{layer: {"w": tensor, "b": tensor}}`` tree on the
 net's device, the layout of the JAX package's params (OIHW conv weights,
-(out, in) fc weights). ``apply(params, inputs)`` runs the graph in order,
-rebinding each top name as it is produced, so in-place layers
-(``relu1: conv1 -> conv1``) behave as in Caffe, and returns the loss
-(sum over tops of loss_weight * top, Caffe's objective) with the outputs.
-Backward is autograd through ``apply``.
+(out, in) fc weights). Shared (named) params, JAX's port of Caffe's
+weight sharing (siamese nets): a blob whose ``param`` name an earlier
+layer declared is stored once, under that owner; ``param_defs`` and the
+tree hold owners only and ``_storage_of`` routes each sharer to its
+owner, after the owner's checks (STRICT shape or PERMISSIVE count, from
+``blob_share_mode`` in a V1 net and ``share_mode`` in a V2 one; equal lr
+and decay multipliers). Autograd sums every sharer's gradient into the
+one leaf, so the arena, the DWBP order and the update see owners only.
+``load_weights`` and ``export_weights`` take and give Caffe's layout,
+where each sharer repeats its owner's blob. ``apply(params, inputs)``
+runs the graph in order, rebinding each top name as it is produced, so
+in-place layers (``relu1: conv1 -> conv1``) behave as in Caffe, and
+returns the loss (sum over tops of loss_weight * top, Caffe's objective)
+with the outputs.
+Backward is autograd through ``apply``. DUMMY_DATA draws its tops in the
+graph, from a generator on the net's device that ``manual_seed`` derives
+from the net's seed and the layer's index.
 
 The DWBP-ordered parameter table (REVERSE forward layer order, the order
 gradients materialize during backward) lays out the flat parameter arena
@@ -40,6 +52,7 @@ gradients and momentum into.
 
 from __future__ import annotations
 
+import hashlib
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
@@ -133,7 +146,7 @@ class Net(nn.Module):
 
         layers: List[Layer] = []
         source_tops: List[str] = []
-        for lp in filter_net(net_param, self.state):
+        for idx, lp in enumerate(filter_net(net_param, self.state)):
             if lp.canonical_type() in DATA_SOURCE_TYPES:
                 for top in lp.top:
                     if top not in source_shapes:
@@ -142,7 +155,7 @@ class Net(nn.Module):
                             f"must be supplied via source_shapes")
                     source_tops.append(top)
                 continue
-            layer = create_layer(lp)
+            layer = create_layer(lp, idx)
             bottoms = []
             for b in lp.bottom:
                 if b not in blob_shapes:
@@ -166,8 +179,11 @@ class Net(nn.Module):
         for layer in self.layers:
             if layer.TYPE == "DROPOUT":
                 layer.generator = self.generator
+            if layer.TYPE == "DUMMY_DATA":
+                layer.generator = torch.Generator(device=self.device)
             if layer.TYPE == "CONVOLUTION":
                 layer.conv_strategy = self.conv_strategy
+        self.manual_seed(0)
 
         produced, consumed = [], set()
         for layer in self.layers:
@@ -177,8 +193,7 @@ class Net(nn.Module):
                     produced.append(t)
         self.output_names = [t for t in produced if t not in consumed]
 
-        self.param_defs: Dict[str, List[ParamDef]] = {
-            layer.name: layer.params for layer in self.layers if layer.params}
+        self._plan_sharing()
         self._layer_by_name = {l.name: l for l in self.layers}
         # the static arena offset table: every ParamDef in DWBP order
         # (reverse forward layer order), as the JAX package orders it
@@ -190,6 +205,65 @@ class Net(nn.Module):
         self._arena_layouts: Dict = {}
         self._plan_epilogues()
         self.params: Optional[Params] = None
+
+    def _plan_sharing(self) -> None:
+        """``param_defs`` (owners only) and ``_storage_of`` ((layer,
+        param) -> its owner's), with JAX's checks and messages."""
+        self.param_defs: Dict[str, List[ParamDef]] = {}
+        self._storage_of: Dict[Tuple[str, str], Tuple[str, str]] = {}
+        shared_owner: Dict[str, Tuple[str, str, ParamDef]] = {}
+        for layer in self.layers:
+            owned: List[ParamDef] = []
+            for i, pdef in enumerate(layer.params):
+                spec = layer.lp.param_spec(i)
+                share_name = spec.name
+                if share_name and share_name in shared_owner:
+                    olayer, opname, odef = shared_owner[share_name]
+                    mode = (layer.lp.blob_share_mode[i]
+                            if i < len(layer.lp.blob_share_mode)
+                            else spec.share_mode)
+                    if (spec.lr_mult, spec.decay_mult) != (odef.lr_mult,
+                                                           odef.decay_mult):
+                        raise ValueError(
+                            f"layer {layer.name!r}: shared param "
+                            f"{share_name!r} lr/decay multipliers "
+                            f"({spec.lr_mult}, {spec.decay_mult}) differ "
+                            f"from owner {olayer!r}'s ({odef.lr_mult}, "
+                            f"{odef.decay_mult})")
+                    if mode == "PERMISSIVE":
+                        if pdef.count != odef.count:
+                            raise ValueError(
+                                f"layer {layer.name!r}: shared param "
+                                f"{share_name!r} count mismatch "
+                                f"{pdef.count} vs {odef.count}")
+                    elif pdef.shape != odef.shape:
+                        raise ValueError(
+                            f"layer {layer.name!r}: shared param "
+                            f"{share_name!r} shape mismatch "
+                            f"{pdef.shape} vs {odef.shape}")
+                    self._storage_of[(layer.name, pdef.name)] = (olayer,
+                                                                 opname)
+                else:
+                    if share_name:
+                        shared_owner[share_name] = (layer.name, pdef.name,
+                                                    pdef)
+                    self._storage_of[(layer.name, pdef.name)] = (layer.name,
+                                                                 pdef.name)
+                    owned.append(pdef)
+            if owned:
+                self.param_defs[layer.name] = owned
+
+    def manual_seed(self, seed: int) -> "Net":
+        """Seed the dropout generator with ``seed`` and each DUMMY_DATA
+        layer's with a seed derived from (``seed``, the layer's index)."""
+        self.generator.manual_seed(seed)
+        for layer in self.layers:
+            if layer.TYPE == "DUMMY_DATA":
+                digest = hashlib.blake2b(f"{seed}/{layer.index}".encode(),
+                                         digest_size=8).digest()
+                layer.generator.manual_seed(
+                    int.from_bytes(digest, "little") >> 1)
+        return self
 
     def arena_layout(self, bucket_mb: float = 4.0, align: int = 1,
                      layers=None):
@@ -307,16 +381,21 @@ class Net(nn.Module):
             outputs={name: blobs[name] for name in self.output_names},
             blobs=blobs if keep_blobs else {})
 
-    @staticmethod
-    def _layer_params(params: Params, layer: Layer, comm=None
+    def _layer_params(self, params: Params, layer: Layer, comm=None
                       ) -> Dict[str, torch.Tensor]:
-        lparams = params.get(layer.name, {})
+        """A layer's params through the sharing bindings: each sharer's
+        blob is its owner's leaf (reshaped under PERMISSIVE)."""
+        lparams: Dict[str, torch.Tensor] = {}
         for pdef in layer.params:
-            v = lparams.get(pdef.name)
-            if v is None or tuple(v.shape) == pdef.shape:
+            olayer, opname = self._storage_of[(layer.name, pdef.name)]
+            v = params.get(olayer, {}).get(opname)
+            if v is None:
+                continue
+            lparams[pdef.name] = v
+            if tuple(v.shape) == pdef.shape:
                 continue
             if v.numel() == pdef.count:
-                lparams = {**lparams, pdef.name: v.reshape(pdef.shape)}
+                lparams[pdef.name] = v.reshape(pdef.shape)
             elif comm is None or not comm.is_tp_leaf(layer.name, pdef.name):
                 raise ValueError(
                     f"layer {layer.name!r} param {pdef.name!r}: got shape "
@@ -338,8 +417,9 @@ class Net(nn.Module):
                      layer_weights: Dict[str, List[np.ndarray]],
                      strict: bool = False) -> Params:
         """Caffe's CopyTrainedLayersFrom: merge {layer: [blob arrays]} by
-        name and order (blobs reshaped to the defined shapes); unknown
-        layers are ignored unless ``strict``."""
+        name and order (blobs reshaped to the defined shapes), a sharer's
+        blob into its owner's storage; unknown layers are ignored unless
+        ``strict``."""
         new_params = {k: dict(v) for k, v in params.items()}
         for lname, arrays in layer_weights.items():
             layer = self._layer_by_name.get(lname)
@@ -355,16 +435,21 @@ class Net(nn.Module):
                 if int(arr.size) != pdef.count:
                     raise ValueError(f"{lname}/{pdef.name}: count mismatch "
                                      f"{arr.size} vs {pdef.count}")
-                new_params[lname][pdef.name] = torch.from_numpy(
-                    arr.reshape(pdef.shape).copy()).to(self.device)
+                olayer, opname = self._storage_of[(lname, pdef.name)]
+                oshape = next(d.shape for d in self.param_defs[olayer]
+                              if d.name == opname)
+                new_params.setdefault(olayer, {})[opname] = torch.from_numpy(
+                    arr.reshape(oshape).copy()).to(self.device)
         return new_params
 
     def export_weights(self, params: Optional[Params] = None
                        ) -> Dict[str, List[np.ndarray]]:
-        """Every param layer's blobs as numpy arrays, in Caffe's order."""
+        """Every param layer's blobs as numpy arrays, in Caffe's order,
+        sharers included (each repeats its owner's array, in its own
+        shape)."""
         params = self.params if params is None else params
-        return {layer.name: [params[layer.name][p.name].detach().cpu()
-                             .numpy() for p in layer.params]
+        return {layer.name: [v.detach().cpu().numpy() for v in
+                             self._layer_params(params, layer).values()]
                 for layer in self.layers if layer.params}
 
 

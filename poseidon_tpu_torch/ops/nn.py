@@ -1,6 +1,7 @@
-"""Convolution (with the space-to-depth stem rewrite), within-channel LRN
-and inner product (the subset of ``poseidon_tpu/ops/nn.py`` that CNN
-serving and training use), in either activation layout.
+"""Convolution (with the space-to-depth stem rewrite), im2col,
+within-channel LRN, STOCHASTIC pooling and inner product (the part of
+``poseidon_tpu/ops/nn.py`` outside the Pallas kernels), in either
+activation layout.
 
 The JAX package leaves convolution and GEMMs to XLA, not to Pallas, so the
 port leaves them to PyTorch's own operators (cuDNN and cuBLAS on the card)
@@ -24,11 +25,12 @@ from __future__ import annotations
 
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ..numeric import check_conv_strategy, memory_format, policy
-from .pool import ave_pool
+from .pool import _pool_dims, _pool_pad_crop, ave_pool
 
 
 def conv_out_size(in_size: int, kernel: int, stride: int, pad: int) -> int:
@@ -123,6 +125,40 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
     elif act is not None:
         raise ValueError(f"unknown conv epilogue act {act!r}")
     return y
+
+
+def im2col(x: torch.Tensor, kernel: Tuple[int, int], stride: Tuple[int, int],
+           pad: Tuple[int, int]) -> torch.Tensor:
+    """Patch extraction (the IM2COL layer, util/im2col.cpp): (N, C*kh*kw,
+    out_h, out_w) in Caffe's column order, channel-major then the kernel's
+    rows and columns. The column order is the layer's contract, so the
+    result is NCHW-contiguous whatever x's memory format."""
+    n, _, h, w = x.shape
+    oh = conv_out_size(h, kernel[0], stride[0], pad[0])
+    ow = conv_out_size(w, kernel[1], stride[1], pad[1])
+    cols = F.unfold(x, tuple(kernel), padding=tuple(pad),
+                    stride=tuple(stride))
+    return cols.reshape(n, cols.shape[1], oh, ow)
+
+
+def stochastic_pool(x: torch.Tensor, kernel, stride, pad) -> torch.Tensor:
+    """STOCHASTIC pooling as the JAX package computes it in both phases:
+    the probability-weighted average of each window, sum(x^2) /
+    max(sum(x), FLT_MIN), the reference's TEST path (pooling_layer.cu);
+    x must be non-negative. Caffe's ceil-mode output size; padding raises,
+    as in JAX. Window sums are torch's average pooling with divisor 1, so
+    autograd gives the backward."""
+    if tuple(pad) != (0, 0):
+        raise NotImplementedError("stochastic pooling with padding")
+    _, _, oh, ow = _pool_dims(x, kernel, stride, pad)
+
+    def window_sum(t):
+        tp = _pool_pad_crop(t, kernel, stride, pad, oh, ow, 0.0)
+        return F.avg_pool2d(tp, tuple(kernel), tuple(stride),
+                            divisor_override=1)
+
+    tiny = float(np.finfo(np.float32).tiny)
+    return window_sum(x * x) / torch.clamp_min(window_sum(x), tiny)
 
 
 def lrn_within_channel(x: torch.Tensor, local_size: int, alpha: float,

@@ -470,7 +470,9 @@ class BucketSync:
 
     ``issued`` lists the hooked buckets in issue order and
     ``issued_mid_backward`` counts those issued while other leaves still
-    waited for their gradient."""
+    waited for their gradient. A shared (named) param is one leaf read by
+    every sharer layer: autograd sums the sharers' gradients before the
+    leaf's one accumulation, so its bucket goes out after all of them."""
 
     def __init__(self, group, cfg: CommConfig, slots: Sequence,
                  kinds: Dict[str, str], leaves: Sequence[torch.Tensor],

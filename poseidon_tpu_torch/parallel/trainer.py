@@ -177,6 +177,10 @@ class TrainStep:
         self.comm = comm or CommConfig()
         self.comm.validate()
         self.input_transform = input_transform
+        # the blobs each step keeps for the engine's HDF5_OUTPUT dump
+        # (``dumped``: detached, by name, from the step's forward)
+        self.dump_blobs: Tuple[str, ...] = ()
+        self.dumped: Dict[str, torch.Tensor] = {}
         self.arena = net.arena_layout()
         if self.arena is None:
             raise ValueError(f"net {net.name!r} has no parameters to train")
@@ -325,7 +329,9 @@ class TrainStep:
         if self.input_transform is not None:
             batch = self.input_transform(batch)
         out = self.net.apply(self._leaf_tree, batch, train=True,
-                             comm=self._ctx)
+                             comm=self._ctx,
+                             keep_blobs=bool(self.dump_blobs))
+        self.dumped = {b: out.blobs[b].detach() for b in self.dump_blobs}
         out.loss.backward()
         if self.sync is not None:
             self.sync.finish()

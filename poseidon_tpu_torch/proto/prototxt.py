@@ -57,7 +57,8 @@ _TOKEN_RE = re.compile(
     r"""
     (?P<ws>\s+|\#[^\n]*)
   | (?P<string>"(?:\\.|[^"\\])*"|'(?:\\.|[^'\\])*')
-  | (?P<number>[-+]?(?:\d+\.\d*|\.\d+|\d+)(?:[eE][-+]?\d+)?|[-+]?inf|nan)
+  | (?P<number>[-+]?(?:\d+\.\d*|\.\d+|\d+)(?:[eE][-+]?\d+)?
+      |[-+]?inf(?![A-Za-z0-9_])|nan(?![A-Za-z0-9_]))
   | (?P<ident>[A-Za-z_][A-Za-z0-9_]*)
   | (?P<punct>[{}:\[\],;])
     """,

@@ -35,6 +35,7 @@ import socket
 import struct
 import threading
 import time
+import warnings
 import weakref
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
@@ -73,7 +74,8 @@ MAX_FRAME_ENV = "POSEIDON_MAX_FRAME_BYTES"
 
 def max_frame_bytes() -> int:
     """The frame cap: ``POSEIDON_MAX_FRAME_BYTES`` when it is a positive
-    integer, else 1 GiB (a garbage header fails before any allocation)."""
+    integer, else 1 GiB (a garbage header fails before any allocation).
+    A set but unusable env value warns and takes the default."""
     env = os.environ.get(MAX_FRAME_ENV)
     if env:
         try:
@@ -82,6 +84,10 @@ def max_frame_bytes() -> int:
             n = -1
         if n > 0:
             return n
+        warnings.warn(
+            f"{MAX_FRAME_ENV}={env!r} is not a positive integer byte "
+            f"count; using the default {DEFAULT_MAX_FRAME}",
+            RuntimeWarning, stacklevel=2)
     return DEFAULT_MAX_FRAME
 
 

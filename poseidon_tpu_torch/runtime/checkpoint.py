@@ -15,6 +15,11 @@ snapshots cross-load both ways.
   ``adarev_server/`` (its z/zmax) beside them. Tree keys join layer and
   param names with the ASCII unit separator (layer names may contain
   '/'). Both files are written to a temporary name and renamed.
+- A net with shared (named) params stores its owners alone under
+  ``params/`` and ``history/``, as JAX's owner-only tree does, and its
+  .caffemodel repeats each owner's blobs under every sharer (Caffe's
+  layout, ``Net.export_weights``); ``load_caffemodel`` routes a sharer's
+  blobs to its owner. Both load both ways with the JAX package.
 - ``restore()`` rebuilds (params, TrainState or SSPState) as CPU
   tensors, by the snapshot's kind; ``coerce_state`` converts between the
   kinds for the mode a run is in (JAX's rules); ``restore_params`` reads

@@ -17,7 +17,14 @@ Caffe's ``Solver::Solve``).
 - with ``device_transform`` the train pipelines ship uint8 crops and the
   train step applies ``(x - mean) * scale`` on the card;
 - host spans (``runtime/spans.py``) dumped as a Chrome trace under
-  ``trace_out``; metrics rows written as the JAX engine's CSVs.
+  ``trace_out``; metrics rows written as the JAX engine's CSVs;
+- HDF5_OUTPUT (hdf5_output_layer.cpp), its file under ``output_dir``,
+  one dataset a bottom named with '/' as '_', gathered over the ranks
+  (rank 0 writes): in the TRAIN net rewritten after every iteration with
+  the step's bottoms (as in the JAX engine, not dumped under SSP
+  staleness or ``--mesh``, with a warning, and ``iter_size`` forced to
+  1); in a TEST net written after each test pass with every batch's
+  bottoms. ``h5py`` is imported only for a net that has the layer.
 
 ``device_prefetch``, ``max_in_flight`` and ``async_snapshot`` left at
 ``None`` take ``config.PipelineConfig``'s defaults. The pipeline moves
@@ -63,6 +70,7 @@ unless the caller passes ``device="cpu"``.
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import time
 from typing import Callable, Dict, List, Optional
@@ -292,6 +300,13 @@ class Engine:
             shard)
         self.train_net = Net(train_param, "TRAIN", device=self.device,
                              source_shapes=train_shapes)
+        self._h5_train = [
+            (l.lp.hdf5_output_param.file_name, list(l.lp.bottom))
+            for l in self.train_net.layers if l.TYPE == "HDF5_OUTPUT"]
+        if self._h5_train and self.staleness > 0:
+            log("WARNING: HDF5_OUTPUT in the TRAIN net is not dumped "
+                "under SSP staleness", rank=self.rank)
+            self._h5_train = []
         pol = policy()
         log(f"numeric policy: compute {str(pol.compute_dtype)[6:]}, params "
             f"{str(pol.param_dtype)[6:]}, accumulation "
@@ -347,9 +362,22 @@ class Engine:
                 self.train_net, sp, self.staleness, group, self.comm,
                 self._input_transform, plan=self.plan)
         else:
+            dump = sorted({b for _, bs in self._h5_train for b in bs})
+            if dump and max(1, int(sp.iter_size)) > 1:
+                log("WARNING: iter_size > 1 ignored with HDF5_OUTPUT in "
+                    "the TRAIN net (per-iteration dump semantics)",
+                    rank=self.rank)
+                sp = dataclasses.replace(sp, iter_size=1)
+            if dump and self.plan is not None:
+                log("WARNING: HDF5_OUTPUT in the TRAIN net is not dumped "
+                    "under --mesh sharding", rank=self.rank)
+                dump = []
+                self._h5_train = []
             self.train_step = build_train_step(
                 self.train_net, sp, group, self.comm, self._input_transform,
                 plan=self.plan)
+            if dump:
+                self.train_step.dump_blobs = tuple(dump)
         self.eval_steps = [build_eval_step(n, group, plan=self.plan)
                            for n in self.test_nets]
         step = self.train_step
@@ -397,7 +425,7 @@ class Engine:
         seed = sp.random_seed if sp.random_seed >= 0 else 1
         # tp replicas draw the same dropout masks (the batch-shard index;
         # a slice's, offset by its slice id)
-        self.train_net.generator.manual_seed(rank_seed(
+        self.train_net.manual_seed(rank_seed(
             seed, self.group.batch_index + (
                 self._slice.slice_id * self.group.batch_shards
                 if self._slice is not None else 0)))
@@ -535,16 +563,41 @@ class Engine:
 
     # ---------------------------------------------------------------- #
     def test(self, test_id: int = 0) -> Dict[str, float]:
-        """Average metrics over test_iter batches (Solver::Test)."""
+        """Average metrics over test_iter batches (Solver::Test). A test
+        net with HDF5_OUTPUT layers runs one forward a batch for both its
+        metrics (its scalar outputs, as JAX's engine takes them) and its
+        dumped bottoms; each layer's file gets every batch's bottoms,
+        gathered over the ranks, concatenated (rank 0 writes)."""
         ev = self.eval_steps[test_id]
+        net = self.test_nets[test_id]
         iters = (self.sp.test_iter[test_id]
                  if test_id < len(self.sp.test_iter) else 50)
+        specs = [(l.lp.hdf5_output_param.file_name, list(l.lp.bottom))
+                 for l in net.layers if l.TYPE == "HDF5_OUTPUT"]
         acc: Dict[str, float] = {}
+        h5_acc: Dict[tuple, list] = {}
         params = self.train_step.canonical_params(self.params)
         for _ in range(iters):
             batch = self._next_batch(self.test_pipelines[test_id])
-            for k, v in ev(params, batch).items():
+            if specs:
+                with torch.no_grad():
+                    blobs = net.apply(params, batch, train=False,
+                                      keep_blobs=True).blobs
+                m = {k: v for k, v in blobs.items()
+                     if k in net.output_names and v.dim() == 0}
+                for fname, bottoms in specs:
+                    for b in bottoms:
+                        arr = blobs[b]
+                        if self.group.distributed and arr.dim() > 0:
+                            arr = self.group.all_gather(arr)
+                        h5_acc.setdefault((fname, b), []).append(
+                            arr.detach().cpu().numpy())
+            else:
+                m = ev(params, batch)
+            for k, v in m.items():
                 acc[k] = acc.get(k, 0.0) + float(v)
+        if specs and self.rank == 0:
+            self._write_h5_outputs(h5_acc)
         out = {k: v / iters for k, v in sorted(acc.items())}
         msg = ", ".join(f"{k} = {v:.4f}" for k, v in out.items())
         log(f"    Test net #{test_id}: {msg}", rank=self.rank)
@@ -630,6 +683,8 @@ class Engine:
                 with span_recorder.span("dispatch_window", "step",
                                         {"iter": it}):
                     fetcher.put(it, m)
+                if self._h5_train:
+                    self._write_train_h5(self.train_step.dumped)
                 it += 1
                 self.stats["input_stall_s"] += t0 - t_in
                 self.stats["train_step_s"] += time.perf_counter() - t0
@@ -685,6 +740,41 @@ class Engine:
         self._write_artifacts()
         self._dump_trace()
         return last
+
+    def _write_train_h5(self, dumps: Dict[str, torch.Tensor]) -> None:
+        """Rewrite each TRAIN-net HDF5_OUTPUT file with the latest batch
+        (hdf5_output_layer.cpp overwrites its datasets every Forward): the
+        bottoms gathered over the ranks, written by rank 0."""
+        import h5py
+        host = {}
+        for k, v in dumps.items():
+            if self.group.distributed and v.dim() > 0:
+                v = self.group.all_gather(v)
+            host[k] = v.detach().cpu().numpy()
+        if self.rank != 0:
+            return
+        for fname, bottoms in self._h5_train:
+            path = os.path.join(self.output_dir, fname)
+            os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+            with h5py.File(path, "w") as f:
+                for b in bottoms:
+                    f.create_dataset(b.replace("/", "_"), data=host[b])
+
+    def _write_h5_outputs(self, h5_acc: Dict[tuple, list]) -> None:
+        """Each TEST-net HDF5_OUTPUT file: its bottoms over the test pass,
+        one dataset a bottom ('/' as '_')."""
+        import h5py
+        by_file: Dict[str, Dict[str, np.ndarray]] = {}
+        for (fname, blob), chunks in h5_acc.items():
+            by_file.setdefault(fname, {})[blob.replace("/", "_")] = \
+                np.concatenate(chunks)
+        for fname, datasets in by_file.items():
+            path = os.path.join(self.output_dir, fname)
+            os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+            with h5py.File(path, "w") as f:
+                for name, arr in datasets.items():
+                    f.create_dataset(name, data=arr)
+            log(f"HDF5 output -> {path}", rank=self.rank)
 
     def _dump_trace(self) -> None:
         """The span timeline to ``trace_out`` (display boundaries and the

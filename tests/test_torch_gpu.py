@@ -1758,3 +1758,116 @@ def test_tp2_generate_executor_on_card():
     for a, b in zip(toks["one"], toks["tp"]):
         np.testing.assert_array_equal(a, b)
     assert tp.pool.all_free() and tp.snapshot()["mesh"] == "dp1,fsdp1,tp2"
+
+
+@pytest.mark.gpu
+def test_zoo_googlenet_step_kernels_vs_plain_on_card():
+    """One step of GoogLeNet from ``models/zoo.py`` (aux heads, 1000
+    classes, batch 4, f32, planned NHWC as "auto" plans it on the card)
+    with the kernels against the same step with the plain LRN, pooling
+    and update: the loss and every param and momentum within STEP_TOL
+    (rtol 1e-4, atol 1e-6); the step launches K4-/K5-NHWC twice, K6-NHWC
+    16 times (13 MAX, 3 AVE) and K7 once."""
+    _need_gpu()
+    from poseidon_tpu_torch.core.net import Net
+    from poseidon_tpu_torch.models import zoo
+    from poseidon_tpu_torch.parallel.trainer import (TrainState,
+                                                     build_train_step,
+                                                     init_train_state)
+    from poseidon_tpu_torch.proto.messages import SolverParameter
+    from poseidon_tpu_torch.solvers.updates import SolverState
+
+    net = Net(zoo.googlenet(), "TRAIN", device="cuda",
+              source_shapes=zoo.googlenet_shapes(4), conv_layout="auto")
+    assert net.conv_layout == "NHWC"
+    step = build_train_step(net, SolverParameter(
+        base_lr=0.01, lr_policy="poly", power=0.5, max_iter=2400000,
+        momentum=0.9, weight_decay=2e-4))
+    init = net.init(torch.Generator().manual_seed(0))
+    gen = torch.Generator().manual_seed(1)
+    batch = {"data": (torch.rand((4, 3, 224, 224), generator=gen) * 255
+                      - 117).cuda(),
+             "label": torch.randint(0, 1000, (4,), generator=gen)
+             .float().cuda()}
+
+    def one_step():
+        net.manual_seed(3)
+        params = {l: {k: v.clone() for k, v in d.items()}
+                  for l, d in init.items()}
+        state = init_train_state(params)
+        params, state = step.load(params, TrainState(
+            SolverState(0, state.solver.history), {}))
+        params, state, m = step.step(params, state, batch)
+        torch.cuda.synchronize()
+        return (float(m["loss"]),
+                {l: {k: v.clone() for k, v in d.items()}
+                 for l, d in params.items()},
+                {l: {k: v.clone() for k, v in d.items()}
+                 for l, d in state.solver.history.items()})
+
+    counts = {**port_lrn.LAUNCHES, **port_pool.LAUNCHES, **port_sgd.LAUNCHES}
+    loss_k, pk, hk = one_step()
+    after = {**port_lrn.LAUNCHES, **port_pool.LAUNCHES, **port_sgd.LAUNCHES}
+    delta = {k: after[k] - counts[k] for k in after}
+    assert delta == {"lrn_fwd": 0, "lrn_bwd": 0, "lrn_fwd_nhwc": 2,
+                     "lrn_bwd_nhwc": 2, "pool_bwd": 0, "pool_bwd_nhwc": 16,
+                     "sgd_update": 1}
+    for l in net.layers:
+        if l.TYPE == "LRN":
+            l.across_channels = port_lrn.lrn_across_channels_reference
+        elif l.TYPE == "POOLING":
+            l.pool = (port_pool.max_pool_reference if l.method == "MAX"
+                      else port_pool.ave_pool_reference)
+    step.sgd_update = port_sgd.sgd_update_plain_
+    loss_p, pp, hp = one_step()
+    assert {**port_lrn.LAUNCHES, **port_pool.LAUNCHES,
+            **port_sgd.LAUNCHES} == after
+    assert abs(loss_k - loss_p) <= 1e-6 + 1e-4 * abs(loss_p)
+    for a, b in ((pk, pp), (hk, hp)):
+        for l in a:
+            for k in a[l]:
+                torch.testing.assert_close(a[l][k], b[l][k], rtol=1e-4,
+                                           atol=1e-6)
+
+
+@pytest.mark.gpu
+def test_zoo_catalog_net_card_vs_cpu():
+    """The catalog net (every layer type beyond the CNN core, STOCHASTIC
+    pooling, a shared conv weight, the new fillers), planned "auto"
+    (channels-last on the card, NCHW on the CPU): one forward and backward
+    on the card against the CPU from the same params, the loss, tops and
+    gradients within NET_TOL (rtol 1e-4, atol 1e-6)."""
+    _need_gpu()
+    import numpy as np
+
+    from poseidon_tpu_torch.core.net import Net
+    from poseidon_tpu_torch.proto.messages import load_net
+
+    path = "examples/catalog/layer_catalog.prototxt"
+    rs = np.random.RandomState(0)
+    inputs = {"data": rs.rand(4, 3, 12, 12).astype(np.float32),
+              "label": rs.randint(0, 5, (4, 1, 1, 1)).astype(np.float32),
+              "target": rs.rand(4, 5, 1, 1).astype(np.float32),
+              "sim": rs.randint(0, 2, (4, 1, 1, 1)).astype(np.float32),
+              "H": rs.rand(1, 1, 5, 5).astype(np.float32)}
+    init = Net(load_net(path), "TRAIN", device="cpu").init(
+        torch.Generator().manual_seed(0))
+
+    def run(dev):
+        net = Net(load_net(path), "TRAIN", device=dev, conv_layout="auto")
+        params = {l: {k: v.to(dev).clone().requires_grad_(True)
+                      for k, v in d.items()} for l, d in init.items()}
+        feeds = {k: torch.from_numpy(v).to(dev).requires_grad_(k == "data")
+                 for k, v in inputs.items()}
+        out = net.apply(params, feeds, keep_blobs=True)
+        out.loss.backward()
+        got = {"loss": out.loss.detach().reshape(1), "ddata":
+               feeds["data"].grad, "logits": out.blobs["logits"].detach()}
+        got.update({f"d{l}/{k}": v.grad for l, d in params.items()
+                    for k, v in d.items()})
+        return {k: v.cpu() for k, v in got.items()}
+
+    card, cpu = run("cuda"), run("cpu")
+    for k in cpu:
+        torch.testing.assert_close(card[k], cpu[k], rtol=1e-4, atol=1e-6,
+                                   msg=k)

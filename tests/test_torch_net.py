@@ -219,7 +219,12 @@ def test_params_from_jax_refuses_wrong_shape():
 
 
 def test_unsupported_layer_type_raises_naming_it():
+    # every type of JAX's catalog is ported; NONE is the one type the
+    # prototxt names that neither package builds, and both refuse it
     text = NARROW_ALEXNET.replace('type: SOFTMAX bottom: "fc7"',
-                                  'type: SIGMOID bottom: "fc7"')
-    with pytest.raises(NotImplementedError, match="SIGMOID"):
+                                  'type: NONE bottom: "fc7"')
+    with pytest.raises(ValueError, match="unsupported type NONE") as want:
+        JaxNet(jax_load_str(text), "TEST")
+    with pytest.raises(ValueError, match="unsupported type NONE") as got:
         Net(load_net_from_string(text), "TEST", device="cpu")
+    assert str(got.value) == str(want.value)
