@@ -745,6 +745,30 @@ ZOO_CATALOG = "examples/catalog/layer_catalog.prototxt"
 ZOO_SIAMESE = "examples/siamese/mnist_siamese_train_test.prototxt"
 ZOO_SIAMESE_BATCH, ZOO_SIAMESE_STEPS = 64, 3
 
+# [tools]: AlexNet train_val at full width, f32, planned as an unflagged
+# `train` plans it (NHWC on the card), on [train]'s synthetic LMDB. (a)
+# batch TOOLS_MICRO x iter_size TOOLS_ITER_SIZE through Engine.train() for
+# TOOLS_ITERS steps (exactly TOOLS_LAUNCHES a step); one step from fixed
+# parameters on fixed micro-batches against a batch TOOLS_MICRO x
+# TOOLS_ITER_SIZE step on the same rows, every dropout mask taken by row
+# from one bank (TOOLS_SEED) so both arms drop the same units, at
+# TOOLS_TOL (the CPU tests' PARAM_TOL: cuDNN may pick other algorithms at
+# another batch); the same step against the plain versions at STEP_TOL;
+# the device step of each arm by CUDA events (TOOLS_TIMED_STEPS after a
+# warm-up, two rounds in turns) and its peak memory. (b) `time` and (c)
+# `extract_features` as children (TOOLS_TIME_ITERS timed calls), and the
+# dataset tools on the LMDB (TOOLS_LEVELDB_RECORDS through a LevelDB).
+TOOLS_MICRO, TOOLS_ITER_SIZE, TOOLS_ITERS = 128, 2, 4
+TOOLS_LAUNCHES = {"lrn_fwd_nhwc": 4, "lrn_bwd_nhwc": 4, "pool_bwd_nhwc": 6,
+                  "sgd_update": 1}
+TOOLS_TOL = (1e-4, 1e-6)
+TOOLS_SEED = 22
+TOOLS_TIMED_STEPS = 3
+TOOLS_TIME_ITERS = 10
+TOOLS_LEVELDB_RECORDS = 8
+TOOLS_BUDGET_S = 60.0
+TOOLS_TIMEOUT_S = 300
+
 
 class SmokeFailure(RuntimeError):
     pass
@@ -2762,7 +2786,7 @@ def phase_train(card: str, root: str, device=None, batch_size=None) -> dict:
         sync(eng.device)
         wall = time.perf_counter() - t0
         counts = read_launches()
-        steps = eng.stats["train_iters"]
+        steps = int(eng.stats.counters["train_iters"])
         test_forwards = TEST_ITER * (1 + TRAIN_ITERS // TEST_INTERVAL)
         want = {k: 0 for k in counts}
         want.update({"lrn_fwd": 2 * (steps + test_forwards),
@@ -2774,7 +2798,8 @@ def phase_train(card: str, root: str, device=None, batch_size=None) -> dict:
         check(steps == TRAIN_ITERS, f"trained {steps} steps")
         check(counts == want, f"launch counts {counts} != {want}")
         check(eng.iteration() == TRAIN_ITERS, "iteration count")
-        stall, busy = eng.stats["input_stall_s"], eng.stats["train_step_s"]
+        stall, busy = (eng.stats.timers["input_stall"],
+                       eng.stats.timers["train_step"])
         batch_n = eng.train_net.blob_shapes["data"][0]
         loop = {"img_s": steps * batch_n / (stall + busy),
                 "data_wait_share": stall / (stall + busy),
@@ -2961,10 +2986,10 @@ def run_loop(root: str, device, batch_size, steps: int, warmup: int,
             prefetch=(None if feed is None else
                       "passthrough" if feed.passthrough else "cuda-stream"),
             staged=0 if feed is None else feed.staged,
-            steps_in_flight=eng.stats["steps_in_flight"],
+            steps_in_flight=eng.stats.counters["steps_in_flight"],
             launches=counts, batch=batch)
-        check(eng.stats["train_iters"] == steps,
-              f"loop trained {eng.stats['train_iters']} steps")
+        check(eng.stats.counters["train_iters"] == steps,
+              f"loop trained {eng.stats.counters['train_iters']:g} steps")
         return rate
     finally:
         eng.close()
@@ -3394,7 +3419,7 @@ def phase_bf16_train(card: str, root: str, f32: dict, device=None,
             eng.train()
             sync(eng.device)
             counts = read_launches()
-            steps = eng.stats["train_iters"]
+            steps = int(eng.stats.counters["train_iters"])
             test_fwd = TEST_ITER * (1 + BF16_TRAIN_ITERS
                                     // BF16_TEST_INTERVAL)
             want = {k: 0 for k in counts}
@@ -7347,6 +7372,433 @@ def phase_zoo(card: str, device=None, batch: int = ZOO_BATCH) -> dict:
             "wall_s": wall}
 
 
+def tools_env() -> dict:
+    """[tools] (d): whether PIL, cv2 and h5py import here (IMAGE_DATA,
+    WINDOW_DATA and HDF5_DATA need them; no phase does)."""
+    import importlib
+    out = {}
+    for mod in ("PIL", "cv2", "h5py"):
+        try:
+            m = importlib.import_module(mod)
+            out[mod] = getattr(m, "__version__", "yes")
+        except Exception as e:  # noqa: BLE001 — absent or broken: say so
+            out[mod] = f"no ({type(e).__name__})"
+    print(f"[env] PIL {out['PIL']}, cv2 {out['cv2']}, h5py {out['h5py']}",
+          flush=True)
+    return out
+
+
+class dropout_bank:
+    """Within the block, each DROPOUT layer of ``nets`` keeps the rows of
+    one fixed mask bank (per layer name, ``rows`` rows from ``seed``) in
+    the order its forwards consume them, so a step over K micro-batches
+    and a step over their concatenation drop the same units.
+    ``reset`` rewinds every layer to row 0."""
+
+    def __init__(self, nets, rows: int, seed: int):
+        self.nets, self.rows, self.seed = nets, rows, seed
+
+    def __enter__(self):
+        import torch
+        gen = torch.Generator().manual_seed(self.seed)
+        self.masks, self.layers = {}, []
+        for net in self.nets:
+            for layer in net.layers:
+                if layer.TYPE != "DROPOUT":
+                    continue
+                self.layers.append(layer)
+                if layer.name not in self.masks:
+                    shape = (self.rows,) + tuple(
+                        net.blob_shapes[layer.lp.bottom[0]][1:])
+                    keep = 1.0 - layer.lp.dropout_param.dropout_ratio
+                    self.masks[layer.name] = (
+                        (torch.rand(shape, generator=gen) < keep)
+                        .to(net.device), keep)
+                layer.forward = self._forward(layer.name)
+        self.reset()
+        return self
+
+    def _forward(self, name: str):
+        import torch
+
+        def forward(params, bottoms, train):
+            x = bottoms[0]
+            mask, keep = self.masks[name]
+            lo = self.cursor[name]
+            self.cursor[name] = lo + x.shape[0]
+            return [torch.where(mask[lo:lo + x.shape[0]], x / keep,
+                                torch.zeros((), dtype=x.dtype,
+                                            device=x.device))]
+        return forward
+
+    def reset(self) -> None:
+        self.cursor = {name: 0 for name in self.masks}
+
+    def __exit__(self, *exc):
+        for layer in self.layers:
+            del layer.forward
+        return False
+
+
+def tools_step(step, params0, hist0, it0, batch):
+    """One step of ``step`` from the given params, momentum and iteration
+    on ``batch``; (loss, params, momentum) as clones."""
+    from poseidon_tpu_torch.parallel.trainer import TrainState
+    from poseidon_tpu_torch.solvers.updates import SolverState
+    params, state = step.load(params0, TrainState(SolverState(it0, hist0),
+                                                  {}))
+    params, state, m = step.step(params, state, batch)
+    return (float(m["loss"]), tree_clone(params),
+            tree_clone(state.solver.history))
+
+
+def tools_step_ms(step, params0, hist0, batch, dev):
+    """(device ms a step by CUDA events over TOOLS_TIMED_STEPS after one
+    warm-up, peak bytes allocated above the start); on the CPU the host
+    clock and no peak."""
+    import torch
+    from poseidon_tpu_torch.parallel.trainer import TrainState
+    from poseidon_tpu_torch.solvers.updates import SolverState
+    on_card = dev.type == "cuda"
+    params, state = step.load(params0, TrainState(SolverState(0, hist0), {}))
+    if on_card:
+        gc.collect()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+    params, state, _m = step.step(params, state, batch)
+    sync(dev)
+    t0 = time.perf_counter()
+    if on_card:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+    for _ in range(TOOLS_TIMED_STEPS):
+        params, state, _m = step.step(params, state, batch)
+    if on_card:
+        end.record()
+    sync(dev)
+    if not on_card:
+        return (time.perf_counter() - t0) * 1e3 / TOOLS_TIMED_STEPS, None
+    return (start.elapsed_time(end) / TOOLS_TIMED_STEPS,
+            torch.cuda.max_memory_allocated() - base)
+
+
+def tools_iter_size(card: str, root: str, dev, micro: int) -> dict:
+    """[tools] (a): AlexNet at batch ``micro`` x iter_size through
+    Engine.train(), then against the big batch and the plain versions."""
+    import dataclasses
+
+    import torch
+    from poseidon_tpu_torch.core.net import Net
+    from poseidon_tpu_torch.parallel.trainer import build_train_step
+    from poseidon_tpu_torch.runtime import checkpoint
+    from poseidon_tpu_torch.runtime.engine import Engine
+
+    k = TOOLS_ITER_SIZE
+    on_card = dev.type == "cuda"
+    work = os.path.join(root, "tools")
+    sp = loop_solver(root, TOOLS_ITERS, batch_size=micro)
+    sp.iter_size, sp.display = k, 2
+    eng = Engine(sp, output_dir=work, device=dev)
+    try:
+        check(eng.iter_size == k and eng.train_step.iter_size == k,
+              f"the engine runs iter_size {eng.iter_size}, not {k}")
+        if on_card:
+            check(eng.train_net.conv_layout == "NHWC",
+                  f"AlexNet planned {eng.train_net.conv_layout} on the "
+                  f"card, not the NHWC an unflagged train plans")
+        zero_launches()
+        t0 = time.perf_counter()
+        eng.train()
+        sync(dev)
+        wall = time.perf_counter() - t0
+        counts = read_launches()
+        want = {name: 0 for name in counts}
+        if on_card:
+            want.update({name: v * TOOLS_ITERS
+                         for name, v in TOOLS_LAUNCHES.items()})
+        print(f"[tools] (a) Engine.train(): AlexNet "
+              f"{eng.train_net.conv_layout} batch {micro} x iter_size {k}, "
+              f"{TOOLS_ITERS} steps in "
+              f"{wall:.2f} s; launches {counts} (expected {want}) [{card}]",
+              flush=True)
+        check(counts == want, f"iter_size launches {counts} != {want}")
+        check(eng.iteration() == TOOLS_ITERS, "iteration count")
+        with open(os.path.join(work, "stats.yaml")) as f:
+            stats = f.read()
+        for key in (f"  train_iters: {TOOLS_ITERS}", f"  iteration: "
+                    f"{TOOLS_ITERS}", "  lr:", "  train_loss:", "comm:"):
+            check(key in stats, f"stats.yaml lacks {key!r}")
+
+        # fixed micro-batches, and the big batch of the same rows
+        micro_batches = eng._next_train_batch()
+        big = {t: torch.cat([mb[t] for mb in micro_batches])
+               for t in micro_batches[0]}
+        net_big = Net(eng._train_param, "TRAIN", device=dev,
+                      source_shapes={t: tuple(v.shape)
+                                     for t, v in big.items()})
+        step_big = build_train_step(net_big,
+                                    dataclasses.replace(sp, iter_size=1))
+        p0, h0 = tree_clone(eng.params), tree_clone(eng.state.solver.history)
+        it0 = eng.iteration()
+        with dropout_bank([eng.train_net, net_big], k * micro,
+                          TOOLS_SEED) as bank:
+            loss_k, pk, hk = tools_step(eng.train_step, p0, h0, it0,
+                                        micro_batches)
+            bank.reset()
+            loss_b, pb, hb = tools_step(step_big, p0, h0, it0, big)
+        rtol, atol = TOOLS_TOL
+        gaps = {"params": tree_max_abs(pk, pb),
+                "momentum": tree_max_abs(hk, hb),
+                "loss": abs(loss_k - loss_b)}
+        close = all(bool(torch.allclose(a[l][n], b[l][n], rtol=rtol,
+                                        atol=atol))
+                    for a, b in ((pk, pb), (hk, hb)) for l in a for n in a[l])
+        print(f"[tools] (a) one step at {micro} x iter_size {k} vs one at "
+              f"{k * micro} on the same rows and dropout masks: loss "
+              f"{loss_k!r} vs {loss_b!r}, max_abs params "
+              f"{gaps['params']:.3e}, momentum {gaps['momentum']:.3e} (rtol "
+              f"{rtol:g}, atol {atol:g}) [{card}]", flush=True)
+        check(close and gaps["loss"] <= atol + rtol * abs(loss_b),
+              f"iter_size {k} vs the big batch: {gaps}")
+        del pk, hk, pb, hb
+        plain_max_abs = phase_step_vs_plain(eng, micro_batches, tag="tools")
+        times = {"iter_size": [], "big": []}
+        peaks = {}
+        for arm in ("iter_size", "big", "big", "iter_size"):
+            step, batch = ((eng.train_step, micro_batches)
+                           if arm == "iter_size" else (step_big, big))
+            ms, peak = tools_step_ms(step, p0, h0, batch, dev)
+            times[arm].append(ms)
+            peaks[arm] = peak
+        print(f"[tools] (a) device step by CUDA events ({TOOLS_TIMED_STEPS} "
+              f"steps after a warm-up, in turns): {micro} x iter_size {k} "
+              f"{times['iter_size']} ms, {k * micro} x 1 {times['big']} ms; "
+              f"peak memory above the start {peaks['iter_size']} B vs "
+              f"{peaks['big']} B [{card}]", flush=True)
+        model, _ = checkpoint.snapshot(os.path.join(work, "alexnet"),
+                                       eng.train_net, eng.params, eng.state)
+        return {"launches": counts, "per_step": TOOLS_LAUNCHES,
+                "micro": micro, "iter_size": k, "wall_s": wall,
+                "gap_vs_big_batch": gaps, "tol": list(TOOLS_TOL),
+                "plain_max_abs": plain_max_abs, "step_ms": times,
+                "peak_bytes": peaks, "layout": eng.train_net.conv_layout,
+                "weights": model}
+    finally:
+        eng.close()
+
+
+def tools_child(args, dev, here: str) -> tuple:
+    """A `python -m poseidon_tpu_torch <args>` child reporting its
+    launches (LAUNCH_REPORT): (output lines, launches)."""
+    cmd = [sys.executable, "-c", LAUNCH_REPORT, *args]
+    if dev.type == "cpu":
+        cmd += ["--device", "cpu"]
+    return subprocess.Popen(cmd, cwd=here, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+
+
+def tools_wait(proc, tag: str) -> tuple:
+    try:
+        text = proc.communicate(timeout=TOOLS_TIMEOUT_S)[0]
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    lines = text.splitlines()
+    check(proc.returncode == 0, f"[tools] {tag} exited {proc.returncode}:\n"
+          + "\n".join(lines[-30:]))
+    return lines, fleet_launches(lines, tag)
+
+
+def tools_datasets(card: str, root: str) -> dict:
+    """[tools] (c): compute_image_mean, partition_data (2 shards) and
+    convert_db through the CLI on the synthetic LMDB; the mean against a
+    numpy mean of the records."""
+    import numpy as np
+    from poseidon_tpu_torch.data.leveldb_reader import LevelDBWriter
+    from poseidon_tpu_torch.data.lmdb_reader import LMDBReader
+    from poseidon_tpu_torch.proto.wire import decode_datum, read_blob_file
+    from poseidon_tpu_torch.runtime.cli import main as cli_main
+
+    def records(path):
+        r = LMDBReader(path)
+        try:
+            return [(r.key_at(i), r.value_at(i)) for i in range(len(r))]
+        finally:
+            r.close()
+
+    t0 = time.perf_counter()
+    train_db, val_db, _ = synthetic_ilsvrc_paths(root)
+    work = os.path.join(root, "tools")
+    mean_file = os.path.join(work, "mean.binaryproto")
+    check(cli_main(["compute_image_mean", train_db, mean_file]) == 0,
+          "compute_image_mean")
+    recs = records(train_db)
+    total = wide = None
+    for _, v in recs:
+        arr = decode_datum(v).to_array()
+        total = arr if total is None else total + arr
+        wide = (arr.astype(np.float64) if wide is None
+                else wide + arr)
+    want = (total / len(recs)).astype(np.float32)
+    mean = read_blob_file(mean_file)[0]
+    check(mean.shape == want.shape and np.array_equal(mean, want),
+          "compute_image_mean differs from the numpy f32 mean")
+    f64_gap = float(np.abs(mean - wide / len(recs)).max())
+    check(cli_main(["partition_data", train_db, "2"]) == 0, "partition_data")
+    shards = [records(f"{train_db}_{k}") for k in range(2)]
+    check([len(x) for x in shards] == [len(recs) // 2,
+                                       len(recs) - len(recs) // 2]
+          and shards[0] + shards[1] == recs, "partition_data's shards")
+    val = records(val_db)
+    out = os.path.join(work, "val_copy")
+    check(cli_main(["convert_db", val_db, out]) == 0, "convert_db")
+    check(records(out) == val, "convert_db LMDB -> LMDB records")
+    ldb = os.path.join(work, "val_leveldb")
+    w = LevelDBWriter(ldb)
+    for key, value in val[:TOOLS_LEVELDB_RECORDS]:
+        w.put(key, value)
+    w.close()
+    out2 = os.path.join(work, "val_from_leveldb")
+    check(cli_main(["convert_db", ldb, out2]) == 0, "convert_db LevelDB")
+    check(records(out2) == val[:TOOLS_LEVELDB_RECORDS],
+          "convert_db LevelDB -> LMDB records")
+    wall = time.perf_counter() - t0
+    print(f"[tools] (c) compute_image_mean over {len(recs)} records equal to "
+          f"the numpy f32 mean bitwise (max_abs {f64_gap:.3e} to the f64 "
+          f"mean), partition_data 2 shards of {[len(x) for x in shards]}, "
+          f"convert_db {len(val)} LMDB and {TOOLS_LEVELDB_RECORDS} LevelDB "
+          f"records, all by the CLI in {wall:.2f} s (host work) [{card}]",
+          flush=True)
+    return {"records": len(recs), "mean_f64_max_abs": f64_gap,
+            "shards": [len(x) for x in shards], "convert_db": len(val),
+            "convert_db_leveldb": TOOLS_LEVELDB_RECORDS, "wall_s": wall}
+
+
+def tools_extract_check(card: str, net_file: str, weights: str,
+                        prefix: str, dev) -> dict:
+    """[tools] (c): extract_features' fc7 rows against this process's Net
+    forward of the same first TEST batch and weights, at NET_TOL."""
+    import numpy as np
+    import torch
+    from poseidon_tpu_torch.core.net import Net
+    from poseidon_tpu_torch.data.lmdb_reader import LMDBReader
+    from poseidon_tpu_torch.data.pipeline import (build_phase_pipelines,
+                                                  place_batch)
+    from poseidon_tpu_torch.proto.messages import load_net
+    from poseidon_tpu_torch.proto.wire import decode_datum
+    from poseidon_tpu_torch.runtime.checkpoint import load_caffemodel
+
+    net_param = load_net(net_file)
+    pipes, shapes = build_phase_pipelines(net_param, "TEST")
+    try:
+        host = {}
+        for p in pipes:
+            host.update(next(p))
+    finally:
+        for p in pipes:
+            p.close()
+    net = Net(net_param, "TEST", device=dev, source_shapes=shapes)
+    params = load_caffemodel(weights, net,
+                             net.init(torch.Generator().manual_seed(0)))
+    with torch.no_grad():
+        want = net.apply(params, place_batch(host, dev), train=False,
+                         keep_blobs=True).blobs["fc7"].float().cpu().numpy()
+    r = LMDBReader(f"{prefix}_fc7")
+    try:
+        got = np.stack([np.asarray(decode_datum(r.value_at(i)).float_data,
+                                   np.float32) for i in range(len(r))])
+    finally:
+        r.close()
+    rtol, atol = NET_TOL
+    err = float(np.abs(got - want).max()) if got.shape == want.shape else None
+    print(f"[tools] (c) extract_features fc7 {got.shape} vs the Net's "
+          f"forward {want.shape} on {dev}: max_abs {err} (rtol {rtol:g}, "
+          f"atol {atol:g}) [{card}]", flush=True)
+    check(got.shape == want.shape and np.allclose(got, want, rtol=rtol,
+                                                  atol=atol),
+          f"extract_features fc7 differs from the forward: max_abs {err}")
+    return {"rows": int(got.shape[0]), "max_abs_err": err}
+
+
+def phase_tools(card: str, root: str, device=None, micro: int = TOOLS_MICRO,
+                train_step_ms=None) -> dict:
+    """[tools]: iter_size against the big batch, the `time` and
+    `extract_features` commands, the dataset tools (``device`` and
+    ``micro`` are for a CPU rehearsal at a cut batch only)."""
+    import torch
+    from poseidon_tpu_torch.numeric import policy_scope
+    from poseidon_tpu_torch.proto.messages import net_to_prototxt
+
+    t0 = time.perf_counter()
+    dev = torch.device(device or "cuda")
+    on_card = dev.type == "cuda"
+    here = os.path.dirname(os.path.abspath(__file__))
+    out = {"env": tools_env()}
+    with policy_scope(conv_layout="AUTO"):
+        out["iter_size"] = tools_iter_size(card, root, dev, micro)
+        if on_card:
+            torch.cuda.empty_cache()
+        # the smoke's train_val over the synthetic LMDB, both data layers
+        # at the big batch (alexnet_train_val's 256 on the card)
+        batch = TOOLS_ITER_SIZE * micro
+        net_file = os.path.join(root, "tools", "train_val.prototxt")
+        with open(net_file, "w") as f:
+            f.write(net_to_prototxt(alexnet_net_param(root, batch)))
+        proc = tools_child(["time", "--model", net_file, "--iterations",
+                            str(TOOLS_TIME_ITERS)], dev, here)
+        out["datasets"] = tools_datasets(card, root)
+        lines, time_counts = tools_wait(proc, "time")
+        ms = {}
+        for line in lines:
+            for key, name in (("Average Forward pass:", "forward_ms"),
+                              ("Average Forward-Backward:",
+                               "forward_backward_ms")):
+                if line.startswith(key):
+                    ms[name] = float(line[len(key):].split()[0])
+        check(len(ms) == 2, "time printed no forward/backward times")
+        n = TOOLS_TIME_ITERS + 1
+        want = {k: 0 for k in time_counts}
+        if on_card:
+            want.update(lrn_fwd_nhwc=4 * n, lrn_bwd_nhwc=2 * n,
+                        pool_bwd_nhwc=3 * n)
+        print(f"[tools] (b) `time` ({batch} x 3 x 227 x 227, "
+              f"{TOOLS_TIME_ITERS} calls after a warm-up, CUDA events): "
+              f"forward {ms['forward_ms']} ms, forward+backward "
+              f"{ms['forward_backward_ms']} ms, beside [train]'s device "
+              f"step {train_step_ms} ms (NCHW, with the update) and "
+              f"(a)'s big-batch step {out['iter_size']['step_ms']['big']} "
+              f"ms (NHWC); launches {time_counts} (expected {want}) "
+              f"[{card}]", flush=True)
+        check(time_counts == want, f"time launches {time_counts} != {want}")
+        out["time"] = {**ms, "launches": time_counts,
+                       "iterations": TOOLS_TIME_ITERS}
+        prefix = os.path.join(root, "tools", "feat")
+        proc = tools_child(["extract_features", "--model", net_file,
+                            "--weights", out["iter_size"]["weights"],
+                            "--blobs", "fc7", "--num_batches", "1",
+                            "--out_prefix", prefix], dev, here)
+        _lines, extract_counts = tools_wait(proc, "extract_features")
+        want = {k: 0 for k in extract_counts}
+        if on_card:
+            want.update(lrn_fwd_nhwc=2)
+        print(f"[tools] (c) `extract_features --blobs fc7 --num_batches 1`: "
+              f"launches {extract_counts} (expected {want}) [{card}]",
+              flush=True)
+        check(extract_counts == want,
+              f"extract_features launches {extract_counts} != {want}")
+        out["extract"] = {"launches": extract_counts,
+                          **tools_extract_check(card, net_file,
+                                                out["iter_size"]["weights"],
+                                                prefix, dev)}
+    out["wall_s"] = time.perf_counter() - t0
+    print(f"[tools] phase wall {out['wall_s']:.1f} s (budget "
+          f"{TOOLS_BUDGET_S:g} s) [{card}]", flush=True)
+    return out
+
+
 def bf16_launch(records, case: str) -> dict:
     """The bf16 record of ``case`` (the gpt_small training launch under
     --bf16): its times, bound and library time."""
@@ -7433,6 +7885,8 @@ def main() -> int:
             spmd = phase_spmd(card, root)
             torch.cuda.empty_cache()
             fabric = phase_fabric(card, root)
+            torch.cuda.empty_cache()
+            tools = phase_tools(card, root, train_step_ms=train["step_ms"])
         torch.cuda.empty_cache()
         zoo = phase_zoo(card)
         torch.cuda.empty_cache()
@@ -7642,6 +8096,12 @@ def main() -> int:
             entry["max_abs_err"] = max(
                 [entry["max_abs_err"]]
                 + [r["max_abs_err"] for r in zoo["inception_pools"]])
+        # [tools]' paths: Engine.train() at iter_size 2, and the `time`
+        # and `extract_features` children
+        entry["launches_by_path"].update(
+            tools_iter_size=tools["iter_size"]["launches"][name],
+            tools_time=tools["time"]["launches"][name],
+            tools_extract=tools["extract"]["launches"][name])
         # the serving fleet's paths: the CNN replicas, the generate
         # replicas, and the serve and bench_serve children
         entry["launches_by_path"].update(
@@ -7676,6 +8136,7 @@ def main() -> int:
                "lm_pp_ep": lm_pp_ep,
                "fleet": fleet,
                "zoo": zoo,
+               "tools": tools,
                "bf16_digits_final_accuracy": bf16_digits_acc,
                "wall_s": time.perf_counter() - t_start}
     print(f"[summary] {json.dumps(summary)}", flush=True)

@@ -18,14 +18,17 @@ Which path a pipeline takes (``BatchPipeline.route``):
   ``mean_file`` is indexed by the source crop position, which the card
   cannot see); ``device_transform_spec`` is then the ``{mean_values,
   scale}`` the train step applies on the card.
-- ``python``: every other source (LEVELDB, MEMORY_DATA), or
-  ``use_native=False``: records read one by one through ``DataTransformer``.
+- ``python``: every other source (LEVELDB, IMAGE_DATA, HDF5_DATA,
+  MEMORY_DATA), or ``use_native=False``: records read one by one through
+  ``DataTransformer``.
+- ``window``: WINDOW_DATA, whose batches ``data/window.WindowDataSource``
+  samples itself (fg/bg windows, seeded ``seed * shard.count +
+  shard.index``), on the same worker thread and queue.
 
 Batches are identical, bit for bit, to the JAX package's ``BatchPipeline``
 with the same ``use_native`` from the same seed. The batch multiplier is
 the caller's: the JAX engine multiplies the prototxt batch by its local
-device count, the port's engine passes 1. IMAGE_DATA, HDF5_DATA and
-WINDOW_DATA raise ``NotImplementedError`` (later work).
+device count, the port's engine passes 1.
 """
 
 from __future__ import annotations
@@ -41,7 +44,8 @@ import torch
 
 from ..core.layers import DATA_SOURCE_TYPES
 from ..proto.messages import LayerParameter, TransformationParameter
-from .sources import LevelDBSource, LMDBSource, MemorySource, Source
+from .sources import (HDF5Source, ImageListSource, LevelDBSource,
+                      LMDBSource, MemorySource, Source)
 from .transformer import DataTransformer
 from .workload import Shard, shard_indices, sharded_source_path
 
@@ -97,16 +101,20 @@ def build_source(lp: LayerParameter, shard: Shard = Shard(0, 1),
         if data_backend(lp, path) == "LMDB":
             return LMDBSource(path)
         return LevelDBSource(path)
+    if t == "IMAGE_DATA":
+        ip = lp.image_data_param
+        path = sharded_source_path(ip.source, shard.index,
+                                   ip.shared_file_system)
+        return ImageListSource(path, ip.root_folder, ip.new_height,
+                               ip.new_width, ip.shuffle)
+    if t == "HDF5_DATA":
+        return HDF5Source(lp.hdf5_data_param.source)
     if t == "MEMORY_DATA":
         if memory_data is None:
             raise ValueError(
                 f"layer {lp.name!r}: MEMORY_DATA requires arrays passed via "
                 f"memory_data={{'data': ..., 'label': ...}}")
         return MemorySource(memory_data["data"], memory_data["label"])
-    if t in DATA_SOURCE_TYPES:
-        raise NotImplementedError(
-            f"layer {lp.name!r}: {t} is not in the port yet (DATA with "
-            f"backend LMDB or LEVELDB, and MEMORY_DATA)")
     raise ValueError(f"layer {lp.name!r}: {t} is not a batch source")
 
 
@@ -148,7 +156,15 @@ class BatchPipeline:
         self.device_transform_spec: Optional[Dict] = None
         self._u8 = False
         self._warned_mixed = False
-        if use_native and self._native_eligible(shard):
+        self.window = None
+        if lp.canonical_type() == "WINDOW_DATA":
+            from .window import WindowDataSource
+            self.route = "window"
+            self.window = WindowDataSource(
+                lp, phase, seed=seed * shard.count + shard.index)
+            self._n_records = len(self.window.fg) + len(self.window.bg)
+            self.data_shape = (batch_size,) + self.window.record_shape
+        elif use_native and self._native_eligible(shard):
             self._open_native(device_transform)
         else:
             self.route = "python"
@@ -263,18 +279,21 @@ class BatchPipeline:
         return self.transformer(raw), labels
 
     def _worker(self) -> None:
-        stream = self._index_stream()
+        stream = None if self.window is not None else self._index_stream()
         batch_no = 0
         try:
             while not self._stop.is_set():
-                idx = np.fromiter((next(stream)
-                                   for _ in range(self.batch_size)),
-                                  np.int64, count=self.batch_size)
-                if self.native is not None:
-                    data, labels = self._native_batch(idx, batch_no)
+                if self.window is not None:
+                    data, labels = self.window.batch(self.batch_size)
                 else:
-                    data, labels = self._python_batch(idx)
-                batch_no += 1
+                    idx = np.fromiter((next(stream)
+                                       for _ in range(self.batch_size)),
+                                      np.int64, count=self.batch_size)
+                    if self.native is not None:
+                        data, labels = self._native_batch(idx, batch_no)
+                    else:
+                        data, labels = self._python_batch(idx)
+                    batch_no += 1
                 batch = {self.tops[0]: data}
                 if len(self.tops) > 1:
                     batch[self.tops[1]] = labels

@@ -804,9 +804,9 @@ class SpmdTrainStep:
                  input_transform: Optional[Callable] = None,
                  sharded_state: bool = False):
         if max(1, int(sp.iter_size)) > 1:
-            raise NotImplementedError(
-                "iter_size > 1 (gradient accumulation) is not in the port "
-                "yet")
+            from .trainer import iter_size_refusal
+            raise ValueError(iter_size_refusal("the SPMD step",
+                                               "--mesh sharding"))
         comm = comm or CommConfig()
         comm.validate()
         mesh = group.mesh if group is not None else None

@@ -472,12 +472,19 @@ class BucketSync:
     ``issued_mid_backward`` counts those issued while other leaves still
     waited for their gradient. A shared (named) param is one leaf read by
     every sharer layer: autograd sums the sharers' gradients before the
-    leaf's one accumulation, so its bucket goes out after all of them."""
+    leaf's one accumulation, so its bucket goes out after all of them.
+
+    ``accumulate`` (gradient accumulation, ``iter_size`` > 1: several
+    backward passes before one sync) registers no hook: ``finish`` issues
+    every DENSE bucket once, after the last backward, then the DENSE_FUSED
+    buckets and one bucket a leaf of the SFB layers (JAX's dense
+    post-accumulation psum per leaf)."""
 
     def __init__(self, group, cfg: CommConfig, slots: Sequence,
                  kinds: Dict[str, str], leaves: Sequence[torch.Tensor],
                  flat_g: torch.Tensor,
-                 hooked: Optional[List[Bucket]] = None):
+                 hooked: Optional[List[Bucket]] = None,
+                 accumulate: bool = False):
         self.group = group
         self.cfg = cfg
         self.flat_g = flat_g
@@ -487,13 +494,16 @@ class BucketSync:
         self.hooked = (plan_buckets(slots, kinds, DENSE, cfg.bucket_mb)
                        if hooked is None else hooked)
         self.fused = plan_buckets(slots, kinds, DENSE_FUSED, cfg.bucket_mb)
+        if accumulate:
+            self.fused += plan_buckets(slots, kinds, SFB, 0.0)
         self._of_leaf: Dict[int, List[int]] = {}
         for b, bucket in enumerate(self.hooked):
             for i in bucket.leaves:
                 self._of_leaf.setdefault(i, []).append(b)
-        for i in self._of_leaf:
-            leaves[i].register_post_accumulate_grad_hook(
-                functools.partial(self._accumulated, i))
+        if not accumulate:
+            for i in self._of_leaf:
+                leaves[i].register_post_accumulate_grad_hook(
+                    functools.partial(self._accumulated, i))
         self.issued: List[int] = []
         self.issued_mid_backward = 0
         self._pending: List = []

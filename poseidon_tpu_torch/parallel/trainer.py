@@ -52,7 +52,17 @@ step returns hold that row alone, ``(1, *shape)``, and
 same arena: local steps and a fold into the anchor every staleness+1
 iterations (its docstring); its state is ``SSPState``.
 
-``iter_size > 1`` (gradient accumulation) is later work and raises.
+``iter_size`` K > 1 (gradient accumulation, JAX's ``iter_size``): a step
+takes K micro-batches and runs forward and backward on each in turn, so
+only one micro-batch's activations are live, the gradients summing in
+place in the flat buffer; the sum is scaled by 1/K (Caffe's
+``SGDSolver::Normalize``), synced once (``BucketSync(accumulate=True)``:
+the DENSE buckets after the last backward, never K times; SFB and
+DENSE_FUSED leaves one all-reduce a leaf), TOPK compresses the
+accumulated gradient, and one update runs. The scalar metrics are the
+mean over the micro-batches. The SSP and SPMD steps refuse K > 1: the
+engine runs ``iter_size`` 1 under SSP staleness and ``--mesh``, with a
+warning, as the JAX engine does.
 """
 
 from __future__ import annotations
@@ -65,6 +75,7 @@ import torch
 from ..core.net import Net
 from ..ops.sgd import sgd_update_
 from ..proto.messages import SolverParameter
+from ..runtime.metrics import log
 from ..solvers.updates import SolverState, init_state, make_arena_update_fn
 from .mesh import DataGroup
 from .strategies import (DENSE, DENSE_FUSED, LOCAL, SFB, TOPK, BucketSync,
@@ -146,6 +157,23 @@ def _scalar_metrics(out) -> Dict[str, torch.Tensor]:
     return metrics
 
 
+def _micro_mean(rows: List[Dict[str, torch.Tensor]]
+                ) -> Dict[str, torch.Tensor]:
+    """Each scalar's mean over the micro-batches (JAX: ``jnp.mean`` of
+    the stacked values)."""
+    if len(rows) == 1:
+        return rows[0]
+    return {k: torch.stack([r[k] for r in rows]).mean() for k in rows[0]}
+
+
+def iter_size_refusal(step: str, rule: str) -> str:
+    """The SSP and SPMD steps' refusal of iter_size > 1, naming the
+    engine's rule."""
+    return (f"iter_size > 1 does not compose with {step}: the engine "
+            f"warns and runs iter_size 1 under {rule}, as the JAX engine "
+            f"does (runtime/engine.py); build this step with iter_size 1")
+
+
 def _rank_mean(metrics: Dict[str, torch.Tensor], group: Optional[DataGroup]
                ) -> Dict[str, torch.Tensor]:
     """Each scalar summed over the ranks and divided by the world (JAX:
@@ -167,10 +195,7 @@ class TrainStep:
                  group: Optional[DataGroup] = None,
                  comm: Optional[CommConfig] = None,
                  input_transform: Optional[Callable] = None):
-        if max(1, int(sp.iter_size)) > 1:
-            raise NotImplementedError(
-                "iter_size > 1 (gradient accumulation) is not in the port "
-                "yet")
+        self.iter_size = max(1, int(sp.iter_size))
         self.net = net
         self.sp = sp
         self.group = group
@@ -222,11 +247,35 @@ class TrainStep:
             sgd_update=lambda *a: self.sgd_update(*a))
 
     def _init_sync(self, group: Optional[DataGroup]) -> None:
-        """The per-step gradient exchange: every rank, every step."""
-        if group is not None and group.distributed:
-            self._ctx = CommContext(self.comm, group, self.kinds)
-            self.sync = BucketSync(group, self.comm, self.arena.slots,
-                                   self.kinds, self.leaves, self.flat_g)
+        """The per-step gradient exchange: every rank, every step; under
+        iter_size > 1 once, after the accumulation."""
+        if group is None or not group.distributed:
+            return
+        self._ctx = CommContext(self.comm, group, self.kinds)
+        accumulate = self.iter_size > 1
+        self.sync = BucketSync(group, self.comm, self.arena.slots,
+                               self.kinds, self.leaves, self.flat_g,
+                               accumulate=accumulate)
+        if not accumulate:
+            return
+        # the per-backward strategies do not apply to the accumulated
+        # step: say which layers fall back to one dense sync a leaf
+        # (JAX's warning)
+        what = []
+        sfb = [l for l in self.net.param_defs
+               if self.comm.strategy_for(l) == SFB]
+        if sfb:
+            what.append(f"SFB layers {sfb}")
+        if not self.comm.param_arena:
+            what.append(f"dwbp_bucket_mb={self.comm.bucket_mb:g}")
+        if what:
+            log(f"WARNING: iter_size={self.iter_size} accumulates gradients "
+                f"before one dense post-accumulation psum per leaf for "
+                f"{', '.join(what)}; per-backward comm strategies do not "
+                f"apply to the accumulated step (DENSE layers ride the "
+                f"parameter arena's buckets"
+                + (")" if self.comm.param_arena else
+                   " when param_arena is on)"), rank=group.rank)
 
     def params(self):
         """The current parameters: per-leaf views of the arena."""
@@ -317,22 +366,41 @@ class TrainStep:
             out[s.layer] = {**out.get(s.layer, {}), s.pname: resid[None]}
         return out
 
-    def step(self, params, state: TrainState, batch: Dict[str, torch.Tensor]):
+    def step(self, params, state: TrainState, batch):
         """-> (params, state, metrics); metrics are 0-d device tensors
-        (``loss`` and the net's scalar outputs), averaged over the ranks."""
+        (``loss`` and the net's scalar outputs), averaged over the
+        micro-batches and the ranks. ``batch`` is one ``{top: tensor}``
+        dict, or under iter_size K > 1 a sequence of K of them."""
+        k = self.iter_size
+        micro = [batch] if k == 1 else list(batch)
+        if len(micro) != k:
+            raise ValueError(f"iter_size {k} takes {k} micro-batches a "
+                             f"step, got {len(micro)}")
+        if k > 1 and self.dump_blobs:
+            raise ValueError("iter_size > 1 is incompatible with dump_blobs "
+                             "(per-iteration HDF5 dump semantics)")
         with torch.no_grad():
             self.arena.pack(params, self.flat_w)
             self.arena.pack(state.solver.history, self.flat_h)
             self.flat_g.zero_()
         if self.sync is not None:
             self.sync.begin()
-        if self.input_transform is not None:
-            batch = self.input_transform(batch)
-        out = self.net.apply(self._leaf_tree, batch, train=True,
-                             comm=self._ctx,
-                             keep_blobs=bool(self.dump_blobs))
-        self.dumped = {b: out.blobs[b].detach() for b in self.dump_blobs}
-        out.loss.backward()
+        rows = []
+        for mb in micro:
+            if self.input_transform is not None:
+                mb = self.input_transform(mb)
+            # the accumulated step takes no per-backward exchange (JAX
+            # applies the micro-batches with comm=None)
+            out = self.net.apply(self._leaf_tree, mb, train=True,
+                                 comm=self._ctx if k == 1 else None,
+                                 keep_blobs=bool(self.dump_blobs))
+            self.dumped = {b: out.blobs[b].detach() for b in self.dump_blobs}
+            out.loss.backward()
+            rows.append(_scalar_metrics(out))
+            del out
+        if k > 1:
+            with torch.no_grad():
+                self.flat_g.div_(k)
         if self.sync is not None:
             self.sync.finish()
         with torch.no_grad():
@@ -345,7 +413,7 @@ class TrainStep:
                                history=self.arena.unpack(self.flat_h)),
             comm_error=comm_error)
         return (self.params(), new_state,
-                _rank_mean(_scalar_metrics(out), self.group))
+                _rank_mean(_micro_mean(rows), self.group))
 
 
 def build_train_step(net: Net, sp: SolverParameter,
@@ -503,6 +571,9 @@ class SSPTrainStep(TrainStep):
                  comm: Optional[CommConfig] = None,
                  input_transform: Optional[Callable] = None,
                  plan=None):
+        if max(1, int(sp.iter_size)) > 1:
+            raise ValueError(iter_size_refusal("the SSP step",
+                                               "SSP staleness"))
         comm = comm or CommConfig()
         comm.validate()
         if staleness < 1:

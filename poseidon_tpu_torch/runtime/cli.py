@@ -1,5 +1,5 @@
-"""Command line of the port (the ``train``, ``test``, ``serve`` and
-``bench_serve`` commands of ``poseidon_tpu/runtime/cli.py``)::
+"""Command line of the port (the commands of ``poseidon_tpu/runtime/
+cli.py`` but ``tune``)::
 
     python -m poseidon_tpu_torch train --solver=<solver.prototxt> \\
         [--snapshot=<.solverstate.npz>|auto] [--weights=<.caffemodel>] \\
@@ -16,9 +16,26 @@
         [--dwbp_bucket_mb N] [--param_arena true|false] \\
         [--arena_bucket_mb N] [--device_prefetch N] [--max_in_flight N] \\
         [--async_snapshot] [--device_transform] [--trace_out <file>] \\
-        [--bf16] [--conv_layout nchw|nhwc|auto] [--conv_strategy direct|s2d]
+        [--bf16] [--conv_layout nchw|nhwc|auto] [--conv_strategy direct|s2d] \\
+        [--metrics_port P] [--hostfile <file> --node_id N]
     python -m poseidon_tpu_torch test --model=<train_val.prototxt> \\
-        [--weights=<.caffemodel>] [--iterations 50] [--device cuda|cpu]
+        [--weights=<.caffemodel>] [--iterations 50] [--device cuda|cpu] \\
+        [--hostfile <file> --node_id N]
+    python -m poseidon_tpu_torch time --model=<net.prototxt> \\
+        [--iterations 50] [--batch_size 64] [--per_layer \\
+         [--comm_devices N [--dcn_slices S]] [--strategy dense|sfb|topk] \\
+         [--sfb-auto] [--wire_dtype f32|bf16|f16] [--topk_block N]] \\
+        [--device cuda|cpu]
+    python -m poseidon_tpu_torch device_query [--device cpu]
+    python -m poseidon_tpu_torch convert_imageset <listfile> <out_db> \\
+        [--root_folder D] [--resize_height H --resize_width W] [--shuffle] \\
+        [--gray]
+    python -m poseidon_tpu_torch compute_image_mean <db> <out.binaryproto>
+    python -m poseidon_tpu_torch partition_data <db> <num_shards>
+    python -m poseidon_tpu_torch convert_db <src> <out> [--backend LMDB|LEVELDB]
+    python -m poseidon_tpu_torch extract_features --model=<net.prototxt> \\
+        --blobs fc7[,...] --out_prefix <prefix> [--weights=<.caffemodel>] \\
+        [--num_batches 10] [--device cuda|cpu] [--hostfile <file> --node_id N]
     python -m poseidon_tpu_torch serve --model=<deploy.prototxt> \\
         [--weights=<.caffemodel|.solverstate.npz>] [--buckets 1,4,16,64] \\
         [--host 127.0.0.1] [--port 0] [--max_delay_ms 5] [--max_queue 64] \\
@@ -89,7 +106,25 @@ least-loaded routing, failover, rolling reload); ``--watch`` hot-reloads
 newer snapshots under a prefix (through the fleet, one replica draining
 at a time); ``--metrics_port`` serves the stats as ``key=value`` lines
 over HTTP. ``bench_serve`` stands the server up in process, drives it
-closed- or open-loop (``--offered_rps``) and prints one JSON line. Every
+closed- or open-loop (``--offered_rps``) and prints one JSON line.
+``train --metrics_port`` serves the engine's stats (``stats.yaml``, written
+under ``--output_dir`` at every display and at exit) over HTTP while it
+trains. ``train``, ``test`` and ``extract_features`` take a cluster
+``--hostfile`` ('<id> <ip> <port>' lines, host 0 the coordinator) and
+``--node_id`` in place of the env contract; under ``--async_ssp`` a
+hostfile without the env contract is refused, as in the JAX CLI.
+
+``time`` builds the TRAIN net (data layers shaped from one record of their
+source), times the whole forward and forward+backward (CUDA events on the
+card) and, with ``--per_layer``, each layer's forward and backward alone
+and the static per-layer comm bytes over ``--comm_devices``.
+``device_query`` lists the CUDA devices (it exits non-zero when there is
+none, unless ``--device cpu``). ``convert_imageset``,
+``compute_image_mean``, ``partition_data`` and ``convert_db`` are the
+dataset tools of ``runtime/tools.py``; ``extract_features`` dumps named
+blobs of the TEST phase's forward to LMDBs. ``time`` and
+``extract_features`` plan the layout an unflagged ``train`` plans ("auto":
+NHWC on the card). The JAX CLI's ``tune`` is not in the port. Every
 command runs on ``cuda`` unless ``--device cpu``.
 """
 
@@ -98,6 +133,7 @@ from __future__ import annotations
 import argparse
 import json
 import signal
+import sys
 from typing import List, Optional
 
 from .metrics import log
@@ -614,11 +650,23 @@ def cmd_train(args) -> int:
 
 
 def _train(args) -> int:
+    import os
+
     from ..proto.messages import load_solver
     from .engine import Engine
 
     comm = comm_from_args(args)
     staleness, async_cfg = async_from_args(args)
+    if async_cfg is not None and args.hostfile \
+            and "POSEIDON_PROC_ID" not in os.environ:
+        # the async tier reads the local launcher's env contract; a
+        # hostfile launch does not set it, and N isolated full-data runs
+        # would be worse than refusing
+        raise SystemExit(
+            "--async_ssp currently rides the launch_local env contract "
+            "(POSEIDON_PROC_ID/NUM_PROCS/COORDINATOR); for a hostfile "
+            "cluster, start each node under that env (see "
+            "scripts/launch.py) instead of --hostfile/--node_id")
     eng = Engine(load_solver(args.solver), output_dir=args.output_dir,
                  device=args.device or None, comm=comm,
                  staleness=staleness, async_ssp=async_cfg,
@@ -628,7 +676,10 @@ def _train(args) -> int:
                  async_snapshot=args.async_snapshot,
                  device_transform=args.device_transform,
                  trace_out=args.trace_out or None,
-                 dcn_slices=args.dcn_slices, mesh_cfg=mesh_from_args(args))
+                 dcn_slices=args.dcn_slices, mesh_cfg=mesh_from_args(args),
+                 metrics_port=(args.metrics_port if args.metrics_port >= 0
+                               else None),
+                 hostfile=args.hostfile or None, node_id=_node_id(args))
     try:
         if args.snapshot == "auto":
             if eng.auto_resume() is None and args.weights:
@@ -643,37 +694,364 @@ def _train(args) -> int:
     return 0
 
 
+def _node_id(args) -> Optional[int]:
+    return args.node_id if args.node_id >= 0 else None
+
+
 def cmd_test(args) -> int:
+    """Score the TEST phase; over a process group (env contract or
+    hostfile) each rank scores its own shard of the records and the means
+    are over the ranks (rank 0 prints)."""
     import torch
 
     from ..core.net import Net
     from ..data.pipeline import build_phase_pipelines
+    from ..data.workload import Shard
+    from ..numeric import resolve_device
     from ..parallel.trainer import build_eval_step
     from ..proto.messages import load_net
     from .checkpoint import load_caffemodel
+    from .cluster import init_distributed
+
+    group = init_distributed(resolve_device(args.device or None),
+                             hostfile=args.hostfile or None,
+                             node_id=_node_id(args))
+    try:
+        net_param = load_net(args.model)
+        pipes, shapes = build_phase_pipelines(
+            net_param, "TEST", shard=Shard(group.rank, group.world))
+        try:
+            net = Net(net_param, "TEST", device=group.device,
+                      source_shapes=shapes)
+            params = net.init(torch.Generator().manual_seed(0))
+            if args.weights:
+                params = load_caffemodel(args.weights, net, params)
+            ev = build_eval_step(net, group if group.distributed else None)
+            acc = {}
+            for _ in range(args.iterations):
+                batch = {}
+                for pipe in pipes:
+                    for k, v in next(pipe).items():
+                        batch[k] = torch.from_numpy(v).to(net.device)
+                for k, v in ev(params, batch).items():
+                    acc[k] = acc.get(k, 0.0) + float(v)
+        finally:
+            for p in pipes:
+                p.close()
+    finally:
+        group.close()
+    if group.rank == 0:
+        for k in sorted(acc):
+            print(f"{k}: {acc[k] / args.iterations:.4f}", flush=True)
+    return 0
+
+
+def cmd_device_query(args) -> int:
+    """The CUDA devices this process sees (index, name, compute
+    capability, memory) and its rank and world under the env contract;
+    non-zero without a GPU unless ``--device cpu``."""
+    import torch
+
+    from .cluster import env_world
+    rank, world, _ = env_world()
+    cpu = bool(args.device) and torch.device(args.device).type == "cpu"
+    n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    for i in range(n):
+        prop = torch.cuda.get_device_properties(i)
+        print(f"device {i}: platform=cuda kind={prop.name} "
+              f"compute_capability={prop.major}.{prop.minor} "
+              f"memory_bytes={prop.total_memory} "
+              f"multiprocessors={prop.multi_processor_count}", flush=True)
+    if cpu:
+        print("device cpu: platform=cpu", flush=True)
+    print(f"process rank={rank} world={world} cuda_devices={n} "
+          f"torch={torch.__version__} cuda={torch.version.cuda}",
+          flush=True)
+    if n == 0 and not cpu:
+        print("device_query: no CUDA device is visible (pass --device cpu "
+              "to query the CPU alone)", file=sys.stderr, flush=True)
+        return 1
+    return 0
+
+
+def _time_shapes(net_param, batch_size: int) -> dict:
+    """The source shapes of the TRAIN net's data layers: each layer's
+    batch (else ``batch_size``) and the (C, H, W) of one record of its
+    source (3x224x224 when it cannot be read), cropped to the layer's
+    crop_size (the JAX ``time`` command's rule)."""
+    from ..core.layers import DATA_SOURCE_TYPES
+    from ..core.net import filter_net
+    from ..data.pipeline import build_source, layer_batch_size
+    from ..proto.messages import NetState
+
+    shapes = {}
+    for lp in filter_net(net_param, NetState(phase="TRAIN")):
+        if lp.canonical_type() not in DATA_SOURCE_TYPES:
+            continue
+        b = layer_batch_size(lp) or batch_size
+        chw = None
+        src = (lp.data_param.source or lp.image_data_param.source
+               or lp.hdf5_data_param.source or lp.window_data_param.source)
+        if src:
+            # one record gives the true (C, H, W): a 3x224x224 guess
+            # would mis-size every layer downstream
+            try:
+                source = build_source(lp)
+                try:
+                    chw = source.read(0)[0].shape
+                finally:
+                    source.close()
+            except Exception:  # noqa: BLE001 — fall back to the guess
+                chw = None
+        if chw is None:
+            c = lp.transform_param.crop_size or 224
+            chw = (3, c, c)
+        if lp.transform_param.crop_size:
+            chw = (chw[0], lp.transform_param.crop_size,
+                   lp.transform_param.crop_size)
+        shapes[lp.top[0]] = (b,) + tuple(chw)
+        if len(lp.top) > 1:
+            shapes[lp.top[1]] = (b,)
+    return shapes
+
+
+def _timed_ms(fn, iterations: int, device) -> float:
+    """Mean ms of ``fn`` over ``iterations`` calls after one warm-up call:
+    CUDA events around the calls on the card, the host clock on the
+    CPU."""
+    import time
+
+    import torch
+    fn()
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iterations):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / iterations
+    t0 = time.perf_counter()
+    for _ in range(iterations):
+        fn()
+    return (time.perf_counter() - t0) / iterations * 1e3
+
+
+def _zeros(shape, device, nhwc: bool):
+    """A zero input of ``shape``: f32 (channels-last when the net plans
+    NHWC and it is 4-D), 1-D labels as int32 (the JAX command's)."""
+    import torch
+    if len(shape) <= 1:
+        return torch.zeros(shape, dtype=torch.int32, device=device)
+    t = torch.zeros(shape, dtype=torch.float32, device=device)
+    if nhwc and t.dim() == 4:
+        t = t.contiguous(memory_format=torch.channels_last)
+    return t
+
+
+def _layer_times(net, params, iterations: int) -> None:
+    """Each layer's forward alone, and its backward (the forward and
+    backward of the sum of its tops, less the forward) with respect to
+    its params and float bottoms; 'skip' when the forward fails on zero
+    inputs, '-' when the layer has no backward."""
+    import torch
+
+    from ..core.net import SPATIAL_TYPES
+    nhwc = net.conv_layout == "NHWC"
+    print(f"{'layer':<24}{'type':<22}{'fwd ms':>10}{'bwd ms':>10}",
+          flush=True)
+    for layer in net.layers:
+        bottoms = [_zeros(net.blob_shapes[b], net.device,
+                          nhwc and layer.TYPE in SPATIAL_TYPES).float()
+                   for b in layer.lp.bottom]
+        lparams = net._layer_params(params, layer)
+
+        def run(ps=lparams, bs=bottoms, _l=layer):
+            with torch.no_grad():
+                return _l(ps, bs, True)
+
+        try:
+            fwd_l = _timed_ms(run, iterations, net.device)
+        except Exception as e:  # noqa: BLE001 — e.g. a label fed zeros
+            print(f"{layer.name:<24}{layer.TYPE:<22}{'skip':>10}"
+                  f"{'skip':>10} ({e})", flush=True)
+            continue
+        leaves = [v.detach().requires_grad_(True) for v in lparams.values()]
+        ps = dict(zip(lparams, leaves))
+        bs = [b.detach().requires_grad_(True) for b in bottoms]
+
+        def fb(ps=ps, bs=bs, leaves=leaves, _l=layer):
+            tops = _l(ps, bs, True)
+            total = sum(t.float().sum() for t in tops)
+            return torch.autograd.grad(total, leaves + bs,
+                                       allow_unused=True)
+
+        try:
+            bwd_l = max(_timed_ms(fb, iterations, net.device) - fwd_l, 0.0)
+            print(f"{layer.name:<24}{layer.TYPE:<22}{fwd_l:>10.3f}"
+                  f"{bwd_l:>10.3f}", flush=True)
+        except Exception:  # noqa: BLE001 — no backward (data, accuracy)
+            print(f"{layer.name:<24}{layer.TYPE:<22}{fwd_l:>10.3f}"
+                  f"{'-':>10}", flush=True)
+
+
+def _comm_table(net, args, fb_ms: float) -> None:
+    """The static per-layer comm bytes over ``--comm_devices`` devices
+    (``--dcn_slices`` of them two-tier), as the JAX command prints it."""
+    from ..parallel.mesh import DATA_AXIS, DCN_AXIS
+    from ..parallel.strategies import CommConfig, auto_strategies
+    from .comm_stats import comm_summary, layer_comm_table
+
+    n, slices = args.comm_devices, args.dcn_slices
+    wire = args.wire_dtype or None
+    block = args.topk_block or None
+    if slices > 1:
+        if n % slices:
+            raise SystemExit(f"--dcn_slices {slices} does not divide "
+                             f"--comm_devices {n}")
+        shape = {DCN_AXIS: slices, DATA_AXIS: n // slices}
+        cc = CommConfig(dcn_axis=DCN_AXIS, default_strategy=args.strategy,
+                        wire_dtype=wire, topk_block=block)
+    else:
+        shape = {DATA_AXIS: n}
+        cc = CommConfig(default_strategy=args.strategy, wire_dtype=wire,
+                        topk_block=block)
+    if args.sfb_auto:
+        cc.layer_strategies.update(auto_strategies(net))
+    table = layer_comm_table(net, cc, shape)
+    print(f"\nComm bytes/step/device over {n} devices"
+          + (f" ({slices} DCN slices)" if slices > 1 else "") + ":")
+    print(f"{'layer':<24}{'strategy':<8}{'ici B':>12}{'dcn B':>12}"
+          f"{'vs dense':>10}{'est ms':>9}")
+    for lname, row in table.items():
+        print(f"{lname:<24}{row['strategy']:<8}"
+              f"{row['ici_bytes_per_step']:>12}"
+              f"{row['dcn_bytes_per_step']:>12}"
+              f"{str(row['savings_vs_dense'] or '-'):>10}"
+              f"{row['est_comm_ms']:>9}")
+    summary = comm_summary(table, fb_ms)
+    print(f"total: {summary['total_bytes_per_step']} B/step/dev, "
+          f"{summary['savings_vs_dense'] or '-'}x vs dense, "
+          f"est comm {summary['est_comm_ms_per_step']} ms "
+          f"({summary.get('est_comm_fraction_if_unoverlapped', 0):.0%} of "
+          f"measured step if unoverlapped)", flush=True)
+
+
+def cmd_time(args) -> int:
+    """The reference's ``caffe time`` (tools/caffe_main.cpp:256-328): the
+    TRAIN net's forward and forward+backward, each after one warm-up call
+    and averaged over ``--iterations``; with ``--per_layer`` each layer
+    alone first, and the comm table."""
+    import torch
+
+    from ..core.net import Net
+    from ..proto.messages import load_net
 
     net_param = load_net(args.model)
-    pipes, shapes = build_phase_pipelines(net_param, "TEST")
+    shapes = {} if net_param.input else _time_shapes(net_param,
+                                                     args.batch_size)
+    net = Net(net_param, "TRAIN", device=args.device or None,
+              source_shapes=shapes, conv_layout="AUTO")
+    batch = net.blob_shapes[net.input_names[0]][0]
+    params = net.init(torch.Generator().manual_seed(0))
+    nhwc = net.conv_layout == "NHWC"
+    inputs = {name: _zeros(net.blob_shapes[name], net.device, nhwc)
+              for name in net.input_names}
+
+    if args.per_layer:
+        _layer_times(net, params, args.iterations)
+
+    def forward():
+        with torch.no_grad():
+            return net.apply(params, inputs, train=True).loss
+
+    leaves = [v.detach().requires_grad_(True)
+              for lp in params.values() for v in lp.values()]
+    it = iter(leaves)
+    grad_params = {l: {p: next(it) for p in lp} for l, lp in params.items()}
+
+    def forward_backward():
+        loss = net.apply(grad_params, inputs, train=True).loss
+        if not loss.requires_grad:    # no loss layer: nothing to derive
+            return loss
+        return torch.autograd.grad(loss, leaves, allow_unused=True)
+
+    fwd_ms = _timed_ms(forward, args.iterations, net.device)
+    fb_ms = _timed_ms(forward_backward, args.iterations, net.device)
+    if args.per_layer and args.comm_devices > 1:
+        _comm_table(net, args, fb_ms)
+    print(f"Average Forward pass: {fwd_ms:.3f} ms")
+    print(f"Average Forward-Backward: {fb_ms:.3f} ms")
+    print(f"Throughput: {batch / (fb_ms / 1e3):.1f} images/s "
+          f"(batch {batch})", flush=True)
+    return 0
+
+
+def cmd_convert_imageset(args) -> int:
+    from .tools import convert_imageset
+    convert_imageset(args.listfile, args.out_db, root_folder=args.root_folder,
+                     resize_height=args.resize_height,
+                     resize_width=args.resize_width, shuffle=args.shuffle,
+                     gray=args.gray)
+    return 0
+
+
+def cmd_compute_image_mean(args) -> int:
+    from .tools import compute_image_mean
+    compute_image_mean(args.db, args.out_file)
+    return 0
+
+
+def cmd_partition_data(args) -> int:
+    from .tools import partition_data
+    partition_data(args.db, args.num_shards)
+    return 0
+
+
+def cmd_convert_db(args) -> int:
+    from .tools import convert_db
+    convert_db(args.src, args.out, args.backend)
+    return 0
+
+
+def cmd_extract_features(args) -> int:
+    """Dump named blobs of the TEST phase's forward; each rank of a
+    hostfile or env-contract cluster extracts its own record shard into
+    its own databases ('<prefix>_client<rank>', feature_extractor.cpp's
+    per-client naming). No collective runs, so no process group is
+    made."""
+    import torch
+
+    from ..core.net import Net
+    from ..data.pipeline import build_phase_pipelines
+    from ..data.workload import Shard
+    from ..numeric import resolve_device
+    from ..proto.messages import load_net
+    from .checkpoint import load_caffemodel
+    from .cluster import env_world, hostfile_world, local_device
+    from .tools import extract_features
+
+    rank, world, _ = (hostfile_world(args.hostfile, _node_id(args))
+                      if args.hostfile else env_world())
+    device = local_device(resolve_device(args.device or None), rank)
+    net_param = load_net(args.model)
+    pipes, shapes = build_phase_pipelines(net_param, "TEST",
+                                          shard=Shard(rank, world))
     try:
-        net = Net(net_param, "TEST", device=args.device or None,
-                  source_shapes=shapes)
+        net = Net(net_param, "TEST", device=device, source_shapes=shapes,
+                  conv_layout="AUTO")
         params = net.init(torch.Generator().manual_seed(0))
         if args.weights:
             params = load_caffemodel(args.weights, net, params)
-        ev = build_eval_step(net)
-        acc = {}
-        for _ in range(args.iterations):
-            batch = {}
-            for pipe in pipes:
-                for k, v in next(pipe).items():
-                    batch[k] = torch.from_numpy(v).to(net.device)
-            for k, v in ev(params, batch).items():
-                acc[k] = acc.get(k, 0.0) + float(v)
+        prefix = (args.out_prefix if world == 1
+                  else f"{args.out_prefix}_client{rank}")
+        extract_features(net, params, args.blobs.split(","), pipes[0],
+                         args.num_batches, prefix)
     finally:
         for p in pipes:
             p.close()
-    for k in sorted(acc):
-        print(f"{k}: {acc[k] / args.iterations:.4f}", flush=True)
     return 0
 
 
@@ -870,6 +1248,12 @@ def build_parser() -> argparse.ArgumentParser:
                         "Chrome trace-event JSON here (relative to "
                         "--output_dir), refreshed atomically at every "
                         "display boundary")
+    t.add_argument("--metrics_port", type=int, default=-1,
+                   help="serve the run's stats (stats.yaml's counters, "
+                        "gauges and sections) read-only over HTTP on this "
+                        "port, bound by rank 0 (0 = ephemeral on every "
+                        "rank, printed at startup); -1 = off")
+    _cluster_flags(t)
     t.set_defaults(fn=cmd_train)
 
     te = sub.add_parser("test", help="score a net's TEST phase")
@@ -879,7 +1263,41 @@ def build_parser() -> argparse.ArgumentParser:
     te.add_argument("--device", default="",
                     help="cuda (the default; refuses to run without a GPU) "
                          "or cpu")
+    _cluster_flags(te)
     te.set_defaults(fn=cmd_test)
+
+    ti = sub.add_parser("time", help="time a model's forward and backward")
+    ti.add_argument("--model", required=True)
+    ti.add_argument("--iterations", type=int, default=50)
+    ti.add_argument("--batch_size", type=int, default=64,
+                    help="the batch of a data layer that names none")
+    ti.add_argument("--per_layer", action="store_true",
+                    help="also time each layer's forward and backward "
+                         "alone")
+    ti.add_argument("--comm_devices", type=int, default=0,
+                    help="with --per_layer: print the static per-layer "
+                         "comm bytes and savings over this many devices")
+    ti.add_argument("--dcn_slices", type=int, default=0,
+                    help="with --comm_devices: a two-tier group of this "
+                         "many slices")
+    ti.add_argument("--strategy", default="dense",
+                    choices=["dense", "sfb", "topk"])
+    ti.add_argument("--sfb-auto", action="store_true",
+                    help="pick SFB per FC layer by the cost model")
+    ti.add_argument("--wire_dtype", default="",
+                    choices=["", "f32", "bf16", "f16"],
+                    help="bill the comm table at this wire width")
+    ti.add_argument("--topk_block", type=int, default=0)
+    ti.add_argument("--device", default="",
+                    help="cuda (the default; refuses to run without a GPU) "
+                         "or cpu")
+    ti.set_defaults(fn=cmd_time)
+
+    dq = sub.add_parser("device_query", help="show the CUDA devices")
+    dq.add_argument("--device", default="",
+                    help="cpu: also report the CPU, and succeed without a "
+                         "GPU")
+    dq.set_defaults(fn=cmd_device_query)
     sv = sub.add_parser("serve", help="serve a deploy net over TCP "
                                       "(dynamic micro-batching, bucketed "
                                       "executor), or with --generate a "
@@ -948,7 +1366,58 @@ def build_parser() -> argparse.ArgumentParser:
                     help="cuda (the default; refuses to run without a GPU) "
                          "or cpu")
     bs.set_defaults(fn=cmd_bench_serve)
+
+    ci = sub.add_parser("convert_imageset", help="image list -> LMDB")
+    ci.add_argument("listfile")
+    ci.add_argument("out_db")
+    ci.add_argument("--root_folder", default="")
+    ci.add_argument("--resize_height", type=int, default=0)
+    ci.add_argument("--resize_width", type=int, default=0)
+    ci.add_argument("--shuffle", action="store_true")
+    ci.add_argument("--gray", action="store_true")
+    ci.set_defaults(fn=cmd_convert_imageset)
+
+    cm = sub.add_parser("compute_image_mean", help="LMDB -> mean binaryproto")
+    cm.add_argument("db")
+    cm.add_argument("out_file")
+    cm.set_defaults(fn=cmd_compute_image_mean)
+
+    pd = sub.add_parser("partition_data", help="split LMDB into k shards")
+    pd.add_argument("db")
+    pd.add_argument("num_shards", type=int)
+    pd.set_defaults(fn=cmd_partition_data)
+
+    cd = sub.add_parser("convert_db", help="copy LevelDB<->LMDB")
+    cd.add_argument("src")
+    cd.add_argument("out")
+    cd.add_argument("--backend", default="LMDB", choices=["LMDB", "LEVELDB"])
+    cd.set_defaults(fn=cmd_convert_db)
+
+    ef = sub.add_parser("extract_features",
+                        help="dump named blobs to LMDBs")
+    ef.add_argument("--model", required=True)
+    ef.add_argument("--weights", default="")
+    ef.add_argument("--blobs", required=True,
+                    help="comma-separated blob names")
+    ef.add_argument("--num_batches", type=int, default=10)
+    ef.add_argument("--out_prefix", required=True)
+    ef.add_argument("--device", default="",
+                    help="cuda (the default; refuses to run without a GPU) "
+                         "or cpu")
+    _cluster_flags(ef)
+    ef.set_defaults(fn=cmd_extract_features)
     return p
+
+
+def _cluster_flags(sp) -> None:
+    """``--hostfile`` and ``--node_id`` (the JAX CLI's)."""
+    sp.add_argument("--hostfile", default="",
+                    help="cluster hostfile ('<id> <ip> <port>' lines; host "
+                         "0 is the coordinator) in place of the env "
+                         "contract")
+    sp.add_argument("--node_id", type=int, default=-1,
+                    help="this process's hostfile id")
+
 
 
 def _fleet_flags(sp) -> None:

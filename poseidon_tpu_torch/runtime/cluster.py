@@ -433,13 +433,35 @@ def build_named_groups(axes, shape, rank: int, device: torch.device,
                                  joint=mine["joint"], joint_axes=joint)
 
 
+def hostfile_world(hostfile: str, node_id: Optional[int]
+                   ) -> Tuple[int, int, Optional[str]]:
+    """(rank, world, coordinator) of a cluster hostfile (the JAX
+    package's ``init_distributed(hostfile=, node_id=)``): host 0's entry
+    is the coordinator (the name-node analog), the world is the host
+    count and the rank is ``node_id``. A one-host file is one process with
+    no coordinator; a multi-host file without ``node_id`` raises."""
+    hosts = parse_hostfile(hostfile)
+    if len(hosts) == 1:
+        return 0, 1, None
+    if node_id is None:
+        raise ValueError("node_id is required with a multi-host hostfile")
+    if not 0 <= node_id < len(hosts):
+        raise ValueError(f"node_id {node_id} is not a host of {hostfile} "
+                         f"(ids 0..{len(hosts) - 1})")
+    return node_id, len(hosts), f"{hosts[0].ip}:{hosts[0].port}"
+
+
 def init_distributed(device: torch.device, rank: Optional[int] = None,
                      world: Optional[int] = None,
                      coordinator: Optional[str] = None, slices: int = 1,
-                     mesh_cfg=None, named=None):
+                     mesh_cfg=None, named=None,
+                     hostfile: Optional[str] = None,
+                     node_id: Optional[int] = None):
     """The data group of this process. Arguments override the env
-    contract; a coordinator (argument or env) starts a process group, even
-    of one rank, which the returned ``DataGroup``'s ``close`` destroys.
+    contract, and a ``hostfile`` (``hostfile_world``, with ``node_id``)
+    overrides both; a coordinator (argument, hostfile or env) starts a
+    process group, even of one rank, which the returned ``DataGroup``'s
+    ``close`` destroys.
     ``slices`` > 1 makes it the two-tier group (``parallel/mesh.py``)
     with its slice and cross-slice process groups; a world it does not
     divide exits, as the JAX CLI's ``--dcn_slices`` does. An active
@@ -450,10 +472,13 @@ def init_distributed(device: torch.device, rank: Optional[int] = None,
     (``build_named_groups``); its ranks must number the world."""
     from ..parallel.mesh import DataGroup
 
-    e_rank, e_world, e_coord = env_world()
-    rank = e_rank if rank is None else rank
-    world = e_world if world is None else world
-    coordinator = e_coord if coordinator is None else coordinator
+    if hostfile:
+        rank, world, coordinator = hostfile_world(hostfile, node_id)
+    else:
+        e_rank, e_world, e_coord = env_world()
+        rank = e_rank if rank is None else rank
+        world = e_world if world is None else world
+        coordinator = e_coord if coordinator is None else coordinator
     slices = max(1, int(slices))
     if not 0 <= rank < world:
         raise ValueError(f"rank {rank} outside a world of {world}")

@@ -26,6 +26,25 @@ Caffe's ``Solver::Solve``).
   1); in a TEST net written after each test pass with every batch's
   bottoms. ``h5py`` is imported only for a net that has the layer.
 
+``iter_size`` K > 1 (gradient accumulation): each step takes K
+consecutive batches of every train pipeline, the micro-batches, through
+the same ``DevicePrefetcher`` (which stages batches one at a time and so
+passes them through unchanged), and the step accumulates, syncs once and
+updates once (``parallel/trainer.py``). As in the JAX engine the engine
+warns and runs ``iter_size`` 1 under SSP staleness, under an active
+``--mesh`` and with HDF5_OUTPUT in the TRAIN net; the SSP and SPMD steps
+refuse K > 1.
+
+Telemetry, as the JAX engine's: a ``StatsRegistry`` (``stats``) with the
+counters ``train_iters`` and ``steps_in_flight``, the timers
+``input_stall``, ``train_step`` and ``train_total``, the gauges
+``iteration``, ``lr`` and ``train_<scalar>``, and at exit the ``comm``
+section (``comm_stats``' summary, with the measured step, and per-layer
+table); rank 0 writes it as ``stats.yaml`` under ``output_dir`` at every
+display boundary and at exit. ``metrics_port`` (>= 0) serves it read-only
+over HTTP (``metrics.MetricsServer``: ``/`` key=value lines, ``/yaml``),
+bound by rank 0 alone unless the port is 0 (ephemeral, every rank).
+
 ``device_prefetch``, ``max_in_flight`` and ``async_snapshot`` left at
 ``None`` take ``config.PipelineConfig``'s defaults. The pipeline moves
 only where the host blocks: the steps and their batches are the serial
@@ -34,7 +53,8 @@ loop's (``device_prefetch=0, max_in_flight=1``), bit for bit.
 The prototxt batch_size is the batch of one rank's device (the JAX engine
 multiplies it by its local device count; here the multiplier is 1): the
 global batch is batch_size x world. Rank and world come from the launcher
-env contract (``runtime/cluster.py``): each rank reads its own
+env contract (``runtime/cluster.py``), or from a cluster ``hostfile`` and
+``node_id`` (host 0 the coordinator): each rank reads its own
 ``Shard(rank, world)`` of the records, the step all-reduces as its
 ``CommConfig`` says (``parallel/strategies.py``), parameters and momentum
 are broadcast from rank 0 after init and restore, metrics are averaged over
@@ -95,7 +115,8 @@ from .checkpoint import (AsyncSnapshotWriter, coerce_state, latest_snapshot,
                          load_caffemodel, restore, snapshot, sweep_stale_tmp)
 from .cluster import env_world, init_distributed, local_device
 from .comm_stats import comm_summary, layer_comm_table
-from .metrics import AsyncScalarFetcher, MetricsTable, log
+from .metrics import (AsyncScalarFetcher, MetricsServer, MetricsTable,
+                      StatsRegistry, log)
 from .spans import recorder as span_recorder
 
 
@@ -191,7 +212,9 @@ class Engine:
                  memory_data: Optional[Dict[str, np.ndarray]] = None,
                  trace_out: Optional[str] = None, dcn_slices: int = 0,
                  staleness: int = 0, async_ssp: Optional[Dict] = None,
-                 mesh_cfg=None):
+                 mesh_cfg=None, metrics_port: Optional[int] = None,
+                 hostfile: Optional[str] = None,
+                 node_id: Optional[int] = None):
         self.sp = sp
         # the named SPMD mesh (``--mesh dp2,fsdp2,tp1``,
         # ``config.MeshConfig``): the planner (``parallel/spmd.py``) plans
@@ -252,7 +275,8 @@ class Engine:
         else:
             self.group = init_distributed(resolve_device(device),
                                           slices=max(1, dcn_slices),
-                                          mesh_cfg=mesh_cfg)
+                                          mesh_cfg=mesh_cfg,
+                                          hostfile=hostfile, node_id=node_id)
             self.rank, self.world = self.group.rank, self.group.world
         self.device = self.group.device
         # an elastic joiner (rank outside the launch world) builds with the
@@ -279,17 +303,60 @@ class Engine:
             if self._owns_span_recorder:
                 span_recorder.clear()
             span_recorder.enable()
-        # seconds spent waiting for the data pipeline / dispatching steps
-        # (the host's time up to the window's backpressure), the steps
-        # taken, over this engine's train() calls; steps_in_flight is the
-        # last train()'s mean window occupancy at dispatch
-        self.stats = {"input_stall_s": 0.0, "train_step_s": 0.0,
-                      "train_iters": 0, "steps_in_flight": 0.0}
+        # the timers input_stall and train_step: seconds spent waiting for
+        # the data pipeline / dispatching steps (the host's time up to the
+        # window's backpressure), and the counter train_iters, over this
+        # engine's train() calls; the counter steps_in_flight is the last
+        # train()'s mean window occupancy at dispatch
+        self.stats = StatsRegistry()
+        self._metrics_server: Optional[MetricsServer] = None
+        self.metrics_port: Optional[int] = None
+        self._telemetry_warned = False
         try:
+            self._start_metrics_server(metrics_port)
             self._build()
         except BaseException:
             self.close()
             raise
+
+    def _start_metrics_server(self, port: Optional[int]) -> None:
+        """``--metrics_port``: a fixed port is bound by rank 0 alone (every
+        rank gets the same flags); 0 binds an ephemeral port on every
+        rank. A port that cannot be bound warns and training goes on."""
+        if port is None or port < 0 or (port > 0 and self.rank != 0):
+            return
+        try:
+            self._metrics_server = MetricsServer(self.stats, port=port)
+        except OSError as e:
+            log(f"WARNING: --metrics_port {port} unavailable ({e}); "
+                f"training continues without the endpoint", rank=self.rank)
+            return
+        self.metrics_port = self._metrics_server.port
+        log(f"metrics endpoint (rank {self.rank}): "
+            f"http://127.0.0.1:{self.metrics_port}/ (text key=value)",
+            rank=self.rank)
+
+    def _resolve_iter_size(self, dump: bool) -> int:
+        """The JAX engine's rules: iter_size runs as the solver says,
+        except under SSP staleness, an active --mesh and HDF5_OUTPUT in
+        the TRAIN net, where it warns and runs 1."""
+        k = max(1, int(self.sp.iter_size))
+        if k == 1:
+            return 1
+        if self.staleness > 0:
+            log("WARNING: iter_size > 1 ignored under SSP staleness "
+                "(increase batch_size instead)", rank=self.rank)
+            return 1
+        if self.plan is not None:
+            log("WARNING: iter_size > 1 does not compose with --mesh "
+                "sharding yet; running iter_size=1", rank=self.rank)
+            return 1
+        if dump:
+            log("WARNING: iter_size > 1 ignored with HDF5_OUTPUT in "
+                "the TRAIN net (per-iteration dump semantics)",
+                rank=self.rank)
+            return 1
+        return k
 
     def _build(self) -> None:
         sp = self.sp
@@ -357,17 +424,14 @@ class Engine:
                 shard_params=self.mesh_cfg.shard,
                 enable_tp=self.mesh_cfg.shard)
             log(f"sharding plan: {self.plan.describe()}", rank=self.rank)
+        dump = sorted({b for _, bs in self._h5_train for b in bs})
+        self.iter_size = self._resolve_iter_size(bool(dump))
+        sp = dataclasses.replace(sp, iter_size=self.iter_size)
         if self.staleness > 0:
             self.train_step = build_ssp_train_step(
                 self.train_net, sp, self.staleness, group, self.comm,
                 self._input_transform, plan=self.plan)
         else:
-            dump = sorted({b for _, bs in self._h5_train for b in bs})
-            if dump and max(1, int(sp.iter_size)) > 1:
-                log("WARNING: iter_size > 1 ignored with HDF5_OUTPUT in "
-                    "the TRAIN net (per-iteration dump semantics)",
-                    rank=self.rank)
-                sp = dataclasses.replace(sp, iter_size=1)
             if dump and self.plan is not None:
                 log("WARNING: HDF5_OUTPUT in the TRAIN net is not dumped "
                     "under --mesh sharding", rank=self.rank)
@@ -497,6 +561,17 @@ class Engine:
         for pipe in pipes:
             host.update(next(pipe))
         return place_batch(host, self.device)
+
+    def _next_train_batch(self):
+        """The train step's input: one batch, or under iter_size K the K
+        next batches (micro-batches), through the prefetcher when one
+        runs."""
+        def one():
+            return (next(self._device_feed) if self._device_feed is not None
+                    else self._next_batch(self.train_pipelines))
+        if self.iter_size == 1:
+            return one()
+        return [one() for _ in range(self.iter_size)]
 
     def iteration(self) -> int:
         return int(self.state.it if self.staleness > 0
@@ -661,6 +736,7 @@ class Engine:
         # fetcher's thread; put() blocks only when max_in_flight dispatches
         # are unread
         fetcher = AsyncScalarFetcher(self.max_in_flight)
+        t_start = time.perf_counter()
         try:
             while it < max_iter:
                 if sp.snapshot and it > 0 and it % sp.snapshot == 0:
@@ -673,9 +749,7 @@ class Engine:
                 t_in = time.perf_counter()
                 with span_recorder.span("prefetch_wait", "input",
                                         {"iter": it}):
-                    batch = (next(self._device_feed)
-                             if self._device_feed is not None
-                             else self._next_batch(self.train_pipelines))
+                    batch = self._next_train_batch()
                 t0 = time.perf_counter()
                 with span_recorder.span("dispatch", "step", {"iter": it}):
                     self.params, self.state, m = self.train_step.step(
@@ -686,9 +760,9 @@ class Engine:
                 if self._h5_train:
                     self._write_train_h5(self.train_step.dumped)
                 it += 1
-                self.stats["input_stall_s"] += t0 - t_in
-                self.stats["train_step_s"] += time.perf_counter() - t0
-                self.stats["train_iters"] += 1
+                self.stats.add_time("input_stall", t0 - t_in)
+                self.stats.add_time("train_step", time.perf_counter() - t0)
+                self.stats.add("train_iters")
                 self._check_divergence(fetcher)
                 tier = self._async_tier
                 if tier is not None:
@@ -707,6 +781,14 @@ class Engine:
                                        if k not in ("iter", "time"))
                     log(f"Iteration {it}, lr = {lr:.6g}, {extras}",
                         rank=self.rank)
+                    # the live telemetry rides the display cadence
+                    self.stats.set_gauge("iteration", it)
+                    self.stats.set_gauge("lr", lr)
+                    for k, v in flushed.items():
+                        if k not in ("iter", "time"):
+                            self.stats.set_gauge(f"train_{k}",
+                                                    round(v, 6))
+                    self._dump_stats()
                     if tier is not None:
                         from .comm_stats import format_comm, format_membership
                         log("    [membership] " + format_membership(
@@ -722,13 +804,16 @@ class Engine:
                     self._test_all(it)
             last = self._hard_sync(fetcher, "final", last)
         finally:
-            self.stats["steps_in_flight"] = round(fetcher.mean_in_flight(),
-                                                  3)
+            self.stats.counters["steps_in_flight"] = round(
+                fetcher.mean_in_flight(), 3)
+            self.stats.add_time("train_total",
+                                   time.perf_counter() - t_start)
             fetcher.close()
         if self._async_tier is not None:
             # the last clock flushed and (rank 0) the final anchor in the
             # arena BEFORE the after-train snapshot
-            self.stats.update(self._async_tier.finish(self))
+            for k, v in self._async_tier.finish(self).items():
+                self.stats.add(k, v)
             self._async_tier = None
         if sp.snapshot_after_train:
             with span_recorder.span("snapshot", "ckpt",
@@ -789,9 +874,33 @@ class Engine:
                 log(f"WARNING: span timeline write failed ({e}); training "
                     f"continues", rank=self.rank)
 
+    def _dump_stats(self) -> None:
+        """stats.yaml (rank 0; atomic) at a display boundary: a failed
+        write warns once and training goes on."""
+        if self.rank != 0:
+            return
+        try:
+            self.stats.dump_yaml(os.path.join(self.output_dir,
+                                                 "stats.yaml"))
+        except OSError as e:
+            if not self._telemetry_warned:
+                self._telemetry_warned = True
+                log(f"WARNING: stats.yaml write failed ({e}); training "
+                    f"continues, will retry at the next boundary",
+                    rank=self.rank)
+
     def _write_artifacts(self) -> None:
         if self.rank != 0:
             return
+        # the static per-layer comm accounting, its summary against the
+        # measured step
+        table = layer_comm_table(self.train_net, self.comm, self.group)
+        iters = self.stats.counters.get("train_iters", 0)
+        step_ms = (self.stats.timers.get("train_step", 0.0) / iters * 1e3
+                   if iters else None)
+        self.stats.set_section("comm", {
+            "summary": comm_summary(table, step_ms), "per_layer": table})
+        self.stats.dump_yaml(os.path.join(self.output_dir, "stats.yaml"))
         name = self.train_net.name or "net"
         self.metrics.to_csv(os.path.join(self.output_dir,
                                          f"{name}_train_outputs.csv"))
@@ -830,6 +939,9 @@ class Engine:
             self._dump_trace()
             span_recorder.disable()
             self._owns_span_recorder = False
+        if self._metrics_server is not None:
+            self._metrics_server.close()
+            self._metrics_server = None
         self.group.close()
         if err is not None:
             raise err

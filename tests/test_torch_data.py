@@ -167,15 +167,25 @@ def test_shard_indices_and_phase_pipelines(monkeypatch):
     assert shapes == {"data": (60, 1, 8, 8), "label": (60,)}
 
 
-def test_unported_sources_raise_naming_them(tmp_path):
-    """LEVELDB and MEMORY_DATA are in the port now (tests/test_torch_
-    leveldb.py, test_torch_pipeline_overlap.py); the sources still to port
-    raise naming themselves."""
-    for kind, param in (("IMAGE_DATA", "image_data_param"),
-                        ("HDF5_DATA", "hdf5_data_param"),
-                        ("WINDOW_DATA", "window_data_param")):
+def test_no_source_type_raises_not_implemented(tmp_path):
+    """Every type of DATA_SOURCE_TYPES builds in the port now: a source
+    that is missing on disk fails as the JAX package's does (OSError,
+    or ValueError for MEMORY_DATA without arrays), never with
+    NotImplementedError."""
+    from poseidon_tpu_torch.core.layers import DATA_SOURCE_TYPES
+    params = {"DATA": "data_param", "IMAGE_DATA": "image_data_param",
+              "HDF5_DATA": "hdf5_data_param",
+              "WINDOW_DATA": "window_data_param",
+              "MEMORY_DATA": "memory_data_param"}
+    assert set(params) == DATA_SOURCE_TYPES
+    missing = tmp_path / "missing"
+    for kind in sorted(DATA_SOURCE_TYPES):
+        body = ("batch_size: 2" if kind == "MEMORY_DATA" else
+                f'source: "{missing}" batch_size: 2'
+                + (" crop_size: 4" if kind == "WINDOW_DATA" else ""))
         text = (f'layers {{ name: "d" type: {kind} top: "data" '
-                f'top: "label" {param} {{ source: "x" batch_size: 2 }} }}')
+                f'top: "label" {params[kind]} {{ {body} }} }}')
         lp = load_net_from_string(text).layers[0]
-        with pytest.raises(NotImplementedError, match=kind):
+        want = ValueError if kind == "MEMORY_DATA" else OSError
+        with pytest.raises(want):
             BatchPipeline(lp, "TRAIN", 2)

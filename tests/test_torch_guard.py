@@ -30,6 +30,9 @@ assert spmd.SpmdTrainStep and spmd.TPColMatmul and spmd.ShardingPlan
 assert "poseidon_tpu_torch.parallel.sequence" in names
 # the mixture of experts and its expert-parallel step
 assert "poseidon_tpu_torch.models.moe" in names
+# the data sources, the disk streamer and the dataset tools
+for mod in ("data.window", "data.stream", "data.libsvm", "runtime.tools"):
+    assert "poseidon_tpu_torch." + mod in names, mod
 # a bf16-wire round trip of the async tier: quantize, encode, decode, widen
 import numpy as np
 from poseidon_tpu_torch.parallel import async_ssp

@@ -162,8 +162,8 @@ def test_windowed_loop_is_the_serial_loop_bitwise(tmp_path, monkeypatch,
     _assert_bitwise(serial, leaves)
     assert last == last_s
     assert threads and not any(t.is_alive() for t in threads)
-    assert eng.stats["train_iters"] == 30
-    assert 1.0 <= eng.stats["steps_in_flight"] <= mif
+    assert eng.stats.counters["train_iters"] == 30
+    assert 1.0 <= eng.stats.counters["steps_in_flight"] <= mif
 
 
 @pytest.mark.parametrize("device_transform", [False, True])
@@ -298,7 +298,8 @@ def test_nan_abort_names_the_producing_step(tmp_path, mif):
         with pytest.raises(TrainingDivergedError) as exc:
             eng.train()
         assert exc.value.iteration == 0 and exc.value.key == "loss"
-        assert eng.stats["train_iters"] <= exc.value.iteration + 1 + mif
+        assert eng.stats.counters["train_iters"] <= \
+            exc.value.iteration + 1 + mif
     finally:
         eng.close()
 

@@ -292,10 +292,19 @@ def test_engine_restore_resumes_and_divergence_aborts(tmp_path, monkeypatch):
 
 
 def test_iter_size_raises():
+    """The flat step accumulates (tests/test_torch_iter_size.py); the SSP
+    and SPMD steps still refuse iter_size > 1, naming the engine's rule
+    (it runs iter_size 1 under staleness and --mesh)."""
+    from poseidon_tpu_torch.parallel.spmd import SpmdTrainStep
+    from poseidon_tpu_torch.parallel.trainer import SSPTrainStep
     sp = SolverParameter(**SOLVER, iter_size=2)
     _, net = _nets("lenet")
-    with pytest.raises(NotImplementedError, match="iter_size"):
-        build_train_step(net, sp)
+    assert build_train_step(net, sp).iter_size == 2
+    with pytest.raises(ValueError, match="runs iter_size 1 under SSP "
+                                         "staleness"):
+        SSPTrainStep(net, sp, staleness=1)
+    with pytest.raises(ValueError, match="runs iter_size 1 under --mesh"):
+        SpmdTrainStep(net, sp, None, None)
 
 
 def test_cli_train_subprocess_on_cpu(tmp_path):
