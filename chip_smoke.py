@@ -211,6 +211,35 @@ Phases, in order; any failure exits non-zero without the final ``ok`` line:
    siamese example net 3 SGD steps on the card against the CPU at
    NET_TOL, each sharer's blob its owner's arena leaf, K6 2 and K7 1 a
    step. The phase must take at most 60 s.
+6c. ``[dispatch]`` and ``[remat]`` (``phase_dispatch`` after ``[train]``,
+   ``dispatch_googlenet`` after ``[zoo]``), f32, "auto" layout (NHWC on
+   the card), cuDNN's deterministic algorithms on, an ``inv`` rate that
+   moves every step: (a) AlexNet train_val at batch 256 on [train]'s
+   LMDB through ``Engine.train()`` at ``steps_per_dispatch``
+   DISPATCH_K for DISPATCH_ITERS steps (chunks at 0, 4 and 8: the first
+   runs its steps eagerly and captures them into one CUDA graph, the
+   others replay it), the counters zeroed just before and read just after:
+   the wrappers count the warm-up's launches and the capture's (each
+   replay launches what the capture recorded, without a wrapper call), so
+   a replay's K4-/K5-/K6-NHWC and K7's device-rate entry are the capture's
+   counts and the kernels ran warm-up + replays x capture times; (b) the
+   K-step graph against K eager steps, bitwise (params, momentum, losses)
+   over two dispatches, from one state and the same batches and dropout
+   stream; (c) ms a step by CUDA events, eager and graph, in turns, and
+   the card's busy share of each (torch.profiler's device time over the
+   CUDA-event wall of the same calls); the same on GoogLeNet (``[zoo]``'s
+   net, batch 32, ``reuse_batch``), bitwise too, its launches counted the
+   same way. (d) K7's device-rate entry against its plain version over
+   the AlexNet arena at an ``inv`` rate (in ``[sgd_update_devrate]``).
+   ``[remat]``: the no-remat step's peak on the card
+   (``measured_peak_bytes``), then ``Engine(remat="auto",
+   hbm_budget_gb=REMAT_BUDGET_SHARE x that peak, steps_per_dispatch=K)``:
+   its plan's layers, ``Engine.train()`` for REMAT_ITERS steps (launches
+   counted), and the remat arm (eager, and one replay of the engine's
+   graph, whose checkpointed dropouts draw from registered generator
+   slots) against the stored arm, bitwise over DISPATCH_K steps, with the
+   peak memory above the start and ms a step of each arm. The two phases
+   must take at most DISPATCH_BUDGET_S together.
 7. The LM serving slice: ``serve --generate``'s executor
    (``build_generate_executor("gpt_small")``: full width and depth, seeded
    weights, page 64, rungs 1/2/4/8, prompt buckets 16/64/256) behind the
@@ -768,6 +797,23 @@ TOOLS_TIME_ITERS = 10
 TOOLS_LEVELDB_RECORDS = 8
 TOOLS_BUDGET_S = 60.0
 TOOLS_TIMEOUT_S = 300
+
+# [dispatch] and [remat] (the docstring's 6c): K steps a dispatch, a CUDA
+# graph on the card; DISPATCH_LAUNCHES and DISPATCH_ZOO_LAUNCHES are one
+# step's port kernels (K7 through its device-rate entry); the remat plan's
+# budget is REMAT_BUDGET_SHARE of the measured no-remat peak.
+DISPATCH_K = 4
+DISPATCH_ITERS = 12
+DISPATCH_SEED = 23
+DISPATCH_LR = dict(lr_policy="inv", gamma=0.01, power=0.75)
+DISPATCH_LAUNCHES = {"lrn_fwd_nhwc": 2, "lrn_bwd_nhwc": 2,
+                     "pool_bwd_nhwc": 3, "sgd_update_devrate": 1}
+DISPATCH_ZOO_LAUNCHES = {"lrn_fwd_nhwc": 2, "lrn_bwd_nhwc": 2,
+                         "pool_bwd_nhwc": 16, "sgd_update_devrate": 1}
+DISPATCH_TURNS = ("eager", "graph", "graph", "eager")
+REMAT_BUDGET_SHARE = 0.75
+REMAT_ITERS = 8
+DISPATCH_BUDGET_S = 90.0
 
 
 class SmokeFailure(RuntimeError):
@@ -2456,9 +2502,8 @@ def zero_launches() -> None:
 
 
 def read_launches() -> dict:
-    from poseidon_tpu_torch.ops import flash, lrn, pool, sgd
-    return {**lrn.LAUNCHES, **pool.LAUNCHES, **sgd.LAUNCHES,
-            **flash.LAUNCHES}
+    from poseidon_tpu_torch.ops import _build
+    return _build.launch_counts()
 
 
 def synthetic_ilsvrc_paths(root: str):
@@ -7042,9 +7087,11 @@ def phase_lm_pp_ep(card: str, device=None, preset: str = LMT_PRESET,
             "wall_s": wall}
 
 
-def zoo_googlenet(card: str, device=None, batch: int = ZOO_BATCH) -> dict:
+def zoo_googlenet(card: str, device=None, batch: int = ZOO_BATCH,
+                  keep=None) -> dict:
     """[zoo] (a): GoogLeNet trained at full width (``device`` and ``batch``
-    are for a CPU rehearsal at a cut batch only)."""
+    are for a CPU rehearsal at a cut batch only); ``keep`` (a dict) gets
+    the net, its step, batch and state for ``dispatch_googlenet``."""
     import types
 
     import torch
@@ -7132,6 +7179,10 @@ def zoo_googlenet(card: str, device=None, batch: int = ZOO_BATCH) -> dict:
     prof = (phase_train_profile(shim, data, card, tag="zoo",
                                 kernel_names=CNN_NHWC_KERNEL_NAMES)
             if on_card else {})
+    if keep is not None:
+        keep.update(net=net, step=step, data=data, state=shim.state,
+                    history=shim.state.solver.history,
+                    it=int(shim.state.solver.it))
     return {"step_ms": step_ms, "wall_ms": wall_ms, "img_s": rate,
             "peak_bytes": peak, "losses": losses, "launches": counts,
             "per_step": ZOO_LAUNCHES, "params": net.param_count(),
@@ -7347,13 +7398,15 @@ def zoo_siamese(card: str, device=None) -> dict:
             "layout": card_run["layout"]}
 
 
-def phase_zoo(card: str, device=None, batch: int = ZOO_BATCH) -> dict:
+def phase_zoo(card: str, device=None, batch: int = ZOO_BATCH,
+              keep=None) -> dict:
     """[zoo]: GoogLeNet from the model zoo trained at full width, K6-NHWC
     at its inception pools, the catalog net and the siamese net against
-    the CPU (``device`` and ``batch`` for a CPU rehearsal only)."""
+    the CPU (``device`` and ``batch`` for a CPU rehearsal only; ``keep``
+    as ``zoo_googlenet``'s)."""
     import torch
     t0 = time.perf_counter()
-    googlenet = zoo_googlenet(card, device, batch)
+    googlenet = zoo_googlenet(card, device, batch, keep)
     if torch.cuda.is_available():
         torch.cuda.empty_cache()
     pools = zoo_inception_pools(card) if device is None else []
@@ -7799,6 +7852,493 @@ def phase_tools(card: str, root: str, device=None, micro: int = TOOLS_MICRO,
     return out
 
 
+@contextlib.contextmanager
+def cudnn_deterministic():
+    """cuDNN's deterministic algorithms within the block (benchmarking
+    off), the settings found put back after it."""
+    import torch
+    saved = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = saved
+
+
+def stack_rows(batches) -> dict:
+    """Batches stacked to [K, ...] (the K-step dispatch's input)."""
+    import torch
+    return {t: torch.stack([b[t] for b in batches]) for t in batches[0]}
+
+
+def dispatch_arm(step, net, p0, h0, it0: int, batches, seed: int,
+                 reuse=None) -> tuple:
+    """The steps of ``batches`` from (p0, h0, it0), the dropout stream
+    reseeded to ``seed``: single steps for a one-step ``step``, K-step
+    dispatches else (of ``reuse``, one batch, under reuse_batch);
+    -> (losses, params, momentum), clones."""
+    from poseidon_tpu_torch.parallel.trainer import TrainState
+    from poseidon_tpu_torch.solvers.updates import SolverState
+    net.manual_seed(seed)
+    params, state = step.load(p0, TrainState(SolverState(it0, h0), {}))
+    k = step.steps_per_dispatch
+    losses = []
+    for i in range(0, len(batches), k):
+        if k == 1:
+            params, state, m = step.step(params, state, batches[i])
+            losses.append(float(m["loss"]))
+        else:
+            params, state, m = step.multi_step(
+                params, state, reuse if reuse is not None
+                else stack_rows(batches[i:i + k]))
+            losses += m["loss"].tolist()
+    return losses, tree_clone(params), tree_clone(state.solver.history)
+
+
+def events_ms(fn) -> float:
+    """The wall of ``fn()`` on the card by CUDA events, ms."""
+    import torch
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+def busy_share(fn) -> dict:
+    """The card's busy share over one call of ``fn``: the time some device
+    op (a kernel or a copy, on any stream: the union of their intervals)
+    ran, by torch.profiler, over the wall of the same call by CUDA events
+    (a warm-up call is traced first and dropped: the profiler misses the
+    first kernels it sees). Tracing lengthens the host's part, so the
+    share is a floor; None when the profiler saw no device work."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+    kept, walls = [], []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=lambda p: kept.extend(p.events())) as prof:
+        for _ in range(2):
+            walls.append(events_ms(fn))
+            prof.step()
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kept
+                   if e.device_type == DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False)
+                   and not e.name.startswith("ProfilerStep"))
+    busy_us, end = 0.0, None
+    for lo, hi in spans:
+        if end is None or lo > end:
+            busy_us += hi - lo
+            end = hi
+        elif hi > end:
+            busy_us += hi - end
+            end = hi
+    busy = busy_us / 1e3
+    return {"busy_ms": busy, "wall_ms": walls[-1], "device_ops": len(spans),
+            "share": busy / walls[-1] if busy else None}
+
+
+def dispatch_timing(card: str, tag: str, n_steps: int, run: dict) -> dict:
+    """ms a step of each arm of ``run`` ({arm: fn running n_steps steps})
+    by CUDA events in DISPATCH_TURNS, then each arm's busy share."""
+    ms = {arm: [] for arm in run}
+    for arm in DISPATCH_TURNS:
+        ms[arm].append(events_ms(run[arm]) / n_steps)
+    share = {arm: busy_share(run[arm]) for arm in run}
+    for arm in run:
+        sh = share[arm]
+        print(f"[dispatch] {tag} {arm}: {ms[arm]} ms a step by CUDA events "
+              f"({n_steps} steps a turn, in turns {list(DISPATCH_TURNS)}); "
+              f"busy share "
+              + ("not measured (the profiler saw no device work)"
+                 if sh["share"] is None else
+                 f"{sh['share']:.3f} ({sh['busy_ms']:.3f} ms of "
+                 f"{sh['device_ops']} device ops in {sh['wall_ms']:.3f} ms)")
+              + f" [{card}]", flush=True)
+    return {"ms": ms, "busy": share}
+
+
+def dispatch_expected(per_step: dict, counts: dict, k: int) -> dict:
+    """What the wrappers count over a K-step capture's warm-up and capture
+    (2K steps' worth), every other counter 0."""
+    want = {name: 0 for name in counts}
+    want.update({name: 2 * k * v for name, v in per_step.items()})
+    return want
+
+
+def dispatch_alexnet(card: str, root: str, dev, batch_size) -> dict:
+    """[dispatch] (a)-(c) on AlexNet; returns the live engine too (for
+    [remat])."""
+    import torch
+    from poseidon_tpu_torch.parallel.trainer import build_train_step
+    from poseidon_tpu_torch.runtime.engine import Engine
+    from poseidon_tpu_torch.solvers.updates import learning_rates
+
+    on_card = dev.type == "cuda"
+    k = DISPATCH_K
+    sp = loop_solver(root, DISPATCH_ITERS, batch_size)
+    sp.display = DISPATCH_ITERS
+    for key, v in DISPATCH_LR.items():
+        setattr(sp, key, v)
+    eng = Engine(sp, output_dir=os.path.join(root, "dispatch"), device=dev,
+                 steps_per_dispatch=k)
+    step = eng.train_step
+    check(eng.steps_per_dispatch == k and step.steps_per_dispatch == k,
+          f"the engine runs steps_per_dispatch {eng.steps_per_dispatch}")
+    if on_card:
+        check(eng.train_net.conv_layout == "NHWC",
+              f"AlexNet planned {eng.train_net.conv_layout} on the card")
+    zero_launches()
+    t0 = time.perf_counter()
+    eng.train()
+    sync(dev)
+    wall = time.perf_counter() - t0
+    counts = read_launches()
+    per_replay = step.graph_launches
+    replays = step.replays
+    n_chunks = DISPATCH_ITERS // k
+    want = {name: 0 for name in counts}
+    if on_card:
+        want = dispatch_expected(DISPATCH_LAUNCHES, counts, k)
+        check(replays == n_chunks - 1,
+              f"{replays} replays of the graph, not {n_chunks - 1}")
+        check(per_replay == {n: k * v for n, v in DISPATCH_LAUNCHES.items()},
+              f"a replay launches {per_replay}")
+    ran = {n: counts[n] // 2 + replays * per_replay.get(n, 0)
+           for n in DISPATCH_LAUNCHES}
+    print(f"[dispatch] (a) Engine.train(): AlexNet "
+          f"{eng.train_net.conv_layout} batch "
+          f"{eng.train_net.blob_shapes['data'][0]}, {DISPATCH_ITERS} steps "
+          f"at steps_per_dispatch {k} in {wall:.2f} s ({n_chunks} "
+          f"dispatches: a warm-up and capture, {replays} replays); the "
+          f"wrappers counted {counts} (expected {want}: the warm-up's and "
+          f"the capture's launches); a replay launches {per_replay}, so "
+          f"the kernels ran {ran} times [{card}]", flush=True)
+    check(counts == want, f"dispatch launch counts {counts} != {want}")
+    check(eng.iteration() == DISPATCH_ITERS, "iteration count")
+    check(math.isfinite(eng.metrics.rows[-1]["loss"]), "non-finite loss")
+
+    # (b) the graph against eager steps, bitwise
+    batches = [eng._next_train_batch() for _ in range(2 * k)]
+    net = eng.train_net
+    eager = build_train_step(net, sp)
+    graph = build_train_step(net, sp, steps_per_dispatch=k)
+    p0, h0 = tree_clone(eng.params), tree_clone(eng.state.solver.history)
+    it0 = eng.iteration()
+    le, pe, he = dispatch_arm(eager, net, p0, h0, it0, batches, DISPATCH_SEED)
+    lg, pg, hg = dispatch_arm(graph, net, p0, h0, it0, batches, DISPATCH_SEED)
+    rates = learning_rates(sp, it0, 2 * k).tolist()
+    check(graph.replays == (1 if on_card else 0),
+          f"the graph arm replayed {graph.replays} times")
+    same = le == lg and tree_equal(pe, pg) and tree_equal(he, hg)
+    print(f"[dispatch] (b) {2 * k} steps as {2} K={k} dispatches (a "
+          f"warm-up and capture, then a replay) vs {2 * k} eager steps, "
+          f"rates {[round(r, 9) for r in rates]}"
+          f": losses {lg} vs {le}; bitwise {same} (params max_abs "
+          f"{tree_max_abs(pg, pe):.3e}, momentum {tree_max_abs(hg, he):.3e})"
+          f" [{card}]", flush=True)
+    check(same, "the K-step graph is not bitwise to eager steps")
+    del pe, he, pg, hg
+    if eng._device_feed is not None:
+        # no more batches: the prefetcher's copies would share the card
+        # with the timed steps
+        eng._device_feed.close()
+        eng._device_feed = None
+
+    # (c) ms a step and busy share, in turns
+    timing = None
+    if on_card:
+        fixed = batches[:k]
+        stacked = stack_rows(fixed)
+        state = {}
+
+        def start(arm, st):
+            state[arm] = st.load(p0, eng.state._replace(
+                solver=eng.state.solver._replace(history=h0)))
+
+        start("eager", eager)
+        start("graph", graph)
+
+        def run_eager():
+            p, s = state["eager"]
+            for b in fixed:
+                p, s, _m = eager.step(p, s, b)
+            state["eager"] = (p, s)
+
+        def run_graph():
+            p, s = state["graph"]
+            p, s, _m = graph.multi_step(p, s, stacked)
+            state["graph"] = (p, s)
+
+        timing = dispatch_timing(card, "(c) AlexNet", k,
+                                 {"eager": run_eager, "graph": run_graph})
+    return {"engine": eng, "launches": counts, "per_replay": per_replay,
+            "replays": replays, "ran": ran, "wall_s": wall,
+            "bitwise": same, "losses": lg, "timing": timing}
+
+
+def remat_alexnet(card: str, root: str, dev, batch_size, disp) -> dict:
+    """[remat] on AlexNet, beside [dispatch]'s live engine (its no-remat
+    net gives the peak the budget is cut from)."""
+    import torch
+    from poseidon_tpu_torch.core import remat as R
+    from poseidon_tpu_torch.parallel.trainer import build_train_step
+    from poseidon_tpu_torch.runtime.engine import Engine
+
+    on_card = dev.type == "cuda"
+    k = DISPATCH_K
+    base_eng = disp["engine"]
+    probe = base_eng._probe_batch()
+    peak = R.measured_peak_bytes(base_eng.train_net, base_eng.params, probe)
+    budget_gb = (REMAT_BUDGET_SHARE * peak / 2**30 if on_card else 1e-9)
+    sp = loop_solver(root, REMAT_ITERS, batch_size)
+    sp.display = REMAT_ITERS
+    for key, v in DISPATCH_LR.items():
+        setattr(sp, key, v)
+    eng = Engine(sp, output_dir=os.path.join(root, "remat"), device=dev,
+                 steps_per_dispatch=k, remat="auto", hbm_budget_gb=budget_gb)
+    try:
+        plan = eng.remat_plan
+        check(plan is not None and plan.active,
+              f"no remat plan at a budget of {budget_gb:.3f} GiB")
+        print(f"[remat] no-remat step peak {peak} B on the card (one "
+              f"forward and backward, measured_peak_bytes), budget "
+              f"{REMAT_BUDGET_SHARE} of it ({budget_gb:.4f} GiB): "
+              f"{plan.describe()}, layers {list(plan.layers)}, the "
+              f"engine's measured peak {plan.measured_peak_bytes} B "
+              f"(source {plan.source}) [{card}]", flush=True)
+        zero_launches()
+        eng.train()
+        sync(dev)
+        counts = read_launches()
+        check(eng.iteration() == REMAT_ITERS, "iteration count")
+        check(math.isfinite(eng.metrics.rows[-1]["loss"]), "non-finite loss")
+        if on_card:
+            check(all(counts[n] > 0 for n in DISPATCH_LAUNCHES),
+                  f"[remat] Engine.train() launched {counts}")
+        print(f"[remat] Engine.train(): {REMAT_ITERS} steps at "
+              f"steps_per_dispatch {k} with the plan's checkpoints, "
+              f"{eng.train_step.replays} replay(s); the wrappers counted "
+              f"{counts} (recomputed forwards launch K4-NHWC and the pool "
+              f"forward again); a replay launches "
+              f"{eng.train_step.graph_launches} [{card}]", flush=True)
+        net = eng.train_net
+        batches = [eng._next_train_batch() for _ in range(k)]
+        stored = build_train_step(net, sp)
+        remat = build_train_step(net, sp, remat_plan=plan)
+        p0, h0 = tree_clone(eng.params), tree_clone(eng.state.solver.history)
+        it0 = eng.iteration()
+        arms, ms, peaks = {}, {}, {}
+        for arm in ("stored", "remat", "remat", "stored"):
+            st = stored if arm == "stored" else remat
+            if on_card:
+                gc.collect()
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            arms[arm] = dispatch_arm(st, net, p0, h0, it0, batches,
+                                     DISPATCH_SEED)
+            sync(dev)
+            ms.setdefault(arm, []).append((time.perf_counter() - t) * 1e3 / k)
+            if on_card:
+                peaks.setdefault(arm, []).append(
+                    torch.cuda.max_memory_allocated() - base)
+        # the engine's own K-step graph with the plan: one replay
+        arms["remat graph"] = dispatch_arm(eng.train_step, net, p0, h0, it0,
+                                           batches, DISPATCH_SEED)
+        (ls, ps, hs), (lr, pr, hr), (lg, pg, hg) = (
+            arms["stored"], arms["remat"], arms["remat graph"])
+        same = (ls == lr == lg and tree_equal(ps, pr) and tree_equal(hs, hr)
+                and tree_equal(ps, pg) and tree_equal(hs, hg))
+        print(f"[remat] {k} steps from one state, batches and dropout "
+              f"stream: stored {ls}, remat {lr}, remat through the "
+              f"engine's graph {lg}: bitwise {same}; a step's peak above "
+              f"the start stored {peaks.get('stored')} B, remat "
+              f"{peaks.get('remat')} B (planned saving {plan.saved_bytes} "
+              f"B); ms a step (host wall around the synced arm) stored "
+              f"{ms['stored']}, remat {ms['remat']} [{card}]", flush=True)
+        check(same, "the remat arm is not bitwise to the stored arm")
+        timing = None
+        if on_card:
+            timing = {}
+            for arm, st in (("stored", stored), ("remat", remat)):
+                fixed = batches[0]
+                ps0 = st.load(p0, eng.state._replace(
+                    solver=eng.state.solver._replace(history=h0)))
+                holder = {"ps": ps0}
+
+                def run(st=st, holder=holder, fixed=fixed):
+                    p, s = holder["ps"]
+                    for _ in range(k):
+                        p, s, _m = st.step(p, s, fixed)
+                    holder["ps"] = (p, s)
+                timing[arm] = [events_ms(run) / k for _ in range(2)]
+            print(f"[remat] ms a step by CUDA events ({k} steps, two "
+                  f"rounds): stored {timing['stored']}, remat "
+                  f"{timing['remat']} [{card}]", flush=True)
+        return {"plan": plan.to_doc(), "no_remat_peak_bytes": peak,
+                "budget_gb": budget_gb, "launches": counts,
+                "per_replay": eng.train_step.graph_launches,
+                "replays": eng.train_step.replays, "bitwise": same,
+                "peak_bytes": peaks, "host_ms": ms, "step_ms": timing}
+    finally:
+        eng.close()
+
+
+def phase_dispatch(card: str, root: str, device=None,
+                   batch_size=None) -> dict:
+    """[dispatch] (a)-(c) and [remat] on AlexNet (``device`` and
+    ``batch_size`` are for a CPU rehearsal at a cut batch only)."""
+    import torch
+    from poseidon_tpu_torch.numeric import policy_scope
+    t0 = time.perf_counter()
+    dev = torch.device(device or "cuda")
+    with policy_scope(conv_layout="AUTO"), cudnn_deterministic():
+        disp = dispatch_alexnet(card, root, dev, batch_size)
+        try:
+            remat = remat_alexnet(card, root, dev, batch_size, disp)
+        finally:
+            disp.pop("engine").close()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    wall = time.perf_counter() - t0
+    print(f"[dispatch] AlexNet and [remat] phase wall {wall:.1f} s "
+          f"[{card}]", flush=True)
+    return {"alexnet": disp, "remat": remat, "wall_s": wall}
+
+
+def dispatch_googlenet(card: str, live: dict, device=None) -> dict:
+    """[dispatch] on [zoo]'s GoogLeNet: a K-step graph under reuse_batch
+    against eager steps, bitwise, its launches, then ms a step and busy
+    share of each."""
+    import torch
+    from poseidon_tpu_torch.parallel.trainer import build_train_step
+    from poseidon_tpu_torch.proto.messages import SolverParameter
+
+    t0 = time.perf_counter()
+    dev = torch.device(device or "cuda")
+    on_card = dev.type == "cuda"
+    k = DISPATCH_K
+    net, eager, data = live["net"], live["step"], live["data"]
+    sp = SolverParameter(**ZOO_SOLVER)
+    with cudnn_deterministic():
+        graph = build_train_step(net, sp, steps_per_dispatch=k,
+                                 reuse_batch=True)
+        p0, h0 = tree_clone(eager.params()), tree_clone(live["history"])
+        it0 = live["it"]
+        zero_launches()
+        lg, pg, hg = dispatch_arm(graph, net, p0, h0, it0, [data] * (2 * k),
+                                  DISPATCH_SEED, reuse=data)
+        sync(dev)
+        counts = read_launches()
+        want = {n: 0 for n in counts}
+        if on_card:
+            want = dispatch_expected(DISPATCH_ZOO_LAUNCHES, counts, k)
+        le, pe, he = dispatch_arm(eager, net, p0, h0, it0, [data] * (2 * k),
+                                  DISPATCH_SEED)
+        same = le == lg and tree_equal(pe, pg) and tree_equal(he, hg)
+        print(f"[dispatch] GoogLeNet {net.conv_layout} batch "
+              f"{data['data'].shape[0]}: {2 * k} steps as 2 K={k} "
+              f"dispatches under reuse_batch (a warm-up and capture, then "
+              f"a replay) vs {2 * k} eager steps: losses {lg} vs {le}, "
+              f"bitwise {same}; the wrappers counted {counts} (expected "
+              f"{want}); a replay launches {graph.graph_launches} "
+              f"[{card}]", flush=True)
+        check(same, "GoogLeNet's K-step graph is not bitwise to eager "
+                    "steps")
+        check(counts == want, f"GoogLeNet dispatch launches {counts} != "
+                              f"{want}")
+        del pe, he, pg, hg
+        timing = None
+        if on_card:
+            check(graph.replays == 1, f"{graph.replays} replays")
+            state = {"eager": eager.load(p0, live["state"]._replace(
+                solver=live["state"].solver._replace(history=h0))),
+                     "graph": graph.load(p0, live["state"]._replace(
+                         solver=live["state"].solver._replace(
+                             history=h0)))}
+
+            def run_eager():
+                p, s = state["eager"]
+                for _ in range(k):
+                    p, s, _m = eager.step(p, s, data)
+                state["eager"] = (p, s)
+
+            def run_graph():
+                p, s = state["graph"]
+                p, s, _m = graph.multi_step(p, s, data)
+                state["graph"] = (p, s)
+
+            timing = dispatch_timing(card, "GoogLeNet", k,
+                                     {"eager": run_eager,
+                                      "graph": run_graph})
+    wall = time.perf_counter() - t0
+    print(f"[dispatch] GoogLeNet phase wall {wall:.1f} s [{card}]",
+          flush=True)
+    return {"launches": counts, "per_replay": graph.graph_launches,
+            "bitwise": same, "losses": lg, "timing": timing, "wall_s": wall}
+
+
+def phase_sgd_devrate(card: str, arena_total: int) -> list:
+    """[dispatch] (d): K7's device-rate entry against its plain version
+    (the rate as a 0-d tensor) over the AlexNet arena at an ``inv`` rate,
+    beside the by-value entry's time."""
+    import torch
+    from poseidon_tpu_torch.ops import sgd
+    from poseidon_tpu_torch.proto.messages import SolverParameter
+    from poseidon_tpu_torch.solvers.updates import learning_rate
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    n = arena_total
+    w = torch.randn(n, generator=gen, device="cuda")
+    g = torch.randn(n, generator=gen, device="cuda")
+    h = torch.randn(n, generator=gen, device="cuda") * 1e-3
+    lr, dec = arena_mults(n, "cuda")
+    sp = SolverParameter(base_lr=0.01, **DISPATCH_LR)
+    rate_f = learning_rate(sp, 1234)
+    rate = torch.tensor(rate_f, device="cuda")
+    mom = 0.9
+    wk, hk, wp, hp = w.clone(), h.clone(), w.clone(), h.clone()
+    sgd.sgd_update_devrate_cuda_(wk, g, hk, rate, lr, dec, mom)
+    torch.cuda.synchronize()
+    sgd.sgd_update_plain_(wp, g, hp, rate, lr, dec, mom)
+    got, want = torch.cat([wk, hk]), torch.cat([wp, hp])
+    bitwise = bool(torch.equal(got, want))
+    del wk, hk, wp, hp
+    by_value_ms = cuda_time_ms(
+        lambda: sgd.sgd_update_cuda_(w, g, h, rate_f, lr, dec, mom))
+    p = torch.nn.Parameter(w.clone())
+    p.grad = g.clone()
+    opt = torch.optim.SGD([p], lr=rate_f, momentum=mom, weight_decay=5e-4,
+                          foreach=True)
+    # five f32 vectors read once and two written once, and the rate's
+    # float; 8 ops an element
+    rec = compare_case(
+        "sgd_update_devrate", "alexnet arena inv", got, want, "float32",
+        lambda: sgd.sgd_update_devrate_cuda_(w, g, h, rate, lr, dec, mom),
+        lambda: sgd.sgd_update_plain_(w, g, h, rate, lr, dec, mom),
+        opt.step, 7 * n * 4 + 4, 8 * n, card,
+        extra=f" P={n} rate {rate_f!r} (it 1234)")
+    rec.update(length=n, bitwise=bitwise, by_value_entry_ms=by_value_ms,
+               library="torch.optim.SGD(foreach=True) over one flat "
+                       "vector: a rough yardstick, not Caffe's rule")
+    print(f"[dispatch] (d) K7's device-rate entry bitwise to its plain "
+          f"version: {bitwise}; {rec['ms']:.4f} ms beside the by-value "
+          f"entry's {by_value_ms:.4f} ms on the same vectors [{card}]",
+          flush=True)
+    check(bitwise, "K7's device-rate entry is not bitwise to plain")
+    del w, g, h, lr, dec, got, want, p, opt
+    torch.cuda.empty_cache()
+    return [rec]
+
+
 def bf16_launch(records, case: str) -> dict:
     """The bf16 record of ``case`` (the gpt_small training launch under
     --bf16): its times, bound and library time."""
@@ -7859,6 +8399,7 @@ def main() -> int:
         k5 = phase_lrn_bwd(card)
         k6, k6_attrs = phase_pool_bwd(card)
         k7 = phase_sgd(card, arena_total)
+        k7d = phase_sgd_devrate(card, arena_total)
         k1, fwd_attrs = phase_flash(card)
         k2, k3, bwd_attrs = phase_flash_bwd(card)
         k4n, k5n, k6n, conv1, layout = phase_layout(card)
@@ -7871,6 +8412,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         with tempfile.TemporaryDirectory() as root:
             train = phase_train(card, root)
+            torch.cuda.empty_cache()
+            dispatch = phase_dispatch(card, root)
             torch.cuda.empty_cache()
             loop = phase_loop(card, root, train["step_ms"])
             torch.cuda.empty_cache()
@@ -7888,8 +8431,17 @@ def main() -> int:
             torch.cuda.empty_cache()
             tools = phase_tools(card, root, train_step_ms=train["step_ms"])
         torch.cuda.empty_cache()
-        zoo = phase_zoo(card)
+        live = {}
+        zoo = phase_zoo(card, keep=live)
+        dispatch["googlenet"] = dispatch_googlenet(card, live)
+        dispatch["wall_s"] += dispatch["googlenet"]["wall_s"]
+        del live
+        gc.collect()
         torch.cuda.empty_cache()
+        print(f"[dispatch] and [remat] took {dispatch['wall_s']:.1f} s "
+              f"(budget {DISPATCH_BUDGET_S:g} s) [{card}]", flush=True)
+        check(dispatch["wall_s"] <= DISPATCH_BUDGET_S,
+              f"[dispatch] and [remat] took {dispatch['wall_s']:.1f} s")
         lm = phase_lm(card)
         torch.cuda.empty_cache()
         lm_tp = phase_lm_tp_serve(card)
@@ -7954,6 +8506,17 @@ def main() -> int:
                                        "loop": loop_launches["sgd_update"],
                                        "bf16_train": bf16_launches[
                                            "sgd_update"]}),
+        # the device-rate entry, whose main path is [dispatch]'s
+        # Engine.train() at steps_per_dispatch K: the wrappers' count is
+        # the warm-up's and the capture's launches; each replay launches
+        # what the capture recorded (runs_by_path)
+        kernel_entry("sgd_update_devrate",
+                     "poseidon_tpu/ops/pallas_kernels.py:838",
+                     dispatch["alexnet"]["launches"]["sgd_update_devrate"],
+                     k7d, ("alexnet arena inv",),
+                     source="poseidon_tpu_torch/ops/csrc/sgd_update.cu",
+                     launches_by_path={},
+                     by_value_entry_ms=k7d[0]["by_value_entry_ms"]),
         kernel_entry("flash_fwd", "poseidon_tpu/ops/pallas_kernels.py:77",
                      lm["flash_launches"], k1, ("prefill 256",),
                      launches_by_path={"lm_serving": lm["flash_launches"],
@@ -8096,6 +8659,21 @@ def main() -> int:
             entry["max_abs_err"] = max(
                 [entry["max_abs_err"]]
                 + [r["max_abs_err"] for r in zoo["inception_pools"]])
+        # [dispatch]'s and [remat]'s paths (wrapper counts: the warm-up's
+        # and the capture's), and what a replay of each graph launches
+        dg = dispatch["googlenet"]
+        entry["launches_by_path"].update(
+            dispatch=dispatch["alexnet"]["launches"].get(name, 0),
+            dispatch_googlenet=dg["launches"].get(name, 0),
+            remat=dispatch["remat"]["launches"].get(name, 0))
+        entry["launches_per_replay"] = {
+            "dispatch": dispatch["alexnet"]["per_replay"].get(name, 0),
+            "dispatch_googlenet": dg["per_replay"].get(name, 0),
+            "remat": dispatch["remat"]["per_replay"].get(name, 0)}
+        entry["runs_by_path"] = {
+            "dispatch": dispatch["alexnet"]["ran"].get(name, 0),
+            "dispatch_googlenet": dg["launches"].get(name, 0) // 2
+            + dg["per_replay"].get(name, 0)}
         # [tools]' paths: Engine.train() at iter_size 2, and the `time`
         # and `extract_features` children
         entry["launches_by_path"].update(
@@ -8137,8 +8715,11 @@ def main() -> int:
                "fleet": fleet,
                "zoo": zoo,
                "tools": tools,
+               "dispatch": dispatch,
                "bf16_digits_final_accuracy": bf16_digits_acc,
                "wall_s": time.perf_counter() - t_start}
+    print(f"[smoke] total wall {summary['wall_s']:.1f} s of the 1200 s "
+          f"limit [{card}]", flush=True)
     print(f"[summary] {json.dumps(summary)}", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

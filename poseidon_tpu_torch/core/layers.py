@@ -559,7 +559,12 @@ class InfogainLossLayer(_ScalarTopLayer):
                      if H.shape[-1] == H.shape[-2]
                      else H.reshape(int(H.numel() ** 0.5), -1))
         else:
-            H = self.H.to(device=bottoms[0].device, dtype=bottoms[0].dtype)
+            x = bottoms[0]
+            if (self.H.device, self.H.dtype) != (x.device, x.dtype):
+                # moved once: a forward inside a CUDA graph's capture
+                # copies nothing from the host
+                self.H = self.H.to(device=x.device, dtype=x.dtype)
+            H = self.H
         return [L.infogain_loss(bottoms[0], bottoms[1], H)]
 
 

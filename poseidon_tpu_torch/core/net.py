@@ -66,6 +66,7 @@ from ..proto.messages import LayerParameter, NetParameter, NetState
 from .blob import ParamDef
 from .fillers import fill
 from .layers import DATA_SOURCE_TYPES, Layer, create_layer
+from .remat import RematRng, checkpoint_layer
 
 Shape = Tuple[int, ...]
 Params = Dict[str, Dict[str, torch.Tensor]]
@@ -130,6 +131,8 @@ class Net(nn.Module):
         # the dropout masks' random stream, on the net's device; the engine
         # reseeds it from the solver's random_seed
         self.generator = torch.Generator(device=self.device).manual_seed(0)
+        # how a checkpointed DROPOUT replays its mask (``apply(remat=)``)
+        self.remat_rng = RematRng(self.generator)
 
         blob_shapes: Dict[str, Shape] = {}
         if net_param.input:
@@ -340,7 +343,7 @@ class Net(nn.Module):
     # ------------------------------------------------------------------ #
     def apply(self, params: Optional[Params],
               inputs: Dict[str, torch.Tensor], train: Optional[bool] = None,
-              keep_blobs: bool = False, comm=None) -> NetOutputs:
+              keep_blobs: bool = False, comm=None, remat=None) -> NetOutputs:
         """Run the graph: the loss (Caffe's objective, sum over tops of
         loss_weight * top, in f32), the output blobs, and every blob by its
         last value with ``keep_blobs``. ``train`` defaults to the phase.
@@ -349,7 +352,15 @@ class Net(nn.Module):
         sufficient-factor product, or a tensor-parallel shard's on a
         named mesh). A leaf whose shape differs from its definition is
         reshaped when its count agrees; otherwise only a leaf the comm's
-        plan tensor-shards may pass (JAX's ``_layer_params``)."""
+        plan tensor-shards may pass (JAX's ``_layer_params``).
+
+        ``remat`` names layers (usually ``core/remat.RematPlan.layer_set``)
+        whose forward bodies run under ``torch.utils.checkpoint``
+        (non-reentrant): their internal activations are dropped after the
+        forward and recomputed from the stored bottoms and params during
+        backward; a checkpointed DROPOUT draws its forward's mask again
+        (``core/remat.RematRng``). The math is unchanged, so remat arms
+        are bitwise equal to stored arms. Unknown names raise."""
         if params is None:
             params = self.params
         if params is None:
@@ -357,6 +368,11 @@ class Net(nn.Module):
                                "params=")
         if train is None:
             train = self.phase == "TRAIN"
+        remat_set = frozenset(remat) if remat else frozenset()
+        unknown = remat_set - set(self._layer_by_name)
+        if unknown:
+            raise ValueError(f"remat names unknown layers: "
+                             f"{sorted(unknown)}")
         nhwc = self.conv_layout == "NHWC"
         blobs: Dict[str, torch.Tensor] = {
             k: to_channels_last(v) if nhwc else v for k, v in inputs.items()}
@@ -366,11 +382,11 @@ class Net(nn.Module):
             if nhwc and layer.TYPE in SPATIAL_TYPES:
                 bottoms = [to_channels_last(b) for b in bottoms]
             lparams = self._layer_params(params, layer, comm)
-            if comm is not None and layer.name in comm.routed_layers:
-                tops = [comm.layer_product(layer.name, bottoms[0],
-                                           lparams["w"], lparams.get("b"))]
+            if layer.name in remat_set:
+                tops = self._checkpointed(layer, lparams, bottoms, train,
+                                          comm)
             else:
-                tops = layer(lparams, bottoms, train)
+                tops = self._run_layer(layer, lparams, bottoms, train, comm)
             weights = layer.loss_weights(len(tops))
             for name, val, w in zip(layer.lp.top, tops, weights):
                 blobs[name] = val
@@ -380,6 +396,28 @@ class Net(nn.Module):
             loss=loss,
             outputs={name: blobs[name] for name in self.output_names},
             blobs=blobs if keep_blobs else {})
+
+    @staticmethod
+    def _run_layer(layer: Layer, lparams, bottoms, train, comm):
+        if comm is not None and layer.name in comm.routed_layers:
+            return [comm.layer_product(layer.name, bottoms[0], lparams["w"],
+                                       lparams.get("b"))]
+        return layer(lparams, bottoms, train)
+
+    def _checkpointed(self, layer: Layer, lparams, bottoms, train, comm):
+        """The layer's forward body under a checkpoint: its params and
+        bottoms are the checkpoint's inputs, its tops come out."""
+        names = list(lparams)
+
+        def body(*args):
+            return self._run_layer(
+                layer, dict(zip(names, args[:len(names)])),
+                list(args[len(names):]), train, comm)
+
+        rng = (self.remat_rng if layer.TYPE == "DROPOUT" and train
+               else None)
+        return list(checkpoint_layer(
+            body, [lparams[k] for k in names] + list(bottoms), rng))
 
     def _layer_params(self, params: Params, layer: Layer, comm=None
                       ) -> Dict[str, torch.Tensor]:

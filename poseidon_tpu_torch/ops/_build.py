@@ -44,6 +44,16 @@ def count_launch(table: Dict[str, int], name: str) -> None:
         table[name] += 1
 
 
+def launch_counts() -> Dict[str, int]:
+    """Every kernel module's ``LAUNCHES`` merged into one copy (a CUDA
+    graph's capture records its launches: the difference of two such
+    copies around it is what each replay launches)."""
+    from . import flash, lrn, pool, sgd
+    with _count_lock:
+        return {**lrn.LAUNCHES, **pool.LAUNCHES, **sgd.LAUNCHES,
+                **flash.LAUNCHES}
+
+
 def nvcc_path() -> str:
     found = shutil.which("nvcc")
     if found:

@@ -26,8 +26,17 @@
 // rounding; rate*lr_mult is one f32 multiply, as `local_rate = rate *
 // lr_vec` rounds in the JAX package.
 //
+// Two entries share the kernel: poseidon_sgd_update takes the rate by
+// value (a float the host computed for this step), and
+// poseidon_sgd_update_devrate reads it from device memory at launch, so a
+// CUDA graph that captured the launch applies whatever rate the host
+// wrote into that float before each replay (under inv, poly, exp and
+// sigmoid the rate changes every iteration; a by-value rate would be
+// frozen at the captured step's). Every thread reads the one float once;
+// the arithmetic is the same, so both entries give the same bits.
+//
 // The kernel allocates nothing and launches on the caller's stream; the C
-// entry returns cudaGetLastError() so the wrapper can raise on a refused
+// entries return cudaGetLastError() so the wrapper can raise on a refused
 // launch.
 
 #include <cuda_runtime.h>
@@ -45,12 +54,18 @@ __device__ __forceinline__ void update_one(float& w, float& h, float g,
   w = __fsub_rn(w, hn);
 }
 
+// kDevRate: the rate is *rate_ptr (read once a thread), else rate_arg.
+template <bool kDevRate>
 __global__ void sgd_update_kernel(float* __restrict__ w,
                                   float* __restrict__ h,
                                   const float* __restrict__ g,
                                   const float* __restrict__ lr,
                                   const float* __restrict__ dec, int64_t n,
-                                  float rate, float momentum) {
+                                  float rate_arg,
+                                  const float* __restrict__ rate_ptr,
+                                  float momentum) {
+  float rate = rate_arg;
+  if constexpr (kDevRate) rate = __ldg(rate_ptr);
   const int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   const int64_t n4 = n / 4;
@@ -79,6 +94,29 @@ __global__ void sgd_update_kernel(float* __restrict__ w,
   }
 }
 
+// The launch shape both entries share: a grid-stride loop of a few blocks
+// an SM. Returns a cudaError_t.
+template <bool kDevRate>
+int launch(void* w, void* h, const void* g, const void* lr, const void* dec,
+           long long n, float rate, const void* rate_ptr, float momentum,
+           int sm_count, void* stream) {
+  const uintptr_t mis = ((uintptr_t)w | (uintptr_t)h | (uintptr_t)g |
+                         (uintptr_t)lr | (uintptr_t)dec) & 15u;
+  if (mis) return (int)cudaErrorMisalignedAddress;
+  if (n <= 0) return (int)cudaSuccess;
+  const int threads = 256;
+  int64_t blocks = (n / 4 + threads) / threads;
+  const int64_t cap = (int64_t)(sm_count > 0 ? sm_count : 132) * 8;
+  if (blocks > cap) blocks = cap;
+  sgd_update_kernel<kDevRate><<<(unsigned int)blocks, threads, 0,
+                                static_cast<cudaStream_t>(stream)>>>(
+      static_cast<float*>(w), static_cast<float*>(h),
+      static_cast<const float*>(g), static_cast<const float*>(lr),
+      static_cast<const float*>(dec), n, rate,
+      static_cast<const float*>(rate_ptr), momentum);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // All five pointers address n contiguous float32 values. The float4 body
@@ -89,18 +127,19 @@ extern "C" int poseidon_sgd_update(void* w, void* h, const void* g,
                                    const void* lr, const void* dec,
                                    long long n, float rate, float momentum,
                                    int sm_count, void* stream) {
-  const uintptr_t mis = ((uintptr_t)w | (uintptr_t)h | (uintptr_t)g |
-                         (uintptr_t)lr | (uintptr_t)dec) & 15u;
-  if (mis) return (int)cudaErrorMisalignedAddress;
-  if (n <= 0) return (int)cudaSuccess;
-  const int threads = 256;
-  int64_t blocks = (n / 4 + threads) / threads;
-  const int64_t cap = (int64_t)(sm_count > 0 ? sm_count : 132) * 8;
-  if (blocks > cap) blocks = cap;
-  sgd_update_kernel<<<(unsigned int)blocks, threads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<float*>(w), static_cast<float*>(h),
-      static_cast<const float*>(g), static_cast<const float*>(lr),
-      static_cast<const float*>(dec), n, rate, momentum);
-  return (int)cudaGetLastError();
+  return launch<false>(w, h, g, lr, dec, n, rate, nullptr, momentum,
+                       sm_count, stream);
+}
+
+// The same update with the rate read from the device float at rate_ptr
+// (4-byte aligned) when the kernel runs, not when it is
+// launched.
+extern "C" int poseidon_sgd_update_devrate(void* w, void* h, const void* g,
+                                           const void* lr, const void* dec,
+                                           long long n, const void* rate_ptr,
+                                           float momentum, int sm_count,
+                                           void* stream) {
+  if (rate_ptr == nullptr) return (int)cudaErrorInvalidValue;
+  return launch<true>(w, h, g, lr, dec, n, 0.0f, rate_ptr, momentum,
+                      sm_count, stream);
 }

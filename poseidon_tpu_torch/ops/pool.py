@@ -132,6 +132,15 @@ def _ave_denom(h, w, oh, ow, kernel, stride, pad) -> np.ndarray:
                     divisors(ow, stride[1], pad[1], kernel[1], w))
 
 
+@functools.lru_cache(maxsize=256)
+def _ave_denom_on(h, w, oh, ow, kernel, stride, pad, device,
+                  dtype) -> torch.Tensor:
+    """``_ave_denom`` as a tensor on ``device``, made once a shape: a
+    forward inside a CUDA graph's capture copies nothing from the host."""
+    return torch.from_numpy(_ave_denom(h, w, oh, ow, kernel, stride,
+                                       pad)).to(device=device, dtype=dtype)
+
+
 def pool_forward(x: torch.Tensor, kernel, stride, pad,
                  method: str) -> torch.Tensor:
     """Caffe MAX ("max") or AVE ("ave") pooling of (N, C, H, W), in x's
@@ -143,8 +152,8 @@ def pool_forward(x: torch.Tensor, kernel, stride, pad,
     xp = _pool_pad_crop(x, kernel, stride, pad, oh, ow, 0.0)
     summed = F.avg_pool2d(xp, tuple(kernel), tuple(stride),
                           divisor_override=1)
-    denom = torch.from_numpy(_ave_denom(h, w, oh, ow, kernel, stride, pad))
-    return summed / denom.to(device=x.device, dtype=x.dtype)
+    return summed / _ave_denom_on(h, w, oh, ow, tuple(kernel), tuple(stride),
+                                  tuple(pad), x.device, x.dtype)
 
 
 def pool_bwd_plain(x: torch.Tensor, g: torch.Tensor, kernel, stride, pad,
@@ -172,9 +181,8 @@ def pool_bwd_plain(x: torch.Tensor, g: torch.Tensor, kernel, stride, pad,
         return (ioh * stride[0] + dh) * pw + (iow * stride[1] + dw)
 
     if method == "ave":
-        denom = torch.from_numpy(_ave_denom(h, w, oh, ow, kernel, stride,
-                                            pad)).to(x.device)
-        gf = gf / denom
+        gf = gf / _ave_denom_on(h, w, oh, ow, tuple(kernel), tuple(stride),
+                                tuple(pad), x.device, torch.float32)
     else:
         xp = _pool_pad_crop(x.to(cdt), kernel, stride, pad, oh, ow,
                             -math.inf)

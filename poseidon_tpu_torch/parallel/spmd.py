@@ -797,12 +797,16 @@ class SpmdTrainStep:
     backward by ``hierarchical_all_reduce``; TOPK compressed against this
     rank's residual and summed over the joint group; SFB in-backward over
     the joint group; DENSE leaves with the arena off summed over the joint
-    group per leaf. LOCAL is refused, as in JAX."""
+    group per leaf. LOCAL is refused, as in JAX.
+
+    ``remat_plan`` (``core/remat.RematPlan``) checkpoints the plan's
+    layers in the forward, as ``trainer.TrainStep``'s does; every rank
+    takes the same plan (the engine plans from the largest peak)."""
 
     def __init__(self, net, sp, group: DataGroup, plan: ShardingPlan,
                  comm: Optional[CommConfig] = None,
                  input_transform: Optional[Callable] = None,
-                 sharded_state: bool = False):
+                 sharded_state: bool = False, remat_plan=None):
         if max(1, int(sp.iter_size)) > 1:
             from .trainer import iter_size_refusal
             raise ValueError(iter_size_refusal("the SPMD step",
@@ -826,6 +830,10 @@ class SpmdTrainStep:
         self.net, self.sp, self.group, self.comm = net, sp, group, comm
         self.plan, self.mesh = plan, mesh
         self.input_transform = input_transform
+        # the checkpointed layers (``core/remat.RematPlan``; JAX's
+        # ``build_spmd_train_step(remat_plan=)``)
+        self.remat = (remat_plan.layer_set if remat_plan is not None
+                      and remat_plan.layers else None)
         f = plan.mesh_cfg.fsdp
         self.fsdp_on = plan.fsdp_on
         if sharded_state and not self.fsdp_on:
@@ -1066,7 +1074,7 @@ class SpmdTrainStep:
         if self.sync is not None:
             self.sync.begin()
         out = self.net.apply(self._leaf_tree, batch, train=True,
-                             comm=self._ctx)
+                             comm=self._ctx, remat=self.remat)
         out.loss.backward()
         if self.sync is not None:
             self.sync.finish()

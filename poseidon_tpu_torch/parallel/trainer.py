@@ -63,6 +63,43 @@ accumulated gradient, and one update runs. The scalar metrics are the
 mean over the micro-batches. The SSP and SPMD steps refuse K > 1: the
 engine runs ``iter_size`` 1 under SSP staleness and ``--mesh``, with a
 warning, as the JAX engine does.
+
+``steps_per_dispatch`` K > 1 (JAX's ``scan_steps``): ``multi_step`` takes
+a ``{top: tensor}`` dict with a leading ``[K]`` axis (``[K, iter_size,
+...]`` under iter_size; none with ``reuse_batch``, JAX's
+``scan_reuse_batch``, which feeds one batch to every step) and returns
+``[K]``-stacked metrics after K optimizer steps. On the CPU it runs the K
+steps one after another, the plain version of the card's path. On the card
+the first dispatch of each batch shape runs the K steps eagerly on a side
+stream (the warm-up: it is that dispatch's work) and then captures them,
+once, into one ``torch.cuda.CUDAGraph``; every later dispatch copies the
+stacked batch and the K rates into the graph's static inputs and replays
+it. The host values a step reads are the graph's trap, each handled:
+
+- the rate: the K rates are written into a device tensor before each
+  replay and K7 reads its float there (``ops/sgd.py``'s device-rate
+  entry; the other arms multiply the same tensor);
+- the dropout generator and DUMMY_DATA's: registered with the graph, so
+  each replay draws on from where the generator stands, the masks of
+  single steps (K-chunked runs draw the same masks as single steps); a
+  checkpointed DROPOUT replays its mask from slots the capture registers
+  (``core/remat.RematRng``);
+- the TOPK counter (``int(it)`` in ``_topk_stage``): the random and
+  fixed_order policies pick by it on the host, so a CUDA graph refuses
+  them; magnitude never reads it;
+- the TOPK residuals live in step-owned buffers the steps update in
+  place; the returned metrics are copies, never the graph's own outputs;
+- gloo collectives cannot be captured (``graph_refusal``: the engine runs
+  single steps with a warning); a failed capture raises, nothing falls
+  back to eager steps.
+
+A replay launches what the capture recorded and calls no wrapper, so the
+kernels' counters do not move: ``graph_launches`` is what one replay
+launches and ``replays`` how many ran.
+
+``remat_plan`` (``core/remat.RematPlan``) names the layers whose forward
+bodies are checkpointed (``Net.apply(remat=)``): bitwise to the stored
+step, fewer activations held.
 """
 
 from __future__ import annotations
@@ -73,10 +110,13 @@ from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 import torch
 
 from ..core.net import Net
+from ..core.remat import net_generators
+from ..ops import _build
 from ..ops.sgd import sgd_update_
 from ..proto.messages import SolverParameter
 from ..runtime.metrics import log
-from ..solvers.updates import SolverState, init_state, make_arena_update_fn
+from ..solvers.updates import (SolverState, init_state, learning_rates,
+                               make_arena_update_fn)
 from .mesh import DataGroup
 from .strategies import (DENSE, DENSE_FUSED, LOCAL, SFB, TOPK, BucketSync,
                          CommConfig, CommContext, budget_topk_fraction,
@@ -187,6 +227,39 @@ def _rank_mean(metrics: Dict[str, torch.Tensor], group: Optional[DataGroup]
     return dict(zip(names, buf.unbind()))
 
 
+# the TOPK policies that pick by the host's step counter
+HOST_COUNTER_POLICIES = ("random", "fixed_order")
+
+
+def graph_refusal(group: Optional[DataGroup], device) -> Optional[str]:
+    """Why K train steps on ``device`` cannot be one CUDA graph, or None
+    when they can (or when no graph is made: the CPU runs eager steps).
+    Capture needs NCCL's collectives: gloo ranks sharing the card cannot be
+    captured (the engine then runs single steps, as JAX's does under
+    SSP)."""
+    if torch.device(device).type != "cuda":
+        return None
+    if group is not None and group.distributed and group.backend != "nccl":
+        return (f"a CUDA graph cannot capture {group.backend} collectives "
+                f"(ranks sharing a card run gloo); capture needs NCCL")
+    return None
+
+
+class _Captured(NamedTuple):
+    """A K-step dispatch captured for one batch shape: the graph, its
+    static inputs (the stacked batch and the K rates), its metric
+    outputs, the remat'ed dropouts' generator slots with each one's
+    offset from the dispatch's start, and what one replay launches."""
+    key: tuple
+    graph: object
+    inputs: Dict[str, torch.Tensor]
+    rates: torch.Tensor
+    metrics: Dict[str, torch.Tensor]
+    slots: List[torch.Generator]
+    offsets: List[int]
+    launches: Dict[str, int]
+
+
 class TrainStep:
     """The training step over the flat parameter arena; data-parallel when
     given a distributed ``group``."""
@@ -194,8 +267,14 @@ class TrainStep:
     def __init__(self, net: Net, sp: SolverParameter,
                  group: Optional[DataGroup] = None,
                  comm: Optional[CommConfig] = None,
-                 input_transform: Optional[Callable] = None):
+                 input_transform: Optional[Callable] = None,
+                 steps_per_dispatch: int = 1, reuse_batch: bool = False,
+                 remat_plan=None):
         self.iter_size = max(1, int(sp.iter_size))
+        self.steps_per_dispatch = max(1, int(steps_per_dispatch))
+        self.reuse_batch = bool(reuse_batch)
+        self.remat = (remat_plan.layer_set if remat_plan is not None
+                      and remat_plan.layers else None)
         self.net = net
         self.sp = sp
         self.group = group
@@ -245,6 +324,31 @@ class TrainStep:
         self._update = make_arena_update_fn(
             sp, self.arena, dev,
             sgd_update=lambda *a: self.sgd_update(*a))
+        # the K-step dispatch: the graph, the step-owned TOPK residuals it
+        # updates in place, and the replays' count
+        self._captured: Optional[_Captured] = None
+        self._err: Optional[Dict] = None
+        self.replays = 0
+        if self.steps_per_dispatch > 1 and dev.type == "cuda":
+            reason = graph_refusal(group, dev)
+            if reason is not None:
+                raise ValueError(f"steps_per_dispatch "
+                                 f"{self.steps_per_dispatch}: {reason}")
+            if self.topk_slots and \
+                    self.comm.topk_policy in HOST_COUNTER_POLICIES:
+                raise ValueError(
+                    f"steps_per_dispatch {self.steps_per_dispatch} on the "
+                    f"card does not compose with topk_policy "
+                    f"{self.comm.topk_policy!r}: it picks by the host's "
+                    f"step counter, which a CUDA graph would freeze at the "
+                    f"captured step's; use topk_policy 'magnitude' or "
+                    f"steps_per_dispatch 1")
+
+    @property
+    def graph_launches(self) -> Dict[str, int]:
+        """What one replay of the captured graph launches, by kernel
+        (empty before a capture)."""
+        return dict(self._captured.launches) if self._captured else {}
 
     def _init_sync(self, group: Optional[DataGroup]) -> None:
         """The per-step gradient exchange: every rank, every step; under
@@ -338,12 +442,12 @@ class TrainStep:
         return params, state._replace(
             comm_error=self.gather_comm_error(state.comm_error))
 
-    def _topk_stage(self, state: TrainState) -> Dict:
+    def _topk_stage(self, comm_error: Dict, it: int) -> Dict:
         """Compress, exchange and write back each TOPK leaf's gradient
         (JAX's managed-comm tier); returns the new residuals."""
-        cfg, it = self.comm, int(state.solver.it)
+        cfg = self.comm
         two_tier = cfg.dcn_axis is not None
-        out = dict(state.comm_error)
+        out = dict(comm_error)
         for s in self.topk_slots:
             view = self.flat_g[s.offset:s.offset + s.size]
             g = view.view(s.shape)
@@ -353,7 +457,7 @@ class TrainStep:
                 g = wire_all_reduce(g, self._comm_group.intra(), "sum",
                                     cfg.wire_dtype)
             sent, resid = topk_compress(
-                g, self.topk_fraction, state.comm_error[s.layer][s.pname][0],
+                g, self.topk_fraction, comm_error[s.layer][s.pname][0],
                 cfg.topk_policy, it, salt=comm_salt(s.layer, s.pname),
                 block=cfg.topk_block, wire=cfg.wire_dtype)
             # sent is already rounded to the wire dtype: its cast is exact
@@ -366,11 +470,7 @@ class TrainStep:
             out[s.layer] = {**out.get(s.layer, {}), s.pname: resid[None]}
         return out
 
-    def step(self, params, state: TrainState, batch):
-        """-> (params, state, metrics); metrics are 0-d device tensors
-        (``loss`` and the net's scalar outputs), averaged over the
-        micro-batches and the ranks. ``batch`` is one ``{top: tensor}``
-        dict, or under iter_size K > 1 a sequence of K of them."""
+    def _micro_batches(self, batch) -> list:
         k = self.iter_size
         micro = [batch] if k == 1 else list(batch)
         if len(micro) != k:
@@ -379,9 +479,15 @@ class TrainStep:
         if k > 1 and self.dump_blobs:
             raise ValueError("iter_size > 1 is incompatible with dump_blobs "
                              "(per-iteration HDF5 dump semantics)")
+        return micro
+
+    def _run(self, micro: list, it: int, comm_error: Dict, rate=None):
+        """One step's work on the arena buffers: forward and backward over
+        the micro-batches, the sync, the TOPK stage and the update (at
+        ``rate``, a 0-d device tensor, when given; else the host's rate of
+        iteration ``it``). -> (new residuals, metrics)."""
+        k = self.iter_size
         with torch.no_grad():
-            self.arena.pack(params, self.flat_w)
-            self.arena.pack(state.solver.history, self.flat_h)
             self.flat_g.zero_()
         if self.sync is not None:
             self.sync.begin()
@@ -393,7 +499,8 @@ class TrainStep:
             # applies the micro-batches with comm=None)
             out = self.net.apply(self._leaf_tree, mb, train=True,
                                  comm=self._ctx if k == 1 else None,
-                                 keep_blobs=bool(self.dump_blobs))
+                                 keep_blobs=bool(self.dump_blobs),
+                                 remat=self.remat)
             self.dumped = {b: out.blobs[b].detach() for b in self.dump_blobs}
             out.loss.backward()
             rows.append(_scalar_metrics(out))
@@ -404,33 +511,218 @@ class TrainStep:
         if self.sync is not None:
             self.sync.finish()
         with torch.no_grad():
-            comm_error = (self._topk_stage(state) if self.topk_slots
-                          else state.comm_error)
-            self._update(self.flat_w, self.flat_g, self.flat_h,
-                         state.solver.it)
+            comm_error = (self._topk_stage(comm_error, it) if self.topk_slots
+                          else comm_error)
+            self._update(self.flat_w, self.flat_g, self.flat_h, it, rate)
+        return comm_error, _rank_mean(_micro_mean(rows), self.group)
+
+    def step(self, params, state: TrainState, batch):
+        """-> (params, state, metrics); metrics are 0-d device tensors
+        (``loss`` and the net's scalar outputs), averaged over the
+        micro-batches and the ranks. ``batch`` is one ``{top: tensor}``
+        dict, or under iter_size K > 1 a sequence of K of them."""
+        micro = self._micro_batches(batch)
+        with torch.no_grad():
+            self.arena.pack(params, self.flat_w)
+            self.arena.pack(state.solver.history, self.flat_h)
+        comm_error, metrics = self._run(micro, int(state.solver.it),
+                                        state.comm_error)
         new_state = TrainState(
             solver=SolverState(it=state.solver.it + 1,
                                history=self.arena.unpack(self.flat_h)),
             comm_error=comm_error)
-        return (self.params(), new_state,
-                _rank_mean(_micro_mean(rows), self.group))
+        return self.params(), new_state, metrics
+
+    # ---------------------------------------------------------------- #
+    # K steps a dispatch
+    # ---------------------------------------------------------------- #
+    def _step_batch(self, batches: Dict[str, torch.Tensor], i: int) -> list:
+        """Step i's micro-batches out of the stacked dispatch input."""
+        rows = batches if self.reuse_batch else {
+            t: v[i] for t, v in batches.items()}
+        if self.iter_size == 1:
+            return [rows]
+        return [{t: v[j] for t, v in rows.items()}
+                for j in range(self.iter_size)]
+
+    def _check_stack(self, batches: Dict[str, torch.Tensor]) -> None:
+        lead = (() if self.reuse_batch else (self.steps_per_dispatch,)) + (
+            (self.iter_size,) if self.iter_size > 1 else ())
+        for t, v in batches.items():
+            if tuple(v.shape[:len(lead)]) != lead:
+                raise ValueError(
+                    f"steps_per_dispatch {self.steps_per_dispatch}"
+                    + (" (reuse_batch)" if self.reuse_batch else "")
+                    + f", iter_size {self.iter_size}: input {t!r} needs "
+                    f"the leading axes {lead}, got {tuple(v.shape)}")
+        if self.dump_blobs:
+            raise ValueError("steps_per_dispatch > 1 is incompatible with "
+                             "dump_blobs (stacking K copies of every dumped "
+                             "activation)")
+
+    def _load_err(self, comm_error: Dict) -> Dict:
+        """The step-owned residual buffers holding ``comm_error`` (a copy
+        unless they already are those tensors)."""
+        if self._err is None:
+            self._err = {l: {p: v.detach().clone() for p, v in lv.items()}
+                         for l, lv in comm_error.items()}
+            return self._err
+        with torch.no_grad():
+            for l, lv in self._err.items():
+                for p, buf in lv.items():
+                    src = comm_error[l][p]
+                    if src.data_ptr() != buf.data_ptr():
+                        buf.copy_(src)
+        return self._err
+
+    def _steps(self, batches: Dict[str, torch.Tensor], it0: int,
+               rates: Optional[torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """The K steps over the arena and the residual buffers (updated in
+        place); -> their [K]-stacked metrics."""
+        rows = []
+        for i in range(self.steps_per_dispatch):
+            new_err, m = self._run(self._step_batch(batches, i), it0 + i,
+                                   self._err,
+                                   None if rates is None else rates[i])
+            if self.topk_slots:
+                with torch.no_grad():
+                    for l, lv in self._err.items():
+                        for p, buf in lv.items():
+                            buf.copy_(new_err[l][p])
+            rows.append(m)
+        return {k: torch.stack([r[k] for r in rows]) for k in rows[0]}
+
+    def multi_step(self, params, state: TrainState,
+                   batches: Dict[str, torch.Tensor]):
+        """-> (params, state, metrics): ``steps_per_dispatch`` K optimizer
+        steps in one dispatch (the module docstring), metrics stacked [K].
+        ``batches`` has the leading ``[K]`` axis (and ``[iter_size]``
+        after it), none under ``reuse_batch``."""
+        self._check_stack(batches)
+        with torch.no_grad():
+            self.arena.pack(params, self.flat_w)
+            self.arena.pack(state.solver.history, self.flat_h)
+        self._load_err(state.comm_error)
+        it0 = int(state.solver.it)
+        if self.flat_w.device.type == "cuda":
+            metrics = self._graph_dispatch(batches, it0)
+        else:
+            metrics = self._steps(batches, it0, None)
+        new_state = TrainState(
+            solver=SolverState(it=it0 + self.steps_per_dispatch,
+                               history=self.arena.unpack(self.flat_h)),
+            comm_error=self._err)
+        return self.params(), new_state, metrics
+
+    def _graph_dispatch(self, batches: Dict[str, torch.Tensor],
+                        it0: int) -> Dict[str, torch.Tensor]:
+        """The card's K-step dispatch: warm up and capture at the first
+        dispatch of a batch shape, replay after it."""
+        rates = learning_rates(self.sp, it0, self.steps_per_dispatch)
+        key = tuple((t, tuple(v.shape), v.dtype)
+                    for t, v in sorted(batches.items()))
+        cap = self._captured
+        if cap is None or cap.key != key:
+            return self._warm_up_and_capture(key, batches, it0, rates)
+        with torch.no_grad():
+            for t, v in batches.items():
+                cap.inputs[t].copy_(v, non_blocking=True)
+            cap.rates.copy_(rates.pin_memory(), non_blocking=True)
+        if cap.slots:
+            # each remat'ed dropout's slot at the offset its forward draws
+            # from in this replay (core/remat.RematRng)
+            gen = self.net.generator
+            base, seed = gen.get_offset(), gen.initial_seed()
+            for slot, rel in zip(cap.slots, cap.offsets):
+                slot.manual_seed(seed)
+                slot.set_offset(base + rel)
+        cap.graph.replay()
+        self.replays += 1
+        with torch.no_grad():
+            return {k: v.clone() for k, v in cap.metrics.items()}
+
+    def _warm_up_and_capture(self, key: tuple,
+                             batches: Dict[str, torch.Tensor], it0: int,
+                             rates: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """Run this dispatch's K steps eagerly on a side stream, then
+        capture the same K steps (executing nothing) into a graph that
+        reads ``inputs`` and ``rates``; -> the eager steps' metrics."""
+        dev = self.flat_w.device
+        self._captured = None
+        inputs = {t: v.to(dev, copy=True).contiguous()
+                  for t, v in batches.items()}
+        rate_buf = rates.to(dev)
+        rng, gen = self.net.remat_rng, self.net.generator
+        cur = torch.cuda.current_stream(dev)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(cur)
+        rng.log = [] if self.remat else None
+        base = gen.get_offset()
+        try:
+            with torch.cuda.stream(side):
+                eager = self._steps(inputs, it0, rate_buf)
+            offsets = [o - base for o in (rng.log or [])]
+        finally:
+            rng.log = None
+        graph = torch.cuda.CUDAGraph()
+        for g in net_generators(self.net):
+            graph.register_generator_state(g)
+        slots = [gen.clone_state() for _ in offsets]
+        for slot in slots:
+            graph.register_generator_state(slot)
+        before = _build.launch_counts()
+        rng.begin_capture(slots)
+        try:
+            with torch.cuda.graph(graph, stream=side,
+                                  capture_error_mode="thread_local"):
+                outs = self._steps(inputs, it0, rate_buf)
+        except Exception as e:
+            raise RuntimeError(
+                f"capturing {self.steps_per_dispatch} train steps into a "
+                f"CUDA graph failed ({type(e).__name__}: {e}); "
+                f"steps_per_dispatch 1 runs them eagerly") from e
+        finally:
+            used = rng.end_capture()
+        if used != len(slots):
+            raise RuntimeError(f"the capture took {used} remat'ed dropout "
+                               f"slots, the warm-up drew {len(slots)}")
+        after = _build.launch_counts()
+        cur.wait_stream(side)
+        for v in eager.values():
+            v.record_stream(cur)
+        self._captured = _Captured(
+            key=key, graph=graph, inputs=inputs, rates=rate_buf,
+            metrics=outs, slots=slots, offsets=offsets,
+            launches={k: after[k] - before[k] for k in after
+                      if after[k] != before[k]})
+        return eager
 
 
 def build_train_step(net: Net, sp: SolverParameter,
                      group: Optional[DataGroup] = None,
                      comm: Optional[CommConfig] = None,
                      input_transform: Optional[Callable] = None,
-                     plan=None, sharded_state: bool = False):
+                     plan=None, sharded_state: bool = False,
+                     steps_per_dispatch: int = 1, reuse_batch: bool = False,
+                     remat_plan=None):
     """The train step: ``TrainStep`` on one device or over a data group;
     with an active ``plan`` (``spmd.ShardingPlan``, ``train --mesh``) the
-    SPMD step over the group's named mesh (``spmd.SpmdTrainStep``)."""
+    SPMD step over the group's named mesh (``spmd.SpmdTrainStep``, which
+    takes no K-step dispatch: the engine runs single steps under a mesh,
+    as JAX's)."""
     if plan is not None and plan.active:
+        if steps_per_dispatch > 1:
+            raise ValueError("steps_per_dispatch > 1 does not compose with "
+                             "an SPMD plan: the engine runs single steps "
+                             "under --mesh")
         from .spmd import SpmdTrainStep
         return SpmdTrainStep(net, sp, group, plan, comm, input_transform,
-                             sharded_state=sharded_state)
+                             sharded_state=sharded_state,
+                             remat_plan=remat_plan)
     if sharded_state:
         raise ValueError("sharded_state needs an fsdp plan (--mesh)")
-    return TrainStep(net, sp, group, comm, input_transform)
+    return TrainStep(net, sp, group, comm, input_transform,
+                     steps_per_dispatch, reuse_batch, remat_plan)
 
 
 def build_eval_step(net: Net, group: Optional[DataGroup] = None,

@@ -679,7 +679,9 @@ def _train(args) -> int:
                  dcn_slices=args.dcn_slices, mesh_cfg=mesh_from_args(args),
                  metrics_port=(args.metrics_port if args.metrics_port >= 0
                                else None),
-                 hostfile=args.hostfile or None, node_id=_node_id(args))
+                 hostfile=args.hostfile or None, node_id=_node_id(args),
+                 steps_per_dispatch=args.steps_per_dispatch,
+                 remat=args.remat or None, hbm_budget_gb=args.hbm_budget_gb)
     try:
         if args.snapshot == "auto":
             if eng.auto_resume() is None and args.weights:
@@ -1198,6 +1200,26 @@ def build_parser() -> argparse.ArgumentParser:
                         "own process group (--mesh inside the slice) and "
                         "its leader speaks the async tier with the slice "
                         "id as its worker id")
+    t.add_argument("--steps_per_dispatch", type=int, default=1,
+                   help="run K optimizer steps per dispatch (on the card "
+                        "one CUDA graph of the K steps, captured once and "
+                        "replayed): amortizes the host's per-step launch "
+                        "cost; falls back to single steps near "
+                        "display/test/snapshot boundaries (default 1)")
+    t.add_argument("--hbm_budget_gb", type=float, default=None,
+                   help="per-device memory budget (GiB) for the measured "
+                        "remat planner (core/remat.py): one no-remat "
+                        "forward and backward measures the card's peak, "
+                        "and a greedy cheapest-recompute-per-byte "
+                        "knapsack checkpoints layers until the step fits. "
+                        "Negative = the device's own limit (none on the "
+                        "CPU: a warning, no plan); 0 or unset = no budget")
+    t.add_argument("--remat", default=None,
+                   help="activation remat override: a comma-separated "
+                        "layer list checkpoints exactly those layers (no "
+                        "measuring run), 'auto' plans against "
+                        "--hbm_budget_gb, 'none' forces remat off "
+                        "(unset = off)")
     t.add_argument("--device_prefetch", type=int, default=None,
                    help="device-side input prefetch depth: a background "
                         "stage copies the next N host batches onto the "

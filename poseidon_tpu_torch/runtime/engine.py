@@ -45,6 +45,29 @@ display boundary and at exit. ``metrics_port`` (>= 0) serves it read-only
 over HTTP (``metrics.MetricsServer``: ``/`` key=value lines, ``/yaml``),
 bound by rank 0 alone unless the port is 0 (ephemeral, every rank).
 
+``steps_per_dispatch`` K > 1 (JAX's rule): a chunk of K steps runs as one
+dispatch (``TrainStep.multi_step``: a CUDA graph of the K steps on the
+card) whenever no display, test or snapshot boundary falls inside it, and
+single steps run up to each boundary. A chunk's K batches (K x iter_size
+under ``iter_size``) come through the ``DevicePrefetcher`` where it runs
+and are stacked on the card in one copy (``_next_batch_stack``), in the
+order single steps take them, so a chunked run is the single-step run bit
+for bit. As in the JAX engine it warns and runs 1 under SSP staleness,
+under an active ``--mesh`` and with HDF5_OUTPUT in the TRAIN net, and
+(the card's own rule) over gloo ranks on the card, whose collectives a
+CUDA graph cannot capture.
+
+``remat`` and ``hbm_budget_gb`` (JAX's ``_plan_remat``): a comma-separated
+layer list checkpoints those layers (source ``flag``); ``auto`` and/or a
+budget in GiB run the measured planner (``core/remat.py``): one no-remat
+forward and backward on a batch of the train shapes gives the card's peak
+(on the CPU the analytic activation total), every rank takes the largest,
+and the knapsack picks the layers; a budget < 0 is the card's own limit
+(on the CPU: a warning, no plan); ``none`` is off. The plan's
+``describe()`` is logged and its ``to_doc()`` is stats.yaml's ``remat``
+section; a plan that fits (identity) is dropped. Under SSP staleness the
+flags warn and are ignored, as in JAX.
+
 ``device_prefetch``, ``max_in_flight`` and ``async_snapshot`` left at
 ``None`` take ``config.PipelineConfig``'s defaults. The pipeline moves
 only where the host blocks: the steps and their batches are the serial
@@ -107,8 +130,8 @@ from ..numeric import policy, resolve_device
 from ..parallel.mesh import DCN_AXIS, DataGroup, rank_seed
 from ..parallel.strategies import TOPK, CommConfig, auto_strategies
 from ..parallel.trainer import (build_eval_step, build_ssp_train_step,
-                                build_train_step, init_ssp_state,
-                                init_train_state)
+                                build_train_step, graph_refusal,
+                                init_ssp_state, init_train_state)
 from ..proto.messages import NetParameter, SolverParameter, load_net
 from ..solvers.updates import learning_rate
 from .checkpoint import (AsyncSnapshotWriter, coerce_state, latest_snapshot,
@@ -214,8 +237,13 @@ class Engine:
                  staleness: int = 0, async_ssp: Optional[Dict] = None,
                  mesh_cfg=None, metrics_port: Optional[int] = None,
                  hostfile: Optional[str] = None,
-                 node_id: Optional[int] = None):
+                 node_id: Optional[int] = None,
+                 steps_per_dispatch: int = 1, remat: Optional[str] = None,
+                 hbm_budget_gb: Optional[float] = None):
         self.sp = sp
+        self._want_spd = max(1, int(steps_per_dispatch))
+        self._remat_flag = remat
+        self.hbm_budget_gb = hbm_budget_gb
         # the named SPMD mesh (``--mesh dp2,fsdp2,tp1``,
         # ``config.MeshConfig``): the planner (``parallel/spmd.py``) plans
         # the train net below; an inactive one (``--mesh dp2``) is plain
@@ -358,6 +386,110 @@ class Engine:
             return 1
         return k
 
+    def _resolve_steps_per_dispatch(self, dump: bool) -> int:
+        """The JAX engine's rules: K runs as asked, except under SSP
+        staleness, an active --mesh and HDF5_OUTPUT in the TRAIN net, and
+        (the card's rule) over gloo ranks on the card, where it warns and
+        runs 1."""
+        k = self._want_spd
+        if k == 1:
+            return 1
+        if self.staleness > 0:
+            log("WARNING: steps_per_dispatch ignored under SSP staleness "
+                "(the SSP step already batches local steps)",
+                rank=self.rank)
+            return 1
+        if self.plan is not None:
+            log("WARNING: steps_per_dispatch ignored under --mesh "
+                "sharding", rank=self.rank)
+            return 1
+        if dump:
+            log("WARNING: steps_per_dispatch ignored with HDF5_OUTPUT "
+                "in the TRAIN net (per-iteration dump semantics)",
+                rank=self.rank)
+            return 1
+        reason = graph_refusal(self.group, self.device)
+        if reason is not None:
+            log(f"WARNING: steps_per_dispatch ignored: {reason}; running "
+                f"single steps", rank=self.rank)
+            return 1
+        return k
+
+    def _probe_batch(self) -> Dict[str, torch.Tensor]:
+        """Zeros of the train shapes on the device (label 0 is a class):
+        the measuring run's batch."""
+        return {t: torch.zeros(s, dtype=torch.float32, device=self.device)
+                for t, s in self._train_shapes.items()}
+
+    def _plan_remat(self, params):
+        """The remat decision of this job (JAX's ``_plan_remat``): a layer
+        list is trusted and priced (source ``flag``); ``auto`` and/or a
+        budget measure the no-remat step and run the knapsack; a negative
+        budget is the card's own limit, refused with a warning where there
+        is none (the CPU)."""
+        from ..core import remat as remat_mod
+        from .attribution import layer_cost_table
+        net = self.train_net
+        table = layer_cost_table(net)
+        remat, budget_gb = self._remat_flag, self.hbm_budget_gb
+        names = [s.strip() for s in str(remat or "").split(",")
+                 if s.strip() and s.strip().lower() not in ("none", "auto")]
+        if names:
+            unknown = sorted(set(names) - {l.name for l in net.layers})
+            if unknown:
+                raise ValueError(f"--remat names unknown layers: {unknown}")
+            return remat_mod.RematPlan(
+                budget_bytes=0, layers=tuple(names),
+                saved_bytes=sum(int(table.get(n, {}).get("act_bytes", 0))
+                                for n in names),
+                recompute_flops=sum(
+                    float(table.get(n, {}).get("flops", 0.0)) / 3.0
+                    for n in names),
+                source="flag")
+        if budget_gb is not None and budget_gb < 0:
+            budget = remat_mod.default_budget_bytes(self.device)
+            if budget <= 0:
+                log("WARNING: --hbm_budget_gb auto needs device memory "
+                    "stats (none on this backend); pass an explicit "
+                    "budget — skipping remat planning", rank=self.rank)
+                return None
+        else:
+            budget = int(float(budget_gb or 0) * 2**30)
+        return remat_mod.plan_for_net_step(
+            net, params, self._probe_batch(), budget,
+            input_transform=self._input_transform, agree=self._largest)
+
+    def _largest(self, value: int) -> int:
+        """The largest of every rank's ``value`` (a tp layer's
+        recomputation is a collective: every rank must plan the same
+        layers)."""
+        if not self.group.distributed:
+            return value
+        row = torch.zeros(self.group.world, dtype=torch.float64,
+                          device=self.device)
+        row[self.group.rank] = float(value)
+        self.group.all_reduce_(row)
+        return int(row.max())
+
+    def _resolve_remat(self, params):
+        """The plan the step is built with (None: off, or fits)."""
+        want = ((self._remat_flag or "").strip().lower() not in ("", "none")
+                or (self.hbm_budget_gb is not None
+                    and self.hbm_budget_gb != 0))
+        if not want:
+            return None
+        if self.staleness > 0:
+            log("WARNING: --hbm_budget_gb/--remat are ignored under SSP "
+                "staleness (the local-step path has no remat wiring yet)",
+                rank=self.rank)
+            return None
+        plan = self._plan_remat(params)
+        if plan is None or not plan.active:
+            return None
+        log(plan.describe(), rank=self.rank)
+        self.stats.set_section("remat", plan.to_doc())
+        return plan
+
     def _build(self) -> None:
         sp = self.sp
         train_param, test_params = resolve_nets(sp)
@@ -365,6 +497,7 @@ class Engine:
         shard = self._data_shard
         self.train_pipelines, train_shapes = self._build_train_pipelines(
             shard)
+        self._train_shapes = train_shapes
         self.train_net = Net(train_param, "TRAIN", device=self.device,
                              source_shapes=train_shapes)
         self._h5_train = [
@@ -427,19 +560,32 @@ class Engine:
         dump = sorted({b for _, bs in self._h5_train for b in bs})
         self.iter_size = self._resolve_iter_size(bool(dump))
         sp = dataclasses.replace(sp, iter_size=self.iter_size)
+        if dump and self.plan is not None and self.staleness == 0:
+            log("WARNING: HDF5_OUTPUT in the TRAIN net is not dumped "
+                "under --mesh sharding", rank=self.rank)
+            dump = []
+            self._h5_train = []
+        self.steps_per_dispatch = self._resolve_steps_per_dispatch(
+            bool(dump))
+        seed = sp.random_seed if sp.random_seed >= 0 else 1
+        # tp replicas draw the same dropout masks (the batch-shard index;
+        # a slice's, offset by its slice id)
+        self.train_net.manual_seed(rank_seed(
+            seed, self.group.batch_index + (
+                self._slice.slice_id * self.group.batch_shards
+                if self._slice is not None else 0)))
+        params = self.train_net.init(torch.Generator().manual_seed(seed))
+        # the measured planner runs before the step is built, as JAX's
+        self.remat_plan = self._resolve_remat(params)
         if self.staleness > 0:
             self.train_step = build_ssp_train_step(
                 self.train_net, sp, self.staleness, group, self.comm,
                 self._input_transform, plan=self.plan)
         else:
-            if dump and self.plan is not None:
-                log("WARNING: HDF5_OUTPUT in the TRAIN net is not dumped "
-                    "under --mesh sharding", rank=self.rank)
-                dump = []
-                self._h5_train = []
             self.train_step = build_train_step(
                 self.train_net, sp, group, self.comm, self._input_transform,
-                plan=self.plan)
+                plan=self.plan, steps_per_dispatch=self.steps_per_dispatch,
+                remat_plan=self.remat_plan)
             if dump:
                 self.train_step.dump_blobs = tuple(dump)
         self.eval_steps = [build_eval_step(n, group, plan=self.plan)
@@ -486,14 +632,12 @@ class Engine:
                 and self.plan is None:
             # the per-step table; an SSP step exchanges at its boundary
             self._log_comm_table()
-        seed = sp.random_seed if sp.random_seed >= 0 else 1
-        # tp replicas draw the same dropout masks (the batch-shard index;
-        # a slice's, offset by its slice id)
-        self.train_net.manual_seed(rank_seed(
-            seed, self.group.batch_index + (
-                self._slice.slice_id * self.group.batch_shards
-                if self._slice is not None else 0)))
-        params = self.train_net.init(torch.Generator().manual_seed(seed))
+        if self.steps_per_dispatch > 1:
+            log(f"steps_per_dispatch {self.steps_per_dispatch}: a chunk of "
+                f"steps runs as one dispatch"
+                + (" (a CUDA graph)" if self.device.type == "cuda" else "")
+                + " between the display, test and snapshot boundaries",
+                rank=self.rank)
         self.params, self.state = step.load(params, self._fresh_state(
             params))
         self.metrics = MetricsTable("train")
@@ -561,6 +705,46 @@ class Engine:
         for pipe in pipes:
             host.update(next(pipe))
         return place_batch(host, self.device)
+
+    def _next_batch_stack(self, k: int, lead_shape=None
+                          ) -> Dict[str, torch.Tensor]:
+        """The next k train batches stacked to [k, ...] (the feeding side
+        of steps_per_dispatch), in the order single steps take them:
+        through the prefetcher when one runs (stacked on the card in one
+        copy), else each pipeline's k host batches stacked and placed in
+        one transfer. ``lead_shape`` reshapes the leading axis, (chunk,
+        iter_size) when the chunk's steps accumulate."""
+        if self._device_feed is not None:
+            rows = [next(self._device_feed) for _ in range(k)]
+            out = {t: torch.stack([r[t] for r in rows]) for t in rows[0]}
+        else:
+            host: List[Dict[str, np.ndarray]] = [{} for _ in range(k)]
+            for pipe in self.train_pipelines:
+                for i in range(k):
+                    host[i].update(next(pipe))
+            out = place_batch({t: np.stack([r[t] for r in host])
+                               for t in host[0]}, self.device)
+        if lead_shape is not None:
+            out = {t: v.reshape(tuple(lead_shape) + tuple(v.shape[1:]))
+                   for t, v in out.items()}
+        return out
+
+    def _chunk(self, it: int, max_iter: int) -> int:
+        """How many steps the next dispatch runs: steps_per_dispatch when
+        no display, test or snapshot boundary falls inside the chunk (JAX's
+        rule), else 1."""
+        k = self.steps_per_dispatch
+        if k == 1:
+            return 1
+        sp = self.sp
+        room = max_iter - it
+        if sp.display:
+            room = min(room, sp.display - it % sp.display)
+        if sp.test_interval and self.test_nets:
+            room = min(room, sp.test_interval - it % sp.test_interval)
+        if sp.snapshot:
+            room = min(room, sp.snapshot - it % sp.snapshot)
+        return k if room >= k else 1
 
     def _next_train_batch(self):
         """The train step's input: one batch, or under iter_size K the K
@@ -746,31 +930,39 @@ class Engine:
                     with span_recorder.span("snapshot", "ckpt",
                                             {"iter": it}):
                         self.snapshot_now()
+                chunk = self._chunk(it, max_iter)
+                span = {"iter": it, "chunk": chunk} if chunk > 1 \
+                    else {"iter": it}
                 t_in = time.perf_counter()
-                with span_recorder.span("prefetch_wait", "input",
-                                        {"iter": it}):
-                    batch = self._next_train_batch()
+                with span_recorder.span("prefetch_wait", "input", span):
+                    batch = (self._next_train_batch() if chunk == 1 else
+                             self._next_batch_stack(
+                                 chunk * self.iter_size,
+                                 (chunk, self.iter_size)
+                                 if self.iter_size > 1 else None))
                 t0 = time.perf_counter()
-                with span_recorder.span("dispatch", "step", {"iter": it}):
-                    self.params, self.state, m = self.train_step.step(
-                        self.params, self.state, batch)
+                with span_recorder.span("dispatch", "step", span):
+                    run = (self.train_step.step if chunk == 1
+                           else self.train_step.multi_step)
+                    self.params, self.state, m = run(self.params,
+                                                     self.state, batch)
                 with span_recorder.span("dispatch_window", "step",
                                         {"iter": it}):
                     fetcher.put(it, m)
                 if self._h5_train:
                     self._write_train_h5(self.train_step.dumped)
-                it += 1
+                it += chunk
                 self.stats.add_time("input_stall", t0 - t_in)
                 self.stats.add_time("train_step", time.perf_counter() - t0)
-                self.stats.add("train_iters")
+                self.stats.add("train_iters", chunk)
                 self._check_divergence(fetcher)
                 tier = self._async_tier
                 if tier is not None:
-                    if tier.due(1):
+                    if tier.due(chunk):
                         # a clock moves the whole arena through the host:
                         # the window drains first, so no NaN is pushed
                         last = self._hard_sync(fetcher, "async_clock", last)
-                    tier.after_iters(self, 1)
+                    tier.after_iters(self, chunk)
                 last = self._absorb(fetcher.take_drained(), last)
                 if sp.display and it % sp.display == 0:
                     last = self._hard_sync(fetcher, "display", last)

@@ -59,14 +59,16 @@ class MetricsTable:
 class _Pending:
     """One dispatch's metrics on their way to the host: their names, a
     host buffer that receives their values, and (for a CUDA dispatch) the
-    event recorded after the copy into it was issued."""
+    event recorded after the copy into it was issued. A single step's
+    metrics are 0-d; a K-step dispatch's are [K]-stacked (one row a
+    step)."""
 
     __slots__ = ("first_iter", "names", "host", "event")
 
     def __init__(self, first_iter: int, metrics: Dict[str, torch.Tensor]):
         self.first_iter = first_iter
         self.names = sorted(metrics)
-        stacked = torch.stack([metrics[k].detach().float().reshape(())
+        stacked = torch.stack([metrics[k].detach().float().reshape(-1)
                                for k in self.names])
         self.event: Optional[torch.cuda.Event] = None
         if stacked.is_cuda:
@@ -83,11 +85,23 @@ class _Pending:
     def ready(self) -> bool:
         return self.event is None or self.event.query()
 
-    def row(self) -> Dict[str, float]:
-        """Wait for the copy (never issues device work), then read it."""
+    def _wait(self) -> None:
+        """Wait for the copy (never issues device work)."""
         if self.event is not None:
             self.event.synchronize()
-        return dict(zip(self.names, self.host.tolist()))
+
+    def row(self) -> Dict[str, float]:
+        """A single step's row."""
+        self._wait()
+        return dict(zip(self.names, self.host[:, 0].tolist()))
+
+    def rows(self) -> List[Dict[str, float]]:
+        """The dispatch's rows, one a step."""
+        if self.host.shape[1] == 1:
+            return [self.row()]
+        self._wait()
+        return [dict(zip(self.names, vals))
+                for vals in zip(*self.host.tolist())]
 
 
 class AsyncScalarFetcher:
@@ -157,9 +171,9 @@ class AsyncScalarFetcher:
                 return
         # read OUTSIDE the lock (the entry is ready, so this cannot block);
         # one producer and an empty inbox keep the rows in order
-        row = entry.row()
+        rows = entry.rows()
         with self._cond:
-            self._ingest(first_iter, row)
+            self._ingest(first_iter, rows)
 
     def take_drained(self) -> List[Tuple[int, Dict[str, float]]]:
         """Rows read so far, in order, without waiting."""
@@ -192,16 +206,20 @@ class AsyncScalarFetcher:
             self._cond.notify_all()
         self._thread.join(timeout=10.0)
 
-    def _ingest(self, it: int, row: Dict[str, float]) -> None:
-        """Append a read row and run the divergence watch. Caller holds
-        the lock."""
-        self._drained.append((it, row))
-        if self.divergence is None:
-            for k in self.watch_keys:
-                v = row.get(k)
-                if v is not None and not math.isfinite(v):
-                    self.divergence = (it, k, v)
-                    break
+    def _ingest(self, first_iter: int, rows: List[Dict[str, float]]
+                ) -> None:
+        """Append a dispatch's read rows (one a step, from
+        ``first_iter``) and run the divergence watch. Caller holds the
+        lock."""
+        for i, row in enumerate(rows):
+            it = first_iter + i
+            self._drained.append((it, row))
+            if self.divergence is None:
+                for k in self.watch_keys:
+                    v = row.get(k)
+                    if v is not None and not math.isfinite(v):
+                        self.divergence = (it, k, v)
+                        break
 
     # ---- drainer thread ---------------------------------------------- #
     def _drain_loop(self) -> None:
@@ -213,7 +231,7 @@ class AsyncScalarFetcher:
                     return
                 entry = self._inbox[0]
             try:
-                row = entry.row()
+                rows = entry.rows()
             except BaseException as e:  # noqa: BLE001 — surface, never wedge
                 with self._cond:
                     self._error = e
@@ -222,7 +240,7 @@ class AsyncScalarFetcher:
                 return
             with self._cond:
                 self._inbox.popleft()
-                self._ingest(entry.first_iter, row)
+                self._ingest(entry.first_iter, rows)
                 self._pending -= 1
                 self._cond.notify_all()
 

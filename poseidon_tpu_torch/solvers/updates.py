@@ -12,12 +12,18 @@ local_lr = rate * lr_mult, local_decay = weight_decay * decay_mult.
 
 ``make_update_fn`` is the per-leaf rule over a parameter tree (the LM
 step's update). The flat rule (``make_flat_update_rule``) runs over the
-parameter arena
-with per-segment multiplier vectors and updates w and h in place. Its
-SGD + L2 arm — Caffe's default and AlexNet's solver — is the fused kernel
-of ``ops/sgd.py`` (CUDA on the card, the plain version on the CPU); the
-other arms (Nesterov, AdaGrad, L1) are plain tensor formulas: the kernel
-does not compute them.
+parameter arena with per-segment multiplier vectors and updates w and h
+in place. Its SGD + L2 arm — Caffe's default and AlexNet's solver — is
+the fused kernel of ``ops/sgd.py`` (CUDA on the card, the plain version
+on the CPU); the other arms (Nesterov, AdaGrad, L1) are plain tensor
+formulas: the kernel does not compute them.
+
+A step's rate reaches the flat rule as a host float, or as a 0-d f32
+tensor on the arena's device (``learning_rates`` gives K steps' at
+once): the form a CUDA graph of K steps takes, whose replays read the
+rates the host wrote before each replay, so no arm freezes the captured
+step's rate (every arm multiplies it into ``lr_vec`` as a tensor either
+way, so the two forms give the same bits).
 """
 
 from __future__ import annotations
@@ -60,6 +66,13 @@ def learning_rate(sp: SolverParameter, it: int) -> float:
     else:
         raise ValueError(f"unknown lr_policy {policy!r}")
     return float(rate)
+
+
+def learning_rates(sp: SolverParameter, it0: int, k: int) -> torch.Tensor:
+    """The rates of iterations it0 .. it0+k-1 (``learning_rate``'s f32
+    values) as a (k,) f32 host tensor."""
+    return torch.tensor([learning_rate(sp, it0 + i) for i in range(k)],
+                        dtype=torch.float32)
 
 
 class SolverState(NamedTuple):
@@ -137,7 +150,8 @@ def make_update_fn(sp: SolverParameter, mults: Dict[str, Dict[str, tuple]]):
 def make_flat_update_rule(sp: SolverParameter, sgd_update=sgd_update_):
     """The flat update rule over the arena, in place:
     update(flat_w, flat_g, flat_h, rate, lr_vec, decay_vec) writes the new
-    w and h into flat_w and flat_h. SGD + L2 goes to ``sgd_update`` (the
+    w and h into flat_w and flat_h; ``rate`` is a float or a 0-d f32
+    tensor on the arena's device. SGD + L2 goes to ``sgd_update`` (the
     fused kernel by default; chip_smoke.py passes the plain version to hold
     a step against it)."""
     solver_type = sp.solver_type
@@ -149,13 +163,15 @@ def make_flat_update_rule(sp: SolverParameter, sgd_update=sgd_update_):
     if reg_type not in ("L2", "L1"):
         raise ValueError(f"unknown regularization_type {reg_type!r}")
 
-    def update(flat_w, flat_g, flat_h, rate: float, lr_vec, decay_vec):
+    def update(flat_w, flat_g, flat_h, rate, lr_vec, decay_vec):
         if solver_type == "SGD" and reg_type == "L2":
             sgd_update(flat_w, flat_g, flat_h, rate, lr_vec, decay_vec,
                        momentum)
             return
-        local_rate = torch.tensor(rate, dtype=torch.float32,
-                                  device=flat_w.device) * lr_vec
+        if not isinstance(rate, torch.Tensor):
+            rate = torch.tensor(rate, dtype=torch.float32,
+                                device=flat_w.device)
+        local_rate = rate * lr_vec
         g = flat_g.float()
         reg = flat_w if reg_type == "L2" else torch.sign(flat_w)
         # the elementwise form of the per-leaf local_decay == 0 skip
@@ -181,15 +197,17 @@ def make_arena_update_fn(sp: SolverParameter, layout, device,
     buffer with the layout's multiplier vectors (placed on ``device``
     once).
 
-    update(flat_w, flat_g, flat_h, it) -> the rate it used; flat_w and
-    flat_h are updated in place."""
+    update(flat_w, flat_g, flat_h, it, rate=None) -> the rate it used;
+    flat_w and flat_h are updated in place. ``rate`` (a 0-d device tensor
+    holding ``learning_rate(sp, it)``) replaces the host float."""
     rule = make_flat_update_rule(sp, sgd_update)
     lr_np, decay_np = layout.mult_vectors(sp.weight_decay)
     lr_vec = torch.from_numpy(lr_np).to(device)
     decay_vec = torch.from_numpy(decay_np).to(device)
 
-    def update(flat_w, flat_g, flat_h, it: int) -> float:
-        rate = learning_rate(sp, it)
+    def update(flat_w, flat_g, flat_h, it: int, rate=None):
+        if rate is None:
+            rate = learning_rate(sp, it)
         rule(flat_w, flat_g, flat_h, rate, lr_vec, decay_vec)
         return rate
 
