@@ -240,6 +240,32 @@ Phases, in order; any failure exits non-zero without the final ``ok`` line:
    slots) against the stored arm, bitwise over DISPATCH_K steps, with the
    peak memory above the start and ms a step of each arm. The two phases
    must take at most DISPATCH_BUDGET_S together.
+6d. ``[tune]`` and ``[profile]`` (``phase_tune``, ``phase_profile``, after
+   ``[tools]``, on its LMDB), f32: (a) the im2col lowering against the
+   direct conv on AlexNet's conv1, conv3 and conv4 (grouped: im2col takes
+   direct, bitwise) at TUNE_CONV_BATCH x 227², NCHW and NHWC, cuDNN
+   deterministic: y, dx and dw each within IM2COL_TOL of its sum's L1
+   bound, the output in x's memory format, each lowering's forward and
+   forward+backward CUDA-event ms; (b) ``python -m poseidon_tpu_torch
+   tune --model alexnet --windows 2 --iters 2`` as a child (the full
+   space at 32 x 227², its store under the temporary directory) reporting
+   its launches: every trial row, each conv layer's winner and timings,
+   the composite A/B (never slower than the defaults) and search_cost_s;
+   its step arms must have launched K4-K7, K4-/K5-/K6-NHWC and K7's
+   device-rate entry; (c) a second ``tune`` loads the plan
+   (``"source": "persisted"``) within TUNE_MEMO_MAX_S; (d) ``train``
+   with the plan loaded (``--tuned_plan auto``) and with its knobs as
+   flags (``--tuned_plan off``), TUNE_TRAIN_ITERS steps at batch 256,
+   cuDNN deterministic: snapshots bitwise, stats.yaml's ``tuned_plan``
+   sources "(plan)" and "(flag)". ``[profile]``: ``train --profile
+   PROFILE_STEPS`` at batch 256 in the layout ``train`` plans on the card
+   (NHWC): the trace and the per-layer table (``runtime/attribution``),
+   K4-NHWC in norm1/norm2's forward rows, K5-NHWC in their backward rows,
+   K6-NHWC in the pools' backward rows, K7 in ``optimizer_update``; each
+   kernel's events in the trace equal its counter's rise over the window
+   (a session that dropped some runs again, at most PROFILE_TRIES times);
+   named coverage at least PROFILE_COVERAGE; the residual's top ops. The
+   two phases must take at most TUNE_PROFILE_BUDGET_S together.
 7. The LM serving slice: ``serve --generate``'s executor
    (``build_generate_executor("gpt_small")``: full width and depth, seeded
    weights, page 64, rungs 1/2/4/8, prompt buckets 16/64/256) behind the
@@ -344,11 +370,12 @@ Phases, in order; any failure exits non-zero without the final ``ok`` line:
    launches exact.
 12. Real data end to end: ``python -m poseidon_tpu_torch train`` on the
    digits solver (1000 iterations, real UCI digits from the repo) into a
-   temporary directory; the final test accuracy must reach DIGITS_MIN_ACC.
+   temporary directory, f32 and ``--bf16`` at once; each final test
+   accuracy must reach DIGITS_MIN_ACC.
 13. One JSON line with every kernel's numbers (launches by path, ``zoo_*``,
     ``dp``, ``topk``, ``loop``, ``lm_par_*``, ``lm_pp_ep_*``,
-    ``lm_tp_serve`` and ``fleet_cnn``, ``fleet_generate``, ``fleet_cli``
-    among them), then the ``ok`` line.
+    ``lm_tp_serve``, ``fleet_cnn``, ``fleet_generate``, ``fleet_cli``,
+    ``tune`` and ``profile`` among them), then the ``ok`` line.
 """
 
 from __future__ import annotations
@@ -395,7 +422,7 @@ PROFILE_BUSY_MARGIN = 1.10
 BUCKETS = (1, 4, 16, 64)
 REQUEST_ROWS = (1, 3, 4, 9, 16, 33, 64)
 # bucket-64 requests per concurrency: enough that p99 is not just the max
-LOAD_REQUESTS = 300
+LOAD_REQUESTS = 150
 LRN_ALPHA, LRN_BETA, LRN_K = 1e-4, 0.75, 1.0
 # kernel vs plain on the card: f32 differs by powf's last bits; bf16 may
 # flip one bf16 rounding step (2^-7 relative) where those bits sit on a tie
@@ -470,7 +497,7 @@ LMP_BATCH, LMP_SEQ, LMP_STEPS = 4, 1024, 3
 # ranks: gpt_small's width at a third of its 12 layers, cut to keep the
 # whole smoke inside 1000 s of its 1200 s limit (1032 s at 12 layers and
 # 950.6 s at 6 on one H100, before [lm_tp_serve] added ~50 s)
-LMP_LAYERS = 4
+LMP_LAYERS = 2
 LMP_ARMS = {"sp2": (("data", "seq"), (1, 2), "sp"),
             "tp2": (("data", "model"), (1, 2), "tp"),
             "sp2xtp2": (("data", "seq", "model"), (1, 2, 2), "tp")}
@@ -495,7 +522,7 @@ LMP_BF16_ATOL_SHARE = 2 ** -7
 # 0.005 falls smoothly (on the CPU at seq 128: 5.98 -> 3.73)
 LMP_CLI_ARGS = ("--d_model", "768", "--n_heads", "12",
                 "--n_layers", str(LMP_LAYERS),
-                "--seq", "1024", "--batch", "4", "--steps", "6",
+                "--seq", "1024", "--batch", "4", "--steps", "4",
                 "--display", "2", "--remat", "--lr", "0.005")
 LMP_TIMEOUT_S = 600
 # a child `train_lm` rank that reports its kernel launches when it returns
@@ -554,7 +581,7 @@ FLEET_CLOSED_REQUESTS = 60
 FLEET_CLOSED_CLIENTS = (1, 2, 3, 6)
 FLEET_PROBE_LOADS = (1.5, 2.0, 3.0)
 FLEET_OPEN_LOADS = (0.5, 1.5)
-FLEET_OPEN_S = 3.0
+FLEET_OPEN_S = 2.0
 FLEET_OPEN_MAX_CLIENTS = 64
 FLEET_OPEN_LATE_SHARE = 0.05
 FLEET_ROLL_CLIENTS = 3
@@ -612,7 +639,7 @@ TOPK_TABLE_GROUPS = ({"data": 8}, {"dcn": 2, "data": 4})
 SSP_BATCH, SSP_STALENESS = 256, 2
 SSP_STEPS = 2 * (SSP_STALENESS + 1)
 SSP_TIMED_PERIODS = 3
-SSP_CLI_BATCH, SSP_CLI_ITERS = 128, 9
+SSP_CLI_BATCH, SSP_CLI_ITERS = 128, 6
 ASYNC_CLI_ITERS, ASYNC_BUDGET_MBPS = 8, 100.0
 ASYNC_TOKEN = "chip-smoke-async-token"
 # a child `train` that reports its kernel launches when it returns: the
@@ -641,7 +668,7 @@ LAUNCH_REPORT = (
 # the card): fsdp2 beside its control, spmd_tp_pair beside (c), each tp2
 # run beside its control, so their walls a step are read under
 # contention.
-SPMD_CLI_BATCH, SPMD_CLI_ITERS = 128, 6
+SPMD_CLI_BATCH, SPMD_CLI_ITERS = 128, 4
 SPMD_FSDP = (2, 4)
 # tp shards re-associate the FC contractions (cuBLAS blocks an (M/2, K)
 # product otherwise than the (M, K) one; dx sums two partial products):
@@ -5338,27 +5365,49 @@ def phase_fabric(card: str, root: str, device=None, batch=None,
     return out
 
 
-def phase_digits(card: str, flags=(), tag: str = "digits") -> float:
+def phase_digits(card: str, runs=(((), "digits"),)) -> list:
     """The CLI on real data: the digits solver, 1000 iterations, on the
-    card (its default layout: NHWC there), with ``flags`` added; returns
-    the final test accuracy."""
+    card (its default layout: NHWC there), once a (flags, tag) of
+    ``runs``, the runs at once; returns each run's final test accuracy."""
     here = os.path.dirname(os.path.abspath(__file__))
-    with tempfile.TemporaryDirectory() as out_dir:
+    with contextlib.ExitStack() as stack:
+        procs = []
         t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-m", "poseidon_tpu_torch", "train",
-             f"--solver={DIGITS_SOLVER}", "--output_dir", out_dir, *flags],
-            cwd=here, capture_output=True, text=True, timeout=900)
-        wall = time.perf_counter() - t0
-        check(proc.returncode == 0,
-              f"digits training exited {proc.returncode}:\n"
-              f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
-        with open(os.path.join(out_dir,
-                               "digits_quick_test0_outputs.csv")) as f:
-            rows = list(csv.DictReader(f))
+        for flags, tag in runs:
+            out_dir = stack.enter_context(tempfile.TemporaryDirectory())
+            # the runs share the host's cores
+            env = dict(os.environ, OMP_NUM_THREADS=str(max(
+                1, (os.cpu_count() or 2) // len(runs))))
+            procs.append((flags, tag, out_dir, subprocess.Popen(
+                [sys.executable, "-m", "poseidon_tpu_torch", "train",
+                 f"--solver={DIGITS_SOLVER}", "--output_dir", out_dir,
+                 *flags], cwd=here, env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True)))
+        accs = []
+        for flags, tag, out_dir, proc in procs:
+            try:
+                stdout, stderr = proc.communicate(timeout=900)
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+            wall = time.perf_counter() - t0
+            check(proc.returncode == 0,
+                  f"digits training exited {proc.returncode}:\n"
+                  f"{stdout[-3000:]}\n{stderr[-3000:]}")
+            with open(os.path.join(out_dir,
+                                   "digits_quick_test0_outputs.csv")) as f:
+                rows = list(csv.DictReader(f))
+            accs.append(digits_report(card, flags, tag, rows, stdout, wall))
+    return accs
+
+
+def digits_report(card: str, flags, tag: str, rows, stdout: str,
+                  wall: float) -> float:
+    """One digits run's checks and lines; -> its final accuracy."""
     final = rows[-1]
     acc = float(final["accuracy"])
-    policy = [ln for ln in proc.stdout.splitlines()
+    policy = [ln for ln in stdout.splitlines()
               if "numeric policy:" in ln]
     check(bool(policy), "the train command logged no numeric policy")
     print(f"[{tag}] python -m poseidon_tpu_torch train --solver="
@@ -5369,7 +5418,8 @@ def phase_digits(card: str, flags=(), tag: str = "digits") -> float:
           f"iteration "
           f"{final['iter']} accuracy {acc:.4f} loss {float(final['loss']):.4f}"
           f" (recorded for the JAX package: 0.9417; required >= "
-          f"{DIGITS_MIN_ACC}) in {wall:.1f} s [{card}]", flush=True)
+          f"{DIGITS_MIN_ACC}) in {wall:.1f} s of the runs' wall [{card}]",
+          flush=True)
     check(int(final["iter"]) == 1000, f"last test row at {final['iter']}")
     check(acc >= DIGITS_MIN_ACC, f"digits accuracy {acc} < {DIGITS_MIN_ACC}")
     return acc
@@ -8286,6 +8336,451 @@ def dispatch_googlenet(card: str, live: dict, device=None) -> dict:
             "bitwise": same, "losses": lg, "timing": timing, "wall_s": wall}
 
 
+# [tune] and [profile] (the docstring's 6d): the im2col lowering against the
+# direct conv at AlexNet's conv1, conv3 and conv4 (batch TUNE_CONV_BATCH,
+# f32, each element within IM2COL_TOL of its sum's L1 bound); the tune
+# search as a child `tune` (TUNE_ARGS, full space, AlexNet at 32 x 227²);
+# its memo hit; a `train --tuned_plan auto` against the same run with the
+# plan's knobs as flags (TUNE_TRAIN_ITERS steps, bitwise); `train --profile
+# PROFILE_STEPS` at batch 256 with its per-layer attribution, each port
+# kernel in its layer's row and the named coverage at least
+# PROFILE_COVERAGE (JAX's ATTR_COVERAGE_TARGET). The two phases must take
+# at most TUNE_PROFILE_BUDGET_S together.
+TUNE_CONV_BATCH = 256
+TUNE_CONVS = (("conv1", 3, 227, 96, 11, 4, 0, 1),
+              ("conv3", 256, 13, 384, 3, 1, 1, 1),
+              ("conv4", 384, 13, 384, 3, 1, 1, 2))
+IM2COL_TOL = 1e-5
+TUNE_ARGS = ("--model", "alexnet", "--windows", "2", "--iters", "2")
+TUNE_TIMEOUT_S = 300
+TUNE_MEMO_MAX_S = 10.0
+TUNE_TRAIN_ITERS = 4
+PROFILE_STEPS = 3
+PROFILE_COVERAGE = 0.90
+PROFILE_TRIES = 10
+# a kernel symbol: (its counter, its launches a step, the rows it must
+# land in)
+PROFILE_ROWS = {
+    "lrn_nhwc_fwd_kernel": ("lrn_fwd_nhwc", 2, "fwd", ("norm1", "norm2")),
+    "lrn_nhwc_bwd_kernel": ("lrn_bwd_nhwc", 2, "bwd", ("norm1", "norm2")),
+    "pool_nhwc_band_kernel": ("pool_bwd_nhwc", 3, "bwd",
+                              ("pool1", "pool2", "pool5")),
+    "sgd_update_kernel": ("sgd_update", 1, "misc", ("optimizer_update",))}
+TUNE_PROFILE_BUDGET_S = 120.0
+
+
+def tune_conv_pair(card: str, dev, batch: int) -> list:
+    """[tune] (a): im2col against the direct conv on AlexNet's conv1, conv3
+    and conv4 (grouped: im2col takes direct, bitwise) in both layouts, f32
+    under the policy's flags (TF32 off), cuDNN deterministic: y, dx and
+    dw, each element within IM2COL_TOL of the L1 bound of its sum (the
+    same conv on |x|, |w|, |g|); a channels-last x keeps a channels-last
+    y; CUDA-event ms of forward and forward+backward of each lowering."""
+    import torch
+    import torch.nn.functional as F
+    from poseidon_tpu_torch.numeric import apply_policy, memory_format
+    from poseidon_tpu_torch.ops import nn as NN
+
+    apply_policy()
+    rows = []
+    gen = torch.Generator().manual_seed(TOOLS_SEED)
+    for name, c, hw, o, k, s, p, g in TUNE_CONVS:
+        x0 = torch.randn((batch, c, hw, hw), generator=gen).to(dev)
+        w = (torch.randn((o, c // g, k, k), generator=gen) * 0.05).to(dev)
+        b = (torch.randn((o,), generator=gen) * 0.05).to(dev)
+        oh = (hw + 2 * p - k) // s + 1
+        gy = torch.randn((batch, o, oh, oh), generator=gen).to(dev)
+        for layout in ("NCHW", "NHWC"):
+            x = (x0.contiguous(memory_format=torch.channels_last)
+                 if layout == "NHWC" else x0).detach().requires_grad_(True)
+            wl = w.detach().requires_grad_(True)
+            got = {}
+            for strat in ("im2col", "direct"):
+                y = NN.conv2d(x, wl, b, (s, s), (p, p), g, strategy=strat)
+                dx, dw = torch.autograd.grad(y, (x, wl), gy)
+                got[strat] = (y.detach(), dx, dw)
+                check(memory_format(y) == memory_format(x),
+                      f"[tune] {name} {layout} {strat}: the output left "
+                      f"x's memory format")
+            ax = x0.abs().detach().requires_grad_(True)
+            aw = w.abs().detach().requires_grad_(True)
+            ay = F.conv2d(ax, aw, None, s, p, groups=g)
+            bdx, bdw = torch.autograd.grad(ay, (ax, aw), gy.abs())
+            bounds = (ay.detach() + b.abs().view(1, -1, 1, 1), bdx, bdw)
+            worst = 0.0
+            for part, a, e, bound in zip(("y", "dx", "dw"), got["im2col"],
+                                         got["direct"], bounds):
+                ratio = float(((a - e).abs() / bound.clamp_min(1e-30))
+                              .max())
+                worst = max(worst, ratio)
+                check(ratio <= IM2COL_TOL,
+                      f"[tune] {name} {layout}: im2col {part} off direct "
+                      f"by {ratio:.3g} of its L1 bound (> {IM2COL_TOL})")
+            bitwise = all(torch.equal(a, e) for a, e in
+                          zip(got["im2col"], got["direct"]))
+            if g > 1:
+                check(bitwise, f"[tune] {name}: grouped im2col must take "
+                               f"the direct conv")
+            del got, ax, aw, ay, bdx, bdw, bounds
+            ms = {}
+            if dev.type == "cuda":
+                for strat in ("im2col", "direct"):
+                    def fwd(strat=strat):
+                        with torch.no_grad():
+                            NN.conv2d(x, wl, b, (s, s), (p, p), g,
+                                      strategy=strat)
+
+                    def fwd_bwd(strat=strat):
+                        y = NN.conv2d(x, wl, b, (s, s), (p, p), g,
+                                      strategy=strat)
+                        torch.autograd.grad(y, (x, wl), gy)
+
+                    ms[strat] = (cuda_time_ms(fwd, 2, 5),
+                                 cuda_time_ms(fwd_bwd, 2, 5))
+            row = {"conv": name, "layout": layout, "group": g,
+                   "max_l1_share": worst, "bitwise": bitwise,
+                   "ms": {k_: {"fwd": v[0], "fwd_bwd": v[1]}
+                          for k_, v in ms.items()}}
+            rows.append(row)
+            times = ", ".join(
+                f"{k_} fwd {v[0]:.4f} ms, fwd+bwd {v[1]:.4f} ms"
+                for k_, v in ms.items())
+            print(f"[tune] (a) {name} x{batch} {layout}"
+                  + (" (grouped: im2col takes direct)" if g > 1 else "")
+                  + f": im2col vs direct y/dx/dw within {worst:.3g} of "
+                  f"their L1 bounds (tol {IM2COL_TOL:g}), bitwise="
+                  f"{bitwise}; {times or 'no timing on the CPU'}"
+                  + (f"; im2col/direct fwd+bwd "
+                     f"{ms['im2col'][1] / ms['direct'][1]:.3f}x"
+                     if ms else "") + f" [{card}]", flush=True)
+        del x0, w, b, gy
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return rows
+
+
+def stats_section(path: str, name: str) -> dict:
+    """One top-level section of a stats.yaml (``StatsRegistry``'s
+    rendering: two-space indents, scalar values) as nested dicts of
+    strings."""
+    out: dict = {}
+    stack = [(-1, out)]
+    inside = False
+    with open(path) as f:
+        for line in f:
+            if not line.strip():
+                continue
+            depth = (len(line) - len(line.lstrip(" "))) // 2
+            key, _, val = line.strip().partition(":")
+            if depth == 0:
+                inside = key == name
+                continue
+            if not inside:
+                continue
+            while stack[-1][0] >= depth:
+                stack.pop()
+            if val.strip():
+                stack[-1][1][key] = val.strip()
+            else:
+                child: dict = {}
+                stack[-1][1][key] = child
+                stack.append((depth, child))
+    return out
+
+
+def tune_solver(root: str, work: str, iters: int, batch=None,
+                display=None) -> str:
+    """A solver file over [train]'s net at full width (``batch`` for a
+    CPU rehearsal only) on the synthetic LMDB: ``iters`` steps, no test,
+    a snapshot after training; -> its path."""
+    from poseidon_tpu_torch.proto.messages import (load_solver,
+                                                   net_to_prototxt,
+                                                   solver_to_prototxt)
+    os.makedirs(work, exist_ok=True)
+    net_file = os.path.join(work, "train_val.prototxt")
+    with open(net_file, "w") as f:
+        f.write(net_to_prototxt(alexnet_net_param(root, batch)))
+    sp = load_solver(ALEXNET_SOLVER)
+    sp.net, sp.max_iter, sp.display = net_file, iters, display or iters
+    sp.test_iter, sp.test_interval, sp.snapshot = [], 0, 0
+    sp.snapshot_after_train = True
+    sp.snapshot_prefix = os.path.join(work, "alexnet")
+    solver = os.path.join(work, "solver.prototxt")
+    with open(solver, "w") as f:
+        f.write(solver_to_prototxt(sp))
+    return solver
+
+
+def cli_captured(argv) -> tuple:
+    """``runtime/cli.main(argv)`` in this process, its stdout echoed and
+    kept: (rc, lines)."""
+    import io
+    from poseidon_tpu_torch.runtime.cli import main as cli_main
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main(list(argv))
+    text = buf.getvalue()
+    sys.stdout.write(text)
+    sys.stdout.flush()
+    return rc, text.splitlines()
+
+
+def plan_flags(knobs: dict) -> list:
+    """A plan's training knobs as the explicit ``train`` flags that mean
+    the same (the managed tier's wire dtype has no counterpart off the
+    async tier, and never enters a compiled step)."""
+    flags = ["--conv_layout", str(knobs["conv_layout"]).lower(),
+             "--arena_bucket_mb", str(knobs["arena_bucket_mb"]),
+             "--device_prefetch", str(knobs["device_prefetch"]),
+             "--max_in_flight", str(knobs["max_in_flight"]),
+             "--steps_per_dispatch", str(knobs["steps_per_dispatch"])]
+    if knobs["conv_strategy"]:
+        flags += ["--conv_strategy", knobs["conv_strategy"]]
+    if knobs["mesh"]:
+        flags += ["--mesh", knobs["mesh"]]
+    if knobs["remat"]:
+        flags += ["--remat", knobs["remat"]]
+    if float(knobs["hbm_budget_gb"]):
+        flags += ["--hbm_budget_gb", str(knobs["hbm_budget_gb"])]
+    return flags
+
+
+def phase_tune(card: str, root: str, device=None, batch=None,
+               tune_args=TUNE_ARGS) -> dict:
+    """[tune] (a)-(d) (``device``, ``batch`` and ``tune_args`` are for a
+    CPU rehearsal at a cut size only)."""
+    import numpy as np
+    import torch
+    t0 = time.perf_counter()
+    dev = torch.device(device or "cuda")
+    here = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(root, "tune")
+    store = os.path.join(work, "store")
+    os.makedirs(work, exist_ok=True)
+    out: dict = {}
+    with cudnn_deterministic():
+        out["conv"] = tune_conv_pair(card, dev, batch or TUNE_CONV_BATCH)
+    # (b) the search, as a user runs it
+    plan_file = os.path.join(work, "plan.json")
+    args = ["tune", *tune_args, "--compile_cache_dir", store,
+            "--out", plan_file]
+    t1 = time.perf_counter()
+    proc = tools_child(args, dev, here)
+    try:
+        text = proc.communicate(timeout=TUNE_TIMEOUT_S)[0]
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    lines = text.splitlines()
+    check(proc.returncode == 0, f"[tune] tune exited {proc.returncode}:\n"
+          + "\n".join(lines[-40:]))
+    out["search_wall_s"] = time.perf_counter() - t1
+    for ln in lines:
+        if ln.startswith("[tune] "):
+            print(f"[tune] (b) child: {ln}", flush=True)
+    line = json.loads(next(ln for ln in reversed(lines)
+                           if ln.startswith('{"metric": "tune"')))
+    print(f"[tune] (b) {json.dumps(line)}", flush=True)
+    check(line["source"] == "measured", "[tune] the first tune measured "
+          "nothing")
+    with open(plan_file) as f:
+        doc = json.load(f)
+    out["launches"] = fleet_launches(lines, "[tune]")
+    for knob, trial in sorted(doc["trials"].items()):
+        if knob == "conv_strategy":
+            for layer, row in trial["per_layer"].items():
+                print(f"[tune] (b) conv_strategy {layer}: -> "
+                      f"{row['winner']} [{row['source']}] "
+                      f"{json.dumps(row['timings_ms'])}", flush=True)
+            continue
+        print(f"[tune] (b) trial {knob}: -> {trial['winner']} "
+              f"[{trial['source']}] {json.dumps(trial.get('timings_ms'))}"
+              + (f" arms {json.dumps(trial.get('arms'))}"
+                 if "arms" in trial else ""), flush=True)
+    ab = doc["ab"]
+    print(f"[tune] (b) composite A/B {json.dumps(ab)}; search_cost_s "
+          f"{doc['search_cost_s']}; child wall {out['search_wall_s']:.1f} s; "
+          f"launches {json.dumps(out['launches'])} [{card}]", flush=True)
+    if ab.get("reverted"):
+        check(ab["speedup"] == 1.0, "[tune] a reverted plan reports 1.0")
+    else:
+        check(ab["speedup"] >= 1.0, f"[tune] the plan ships a composite "
+              f"arm slower than the defaults: {ab}")
+    check(doc["device_kind"] == (torch.cuda.get_device_name(0)
+                                 if dev.type == "cuda" else "cpu"),
+          "[tune] the plan names another device")
+    if dev.type == "cuda":
+        # each arm's peak above the allocation at its start: a budget to
+        # plan against
+        check(doc["trials"]["remat_batch"].get("budget_bytes", 0) > 0,
+              f"[tune] no measured peak: {doc['trials']['remat_batch']}")
+        # the step arms ran the TPU kernels' counterparts: NCHW K4-K7, the
+        # NHWC entries, K7's device-rate entry in the K=4 graph arm
+        for k in ("lrn_fwd", "lrn_bwd", "pool_bwd", "sgd_update",
+                  "lrn_fwd_nhwc", "lrn_bwd_nhwc", "pool_bwd_nhwc",
+                  "sgd_update_devrate"):
+            check(out["launches"].get(k, 0) > 0,
+                  f"[tune] the search launched no {k}: {out['launches']}")
+    out["doc"] = {k: doc[k] for k in ("knobs", "ab", "search_cost_s",
+                                      "skipped", "device_kind",
+                                      "torch_version", "cuda_version")}
+    out["trials"] = doc["trials"]
+    # (c) the memo hit
+    t1 = time.perf_counter()
+    rc, lines2 = cli_captured(args[:-2] + (["--device", "cpu"]
+                                           if dev.type == "cpu" else []))
+    memo_s = time.perf_counter() - t1
+    again = json.loads(lines2[-1])
+    print(f"[tune] (c) second tune: source {again['source']} in "
+          f"{memo_s:.2f} s [{card}]", flush=True)
+    check(rc == 0 and again["source"] == "persisted"
+          and again["path"] == line["path"],
+          f"[tune] the second tune did not load the plan: {again}")
+    check(memo_s <= TUNE_MEMO_MAX_S, f"[tune] the memo hit took "
+          f"{memo_s:.1f} s")
+    out["memo_s"] = memo_s
+    # (d) the plan against the same knobs as flags
+    knobs = doc["knobs"]
+    states = {}
+    extra = ["--device", "cpu"] if dev.type == "cpu" else []
+    with cudnn_deterministic():
+        for arm, flags in (("plan", ["--compile_cache_dir", store]),
+                           ("flags", ["--tuned_plan", "off",
+                                      "--compile_cache_dir", store]
+                            + plan_flags(knobs))):
+            arm_dir = os.path.join(work, arm)
+            solver = tune_solver(root, arm_dir, TUNE_TRAIN_ITERS, batch)
+            rc, lines3 = cli_captured(["train", f"--solver={solver}",
+                                       "--output_dir", arm_dir, *flags,
+                                       *extra])
+            check(rc == 0, f"[tune] (d) train ({arm}) exited {rc}")
+            desc = [ln for ln in lines3 if ln.startswith("[tuned_plan] ")]
+            print(f"[tune] (d) {arm}: {desc[-1] if desc else '-'}",
+                  flush=True)
+            snap = os.path.join(arm_dir, f"alexnet_iter_{TUNE_TRAIN_ITERS}"
+                                ".solverstate.npz")
+            with np.load(snap) as z:
+                states[arm] = {k: z[k].copy() for k in z.files}
+            section = stats_section(os.path.join(arm_dir, "stats.yaml"),
+                                    "tuned_plan")
+            want = "(plan)" if arm == "plan" else "(flag)"
+            check(section.get("conv_layout", "").endswith(want),
+                  f"[tune] (d) {arm}: stats.yaml's tuned_plan section "
+                  f"{section}")
+            out[f"train_{arm}_sources"] = section
+    a, b = states["plan"], states["flags"]
+    same = sorted(a) == sorted(b) and all(np.array_equal(a[k], b[k])
+                                          for k in a)
+    print(f"[tune] (d) train --tuned_plan auto vs the same knobs as flags, "
+          f"{TUNE_TRAIN_ITERS} steps: snapshots bitwise={same} [{card}]",
+          flush=True)
+    check(same, "[tune] (d) the plan's run is not bitwise to the flags'")
+    out["wall_s"] = time.perf_counter() - t0
+    print(f"[tune] phase wall {out['wall_s']:.1f} s [{card}]", flush=True)
+    return out
+
+
+def profile_session(card: str, root: str, dev, batch, tag: str) -> dict:
+    """One `train --profile PROFILE_STEPS` session; -> its trace's
+    kernel counts, their rows and the window's counter rise."""
+    from poseidon_tpu_torch.runtime import attribution as A
+    from poseidon_tpu_torch.proto.messages import load_net
+
+    work = os.path.join(root, "profile", tag)
+    solver = tune_solver(root, work, 2 + PROFILE_STEPS, batch,
+                         display=2 + PROFILE_STEPS)
+    extra = ["--device", "cpu"] if dev.type == "cpu" else []
+    rc, lines = cli_captured(["train", f"--solver={solver}", "--output_dir",
+                              work, "--profile", str(PROFILE_STEPS),
+                              "--tuned_plan", "off", *extra])
+    check(rc == 0, f"[profile] train exited {rc}")
+    check(any(ln.startswith("Wrote profiler trace to ") for ln in lines),
+          "[profile] no trace written")
+    trace = os.path.join(work, "profile", "rank0.trace.json")
+    check(os.path.exists(trace), "[profile] no trace file")
+    section = stats_section(os.path.join(work, "stats.yaml"), "profile")
+    counters = {k: int(v) for k, v in section.get("launches", {}).items()}
+    events = A.load_trace_events(trace)
+    layers = {l.name for l in load_net(os.path.join(
+        work, "train_val.prototxt")).layers}
+    smap = A.trace_scope_map(events, layers)
+    result = A.attribute(events, smap, steps=PROFILE_STEPS)
+    rows, counts = {}, {}
+    for ev in events:
+        if ev["stats"].get("cat") != "kernel":
+            continue
+        for kname in PROFILE_ROWS:
+            if kname in ev["name"]:
+                counts[kname] = counts.get(kname, 0) + 1
+                where = smap.get(ev["stats"].get("hlo_op"))
+                rows.setdefault(kname, set()).add(where)
+    return {"counters": counters, "counts": counts, "rows": rows,
+            "result": result, "trace": trace,
+            "trace_bytes": os.path.getsize(trace)}
+
+
+def phase_profile(card: str, root: str, device=None, batch=None) -> dict:
+    """[profile]: `train --profile PROFILE_STEPS` on AlexNet at 256, f32,
+    the layout `train` plans on the card (NHWC): the trace, the
+    attribution table, each port kernel in its layer's row, each
+    kernel's events in the trace equal to its counter's rise over the
+    window (a session the profiler dropped launches from runs again, at
+    most PROFILE_TRIES times), named coverage >= PROFILE_COVERAGE
+    (``device`` and ``batch`` for a CPU rehearsal only)."""
+    import torch
+    t0 = time.perf_counter()
+    dev = torch.device(device or "cuda")
+    cuda = dev.type == "cuda"
+    seen = []
+    for attempt in range(PROFILE_TRIES if cuda else 1):
+        s = profile_session(card, root, dev, batch, f"s{attempt}")
+        want = {k: s["counters"].get(row[0], 0)
+                for k, row in PROFILE_ROWS.items()}
+        got = {k: s["counts"].get(k, 0) for k in PROFILE_ROWS}
+        seen.append(got)
+        if got == want:
+            break
+        print(f"[profiler] a session recorded port kernels {got} of "
+              f"{want}: rerun", flush=True)
+    else:
+        if cuda:
+            raise SmokeFailure(f"[profile] {PROFILE_TRIES} sessions: trace "
+                               f"counts {seen}, counters {want}")
+    # the table itself is the engine's (train --profile printed it above)
+    res = s["result"]
+    top = [f"{r['op'][:90]}: {r['ms']} ms" for r in
+           res["residual"]["top_ops"]]
+    print(f"[profile] AlexNet x{batch or 256} f32 in train's layout: "
+          f"residual top ops {top}; op events {res['op_events']}; trace "
+          f"{s['trace_bytes']} B; sessions {len(seen)} [{card}]",
+          flush=True)
+    if cuda:
+        for kname, (counter, n, phase, layers) in PROFILE_ROWS.items():
+            allowed = {(l, phase) for l in layers}
+            check(s["rows"].get(kname) and s["rows"][kname] <= allowed,
+                  f"[profile] {kname} landed in {s['rows'].get(kname)}, "
+                  f"not in {sorted(allowed)}")
+            check(s["counters"].get(counter) == n * PROFILE_STEPS,
+                  f"[profile] {counter} launched "
+                  f"{s['counters'].get(counter)} times in the window, "
+                  f"want {n * PROFILE_STEPS}")
+            print(f"[profile] {kname}: {s['counts'][kname]} launches in "
+                  f"the trace = its counter's rise over the window, all in "
+                  f"{sorted(s['rows'][kname])}", flush=True)
+    check(res["coverage"] >= PROFILE_COVERAGE,
+          f"[profile] named coverage {res['coverage']} < "
+          f"{PROFILE_COVERAGE}")
+    wall = time.perf_counter() - t0
+    print(f"[profile] named coverage {res['coverage']:.4f} (target "
+          f"{PROFILE_COVERAGE}) of {res['total_ms']:.3f} ms a step; phase "
+          f"wall {wall:.1f} s [{card}]", flush=True)
+    return {"launches": s["counters"], "coverage": res["coverage"],
+            "total_ms": res["total_ms"], "rows": res["rows"],
+            "residual": res["residual"], "sessions": len(seen),
+            "wall_s": wall}
+
+
 def phase_sgd_devrate(card: str, arena_total: int) -> list:
     """[dispatch] (d): K7's device-rate entry against its plain version
     (the rate as a 0-d tensor) over the AlexNet arena at an ``inv`` rate,
@@ -8384,6 +8879,11 @@ def main() -> int:
               file=sys.stderr)
         return 2
     t_start = time.perf_counter()
+
+    def lap(tag: str) -> None:
+        print(f"[lap] {tag} ends at {time.perf_counter() - t_start:.1f} s",
+              flush=True)
+
     try:
         card = card_line()
         print(card, flush=True)
@@ -8395,6 +8895,7 @@ def main() -> int:
         from poseidon_tpu_torch.proto.messages import load_net
         arena_total = Net(load_net(ALEXNET), "TEST",
                           device="cpu").param_count()
+        lap("build")
         k4, k4_attrs = phase_kernels(card)
         k5 = phase_lrn_bwd(card)
         k6, k6_attrs = phase_pool_bwd(card)
@@ -8403,34 +8904,54 @@ def main() -> int:
         k1, fwd_attrs = phase_flash(card)
         k2, k3, bwd_attrs = phase_flash_bwd(card)
         k4n, k5n, k6n, conv1, layout = phase_layout(card)
+        lap("kernels, flash and layout")
         serving_launches, ex, solo, load = phase_slice(card)
         phase_net_checks(ex)
         phase_breakdown(ex, card, solo["p50_ms"])
         del ex
         torch.cuda.empty_cache()
+        lap("slice")
         fleet = phase_fleet(card, k1, (solo, load))
+        lap("fleet")
         torch.cuda.empty_cache()
         with tempfile.TemporaryDirectory() as root:
             train = phase_train(card, root)
+            lap("train")
             torch.cuda.empty_cache()
             dispatch = phase_dispatch(card, root)
             torch.cuda.empty_cache()
             loop = phase_loop(card, root, train["step_ms"])
             torch.cuda.empty_cache()
             bf16 = phase_bf16_train(card, root, train)
+            lap("dispatch, loop and bf16_train")
             torch.cuda.empty_cache()
             dp = phase_dp(card, root)
             torch.cuda.empty_cache()
             topk = phase_topk(card, root)
+            lap("dp and topk")
             torch.cuda.empty_cache()
             ssp = phase_ssp(card, root)
+            lap("ssp")
             torch.cuda.empty_cache()
             spmd = phase_spmd(card, root)
+            lap("spmd")
             torch.cuda.empty_cache()
             fabric = phase_fabric(card, root)
+            lap("fabric")
             torch.cuda.empty_cache()
             tools = phase_tools(card, root, train_step_ms=train["step_ms"])
+            lap("tools")
+            torch.cuda.empty_cache()
+            tune = phase_tune(card, root)
+            torch.cuda.empty_cache()
+            profile = phase_profile(card, root)
+            lap("tune and profile")
         torch.cuda.empty_cache()
+        tp_wall = tune["wall_s"] + profile["wall_s"]
+        print(f"[tune] and [profile] took {tp_wall:.1f} s (budget "
+              f"{TUNE_PROFILE_BUDGET_S:g} s) [{card}]", flush=True)
+        check(tp_wall <= TUNE_PROFILE_BUDGET_S,
+              f"[tune] and [profile] took {tp_wall:.1f} s")
         live = {}
         zoo = phase_zoo(card, keep=live)
         dispatch["googlenet"] = dispatch_googlenet(card, live)
@@ -8442,9 +8963,11 @@ def main() -> int:
               f"(budget {DISPATCH_BUDGET_S:g} s) [{card}]", flush=True)
         check(dispatch["wall_s"] <= DISPATCH_BUDGET_S,
               f"[dispatch] and [remat] took {dispatch['wall_s']:.1f} s")
+        lap("zoo and dispatch_googlenet")
         lm = phase_lm(card)
         torch.cuda.empty_cache()
         lm_tp = phase_lm_tp_serve(card)
+        lap("lm and lm_tp_serve")
         torch.cuda.empty_cache()
         lm_train = phase_lm_train(card)
         torch.cuda.empty_cache()
@@ -8454,13 +8977,18 @@ def main() -> int:
                                      grad_tol=BF16_LM_GRAD_TOL,
                                      peak=("bfloat16", OPS_PER_S["bfloat16"]))
         torch.cuda.empty_cache()
+        lap("lm_train and bf16_lm_train")
         lm_corpus = phase_lm_corpus(card)
+        lap("lm_corpus")
         torch.cuda.empty_cache()
         lm_par = phase_lm_par(card)
+        lap("lm_par")
         torch.cuda.empty_cache()
         lm_pp_ep = phase_lm_pp_ep(card)
-        digits_acc = phase_digits(card)
-        bf16_digits_acc = phase_digits(card, ("--bf16",), "bf16_digits")
+        lap("lm_pp_ep")
+        digits_acc, bf16_digits_acc = phase_digits(
+            card, (((), "digits"), (("--bf16",), "bf16_digits")))
+        lap("digits")
     except Exception:  # noqa: BLE001 — any failed phase fails the smoke
         traceback.print_exc()
         return 1
@@ -8674,6 +9202,10 @@ def main() -> int:
             "dispatch": dispatch["alexnet"]["ran"].get(name, 0),
             "dispatch_googlenet": dg["launches"].get(name, 0) // 2
             + dg["per_replay"].get(name, 0)}
+        # [tune]'s child (every arm of the search) and [profile]'s window
+        entry["launches_by_path"].update(
+            tune=tune["launches"].get(name, 0),
+            profile=profile["launches"].get(name, 0))
         # [tools]' paths: Engine.train() at iter_size 2, and the `time`
         # and `extract_features` children
         entry["launches_by_path"].update(
@@ -8716,6 +9248,8 @@ def main() -> int:
                "zoo": zoo,
                "tools": tools,
                "dispatch": dispatch,
+               "tune": tune,
+               "profile": profile,
                "bf16_digits_final_accuracy": bf16_digits_acc,
                "wall_s": time.perf_counter() - t_start}
     print(f"[smoke] total wall {summary['wall_s']:.1f} s of the 1200 s "

@@ -7,10 +7,12 @@ numeric policy, whose names are re-exported from ``numeric.py`` as the JAX
 package's ``config`` re-exports them, the named SPMD mesh request
 (``MeshConfig``, ``train --mesh``), the two-tier fabric's policy
 (``FabricConfig``, ``train --async_ssp --slice``) and the serving fleet's
-(``FleetConfig``, ``serve --replicas``)."""
+(``FleetConfig``, ``serve --replicas``), and where the tuned store lives
+(``CompileCacheConfig``, ``--compile_cache_dir``)."""
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 
 # the numeric policy's names, resolved on first use: the async tier reads
@@ -119,6 +121,47 @@ class PipelineConfig:
     # serialize mid-train snapshots on a background thread, from a host
     # copy taken at the sync point (runtime/checkpoint.AsyncSnapshotWriter)
     async_snapshot: bool = False
+
+
+_pipeline = PipelineConfig()
+
+
+def pipeline_config() -> PipelineConfig:
+    """The process's pipeline defaults (a tuned plan's ``device_prefetch``
+    and ``max_in_flight`` land here, ``runtime/tuned_plan.py``)."""
+    return _pipeline
+
+
+def set_pipeline_config(**kwargs) -> None:
+    for k, v in kwargs.items():
+        if not hasattr(_pipeline, k):
+            raise AttributeError(k)
+        setattr(_pipeline, k, v)
+
+
+@dataclass
+class CompileCacheConfig:
+    """Where the tuned store lives (``runtime/compile_cache.py``):
+    ``<cache_dir>/tuned/``. Empty means no store configured: the conv
+    tuner then persists nothing unless a loaded plan names its own store,
+    and plans use ``tuned_plan.store_dir``'s default."""
+
+    cache_dir: str = ""
+
+
+_compile_cache = CompileCacheConfig(
+    cache_dir=os.environ.get("POSEIDON_COMPILE_CACHE_DIR", ""))
+
+
+def compile_cache_config() -> CompileCacheConfig:
+    return _compile_cache
+
+
+def set_compile_cache_config(**kwargs) -> None:
+    for k, v in kwargs.items():
+        if not hasattr(_compile_cache, k):
+            raise AttributeError(k)
+        setattr(_compile_cache, k, v)
 
 
 @dataclass

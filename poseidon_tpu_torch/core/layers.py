@@ -126,7 +126,8 @@ class ConvolutionLayer(Layer):
         # set by the net's epilogue plan when an in-place ReLU immediately
         # consumes this conv's top
         self.fused_relu_slope: Optional[float] = None
-        # the net's conv lowering ("" leaves it to the policy's conv_s2d)
+        # this layer's conv lowering, planned by the net ("" leaves it to
+        # the policy's conv_s2d; "auto" is resolved to a measured winner)
         self.conv_strategy: str = ""
 
     def setup(self, bottom_shapes):

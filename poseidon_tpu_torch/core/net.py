@@ -21,8 +21,11 @@ C-major order). A 4-D dropout draws its mask over the logical NCHW shape,
 so its units are the same in both layouts (JAX makes dropout a
 canonical-layout layer for this). Parameters, their gradients and
 snapshots stay canonical OIHW/NCHW in either layout. ``conv_strategy``
-(the argument, else the policy's) is resolved the same way and handed to
-every conv layer.
+(the argument, else the policy's) is planned per conv layer
+(``_plan_conv_strategies``): "" leaves each conv to the policy's
+``conv_s2d``, a concrete strategy goes to every conv, and "auto" takes a
+measured winner per layer from ``ops/conv_tune.py`` (geometry-keyed, so
+shape-identical layers measure once; persisted in the tuned store).
 
 Parameters are a plain ``{layer: {"w": tensor, "b": tensor}}`` tree on the
 net's device, the layout of the JAX package's params (OIHW conv weights,
@@ -66,6 +69,7 @@ from ..proto.messages import LayerParameter, NetParameter, NetState
 from .blob import ParamDef
 from .fillers import fill
 from .layers import DATA_SOURCE_TYPES, Layer, create_layer
+from ..runtime.attribution import scope
 from .remat import RematRng, checkpoint_layer
 
 Shape = Tuple[int, ...]
@@ -184,8 +188,7 @@ class Net(nn.Module):
                 layer.generator = self.generator
             if layer.TYPE == "DUMMY_DATA":
                 layer.generator = torch.Generator(device=self.device)
-            if layer.TYPE == "CONVOLUTION":
-                layer.conv_strategy = self.conv_strategy
+        self._plan_conv_strategies()
         self.manual_seed(0)
 
         produced, consumed = [], set()
@@ -255,6 +258,37 @@ class Net(nn.Module):
                     owned.append(pdef)
             if owned:
                 self.param_defs[layer.name] = owned
+
+    def _plan_conv_strategies(self) -> None:
+        """Each conv layer's lowering (JAX's ``_plan_conv_strategies``):
+        "" leaves the policy's ``conv_s2d`` to decide; a concrete strategy
+        goes to every conv; "auto" resolves a measured winner per layer
+        through ``ops/conv_tune.py`` on this net's device and layout and
+        logs ``[conv_strategy] ...`` a layer."""
+        req = self.conv_strategy
+        convs = [l for l in self.layers if l.TYPE == "CONVOLUTION"]
+        if not req or not convs:
+            return
+        if req != "auto":
+            for layer in convs:
+                layer.conv_strategy = req
+            return
+        from ..ops import conv_tune
+        from ..runtime.metrics import log
+        for layer in convs:
+            n, c, h, w = self.blob_shapes[layer.lp.bottom[0]]
+            doc = conv_tune.resolve(
+                layer.name, c, h, w, layer.kernel, layer.stride, layer.pad,
+                layer.group, layer.params[0].shape[0], self.conv_layout, n,
+                device=self.device)
+            layer.conv_strategy = doc["winner"]
+            log(f"[conv_strategy] {conv_tune.describe(doc)}")
+
+    def conv_strategy_plan(self) -> Dict[str, Optional[str]]:
+        """{conv layer name: its strategy, None where the policy's
+        conv_s2d decides} (JAX's)."""
+        return {l.name: l.conv_strategy or None for l in self.layers
+                if l.TYPE == "CONVOLUTION"}
 
     def manual_seed(self, seed: int) -> "Net":
         """Seed the dropout generator with ``seed`` and each DUMMY_DATA
@@ -360,7 +394,9 @@ class Net(nn.Module):
         forward and recomputed from the stored bottoms and params during
         backward; a checkpointed DROPOUT draws its forward's mask again
         (``core/remat.RematRng``). The math is unchanged, so remat arms
-        are bitwise equal to stored arms. Unknown names raise."""
+        are bitwise equal to stored arms. Unknown names raise. While a
+        profiler records, each layer runs inside a ``record_function``
+        range named after it (``runtime/attribution.scope``)."""
         if params is None:
             params = self.params
         if params is None:
@@ -382,11 +418,15 @@ class Net(nn.Module):
             if nhwc and layer.TYPE in SPATIAL_TYPES:
                 bottoms = [to_channels_last(b) for b in bottoms]
             lparams = self._layer_params(params, layer, comm)
-            if layer.name in remat_set:
-                tops = self._checkpointed(layer, lparams, bottoms, train,
-                                          comm)
-            else:
-                tops = self._run_layer(layer, lparams, bottoms, train, comm)
+            # the layer's range for a profiler's attribution (a no-op
+            # unless one records)
+            with scope(layer.name):
+                if layer.name in remat_set:
+                    tops = self._checkpointed(layer, lparams, bottoms,
+                                              train, comm)
+                else:
+                    tops = self._run_layer(layer, lparams, bottoms, train,
+                                           comm)
             weights = layer.loss_weights(len(tops))
             for name, val, w in zip(layer.lp.top, tops, weights):
                 blobs[name] = val

@@ -19,8 +19,10 @@ it.
 ``core/net.py`` at construction: "NCHW", "NHWC" (``torch.channels_last``
 activations) or "AUTO", resolved per device by ``resolve_conv_layout``.
 ``conv_s2d`` turns on the space-to-depth stem rewrite
-(``ops/nn.py:_space_to_depth_rewrite``); ``conv_strategy`` forces a conv
-lowering net-wide ("" leaves it to ``conv_s2d``, "direct" or "s2d").
+(``ops/nn.py:_space_to_depth_rewrite``); ``conv_strategy`` picks the conv
+lowering: "" leaves it to ``conv_s2d``, "direct", "im2col" or "s2d" force
+one net-wide, and "auto" measures a winner per conv layer when the net is
+built (``ops/conv_tune.py``).
 
 Entry points run on ``cuda`` unless the caller asks for the CPU; without a
 GPU they raise instead of silently running there.
@@ -46,8 +48,8 @@ class Policy:
     # and GoogLeNet's conv1) as an exact stride-1 conv over s*s times the
     # channels; off by default so golden-value tests see the direct conv
     conv_s2d: bool = False
-    # a conv lowering forced net-wide: "" (conv_s2d decides), "direct",
-    # "s2d"
+    # the conv lowering: "" (conv_s2d decides), "direct", "im2col", "s2d"
+    # net-wide, or "auto" (measured per layer, ops/conv_tune.py)
     conv_strategy: str = ""
 
 
@@ -59,37 +61,41 @@ BF16_SMOKE_ITERS = 30
 BF16_SMOKE_RTOL = 0.10
 BF16_SMOKE_ATOL = 0.05
 
-# the conv lowerings the port has; the JAX package's "auto" (measured per
-# layer) and "im2col" come with ops/conv_tune.py (ROADMAP queue A item 3)
-CONV_STRATEGIES = ("", "direct", "s2d")
+# the per-layer conv lowering axis (the JAX package's): "" = the policy's
+# conv_s2d decides; "auto" is resolved to a measured winner per layer at
+# Net construction (ops/conv_tune.py) and never reaches ops/nn.conv2d
+CONV_STRATEGIES = ("", "auto", "direct", "im2col", "s2d")
 
 
 def check_conv_strategy(strategy: str) -> str:
     strategy = strategy or ""
-    if strategy in ("auto", "im2col"):
-        raise NotImplementedError(
-            f"conv_strategy {strategy!r} needs ops/conv_tune.py (the "
-            f"measured per-layer lowering), which is not in the port yet "
-            f"(ROADMAP queue A item 3); choose from {CONV_STRATEGIES}")
     if strategy not in CONV_STRATEGIES:
         raise ValueError(f"unknown conv_strategy {strategy!r}; choose from "
                          f"{CONV_STRATEGIES}")
     return strategy
 
 
-def resolve_conv_layout(layout: str, backend: str = "cpu") -> str:
+def resolve_conv_layout(layout: str, backend: str = "cpu",
+                        consult_plan: bool = True) -> str:
     """Resolve a conv_layout choice ("NCHW" | "NHWC" | "auto", any case)
     against the backend that runs the net ("cuda" or JAX's "gpu", "cpu").
-    Explicit values pass through. "auto" takes the JAX package's built-in
-    table: NHWC on a GPU (the tensor cores' native conv layout: cuDNN runs
-    an NCHW float32 conv between transposes), NCHW elsewhere. The JAX
-    package first consults a measured TunedPlan; the port has none yet
-    (ROADMAP queue A item 11)."""
+    Explicit values pass through. "auto" first reads the active tuned
+    plan (``runtime/tuned_plan.active_plan_value``): a measured
+    conv_layout row loaded for this run is the answer. Without one (or
+    with ``consult_plan=False``, how the tune search builds its default
+    arm) it takes the JAX package's built-in table: NHWC on a GPU (the
+    tensor cores' native conv layout: cuDNN runs an NCHW float32 conv
+    between transposes), NCHW elsewhere."""
     lay = (layout or "NCHW").upper()
     if lay != "AUTO":
         if lay not in ("NCHW", "NHWC"):
             raise ValueError(f"unknown conv_layout {layout!r}")
         return lay
+    if consult_plan:
+        from .runtime.tuned_plan import active_plan_value
+        measured = active_plan_value("conv_layout")
+        if measured:
+            return str(measured).upper()
     return "NHWC" if backend in ("cuda", "gpu") else "NCHW"
 
 

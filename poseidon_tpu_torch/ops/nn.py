@@ -1,4 +1,5 @@
-"""Convolution (with the space-to-depth stem rewrite), im2col,
+"""Convolution (with the space-to-depth stem rewrite and the im2col + GEMM
+lowering), im2col,
 within-channel LRN, STOCHASTIC pooling and inner product (the part of
 ``poseidon_tpu/ops/nn.py`` outside the Pallas kernels), in either
 activation layout.
@@ -29,7 +30,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..numeric import check_conv_strategy, memory_format, policy
+from ..numeric import CONV_STRATEGIES, memory_format, policy
 from .pool import _pool_dims, _pool_pad_crop, ave_pool
 
 
@@ -89,6 +90,44 @@ def _s2d_applicable(x, w, stride, group) -> bool:
     return policy().conv_s2d and _s2d_shape_ok(x, w, stride, group)
 
 
+def conv_strategy_applicable(strategy: str, x: torch.Tensor,
+                             w: torch.Tensor, stride, group) -> bool:
+    """Whether a concrete strategy can lower this conv at all (JAX's; the
+    measured choice of ``ops/conv_tune.py`` only picks candidates that
+    pass it): s2d where the stem rewrite's shape allows, im2col for an
+    ungrouped conv, direct always."""
+    if strategy == "s2d":
+        return _s2d_shape_ok(x, w, stride, group)
+    if strategy == "im2col":
+        return group == 1
+    return strategy in ("", "direct")
+
+
+def _conv_im2col(xc: torch.Tensor, wc: torch.Tensor, stride,
+                 pad) -> torch.Tensor:
+    """The explicit im2col + GEMM lowering (Caffe's conv_layer.cpp over
+    util/im2col.cpp; JAX's ``_conv_im2col``): patches in Caffe's (c, kh,
+    kw) column order, which is the OIHW weight's reshape order, times the
+    weight as (O, C·kh·kw) in one ``torch.matmul``. NCHW: the patches by
+    ``F.unfold``, (N, K, L), and the product (N, O, L) is NCHW. A
+    channels-last x: the patches from its NHWC view, (N·oh·ow, K), and the
+    product (N·oh·ow, O) viewed back as a channels-last (N, O, oh, ow), so
+    the NHWC graph gains no transpose."""
+    n, c, h, w_ = xc.shape
+    o, _, kh, kw = wc.shape
+    oh = conv_out_size(h, kh, stride[0], pad[0])
+    ow = conv_out_size(w_, kw, stride[1], pad[1])
+    w2 = wc.reshape(o, -1)
+    if memory_format(xc) == torch.channels_last:
+        xv = F.pad(xc.permute(0, 2, 3, 1),
+                   (0, 0, pad[1], pad[1], pad[0], pad[0]))
+        patches = xv.unfold(1, kh, stride[0]).unfold(2, kw, stride[1])
+        y = torch.matmul(patches.reshape(n * oh * ow, c * kh * kw), w2.t())
+        return y.view(n, oh, ow, o).permute(0, 3, 1, 2)
+    cols = F.unfold(xc, (kh, kw), padding=tuple(pad), stride=tuple(stride))
+    return torch.matmul(w2, cols).view(n, o, oh, ow)
+
+
 def conv2d(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
            stride: Tuple[int, int], pad: Tuple[int, int], group: int = 1,
            act: Optional[str] = None, act_slope: float = 0.0,
@@ -96,27 +135,40 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
     """Convolution with the fused bias + ReLU epilogue. ``w`` is OIHW with
     I = C/group; x and w are cast to the policy's ``compute_dtype`` and the
     output (in x's memory format) stays in it. ``strategy`` selects the
-    lowering: "direct", "s2d" (the stem rewrite, where its shape allows),
-    or None/"" for the policy's ``conv_s2d``. The epilogue runs in place on
-    the convolution's own fresh output, so the fold allocates nothing (the
-    JAX package folds the same in-place ReLU into its conv; both give
-    Caffe's ``relu(conv + b)``)."""
+    lowering: "direct", "im2col" (patches + one GEMM, ``_conv_im2col``),
+    "s2d" (the stem rewrite, where its shape allows), or None/"" for the
+    policy's ``conv_s2d``; a strategy that cannot lower this conv (grouped
+    im2col, non-stem s2d) takes direct, as in JAX, and "auto" (resolved
+    per layer when the Net is built) raises JAX's ValueError. The epilogue
+    runs in place on the convolution's own fresh output, so the fold
+    allocates nothing (the JAX package folds the same in-place ReLU into
+    its conv; both give Caffe's ``relu(conv + b)``)."""
     cd = policy().compute_dtype
     xc, wc = x.to(cd), w.to(cd)
-    strategy = check_conv_strategy(strategy)
+    strategy = strategy or ""
+    if strategy not in CONV_STRATEGIES or strategy == "auto":
+        raise ValueError(f"conv2d: unresolved strategy {strategy!r} "
+                         f"(choose from {CONV_STRATEGIES[2:]}; 'auto' is "
+                         f"resolved per layer at Net construction)")
     use_s2d = (_s2d_applicable(xc, wc, stride, group) if strategy == ""
                else strategy == "s2d" and _s2d_shape_ok(xc, wc, stride,
                                                         group))
     if use_s2d:
         xc, wc = _space_to_depth_rewrite(xc, wc, stride, pad)
         stride, pad = (1, 1), (0, 0)
-    if memory_format(xc) == torch.channels_last:
-        # the call's own copy of the weight goes to cuDNN channels-last
-        # too, so it transforms no filter (the stored weight stays OIHW;
-        # its gradient comes back through this copy)
-        wc = wc.contiguous(memory_format=torch.channels_last)
-    y = F.conv2d(xc, wc, None if b is None else b.to(cd),
-                 stride=tuple(stride), padding=tuple(pad), groups=group)
+    if strategy == "im2col" and group == 1:
+        y = _conv_im2col(xc, wc, stride, pad)
+        if b is not None:
+            y.add_(b.to(cd).view(1, -1, 1, 1))
+    else:
+        if memory_format(xc) == torch.channels_last:
+            # the call's own copy of the weight goes to cuDNN
+            # channels-last too, so it transforms no filter (the stored
+            # weight stays OIHW; its gradient comes back through this
+            # copy)
+            wc = wc.contiguous(memory_format=torch.channels_last)
+        y = F.conv2d(xc, wc, None if b is None else b.to(cd),
+                     stride=tuple(stride), padding=tuple(pad), groups=group)
     if act == "relu":
         if act_slope == 0.0:
             y.clamp_min_(0)

@@ -73,6 +73,7 @@ import torch
 import torch.nn.functional as F
 
 from ..numeric import policy
+from ..runtime.attribution import scope
 
 DENSE = "dense"      # all-reduce hooked into backward (DWBP) — the default
 SFB = "sfb"          # sufficient-factor broadcast for FC layers
@@ -535,21 +536,23 @@ class BucketSync:
         self._next += 1
 
     def _issue(self, bucket: Bucket) -> None:
-        view = self.flat_g[bucket.lo:bucket.hi]
-        buf = _to_wire(view, self.wire)
-        self._pending.append((view, buf, self.group.all_reduce_(
-            buf, async_op=True)))
+        with scope("grad_sync"):
+            view = self.flat_g[bucket.lo:bucket.hi]
+            buf = _to_wire(view, self.wire)
+            self._pending.append((view, buf, self.group.all_reduce_(
+                buf, async_op=True)))
 
     def finish(self) -> None:
         while self._next < len(self.hooked):
             self._issue_hooked()
         for bucket in self.fused:
             self._issue(bucket)
-        for view, buf, work in self._pending:
-            if work is not None:
-                work.wait()
-            if buf is not view:
-                view.copy_(buf)
-            if self.cfg.reduce == "mean":
-                view.div_(self.group.world)
+        with scope("grad_sync"):
+            for view, buf, work in self._pending:
+                if work is not None:
+                    work.wait()
+                if buf is not view:
+                    view.copy_(buf)
+                if self.cfg.reduce == "mean":
+                    view.div_(self.group.world)
         self._pending = []

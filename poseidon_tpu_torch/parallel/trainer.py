@@ -114,6 +114,7 @@ from ..core.remat import net_generators
 from ..ops import _build
 from ..ops.sgd import sgd_update_
 from ..proto.messages import SolverParameter
+from ..runtime.attribution import scope
 from ..runtime.metrics import log
 from ..solvers.updates import (SolverState, init_state, learning_rates,
                                make_arena_update_fn)
@@ -513,7 +514,8 @@ class TrainStep:
         with torch.no_grad():
             comm_error = (self._topk_stage(comm_error, it) if self.topk_slots
                           else comm_error)
-            self._update(self.flat_w, self.flat_g, self.flat_h, it, rate)
+            with scope("optimizer_update"):
+                self._update(self.flat_w, self.flat_g, self.flat_h, it, rate)
         return comm_error, _rank_mean(_micro_mean(rows), self.group)
 
     def step(self, params, state: TrainState, batch):
@@ -522,7 +524,7 @@ class TrainStep:
         micro-batches and the ranks. ``batch`` is one ``{top: tensor}``
         dict, or under iter_size K > 1 a sequence of K of them."""
         micro = self._micro_batches(batch)
-        with torch.no_grad():
+        with torch.no_grad(), scope("arena_pack"):
             self.arena.pack(params, self.flat_w)
             self.arena.pack(state.solver.history, self.flat_h)
         comm_error, metrics = self._run(micro, int(state.solver.it),

@@ -1,5 +1,5 @@
 """Command line of the port (the commands of ``poseidon_tpu/runtime/
-cli.py`` but ``tune``)::
+cli.py``)::
 
     python -m poseidon_tpu_torch train --solver=<solver.prototxt> \\
         [--snapshot=<.solverstate.npz>|auto] [--weights=<.caffemodel>] \\
@@ -16,8 +16,15 @@ cli.py`` but ``tune``)::
         [--dwbp_bucket_mb N] [--param_arena true|false] \\
         [--arena_bucket_mb N] [--device_prefetch N] [--max_in_flight N] \\
         [--async_snapshot] [--device_transform] [--trace_out <file>] \\
-        [--bf16] [--conv_layout nchw|nhwc|auto] [--conv_strategy direct|s2d] \\
+        [--bf16] [--conv_layout nchw|nhwc|auto] \\
+        [--conv_strategy auto|direct|im2col|s2d] [--steps_per_dispatch K] \\
+        [--remat auto|none|L1,L2 [--hbm_budget_gb G]] [--profile N] \\
+        [--tuned_plan auto|off] [--compile_cache_dir D] \\
         [--metrics_port P] [--hostfile <file> --node_id N]
+    python -m poseidon_tpu_torch tune [--model lenet|alexnet|googlenet] \\
+        [--smoke] [--force] [--deploy <deploy.prototxt>] [--windows W] \\
+        [--iters I] [--out <plan.json>] [--compile_cache_dir D] \\
+        [--device cuda|cpu]
     python -m poseidon_tpu_torch test --model=<train_val.prototxt> \\
         [--weights=<.caffemodel>] [--iterations 50] [--device cuda|cpu] \\
         [--hostfile <file> --node_id N]
@@ -38,14 +45,17 @@ cli.py`` but ``tune``)::
         [--num_batches 10] [--device cuda|cpu] [--hostfile <file> --node_id N]
     python -m poseidon_tpu_torch serve --model=<deploy.prototxt> \\
         [--weights=<.caffemodel|.solverstate.npz>] [--buckets 1,4,16,64] \\
+        [--tuned_plan auto|off] [--compile_cache_dir D] \\
         [--host 127.0.0.1] [--port 0] [--max_delay_ms 5] [--max_queue 64] \\
         [--deadline_ms 0] [--watch <prefix>|auto] [--poll_s 1] \\
         [--replicas N] [--devices 0,0] [--metrics_port P] [--device cuda|cpu]
     python -m poseidon_tpu_torch serve --generate --model tiny|gpt_small \\
-        [--host 127.0.0.1] [--port 0] [--max_queue 64] [--deadline_ms 0] \\
+        [--tuned_plan auto|off] [--host 127.0.0.1] [--port 0] \\
+        [--max_queue 64] [--deadline_ms 0] \\
         [--replicas N] [--devices 0,0] [--metrics_port P] [--device cuda|cpu]
     python -m poseidon_tpu_torch bench_serve [--model <deploy.prototxt>] \\
-        [--weights ...] [--buckets 1,4,16,64] [--requests 200] \\
+        [--weights ...] [--buckets 1,4,16,64] [--tuned_plan auto|off] \\
+        [--compile_cache_dir D] [--requests 200] \\
         [--concurrency 4] [--batch 8] [--replicas N] [--devices ...] \\
         [--offered_rps R] [--device cuda|cpu]
 
@@ -63,9 +73,21 @@ oldest one's metrics are read, snapshots written in the background under
 f32 parameters, momentum and update, the space-to-depth stem);
 ``--conv_layout`` plans the CNN graph NCHW or NHWC (channels-last), unset
 meaning "auto" (NHWC on the card, NCHW on the CPU), and
-``--conv_strategy`` forces a conv lowering net-wide. The policy holds for
-the command and is restored when it returns. Data-parallel runs start one ``train`` process per rank
-under the env contract of ``runtime/cluster.py`` (``POSEIDON_PROC_ID``,
+``--conv_strategy`` forces a conv lowering net-wide ("auto": a measured
+winner a conv layer, ``ops/conv_tune.py``). The policy holds for
+the command and is restored when it returns. ``--tuned_plan auto`` (the
+default) loads the persisted plan of the train net (``tune``'s,
+``runtime/tuned_plan.py``, from ``--compile_cache_dir`` or the default
+store) and resolves every policy knob flag > plan > built-in default; the
+unset flags (``--conv_layout``, ``--conv_strategy``, ``--arena_bucket_mb``,
+``--mesh``, ``--device_prefetch``, ``--max_in_flight``,
+``--steps_per_dispatch``, ``--wire_dtype``, ``--remat``,
+``--hbm_budget_gb``) take the plan's values; ``off`` skips the store.
+``--profile N`` traces N single steps from the third with
+``torch.profiler`` into ``<output_dir>/profile/`` and prints the
+per-layer attribution table (``runtime/attribution.py``).
+Data-parallel runs start one ``train`` process per rank under the env
+contract of ``runtime/cluster.py`` (``POSEIDON_PROC_ID``,
 ``POSEIDON_NUM_PROCS``, ``POSEIDON_COORDINATOR``; ``scripts/launch.py``'s
 ``launch_local(..., program=[python, "-m", "poseidon_tpu_torch"])`` sets
 them), with the comm flags of the JAX ``train`` command that the port
@@ -124,8 +146,14 @@ none, unless ``--device cpu``). ``convert_imageset``,
 dataset tools of ``runtime/tools.py``; ``extract_features`` dumps named
 blobs of the TEST phase's forward to LMDBs. ``time`` and
 ``extract_features`` plan the layout an unflagged ``train`` plans ("auto":
-NHWC on the card). The JAX CLI's ``tune`` is not in the port. Every
-command runs on ``cuda`` unless ``--device cpu``.
+NHWC on the card). ``tune`` runs the measured autotuner
+(``runtime/tuned_plan.run_tune``) and prints one JSON line; a second
+``tune`` of the same model on the same card loads the persisted plan
+(``"source": "persisted"``), ``--force`` measures again. ``serve`` and
+``bench_serve`` take an unset ``--buckets`` (and ``serve --generate``
+its page size, decode rungs and prompt buckets) from the plan under
+``--tuned_plan auto``. Every command runs on ``cuda`` unless ``--device
+cpu``.
 """
 
 from __future__ import annotations
@@ -134,6 +162,7 @@ import argparse
 import json
 import signal
 import sys
+from contextlib import contextmanager
 from typing import List, Optional
 
 from .metrics import log
@@ -156,6 +185,68 @@ layers { name: "fc" type: INNER_PRODUCT bottom: "pool1" top: "fc"
   inner_product_param { num_output: 10 weight_filler { type: "xavier" } } }
 layers { name: "prob" type: SOFTMAX bottom: "fc" top: "prob" }
 """
+
+
+def _resolve_serve_buckets(args) -> str:
+    """The bucket ladder through the tuned plan (JAX's): an explicit
+    --buckets wins; else the persisted plan of the deploy net (keyed by
+    its name, the backend and the device count) gives its measured
+    ladder; else the built-in default. The source is logged."""
+    from .tuned_plan import BUILTIN_DEFAULTS, load_plan
+
+    spec = getattr(args, "buckets", "")
+    if spec:
+        return spec
+    if getattr(args, "model", "") and \
+            getattr(args, "tuned_plan", "auto") != "off":
+        try:
+            from ..proto.messages import load_net
+            model_name = (load_net(args.model).name or "").lower()
+        except Exception as e:  # noqa: BLE001 — the executor build will
+            model_name = ""     # surface a real model problem loudly
+            log(f"[tuned_plan] could not read {args.model!r} for plan "
+                f"lookup ({type(e).__name__}: {e}); default ladder")
+        if model_name:
+            doc = load_plan(model_name, device=args.device or None)
+            ladder = (doc or {}).get("knobs", {}).get("serve_buckets")
+            if ladder:
+                log(f"[tuned_plan] serve_buckets={ladder} "
+                    f"(plan {str(doc.get('key', '?'))[:12]})")
+                return ladder
+    return BUILTIN_DEFAULTS["serve_buckets"]
+
+
+def _resolve_llm_knobs(args) -> dict:
+    """The LM serving knobs through the tuned plan (JAX's): a persisted
+    plan's ``llm_page_size``, ``llm_decode_rungs`` and
+    ``llm_prompt_buckets`` win over the built-in defaults; the source is
+    logged."""
+    from .tuned_plan import BUILTIN_DEFAULTS, load_plan
+
+    keys = ("llm_page_size", "llm_decode_rungs", "llm_prompt_buckets")
+    knobs = {k: BUILTIN_DEFAULTS[k] for k in keys}
+    if getattr(args, "tuned_plan", "auto") != "off":
+        doc = load_plan(args.model, device=args.device or None)
+        hits = {k: (doc or {}).get("knobs", {}).get(k) for k in keys}
+        knobs.update({k: v for k, v in hits.items() if v})
+        if any(hits.values()):
+            log(f"[tuned_plan] llm serving knobs {knobs} "
+                f"(plan {str((doc or {}).get('key', '?'))[:12]})")
+    return knobs
+
+
+@contextmanager
+def _store_scope(args):
+    """``--compile_cache_dir``: where the tuned store lives
+    (``config.CompileCacheConfig``), for the command only."""
+    from .. import config
+    saved = config.compile_cache_config().cache_dir
+    if getattr(args, "compile_cache_dir", ""):
+        config.set_compile_cache_config(cache_dir=args.compile_cache_dir)
+    try:
+        yield
+    finally:
+        config.set_compile_cache_config(cache_dir=saved)
 
 
 def _build_serving_executor(model: str, weights: str, buckets: str,
@@ -242,11 +333,12 @@ def build_serving_fleet(model: str, weights: str, buckets: str,
 
 
 def build_generate_executor(preset: str, device=None, seed: int = 0,
-                            mesh_cfg=None, devices=None):
+                            mesh_cfg=None, devices=None, knobs=None):
     """A warmed paged-KV ``GenerateExecutor`` over a named transformer
     preset with weights drawn from ``seed`` (``--generate`` has no
-    snapshot format yet, as in the JAX package), with the built-in page
-    size, decode rungs and prompt buckets; tensor-parallel under an active
+    snapshot format yet, as in the JAX package), with ``knobs``' page
+    size, decode rungs and prompt buckets (``_resolve_llm_knobs``; the
+    built-in ones when None); tensor-parallel under an active
     ``mesh_cfg`` over ``devices`` (``GenerateExecutor``'s), a library path
     with no CLI flag, as in the JAX package."""
     import torch
@@ -257,7 +349,7 @@ def build_generate_executor(preset: str, device=None, seed: int = 0,
     from ..serving.continuous import (DEFAULT_DECODE_RUNGS,
                                       DEFAULT_PAGE_SIZE,
                                       DEFAULT_PROMPT_BUCKETS,
-                                      GenerateExecutor)
+                                      GenerateExecutor, parse_rungs)
 
     if mesh_cfg is None or not mesh_cfg.active:
         device = resolve_device(device)   # refuse before drawing weights
@@ -272,17 +364,23 @@ def build_generate_executor(preset: str, device=None, seed: int = 0,
             f"prototxt; --model must be one of {'|'.join(LLM_PRESETS)} "
             f"(got {preset!r})")
     params = init_params(cfg, torch.Generator().manual_seed(seed))
-    # a preset smaller than the default ladder drops the buckets it cannot
-    # hold rather than refusing to serve
-    buckets = tuple(b for b in DEFAULT_PROMPT_BUCKETS if b < cfg.max_seq)
-    return GenerateExecutor(cfg, params, page_size=DEFAULT_PAGE_SIZE,
-                            decode_rungs=DEFAULT_DECODE_RUNGS,
-                            prompt_buckets=buckets, device=device,
-                            mesh_cfg=mesh_cfg, devices=devices)
+    page_size, rungs = DEFAULT_PAGE_SIZE, DEFAULT_DECODE_RUNGS
+    ladder = DEFAULT_PROMPT_BUCKETS
+    if knobs is not None:
+        page_size = int(knobs["llm_page_size"])
+        rungs = parse_rungs(str(knobs["llm_decode_rungs"]))
+        ladder = parse_rungs(str(knobs["llm_prompt_buckets"]))
+    # a preset smaller than the ladder drops the buckets it cannot hold
+    # rather than refusing to serve
+    buckets = tuple(b for b in ladder if b < cfg.max_seq)
+    return GenerateExecutor(cfg, params, page_size=page_size,
+                            decode_rungs=rungs, prompt_buckets=buckets,
+                            device=device, mesh_cfg=mesh_cfg,
+                            devices=devices)
 
 
 def build_generate_fleet(preset: str, n_replicas: int, devices_spec: str = "",
-                         max_queue: int = 64, device: str = "",
+                         max_queue: int = 64, device: str = "", knobs=None,
                          **manager_kw):
     """N warmed generate replicas (``build_generate_executor``) under one
     ``ReplicaManager``, placed as ``build_serving_fleet`` places CNN
@@ -292,7 +390,8 @@ def build_generate_fleet(preset: str, n_replicas: int, devices_spec: str = "",
 
     def factory(dev):
         return build_generate_executor(
-            preset, device=dev if dev is not None else (device or None))
+            preset, device=dev if dev is not None else (device or None),
+            knobs=knobs)
 
     return ReplicaManager.build(factory, n_replicas, devices=devices,
                                 max_queue=max_queue, **manager_kw)
@@ -322,6 +421,11 @@ def _watch_prefix(args):
 
 
 def cmd_serve(args) -> int:
+    with _store_scope(args):
+        return _serve(args)
+
+
+def _serve(args) -> int:
     """Serve a deploy net over TCP (dynamic micro-batching, the bucketed
     executor, hot reload under ``--watch``, graceful drain on SIGTERM), or
     with ``--generate`` a transformer preset through the paged-KV
@@ -341,10 +445,11 @@ def cmd_serve(args) -> int:
                              "--weights/--watch have no LLM snapshot format "
                              "to load yet")
         watch = ""
+        knobs = _resolve_llm_knobs(args)
         if fleet_mode:
             manager = build_generate_fleet(args.model, replicas,
                                            args.devices, args.max_queue,
-                                           device=args.device)
+                                           device=args.device, knobs=knobs)
             ref = manager.reference_executor()
             log(f"serve: warmed {len(manager.replicas)} generate replicas "
                 f"({args.model}, {ref.cfg.n_params()} params each, "
@@ -353,16 +458,18 @@ def cmd_serve(args) -> int:
                 f"{[r.device_label for r in manager.replicas]}")
         else:
             executor = build_generate_executor(args.model,
-                                               device=args.device or None)
+                                               device=args.device or None,
+                                               knobs=knobs)
             log(f"serve: warmed generate executor ({args.model}, "
                 f"{executor.cfg.n_params()} params, page_size="
                 f"{executor.page_size}, rungs={executor.decode_rungs}, "
                 f"buckets={executor.prompt_buckets}) on {executor.device}")
     else:
         watch, serving_snap = _watch_prefix(args)
+        buckets = _resolve_serve_buckets(args)
         if fleet_mode:
             manager = build_serving_fleet(
-                args.model, args.weights, args.buckets, replicas,
+                args.model, args.weights, buckets, replicas,
                 args.devices, max_delay_s=args.max_delay_ms / 1e3,
                 max_queue=args.max_queue, device=args.device)
             ref = manager.reference_executor()
@@ -375,7 +482,7 @@ def cmd_serve(args) -> int:
                                          current_path=serving_snap)
         else:
             executor = _build_serving_executor(args.model, args.weights,
-                                               args.buckets,
+                                               buckets,
                                                device=args.device or None)
             log(f"serve: warmed buckets {executor.buckets} on "
                 f"{executor.device} ({executor.net.name or 'net'}, "
@@ -472,22 +579,28 @@ def run_serving_bench(executor, requests: int, concurrency: int, batch: int,
 
 
 def cmd_bench_serve(args) -> int:
+    with _store_scope(args):
+        return _bench_serve(args)
+
+
+def _bench_serve(args) -> int:
     """In-process serving microbenchmark: the server on port 0 driven by
     the load generator; prints ONE JSON line (p50/p99, throughput, shed
     and fill telemetry). ``--replicas N`` benches the fleet path;
     ``--offered_rps R`` switches to the open loop."""
     replicas = max(1, args.replicas)
     offered = args.offered_rps if args.offered_rps > 0 else None
+    buckets = _resolve_serve_buckets(args)
     if replicas > 1 or args.devices:
         fleet = build_serving_fleet(
-            args.model, args.weights, args.buckets, replicas, args.devices,
+            args.model, args.weights, buckets, replicas, args.devices,
             max_delay_s=args.max_delay_ms / 1e3, max_queue=args.max_queue,
             device=args.device)
         executor = None
     else:
         fleet = None
         executor = _build_serving_executor(args.model, args.weights,
-                                           args.buckets,
+                                           buckets,
                                            device=args.device or None)
     result, stats = run_serving_bench(
         executor, args.requests, args.concurrency, args.batch,
@@ -522,6 +635,41 @@ def cmd_bench_serve(args) -> int:
     return 0
 
 
+def cmd_tune(args) -> int:
+    """The measured autotuner (``runtime/tuned_plan.run_tune``): short
+    wall-clock trials over the policy space, persisted as one plan with
+    provenance in the tuned store (``--compile_cache_dir``, else the
+    default store) that ``train``, ``serve`` and ``bench_serve`` load. A
+    second ``tune`` loads the persisted plan and measures nothing
+    (``--force`` measures again). Prints one JSON line."""
+    import os
+
+    from .tuned_plan import run_tune
+
+    with _store_scope(args):
+        result = run_tune(args.model, smoke=args.smoke, force=args.force,
+                          deploy=args.deploy, windows=args.windows or None,
+                          iters=args.iters or None,
+                          device=args.device or None)
+    doc = result["doc"]
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)),
+                    exist_ok=True)
+        tmp = f"{args.out}.tmp.{os.getpid()}"
+        with open(tmp, "w") as f:
+            json.dump(doc, f, indent=1, sort_keys=True)
+        os.replace(tmp, args.out)
+    print(json.dumps({
+        "metric": "tune", "model": doc["model"],
+        "backend": doc["backend"], "device_kind": doc["device_kind"],
+        "source": result["source"], "path": result["path"],
+        "knobs": doc["knobs"],
+        "search_cost_s": doc.get("search_cost_s"),
+        "tuned_vs_default_speedup": doc.get("ab", {}).get("speedup"),
+    }), flush=True)
+    return 0
+
+
 def bucket_mb_of(dwbp_bucket_mb: float, param_arena: bool,
                  arena_bucket_mb: float) -> float:
     """The JAX ``train`` command's three bucket knobs as the port's one
@@ -539,8 +687,13 @@ def comm_from_args(args):
     from ..parallel.mesh import DCN_AXIS
     from ..parallel.strategies import CommConfig
 
+    from .tuned_plan import BUILTIN_DEFAULTS
+    # an unset --arena_bucket_mb (not resolved through a tuned plan) is
+    # the built-in default
+    arena_mb = (BUILTIN_DEFAULTS["arena_bucket_mb"]
+                if args.arena_bucket_mb is None else args.arena_bucket_mb)
     bucket_mb = bucket_mb_of(args.dwbp_bucket_mb, args.param_arena == "true",
-                             args.arena_bucket_mb)
+                             arena_mb)
     if args.mesh:
         if args.dcn_slices > 1:
             raise SystemExit("--mesh and --dcn_slices do not compose: the "
@@ -553,7 +706,7 @@ def comm_from_args(args):
                 log("WARNING: dwbp_bucket_mb is superseded by the arena's "
                     "bucketed reduce-scatter schedule on a named mesh; "
                     "ignoring")
-            bucket_mb = args.arena_bucket_mb
+            bucket_mb = arena_mb
     # --wire_dtype rides two tiers: the compiled collectives (bf16/f16)
     # and the async tier's delta payloads, which also take int8; int8
     # never enters the compiled config
@@ -628,25 +781,88 @@ def async_from_args(args):
     return 0, cfg
 
 
-def train_policy(args) -> dict:
-    """The numeric-policy fields the ``train`` flags set (JAX's
-    ``cmd_train``: ``--bf16`` is ``set_perf_policy``, then the layout and
-    strategy flags; an unset ``--conv_layout`` is "auto", as in JAX without
-    a tuned plan)."""
+def train_policy(args, res=None) -> dict:
+    """The numeric-policy fields of a ``train`` (JAX's ``cmd_train``:
+    ``--bf16`` is ``set_perf_policy``, then the layout and strategy):
+    from the tuned-plan resolution ``res`` when given, else from the
+    flags, where an unset ``--conv_layout`` is "auto"."""
     import torch
-    out = {"conv_layout": (args.conv_layout or "auto").upper()}
+    if res is not None:
+        layout, strategy = res.values["conv_layout"], \
+            res.values["conv_strategy"]
+    else:
+        layout, strategy = args.conv_layout or "auto", args.conv_strategy
+    out = {"conv_layout": str(layout).upper()}
     if args.bf16:
         out.update(compute_dtype=torch.bfloat16, conv_s2d=True)
-    if args.conv_strategy:
-        out["conv_strategy"] = args.conv_strategy
+    if strategy:
+        out["conv_strategy"] = strategy
     return out
 
 
-def cmd_train(args) -> int:
-    from ..numeric import policy_scope
+def resolve_train_plan(args):
+    """The tuned-plan resolution of a ``train`` (JAX's
+    ``_apply_tuned_plan_train``): the flags the user set, then the
+    persisted plan of the train net (keyed by its name, the backend and
+    the device count; ``--tuned_plan off`` skips the store), then the
+    built-in defaults, knob by knob. A missing or refused plan is logged
+    and the defaults apply."""
+    from .tuned_plan import TRAIN_KNOBS, load_plan, resolve, store_dir
 
-    with policy_scope(**train_policy(args)):
-        return _train(args)
+    # each knob's flag has the knob's name; None or "" is unset
+    explicit = {}
+    for knob in TRAIN_KNOBS:
+        v = getattr(args, knob, None)
+        if v is None or v == "":
+            continue
+        explicit[knob] = v.upper() if knob == "conv_layout" else v
+    doc, store = None, ""
+    if getattr(args, "tuned_plan", "auto") != "off":
+        from ..proto.messages import load_solver
+        from .engine import resolve_nets
+        try:
+            train_param, _ = resolve_nets(load_solver(args.solver))
+            model = (train_param.name or "net").lower()
+        except Exception as e:  # noqa: BLE001 — the engine's build will
+            model = ""          # surface a real solver problem loudly
+            log(f"[tuned_plan] could not read {args.solver!r} for plan "
+                f"lookup ({type(e).__name__}: {e}); built-in defaults")
+        store = store_dir()
+        doc = (load_plan(model, cache_dir=store, device=args.device or None)
+               if model else None)
+        if doc is None and model:
+            log(f"[tuned_plan] no plan for {model!r} in {store}; built-in "
+                f"defaults apply (run `python -m poseidon_tpu_torch tune "
+                f"--model ...` to measure one)")
+    return resolve(doc, explicit, store=store)
+
+
+def cmd_train(args) -> int:
+    """``train`` under its tuned-plan resolution: the policy, the
+    pipeline config, the managed tier's wire dtype and the active
+    resolution hold for the command and are restored when it returns."""
+    import dataclasses
+
+    from .. import config
+    from ..numeric import policy_scope
+    from . import tuned_plan
+
+    saved_pipe = dataclasses.asdict(config.pipeline_config())
+    saved_wire = config.managed_comm_config().wire_dtype
+    saved_active = tuned_plan.active_resolution()
+    try:
+        with _store_scope(args):
+            res = resolve_train_plan(args)
+            with policy_scope(**train_policy(args, res)):
+                knobs = tuned_plan.apply_training_resolution(res)
+                log(f"[tuned_plan] {res.describe()}")
+                for k, v in knobs.items():
+                    setattr(args, k, v)
+                return _train(args)
+    finally:
+        config.set_pipeline_config(**saved_pipe)
+        config.set_managed_comm_config(wire_dtype=saved_wire)
+        tuned_plan.set_active_resolution(saved_active)
 
 
 def _train(args) -> int:
@@ -680,8 +896,9 @@ def _train(args) -> int:
                  metrics_port=(args.metrics_port if args.metrics_port >= 0
                                else None),
                  hostfile=args.hostfile or None, node_id=_node_id(args),
-                 steps_per_dispatch=args.steps_per_dispatch,
-                 remat=args.remat or None, hbm_budget_gb=args.hbm_budget_gb)
+                 steps_per_dispatch=args.steps_per_dispatch or 1,
+                 remat=args.remat or None, hbm_budget_gb=args.hbm_budget_gb,
+                 profile_steps=args.profile)
     try:
         if args.snapshot == "auto":
             if eng.auto_resume() is None and args.weights:
@@ -1094,9 +1311,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "flag it keeps the arena and its one fused update: "
                         "the JAX package's per-leaf update path is not "
                         "in the port")
-    t.add_argument("--arena_bucket_mb", type=float, default=4.0,
+    t.add_argument("--arena_bucket_mb", type=float, default=None,
                    help="arena gradient-sync bucket size in MB, DWBP-"
-                        "ordered exact element ranges; <= 0 = one a leaf")
+                        "ordered exact element ranges; <= 0 = one a leaf "
+                        "(unset: the tuned plan's, else 4)")
     t.add_argument("--topk_policy", default="magnitude",
                    choices=["magnitude", "random", "fixed_order"],
                    help="which entries the TOPK budget sends (the "
@@ -1200,12 +1418,14 @@ def build_parser() -> argparse.ArgumentParser:
                         "own process group (--mesh inside the slice) and "
                         "its leader speaks the async tier with the slice "
                         "id as its worker id")
-    t.add_argument("--steps_per_dispatch", type=int, default=1,
+    t.add_argument("--steps_per_dispatch", type=int, default=None,
                    help="run K optimizer steps per dispatch (on the card "
                         "one CUDA graph of the K steps, captured once and "
                         "replayed): amortizes the host's per-step launch "
                         "cost; falls back to single steps near "
-                        "display/test/snapshot boundaries (default 1)")
+                        "display/test/snapshot boundaries and inside the "
+                        "--profile window (unset: the tuned plan's, "
+                        "else 1)")
     t.add_argument("--hbm_budget_gb", type=float, default=None,
                    help="per-device memory budget (GiB) for the measured "
                         "remat planner (core/remat.py): one no-remat "
@@ -1257,13 +1477,28 @@ def build_parser() -> argparse.ArgumentParser:
                         "snapshots stay canonical NCHW). Unset = 'auto': "
                         "NHWC (channels-last) on the card, NCHW on the CPU")
     t.add_argument("--conv_strategy", default="",
-                   choices=["", "direct", "s2d"],
-                   help="conv lowering forced net-wide: 'direct', or 's2d' "
-                        "(the space-to-depth stem rewrite where a conv's "
-                        "shape allows it); empty = the policy's conv_s2d "
-                        "(on under --bf16). The JAX package's measured "
-                        "'auto' and 'im2col' need ops/conv_tune.py, not in "
-                        "the port yet")
+                   choices=["", "auto", "direct", "im2col", "s2d"],
+                   help="conv lowering: 'direct', 'im2col' (patches and "
+                        "one GEMM) or 's2d' (the space-to-depth stem "
+                        "rewrite where a conv's shape allows it) net-wide, "
+                        "or 'auto': a measured winner a conv layer "
+                        "(ops/conv_tune.py, persisted in the tuned store); "
+                        "empty = the tuned plan's, else the policy's "
+                        "conv_s2d (on under --bf16)")
+    t.add_argument("--tuned_plan", default="auto", choices=["auto", "off"],
+                   help="'auto' loads the persisted tuned plan of (train "
+                        "net, backend, devices) and fills every knob no "
+                        "flag set (provenance in stats.yaml); 'off' = "
+                        "built-in defaults and flags only")
+    t.add_argument("--compile_cache_dir", default="",
+                   help="the tuned store's directory (plans and conv "
+                        "winners under <dir>/tuned/); empty = "
+                        "POSEIDON_COMPILE_CACHE_DIR, else the default "
+                        "store")
+    t.add_argument("--profile", type=int, default=0,
+                   help="trace N single steps from the third with "
+                        "torch.profiler into <output_dir>/profile/ and "
+                        "print the per-layer attribution table")
     t.add_argument("--trace_out", default="",
                    help="host-side span timeline: record prefetch-wait/"
                         "dispatch/hard-sync/snapshot spans and write "
@@ -1334,10 +1569,19 @@ def build_parser() -> argparse.ArgumentParser:
     sv.add_argument("--weights", default="",
                     help="a .caffemodel or .solverstate.npz to serve; "
                          "empty serves filler init (smoke mode)")
-    sv.add_argument("--buckets", default="1,4,16,64",
+    sv.add_argument("--buckets", default="",
                     help="batch bucket ladder; every bucket is warmed at "
-                         "startup (the JAX package's TunedPlan ladder and "
-                         "--tuned_plan are not in the port)")
+                         "startup (unset: the tuned plan's, else "
+                         "1,4,16,64)")
+    sv.add_argument("--tuned_plan", default="auto", choices=["auto", "off"],
+                    help="'auto' resolves an unset --buckets (with "
+                         "--generate: the page size, decode rungs and "
+                         "prompt buckets) through the persisted tuned "
+                         "plan; 'off' = built-in defaults")
+    sv.add_argument("--compile_cache_dir", default="",
+                    help="the tuned store's directory (empty = "
+                         "POSEIDON_COMPILE_CACHE_DIR, else the default "
+                         "store)")
     sv.add_argument("--host", default="127.0.0.1",
                     help="bind address; the protocol is pickle-framed and "
                          "unauthenticated — loopback/trusted networks only")
@@ -1371,7 +1615,11 @@ def build_parser() -> argparse.ArgumentParser:
                     help="deploy prototxt; empty uses a built-in synthetic "
                          "conv net")
     bs.add_argument("--weights", default="")
-    bs.add_argument("--buckets", default="1,4,16,64")
+    bs.add_argument("--buckets", default="",
+                    help="batch bucket ladder (unset: the tuned plan's "
+                         "for --model, else 1,4,16,64)")
+    bs.add_argument("--tuned_plan", default="auto", choices=["auto", "off"])
+    bs.add_argument("--compile_cache_dir", default="")
     bs.add_argument("--requests", type=int, default=200)
     bs.add_argument("--concurrency", type=int, default=4)
     bs.add_argument("--batch", type=int, default=8,
@@ -1388,6 +1636,41 @@ def build_parser() -> argparse.ArgumentParser:
                     help="cuda (the default; refuses to run without a GPU) "
                          "or cpu")
     bs.set_defaults(fn=cmd_bench_serve)
+
+    tu = sub.add_parser(
+        "tune", help="measured autotuner: short wall-clock trials over "
+                     "the policy space (conv layout and strategy, arena "
+                     "buckets, steps a dispatch, pipeline, serving rungs, "
+                     "LM serving, wire dtype, remat and batch), persisted "
+                     "as one plan that train/serve load")
+    tu.add_argument("--model", default="lenet",
+                    choices=["lenet", "alexnet", "googlenet"],
+                    help="tune target (the plan is keyed by the net's name, "
+                         "so a train run of the same model loads it)")
+    tu.add_argument("--smoke", action="store_true",
+                    help="small shapes and 2-point search spaces (the CPU "
+                         "tests' size)")
+    tu.add_argument("--force", action="store_true",
+                    help="measure again even when a matching plan is "
+                         "persisted")
+    tu.add_argument("--deploy", default="",
+                    help="deploy prototxt for the serving-ladder trials "
+                         "(default: a synthetic probe net, labeled)")
+    tu.add_argument("--windows", type=int, default=0,
+                    help="interleaved timing windows a trial (0 = 2 under "
+                         "--smoke, else 4)")
+    tu.add_argument("--iters", type=int, default=0,
+                    help="calls a window (0 = 2 under --smoke, else 4)")
+    tu.add_argument("--out", default="",
+                    help="also write the plan document here")
+    tu.add_argument("--compile_cache_dir", default="",
+                    help="the tuned store's directory (empty = "
+                         "POSEIDON_COMPILE_CACHE_DIR, else the default "
+                         "store)")
+    tu.add_argument("--device", default="",
+                    help="cuda (the default; refuses to run without a GPU) "
+                         "or cpu")
+    tu.set_defaults(fn=cmd_tune)
 
     ci = sub.add_parser("convert_imageset", help="image list -> LMDB")
     ci.add_argument("listfile")

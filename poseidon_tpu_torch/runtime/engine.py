@@ -68,8 +68,25 @@ and the knapsack picks the layers; a budget < 0 is the card's own limit
 section; a plan that fits (identity) is dropped. Under SSP staleness the
 flags warn and are ignored, as in JAX.
 
+``profile_steps`` N > 0 (``train --profile N``, JAX's window): a
+``torch.profiler`` session (the CPU and, on the card, the device) traces
+N steps from the third step after ``train()`` starts, after one warm-up
+step of its own whose events it drops, and closes after them, or in the
+``finally`` block; the loop dispatches single steps from the start until
+the window closes (no CUDA graph replays inside it: a replayed graph's
+kernels carry no layer) and chunks after it. The trace
+goes to ``output_dir/profile/`` ("Wrote profiler trace to ..."); rank 0
+prints the per-layer attribution table (``runtime/attribution.py``) and
+stats.yaml gains a ``profile`` section: the trace, each kernel's
+launches over the window (the counters' rise), coverage and the top
+sinks. When the CLI resolved a tuned plan (``runtime/tuned_plan.py``),
+stats.yaml carries its ``tuned_plan`` section: every knob's value and
+source (flag, plan, default) and the flags that overrode a measured
+winner.
+
 ``device_prefetch``, ``max_in_flight`` and ``async_snapshot`` left at
-``None`` take ``config.PipelineConfig``'s defaults. The pipeline moves
+``None`` take the process's ``config.pipeline_config()`` (a tuned plan's
+values after ``tuned_plan.apply_training_resolution``). The pipeline moves
 only where the host blocks: the steps and their batches are the serial
 loop's (``device_prefetch=0, max_in_flight=1``), bit for bit.
 
@@ -121,12 +138,13 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
-from ..config import PipelineConfig
+from ..config import pipeline_config
 from ..core.net import Net
 from ..data.pipeline import (BatchPipeline, DevicePrefetcher,
                              build_phase_pipelines, place_batch)
 from ..data.workload import Shard
 from ..numeric import policy, resolve_device
+from ..ops import _build
 from ..parallel.mesh import DCN_AXIS, DataGroup, rank_seed
 from ..parallel.strategies import TOPK, CommConfig, auto_strategies
 from ..parallel.trainer import (build_eval_step, build_ssp_train_step,
@@ -239,8 +257,13 @@ class Engine:
                  hostfile: Optional[str] = None,
                  node_id: Optional[int] = None,
                  steps_per_dispatch: int = 1, remat: Optional[str] = None,
-                 hbm_budget_gb: Optional[float] = None):
+                 hbm_budget_gb: Optional[float] = None,
+                 profile_steps: int = 0):
         self.sp = sp
+        self.profile_steps = max(0, int(profile_steps))
+        # the launch counters where the profile window's traced steps
+        # began
+        self._profile_launches: Dict[str, int] = {}
         self._want_spd = max(1, int(steps_per_dispatch))
         self._remat_flag = remat
         self.hbm_budget_gb = hbm_budget_gb
@@ -269,7 +292,7 @@ class Engine:
         if dcn_slices > 1 and self.comm.dcn_axis is None:
             self.comm.dcn_axis = DCN_AXIS
         self.sfb_auto = sfb_auto
-        pc = PipelineConfig()
+        pc = pipeline_config()
         self.device_prefetch = max(0, int(
             pc.device_prefetch if device_prefetch is None
             else device_prefetch))
@@ -337,6 +360,13 @@ class Engine:
         # engine's train() calls; the counter steps_in_flight is the last
         # train()'s mean window occupancy at dispatch
         self.stats = StatsRegistry()
+        # the tuned plan's provenance (runtime/tuned_plan.py): when the CLI
+        # resolved a plan for this run, stats.yaml says every knob's value
+        # and source and which measured winners a flag overrode
+        from .tuned_plan import active_resolution
+        plan = active_resolution()
+        if plan is not None:
+            self.stats.set_section("tuned_plan", plan.provenance())
         self._metrics_server: Optional[MetricsServer] = None
         self.metrics_port: Optional[int] = None
         self._telemetry_warned = False
@@ -729,12 +759,14 @@ class Engine:
                    for t, v in out.items()}
         return out
 
-    def _chunk(self, it: int, max_iter: int) -> int:
+    def _chunk(self, it: int, max_iter: int,
+               profile_start: Optional[int] = None) -> int:
         """How many steps the next dispatch runs: steps_per_dispatch when
         no display, test or snapshot boundary falls inside the chunk (JAX's
-        rule), else 1."""
+        rule), else 1; 1 until the profile window closes."""
         k = self.steps_per_dispatch
-        if k == 1:
+        if k == 1 or (profile_start is not None
+                       and it < profile_start + self.profile_steps):
             return 1
         sp = self.sp
         room = max_iter - it
@@ -745,6 +777,49 @@ class Engine:
         if sp.snapshot:
             room = min(room, sp.snapshot - it % sp.snapshot)
         return k if room >= k else 1
+
+    def _start_profile(self):
+        """Open the profile window's ``torch.profiler`` session (its
+        warm-up step comes first)."""
+        from .attribution import start_trace
+        return start_trace(os.path.join(self.output_dir, "profile"),
+                           steps=self.profile_steps,
+                           name=f"rank{self.rank}",
+                           cuda=self.device.type == "cuda")
+
+    def _stop_profile(self, prof) -> None:
+        """Close the window: write the trace ("Wrote profiler trace to
+        ..."), then (rank 0) the attribution table and stats.yaml's
+        ``profile`` section."""
+        from . import attribution as A
+        trace_dir = os.path.join(self.output_dir, "profile")
+        path = A.stop_trace(prof)
+        if not os.path.exists(path):
+            log("WARNING: the profile window closed before its first "
+                "traced step; no trace written", rank=self.rank)
+            return
+        after = _build.launch_counts()
+        launches = {k: after[k] - self._profile_launches.get(k, 0)
+                    for k in after
+                    if after[k] != self._profile_launches.get(k, 0)}
+        log(f"Wrote profiler trace to {trace_dir}", rank=self.rank)
+        if self.rank != 0:
+            return
+        events = A.load_trace_events(path)
+        smap = A.trace_scope_map(events,
+                                 {l.name for l in self.train_net.layers})
+        result = A.attribute(events, smap,
+                             cost_table=A.layer_cost_table(self.train_net),
+                             steps=self.profile_steps)
+        log(A.format_table(result, title=f"[profile] per-layer attribution "
+                                         f"over {self.profile_steps} "
+                                         f"steps (ms a step)"))
+        self.stats.set_section("profile", {
+            "trace": path, "steps": self.profile_steps,
+            "launches": launches, "coverage": result["coverage"],
+            "total_ms": result["total_ms"],
+            "top_sinks": result["top_sinks"],
+            "residual_top_ops": result["residual"]["top_ops"]})
 
     def _next_train_batch(self):
         """The train step's input: one batch, or under iter_size K the K
@@ -921,6 +996,10 @@ class Engine:
         # are unread
         fetcher = AsyncScalarFetcher(self.max_in_flight)
         t_start = time.perf_counter()
+        # the profile window: skip a couple of warm-up steps (JAX's); the
+        # session opens a step earlier for its own warm-up step
+        profile_start = it + 2 if self.profile_steps else None
+        prof = None
         try:
             while it < max_iter:
                 if sp.snapshot and it > 0 and it % sp.snapshot == 0:
@@ -930,7 +1009,9 @@ class Engine:
                     with span_recorder.span("snapshot", "ckpt",
                                             {"iter": it}):
                         self.snapshot_now()
-                chunk = self._chunk(it, max_iter)
+                if profile_start is not None and it == profile_start - 1:
+                    prof = self._start_profile()
+                chunk = self._chunk(it, max_iter, profile_start)
                 span = {"iter": it, "chunk": chunk} if chunk > 1 \
                     else {"iter": it}
                 t_in = time.perf_counter()
@@ -952,6 +1033,17 @@ class Engine:
                 if self._h5_train:
                     self._write_train_h5(self.train_step.dumped)
                 it += chunk
+                if prof is not None:
+                    # the step's device work ends inside its own window
+                    if self.device.type == "cuda":
+                        torch.cuda.synchronize(self.device)
+                    prof.step()
+                    if it == profile_start:
+                        # the traced steps' launches count from here
+                        self._profile_launches = _build.launch_counts()
+                    elif it >= profile_start + self.profile_steps:
+                        self._stop_profile(prof)
+                        prof = None
                 self.stats.add_time("input_stall", t0 - t_in)
                 self.stats.add_time("train_step", time.perf_counter() - t0)
                 self.stats.add("train_iters", chunk)
@@ -1001,6 +1093,8 @@ class Engine:
             self.stats.add_time("train_total",
                                    time.perf_counter() - t_start)
             fetcher.close()
+            if prof is not None:
+                self._stop_profile(prof)
         if self._async_tier is not None:
             # the last clock flushed and (rank 0) the final anchor in the
             # arena BEFORE the after-train snapshot

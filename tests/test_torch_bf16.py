@@ -390,7 +390,10 @@ def test_train_flags_parse_to_the_policy():
     assert cli.train_policy(args) == {
         "conv_layout": "NCHW", "compute_dtype": torch.bfloat16,
         "conv_s2d": True, "conv_strategy": "s2d"}
-    for bad in (["--conv_layout", "nwhc"], ["--conv_strategy", "auto"],
-                ["--conv_strategy", "im2col"]):
+    for later in ("auto", "im2col"):
+        args = parse(["train", "--solver=s", "--conv_strategy", later])
+        assert cli.train_policy(args) == {"conv_layout": "AUTO",
+                                          "conv_strategy": later}
+    for bad in (["--conv_layout", "nwhc"], ["--conv_strategy", "winograd"]):
         with pytest.raises(SystemExit):
             parse(["train", "--solver=s", *bad])

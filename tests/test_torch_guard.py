@@ -30,8 +30,11 @@ assert spmd.SpmdTrainStep and spmd.TPColMatmul and spmd.ShardingPlan
 assert "poseidon_tpu_torch.parallel.sequence" in names
 # the mixture of experts and its expert-parallel step
 assert "poseidon_tpu_torch.models.moe" in names
-# the data sources, the disk streamer and the dataset tools
-for mod in ("data.window", "data.stream", "data.libsvm", "runtime.tools"):
+# the data sources, the disk streamer and the dataset tools; the tuned
+# store, the tuned plan, the conv tuner and the trace attribution
+for mod in ("data.window", "data.stream", "data.libsvm", "runtime.tools",
+            "runtime.compile_cache", "runtime.tuned_plan", "ops.conv_tune",
+            "runtime.attribution"):
     assert "poseidon_tpu_torch." + mod in names, mod
 # a bf16-wire round trip of the async tier: quantize, encode, decode, widen
 import numpy as np

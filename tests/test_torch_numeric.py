@@ -76,15 +76,17 @@ def test_bf16_smoke_band_equals_jax():
 
 
 def test_conv_strategy_values():
-    for ok in ("", "direct", "s2d"):
+    # JAX's axis, "auto" (measured per layer) and "im2col" included
+    from poseidon_tpu.ops import nn as jnn
+    assert tnum.CONV_STRATEGIES == jnn.CONV_STRATEGIES
+    for ok in ("", "auto", "direct", "im2col", "s2d"):
         assert tnum.check_conv_strategy(ok) == ok
-    for later in ("auto", "im2col"):
-        with pytest.raises(NotImplementedError, match="conv_tune"):
-            tnum.check_conv_strategy(later)
-        with pytest.raises(NotImplementedError, match="conv_tune"):
-            tnum.set_policy(conv_strategy=later)
+    with tnum.policy_scope(conv_strategy="im2col"):
+        assert tnum.policy().conv_strategy == "im2col"
     with pytest.raises(ValueError):
         tnum.check_conv_strategy("winograd")
+    with pytest.raises(ValueError):
+        tnum.set_policy(conv_strategy="winograd")
 
 
 def test_config_reexports_the_policy():

@@ -380,23 +380,23 @@ def test_reloader_background_thread_polls(tmp_path):
 # --------------------------------------------------------------------------- #
 
 def test_cli_serve_parser_defaults():
-    """The serving flags' defaults, each equal to the JAX CLI's but for
-    --buckets (the JAX package resolves an unset ladder through its
-    TunedPlan, which the port does not have: the port's default is the
-    JAX package's built-in ladder)."""
+    """The serving flags' defaults, each equal to the JAX CLI's, --buckets
+    included: unset ("") in both, resolved through the tuned plan
+    (``--tuned_plan auto``) or the built-in ladder."""
     from poseidon_tpu.runtime.cli import build_parser as jax_parser
     from poseidon_tpu_torch.runtime.cli import build_parser
 
     ours = build_parser().parse_args(["serve", "--model", "m.prototxt"])
     theirs = jax_parser().parse_args(["serve", "--model", "m.prototxt"])
-    assert ours.buckets == "1,4,16,64" and theirs.buckets == ""
+    assert ours.buckets == theirs.buckets == ""
     for flag in ("weights", "watch", "host", "port", "max_delay_ms",
                  "max_queue", "deadline_ms", "poll_s", "replicas",
-                 "devices", "metrics_port", "generate"):
+                 "devices", "metrics_port", "generate", "tuned_plan"):
         assert getattr(ours, flag) == getattr(theirs, flag), flag
     ours = build_parser().parse_args(["bench_serve"])
     theirs = jax_parser().parse_args(["bench_serve"])
-    for flag in ("model", "weights", "requests", "concurrency", "batch",
+    for flag in ("model", "weights", "buckets", "tuned_plan", "requests",
+                 "concurrency", "batch",
                  "max_delay_ms", "max_queue", "deadline_ms", "replicas",
                  "devices", "offered_rps"):
         assert getattr(ours, flag) == getattr(theirs, flag), flag
