@@ -602,7 +602,7 @@ STEP_TOL = (1e-4, 1e-6)
 DP_BATCH, DP_STEPS = 256, 3
 DP_CLI_BATCH, DP_CLI_ITERS, DP_CLI_TIMEOUT_S = 128, 3, 300
 DP_CLI_RUNS = (("sfb-auto", ("--strategy", "sfb", "--sfb-auto")),
-               ("dense", ()))
+               ("dense", ("--census",)))
 # SFB (fc6-fc8) vs DENSE after one step: f32 throughout, but SFB takes each
 # FC weight gradient as one product of the gathered factors
 DP_SFB_TOL = (1e-4, 1e-6)
@@ -842,6 +842,30 @@ REMAT_BUDGET_SHARE = 0.75
 REMAT_ITERS = 8
 DISPATCH_BUDGET_S = 90.0
 
+# the [restart] phase, first of all on an idle card (its cold process's
+# kernel store then serves the smoke: phase_build): AlexNet train_val at
+# full width (batch 256, f32,
+# NHWC as unflagged `train` plans it on the card) through `train
+# --compile_cache_dir D --aot_steps true` in two fresh processes on one
+# empty D (RESTART_LAUNCH: cuDNN's deterministic algorithms, the launch
+# report, the process's own start time), RESTART_ITERS iterations each:
+# the cold process builds every kernel library and the data plane into
+# D/kernels, the warm one builds none, and both snapshots are bitwise
+# equal. The [contracts] phase: one channels-last AlexNet step at
+# CONTRACTS_BATCH under the op census, its layout conversions against the
+# CPU contract's (analysis/contracts/alexnet.json), the conversion kernels
+# torch.profiler records on the card, and the census's own cost
+# (CONTRACTS_TIMED single steps with it and without it, in turns).
+RESTART_ITERS = 2
+RESTART_TIMEOUT_S = 300
+RESTART_LAUNCH = (
+    "import time\n"
+    "print('[t0] %.6f' % time.time(), flush=True)\n"
+    "import torch\n"
+    "torch.backends.cudnn.deterministic = True\n"
+    "torch.backends.cudnn.benchmark = False\n" + LAUNCH_REPORT)
+CONTRACTS_BATCH, CONTRACTS_TIMED = 256, 3
+
 
 class SmokeFailure(RuntimeError):
     pass
@@ -875,15 +899,44 @@ def cuda_time_ms(fn, warmup: int = 3, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
-def phase_build() -> None:
+def copy_libraries(src: str, dst: str) -> list:
+    """Copy the checkout's libraries (the kernels of ``ops/csrc`` and the
+    data plane, by their keyed names) found in ``src`` and missing in
+    ``dst`` (each to a temporary name, renamed into place); returns the
+    names copied."""
+    import shutil
+    from poseidon_tpu_torch.data import native
+    from poseidon_tpu_torch.ops import _build
+    os.makedirs(dst, exist_ok=True)
+    copied = []
+    for path in [_build._lib_path(n) for n in _build.sources()] + [
+            native.lib_path()]:
+        a, b = os.path.join(src, path.name), os.path.join(dst, path.name)
+        if os.path.exists(a) and not os.path.exists(b):
+            shutil.copyfile(a, f"{b}.tmp.{os.getpid()}")
+            os.replace(f"{b}.tmp.{os.getpid()}", b)
+            copied.append(path.name)
+    return copied
+
+
+def phase_build(store=None) -> None:
+    """Build every kernel of ``ops/csrc`` (one nvcc a source, in parallel)
+    into the checkout's build directory and load it. With ``store`` (a
+    kernel store the cold ``[restart]`` process built from the same
+    sources, toolchain and flags, so its libraries carry the same names),
+    its libraries, the data plane's among them, are copied in first and
+    nothing is built twice."""
     from poseidon_tpu_torch.ops import _build
     names = _build.sources()
     t0 = time.perf_counter()
-    _build.build_all(names)
-    for name in names:
-        _build.load(name)
-    print(f"[build] {len(names)} kernel(s) {names} built (in parallel) and "
-          f"loaded in {time.perf_counter() - t0:.2f} s", flush=True)
+    copied = (copy_libraries(store, str(_build.BUILD_DIR))
+              if store is not None else [])
+    _build.load_all(names)
+    print(f"[build] {len(names)} kernel(s) {names} "
+          + (f"from the cold [restart] process's kernel store ({len(copied)} "
+             f"libraries copied, {len(_build.BUILT)} built here)"
+             if store is not None else "built (in parallel)")
+          + f" and loaded in {time.perf_counter() - t0:.2f} s", flush=True)
 
 
 def bound_ms(nbytes: float, ops: float, dtype_name: str = "float32"):
@@ -2837,13 +2890,15 @@ def phase_train_profile(eng, batch, card: str, tag: str = "train",
             "copy_launches": kinds.get("copy", {}).get("launches", 0)}
 
 
-def phase_train(card: str, root: str, device=None, batch_size=None) -> dict:
+def phase_train(card: str, root: str, device=None, batch_size=None,
+                write_data: bool = True) -> dict:
     """Full-width AlexNet through Engine.train() on the card (``device`` and
     ``batch_size`` are for a CPU rehearsal at a cut batch only)."""
     import torch
     from poseidon_tpu_torch.runtime.engine import Engine
 
-    sp = alexnet_solver(root, batch_size)
+    # the synthetic LMDBs under root (written here unless the caller did)
+    sp = alexnet_solver(root, batch_size, write=write_data)
     eng = Engine(sp, output_dir=root, device=device)
     try:
         n_params = eng.train_net.param_count()
@@ -3758,6 +3813,7 @@ def phase_dp(card: str, root: str, device=None, batch_size=None,
     out["two_ranks"] = {name: without_logs(dp_cli_run(
         card, root, name, flags, dev, cli_batch or DP_CLI_BATCH))
         for name, flags in DP_CLI_RUNS}
+    out["census"] = dp_census(card, os.path.join(root, "dp_dense"))
     out["wall_s"] = time.perf_counter() - t_phase
     t = out.get("step_ms", {})
     print("[dp] " + (
@@ -3775,6 +3831,48 @@ def phase_dp(card: str, root: str, device=None, batch_size=None,
             f"{name} {r['s_per_step']:.3f} s/step"
             for name, r in out["two_ranks"].items())
         + f"; phase wall {out['wall_s']:.1f} s [{card}]", flush=True)
+    return out
+
+
+def dp_census(card: str, work: str, ranks: int = 2) -> list:
+    """The dense pair's first step ran under the op census (``train
+    --census``): each rank's census.json against its own DWBP plan. The
+    buckets go out from the leaves' accumulation hooks, on autograd's
+    device thread on the card: the census must have seen every one."""
+    import numpy as np
+    out = []
+    for r in range(ranks):
+        with open(os.path.join(work, f"p{r}", "census.json")) as f:
+            doc = json.load(f)
+        grads = [c for c in doc["collectives"] if c["kind"] == "all-reduce"
+                 and int(np.prod(c["shape"])) * 4 >= 1024]
+        threads = sorted({c["thread"] for c in grads})
+        row = {"rank": r, "gradient_all_reduces": doc["gradient_all_reduces"],
+               "planned": len(doc["dwbp_buckets"]),
+               "async": sum(c["async"] for c in grads), "threads": threads,
+               "measured_bytes": doc["measured"]["measured_bytes_per_step"],
+               "static_bytes": doc["static"]["total_bytes_per_step"],
+               "layout_transposes": doc["layout_transposes"],
+               "f64_tensors": doc["f64_tensors"], "ops": doc["ops"]}
+        print(f"[dp] census rank {r}: {row['gradient_all_reduces']} gradient "
+              f"all-reduces recorded of {row['planned']} DWBP buckets "
+              f"planned ({row['async']} async), issued from threads "
+              f"{threads}; {row['measured_bytes']} bytes sent a device vs "
+              f"the static table's {row['static_bytes']}; "
+              f"{row['layout_transposes']} layout conversions, "
+              f"{row['f64_tensors']} f64 tensors, {row['ops']} ops [{card}]",
+              flush=True)
+        check(row["gradient_all_reduces"] == row["planned"] > 0,
+              f"[dp] census rank {r}: {row['gradient_all_reduces']} bucket "
+              f"all-reduces recorded, {row['planned']} planned")
+        check([c["shape"] for c in grads]
+              == [[n] for n in doc["dwbp_buckets"]],
+              f"[dp] census rank {r}: the recorded buckets are not the plan")
+        check(row["measured_bytes"] == row["static_bytes"],
+              f"[dp] census rank {r}: measured {row['measured_bytes']} "
+              f"bytes, static {row['static_bytes']}")
+        check(row["f64_tensors"] == 0, f"[dp] census rank {r}: f64 tensors")
+        out.append(row)
     return out
 
 
@@ -8560,6 +8658,10 @@ def phase_tune(card: str, root: str, device=None, batch=None,
     out: dict = {}
     with cudnn_deterministic():
         out["conv"] = tune_conv_pair(card, dev, batch or TUNE_CONV_BATCH)
+    # `--compile_cache_dir` is the children's kernel store too: seed it
+    # with this checkout's libraries (a warm store), so they build nothing
+    from poseidon_tpu_torch.ops import _build
+    copy_libraries(str(_build.BUILD_DIR), os.path.join(store, "kernels"))
     # (b) the search, as a user runs it
     plan_file = os.path.join(work, "plan.json")
     args = ["tune", *tune_args, "--compile_cache_dir", store,
@@ -8868,6 +8970,218 @@ def kernel_entry(name: str, replaces: str, launches: int, records,
             "cases": records}
 
 
+def phase_restart(card: str, root: str, device=None, batch=None) -> dict:
+    """[restart] (see the RESTART_* comment; ``device`` and ``batch`` are
+    for a CPU rehearsal at a cut batch only): two fresh ``train
+    --compile_cache_dir D --aot_steps true`` processes on one empty D."""
+    import torch
+    from poseidon_tpu_torch.ops import _build
+    from poseidon_tpu_torch.proto.messages import (load_solver,
+                                                   net_to_prototxt,
+                                                   solver_to_prototxt)
+    t_phase = time.perf_counter()
+    dev = torch.device(device or "cuda")
+    here = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(root, "restart")
+    store = os.path.join(work, "D")
+    os.makedirs(work)
+    net_file = os.path.join(work, "train_val.prototxt")
+    net_param = alexnet_net_param(root, batch)
+    with open(net_file, "w") as f:
+        f.write(net_to_prototxt(net_param))
+    sp = load_solver(ALEXNET_SOLVER)
+    sp.net, sp.max_iter, sp.display = net_file, RESTART_ITERS, 1
+    sp.test_iter, sp.test_interval, sp.snapshot = [], 0, 0
+    sp.snapshot_prefix = "alexnet"
+    solver = os.path.join(work, "solver.prototxt")
+    with open(solver, "w") as f:
+        f.write(solver_to_prototxt(sp))
+    n_kernels = len(_build.sources())
+    out: dict = {"iters": RESTART_ITERS, "kernel_sources": n_kernels}
+    for run in ("cold", "warm"):
+        cmd = [sys.executable, "-c", RESTART_LAUNCH, "train",
+               f"--solver={solver}", "--output_dir",
+               os.path.join(work, run), "--compile_cache_dir", store,
+               "--aot_steps", "true"]
+        if dev.type == "cpu":
+            cmd += ["--device", "cpu"]
+        t0 = time.time()
+        proc = subprocess.Popen(cmd, cwd=here, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        try:
+            text = proc.communicate(timeout=RESTART_TIMEOUT_S)[0]
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        wall = time.time() - t0
+        lines = text.splitlines()
+        for ln in lines:
+            if ln.startswith(("aot warm start", "compile cache",
+                              "Iteration", "[t0]")):
+                print(f"[restart:{run}] {ln}", flush=True)
+        check(proc.returncode == 0, f"[restart] {run} exited "
+              f"{proc.returncode}:\n" + "\n".join(lines[-30:]))
+        t_start = float(next(ln for ln in lines
+                             if ln.startswith("[t0] ")).split()[1])
+        r = stats_section(os.path.join(work, run, "stats.yaml"), "restart")
+        row = {"wall_s": wall, "libraries_built": int(r["libraries_built"]),
+               "kernel_entries": int(r["kernel_entries"]),
+               "aot_step_entries": int(r["aot_step_entries"]),
+               "builds_s": float(r["builds_s"]),
+               "kernel_warm_s": float(r["kernel_warm_s"]),
+               "engine_start_to_first_step_s": float(
+                   r["start_to_first_step_s"]),
+               "first_dispatch_s": float(r["first_dispatch_s"]),
+               "process_to_first_step_s": float(r["first_step_end_unix"])
+               - t_start,
+               "graph": r["graph"] == "True", "key": r["key"],
+               "launches": fleet_launches(lines, f"[restart] {run}"),
+               "aot_log": [ln for ln in lines
+                           if ln.startswith("aot warm start")]}
+        out[run] = row
+        print(f"[restart] {run}: {row['libraries_built']} libraries built "
+              f"({row['builds_s']:.2f} s of builds), kernel store "
+              f"{row['kernel_entries']} entries, AOT steps "
+              f"{row['aot_step_entries']}; process start to the first "
+              f"finished step {row['process_to_first_step_s']:.2f} s (engine "
+              f"start to it {row['engine_start_to_first_step_s']:.2f} s: "
+              f"kernels ready {row['kernel_warm_s']:.2f} s, the first eager "
+              f"step {row['first_dispatch_s']:.3f} s, no graph capture: "
+              f"steps_per_dispatch 1); process wall {wall:.1f} s [{card}]",
+              flush=True)
+    cold, warm = out["cold"], out["warm"]
+    on_card = dev.type == "cuda"
+    # cold: every kernel source and the data plane; warm: nothing
+    check(cold["libraries_built"] == (n_kernels + 1 if on_card else 1),
+          f"[restart] the cold process built {cold['libraries_built']}")
+    check(warm["libraries_built"] == 0,
+          f"[restart] the warm process built {warm['libraries_built']}")
+    check(cold["key"] == warm["key"], "[restart] the step keys differ")
+    check(cold["aot_step_entries"] == warm["aot_step_entries"] == 0,
+          "[restart] the AOT store holds a step")
+    same = True
+    for ext in (".caffemodel", ".solverstate.npz"):
+        stem = f"alexnet_iter_{RESTART_ITERS}{ext}"
+        with open(os.path.join(work, "cold", stem), "rb") as fa, \
+                open(os.path.join(work, "warm", stem), "rb") as fb:
+            same = same and fa.read() == fb.read()
+    losses = {}
+    for run in ("cold", "warm"):
+        with open(os.path.join(work, run,
+                               f"{net_param.name}_train_outputs.csv")) as f:
+            losses[run] = [float(x["loss"]) for x in csv.DictReader(f)]
+    print(f"[restart] the warm run's first {RESTART_ITERS} steps vs the "
+          f"cold run's (cuDNN deterministic): losses {losses['warm']} vs "
+          f"{losses['cold']}, snapshots bitwise={same}; start to the first "
+          f"step {warm['process_to_first_step_s']:.2f} s warm vs "
+          f"{cold['process_to_first_step_s']:.2f} s cold [{card}]",
+          flush=True)
+    check(same and losses["warm"] == losses["cold"],
+          "[restart] the warm run's steps differ from the cold run's")
+    out["bitwise"] = same
+    out["losses"] = losses
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"[restart] phase wall {out['wall_s']:.1f} s [{card}]", flush=True)
+    return out
+
+
+def phase_contracts(card: str, device=None, batch=None) -> dict:
+    """[contracts] (see the RESTART_* comment; ``device`` and ``batch`` are
+    for a CPU rehearsal at a cut batch only)."""
+    import torch
+    from poseidon_tpu_torch.analysis import contracts as C
+    from poseidon_tpu_torch.core.net import Net
+    from poseidon_tpu_torch.models import zoo
+    from poseidon_tpu_torch.proto.messages import SolverParameter
+    from poseidon_tpu_torch.runtime import hlo_layout as HL
+    from poseidon_tpu_torch.runtime.op_census import f64_tensors, record
+    t_phase = time.perf_counter()
+    dev = torch.device(device or "cuda")
+    on_card = dev.type == "cuda"
+    b = batch or CONTRACTS_BATCH
+    golden = C.load_contract("alexnet")["nhwc"]
+    net = Net(zoo.alexnet(num_classes=CLASSES, with_accuracy=False),
+              "TRAIN", device=dev, conv_layout="NHWC",
+              source_shapes={"data": (b, 3, 227, 227), "label": (b,)})
+    ts = HL.build_plain_step(net, SolverParameter(
+        base_lr=0.01, lr_policy="fixed", momentum=0.9))
+    params, state, batch_ = HL.step_inputs(ts, net, b, 227,
+                                           num_classes=CLASSES)
+    params, state, _ = ts.step(params, state, batch_)
+    sync(dev)
+    zero_launches()
+    (params, state, _), records = record(ts.step, params, state, batch_)
+    sync(dev)
+    launches = read_launches()
+    rep = HL.layout_report(records)
+    f64 = f64_tensors(records)
+
+    ours = [(s["shape"], s["perm"]) for s in rep["layout_transpose_shapes"]]
+    want = [([b] + s["shape"][1:] if s["shape"][0] == 2 else s["shape"],
+             s["perm"]) for s in golden["layout_transpose_shapes"]]
+    print(f"[contracts] one channels-last AlexNet step at batch {b} under "
+          f"the op census: {len(records)} ops, {rep['layout_transposes']} "
+          f"layout conversions (the CPU contract's "
+          f"{golden['layout_transposes']}: the fc6 pair and the five conv "
+          f"filter copies), {f64} f64 tensors; launches {launches} "
+          f"[{card}]", flush=True)
+    for s in rep["layout_transpose_shapes"]:
+        print(f"[contracts]   {s['op']} -> {s['shape']} perm {s['perm']}",
+              flush=True)
+    check(rep["layout_transposes"] == golden["layout_transposes"],
+          f"[contracts] {rep['layout_transposes']} layout conversions on "
+          f"the card, {golden['layout_transposes']} in the CPU contract")
+    check(ours == want, f"[contracts] the conversions differ op by op from "
+          f"the CPU contract's: {ours} vs {want}")
+    check(f64 == 0, f"[contracts] {f64} f64 tensors")
+    if on_card:
+        check(launches.get("lrn_fwd_nhwc") == 2
+              and launches.get("lrn_bwd_nhwc") == 2
+              and launches.get("pool_bwd_nhwc") == 3
+              and launches.get("sgd_update") == 1,
+              f"[contracts] the censused step's launches {launches}")
+    kernels = {}
+    if on_card:
+        kernels = HL.device_conversion_kernels(ts.step, params, state,
+                                               batch_)
+        for name, n in kernels.items():
+            print(f"[contracts]   profiler: {n} x {name[:110]}", flush=True)
+
+    def wall_ms(fn) -> float:
+        sync(dev)
+        t0 = time.perf_counter()
+        fn()
+        sync(dev)
+        return (time.perf_counter() - t0) * 1e3
+
+    plain, censused = [], []
+    for _ in range(CONTRACTS_TIMED):
+        plain.append(wall_ms(lambda: ts.step(params, state, batch_)))
+        censused.append(wall_ms(lambda: record(ts.step, params, state,
+                                               batch_)))
+    plain.sort()
+    censused.sort()
+    cost = {"step_ms": plain[len(plain) // 2],
+            "censused_step_ms": censused[len(censused) // 2],
+            "steps": CONTRACTS_TIMED}
+    print(f"[contracts] the census's own cost: a step {cost['step_ms']:.3f} "
+          f"ms without it, {cost['censused_step_ms']:.3f} ms with it "
+          f"(host wall with a synchronize, median of "
+          f"{CONTRACTS_TIMED} in turns) [{card}]", flush=True)
+    out = {"batch": b, "ops": len(records),
+           "layout_transposes": rep["layout_transposes"],
+           "layout_transpose_shapes": rep["layout_transpose_shapes"],
+           "cpu_contract": golden["layout_transposes"], "f64_tensors": f64,
+           "launches": launches, "profiler_conversion_kernels": kernels,
+           "cost": cost}
+    del ts, params, state, batch_, net
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"[contracts] phase wall {out['wall_s']:.1f} s [{card}]",
+          flush=True)
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -8879,6 +9193,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     t_start = time.perf_counter()
+    root_dir = None
 
     def lap(tag: str) -> None:
         print(f"[lap] {tag} ends at {time.perf_counter() - t_start:.1f} s",
@@ -8889,7 +9204,21 @@ def main() -> int:
         print(card, flush=True)
         print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
               f"device {torch.cuda.get_device_name(0)}", flush=True)
-        phase_build()
+        root_dir = tempfile.TemporaryDirectory()
+        root = root_dir.name
+        # the synthetic ILSVRC-shaped LMDBs, once for [restart] and every
+        # AlexNet train_val phase after it
+        t0 = time.perf_counter()
+        write_synthetic_ilsvrc(root)
+        print(f"[train] synthetic ILSVRC-shaped LMDBs: {TRAIN_RECORDS} train "
+              f"+ {VAL_RECORDS} val records of 3x256x256, {CLASSES} classes, "
+              f"written in {time.perf_counter() - t0:.1f} s", flush=True)
+        # [restart] first, on an idle card: its cold process builds every
+        # kernel library into its store, which then serves this process
+        # and its children (phase_build copies it into build/)
+        restart = phase_restart(card, root)
+        lap("restart")
+        phase_build(os.path.join(root, "restart", "D", "kernels"))
         from poseidon_tpu_torch.core.net import Net
         from poseidon_tpu_torch.numeric import policy_scope
         from poseidon_tpu_torch.proto.messages import load_net
@@ -8914,38 +9243,43 @@ def main() -> int:
         fleet = phase_fleet(card, k1, (solo, load))
         lap("fleet")
         torch.cuda.empty_cache()
-        with tempfile.TemporaryDirectory() as root:
-            train = phase_train(card, root)
-            lap("train")
-            torch.cuda.empty_cache()
-            dispatch = phase_dispatch(card, root)
-            torch.cuda.empty_cache()
-            loop = phase_loop(card, root, train["step_ms"])
-            torch.cuda.empty_cache()
-            bf16 = phase_bf16_train(card, root, train)
-            lap("dispatch, loop and bf16_train")
-            torch.cuda.empty_cache()
-            dp = phase_dp(card, root)
-            torch.cuda.empty_cache()
-            topk = phase_topk(card, root)
-            lap("dp and topk")
-            torch.cuda.empty_cache()
-            ssp = phase_ssp(card, root)
-            lap("ssp")
-            torch.cuda.empty_cache()
-            spmd = phase_spmd(card, root)
-            lap("spmd")
-            torch.cuda.empty_cache()
-            fabric = phase_fabric(card, root)
-            lap("fabric")
-            torch.cuda.empty_cache()
-            tools = phase_tools(card, root, train_step_ms=train["step_ms"])
-            lap("tools")
-            torch.cuda.empty_cache()
-            tune = phase_tune(card, root)
-            torch.cuda.empty_cache()
-            profile = phase_profile(card, root)
-            lap("tune and profile")
+        train = phase_train(card, root, write_data=False)
+        lap("train")
+        torch.cuda.empty_cache()
+        dispatch = phase_dispatch(card, root)
+        torch.cuda.empty_cache()
+        loop = phase_loop(card, root, train["step_ms"])
+        torch.cuda.empty_cache()
+        bf16 = phase_bf16_train(card, root, train)
+        lap("dispatch, loop and bf16_train")
+        torch.cuda.empty_cache()
+        dp = phase_dp(card, root)
+        torch.cuda.empty_cache()
+        topk = phase_topk(card, root)
+        lap("dp and topk")
+        torch.cuda.empty_cache()
+        ssp = phase_ssp(card, root)
+        lap("ssp")
+        torch.cuda.empty_cache()
+        spmd = phase_spmd(card, root)
+        lap("spmd")
+        torch.cuda.empty_cache()
+        fabric = phase_fabric(card, root)
+        lap("fabric")
+        torch.cuda.empty_cache()
+        tools = phase_tools(card, root, train_step_ms=train["step_ms"])
+        lap("tools")
+        torch.cuda.empty_cache()
+        tune = phase_tune(card, root)
+        torch.cuda.empty_cache()
+        profile = phase_profile(card, root)
+        lap("tune and profile")
+        torch.cuda.empty_cache()
+        contracts = phase_contracts(card)
+        lap("contracts")
+        # the AlexNet train_val phases are done: their LMDBs and snapshots go
+        root_dir.cleanup()
+        root_dir = None
         torch.cuda.empty_cache()
         tp_wall = tune["wall_s"] + profile["wall_s"]
         print(f"[tune] and [profile] took {tp_wall:.1f} s (budget "
@@ -8992,6 +9326,9 @@ def main() -> int:
     except Exception:  # noqa: BLE001 — any failed phase fails the smoke
         traceback.print_exc()
         return 1
+    finally:
+        if root_dir is not None:
+            root_dir.cleanup()
 
     launches = train["launches"]
     bf16_launches = bf16["launches"]
@@ -9206,6 +9543,11 @@ def main() -> int:
         entry["launches_by_path"].update(
             tune=tune["launches"].get(name, 0),
             profile=profile["launches"].get(name, 0))
+        # [restart]'s two processes and [contracts]' censused step
+        entry["launches_by_path"].update(
+            restart_cold=restart["cold"]["launches"].get(name, 0),
+            restart_warm=restart["warm"]["launches"].get(name, 0),
+            contracts=contracts["launches"].get(name, 0))
         # [tools]' paths: Engine.train() at iter_size 2, and the `time`
         # and `extract_features` children
         entry["launches_by_path"].update(
@@ -9250,6 +9592,8 @@ def main() -> int:
                "dispatch": dispatch,
                "tune": tune,
                "profile": profile,
+               "restart": {k: v for k, v in restart.items()},
+               "contracts": contracts,
                "bf16_digits_final_accuracy": bf16_digits_acc,
                "wall_s": time.perf_counter() - t_start}
     print(f"[smoke] total wall {summary['wall_s']:.1f} s of the 1200 s "

@@ -141,12 +141,19 @@ def set_pipeline_config(**kwargs) -> None:
 
 @dataclass
 class CompileCacheConfig:
-    """Where the tuned store lives (``runtime/compile_cache.py``):
-    ``<cache_dir>/tuned/``. Empty means no store configured: the conv
-    tuner then persists nothing unless a loaded plan names its own store,
-    and plans use ``tuned_plan.store_dir``'s default."""
+    """Fast restart (``runtime/compile_cache.py``): the directory of the
+    kernel store (``<cache_dir>/kernels/``, set by
+    ``enable_compile_cache``) and of the tuned store
+    (``<cache_dir>/tuned/``). Empty means no store configured: kernels
+    build into the checkout's ``build/``, the conv tuner persists nothing
+    unless a loaded plan names its own store, and plans use
+    ``tuned_plan.store_dir``'s default."""
 
     cache_dir: str = ""
+    # key the train step and warm the kernel store before the first step
+    # (the JAX package's AOT step store; the port stores no step, see
+    # compile_cache.NO_STEP_EXECUTABLE)
+    aot_steps: bool = True
 
 
 _compile_cache = CompileCacheConfig(

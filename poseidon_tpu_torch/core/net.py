@@ -450,9 +450,12 @@ class Net(nn.Module):
         names = list(lparams)
 
         def body(*args):
-            return self._run_layer(
-                layer, dict(zip(names, args[:len(names)])),
-                list(args[len(names):]), train, comm)
+            # the layer's range inside the body too: the recomputation in
+            # backward runs only what is inside the checkpoint
+            with scope(layer.name):
+                return self._run_layer(
+                    layer, dict(zip(names, args[:len(names)])),
+                    list(args[len(names):]), train, comm)
 
         rng = (self.remat_rng if layer.TYPE == "DROPOUT" and train
                else None)

@@ -14,9 +14,12 @@ The library is built at first use from the unchanged source::
         -o build/poseidon_tpu_torch/libposeidon_dataplane-<hash>.so \\
         native/poseidon_dataplane.cc
 
-into the port's build directory, named by the source's content hash, and
-written to a temporary name first and renamed into place, so processes
-that build at once never load a half-written file. A failed build, or a
+into ``BUILD_DIR`` (the port's build directory, or the kernel store that
+``runtime/compile_cache.enable_compile_cache`` points it at), named by
+the hash of the source, of g++'s version and of the flags, and written to
+a temporary name first and renamed into place, so processes that build at
+once never load a half-written file. ``BUILT`` counts this process's
+builds. A failed build, or a
 database the library cannot open, raises with the compiler's output or
 the library's own message: nothing falls back to the Python path.
 """
@@ -28,6 +31,7 @@ import hashlib
 import os
 import subprocess
 import threading
+import time
 from pathlib import Path
 from typing import Optional, Tuple
 
@@ -35,12 +39,17 @@ import numpy as np
 
 REPO_ROOT = Path(__file__).resolve().parents[2]
 SOURCE = REPO_ROOT / "native" / "poseidon_dataplane.cc"
-BUILD_DIR = REPO_ROOT / "build" / "poseidon_tpu_torch"
+DEFAULT_BUILD_DIR = REPO_ROOT / "build" / "poseidon_tpu_torch"
+BUILD_DIR = DEFAULT_BUILD_DIR
 CXX_FLAGS = ["-O3", "-std=c++17", "-fPIC", "-pthread", "-shared"]
+# builds this process ran (0 or 1) and their wall seconds
+BUILT = 0
+BUILD_S = 0.0
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 _build_error: Optional[str] = None
+_toolchain: Optional[str] = None
 
 
 class _TransformSpec(ctypes.Structure):
@@ -54,18 +63,35 @@ class _TransformSpec(ctypes.Structure):
     ]
 
 
+def _compiler() -> str:
+    """g++'s version line and the flags: part of the library's key."""
+    global _toolchain
+    if _toolchain is None:
+        try:
+            out = subprocess.run(["g++", "--version"], capture_output=True,
+                                 text=True).stdout.splitlines()[:1]
+        except OSError:
+            out = ["g++: not found"]
+        _toolchain = " ".join(out + CXX_FLAGS)
+    return _toolchain
+
+
 def lib_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"libposeidon_dataplane-{digest}.so"
+    h = hashlib.sha256(SOURCE.read_bytes())
+    h.update(_compiler().encode())
+    return BUILD_DIR / f"libposeidon_dataplane-{h.hexdigest()[:16]}.so"
 
 
 def _build(out: Path) -> None:
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    global BUILT, BUILD_S
+    t0 = time.perf_counter()
+    out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.tmp.{os.getpid()}."
                         f"{threading.get_ident()}")
     cmd = ["g++", *CXX_FLAGS, "-o", str(tmp), str(SOURCE)]
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True)
+        BUILD_S += time.perf_counter() - t0
     except FileNotFoundError as e:
         raise RuntimeError(f"native data plane: g++ not found ({e}); the "
                            f"batcher builds {SOURCE} at first use") from e
@@ -74,10 +100,15 @@ def _build(out: Path) -> None:
         raise RuntimeError(f"native data plane: g++ failed (exit "
                            f"{proc.returncode}):\n{proc.stderr}")
     os.replace(tmp, out)
+    BUILT += 1
 
 
 def _bind(path: Path) -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(path))
+    try:
+        lib = ctypes.CDLL(str(path))
+    except OSError as e:
+        raise RuntimeError(f"native data plane: {path} does not load "
+                           f"({e}); delete it to rebuild") from e
     lib.pdp_open.restype = ctypes.c_void_p
     lib.pdp_open.argtypes = [ctypes.c_char_p]
     lib.pdp_error.restype = ctypes.c_char_p

@@ -7,12 +7,16 @@ build takes seconds):
     nvcc -gencode arch=compute_90a,code=sm_90a -O3 -std=c++17 -shared \\
          -Xcompiler -fPIC -o build/poseidon_tpu_torch/lib<name>-<hash>.so <name>.cu
 
-The output lands in ``build/poseidon_tpu_torch/`` at the root of the
-checkout, named by the content hash of the source and of the shared headers
-(``csrc/*.cuh``), so an edited source or header rebuilds and an unchanged
-one loads what is there. ``build_all`` starts one nvcc per
-source at once. A failed build raises with the compiler's output: nothing
-falls back to a plain version.
+The output lands in ``BUILD_DIR``: ``build/poseidon_tpu_torch/`` at the
+root of the checkout, or the kernel store ``<cache_dir>/kernels/`` that
+``runtime/compile_cache.enable_compile_cache`` points it at. A library is
+named by the hash of what changes its bytes: the source, the shared
+headers (``csrc/*.cuh``), nvcc's version and ``NVCC_FLAGS`` (the target
+arch among them), so an edited source, header or toolchain rebuilds and an
+unchanged one loads what is there. ``build_all`` starts one nvcc per
+source at once; ``BUILT`` lists the libraries this process built. A failed
+build, or a library that does not load, raises: nothing falls back to a
+plain version.
 """
 
 from __future__ import annotations
@@ -23,15 +27,23 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "poseidon_tpu_torch"
+DEFAULT_BUILD_DIR = (Path(__file__).resolve().parents[2] / "build"
+                     / "poseidon_tpu_torch")
+BUILD_DIR = DEFAULT_BUILD_DIR
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC"]
 
 _libs: Dict[str, ctypes.CDLL] = {}
+# the libraries this process built (names, in the order they landed) and
+# the wall seconds its builds took
+BUILT: List[str] = []
+BUILD_S = 0.0
+_toolchain: Optional[str] = None
 _lock = threading.Lock()
 _count_lock = threading.Lock()
 
@@ -71,12 +83,29 @@ def sources() -> List[str]:
     return sorted(p.stem for p in CSRC.glob("*.cu"))
 
 
+def toolchain() -> str:
+    """nvcc's version banner and the flags: part of every library's key.
+    Without nvcc (a CPU-only machine) the key says so; a build there
+    raises from ``nvcc_path``."""
+    global _toolchain
+    if _toolchain is None:
+        try:
+            out = subprocess.run([nvcc_path(), "--version"],
+                                 capture_output=True, text=True).stdout
+        except (OSError, RuntimeError):
+            out = "nvcc: not found"
+        _toolchain = out.strip() + "\n" + " ".join(NVCC_FLAGS)
+    return _toolchain
+
+
 def _lib_path(name: str) -> Path:
-    """The library's path, named by the content of its source and of every
-    header under ``csrc/`` (which a source may include)."""
+    """The library's path in ``BUILD_DIR``, named by the content of its
+    source, of every header under ``csrc/`` (which a source may include)
+    and by the toolchain."""
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.read_bytes())
+    h.update(toolchain().encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
@@ -84,7 +113,7 @@ def _start(name: str):
     """Start nvcc on ``csrc/<name>.cu`` into a temporary file; returns
     (process, tmp path, final path)."""
     out = _lib_path(name)
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.tmp.{os.getpid()}")
     cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
@@ -100,17 +129,25 @@ def _finish(name: str, proc, tmp: Path, out: Path) -> None:
         raise RuntimeError(f"nvcc failed for {name}.cu "
                            f"(exit {proc.returncode}):\n{log}")
     os.replace(tmp, out)
+    BUILT.append(name)
 
 
 def _build_one(name: str) -> None:
-    _finish(name, *_start(name))
+    global BUILD_S
+    t0 = time.perf_counter()
+    try:
+        _finish(name, *_start(name))
+    finally:
+        BUILD_S += time.perf_counter() - t0
 
 
 def build_all(names: List[str]) -> None:
     """Build every library of ``names`` that is not built yet, one nvcc per
     source, all started together; raises on the first failure after every
     compiler has exited."""
+    global BUILD_S
     with _lock:
+        t0 = time.perf_counter()
         started = [(n, *_start(n)) for n in names
                    if n not in _libs and not _lib_path(n).exists()]
         errors = []
@@ -119,6 +156,8 @@ def build_all(names: List[str]) -> None:
                 _finish(name, proc, tmp, out)
             except RuntimeError as e:
                 errors.append(str(e))
+        if started:
+            BUILD_S += time.perf_counter() - t0
         if errors:
             raise RuntimeError("\n".join(errors))
 
@@ -131,6 +170,17 @@ def load(name: str) -> ctypes.CDLL:
             path = _lib_path(name)
             if not path.exists():
                 _build_one(name)
-            lib = ctypes.CDLL(str(path))
+            try:
+                lib = ctypes.CDLL(str(path))
+            except OSError as e:
+                raise RuntimeError(f"kernel library {path} does not load "
+                                   f"({e}); delete it to rebuild") from e
             _libs[name] = lib
         return lib
+
+
+def load_all(names: List[str]) -> List[ctypes.CDLL]:
+    """Every library of ``names``: the missing ones built in parallel
+    (``build_all``), then each loaded."""
+    build_all(names)
+    return [load(name) for name in names]

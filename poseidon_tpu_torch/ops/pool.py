@@ -194,7 +194,11 @@ def pool_bwd_plain(x: torch.Tensor, g: torch.Tensor, kernel, stride, pad,
                 better = v > mx
                 mx = torch.where(better, v, mx)
                 arg = torch.where(better, flat(dh, dw), arg)
-    dxp = torch.zeros((n, c, ph, pw), dtype=cdt, device=x.device)
+    # the padded plane in the result's memory format, so the crop below
+    # converts nothing (the device kernels write that format too)
+    fmt = memory_format(x if method == "max" else g)
+    dxp = torch.empty((n, c, ph, pw), dtype=cdt, device=x.device,
+                      memory_format=fmt).zero_()
     for dh in range(kernel[0]):
         for dw in range(kernel[1]):
             contrib = gf if method == "ave" else torch.where(
@@ -203,7 +207,6 @@ def pool_bwd_plain(x: torch.Tensor, g: torch.Tensor, kernel, stride, pad,
     # un-pad: drop the pad rows/cols, zero-fill any input extent the
     # ceil-mode crop never consumed
     dxp = F.pad(dxp, (0, max(pad[1] + w - pw, 0), 0, max(pad[0] + h - ph, 0)))
-    fmt = memory_format(x if method == "max" else g)
     return dxp[:, :, pad[0]:pad[0] + h, pad[1]:pad[1] + w].to(x.dtype) \
         .contiguous(memory_format=fmt)
 
@@ -648,8 +651,8 @@ class Pool2d(torch.autograd.Function):
         else:
             x = ctx.like.expand(ctx.x_shape)
         if ctx.plain:
-            if method == "ave":
-                g = g.contiguous(memory_format=ctx.fmt)
+            # g in x's format, as the kernels' path brings it
+            g = g.contiguous(memory_format=ctx.fmt)
             dx = pool_bwd_plain(x, g, kernel, stride, pad, method)
         else:
             dx = pool_bwd_device(x, g, kernel, stride, pad, method, ctx.fmt)

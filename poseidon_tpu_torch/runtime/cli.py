@@ -20,6 +20,7 @@ cli.py``)::
         [--conv_strategy auto|direct|im2col|s2d] [--steps_per_dispatch K] \\
         [--remat auto|none|L1,L2 [--hbm_budget_gb G]] [--profile N] \\
         [--tuned_plan auto|off] [--compile_cache_dir D] \\
+        [--aot_steps true|false] [--census] \\
         [--metrics_port P] [--hostfile <file> --node_id N]
     python -m poseidon_tpu_torch tune [--model lenet|alexnet|googlenet] \\
         [--smoke] [--force] [--deploy <deploy.prototxt>] [--windows W] \\
@@ -83,6 +84,14 @@ unset flags (``--conv_layout``, ``--conv_strategy``, ``--arena_bucket_mb``,
 ``--mesh``, ``--device_prefetch``, ``--max_in_flight``,
 ``--steps_per_dispatch``, ``--wire_dtype``, ``--remat``,
 ``--hbm_budget_gb``) take the plan's values; ``off`` skips the store.
+``--compile_cache_dir D`` also makes ``D/kernels/`` the kernel store (the
+kernel libraries and the data plane build and load there), and with
+``--aot_steps true`` (the default) the engine keys its step and builds or
+loads every kernel library before the first step
+(``runtime/compile_cache.py``). ``--census`` records the first train
+step under the op census and writes ``<output_dir>/census.json``: the
+collectives it really sent, its layout conversions and dtypes
+(``runtime/hlo_comm.py``, ``runtime/hlo_layout.py``).
 ``--profile N`` traces N single steps from the third with
 ``torch.profiler`` into ``<output_dir>/profile/`` and prints the
 per-layer attribution table (``runtime/attribution.py``).
@@ -237,16 +246,28 @@ def _resolve_llm_knobs(args) -> dict:
 
 @contextmanager
 def _store_scope(args):
-    """``--compile_cache_dir``: where the tuned store lives
-    (``config.CompileCacheConfig``), for the command only."""
+    """``--compile_cache_dir`` (else ``POSEIDON_COMPILE_CACHE_DIR``): the
+    directory of the tuned store and of the kernel store
+    (``compile_cache.enable_compile_cache``), and ``--aot_steps``, for the
+    command only."""
     from .. import config
-    saved = config.compile_cache_config().cache_dir
-    if getattr(args, "compile_cache_dir", ""):
-        config.set_compile_cache_config(cache_dir=args.compile_cache_dir)
+    from .compile_cache import disable_compile_cache, enable_compile_cache
+    cc = config.compile_cache_config()
+    saved = (cc.cache_dir, cc.aot_steps)
+    cache_dir = getattr(args, "compile_cache_dir", "") or cc.cache_dir
+    aot = getattr(args, "aot_steps", "true") == "true"
+    if cache_dir:
+        cache_dir = enable_compile_cache(cache_dir)
+        log(f"compile cache: kernel store and tuned store at {cache_dir} "
+            f"(aot_steps={str(aot).lower()})")
+    config.set_compile_cache_config(cache_dir=cache_dir, aot_steps=aot)
     try:
         yield
     finally:
-        config.set_compile_cache_config(cache_dir=saved)
+        if cache_dir:
+            disable_compile_cache()
+        config.set_compile_cache_config(cache_dir=saved[0],
+                                        aot_steps=saved[1])
 
 
 def _build_serving_executor(model: str, weights: str, buckets: str,
@@ -898,7 +919,7 @@ def _train(args) -> int:
                  hostfile=args.hostfile or None, node_id=_node_id(args),
                  steps_per_dispatch=args.steps_per_dispatch or 1,
                  remat=args.remat or None, hbm_budget_gb=args.hbm_budget_gb,
-                 profile_steps=args.profile)
+                 profile_steps=args.profile, census=args.census)
     try:
         if args.snapshot == "auto":
             if eng.auto_resume() is None and args.weights:
@@ -1491,10 +1512,25 @@ def build_parser() -> argparse.ArgumentParser:
                         "flag set (provenance in stats.yaml); 'off' = "
                         "built-in defaults and flags only")
     t.add_argument("--compile_cache_dir", default="",
-                   help="the tuned store's directory (plans and conv "
-                        "winners under <dir>/tuned/); empty = "
-                        "POSEIDON_COMPILE_CACHE_DIR, else the default "
-                        "store")
+                   help="fast restart: the kernel store (the nvcc-built "
+                        "kernel libraries and the data plane under "
+                        "<dir>/kernels/, keyed by source, headers, "
+                        "compiler and flags) and the tuned store (plans "
+                        "and conv winners under <dir>/tuned/); empty = "
+                        "POSEIDON_COMPILE_CACHE_DIR, else kernels build "
+                        "into the checkout's build/ and plans use the "
+                        "default store")
+    t.add_argument("--census", action="store_true",
+                   help="record the first train step's ops (its "
+                        "collectives, layout conversions and dtypes) and "
+                        "write <output_dir>/census.json "
+                        "(runtime/op_census.py; needs --steps_per_dispatch "
+                        "1)")
+    t.add_argument("--aot_steps", default="true", choices=["true", "false"],
+                   help="with --compile_cache_dir: key the train step and "
+                        "build or load every kernel library before the "
+                        "first step (no step executable is stored: see "
+                        "runtime/compile_cache.py)")
     t.add_argument("--profile", type=int, default=0,
                    help="trace N single steps from the third with "
                         "torch.profiler into <output_dir>/profile/ and "
@@ -1579,9 +1615,10 @@ def build_parser() -> argparse.ArgumentParser:
                          "prompt buckets) through the persisted tuned "
                          "plan; 'off' = built-in defaults")
     sv.add_argument("--compile_cache_dir", default="",
-                    help="the tuned store's directory (empty = "
-                         "POSEIDON_COMPILE_CACHE_DIR, else the default "
-                         "store)")
+                    help="the kernel store's and the tuned store's "
+                         "directory (<dir>/kernels/, <dir>/tuned/; empty "
+                         "= POSEIDON_COMPILE_CACHE_DIR, else build/ and "
+                         "the default store)")
     sv.add_argument("--host", default="127.0.0.1",
                     help="bind address; the protocol is pickle-framed and "
                          "unauthenticated — loopback/trusted networks only")
@@ -1619,7 +1656,9 @@ def build_parser() -> argparse.ArgumentParser:
                     help="batch bucket ladder (unset: the tuned plan's "
                          "for --model, else 1,4,16,64)")
     bs.add_argument("--tuned_plan", default="auto", choices=["auto", "off"])
-    bs.add_argument("--compile_cache_dir", default="")
+    bs.add_argument("--compile_cache_dir", default="",
+                    help="the kernel store's and the tuned store's "
+                         "directory (as serve's)")
     bs.add_argument("--requests", type=int, default=200)
     bs.add_argument("--concurrency", type=int, default=4)
     bs.add_argument("--batch", type=int, default=8,
@@ -1664,9 +1703,12 @@ def build_parser() -> argparse.ArgumentParser:
     tu.add_argument("--out", default="",
                     help="also write the plan document here")
     tu.add_argument("--compile_cache_dir", default="",
-                    help="the tuned store's directory (empty = "
-                         "POSEIDON_COMPILE_CACHE_DIR, else the default "
-                         "store)")
+                    help="the kernel store's and the tuned store's "
+                         "directory (<dir>/kernels/, <dir>/tuned/; empty "
+                         "= POSEIDON_COMPILE_CACHE_DIR, else build/ and "
+                         "the default store)")
+    tu.add_argument("--aot_steps", default="true",
+                    choices=["true", "false"], help=argparse.SUPPRESS)
     tu.add_argument("--device", default="",
                     help="cuda (the default; refuses to run without a GPU) "
                          "or cpu")

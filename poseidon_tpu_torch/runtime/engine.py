@@ -26,6 +26,17 @@ Caffe's ``Solver::Solve``).
   1); in a TEST net written after each test pass with every batch's
   bottoms. ``h5py`` is imported only for a net that has the layer.
 
+With a compile-cache directory (``config.CompileCacheConfig``, ``train
+--compile_cache_dir``) and ``aot_steps``, under JAX's eligibility rule
+(staleness 0, no HDF5_OUTPUT in the TRAIN net, ``iter_size`` 1, no mesh
+plan), the engine keys its step as JAX's keys its AOT executable, builds
+or loads every kernel library into the kernel store before the first step
+and writes the restart's numbers to ``stats.yaml``'s ``restart`` section
+(``runtime/compile_cache.py``: no step executable is kept). ``census``
+(``train --census``) records the first train step under the op census and
+writes ``census.json`` (``runtime/op_census.py``); it refuses
+``steps_per_dispatch`` > 1.
+
 ``iter_size`` K > 1 (gradient accumulation): each step takes K
 consecutive batches of every train pipeline, the micro-batches, through
 the same ``DevicePrefetcher`` (which stages batches one at a time and so
@@ -131,6 +142,7 @@ unless the caller passes ``device="cpu"``.
 from __future__ import annotations
 
 import dataclasses
+import json
 import os
 import time
 from typing import Callable, Dict, List, Optional
@@ -258,8 +270,16 @@ class Engine:
                  node_id: Optional[int] = None,
                  steps_per_dispatch: int = 1, remat: Optional[str] = None,
                  hbm_budget_gb: Optional[float] = None,
-                 profile_steps: int = 0):
+                 profile_steps: int = 0, census: bool = False):
         self.sp = sp
+        # --census: the first train step runs under the op census
+        # (runtime/op_census.py) and census.json says what it really sent
+        # and converted
+        self._census_pending = bool(census)
+        # the restart's clock (compile_cache.py): from here to the first
+        # finished step
+        self._t_init = time.perf_counter()
+        self._restart: Optional[Dict] = None
         self.profile_steps = max(0, int(profile_steps))
         # the launch counters where the profile window's traced steps
         # began
@@ -597,6 +617,13 @@ class Engine:
             self._h5_train = []
         self.steps_per_dispatch = self._resolve_steps_per_dispatch(
             bool(dump))
+        if self._census_pending and self.steps_per_dispatch > 1:
+            raise ValueError(
+                f"--census records one eager step, and under "
+                f"--steps_per_dispatch {self.steps_per_dispatch} the steps "
+                f"run as one dispatch (on the card a CUDA graph, whose "
+                f"replay issues no op to record): run the census with "
+                f"--steps_per_dispatch 1")
         seed = sp.random_seed if sp.random_seed >= 0 else 1
         # tp replicas draw the same dropout masks (the batch-shard index;
         # a slice's, offset by its slice id)
@@ -670,9 +697,137 @@ class Engine:
                 rank=self.rank)
         self.params, self.state = step.load(params, self._fresh_state(
             params))
+        from ..config import compile_cache_config
+        cc = compile_cache_config()
+        # the JAX engine's eligibility rule for its AOT step store
+        if cc.cache_dir and cc.aot_steps and self.staleness == 0 \
+                and not self._h5_train and self.iter_size == 1 \
+                and self.plan is None:
+            self._resolve_aot_step(cc.cache_dir, train_shapes)
         self.metrics = MetricsTable("train")
         self.test_metrics = [MetricsTable(f"test_{i}")
                              for i in range(len(self.test_nets))]
+
+    def _resolve_aot_step(self, cache_dir: str, shapes) -> None:
+        """Key the train step as the JAX engine keys its AOT executable,
+        then build or load every kernel library into the kernel store
+        before the first step (on the card), and note the restart's
+        numbers in stats.yaml's ``restart`` section. The store keeps no
+        step (``compile_cache.NO_STEP_EXECUTABLE``)."""
+        from ..data import native
+        from .compile_cache import NO_STEP_EXECUTABLE, describe, step_key
+        cuda = self.device.type == "cuda"
+        key = step_key(
+            kind="train_step", framework="torch",
+            model=self.train_net.name or "net",
+            params={l: {p: (list(v.shape), str(v.dtype))
+                        for p, v in ps.items()}
+                    for l, ps in self.params.items()},
+            batch={k: list(v) for k, v in sorted(shapes.items())},
+            world=self.world, backend=self.device.type,
+            device_kind=(torch.cuda.get_device_name(self.device) if cuda
+                         else "cpu"),
+            torch_version=torch.__version__,
+            cuda_version=torch.version.cuda,
+            numeric_policy=str(policy()),
+            conv_layout=self.train_net.conv_layout,
+            solver={k: str(getattr(self.sp, k, None)) for k in (
+                "solver_type", "base_lr", "lr_policy", "gamma", "power",
+                "stepsize", "stepvalue", "momentum", "momentum2",
+                "weight_decay", "regularization_type", "delta",
+                "clip_gradients", "iter_size", "random_seed")},
+            comm=str(self.comm), steps_per_dispatch=self.steps_per_dispatch)
+        t0 = time.perf_counter()
+        names = _build.sources() if cuda else []
+        _build.load_all(names)
+        warm_s = time.perf_counter() - t0
+        built = len(_build.BUILT) + native.BUILT
+        self._restart = {
+            "key": key, "store": cache_dir, **describe(cache_dir),
+            "libraries_built": built, "libraries_loaded": len(names),
+            "builds_s": round(_build.BUILD_S + native.BUILD_S, 3),
+            "kernel_warm_s": round(warm_s, 3),
+            "graph": self.steps_per_dispatch > 1 and cuda}
+        log(f"aot warm start: train step key {key[:12]}; kernel store "
+            f"{'hit' if built == 0 else 'miss'}: {built} librar"
+            f"{'y' if built == 1 else 'ies'} built by this process "
+            f"({self._restart['builds_s']:.2f} s), {len(names)} kernel "
+            f"librar{'y' if len(names) == 1 else 'ies'} ready in "
+            f"{warm_s:.2f} s", rank=self.rank)
+        log(f"aot warm start: {NO_STEP_EXECUTABLE}", rank=self.rank)
+        self.stats.set_section("restart", self._restart)
+
+    def _note_first_step(self, chunk: int) -> None:  # static-ok: JIT102
+        """Once, after the first dispatch: wait for its device work and
+        note the seconds from the engine's start (its whole first
+        dispatch: under a CUDA graph the eager warm-up steps and the
+        capture)."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        r = self._restart
+        r["start_to_first_step_s"] = round(
+            time.perf_counter() - self._t_init, 3)
+        r["first_dispatch_s"] = round(time.perf_counter()
+                                      - self._t_first, 3)
+        r["first_dispatch_steps"] = chunk
+        # the wall clock at its end: a launcher that noted its own start
+        # reads the whole process's seconds to the first step off it
+        r["first_step_end_unix"] = time.time()
+        self.stats.set_section("restart", r)
+        log(f"aot warm start: first dispatch ({chunk} step(s)) "
+            f"{r['first_dispatch_s']:.3f} s, engine start to its end "
+            f"{r['start_to_first_step_s']:.3f} s", rank=self.rank)
+        self._restart = None
+
+    def _censused(self, run, it: int):
+        """``run`` wrapped to record its one call under the op census and
+        write ``<output_dir>/census.json``: the collectives (each bucket's
+        shape, async or not, the thread that issued it) against the DWBP
+        plan and the static comm table, the layout conversions, the f64
+        tensors."""
+        from .hlo_comm import (collectives, count_gradient_all_reduces,
+                               measured_comm_summary)
+        from .hlo_layout import layout_report
+        from .op_census import f64_tensors, record
+        self._census_pending = False
+
+        def censused(*args):
+            out, records = record(run, *args)
+            step = self.train_step
+            sync = getattr(step, "sync", None)
+            colls = collectives(records)
+            doc = {
+                "iteration": it,
+                "ops": len(records),
+                "gradient_all_reduces": count_gradient_all_reduces(colls),
+                "dwbp_buckets": [b.hi - b.lo for b in sync.hooked]
+                if sync is not None else [],
+                "collectives": [
+                    {"kind": c.kind, "shape": list(c.shape),
+                     "dtype": c.dtype, "group_size": c.group_size,
+                     "async": c.async_op, "thread": c.thread}
+                    for c in colls],
+                "measured": measured_comm_summary(colls),
+                "static": comm_summary(layer_comm_table(
+                    self.train_net, self.comm, self.group)),
+                **layout_report(records),
+                "f64_tensors": f64_tensors(records)}
+            os.makedirs(self.output_dir, exist_ok=True)
+            path = os.path.join(self.output_dir, "census.json")
+            with open(path, "w") as f:
+                json.dump(doc, f, indent=1)
+            log(f"census: iteration {it}: {len(records)} ops, "
+                f"{doc['gradient_all_reduces']} gradient all-reduce(s) "
+                f"(DWBP plan {len(doc['dwbp_buckets'])}), "
+                f"{doc['layout_transposes']} layout conversion(s), "
+                f"{doc['f64_tensors']} f64 tensor(s), "
+                f"{doc['measured']['measured_bytes_per_step']} bytes sent a "
+                f"device (static table "
+                f"{doc['static']['total_bytes_per_step']}) -> {path}",
+                rank=self.rank)
+            return out
+
+        return censused
 
     def _fresh_state(self, params):
         """The stacked start state of the step's mode."""
@@ -1021,12 +1176,16 @@ class Engine:
                                  chunk * self.iter_size,
                                  (chunk, self.iter_size)
                                  if self.iter_size > 1 else None))
-                t0 = time.perf_counter()
+                t0 = self._t_first = time.perf_counter()
                 with span_recorder.span("dispatch", "step", span):
                     run = (self.train_step.step if chunk == 1
                            else self.train_step.multi_step)
+                    if self._census_pending:
+                        run = self._censused(run, it)
                     self.params, self.state, m = run(self.params,
                                                      self.state, batch)
+                if self._restart is not None:
+                    self._note_first_step(chunk)
                 with span_recorder.span("dispatch_window", "step",
                                         {"iter": it}):
                     fetcher.put(it, m)

@@ -56,7 +56,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 import jax  # noqa: E402
 
-from poseidon_tpu.analysis import model_check as M  # noqa: E402
+from poseidon_tpu_torch.analysis import model_check as M  # noqa: E402
 from poseidon_tpu.config import MeshConfig as JaxMeshConfig  # noqa: E402
 from poseidon_tpu.core.net import Net as JaxNet  # noqa: E402
 from poseidon_tpu.parallel import CommConfig as JaxCommConfig  # noqa: E402

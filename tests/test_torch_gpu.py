@@ -1871,3 +1871,77 @@ def test_zoo_catalog_net_card_vs_cpu():
     for k in cpu:
         torch.testing.assert_close(card[k], cpu[k], rtol=1e-4, atol=1e-6,
                                    msg=k)
+
+
+_RESTART = r"""
+import sys
+from poseidon_tpu_torch.data import native
+from poseidon_tpu_torch.ops import _build
+from poseidon_tpu_torch.runtime import cli
+rc = cli.main(["train", "--solver", sys.argv[1], "--output_dir", sys.argv[2],
+               "--compile_cache_dir", sys.argv[3], "--aot_steps", "true"])
+print("BUILT", len(_build.BUILT) + native.BUILT)
+sys.exit(rc)
+"""
+
+
+@pytest.mark.gpu
+def test_kernel_store_restart_on_card(tmp_path):
+    """Two fresh ``train --compile_cache_dir D`` processes on one empty D:
+    the first builds every kernel library and the data plane into
+    D/kernels before its first step, the second builds nothing."""
+    _need_gpu()
+    import os
+    import subprocess
+    import sys
+    from poseidon_tpu_torch.ops import _build
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    solver = tmp_path / "solver.prototxt"
+    solver.write_text(
+        f'net: "{os.path.join(repo, "examples/digits/digits_train_test.prototxt")}"\n'
+        'base_lr: 0.01\nmomentum: 0.9\nlr_policy: "fixed"\ndisplay: 1\n'
+        'max_iter: 1\ntest_iter: 1\ntest_interval: 1\n'
+        'test_initialization: false\nsnapshot_prefix: "digits"\n')
+    built = []
+    for run in ("cold", "warm"):
+        out = subprocess.run(
+            [sys.executable, "-c", _RESTART, str(solver), str(tmp_path / run),
+             str(tmp_path / "D")], cwd=repo, capture_output=True, text=True,
+            timeout=600)
+        assert out.returncode == 0, out.stdout + out.stderr
+        assert "aot warm start: no step executable is stored" in out.stdout
+        built.append(int(out.stdout.split("BUILT ")[1].split()[0]))
+    assert built == [len(_build.sources()) + 1, 0]
+    assert len([n for n in os.listdir(tmp_path / "D" / "kernels")
+                if n.endswith(".so")]) == len(_build.sources()) + 1
+
+
+@pytest.mark.gpu
+def test_layout_census_on_card_equals_the_cpu_contract():
+    """One channels-last AlexNet step on the card under the op census: the
+    layout conversions of the CPU contract (the fc6 pair and the five
+    filter copies), op by op, with K4-NHWC, K5-NHWC, K6-NHWC and K7 on
+    the path."""
+    _need_gpu()
+    from poseidon_tpu_torch.analysis import contracts as C
+    from poseidon_tpu_torch.core.net import Net
+    from poseidon_tpu_torch.models import zoo
+    from poseidon_tpu_torch.ops import _build
+    from poseidon_tpu_torch.runtime import hlo_layout as HL
+    from poseidon_tpu_torch.runtime.op_census import record
+    golden = C.load_contract("alexnet")["nhwc"]
+    net = Net(zoo.alexnet(num_classes=10, with_accuracy=False), "TRAIN",
+              device="cuda", conv_layout="NHWC",
+              source_shapes={"data": (2, 3, 227, 227), "label": (2,)})
+    ts = HL.build_plain_step(net, None)
+    params, state, batch = HL.step_inputs(ts, net, 2, 227)
+    params, state, _ = ts.step(params, state, batch)
+    before = _build.launch_counts()
+    _, records = record(ts.step, params, state, batch)
+    torch.cuda.synchronize()
+    after = _build.launch_counts()
+    ran = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    assert ran == {"lrn_fwd_nhwc": 2, "lrn_bwd_nhwc": 2, "pool_bwd_nhwc": 3,
+                   "sgd_update": 1}, ran
+    rep = HL.layout_report(records)
+    assert rep["layout_transpose_shapes"] == golden["layout_transpose_shapes"]

@@ -345,6 +345,33 @@ def test_comm_modules_import_neither_jax_nor_poseidon_tpu():
         assert out.returncode == 0, mod + out.stdout + out.stderr
 
 
+def test_restart_census_and_analysis_modules_import_neither_jax_nor_poseidon_tpu():
+    """The fast-restart layer, the step census and the static guardrails,
+    imported together in a fresh process; the protocol extraction runs
+    there too (it imports nothing it reads)."""
+    mods = ["poseidon_tpu_torch.runtime.compile_cache",
+            "poseidon_tpu_torch.runtime.op_census",
+            "poseidon_tpu_torch.runtime.hlo_layout",
+            "poseidon_tpu_torch.runtime.hlo_comm",
+            "poseidon_tpu_torch.analysis",
+            "poseidon_tpu_torch.analysis.__main__",
+            "poseidon_tpu_torch.analysis.contracts",
+            "poseidon_tpu_torch.analysis.jit_hygiene",
+            "poseidon_tpu_torch.analysis.threads",
+            "poseidon_tpu_torch.analysis.protocol",
+            "poseidon_tpu_torch.analysis.model_check"]
+    code = ("import importlib, sys\n"
+            f"for m in {mods!r}: importlib.import_module(m)\n"
+            "from poseidon_tpu_torch.analysis import protocol\n"
+            "protocol.extract_schema()\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'poseidon_tpu')]\n"
+            "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
 def test_native_library_builds_from_the_checkout_alone():
     """The data plane's C++ source is in the checkout and builds into the
     port's build directory, not the JAX binding's ``native/build``."""
